@@ -1,0 +1,359 @@
+"""The in-process online inference server (``cgnn_tpu/serve/server.py``).
+
+``InferenceServer`` is socket-free: ``submit()`` -> future -> result,
+driven by one named worker thread::
+
+    submit(graph or Structure)
+      -> a wire Structure is featurized here, on the caller's thread
+      -> admission checks (malformed / oversize / queue-full / draining)
+      -> batcher.offer
+    worker "cgnn-torch-serve":
+      batcher.next_flush() -> expired requests fail with TIMEOUT
+        -> pack into the flush's rung on the host (ShapeSet.pack_full)
+        -> batch.to(device) -> predict_step -> host copy
+        -> resolve each future with its row
+
+``drain()`` is the stop path: it closes admission, lets the worker answer
+what was accepted, and joins it. ``counts["batches"]`` counts the flushes
+that ran, so a caller can tie kernel launches to flushes. Not ported yet:
+hot reload, the result cache, precision tiers, multi-device engines,
+compact staging, the raw wire and the observability plane.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+
+from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
+from cgnn_tpu_torch.convert import from_flax_variables, load_params
+from cgnn_tpu_torch.data.graph import CrystalGraph
+from cgnn_tpu_torch.data.structure import Structure
+from cgnn_tpu_torch.device import resolve_device
+from cgnn_tpu_torch.serve.batcher import (
+    MALFORMED,
+    TIMEOUT,
+    Flush,
+    MicroBatcher,
+    Request,
+    RequestFuture,
+    ServeRejection,
+)
+from cgnn_tpu_torch.serve.shapes import ShapeSet, plan_shape_set
+from cgnn_tpu_torch.train.normalizer import Normalizer
+from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """One answered request."""
+
+    prediction: np.ndarray  # [T] denormalized
+    param_version: str
+    latency_ms: float
+    batch_occupancy: float = 0.0  # real graphs / graph slots of its batch
+    flush_id: str = ""
+
+
+class InferenceServer:
+    """Micro-batching online inference over a shape ladder on one device.
+
+    ``state`` holds the eval model and normalizer; both move to
+    ``device`` (default CUDA, which raises when absent).
+    """
+
+    def __init__(
+        self,
+        state: InferenceState,
+        shape_set: ShapeSet,
+        *,
+        version: str = "init",
+        max_queue: int = 256,
+        max_wait_ms: float = 5.0,
+        default_timeout_ms: float | None = 1000.0,
+        featurizer: Callable[[Structure], CrystalGraph] | None = None,
+        device="cuda",
+        log_fn: Callable = print,
+    ):
+        self.device = resolve_device(device)
+        self.state = InferenceState(state.model.to(self.device).eval(),
+                                    state.normalizer.to(self.device))
+        self.shape_set = shape_set
+        self.version = version
+        self.predict_step = make_predict_step()
+        self.batcher = MicroBatcher(shape_set, max_queue=max_queue,
+                                    max_wait_ms=max_wait_ms)
+        self.default_timeout = (
+            None if default_timeout_ms is None else default_timeout_ms / 1000.0
+        )
+        self.featurizer = featurizer
+        self._log = log_fn
+        self._worker: threading.Thread | None = None
+        self._lock = threading.Lock()
+        self.counts: dict[str, int] = {
+            "requests": 0, "responses": 0, "batches": 0,
+            "batch_failures": 0, "reject_queue_full": 0,
+            "reject_oversize": 0, "reject_timeout": 0,
+            "reject_shutdown": 0, "reject_malformed": 0,
+        }
+        self._latencies: list[float] = []
+        # (atom feature width, edge feature width) learned at warm(): the
+        # admission gate that keeps a malformed request from failing a
+        # whole co-batched flush
+        self._feature_dims: tuple[int, int] | None = None
+
+    # ---- lifecycle ----
+
+    def warm(self, template: CrystalGraph) -> int:
+        """Run every rung once with one copy of ``template``: builds the
+        kernels and initializes the device libraries before traffic.
+        -> the number of rungs run."""
+        self._feature_dims = (template.atom_fea.shape[1],
+                              template.edge_fea.shape[1])
+        for shape in self.shape_set:
+            batch = self.shape_set.pack_full([template], shape=shape)
+            self.predict_step(self.state, batch.to(self.device)).cpu()
+        self._log(f"serve: warmed {len(self.shape_set)} shapes on "
+                  f"{self.device}")
+        return len(self.shape_set)
+
+    def start(self) -> "InferenceServer":
+        if self._worker is None or not self._worker.is_alive():
+            self._worker = threading.Thread(
+                target=self._serve_loop, daemon=True, name="cgnn-torch-serve")
+            self._worker.start()
+        return self
+
+    def begin_drain(self) -> None:
+        """Stop admitting; already-queued requests still get answers."""
+        self.batcher.close()
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """begin_drain + wait for the worker to answer the queue and exit.
+        True when it exited within the timeout."""
+        self.begin_drain()
+        if self._worker is None:
+            self._serve_loop()  # never started: answer accepted work here
+            return True
+        self._worker.join(timeout=timeout_s)
+        return not self._worker.is_alive()
+
+    # ---- request path ----
+
+    def _check_wellformed(self, graph: CrystalGraph) -> None:
+        """A malformed graph fails ALONE at admission (400): packed, it
+        would fail every innocent co-batched request."""
+        problems = []
+        if self._feature_dims is not None:
+            nd, ed = self._feature_dims
+            if np.ndim(graph.atom_fea) != 2 or graph.atom_fea.shape[1] != nd:
+                problems.append(f"atom_fea must be [N, {nd}], got "
+                                f"{np.shape(graph.atom_fea)}")
+            if np.ndim(graph.edge_fea) != 2 or graph.edge_fea.shape[1] != ed:
+                problems.append(f"edge_fea must be [E, {ed}], got "
+                                f"{np.shape(graph.edge_fea)}")
+        n, e = graph.num_nodes, graph.num_edges
+        if n < 1:
+            problems.append("structure has no atoms")
+        if len(graph.edge_fea) != e:
+            problems.append(
+                f"{e} edges but {len(graph.edge_fea)} edge feature rows")
+        for name in ("centers", "neighbors"):
+            idx = np.asarray(getattr(graph, name))
+            if len(idx) and (idx.min() < 0 or idx.max() >= n):
+                problems.append(
+                    f"{name} indices outside [0, {n}) "
+                    f"(min {idx.min()}, max {idx.max()})")
+        if problems:
+            raise ServeRejection(MALFORMED, "; ".join(problems))
+
+    def submit(self, graph: CrystalGraph | Structure,
+               timeout_ms: float | None = None) -> RequestFuture:
+        """Admit one structure; returns its future (raises ServeRejection
+        on malformed / oversize / queue-full / draining). A wire-form
+        ``Structure`` is featurized here with the server's featurizer."""
+        now = time.monotonic()
+        self._count("requests")
+        try:
+            if isinstance(graph, Structure):
+                if self.featurizer is None:
+                    raise ServeRejection(
+                        MALFORMED, "wire-form structure but no featurizer")
+                try:
+                    graph = self.featurizer(graph)
+                except ValueError as e:
+                    raise ServeRejection(
+                        MALFORMED, f"structure featurization failed: {e}"
+                    ) from None
+            self._check_wellformed(graph)
+            timeout = (timeout_ms / 1000.0 if timeout_ms is not None
+                       else self.default_timeout)
+            req = Request(graph=graph, enqueued=now,
+                          deadline=None if timeout is None else now + timeout)
+            self.batcher.offer(req)
+        except ServeRejection as e:
+            self._count(f"reject_{e.reason}")
+            raise
+        return req.future
+
+    def predict(self, graph: CrystalGraph | Structure,
+                timeout_ms: float | None = None) -> ServeResult:
+        """Blocking convenience: submit + wait."""
+        fut = self.submit(graph, timeout_ms=timeout_ms)
+        timeout = (timeout_ms / 1000.0 if timeout_ms is not None
+                   else self.default_timeout)
+        return fut.result(None if timeout is None else timeout + 30.0)
+
+    # ---- the worker ----
+
+    def _serve_loop(self) -> None:
+        while True:
+            flush = self.batcher.next_flush()
+            if flush is None:
+                return
+            self._process(flush)
+
+    def _process(self, flush: Flush) -> None:
+        for r in flush.expired:
+            self._count("reject_timeout")
+            r.future.set_error(ServeRejection(
+                TIMEOUT, f"deadline exceeded after "
+                f"{(time.monotonic() - r.enqueued) * 1e3:.1f} ms in queue"))
+        reqs = flush.requests
+        if not reqs:
+            return
+        try:
+            batch = self.shape_set.pack_full([r.graph for r in reqs],
+                                             shape=flush.shape)
+            out = self.predict_step(
+                self.state, batch.to(self.device)).cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — fail the flush, not the server
+            self._log(f"serve: batch {flush.flush_id} failed: {e!r}")
+            self._count("batch_failures")
+            for r in reqs:
+                r.future.set_error(e)
+            return
+        now = time.monotonic()
+        occupancy = len(reqs) / flush.shape.graph_cap
+        for i, r in enumerate(reqs):
+            latency_ms = (now - r.enqueued) * 1e3
+            r.future.set_result(ServeResult(
+                prediction=out[i].copy(), param_version=self.version,
+                latency_ms=latency_ms, batch_occupancy=occupancy,
+                flush_id=flush.flush_id))
+            self._record_latency(latency_ms)
+            self._count("responses")
+        self._count("batches")
+
+    # ---- bookkeeping ----
+
+    def _count(self, key: str) -> None:
+        with self._lock:
+            self.counts[key] = self.counts.get(key, 0) + 1
+
+    def _record_latency(self, latency_ms: float) -> None:
+        with self._lock:
+            self._latencies.append(latency_ms)
+            del self._latencies[:-8192]
+
+    def latency_quantiles(self) -> dict:
+        """{p50, p95, p99, mean, count} over recent responses (ms)."""
+        with self._lock:
+            vals = list(self._latencies)
+        if not vals:
+            return {}
+        arr = np.asarray(vals)
+        p50, p95, p99 = np.percentile(arr, [50, 95, 99])
+        return {"p50": float(p50), "p95": float(p95), "p99": float(p99),
+                "mean": float(arr.mean()), "count": len(vals)}
+
+    def stats(self) -> dict:
+        with self._lock:
+            counts = dict(self.counts)
+        return {
+            "counts": counts,
+            "queue_depth": self.batcher.depth,
+            "param_version": self.version,
+            "device": str(self.device),
+            "latency_ms": self.latency_quantiles(),
+            "shapes": [s.to_meta() for s in self.shape_set],
+        }
+
+
+def structure_featurizer(data_cfg: DataConfig) -> Callable:
+    """Structure -> CrystalGraph with the checkpoint's featurization
+    config, so online requests are featurized like the training data."""
+    from cgnn_tpu_torch.data.dataset import featurize_structure
+
+    cfg = data_cfg.featurize_config()
+    gdf = cfg.gdf()
+
+    def featurize(s: Structure) -> CrystalGraph:
+        return featurize_structure(s, np.zeros(1, np.float32), cfg, "", gdf)
+
+    return featurize
+
+
+def load_server(
+    params_npz: str,
+    meta_json: str,
+    *,
+    batch_size: int = 64,
+    rungs: int = 3,
+    calibration: Sequence[CrystalGraph] | None = None,
+    calibration_n: int = 256,
+    max_queue: int = 256,
+    max_wait_ms: float = 5.0,
+    default_timeout_ms: float | None = 1000.0,
+    device="cuda",
+    log_fn: Callable = print,
+):
+    """Boot an InferenceServer from a saved parameter file
+    (convert.save_params): rebuild the model from the meta's configs,
+    plan the shape ladder from ``calibration`` (default: synthetic
+    structures drawn with the checkpoint's own featurization config),
+    warm every rung, start the worker.
+
+    -> (server, dict of what callers reuse: meta, configs, template graph,
+    the calibration sample).
+    """
+    dev = resolve_device(device)
+    variables, meta = load_params(params_npz, meta_json)
+    # serving admits any structure that fits the ladder: widen
+    # training-set-derived bounds
+    model_cfg = ModelConfig.from_meta(meta["model"]).for_arbitrary_inputs()
+    data_cfg = DataConfig.from_meta(meta["data"])
+    model = build_model(model_cfg, data_cfg, device=dev)
+    model.load_state_dict(from_flax_variables(variables))
+    norm = meta.get("normalizer") or {}
+    normalizer = Normalizer.from_arrays(
+        norm.get("mean", [0.0] * model_cfg.num_targets),
+        norm.get("std", [1.0] * model_cfg.num_targets), device=dev)
+    if calibration is None:
+        from cgnn_tpu_torch.data.dataset import load_synthetic
+
+        calibration = load_synthetic(calibration_n,
+                                     data_cfg.featurize_config(), seed=0)
+    shape_set = plan_shape_set(
+        calibration, batch_size, rungs=rungs,
+        dense_m=model_cfg.dense_m or None,
+        num_targets=model_cfg.num_targets,
+    )
+    template = calibration[0]
+    server = InferenceServer(
+        InferenceState(model, normalizer), shape_set,
+        version=os.path.basename(params_npz), max_queue=max_queue,
+        max_wait_ms=max_wait_ms, default_timeout_ms=default_timeout_ms,
+        featurizer=structure_featurizer(data_cfg), device=dev,
+        log_fn=log_fn,
+    )
+    server.warm(template)
+    server.start()
+    return server, {"meta": meta, "model_cfg": model_cfg,
+                    "data_cfg": data_cfg, "template": template,
+                    "calibration": calibration}

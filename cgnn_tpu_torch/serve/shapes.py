@@ -1,0 +1,155 @@
+"""The serving shape ladder (``cgnn_tpu/serve/shapes.py``).
+
+A small fixed ladder of (graph_cap, node_cap, edge_cap) rungs is quantized
+once from a calibration sample; the micro-batcher packs every flush into
+the smallest rung that fits. PyTorch runs eagerly, so the ladder buys no
+compile cache here — it bounds the shapes the kernels see and keeps the
+rungs equal to the JAX package's for the same calibration sample.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+
+from cgnn_tpu_torch.data.graph import (
+    CrystalGraph,
+    GraphBatch,
+    _align8,
+    capacities_for,
+    graph_cap_for,
+    pack_graphs,
+)
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class BatchShape:
+    """One batch shape (capacities, not contents)."""
+
+    graph_cap: int
+    node_cap: int
+    edge_cap: int
+
+    def fits(self, n_graphs: int, n_nodes: int, n_edges: int) -> bool:
+        return (
+            n_graphs <= self.graph_cap
+            and n_nodes <= self.node_cap
+            and n_edges <= self.edge_cap
+        )
+
+    def to_meta(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+class ShapeSet:
+    """An ascending ladder of :class:`BatchShape` rungs plus the packing
+    parameters every rung shares (dense layout, target width)."""
+
+    def __init__(self, shapes: Sequence[BatchShape], *,
+                 dense_m: int | None = None, num_targets: int = 1):
+        if not shapes:
+            raise ValueError("a ShapeSet needs at least one shape")
+        if dense_m is None:
+            raise NotImplementedError(
+                "the flat COO layout is not ported yet; use dense_m")
+        self.shapes = tuple(sorted(set(shapes)))
+        self.dense_m = dense_m
+        self.num_targets = num_targets
+        for s in self.shapes:
+            if s.edge_cap != s.node_cap * dense_m:
+                raise ValueError(
+                    f"dense layout requires edge_cap == node_cap * dense_m "
+                    f"for every rung; {s} violates it (dense_m={dense_m})"
+                )
+
+    def __len__(self) -> int:
+        return len(self.shapes)
+
+    def __iter__(self):
+        return iter(self.shapes)
+
+    @property
+    def largest(self) -> BatchShape:
+        return self.shapes[-1]
+
+    def graph_counts(self, graph: CrystalGraph) -> tuple[int, int]:
+        """(nodes, edge slots) one graph consumes: the dense layout takes
+        ``nodes * dense_m`` edge slots whatever the true edge count."""
+        return graph.num_nodes, graph.num_nodes * self.dense_m
+
+    def oversize_detail(self, graph: CrystalGraph) -> str:
+        n, e = self.graph_counts(graph)
+        big = self.largest
+        return (
+            f"structure has {n} nodes / {e} edge slots; the largest "
+            f"shape holds {big.node_cap} nodes / {big.edge_cap} edge slots"
+        )
+
+    def shape_for(self, n_graphs: int, n_nodes: int,
+                  n_edges: int) -> BatchShape | None:
+        """Smallest rung fitting the given totals (None = nothing fits)."""
+        for s in self.shapes:
+            if s.fits(n_graphs, n_nodes, n_edges):
+                return s
+        return None
+
+    def pack_full(self, graphs: Sequence[CrystalGraph],
+                  shape: BatchShape | None = None) -> GraphBatch:
+        """Full-fidelity pack into ``shape`` (default: the smallest rung
+        that fits), without transpose slots."""
+        if shape is None:
+            n = sum(g.num_nodes for g in graphs)
+            shape = self.shape_for(len(graphs), n, n * self.dense_m)
+            if shape is None:
+                raise ValueError(
+                    f"{len(graphs)} graphs ({n} nodes) fit no shape in "
+                    f"{self.shapes}")
+        return pack_graphs(
+            list(graphs), shape.node_cap, shape.edge_cap, shape.graph_cap,
+            num_targets=self.num_targets, dense_m=self.dense_m,
+        )
+
+    def to_meta(self) -> dict:
+        return {"shapes": [s.to_meta() for s in self.shapes],
+                "dense_m": self.dense_m, "num_targets": self.num_targets}
+
+
+def plan_shape_set(
+    calibration: Sequence[CrystalGraph],
+    batch_size: int,
+    *,
+    rungs: int = 3,
+    dense_m: int | None = None,
+    num_targets: int | None = None,
+) -> ShapeSet:
+    """Quantize a serving ladder from a calibration sample.
+
+    The top rung is the snug full-batch shape (``capacities_for``
+    at ``batch_size`` with ``graph_cap_for`` slack); each lower rung halves
+    the graph budget and scales node capacity proportionally (8-aligned),
+    floored so that ANY calibration-sized structure fits EVERY rung.
+    """
+    if not len(calibration):
+        raise ValueError("shape planning needs a calibration sample")
+    if rungs < 1:
+        raise ValueError(f"rungs must be >= 1, got {rungs}")
+    node_cap, edge_cap = capacities_for(calibration, batch_size,
+                                        dense_m=dense_m)
+    max_nodes = max(g.num_nodes for g in calibration)
+    max_edges = max(g.num_edges for g in calibration)
+    if num_targets is None:
+        num_targets = int(np.atleast_1d(calibration[0].target).shape[0])
+    shapes = []
+    for r in range(rungs):
+        scale = 2**r
+        b = max(1, math.ceil(batch_size / scale))
+        nc = _align8(max(math.ceil(node_cap / scale), max_nodes))
+        if dense_m is not None:
+            ec = nc * dense_m
+        else:
+            ec = _align8(max(math.ceil(edge_cap / scale), max_edges))
+        shapes.append(BatchShape(graph_cap_for(b), nc, ec))
+    return ShapeSet(shapes, dense_m=dense_m, num_targets=num_targets)

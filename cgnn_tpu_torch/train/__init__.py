@@ -1,0 +1,1 @@
+"""train: see the package docstring of cgnn_tpu_torch."""
