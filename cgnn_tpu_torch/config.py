@@ -12,6 +12,11 @@ written by either side rebuilds the same model on the other.
 - ``'xla'``: the plain structured twin, on any device;
 - ``''``: the unfused plain path (models/cgcnn.py).
 
+``fused_epilogue`` (``'pallas'``/``'xla'``, exclusive with ``cgconv_impl``)
+runs the unfused path's BN1 -> gate -> sum chain as one op
+(ops/fused_epilogue.py): its kernels on CUDA tensors under ``'pallas'``,
+their plain versions otherwise.
+
 Unlike the JAX package, no setting quietly becomes another one on some
 device: a CUDA tensor under ``'pallas'`` launches the kernel or raises.
 ``cgconv_window`` is kept for the meta round trip and ignored — the GPU
@@ -71,8 +76,9 @@ class ModelConfig:
         return dataclasses.replace(self, cgconv_window=0)
 
     def build(self, nbr_fea_len: int, device="cuda"):
-        """The eval model on ``device`` (raises when CUDA is asked for and
-        absent). ``nbr_fea_len`` is the Gaussian edge width G
+        """The model on ``device`` in eval mode (the caller puts it in
+        ``.train()`` to train; raises when CUDA is asked for and absent).
+        ``nbr_fea_len`` is the Gaussian edge width G
         (``DataConfig.nbr_fea_len``)."""
         from cgnn_tpu_torch.data.elements import ATOM_FEA_DIM
         from cgnn_tpu_torch.models.cgcnn import CrystalGraphConvNet
@@ -82,7 +88,6 @@ class ModelConfig:
             "classification": self.classification,
             "multi_task_head": self.multi_task_head,
             "dtype='bfloat16'": self.dtype != "float32",
-            "fused_epilogue": bool(self.fused_epilogue),
         }
         bad = [k for k, on in unported.items() if on]
         if bad:
@@ -98,6 +103,7 @@ class ModelConfig:
             num_targets=self.num_targets,
             dense_m=self.dense_m or None,
             cgconv_impl=self.cgconv_impl,
+            fused_epilogue=self.fused_epilogue,
         ).to(dev).eval()
 
 

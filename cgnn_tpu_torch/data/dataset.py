@@ -1,9 +1,11 @@
-"""Dataset assembly: structures -> featurized CrystalGraphs
-(the synthetic-data part of ``cgnn_tpu/data/dataset.py``)."""
+"""Dataset assembly: structures -> featurized CrystalGraphs, and the
+train/val/test split (the synthetic-data part of
+``cgnn_tpu/data/dataset.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -86,3 +88,24 @@ def load_synthetic_mp(
         featurize_structure(s, t, cfg, sid, gdf)
         for sid, s, t in synthetic_mp_dataset(num_structures, seed)
     ]
+
+
+def train_val_test_split(
+    graphs: Sequence[CrystalGraph],
+    train_ratio: float = 0.8,
+    val_ratio: float = 0.1,
+    seed: int = 0,
+) -> tuple[list[CrystalGraph], list[CrystalGraph], list[CrystalGraph]]:
+    """Deterministic shuffled split: one ``default_rng(seed)``
+    permutation, cut at int(n * train_ratio) and int(n * val_ratio)."""
+    if train_ratio + val_ratio >= 1.0 + 1e-9:
+        raise ValueError("train_ratio + val_ratio must leave room for test")
+    idx = np.random.default_rng(seed).permutation(len(graphs))
+    n_train = int(len(graphs) * train_ratio)
+    n_val = int(len(graphs) * val_ratio)
+
+    def pick(ids):
+        return [graphs[int(i)] for i in ids]
+
+    return (pick(idx[:n_train]), pick(idx[n_train:n_train + n_val]),
+            pick(idx[n_train + n_val:]))

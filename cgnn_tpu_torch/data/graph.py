@@ -8,19 +8,30 @@
 Packing is numpy on the host and produces arrays bit-equal to the JAX
 package's ``pack_graphs`` for the same graphs and capacities; the batch
 then wraps them as CPU tensors without a copy and ``.to(device)`` moves it.
-This slice packs the DENSE slot layout only (node slot ``n`` owns edge
-slots ``[n*M, (n+1)*M)``), without the transpose slots that only a
-backward pass reads.
+Only the DENSE slot layout is ported (node slot ``n`` owns edge slots
+``[n*M, (n+1)*M)``), with the transpose slots that make the neighbor
+gather's backward scatter-free (``transpose_slots``), and the training
+batch iterator (``batch_iterator``, ``count_batches``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Sequence
 
 import numpy as np
 import torch
+
+
+class TransposeOverflowError(ValueError):
+    """A batch's two-tier transpose overflow exceeded ``over_cap``.
+
+    ``over_cap`` is sized statistically (``overflow_cap``), so a shuffled
+    tail batch can exceed it; ``batch_iterator`` catches this type and
+    splits the batch, direct ``pack_graphs`` callers see the raise.
+    """
 
 
 @dataclasses.dataclass
@@ -65,13 +76,13 @@ class GraphBatch:
     lattices: torch.Tensor  # [Gcap, 3, 3] f32
     edge_offsets: torch.Tensor  # [Ecap, 3] f32
     node_targets: torch.Tensor  # [Ncap, 3] f32
-    # transpose of the neighbor gather: read only by a backward pass, so
-    # a forward-only batch leaves them None
-    in_slots: torch.Tensor | None = None
-    in_mask: torch.Tensor | None = None
-    over_slots: torch.Tensor | None = None
-    over_nodes: torch.Tensor | None = None
-    over_mask: torch.Tensor | None = None
+    # transpose of the neighbor gather (``transpose_slots``): read only by
+    # a backward pass, so a forward-only batch leaves them None
+    in_slots: torch.Tensor | None = None  # [Ncap * In] i32, flat
+    in_mask: torch.Tensor | None = None  # [Ncap, In] u8
+    over_slots: torch.Tensor | None = None  # [O] i32 overflow edge slots
+    over_nodes: torch.Tensor | None = None  # [O] i32, non-decreasing
+    over_mask: torch.Tensor | None = None  # [O] u8
 
     @property
     def graph_capacity(self) -> int:
@@ -109,16 +120,20 @@ def pack_graphs(
     ``dense_m=M`` is required: node slot ``n`` owns edge slots
     ``[n*M, (n+1)*M)`` (its real edges first, masked self-loop padding
     after), so ``edge_cap == node_cap * M``. Padding nodes belong to graph
-    slot 0 and are masked. The transpose slots (``in_cap``/``over_cap``)
-    feed only a backward pass and are not ported yet.
+    slot 0 and are masked.
+
+    ``in_cap`` additionally fills the single-tier transpose of the
+    neighbor gather (``in_slots``/``in_mask`` at width ``in_cap``);
+    ``over_cap`` selects the two-tier transpose instead: tier 1 at width
+    ``dense_m`` plus a node-sorted overflow list of capacity ``over_cap``,
+    whose overrun raises ``TransposeOverflowError`` and never truncates.
     """
     if dense_m is None:
         raise NotImplementedError(
             "the flat COO layout is not ported yet; pack with dense_m")
-    if in_cap is not None or over_cap is not None:
-        raise NotImplementedError(
-            "transpose slots (in_cap/over_cap) feed only the backward pass, "
-            "which is not ported yet")
+    if in_cap is not None and over_cap is not None:
+        raise ValueError("in_cap (single-tier) and over_cap (two-tier) are "
+                         "mutually exclusive")
     if not graphs:
         raise ValueError("cannot pack an empty graph list")
     if edge_cap != node_cap * dense_m:
@@ -217,7 +232,15 @@ def pack_graphs(
             1.0 if g.target_mask is None
             else np.broadcast_to(np.atleast_1d(g.target_mask), (len(t),)))
 
-    as_t = torch.from_numpy
+    in_slots = in_mask = over_slots = over_nodes = over_mask = None
+    if in_cap is not None or over_cap is not None:
+        in_slots, in_mask, over_slots, over_nodes, over_mask = (
+            transpose_slots(neighbors, edge_mask > 0, node_cap, dense_m,
+                            in_cap, over_cap))
+
+    def as_t(a):
+        return None if a is None else torch.from_numpy(a)
+
     return GraphBatch(
         nodes=as_t(nodes),
         edges=as_t(edges.reshape(node_cap, dense_m, edge_dim)),
@@ -233,7 +256,101 @@ def pack_graphs(
         lattices=as_t(lattices),
         edge_offsets=as_t(edge_offsets),
         node_targets=as_t(node_targets),
+        in_slots=as_t(in_slots),
+        in_mask=as_t(in_mask),
+        over_slots=as_t(over_slots),
+        over_nodes=as_t(over_nodes),
+        over_mask=as_t(over_mask),
     )
+
+
+def transpose_slots(
+    neighbors: np.ndarray,
+    edge_real: np.ndarray,
+    node_cap: int,
+    dense_m: int,
+    in_cap: int | None,
+    over_cap: int | None,
+) -> tuple:
+    """Transpose of the neighbor gather: the real edge slots grouped by
+    their neighbor node, for a scatter-free backward
+    (ops/segment.py ``gather_transpose``).
+
+    ``neighbors`` [Ecap] i32, ``edge_real`` [Ecap] bool. Returns
+    ``(in_slots, in_mask, over_slots, over_nodes, over_mask)``, the last
+    three ``None`` unless ``over_cap`` selects the two-tier layout. Node
+    j's k-th incoming edge (in slot order) sits at ``in_slots[j*In + k]``
+    for k below the tier width; padding entries point at slot 0, masked.
+    Two-tier: the edges of rank >= ``dense_m`` go to the overflow list in
+    neighbor order, padded with masked entries on the last node slot so
+    ``over_nodes`` stays non-decreasing.
+    """
+    real = np.nonzero(edge_real)[0]
+    nb = neighbors[real]
+    counts = np.bincount(nb, minlength=node_cap)
+    order = np.argsort(nb, kind="stable")
+    tier = dense_m if over_cap is not None else in_cap
+    if over_cap is None and len(real) and counts.max() > tier:
+        raise ValueError(
+            f"a node has in-degree {counts.max()} > in_cap={in_cap}; "
+            f"size in_cap with in_degree_cap(graphs)")
+    real_sorted = real[order].astype(np.int32)
+    starts = np.cumsum(counts) - counts
+    src = starts[:, None] + np.arange(tier)
+    tier_valid = np.arange(tier) < counts[:, None]
+    np.copyto(src, len(real), where=~tier_valid)
+    pad = np.concatenate([real_sorted, np.zeros(1, np.int32)])
+    in_slots = np.take(pad, src.ravel(), mode="clip")
+    in_mask = tier_valid.astype(np.uint8)
+    over_slots = over_nodes = over_mask = None
+    if over_cap is not None:
+        rank = np.arange(len(real)) - starts.repeat(counts)
+        sel = rank >= tier
+        k = int(sel.sum())
+        if k > over_cap:
+            raise TransposeOverflowError(
+                f"batch has {k} transpose-overflow edges > over_cap="
+                f"{over_cap}; size over_cap with overflow_cap(graphs)")
+        over_slots = np.zeros(over_cap, np.int32)
+        over_nodes = np.full(over_cap, node_cap - 1, np.int32)
+        over_mask = np.zeros(over_cap, np.uint8)
+        over_slots[:k] = real_sorted[sel]
+        over_nodes[:k] = nb[order][sel]
+        over_mask[:k] = 1
+    return in_slots, in_mask, over_slots, over_nodes, over_mask
+
+
+def _in_degrees(g: CrystalGraph) -> np.ndarray:
+    return np.bincount(g.neighbors, minlength=g.num_nodes)
+
+
+def max_in_degree(graphs: Sequence[CrystalGraph]) -> int:
+    """Largest per-node incoming-edge count over ``graphs``. In-degree is
+    not bounded by ``max_num_nbr``: one atom can be among the nearest of
+    many."""
+    return max((int(_in_degrees(g).max()) if g.num_edges else 0
+                for g in graphs), default=0)
+
+
+def in_degree_cap(graphs: Sequence[CrystalGraph]) -> int:
+    """Single-tier transpose-slot capacity: max in-degree, 8-aligned."""
+    return max(8, -(-max_in_degree(graphs) // 8) * 8)
+
+
+def overflow_cap(graphs: Sequence[CrystalGraph], graph_cap: int,
+                 dense_m: int) -> int:
+    """Capacity of the two-tier overflow list for batches of up to
+    ``graph_cap`` of these graphs: graph_cap x the mean per-graph overflow
+    (sum over nodes of max(in-degree - M, 0)) + 3 sigma x sqrt(graph_cap),
+    at least the largest single graph's, 8-aligned."""
+    per_graph = np.asarray([
+        int(np.maximum(_in_degrees(g) - dense_m, 0).sum())
+        if g.num_edges else 0
+        for g in graphs
+    ], np.float64)
+    need = (graph_cap * per_graph.mean()
+            + 3.0 * per_graph.std() * np.sqrt(graph_cap))
+    return _align8(int(max(need, per_graph.max(), 8)))
 
 
 def capacities_for(
@@ -270,3 +387,112 @@ def graph_cap_for(batch_size: int) -> int:
     plus ~12% slack (8-aligned) so node capacity — not the graph count —
     is what closes a typical batch."""
     return batch_size + _align8(max(8, batch_size // 8))
+
+
+def count_batches(
+    graphs: Sequence[CrystalGraph],
+    batch_size: int,
+    node_cap: int,
+    edge_cap: int,
+    snug: bool = False,
+) -> int:
+    """The number of batches ``batch_iterator`` yields, without packing
+    (its close condition, mirrored exactly)."""
+    graph_cap = graph_cap_for(batch_size) if snug else batch_size
+    count, in_bucket, nn, ne = 0, 0, 0, 0
+    for g in graphs:
+        if in_bucket and (
+            in_bucket == graph_cap
+            or nn + g.num_nodes > node_cap
+            or ne + g.num_edges > edge_cap
+        ):
+            count += 1
+            in_bucket, nn, ne = 0, 0, 0
+        in_bucket += 1
+        nn += g.num_nodes
+        ne += g.num_edges
+    return count + (1 if in_bucket else 0)
+
+
+def _pack_overflow_safe(bucket, node_cap, edge_cap, graph_cap, dense_m,
+                        in_cap, over_cap):
+    """pack_graphs, splitting the batch in half (same capacities, so the
+    same shapes) when it overruns the two-tier ``over_cap``. A single
+    graph that overruns it re-raises."""
+    try:
+        yield pack_graphs(bucket, node_cap, edge_cap, graph_cap,
+                          dense_m=dense_m, in_cap=in_cap, over_cap=over_cap)
+    except TransposeOverflowError:
+        if len(bucket) < 2:
+            raise
+        warnings.warn(
+            f"batch of {len(bucket)} graphs exceeded over_cap={over_cap}; "
+            f"splitting it in half", stacklevel=2)
+        mid = len(bucket) // 2
+        for half in (bucket[:mid], bucket[mid:]):
+            yield from _pack_overflow_safe(half, node_cap, edge_cap,
+                                           graph_cap, dense_m, in_cap,
+                                           over_cap)
+
+
+def batch_iterator(
+    graphs: Sequence[CrystalGraph],
+    batch_size: int,
+    node_cap: int,
+    edge_cap: int,
+    shuffle: bool = False,
+    rng: np.random.Generator | None = None,
+    drop_last: bool = False,
+    dense_m: int | None = None,
+    in_cap: int | None = None,
+    snug: bool = False,
+    over_cap: int | None = None,
+):
+    """Yield GraphBatches of one shape (node_cap, edge_cap, graph_cap),
+    packed on the host.
+
+    A batch closes when it holds ``graph_cap`` graphs or the next graph
+    would overflow a capacity. ``snug=True`` is fill-to-capacity packing:
+    ``graph_cap = graph_cap_for(batch_size)``, so capacity, not the graph
+    count, closes a batch. ``shuffle`` permutes the graph order with
+    ``rng``. ``drop_last`` drops a tail of fewer than ``batch_size``
+    graphs.
+
+    Transpose slots: ``in_cap=None`` (default) packs the two-tier
+    transpose with ``overflow_cap`` (unless ``over_cap`` is given),
+    ``in_cap > 0`` the single-tier one, ``in_cap=0`` none (eval batches,
+    which run no backward).
+    """
+    graph_cap = graph_cap_for(batch_size) if snug else batch_size
+    if dense_m is not None and in_cap is None and over_cap is None:
+        over_cap = overflow_cap(graphs, graph_cap, dense_m)
+    if in_cap is not None:
+        over_cap = None
+    in_cap = in_cap or None
+    order = np.arange(len(graphs))
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(order)
+    bucket: list[CrystalGraph] = []
+    nn = ne = 0
+    for idx in order:
+        g = graphs[int(idx)]
+        if g.num_nodes > node_cap or g.num_edges > edge_cap:
+            raise ValueError(
+                f"graph {g.cif_id!r} ({g.num_nodes} nodes, {g.num_edges} "
+                f"edges) exceeds batch capacity ({node_cap}, {edge_cap}); "
+                f"increase caps or filter the dataset")
+        if bucket and (
+            len(bucket) == graph_cap
+            or nn + g.num_nodes > node_cap
+            or ne + g.num_edges > edge_cap
+        ):
+            yield from _pack_overflow_safe(bucket, node_cap, edge_cap,
+                                           graph_cap, dense_m, in_cap,
+                                           over_cap)
+            bucket, nn, ne = [], 0, 0
+        bucket.append(g)
+        nn += g.num_nodes
+        ne += g.num_edges
+    if bucket and (not drop_last or len(bucket) >= batch_size):
+        yield from _pack_overflow_safe(bucket, node_cap, edge_cap, graph_cap,
+                                       dense_m, in_cap, over_cap)

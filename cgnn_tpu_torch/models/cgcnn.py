@@ -1,23 +1,28 @@
-"""CGCNN in PyTorch, eval mode, dense slot layout (``cgnn_tpu/models/cgcnn.py``).
+"""CGCNN in PyTorch, dense slot layout (``cgnn_tpu/models/cgcnn.py``).
 
 Per conv layer, over the dense [N, M] edge slots (node n owns slots
 [n*M, (n+1)*M) of the packed batch):
 
     z      = fc_full(v_i, v_j, e_ij)       # 2F+G -> 2F, no concat
-    z      = BN1(z)                        # running stats
+    z      = BN1(z)                        # masked batch stats in train
     msg    = sigmoid(z[:F]) * softplus(z[F:]), padding slots dropped
     agg_i  = sum over the M slots
     v_i'   = softplus(v_i + BN2(agg_i))
 
 and the full model: Linear(92->F) embedding, n_conv such layers, masked
 per-crystal mean pooling, softplus MLP head. ``cgconv_impl`` picks how a
-conv runs (config.py): ``'pallas'``/``'xla'`` the fused op of
-ops/fused_cgconv.py, ``''`` the unfused plain path written out below.
+conv runs (config.py): ``'pallas'``/``'xla'`` the whole-conv fused op of
+ops/fused_cgconv.py, ``''`` the unfused path written out below, whose
+BN1 -> gate -> sum chain ``fused_epilogue`` (``'pallas'``/``'xla'``) can
+replace with ops/fused_epilogue.py's op. Train and eval mode follow
+``nn.Module.train()``/``.eval()``; in train mode the batch statistics
+update the running ones inside the forward, and the v_j gather takes the
+batch's transpose mapping for its backward when the batch carries one.
 
 Module and parameter names follow the JAX parameter tree (``conv_0``,
 ``fc_full.kernel``, ``bn1``, ``conv_to_fc``, ``fc_out``) so convert.py maps
-one onto the other by name. Not ported yet: the flat COO branch, train
-mode, ``MultiTaskHead`` and classification.
+one onto the other by name. Not ported yet: the flat COO branch,
+``MultiTaskHead`` and classification.
 """
 
 from __future__ import annotations
@@ -28,59 +33,82 @@ from torch import nn
 from cgnn_tpu_torch.data.graph import GraphBatch
 from cgnn_tpu_torch.ops.fused_cgconv import (
     FcFullParams,
+    fused_cgconv,
     fused_cgconv_eval,
     softplus,
 )
-from cgnn_tpu_torch.ops.norm import MaskedBatchNorm
-from cgnn_tpu_torch.ops.segment import gather, segment_mean
+from cgnn_tpu_torch.ops.fused_epilogue import FusedBN1GateSum
+from cgnn_tpu_torch.ops.norm import MaskedBatchNorm, update_running_stats
+from cgnn_tpu_torch.ops.segment import gather_transpose, segment_mean
 
 
 class CGConv(nn.Module):
     """One edge-gated crystal-graph convolution, dense branch."""
 
     def __init__(self, features: int, nbr_fea_len: int, dense_m: int,
-                 cgconv_impl: str = ""):
+                 cgconv_impl: str = "", fused_epilogue: str = ""):
         super().__init__()
-        if cgconv_impl not in ("", "xla", "pallas"):
-            raise ValueError(
-                f"cgconv_impl must be '', 'xla' or 'pallas', got "
-                f"{cgconv_impl!r}")
+        for name, v in (("cgconv_impl", cgconv_impl),
+                        ("fused_epilogue", fused_epilogue)):
+            if v not in ("", "xla", "pallas"):
+                raise ValueError(
+                    f"{name} must be '', 'xla' or 'pallas', got {v!r}")
+        if cgconv_impl and fused_epilogue:
+            raise ValueError("cgconv_impl subsumes fused_epilogue (the whole "
+                             "conv is one op); pick one")
         self.features = features
         self.dense_m = dense_m
         self.cgconv_impl = cgconv_impl
         self.fc_full = FcFullParams(2 * features + nbr_fea_len, 2 * features)
-        self.bn1 = MaskedBatchNorm(2 * features)
+        self.bn1 = (FusedBN1GateSum(2 * features, impl=fused_epilogue)
+                    if fused_epilogue else MaskedBatchNorm(2 * features))
         self.bn2 = MaskedBatchNorm(features)
 
-    def forward(self, nodes, edges, neighbors, edge_mask, node_mask):
-        if self.training:
-            raise NotImplementedError(
-                "CGConv train mode comes with the training slice")
+    def forward(self, nodes, edges, neighbors, edge_mask, node_mask,
+                transpose=None):
+        """``transpose``: the batch's ``(in_slots, in_mask, over_slots,
+        over_nodes, over_mask)`` or None."""
         f, m = self.features, self.dense_m
         n = nodes.shape[0]
         e = edges if edges.dim() == 3 else edges.reshape(n, m, -1)
+        emask = edge_mask.reshape(n, m)
+        bn1 = self.bn1
         if self.cgconv_impl:
-            agg = fused_cgconv_eval(
-                nodes, e, self.fc_full.kernel, self.fc_full.bias,
-                self.bn1.weight, self.bn1.bias, neighbors,
-                edge_mask.reshape(n, m), self.bn1.running_mean,
-                self.bn1.running_var, eps=self.bn1.eps,
-                impl=self.cgconv_impl,
-            ).to(nodes.dtype)
+            conv = (nodes, e, self.fc_full.kernel, self.fc_full.bias,
+                    bn1.weight, bn1.bias, neighbors, emask)
+            if self.training:
+                agg, mean, var, n_real = fused_cgconv(
+                    *conv, transpose, eps=bn1.eps, impl=self.cgconv_impl)
+                update_running_stats(bn1.running_mean, bn1.running_var,
+                                     mean.detach(), var.detach(),
+                                     n_real.detach(), bn1.momentum)
+            else:
+                agg = fused_cgconv_eval(
+                    *conv, bn1.running_mean, bn1.running_var, eps=bn1.eps,
+                    impl=self.cgconv_impl)
+            agg = agg.to(nodes.dtype)
         else:
-            v_j = gather(nodes, neighbors).reshape(n, m, f)
+            v_j = gather_transpose(nodes, neighbors, *(transpose or ()))
+            v_j = v_j.reshape(n, m, f)
             k = self.fc_full.kernel
             z = (
                 (nodes @ k[:f])[:, None, :]
                 + v_j @ k[f: 2 * f]
                 + e.to(nodes.dtype) @ k[2 * f:]
             ) + self.fc_full.bias
-            z = self.bn1(z)
-            gate, core = z.chunk(2, dim=-1)
-            msg = torch.sigmoid(gate) * softplus(core)
-            msg = msg * edge_mask.reshape(n, m, 1).to(msg.dtype)
-            agg = msg.sum(dim=1)
-        agg = self.bn2(agg)
+            if isinstance(bn1, FusedBN1GateSum):
+                agg = bn1(z, emask).to(nodes.dtype)
+            else:
+                z = bn1(z, emask)
+                gate, core = z.chunk(2, dim=-1)
+                msg = torch.sigmoid(gate) * softplus(core)
+                # load-bearing for gradients, not only values: the
+                # scatter-free gather backward assumes zero cotangent on
+                # padding slots, which this mask (with the masked BN
+                # statistics) guarantees
+                msg = msg * emask[..., None].to(msg.dtype)
+                agg = msg.sum(dim=1)
+        agg = self.bn2(agg, node_mask)
         out = softplus(nodes + agg)
         return out * node_mask[:, None].to(out.dtype)
 
@@ -100,6 +128,7 @@ class CrystalGraphConvNet(nn.Module):
         num_targets: int = 1,
         dense_m: int | None = None,
         cgconv_impl: str = "",
+        fused_epilogue: str = "",
     ):
         super().__init__()
         if dense_m is None:
@@ -110,19 +139,24 @@ class CrystalGraphConvNet(nn.Module):
         self.embedding = nn.Linear(orig_atom_fea_len, atom_fea_len)
         for i in range(n_conv):
             self.add_module(f"conv_{i}", CGConv(
-                atom_fea_len, nbr_fea_len, dense_m, cgconv_impl))
+                atom_fea_len, nbr_fea_len, dense_m, cgconv_impl,
+                fused_epilogue))
         self.conv_to_fc = nn.Linear(atom_fea_len, h_fea_len)
         for i in range(n_h - 1):
             self.add_module(f"fc_{i}", nn.Linear(h_fea_len, h_fea_len))
         self.fc_out = nn.Linear(h_fea_len, num_targets)
 
     def forward(self, batch: GraphBatch) -> torch.Tensor:
-        nodes = self.embedding(batch.nodes)
+        nodes = self.embedding(batch.nodes.to(self.embedding.weight.dtype))
         nodes = nodes * batch.node_mask[:, None].to(nodes.dtype)
+        transpose = None
+        if batch.in_slots is not None:
+            transpose = (batch.in_slots, batch.in_mask, batch.over_slots,
+                         batch.over_nodes, batch.over_mask)
         for i in range(self.n_conv):
             nodes = getattr(self, f"conv_{i}")(
                 nodes, batch.edges, batch.neighbors, batch.edge_mask,
-                batch.node_mask)
+                batch.node_mask, transpose)
         crys = segment_mean(nodes, batch.node_graph, batch.graph_capacity,
                             weights=batch.node_mask.to(nodes.dtype))
         crys = softplus(self.conv_to_fc(softplus(crys)))

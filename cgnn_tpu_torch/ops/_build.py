@@ -3,8 +3,9 @@ a plain C interface, loaded with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on first use to
 ``<checkout>/build/kernels/<name>-<hash>.so`` (the directory is listed in
-``.gitignore``), where the hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one loads as it is. ``build`` starts
+``.gitignore``), where the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads as it is. ``build`` starts
 one nvcc per source, all together, and waits for them. Nothing here runs
 when the module is imported, and nothing falls back: a missing nvcc or a
 failed build raises.
@@ -47,6 +48,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -96,3 +98,29 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
+
+
+def entry(lib: str, name: str, n_ptrs: int, n_ints: int):
+    """``name`` of ``csrc/<lib>.cu``'s library as a ctypes function that
+    takes ``n_ptrs`` device pointers, ``n_ints`` ints and the stream, and
+    returns the launch's cudaError_t (0 = queued)."""
+    fn = getattr(load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(label: str, fn, ptrs, dims: dict, device) -> None:
+    """Call an ``entry`` on ``device``'s current stream with the pointers,
+    then the ``dims`` values in order; raise on a refused launch."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*ptrs, *dims.values(), stream)
+    if err != 0:
+        shape = ", ".join(f"{k}={v}" for k, v in dims.items())
+        raise RuntimeError(
+            f"{label} kernel launch failed: cudaError {err} ({shape})")

@@ -1,21 +1,33 @@
-"""Whole-conv fused CGConv, eval pass (``cgnn_tpu/ops/pallas_cgconv.py``).
+"""Whole-conv fused CGConv (``cgnn_tpu/ops/pallas_cgconv.py``).
 
-gather -> fc_full -> BN1 (running stats) -> sigmoid*softplus gate ->
-masked sum over the M edge slots, as one op that writes only the [N, F]
-aggregate. Three pieces:
+gather -> fc_full -> BN1 -> sigmoid*softplus gate -> masked sum over the M
+edge slots, as one op that writes only the [N, F] aggregate.
 
-- ``fused_cgconv_eval_cuda``: the wrapper of the hand-written Hopper
-  kernel (``csrc/fused_cgconv.cu``, which replaces the TPU
-  ``_apply_kernel``). It takes CUDA tensors only, checks them, launches on
-  the current stream, raises on a refused launch, and counts its launches
-  in ``fused_cgconv_eval_cuda.launches``;
-- ``fused_cgconv_eval_reference``: the kernel's plain PyTorch version, a
-  port of ``_apply_structured`` + ``_z_structured`` + ``_gate_sum``;
-- ``fused_cgconv_eval``: the public op with the JAX signature (minus
-  ``transpose_args``; ``window`` is accepted and ignored, since the GPU
-  gathers rows directly). ``impl='pallas'`` runs the plain version for a
-  tensor that lies on the CPU and the kernel for any other, which launches
-  or raises; ``impl='xla'`` is the plain version on any device.
+- ``fused_cgconv_eval`` (eval/serving): ONE apply pass with the running
+  statistics — kernel 1 (``fused_cgconv_eval_cuda``).
+- ``fused_cgconv`` (training), an autograd Function with the JAX
+  signature and outputs ``(agg, mean, var, n_real)``. Its ``'pallas'``
+  forward is the JAX ``_forward_pallas``: the cancellation shift in plain
+  torch, the stats pass — kernel 2 (``fused_cgconv_stats_cuda``) — then
+  the moments in torch, then the apply pass (kernel 1) with the batch
+  statistics. Its backward rematerializes z from the saved inputs with
+  plain torch matmuls, takes the BN1 -> gate -> sum backward through
+  kernels 4 and 5 of ops/fused_epilogue.py, and carries dz back through
+  the split fc_full: dW and db by matmuls, d_edges = dz W_e^T, d_nodes =
+  (sum over M of dz) W_i^T plus the gather's transpose of dz W_j^T
+  (ops/segment.py). The JAX package takes the same backward by
+  ``jax.vjp`` of its structured forward; the port computes the same
+  function through kernels 4-5, which puts the JAX package's hand backward
+  of that chain on the flagship training path. The stats outputs get no
+  gradient. ``'xla'`` is the plain structured twin on any device, with
+  autograd for the backward.
+
+Every kernel wrapper takes CUDA tensors only, checks them, launches on the
+current stream, raises on a refused launch, and counts its launches in
+``<wrapper>.launches``. ``impl='pallas'`` runs a kernel for a tensor that is
+not on the CPU (launch or raise, never a fallback) and the kernel's plain
+PyTorch version (``*_reference``) for a CPU tensor. ``window`` is accepted
+and ignored: the GPU gathers neighbor rows directly.
 
 Numerical contract: the dense CGConv branch in models/cgcnn.py, to f32
 roundoff. Padding slots are selected to 0, never multiplied.
@@ -23,31 +35,44 @@ roundoff. Padding slots are selected to 0, never multiplied.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 from torch import nn
 
-from cgnn_tpu_torch.ops.segment import gather
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``'s form, max(x, 0) + log1p(exp(-|x|)) (torch's
-    own softplus switches to the identity above a threshold)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
-
+from cgnn_tpu_torch.ops import _build
+from cgnn_tpu_torch.ops.fused_epilogue import (
+    check_impl,
+    epilogue_backward,
+    masked_stats,
+    pack_cst,
+    rows_per_block,
+    runs_kernel,
+    softplus,
+)
+from cgnn_tpu_torch.ops.segment import (
+    gather,
+    gather_transpose,
+    transpose_cotangent,
+)
 
 # ---------------------------------------------------------------------------
-# the plain version
+# the plain versions
 # ---------------------------------------------------------------------------
 
 
-def _z_structured(nodes, edges, kernel, bias, neighbors, dtype):
-    """fc_full(v_i, v_j, e) without materializing the concat."""
+def _z_structured(nodes, edges, kernel, bias, neighbors, dtype,
+                  transpose=None):
+    """fc_full(v_i, v_j, e) without materializing the concat; the v_j
+    gather goes through ``gather_transpose`` when the batch carries the
+    transpose mapping ``(in_slots, in_mask, over_slots, over_nodes,
+    over_mask)``."""
     n, m = edges.shape[0], edges.shape[1]
     f = nodes.shape[-1]
     k = kernel.to(dtype)
-    v_j = gather(nodes, neighbors.reshape(-1)).reshape(n, m, f)
+    if transpose is not None:
+        v_j = gather_transpose(nodes, neighbors.reshape(-1), *transpose)
+    else:
+        v_j = gather(nodes, neighbors.reshape(-1))
+    v_j = v_j.reshape(n, m, f)
     z = (
         (nodes.to(dtype) @ k[:f])[:, None, :]
         + v_j.to(dtype) @ k[f: 2 * f]
@@ -68,7 +93,7 @@ def _gate_sum(y, mask):
 def fused_cgconv_eval_reference(nodes, edges, kernel, bias, scale, bn_bias,
                                 neighbors, edge_mask, mean, var, *,
                                 eps: float = 1e-5, dtype=torch.float32):
-    """Plain PyTorch version of the eval pass (the JAX ``impl='xla'``)."""
+    """Kernel 1's plain version (the JAX ``impl='xla'`` eval pass)."""
     n, m = edges.shape[0], edges.shape[1]
     rstd = torch.rsqrt(var.float() + eps)
     z = _z_structured(nodes, edges, kernel, bias, neighbors, dtype)
@@ -76,61 +101,73 @@ def fused_cgconv_eval_reference(nodes, edges, kernel, bias, scale, bn_bias,
     return _gate_sum(y, edge_mask.reshape(n, m).float())
 
 
+def fused_cgconv_stats_reference(nodes, edges, kernel, bias, neighbors,
+                                 edge_mask, shift, *, dtype=torch.float32):
+    """Kernel 2's plain version -> [2, 2F] f32: over the real slots, the
+    sums of (z - shift) and (z - shift)^2."""
+    n, m = edges.shape[0], edges.shape[1]
+    z = _z_structured(nodes, edges, kernel, bias, neighbors, dtype).float()
+    keep = (edge_mask.reshape(n, m) > 0)[..., None]
+    zm = torch.where(keep, z - shift, z.new_zeros(()))
+    return torch.stack([zm.sum(dim=(0, 1)), (zm * zm).sum(dim=(0, 1))])
+
+
+def _forward_structured(nodes, edges, kernel, bias, scale, bn_bias,
+                        neighbors, edge_mask, transpose, eps, dtype):
+    """The structured twin of the training forward (``impl='xla'``)."""
+    z = _z_structured(nodes, edges, kernel, bias, neighbors, dtype,
+                      transpose)
+    mean, var, n_real = masked_stats(z, edge_mask)
+    rstd = torch.rsqrt(var + eps)
+    y = (z.float() - mean) * (rstd * scale) + bn_bias
+    agg = _gate_sum(y, edge_mask.float())
+    return agg, mean, var, n_real
+
+
+def _shift_row0(nodes, edges, kernel, bias, neighbors, dtype):
+    """The stats estimator's cancellation shift: z of node row 0 averaged
+    over its M slots, in plain torch (the JAX package computes it in jnp
+    for the kernel to read as a constant)."""
+    m = edges.shape[1]
+    f = nodes.shape[-1]
+    k = kernel.to(dtype)
+    vj0 = nodes.index_select(0, neighbors.reshape(-1)[:m]).to(dtype)
+    z0 = (nodes[0].to(dtype) @ k[:f] + vj0 @ k[f: 2 * f]
+          + edges[0].to(dtype) @ k[2 * f:] + bias.to(dtype))
+    return z0.float().mean(dim=0)
+
+
 # ---------------------------------------------------------------------------
-# the Hopper kernel
+# the Hopper kernels (csrc/fused_cgconv.cu)
 # ---------------------------------------------------------------------------
-
-_VOID = ctypes.c_void_p
-_INT = ctypes.c_int
-
-
-def _kernel_lib():
-    from cgnn_tpu_torch.ops import _build
-
-    lib = _build.load("fused_cgconv")
-    fn = lib.cgconv_fused_eval_f32
-    if fn.argtypes is None:
-        fn.argtypes = [_VOID] * 10 + [_INT] * 5 + [_VOID]
-        fn.restype = _INT
-    return fn
-
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may opt into
 
 
-def _rows_per_block(f: int) -> int:
-    return max(1, min(8, 1024 // f))
+def _smem_bytes(f: int, g: int, rows: int, stats: bool = False) -> int:
+    """A kernel's dynamic shared memory: W plus per-row v_i/v_j/e rows,
+    and for the stats pass [4, rows, F] block sums
+    (cgconv_fused_{eval,stats}_smem_bytes in the CUDA source)."""
+    return 4 * ((2 * f + g) * 2 * f + rows * (2 * f + g)
+                + (4 * rows * f if stats else 0))
 
 
-def _smem_bytes(f: int, g: int, rows: int) -> int:
-    """The kernel's dynamic shared memory: W plus per-row v_i/v_j/e rows
-    (cgconv_fused_eval_smem_bytes in the CUDA source)."""
-    return 4 * ((2 * f + g) * 2 * f + rows * (2 * f + g))
-
-
-def fused_cgconv_eval_cuda(nodes, edges, kernel, bias, scale, bn_bias,
-                           neighbors, edge_mask, mean, var, *,
-                           eps: float = 1e-5):
-    """Launch the Hopper kernel (module docstring). Every tensor must lie
-    on one CUDA device, f32 except ``neighbors`` (int32), contiguous, with
-    nodes [N, F], edges [N, M, G], neighbors [N*M] or [N, M], edge_mask
-    [N*M] or [N, M], kernel [2F+G, 2F] and the four vectors [2F].
-    Neighbor indices must lie in [0, N), as pack_graphs makes them."""
-    args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
-                scale=scale, bn_bias=bn_bias, neighbors=neighbors,
-                edge_mask=edge_mask, mean=mean, var=var)
+def _check_conv_args(name: str, args: dict, stats: bool) -> tuple:
+    """Device, dtype, contiguity and shape checks shared by the kernel
+    wrappers. ``args`` holds nodes, edges, kernel, neighbors, edge_mask and
+    [2F] vectors; -> (N, M, F, G, rows)."""
+    nodes, edges = args["nodes"], args["edges"]
     dev = nodes.device
     if dev.type != "cuda":
-        raise ValueError(
-            f"fused_cgconv_eval_cuda takes CUDA tensors, got {dev}")
-    for name, t in args.items():
+        raise ValueError(f"{name} takes CUDA tensors, got {dev}")
+    for key, t in args.items():
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, nodes on {dev}")
-        want = torch.int32 if name == "neighbors" else torch.float32
+            raise ValueError(f"{key} is on {t.device}, nodes on {dev}")
+        want = torch.int32 if key == "neighbors" else torch.float32
         if t.dtype != want:
-            raise ValueError(f"{name} must be {want}, got {t.dtype}")
+            raise ValueError(f"{key} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{key} must be contiguous")
     if nodes.dim() != 2 or edges.dim() != 3:
         raise ValueError(
             f"nodes must be [N, F] and edges [N, M, G], got "
@@ -139,46 +176,99 @@ def fused_cgconv_eval_cuda(nodes, edges, kernel, bias, scale, bn_bias,
     m, g = edges.shape[1], edges.shape[2]
     shapes = {
         "edges": (edges.shape[0] == n, f"[{n}, M, G]"),
-        "neighbors": (neighbors.numel() == n * m, f"{n * m} entries"),
-        "edge_mask": (edge_mask.numel() == n * m, f"{n * m} entries"),
-        "kernel": (tuple(kernel.shape) == (2 * f + g, 2 * f),
+        "neighbors": (args["neighbors"].numel() == n * m, f"{n * m} entries"),
+        "edge_mask": (args["edge_mask"].numel() == n * m, f"{n * m} entries"),
+        "kernel": (tuple(args["kernel"].shape) == (2 * f + g, 2 * f),
                    f"[{2 * f + g}, {2 * f}]"),
     }
-    for name in ("bias", "scale", "bn_bias", "mean", "var"):
-        shapes[name] = (tuple(args[name].shape) == (2 * f,), f"[{2 * f}]")
-    for name, (ok, want) in shapes.items():
+    for key in args:
+        if key not in shapes and key != "nodes":
+            shapes[key] = (tuple(args[key].shape) == (2 * f,), f"[{2 * f}]")
+    for key, (ok, want) in shapes.items():
         if not ok:
             raise ValueError(
-                f"{name} must be {want}, got {tuple(args[name].shape)}")
+                f"{key} must be {want}, got {tuple(args[key].shape)}")
     if f > 1024:
         raise ValueError(f"F={f} exceeds the kernel's 1024 threads per row")
-    rows = _rows_per_block(f)
-    if _smem_bytes(f, g, rows) > _SMEM_LIMIT:
+    rows = rows_per_block(f)
+    smem = _smem_bytes(f, g, rows, stats)
+    if smem > _SMEM_LIMIT:
         raise ValueError(
             f"F={f}, G={g}: W [{2 * f + g}, {2 * f}] does not fit one "
-            f"block's shared memory ({_smem_bytes(f, g, rows)} > "
-            f"{_SMEM_LIMIT} bytes)")
-    out = torch.empty((n, f), dtype=torch.float32, device=dev)
+            f"block's shared memory ({smem} > {_SMEM_LIMIT} bytes)")
+    return n, m, f, g, rows
+
+
+def fused_cgconv_eval_cuda(nodes, edges, kernel, bias, scale, bn_bias,
+                           neighbors, edge_mask, mean, var, *,
+                           eps: float = 1e-5):
+    """Kernel 1, the apply pass (replaces pallas_cgconv.py
+    ``_apply_kernel``). Every tensor must lie on one CUDA device, f32
+    except ``neighbors`` (int32), contiguous, with nodes [N, F], edges
+    [N, M, G], neighbors [N*M] or [N, M], edge_mask [N*M] or [N, M],
+    kernel [2F+G, 2F] and the four vectors [2F]. Neighbor indices must
+    lie in [0, N), as pack_graphs makes them."""
+    args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
+                scale=scale, bn_bias=bn_bias, neighbors=neighbors,
+                edge_mask=edge_mask, mean=mean, var=var)
+    n, m, f, g, rows = _check_conv_args("fused_cgconv_eval_cuda", args,
+                                        stats=False)
+    out = torch.empty((n, f), dtype=torch.float32, device=nodes.device)
     if n == 0:
         return out
-    fn = _kernel_lib()
     # the BN fold the JAX wrapper does before its apply pass
     rstd_scale = (torch.rsqrt(var + eps) * scale).contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
-                 edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                 mean.data_ptr(), rstd_scale.data_ptr(), bn_bias.data_ptr(),
-                 out.data_ptr(), n, m, f, g, rows, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_cgconv_eval kernel launch failed: cudaError {err} "
-            f"(N={n}, M={m}, F={f}, G={g})")
+    _build.launch(
+        "fused_cgconv_eval",
+        _build.entry("fused_cgconv", "cgconv_fused_eval_f32", 10, 5),
+        (nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
+         edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+         mean.data_ptr(), rstd_scale.data_ptr(), bn_bias.data_ptr(),
+         out.data_ptr()), dict(N=n, M=m, F=f, G=g, rows=rows), nodes.device)
     fused_cgconv_eval_cuda.launches += 1
     return out
 
 
 fused_cgconv_eval_cuda.launches = 0
+
+
+def fused_cgconv_stats_cuda(nodes, edges, kernel, bias, neighbors,
+                            edge_mask, shift):
+    """Kernel 2, the stats pass (replaces pallas_cgconv.py
+    ``_stats_kernel``) -> [2, 2F] f32: over the real slots, the sums of
+    (z - shift) and (z - shift)^2, added in a fixed order (bit-identical
+    from run to run). Inputs as ``fused_cgconv_eval_cuda``'s."""
+    args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
+                neighbors=neighbors, edge_mask=edge_mask, shift=shift)
+    n, m, f, g, rows = _check_conv_args("fused_cgconv_stats_cuda", args,
+                                        stats=True)
+    out = torch.zeros((2, 2 * f), dtype=torch.float32, device=nodes.device)
+    if n == 0:
+        return out
+    nb = -(-n // rows)
+    part = torch.empty((nb, 2, 2 * f), dtype=torch.float32,
+                       device=nodes.device)
+    _build.launch(
+        "fused_cgconv_stats",
+        _build.entry("fused_cgconv", "cgconv_fused_stats_f32", 9, 5),
+        (nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
+         edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+         shift.data_ptr(), part.data_ptr(), out.data_ptr()),
+        dict(N=n, M=m, F=f, G=g, rows=rows), nodes.device)
+    fused_cgconv_stats_cuda.launches += 1
+    return out
+
+
+fused_cgconv_stats_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the ops
+# ---------------------------------------------------------------------------
+
+
+def _f32(t):
+    return t.float().contiguous()
 
 
 def fused_cgconv_eval(nodes, edges, kernel, bias, scale, bn_bias,
@@ -188,15 +278,109 @@ def fused_cgconv_eval(nodes, edges, kernel, bias, scale, bn_bias,
     """Eval/serving mode: normalize with running stats — ONE apply pass.
     ``window`` is ignored (module docstring)."""
     del window
-    if impl not in ("xla", "pallas"):
-        raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
-    if impl == "pallas" and nodes.device.type != "cpu":
+    if runs_kernel(impl, nodes):
         return fused_cgconv_eval_cuda(
             nodes, edges, kernel, bias, scale, bn_bias, neighbors,
             edge_mask, mean, var, eps=eps)
     return fused_cgconv_eval_reference(
         nodes, edges, kernel, bias, scale, bn_bias, neighbors, edge_mask,
         mean, var, eps=eps, dtype=dtype)
+
+
+class _FusedCGConv(torch.autograd.Function):
+    """``impl='pallas'`` training op (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, nodes, edges, kernel, bias, scale, bn_bias, neighbors,
+                edge_mask, transpose, eps, dtype):
+        on_card = runs_kernel("pallas", nodes)
+        shift = _shift_row0(nodes, edges, kernel, bias, neighbors, dtype)
+        if on_card:
+            conv = (_f32(nodes), _f32(edges), _f32(kernel), _f32(bias))
+            nbr, emask = neighbors.contiguous(), _f32(edge_mask)
+            s = fused_cgconv_stats_cuda(*conv, nbr, emask, shift)
+        else:
+            s = fused_cgconv_stats_reference(
+                nodes, edges, kernel, bias, neighbors, edge_mask, shift,
+                dtype=dtype)
+        n_real = edge_mask.float().sum()
+        c = torch.clamp_min(n_real, 1.0)
+        mean_s = s[0] / c
+        var = torch.clamp_min(s[1] / c - mean_s * mean_s, 0.0)
+        mean = mean_s + shift
+        if on_card:
+            agg = fused_cgconv_eval_cuda(*conv, _f32(scale), _f32(bn_bias),
+                                         nbr, emask, mean, var, eps=eps)
+        else:
+            agg = fused_cgconv_eval_reference(
+                nodes, edges, kernel, bias, scale, bn_bias, neighbors,
+                edge_mask, mean, var, eps=eps, dtype=dtype)
+        ctx.save_for_backward(nodes, edges, kernel, bias, scale, bn_bias,
+                              neighbors, edge_mask, mean,
+                              torch.rsqrt(var + eps), n_real,
+                              *(transpose or ()))
+        ctx.dtype = dtype
+        ctx.mark_non_differentiable(mean, var, n_real)
+        return agg, mean, var, n_real
+
+    @staticmethod
+    def backward(ctx, ct_agg, *_stats_cts):
+        (nodes, edges, kernel, bias, scale, bn_bias, neighbors, edge_mask,
+         mean, rstd, n_real, *transpose) = ctx.saved_tensors
+        n, m, g = edges.shape
+        f = nodes.shape[-1]
+        k = kernel.to(ctx.dtype)
+        # rematerialize z (plain matmuls) from the saved inputs
+        v_j = gather(nodes, neighbors.reshape(-1)).to(ctx.dtype)
+        e = edges.to(ctx.dtype)
+        z = ((nodes.to(ctx.dtype) @ k[:f])[:, None, :]
+             + (v_j @ k[f: 2 * f]).reshape(n, m, 2 * f)
+             + e @ k[2 * f:] + bias.to(ctx.dtype))
+        cst = pack_cst(mean, rstd, scale, bn_bias)
+        dz, d_scale, d_bias = epilogue_backward(
+            z, edge_mask, cst, n_real, ct_agg, "pallas")
+        dz = dz.to(ctx.dtype)
+        dz_node = dz.sum(dim=1)
+        dz2 = dz.reshape(n * m, 2 * f)
+        d_kernel = torch.cat([nodes.to(ctx.dtype).T @ dz_node, v_j.T @ dz2,
+                              e.reshape(n * m, g).T @ dz2])
+        d_vj = dz2 @ k[f: 2 * f].T
+        if transpose:
+            d_nodes = transpose_cotangent(d_vj, *transpose, n)
+        else:
+            d_nodes = torch.zeros_like(d_vj[:n]).index_add_(
+                0, neighbors.reshape(-1), d_vj)
+        d_nodes = d_nodes + dz_node @ k[:f].T
+        d_edges = (dz @ k[2 * f:].T).to(edges.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return (d_nodes.to(nodes.dtype), d_edges, d_kernel.to(kernel.dtype),
+                dz2.sum(dim=0).to(bias.dtype), d_scale.to(scale.dtype),
+                d_bias.to(bn_bias.dtype), None, None, None, None, None)
+
+
+def fused_cgconv(nodes, edges, kernel, bias, scale, bn_bias, neighbors,
+                 edge_mask, transpose_args=None, *, eps: float = 1e-5,
+                 impl: str = "pallas", window: int = 0,
+                 dtype=torch.float32):
+    """(agg [N, F] f32, mean [2F], var [2F], n_real) — training mode.
+
+    Differentiable in (nodes, edges, kernel, bias, scale, bn_bias); the
+    stats outputs feed the running-stat update and carry no gradient.
+    ``transpose_args`` = ``(in_slots, in_mask, over_slots, over_nodes,
+    over_mask)`` routes the v_j cotangent through the scatter-free
+    transpose (or ``None``: the plain scatter). ``window`` is ignored.
+    """
+    del window
+    check_impl(impl)
+    tr = None
+    if transpose_args is not None and transpose_args[0] is not None:
+        tr = tuple(transpose_args)
+    if impl == "xla":
+        return _forward_structured(nodes, edges, kernel, bias, scale,
+                                   bn_bias, neighbors, edge_mask, tr, eps,
+                                   dtype)
+    return _FusedCGConv.apply(nodes, edges, kernel, bias, scale, bn_bias,
+                              neighbors, edge_mask, tr, eps, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +424,18 @@ def eval_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
     return {"bytes": nbytes, "flops": flops}
 
 
+def stats_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
+                    real_rows: int) -> dict:
+    """Compulsory work of one stats pass on this data: the inputs of
+    ``eval_pass_cost`` with the shift [2F] in place of the three BN
+    vectors and the [2, 2F] sums in place of the [N, F] output; FLOPs are
+    the apply pass's f32 FMAs plus three operations (subtract, add,
+    multiply-add) per real slot and channel for the two moments."""
+    ev = eval_pass_cost(n, m, g, f, real_slots, real_rows)
+    nbytes = ev["bytes"] - 2 * 2 * f * 4 - n * f * 4 + 2 * 2 * f * 4
+    return {"bytes": nbytes, "flops": ev["flops"] + 3 * real_slots * 2 * f}
+
+
 # ---------------------------------------------------------------------------
 # parameter shells (the JAX FcFullParams / BN1Params layout)
 # ---------------------------------------------------------------------------
@@ -257,4 +453,3 @@ class FcFullParams(nn.Module):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_dim, features))
         self.bias = nn.Parameter(torch.zeros(features))
-

@@ -1,6 +1,9 @@
 """The port's host data layer against the JAX package's: synthetic
-structures, neighbor lists, featurization, dense packing and the shape
+structures, neighbor lists, featurization, dense packing with the
+transpose slots, the training batch iterator, the split and the shape
 ladder. Integer and mask arrays must be bit-equal; floats f32-equal."""
+
+import warnings
 
 import numpy as np
 import pytest
@@ -156,12 +159,101 @@ def test_pack_graphs_refuses_unported_layouts():
     g = [_port_graph(x) for x in _jax_graphs(2)]
     with pytest.raises(NotImplementedError):
         tgraph.pack_graphs(g, 64, 512, 4)  # COO
-    with pytest.raises(NotImplementedError):
-        tgraph.pack_graphs(g, 64, 512, 4, dense_m=8, in_cap=16)
-    with pytest.raises(NotImplementedError):
-        tgraph.pack_graphs(g, 64, 512, 4, dense_m=8, over_cap=16)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tgraph.pack_graphs(g, 64, 512, 4, dense_m=8, in_cap=16, over_cap=16)
     with pytest.raises(ValueError):
         tgraph.pack_graphs(g, 64, 500, 4, dense_m=8)
+
+
+def _assert_batches_equal(got, want):
+    got = got.numpy()
+    for field, a in got.items():
+        b = getattr(want, field)
+        if a is None:
+            assert b is None, field
+            continue
+        b = np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+@pytest.mark.parametrize("tier", ["two", "single"])
+def test_transpose_slots_bit_equal(tier):
+    jg = _jax_graphs()
+    m = 8
+    nc = tgraph._align8(sum(g.num_nodes for g in jg) + 5)
+    caps = ({"over_cap": jgraph.overflow_cap(jg, 20, m)} if tier == "two"
+            else {"in_cap": jgraph.in_degree_cap(jg)})
+    want = jgraph.pack_graphs(jg, nc, nc * m, 20, dense_m=m, **caps)
+    got = tgraph.pack_graphs([_port_graph(g) for g in jg], nc, nc * m, 20,
+                             dense_m=m, **caps)
+    assert want.in_slots is not None
+    if tier == "two":
+        assert int(np.asarray(want.over_mask).sum()) > 0  # overflow used
+    _assert_batches_equal(got, want)
+
+
+def test_transpose_caps_match():
+    jg = _jax_graphs() + jdataset.load_synthetic_mp(6, seed=4)
+    tg = [_port_graph(g) for g in jg]
+    assert tgraph.max_in_degree(tg) == jgraph.max_in_degree(jg) > 8
+    assert tgraph.in_degree_cap(tg) == jgraph.in_degree_cap(jg)
+    for gcap, m in ((4, 8), (36, 12), (300, 12)):
+        assert tgraph.overflow_cap(tg, gcap, m) == \
+            jgraph.overflow_cap(jg, gcap, m)
+
+
+def test_overflow_raises_never_truncates():
+    jg = _jax_graphs()
+    tg = [_port_graph(g) for g in jg]
+    nc = tgraph._align8(sum(g.num_nodes for g in jg) + 5)
+    with pytest.raises(tgraph.TransposeOverflowError):
+        tgraph.pack_graphs(tg, nc, nc * 8, 20, dense_m=8, over_cap=1)
+    with pytest.raises(ValueError, match="in-degree"):
+        tgraph.pack_graphs(tg, nc, nc * 8, 20, dense_m=8, in_cap=1)
+
+
+@pytest.mark.parametrize("case", ["snug_shuffled", "fixed_order", "eval",
+                                  "overflow_split", "drop_last"])
+def test_batch_iterator_bit_equal(case):
+    jg = _jax_graphs(30, seed=6)
+    tg = [_port_graph(g) for g in jg]
+    bs, m = 8, 8
+    nc, ec = jgraph.capacities_for(jg, bs, dense_m=m, snug=True)
+    kw = {
+        "snug_shuffled": dict(snug=True, shuffle=True),
+        "fixed_order": dict(snug=False),
+        "eval": dict(snug=True, in_cap=0),
+        "overflow_split": dict(snug=True, over_cap=8),
+        "drop_last": dict(snug=False, drop_last=True),
+    }[case]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the overflow split warns
+        want = list(jgraph.batch_iterator(
+            jg, bs, nc, ec, dense_m=m, rng=np.random.default_rng(3), **kw))
+        got = list(tgraph.batch_iterator(
+            tg, bs, nc, ec, dense_m=m, rng=np.random.default_rng(3), **kw))
+    assert len(got) == len(want) > 2
+    for a, b in zip(got, want):
+        _assert_batches_equal(a, b)
+    if case == "eval":
+        assert got[0].in_slots is None
+    if case == "overflow_split":  # some batch was split in half
+        assert len(got) > jgraph.count_batches(jg, bs, nc, ec, snug=True)
+    for snug in (False, True):
+        assert tgraph.count_batches(tg, bs, nc, ec, snug=snug) == \
+            jgraph.count_batches(jg, bs, nc, ec, snug=snug)
+
+
+@pytest.mark.parametrize("ratios", [(0.8, 0.1), (0.6, 0.3)])
+def test_train_val_test_split_same(ratios):
+    jg = _jax_graphs(23, seed=1)
+    want = jdataset.train_val_test_split(jg, *ratios, seed=7)
+    got = tdataset.train_val_test_split(jg, *ratios, seed=7)
+    assert [[id(g) for g in part] for part in got] == \
+        [[id(g) for g in part] for part in want]
+    with pytest.raises(ValueError):
+        tdataset.train_val_test_split(jg, 0.9, 0.2)
 
 
 @pytest.mark.parametrize("batch_size,rungs", [(4, 1), (8, 2), (64, 3)])

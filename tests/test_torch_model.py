@@ -156,16 +156,21 @@ def test_model_config_meta_matches_jax():
 def test_unported_settings_raise(monkeypatch):
     dcfg = DataConfig()
     for bad in (dict(classification=True), dict(multi_task_head=True),
-                dict(dtype="bfloat16"), dict(fused_epilogue="xla")):
+                dict(dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             build_model(ModelConfig(dense_m=12, **bad), dcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="COO"):
         build_model(ModelConfig(), dcfg, device="cpu")
-    net = build_model(ModelConfig(dense_m=12), dcfg, device="cpu")
-    net.train()
-    jb, tb = _pack_both(_graphs())
-    with pytest.raises(NotImplementedError):
-        net(tb)
+    # train mode and the fused epilogue are ported: both build and run
+    _, tb = _pack_both(_graphs())
+    for ok in (dict(), dict(fused_epilogue="xla")):
+        cfg = ModelConfig(**SMALL, dense_m=M, **ok)
+        small = DataConfig(radius=5.0, max_num_nbr=M)
+        net = build_model(cfg, small, device="cpu")
+        net.load_state_dict(convert.from_flax_variables(
+            convert.init_params(cfg, small, seed=0)))
+        net.train()
+        assert torch.isfinite(net(tb)).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(ModelConfig(dense_m=12), dcfg)  # default device: cuda
