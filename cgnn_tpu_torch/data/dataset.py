@@ -37,8 +37,12 @@ def featurize_structure(
     cif_id: str = "",
     gdf: GaussianDistance | None = None,
     target_mask=None,
+    keep_geometry: bool = False,
 ) -> CrystalGraph:
-    """Structure + label -> flat-COO CrystalGraph (host-side)."""
+    """Structure + label -> flat-COO CrystalGraph (host-side).
+    ``keep_geometry`` also stores the wrapped f32 cartesian positions, the
+    f32 lattice, the neighbor image offsets and the atomic numbers, which
+    the raw wire plans its caps from (data/rawbatch.py)."""
     gdf = gdf or cfg.gdf()
     nl = knn_neighbor_list(
         structure, cfg.radius, cfg.max_num_nbr, warn_under_coordinated=False
@@ -47,7 +51,7 @@ def featurize_structure(
         raise ValueError(
             f"structure {cif_id!r} has no neighbors within radius {cfg.radius}"
         )
-    return CrystalGraph(
+    graph = CrystalGraph(
         atom_fea=atom_features(structure.numbers),
         edge_fea=gdf.expand(nl.distances),
         centers=nl.centers,
@@ -60,18 +64,27 @@ def featurize_structure(
         ),
         distances=nl.distances,
     )
+    if keep_geometry:
+        # the neighbor offsets are against WRAPPED coordinates, so the
+        # stored positions are the wrapped ones
+        graph.positions = structure.wrapped().cart_coords.astype(np.float32)
+        graph.lattice = structure.lattice.astype(np.float32)
+        graph.offsets = nl.offsets.astype(np.int32)
+        graph.numbers = structure.numbers.copy()
+    return graph
 
 
 def load_synthetic(
     num_structures: int,
     cfg: FeaturizeConfig | None = None,
     seed: int = 0,
+    keep_geometry: bool = False,
 ) -> list[CrystalGraph]:
     """Small random cells (2-12 atoms): the default serving calibration."""
     cfg = cfg or FeaturizeConfig()
     gdf = cfg.gdf()
     return [
-        featurize_structure(s, t, cfg, sid, gdf)
+        featurize_structure(s, t, cfg, sid, gdf, keep_geometry=keep_geometry)
         for sid, s, t in synthetic_dataset(num_structures, seed)
     ]
 
@@ -80,12 +93,13 @@ def load_synthetic_mp(
     num_structures: int,
     cfg: FeaturizeConfig | None = None,
     seed: int = 0,
+    keep_geometry: bool = False,
 ) -> list[CrystalGraph]:
     """MP-like size distribution (lognormal ~30 atoms)."""
     cfg = cfg or FeaturizeConfig()
     gdf = cfg.gdf()
     return [
-        featurize_structure(s, t, cfg, sid, gdf)
+        featurize_structure(s, t, cfg, sid, gdf, keep_geometry=keep_geometry)
         for sid, s, t in synthetic_mp_dataset(num_structures, seed)
     ]
 

@@ -46,6 +46,13 @@ class CrystalGraph:
     cif_id: str = ""
     distances: np.ndarray | None = None  # [E] raw distances
     target_mask: np.ndarray | None = None  # [T] 1.0 where label present
+    # geometry, kept by ``featurize_structure(keep_geometry=True)``: the
+    # raw wire (data/rawbatch.py) plans its caps from the lattices and
+    # turns such a graph back into wire form
+    positions: np.ndarray | None = None  # [N, 3] f32 cartesian, wrapped
+    lattice: np.ndarray | None = None  # [3, 3] f32 row vectors
+    offsets: np.ndarray | None = None  # [E, 3] i32 periodic image of j
+    numbers: np.ndarray | None = None  # [N] i32 atomic numbers
 
     @property
     def num_nodes(self) -> int:
@@ -70,8 +77,8 @@ class GraphBatch:
     graph_mask: torch.Tensor  # [Gcap] f32
     targets: torch.Tensor  # [Gcap, T] f32
     target_mask: torch.Tensor  # [Gcap, T] f32
-    # geometry and per-atom labels of the force task: zeros here, since
-    # the port's graphs carry no geometry yet
+    # geometry (from graphs featurized with keep_geometry, else zeros) and
+    # the per-atom labels of the force task (zeros: not ported)
     positions: torch.Tensor  # [Ncap, 3] f32
     lattices: torch.Tensor  # [Gcap, 3, 3] f32
     edge_offsets: torch.Tensor  # [Ecap, 3] f32
@@ -174,6 +181,8 @@ def pack_graphs(
     ne_arr = np.fromiter((g.num_edges for g in graphs), np.int64, n_graphs)
     node_offs = np.zeros(n_graphs + 1, np.int64)
     np.cumsum(nn_arr, out=node_offs[1:])
+    edge_offs = np.zeros(n_graphs + 1, np.int64)
+    np.cumsum(ne_arr, out=edge_offs[1:])
 
     np.concatenate([g.atom_fea for g in graphs], axis=0,
                    out=nodes[:total_nodes])
@@ -226,6 +235,15 @@ def pack_graphs(
 
     graph_mask[:n_graphs] = 1.0
     for gi, g in enumerate(graphs):
+        if g.positions is not None:
+            positions[node_offs[gi]:node_offs[gi + 1]] = g.positions
+        if g.lattice is not None:
+            lattices[gi] = g.lattice
+        if g.offsets is not None and g.num_edges:
+            # this graph's edges in the batch's (center-sorted) order
+            o = g.offsets if order is None else g.offsets[
+                np.argsort(g.centers, kind="stable")]
+            edge_offsets[slots[edge_offs[gi]:edge_offs[gi + 1]]] = o
         t = np.atleast_1d(np.asarray(g.target, np.float32))
         targets[gi, : len(t)] = t
         target_mask[gi, : len(t)] = (

@@ -100,14 +100,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def entry(lib: str, name: str, n_ptrs: int, n_ints: int):
+def entry(lib: str, name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
     """``name`` of ``csrc/<lib>.cu``'s library as a ctypes function that
-    takes ``n_ptrs`` device pointers, ``n_ints`` ints and the stream, and
-    returns the launch's cudaError_t (0 = queued)."""
+    takes ``n_ptrs`` device pointers, ``n_ints`` ints, ``n_floats`` floats
+    and the stream, and returns the launch's cudaError_t (0 = queued)."""
     fn = getattr(load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 

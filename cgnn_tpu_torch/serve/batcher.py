@@ -2,8 +2,10 @@
 the shape ladder (the FIFO core of ``cgnn_tpu/serve/batcher.py``).
 
 A flush fires when the queued prefix would overflow the LARGEST shape
-("shape_full"), when the oldest request has waited ``max_wait_ms``
-("deadline"), or when the batcher is closed and draining ("drain").
+("shape_full"), when the prefix meets a request of the other staging form
+("tier_boundary": a flush runs one program, featurized or raw wire), when
+the oldest request has waited ``max_wait_ms`` ("deadline"), or when the
+batcher is closed and draining ("drain").
 Admission at ``offer``:
 
 - bounded queue: a full queue rejects (``queue_full``, HTTP 429) instead
@@ -23,8 +25,8 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+from typing import Any
 
-from cgnn_tpu_torch.data.graph import CrystalGraph
 from cgnn_tpu_torch.serve.shapes import BatchShape, ShapeSet
 
 # rejection reasons: the JAX package's strings, and their HTTP statuses
@@ -81,13 +83,17 @@ class RequestFuture:
 class Request:
     """A queued single-structure prediction request."""
 
-    graph: CrystalGraph
+    graph: Any  # CrystalGraph, or a RawStructure (raw, or featurized later)
     enqueued: float  # monotonic seconds
     deadline: float | None  # absolute monotonic; None = no deadline
     future: RequestFuture = dataclasses.field(default_factory=RequestFuture)
     # slot budget under the shape set's layout, computed at admission
     nodes: int = 0
     edges: int = 0
+    # staging form: 'feat' = a featurized CrystalGraph (or a wire-form
+    # structure the worker featurizes at pack time), 'raw' = staged as a
+    # RawBatch for the device neighbor search
+    form: str = "feat"
 
 
 @dataclasses.dataclass
@@ -98,8 +104,9 @@ class Flush:
     requests: list
     shape: BatchShape | None
     expired: list
-    reason: str = ""  # 'shape_full' | 'deadline' | 'drain' | ''
+    reason: str = ""  # 'shape_full' | 'tier_boundary' | 'deadline' | 'drain' | ''
     flush_id: str = ""
+    form: str = "feat"  # the staging form every member shares
 
     def __bool__(self) -> bool:
         return bool(self.requests or self.expired)
@@ -147,18 +154,23 @@ class MicroBatcher:
         with self._cond:
             return len(self._queue)
 
-    def _take_locked(self, now: float) -> tuple[list, list, bool]:
-        """(FIFO batch prefix, expired, shape-full); callers hold _cond."""
+    def _take_locked(self, now: float) -> tuple[list, list, bool, bool]:
+        """(FIFO batch prefix, expired, shape-full, form boundary); callers
+        hold _cond. The prefix stops at the first request of another
+        staging form."""
         big = self.shape_set.largest
         expired = [r for r in self._queue
                    if r.deadline is not None and now >= r.deadline]
         dead = set(map(id, expired))
         take: list[Request] = []
         n_nodes = n_edges = 0
-        full = False
+        full = boundary = False
         for req in self._queue:
             if id(req) in dead:
                 continue
+            if take and req.form != take[0].form:
+                boundary = True
+                break
             if not big.fits(len(take) + 1, n_nodes + req.nodes,
                             n_edges + req.edges):
                 full = True
@@ -167,7 +179,7 @@ class MicroBatcher:
             n_nodes += req.nodes
             n_edges += req.edges
         # graph slots saturated = full even with nothing else queued
-        return take, expired, full or len(take) >= big.graph_cap
+        return take, expired, full or len(take) >= big.graph_cap, boundary
 
     def poll(self, now: float | None = None) -> Flush | None:
         """Non-blocking flush decision at time ``now`` (the unit-testable
@@ -175,10 +187,11 @@ class MicroBatcher:
         else None."""
         now = time.monotonic() if now is None else now
         with self._cond:
-            take, expired, full = self._take_locked(now)
+            take, expired, full, boundary = self._take_locked(now)
             waited = take and now - take[0].enqueued >= self.max_wait
-            if full or waited or (self._closed and take):
+            if full or boundary or waited or (self._closed and take):
                 reason = ("shape_full" if full
+                          else "tier_boundary" if boundary
                           else "deadline" if waited else "drain")
                 fired = take
             elif expired:
@@ -194,7 +207,8 @@ class MicroBatcher:
             self._queue = [r for r in self._queue if id(r) not in drop]
             self._flush_seq += 1
             return Flush(fired, shape, expired, reason,
-                         flush_id=f"flush-{self._flush_seq:06d}")
+                         flush_id=f"flush-{self._flush_seq:06d}",
+                         form=fired[0].form if fired else "feat")
 
     def next_flush(self) -> Flush | None:
         """Block until the policy fires (worker-thread API). Returns None

@@ -3,21 +3,29 @@
 ``InferenceServer`` is socket-free: ``submit()`` -> future -> result,
 driven by one named worker thread::
 
-    submit(graph or Structure)
-      -> a wire Structure is featurized here, on the caller's thread
-      -> admission checks (malformed / oversize / queue-full / draining)
-      -> batcher.offer
+    submit(CrystalGraph, RawStructure or Structure)
+      -> admission checks (malformed / oversize / queue-full / draining);
+         a wire-form structure (a Structure becomes a RawStructure) is
+         staged 'raw' when it fits the raw caps, else 'feat' (deferred)
+      -> batcher.offer (a change of form cuts a flush)
     worker "cgnn-torch-serve":
       batcher.next_flush() -> expired requests fail with TIMEOUT
-        -> pack into the flush's rung on the host (ShapeSet.pack_full)
-        -> batch.to(device) -> predict_step -> host copy
+        raw flush:  ShapeSet.pack_raw -> .to(device) -> predict_step (the
+                    device neighbor search builds the graph) -> rows;
+                    a structure flagged for cap overflow is re-offered as
+                    a featurized request with the same future
+        feat flush: deferred structures are featurized HERE, on the
+                    worker, never on the caller's thread (a failure fails
+                    that request alone) -> ShapeSet.pack_full -> .to(device)
+                    -> predict_step
         -> resolve each future with its row
 
 ``drain()`` is the stop path: it closes admission, lets the worker answer
 what was accepted, and joins it. ``counts["batches"]`` counts the flushes
-that ran, so a caller can tie kernel launches to flushes. Not ported yet:
-hot reload, the result cache, precision tiers, multi-device engines,
-compact staging, the raw wire and the observability plane.
+that ran, ``counts["pack_raw"]`` the raw ones, so a caller can tie kernel
+launches to flushes. Not ported yet: hot reload, the result cache,
+precision tiers, multi-device engines, compact staging, parallel packers,
+the edge-occupancy gauges and the observability plane.
 """
 
 from __future__ import annotations
@@ -32,11 +40,18 @@ import numpy as np
 
 from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
 from cgnn_tpu_torch.convert import from_flax_variables, load_params
+from cgnn_tpu_torch.data.elements import MAX_Z
 from cgnn_tpu_torch.data.graph import CrystalGraph
+from cgnn_tpu_torch.data.rawbatch import (
+    RawStructure,
+    RawUnsupported,
+    plan_raw_spec,
+)
 from cgnn_tpu_torch.data.structure import Structure
 from cgnn_tpu_torch.device import resolve_device
 from cgnn_tpu_torch.serve.batcher import (
     MALFORMED,
+    OVERSIZE,
     TIMEOUT,
     Flush,
     MicroBatcher,
@@ -58,13 +73,19 @@ class ServeResult:
     latency_ms: float
     batch_occupancy: float = 0.0  # real graphs / graph slots of its batch
     flush_id: str = ""
+    wire: str = "featurized"  # 'raw' (device-built graph) | 'featurized'
 
 
 class InferenceServer:
     """Micro-batching online inference over a shape ladder on one device.
 
     ``state`` holds the eval model and normalizer; both move to
-    ``device`` (default CUDA, which raises when absent).
+    ``device`` (default CUDA, which raises when absent). With a raw spec
+    on the shape set, the raw expander runs the neighbor search as kernel
+    8 on a CUDA device and as its plain version on the CPU; a kernel that
+    fails to build or launch raises. ``raw_precheck=False`` skips
+    the host image-cap check at admission and leaves the decision to the
+    device's overflow flag.
     """
 
     def __init__(
@@ -76,16 +97,19 @@ class InferenceServer:
         max_queue: int = 256,
         max_wait_ms: float = 5.0,
         default_timeout_ms: float | None = 1000.0,
-        featurizer: Callable[[Structure], CrystalGraph] | None = None,
+        featurizer: Callable[[RawStructure], CrystalGraph] | None = None,
         device="cuda",
         log_fn: Callable = print,
+        raw_precheck: bool = True,
     ):
         self.device = resolve_device(device)
         self.state = InferenceState(state.model.to(self.device).eval(),
                                     state.normalizer.to(self.device))
         self.shape_set = shape_set
         self.version = version
-        self.predict_step = make_predict_step()
+        self.predict_step = make_predict_step(
+            raw_expander=shape_set.raw_expander(device=self.device))
+        self._raw_precheck = bool(raw_precheck)
         self.batcher = MicroBatcher(shape_set, max_queue=max_queue,
                                     max_wait_ms=max_wait_ms)
         self.default_timeout = (
@@ -100,6 +124,7 @@ class InferenceServer:
             "batch_failures": 0, "reject_queue_full": 0,
             "reject_oversize": 0, "reject_timeout": 0,
             "reject_shutdown": 0, "reject_malformed": 0,
+            "pack_raw": 0, "responses_raw": 0, "ingest_cap_overflow": 0,
         }
         self._latencies: list[float] = []
         # (atom feature width, edge feature width) learned at warm(): the
@@ -110,14 +135,19 @@ class InferenceServer:
     # ---- lifecycle ----
 
     def warm(self, template: CrystalGraph) -> int:
-        """Run every rung once with one copy of ``template``: builds the
-        kernels and initializes the device libraries before traffic.
+        """Run every rung once with one copy of ``template`` (and, with a
+        raw spec, the raw program once with ``spec.template()``): builds
+        the kernels and initializes the device libraries before traffic.
         -> the number of rungs run."""
         self._feature_dims = (template.atom_fea.shape[1],
                               template.edge_fea.shape[1])
+        raw = self.shape_set.raw
         for shape in self.shape_set:
             batch = self.shape_set.pack_full([template], shape=shape)
             self.predict_step(self.state, batch.to(self.device)).cpu()
+            if raw is not None:
+                rb = self.shape_set.pack_raw([raw.template()], shape=shape)
+                self.predict_step(self.state, rb.to(self.device))[0].cpu()
         self._log(f"serve: warmed {len(self.shape_set)} shapes on "
                   f"{self.device}")
         return len(self.shape_set)
@@ -172,36 +202,78 @@ class InferenceServer:
         if problems:
             raise ServeRejection(MALFORMED, "; ".join(problems))
 
-    def submit(self, graph: CrystalGraph | Structure,
+    def _check_wellformed_raw(self, rs: RawStructure) -> None:
+        """A wire-form structure the device search (or the featurizer)
+        would choke on fails ALONE at admission (400): no atoms, species
+        outside the element table, non-finite geometry, a singular
+        lattice."""
+        problems = []
+        if rs.num_nodes < 1:
+            problems.append("structure has no atoms")
+        z = rs.numbers
+        if len(z) and (z.min() < 1 or z.max() > MAX_Z):
+            problems.append(
+                f"species outside the element table [1, {MAX_Z}] "
+                f"(min {z.min()}, max {z.max()})")
+        if not (np.isfinite(rs.frac_coords).all()
+                and np.isfinite(rs.lattice).all()):
+            problems.append("non-finite coordinates or lattice")
+        elif abs(float(np.linalg.det(rs.lattice))) < 1e-6:
+            problems.append("degenerate lattice (volume ~ 0)")
+        if problems:
+            raise ServeRejection(MALFORMED, "; ".join(problems))
+
+    def _admit_form(self, rs: RawStructure) -> str:
+        """'raw' when the structure fits the raw caps (the host f64
+        pre-check, or with ``raw_precheck=False`` only the atom-slot cap,
+        leaving the image decision to the device's overflow flag), else
+        'feat': featurized on the worker at pack time."""
+        spec = self.shape_set.raw
+        if spec is not None:
+            if self._raw_precheck:
+                if spec.admits(rs):
+                    return "raw"
+            elif 1 <= rs.num_nodes <= spec.snode_cap:
+                return "raw"
+        if self.featurizer is None:
+            raise ServeRejection(
+                MALFORMED,
+                "wire-form structure cannot be served: "
+                + (spec.oversize_detail(rs) if spec is not None
+                   else "raw wire is not enabled")
+                + " and no featurizer is configured")
+        return "feat"
+
+    def submit(self, graph: CrystalGraph | RawStructure | Structure,
                timeout_ms: float | None = None) -> RequestFuture:
         """Admit one structure; returns its future (raises ServeRejection
         on malformed / oversize / queue-full / draining). A wire-form
-        ``Structure`` is featurized here with the server's featurizer."""
+        structure (a ``Structure`` becomes a ``RawStructure``) is staged
+        raw when it fits the raw caps; otherwise the worker featurizes it
+        at pack time, never this thread."""
         now = time.monotonic()
         self._count("requests")
         try:
+            form = "feat"
             if isinstance(graph, Structure):
-                if self.featurizer is None:
-                    raise ServeRejection(
-                        MALFORMED, "wire-form structure but no featurizer")
-                try:
-                    graph = self.featurizer(graph)
-                except ValueError as e:
-                    raise ServeRejection(
-                        MALFORMED, f"structure featurization failed: {e}"
-                    ) from None
-            self._check_wellformed(graph)
+                graph = RawStructure.from_structure(graph)
+            if isinstance(graph, RawStructure):
+                self._check_wellformed_raw(graph)
+                form = self._admit_form(graph)
+            else:
+                self._check_wellformed(graph)
             timeout = (timeout_ms / 1000.0 if timeout_ms is not None
                        else self.default_timeout)
             req = Request(graph=graph, enqueued=now,
-                          deadline=None if timeout is None else now + timeout)
+                          deadline=None if timeout is None else now + timeout,
+                          form=form)
             self.batcher.offer(req)
         except ServeRejection as e:
             self._count(f"reject_{e.reason}")
             raise
         return req.future
 
-    def predict(self, graph: CrystalGraph | Structure,
+    def predict(self, graph: CrystalGraph | RawStructure | Structure,
                 timeout_ms: float | None = None) -> ServeResult:
         """Blocking convenience: submit + wait."""
         fut = self.submit(graph, timeout_ms=timeout_ms)
@@ -224,14 +296,27 @@ class InferenceServer:
             r.future.set_error(ServeRejection(
                 TIMEOUT, f"deadline exceeded after "
                 f"{(time.monotonic() - r.enqueued) * 1e3:.1f} ms in queue"))
+        raw = flush.form == "raw"
+        if not raw:
+            self._featurize_pending(flush)
         reqs = flush.requests
         if not reqs:
             return
+        overflow = None
         try:
-            batch = self.shape_set.pack_full([r.graph for r in reqs],
-                                             shape=flush.shape)
-            out = self.predict_step(
-                self.state, batch.to(self.device)).cpu().numpy()
+            if raw:
+                self._count("pack_raw")
+                batch = self.shape_set.pack_raw([r.graph for r in reqs],
+                                                shape=flush.shape)
+                preds, overflow, _ = self.predict_step(
+                    self.state, batch.to(self.device))
+                out = preds.cpu().numpy()
+                overflow = overflow.cpu().numpy()
+            else:
+                batch = self.shape_set.pack_full([r.graph for r in reqs],
+                                                 shape=flush.shape)
+                out = self.predict_step(
+                    self.state, batch.to(self.device)).cpu().numpy()
         except Exception as e:  # noqa: BLE001 — fail the flush, not the server
             self._log(f"serve: batch {flush.flush_id} failed: {e!r}")
             self._count("batch_failures")
@@ -240,15 +325,63 @@ class InferenceServer:
             return
         now = time.monotonic()
         occupancy = len(reqs) / flush.shape.graph_cap
+        wire = "raw" if raw else "featurized"
         for i, r in enumerate(reqs):
+            if overflow is not None and overflow[i]:
+                # the device's cap-overflow flag: this row came from a
+                # truncated graph and is never served
+                self._fallback_overflow(r)
+                continue
             latency_ms = (now - r.enqueued) * 1e3
             r.future.set_result(ServeResult(
                 prediction=out[i].copy(), param_version=self.version,
                 latency_ms=latency_ms, batch_occupancy=occupancy,
-                flush_id=flush.flush_id))
+                flush_id=flush.flush_id, wire=wire))
             self._record_latency(latency_ms)
             self._count("responses")
+            if raw:
+                self._count("responses_raw")
         self._count("batches")
+
+    def _featurize_pending(self, flush: Flush) -> None:
+        """Featurize the flush's deferred wire-form structures here, on
+        the worker, never on the admission thread. A structure the
+        featurizer rejects fails alone (400); the rest of the flush goes
+        on."""
+        keep = []
+        for r in flush.requests:
+            if isinstance(r.graph, RawStructure):
+                try:
+                    if self.featurizer is None:
+                        raise ValueError("no featurizer configured")
+                    g = self.featurizer(r.graph)
+                    self._check_wellformed(g)
+                except Exception as e:  # noqa: BLE001 — fail this request only
+                    self._count("reject_malformed")
+                    r.future.set_error(ServeRejection(
+                        MALFORMED, f"structure featurization failed: {e}"))
+                    continue
+                r.graph = g
+            keep.append(r)
+        flush.requests = keep
+
+    def _fallback_overflow(self, r: Request) -> None:
+        """Re-offer an overflow-flagged raw request as a featurized one
+        with the same future and deadline (the worker featurizes it, a
+        featurized flush answers it)."""
+        self._count("ingest_cap_overflow")
+        if self.featurizer is None:
+            r.future.set_error(ServeRejection(
+                OVERSIZE, self.shape_set.raw.oversize_detail(r.graph)
+                + " (device cap-overflow flag; no featurizer configured)"))
+            return
+        try:
+            self.batcher.offer(Request(graph=r.graph, enqueued=r.enqueued,
+                                       deadline=r.deadline, future=r.future,
+                                       form="feat"))
+        except ServeRejection as e:
+            self._count(f"reject_{e.reason}")
+            r.future.set_error(e)
 
     # ---- bookkeeping ----
 
@@ -282,19 +415,28 @@ class InferenceServer:
             "device": str(self.device),
             "latency_ms": self.latency_quantiles(),
             "shapes": [s.to_meta() for s in self.shape_set],
+            "raw": (None if self.shape_set.raw is None
+                    else self.shape_set.raw.to_meta()),
         }
 
 
 def structure_featurizer(data_cfg: DataConfig) -> Callable:
-    """Structure -> CrystalGraph with the checkpoint's featurization
-    config, so online requests are featurized like the training data."""
+    """RawStructure (or Structure) -> CrystalGraph with the checkpoint's
+    featurization config, so online requests are featurized like the
+    training data (the deferred featurize and the cap-overflow
+    fallback)."""
     from cgnn_tpu_torch.data.dataset import featurize_structure
 
     cfg = data_cfg.featurize_config()
     gdf = cfg.gdf()
 
-    def featurize(s: Structure) -> CrystalGraph:
-        return featurize_structure(s, np.zeros(1, np.float32), cfg, "", gdf)
+    def featurize(rs: RawStructure | Structure) -> CrystalGraph:
+        s = Structure(rs.lattice, rs.frac_coords, rs.numbers)
+        target = getattr(rs, "target", None)
+        return featurize_structure(
+            s, np.zeros(1, np.float32) if target is None else target, cfg,
+            getattr(rs, "cif_id", ""), gdf,
+            target_mask=getattr(rs, "target_mask", None))
 
     return featurize
 
@@ -312,16 +454,27 @@ def load_server(
     default_timeout_ms: float | None = 1000.0,
     device="cuda",
     log_fn: Callable = print,
+    wire: str = "auto",
+    raw_precheck: bool = True,
 ):
     """Boot an InferenceServer from a saved parameter file
     (convert.save_params): rebuild the model from the meta's configs,
     plan the shape ladder from ``calibration`` (default: synthetic
-    structures drawn with the checkpoint's own featurization config),
-    warm every rung, start the worker.
+    structures drawn with the checkpoint's own featurization config,
+    geometry kept), warm every rung, start the worker.
+
+    ``wire``: 'raw' also serves wire-form structures through the device
+    neighbor search (a raw spec planned from the calibration's lattices),
+    'featurized' featurizes them on the host, 'auto' is 'raw' on a CUDA
+    device and 'featurized' on the CPU. ``raw_precheck``: see
+    InferenceServer.
 
     -> (server, dict of what callers reuse: meta, configs, template graph,
     the calibration sample).
     """
+    if wire not in ("auto", "raw", "featurized"):
+        raise ValueError(
+            f"wire must be 'auto', 'raw' or 'featurized', got {wire!r}")
     dev = resolve_device(device)
     variables, meta = load_params(params_npz, meta_json)
     # serving admits any structure that fits the ladder: widen
@@ -338,11 +491,21 @@ def load_server(
         from cgnn_tpu_torch.data.dataset import load_synthetic
 
         calibration = load_synthetic(calibration_n,
-                                     data_cfg.featurize_config(), seed=0)
+                                     data_cfg.featurize_config(), seed=0,
+                                     keep_geometry=True)
+    dense_m = model_cfg.dense_m or None
+    raw_spec = None
+    if wire == "raw" or (wire == "auto" and dev.type == "cuda"):
+        fcfg = data_cfg.featurize_config()
+        try:
+            raw_spec = plan_raw_spec(list(calibration), fcfg.gdf(),
+                                     fcfg.radius, dense_m)
+        except RawUnsupported as e:
+            log_fn(f"serve: raw wire unavailable ({e}); featurized wire "
+                   f"only")
     shape_set = plan_shape_set(
-        calibration, batch_size, rungs=rungs,
-        dense_m=model_cfg.dense_m or None,
-        num_targets=model_cfg.num_targets,
+        calibration, batch_size, rungs=rungs, dense_m=dense_m,
+        num_targets=model_cfg.num_targets, raw=raw_spec,
     )
     template = calibration[0]
     server = InferenceServer(
@@ -350,7 +513,7 @@ def load_server(
         version=os.path.basename(params_npz), max_queue=max_queue,
         max_wait_ms=max_wait_ms, default_timeout_ms=default_timeout_ms,
         featurizer=structure_featurizer(data_cfg), device=dev,
-        log_fn=log_fn,
+        log_fn=log_fn, raw_precheck=raw_precheck,
     )
     server.warm(template)
     server.start()

@@ -5,6 +5,10 @@ once from a calibration sample; the micro-batcher packs every flush into
 the smallest rung that fits. PyTorch runs eagerly, so the ladder buys no
 compile cache here — it bounds the shapes the kernels see and keeps the
 rungs equal to the JAX package's for the same calibration sample.
+
+With a :class:`RawSpec` the set also stages wire-form structures: a rung's
+raw batch holds ``graph_cap`` structure slots of ``snode_cap`` atoms, and
+the raw expander (ops/neighbor_search.py) builds the graph on the device.
 """
 
 from __future__ import annotations
@@ -22,6 +26,12 @@ from cgnn_tpu_torch.data.graph import (
     capacities_for,
     graph_cap_for,
     pack_graphs,
+)
+from cgnn_tpu_torch.data.rawbatch import (
+    RawBatch,
+    RawSpec,
+    RawStructure,
+    pack_raw,
 )
 
 
@@ -49,7 +59,8 @@ class ShapeSet:
     parameters every rung shares (dense layout, target width)."""
 
     def __init__(self, shapes: Sequence[BatchShape], *,
-                 dense_m: int | None = None, num_targets: int = 1):
+                 dense_m: int | None = None, num_targets: int = 1,
+                 raw: RawSpec | None = None):
         if not shapes:
             raise ValueError("a ShapeSet needs at least one shape")
         if dense_m is None:
@@ -58,6 +69,12 @@ class ShapeSet:
         self.shapes = tuple(sorted(set(shapes)))
         self.dense_m = dense_m
         self.num_targets = num_targets
+        self.raw = raw
+        if raw is not None and raw.dense_m != dense_m:
+            raise ValueError(
+                f"raw spec max_num_nbr {raw.dense_m} != layout dense_m "
+                f"{dense_m} (the device truncation must match the model's "
+                f"slot layout)")
         for s in self.shapes:
             if s.edge_cap != s.node_cap * dense_m:
                 raise ValueError(
@@ -112,9 +129,42 @@ class ShapeSet:
             num_targets=self.num_targets, dense_m=self.dense_m,
         )
 
+    def raw_expander(self, impl: str = "pallas", device="cuda"):
+        """RawBatch -> (GraphBatch, overflow, n_edges) for this set's raw
+        spec, its constants on ``device`` (None without a spec): hand it
+        to ``train.step.make_predict_step(raw_expander=...)``. ``impl``:
+        see ``ops.neighbor_search.neighbor_search``."""
+        if self.raw is None:
+            return None
+        from cgnn_tpu_torch.ops.neighbor_search import make_raw_expander
+
+        return make_raw_expander(self.raw, impl=impl, device=device)
+
+    def admits_raw(self, rs: RawStructure) -> bool:
+        """Host pre-check: can this wire-form structure stage raw? False
+        without a raw spec; never raises. False routes the request to the
+        featurized wire, not to a rejection."""
+        return self.raw is not None and self.raw.admits(rs)
+
+    def pack_raw(self, items: Sequence[RawStructure],
+                 shape: BatchShape | None = None) -> RawBatch:
+        """Stage wire-form structures into one rung's RawBatch (default:
+        the smallest rung whose graph slots fit them)."""
+        if self.raw is None:
+            raise ValueError("this shape set carries no raw spec")
+        if shape is None:
+            shape = next((s for s in self.shapes
+                          if len(items) <= s.graph_cap), None)
+            if shape is None:
+                raise ValueError(
+                    f"{len(items)} structures fit no rung's graph slots")
+        return pack_raw(list(items), shape.graph_cap, self.raw,
+                        num_targets=self.num_targets)
+
     def to_meta(self) -> dict:
         return {"shapes": [s.to_meta() for s in self.shapes],
-                "dense_m": self.dense_m, "num_targets": self.num_targets}
+                "dense_m": self.dense_m, "num_targets": self.num_targets,
+                "raw": None if self.raw is None else self.raw.to_meta()}
 
 
 def plan_shape_set(
@@ -124,6 +174,7 @@ def plan_shape_set(
     rungs: int = 3,
     dense_m: int | None = None,
     num_targets: int | None = None,
+    raw: RawSpec | None = None,
 ) -> ShapeSet:
     """Quantize a serving ladder from a calibration sample.
 
@@ -131,6 +182,7 @@ def plan_shape_set(
     at ``batch_size`` with ``graph_cap_for`` slack); each lower rung halves
     the graph budget and scales node capacity proportionally (8-aligned),
     floored so that ANY calibration-sized structure fits EVERY rung.
+    ``raw`` adds the raw wire (``data.rawbatch.plan_raw_spec``).
     """
     if not len(calibration):
         raise ValueError("shape planning needs a calibration sample")
@@ -152,4 +204,5 @@ def plan_shape_set(
         else:
             ec = _align8(max(math.ceil(edge_cap / scale), max_edges))
         shapes.append(BatchShape(graph_cap_for(b), nc, ec))
-    return ShapeSet(shapes, dense_m=dense_m, num_targets=num_targets)
+    return ShapeSet(shapes, dense_m=dense_m, num_targets=num_targets,
+                    raw=raw)

@@ -16,6 +16,7 @@ from typing import Callable
 import torch
 
 from cgnn_tpu_torch.data.graph import GraphBatch
+from cgnn_tpu_torch.data.rawbatch import RawBatch
 from cgnn_tpu_torch.train.normalizer import Normalizer
 
 
@@ -73,12 +74,24 @@ def make_eval_step() -> Callable:
     return eval_step
 
 
-def make_predict_step() -> Callable:
+def make_predict_step(raw_expander: Callable | None = None) -> Callable:
     """(state, batch) -> denormalized predictions [G, T]; padding graph
-    slots are zeroed."""
+    slots are zeroed.
+
+    ``raw_expander`` (``ops.neighbor_search.make_raw_expander``) adds the
+    raw wire: a ``RawBatch`` is turned into a GraphBatch by the device
+    neighbor search and featurization, and the step returns ``(predictions
+    [G, T], cap_overflow [G] bool, n_edges [G] i32)``, all on the device
+    (no host sync inside). A flagged structure's row must never be served.
+    """
 
     @torch.inference_mode()
-    def predict_step(state: InferenceState, batch: GraphBatch):
+    def predict_step(state: InferenceState, batch):
+        if raw_expander is not None and isinstance(batch, RawBatch):
+            gb, overflow, n_edges = raw_expander(batch)
+            out = state.model(gb)
+            preds = state.normalizer.denorm(out) * gb.graph_mask[:, None]
+            return preds, overflow, n_edges
         out = state.model(batch)
         return state.normalizer.denorm(out) * batch.graph_mask[:, None]
 

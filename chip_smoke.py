@@ -6,26 +6,40 @@ Run from the repository root on a machine with an H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``cgnn_tpu_torch/ops/csrc`` with
-nvcc (``fused_cgconv.cu`` and ``fused_epilogue.cu``, one nvcc each, in
-parallel, into ``build/kernels``), then:
+nvcc (``fused_cgconv.cu``, ``fused_epilogue.cu`` and ``neighbor_search.cu``,
+one nvcc each, in parallel, into ``build/kernels``), then:
 
-1. kernel phase — holds each of the five kernels against its plain PyTorch
+1. kernel phase — holds each of the six kernels against its plain PyTorch
    version on the card and times both with CUDA events beside the card's
    bound for the same work. Kernel 1 (the whole-conv apply pass) runs at
    the flagship CGCNN's top serving rung (N=1784 nodes, M=12 slots, F=64,
    G=41); kernels 2-5 (the stats pass, and the fused epilogue's apply,
    reduce and dz passes) at the training shape, a snug batch-256 pack of
-   MP-like structures (N=7408). Seeded random features and conv
-   parameters. Tolerances: elementwise outputs rtol 1e-4 / atol 1e-5;
-   kernel 2's and 4's column sums within 1e-4 / 5e-4 of their row's
-   largest entry (sums of ~10^5 terms in another order), and bit-identical
-   when run again;
-2. serve phase — boots ``load_server`` on seeded random weights at full
-   width (``cgconv_impl='pallas'``, batch 64, 3 rungs), answers 256
-   MP-like requests (224 featurized graphs + 32 wire structures) from 4
-   client threads, checks every answer against the unfused plain model on
-   the card (rtol 1e-4 / atol 1e-4) and that kernel 1 launched exactly
-   ``n_conv`` times per flush, and reports requests/s and latency;
+   MP-like structures (N=7832); kernel 8 (the raw wire's periodic neighbor
+   search) at the top raw rung (72 structure slots of S=64 atoms, K=125
+   images, M=12) on the admitted calibration structures plus padding
+   slots, then on the exact-tie simple cubic cell with a padding slot;
+   kernel 1 again on the graph the raw expander builds on the card at that
+   rung (N=72x64=4608 node slots, padding and self-loop slots included).
+   Seeded random features and conv parameters. Tolerances: elementwise
+   outputs rtol 1e-4 / atol 1e-5; kernel 2's and 4's column sums within
+   1e-4 / 5e-4 of their row's largest entry (sums of ~10^5 terms in
+   another order), and bit-identical when run again; kernel 8's outputs
+   (neighbors, distances, edge mask, edge counts) bit-equal to its plain
+   version's and to its own on a second run;
+2. serve phase — boots ``load_server(wire='raw')`` on seeded random
+   weights at full width (``cgconv_impl='pallas'``, batch 64, 3 rungs) and
+   answers, from 4 client threads, a burst of 224 featurized MP-like
+   graphs (path ``serve``), then one of 32 wire-form ``RawStructure``s
+   (path ``serve_raw``: most staged raw, the rest featurized on the
+   worker). It checks every answer against the unfused plain model on
+   host-featurized copies (rtol 1e-4 / atol 1e-4), that in each run
+   kernel 8 launched once per raw flush and kernel 1 ``n_conv`` times per
+   flush, and reports each run's requests/s and latency. An overflow leg
+   (``raw_precheck=False``, a one-atom 2 A cubic cell) must be answered
+   through the featurized fallback, equal to its featurized answer. Then a
+   featurized and a raw top-rung flush are broken down into pack, copy
+   and step;
 3. train phase — the port's ``fit`` at full width with
    ``cgconv_impl='pallas'``: 512 MP-like training structures (64 for
    validation), batch 256, train.py's SGD defaults, 2 epochs. Kernels 2, 4
@@ -72,6 +86,8 @@ M = 12  # the flagship's max_num_nbr: dense edge slots per node
 BATCH, EPOCHS = 256, 2
 N_TRAIN_SET = 640  # split 0.8 / 0.1 / 0.1 -> 512 train, 64 val, 64 test
 NO_LIBRARY = {
+    "neighbor_search": "no single PyTorch call computes the lexicographic "
+                       "top-M periodic neighbor search",
     "fused_cgconv_eval": "no PyTorch call computes the gathered, gated conv",
     "fused_cgconv_stats": "no PyTorch call computes masked moments of the "
                           "gathered z without materializing it",
@@ -125,12 +141,14 @@ def kernel_wrappers() -> dict:
     """Each kernel's wrapper by name; ``.launches`` is its count."""
     from cgnn_tpu_torch.ops import fused_cgconv as fc
     from cgnn_tpu_torch.ops import fused_epilogue as fe
+    from cgnn_tpu_torch.ops import neighbor_search as ns
 
     return {"fused_cgconv_eval": fc.fused_cgconv_eval_cuda,
             "fused_cgconv_stats": fc.fused_cgconv_stats_cuda,
             "epilogue_apply": fe.epilogue_apply_cuda,
             "epilogue_reduce": fe.epilogue_reduce_cuda,
-            "epilogue_dz": fe.epilogue_dz_cuda}
+            "epilogue_dz": fe.epilogue_dz_cuda,
+            "neighbor_search": ns.neighbor_search_cuda}
 
 
 def zero_counts() -> None:
@@ -166,16 +184,21 @@ def compare(name, got, want, rtol, atol=0.0, row_scale=False):
     return max_abs, max_rel
 
 
-def kernel_entry(name, source, replaces, errs, ms, plain_ms, cost):
-    """One kernel's record for the ``kernels`` line; the bound is the
-    larger of its compulsory bytes at HBM rate and its f32 operations at
-    the non-tensor-core peak."""
+def bound(cost):
+    """-> (ms, 'bytes' or 'operations'): the larger of a cost's compulsory
+    bytes at HBM rate and its f32 operations at the non-tensor-core peak."""
     bytes_ms = cost["bytes"] / PEAK_BYTES * 1e3
     ops_ms = cost["flops"] / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
+                                   else "operations")
+
+
+def kernel_entry(name, source, replaces, errs, ms, plain_ms, cost):
+    """One kernel's record for the ``kernels`` line, with its ``bound``."""
+    bound_ms, bound_by = bound(cost)
     print(f"{name}: {ms!r} ms a call, {plain_ms!r} ms plain; "
           f"{cost['flops']} FLOP, {cost['bytes']} B -> bound "
-          f"{max(bytes_ms, ops_ms)!r} ms; library_ms null: "
-          f"{NO_LIBRARY[name]}")
+          f"{bound_ms!r} ms; library_ms null: {NO_LIBRARY[name]}")
     return {
         "name": name,
         "route": "cuda",
@@ -186,9 +209,10 @@ def kernel_entry(name, source, replaces, errs, ms, plain_ms, cost):
         "max_rel_err": errs[1],
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,
+        "library_ms_null_because": NO_LIBRARY[name],
     }
 
 
@@ -220,7 +244,7 @@ def conv_inputs(dev, batch, f=64):
 
 
 def slot_counts(batch):
-    mask = batch.edge_mask.reshape(batch.edges.shape[:2]).numpy() > 0
+    mask = batch.edge_mask.reshape(batch.edges.shape[:2]).cpu().numpy() > 0
     return int(mask.sum()), int(mask.any(axis=1).sum())
 
 
@@ -325,13 +349,108 @@ def train_kernel_phase(dev, train_graphs):
     return entries
 
 
+def search_kernel_phase(dev, calibration, shape_set):
+    """Kernel 8 at the top raw rung against its plain version (every
+    output bit-equal, and the same bits on a second run), then on the
+    exact-tie simple cubic cell beside a padding slot; and kernel 1 on the
+    graph the raw expander builds on the card at that rung. -> (kernel 8's
+    entry, kernel 1's record at the top raw rung)."""
+    import numpy as np
+
+    from cgnn_tpu_torch.data.rawbatch import (
+        RawStructure,
+        pack_raw,
+        raw_from_graph,
+    )
+    from cgnn_tpu_torch.data.structure import Structure
+    from cgnn_tpu_torch.ops import fused_cgconv as fc
+    from cgnn_tpu_torch.ops import neighbor_search as ns
+
+    spec = shape_set.raw
+    raws = [r for r in map(raw_from_graph, calibration) if spec.admits(r)]
+    rb = shape_set.pack_raw(raws, shape=shape_set.largest).to(dev)
+    g, s = rb.atom_mask.shape
+    k, m = spec.n_images, spec.dense_m
+    print(f"raw top rung: G={g} S={s} K={k} M={m}, {len(raws)} of "
+          f"{len(calibration)} calibration structures admitted")
+    args = (rb.frac, rb.lattices, rb.atom_mask, ns.offsets_tensor(spec, dev),
+            spec.radius, spec.home_image, m)
+    errs = search_equal("neighbor_search", args)
+    cubic = RawStructure.from_structure(
+        Structure(np.eye(3) * 3.0, [[0.0, 0.0, 0.0]], [29]))
+    tie = dataclasses.replace(spec, snode_cap=8, images=(3, 3, 3))
+    tb = pack_raw([cubic], 2, tie).to(dev)
+    search_equal("neighbor_search, exact-tie cubic cell + a padding slot",
+                 (tb.frac, tb.lattices, tb.atom_mask,
+                  ns.offsets_tensor(tie, dev), tie.radius, tie.home_image,
+                  m))
+    entry = kernel_entry(
+        "neighbor_search", "neighbor_search.cu",
+        "cgnn_tpu/ops/neighbor_search.py:136", errs,
+        time_ms(lambda: ns.neighbor_search_cuda(*args)),
+        time_ms(lambda: ns.neighbor_search_reference(*args), calls=5,
+                trials=3, warmup=1),
+        ns.neighbor_search_cost(g, s, k, m,
+                                sum(r.num_nodes ** 2 for r in raws)))
+
+    # kernel 1 on the raw path's own graph: N = G*S node slots, padding
+    # rows and self-loop slots included, edges from the card's f32 distances
+    gb, _, _ = shape_set.raw_expander(device=dev)(rb)
+    cargs = conv_inputs(dev, gb)
+    k1_errs = compare("fused_cgconv_eval at the top raw rung",
+                      fc.fused_cgconv_eval_cuda(*cargs),
+                      fc.fused_cgconv_eval_reference(*cargs), RTOL, ATOL)
+    n, m1, gdf = gb.edges.shape
+    bound_ms, bound_by = bound(fc.eval_pass_cost(n, m1, gdf, 64,
+                                                 *slot_counts(gb)))
+    k1_raw = {"N": n, "max_abs_err": k1_errs[0], "max_rel_err": k1_errs[1],
+              "ms": time_ms(lambda: fc.fused_cgconv_eval_cuda(*cargs)),
+              "plain_ms": time_ms(
+                  lambda: fc.fused_cgconv_eval_reference(*cargs)),
+              "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"fused_cgconv_eval at the top raw rung (N={n}): {k1_raw['ms']!r} "
+          f"ms a call, {k1_raw['plain_ms']!r} ms plain, bound "
+          f"{bound_ms!r} ms; kernel 8 max_abs_err {errs[0]!r}, kernel 1 "
+          f"max_abs_err {k1_errs[0]!r}")
+    return entry, k1_raw
+
+
+def search_equal(label, args):
+    """Kernel 8 twice and its plain version on ``args``: every output
+    bit-equal across the three. -> (max abs, max rel) distance error
+    against the plain version."""
+    import torch
+
+    from cgnn_tpu_torch.ops import neighbor_search as ns
+
+    got = ns.neighbor_search_cuda(*args)
+    again = ns.neighbor_search_cuda(*args)
+    want = ns.neighbor_search_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("neighbors", "distances", "edge_mask",
+                              "n_edges"), got, want, again):
+        check(torch.equal(a, b), f"{label}: {name} differ from the plain "
+                                 f"version's")
+        check(torch.equal(a, c), f"{label}: {name} differ from run to run")
+    err = (got[1] - want[1]).abs()
+    print(f"{label}: neighbors, distances, edge mask and n_edges bit-equal "
+          f"to the plain version and on a second run ({int(got[3].sum())} "
+          f"edges): ok")
+    return (float(err.max()),
+            float((err / want[1].abs().clamp_min(1e-6)).max()))
+
+
 def serve_phase(dev, calibration, work_dir):
-    """The serving path: load_server at full width, 256 requests."""
+    """The serving path: load_server(wire='raw') at full width, a burst
+    of 224 featurized graphs (path 'serve'), then one of 32 wire-form
+    structures (path 'serve_raw'), each a run with its own counts; then
+    the overflow leg."""
     import numpy as np
 
     from cgnn_tpu_torch import convert
     from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
     from cgnn_tpu_torch.data.dataset import load_synthetic_mp
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
     from cgnn_tpu_torch.data.synthetic import synthetic_mp_dataset
     from cgnn_tpu_torch.serve.server import load_server, structure_featurizer
     from cgnn_tpu_torch.train.normalizer import Normalizer
@@ -348,54 +467,50 @@ def serve_phase(dev, calibration, work_dir):
     t0 = time.perf_counter()
     server, info = load_server(npz, meta, batch_size=64, rungs=3,
                                calibration=calibration, device=dev,
-                               default_timeout_ms=60_000.0)
+                               default_timeout_ms=60_000.0, wire="raw")
+    spec = server.shape_set.raw
+    check(spec is not None, "load_server(wire='raw') planned no raw spec")
     print(f"serve: load_server + warm {time.perf_counter() - t0!r} s; "
-          f"rungs {[tuple(vars(s).values()) for s in server.shape_set]}")
+          f"rungs {[tuple(vars(s).values()) for s in server.shape_set]}; "
+          f"raw spec {spec.to_meta()}")
     graphs = load_synthetic_mp(N_GRAPHS, data_cfg.featurize_config(),
                                seed=SEED + 1)
-    wire = [s for _, s, _ in synthetic_mp_dataset(N_WIRE, seed=SEED + 2)]
+    wire = [RawStructure.from_structure(s, cif_id=sid)
+            for sid, s, _ in synthetic_mp_dataset(N_WIRE, seed=SEED + 2)]
+    n_admitted = sum(spec.admits(r) for r in wire)
+    n_conv = model_cfg.n_conv
+    # the featurized path's run, then the raw wire's, each with its counts
+    runs = {path: burst(server, reqs)
+            for path, reqs in (("serve", graphs), ("serve_raw", wire))}
+    feat, raw = runs["serve"], runs["serve_raw"]
+    check(feat["wires"] == ["featurized"] * len(graphs)
+          and feat["raw_flushes"] == 0
+          and feat["launches"]["neighbor_search"] == 0
+          and feat["launches"]["fused_cgconv_eval"]
+          == n_conv * feat["flushes"] > 0,
+          f"featurized run: {feat['flushes']} flushes, launches "
+          f"{feat['launches']}: want no raw flush, no kernel-8 launch and "
+          f"n_conv {n_conv} kernel-1 launches a flush")
+    deferred = raw["wires"].count("featurized")
+    print(f"serve_raw: {N_WIRE} wire structures ({n_admitted} admitted raw, "
+          f"{deferred} featurized on the worker)")
+    check(raw["responses_raw"] == n_admitted == raw["wires"].count("raw")
+          and deferred == N_WIRE - n_admitted >= 1,
+          f"{raw['responses_raw']} raw answers, {deferred} deferred: want "
+          f"{n_admitted} raw and at least one deferred")
+    check(raw["raw_flushes"] > 0
+          and raw["launches"]["neighbor_search"] == raw["raw_flushes"],
+          f"{raw['launches']['neighbor_search']} kernel-8 launches != "
+          f"{raw['raw_flushes']} raw flushes")
+    check(raw["launches"]["fused_cgconv_eval"] == n_conv * raw["flushes"],
+          f"{raw['launches']['fused_cgconv_eval']} kernel-1 launches != "
+          f"n_conv {n_conv} x {raw['flushes']} flushes (raw and featurized)")
     requests = graphs + wire
-    results = [None] * len(requests)
-    errors = []
+    preds = np.concatenate([feat.pop("preds"), raw.pop("preds")])
+    wires = feat.pop("wires") + raw.pop("wires")
 
-    def client(k):
-        try:
-            futs = [(i, server.submit(requests[i]))
-                    for i in range(k, len(requests), N_CLIENTS)]
-            for i, fut in futs:
-                results[i] = fut.result(timeout=120)
-        except Exception as e:  # noqa: BLE001 — reported by the check below
-            errors.append(repr(e))
-
-    threads = [threading.Thread(target=client, args=(k,),
-                                name=f"chip-smoke-client-{k}")
-               for k in range(N_CLIENTS)]
-    # the serving path's run: counts at 0 just before, read just after
-    zero_counts()
-    flushes0 = server.counts["batches"]
-    t0 = time.perf_counter()
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(timeout=300)
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    launches = counts["fused_cgconv_eval"]
-    flushes = server.counts["batches"] - flushes0
-    check(not any(th.is_alive() for th in threads), "a client hung")
-    lat = server.latency_quantiles()
-    check(server.drain(timeout_s=60), "the serve worker did not drain")
-    check(not errors, f"client errors: {errors[:3]}")
-    check(all(r is not None for r in results), "unanswered requests")
-    preds = np.stack([r.prediction for r in results])
-    check(preds.shape == (len(requests), 1), f"bad shape {preds.shape}")
-    check(bool(np.isfinite(preds).all()), "non-finite predictions")
-    check(launches > 0, "the kernel never launched on the serving path")
-    check(launches == model_cfg.n_conv * flushes,
-          f"{launches} kernel launches != n_conv {model_cfg.n_conv} x "
-          f"{flushes} flushes")
-
-    # the same weights through the unfused plain path on the card
+    # the same weights through the unfused plain path on the card, on
+    # host-featurized copies of the wire structures
     plain = build_model(dataclasses.replace(model_cfg, cgconv_impl=""),
                         data_cfg, device=dev)
     plain.load_state_dict(convert.from_flax_variables(variables))
@@ -416,21 +531,115 @@ def serve_phase(dev, calibration, work_dir):
             chunk.append(g)
     want = np.concatenate(want)
     err = np.abs(preds - want)
+    raw_rows = np.array(wires) == "raw"
     ok = bool(np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(want)))
     print(f"serve: {len(requests)} answers vs the plain path: max_abs_err "
-          f"{float(err.max())!r} (rtol {SERVE_RTOL}, atol {SERVE_ATOL}): "
-          f"{'ok' if ok else 'FAIL'}")
+          f"{float(err.max())!r}, raw-wire answers {float(err[raw_rows].max())!r}"
+          f" (rtol {SERVE_RTOL}, atol {SERVE_ATOL}): {'ok' if ok else 'FAIL'}")
     check(ok, "served answers disagree with the plain path")
-    summary = {
-        "requests": len(requests), "flushes": flushes,
-        "kernel_launches": launches, "wall_s": wall,
-        "requests_per_s": len(requests) / wall,
-        "latency_ms_p50": lat["p50"], "latency_ms_p99": lat["p99"],
-        "max_abs_err_vs_plain": float(err.max()),
-    }
+    summary = dict(runs, deferred_featurized=deferred,
+                   max_abs_err_vs_plain=float(err.max()),
+                   raw_max_abs_err_vs_plain=float(err[raw_rows].max()))
+    summary["overflow_leg"], overflow_counts = overflow_leg(
+        dev, npz, meta, calibration, n_conv)
     breakdown = flush_breakdown(dev, server.state, server.shape_set,
                                 calibration)
-    return summary, breakdown, counts
+    raw_breakdown = raw_flush_breakdown(dev, server, calibration)
+    check(server.drain(timeout_s=60), "the serve worker did not drain")
+    counts = {"serve": feat["launches"], "serve_raw": raw["launches"],
+              "serve_raw_overflow": overflow_counts}
+    return summary, breakdown, raw_breakdown, counts
+
+
+def burst(server, requests):
+    """``requests`` from N_CLIENTS threads at once, kernel counts at 0
+    just before and read just after -> the answers, their wire forms and
+    the run's flushes, launches, requests/s and latency quantiles."""
+    import numpy as np
+
+    results = [None] * len(requests)
+    errors = []
+
+    def client(k):
+        try:
+            futs = [(i, server.submit(requests[i]))
+                    for i in range(k, len(requests), N_CLIENTS)]
+            for i, fut in futs:
+                results[i] = fut.result(timeout=120)
+        except Exception as e:  # noqa: BLE001 — reported by the check below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,),
+                                name=f"chip-smoke-client-{k}")
+               for k in range(N_CLIENTS)]
+    zero_counts()
+    c0 = dict(server.counts)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(not any(th.is_alive() for th in threads), "a client hung")
+    check(not errors, f"client errors: {errors[:3]}")
+    check(all(r is not None for r in results), "unanswered requests")
+    preds = np.stack([r.prediction for r in results])
+    check(preds.shape == (len(requests), 1), f"bad shape {preds.shape}")
+    check(bool(np.isfinite(preds).all()), "non-finite predictions")
+    delta = {k: server.counts[k] - c0[k]
+             for k in ("batches", "pack_raw", "responses_raw")}
+    p50, p99 = np.percentile([r.latency_ms for r in results], [50, 99])
+    run = {"requests": len(requests), "flushes": delta["batches"],
+           "raw_flushes": delta["pack_raw"],
+           "responses_raw": delta["responses_raw"], "launches": counts,
+           "wall_s": wall, "requests_per_s": len(requests) / wall,
+           "latency_ms_p50": float(p50), "latency_ms_p99": float(p99)}
+    print(f"serve burst: {run}")
+    run.update(preds=preds, wires=[r.wire for r in results])
+    return run
+
+
+def overflow_leg(dev, npz, meta, calibration, n_conv):
+    """A one-atom 2 A cubic cell through a server that skips the host
+    image-cap check: the device flags its overflow and it is answered
+    through the featurized fallback, equal to its featurized answer."""
+    import numpy as np
+
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
+    from cgnn_tpu_torch.serve.server import load_server, structure_featurizer
+
+    server, info = load_server(npz, meta, batch_size=8, rungs=1,
+                               calibration=calibration, device=dev,
+                               default_timeout_ms=60_000.0, wire="raw",
+                               raw_precheck=False, log_fn=lambda *a: None)
+    tiny = RawStructure(np.zeros((1, 3)), np.eye(3) * 2.0,
+                        np.array([6], np.int32))
+    try:
+        # the overflow path's run: counts at 0 just before, read after
+        zero_counts()
+        res = server.predict(tiny, timeout_ms=60_000)
+        counts = read_counts()
+        ref = server.predict(structure_featurizer(info["data_cfg"])(tiny),
+                             timeout_ms=60_000)
+        c = dict(server.counts)
+    finally:
+        check(server.drain(timeout_s=60), "the serve worker did not drain")
+    err = float(np.abs(res.prediction - ref.prediction).max())
+    ok = (res.wire == "featurized" and c["ingest_cap_overflow"] == 1
+          and c["pack_raw"] == 1 and counts["neighbor_search"] == 1
+          and counts["fused_cgconv_eval"] == 2 * n_conv
+          and bool(np.allclose(res.prediction, ref.prediction,
+                               rtol=SERVE_RTOL, atol=SERVE_ATOL)))
+    print(f"overflow leg: answered via the {res.wire} wire, "
+          f"ingest_cap_overflow {c['ingest_cap_overflow']}, launches "
+          f"{counts}, max_abs_err vs its featurized answer {err!r}: "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the overflow-flagged structure was not answered through "
+              "the featurized fallback")
+    return {"wire": res.wire,
+            "ingest_cap_overflow": c["ingest_cap_overflow"],
+            "max_abs_err_vs_featurized": err}, counts
 
 
 def flush_breakdown(dev, state, shape_set, graphs, reps=10):
@@ -476,6 +685,64 @@ def flush_breakdown(dev, state, shape_set, graphs, reps=10):
         res["device_idle_share_of_step"] = 1.0 - busy_ms / res["step_wall_ms"]
     else:  # the profiler saw no device activity on this machine
         res["step_device_busy_ms"] = None
+    return res
+
+
+def raw_flush_breakdown(dev, server, graphs, reps=10):
+    """One top-rung raw flush of the admitted ``graphs`` in wire form,
+    split like ``flush_breakdown``: host pack (``pack_raw``), host-to-
+    device copy, the raw predict step (the device search, featurization
+    and model; host wall with a synchronize) and the copy of (predictions,
+    overflow, n_edges) back; then the step's host syncs and, from a
+    torch.profiler trace, its device busy time with kernel 8's and kernel
+    1's shares and the share of the step's wall the device sits idle."""
+    import torch
+
+    from cgnn_tpu_torch.data.rawbatch import raw_from_graph
+
+    ss, step, state = server.shape_set, server.predict_step, server.state
+    raws = [r for r in map(raw_from_graph, graphs) if ss.admits_raw(r)]
+    top = ss.largest
+    stages = {"pack_ms": [], "h2d_ms": [], "step_wall_ms": [], "d2h_ms": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        batch = ss.pack_raw(raws, shape=top)
+        t1 = time.perf_counter()
+        on_dev = batch.to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = step(state, on_dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for t in out:
+            t.cpu()
+        t4 = time.perf_counter()
+        for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[key].append(dt * 1e3)
+    res = {"structures": len(raws),
+           "atoms": sum(r.num_nodes for r in raws),
+           "rung": list(vars(top).values()),
+           "snode_cap": ss.raw.snode_cap, "images": list(ss.raw.images)}
+    res.update({k: statistics.median(v) for k, v in stages.items()})
+    res.update(host_syncs(lambda: step(state, on_dev)))
+    busy_ms, by_kernel, _ = device_busy_ms(lambda: step(state, on_dev), reps)
+    if busy_ms is None:  # the profiler saw no device activity
+        res["step_device_busy_ms"] = None
+        return res
+    k8 = sum(v for k, v in by_kernel.items() if "neighbor_search_kernel" in k)
+    k1 = sum(v for k, v in by_kernel.items()
+             if "fused_cgconv_eval_kernel" in k)
+    top_k = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    res.update({
+        "step_device_busy_ms": busy_ms,
+        "search_kernel_ms_per_step": k8,
+        "search_kernel_share_of_busy": k8 / busy_ms,
+        "fused_kernel_ms_per_step": k1,
+        "fused_kernel_share_of_busy": k1 / busy_ms,
+        "device_idle_share_of_step": 1.0 - busy_ms / res["step_wall_ms"],
+        "device_kernels": len(by_kernel),
+        "top_kernels_ms_per_step": {k[:80]: v for k, v in top_k},
+    })
     return res
 
 
@@ -710,9 +977,9 @@ def trajectory_phase(dev, train_g, val_g, node_cap, k=5):
     torch.cuda.synchronize()
     counts = read_counts()
     n = cfg.n_conv
-    want = {"fused_cgconv_eval": 0, "fused_cgconv_stats": 0,
-            "epilogue_apply": n * 4, "epilogue_reduce": n * 3,
-            "epilogue_dz": n * 3}
+    want = dict.fromkeys(counts, 0) | {"epilogue_apply": n * 4,
+                                       "epilogue_reduce": n * 3,
+                                       "epilogue_dz": n * 3}
     losses = torch.stack(losses).cpu()
     e_err = float((losses - loss_p[:3]).abs().max())
     ok = (counts == want and bool(torch.isfinite(ev["mae_sum"]))
@@ -817,10 +1084,12 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from cgnn_tpu_torch.config import DataConfig
     from cgnn_tpu_torch.data.dataset import (
         load_synthetic_mp,
         train_val_test_split,
     )
+    from cgnn_tpu_torch.data.rawbatch import plan_raw_spec
     from cgnn_tpu_torch.ops import _build
     from cgnn_tpu_torch.serve.shapes import plan_shape_set
 
@@ -831,14 +1100,18 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
-    _build.build(["fused_cgconv", "fused_epilogue"])
+    _build.build(["fused_cgconv", "fused_epilogue", "neighbor_search"])
     print(f"kernel build: {time.perf_counter() - t0!r} s")
     for name, info in _build.build_info.items():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    calibration = load_synthetic_mp(64, seed=SEED)
-    shape_set = plan_shape_set(calibration, 64, rungs=3, dense_m=M)
+    # geometry kept: the raw wire plans its caps from the lattices
+    calibration = load_synthetic_mp(64, seed=SEED, keep_geometry=True)
+    fcfg = DataConfig().featurize_config()
+    shape_set = plan_shape_set(
+        calibration, 64, rungs=3, dense_m=M,
+        raw=plan_raw_spec(calibration, fcfg.gdf(), fcfg.radius, M))
     t0 = time.perf_counter()
     split = train_val_test_split(load_synthetic_mp(N_TRAIN_SET,
                                                    seed=SEED + 3),
@@ -847,22 +1120,27 @@ def main() -> int:
           f"{time.perf_counter() - t0!r} s")
     kernels = [kernel_phase(dev, calibration, shape_set)]
     kernels += train_kernel_phase(dev, split[0])
+    search_entry, kernels[0]["raw_top_rung"] = search_kernel_phase(
+        dev, calibration, shape_set)
+    kernels.append(search_entry)
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke")
-    summary, breakdown, serve_counts = serve_phase(dev, calibration,
-                                                   work_dir)
+    summary, breakdown, raw_breakdown, by_path = serve_phase(
+        dev, calibration, work_dir)
     train_summary, train_counts, node_cap = train_phase(dev, split, work_dir)
     traj, epi_counts = trajectory_phase(dev, split[0], split[1], node_cap)
     breakdowns = [train_breakdown(dev, split[0], node_cap, "kernel path",
                                   cgconv_impl="pallas"),
                   train_breakdown(dev, split[0], node_cap, "plain path")]
-    by_path = {"serve": serve_counts, "train_cgconv_pallas": train_counts,
-               "train_fused_epilogue_pallas": epi_counts}
+    by_path.update(train_cgconv_pallas=train_counts,
+                   train_fused_epilogue_pallas=epi_counts)
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']} never launched on a path")
     print(json.dumps({"flush_breakdown": breakdown}, allow_nan=False))
+    print(json.dumps({"raw_flush_breakdown": raw_breakdown},
+                     allow_nan=False))
     for b in breakdowns:
         print(json.dumps({"train_breakdown": b}, allow_nan=False))
     print(json.dumps({"train": train_summary, "trajectory": traj},

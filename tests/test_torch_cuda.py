@@ -251,3 +251,152 @@ def test_model_kernel_path_matches_plain_path(dev):
         with torch.inference_mode():
             outs.append(net(batch.to(dev)))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+def _raw_batch(dev, structures, s_cap, images, g_cap, m=12, radius=8.0):
+    """(RawBatch on the card, RawSpec) for wire structures."""
+    from cgnn_tpu_torch.data.featurize import GaussianDistance
+    from cgnn_tpu_torch.data.rawbatch import RawSpec, RawStructure, pack_raw
+
+    gdf = GaussianDistance(0.0, radius, 0.2)
+    spec = RawSpec(snode_cap=s_cap, images=images, radius=radius, dense_m=m,
+                   gauss_filter=gdf.filter, gauss_var=gdf.var)
+    raws = [RawStructure.from_structure(s) for s in structures]
+    rb = pack_raw(raws, g_cap, spec) if raws else pack_raw(
+        [spec.template()], g_cap, spec)
+    if not raws:  # an all-padding batch: clear the template's slot
+        rb.atom_mask.zero_()
+        rb.graph_mask.zero_()
+        rb.lattices[0] = torch.eye(3)
+    return rb.to(dev), spec
+
+
+def _mp_structures(n, max_atoms, seed=0):
+    from cgnn_tpu_torch.data.synthetic import synthetic_mp_dataset
+
+    return [s for _, s, _ in synthetic_mp_dataset(4 * n, seed=seed)
+            if s.num_atoms <= max_atoms][:n]
+
+
+def _search_cases():
+    from cgnn_tpu_torch.data.structure import Structure
+
+    cubic = Structure(np.eye(3) * 3.0, [[0, 0, 0]], [29])
+    return {
+        # the flagship's top raw rung: 72 slots of 64 atoms, 125 images
+        "top_rung": (lambda: _mp_structures(64, 64), 64, (2, 2, 2), 72, 12),
+        # simple cubic: all first shells exact ties
+        "exact_tie": (lambda: [cubic, cubic], 8, (3, 3, 3), 3, 12),
+        # S not a multiple of 32 (nor of the 8 rows a block)
+        "s_ragged": (lambda: _mp_structures(5, 37, seed=1), 37, (2, 2, 2),
+                     6, 12),
+        # K = 343 images, and M above 16 (the 32-entry lists)
+        "k343_m20": (lambda: _mp_structures(4, 24, seed=2), 24, (3, 3, 3),
+                     4, 20),
+        "all_padding": (lambda: [], 16, (1, 1, 1), 4, 12),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_search_cases()))
+def test_neighbor_search_kernel_matches_plain_version(dev, case):
+    """Kernel 8 against its plain version: every output bit-equal (the
+    same f32 operations in the same order, sqrt correctly rounded), and
+    the same bits on a second run."""
+    from cgnn_tpu_torch.ops import neighbor_search as ns
+
+    make, s_cap, images, g_cap, m = _search_cases()[case]
+    rb, spec = _raw_batch(dev, make(), s_cap, images, g_cap, m=m)
+    offsets = ns.offsets_tensor(spec, dev)
+    args = (rb.frac, rb.lattices, rb.atom_mask, offsets, spec.radius,
+            spec.home_image, m)
+    before = ns.neighbor_search_cuda.launches
+    got = ns.neighbor_search_cuda(*args)
+    again = ns.neighbor_search_cuda(*args)
+    torch.cuda.synchronize()
+    assert ns.neighbor_search_cuda.launches == before + 2
+    want = ns.neighbor_search_reference(*args)
+    for name, a, b, c in zip(("neighbors", "distances", "edge_mask",
+                              "n_edges"), got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
+    nbr, dist, em, ne = got
+    pad = rb.graph_mask == 0
+    assert (em[pad] == 0).all() and (ne[pad] == 0).all()
+    own = torch.arange(s_cap, device=dev, dtype=torch.int32)[None, :, None]
+    assert torch.equal(nbr[pad], own.expand_as(nbr)[pad])
+    if case == "all_padding":
+        assert int(em.sum()) == 0
+    else:
+        assert int(ne.sum()) == int(em.sum()) > 0
+    # the dispatcher routes a CUDA tensor to the kernel
+    out = ns.neighbor_search(rb.frac, rb.lattices, rb.atom_mask, spec,
+                             impl="pallas", offsets=offsets)
+    assert ns.neighbor_search_cuda.launches == before + 3
+    assert torch.equal(out[0], nbr) and not out[4].any()
+
+
+def test_neighbor_search_kernel_refuses_what_it_does_not_take(dev):
+    from cgnn_tpu_torch.ops import neighbor_search as ns
+
+    rb, spec = _raw_batch(dev, _mp_structures(2, 16), 16, (1, 1, 1), 2)
+    offsets = ns.offsets_tensor(spec, dev)
+    base = [rb.frac, rb.lattices, rb.atom_mask, offsets, spec.radius,
+            spec.home_image, 12]
+    bad = list(base)
+    bad[2] = rb.atom_mask.float()
+    with pytest.raises(ValueError, match="amask must be torch.uint8"):
+        ns.neighbor_search_cuda(*bad)
+    bad = list(base)
+    bad[6] = 33
+    with pytest.raises(ValueError, match="max_num_nbr"):
+        ns.neighbor_search_cuda(*bad)
+    bad = list(base)
+    bad[3] = offsets.cpu()
+    with pytest.raises(ValueError, match="offsets is on cpu"):
+        ns.neighbor_search_cuda(*bad)
+
+
+def test_raw_server_runs_kernel_8(dev, tmp_path):
+    """load_server(wire='raw') on the card launches kernel 8 once per raw
+    flush, and answers as the plain search asked for by name
+    (``raw_expander('xla')``) on the same staged batches."""
+    from cgnn_tpu_torch import convert
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
+    from cgnn_tpu_torch.data.synthetic import synthetic_dataset
+    from cgnn_tpu_torch.ops import neighbor_search as ns
+    from cgnn_tpu_torch.serve.server import load_server
+    from cgnn_tpu_torch.train.step import make_predict_step
+
+    cfg = ModelConfig(atom_fea_len=32, n_conv=2, dense_m=12,
+                      cgconv_impl="pallas")
+    dcfg = DataConfig()
+    npz, meta = str(tmp_path / "params.npz"), str(tmp_path / "meta.json")
+    convert.save_params(npz, meta, convert.init_params(cfg, dcfg, seed=1),
+                        cfg, dcfg)
+    calibration = load_synthetic(32, dcfg.featurize_config(), seed=3,
+                                 keep_geometry=True)
+    server, _ = load_server(npz, meta, batch_size=8, rungs=2,
+                            calibration=calibration, device=dev, wire="raw",
+                            log_fn=lambda *a: None)
+    ss = server.shape_set
+    wire = [r for r in (RawStructure.from_structure(s)
+                        for _, s, _ in synthetic_dataset(12, seed=8))
+            if ss.admits_raw(r)]
+    assert len(wire) >= 8
+    before = ns.neighbor_search_cuda.launches
+    flushes = server.counts["pack_raw"]
+    res = [server.predict(r, timeout_ms=60_000) for r in wire]
+    assert all(r.wire == "raw" for r in res)
+    assert (ns.neighbor_search_cuda.launches - before
+            == server.counts["pack_raw"] - flushes > 0)
+    assert server.drain(timeout_s=30)
+    plain = make_predict_step(raw_expander=ss.raw_expander("xla", dev))
+    before = ns.neighbor_search_cuda.launches
+    want = np.stack([plain(server.state, ss.pack_raw([r]).to(dev))[0][0]
+                     .cpu().numpy() for r in wire])
+    assert ns.neighbor_search_cuda.launches == before
+    np.testing.assert_allclose(np.stack([r.prediction for r in res]), want,
+                               rtol=1e-4, atol=1e-4)

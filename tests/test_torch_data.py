@@ -155,6 +155,39 @@ def test_pack_graphs_dense_bit_equal(n_graphs):
         np.testing.assert_array_equal(a, b, err_msg=field)
 
 
+@pytest.mark.parametrize("n_graphs", [1, 6])
+def test_keep_geometry_featurize_and_pack_bit_equal(n_graphs,
+                                                    jax_numpy_backend):
+    """featurize_structure(keep_geometry=True) keeps the same positions,
+    lattice, offsets and numbers, and pack_graphs writes positions,
+    lattices and edge offsets bit-equal to the JAX package's."""
+    jcfg = jdataset.FeaturizeConfig(**SMALL)
+    tcfg = tdataset.FeaturizeConfig(**SMALL)
+    structs = _structures()[-n_graphs:]
+    jg = [jdataset.featurize_structure(s, [0.5], jcfg, f"s{i}",
+                                       keep_geometry=True)
+          for i, s in enumerate(structs)]
+    tg = [tdataset.featurize_structure(_port(s), [0.5], tcfg, f"s{i}",
+                                       keep_geometry=True)
+          for i, s in enumerate(structs)]
+    for a, b in zip(tg, jg):
+        for field in ("positions", "lattice", "offsets", "numbers"):
+            x, y = getattr(a, field), getattr(b, field)
+            assert x.dtype == y.dtype, field
+            np.testing.assert_array_equal(x, y, err_msg=field)
+    m = 8
+    nc = tgraph._align8(sum(g.num_nodes for g in jg) + 5)
+    want = jgraph.pack_graphs(jg, nc, nc * m, n_graphs + 3, dense_m=m)
+    got = tgraph.pack_graphs(tg, nc, nc * m, n_graphs + 3, dense_m=m)
+    _assert_batches_equal(got, want)
+    assert np.abs(got.numpy()["positions"]).max() > 0
+    # the loaders pass keep_geometry through
+    g0 = tdataset.load_synthetic_mp(1, tcfg, seed=4, keep_geometry=True)[0]
+    j0 = jdataset.load_synthetic_mp(1, jcfg, seed=4, keep_geometry=True)[0]
+    np.testing.assert_array_equal(g0.positions, j0.positions)
+    assert tdataset.load_synthetic(1, tcfg, seed=4)[0].lattice is None
+
+
 def test_pack_graphs_refuses_unported_layouts():
     g = [_port_graph(x) for x in _jax_graphs(2)]
     with pytest.raises(NotImplementedError):
