@@ -21,6 +21,12 @@ Unlike the JAX package, no setting quietly becomes another one on some
 device: a CUDA tensor under ``'pallas'`` launches the kernel or raises.
 ``cgconv_window`` is kept for the meta round trip and ignored — the GPU
 kernel gathers neighbor rows directly, with no window.
+
+``dense_m=0`` is the flat COO layout; there ``aggregation`` picks the
+edge aggregation (ops/segment.py ``aggregate_edge_messages``: None or
+``'xla'`` the library scatter-add, ``'sort'``, or ``'pallas'``, kernel 6
+on CUDA tensors and its plain version on CPU tensors). The dense layout
+does not read it.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ class ModelConfig:
     num_classes: int = 2
     dropout: float = 0.0
     dtype: str = "float32"  # 'float32' | 'bfloat16'
-    aggregation: str | None = None  # the COO scatter impl; unused by dense
+    aggregation: str | None = None  # the COO aggregation; unused by dense
     multi_task_head: bool = False
     # dense edge-slot layout (data/graph.py pack_graphs dense_m); 0 = COO
     dense_m: int = 0
@@ -104,6 +110,7 @@ class ModelConfig:
             dense_m=self.dense_m or None,
             cgconv_impl=self.cgconv_impl,
             fused_epilogue=self.fused_epilogue,
+            aggregation_impl=self.aggregation,
         ).to(dev).eval()
 
 

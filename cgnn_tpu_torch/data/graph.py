@@ -8,10 +8,18 @@
 Packing is numpy on the host and produces arrays bit-equal to the JAX
 package's ``pack_graphs`` for the same graphs and capacities; the batch
 then wraps them as CPU tensors without a copy and ``.to(device)`` moves it.
-Only the DENSE slot layout is ported (node slot ``n`` owns edge slots
-``[n*M, (n+1)*M)``), with the transpose slots that make the neighbor
-gather's backward scatter-free (``transpose_slots``), and the training
-batch iterator (``batch_iterator``, ``count_batches``).
+Both layouts are ported:
+
+- DENSE slots (``dense_m=M``): node slot ``n`` owns edge slots
+  ``[n*M, (n+1)*M)``, with the transpose slots that make the neighbor
+  gather's backward scatter-free (``transpose_slots``);
+- flat COO (``dense_m=None``): the real edges first, sorted by center,
+  then padding edges that point at the last node slot, masked, so
+  ``centers`` stays non-decreasing (the sorted segment sum,
+  ops/scatter.py, relies on it). Transpose slots are dense-only.
+
+The training batch iterator (``batch_iterator``, ``count_batches``) closes
+a batch on its graph, node and edge budgets.
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ class GraphBatch:
     """Fixed-capacity packed batch of graphs (tensors on one device)."""
 
     nodes: torch.Tensor  # [Ncap, D] f32
-    edges: torch.Tensor  # [Ncap, M, G] f32 (dense layout)
+    edges: torch.Tensor  # [Ncap, M, G] f32 (dense) / [Ecap, G] (COO)
     centers: torch.Tensor  # [Ecap] i32 (receiving node slot)
     neighbors: torch.Tensor  # [Ecap] i32 (source node slot)
     node_graph: torch.Tensor  # [Ncap] i32 (graph slot of each node)
@@ -122,28 +130,33 @@ def pack_graphs(
     in_cap: int | None = None,
     over_cap: int | None = None,
 ) -> GraphBatch:
-    """Concatenate graphs into one fixed-capacity dense-layout GraphBatch.
+    """Concatenate graphs into one fixed-capacity GraphBatch.
 
-    ``dense_m=M`` is required: node slot ``n`` owns edge slots
-    ``[n*M, (n+1)*M)`` (its real edges first, masked self-loop padding
-    after), so ``edge_cap == node_cap * M``. Padding nodes belong to graph
-    slot 0 and are masked.
+    ``dense_m=M`` selects the dense slot layout: node slot ``n`` owns edge
+    slots ``[n*M, (n+1)*M)`` (its real edges first, masked self-loop
+    padding after), so ``edge_cap == node_cap * M``. ``dense_m=None`` is
+    the flat COO layout: ``edges`` stays [edge_cap, G], the real edges
+    fill the first slots in center order, and padding edges point at node
+    slot ``node_cap - 1`` (``centers = neighbors = node_cap - 1``, mask
+    0); then the edge count is a capacity too. Padding nodes belong to
+    graph slot 0 and are masked.
 
     ``in_cap`` additionally fills the single-tier transpose of the
     neighbor gather (``in_slots``/``in_mask`` at width ``in_cap``);
     ``over_cap`` selects the two-tier transpose instead: tier 1 at width
     ``dense_m`` plus a node-sorted overflow list of capacity ``over_cap``,
     whose overrun raises ``TransposeOverflowError`` and never truncates.
+    Both need the dense layout.
     """
-    if dense_m is None:
-        raise NotImplementedError(
-            "the flat COO layout is not ported yet; pack with dense_m")
     if in_cap is not None and over_cap is not None:
         raise ValueError("in_cap (single-tier) and over_cap (two-tier) are "
                          "mutually exclusive")
+    if (in_cap is not None or over_cap is not None) and dense_m is None:
+        raise ValueError("transpose slots require the dense layout "
+                         "(dense_m)")
     if not graphs:
         raise ValueError("cannot pack an empty graph list")
-    if edge_cap != node_cap * dense_m:
+    if dense_m is not None and edge_cap != node_cap * dense_m:
         raise ValueError(
             f"dense layout requires edge_cap == node_cap * dense_m "
             f"({node_cap} * {dense_m} != {edge_cap})"
@@ -151,7 +164,8 @@ def pack_graphs(
     n_graphs = len(graphs)
     total_nodes = sum(g.num_nodes for g in graphs)
     total_edges = sum(g.num_edges for g in graphs)
-    if n_graphs > graph_cap or total_nodes > node_cap:
+    if n_graphs > graph_cap or total_nodes > node_cap or (
+            dense_m is None and total_edges > edge_cap):
         raise ValueError(
             f"batch ({n_graphs} graphs, {total_nodes} nodes, {total_edges} edges)"
             f" exceeds capacity ({graph_cap}, {node_cap}, {edge_cap})"
@@ -162,10 +176,17 @@ def pack_graphs(
 
     nodes = np.zeros((node_cap, node_dim), np.float32)
     edges = np.zeros((edge_cap, edge_dim), np.float32)
-    # slot k belongs to node k // M; padding slots are masked self-loops on
-    # their owning node (centers stay sorted)
-    centers = (np.arange(edge_cap, dtype=np.int32) // dense_m).astype(np.int32)
-    neighbors = centers.copy()
+    if dense_m is None:
+        # COO: padding edges point at the last node slot, so centers stay
+        # sorted and their masked zero messages land on a padding node
+        centers = np.full(edge_cap, node_cap - 1, np.int32)
+        neighbors = np.full(edge_cap, node_cap - 1, np.int32)
+    else:
+        # slot k belongs to node k // M; padding slots are masked
+        # self-loops on their owning node (centers stay sorted)
+        centers = (np.arange(edge_cap, dtype=np.int32)
+                   // dense_m).astype(np.int32)
+        neighbors = centers.copy()
     node_graph = np.zeros(node_cap, np.int32)
     node_mask = np.zeros(node_cap, np.float32)
     edge_mask = np.zeros(edge_cap, np.float32)
@@ -208,29 +229,35 @@ def pack_graphs(
     if order is not None:
         efea = efea[order]
 
-    counts = np.bincount(gcent, minlength=node_cap)
-    worst = int(counts.max(initial=0))
-    if worst > dense_m:
-        bad = int(np.argmax(counts))
-        gi = int(np.searchsorted(node_offs, bad, side="right")) - 1
-        raise ValueError(
-            f"graph {graphs[gi].cif_id!r} has a node with {worst} "
-            f"edges > dense_m={dense_m}; featurize with "
-            f"max_num_nbr <= dense_m"
-        )
-    # edge k's within-center rank, then slot (center, rank); the grid is
-    # filled by gather from the sorted edges plus a sentinel zero row
-    within = np.arange(total_edges) - (np.cumsum(counts) - counts)[gcent]
-    slots = gcent * dense_m + within
-    starts = np.cumsum(counts) - counts
-    src = starts[:, None] + np.arange(dense_m)
-    grid_valid = np.arange(dense_m) < counts[:, None]
-    np.copyto(src, total_edges, where=~grid_valid)
-    efea_pad = np.empty((total_edges + 1, edge_dim), np.float32)
-    efea_pad[:total_edges] = efea
-    efea_pad[total_edges] = 0.0
-    np.take(efea_pad, src.ravel(), axis=0, out=edges, mode="clip")
-    edge_mask[:] = grid_valid.ravel()
+    if dense_m is None:
+        slots = np.arange(total_edges)
+        edges[:total_edges] = efea
+        edge_mask[:total_edges] = 1.0
+        centers[:total_edges] = gcent.astype(np.int32)
+    else:
+        counts = np.bincount(gcent, minlength=node_cap)
+        worst = int(counts.max(initial=0))
+        if worst > dense_m:
+            bad = int(np.argmax(counts))
+            gi = int(np.searchsorted(node_offs, bad, side="right")) - 1
+            raise ValueError(
+                f"graph {graphs[gi].cif_id!r} has a node with {worst} "
+                f"edges > dense_m={dense_m}; featurize with "
+                f"max_num_nbr <= dense_m"
+            )
+        # edge k's within-center rank, then slot (center, rank); the grid
+        # is filled by gather from the sorted edges plus a sentinel zero row
+        within = np.arange(total_edges) - (np.cumsum(counts) - counts)[gcent]
+        slots = gcent * dense_m + within
+        starts = np.cumsum(counts) - counts
+        src = starts[:, None] + np.arange(dense_m)
+        grid_valid = np.arange(dense_m) < counts[:, None]
+        np.copyto(src, total_edges, where=~grid_valid)
+        efea_pad = np.empty((total_edges + 1, edge_dim), np.float32)
+        efea_pad[:total_edges] = efea
+        efea_pad[total_edges] = 0.0
+        np.take(efea_pad, src.ravel(), axis=0, out=edges, mode="clip")
+        edge_mask[:] = grid_valid.ravel()
     neighbors[slots] = gnbr.astype(np.int32)
 
     graph_mask[:n_graphs] = 1.0
@@ -261,7 +288,8 @@ def pack_graphs(
 
     return GraphBatch(
         nodes=as_t(nodes),
-        edges=as_t(edges.reshape(node_cap, dense_m, edge_dim)),
+        edges=as_t(edges if dense_m is None
+                   else edges.reshape(node_cap, dense_m, edge_dim)),
         centers=as_t(centers),
         neighbors=as_t(neighbors),
         node_graph=as_t(node_graph),
@@ -476,10 +504,11 @@ def batch_iterator(
     ``rng``. ``drop_last`` drops a tail of fewer than ``batch_size``
     graphs.
 
-    Transpose slots: ``in_cap=None`` (default) packs the two-tier
-    transpose with ``overflow_cap`` (unless ``over_cap`` is given),
-    ``in_cap > 0`` the single-tier one, ``in_cap=0`` none (eval batches,
-    which run no backward).
+    Transpose slots (dense layout): ``in_cap=None`` (default) packs the
+    two-tier transpose with ``overflow_cap`` (unless ``over_cap`` is
+    given), ``in_cap > 0`` the single-tier one, ``in_cap=0`` none (eval
+    batches, which run no backward). ``dense_m=None`` packs the flat COO
+    layout, with no transpose slots.
     """
     graph_cap = graph_cap_for(batch_size) if snug else batch_size
     if dense_m is not None and in_cap is None and over_cap is None:

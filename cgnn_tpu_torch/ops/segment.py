@@ -1,8 +1,13 @@
-"""Gather and segment reductions on tensors (``cgnn_tpu/ops/segment.py``)."""
+"""Gather and segment reductions on tensors (``cgnn_tpu/ops/segment.py``),
+and ``aggregate_edge_messages``, the COO layout's aggregation."""
 
 from __future__ import annotations
 
 import torch
+
+from cgnn_tpu_torch.ops.scatter import segment_sum_sorted
+
+AGGREGATION_IMPLS = ("xla", "sort", "pallas")
 
 
 def gather(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -75,6 +80,33 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     """Sum ``data`` rows into ``num_segments`` buckets."""
     out = data.new_zeros((num_segments, *data.shape[1:]))
     return out.index_add_(0, segment_ids, data)
+
+
+def aggregate_edge_messages(messages: torch.Tensor, centers: torch.Tensor,
+                            num_nodes: int,
+                            impl: str | None = None) -> torch.Tensor:
+    """Sum per-edge [E, F] messages into [num_nodes, F] node rows by their
+    ``centers``. ``impl`` (None = ``'xla'``, the JAX default):
+
+    - ``'xla'``: ``segment_sum``, the library scatter-add (the JAX
+      package's ``jax.ops.segment_sum``; no kernel behind it);
+    - ``'sort'``: a stable argsort of the centers, then ``segment_sum``
+      over the sorted rows (the JAX ``_aggregate_sort``);
+    - ``'pallas'``: the sorted segment sum (ops/scatter.py): kernel 6 on a
+      CUDA tensor, its plain version on a CPU tensor. Needs the packer's
+      non-decreasing centers.
+    """
+    impl = impl or "xla"
+    if impl == "xla":
+        return segment_sum(messages, centers, num_nodes)
+    if impl == "sort":
+        order = torch.argsort(centers, stable=True)
+        return segment_sum(messages.index_select(0, order),
+                           centers.index_select(0, order), num_nodes)
+    if impl == "pallas":
+        return segment_sum_sorted(messages, centers, num_nodes)
+    raise ValueError(f"unknown aggregation impl {impl!r} "
+                     f"(one of {AGGREGATION_IMPLS})")
 
 
 def segment_mean(

@@ -20,6 +20,11 @@ driven by one named worker thread::
                     -> predict_step
         -> resolve each future with its row
 
+In the flat COO layout (``ShapeSet.dense_m`` None) there is no raw wire,
+and a wire-form structure is featurized at admission, on the caller's
+thread: a flush's edge budget needs its true edge count, which only
+featurization knows. A featurization failure rejects it alone (400).
+
 ``drain()`` is the stop path: it closes admission, lets the worker answer
 what was accepted, and joins it. ``counts["batches"]`` counts the flushes
 that ran, ``counts["pack_raw"]`` the raw ones, so a caller can tie kernel
@@ -260,6 +265,8 @@ class InferenceServer:
             if isinstance(graph, RawStructure):
                 self._check_wellformed_raw(graph)
                 form = self._admit_form(graph)
+                if form == "feat" and self.shape_set.dense_m is None:
+                    graph = self._featurize_at_admission(graph)
             else:
                 self._check_wellformed(graph)
             timeout = (timeout_ms / 1000.0 if timeout_ms is not None
@@ -272,6 +279,17 @@ class InferenceServer:
             self._count(f"reject_{e.reason}")
             raise
         return req.future
+
+    def _featurize_at_admission(self, rs: RawStructure) -> CrystalGraph:
+        """The COO layout's admission: featurize on the caller's thread
+        (module docstring); a failure rejects this structure alone."""
+        try:
+            graph = self.featurizer(rs)
+        except Exception as e:  # noqa: BLE001 — reject this request alone
+            raise ServeRejection(
+                MALFORMED, f"structure featurization failed: {e}") from None
+        self._check_wellformed(graph)
+        return graph
 
     def predict(self, graph: CrystalGraph | RawStructure | Structure,
                 timeout_ms: float | None = None) -> ServeResult:
@@ -466,8 +484,9 @@ def load_server(
     ``wire``: 'raw' also serves wire-form structures through the device
     neighbor search (a raw spec planned from the calibration's lattices),
     'featurized' featurizes them on the host, 'auto' is 'raw' on a CUDA
-    device and 'featurized' on the CPU. ``raw_precheck``: see
-    InferenceServer.
+    device and 'featurized' on the CPU. A COO weight file (``dense_m``
+    0) serves the featurized wire only, whatever ``wire`` asks, and says
+    so in the log. ``raw_precheck``: see InferenceServer.
 
     -> (server, dict of what callers reuse: meta, configs, template graph,
     the calibration sample).
@@ -495,7 +514,11 @@ def load_server(
                                      keep_geometry=True)
     dense_m = model_cfg.dense_m or None
     raw_spec = None
-    if wire == "raw" or (wire == "auto" and dev.type == "cuda"):
+    want_raw = wire == "raw" or (wire == "auto" and dev.type == "cuda")
+    if want_raw and dense_m is None:
+        log_fn("serve: raw wire requires the dense layout; featurized wire "
+               "only")
+    elif want_raw:
         fcfg = data_cfg.featurize_config()
         try:
             raw_spec = plan_raw_spec(list(calibration), fcfg.gdf(),

@@ -9,6 +9,10 @@ rungs equal to the JAX package's for the same calibration sample.
 With a :class:`RawSpec` the set also stages wire-form structures: a rung's
 raw batch holds ``graph_cap`` structure slots of ``snode_cap`` atoms, and
 the raw expander (ops/neighbor_search.py) builds the graph on the device.
+
+``dense_m=None`` is the flat COO layout: a graph consumes its true edge
+count of a rung's edge capacity, so rungs are picked by edges as well as
+nodes, and there is no raw wire (the device search builds dense slots).
 """
 
 from __future__ import annotations
@@ -56,27 +60,28 @@ class BatchShape:
 
 class ShapeSet:
     """An ascending ladder of :class:`BatchShape` rungs plus the packing
-    parameters every rung shares (dense layout, target width)."""
+    parameters every rung shares (edge layout, target width)."""
 
     def __init__(self, shapes: Sequence[BatchShape], *,
                  dense_m: int | None = None, num_targets: int = 1,
                  raw: RawSpec | None = None):
         if not shapes:
             raise ValueError("a ShapeSet needs at least one shape")
-        if dense_m is None:
-            raise NotImplementedError(
-                "the flat COO layout is not ported yet; use dense_m")
         self.shapes = tuple(sorted(set(shapes)))
         self.dense_m = dense_m
         self.num_targets = num_targets
         self.raw = raw
-        if raw is not None and raw.dense_m != dense_m:
-            raise ValueError(
-                f"raw spec max_num_nbr {raw.dense_m} != layout dense_m "
-                f"{dense_m} (the device truncation must match the model's "
-                f"slot layout)")
+        if raw is not None:
+            if dense_m is None:
+                raise ValueError("raw wire requires the dense layout "
+                                 "(dense_m)")
+            if raw.dense_m != dense_m:
+                raise ValueError(
+                    f"raw spec max_num_nbr {raw.dense_m} != layout dense_m "
+                    f"{dense_m} (the device truncation must match the "
+                    f"model's slot layout)")
         for s in self.shapes:
-            if s.edge_cap != s.node_cap * dense_m:
+            if dense_m is not None and s.edge_cap != s.node_cap * dense_m:
                 raise ValueError(
                     f"dense layout requires edge_cap == node_cap * dense_m "
                     f"for every rung; {s} violates it (dense_m={dense_m})"
@@ -94,7 +99,10 @@ class ShapeSet:
 
     def graph_counts(self, graph: CrystalGraph) -> tuple[int, int]:
         """(nodes, edge slots) one graph consumes: the dense layout takes
-        ``nodes * dense_m`` edge slots whatever the true edge count."""
+        ``nodes * dense_m`` edge slots whatever the true edge count, COO
+        its true edges."""
+        if self.dense_m is None:
+            return graph.num_nodes, graph.num_edges
         return graph.num_nodes, graph.num_nodes * self.dense_m
 
     def oversize_detail(self, graph: CrystalGraph) -> str:
@@ -119,7 +127,8 @@ class ShapeSet:
         that fits), without transpose slots."""
         if shape is None:
             n = sum(g.num_nodes for g in graphs)
-            shape = self.shape_for(len(graphs), n, n * self.dense_m)
+            e = sum(self.graph_counts(g)[1] for g in graphs)
+            shape = self.shape_for(len(graphs), n, e)
             if shape is None:
                 raise ValueError(
                     f"{len(graphs)} graphs ({n} nodes) fit no shape in "

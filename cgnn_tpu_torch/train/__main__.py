@@ -2,6 +2,12 @@
 
     python -m cgnn_tpu_torch.train --synthetic 400 --epochs 30
     python -m cgnn_tpu_torch.train --device cpu --synthetic 40 --epochs 1
+    python -m cgnn_tpu_torch.train --aggregation pallas --synthetic 400
+
+``--layout`` follows train.py's rules: ``auto`` is the dense layout unless
+``--aggregation`` names a COO aggregation; ``--layout dense`` with
+``--aggregation``, and ``--cgconv-impl`` or ``--fused-epilogue`` with COO,
+exit 2.
 
 The flags are train.py's that this entry point serves, with train.py's
 defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
@@ -57,6 +63,14 @@ def build_parser() -> argparse.ArgumentParser:
                    default="off",
                    help="fused BN1->gate->sum op; 'pallas' runs the CUDA "
                         "kernels on the card")
+    p.add_argument("--aggregation", choices=["xla", "sort", "pallas"],
+                   default=None,
+                   help="edge aggregation of the flat COO layout; 'pallas' "
+                        "runs kernel 6 on the card")
+    p.add_argument("--layout", choices=["auto", "dense", "coo"],
+                   default="auto",
+                   help="edge layout: auto = dense unless --aggregation "
+                        "is given")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--out-dir", default="checkpoints/torch",
@@ -64,11 +78,32 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def resolve_layout(args) -> int | None:
+    """train.py's layout rules -> dense_m (``--max-num-nbr``; 0 = COO), or
+    None after printing why the flags do not go together."""
+    if args.layout == "dense" and args.aggregation is not None:
+        print("--layout dense is incompatible with --aggregation",
+              file=sys.stderr)
+        return None
+    use_dense = (args.aggregation is None if args.layout == "auto"
+                 else args.layout == "dense")
+    if args.fused_epilogue != "off" and not use_dense:
+        print("--fused-epilogue requires the dense layout (not --layout coo "
+              "or --aggregation)", file=sys.stderr)
+        return None
+    if args.cgconv_impl != "off" and (not use_dense
+                                      or args.fused_epilogue != "off"):
+        print("--cgconv-impl (the whole-conv fused kernel) requires the "
+              "dense layout and no --fused-epilogue (it subsumes it)",
+              file=sys.stderr)
+        return None
+    return args.max_num_nbr if use_dense else 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cgconv_impl != "off" and args.fused_epilogue != "off":
-        print("--cgconv-impl (the whole-conv fused kernel) subsumes "
-              "--fused-epilogue; pick one", file=sys.stderr)
+    dense_m = resolve_layout(args)
+    if dense_m is None:
         return 2
     if args.synthetic <= 0:
         print("--synthetic N is required", file=sys.stderr)
@@ -95,16 +130,15 @@ def main(argv=None) -> int:
     train_g, val_g, test_g = train_val_test_split(
         graphs, args.train_ratio, args.val_ratio, seed=args.seed)
     num_targets = int(train_g[0].target.shape[0])
-    dense_m = args.max_num_nbr
     model_cfg = ModelConfig(
         atom_fea_len=args.atom_fea_len, n_conv=args.n_conv,
         h_fea_len=args.h_fea_len, n_h=args.n_h, num_targets=num_targets,
-        dense_m=dense_m,
+        aggregation=args.aggregation, dense_m=dense_m,
         fused_epilogue="" if args.fused_epilogue == "off"
         else args.fused_epilogue,
         cgconv_impl="" if args.cgconv_impl == "off" else args.cgconv_impl,
     )
-    state, node_cap = init_train_state(
+    state, node_cap, edge_cap = init_train_state(
         model_cfg, data_cfg, train_g, batch_size=args.batch_size, device=dev,
         seed=args.seed, optim=args.optim, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
@@ -112,9 +146,10 @@ def main(argv=None) -> int:
     state, result = fit(
         state, train_g, val_g, epochs=args.epochs,
         batch_size=args.batch_size, dense_m=dense_m, device=dev,
-        node_cap=node_cap, seed=args.seed, print_freq=args.print_freq)
+        node_cap=node_cap, edge_cap=edge_cap, seed=args.seed,
+        print_freq=args.print_freq)
     test_m = evaluate(state, test_g, args.batch_size, node_cap, dense_m,
-                      dev)
+                      dev, edge_cap=edge_cap)
     print(f"** test mae: {test_m.get('mae', float('nan')):.4f} "
           f"(best val: {result['best']:.4f})")
     os.makedirs(args.out_dir, exist_ok=True)

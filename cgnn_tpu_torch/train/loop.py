@@ -7,7 +7,8 @@ it. One ``np.random.default_rng(seed)`` shuffles every epoch's training
 batches; training batches carry the two-tier transpose mapping for the
 scatter-free backward, validation batches none (``in_cap=0``). Metric
 sums accumulate on the device and are fetched once per epoch. The loop
-keeps the best validation MAE.
+keeps the best validation MAE. ``dense_m`` 0 or None trains on the flat
+COO layout, whose batches carry no transpose mapping.
 
 Not ported yet: the whole-epoch scan loop, pack-once and
 device-resident staging, compact staging, size buckets, telemetry, the
@@ -81,6 +82,23 @@ def run_epoch(step_fn: Callable, state, batches: Iterable[GraphBatch],
     return means_from_sums(fetch(sums), steps)
 
 
+def batch_caps(graphs: Sequence[CrystalGraph], batch_size: int,
+               dense_m: int | None, node_cap: int | None = None,
+               edge_cap: int | None = None) -> tuple[int, int]:
+    """(node_cap, edge_cap) of the batches: the given ones, the rest the
+    snug capacities of ``graphs``. Dense (``dense_m`` > 0): the edge
+    capacity is ``node_cap * dense_m``; COO (0 or None): its own."""
+    if dense_m:
+        if node_cap is None:
+            node_cap, _ = capacities_for(graphs, batch_size, dense_m=dense_m)
+        return node_cap, node_cap * dense_m
+    if node_cap is None or edge_cap is None:
+        snug_n, snug_e = capacities_for(graphs, batch_size)
+        node_cap = snug_n if node_cap is None else node_cap
+        edge_cap = snug_e if edge_cap is None else edge_cap
+    return node_cap, edge_cap
+
+
 def fit(
     state,
     train_graphs: Sequence[CrystalGraph],
@@ -88,21 +106,21 @@ def fit(
     *,
     epochs: int,
     batch_size: int,
-    dense_m: int,
+    dense_m: int | None,
     device,
     node_cap: int | None = None,
+    edge_cap: int | None = None,
     seed: int = 0,
     print_freq: int = 0,
     log_fn: Callable = print,
 ) -> tuple:
     """Train/validate per epoch, tracking the best validation MAE.
     -> (state, {"best": best val MAE, "history": [per-epoch metrics]}).
-    ``node_cap`` defaults to the snug capacity of the training graphs;
-    the edge capacity is ``node_cap * dense_m``."""
-    if node_cap is None:
-        node_cap, _ = capacities_for(train_graphs, batch_size,
-                                     dense_m=dense_m)
-    edge_cap = node_cap * dense_m
+    ``dense_m`` 0 or None packs the flat COO layout. The capacities
+    default to the snug ones of the training graphs (``batch_caps``)."""
+    dense_m = dense_m or None
+    node_cap, edge_cap = batch_caps(train_graphs, batch_size, dense_m,
+                                    node_cap, edge_cap)
     train_step, eval_step = make_train_step(), make_eval_step()
     rng = np.random.default_rng(seed)
     best = np.inf
@@ -134,10 +152,15 @@ def fit(
 
 
 def evaluate(state, graphs: Sequence[CrystalGraph], batch_size: int,
-             node_cap: int, dense_m: int, device) -> dict:
-    """Metric means of the eval step over ``graphs``."""
+             node_cap: int, dense_m: int | None, device,
+             edge_cap: int | None = None) -> dict:
+    """Metric means of the eval step over ``graphs`` (capacities as in
+    ``fit``)."""
+    dense_m = dense_m or None
+    node_cap, edge_cap = batch_caps(graphs, batch_size, dense_m, node_cap,
+                                    edge_cap)
     return run_epoch(
         make_eval_step(), state,
-        batch_iterator(graphs, batch_size, node_cap, node_cap * dense_m,
+        batch_iterator(graphs, batch_size, node_cap, edge_cap,
                        dense_m=dense_m, in_cap=0, snug=True),
         device, train=False)

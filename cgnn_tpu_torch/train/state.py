@@ -126,10 +126,12 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
                      weight_decay: float = 0.0,
                      lr_milestones_epochs: Sequence[int] = (100,)):
     """A fresh TrainState as ``python -m cgnn_tpu_torch.train`` starts one
-    -> (state, node_cap): the model on ``device`` with the numpy-seeded
-    init (convert.init_params), the normalizer fitted on the training
-    targets, and the optimizer with its epoch milestones counted in
-    optimizer steps (x the snug batches per epoch, as train.py does)."""
+    -> (state, node_cap, edge_cap): the model on ``device`` with the
+    numpy-seeded init (convert.init_params), the normalizer fitted on the
+    training targets, the optimizer with its epoch milestones counted in
+    optimizer steps (x the snug batches per epoch, as train.py does), and
+    the snug batch capacities of the model's layout (``dense_m=0``: COO,
+    whose edge capacity is its own)."""
     import numpy as np
 
     from cgnn_tpu_torch import convert
@@ -144,13 +146,12 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
         np.stack([np.ones_like(g.target) if g.target_mask is None
                   else g.target_mask for g in train_graphs]),
         device=device)
-    dense_m = model_cfg.dense_m
     node_cap, edge_cap = capacities_for(train_graphs, batch_size,
-                                        dense_m=dense_m)
+                                        dense_m=model_cfg.dense_m or None)
     per_epoch = max(1, count_batches(train_graphs, batch_size, node_cap,
                                      edge_cap, snug=True))
     optimizer = make_optimizer(
         model.parameters(), optim=optim, lr=lr, momentum=momentum,
         weight_decay=weight_decay,
         lr_milestones=[m * per_epoch for m in lr_milestones_epochs])
-    return TrainState(model, optimizer, normalizer), node_cap
+    return TrainState(model, optimizer, normalizer), node_cap, edge_cap

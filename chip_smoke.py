@@ -6,8 +6,9 @@ Run from the repository root on a machine with an H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``cgnn_tpu_torch/ops/csrc`` with
-nvcc (``fused_cgconv.cu``, ``fused_epilogue.cu`` and ``neighbor_search.cu``,
-one nvcc each, in parallel, into ``build/kernels``), then:
+nvcc (``fused_cgconv.cu``, ``fused_epilogue.cu``, ``neighbor_search.cu``,
+``segment_sum.cu`` and ``windowed_gather.cu``, one nvcc each, in parallel,
+into ``build/kernels``), then:
 
 1. kernel phase — holds each of the six kernels against its plain PyTorch
    version on the card and times both with CUDA events beside the card's
@@ -53,10 +54,30 @@ one nvcc each, in parallel, into ``build/kernels``), then:
    within rtol 1e-3 / atol 1e-4 (f32, 5 SGD steps). A 3-step run with
    ``fused_epilogue='pallas'`` (then one eval batch) must launch kernels
    3, 4 and 5 and give the plain path's first 3 losses;
-5. train breakdown — for the kernel path and the plain path: train
+5. train breakdown — for the kernel path, the plain path and the COO
+   kernel path (``aggregation='pallas'``, below): train
    structures/s of the per-step loop, and a step split into host pack,
    host-to-device copy and step wall, with the device's busy time and
-   idle share from a ``torch.profiler`` trace.
+   idle share from a ``torch.profiler`` trace;
+6. the flat COO layout — kernel 6 (the sorted segment sum) against its
+   plain version and ``torch.segment_reduce`` at the COO training shape
+   (a packed batch-256 batch: E=93,920 edges, N=7,832, F=64; seeded
+   messages zeroed on padding edges, which all sit on node N-1) and at the
+   top COO serving rung (E=21,336, N=1,784), rtol 1e-4 / atol 1e-5 and
+   bit-identical run to run; kernel 7 (the windowed gather, which no entry
+   point of the JAX package calls) bit-equal to its plain version and to
+   ``index_select`` on the dense training batch at N=7,936 (the node
+   capacity rounded up to 128), and zeros out of window on shuffled
+   indices. Path ``train_coo``: ``fit`` with ``aggregation='pallas'``,
+   ``dense_m=0``, same split, batch 256, 2 epochs, kernel 6 launched
+   exactly n_conv x (train steps + eval batches) times; a 5-step
+   trajectory through ``'pallas'`` and ``'xla'`` aggregation within rtol
+   1e-3 / atol 1e-4; the weights saved. Path ``serve_coo``:
+   ``load_server(wire='auto')`` on them (it must log featurized-only),
+   from 4 threads 224 featurized graphs and 32 ``RawStructure``s
+   featurized at admission, every answer within rtol 1e-4 / atol 1e-4 of
+   the plain model (``aggregation='xla'``) on host-featurized copies,
+   kernel 6 launched n_conv times a flush; a top-rung flush breakdown.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 summary lines, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -85,6 +106,9 @@ N_CLIENTS, N_GRAPHS, N_WIRE = 4, 224, 32
 M = 12  # the flagship's max_num_nbr: dense edge slots per node
 BATCH, EPOCHS = 256, 2
 N_TRAIN_SET = 640  # split 0.8 / 0.1 / 0.1 -> 512 train, 64 val, 64 test
+COO_AGG = "pallas"  # the COO paths' aggregation: kernel 6
+NO_PATH = {"windowed_gather": "no entry point of the JAX package calls "
+                              "windowed_gather (tests/test_ops.py:548 only)"}
 NO_LIBRARY = {
     "neighbor_search": "no single PyTorch call computes the lexicographic "
                        "top-M periodic neighbor search",
@@ -142,13 +166,17 @@ def kernel_wrappers() -> dict:
     from cgnn_tpu_torch.ops import fused_cgconv as fc
     from cgnn_tpu_torch.ops import fused_epilogue as fe
     from cgnn_tpu_torch.ops import neighbor_search as ns
+    from cgnn_tpu_torch.ops import scatter
+    from cgnn_tpu_torch.ops import windowed_gather as wg
 
     return {"fused_cgconv_eval": fc.fused_cgconv_eval_cuda,
             "fused_cgconv_stats": fc.fused_cgconv_stats_cuda,
             "epilogue_apply": fe.epilogue_apply_cuda,
             "epilogue_reduce": fe.epilogue_reduce_cuda,
             "epilogue_dz": fe.epilogue_dz_cuda,
-            "neighbor_search": ns.neighbor_search_cuda}
+            "neighbor_search": ns.neighbor_search_cuda,
+            "segment_sum_sorted": scatter.segment_sum_sorted_cuda,
+            "windowed_gather": wg.windowed_gather_cuda}
 
 
 def zero_counts() -> None:
@@ -193,13 +221,18 @@ def bound(cost):
                                    else "operations")
 
 
-def kernel_entry(name, source, replaces, errs, ms, plain_ms, cost):
-    """One kernel's record for the ``kernels`` line, with its ``bound``."""
+def kernel_entry(name, source, replaces, errs, ms, plain_ms, cost,
+                 library_ms=None, library_call=None):
+    """One kernel's record for the ``kernels`` line, with its ``bound``;
+    ``library_ms``: the time of the one PyTorch call ``library_call`` that
+    computes the same function, where there is one."""
     bound_ms, bound_by = bound(cost)
+    lib = (f"library ({library_call}) {library_ms!r} ms" if library_call
+           else f"library_ms null: {NO_LIBRARY[name]}")
     print(f"{name}: {ms!r} ms a call, {plain_ms!r} ms plain; "
           f"{cost['flops']} FLOP, {cost['bytes']} B -> bound "
-          f"{bound_ms!r} ms; library_ms null: {NO_LIBRARY[name]}")
-    return {
+          f"{bound_ms!r} ms; {lib}")
+    entry = {
         "name": name,
         "route": "cuda",
         "source": f"cgnn_tpu_torch/ops/csrc/{source}",
@@ -211,9 +244,13 @@ def kernel_entry(name, source, replaces, errs, ms, plain_ms, cost):
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": None,
-        "library_ms_null_because": NO_LIBRARY[name],
+        "library_ms": library_ms,
     }
+    if library_call:
+        entry["library_call"] = library_call
+    else:
+        entry["library_ms_null_because"] = NO_LIBRARY[name]
+    return entry
 
 
 def conv_inputs(dev, batch, f=64):
@@ -642,14 +679,17 @@ def overflow_leg(dev, npz, meta, calibration, n_conv):
             "max_abs_err_vs_featurized": err}, counts
 
 
-def flush_breakdown(dev, state, shape_set, graphs, reps=10):
+def flush_breakdown(dev, state, shape_set, graphs, reps=10,
+                    kernel_key="fused_cgconv_eval_kernel",
+                    kernel_label="fused_kernel"):
     """One top-rung flush of ``graphs`` split into its stages, each the
     median of ``reps``: host pack, host-to-device copy, the predict step
     (host wall with a synchronize), and the copy of the answers back. Then
     the step's device busy time per step, from a torch.profiler trace of
-    ``reps`` steps: the sum of its kernels' device time, the fused
-    kernel's share of it, and the share of the step's wall the device
-    sits idle."""
+    ``reps`` steps: the sum of its kernels' device time, the share of it
+    of the hand-written kernel whose name holds ``kernel_key`` (reported
+    as ``<kernel_label>_ms_per_step``), and the share of the step's wall
+    the device sits idle."""
     import torch
 
     from cgnn_tpu_torch.train.step import make_predict_step
@@ -677,12 +717,13 @@ def flush_breakdown(dev, state, shape_set, graphs, reps=10):
     res.update({k: statistics.median(v) for k, v in stages.items()})
     busy_ms, by_kernel, _ = device_busy_ms(lambda: step(state, on_dev), reps)
     if busy_ms is not None:
-        fused_ms = sum(v for k, v in by_kernel.items()
-                       if "fused_cgconv_eval_kernel" in k)
+        ours_ms = sum(v for k, v in by_kernel.items() if kernel_key in k)
+        top_k = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
         res["step_device_busy_ms"] = busy_ms
-        res["fused_kernel_ms_per_step"] = fused_ms
-        res["fused_kernel_share_of_busy"] = fused_ms / busy_ms
+        res[f"{kernel_label}_ms_per_step"] = ours_ms
+        res[f"{kernel_label}_share_of_busy"] = ours_ms / busy_ms
         res["device_idle_share_of_step"] = 1.0 - busy_ms / res["step_wall_ms"]
+        res["top_kernels_ms_per_step"] = {k[:80]: v for k, v in top_k}
     else:  # the profiler saw no device activity on this machine
         res["step_device_busy_ms"] = None
     return res
@@ -770,6 +811,16 @@ def device_busy_ms(run_step, reps):
     return (busy if busy > 0 else None), by_kernel, by_host_op
 
 
+def device_ms(fn, reps=20) -> float | None:
+    """Device time of one call of ``fn`` (all its kernels) from a
+    torch.profiler trace of ``reps`` calls after a warm-up: the events
+    timing of back-to-back calls (``time_ms``) reads the host instead when
+    a call's host work outlasts its kernels. None when the trace holds no
+    device time."""
+    fn()
+    return device_busy_ms(fn, reps)[0]
+
+
 def host_syncs(run_step) -> dict:
     """The operations of one step (``run_step``, after its host-to-device
     copy) that make the host wait for the device, from CUDA sync debug
@@ -810,15 +861,17 @@ def host_syncs(run_step) -> dict:
 
 
 def new_state(dev, train_graphs, **model_kw):
-    """A fresh flagship TrainState (seed SEED, train.py's SGD defaults)."""
+    """A fresh flagship TrainState (seed SEED, train.py's SGD defaults),
+    dense unless ``model_kw`` sets ``dense_m=0`` -> (config, state,
+    node_cap, edge_cap)."""
     from cgnn_tpu_torch.config import DataConfig, ModelConfig
     from cgnn_tpu_torch.train.state import init_train_state
 
-    cfg = ModelConfig(dense_m=M, **model_kw)
-    state, node_cap = init_train_state(cfg, DataConfig(), train_graphs,
-                                       batch_size=BATCH, device=dev,
-                                       seed=SEED)
-    return cfg, state, node_cap
+    cfg = ModelConfig(**({"dense_m": M} | model_kw))
+    state, node_cap, edge_cap = init_train_state(
+        cfg, DataConfig(), train_graphs, batch_size=BATCH, device=dev,
+        seed=SEED)
+    return cfg, state, node_cap, edge_cap
 
 
 def train_phase(dev, split, work_dir):
@@ -836,7 +889,7 @@ def train_phase(dev, split, work_dir):
     from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
 
     train_g, val_g, test_g = split
-    cfg, state, node_cap = new_state(dev, train_g, cgconv_impl="pallas")
+    cfg, state, node_cap, _ = new_state(dev, train_g, cgconv_impl="pallas")
     # the training path's run: counts at 0 just before, read just after
     zero_counts()
     t0 = time.perf_counter()
@@ -913,20 +966,61 @@ def train_phase(dev, split, work_dir):
     return summary, counts, node_cap
 
 
-def fixed_batches(dev, train_g, node_cap, k):
+def fixed_batches(dev, train_g, node_cap, k, edge_cap=None, dense_m=M):
     """The first ``k`` shuffled snug training batches (epochs in turn, one
-    seeded generator), on the card."""
+    seeded generator), on the card; ``dense_m=None``: COO batches of
+    ``edge_cap`` edges."""
     import numpy as np
 
     from cgnn_tpu_torch.data.graph import batch_iterator
 
     rng = np.random.default_rng(SEED + 5)
+    edge_cap = node_cap * dense_m if dense_m else edge_cap
     out = []
     while len(out) < k:
-        out += list(batch_iterator(train_g, BATCH, node_cap, node_cap * M,
-                                   shuffle=True, rng=rng, dense_m=M,
+        out += list(batch_iterator(train_g, BATCH, node_cap, edge_cap,
+                                   shuffle=True, rng=rng, dense_m=dense_m,
                                    snug=True))
     return [b.to(dev) for b in out[:k]]
+
+
+def compare_trajectories(dev, train_g, batches, label, kernel_kw, plain_kw):
+    """The same steps on ``batches`` from the same initial weights through
+    the kernel path (``kernel_kw``) and the plain path (``plain_kw``):
+    per-step loss and every parameter and running statistic within
+    TRAIN_RTOL / TRAIN_ATOL -> (the plain losses, {max diffs})."""
+    import torch
+
+    from cgnn_tpu_torch.train.step import make_train_step
+
+    runs = []
+    for kw in (kernel_kw, plain_kw):
+        _, state, _, _ = new_state(dev, train_g, **kw)
+        step = make_train_step()
+        losses = [m["loss_sum"] / m["count"]
+                  for m in (step(state, b) for b in batches)]
+        runs.append((torch.stack(losses).cpu(),
+                     {key: v.detach().clone()
+                      for key, v in state.model.state_dict().items()}))
+    (loss_k, sd_k), (loss_p, sd_p) = runs
+    loss_err = float((loss_k - loss_p).abs().max())
+    ok = bool(torch.allclose(loss_k, loss_p, rtol=TRAIN_RTOL,
+                             atol=TRAIN_ATOL))
+    param_err, worst = 0.0, ""
+    for key in sd_p:
+        e = float((sd_k[key] - sd_p[key]).abs().max())
+        if e > param_err:
+            param_err, worst = e, key
+        ok = ok and bool(torch.allclose(sd_k[key], sd_p[key],
+                                        rtol=TRAIN_RTOL, atol=TRAIN_ATOL))
+    print(f"{label}: {len(batches)} steps, kernel path vs plain path: "
+          f"losses {loss_k.tolist()} vs {loss_p.tolist()}, max loss diff "
+          f"{loss_err!r}, max parameter diff {param_err!r} ({worst}) "
+          f"(rtol {TRAIN_RTOL}, atol {TRAIN_ATOL}): {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the kernel path's trajectory leaves the plain "
+              f"path's")
+    return loss_p, {"steps": len(batches), "max_loss_diff": loss_err,
+                    "max_param_diff": param_err, "worst_param": worst}
 
 
 def trajectory_phase(dev, train_g, val_g, node_cap, k=5):
@@ -938,33 +1032,11 @@ def trajectory_phase(dev, train_g, val_g, node_cap, k=5):
     from cgnn_tpu_torch.train.step import make_eval_step, make_train_step
 
     batches = fixed_batches(dev, train_g, node_cap, k)
-    runs = {}
-    for impl in ("pallas", ""):
-        _, state, _ = new_state(dev, train_g, cgconv_impl=impl)
-        step = make_train_step()
-        losses = [m["loss_sum"] / m["count"]
-                  for m in (step(state, b) for b in batches)]
-        runs[impl] = (torch.stack(losses).cpu(),
-                      {key: v.detach().clone()
-                       for key, v in state.model.state_dict().items()})
-    (loss_k, sd_k), (loss_p, sd_p) = runs["pallas"], runs[""]
-    loss_err = float((loss_k - loss_p).abs().max())
-    ok = bool(torch.allclose(loss_k, loss_p, rtol=TRAIN_RTOL,
-                             atol=TRAIN_ATOL))
-    param_err, worst = 0.0, ""
-    for key in sd_p:
-        e = float((sd_k[key] - sd_p[key]).abs().max())
-        if e > param_err:
-            param_err, worst = e, key
-        ok = ok and bool(torch.allclose(sd_k[key], sd_p[key],
-                                        rtol=TRAIN_RTOL, atol=TRAIN_ATOL))
-    print(f"trajectory: {k} steps, kernel path vs plain path: losses "
-          f"{loss_k.tolist()} vs {loss_p.tolist()}, max loss diff "
-          f"{loss_err!r}, max parameter diff {param_err!r} ({worst}) "
-          f"(rtol {TRAIN_RTOL}, atol {TRAIN_ATOL}): {'ok' if ok else 'FAIL'}")
-    check(ok, "the kernel path's trajectory leaves the plain path's")
+    loss_p, diffs = compare_trajectories(
+        dev, train_g, batches, "trajectory", {"cgconv_impl": "pallas"},
+        {"cgconv_impl": ""})
 
-    cfg, state, _ = new_state(dev, train_g, fused_epilogue="pallas")
+    cfg, state, _, _ = new_state(dev, train_g, fused_epilogue="pallas")
     val_batch = next(iter(batch_iterator(
         val_g, BATCH, node_cap, node_cap * M, dense_m=M, in_cap=0,
         snug=True))).to(dev)
@@ -990,32 +1062,31 @@ def trajectory_phase(dev, train_g, val_g, node_cap, k=5):
           f"diff vs the plain path {e_err!r}: {'ok' if ok else 'FAIL'}")
     check(ok, "the fused-epilogue path did not run its kernels or "
               "disagrees with the plain path")
-    return {"steps": k, "max_loss_diff": loss_err,
-            "max_param_diff": param_err, "worst_param": worst,
-            "epilogue_max_loss_diff": e_err}, counts
+    return diffs | {"epilogue_max_loss_diff": e_err}, counts
 
 
-def train_breakdown(dev, train_g, node_cap, label, steps=8, **model_kw):
-    """The per-step training loop of one conv setting at the training
-    shape: train structures/s as the loop runs (host pack, copy and the
-    step's launches in turn, no extra synchronize), then each stage alone
-    (median of ``steps``, synchronized), then the step's device busy time
-    and idle share from a torch.profiler trace."""
+def train_breakdown(dev, train_g, label, steps=8, **model_kw):
+    """The per-step training loop of one setting at the training shape
+    (its layout's snug capacities): train structures/s as the loop runs
+    (host pack, copy and the step's launches in turn, no extra
+    synchronize), then each stage alone (median of ``steps``,
+    synchronized), then the step's device busy time and idle share from a
+    torch.profiler trace."""
     import numpy as np
     import torch
 
     from cgnn_tpu_torch.data.graph import batch_iterator
     from cgnn_tpu_torch.train.step import make_train_step
 
-    _, state, _ = new_state(dev, train_g, **model_kw)
+    cfg, state, node_cap, edge_cap = new_state(dev, train_g, **model_kw)
     step = make_train_step()
     rng = np.random.default_rng(SEED + 7)
 
     def host_batches():
         while True:
-            yield from batch_iterator(train_g, BATCH, node_cap,
-                                      node_cap * M, shuffle=True, rng=rng,
-                                      dense_m=M, snug=True)
+            yield from batch_iterator(train_g, BATCH, node_cap, edge_cap,
+                                      shuffle=True, rng=rng,
+                                      dense_m=cfg.dense_m or None, snug=True)
 
     it = host_batches()
     for _ in range(2):  # warm-up
@@ -1056,7 +1127,7 @@ def train_breakdown(dev, train_g, node_cap, label, steps=8, **model_kw):
     if busy_ms is None:  # the profiler saw no device activity
         res["step_device_busy_ms"] = None
         return res
-    ours = ("fused_cgconv", "epilogue_", "sum_partials")
+    ours = ("fused_cgconv", "epilogue_", "sum_partials", "segment_sum")
     ours_ms = sum(v for k, v in by_kernel.items()
                   if any(o in k for o in ours))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
@@ -1073,6 +1144,290 @@ def train_breakdown(dev, train_g, node_cap, label, steps=8, **model_kw):
         "top_host_ops_ms_per_step": {k[:60]: v for k, v in top_host},
     })
     return res
+
+
+def segment_sum_check(dev, label, batch, seed):
+    """Kernel 6 on one packed COO batch: seeded [E, 64] messages zeroed on
+    the padding edges, against its plain version (rtol/atol), bit-identical
+    on a second run; then timed beside its plain version and the library
+    call ``torch.segment_reduce`` on the same offsets. -> its record."""
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.ops import scatter
+
+    e, f = batch.edge_mask.shape[0], 64
+    n = batch.nodes.shape[0]
+    rng = np.random.default_rng(seed)
+    msgs = torch.from_numpy(
+        (rng.standard_normal((e, f)) * batch.edge_mask.numpy()[:, None])
+        .astype(np.float32)).to(dev)
+    centers = batch.centers.to(dev)
+    offsets = scatter.segment_offsets(centers, n)
+    got = scatter.segment_sum_sorted_cuda(msgs, offsets)
+    again = scatter.segment_sum_sorted_cuda(msgs, offsets)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{label}: kernel 6 differs from run to "
+                                   f"run")
+    errs = compare(f"segment_sum_sorted, {label}", got,
+                   scatter.segment_sum_sorted_reference(msgs, offsets),
+                   RTOL, ATOL)
+    real = int(batch.edge_mask.sum())
+    spans = np.diff(offsets.cpu().numpy())
+    cost = scatter.segment_sum_cost(e, n, f)
+    bound_ms, bound_by = bound(cost)
+    rec = {"E": e, "N": n, "F": f, "real_edges": real,
+           "node_n_minus_1_edges": int(spans[-1]),
+           "largest_real_in_degree": int(spans[:-1].max()),
+           "max_abs_err": errs[0], "max_rel_err": errs[1],
+           "ms": time_ms(lambda: scatter.segment_sum_sorted_cuda(msgs,
+                                                                 offsets)),
+           "plain_ms": time_ms(
+               lambda: scatter.segment_sum_sorted_reference(msgs, offsets)),
+           "library_ms": time_ms(lambda: torch.segment_reduce(
+               msgs, "sum", offsets=offsets, axis=0, unsafe=True)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "cost": cost,
+           "device_ms": device_ms(
+               lambda: scatter.segment_sum_sorted_cuda(msgs, offsets)),
+           "library_device_ms": device_ms(lambda: torch.segment_reduce(
+               msgs, "sum", offsets=offsets, axis=0, unsafe=True))}
+    print(f"segment_sum_sorted, {label}: {rec}")
+    return rec
+
+
+def coo_kernel_phase(dev, train_graphs, calibration):
+    """Kernel 6 at the COO training shape and at the top COO serving rung;
+    kernel 7 at the dense training shape. -> their two entries."""
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.serve.shapes import plan_shape_set
+
+    node_cap, edge_cap = capacities_for(train_graphs, BATCH)
+    train_batch = next(iter(batch_iterator(train_graphs, BATCH, node_cap,
+                                           edge_cap, snug=True)))
+    train = segment_sum_check(dev, "COO training shape", train_batch, SEED)
+    ss = plan_shape_set(calibration, 64, rungs=3)
+    serve = segment_sum_check(dev, "top COO serving rung",
+                              ss.pack_full(calibration, shape=ss.largest),
+                              SEED + 1)
+    k6 = kernel_entry(
+        "segment_sum_sorted", "segment_sum.cu",
+        "cgnn_tpu/ops/pallas_scatter.py:52",
+        (train["max_abs_err"], train["max_rel_err"]), train["ms"],
+        train["plain_ms"], train.pop("cost"), library_ms=train["library_ms"],
+        library_call="torch.segment_reduce(messages, 'sum', offsets=offsets, "
+                     "axis=0, unsafe=True)")
+    serve.pop("cost")
+    k6.update(device_ms=train["device_ms"],
+              library_device_ms=train["library_device_ms"],
+              training_shape=train, serve_top_rung=serve)
+    k6["coo_rungs"] = [list(vars(s).values()) for s in ss]
+    return k6, gather_kernel_phase(dev, train_graphs)
+
+
+def gather_kernel_phase(dev, train_graphs):
+    """Kernel 7 on the dense training batch packed at the node capacity
+    rounded up to 128 (N=7,936): bit-equal to its plain version and to
+    ``index_select`` (every neighbor lies in its window on a real graph);
+    on shuffled indices, out-of-window slots give zeros, bit-equal to the
+    plain version. Then timed beside both. -> its entry, with the
+    launches of these checks."""
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.ops import windowed_gather as wg
+
+    node_cap, _ = capacities_for(train_graphs, BATCH, dense_m=M)
+    n = -(-node_cap // wg.TN) * wg.TN
+    batch = next(iter(batch_iterator(train_graphs, BATCH, n, n * M,
+                                     dense_m=M, in_cap=0, snug=True)))
+    f = 64
+    window = wg.window_width(max(g.num_nodes for g in train_graphs))
+    rng = np.random.default_rng(SEED + 2)
+    nodes = torch.from_numpy(
+        rng.standard_normal((n, f)).astype(np.float32)).to(dev)
+    nbr = batch.neighbors.to(dev)
+    ws = torch.from_numpy(wg.window_starts(n // wg.TN, n, window)).to(dev)
+    before = wg.windowed_gather_cuda.launches
+    got = wg.windowed_gather_cuda(nodes, nbr, ws, window)
+    want = wg.windowed_gather_reference(nodes, nbr, ws, window)
+    lib = nodes.index_select(0, nbr).reshape(n, M, f)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "kernel 7 differs from its plain version")
+    check(torch.equal(got, lib), "kernel 7 differs from index_select on a "
+                                 "real graph")
+    shuffled = nbr[torch.randperm(nbr.numel(), device=dev,
+                                  generator=torch.Generator(dev)
+                                  .manual_seed(SEED))].contiguous()
+    got_s = wg.windowed_gather_cuda(nodes, shuffled, ws, window)
+    want_s = wg.windowed_gather_reference(nodes, shuffled, ws, window)
+    torch.cuda.synchronize()
+    zero_rows = int((got_s == 0).all(dim=-1).sum())
+    check(torch.equal(got_s, want_s) and zero_rows > 0,
+          f"kernel 7 on shuffled indices: {zero_rows} zero rows, or it "
+          f"differs from its plain version")
+    launches = wg.windowed_gather_cuda.launches - before
+    print(f"windowed_gather at N={n} M={M} F={f}, window {window}: bit-equal "
+          f"to its plain version and to index_select; shuffled indices: "
+          f"{zero_rows} of {shuffled.numel()} slots out of window, zeros, "
+          f"bit-equal: ok")
+    entry = kernel_entry(
+        "windowed_gather", "windowed_gather.cu",
+        "cgnn_tpu/ops/pallas_gather.py:55", (0.0, 0.0),
+        time_ms(lambda: wg.windowed_gather_cuda(nodes, nbr, ws, window)),
+        time_ms(lambda: wg.windowed_gather_reference(nodes, nbr, ws,
+                                                     window)),
+        wg.windowed_gather_cost(n, M, f),
+        library_ms=time_ms(lambda: nodes.index_select(0, nbr)),
+        library_call="nodes.index_select(0, neighbors)")
+    entry.update(path_note=NO_PATH["windowed_gather"],
+                 kernel_phase_launches=launches,
+                 device_ms=device_ms(
+                     lambda: wg.windowed_gather_cuda(nodes, nbr, ws, window)),
+                 library_device_ms=device_ms(
+                     lambda: nodes.index_select(0, nbr)),
+                 shape={"N": n, "M": M, "F": f, "window": window,
+                        "out_of_window_slots_shuffled": zero_rows})
+    return entry
+
+
+def train_coo_phase(dev, split, work_dir, k=5):
+    """Path 'train_coo': fit at full width in the COO layout with
+    aggregation='pallas' (kernel 6), 2 epochs; a k-step trajectory against
+    aggregation='xla'; the weights saved. -> (summary, counts, weights)."""
+    import math
+
+    import torch
+
+    from cgnn_tpu_torch import convert
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.train.loop import fit
+
+    train_g, val_g, _ = split
+    cfg, state, node_cap, edge_cap = new_state(dev, train_g, dense_m=0,
+                                               aggregation=COO_AGG)
+    # the COO training path's run: counts at 0 just before, read after
+    zero_counts()
+    t0 = time.perf_counter()
+    state, result = fit(state, train_g, val_g, epochs=EPOCHS,
+                        batch_size=BATCH, dense_m=0, device=dev,
+                        node_cap=node_cap, edge_cap=edge_cap, seed=SEED,
+                        log_fn=lambda s: print(f"train_coo: {s}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    hist = result["history"]
+    steps = sum(h["train"]["steps"] for h in hist)
+    evals = sum(h["val"]["steps"] for h in hist)
+    want = dict.fromkeys(counts, 0) | {
+        "segment_sum_sorted": cfg.n_conv * (steps + evals)}
+    print(f"train_coo: caps N={node_cap} E={edge_cap}, {steps} train steps, "
+          f"{evals} eval batches, launches {counts}")
+    check(counts == want, f"train_coo launches {counts} != {want}")
+    for h in hist:
+        vals = (h["train"]["loss"], h["train"]["mae"], h["val"]["mae"])
+        check(all(math.isfinite(v) for v in vals),
+              f"train_coo epoch {h['epoch']}: non-finite loss or MAE {vals}")
+    out_dir = os.path.join(work_dir, "trained_coo")
+    os.makedirs(out_dir, exist_ok=True)
+    npz = os.path.join(out_dir, "params.npz")
+    meta = os.path.join(out_dir, "meta.json")
+    variables = convert.to_flax_variables(state.model.state_dict())
+    convert.save_params(
+        npz, meta, variables, cfg, DataConfig(),
+        normalizer_mean=state.normalizer.mean.cpu().numpy(),
+        normalizer_std=state.normalizer.std.cpu().numpy())
+    batches = fixed_batches(dev, train_g, node_cap, k, edge_cap=edge_cap,
+                            dense_m=None)
+    _, traj = compare_trajectories(
+        dev, train_g, batches, "trajectory_coo",
+        {"dense_m": 0, "aggregation": COO_AGG},
+        {"dense_m": 0, "aggregation": "xla"})
+    summary = {
+        "node_cap": node_cap, "edge_cap": edge_cap, "train_steps": steps,
+        "eval_batches": evals, "launches": counts, "fit_wall_s": wall,
+        "fit_structures_per_s_incl_val_and_warmup":
+            len(train_g) * EPOCHS / wall,
+        "train_loss": [h["train"]["loss"] for h in hist],
+        "val_mae": [h["val"]["mae"] for h in hist], "trajectory": traj}
+    return summary, counts, (npz, meta, variables, cfg)
+
+
+def serve_coo_phase(dev, calibration, weights):
+    """Path 'serve_coo': load_server on the COO weights (wire='auto' must
+    log featurized-only), a burst of 224 featurized graphs and 32
+    RawStructures featurized at admission from 4 threads; every answer
+    against the plain model (aggregation='xla') on host-featurized copies;
+    kernel 6 n_conv times a flush; a top-rung flush breakdown."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from cgnn_tpu_torch import convert
+    from cgnn_tpu_torch.config import DataConfig, build_model
+    from cgnn_tpu_torch.data.dataset import load_synthetic_mp
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
+    from cgnn_tpu_torch.data.synthetic import synthetic_mp_dataset
+    from cgnn_tpu_torch.serve.server import load_server, structure_featurizer
+    from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
+
+    npz, meta, variables, cfg = weights
+    data_cfg = DataConfig()
+    logs = []
+    server, _ = load_server(npz, meta, batch_size=64, rungs=3,
+                            calibration=calibration, device=dev,
+                            default_timeout_ms=60_000.0, wire="auto",
+                            log_fn=lambda s: (logs.append(s), print(s)))
+    ss = server.shape_set
+    check(ss.dense_m is None and ss.raw is None
+          and any("raw wire requires the dense layout; featurized wire only"
+                  in s for s in logs),
+          f"load_server on COO weights: dense_m {ss.dense_m}, raw "
+          f"{ss.raw}, log {logs}")
+    graphs = load_synthetic_mp(N_GRAPHS, data_cfg.featurize_config(),
+                               seed=SEED + 1)
+    wire = [RawStructure.from_structure(s, cif_id=sid)
+            for sid, s, _ in synthetic_mp_dataset(N_WIRE, seed=SEED + 2)]
+    run = burst(server, graphs + wire)
+    preds, wires = run.pop("preds"), run.pop("wires")
+    want_counts = dict.fromkeys(run["launches"], 0) | {
+        "segment_sum_sorted": cfg.n_conv * run["flushes"]}
+    check(run["launches"] == want_counts and run["flushes"] > 0
+          and wires == ["featurized"] * len(wires),
+          f"serve_coo: {run['flushes']} flushes, launches "
+          f"{run['launches']}, want {want_counts}")
+    plain = build_model(dc.replace(cfg, aggregation="xla"), data_cfg,
+                        device=dev)
+    plain.load_state_dict(convert.from_flax_variables(variables))
+    state = InferenceState(plain, server.state.normalizer)
+    featurize = structure_featurizer(data_cfg)
+    ref = graphs + [featurize(s) for s in wire]
+    step = make_predict_step()
+    want, chunk = [], []
+    for g in ref + [None]:
+        fits = g is not None and ss.largest.fits(
+            len(chunk) + 1, sum(x.num_nodes for x in chunk) + g.num_nodes,
+            sum(x.num_edges for x in chunk) + g.num_edges)
+        if chunk and not fits:
+            out = step(state, ss.pack_full(chunk).to(dev))
+            want.append(out[:len(chunk)].cpu().numpy())
+            chunk = []
+        if g is not None:
+            chunk.append(g)
+    want = np.concatenate(want)
+    err = np.abs(preds - want)
+    ok = bool(np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(want)))
+    print(f"serve_coo: {len(ref)} answers vs the plain model: max_abs_err "
+          f"{float(err.max())!r} (rtol {SERVE_RTOL}, atol {SERVE_ATOL}): "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "serve_coo answers disagree with the plain model")
+    breakdown = flush_breakdown(dev, server.state, ss, calibration,
+                                kernel_key="segment_sum_sorted_kernel",
+                                kernel_label="segment_sum_kernel")
+    check(server.drain(timeout_s=60), "the serve worker did not drain")
+    run.update(rungs=[list(vars(s).values()) for s in ss],
+               max_abs_err_vs_plain=float(err.max()))
+    return run, breakdown, run["launches"]
 
 
 def main() -> int:
@@ -1100,7 +1455,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
-    _build.build(["fused_cgconv", "fused_epilogue", "neighbor_search"])
+    _build.build(["fused_cgconv", "fused_epilogue", "neighbor_search",
+                  "segment_sum", "windowed_gather"])
     print(f"kernel build: {time.perf_counter() - t0!r} s")
     for name, info in _build.build_info.items():
         for line in info["log"].splitlines():
@@ -1123,20 +1479,34 @@ def main() -> int:
     search_entry, kernels[0]["raw_top_rung"] = search_kernel_phase(
         dev, calibration, shape_set)
     kernels.append(search_entry)
+    kernels += coo_kernel_phase(dev, split[0], calibration)
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke")
     summary, breakdown, raw_breakdown, by_path = serve_phase(
         dev, calibration, work_dir)
     train_summary, train_counts, node_cap = train_phase(dev, split, work_dir)
     traj, epi_counts = trajectory_phase(dev, split[0], split[1], node_cap)
-    breakdowns = [train_breakdown(dev, split[0], node_cap, "kernel path",
+    breakdowns = [train_breakdown(dev, split[0], "kernel path",
                                   cgconv_impl="pallas"),
-                  train_breakdown(dev, split[0], node_cap, "plain path")]
+                  train_breakdown(dev, split[0], "plain path"),
+                  train_breakdown(dev, split[0], "COO kernel path",
+                                  dense_m=0, aggregation=COO_AGG)]
+    coo_train, coo_train_counts, coo_weights = train_coo_phase(
+        dev, split, work_dir)
+    coo_serve, coo_breakdown, coo_serve_counts = serve_coo_phase(
+        dev, calibration, coo_weights)
     by_path.update(train_cgconv_pallas=train_counts,
-                   train_fused_epilogue_pallas=epi_counts)
+                   train_fused_epilogue_pallas=epi_counts,
+                   train_coo=coo_train_counts, serve_coo=coo_serve_counts)
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+        if k["name"] in NO_PATH:  # no path exists: the kernel phase's
+            check(k["launches"] == 0 and k["kernel_phase_launches"] > 0,
+                  f"{k['name']}: {k['launches_by_path']} on paths, "
+                  f"{k['kernel_phase_launches']} in the kernel phase")
+            k["launches"] = k["kernel_phase_launches"]
+            continue
         check(k["launches"] > 0, f"{k['name']} never launched on a path")
     print(json.dumps({"flush_breakdown": breakdown}, allow_nan=False))
     print(json.dumps({"raw_flush_breakdown": raw_breakdown},
@@ -1146,6 +1516,10 @@ def main() -> int:
     print(json.dumps({"train": train_summary, "trajectory": traj},
                      allow_nan=False))
     print(json.dumps({"serve": summary}, allow_nan=False))
+    print(json.dumps({"coo_flush_breakdown": coo_breakdown},
+                     allow_nan=False))
+    print(json.dumps({"train_coo": coo_train, "serve_coo": coo_serve},
+                     allow_nan=False))
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card)

@@ -400,3 +400,118 @@ def test_raw_server_runs_kernel_8(dev, tmp_path):
     assert ns.neighbor_search_cuda.launches == before
     np.testing.assert_allclose(np.stack([r.prediction for r in res]), want,
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# kernel 6, the sorted segment sum (the COO layout), and kernel 7, the
+# windowed gather
+# ---------------------------------------------------------------------------
+
+
+def _segment_cases():
+    rng = np.random.default_rng(1)
+    n = 260  # empty nodes, a 700-edge hub, a tail node (tests/test_ops.py)
+    hub = np.sort(np.concatenate([np.full(700, 5), rng.integers(100, 120, 50),
+                                  np.full(30, n - 1)])).astype(np.int32)
+    return {
+        "hub_empty_tail": (rng.normal(size=(len(hub), 8)), hub, n),
+        "f_ragged": (rng.normal(size=(333, 100)),
+                     np.sort(rng.integers(0, 77, 333)).astype(np.int32), 77),
+        "coo_batch": None,  # a packed COO batch, built in the test
+    }
+
+
+def _coo_batch_messages():
+    """Messages over a real packed COO batch: padding edges (all on node
+    N-1) zeroed, as CGConv's mask leaves them."""
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic_mp
+    from cgnn_tpu_torch.data.graph import capacities_for, pack_graphs
+
+    graphs = load_synthetic_mp(64, DataConfig().featurize_config(), seed=4)
+    nc, ec = capacities_for(graphs, 64)
+    b = pack_graphs(graphs, nc, ec, 72)
+    rng = np.random.default_rng(2)
+    msgs = rng.normal(size=(ec, 64)) * b.edge_mask.numpy()[:, None]
+    return msgs, b.centers.numpy(), nc
+
+
+@pytest.mark.parametrize("case", list(_segment_cases()))
+def test_segment_sum_kernel_matches_plain_version(dev, case):
+    """Kernel 6 against its plain version (rtol 1e-4 / atol 1e-5: the same
+    f32 sums, in another order), bit-identical when run again; empty nodes
+    give 0; the op routes a CUDA tensor to the kernel."""
+    from cgnn_tpu_torch.ops import scatter
+
+    msgs, centers, n = (_coo_batch_messages() if case == "coo_batch"
+                        else _segment_cases()[case])
+    m = torch.from_numpy(np.asarray(msgs, np.float32)).to(dev)
+    c = torch.from_numpy(centers).to(dev)
+    offsets = scatter.segment_offsets(c, n)
+    before = scatter.segment_sum_sorted_cuda.launches
+    got = scatter.segment_sum_sorted_cuda(m, offsets)
+    again = scatter.segment_sum_sorted_cuda(m, offsets)
+    torch.cuda.synchronize()
+    assert scatter.segment_sum_sorted_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    want = scatter.segment_sum_sorted_reference(m, offsets)
+    torch.testing.assert_close(got, want, **TOL)
+    empty = np.setdiff1d(np.arange(n), centers)
+    assert (got[torch.from_numpy(empty).to(dev)] == 0).all()
+    out = scatter.segment_sum_sorted(m, c, n, impl="pallas")
+    assert scatter.segment_sum_sorted_cuda.launches == before + 3
+    assert torch.equal(out, got)
+
+
+def test_segment_sum_kernel_refuses_what_it_does_not_take(dev):
+    from cgnn_tpu_torch.ops import scatter
+
+    m = torch.randn(10, 8, device=dev)
+    offsets = torch.tensor([0, 4, 10], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="messages must be torch.float32"):
+        scatter.segment_sum_sorted_cuda(m.bfloat16(), offsets)
+    with pytest.raises(ValueError, match="offsets must be torch.int32"):
+        scatter.segment_sum_sorted_cuda(m, offsets.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter.segment_sum_sorted_cuda(torch.randn(10, 16, device=dev)[:, ::2],
+                                        offsets)
+    with pytest.raises(ValueError, match="outside the kernel"):
+        scatter.segment_sum_sorted_cuda(torch.randn(10, 300, device=dev),
+                                        offsets)
+
+
+def _gather_cases():
+    rng = np.random.default_rng(0)
+    nodes = rng.normal(size=(512, 16)).astype(np.float32)
+    return {
+        "in_window": (nodes, np.repeat(np.arange(512), 5).astype(np.int32),
+                      np.array([0, 0, 128, 256], np.int32), 256),
+        "out_of_window": (nodes, rng.integers(0, 512, 512 * 3).astype(
+            np.int32), np.array([0, 128, 256, 384], np.int32), 128),
+        "clamped_last_block": (nodes, rng.integers(200, 512, 512 * 3).astype(
+            np.int32), np.array([5, 130, 300, 470], np.int32), 256),
+    }
+
+
+@pytest.mark.parametrize("case", list(_gather_cases()))
+def test_windowed_gather_kernel_matches_plain_version(dev, case):
+    """Kernel 7 bit-equal to its plain version (out-of-window zeros
+    included), and to index_select where every index is in its window."""
+    from cgnn_tpu_torch.ops import windowed_gather as wg
+
+    nodes, nbr, ws, window = (torch.from_numpy(a).to(dev) if isinstance(
+        a, np.ndarray) else a for a in _gather_cases()[case])
+    before = wg.windowed_gather_cuda.launches
+    got = wg.windowed_gather_cuda(nodes, nbr, ws, window)
+    torch.cuda.synchronize()
+    assert wg.windowed_gather_cuda.launches == before + 1
+    want = wg.windowed_gather_reference(nodes, nbr, ws, window)
+    assert torch.equal(got, want)
+    if case == "in_window":
+        assert torch.equal(got.reshape(-1, nodes.shape[1]),
+                           nodes.index_select(0, nbr))
+    else:
+        assert (got == 0).all(dim=-1).any()
+    assert torch.equal(wg.windowed_gather(nodes, nbr, ws, window), got)
+    with pytest.raises(ValueError, match="nodes must be torch.float32"):
+        wg.windowed_gather_cuda(nodes.double(), nbr, ws, window)

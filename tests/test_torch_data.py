@@ -190,8 +190,12 @@ def test_keep_geometry_featurize_and_pack_bit_equal(n_graphs,
 
 def test_pack_graphs_refuses_unported_layouts():
     g = [_port_graph(x) for x in _jax_graphs(2)]
-    with pytest.raises(NotImplementedError):
-        tgraph.pack_graphs(g, 64, 512, 4)  # COO
+    # COO is ported (tests/test_torch_coo.py); transpose slots stay
+    # dense-only, as in the JAX package, and COO counts edges too
+    with pytest.raises(ValueError, match="dense layout"):
+        tgraph.pack_graphs(g, 64, 512, 4, in_cap=16)
+    with pytest.raises(ValueError, match="exceeds capacity"):
+        tgraph.pack_graphs(g, 64, 8, 4)
     with pytest.raises(ValueError, match="mutually exclusive"):
         tgraph.pack_graphs(g, 64, 512, 4, dense_m=8, in_cap=16, over_cap=16)
     with pytest.raises(ValueError):

@@ -61,8 +61,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "cgnn_tpu_torch.serve.server" in res["imported"]
-    for mod in ("ops.fused_cgconv", "ops.fused_epilogue", "train.state",
-                "train.step", "train.loop", "train.__main__"):
+    for mod in ("ops.fused_cgconv", "ops.fused_epilogue", "ops.scatter",
+                "ops.windowed_gather", "train.state", "train.step",
+                "train.loop", "train.__main__"):
         assert f"cgnn_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 

@@ -159,8 +159,10 @@ def test_unported_settings_raise(monkeypatch):
                 dict(dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             build_model(ModelConfig(dense_m=12, **bad), dcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="COO"):
-        build_model(ModelConfig(), dcfg, device="cpu")
+    # COO is ported (tests/test_torch_coo.py), without the dense-layout
+    # fused ops
+    with pytest.raises(NotImplementedError, match="dense layout"):
+        build_model(ModelConfig(cgconv_impl="pallas"), dcfg, device="cpu")
     # train mode and the fused epilogue are ported: both build and run
     _, tb = _pack_both(_graphs())
     for ok in (dict(), dict(fused_epilogue="xla")):
