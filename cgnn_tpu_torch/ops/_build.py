@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], object] = {}  # (lib, name) -> ctypes function
 # name -> {"seconds": wall time of this process's build (0.0 when the
 # library was already on disk), "log": nvcc/ptxas output}
 build_info: dict[str, dict] = {}
@@ -103,23 +104,34 @@ def load(name: str) -> ctypes.CDLL:
 def entry(lib: str, name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
     """``name`` of ``csrc/<lib>.cu``'s library as a ctypes function that
     takes ``n_ptrs`` device pointers, ``n_ints`` ints, ``n_floats`` floats
-    and the stream, and returns the launch's cudaError_t (0 = queued)."""
-    fn = getattr(load(lib), name)
-    if fn.argtypes is None:
+    and the stream, and returns the launch's cudaError_t (0 = queued).
+    Resolved once, after the first build: later calls are a dict lookup,
+    without the lock."""
+    fn = _entries.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        _entries[(lib, name)] = fn
     return fn
 
 
 def launch(label: str, fn, ptrs, dims: dict, device) -> None:
     """Call an ``entry`` on ``device``'s current stream with the pointers,
-    then the ``dims`` values in order; raise on a refused launch."""
+    then the ``dims`` values in order; raise on a refused launch. The
+    current device is switched only when ``device`` is another card."""
     import torch
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, *dims.values(), stream)
+    # the current stream's raw cudaStream_t, without a Stream object
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*ptrs, *dims.values(),
+                 torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, *dims.values(),
+                     torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         shape = ", ".join(f"{k}={v}" for k, v in dims.items())
         raise RuntimeError(

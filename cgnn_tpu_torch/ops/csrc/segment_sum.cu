@@ -6,52 +6,55 @@
 // are the contiguous rows [offsets[n], offsets[n+1]) of the [E, F]
 // messages (the wrapper takes the offsets from a device searchsorted):
 //   out[n, f] = sum over e in [offsets[n], offsets[n+1]) of msg[e, f]
-// in f32, in edge order; an empty node gets 0.
+// in f32; an empty node gets 0.
 //
 // What bounds it on an H100: bytes. Every message row is read once and
 // every node row written once, ~1 add a loaded float: at the flagship's
 // COO training shape (E = 93,920, N = 7,832, F = 64) ~26 MB, ~8 us at
-// 3.35 TB/s.
+// 3.35 TB/s. What kept it from there was one node: the packer puts every
+// padding edge on node N-1 (416 rows at the training shape, 528 at the
+// top serving rung, against <= 12 real rows on any other node), and one
+// warp walked that range alone in ceil(rows / kRows) dependent rounds
+// (that one-warp-a-node design: 0.0165 ms on the device at the training
+// shape, 0.0152 ms at the serving rung, 8.5x its bound there).
 //
-// Design (simple first). The TPU kernel turns each 128-node tile's edge
-// span into interval one-hot matmuls on the MXU; a GPU reads the rows
-// directly. One warp per node: lane q owns channels q, q + 32, ... (up to
-// PER_LANE of them) and walks the node's rows in order, adding each into
-// its f32 accumulators. A round loads up to kRows rows at once (rows past
-// the range are not loaded) and then adds them in order, so the loads of
-// a whole short range are in flight together while the adds keep edge
-// order. No atomics and no shared memory: the same bits on every run.
-// Neighboring lanes read neighboring floats of a row (coalesced). The
-// padding edges all point at node N-1, so its warp walks a range many
-// times longer than the others (hundreds of rows at the training shape
-// against <= 12): ceil(rows / kRows) dependent rounds, a serial tail the
-// kernel accepts.
+// Design. The TPU kernel turns each 128-node tile's edge span into
+// interval one-hot matmuls on the MXU; a GPU reads the rows directly.
+// A block of kWarpsPerBlock warps covers as many consecutive nodes, one
+// warp a node: lane q owns channels q, q + 32, ... (up to PER_LANE of
+// them). A round loads up to kRows rows at once (rows past the range are
+// not loaded) and then adds them in edge order, so a short range's loads
+// are all in flight together. A warp whose node has at most kLong rows
+// (two rounds) sums it so and writes it. A longer node is summed by the
+// whole block: its range is cut into kWarpsPerBlock contiguous parts,
+// each warp sums its part in edge order, the partials go to shared
+// memory, and one warp adds them in part order and writes the row. The
+// block's flag (`__syncthreads_or` after the short pass) says whether it
+// has any long node; a block without one is done. Long nodes are taken
+// one after another. No atomics and no second pass: the order of every
+// add is fixed by the offsets alone, so every run gives the same bits,
+// whatever the skew (a real hub anywhere, not only padding on N-1).
+// 416 rows become 26 a warp, two rounds.
 //
-// Measured on an H100 (PERF.md): loading 4 rows a round, the tail set the
-// time (0.028 ms at 416 rows, 0.032 ms at 528); kRows keeps ~32 loaded
-// floats a lane in registers whatever F is.
+// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W, each call's
+// messages read from device memory (not L2): 0.0114 ms on the device at
+// the training shape (bound 0.0079 ms), 0.0062 ms at the serving rung,
+// 0.0117 ms with the 416 rows on node N/2; torch.segment_reduce on the
+// same inputs 0.054 ms. PERF.md's kernel table keeps the latest times.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 16;
 
+// acc += rows [begin, end) of msg, in edge order, kRows rows loaded a round
 template <int PER_LANE>
-__global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
-    segment_sum_sorted_kernel(const float* __restrict__ msg,
-                              const int* __restrict__ offsets,
-                              float* __restrict__ out, int n, int f) {
-  constexpr int kRows = 32 / PER_LANE;  // rows loaded a round
-  const int node = blockIdx.x * kWarpsPerBlock + threadIdx.y;
-  if (node >= n) return;
-  const int lane = threadIdx.x;
-  const int begin = offsets[node];
-  const int end = offsets[node + 1];
-  float acc[PER_LANE];
-#pragma unroll
-  for (int p = 0; p < PER_LANE; ++p) acc[p] = 0.0f;
+__device__ __forceinline__ void sum_rows(const float* __restrict__ msg,
+                                         int begin, int end, int f, int lane,
+                                         float (&acc)[PER_LANE]) {
+  constexpr int kRows = 32 / PER_LANE;
   for (int e = begin; e < end; e += kRows) {
     float v[kRows][PER_LANE];
 #pragma unroll
@@ -71,11 +74,68 @@ __global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
       }
     }
   }
-  float* dst = out + (size_t)node * f;
+}
+
+template <int PER_LANE>
+__global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
+    segment_sum_sorted_kernel(const float* __restrict__ msg,
+                              const int* __restrict__ offsets,
+                              float* __restrict__ out, int n, int f) {
+  constexpr int kLong = 2 * (32 / PER_LANE);  // rows a warp sums alone
+  __shared__ float part_s[kWarpsPerBlock][PER_LANE * kWarp];
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int first = blockIdx.x * kWarpsPerBlock;
+  const int node = first + warp;
+  bool is_long = false;
+  if (node < n) {
+    const int begin = offsets[node];
+    const int end = offsets[node + 1];
+    if (end - begin > kLong) {
+      is_long = true;
+    } else {
+      float acc[PER_LANE];
 #pragma unroll
-  for (int p = 0; p < PER_LANE; ++p) {
-    const int c = lane + p * kWarp;
-    if (c < f) dst[c] = acc[p];
+      for (int p = 0; p < PER_LANE; ++p) acc[p] = 0.0f;
+      sum_rows<PER_LANE>(msg, begin, end, f, lane, acc);
+      float* dst = out + (size_t)node * f;
+#pragma unroll
+      for (int p = 0; p < PER_LANE; ++p) {
+        const int c = lane + p * kWarp;
+        if (c < f) dst[c] = acc[p];
+      }
+    }
+  }
+  if (!__syncthreads_or(is_long)) return;  // the block's flag
+
+  // the block's long nodes, one after another; every test below reads
+  // only offsets, so it is the same for every thread (the barriers inside
+  // are reached by the whole block)
+  for (int w = 0; w < kWarpsPerBlock && first + w < n; ++w) {
+    const int begin = offsets[first + w];
+    const int end = offsets[first + w + 1];
+    if (end - begin <= kLong) continue;
+    const long long len = end - begin;
+    const int part_begin = begin + (int)(len * warp / kWarpsPerBlock);
+    const int part_end = begin + (int)(len * (warp + 1) / kWarpsPerBlock);
+    float acc[PER_LANE];
+#pragma unroll
+    for (int p = 0; p < PER_LANE; ++p) acc[p] = 0.0f;
+    sum_rows<PER_LANE>(msg, part_begin, part_end, f, lane, acc);
+#pragma unroll
+    for (int p = 0; p < PER_LANE; ++p) part_s[warp][lane + p * kWarp] = acc[p];
+    __syncthreads();
+    if (warp == w) {
+      float* dst = out + (size_t)(first + w) * f;
+#pragma unroll
+      for (int p = 0; p < PER_LANE; ++p) {
+        const int c = lane + p * kWarp;
+        float total = 0.0f;
+        for (int q = 0; q < kWarpsPerBlock; ++q) total += part_s[q][c];
+        if (c < f) dst[c] = total;
+      }
+    }
+    __syncthreads();  // part_s is free for the next long node
   }
 }
 

@@ -4,7 +4,9 @@ gather -> fc_full -> BN1 -> sigmoid*softplus gate -> masked sum over the M
 edge slots, as one op that writes only the [N, F] aggregate.
 
 - ``fused_cgconv_eval`` (eval/serving): ONE apply pass with the running
-  statistics — kernel 1 (``fused_cgconv_eval_cuda``).
+  statistics — kernel 1 (``fused_cgconv_eval_cuda``): a node pass writes
+  the per-node projections P = nodes·[W_i | W_j] + [b | 0] to scratch,
+  then a slot pass adds e·W_e per real slot, with W_e in registers.
 - ``fused_cgconv`` (training), an autograd Function with the JAX
   signature and outputs ``(agg, mean, var, n_real)``. Its ``'pallas'``
   forward is the JAX ``_forward_pallas``: the cancellation shift in plain
@@ -142,26 +144,35 @@ def _shift_row0(nodes, edges, kernel, bias, neighbors, dtype):
 # ---------------------------------------------------------------------------
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may opt into
+SLOT_PASS_MAX_F = 256  # kernel 1's slot pass: one thread a channel pair
+W_E_REGISTER_MAX_G = 44  # kernel 1's slot pass keeps W_e in registers up
+                         # to this G (kRegG), else in shared memory
 
 
-def _smem_bytes(f: int, g: int, rows: int, stats: bool = False) -> int:
-    """A kernel's dynamic shared memory: W plus per-row v_i/v_j/e rows,
-    and for the stats pass [4, rows, F] block sums
-    (cgconv_fused_{eval,stats}_smem_bytes in the CUDA source)."""
-    return 4 * ((2 * f + g) * 2 * f + rows * (2 * f + g)
-                + (4 * rows * f if stats else 0))
+def _stats_smem_bytes(f: int, g: int, rows: int) -> int:
+    """Kernel 2's dynamic shared memory: W plus per-row v_i/v_j/e rows and
+    [4, rows, F] block sums (cgconv_fused_stats_smem_bytes in the CUDA
+    source)."""
+    return 4 * ((2 * f + g) * 2 * f + rows * (2 * f + g) + 4 * rows * f)
 
 
-def _check_conv_args(name: str, args: dict, stats: bool) -> tuple:
+_NOT_VECTORS = frozenset(("nodes", "edges", "kernel", "neighbors",
+                          "edge_mask"))
+
+
+def _check_conv_args(name: str, args: dict) -> tuple:
     """Device, dtype, contiguity and shape checks shared by the kernel
     wrappers. ``args`` holds nodes, edges, kernel, neighbors, edge_mask and
-    [2F] vectors; -> (N, M, F, G, rows)."""
+    [2F] vectors by name; -> (N, M, F, G). Devices are compared by index
+    (``get_device``, an int, where ``.device`` builds an object a tensor);
+    a message is formatted only for a fault."""
     nodes, edges = args["nodes"], args["edges"]
     dev = nodes.device
     if dev.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors, got {dev}")
+    index = nodes.get_device()
     for key, t in args.items():
-        if t.device != dev:
+        if t.get_device() != index:
             raise ValueError(f"{key} is on {t.device}, nodes on {dev}")
         want = torch.int32 if key == "neighbors" else torch.float32
         if t.dtype != want:
@@ -174,57 +185,58 @@ def _check_conv_args(name: str, args: dict, stats: bool) -> tuple:
             f"{tuple(nodes.shape)} and {tuple(edges.shape)}")
     n, f = nodes.shape
     m, g = edges.shape[1], edges.shape[2]
-    shapes = {
-        "edges": (edges.shape[0] == n, f"[{n}, M, G]"),
-        "neighbors": (args["neighbors"].numel() == n * m, f"{n * m} entries"),
-        "edge_mask": (args["edge_mask"].numel() == n * m, f"{n * m} entries"),
-        "kernel": (tuple(args["kernel"].shape) == (2 * f + g, 2 * f),
-                   f"[{2 * f + g}, {2 * f}]"),
-    }
-    for key in args:
-        if key not in shapes and key != "nodes":
-            shapes[key] = (tuple(args[key].shape) == (2 * f,), f"[{2 * f}]")
-    for key, (ok, want) in shapes.items():
-        if not ok:
-            raise ValueError(
-                f"{key} must be {want}, got {tuple(args[key].shape)}")
-    if f > 1024:
-        raise ValueError(f"F={f} exceeds the kernel's 1024 threads per row")
-    rows = rows_per_block(f)
-    smem = _smem_bytes(f, g, rows, stats)
-    if smem > _SMEM_LIMIT:
+    if edges.shape[0] != n:
         raise ValueError(
-            f"F={f}, G={g}: W [{2 * f + g}, {2 * f}] does not fit one "
-            f"block's shared memory ({smem} > {_SMEM_LIMIT} bytes)")
-    return n, m, f, g, rows
+            f"edges must be [{n}, M, G], got {tuple(edges.shape)}")
+    for key in ("neighbors", "edge_mask"):
+        if args[key].numel() != n * m:
+            raise ValueError(f"{key} must be {n * m} entries, got "
+                             f"{tuple(args[key].shape)}")
+    if args["kernel"].shape != (2 * f + g, 2 * f):
+        raise ValueError(f"kernel must be [{2 * f + g}, {2 * f}], got "
+                         f"{tuple(args['kernel'].shape)}")
+    for key, t in args.items():
+        if key not in _NOT_VECTORS and t.shape != (2 * f,):
+            raise ValueError(
+                f"{key} must be [{2 * f}], got {tuple(t.shape)}")
+    return n, m, f, g
 
 
 def fused_cgconv_eval_cuda(nodes, edges, kernel, bias, scale, bn_bias,
                            neighbors, edge_mask, mean, var, *,
                            eps: float = 1e-5):
     """Kernel 1, the apply pass (replaces pallas_cgconv.py
-    ``_apply_kernel``). Every tensor must lie on one CUDA device, f32
-    except ``neighbors`` (int32), contiguous, with nodes [N, F], edges
-    [N, M, G], neighbors [N*M] or [N, M], edge_mask [N*M] or [N, M],
-    kernel [2F+G, 2F] and the four vectors [2F]. Neighbor indices must
-    lie in [0, N), as pack_graphs makes them."""
+    ``_apply_kernel``): launch 1a writes the per-node projections P [N, 4F]
+    (scratch from ``torch.empty``), launch 1b the slot pass. Every tensor
+    must lie on one CUDA device, f32 except ``neighbors`` (int32),
+    contiguous, with nodes [N, F], edges [N, M, G], neighbors [N*M] or
+    [N, M], edge_mask [N*M] or [N, M], kernel [2F+G, 2F] and the four
+    vectors [2F]; F <= 256, and for G > 44 W_e [G, 2F] must fit one block's
+    shared memory. Neighbor indices must lie in [0, N), as pack_graphs
+    makes them."""
     args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
                 scale=scale, bn_bias=bn_bias, neighbors=neighbors,
                 edge_mask=edge_mask, mean=mean, var=var)
-    n, m, f, g, rows = _check_conv_args("fused_cgconv_eval_cuda", args,
-                                        stats=False)
-    out = torch.empty((n, f), dtype=torch.float32, device=nodes.device)
+    n, m, f, g = _check_conv_args("fused_cgconv_eval_cuda", args)
+    if f > SLOT_PASS_MAX_F:
+        raise ValueError(f"F={f} exceeds the slot pass's "
+                         f"{SLOT_PASS_MAX_F} threads per row")
+    if 4 * g * 2 * f > _SMEM_LIMIT:
+        raise ValueError(
+            f"F={f}, G={g}: W_e [{g}, {2 * f}] does not fit one block's "
+            f"shared memory ({4 * g * 2 * f} > {_SMEM_LIMIT} bytes)")
+    out = nodes.new_empty((n, f))
     if n == 0:
         return out
-    # the BN fold the JAX wrapper does before its apply pass
-    rstd_scale = (torch.rsqrt(var + eps) * scale).contiguous()
+    p = nodes.new_empty((n, 4 * f))
     _build.launch(
         "fused_cgconv_eval",
-        _build.entry("fused_cgconv", "cgconv_fused_eval_f32", 10, 5),
+        _build.entry("fused_cgconv", "cgconv_fused_eval_f32", 12, 4, 1),
         (nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
          edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-         mean.data_ptr(), rstd_scale.data_ptr(), bn_bias.data_ptr(),
-         out.data_ptr()), dict(N=n, M=m, F=f, G=g, rows=rows), nodes.device)
+         mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
+         bn_bias.data_ptr(), p.data_ptr(), out.data_ptr()),
+        {"N": n, "M": m, "F": f, "G": g, "eps": eps}, nodes.device)
     fused_cgconv_eval_cuda.launches += 1
     return out
 
@@ -240,8 +252,15 @@ def fused_cgconv_stats_cuda(nodes, edges, kernel, bias, neighbors,
     from run to run). Inputs as ``fused_cgconv_eval_cuda``'s."""
     args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
                 neighbors=neighbors, edge_mask=edge_mask, shift=shift)
-    n, m, f, g, rows = _check_conv_args("fused_cgconv_stats_cuda", args,
-                                        stats=True)
+    n, m, f, g = _check_conv_args("fused_cgconv_stats_cuda", args)
+    if f > 1024:
+        raise ValueError(f"F={f} exceeds the kernel's 1024 threads per row")
+    rows = rows_per_block(f)
+    smem = _stats_smem_bytes(f, g, rows)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"F={f}, G={g}: W [{2 * f + g}, {2 * f}] does not fit one "
+            f"block's shared memory ({smem} > {_SMEM_LIMIT} bytes)")
     out = torch.zeros((2, 2 * f), dtype=torch.float32, device=nodes.device)
     if n == 0:
         return out
@@ -409,19 +428,43 @@ def fused_conv_hbm_bytes(n: int, m: int, g: int, f: int,
     }
 
 
-def eval_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
-                   real_rows: int) -> dict:
-    """Compulsory work of one eval pass on this data: the apply pass of
-    ``fused_conv_hbm_bytes`` with every input read once (nodes once — the
-    GPU has no window tiles — plus the four [2F] vectors) and the output
-    written once; FLOPs are the f32 FMAs the data needs: the v_i term for
-    each row with a real slot, the v_j and edge terms for each real slot.
-    The gate's transcendentals are not counted."""
+def touched_nodes(neighbors, edge_mask, n: int) -> int:
+    """Nodes that a real slot touches, as its center or as its neighbor:
+    the rows whose projections kernel 1's node pass needs. ``neighbors``
+    and ``edge_mask`` hold N*M entries ([N*M] or [N, M])."""
+    real = edge_mask.reshape(n, -1) > 0
+    hit = torch.zeros(n, dtype=torch.bool, device=real.device)
+    hit[real.any(dim=1)] = True
+    hit[neighbors.reshape(n, -1)[real].long()] = True
+    return int(hit.sum())
+
+
+def unfactored_flops(f: int, g: int, real_slots: int, real_rows: int) -> int:
+    """f32 operations of z taken whole per slot (the first design of kernel
+    1, and kernel 2 today): v_i . W[0:F] once for each row with a real
+    slot, v_j . W[F:2F] and e . W[2F:] for each real slot."""
+    return 2 * 2 * f * (real_rows * f + real_slots * (f + g))
+
+
+def _pass_bytes(n: int, m: int, g: int, f: int) -> int:
+    """The compulsory bytes of one apply pass: ``fused_conv_hbm_bytes``'s
+    inputs read once (nodes once: the GPU has no window tiles), the four
+    [2F] vectors, the [N, F] output written once."""
     b = fused_conv_hbm_bytes(n, m, g, f)
-    nbytes = (b["reads_per_pass"] - n * f * 4 + 4 * 2 * f * 4
-              + b["write_bytes"])
-    flops = 2 * 2 * f * (real_rows * f + real_slots * (f + g))
-    return {"bytes": nbytes, "flops": flops}
+    return (b["reads_per_pass"] - n * f * 4 + 4 * 2 * f * 4
+            + b["write_bytes"])
+
+
+def eval_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
+                   touched: int) -> dict:
+    """Compulsory work of one eval pass on this data, counted as the least
+    work (the factored z): bytes as ``_pass_bytes`` (the P scratch is not
+    compulsory); FLOPs 2 F 4F for each of the ``touched`` nodes (center or
+    neighbor of a real slot: its [v_i W_i | v_j W_j] projections) plus
+    2 G 2F for each real slot (e . W_e). The gate's transcendentals are
+    not counted."""
+    return {"bytes": _pass_bytes(n, m, g, f),
+            "flops": 2 * f * 4 * f * touched + 2 * g * 2 * f * real_slots}
 
 
 def stats_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
@@ -429,11 +472,14 @@ def stats_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
     """Compulsory work of one stats pass on this data: the inputs of
     ``eval_pass_cost`` with the shift [2F] in place of the three BN
     vectors and the [2, 2F] sums in place of the [N, F] output; FLOPs are
-    the apply pass's f32 FMAs plus three operations (subtract, add,
-    multiply-add) per real slot and channel for the two moments."""
-    ev = eval_pass_cost(n, m, g, f, real_slots, real_rows)
-    nbytes = ev["bytes"] - 2 * 2 * f * 4 - n * f * 4 + 2 * 2 * f * 4
-    return {"bytes": nbytes, "flops": ev["flops"] + 3 * real_slots * 2 * f}
+    z taken whole per slot (``unfactored_flops``: kernel 2 still does that
+    work) plus three operations (subtract, add, multiply-add) per real
+    slot and channel for the two moments."""
+    nbytes = (_pass_bytes(n, m, g, f) - 2 * 2 * f * 4 - n * f * 4
+              + 2 * 2 * f * 4)
+    return {"bytes": nbytes,
+            "flops": unfactored_flops(f, g, real_slots, real_rows)
+            + 3 * real_slots * 2 * f}
 
 
 # ---------------------------------------------------------------------------

@@ -50,11 +50,21 @@ def segment_sum_sorted_reference(messages: torch.Tensor,
     return out.to(messages.dtype)
 
 
+def long_range_rows(f: int) -> int:
+    """L: a node with more rows than this is summed by its whole block
+    (two rounds of the kernel's rows in flight, ``kLong`` in
+    csrc/segment_sum.cu)."""
+    per_lane = 1 if f <= 32 else 2 if f <= 64 else 4 if f <= 128 else 8
+    return 2 * (32 // per_lane)
+
+
 def segment_sum_sorted_cuda(messages: torch.Tensor,
                             offsets: torch.Tensor) -> torch.Tensor:
     """Kernel 6 (replaces pallas_scatter.py ``_kernel``): messages [E, F]
     f32 and offsets [N + 1] i32, contiguous on one CUDA device -> [N, F]
-    f32, each node's rows summed in edge order."""
+    f32, each node's rows summed in an order fixed by the offsets (edge
+    order; parts in part order for a node of more than
+    ``long_range_rows(F)`` rows)."""
     dev = messages.device
     if dev.type != "cuda":
         raise ValueError(
@@ -63,26 +73,29 @@ def segment_sum_sorted_cuda(messages: torch.Tensor,
         raise ValueError(
             f"messages must be [E, F] and offsets [N + 1], got "
             f"{tuple(messages.shape)} and {tuple(offsets.shape)}")
-    for name, t, dtype in (("messages", messages, torch.float32),
-                           ("offsets", offsets, torch.int32)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, messages on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    e, f = messages.shape
+    if offsets.device != dev:
+        raise ValueError(f"offsets is on {offsets.device}, messages on {dev}")
+    if messages.dtype != torch.float32:
+        raise ValueError(
+            f"messages must be {torch.float32}, got {messages.dtype}")
+    if offsets.dtype != torch.int32:
+        raise ValueError(f"offsets must be {torch.int32}, got {offsets.dtype}")
+    if not messages.is_contiguous():
+        raise ValueError("messages must be contiguous")
+    if not offsets.is_contiguous():
+        raise ValueError("offsets must be contiguous")
     n = offsets.numel() - 1
+    f = messages.shape[1]
     if not 1 <= f <= MAX_F:
         raise ValueError(f"F={f} outside the kernel's [1, {MAX_F}]")
-    out = torch.empty((n, f), dtype=torch.float32, device=dev)
+    out = messages.new_empty((n, f))
     if n == 0:
         return out
     _build.launch(
         "segment_sum_sorted",
         _build.entry("segment_sum", "segment_sum_sorted_f32", 3, 2),
         (messages.data_ptr(), offsets.data_ptr(), out.data_ptr()),
-        dict(N=n, F=f), dev)
+        {"N": n, "F": f}, dev)
     segment_sum_sorted_cuda.launches += 1
     return out
 

@@ -11,10 +11,18 @@ nvcc (``fused_cgconv.cu``, ``fused_epilogue.cu``, ``neighbor_search.cu``,
 into ``build/kernels``), then:
 
 1. kernel phase — holds each of the six kernels against its plain PyTorch
-   version on the card and times both with CUDA events beside the card's
-   bound for the same work. Kernel 1 (the whole-conv apply pass) runs at
-   the flagship CGCNN's top serving rung (N=1784 nodes, M=12 slots, F=64,
-   G=41); kernels 2-5 (the stats pass, and the fused epilogue's apply,
+   version on the card and times both beside the card's bound for the
+   same work: CUDA events around back-to-back calls (``ms``), the
+   profiler's device time (``device_ms``), and the host's time a wrapper
+   call (``host_us``, 200 back-to-back calls, no sync inside). The calls
+   rotate through copies of their inputs that total over twice the L2,
+   so each reads its inputs from device memory, as the bound counts
+   them. Kernel 1 (the whole-conv apply pass: a node pass, then a slot
+   pass) runs at the flagship CGCNN's top serving rung (N=1784 nodes,
+   M=12 slots, F=64, G=41), with its bound counted as the least work (the
+   factored z) and, beside it, as z taken whole per slot
+   (``bound_ms_before``), and its two launches' device times apart;
+   kernels 2-5 (the stats pass, and the fused epilogue's apply,
    reduce and dz passes) at the training shape, a snug batch-256 pack of
    MP-like structures (N=7832); kernel 8 (the raw wire's periodic neighbor
    search) at the top raw rung (72 structure slots of S=64 atoms, K=125
@@ -62,8 +70,10 @@ into ``build/kernels``), then:
 6. the flat COO layout — kernel 6 (the sorted segment sum) against its
    plain version and ``torch.segment_reduce`` at the COO training shape
    (a packed batch-256 batch: E=93,920 edges, N=7,832, F=64; seeded
-   messages zeroed on padding edges, which all sit on node N-1) and at the
-   top COO serving rung (E=21,336, N=1,784), rtol 1e-4 / atol 1e-5 and
+   messages zeroed on padding edges, which all sit on node N-1), at the
+   top COO serving rung (E=21,336, N=1,784), and at the training shape
+   with the padding edges moved to a real node in the middle (N/2, the
+   centers re-sorted, its messages not zeroed), rtol 1e-4 / atol 1e-5 and
    bit-identical run to run; kernel 7 (the windowed gather, which no entry
    point of the JAX package calls) bit-equal to its plain version and to
    ``index_select`` on the dense training batch at N=7,936 (the node
@@ -101,6 +111,7 @@ SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-4  # model outputs (|y| ~ 10-100)
 TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4  # kernel vs plain path: 5 f32 SGD steps
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+L2_BYTES = 50 * 2**20  # H100 SXM L2: the timers rotate inputs past twice this
 SEED = 0
 N_CLIENTS, N_GRAPHS, N_WIRE = 4, 224, 32
 M = 12  # the flagship's max_num_nbr: dense edge slots per node
@@ -138,6 +149,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def cold(fn, *args):
+    """``fn`` on rotating copies of ``args`` (each tensor cloned) that
+    together hold more than twice the card's L2, so that every call reads
+    its inputs from device memory, as the bound counts them. -> a callable
+    of no arguments, for the timers below."""
+    import itertools
+
+    import torch
+
+    size = sum(a.nbytes for a in args if isinstance(a, torch.Tensor))
+    copies = [args] + [
+        tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        for _ in range(-(-2 * L2_BYTES // max(size, 1)) - 1)]
+    nxt = itertools.cycle(copies).__next__
+    return lambda: fn(*nxt())
+
+
 def time_ms(fn, calls=20, trials=5, warmup=5):
     """Device time of one call: CUDA events around ``calls`` back-to-back
     calls, divided by ``calls``; the median of ``trials``. Back to back,
@@ -159,6 +187,35 @@ def time_ms(fn, calls=20, trials=5, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def host_us(fn, calls=200):
+    """Host time of one call, in microseconds: the wall time of ``calls``
+    back-to-back calls (``time.perf_counter``, no sync inside), divided by
+    ``calls``. The queue is drained before and after."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
+
+
+def timings(fn, library_fn=None):
+    """A kernel's times on its inputs: ``ms`` (CUDA events, ``time_ms``),
+    ``device_ms`` (profiler), ``host_us``; the same for ``library_fn``, the
+    one PyTorch call computing the same function, under ``library_*``."""
+    out = {"ms": time_ms(fn), "device_ms": device_ms(fn),
+           "host_us": host_us(fn)}
+    if library_fn is not None:
+        out.update(library_ms=time_ms(library_fn),
+                   library_device_ms=device_ms(library_fn),
+                   library_host_us=host_us(library_fn))
+    return out
 
 
 def kernel_wrappers() -> dict:
@@ -221,17 +278,20 @@ def bound(cost):
                                    else "operations")
 
 
-def kernel_entry(name, source, replaces, errs, ms, plain_ms, cost,
-                 library_ms=None, library_call=None):
+def kernel_entry(name, source, replaces, errs, times, plain_ms, cost,
+                 library_call=None):
     """One kernel's record for the ``kernels`` line, with its ``bound``;
-    ``library_ms``: the time of the one PyTorch call ``library_call`` that
-    computes the same function, where there is one."""
+    ``times`` from ``timings``: where ``library_call`` names the one
+    PyTorch call that computes the same function, its ``library_*``
+    times."""
     bound_ms, bound_by = bound(cost)
+    library_ms = times.get("library_ms")
     lib = (f"library ({library_call}) {library_ms!r} ms" if library_call
            else f"library_ms null: {NO_LIBRARY[name]}")
-    print(f"{name}: {ms!r} ms a call, {plain_ms!r} ms plain; "
-          f"{cost['flops']} FLOP, {cost['bytes']} B -> bound "
-          f"{bound_ms!r} ms; {lib}")
+    print(f"{name}: {times['ms']!r} ms a call (device "
+          f"{times['device_ms']!r} ms, host {times['host_us']!r} us), "
+          f"{plain_ms!r} ms plain; {cost['flops']} FLOP, {cost['bytes']} B "
+          f"-> bound {bound_ms!r} ms; {lib}")
     entry = {
         "name": name,
         "route": "cuda",
@@ -240,14 +300,18 @@ def kernel_entry(name, source, replaces, errs, ms, plain_ms, cost,
         "launches": 0,  # set from the main-path runs
         "max_abs_err": errs[0],
         "max_rel_err": errs[1],
-        "ms": ms,
+        "ms": times["ms"],
+        "device_ms": times["device_ms"],
+        "host_us": times["host_us"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
     if library_call:
-        entry["library_call"] = library_call
+        entry.update(library_call=library_call,
+                     library_device_ms=times["library_device_ms"],
+                     library_host_us=times["library_host_us"])
     else:
         entry["library_ms_null_because"] = NO_LIBRARY[name]
     return entry
@@ -285,22 +349,47 @@ def slot_counts(batch):
     return int(mask.sum()), int(mask.any(axis=1).sum())
 
 
+def conv_bounds(batch, f=64):
+    """Kernel 1's bound on a packed batch, counted as the least work (the
+    factored z) and, beside it, as z taken whole per slot (the count
+    before the node pass existed) -> (cost, bound_ms, bound_by,
+    bound_ms_before, bound_by_before)."""
+    from cgnn_tpu_torch.ops import fused_cgconv as fc
+
+    n, m, g = batch.edges.shape
+    real_slots, real_rows = slot_counts(batch)
+    cost = fc.eval_pass_cost(n, m, g, f, real_slots, fc.touched_nodes(
+        batch.neighbors.cpu(), batch.edge_mask.cpu(), n))
+    before = {"bytes": cost["bytes"],
+              "flops": fc.unfactored_flops(f, g, real_slots, real_rows)}
+    return (cost, *bound(cost), *bound(before))
+
+
 def kernel_phase(dev, calibration, shape_set):
-    """Kernel 1 at the top serving rung against its plain version."""
+    """Kernel 1 at the top serving rung against its plain version, timed
+    beside its two bounds, its two launches' device times apart."""
     from cgnn_tpu_torch.ops import fused_cgconv as fc
 
     batch = shape_set.pack_full(calibration, shape=shape_set.largest)
-    n, m, g = batch.edges.shape
     args = conv_inputs(dev, batch)
     errs = compare("fused_cgconv_eval", fc.fused_cgconv_eval_cuda(*args),
                    fc.fused_cgconv_eval_reference(*args), RTOL, ATOL)
-    ms = time_ms(lambda: fc.fused_cgconv_eval_cuda(*args))
-    plain_ms = time_ms(lambda: fc.fused_cgconv_eval_reference(*args))
-    real_slots, real_rows = slot_counts(batch)
-    return kernel_entry(
+    cost, _, _, before_ms, before_by = conv_bounds(batch)
+    entry = kernel_entry(
         "fused_cgconv_eval", "fused_cgconv.cu",
-        "cgnn_tpu/ops/pallas_cgconv.py:305", errs, ms, plain_ms,
-        fc.eval_pass_cost(n, m, g, 64, real_slots, real_rows))
+        "cgnn_tpu/ops/pallas_cgconv.py:305", errs,
+        timings(cold(fc.fused_cgconv_eval_cuda, *args)),
+        time_ms(cold(fc.fused_cgconv_eval_reference, *args)), cost)
+    _, by_kernel, _ = device_busy_ms(cold(fc.fused_cgconv_eval_cuda, *args),
+                                     20)
+    split = {part: sum(v for k, v in by_kernel.items() if key in k)
+             for part, key in (("node_pass", "eval_node_kernel"),
+                               ("slot_pass", "eval_slot"))}
+    print(f"fused_cgconv_eval: bound before the node pass {before_ms!r} ms "
+          f"({before_by}); device ms by launch {split}")
+    entry.update(bound_ms_before=before_ms, bound_by_before=before_by,
+                 device_ms_by_launch=split)
+    return entry
 
 
 def train_kernel_phase(dev, train_graphs):
@@ -338,8 +427,8 @@ def train_kernel_phase(dev, train_graphs):
     entries.append(kernel_entry(
         "fused_cgconv_stats", "fused_cgconv.cu",
         "cgnn_tpu/ops/pallas_cgconv.py:277", errs,
-        time_ms(lambda: fc.fused_cgconv_stats_cuda(*sargs)),
-        time_ms(lambda: fc.fused_cgconv_stats_reference(*sargs)),
+        timings(cold(fc.fused_cgconv_stats_cuda, *sargs)),
+        time_ms(cold(fc.fused_cgconv_stats_reference, *sargs)),
         fc.stats_pass_cost(n, m, g, f, real_slots, real_rows)))
 
     # kernels 3-5 on the materialized z of the same conv
@@ -354,8 +443,8 @@ def train_kernel_phase(dev, train_graphs):
     entries.append(kernel_entry(
         "epilogue_apply", "fused_epilogue.cu",
         "cgnn_tpu/ops/fused_epilogue.py:142", errs,
-        time_ms(lambda: fe.epilogue_apply_cuda(z, emask, cst)),
-        time_ms(lambda: fe.epilogue_apply_reference(z, emask, cst)),
+        timings(cold(fe.epilogue_apply_cuda, z, emask, cst)),
+        time_ms(cold(fe.epilogue_apply_reference, z, emask, cst)),
         fe.epilogue_pass_cost("apply", n, m, f, real_slots)))
 
     got = fe.epilogue_reduce_cuda(z, emask, cst, ct)
@@ -367,8 +456,8 @@ def train_kernel_phase(dev, train_graphs):
     entries.append(kernel_entry(
         "epilogue_reduce", "fused_epilogue.cu",
         "cgnn_tpu/ops/fused_epilogue.py:152", errs,
-        time_ms(lambda: fe.epilogue_reduce_cuda(z, emask, cst, ct)),
-        time_ms(lambda: fe.epilogue_reduce_reference(z, emask, cst, ct)),
+        timings(cold(fe.epilogue_reduce_cuda, z, emask, cst, ct)),
+        time_ms(cold(fe.epilogue_reduce_reference, z, emask, cst, ct)),
         fe.epilogue_pass_cost("reduce", n, m, f, real_slots)))
 
     inv_c = torch.full((1, 2 * f), 1.0 / max(float(n_real), 1.0),
@@ -380,8 +469,8 @@ def train_kernel_phase(dev, train_graphs):
     entries.append(kernel_entry(
         "epilogue_dz", "fused_epilogue.cu",
         "cgnn_tpu/ops/fused_epilogue.py:175", errs,
-        time_ms(lambda: fe.epilogue_dz_cuda(z, emask, cst, red5, ct)),
-        time_ms(lambda: fe.epilogue_dz_reference(z, emask, cst, red5, ct)),
+        timings(cold(fe.epilogue_dz_cuda, z, emask, cst, red5, ct)),
+        time_ms(cold(fe.epilogue_dz_reference, z, emask, cst, red5, ct)),
         fe.epilogue_pass_cost("dz", n, m, f, real_slots)))
     return entries
 
@@ -424,8 +513,8 @@ def search_kernel_phase(dev, calibration, shape_set):
     entry = kernel_entry(
         "neighbor_search", "neighbor_search.cu",
         "cgnn_tpu/ops/neighbor_search.py:136", errs,
-        time_ms(lambda: ns.neighbor_search_cuda(*args)),
-        time_ms(lambda: ns.neighbor_search_reference(*args), calls=5,
+        timings(cold(ns.neighbor_search_cuda, *args)),
+        time_ms(cold(ns.neighbor_search_reference, *args), calls=5,
                 trials=3, warmup=1),
         ns.neighbor_search_cost(g, s, k, m,
                                 sum(r.num_nodes ** 2 for r in raws)))
@@ -437,14 +526,14 @@ def search_kernel_phase(dev, calibration, shape_set):
     k1_errs = compare("fused_cgconv_eval at the top raw rung",
                       fc.fused_cgconv_eval_cuda(*cargs),
                       fc.fused_cgconv_eval_reference(*cargs), RTOL, ATOL)
-    n, m1, gdf = gb.edges.shape
-    bound_ms, bound_by = bound(fc.eval_pass_cost(n, m1, gdf, 64,
-                                                 *slot_counts(gb)))
+    n = gb.edges.shape[0]
+    _, bound_ms, bound_by, before_ms, before_by = conv_bounds(gb)
     k1_raw = {"N": n, "max_abs_err": k1_errs[0], "max_rel_err": k1_errs[1],
-              "ms": time_ms(lambda: fc.fused_cgconv_eval_cuda(*cargs)),
+              **timings(cold(fc.fused_cgconv_eval_cuda, *cargs)),
               "plain_ms": time_ms(
-                  lambda: fc.fused_cgconv_eval_reference(*cargs)),
-              "bound_ms": bound_ms, "bound_by": bound_by}
+                  cold(fc.fused_cgconv_eval_reference, *cargs)),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "bound_ms_before": before_ms, "bound_by_before": before_by}
     print(f"fused_cgconv_eval at the top raw rung (N={n}): {k1_raw['ms']!r} "
           f"ms a call, {k1_raw['plain_ms']!r} ms plain, bound "
           f"{bound_ms!r} ms; kernel 8 max_abs_err {errs[0]!r}, kernel 1 "
@@ -680,7 +769,7 @@ def overflow_leg(dev, npz, meta, calibration, n_conv):
 
 
 def flush_breakdown(dev, state, shape_set, graphs, reps=10,
-                    kernel_key="fused_cgconv_eval_kernel",
+                    kernel_key="fused_cgconv_eval_",
                     kernel_label="fused_kernel"):
     """One top-rung flush of ``graphs`` split into its stages, each the
     median of ``reps``: host pack, host-to-device copy, the predict step
@@ -772,7 +861,7 @@ def raw_flush_breakdown(dev, server, graphs, reps=10):
         return res
     k8 = sum(v for k, v in by_kernel.items() if "neighbor_search_kernel" in k)
     k1 = sum(v for k, v in by_kernel.items()
-             if "fused_cgconv_eval_kernel" in k)
+             if "fused_cgconv_eval_" in k)
     top_k = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     res.update({
         "step_device_busy_ms": busy_ms,
@@ -1146,11 +1235,13 @@ def train_breakdown(dev, train_g, label, steps=8, **model_kw):
     return res
 
 
-def segment_sum_check(dev, label, batch, seed):
+def segment_sum_check(dev, label, batch, seed, hub=None):
     """Kernel 6 on one packed COO batch: seeded [E, 64] messages zeroed on
     the padding edges, against its plain version (rtol/atol), bit-identical
     on a second run; then timed beside its plain version and the library
-    call ``torch.segment_reduce`` on the same offsets. -> its record."""
+    call ``torch.segment_reduce`` on the same offsets. ``hub``: a real node
+    takes the padding edges instead of node N-1 (the centers re-sorted,
+    the messages with them, and not zeroed there). -> its record."""
     import numpy as np
     import torch
 
@@ -1159,10 +1250,16 @@ def segment_sum_check(dev, label, batch, seed):
     e, f = batch.edge_mask.shape[0], 64
     n = batch.nodes.shape[0]
     rng = np.random.default_rng(seed)
-    msgs = torch.from_numpy(
-        (rng.standard_normal((e, f)) * batch.edge_mask.numpy()[:, None])
-        .astype(np.float32)).to(dev)
-    centers = batch.centers.to(dev)
+    msgs = rng.standard_normal((e, f))
+    centers = batch.centers.numpy()
+    if hub is None:
+        msgs = msgs * batch.edge_mask.numpy()[:, None]
+    else:
+        centers = np.where(batch.edge_mask.numpy() > 0, centers, hub)
+        order = np.argsort(centers, kind="stable")
+        centers, msgs = centers[order], msgs[order]
+    msgs = torch.from_numpy(msgs.astype(np.float32)).to(dev)
+    centers = torch.from_numpy(centers.astype(np.int32)).to(dev)
     offsets = scatter.segment_offsets(centers, n)
     got = scatter.segment_sum_sorted_cuda(msgs, offsets)
     again = scatter.segment_sum_sorted_cuda(msgs, offsets)
@@ -1176,28 +1273,27 @@ def segment_sum_check(dev, label, batch, seed):
     spans = np.diff(offsets.cpu().numpy())
     cost = scatter.segment_sum_cost(e, n, f)
     bound_ms, bound_by = bound(cost)
+    big = int(np.argmax(spans))
     rec = {"E": e, "N": n, "F": f, "real_edges": real,
+           "longest_node": big, "longest_node_edges": int(spans[big]),
            "node_n_minus_1_edges": int(spans[-1]),
-           "largest_real_in_degree": int(spans[:-1].max()),
            "max_abs_err": errs[0], "max_rel_err": errs[1],
-           "ms": time_ms(lambda: scatter.segment_sum_sorted_cuda(msgs,
-                                                                 offsets)),
+           **timings(cold(scatter.segment_sum_sorted_cuda, msgs, offsets),
+                     cold(lambda x, o: torch.segment_reduce(
+                         x, "sum", offsets=o, axis=0, unsafe=True),
+                          msgs, offsets)),
            "plain_ms": time_ms(
-               lambda: scatter.segment_sum_sorted_reference(msgs, offsets)),
-           "library_ms": time_ms(lambda: torch.segment_reduce(
-               msgs, "sum", offsets=offsets, axis=0, unsafe=True)),
-           "bound_ms": bound_ms, "bound_by": bound_by, "cost": cost,
-           "device_ms": device_ms(
-               lambda: scatter.segment_sum_sorted_cuda(msgs, offsets)),
-           "library_device_ms": device_ms(lambda: torch.segment_reduce(
-               msgs, "sum", offsets=offsets, axis=0, unsafe=True))}
+               cold(scatter.segment_sum_sorted_reference, msgs, offsets)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "cost": cost}
     print(f"segment_sum_sorted, {label}: {rec}")
     return rec
 
 
 def coo_kernel_phase(dev, train_graphs, calibration):
-    """Kernel 6 at the COO training shape and at the top COO serving rung;
-    kernel 7 at the dense training shape. -> their two entries."""
+    """Kernel 6 at the COO training shape, at the top COO serving rung and
+    at the training shape with its padding edges on a real node in the
+    middle (N/2); kernel 7 at the dense training shape. -> their two
+    entries."""
     from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
     from cgnn_tpu_torch.serve.shapes import plan_shape_set
 
@@ -1209,17 +1305,20 @@ def coo_kernel_phase(dev, train_graphs, calibration):
     serve = segment_sum_check(dev, "top COO serving rung",
                               ss.pack_full(calibration, shape=ss.largest),
                               SEED + 1)
+    mid = train_batch.nodes.shape[0] // 2
+    hub = segment_sum_check(dev, f"COO training shape, hub at node {mid}",
+                            train_batch, SEED, hub=mid)
     k6 = kernel_entry(
         "segment_sum_sorted", "segment_sum.cu",
         "cgnn_tpu/ops/pallas_scatter.py:52",
-        (train["max_abs_err"], train["max_rel_err"]), train["ms"],
-        train["plain_ms"], train.pop("cost"), library_ms=train["library_ms"],
+        (train["max_abs_err"], train["max_rel_err"]), train,
+        train["plain_ms"], train.pop("cost"),
         library_call="torch.segment_reduce(messages, 'sum', offsets=offsets, "
                      "axis=0, unsafe=True)")
     serve.pop("cost")
-    k6.update(device_ms=train["device_ms"],
-              library_device_ms=train["library_device_ms"],
-              training_shape=train, serve_top_rung=serve)
+    hub.pop("cost")
+    k6.update(training_shape=train, serve_top_rung=serve,
+              training_shape_hub_mid=hub)
     k6["coo_rungs"] = [list(vars(s).values()) for s in ss]
     return k6, gather_kernel_phase(dev, train_graphs)
 
@@ -1274,18 +1373,13 @@ def gather_kernel_phase(dev, train_graphs):
     entry = kernel_entry(
         "windowed_gather", "windowed_gather.cu",
         "cgnn_tpu/ops/pallas_gather.py:55", (0.0, 0.0),
-        time_ms(lambda: wg.windowed_gather_cuda(nodes, nbr, ws, window)),
-        time_ms(lambda: wg.windowed_gather_reference(nodes, nbr, ws,
-                                                     window)),
+        timings(cold(wg.windowed_gather_cuda, nodes, nbr, ws, window),
+                cold(lambda x, i: x.index_select(0, i), nodes, nbr)),
+        time_ms(cold(wg.windowed_gather_reference, nodes, nbr, ws, window)),
         wg.windowed_gather_cost(n, M, f),
-        library_ms=time_ms(lambda: nodes.index_select(0, nbr)),
         library_call="nodes.index_select(0, neighbors)")
     entry.update(path_note=NO_PATH["windowed_gather"],
                  kernel_phase_launches=launches,
-                 device_ms=device_ms(
-                     lambda: wg.windowed_gather_cuda(nodes, nbr, ws, window)),
-                 library_device_ms=device_ms(
-                     lambda: nodes.index_select(0, nbr)),
                  shape={"N": n, "M": M, "F": f, "window": window,
                         "out_of_window_slots_shuffled": zero_rows})
     return entry

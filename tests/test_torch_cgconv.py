@@ -5,6 +5,8 @@ Same numpy inputs on both sides; f32, rtol 1e-4 / atol 1e-5. The CUDA
 kernel itself runs only on the card (chip_smoke.py); here its wrapper must
 refuse what is not a CUDA tensor instead of falling back."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,8 +125,53 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_cost_model():
     want = jops.fused_conv_hbm_bytes(1784, 12, 41, 64)
     assert tops.fused_conv_hbm_bytes(1784, 12, 41, 64) == want
+    # a hand-counted case: N=4, M=2, F=2, G=3; rows 0 and 2 have real
+    # slots (pointing at nodes 1, 2, 2), row 1 only padding that points at
+    # node 3, row 3 nothing: nodes 0, 1, 2 are touched, node 3 is not
+    n, m, f, g = 4, 2, 2, 3
+    nbr = torch.tensor([[1, 3], [3, 3], [2, 2], [0, 0]], dtype=torch.int32)
+    mask = torch.tensor([[1.0, 0.0], [0.0, 0.0], [1.0, 1.0], [0.0, 0.0]])
+    assert tops.touched_nodes(nbr, mask, n) == 3
+    assert tops.touched_nodes(nbr.reshape(-1), mask.reshape(-1), n) == 3
+    nbytes = 4 * (n * f + n * m * g + 2 * n * m + (2 * f + g) * 2 * f
+                  + 4 * 2 * f + n * f)
+    cost = tops.eval_pass_cost(n, m, g, f, real_slots=3, touched=3)
+    # 3 nodes x (2 F 4F = 32) + 3 slots x (2 G 2F = 24)
+    assert cost == {"bytes": nbytes, "flops": 3 * 32 + 3 * 24}
+    # z taken whole per slot, as kernel 2 still does: 2 rows x 2F x 2F
+    # (v_i) + 3 slots x 2F x 2 (F + G), the stats' 3 ops per slot channel
+    assert tops.unfactored_flops(f, g, 3, 2) == 2 * 16 + 3 * 40 == 152
+    stats = tops.stats_pass_cost(n, m, g, f, real_slots=3, real_rows=2)
+    assert stats == {"bytes": nbytes - 4 * n * f,
+                     "flops": 152 + 3 * 3 * 2 * f}
+    # the flagship's top serving rung, every slot real: the stats count
+    # is the one before the node pass
     n, m, g, f = 1784, 12, 41, 64
-    cost = tops.eval_pass_cost(n, m, g, f, real_slots=n * m, real_rows=n)
-    assert cost["bytes"] == 4 * (n * f + n * m * g + 2 * n * m
-                                 + (2 * f + g) * 2 * f + 4 * 2 * f + n * f)
-    assert cost["flops"] == 2 * (n * f * 2 * f + n * m * (f + g) * 2 * f)
+    stats = tops.stats_pass_cost(n, m, g, f, real_slots=n * m, real_rows=n)
+    assert stats["flops"] == (2 * (n * f * 2 * f + n * m * (f + g) * 2 * f)
+                              + 3 * n * m * 2 * f)
+    assert tops.eval_pass_cost(n, m, g, f, n * m, n)["flops"] == (
+        2 * f * 4 * f * n + 2 * g * 2 * f * n * m)
+
+
+def test_build_resolves_each_entry_once(monkeypatch):
+    """A kernel's ctypes entry is looked up in its library once; later
+    calls take it from the cache, without ``load`` or its lock."""
+    calls = []
+
+    class Lib:
+        def __init__(self):
+            self.segment_sum_sorted_f32 = types.SimpleNamespace(
+                argtypes=None, restype=None)
+
+    def load(name):
+        calls.append(name)
+        return Lib()
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "_entries", {})
+    fns = [_build.entry("segment_sum", "segment_sum_sorted_f32", 3, 2)
+           for _ in range(50)]
+    assert calls == ["segment_sum"]
+    assert all(fn is fns[0] for fn in fns)
+    assert len(fns[0].argtypes) == 3 + 2 + 1 and fns[0].restype is not None

@@ -210,14 +210,28 @@ def _hub_case():
     return msgs, centers, n
 
 
+def _tail_hub_case():
+    """A packed COO batch's skew: 520 padding edges on node N-1 (zero
+    messages, as CGConv's mask leaves them) and a real hub of 150 edges at
+    node 120, beside short ranges and empty nodes."""
+    rng = np.random.default_rng(3)
+    n = 300
+    centers = np.sort(np.concatenate([
+        rng.integers(0, n - 1, 1500), np.full(150, 120), np.full(520, n - 1),
+    ])).astype(np.int32)
+    msgs = rng.normal(size=(len(centers), 64)).astype(np.float32)
+    msgs[-520:] = 0.0
+    return msgs, centers, n
+
+
 CASES = {"64x16x8": (64, 16, 8), "1000x300x32": (1000, 300, 32),
-         "2048x513x16": (2048, 513, 16), "hub": None}
+         "2048x513x16": (2048, 513, 16), "hub": None, "tail_and_hub": None}
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_aggregates(case):
-    if case == "hub":
-        msgs, centers, n = _hub_case()
+    if case in ("hub", "tail_and_hub"):
+        msgs, centers, n = _hub_case() if case == "hub" else _tail_hub_case()
     else:
         e, n, f = CASES[case]
         msgs, centers = _agg_case(e, n, f, seed=e)
@@ -237,12 +251,26 @@ def test_aggregate_matches_jax(case, impl):
     got = aggregate_edge_messages(_t(msgs), _t(centers), n,
                                   impl=impl).numpy()
     assert scatter.segment_sum_sorted_cuda.launches == before  # CPU: plain
-    tol = dict(rtol=1e-5, atol=1e-4) if case == "hub" else AGG_TOL
+    tol = dict(rtol=1e-5, atol=1e-4) if "hub" in case else AGG_TOL
     assert got.shape == xla.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, xla, **tol)
     np.testing.assert_allclose(got, pallas, **tol)
     empty = np.setdiff1d(np.arange(n), centers)
     assert (got[empty] == 0).all()
+
+
+def test_segment_sum_plain_version_on_a_tail_and_a_hub():
+    """Kernel 6's plain version on the offsets the wrapper passes it, where
+    node N-1 holds 520 padding edges and node 120 a real hub of 150: equal
+    to the JAX ``segment_sum_pallas`` (interpret mode) at the hub case's
+    tolerance."""
+    msgs, centers, n, _, pallas = _jax_aggregates("tail_and_hub")
+    offsets = scatter.segment_offsets(_t(centers), n)
+    spans = np.diff(offsets.numpy())
+    assert spans[-1] >= 500 and spans[120] >= 150
+    got = scatter.segment_sum_sorted_reference(_t(msgs), offsets).numpy()
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-4)
+    assert (got[-1] == 0).all()
 
 
 def test_aggregate_gradient_is_gather():

@@ -93,9 +93,32 @@ def test_kernel_refuses_what_it_does_not_take(dev):
     mixed[3] = args[3].cpu()
     with pytest.raises(ValueError, match="bias is on cpu"):
         fc.fused_cgconv_eval_cuda(*mixed)
-    # W [(2F+G), 2F] must fit one block's shared memory
+    # the slot pass takes one thread a channel pair, at most 256 a row
+    with pytest.raises(ValueError, match="256 threads per row"):
+        fc.fused_cgconv_eval_cuda(*_args(dev, 8, 2, 264, 7))
+    # past 44 columns, W_e [G, 2F] must fit one block's shared memory
     with pytest.raises(ValueError, match="shared memory"):
-        fc.fused_cgconv_eval_cuda(*_args(dev, 8, 2, 128, 7))
+        fc.fused_cgconv_eval_cuda(*_args(dev, 8, 2, 256, 120))
+
+
+@pytest.mark.parametrize("m", [1, 12])
+@pytest.mark.parametrize("g", [1, 41, 60])
+@pytest.mark.parametrize("f", [16, 64, 128])
+def test_kernel_node_and_slot_passes(dev, f, g, m):
+    """Kernel 1's node pass and slot pass over F, G (1 and 41 keep W_e in
+    registers, 60 in shared memory) and M, at N = 1001 (not a multiple of
+    a block's rows), with all-padding rows (-> 0) and NaN edges in masked
+    slots: against the plain version, and the same bits when run again."""
+    args = _args(dev, 1001, m, f, g)
+    assert (g <= fc.W_E_REGISTER_MAX_G) == (g != 60)
+    got = fc.fused_cgconv_eval_cuda(*args)
+    again = fc.fused_cgconv_eval_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, fc.fused_cgconv_eval_reference(*args),
+                               **TOL)
+    assert (got[-3:] == 0).all()
+    assert torch.equal(got, again)
 
 
 def _close_on_scale(got, want, rtol=1e-4):
@@ -461,6 +484,51 @@ def test_segment_sum_kernel_matches_plain_version(dev, case):
     out = scatter.segment_sum_sorted(m, c, n, impl="pallas")
     assert scatter.segment_sum_sorted_cuda.launches == before + 3
     assert torch.equal(out, got)
+
+
+def _segment_layout(case, f):
+    """Sorted centers over n nodes with a long node (more than
+    ``long_range_rows(F)`` rows) where the case puts it."""
+    from cgnn_tpu_torch.ops import scatter
+
+    rng = np.random.default_rng(7)
+    n = 300
+    if case.startswith("hub"):
+        hub = {"hub_first": 0, "hub_middle": n // 2, "hub_last": n - 1}[case]
+        centers = np.concatenate([rng.integers(0, n, 2000),
+                                  np.full(600, hub)])
+    elif case == "one_node":  # every edge on node 17, the rest empty
+        n, centers = 50, np.full(1000, 17)
+    else:  # L-1, L, L+1 and 0 rows in turn: long nodes share blocks
+        long_rows = scatter.long_range_rows(f)
+        counts = np.tile([long_rows - 1, long_rows, long_rows + 1, 0], 40)
+        n, centers = len(counts), np.repeat(np.arange(len(counts)), counts)
+    return np.sort(centers).astype(np.int32), n
+
+
+@pytest.mark.parametrize("case", ["hub_first", "hub_middle", "hub_last",
+                                  "one_node", "ranges_around_L"])
+@pytest.mark.parametrize("f", [1, 32, 33, 64, 100, 128, 256])
+def test_segment_sum_kernel_long_ranges(dev, f, case):
+    """Kernel 6 where a node's range is summed by its whole block (a hub
+    at node 0, N/2 or N-1; every edge on one node; ranges of L-1, L and
+    L+1 rows; empty nodes), over F: against its plain version (rtol 1e-4 /
+    atol 1e-5), bit-identical when run again, 0 on empty nodes."""
+    from cgnn_tpu_torch.ops import scatter
+
+    centers, n = _segment_layout(case, f)
+    rng = np.random.default_rng(f)
+    m = torch.from_numpy(
+        rng.normal(size=(len(centers), f)).astype(np.float32)).to(dev)
+    offsets = scatter.segment_offsets(torch.from_numpy(centers).to(dev), n)
+    got = scatter.segment_sum_sorted_cuda(m, offsets)
+    again = scatter.segment_sum_sorted_cuda(m, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, scatter.segment_sum_sorted_reference(m, offsets), **TOL)
+    empty = np.setdiff1d(np.arange(n), centers)
+    assert (got[torch.from_numpy(empty).to(dev)] == 0).all()
 
 
 def test_segment_sum_kernel_refuses_what_it_does_not_take(dev):
