@@ -6,8 +6,9 @@
 //             <- `_apply_kernel` (through `_pallas_apply`, from
 //             `fused_cgconv_eval` and the training forward
 //             `_forward_pallas`)
-//   kernel 2  fused_cgconv_stats_kernel <- `_stats_kernel` (through
-//             `_pallas_stats`, from `_forward_pallas`)
+//   kernel 2  fused_cgconv_eval_node_kernel + fused_cgconv_stats_slot_kernel
+//             <- `_stats_kernel` (through `_pallas_stats`, from
+//             `_forward_pallas`)
 // Per node row i and edge slot s < M, with j = nbr[i*M + s]:
 //
 //   z   = v_i . W[0:F] + v_j . W[F:2F] + e_is . W[2F:2F+G] + b      [2F]
@@ -58,16 +59,45 @@
 // little of their latency. PERF.md's kernel table keeps the latest
 // times.
 //
-// Kernel 2 still uses the first design's z routine, `for_each_real_slot`:
-// W [(2F+G), 2F] staged once per block in dynamic shared memory; per slot
-// the row's v_j and edge rows are staged by coalesced loads, then every
-// thread takes its two dot products against W. It adds its block's rows
-// through shared memory in row order into one [2, 2F] partial per block,
-// and a second small kernel sums the partials in a fixed order: no float
-// atomics, so the statistics are bit-identical from run to run (the TPU
-// grid accumulates in a fixed sequential order too). The GPU gathers rows
-// directly, so the TPU kernels' one-hot window tiles and tail-block
-// garbage rows are gone.
+// Kernel 2, the stats pass, runs on the same factored z. What bounds it
+// on an H100: f32 FMAs, as kernel 1. Its first design took z whole per
+// slot (W [(2F+G), 2F] staged by every block of 8 rows, two block barriers
+// a slot, about one shared-memory load an FMA): 0.340 ms on the device at
+// the flagship's training shape (N=7832, M=12, F=64, G=41), 8.5x the count
+// of the work it did. This design:
+//   launch 2a, kernel 1's node pass (above), writing P [N, 4F]; in
+//     training one node pass a conv feeds both slot passes, so the stats
+//     pass skips it when handed P;
+//   launch 2b, the stats slot pass: the N*M slots, in their flat order,
+//     are the rows of an [N*M, G] x [G, 2F] product whose epilogue takes
+//     moments. A block owns a column tile of 128 channels (blockIdx.y)
+//     and stages its W_e columns [G, 128] in shared memory once; a
+//     persistent grid of at most kStatsBlocks blocks walks tiles of 64
+//     slots at a fixed stride. A tile's edge rows (64 G contiguous floats),
+//     neighbors and mask are staged by 4-byte cp.async copies into one of
+//     two buffers while the block computes the tile before (rows padded to
+//     a multiple of 4 floats with zeros, so they read as float4s). Thread
+//     (tx, ty) of 256 keeps a 4-slot x 8-channel tile of e . W_e in
+//     registers (slots 4 ty .. 4 ty + 3; channels 4 tx .. 4 tx + 3 and
+//     64 + 4 tx .. 64 + 4 tx + 3 of the tile, so a quarter warp's W_e
+//     loads cover 128 contiguous bytes): per 4 of the G inputs, 4 float4
+//     edge loads (each a broadcast to 16 threads) and 8 float4 W_e loads
+//     for 128 FMAs. The epilogue adds P[i, 0:2F] + P[j, 2F:4F] from L2,
+//     subtracts the shift and, on a real slot only (a padding slot's z,
+//     NaN edges included, is selected away, never added), adds d and d^2
+//     to the thread's per-channel sums, kept in registers across every
+//     tile the block walks;
+//   launch 2c: each block adds its threads' sums through shared memory in
+//     thread-row order into one [2, 2F] partial, and `sum_partials`
+//     adds the partials in a fixed order.
+// No float atomics: the statistics are bit-identical from run to run (the
+// TPU grid accumulates in a fixed sequential order too), and the same
+// whether the node pass ran inside the stats call or before it. Tensor
+// cores are not used: 3xTF32 mma.sync would hold the tolerance, but at
+// G=41 the FFMA design's bound (~0.019 ms with the node pass) leaves the
+// staging and the epilogue, not the product, as the question to measure
+// first. The GPU gathers rows directly, so the TPU kernels' one-hot window
+// tiles and tail-block garbage rows are gone.
 
 #include <cuda_runtime.h>
 
@@ -77,80 +107,6 @@ namespace {
 
 using cgnn::sigmoid_f32;
 using cgnn::softplus_f32;
-
-// Calls visit(z_g, z_c) for every real slot of this thread's row, in slot
-// order, where z_g = z[c] and z_c = z[c + F]. Every thread of the block
-// must call it (it holds block-wide barriers). Shared memory layout from
-// `smem`: W [(2F+G), 2F], then per row v_i [F], v_j [F], e [G].
-template <class Visit>
-__device__ __forceinline__ void for_each_real_slot(
-    const float* __restrict__ nodes, const float* __restrict__ edges,
-    const int* __restrict__ nbr, const float* __restrict__ mask,
-    const float* __restrict__ w, const float* __restrict__ bias,
-    float* smem, int n, int m, int f, int g, Visit&& visit) {
-  const int two_f = 2 * f;
-  const int w_len = (two_f + g) * two_f;
-  const int rows = blockDim.y;
-  float* w_s = smem;
-  float* vi_s = w_s + w_len;
-  float* vj_s = vi_s + rows * f;
-  float* e_s = vj_s + rows * f;
-
-  const int c = threadIdx.x;
-  const int r = threadIdx.y;
-  const int tid = r * blockDim.x + c;
-  const int nthreads = blockDim.x * rows;
-  const int row = blockIdx.x * rows + r;
-  const bool live = row < n;
-  float* vi_r = vi_s + r * f;
-  float* vj_r = vj_s + r * f;
-  float* e_r = e_s + r * g;
-
-  for (int i = tid; i < w_len; i += nthreads) w_s[i] = w[i];
-  if (live) vi_r[c] = nodes[(size_t)row * f + c];
-  __syncthreads();
-
-  // v_i . W[0:F] + b, once per node
-  float zi_g = 0.0f, zi_c = 0.0f;
-  if (live) {
-    for (int k = 0; k < f; ++k) {
-      const float v = vi_r[k];
-      zi_g = fmaf(v, w_s[k * two_f + c], zi_g);
-      zi_c = fmaf(v, w_s[k * two_f + c + f], zi_c);
-    }
-  }
-  zi_g += bias[c];
-  zi_c += bias[c + f];
-
-  const float* w_j = w_s + f * two_f;
-  const float* w_e = w_s + two_f * two_f;
-  for (int s = 0; s < m; ++s) {
-    const size_t slot = (size_t)row * m + s;
-    const bool real = live && mask[slot] > 0.0f;
-    if (real) {
-      const int j = nbr[slot];
-      vj_r[c] = nodes[(size_t)j * f + c];
-      for (int q = c; q < g; q += f) e_r[q] = edges[slot * g + q];
-    }
-    __syncthreads();
-    if (real) {
-      float zj_g = 0.0f, zj_c = 0.0f;
-      for (int k = 0; k < f; ++k) {
-        const float v = vj_r[k];
-        zj_g = fmaf(v, w_j[k * two_f + c], zj_g);
-        zj_c = fmaf(v, w_j[k * two_f + c + f], zj_c);
-      }
-      float ze_g = 0.0f, ze_c = 0.0f;
-      for (int q = 0; q < g; ++q) {
-        const float v = e_r[q];
-        ze_g = fmaf(v, w_e[q * two_f + c], ze_g);
-        ze_c = fmaf(v, w_e[q * two_f + c + f], ze_c);
-      }
-      visit(zi_g + zj_g + ze_g, zi_c + zj_c + ze_c);
-    }
-    __syncthreads();
-  }
-}
 
 // ---------------------------------------------------------------------------
 // kernel 1, the apply pass: launch 1a (node pass), then launch 1b (slot pass)
@@ -449,52 +405,210 @@ __global__ void __launch_bounds__(kSlotThreads)
   }
 }
 
-__global__ void fused_cgconv_stats_kernel(
-    const float* __restrict__ nodes, const float* __restrict__ edges,
+// ---------------------------------------------------------------------------
+// kernel 2, the stats pass: launch 2a (the node pass above), then launch 2b
+// ---------------------------------------------------------------------------
+
+constexpr int kStatsThreads = 256;   // 16 column threads x 16 slot threads
+constexpr int kStatsTileSlots = 64;  // slots a tile: 16 thread rows x 4
+constexpr int kStatsTileCols = 128;  // channels a block: 16 threads x 8
+constexpr int kStatsRed = 2 * 16 * kStatsTileCols;  // floats of the block sum
+
+// Floats between two staged edge rows: G rounded up to 4, plus 4 where
+// that is a multiple of 8 (two thread rows' float4 loads then fall on
+// different banks).
+__host__ __device__ inline int stats_row_stride(int g) {
+  const int g4 = (g + 3) & ~3;
+  return (g4 & 7) ? g4 : g4 + 4;
+}
+
+// Floats one staged tile takes: its edge rows, then nbr and mask.
+__host__ __device__ inline int stats_stage_floats(int g) {
+  return kStatsTileSlots * (stats_row_stride(g) + 2);
+}
+
+// Dynamic shared memory of launch 2b: W_e's columns [G4][128], then two
+// staged tiles; at least the block sum's [2][16][128] (which reuses it).
+__host__ __device__ inline int stats_smem_floats(int g) {
+  const int used = ((g + 3) & ~3) * kStatsTileCols + 2 * stats_stage_floats(g);
+  return used > kStatsRed ? used : kStatsRed;
+}
+
+// Launch 2b: over the real slots, sum (z - shift) and (z - shift)^2 per
+// channel, z = P[i, 0:2F] + P[j, 2F:4F] + e . W_e; block (x, y) walks
+// tiles x, x + gridDim.x, ... over columns 128 y .. 128 y + 127 and writes
+// its [2, 128] share of partial x (see the header note).
+__global__ void __launch_bounds__(kStatsThreads, 2)
+    fused_cgconv_stats_slot_kernel(
+    const float* __restrict__ p, const float* __restrict__ edges,
     const int* __restrict__ nbr, const float* __restrict__ mask,
-    const float* __restrict__ w, const float* __restrict__ bias,
-    const float* __restrict__ shift,  // [2F]
-    float* __restrict__ part,         // [nblocks, 2, 2F]
-    int n, int m, int f, int g) {
-  extern __shared__ float smem[];
-  const int c = threadIdx.x;
-  const int r = threadIdx.y;
-  const int rows = blockDim.y;
-  const int two_f = 2 * f;
-  const float sh_g = shift[c], sh_c = shift[c + f];
-  // acc: sum (z_g - shift), sum (z_c - shift), and their squares
-  float s1_g = 0.0f, s1_c = 0.0f, s2_g = 0.0f, s2_c = 0.0f;
-  for_each_real_slot(nodes, edges, nbr, mask, w, bias, smem, n, m, f, g,
-                     [&](float z_g, float z_c) {
-                       const float d_g = z_g - sh_g, d_c = z_c - sh_c;
-                       s1_g += d_g;
-                       s1_c += d_c;
-                       s2_g += d_g * d_g;
-                       s2_c += d_c * d_c;
-                     });
-  // after the staging area: [4][rows][F] per-row sums (the loop above
-  // ended on a barrier, so the block is past every staged read)
-  float* red_s = smem + (two_f + g) * two_f + rows * (two_f + g);
-  red_s[(0 * rows + r) * f + c] = s1_g;
-  red_s[(1 * rows + r) * f + c] = s1_c;
-  red_s[(2 * rows + r) * f + c] = s2_g;
-  red_s[(3 * rows + r) * f + c] = s2_c;
+    const float* __restrict__ w_e, const float* __restrict__ shift,
+    float* __restrict__ part, int n, int m, int f, int g) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int two_f = 2 * f, four_f = 4 * f;
+  const int g4 = (g + 3) & ~3;
+  const int stride = stats_row_stride(g);
+  const int stage = stats_stage_floats(g);
+  float* w_s = smem;                         // [G4][128]
+  float* st_s = smem + g4 * kStatsTileCols;  // two staged tiles
+  const int col0 = blockIdx.y * kStatsTileCols;
+  const long long total = (long long)n * m;
+  const int n_tiles = (int)((total + kStatsTileSlots - 1) / kStatsTileSlots);
+  // P's rows as float4s where every column group of 4 is whole
+  const bool vec_p =
+      (two_f & 3) == 0 && (reinterpret_cast<size_t>(p) & 15) == 0;
+
+  // the pad columns [G, stride) of staged rows stay 0 (copies never
+  // write them); W_e is 0 past G and past 2F
+  for (int i = tid; i < 2 * stage; i += kStatsThreads) st_s[i] = 0.0f;
+  for (int i = tid; i < g4 * kStatsTileCols; i += kStatsThreads) {
+    const int k = i / kStatsTileCols, col = col0 + i % kStatsTileCols;
+    w_s[i] = (k < g && col < two_f) ? w_e[(size_t)k * two_f + col] : 0.0f;
+  }
   __syncthreads();
-  if (r == 0) {
-    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int q = 0; q < 4; ++q) {
-      for (int rr = 0; rr < rows; ++rr) t[q] += red_s[(q * rows + rr) * f + c];
+
+  // thread element i of a tile's 64 G edge floats -> staged (slot, column)
+  const int ds = kStatsThreads / g, dq = kStatsThreads - ds * g;
+  auto stage_tile = [&](int tile, int buf) {
+    float* e_s = st_s + buf * stage;
+    const long long base = (long long)tile * kStatsTileSlots;
+    const int slots = (int)min((long long)kStatsTileSlots, total - base);
+    const float* src = edges + base * g;
+    int s = tid / g, q = tid - s * g;
+    for (int i = tid; i < slots * g; i += kStatsThreads) {
+      cp_async4(e_s + s * stride + q, src + i);
+      s += ds;
+      q += dq;
+      if (q >= g) {
+        q -= g;
+        ++s;
+      }
     }
-    float* p = part + (size_t)blockIdx.x * 2 * two_f;
-    p[c] = t[0];
-    p[c + f] = t[1];
-    p[two_f + c] = t[2];
-    p[two_f + c + f] = t[3];
+    float* nb_s = e_s + kStatsTileSlots * stride;
+    for (int i = tid; i < slots; i += kStatsThreads) {
+      cp_async4(nb_s + i, nbr + base + i);
+      cp_async4(nb_s + kStatsTileSlots + i, mask + base + i);
+    }
+  };
+
+  int cols[8];  // this thread's channels (>= 2F: none)
+  float sh[8], s1[8], s2[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    cols[c] = col0 + (c < 4 ? 4 * tx + c : 64 + 4 * tx + c - 4);
+    sh[c] = cols[c] < two_f ? shift[cols[c]] : 0.0f;
+    s1[c] = 0.0f;
+    s2[c] = 0.0f;
+  }
+
+  const int step = gridDim.x;
+  if ((int)blockIdx.x < n_tiles) stage_tile(blockIdx.x, 0);
+  cp_async_commit();
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += step, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is staged; every thread is past the last
+    if (tile + step < n_tiles) stage_tile(tile + step, buf ^ 1);
+    cp_async_commit();
+    const float* e_s = st_s + buf * stage;
+    const float* e_row = e_s + 4 * ty * stride;
+
+    float acc[4][8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[q][c] = 0.0f;
+    }
+    for (int k = 0; k < g4; k += 4) {
+      float4 e[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        e[q] = *reinterpret_cast<const float4*>(e_row + q * stride + k);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* w_k = w_s + (k + kk) * kStatsTileCols + 4 * tx;
+        const float4 wa = *reinterpret_cast<const float4*>(w_k);
+        const float4 wb = *reinterpret_cast<const float4*>(w_k + 64);
+        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float ev = kk == 0 ? e[q].x
+                           : kk == 1 ? e[q].y
+                           : kk == 2 ? e[q].z : e[q].w;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(ev, wv[c], acc[q][c]);
+        }
+      }
+    }
+
+    // the epilogue: real slots only, in slot order
+    const int* nb_s =
+        reinterpret_cast<const int*>(e_s + kStatsTileSlots * stride);
+    const float* mk_s = e_s + kStatsTileSlots * stride + kStatsTileSlots;
+    const long long base = (long long)tile * kStatsTileSlots;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int ls = 4 * ty + q;
+      if (base + ls >= total || !(mk_s[ls] > 0.0f)) continue;
+      const float* p_i = p + (size_t)((base + ls) / m) * four_f;
+      const float* p_j = p + (size_t)nb_s[ls] * four_f + two_f;
+      float pv[8];
+      if (vec_p) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = cols[4 * h];
+          if (col < two_f) {
+            const float4 a = *reinterpret_cast<const float4*>(p_i + col);
+            const float4 b = *reinterpret_cast<const float4*>(p_j + col);
+            pv[4 * h] = a.x + b.x;
+            pv[4 * h + 1] = a.y + b.y;
+            pv[4 * h + 2] = a.z + b.z;
+            pv[4 * h + 3] = a.w + b.w;
+          } else {
+            pv[4 * h] = pv[4 * h + 1] = pv[4 * h + 2] = pv[4 * h + 3] = 0.0f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          pv[c] = cols[c] < two_f ? p_i[cols[c]] + p_j[cols[c]] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float d = (pv[c] + acc[q][c]) - sh[c];
+        s1[c] += d;
+        s2[c] += d * d;
+      }
+    }
+  }
+
+  // the block's sums, in thread-row order, through shared memory
+  __syncthreads();  // every thread is past its last staged read
+  float* red = smem;  // [2][16][128]
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int lc = cols[c] - col0;
+    red[ty * kStatsTileCols + lc] = s1[c];
+    red[(16 + ty) * kStatsTileCols + lc] = s2[c];
+  }
+  __syncthreads();
+  const int moment = tid >> 7, lc = tid & (kStatsTileCols - 1);
+  float t = 0.0f;
+  for (int r = 0; r < 16; ++r) {
+    t += red[(moment * 16 + r) * kStatsTileCols + lc];
+  }
+  if (col0 + lc < two_f) {
+    part[((size_t)blockIdx.x * 2 + moment) * two_f + col0 + lc] = t;
   }
 }
 
-bool bad_shape(int n, int m, int f, int g, int rows) {
-  return n <= 0 || m <= 0 || f <= 0 || g <= 0 || rows <= 0 || f * rows > 1024;
+bool bad_shape(int n, int m, int f, int g) {
+  return n <= 0 || m <= 0 || f <= 0 || g <= 0;
 }
 
 cudaError_t opt_in_smem(const void* kernel, int smem) {
@@ -502,6 +616,18 @@ cudaError_t opt_in_smem(const void* kernel, int smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
+}
+
+// Launch 1a / 2a: P [N, 4F] = nodes . [W_i | W_j] + [b | 0].
+cudaError_t launch_node_pass(const void* nodes, const void* w,
+                             const void* bias, void* p, int n, int f,
+                             cudaStream_t st) {
+  const dim3 grid((n + kNodeRows - 1) / kNodeRows,
+                  (4 * f + kNodeCols - 1) / kNodeCols);
+  fused_cgconv_eval_node_kernel<<<grid, 256, 0, st>>>(
+      (const float*)nodes, (const float*)w, (const float*)bias, (float*)p, n,
+      f);
+  return cudaGetLastError();
 }
 
 // Thread rows of one slot-pass block (blockDim.y) for M, F, G.
@@ -521,42 +647,40 @@ bool slot_pass_in_registers(int m, int f, int g) {
 
 }  // namespace
 
-// Dynamic shared memory of `for_each_real_slot`: W plus a row of v_i, v_j
-// and e for each of the block's rows, in bytes.
-extern "C" int cgconv_fused_z_smem_bytes(int f, int g, int rows) {
-  return (int)(sizeof(float) *
-               ((size_t)(2 * f + g) * 2 * f + (size_t)rows * (2 * f + g)));
+// Dynamic shared memory of the stats slot pass for G, in bytes.
+extern "C" int cgconv_fused_stats_smem_bytes(int g) {
+  return (int)sizeof(float) * stats_smem_floats(g);
 }
 
-// ... and one stats launch: the same, plus [4][rows][F] for the block sums.
-extern "C" int cgconv_fused_stats_smem_bytes(int f, int g, int rows) {
-  return cgconv_fused_z_smem_bytes(f, g, rows) +
-         (int)(sizeof(float) * 4 * (size_t)rows * f);
+// Kernel 1's node pass alone: P [N, 4F] into `p`, for a caller that hands
+// the same P to the stats pass and the apply pass (`node_pass` = 0 there).
+// Launches on `stream`; returns the cudaError_t of the launch (0 = queued).
+// All pointers are device pointers to contiguous row-major f32/i32 data.
+extern "C" int cgconv_fused_node_f32(const void* nodes, const void* w,
+                                     const void* bias, void* p, int n, int f,
+                                     void* stream) {
+  if (n <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_node_pass(nodes, w, bias, p, n, f, (cudaStream_t)stream);
 }
 
-// Kernel 1, the apply pass: launch 1a writes P [N, 4F] (scratch, `p`), then
-// launch 1b reads it; rstd_scale = rsqrt(var + eps) * scale is folded in
+// Kernel 1, the apply pass: with `node_pass` 1, launch 1a writes P [N, 4F]
+// into `p` (scratch) first; with 0, `p` already holds the node pass's P.
+// Launch 1b reads it; rstd_scale = rsqrt(var + eps) * scale is folded in
 // the kernel.
-// Launches on `stream`; returns the cudaError_t of the launches (0 =
-// queued). All pointers are device pointers to contiguous row-major
-// f32/i32 data.
 extern "C" int cgconv_fused_eval_f32(
     const void* nodes, const void* edges, const void* nbr, const void* mask,
     const void* w, const void* bias, const void* mean, const void* var,
     const void* scale, const void* bn_bias, void* p, void* out, int n, int m,
-    int f, int g, float eps, void* stream) {
-  if (bad_shape(n, m, f, g, 1) || f > kSlotThreads) {
+    int f, int g, int node_pass, float eps, void* stream) {
+  if (bad_shape(n, m, f, g) || f > kSlotThreads) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 node_grid((n + kNodeRows - 1) / kNodeRows,
-                       (4 * f + kNodeCols - 1) / kNodeCols);
-  fused_cgconv_eval_node_kernel<<<node_grid, 256, 0, st>>>(
-      (const float*)nodes, (const float*)w, (const float*)bias, (float*)p, n,
-      f);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
+  cudaError_t err = cudaSuccess;
+  if (node_pass) {
+    err = launch_node_pass(nodes, w, bias, p, n, f, st);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int ry = slot_pass_rows(m, f, g);
   const int k_rows = (kSlotRowsPerBlock + ry - 1) / ry;
   const dim3 block(f, ry);
@@ -586,25 +710,39 @@ extern "C" int cgconv_fused_eval_f32(
   return (int)cudaGetLastError();
 }
 
-// The stats pass: `part` is scratch of [ceil(N / rows), 2, 2F] floats,
+// Kernel 2, the stats pass: with `node_pass` 1, launch 2a writes P into
+// `p` first (as kernel 1 does); launch 2b writes one [2, 2F] partial for
+// each of `blocks` blocks (`part`: [blocks, 2, 2F] floats of scratch,
+// blocks = min(tiles of 64 slots, kStatsBlocks) as the wrapper sizes it);
 // `out` [2, 2F] receives sum (z - shift) and sum (z - shift)^2.
 extern "C" int cgconv_fused_stats_f32(
     const void* nodes, const void* edges, const void* nbr, const void* mask,
-    const void* w, const void* bias, const void* shift, void* part,
-    void* out, int n, int m, int f, int g, int rows, void* stream) {
-  if (bad_shape(n, m, f, g, rows)) return (int)cudaErrorInvalidValue;
-  const int smem = cgconv_fused_stats_smem_bytes(f, g, rows);
-  cudaError_t err =
-      opt_in_smem((const void*)fused_cgconv_stats_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nb = (n + rows - 1) / rows;
-  const dim3 block(f, rows);
-  fused_cgconv_stats_kernel<<<nb, block, smem, (cudaStream_t)stream>>>(
-      (const float*)nodes, (const float*)edges, (const int*)nbr,
-      (const float*)mask, (const float*)w, (const float*)bias,
+    const void* w, const void* bias, const void* shift, void* p, void* part,
+    void* out, int n, int m, int f, int g, int blocks, int node_pass,
+    void* stream) {
+  const long long tiles =
+      ((long long)n * m + kStatsTileSlots - 1) / kStatsTileSlots;
+  if (bad_shape(n, m, f, g) || blocks <= 0 || blocks > tiles) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
+  if (node_pass) {
+    err = launch_node_pass(nodes, w, bias, p, n, f, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int smem = cgconv_fused_stats_smem_bytes(g);
+  if (smem > 48 * 1024) {
+    err = opt_in_smem((const void*)fused_cgconv_stats_slot_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(blocks, (2 * f + kStatsTileCols - 1) / kStatsTileCols);
+  fused_cgconv_stats_slot_kernel<<<grid, kStatsThreads, smem, st>>>(
+      (const float*)p, (const float*)edges, (const int*)nbr,
+      (const float*)mask, (const float*)w + (size_t)2 * f * 2 * f,
       (const float*)shift, (float*)part, n, m, f, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)cgnn::launch_sum_partials((const float*)part, (float*)out, nb,
-                                        4 * f, (cudaStream_t)stream);
+  return (int)cgnn::launch_sum_partials((const float*)part, (float*)out,
+                                        blocks, 4 * f, st);
 }

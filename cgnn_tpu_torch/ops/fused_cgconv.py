@@ -12,7 +12,10 @@ edge slots, as one op that writes only the [N, F] aggregate.
   forward is the JAX ``_forward_pallas``: the cancellation shift in plain
   torch, the stats pass — kernel 2 (``fused_cgconv_stats_cuda``) — then
   the moments in torch, then the apply pass (kernel 1) with the batch
-  statistics. Its backward rematerializes z from the saved inputs with
+  statistics. Both passes take z factored the same way, so on the card
+  one node pass (``fused_cgconv_node_cuda``) writes P once per conv and
+  both slot passes read it (``p=``). Its backward rematerializes z from
+  the saved inputs with
   plain torch matmuls, takes the BN1 -> gate -> sum backward through
   kernels 4 and 5 of ops/fused_epilogue.py, and carries dz back through
   the split fc_full: dW and db by matmuls, d_edges = dz W_e^T, d_nodes =
@@ -46,7 +49,6 @@ from cgnn_tpu_torch.ops.fused_epilogue import (
     epilogue_backward,
     masked_stats,
     pack_cst,
-    rows_per_block,
     runs_kernel,
     softplus,
 )
@@ -114,6 +116,33 @@ def fused_cgconv_stats_reference(nodes, edges, kernel, bias, neighbors,
     return torch.stack([zm.sum(dim=(0, 1)), (zm * zm).sum(dim=(0, 1))])
 
 
+def node_projections_reference(nodes, kernel, bias, *,
+                               dtype=torch.float32):
+    """The node pass's plain version -> P [N, 4F] f32 = nodes .
+    [W[0:F] | W[F:2F]] + [b | 0]: per node, its z terms as a center and as
+    a neighbor."""
+    f = nodes.shape[-1]
+    k = kernel.to(dtype)
+    v = nodes.to(dtype)
+    return torch.cat([v @ k[:f] + bias.to(dtype), v @ k[f: 2 * f]],
+                     dim=-1).float()
+
+
+def stats_from_projections_reference(p, edges, kernel, neighbors, edge_mask,
+                                     shift, *, dtype=torch.float32):
+    """The stats slot pass's plain version -> [2, 2F] f32: z = P[i, 0:2F]
+    + P[j, 2F:4F] + e . W_e per slot, then over the real slots the sums of
+    (z - shift) and (z - shift)^2 (padding slots selected to 0)."""
+    n, m = edges.shape[0], edges.shape[1]
+    two_f = kernel.shape[1]
+    p_j = p.index_select(0, neighbors.reshape(-1).long())[:, two_f:]
+    z = (p[:, None, :two_f] + p_j.reshape(n, m, two_f)
+         + (edges.to(dtype) @ kernel.to(dtype)[two_f:]).float())
+    keep = (edge_mask.reshape(n, m) > 0)[..., None]
+    zm = torch.where(keep, z - shift, z.new_zeros(()))
+    return torch.stack([zm.sum(dim=(0, 1)), (zm * zm).sum(dim=(0, 1))])
+
+
 def _forward_structured(nodes, edges, kernel, bias, scale, bn_bias,
                         neighbors, edge_mask, transpose, eps, dtype):
     """The structured twin of the training forward (``impl='xla'``)."""
@@ -147,13 +176,20 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may opt into
 SLOT_PASS_MAX_F = 256  # kernel 1's slot pass: one thread a channel pair
 W_E_REGISTER_MAX_G = 44  # kernel 1's slot pass keeps W_e in registers up
                          # to this G (kRegG), else in shared memory
+STATS_TILE_SLOTS = 64  # kernel 2's slot pass: slots a tile (kStatsTileSlots)
+STATS_BLOCKS = 264  # ... and at most this many blocks walk the tiles (two
+                    # an SM of an H100's 132): one [2, 2F] partial each
 
 
-def _stats_smem_bytes(f: int, g: int, rows: int) -> int:
-    """Kernel 2's dynamic shared memory: W plus per-row v_i/v_j/e rows and
-    [4, rows, F] block sums (cgconv_fused_stats_smem_bytes in the CUDA
-    source)."""
-    return 4 * ((2 * f + g) * 2 * f + rows * (2 * f + g) + 4 * rows * f)
+def _stats_smem_bytes(g: int) -> int:
+    """Kernel 2's slot pass's dynamic shared memory: W_e's columns [G4,
+    128], two staged tiles of 64 edge rows (padded), neighbors and mask,
+    at least the [2, 16, 128] block sum
+    (``cgconv_fused_stats_smem_bytes`` in the CUDA source)."""
+    g4 = -(-g // 4) * 4
+    stride = g4 if g4 % 8 else g4 + 4
+    return 4 * max(g4 * 128 + 2 * STATS_TILE_SLOTS * (stride + 2),
+                   2 * 16 * 128)
 
 
 _NOT_VECTORS = frozenset(("nodes", "edges", "kernel", "neighbors",
@@ -202,12 +238,63 @@ def _check_conv_args(name: str, args: dict) -> tuple:
     return n, m, f, g
 
 
+def _check_p(p, n: int, f: int, nodes) -> None:
+    """A node pass's P handed to a slot pass: [N, 4F] f32, contiguous, on
+    nodes' card."""
+    if p.get_device() != nodes.get_device():
+        raise ValueError(f"p is on {p.device}, nodes on {nodes.device}")
+    if p.dtype != torch.float32 or not p.is_contiguous():
+        raise ValueError("p must be contiguous torch.float32")
+    if p.shape != (n, 4 * f):
+        raise ValueError(f"p must be [{n}, {4 * f}], got {tuple(p.shape)}")
+
+
+def fused_cgconv_node_cuda(nodes, kernel, bias):
+    """Kernel 1's node pass alone (launch 1a, which is also kernel 2's
+    launch 2a) -> P [N, 4F] f32 = nodes . [W[0:F] | W[F:2F]] + [b | 0],
+    for the training forward to hand to both slot passes (``p=``). nodes
+    [N, F], kernel [2F+G, 2F], bias [2F]: f32, contiguous, on one CUDA
+    device. ``.launches`` counts every node pass, also those that
+    ``fused_cgconv_eval_cuda`` and ``fused_cgconv_stats_cuda`` run
+    themselves when given no P."""
+    dev = nodes.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_cgconv_node_cuda takes CUDA tensors, got "
+                         f"{dev}")
+    for key, t in (("nodes", nodes), ("kernel", kernel), ("bias", bias)):
+        if t.get_device() != nodes.get_device():
+            raise ValueError(f"{key} is on {t.device}, nodes on {dev}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{key} must be contiguous torch.float32")
+    n, f = nodes.shape
+    if kernel.dim() != 2 or kernel.shape[1] != 2 * f \
+            or kernel.shape[0] <= 2 * f or bias.shape != (2 * f,):
+        raise ValueError(
+            f"kernel must be [2F+G, {2 * f}] and bias [{2 * f}], got "
+            f"{tuple(kernel.shape)} and {tuple(bias.shape)}")
+    p = nodes.new_empty((n, 4 * f))
+    if n == 0:
+        return p
+    _build.launch(
+        "fused_cgconv_node",
+        _build.entry("fused_cgconv", "cgconv_fused_node_f32", 4, 2),
+        (nodes.data_ptr(), kernel.data_ptr(), bias.data_ptr(), p.data_ptr()),
+        {"N": n, "F": f}, dev)
+    fused_cgconv_node_cuda.launches += 1
+    return p
+
+
+fused_cgconv_node_cuda.launches = 0
+
+
 def fused_cgconv_eval_cuda(nodes, edges, kernel, bias, scale, bn_bias,
                            neighbors, edge_mask, mean, var, *,
-                           eps: float = 1e-5):
+                           eps: float = 1e-5, p=None):
     """Kernel 1, the apply pass (replaces pallas_cgconv.py
     ``_apply_kernel``): launch 1a writes the per-node projections P [N, 4F]
-    (scratch from ``torch.empty``), launch 1b the slot pass. Every tensor
+    (scratch from ``torch.empty``), launch 1b the slot pass; given ``p``
+    (``fused_cgconv_node_cuda``'s P of the same nodes, kernel and bias),
+    only launch 1b runs, on it. Every tensor
     must lie on one CUDA device, f32 except ``neighbors`` (int32),
     contiguous, with nodes [N, F], edges [N, M, G], neighbors [N*M] or
     [N, M], edge_mask [N*M] or [N, M], kernel [2F+G, 2F] and the four
@@ -228,16 +315,22 @@ def fused_cgconv_eval_cuda(nodes, edges, kernel, bias, scale, bn_bias,
     out = nodes.new_empty((n, f))
     if n == 0:
         return out
-    p = nodes.new_empty((n, 4 * f))
+    node_pass = p is None
+    if node_pass:
+        p = nodes.new_empty((n, 4 * f))
+    else:
+        _check_p(p, n, f, nodes)
     _build.launch(
         "fused_cgconv_eval",
-        _build.entry("fused_cgconv", "cgconv_fused_eval_f32", 12, 4, 1),
+        _build.entry("fused_cgconv", "cgconv_fused_eval_f32", 12, 5, 1),
         (nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
          edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
          mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
          bn_bias.data_ptr(), p.data_ptr(), out.data_ptr()),
-        {"N": n, "M": m, "F": f, "G": g, "eps": eps}, nodes.device)
+        {"N": n, "M": m, "F": f, "G": g, "node_pass": int(node_pass),
+         "eps": eps}, nodes.device)
     fused_cgconv_eval_cuda.launches += 1
+    fused_cgconv_node_cuda.launches += node_pass
     return out
 
 
@@ -245,36 +338,46 @@ fused_cgconv_eval_cuda.launches = 0
 
 
 def fused_cgconv_stats_cuda(nodes, edges, kernel, bias, neighbors,
-                            edge_mask, shift):
+                            edge_mask, shift, *, p=None):
     """Kernel 2, the stats pass (replaces pallas_cgconv.py
     ``_stats_kernel``) -> [2, 2F] f32: over the real slots, the sums of
     (z - shift) and (z - shift)^2, added in a fixed order (bit-identical
-    from run to run). Inputs as ``fused_cgconv_eval_cuda``'s."""
+    from run to run). Launch 2a is kernel 1's node pass (P [N, 4F],
+    scratch), launch 2b the stats slot pass on it, 2c the partials' sum;
+    given ``p`` (``fused_cgconv_node_cuda``'s P of the same nodes, kernel
+    and bias), 2a is skipped and the result has the same bits. Inputs as
+    ``fused_cgconv_eval_cuda``'s, with shift [2F] in place of the BN
+    vectors; W_e's 128-column tiles and two staged tiles of edge rows must
+    fit one block's shared memory (G up to about 200)."""
     args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
                 neighbors=neighbors, edge_mask=edge_mask, shift=shift)
     n, m, f, g = _check_conv_args("fused_cgconv_stats_cuda", args)
-    if f > 1024:
-        raise ValueError(f"F={f} exceeds the kernel's 1024 threads per row")
-    rows = rows_per_block(f)
-    smem = _stats_smem_bytes(f, g, rows)
+    smem = _stats_smem_bytes(g)
     if smem > _SMEM_LIMIT:
         raise ValueError(
-            f"F={f}, G={g}: W [{2 * f + g}, {2 * f}] does not fit one "
+            f"G={g}: W_e's columns and the staged edge rows do not fit one "
             f"block's shared memory ({smem} > {_SMEM_LIMIT} bytes)")
-    out = torch.zeros((2, 2 * f), dtype=torch.float32, device=nodes.device)
     if n == 0:
-        return out
-    nb = -(-n // rows)
-    part = torch.empty((nb, 2, 2 * f), dtype=torch.float32,
-                       device=nodes.device)
+        return torch.zeros((2, 2 * f), dtype=torch.float32,
+                           device=nodes.device)
+    node_pass = p is None
+    if node_pass:
+        p = nodes.new_empty((n, 4 * f))
+    else:
+        _check_p(p, n, f, nodes)
+    blocks = min(-(-n * m // STATS_TILE_SLOTS), STATS_BLOCKS)
+    part = nodes.new_empty((blocks, 2, 2 * f))
+    out = nodes.new_empty((2, 2 * f))
     _build.launch(
         "fused_cgconv_stats",
-        _build.entry("fused_cgconv", "cgconv_fused_stats_f32", 9, 5),
+        _build.entry("fused_cgconv", "cgconv_fused_stats_f32", 10, 6),
         (nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
          edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-         shift.data_ptr(), part.data_ptr(), out.data_ptr()),
-        dict(N=n, M=m, F=f, G=g, rows=rows), nodes.device)
+         shift.data_ptr(), p.data_ptr(), part.data_ptr(), out.data_ptr()),
+        dict(N=n, M=m, F=f, G=g, blocks=blocks, node_pass=int(node_pass)),
+        nodes.device)
     fused_cgconv_stats_cuda.launches += 1
+    fused_cgconv_node_cuda.launches += node_pass
     return out
 
 
@@ -317,7 +420,9 @@ class _FusedCGConv(torch.autograd.Function):
         if on_card:
             conv = (_f32(nodes), _f32(edges), _f32(kernel), _f32(bias))
             nbr, emask = neighbors.contiguous(), _f32(edge_mask)
-            s = fused_cgconv_stats_cuda(*conv, nbr, emask, shift)
+            # one node pass feeds both slot passes
+            p = fused_cgconv_node_cuda(conv[0], conv[2], conv[3])
+            s = fused_cgconv_stats_cuda(*conv, nbr, emask, shift, p=p)
         else:
             s = fused_cgconv_stats_reference(
                 nodes, edges, kernel, bias, neighbors, edge_mask, shift,
@@ -329,7 +434,8 @@ class _FusedCGConv(torch.autograd.Function):
         mean = mean_s + shift
         if on_card:
             agg = fused_cgconv_eval_cuda(*conv, _f32(scale), _f32(bn_bias),
-                                         nbr, emask, mean, var, eps=eps)
+                                         nbr, emask, mean, var, eps=eps,
+                                         p=p)
         else:
             agg = fused_cgconv_eval_reference(
                 nodes, edges, kernel, bias, scale, bn_bias, neighbors,
@@ -440,9 +546,9 @@ def touched_nodes(neighbors, edge_mask, n: int) -> int:
 
 
 def unfactored_flops(f: int, g: int, real_slots: int, real_rows: int) -> int:
-    """f32 operations of z taken whole per slot (the first design of kernel
-    1, and kernel 2 today): v_i . W[0:F] once for each row with a real
-    slot, v_j . W[F:2F] and e . W[2F:] for each real slot."""
+    """f32 operations of z taken whole per slot (the first designs of
+    kernels 1 and 2): v_i . W[0:F] once for each row with a real slot,
+    v_j . W[F:2F] and e . W[2F:] for each real slot."""
     return 2 * 2 * f * (real_rows * f + real_slots * (f + g))
 
 
@@ -455,30 +561,36 @@ def _pass_bytes(n: int, m: int, g: int, f: int) -> int:
             + b["write_bytes"])
 
 
+def _factored_flops(g: int, f: int, real_slots: int, touched: int) -> int:
+    """The least work of z on this data: 2 F 4F for each of the
+    ``touched`` nodes (center or neighbor of a real slot: its [v_i W_i |
+    v_j W_j] projections) plus 2 G 2F for each real slot (e . W_e)."""
+    return 2 * f * 4 * f * touched + 2 * g * 2 * f * real_slots
+
+
 def eval_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
                    touched: int) -> dict:
     """Compulsory work of one eval pass on this data, counted as the least
-    work (the factored z): bytes as ``_pass_bytes`` (the P scratch is not
-    compulsory); FLOPs 2 F 4F for each of the ``touched`` nodes (center or
-    neighbor of a real slot: its [v_i W_i | v_j W_j] projections) plus
-    2 G 2F for each real slot (e . W_e). The gate's transcendentals are
-    not counted."""
+    work (the factored z, ``_factored_flops``); bytes as ``_pass_bytes``
+    (the P scratch is not compulsory). The gate's transcendentals are not
+    counted."""
     return {"bytes": _pass_bytes(n, m, g, f),
-            "flops": 2 * f * 4 * f * touched + 2 * g * 2 * f * real_slots}
+            "flops": _factored_flops(g, f, real_slots, touched)}
 
 
 def stats_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
-                    real_rows: int) -> dict:
+                    touched: int) -> dict:
     """Compulsory work of one stats pass on this data: the inputs of
     ``eval_pass_cost`` with the shift [2F] in place of the three BN
-    vectors and the [2, 2F] sums in place of the [N, F] output; FLOPs are
-    z taken whole per slot (``unfactored_flops``: kernel 2 still does that
-    work) plus three operations (subtract, add, multiply-add) per real
-    slot and channel for the two moments."""
+    vectors and the [2, 2F] sums in place of the [N, F] output; FLOPs the
+    least work of z (``_factored_flops``) plus three operations (subtract,
+    add, multiply-add) per real slot and channel for the two moments. The
+    count of z taken whole per slot, the first design's work, is
+    ``unfactored_flops`` plus the same three."""
     nbytes = (_pass_bytes(n, m, g, f) - 2 * 2 * f * 4 - n * f * 4
               + 2 * 2 * f * 4)
     return {"bytes": nbytes,
-            "flops": unfactored_flops(f, g, real_slots, real_rows)
+            "flops": _factored_flops(g, f, real_slots, touched)
             + 3 * real_slots * 2 * f}
 
 

@@ -131,8 +131,13 @@ def epilogue_dz_reference(z, mask, cst, red5, ct):
 # ---------------------------------------------------------------------------
 
 def rows_per_block(f: int) -> int:
-    """Node rows per block: one thread per (c, c + F) channel pair."""
+    """Node rows per block of kernels 3 and 5: one thread per (c, c + F)
+    channel pair."""
     return max(1, min(8, 1024 // f))
+
+
+REDUCE_BLOCKS = 264  # kernel 4's persistent grid: at most two blocks an
+                     # SM of an H100's 132, one [4, 2F] partial each
 
 
 def _check(name, z, mask, cst, extra: dict) -> tuple[int, int, int]:
@@ -164,10 +169,14 @@ def _check(name, z, mask, cst, extra: dict) -> tuple[int, int, int]:
     return n, m, f
 
 
-def _launch(name: str, n_ptrs: int, ptrs, n, m, f, dev):
+def _launch(name: str, n_ptrs: int, ptrs, n, m, f, dev, blocks=None):
+    """Launch ``<name>_f32`` with N, M, F and one more int: kernel 4's
+    ``blocks``, else the rows a block of kernels 3 and 5."""
+    last = ({"rows": rows_per_block(f)} if blocks is None
+            else {"blocks": blocks})
     _build.launch(name, _build.entry("fused_epilogue", f"{name}_f32",
-                                     n_ptrs, 4),
-                  ptrs, dict(N=n, M=m, F=f, rows=rows_per_block(f)), dev)
+                                     n_ptrs, 4), ptrs,
+                  dict(N=n, M=m, F=f, **last), dev)
 
 
 def epilogue_apply_cuda(z, mask, cst):
@@ -186,17 +195,20 @@ def epilogue_apply_cuda(z, mask, cst):
 
 def epilogue_reduce_cuda(z, mask, cst, ct):
     """Kernel 4 (replaces fused_epilogue.py ``_reduce_kernel``): -> [4, 2F],
-    per-block partials summed in a fixed order (bit-identical run to run)."""
+    one partial for each of at most ``REDUCE_BLOCKS`` blocks, summed in a
+    fixed order (bit-identical run to run)."""
     n, m, f = _check("epilogue_reduce_cuda", z, mask, cst,
                      {"ct": (ct, (z.shape[0], z.shape[-1] // 2))})
-    out = torch.zeros((4, 2 * f), dtype=torch.float32, device=z.device)
     if n == 0:
-        return out
-    nb = -(-n // rows_per_block(f))
-    part = torch.empty((nb, 4, 2 * f), dtype=torch.float32, device=z.device)
+        return torch.zeros((4, 2 * f), dtype=torch.float32, device=z.device)
+    out = torch.empty((4, 2 * f), dtype=torch.float32, device=z.device)
+    blocks = min(n, REDUCE_BLOCKS)
+    part = torch.empty((blocks, 4, 2 * f), dtype=torch.float32,
+                       device=z.device)
     _launch("epilogue_reduce", 6,
             (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), ct.data_ptr(),
-             part.data_ptr(), out.data_ptr()), n, m, f, z.device)
+             part.data_ptr(), out.data_ptr()), n, m, f, z.device,
+            blocks=blocks)
     epilogue_reduce_cuda.launches += 1
     return out
 

@@ -24,10 +24,15 @@ into ``build/kernels``), then:
    (``bound_ms_before``), and its two launches' device times apart;
    kernels 2-5 (the stats pass, and the fused epilogue's apply,
    reduce and dz passes) at the training shape, a snug batch-256 pack of
-   MP-like structures (N=7832); kernel 8 (the raw wire's periodic neighbor
-   search) at the top raw rung (72 structure slots of S=64 atoms, K=125
-   images, M=12) on the admitted calibration structures plus padding
-   slots, then on the exact-tie simple cubic cell with a padding slot;
+   MP-like structures (N=7832), with kernel 1 there too; kernel 2 (kernel
+   1's node pass, a stats slot pass, the partials' sum) with its bound
+   counted as the least work and as z taken whole per slot, its three
+   launches' and kernel 4's two launches' device times apart, and the
+   same bits when handed a separate node pass's P; kernel 8 (the raw
+   wire's periodic neighbor search) at the top raw rung (72 structure
+   slots of S=64 atoms, K=125 images, M=12) on the admitted calibration
+   structures plus padding slots, then on the exact-tie simple cubic
+   cell with a padding slot;
    kernel 1 again on the graph the raw expander builds on the card at that
    rung (N=72x64=4608 node slots, padding and self-loop slots included).
    Seeded random features and conv parameters. Tolerances: elementwise
@@ -53,7 +58,9 @@ into ``build/kernels``), then:
    ``cgconv_impl='pallas'``: 512 MP-like training structures (64 for
    validation), batch 256, train.py's SGD defaults, 2 epochs. Kernels 2, 4
    and 5 must launch exactly n_conv x train steps times and kernel 1
-   n_conv x (train steps + eval batches); losses and MAEs finite; the
+   n_conv x (train steps + eval batches), and kernel 1's node pass n_conv
+   x (train steps + eval batches) times: one a conv, shared by the stats
+   and apply passes of a train step; losses and MAEs finite; the
    trained weights are saved, served by ``load_server`` (8 requests, held
    to the trained model's own answers);
 4. trajectory check — the same 5 steps on fixed batches from the same
@@ -227,6 +234,9 @@ def kernel_wrappers() -> dict:
     from cgnn_tpu_torch.ops import windowed_gather as wg
 
     return {"fused_cgconv_eval": fc.fused_cgconv_eval_cuda,
+            # kernel 1's node pass (also kernel 2's first launch), counted
+            # apart: the training forward runs one a conv for both passes
+            "fused_cgconv_node": fc.fused_cgconv_node_cuda,
             "fused_cgconv_stats": fc.fused_cgconv_stats_cuda,
             "epilogue_apply": fe.epilogue_apply_cuda,
             "epilogue_reduce": fe.epilogue_reduce_cuda,
@@ -276,6 +286,12 @@ def bound(cost):
     ops_ms = cost["flops"] / PEAK_F32_FLOPS * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
                                    else "operations")
+
+
+K1_PARTS = {"node_pass": "eval_node_kernel", "slot_pass": "eval_slot"}
+K2_PARTS = {"node_pass": "eval_node_kernel", "slot_pass": "stats_slot",
+            "partial_sum": "sum_partials"}
+K4_PARTS = {"reduce": "epilogue_reduce_kernel", "partial_sum": "sum_partials"}
 
 
 def kernel_entry(name, source, replaces, errs, times, plain_ms, cost,
@@ -365,6 +381,14 @@ def conv_bounds(batch, f=64):
     return (cost, *bound(cost), *bound(before))
 
 
+def by_launch(fn, parts) -> dict:
+    """Device ms of one call of ``fn`` split by launch: ``parts`` maps a
+    part's name to a substring of its kernels' names (profiler, 20 calls)."""
+    _, by_kernel, _ = device_busy_ms(fn, 20)
+    return {part: sum(v for k, v in by_kernel.items() if key in k)
+            for part, key in parts.items()}
+
+
 def kernel_phase(dev, calibration, shape_set):
     """Kernel 1 at the top serving rung against its plain version, timed
     beside its two bounds, its two launches' device times apart."""
@@ -380,11 +404,7 @@ def kernel_phase(dev, calibration, shape_set):
         "cgnn_tpu/ops/pallas_cgconv.py:305", errs,
         timings(cold(fc.fused_cgconv_eval_cuda, *args)),
         time_ms(cold(fc.fused_cgconv_eval_reference, *args)), cost)
-    _, by_kernel, _ = device_busy_ms(cold(fc.fused_cgconv_eval_cuda, *args),
-                                     20)
-    split = {part: sum(v for k, v in by_kernel.items() if key in k)
-             for part, key in (("node_pass", "eval_node_kernel"),
-                               ("slot_pass", "eval_slot"))}
+    split = by_launch(cold(fc.fused_cgconv_eval_cuda, *args), K1_PARTS)
     print(f"fused_cgconv_eval: bound before the node pass {before_ms!r} ms "
           f"({before_by}); device ms by launch {split}")
     entry.update(bound_ms_before=before_ms, bound_by_before=before_by,
@@ -394,7 +414,10 @@ def kernel_phase(dev, calibration, shape_set):
 
 def train_kernel_phase(dev, train_graphs):
     """Kernels 2-5 at the training shape (a snug batch-256 pack) against
-    their plain versions; kernels 2 and 4 also against themselves."""
+    their plain versions; kernels 2 and 4 also against themselves, kernel
+    2 also on a shared node pass. Kernel 1 at the same shape, its two
+    launches apart. -> (entries of kernels 2-5, kernel 1's record at the
+    training shape)."""
     import torch
 
     from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
@@ -407,29 +430,65 @@ def train_kernel_phase(dev, train_graphs):
                                      snug=True)))
     n, m, g = batch.edges.shape
     f = 64
-    nodes, edges, kernel, bias, scale, bn_bias, nbr, emask, _, _ = (
-        conv_inputs(dev, batch))
+    cargs = conv_inputs(dev, batch)
+    nodes, edges, kernel, bias, scale, bn_bias, nbr, emask, _, _ = cargs
     real_slots, real_rows = slot_counts(batch)
     print(f"training shape: N={n} M={m} F={f} G={g}, {real_slots} real "
           f"slots, {int(batch.graph_mask.sum())} structures")
     entries = []
 
-    # kernel 2, the stats pass
+    # kernel 1 at the training shape (the training forward's apply pass)
+    k1_errs = compare("fused_cgconv_eval at the training shape",
+                      fc.fused_cgconv_eval_cuda(*cargs),
+                      fc.fused_cgconv_eval_reference(*cargs), RTOL, ATOL)
+    _, bound_ms, bound_by, before_ms, before_by = conv_bounds(batch)
+    k1_train = {"N": n, "max_abs_err": k1_errs[0],
+                "max_rel_err": k1_errs[1],
+                **timings(cold(fc.fused_cgconv_eval_cuda, *cargs)),
+                "plain_ms": time_ms(
+                    cold(fc.fused_cgconv_eval_reference, *cargs)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ms_before": before_ms, "bound_by_before": before_by,
+                "device_ms_by_launch": by_launch(
+                    cold(fc.fused_cgconv_eval_cuda, *cargs), K1_PARTS)}
+    print(f"fused_cgconv_eval at the training shape (N={n}): "
+          f"{k1_train['ms']!r} ms a call (device {k1_train['device_ms']!r}"
+          f" ms, by launch {k1_train['device_ms_by_launch']}), bound "
+          f"{bound_ms!r} ms")
+
+    # kernel 2, the stats pass: alone, again, and on a shared node pass
     shift = fc._shift_row0(nodes, edges, kernel, bias, nbr, torch.float32)
     sargs = (nodes, edges, kernel, bias, nbr, emask, shift)
     got = fc.fused_cgconv_stats_cuda(*sargs)
     again = fc.fused_cgconv_stats_cuda(*sargs)
+    p = fc.fused_cgconv_node_cuda(nodes, kernel, bias)
+    shared = fc.fused_cgconv_stats_cuda(*sargs, p=p)
     torch.cuda.synchronize()
     check(torch.equal(got, again), "kernel 2 differs from run to run")
+    check(torch.equal(got, shared),
+          "kernel 2 on a shared node pass differs from kernel 2 alone")
+    compare("the node pass (P)", p,
+            fc.node_projections_reference(nodes, kernel, bias), RTOL, ATOL)
     errs = compare("fused_cgconv_stats", got,
                    fc.fused_cgconv_stats_reference(*sargs), STATS_RTOL,
                    row_scale=True)
-    entries.append(kernel_entry(
+    touched = fc.touched_nodes(batch.neighbors, batch.edge_mask, n)
+    cost = fc.stats_pass_cost(n, m, g, f, real_slots, touched)
+    before_ms, before_by = bound(
+        {"bytes": cost["bytes"],
+         "flops": fc.unfactored_flops(f, g, real_slots, real_rows)
+         + 3 * real_slots * 2 * f})
+    entry = kernel_entry(
         "fused_cgconv_stats", "fused_cgconv.cu",
         "cgnn_tpu/ops/pallas_cgconv.py:277", errs,
         timings(cold(fc.fused_cgconv_stats_cuda, *sargs)),
-        time_ms(cold(fc.fused_cgconv_stats_reference, *sargs)),
-        fc.stats_pass_cost(n, m, g, f, real_slots, real_rows)))
+        time_ms(cold(fc.fused_cgconv_stats_reference, *sargs)), cost)
+    split = by_launch(cold(fc.fused_cgconv_stats_cuda, *sargs), K2_PARTS)
+    print(f"fused_cgconv_stats: bound before the factored z {before_ms!r} "
+          f"ms ({before_by}); device ms by launch {split}")
+    entry.update(bound_ms_before=before_ms, bound_by_before=before_by,
+                 device_ms_by_launch=split)
+    entries.append(entry)
 
     # kernels 3-5 on the materialized z of the same conv
     z = fc._z_structured(nodes, edges, kernel, bias, nbr,
@@ -453,12 +512,17 @@ def train_kernel_phase(dev, train_graphs):
     check(torch.equal(got, again), "kernel 4 differs from run to run")
     red = fe.epilogue_reduce_reference(z, emask, cst, ct)
     errs = compare("epilogue_reduce", got, red, REDUCE_RTOL, row_scale=True)
-    entries.append(kernel_entry(
+    entry = kernel_entry(
         "epilogue_reduce", "fused_epilogue.cu",
         "cgnn_tpu/ops/fused_epilogue.py:152", errs,
         timings(cold(fe.epilogue_reduce_cuda, z, emask, cst, ct)),
         time_ms(cold(fe.epilogue_reduce_reference, z, emask, cst, ct)),
-        fe.epilogue_pass_cost("reduce", n, m, f, real_slots)))
+        fe.epilogue_pass_cost("reduce", n, m, f, real_slots))
+    entry["device_ms_by_launch"] = by_launch(
+        cold(fe.epilogue_reduce_cuda, z, emask, cst, ct), K4_PARTS)
+    print(f"epilogue_reduce: device ms by launch "
+          f"{entry['device_ms_by_launch']}")
+    entries.append(entry)
 
     inv_c = torch.full((1, 2 * f), 1.0 / max(float(n_real), 1.0),
                        device=dev)
@@ -472,7 +536,7 @@ def train_kernel_phase(dev, train_graphs):
         timings(cold(fe.epilogue_dz_cuda, z, emask, cst, red5, ct)),
         time_ms(cold(fe.epilogue_dz_reference, z, emask, cst, red5, ct)),
         fe.epilogue_pass_cost("dz", n, m, f, real_slots)))
-    return entries
+    return entries, k1_train
 
 
 def search_kernel_phase(dev, calibration, shape_set):
@@ -1002,6 +1066,12 @@ def train_phase(dev, split, work_dir):
     check(counts["fused_cgconv_eval"] == n_conv * (steps + evals),
           f"fused_cgconv_eval: {counts['fused_cgconv_eval']} launches != "
           f"n_conv x ({steps} train steps + {evals} eval batches)")
+    # one node pass a conv: shared by the stats and apply passes in a
+    # train step, the apply pass's own in an eval batch
+    check(counts["fused_cgconv_node"] == n_conv * (steps + evals),
+          f"node pass: {counts['fused_cgconv_node']} launches != n_conv x "
+          f"({steps} train steps + {evals} eval batches): the training "
+          f"forward does not share one node pass a conv")
     check(counts["epilogue_apply"] == 0, "kernel 3 ran on the cgconv path")
     for h in hist:
         vals = (h["train"]["loss"], h["train"]["mae"], h["val"]["mae"])
@@ -1554,7 +1624,10 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0!r} s")
     for name, info in _build.build_info.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            # each function's properties line names it; then its spills
+            # and registers
+            if any(key in line for key in ("Function properties",
+                                           "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
     # geometry kept: the raw wire plans its caps from the lattices
     calibration = load_synthetic_mp(64, seed=SEED, keep_geometry=True)
@@ -1569,7 +1642,9 @@ def main() -> int:
     print(f"featurized {N_TRAIN_SET} training structures in "
           f"{time.perf_counter() - t0!r} s")
     kernels = [kernel_phase(dev, calibration, shape_set)]
-    kernels += train_kernel_phase(dev, split[0])
+    train_entries, kernels[0]["train_shape"] = train_kernel_phase(
+        dev, split[0])
+    kernels += train_entries
     search_entry, kernels[0]["raw_top_rung"] = search_kernel_phase(
         dev, calibration, shape_set)
     kernels.append(search_entry)

@@ -79,6 +79,61 @@ def test_fused_eval_matches_jax(jax_case, port_impl):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+STATS_RTOL = 1e-4  # column sums over every slot, another order: held to
+                  # rtol of each row's largest entry
+
+
+@pytest.mark.parametrize("jax_case", ["pallas", "pallas_window"])
+def test_factored_stats_match_jax(jax_case):
+    """Kernel 2's factored plain pieces — the node projections P, then the
+    stats from P — composed, against the JAX stats kernel in interpret
+    mode (whole range and a bounded window) and against the port's
+    unfactored plain version, on the same numpy inputs (NaN edges in
+    padding slots selected away)."""
+    inp = _inputs(seed=4)
+    masked = inp["edge_mask"] == 0
+    assert masked.any()
+    inp["edges"] = inp["edges"].copy()
+    inp["edges"][masked] = np.nan
+    shift = inp["mean"]  # any [2F] vector
+    j = {k: jnp.asarray(inp[k]) for k in _ORDER}
+    window = jops.window_width(6) if jax_case == "pallas_window" else 0
+    with jops.interpret_mode():
+        want = np.asarray(jops._pallas_stats(
+            j["nodes"], j["edges"], j["kernel"], j["bias"], j["neighbors"],
+            j["edge_mask"], jnp.asarray(shift), window))
+    t = {k: torch.from_numpy(inp[k]) for k in _ORDER}
+    p = tops.node_projections_reference(t["nodes"], t["kernel"], t["bias"])
+    n = inp["nodes"].shape[0]
+    assert p.shape == (n, 4 * F)
+    got = tops.stats_from_projections_reference(
+        p, t["edges"], t["kernel"], t["neighbors"], t["edge_mask"],
+        torch.from_numpy(shift)).numpy()
+    plain = tops.fused_cgconv_stats_reference(
+        t["nodes"], t["edges"], t["kernel"], t["bias"], t["neighbors"],
+        t["edge_mask"], torch.from_numpy(shift)).numpy()
+    assert got.shape == want.shape == (2, 2 * F)
+    assert np.isfinite(got).all()
+    for ref in (want, plain):
+        scale = np.abs(ref).max(axis=1, keepdims=True)
+        assert (np.abs(got - ref) <= STATS_RTOL * scale).all()
+
+
+def test_node_projections_are_the_z_terms():
+    """P[i, 0:2F] + P[j, 2F:4F] + e . W_e is the structured z of slot
+    (i, j) (f32, rtol 1e-4 / atol 1e-5)."""
+    inp = _inputs(seed=5)
+    t = {k: torch.from_numpy(inp[k]) for k in _ORDER}
+    p = tops.node_projections_reference(t["nodes"], t["kernel"], t["bias"])
+    n = inp["nodes"].shape[0]
+    nbr = t["neighbors"].reshape(-1).long()
+    z = (p[:, None, :2 * F] + p[nbr, 2 * F:].reshape(n, M, 2 * F)
+         + t["edges"] @ t["kernel"][2 * F:])
+    want = tops._z_structured(t["nodes"], t["edges"], t["kernel"], t["bias"],
+                              t["neighbors"], torch.float32)
+    torch.testing.assert_close(z, want, **TOL)
+
+
 def test_padding_slots_are_selected_not_multiplied():
     """A NaN in a masked slot's edge row must not reach the sum."""
     inp = _inputs(seed=1)
@@ -138,20 +193,24 @@ def test_cost_model():
     cost = tops.eval_pass_cost(n, m, g, f, real_slots=3, touched=3)
     # 3 nodes x (2 F 4F = 32) + 3 slots x (2 G 2F = 24)
     assert cost == {"bytes": nbytes, "flops": 3 * 32 + 3 * 24}
-    # z taken whole per slot, as kernel 2 still does: 2 rows x 2F x 2F
-    # (v_i) + 3 slots x 2F x 2 (F + G), the stats' 3 ops per slot channel
+    # z taken whole per slot (the first designs' work, the "before"
+    # count): 2 rows x 2F x 2F (v_i) + 3 slots x 2F x 2 (F + G)
     assert tops.unfactored_flops(f, g, 3, 2) == 2 * 16 + 3 * 40 == 152
-    stats = tops.stats_pass_cost(n, m, g, f, real_slots=3, real_rows=2)
+    # the stats pass at the least work: the factored z of the eval pass,
+    # plus the moments' 3 ops per real slot and channel
+    stats = tops.stats_pass_cost(n, m, g, f, real_slots=3, touched=3)
     assert stats == {"bytes": nbytes - 4 * n * f,
-                     "flops": 152 + 3 * 3 * 2 * f}
-    # the flagship's top serving rung, every slot real: the stats count
-    # is the one before the node pass
+                     "flops": 3 * 32 + 3 * 24 + 3 * 3 * 2 * f}
+    # the flagship's top serving rung, every slot real, every node touched
     n, m, g, f = 1784, 12, 41, 64
-    stats = tops.stats_pass_cost(n, m, g, f, real_slots=n * m, real_rows=n)
-    assert stats["flops"] == (2 * (n * f * 2 * f + n * m * (f + g) * 2 * f)
+    stats = tops.stats_pass_cost(n, m, g, f, real_slots=n * m, touched=n)
+    assert stats["flops"] == (2 * f * 4 * f * n + 2 * g * 2 * f * n * m
                               + 3 * n * m * 2 * f)
     assert tops.eval_pass_cost(n, m, g, f, n * m, n)["flops"] == (
         2 * f * 4 * f * n + 2 * g * 2 * f * n * m)
+    # ... which is under half the count of z taken whole per slot
+    assert 2 * stats["flops"] < (tops.unfactored_flops(f, g, n * m, n)
+                                 + 3 * n * m * 2 * f)
 
 
 def test_build_resolves_each_entry_once(monkeypatch):

@@ -2,7 +2,8 @@
 PyTorch version at shapes and inputs the CPU tests cannot reach (ragged
 widths, G > F, rows that are all padding, NaN in masked slots), the
 fixed-order reductions (kernels 2 and 4) bit-identical from run to run,
-and the training op's kernel path against its structured twin. Marked
+kernels 1 and 2 on a shared node pass, and the training op's kernel path
+against its structured twin. Marked
 ``cuda``; they skip where there is no card. On a GPU machine, from the
 repository root:
 
@@ -131,25 +132,61 @@ def _close_on_scale(got, want, rtol=1e-4):
 
 @pytest.mark.parametrize("n,m,f,g", [
     (1784, 12, 64, 41), (4, 1, 64, 41), (37, 8, 16, 26), (100, 12, 32, 100),
-    (129, 5, 96, 7),
+    (129, 5, 96, 7), (7832, 12, 64, 41), (203, 7, 18, 41), (77, 12, 37, 3),
 ])
 def test_stats_kernel_matches_plain_version(dev, n, m, f, g):
-    """Kernel 2 (NaN edges in masked slots, trailing all-padding rows):
-    against its plain version, and bit-identical when run again."""
+    """Kernel 2 (NaN edges in masked slots, trailing all-padding rows; F
+    of 18 and 37 take the scalar P loads, 96 two column tiles): against
+    its plain version, bit-identical when run again, and the same bits
+    when handed the node pass's P, which matches its plain version."""
     nodes, edges, kernel, bias, _, _, nbr, mask, shift, _ = _args(
         dev, n, m, f, g)
-    before = fc.fused_cgconv_stats_cuda.launches
+    counts = [w.launches for w in (fc.fused_cgconv_stats_cuda,
+                                   fc.fused_cgconv_node_cuda)]
     got = fc.fused_cgconv_stats_cuda(nodes, edges, kernel, bias, nbr, mask,
                                      shift)
     again = fc.fused_cgconv_stats_cuda(nodes, edges, kernel, bias, nbr, mask,
                                        shift)
+    p = fc.fused_cgconv_node_cuda(nodes, kernel, bias)
+    shared = fc.fused_cgconv_stats_cuda(nodes, edges, kernel, bias, nbr,
+                                        mask, shift, p=p)
     torch.cuda.synchronize()
-    assert fc.fused_cgconv_stats_cuda.launches == before + 2
+    # three stats calls; node passes: two inside, one alone
+    assert [fc.fused_cgconv_stats_cuda.launches,
+            fc.fused_cgconv_node_cuda.launches] == [counts[0] + 3,
+                                                    counts[1] + 3]
     want = fc.fused_cgconv_stats_reference(nodes, edges, kernel, bias, nbr,
                                            mask, shift)
     assert torch.equal(got, again)
+    assert torch.equal(got, shared)
+    torch.testing.assert_close(
+        p, fc.node_projections_reference(nodes, kernel, bias), **TOL)
     for row in range(2):
         _close_on_scale(got[row], want[row])
+
+
+def test_stats_kernel_on_all_padding(dev):
+    """Every slot padding (NaN edges everywhere): both sums are 0."""
+    nodes, edges, kernel, bias, _, _, nbr, mask, shift, _ = _args(
+        dev, 50, 12, 64, 41)
+    mask.zero_()
+    edges.fill_(float("nan"))
+    got = fc.fused_cgconv_stats_cuda(nodes, edges, kernel, bias, nbr, mask,
+                                     shift)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_apply_pass_on_a_shared_p(dev):
+    """Kernel 1 handed the node pass's P gives the bits it gives alone."""
+    args = _args(dev, 1001, 12, 64, 41)
+    p = fc.fused_cgconv_node_cuda(args[0], args[2], args[3])
+    alone = fc.fused_cgconv_eval_cuda(*args)
+    shared = fc.fused_cgconv_eval_cuda(*args, p=p)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, shared)
+    with pytest.raises(ValueError, match="p must be"):
+        fc.fused_cgconv_eval_cuda(*args, p=p[:-1])
 
 
 def _epilogue_args(dev, n, m, f, seed=0):
@@ -177,12 +214,13 @@ def _epilogue_args(dev, n, m, f, seed=0):
 
 
 _EPI_SHAPES = [(7000, 12, 64), (4, 1, 64), (37, 8, 16), (129, 5, 96),
-               (50, 12, 40)]
+               (50, 12, 40), (7832, 12, 64), (301, 12, 18), (97, 7, 37)]
 
 
 @pytest.mark.parametrize("n,m,f", _EPI_SHAPES)
 def test_epilogue_kernels_match_plain_versions(dev, n, m, f):
-    """Kernels 3, 4 and 5 (NaN z in masked slots, all-padding rows)
+    """Kernels 3, 4 and 5 (NaN z in masked slots, all-padding rows; F of
+    18 and 37 take kernel 4's scalar path, M of 7 a partial slot chunk)
     against their plain versions; kernel 4 bit-identical when run again."""
     fe, z, mask, cst, ct, red5 = _epilogue_args(dev, n, m, f)
     counts = [w.launches for w in (fe.epilogue_apply_cuda,
@@ -233,6 +271,12 @@ def test_training_op_kernel_path_matches_structured_twin(dev):
     ct = leaf((n, f))
     tr = (batch.in_slots, batch.in_mask, batch.over_slots, batch.over_nodes,
           batch.over_mask)
+    from cgnn_tpu_torch.ops import fused_epilogue as fe
+
+    wrappers = (fc.fused_cgconv_node_cuda, fc.fused_cgconv_stats_cuda,
+                fc.fused_cgconv_eval_cuda, fe.epilogue_reduce_cuda,
+                fe.epilogue_dz_cuda)
+    before = [w.launches for w in wrappers]
     res = []
     for impl in ("pallas", "xla"):
         x = [a.clone().requires_grad_() for a in inputs]
@@ -241,6 +285,8 @@ def test_training_op_kernel_path_matches_structured_twin(dev):
                                batch.edge_mask.reshape(n, 12), tr, impl=impl)
         (outs[0] * ct).sum().backward()
         res.append(([o.detach() for o in outs], [a.grad for a in x]))
+    # one forward and backward: one node pass feeds both slot passes
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 5
     (got, got_g), (want, want_g) = res
     torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-5)
