@@ -39,6 +39,7 @@ caps is flagged. Padding slots never flag.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -76,6 +77,25 @@ def needed_images(lats: torch.Tensor, radius: float) -> torch.Tensor:
     norms = torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])
     r = float(np.float32(radius))
     return torch.ceil(r * norms / det[:, None] - float(np.float32(1e-4)))
+
+
+@functools.lru_cache(maxsize=64)
+def radius_threshold(radius: float) -> float:
+    """T, the largest f32 whose correctly rounded square root is <= the f32
+    radius r. sqrt_rn is monotone, so for every f32 d2 ``d2 <= T`` holds
+    exactly when ``sqrt_rn(d2) <= r`` (NaN and inf fail both): kernel 8
+    cuts on d2 and takes the root only of what passes. Raises ValueError
+    unless 0 <= r < inf in f32 (the search below would not end)."""
+    with np.errstate(over="ignore"):  # r or r*r may be inf in f32
+        r = np.float32(radius)
+        if not 0 <= r < np.inf:
+            raise ValueError(f"radius {radius} outside [0, inf) in f32")
+        t = r * r  # inf comes down to the largest f32 below
+        while not np.sqrt(t) <= r:
+            t = np.nextafter(t, np.float32(-np.inf))
+        while np.sqrt(np.nextafter(t, np.float32(np.inf))) <= r:
+            t = np.nextafter(t, np.float32(np.inf))
+    return float(t)
 
 
 def caps_tensor(spec: RawSpec, device) -> torch.Tensor:
@@ -162,16 +182,25 @@ def neighbor_search_reference(frac, lats, amask, offsets, radius: float,
 # ---------------------------------------------------------------------------
 
 
-def smem_bytes(s: int, k: int) -> int:
-    """Shared memory of one block: positions, shifts, atom mask."""
-    return (4 * s + 3 * k) * 4
+_INPUTS = (("frac", torch.float32), ("lats", torch.float32),
+           ("amask", torch.uint8), ("offsets", torch.float32))
+
+
+def smem_bytes(s: int, k: int, m: int) -> int:
+    """Shared memory of one block (one center, 4 warps): the warps' key
+    queues (64 keys each), the 128 lane lists of M keys, positions, shifts
+    and the real atoms' slots."""
+    return (4 * 64 + 128 * m) * 8 + (4 * s + 3 * k) * 4
 
 
 def neighbor_search_cuda(frac, lats, amask, offsets, radius: float,
                          home: int, m: int):
     """Kernel 8 (replaces neighbor_search.py ``_search_kernel``): frac [G,
     S, 3] f32, lats [G, 3, 3] f32, amask [G, S] u8, offsets [K, 3] f32, on
-    one CUDA device -> the outputs of ``neighbor_search_reference``."""
+    one CUDA device -> the outputs of ``neighbor_search_reference``
+    (``ne`` is zeroed on the stream by the kernel's entry, not by a fill
+    launch). Devices are compared by index and a message is formatted
+    only for a fault."""
     dev = frac.device
     if dev.type != "cuda":
         raise ValueError(f"neighbor_search_cuda takes CUDA tensors, got {dev}")
@@ -179,41 +208,44 @@ def neighbor_search_cuda(frac, lats, amask, offsets, radius: float,
         raise ValueError(f"frac must be [G, S, 3], got {tuple(frac.shape)}")
     g, s, _ = frac.shape
     k = offsets.shape[0] if offsets.dim() == 2 else -1
-    want = {"frac": (frac, (g, s, 3), torch.float32),
-            "lats": (lats, (g, 3, 3), torch.float32),
-            "amask": (amask, (g, s), torch.uint8),
-            "offsets": (offsets, (k, 3), torch.float32)}
-    for name, (t, shape, dtype) in want.items():
-        if t.device != dev:
+    index = frac.get_device()
+    for (name, dtype), t, shape in zip(
+            _INPUTS, (frac, lats, amask, offsets),
+            ((g, s, 3), (g, 3, 3), (g, s), (k, 3))):
+        if t.get_device() != index:
             raise ValueError(f"{name} is on {t.device}, frac on {dev}")
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{name} must be {list(shape)}, got "
                              f"{list(t.shape)}")
     if not 1 <= m <= MAX_M:
         raise ValueError(f"max_num_nbr {m} outside the kernel's [1, {MAX_M}]")
     if not 0 <= home < k:
         raise ValueError(f"home image {home} outside [0, {k})")
-    if smem_bytes(s, k) > SMEM_LIMIT:
+    if smem_bytes(s, k, m) > SMEM_LIMIT or s * k >= 2**31:
         raise ValueError(
-            f"S={s}, K={k} need {smem_bytes(s, k)} B of shared memory, more "
-            f"than the kernel's {SMEM_LIMIT}")
+            f"S={s}, K={k}, M={m} need {smem_bytes(s, k, m)} B of shared "
+            f"memory and {s * k} candidate indices; the kernel takes "
+            f"{SMEM_LIMIT} B and fewer than 2^31")
+    # four allocations; views of one buffer were tried and the host time
+    # a call did not separate the two (its spread in one tree is 2x)
     nbr = torch.empty((g, s, m), dtype=torch.int32, device=dev)
     dist = torch.empty((g, s, m), dtype=torch.float32, device=dev)
     em = torch.empty((g, s, m), dtype=torch.float32, device=dev)
-    ne = torch.zeros(g, dtype=torch.int32, device=dev)
-    if g == 0 or s == 0:
-        return nbr, dist, em, ne
+    ne = torch.empty(g, dtype=torch.int32, device=dev)
+    if g * s == 0:
+        return nbr, dist, em, ne.zero_()
     _build.launch(
         "neighbor_search",
         _build.entry("neighbor_search", "neighbor_search_f32", 8, 5, 1),
         (frac.data_ptr(), lats.data_ptr(), amask.data_ptr(),
          offsets.data_ptr(), nbr.data_ptr(), dist.data_ptr(), em.data_ptr(),
          ne.data_ptr()),
-        dict(G=g, S=s, K=k, M=m, home=home, radius=float(np.float32(radius))),
+        {"G": g, "S": s, "K": k, "M": m, "home": home,
+         "T": radius_threshold(radius)},
         dev)
     neighbor_search_cuda.launches += 1
     return nbr, dist, em, ne
@@ -240,8 +272,9 @@ def neighbor_search(frac, lats, amask, spec: RawSpec, impl: str = "pallas",
     args = (frac, lats, amask, offsets, spec.radius, spec.home_image,
             spec.dense_m)
     if runs_kernel(impl, frac):
-        out = neighbor_search_cuda(*(a.contiguous() for a in args[:4]),
-                                   *args[4:])
+        out = neighbor_search_cuda(
+            *(a if a.is_contiguous() else a.contiguous() for a in args[:4]),
+            *args[4:])
     else:
         out = neighbor_search_reference(*args)
     return (*out, cap_overflow(lats, amask, spec, caps))
@@ -304,17 +337,25 @@ def make_raw_expander(spec: RawSpec, impl: str = "pallas",
     return expand
 
 
-def neighbor_search_cost(g: int, s: int, k: int, m: int,
-                         real_pairs: int) -> dict:
+def neighbor_search_cost(g: int, s: int, k: int, m: int, real_pairs: int,
+                         real_atoms: int, filled: int) -> dict:
     """Compulsory bytes and f32 operations of one kernel-8 call on this
     data. Bytes: every input read once (frac, lattices, atom mask,
     offsets) and every output written once (neighbors, distances, edge
-    mask, n_edges). Operations: the kernel's f32 work per candidate of a
-    real (i, j) pair, ``real_pairs`` = the sum over structures of (real
-    atoms)^2: 3 adds (image position), 3 subtractions, 3 multiplies, 2
-    adds, a sqrt, and the radius and list-threshold compares = 14. Padding
-    atoms and rows cost no candidates; the selection (M warp argmin
-    rounds a center) is integer and shuffle work, not counted."""
+    mask, n_edges). Operations: the least work of any exact design, in
+    flop-equivalents at the f32 FMA rate (no product may fuse with a sum,
+    so each add, subtraction, square and compare takes an FMA slot, 2
+    flops): per candidate of a real (i, j) pair, ``real_pairs`` = the sum
+    over structures of (real atoms)^2, 3 subtractions, 3 squares, 2 adds
+    and the radius compare (18); per real (j, k), ``real_atoms`` = the
+    real atoms, the image position's 3 adds (6); and one correctly rounded
+    root per filled slot, ``filled`` = the sum of n_edges, on the SFU at
+    16 a clock an SM, an eighth of the FMA rate (16). Padding atoms and
+    rows cost no candidates; the selection is integer and shuffle work,
+    not counted. ``flops_before``: the earlier count, 14 a candidate
+    (image adds, sqrt and two compares included)."""
     nbytes = (g * s * 3 * 4 + g * 9 * 4 + g * s + k * 3 * 4
               + 3 * g * s * m * 4 + g * 4)
-    return {"bytes": nbytes, "flops": 14 * real_pairs * k}
+    return {"bytes": nbytes,
+            "flops": 18 * real_pairs * k + 6 * real_atoms * k + 16 * filled,
+            "flops_before": 14 * real_pairs * k}

@@ -31,8 +31,11 @@ into ``build/kernels``), then:
    same bits when handed a separate node pass's P; kernel 8 (the raw
    wire's periodic neighbor search) at the top raw rung (72 structure
    slots of S=64 atoms, K=125 images, M=12) on the admitted calibration
-   structures plus padding slots, then on the exact-tie simple cubic
-   cell with a padding slot;
+   structures plus padding slots (its bound counted as the least work and
+   by the earlier count), then, each beside a padding slot, on the
+   exact-tie simple cubic cell, on a dense 8-atom cell whose centers
+   accept more candidates than the kernel's key queue holds, and on the
+   cubic cell with M=8, an exact tie across the M-th slot;
    kernel 1 again on the graph the raw expander builds on the card at that
    rung (N=72x64=4608 node slots, padding and self-loop slots included).
    Seeded random features and conv parameters. Tolerances: elementwise
@@ -541,8 +544,9 @@ def train_kernel_phase(dev, train_graphs):
 
 def search_kernel_phase(dev, calibration, shape_set):
     """Kernel 8 at the top raw rung against its plain version (every
-    output bit-equal, and the same bits on a second run), then on the
-    exact-tie simple cubic cell beside a padding slot; and kernel 1 on the
+    output bit-equal, and the same bits on a second run), then on three
+    small cells beside a padding slot (exact ties, a queue that flushes
+    mid-search, a tie across the M-th slot); and kernel 1 on the
     graph the raw expander builds on the card at that rung. -> (kernel 8's
     entry, kernel 1's record at the top raw rung)."""
     import numpy as np
@@ -565,23 +569,39 @@ def search_kernel_phase(dev, calibration, shape_set):
           f"{len(calibration)} calibration structures admitted")
     args = (rb.frac, rb.lattices, rb.atom_mask, ns.offsets_tensor(spec, dev),
             spec.radius, spec.home_image, m)
-    errs = search_equal("neighbor_search", args)
+    errs, filled = search_equal("neighbor_search", args)
     cubic = RawStructure.from_structure(
         Structure(np.eye(3) * 3.0, [[0.0, 0.0, 0.0]], [29]))
-    tie = dataclasses.replace(spec, snode_cap=8, images=(3, 3, 3))
-    tb = pack_raw([cubic], 2, tie).to(dev)
-    search_equal("neighbor_search, exact-tie cubic cell + a padding slot",
-                 (tb.frac, tb.lattices, tb.atom_mask,
-                  ns.offsets_tensor(tie, dev), tie.radius, tie.home_image,
-                  m))
+    # 8 atoms in a 4 Å cube: ~270 candidates within 8 Å a center, ~67
+    # for each of its four warps, more than a warp's 64-key queue holds:
+    # the queue flushes into the lane lists mid-search
+    dense = RawStructure.from_structure(Structure(
+        np.eye(3) * 4.0, np.random.default_rng(11).random((8, 3)),
+        [11, 17] * 4))
+    small = dataclasses.replace(spec, snode_cap=8, images=(3, 3, 3))
+    for label, item, mm in (
+            ("exact-tie cubic cell", cubic, m),
+            ("dense cell, the queue flushing mid-search", dense, m),
+            # 6 first-shell images, then 2 of the 12 tied second-shell
+            # ones: the tie at the M-th slot is decided across lanes' lists
+            ("exact tie across the M-th slot (M=8)", cubic, 8)):
+        tb = pack_raw([item], 2, dataclasses.replace(small, dense_m=mm)
+                      ).to(dev)
+        search_equal(f"neighbor_search, {label} + a padding slot",
+                     (tb.frac, tb.lattices, tb.atom_mask,
+                      ns.offsets_tensor(small, dev), small.radius,
+                      small.home_image, mm))
+    cost = ns.neighbor_search_cost(
+        g, s, k, m, real_pairs=sum(r.num_nodes ** 2 for r in raws),
+        real_atoms=sum(r.num_nodes for r in raws), filled=filled)
     entry = kernel_entry(
         "neighbor_search", "neighbor_search.cu",
         "cgnn_tpu/ops/neighbor_search.py:136", errs,
         timings(cold(ns.neighbor_search_cuda, *args)),
         time_ms(cold(ns.neighbor_search_reference, *args), calls=5,
-                trials=3, warmup=1),
-        ns.neighbor_search_cost(g, s, k, m,
-                                sum(r.num_nodes ** 2 for r in raws)))
+                trials=3, warmup=1), cost)
+    entry["bound_ms_before"], entry["bound_by_before"] = bound(
+        {"bytes": cost["bytes"], "flops": cost["flops_before"]})
 
     # kernel 1 on the raw path's own graph: N = G*S node slots, padding
     # rows and self-loop slots included, edges from the card's f32 distances
@@ -607,8 +627,8 @@ def search_kernel_phase(dev, calibration, shape_set):
 
 def search_equal(label, args):
     """Kernel 8 twice and its plain version on ``args``: every output
-    bit-equal across the three. -> (max abs, max rel) distance error
-    against the plain version."""
+    bit-equal across the three. -> ((max abs, max rel) distance error
+    against the plain version, the filled slots)."""
     import torch
 
     from cgnn_tpu_torch.ops import neighbor_search as ns
@@ -626,8 +646,9 @@ def search_equal(label, args):
     print(f"{label}: neighbors, distances, edge mask and n_edges bit-equal "
           f"to the plain version and on a second run ({int(got[3].sum())} "
           f"edges): ok")
-    return (float(err.max()),
-            float((err / want[1].abs().clamp_min(1e-6)).max()))
+    return ((float(err.max()),
+             float((err / want[1].abs().clamp_min(1e-6)).max())),
+            int(want[3].sum()))
 
 
 def serve_phase(dev, calibration, work_dir):

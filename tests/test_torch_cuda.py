@@ -351,7 +351,19 @@ def _search_cases():
     from cgnn_tpu_torch.data.structure import Structure
 
     cubic = Structure(np.eye(3) * 3.0, [[0, 0, 0]], [29])
+    dense = Structure(np.eye(3) * 4.0,
+                      np.random.default_rng(11).random((8, 3)),
+                      [11, 17] * 4)
     return {
+        # 8 atoms in a 4 Å cube: ~270 candidates within 8 Å a center, ~67
+        # for each of its four warps, more than a warp's 64-key queue
+        # holds: the queue flushes into the lane lists mid-search
+        "queue_flush": (lambda: [dense], 8, (3, 3, 3), 2, 12),
+        # simple cubic, M=8: 6 first-shell images, then 2 of the 12 tied
+        # second-shell ones; the 12 reach the lane lists through the queue,
+        # at most one to a lane a flush, so the tie at the M-th slot is
+        # decided across lanes' lists
+        "tie_m_slot": (lambda: [cubic], 8, (3, 3, 3), 2, 8),
         # the flagship's top raw rung: 72 slots of 64 atoms, 125 images
         "top_rung": (lambda: _mp_structures(64, 64), 64, (2, 2, 2), 72, 12),
         # simple cubic: all first shells exact ties

@@ -256,8 +256,14 @@ def test_search_refuses_on_cpu_and_checks_impl():
     with pytest.raises(ValueError, match="impl"):
         tns.neighbor_search(rb.frac, rb.lattices, rb.atom_mask, ts,
                             impl="triton")
-    cost = tns.neighbor_search_cost(2, 8, 125, 12, real_pairs=1)
-    assert cost["flops"] == 14 * 125 and cost["bytes"] > 3 * 2 * 8 * 12 * 4
+    # one real atom a structure with one filled slot: per candidate 9
+    # unfusable f32 ops (18), per (j, k) the image's 3 adds (6), one SFU
+    # root (16); the earlier count, 14 a candidate, stays beside it
+    cost = tns.neighbor_search_cost(2, 8, 125, 12, real_pairs=1,
+                                    real_atoms=1, filled=1)
+    assert cost["flops"] == 18 * 125 + 6 * 125 + 16
+    assert cost["flops_before"] == 14 * 125
+    assert cost["bytes"] > 3 * 2 * 8 * 12 * 4
 
 
 # ---------------------------------------------------------------------------
