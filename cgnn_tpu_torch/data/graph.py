@@ -19,7 +19,9 @@ Both layouts are ported:
   ops/scatter.py, relies on it). Transpose slots are dense-only.
 
 The training batch iterator (``batch_iterator``, ``count_batches``) closes
-a batch on its graph, node and edge budgets.
+a batch on its graph, node and edge budgets; ``plan_batches`` gives the
+same spans without packing, and ``assign_size_buckets`` the size classes
+of bulk inference (train/infer.py).
 """
 
 from __future__ import annotations
@@ -458,6 +460,43 @@ def count_batches(
         nn += g.num_nodes
         ne += g.num_edges
     return count + (1 if in_bucket else 0)
+
+
+def assign_size_buckets(graphs: Sequence[CrystalGraph],
+                        n_buckets: int) -> np.ndarray:
+    """Bucket index per graph by node-count quantiles ([len(graphs)]
+    int64)."""
+    sizes = np.array([g.num_nodes for g in graphs])
+    if n_buckets <= 1:
+        return np.zeros(len(graphs), np.int64)
+    cuts = np.quantile(sizes, np.linspace(0, 1, n_buckets + 1)[1:-1])
+    return np.searchsorted(cuts, sizes, side="left")
+
+
+def plan_batches(graphs: Sequence[CrystalGraph], batch_size: int,
+                 node_cap: int, edge_cap: int, snug: bool = False):
+    """Yield ``(start, end)`` index spans over ``graphs`` with
+    ``batch_iterator``'s close condition exactly (no shuffle), packing
+    nothing; an oversize graph raises as ``batch_iterator`` does."""
+    graph_cap = graph_cap_for(batch_size) if snug else batch_size
+    start, nn, ne = 0, 0, 0
+    for i, g in enumerate(graphs):
+        if g.num_nodes > node_cap or g.num_edges > edge_cap:
+            raise ValueError(
+                f"graph {g.cif_id!r} ({g.num_nodes} nodes, {g.num_edges} "
+                f"edges) exceeds batch capacity ({node_cap}, {edge_cap}); "
+                f"increase caps or filter the dataset")
+        if i > start and (
+            i - start == graph_cap
+            or nn + g.num_nodes > node_cap
+            or ne + g.num_edges > edge_cap
+        ):
+            yield start, i
+            start, nn, ne = i, 0, 0
+        nn += g.num_nodes
+        ne += g.num_edges
+    if start < len(graphs):
+        yield start, len(graphs)
 
 
 def _pack_overflow_safe(bucket, node_cap, edge_cap, graph_cap, dense_m,

@@ -59,6 +59,15 @@ SMEM_LIMIT = 48 * 1024  # the kernel's shared memory, without opt-in
 REFERENCE_CHUNK = 1 << 23
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of an f32 tensor, on every
+    device: the root taken in f64, then rounded to f32 (f64 carries enough
+    bits for that double rounding to be exact). ``torch.sqrt`` of a
+    contiguous f32 CPU tensor goes through a vector library that is off
+    by an ulp on some inputs; kernel 8 and the JAX package take sqrt_rn."""
+    return torch.sqrt(x.double()).float()
+
+
 def needed_images(lats: torch.Tensor, radius: float) -> torch.Tensor:
     """[G, 3] f32 needed-image counts from [G, 3, 3] f32 lattices: the
     order of operations of ``data.rawbatch.needed_images_f32``."""
@@ -74,7 +83,7 @@ def needed_images(lats: torch.Tensor, radius: float) -> torch.Tensor:
     det = torch.abs(a0[:, 0] * c0[:, 0] + a0[:, 1] * c0[:, 1]
                     + a0[:, 2] * c0[:, 2])
     sq = cr * cr
-    norms = torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])
+    norms = sqrt_rn(sq[..., 0] + sq[..., 1] + sq[..., 2])
     r = float(np.float32(radius))
     return torch.ceil(r * norms / det[:, None] - float(np.float32(1e-4)))
 
@@ -143,7 +152,7 @@ def _search_chunk(frac, lats, amask, offsets, radius, home, m):
     diff = pos[:, None] - cart[:, :, None, None, :]  # [g, S(i), S(j), K, 3]
     d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
           + diff[..., 2] * diff[..., 2])
-    d = torch.sqrt(d2).reshape(g, s, s * k)  # candidate c = j*K + k
+    d = sqrt_rn(d2).reshape(g, s, s * k)  # candidate c = j*K + k
     live = amask > 0
     dev = frac.device
     valid = live[:, :, None, None] & live[:, None, :, None]  # [g, S, S, 1]

@@ -1,0 +1,223 @@
+"""Bulk predict with the port (``predict.py``'s counterpart):
+
+    python -m cgnn_tpu_torch.predict CKPT_DIR --synthetic 512 --out preds.csv
+    python -m cgnn_tpu_torch.predict CKPT_DIR --synthetic 64 --device cpu
+
+Loads a checkpoint directory written by ``python -m cgnn_tpu_torch.train``
+(or converted from a ``train.py`` one by ``jax_checkpoint_to_torch.py``):
+the model and featurization configs from its meta, the weights and the
+normalizer through ``train.checkpoint.load_for_inference`` (``--best``
+for the best save, else the newest restorable one). It predicts and writes
+``predict.py``'s CSV rows, ``id, target..., prediction...``, each number
+``%.6f``, in input order.
+
+Paths, as in ``predict.py``: ``--buckets N`` packs N size classes at
+their own snug capacities; by default batches pack into a shape ladder of
+``--rungs`` rungs. On the ladder, ``--wire raw`` stages the structures
+that fit the raw caps as positions, lattice and species, and the device
+builds their graphs (kernel 8 on the card); the rest, and any structure
+the device flags for cap overflow, take the featurized wire. ``--wire
+auto`` is raw on the card and featurized on the CPU. The default device
+is the card, which raises without one; ``--device cpu`` runs the kernels'
+plain versions.
+
+Not ported yet; each exits 2 naming its ROADMAP item (Queue 1): DATA_DIR
+and ``--cache`` (CIF input and the graph cache, item 3), ``--packing
+ladder`` (item 10), ``--compact on`` and ``--pack-workers`` above 0 (item
+4), ``--devices`` other than auto or 1 and ``--engine mesh`` (items 9 and
+11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import math
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m cgnn_tpu_torch.predict",
+        description="Bulk predict with the PyTorch/CUDA port.")
+    p.add_argument("ckpt_dir", help="checkpoint directory written by "
+                                    "python -m cgnn_tpu_torch.train")
+    p.add_argument("root_dir", nargs="?", default=None,
+                   help="dataset dir of CIFs (not ported yet: Queue 1, "
+                        "item 3)")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu'")
+    p.add_argument("--best", action="store_true",
+                   help="load the best checkpoint instead of the latest")
+    p.add_argument("-b", "--batch-size", type=int, default=256)
+    p.add_argument("--out", default="test_results.csv")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="predict on N synthetic structures")
+    p.add_argument("--cache", type=str, default="",
+                   help="featurized graph cache (not ported yet: Queue 1, "
+                        "item 3)")
+    p.add_argument("--packing", choices=["snug", "ladder"], default="snug",
+                   help="snug = fill-to-capacity batches")
+    p.add_argument("--buckets", type=int, default=0,
+                   help="per-size-class capacities (3 for mixed sizes); "
+                        "the default packs into the shape ladder (--rungs)")
+    p.add_argument("--rungs", type=int, default=2,
+                   help="shape-ladder depth")
+    p.add_argument("--pack-workers", type=int, default=None,
+                   help="host pack threads (not ported yet: 0 only)")
+    p.add_argument("--wire", choices=["auto", "raw", "featurized"],
+                   default="auto",
+                   help="'raw' builds the graphs on the device; 'auto' is "
+                        "raw on the card, featurized on the CPU")
+    p.add_argument("--compact", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="compact staging (not ported yet: auto and off "
+                        "stage full batches)")
+    p.add_argument("--devices", default="auto", metavar="{auto,N}",
+                   help="devices to dispatch over (one card only so far)")
+    p.add_argument("--engine", choices=["auto", "mesh", "threads"],
+                   default="auto",
+                   help="multi-device execution layer (not ported yet)")
+    return p
+
+
+def _unported(args) -> str | None:
+    """Why these arguments ask for something not ported yet, or None."""
+    if args.root_dir or args.cache:
+        return ("DATA_DIR and --cache (CIF input and the graph cache) are "
+                "not ported yet (ROADMAP Queue 1, item 3); use --synthetic")
+    if args.packing == "ladder":
+        return ("--packing ladder is not ported yet (ROADMAP Queue 1, item "
+                "10)")
+    if args.compact == "on":
+        return "--compact on is not ported yet (ROADMAP Queue 1, item 4)"
+    if args.pack_workers:
+        return ("--pack-workers above 0 is not ported yet (ROADMAP Queue 1, "
+                "item 4)")
+    if args.devices not in ("auto", "1") or args.engine == "mesh":
+        return ("--devices other than auto/1 and --engine mesh are not "
+                "ported yet (ROADMAP Queue 1, items 9 and 11)")
+    if not args.synthetic:
+        return "--synthetic N is required (DATA_DIR: ROADMAP Queue 1, item 3)"
+    return None
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    why = _unported(args)
+    if why:
+        print(why, file=sys.stderr)
+        return 2
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.device import resolve_device
+    from cgnn_tpu_torch.train.checkpoint import load_for_inference
+
+    dev = resolve_device(args.device)
+    try:
+        state, meta, _ = load_for_inference(
+            args.ckpt_dir, "best" if args.best else "latest", dev)
+    except FileNotFoundError as e:
+        print(e, file=sys.stderr)
+        return 2
+    task = meta.get("task", "regression")
+    if task != "regression":
+        print(f"task {task!r} is not ported yet (ROADMAP Queue 1, items 7 "
+              f"and 8)", file=sys.stderr)
+        return 2
+    model_cfg = ModelConfig.from_meta(meta["model"]).for_arbitrary_inputs()
+    return _run(args, state, model_cfg, DataConfig.from_meta(meta["data"]),
+                dev)
+
+
+def _run(args, state, model_cfg, data_cfg, dev) -> int:
+    import time
+
+    import numpy as np
+
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.train.infer import (
+        _shape_set_plan,
+        run_fast_inference,
+        run_raw_inference,
+    )
+
+    fcfg = data_cfg.featurize_config()
+    want_raw = args.wire == "raw" or (args.wire == "auto"
+                                      and dev.type == "cuda")
+    graphs = load_synthetic(args.synthetic, fcfg, keep_geometry=want_raw)
+    layout_m = model_cfg.dense_m or None
+    n_targets = model_cfg.num_targets
+    # batches by wire on the ladder (None on the buckets path)
+    counts = {"structures": len(graphs), "raw": 0, "batches_raw": None,
+              "batches_featurized": None}
+    if args.buckets >= 1:
+        # per-size-class snug capacities derived from this dataset
+        preds, rate = run_fast_inference(state, graphs, args.batch_size,
+                                         buckets=args.buckets,
+                                         dense_m=layout_m)
+        how = f"{args.buckets} size buckets"
+    else:
+        from cgnn_tpu_torch.serve.shapes import plan_shape_set
+
+        raw_spec = None
+        if want_raw and layout_m is not None:
+            from cgnn_tpu_torch.data.rawbatch import (
+                RawUnsupported,
+                plan_raw_spec,
+            )
+
+            try:
+                raw_spec = plan_raw_spec(graphs, fcfg.gdf(), fcfg.radius,
+                                         layout_m)
+            except RawUnsupported as e:
+                print(f"raw wire unavailable ({e}); featurized wire",
+                      file=sys.stderr)
+        shape_set = plan_shape_set(graphs, args.batch_size, rungs=args.rungs,
+                                   dense_m=layout_m, num_targets=n_targets,
+                                   raw=raw_spec)
+        raw_idx: list[int] = []
+        raws: list = []
+        if raw_spec is not None:
+            from cgnn_tpu_torch.data.rawbatch import raw_from_graph
+
+            raws = [raw_from_graph(g) for g in graphs]
+            raw_idx = [i for i, r in enumerate(raws)
+                       if r is not None and shape_set.admits_raw(r)]
+        admitted = set(raw_idx)
+        feat_idx = [i for i in range(len(graphs)) if i not in admitted]
+        preds = np.zeros((len(graphs), n_targets), np.float32)
+        counts["batches_featurized"] = 0
+        # one rate over both wires, end to end
+        t0 = time.perf_counter()
+        if raw_idx:
+            by_id = {id(raws[i]): graphs[i] for i in raw_idx}
+            preds[raw_idx], _ = run_raw_inference(
+                state, [raws[i] for i in raw_idx], shape_set,
+                raw_fallback=lambda rs: by_id[id(rs)])
+        if feat_idx:
+            feat = [graphs[i] for i in feat_idx]
+            preds[feat_idx], _ = run_fast_inference(
+                state, feat, args.batch_size, shape_set=shape_set)
+        rate = len(graphs) / (time.perf_counter() - t0)
+        if feat_idx:
+            counts["batches_featurized"] = sum(
+                1 for _ in _shape_set_plan(feat, shape_set))
+        counts["raw"] = len(raw_idx)
+        counts["batches_raw"] = math.ceil(len(raw_idx)
+                                          / shape_set.largest.graph_cap)
+        how = (f"{len(shape_set)}-rung shape ladder, {len(raw_idx)}/"
+               f"{len(graphs)} structures on the raw wire")
+    print(f"inference throughput: {rate:.0f} structures/sec ({how}, {dev})")
+    print("predict: " + json.dumps(dict(counts, structures_per_s=rate),
+                                   allow_nan=False))
+    rows = [[g.cif_id] + [f"{t:.6f}" for t in np.atleast_1d(g.target)]
+            + [f"{v:.6f}" for v in p] for g, p in zip(graphs, preds)]
+    with open(args.out, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    print(f"wrote {len(rows)} predictions to {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -43,7 +43,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
+from cgnn_tpu_torch.config import DataConfig, ModelConfig
 from cgnn_tpu_torch.convert import from_flax_variables, load_params
 from cgnn_tpu_torch.data.elements import MAX_Z
 from cgnn_tpu_torch.data.graph import CrystalGraph
@@ -65,6 +65,7 @@ from cgnn_tpu_torch.serve.batcher import (
     ServeRejection,
 )
 from cgnn_tpu_torch.serve.shapes import ShapeSet, plan_shape_set
+from cgnn_tpu_torch.train.checkpoint import inference_state, load_for_inference
 from cgnn_tpu_torch.train.normalizer import Normalizer
 from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
 
@@ -459,10 +460,23 @@ def structure_featurizer(data_cfg: DataConfig) -> Callable:
     return featurize
 
 
+def _load_weight_file(params_npz: str, meta_json: str, dev):
+    """(InferenceState, meta) from convert.save_params' two files."""
+    variables, meta = load_params(params_npz, meta_json)
+    state = inference_state(meta, dev)
+    state.model.load_state_dict(from_flax_variables(variables))
+    t = state.normalizer.mean.numel()
+    norm = meta.get("normalizer") or {}
+    state.normalizer = Normalizer.from_arrays(
+        norm.get("mean", [0.0] * t), norm.get("std", [1.0] * t), device=dev)
+    return state, meta
+
+
 def load_server(
-    params_npz: str,
-    meta_json: str,
+    path: str,
+    meta_json: str | None = None,
     *,
+    tag: str = "latest",
     batch_size: int = 64,
     rungs: int = 3,
     calibration: Sequence[CrystalGraph] | None = None,
@@ -475,11 +489,15 @@ def load_server(
     wire: str = "auto",
     raw_precheck: bool = True,
 ):
-    """Boot an InferenceServer from a saved parameter file
-    (convert.save_params): rebuild the model from the meta's configs,
-    plan the shape ladder from ``calibration`` (default: synthetic
-    structures drawn with the checkpoint's own featurization config,
-    geometry kept), warm every rung, start the worker.
+    """Boot an InferenceServer from a saved model at ``path``: a parameter
+    file and its meta (``load_server(npz, meta_json)``,
+    convert.save_params), or a checkpoint directory
+    (``load_server(ckpt_dir, tag=...)``,
+    train/checkpoint.py; ``tag`` 'latest' or 'best', the fallback chain's
+    choice naming the version). Rebuild the model from the meta's
+    configs, plan the shape ladder from ``calibration`` (default:
+    synthetic structures drawn with the checkpoint's own featurization
+    config, geometry kept), warm every rung, start the worker.
 
     ``wire``: 'raw' also serves wire-form structures through the device
     neighbor search (a raw spec planned from the calibration's lattices),
@@ -495,17 +513,13 @@ def load_server(
         raise ValueError(
             f"wire must be 'auto', 'raw' or 'featurized', got {wire!r}")
     dev = resolve_device(device)
-    variables, meta = load_params(params_npz, meta_json)
-    # serving admits any structure that fits the ladder: widen
-    # training-set-derived bounds
+    if meta_json is None:
+        state, meta, version = load_for_inference(path, tag, dev)
+    else:
+        state, meta = _load_weight_file(path, meta_json, dev)
+        version = os.path.basename(path)
     model_cfg = ModelConfig.from_meta(meta["model"]).for_arbitrary_inputs()
     data_cfg = DataConfig.from_meta(meta["data"])
-    model = build_model(model_cfg, data_cfg, device=dev)
-    model.load_state_dict(from_flax_variables(variables))
-    norm = meta.get("normalizer") or {}
-    normalizer = Normalizer.from_arrays(
-        norm.get("mean", [0.0] * model_cfg.num_targets),
-        norm.get("std", [1.0] * model_cfg.num_targets), device=dev)
     if calibration is None:
         from cgnn_tpu_torch.data.dataset import load_synthetic
 
@@ -532,8 +546,7 @@ def load_server(
     )
     template = calibration[0]
     server = InferenceServer(
-        InferenceState(model, normalizer), shape_set,
-        version=os.path.basename(params_npz), max_queue=max_queue,
+        state, shape_set, version=version, max_queue=max_queue,
         max_wait_ms=max_wait_ms, default_timeout_ms=default_timeout_ms,
         featurizer=structure_featurizer(data_cfg), device=dev,
         log_fn=log_fn, raw_precheck=raw_precheck,

@@ -105,6 +105,11 @@ class ShapeSet:
             return graph.num_nodes, graph.num_edges
         return graph.num_nodes, graph.num_nodes * self.dense_m
 
+    def admits(self, graph: CrystalGraph) -> bool:
+        """Does one graph fit the largest rung on its own?"""
+        n, e = self.graph_counts(graph)
+        return self.largest.fits(1, n, e)
+
     def oversize_detail(self, graph: CrystalGraph) -> str:
         n, e = self.graph_counts(graph)
         big = self.largest

@@ -3,11 +3,20 @@
     python -m cgnn_tpu_torch.train --synthetic 400 --epochs 30
     python -m cgnn_tpu_torch.train --device cpu --synthetic 40 --epochs 1
     python -m cgnn_tpu_torch.train --aggregation pallas --synthetic 400
+    python -m cgnn_tpu_torch.train --synthetic 400 --epochs 40 --resume auto
 
 ``--layout`` follows train.py's rules: ``auto`` is the dense layout unless
 ``--aggregation`` names a COO aggregation; ``--layout dense`` with
 ``--aggregation``, and ``--cgconv-impl`` or ``--fused-epilogue`` with COO,
 exit 2.
+
+Every epoch commits a checkpoint to ``--ckpt-dir`` (train/checkpoint.py;
+newest ``--keep-ckpts`` kept, plus the best). ``--resume DIR`` continues
+from DIR's newest restorable checkpoint at its epoch + 1; ``--resume
+auto`` does so from ``--ckpt-dir`` when it holds one and starts fresh
+(saying so) when it holds none. Exit 2, as train.py: a non-empty
+directory that cannot be restored (an inference-only checkpoint, which
+has no optimizer state, among them), or a meta without ``epoch``.
 
 The flags are train.py's that this entry point serves, with train.py's
 defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
@@ -33,6 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train on N synthetic crystals (required: the "
                         "port reads no CIF directory yet)")
     p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--start-epoch", type=int, default=0)
     p.add_argument("-b", "--batch-size", type=int, default=256)
     p.add_argument("--lr", "--learning-rate", type=float, default=0.01,
                    dest="lr")
@@ -42,6 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--optim", choices=["SGD", "Adam", "AdamW"], default="SGD")
     p.add_argument("--print-freq", type=int, default=10)
+    p.add_argument("--resume", type=str, default="",
+                   help="checkpoint dir to resume from, or 'auto': resume "
+                        "from --ckpt-dir when a checkpoint exists there, "
+                        "start fresh otherwise")
     p.add_argument("--train-ratio", type=float, default=0.8)
     p.add_argument("--val-ratio", type=float, default=0.1)
     p.add_argument("--atom-fea-len", type=int, default=64)
@@ -73,6 +87,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "is given")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument("--ckpt-dir", default="checkpoints/torch",
+                   help="where the per-epoch checkpoints are committed")
+    p.add_argument("--keep-ckpts", type=int, default=3, metavar="K",
+                   help="checkpoint retention: newest K versioned saves "
+                        "plus the best-pointer target (0 keeps all)")
     p.add_argument("--out-dir", default="checkpoints/torch",
                    help="where params.npz and meta.json are written")
     return p
@@ -116,6 +135,7 @@ def main(argv=None) -> int:
         train_val_test_split,
     )
     from cgnn_tpu_torch.device import resolve_device
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
     from cgnn_tpu_torch.train.loop import evaluate, fit
     from cgnn_tpu_torch.train.state import init_train_state
 
@@ -143,11 +163,28 @@ def main(argv=None) -> int:
         seed=args.seed, optim=args.optim, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
         lr_milestones_epochs=args.lr_milestones)
-    state, result = fit(
-        state, train_g, val_g, epochs=args.epochs,
-        batch_size=args.batch_size, dense_m=dense_m, device=dev,
-        node_cap=node_cap, edge_cap=edge_cap, seed=args.seed,
-        print_freq=args.print_freq)
+    ckpt = CheckpointManager(args.ckpt_dir, keep=args.keep_ckpts)
+    try:
+        start_epoch = _resume(args, ckpt, state)
+        if start_epoch is None:
+            return 2
+        meta_base = {"model": model_cfg.to_meta(), "data": data_cfg.to_meta(),
+                     "task": "regression"}
+
+        def save(s, epoch, val_m, is_best):
+            ckpt.save(s, dict(meta_base, epoch=epoch,
+                              best_mae=val_m.get("mae", -1.0)),
+                      is_best=is_best)
+
+        state, result = fit(
+            state, train_g, val_g, epochs=args.epochs,
+            batch_size=args.batch_size, dense_m=dense_m, device=dev,
+            node_cap=node_cap, edge_cap=edge_cap, seed=args.seed,
+            print_freq=args.print_freq, start_epoch=start_epoch,
+            on_epoch_end=save)
+        ckpt.wait()
+    finally:
+        ckpt.close()
     test_m = evaluate(state, test_g, args.batch_size, node_cap, dense_m,
                       dev, edge_cap=edge_cap)
     print(f"** test mae: {test_m.get('mae', float('nan')):.4f} "
@@ -162,6 +199,46 @@ def main(argv=None) -> int:
         normalizer_std=state.normalizer.std.cpu().numpy())
     print(f"wrote {npz} and {meta}")
     return 0
+
+
+def _resume(args, ckpt, state) -> int | None:
+    """train.py's resume rules -> the first epoch to run, or None after
+    printing why the run is refused."""
+    from cgnn_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        CheckpointRestoreError,
+    )
+
+    if not args.resume:
+        return args.start_epoch
+    auto = args.resume == "auto"
+    resume_dir = args.ckpt_dir if auto else args.resume
+    mgr = (ckpt if os.path.abspath(resume_dir) == ckpt.directory
+           else CheckpointManager(resume_dir))
+    if auto and not mgr.exists():
+        print(f"--resume auto: no checkpoint under {resume_dir}; starting "
+              f"fresh")
+        return args.start_epoch
+    try:
+        _, meta = mgr.restore(state)
+    except CheckpointRestoreError as e:
+        print(f"cannot resume from {resume_dir}: {e}", file=sys.stderr)
+        if auto:
+            print("--resume auto: checkpoint directory is non-empty but "
+                  f"unrestorable; inspect or remove {resume_dir} to start "
+                  f"fresh", file=sys.stderr)
+        return None
+    finally:
+        if mgr is not ckpt:
+            mgr.close()
+    if "epoch" not in meta:
+        print(f"checkpoint meta under {resume_dir} lacks 'epoch' ({meta!r}) "
+              f"— cannot determine the resume point; aborting instead of "
+              f"restarting at epoch 0", file=sys.stderr)
+        return None
+    start_epoch = int(meta["epoch"]) + 1
+    print(f"resumed from {resume_dir} at epoch {start_epoch}")
+    return start_epoch
 
 
 if __name__ == "__main__":

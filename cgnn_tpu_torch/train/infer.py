@@ -1,0 +1,248 @@
+"""Bulk forward-only inference: the predict entry point's path
+(``cgnn_tpu/train/infer.py``).
+
+- ``run_fast_inference`` predicts featurized graphs, packed either into a
+  serving shape ladder (``shape_set``: greedy fill of the largest rung in
+  input order, the ragged tail in the smallest rung that fits) or, with
+  ``buckets``, into per-size-class snug capacities derived from the data
+  (``assign_size_buckets``, ``plan_batches``);
+- ``run_raw_inference`` predicts wire-form ``RawStructure``s through the
+  raw expander, whose neighbor search (kernel 8 on the card) builds each
+  graph on the device. A structure the device flags for cap overflow is
+  re-served through ``raw_fallback`` (RawStructure -> CrystalGraph) on
+  the featurized path, never answered from its truncated graph.
+
+Both return ``([n, T] predictions in input order, end-to-end
+structures/s including packing)``. Each batch's output stays on the
+device; the host fetches once per ``_WINDOW`` batches, with one
+``torch.cat(...).cpu()``, and never syncs once per batch.
+
+Not ported yet, and refused with a ``ValueError`` naming the ROADMAP
+item (Queue 1) when asked for: compact staging and parallel packers
+(``compact``, ``pack_workers > 0``: item 4), multi-device dispatch
+(``devices``, ``engine``: items 9 and 11). Packing is snug
+(fill-to-capacity) only: the headroom/ladder capacities and the batch
+invariant checks (off by default in the JAX package) wait for item 10.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from cgnn_tpu_torch.data.graph import (
+    assign_size_buckets,
+    capacities_for,
+    graph_cap_for,
+    pack_graphs,
+    plan_batches,
+)
+from cgnn_tpu_torch.train.step import make_predict_step
+
+# batches in flight before the host fetches their outputs (the JAX
+# package's dispatch window): one fetch per window, never one per batch
+_WINDOW = 16
+
+
+def _refuse_unported(compact=None, pack_workers: int = 0, devices=None,
+                     engine: str = "auto") -> None:
+    if compact is not None:
+        raise ValueError("compact staging is not ported yet (ROADMAP "
+                         "Queue 1, item 4)")
+    if pack_workers:
+        raise ValueError("parallel packers (pack_workers > 0) are not "
+                         "ported yet (ROADMAP Queue 1, item 4)")
+    if devices is not None or engine != "auto":
+        raise ValueError("multi-device dispatch (devices, engine) is not "
+                         "ported yet (ROADMAP Queue 1, items 9 and 11)")
+
+
+def _state_device(state) -> torch.device:
+    return next(state.model.parameters()).device
+
+
+class _Window:
+    """Outputs kept on the device, fetched to the host ``_WINDOW`` batches
+    at a time, each row written back to its input position."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.preds: np.ndarray | None = None
+        self.flags: list[int] = []  # input positions flagged for overflow
+        self._pending: list = []  # (span, preds [G, T], overflow [G] | None)
+
+    def add(self, span, out, overflow=None) -> None:
+        self._pending.append((span, out, overflow))
+        if len(self._pending) == _WINDOW:
+            self.flush()
+
+    def flush(self) -> None:
+        if not self._pending:
+            return
+        host = torch.cat([o for _, o, _ in self._pending]).cpu().numpy()
+        ovf = None
+        if self._pending[0][2] is not None:
+            ovf = torch.cat([f for _, _, f in self._pending]).cpu().numpy()
+        if self.preds is None:
+            self.preds = np.zeros((self.n, host.shape[-1]), np.float32)
+        off = 0
+        for span, out, _ in self._pending:
+            self.preds[span] = host[off: off + len(span)]
+            if ovf is not None:
+                self.flags += [int(span[k]) for k in
+                               np.nonzero(ovf[off: off + len(span)])[0]]
+            off += out.shape[0]
+        self._pending = []
+
+
+def _shape_set_plan(graphs: Sequence, shape_set):
+    """Yield (index span, graph sublist, shape): greedy fill to the
+    LARGEST rung in input order; the ragged tail takes the smallest rung
+    that fits it. Spans are contiguous, so input order is kept."""
+    big = shape_set.largest
+    start = 0
+    cur: list = []
+    n = e = 0
+    for i, g in enumerate(graphs):
+        if not shape_set.admits(g):
+            raise ValueError(
+                f"graph {getattr(g, 'cif_id', i)!r} exceeds the shape set: "
+                f"{shape_set.oversize_detail(g)}")
+        gn, ge = shape_set.graph_counts(g)
+        if cur and not big.fits(len(cur) + 1, n + gn, e + ge):
+            yield np.arange(start, i), cur, big
+            start, cur, n, e = i, [], 0, 0
+        cur.append(g)
+        n += gn
+        e += ge
+    if cur:
+        yield (np.arange(start, len(graphs)), cur,
+               shape_set.shape_for(len(cur), n, e))
+
+
+def run_fast_inference(
+    state,
+    graphs: Sequence,
+    batch_size: int,
+    *,
+    buckets: int = 1,
+    dense_m: int | None = None,
+    shape_set=None,
+    compact=None,
+    pack_workers: int = 0,
+    devices=None,
+    engine: str = "auto",
+) -> tuple[np.ndarray, float]:
+    """Predict featurized ``graphs`` with ``state`` (an InferenceState on
+    its device) -> ([n, T] predictions in input order, end-to-end
+    structures/s including host packing).
+
+    With ``shape_set`` the batches pack into its fixed rungs and
+    ``buckets``/``dense_m`` are ignored (the set carries the layout).
+    Without, graphs are split into ``buckets`` node-count classes, each
+    packed at its own snug capacities (fill-to-capacity) in input order.
+    """
+    _refuse_unported(compact, pack_workers, devices, engine)
+    if not len(graphs):
+        raise ValueError("no graphs to predict")
+    dev = _state_device(state)
+    state.model.eval()
+    step = make_predict_step()
+    n = len(graphs)
+    t0 = time.perf_counter()
+    if shape_set is not None:
+        jobs = ((span, shape_set.pack_full(sub, shape=shape))
+                for span, sub, shape in _shape_set_plan(graphs, shape_set))
+    else:
+        jobs = _bucket_jobs(graphs, batch_size, buckets, dense_m)
+    window = _Window(n)
+    for span, batch in jobs:
+        window.add(span, step(state, batch.to(dev)))
+    window.flush()
+    return window.preds, n / (time.perf_counter() - t0)
+
+
+def _bucket_jobs(graphs, batch_size, buckets, dense_m):
+    """(index span, packed batch) per batch of each size class in turn,
+    in input order within a class."""
+    bucket_of = assign_size_buckets(graphs, buckets)
+    graph_cap = graph_cap_for(batch_size)
+    for b in range(int(bucket_of.max()) + 1):
+        idxs = np.nonzero(bucket_of == b)[0]
+        if len(idxs) == 0:
+            continue
+        sub = [graphs[int(i)] for i in idxs]
+        nc, ec = capacities_for(sub, batch_size, dense_m=dense_m)
+        for s, e in plan_batches(sub, batch_size, nc, ec, snug=True):
+            yield idxs[s:e], pack_graphs(sub[s:e], nc, ec, graph_cap,
+                                         dense_m=dense_m)
+
+
+def run_raw_inference(
+    state,
+    items: Sequence,
+    shape_set,
+    *,
+    devices=None,
+    engine: str = "auto",
+    raw_fallback: Callable | None = None,
+) -> tuple[np.ndarray, float]:
+    """Predict wire-form ``RawStructure`` items through the device
+    neighbor search -> ([n, T] predictions in input order, end-to-end
+    structures/s).
+
+    ``shape_set`` must carry a raw spec and admit every item
+    (``admits_raw``; callers route the rest through the featurized path).
+    Batches fill the largest rung's graph slots in input order; the tail
+    takes the smallest rung whose slots fit it. Structures the device
+    flags for cap overflow are re-served through ``raw_fallback``
+    (RawStructure -> CrystalGraph) when given, else raise.
+    """
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
+
+    _refuse_unported(devices=devices, engine=engine)
+    if shape_set is None or shape_set.raw is None:
+        raise ValueError("run_raw_inference needs a shape set with a raw "
+                         "spec (plan_shape_set(raw=...))")
+    if not len(items):
+        raise ValueError("no structures to predict")
+    for it in items:
+        if not isinstance(it, RawStructure):
+            raise ValueError("run_raw_inference takes RawStructure items")
+        if not shape_set.admits_raw(it):
+            raise ValueError(
+                f"structure {it.cif_id!r} exceeds the raw rung caps: "
+                f"{shape_set.raw.oversize_detail(it)} — route it through "
+                f"the featurized path")
+    dev = _state_device(state)
+    state.model.eval()
+    step = make_predict_step(raw_expander=shape_set.raw_expander(device=dev))
+    n = len(items)
+    t0 = time.perf_counter()
+    big = shape_set.largest
+    window = _Window(n)
+    for start in range(0, n, big.graph_cap):
+        end = min(start + big.graph_cap, n)
+        shape = next(s for s in shape_set.shapes
+                     if s.graph_cap >= end - start)
+        batch = shape_set.pack_raw(items[start:end], shape=shape)
+        preds, overflow, _ = step(state, batch.to(dev))
+        window.add(np.arange(start, end), preds, overflow)
+    window.flush()
+    preds = window.preds
+    if window.flags:
+        # the device's cap-overflow flag fired: never serve a truncated
+        # graph; re-serve those rows host-featurized
+        if raw_fallback is None:
+            bad = [items[i].cif_id or str(i) for i in window.flags]
+            raise RuntimeError(
+                f"in-program cap-overflow flag on {bad}; pass raw_fallback= "
+                f"to re-serve them host-featurized")
+        fgraphs = [raw_fallback(items[i]) for i in window.flags]
+        fpreds, _ = run_fast_inference(state, fgraphs, max(1, len(fgraphs)),
+                                       shape_set=shape_set)
+        preds[window.flags] = fpreds
+    return preds, n / (time.perf_counter() - t0)

@@ -6,9 +6,11 @@ fill-to-capacity packing), moves each to the device and runs one step on
 it. One ``np.random.default_rng(seed)`` shuffles every epoch's training
 batches; training batches carry the two-tier transpose mapping for the
 scatter-free backward, validation batches none (``in_cap=0``). Metric
-sums accumulate on the device and are fetched once per epoch. The loop
-keeps the best validation MAE. ``dense_m`` 0 or None trains on the flat
-COO layout, whose batches carry no transpose mapping.
+sums accumulate on the device and are fetched once per epoch
+(train/metrics.py). The loop keeps the best validation MAE and calls
+``on_epoch_end`` after each epoch's validation (the checkpoint hook;
+``start_epoch`` resumes). ``dense_m`` 0 or None trains on the flat COO
+layout, whose batches carry no transpose mapping.
 
 Not ported yet: the whole-epoch scan loop, pack-once and
 device-resident staging, compact staging, size buckets, telemetry, the
@@ -29,39 +31,12 @@ from cgnn_tpu_torch.data.graph import (
     batch_iterator,
     capacities_for,
 )
+from cgnn_tpu_torch.train.metrics import (
+    accumulate_on_device,
+    fetch_device_sums,
+    means_from_sums,
+)
 from cgnn_tpu_torch.train.step import make_eval_step, make_train_step
-
-
-def accumulate(sums: dict | None, metrics: dict) -> dict:
-    """Add one step's metric sums into the running sums, on the device."""
-    if sums is None:
-        return {k: v.detach().clone() for k, v in metrics.items()}
-    for k, v in metrics.items():
-        sums[k].add_(v)
-    return sums
-
-
-def means_from_sums(sums: dict, steps: int) -> dict:
-    """Epoch means from '<name>_sum' totals: each divides by its
-    '<name>_count' when there is one, else by the global 'count'."""
-    count = max(sums.get("count", 1.0), 1.0)
-    out = {
-        k[: -len("_sum")]: v / max(sums.get(k[: -len("_sum")] + "_count",
-                                            count), 1.0)
-        for k, v in sums.items() if k.endswith("_sum")
-    }
-    out["count"] = sums.get("count", 0.0)
-    out["steps"] = steps
-    return out
-
-
-def fetch(sums: dict | None) -> dict:
-    """The device sums as Python floats, in ONE device-to-host copy."""
-    if not sums:
-        return {}
-    keys = list(sums)
-    values = torch.stack([sums[k].double() for k in keys]).cpu().tolist()
-    return dict(zip(keys, values))
 
 
 def run_epoch(step_fn: Callable, state, batches: Iterable[GraphBatch],
@@ -71,15 +46,15 @@ def run_epoch(step_fn: Callable, state, batches: Iterable[GraphBatch],
     sums = None
     steps = 0
     for it, batch in enumerate(batches):
-        sums = accumulate(sums, step_fn(state, batch.to(device)))
+        sums = accumulate_on_device(sums, step_fn(state, batch.to(device)))
         steps += 1
         if print_freq and it % print_freq == 0:
-            host = fetch(sums)
+            host = fetch_device_sums(sums)
             count = max(host.get("count", 1.0), 1.0)
             log_fn(f"{'Epoch' if train else 'Val'}: [{epoch}][{it}]  "
                    f"Loss {host['loss_sum'] / count:.4f}  "
                    f"MAE {host['mae_sum'] / count:.4f}")
-    return means_from_sums(fetch(sums), steps)
+    return means_from_sums(fetch_device_sums(sums), steps)
 
 
 def batch_caps(graphs: Sequence[CrystalGraph], batch_size: int,
@@ -113,11 +88,20 @@ def fit(
     seed: int = 0,
     print_freq: int = 0,
     log_fn: Callable = print,
+    start_epoch: int = 0,
+    on_epoch_end: Callable | None = None,
 ) -> tuple:
-    """Train/validate per epoch, tracking the best validation MAE.
+    """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
+    the best validation MAE.
     -> (state, {"best": best val MAE, "history": [per-epoch metrics]}).
     ``dense_m`` 0 or None packs the flat COO layout. The capacities
-    default to the snug ones of the training graphs (``batch_caps``)."""
+    default to the snug ones of the training graphs (``batch_caps``).
+
+    As in the JAX loop, the data order's generator restarts from ``seed``
+    at ``start_epoch`` and ``best`` from inf, so the first epoch of a
+    resumed run moves the best pointer; ``on_epoch_end(state, epoch,
+    val_metrics, is_best)`` runs after each epoch's validation (the
+    checkpoint hook)."""
     dense_m = dense_m or None
     node_cap, edge_cap = batch_caps(train_graphs, batch_size, dense_m,
                                     node_cap, edge_cap)
@@ -125,7 +109,7 @@ def fit(
     rng = np.random.default_rng(seed)
     best = np.inf
     history = []
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         train_m = run_epoch(
             train_step, state,
@@ -148,6 +132,8 @@ def fit(
         log_fn(f"Epoch {epoch}: train loss {train_m.get('loss', np.nan):.4f}"
                f"  val mae {metric:.4f}{' *' if is_best else ''}"
                f"  ({time.perf_counter() - t0:.1f}s)")
+        if on_epoch_end is not None:
+            on_epoch_end(state, epoch, val_m, is_best)
     return state, {"best": best, "history": history}
 
 

@@ -97,7 +97,27 @@ into ``build/kernels``), then:
    from 4 threads 224 featurized graphs and 32 ``RawStructure``s
    featurized at admission, every answer within rtol 1e-4 / atol 1e-4 of
    the plain model (``aggregation='xla'``) on host-featurized copies,
-   kernel 6 launched n_conv times a flush; a top-rung flush breakdown.
+   kernel 6 launched n_conv times a flush; a top-rung flush breakdown;
+7. checkpoint_predict — the port's train entry point
+   (``cgnn_tpu_torch.train.__main__.main``) at full width with
+   ``--cgconv-impl pallas``, 640 synthetic structures (512/64/64), batch
+   256, 2 epochs into ``build/chip_smoke/ckpt`` (path ``train_main``,
+   each kernel's launches exact): 2 committed saves, each verified
+   against its manifest, ``best.json`` on the better one. The same run in
+   memory through ``fit``, saved every epoch (the save's caller-thread
+   ms), restored into a fresh state (the restore ms): every parameter,
+   running statistic, optimizer buffer and the count bit-equal. One more
+   epoch (``start_epoch=2``, same seed) from the restored and from the
+   in-memory state: bit-equal, or else it names the op that breaks it
+   (the run repeated from a copy of the in-memory state and again under
+   PyTorch's deterministic algorithms) and holds every tensor to rtol
+   1e-6 / atol 1e-7. ``--resume`` to 3 epochs prints ``resumed from ...
+   at epoch 2`` (path ``train_main_resume``). ``cgnn_tpu_torch.predict``
+   on 512 structures with ``--wire raw`` (path ``predict_raw``) and
+   ``--wire featurized`` (path ``predict``): CSV ids in input order, each
+   prediction within rtol 1e-4 / atol 1e-4 of the plain model
+   (``cgconv_impl`` off) on the same graphs on the card, kernel 1 n_conv
+   times a batch and kernel 8 once a raw batch; its structures/s.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 summary lines, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -119,6 +139,9 @@ STATS_RTOL = 1e-4  # kernel 2's column sums, on their row's largest entry
 REDUCE_RTOL = 5e-4  # kernel 4's (the JAX package's tolerance for d_scale/d_bias)
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-4  # model outputs (|y| ~ 10-100)
 TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4  # kernel vs plain path: 5 f32 SGD steps
+# a resumed epoch vs the uninterrupted one, where not bit-equal (the op
+# that breaks it is named in the output)
+RESUME_RTOL, RESUME_ATOL = 1e-6, 1e-7
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 L2_BYTES = 50 * 2**20  # H100 SXM L2: the timers rotate inputs past twice this
@@ -127,6 +150,7 @@ N_CLIENTS, N_GRAPHS, N_WIRE = 4, 224, 32
 M = 12  # the flagship's max_num_nbr: dense edge slots per node
 BATCH, EPOCHS = 256, 2
 N_TRAIN_SET = 640  # split 0.8 / 0.1 / 0.1 -> 512 train, 64 val, 64 test
+N_PREDICT = 512  # structures through the predict entry point, each wire
 COO_AGG = "pallas"  # the COO paths' aggregation: kernel 6
 NO_PATH = {"windowed_gather": "no entry point of the JAX package calls "
                               "windowed_gather (tests/test_ops.py:548 only)"}
@@ -1615,6 +1639,302 @@ def serve_coo_phase(dev, calibration, weights):
     return run, breakdown, run["launches"]
 
 
+def run_main(entry, argv, label):
+    """``entry(argv)`` (a port entry point's ``main``) with its standard
+    output captured and echoed -> (exit code, the output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = entry(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"{label}: {line}")
+    return rc, out
+
+
+def state_bits(state) -> dict:
+    """Every tensor a TrainState carries, as host copies: parameters and
+    running statistics, the optimizer's buffers by parameter name, and
+    its count."""
+    import torch
+
+    bits = {f"model/{k}": v.detach().cpu().clone()
+            for k, v in state.model.state_dict().items()}
+    for name, p in state.model.named_parameters():
+        for k, v in state.optimizer.inner.state.get(p, {}).items():
+            bits[f"opt/{name}/{k}"] = torch.as_tensor(v).detach().cpu().clone()
+    bits["opt/count"] = torch.as_tensor(state.optimizer.count)
+    return bits
+
+
+def bits_diff(a: dict, b: dict) -> tuple[bool, float, str]:
+    """(bit-equal, max abs difference, the key where it is largest)."""
+    import torch
+
+    check(set(a) == set(b), f"state keys differ: {set(a) ^ set(b)}")
+    equal, worst, where = True, 0.0, ""
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            equal = False
+            d = float((a[k].double() - b[k].double()).abs().max())
+            if d >= worst:
+                worst, where = d, k
+    return equal, worst, where
+
+
+def checkpoint_predict_phase(dev, work_dir, card):
+    """Paths 'train_main', 'predict' and 'predict_raw': the port's train
+    entry point at flagship width with the kernel path commits a
+    checkpoint a epoch (manifests verified, the best pointer on the
+    better save); a state saved by ``CheckpointManager`` restores
+    bit-equal; a resumed epoch equals the uninterrupted one; ``--resume``
+    continues the entry point's numbering; bulk predict on both wires
+    agrees with the plain model. -> (summary, counts by path)."""
+    import copy
+    import csv as csvmod
+    import dataclasses as dc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
+    from cgnn_tpu_torch.data.dataset import (
+        load_synthetic,
+        train_val_test_split,
+    )
+    from cgnn_tpu_torch.data.graph import count_batches
+    from cgnn_tpu_torch.predict import main as predict_main
+    from cgnn_tpu_torch.resilience.integrity import read_manifest, verify_tree
+    from cgnn_tpu_torch.serve.shapes import plan_shape_set
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+    from cgnn_tpu_torch.train.checkpoint import (
+        STATE_FILE,
+        CheckpointManager,
+        load_tree,
+    )
+    from cgnn_tpu_torch.train.infer import run_fast_inference
+    from cgnn_tpu_torch.train.loop import fit
+    from cgnn_tpu_torch.train.normalizer import Normalizer
+    from cgnn_tpu_torch.train.state import init_train_state
+    from cgnn_tpu_torch.train.step import InferenceState
+
+    data_cfg = DataConfig()
+    model_cfg = ModelConfig(dense_m=M, cgconv_impl="pallas")
+    n_conv = model_cfg.n_conv
+    # the entry point's data and split, for the in-memory run below
+    graphs = load_synthetic(N_TRAIN_SET, data_cfg.featurize_config(),
+                            seed=SEED)
+    train_g, val_g, test_g = train_val_test_split(graphs, 0.8, 0.1,
+                                                  seed=SEED)
+
+    def fresh():
+        return init_train_state(model_cfg, data_cfg, train_g,
+                                batch_size=BATCH, device=dev, seed=SEED)
+
+    _, node_cap, edge_cap = fresh()
+    steps, evals = (count_batches(g, BATCH, node_cap, edge_cap, snug=True)
+                    for g in (train_g, val_g))
+    tests = count_batches(test_g, BATCH, node_cap, edge_cap, snug=True)
+    ck, own = (os.path.join(work_dir, d) for d in ("ckpt", "ckpt_own"))
+    for d in (ck, own, os.path.join(work_dir, "ckpt_out")):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["--synthetic", str(N_TRAIN_SET), "-b", str(BATCH),
+            "--cgconv-impl", "pallas", "--ckpt-dir", ck, "--out-dir",
+            os.path.join(work_dir, "ckpt_out"), "--print-freq", "0",
+            "--seed", str(SEED)]
+    counts = {}
+    # 1. the train entry point, 2 epochs: 2 committed saves
+    zero_counts()
+    rc, out = run_main(train_main, argv + ["--epochs", "2"], "train_main")
+    torch.cuda.synchronize()
+    counts["train_main"] = read_counts()
+    check(rc == 0, f"train entry point exited {rc}")
+    mgr = CheckpointManager(ck, log_fn=print)
+    saves = sorted(n for n in os.listdir(ck) if n.startswith("ckpt-"))
+    check(saves == ["ckpt-00000000", "ckpt-00000001"],
+          f"2 epochs committed {saves}")
+    maes = []
+    for name in saves:
+        verify_tree(load_tree(os.path.join(ck, name, STATE_FILE)),
+                    read_manifest(os.path.join(ck, name)))
+        maes.append(json.load(open(os.path.join(ck, name,
+                                                "meta.json")))["best_mae"])
+    best = json.load(open(os.path.join(ck, "best.json")))["save"]
+    check(best == saves[int(maes[1] < maes[0])],
+          f"best.json points at {best}; val MAEs {maes}")
+    # 2 epochs of train steps and validation batches, then the test split
+    want = dict.fromkeys(counts["train_main"], 0) | {
+        "fused_cgconv_stats": 2 * n_conv * steps,
+        "epilogue_reduce": 2 * n_conv * steps,
+        "epilogue_dz": 2 * n_conv * steps,
+        "fused_cgconv_eval": n_conv * (2 * (steps + evals) + tests),
+        "fused_cgconv_node": n_conv * (2 * (steps + evals) + tests)}
+    check(counts["train_main"] == want,
+          f"train entry point: launches {counts['train_main']} != {want}")
+    print(f"checkpoint: {saves} verified against their manifests, val MAEs "
+          f"{maes}, best.json -> {best}: ok")
+
+    # 2. the same run in memory, saved by its own manager every epoch;
+    # the restore of its latest save is bit-equal to it
+    state = fresh()[0]
+    kw = dict(batch_size=BATCH, dense_m=M, device=dev, node_cap=node_cap,
+              edge_cap=edge_cap, seed=SEED, log_fn=lambda s: None)
+    own_mgr = CheckpointManager(own, log_fn=print)
+    save_ms = []
+
+    def save(s, epoch, val_m, is_best):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        own_mgr.save(s, {"epoch": epoch, "best_mae": val_m["mae"]},
+                     is_best=is_best)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    state, _ = fit(state, train_g, val_g, epochs=2, on_epoch_end=save, **kw)
+    torch.cuda.synchronize()
+    saved = state_bits(state)
+    # the fresh state is built, and the finalizer's writes drained,
+    # outside the timed window: restore_ms is the load, verification and
+    # copies alone; finalize_wait_ms is what the async writes had left
+    target = fresh()[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    own_mgr.wait()
+    finalize_wait_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    restored, meta = own_mgr.restore(target)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    equal, worst, where = bits_diff(state_bits(restored), saved)
+    check(equal and meta["epoch"] == 1,
+          f"restore differs from the saved state: {worst!r} at {where}")
+    main_equal, main_diff, main_where = bits_diff(
+        state_bits(mgr.restore(fresh()[0])[0]), saved)
+    print(f"checkpoint: {len(saved)} tensors restored bit-equal (count "
+          f"{int(saved['opt/count'])}); save caller-thread ms {save_ms}, "
+          f"finalizer drain ms {finalize_wait_ms!r}, restore ms "
+          f"{restore_ms!r}; the entry point's save vs this "
+          f"run: bit-equal {main_equal} (max diff {main_diff!r} at "
+          f"{main_where or '-'}): ok")
+
+    # 3. one more epoch from the restored state and from the in-memory
+    # one, start_epoch=2, the same seed
+    def epoch2(s):
+        s, r = fit(s, train_g, val_g, epochs=3, start_epoch=2, **kw)
+        h = r["history"][0]
+        return state_bits(s), (h["train"]["loss"], h["val"]["mae"])
+
+    again = copy.deepcopy(state)
+    mem_bits, mem_loss = epoch2(state)
+    res_bits, res_loss = epoch2(restored)
+    equal, worst, where = bits_diff(res_bits, mem_bits)
+    resumed = {"bit_equal": equal and res_loss == mem_loss,
+               "losses": [mem_loss, res_loss], "max_diff": worst,
+               "worst": where}
+    if not resumed["bit_equal"]:
+        # the same epoch from a copy of the in-memory state: does it
+        # repeat its own bits? Then again with PyTorch's deterministic
+        # algorithms, which replace the CUDA atomic adds of index_add_
+        # (segment_sum of the graph pooling, ops/segment.py) by an
+        # ordered sum
+        rerun_bits, _ = epoch2(copy.deepcopy(again))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det = [epoch2(copy.deepcopy(again))[0],
+                   epoch2(own_mgr.restore(fresh()[0])[0])[0]]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        resumed.update(
+            in_memory_repeats_its_bits=bits_diff(rerun_bits, mem_bits)[0],
+            bit_equal_with_deterministic_algorithms=bits_diff(*det)[0],
+            op="index_add_ (CUDA atomic adds) of segment_sum in the graph "
+               "pooling, cgnn_tpu_torch/ops/segment.py")
+        ok = all(torch.allclose(res_bits[k].double(), mem_bits[k].double(),
+                                rtol=RESUME_RTOL, atol=RESUME_ATOL)
+                 for k in mem_bits)
+        check(ok and resumed["bit_equal_with_deterministic_algorithms"]
+              and not resumed["in_memory_repeats_its_bits"],
+              f"the resumed epoch leaves the uninterrupted one: {resumed}")
+    print(f"resume: epoch 2 from the restored state vs the in-memory one: "
+          f"{resumed}: ok")
+
+    # 4. --resume continues the entry point's run
+    zero_counts()
+    rc, out = run_main(train_main, argv + ["--epochs", "3", "--resume", ck],
+                       "train_main")
+    counts["train_main_resume"] = read_counts()
+    check(rc == 0 and f"resumed from {ck} at epoch 2" in out
+          and "Epoch 2:" in out and "Epoch 0:" not in out,
+          f"--resume: rc {rc}, output {out[-400:]!r}")
+    want = dict.fromkeys(want, 0) | {  # 1 epoch, then the test split
+        "fused_cgconv_stats": n_conv * steps,
+        "epilogue_reduce": n_conv * steps, "epilogue_dz": n_conv * steps,
+        "fused_cgconv_eval": n_conv * (steps + evals + tests),
+        "fused_cgconv_node": n_conv * (steps + evals + tests)}
+    check(counts["train_main_resume"] == want,
+          f"--resume: launches {counts['train_main_resume']} != {want}")
+
+    # 5. bulk predict on both wires vs the plain model
+    plain = InferenceState(
+        build_model(dc.replace(model_cfg, cgconv_impl=""), data_cfg,
+                    device=dev),
+        Normalizer.identity(1, device=dev))
+    plain = mgr.restore_for_inference(plain, "latest")
+    pred_graphs = load_synthetic(N_PREDICT, data_cfg.featurize_config())
+    want, _ = run_fast_inference(
+        plain, pred_graphs, BATCH,
+        shape_set=plan_shape_set(pred_graphs, BATCH, rungs=2, dense_m=M))
+    runs = {}
+    for path, wire in (("predict_raw", "raw"), ("predict", "featurized")):
+        out_csv = os.path.join(work_dir, f"{path}.csv")
+        zero_counts()
+        rc, out = run_main(predict_main, [ck, "--synthetic", str(N_PREDICT),
+                                          "-b", str(BATCH), "--wire", wire,
+                                          "--out", out_csv], path)
+        torch.cuda.synchronize()
+        counts[path] = read_counts()
+        check(rc == 0, f"predict --wire {wire} exited {rc}")
+        info = json.loads(next(line for line in out.splitlines()
+                               if line.startswith("predict: "))[9:])
+        rows = list(csvmod.reader(open(out_csv)))
+        got = np.array([[float(x) for x in r[2:]] for r in rows])
+        ids_ok = [r[0] for r in rows] == [g.cif_id for g in pred_graphs]
+        err = np.abs(got - want)
+        ok = ids_ok and got.shape == want.shape and bool(
+            np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(want)))
+        batches = info["batches_raw"] + info["batches_featurized"]
+        want_counts = dict.fromkeys(counts[path], 0) | {
+            "fused_cgconv_eval": n_conv * batches,
+            "fused_cgconv_node": n_conv * batches,
+            "neighbor_search": info["batches_raw"]}
+        print(f"{path}: {N_PREDICT} structures ({info['raw']} on the raw "
+              f"wire), {batches} batches, launches {counts[path]}; CSV ids "
+              f"in input order {ids_ok}, max_abs_err vs the plain model "
+              f"{float(err.max())!r} (rtol {SERVE_RTOL}, atol {SERVE_ATOL})"
+              f": {'ok' if ok and counts[path] == want_counts else 'FAIL'}")
+        check(ok, f"{path}: the CSV disagrees with the plain model")
+        check(counts[path] == want_counts and batches > 0
+              and (wire == "featurized" or info["batches_raw"] > 0),
+              f"{path}: launches {counts[path]} != {want_counts}")
+        runs[path] = dict(info, max_abs_err_vs_plain=float(err.max()))
+    mgr.close()
+    own_mgr.close()
+    summary = {
+        "card": card, "saves": saves, "val_mae": maes, "best": best,
+        "save_caller_thread_ms": save_ms,
+        "finalize_wait_ms": finalize_wait_ms, "restore_ms": restore_ms,
+        "restored_tensors": len(saved),
+        "entry_point_save_bit_equal_to_in_memory_run": main_equal,
+        "resumed_epoch": resumed,
+        "predict_structures_per_s": {
+            w: runs[p]["structures_per_s"]
+            for p, w in (("predict", "featurized"), ("predict_raw", "raw"))},
+        "predict": runs["predict"], "predict_raw": runs["predict_raw"]}
+    return summary, counts
+
+
 def main() -> int:
     import torch
 
@@ -1685,9 +2005,11 @@ def main() -> int:
         dev, split, work_dir)
     coo_serve, coo_breakdown, coo_serve_counts = serve_coo_phase(
         dev, calibration, coo_weights)
+    ckpt_summary, ckpt_counts = checkpoint_predict_phase(dev, work_dir, card)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
-                   train_coo=coo_train_counts, serve_coo=coo_serve_counts)
+                   train_coo=coo_train_counts, serve_coo=coo_serve_counts,
+                   **ckpt_counts)
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -1710,6 +2032,7 @@ def main() -> int:
                      allow_nan=False))
     print(json.dumps({"train_coo": coo_train, "serve_coo": coo_serve},
                      allow_nan=False))
+    print(json.dumps({"checkpoint_predict": ckpt_summary}, allow_nan=False))
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card)

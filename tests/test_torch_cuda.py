@@ -2,9 +2,9 @@
 PyTorch version at shapes and inputs the CPU tests cannot reach (ragged
 widths, G > F, rows that are all padding, NaN in masked slots), the
 fixed-order reductions (kernels 2 and 4) bit-identical from run to run,
-kernels 1 and 2 on a shared node pass, and the training op's kernel path
-against its structured twin. Marked
-``cuda``; they skip where there is no card. On a GPU machine, from the
+kernels 1 and 2 on a shared node pass, the training op's kernel path
+against its structured twin, a checkpoint of a card-resident state, and
+bulk raw inference's launches of kernel 8. Marked ``cuda``; they skip where there is no card. On a GPU machine, from the
 repository root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -641,3 +641,92 @@ def test_windowed_gather_kernel_matches_plain_version(dev, case):
     assert torch.equal(wg.windowed_gather(nodes, nbr, ws, window), got)
     with pytest.raises(ValueError, match="nodes must be torch.float32"):
         wg.windowed_gather_cuda(nodes.double(), nbr, ws, window)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of a card-resident state, and bulk raw inference
+# ---------------------------------------------------------------------------
+
+
+def _card_state(dev, optim="sgd"):
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.train.state import init_train_state
+
+    cfg = ModelConfig(atom_fea_len=32, n_conv=2, dense_m=12,
+                      cgconv_impl="pallas")
+    dcfg = DataConfig()
+    graphs = load_synthetic(48, dcfg.featurize_config(), seed=6)
+    state, nc, ec = init_train_state(cfg, dcfg, graphs, batch_size=16,
+                                     device=dev, optim=optim)
+    return state, graphs, nc, ec
+
+
+@pytest.mark.parametrize("optim", ["sgd", "adam"])
+def test_checkpoint_of_card_state_restores_bit_equal(dev, tmp_path, optim):
+    """A card-resident TrainState after a few kernel-path steps: saved,
+    mutated on the card before the finalizer ran, and restored into a
+    fresh card state, it equals the state at save time in every
+    parameter, running statistic, optimizer buffer and count."""
+    from cgnn_tpu_torch.data.graph import batch_iterator
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from cgnn_tpu_torch.train.step import make_train_step
+
+    state, graphs, nc, ec = _card_state(dev, optim)
+    step = make_train_step()
+    for b in batch_iterator(graphs, 16, nc, ec, dense_m=12, snug=True):
+        step(state, b.to(dev))
+    assert state.step >= 3
+    want = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    opt_want = {id(p): {k: v.clone() for k, v in
+                        state.optimizer.inner.state[p].items()}
+                for p in state.optimizer.params}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state, {"epoch": 0})
+    with torch.no_grad():
+        for p in state.model.parameters():
+            p.mul_(-1.0)
+    restored, meta = mgr.restore(_card_state(dev, optim)[0])
+    assert meta == {"epoch": 0} and restored.optimizer.count == state.step
+    got = restored.model.state_dict()
+    for k, v in want.items():
+        assert got[k].device.type == "cuda" and torch.equal(got[k], v), k
+    for p, q in zip(state.optimizer.params, restored.optimizer.params):
+        for k, v in opt_want[id(p)].items():
+            assert torch.equal(torch.as_tensor(
+                restored.optimizer.inner.state[q][k]).to(v.device), v), k
+    mgr.close()
+
+
+def test_raw_inference_launches_kernel_8_once_per_raw_batch(dev):
+    """run_raw_inference on the card: kernel 8 once per raw batch, kernel
+    1 n_conv times a batch, the answers those of the featurized path."""
+    import math
+
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.data.rawbatch import plan_raw_spec, raw_from_graph
+    from cgnn_tpu_torch.ops import neighbor_search as ns
+    from cgnn_tpu_torch.serve.shapes import plan_shape_set
+    from cgnn_tpu_torch.train.infer import (
+        run_fast_inference,
+        run_raw_inference,
+    )
+    from cgnn_tpu_torch.train.step import InferenceState
+
+    state, _, _, _ = _card_state(dev)
+    fcfg = DataConfig().featurize_config()
+    graphs = load_synthetic(70, fcfg, seed=9, keep_geometry=True)
+    spec = plan_raw_spec(graphs, fcfg.gdf(), fcfg.radius, 12)
+    ss = plan_shape_set(graphs, 16, rungs=2, dense_m=12, raw=spec)
+    keep = [g for g in graphs if ss.admits_raw(raw_from_graph(g))]
+    inf = InferenceState(state.model, state.normalizer)
+    before = (ns.neighbor_search_cuda.launches,
+              fc.fused_cgconv_eval_cuda.launches)
+    got, rate = run_raw_inference(inf, [raw_from_graph(g) for g in keep], ss)
+    batches = math.ceil(len(keep) / ss.largest.graph_cap)
+    assert batches >= 2 and rate > 0
+    assert ns.neighbor_search_cuda.launches - before[0] == batches
+    assert fc.fused_cgconv_eval_cuda.launches - before[1] == 2 * batches
+    want, _ = run_fast_inference(inf, keep, 16, shape_set=ss)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

@@ -1,7 +1,8 @@
 """The port's two isolation rules: ``cgnn_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX, Flax or the JAX package, and ``chip_smoke.py``
-refuses to report a result where it cannot run (no CUDA, or a directory
-without the rest of the repository)."""
+import nothing of JAX, Flax or the JAX package (nor
+``jax_checkpoint_to_torch.py``, which imports JAX by design), and
+``chip_smoke.py`` refuses to report a result where it cannot run (no
+CUDA, or a directory without the rest of the repository)."""
 
 import ast
 import json
@@ -14,7 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "cgnn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cgnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cgnn_tpu",
+             "jax_checkpoint_to_torch")
 
 
 def _forbidden(module: str) -> bool:
@@ -48,7 +50,8 @@ mods = sorted(m.name for m in pkgutil.walk_packages(
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
-             ("jax", "jaxlib", "flax", "optax", "orbax", "cgnn_tpu"))
+             ("jax", "jaxlib", "flax", "optax", "orbax", "cgnn_tpu",
+              "jax_checkpoint_to_torch"))
 print(json.dumps({"imported": mods, "bad": bad}))
 """
 
@@ -63,7 +66,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert "cgnn_tpu_torch.serve.server" in res["imported"]
     for mod in ("ops.fused_cgconv", "ops.fused_epilogue", "ops.scatter",
                 "ops.windowed_gather", "train.state", "train.step",
-                "train.loop", "train.__main__"):
+                "train.loop", "train.__main__", "train.checkpoint",
+                "train.metrics", "train.infer", "resilience.integrity",
+                "predict"):
         assert f"cgnn_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 

@@ -548,7 +548,8 @@ def test_train_entry_point_writes_weights_that_load_server_serves(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run(
         [sys.executable, "-m", "cgnn_tpu_torch.train", "--device", "cpu",
-         "--synthetic", "40", "--epochs", "1", "--out-dir", str(out_dir)],
+         "--synthetic", "40", "--epochs", "1", "--out-dir", str(out_dir),
+         "--ckpt-dir", str(tmp_path / "ckpt")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr
     assert "** test mae:" in res.stdout
