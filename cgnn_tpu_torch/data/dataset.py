@@ -1,18 +1,20 @@
 """Dataset assembly: structures -> featurized CrystalGraphs, and the
-train/val/test split (the synthetic-data part of
-``cgnn_tpu/data/dataset.py``)."""
+train/val/test split (``cgnn_tpu/data/dataset.py``: CIF directories and
+the synthetic sets)."""
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import os
+import warnings
 from typing import Sequence
 
 import numpy as np
 
-from cgnn_tpu_torch.data.elements import atom_features
-from cgnn_tpu_torch.data.featurize import GaussianDistance
+from cgnn_tpu_torch.data.cif import parse_cif_file
+from cgnn_tpu_torch.data.featurize import GaussianDistance, featurize_arrays
 from cgnn_tpu_torch.data.graph import CrystalGraph
-from cgnn_tpu_torch.data.neighbors import knn_neighbor_list
 from cgnn_tpu_torch.data.structure import Structure
 from cgnn_tpu_torch.data.synthetic import synthetic_dataset, synthetic_mp_dataset
 
@@ -39,39 +41,63 @@ def featurize_structure(
     target_mask=None,
     keep_geometry: bool = False,
 ) -> CrystalGraph:
-    """Structure + label -> flat-COO CrystalGraph (host-side).
-    ``keep_geometry`` also stores the wrapped f32 cartesian positions, the
-    f32 lattice, the neighbor image offsets and the atomic numbers, which
-    the raw wire plans its caps from (data/rawbatch.py)."""
-    gdf = gdf or cfg.gdf()
-    nl = knn_neighbor_list(
-        structure, cfg.radius, cfg.max_num_nbr, warn_under_coordinated=False
-    )
-    if len(nl) == 0:
-        raise ValueError(
-            f"structure {cif_id!r} has no neighbors within radius {cfg.radius}"
-        )
-    graph = CrystalGraph(
-        atom_fea=atom_features(structure.numbers),
-        edge_fea=gdf.expand(nl.distances),
-        centers=nl.centers,
-        neighbors=nl.neighbors,
-        target=np.atleast_1d(np.asarray(target, np.float32)),
-        cif_id=cif_id,
-        target_mask=(
-            None if target_mask is None
-            else np.atleast_1d(np.asarray(target_mask, np.float32))
-        ),
-        distances=nl.distances,
-    )
-    if keep_geometry:
-        # the neighbor offsets are against WRAPPED coordinates, so the
-        # stored positions are the wrapped ones
-        graph.positions = structure.wrapped().cart_coords.astype(np.float32)
-        graph.lattice = structure.lattice.astype(np.float32)
-        graph.offsets = nl.offsets.astype(np.int32)
-        graph.numbers = structure.numbers.copy()
-    return graph
+    """Structure + label -> flat-COO CrystalGraph (host-side,
+    ``featurize.featurize_arrays``). ``keep_geometry`` also stores the
+    wrapped f32 cartesian positions, the f32 lattice, the neighbor image
+    offsets and the atomic numbers, which the raw wire plans its caps from
+    (data/rawbatch.py)."""
+    return CrystalGraph(**featurize_arrays(
+        structure, target, cfg.radius, cfg.max_num_nbr, gdf or cfg.gdf(),
+        cif_id, target_mask=target_mask, keep_geometry=keep_geometry))
+
+
+def read_id_prop(root_dir: str, id_prop_file: str = "id_prop.csv"
+                 ) -> list[tuple[str, str, np.ndarray, np.ndarray]]:
+    """``id_prop.csv`` rows -> [(cif_id, cif path, target [T] f32, mask [T]
+    f32)] in file order. A row is ``cif_id, target[, target2, ...]``; an
+    empty cell is a masked label (target 0, mask 0)."""
+    prop_path = os.path.join(root_dir, id_prop_file)
+    if not os.path.exists(prop_path):
+        raise FileNotFoundError(f"missing {prop_path}")
+    rows = []
+    with open(prop_path, newline="") as f:
+        for row in csv.reader(f):
+            if not row:
+                continue
+            cif_id = row[0].strip()
+            raw = [c.strip() for c in row[1:]]
+            target = np.array([float(c) if c else 0.0 for c in raw],
+                              np.float32)
+            mask = np.array([1.0 if c else 0.0 for c in raw], np.float32)
+            rows.append((cif_id, os.path.join(root_dir, cif_id + ".cif"),
+                         target, mask))
+    return rows
+
+
+def load_cif_directory(
+    root_dir: str,
+    cfg: FeaturizeConfig | None = None,
+    id_prop_file: str = "id_prop.csv",
+    keep_geometry: bool = False,
+) -> list[CrystalGraph]:
+    """The reference directory layout, ``{root}/{id}.cif`` + id_prop.csv
+    (``read_id_prop``), featurized in file order on this thread. A file
+    that does not parse or featurize is skipped with a warning; a
+    directory with nothing usable raises."""
+    cfg = cfg or FeaturizeConfig()
+    gdf = cfg.gdf()
+    graphs: list[CrystalGraph] = []
+    for cif_id, path, target, mask in read_id_prop(root_dir, id_prop_file):
+        try:
+            structure = parse_cif_file(path)
+            graphs.append(featurize_structure(
+                structure, target, cfg, cif_id, gdf, target_mask=mask,
+                keep_geometry=keep_geometry))
+        except Exception as e:  # noqa: BLE001 — warn and skip, as the reference
+            warnings.warn(f"skipping {cif_id}: {e}", stacklevel=2)
+    if not graphs:
+        raise ValueError(f"no usable structures under {root_dir}")
+    return graphs
 
 
 def load_synthetic(

@@ -137,6 +137,13 @@ ELEMENTS: dict[int, tuple] = {
     100: ("Fm", 3, 7, "f", 1.30, NAN, 12, 6.50, NAN, NAN),
 }
 
+SYMBOL_TO_Z: dict[str, int] = {v[0]: z for z, v in ELEMENTS.items()}
+# hydrogen-isotope aliases: neutron-diffraction CIFs label deuterium and
+# tritium sites 'D'/'T'; chemically they featurize as hydrogen
+SYMBOL_TO_Z["D"] = 1
+SYMBOL_TO_Z["T"] = 1
+Z_TO_SYMBOL: dict[int, str] = {z: v[0] for z, v in ELEMENTS.items()}
+
 MAX_Z = 100
 ATOM_FEA_DIM = 92
 

@@ -105,11 +105,12 @@ class GraphBatch:
     def graph_capacity(self) -> int:
         return self.targets.shape[0]
 
-    def to(self, device) -> "GraphBatch":
-        """A copy with every tensor on ``device``."""
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        """A copy with every tensor on ``device`` (``non_blocking``: an
+        asynchronous copy on the current stream where the source allows)."""
         return GraphBatch(**{
             f.name: (None if (v := getattr(self, f.name)) is None
-                     else v.to(device))
+                     else v.to(device, non_blocking=non_blocking))
             for f in dataclasses.fields(self)
         })
 

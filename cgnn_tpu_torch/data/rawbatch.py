@@ -250,10 +250,12 @@ class RawBatch:
     targets: torch.Tensor  # [Gcap, T] f32
     target_mask: torch.Tensor  # [Gcap, T] f32
 
-    def to(self, device) -> "RawBatch":
-        """A copy with every tensor on ``device``."""
-        return RawBatch(**{f.name: getattr(self, f.name).to(device)
-                           for f in dataclasses.fields(self)})
+    def to(self, device, non_blocking: bool = False) -> "RawBatch":
+        """A copy with every tensor on ``device`` (``non_blocking``: an
+        asynchronous copy on the current stream where the source allows)."""
+        return RawBatch(**{
+            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
+            for f in dataclasses.fields(self)})
 
     def numpy(self) -> dict:
         """{field: host numpy copy}, for comparisons."""

@@ -75,6 +75,20 @@ class Structure:
         """[N,3] Cartesian coordinates (frac @ lattice, row-vector convention)."""
         return self.frac_coords @ self.lattice
 
+    def lattice_parameters(self) -> tuple[float, float, float, float, float,
+                                          float]:
+        """(a, b, c, alpha, beta, gamma) in Å / degrees."""
+        lengths = np.linalg.norm(self.lattice, axis=1)
+        a1, a2, a3 = self.lattice
+
+        def angle(u, v):
+            cosv = float(np.dot(u, v) / (np.linalg.norm(u) * np.linalg.norm(v)))
+            return math.degrees(math.acos(max(-1.0, min(1.0, cosv))))
+
+        return (
+            float(lengths[0]), float(lengths[1]), float(lengths[2]),
+            angle(a2, a3), angle(a1, a3), angle(a1, a2),
+        )
 
     def wrapped(self) -> "Structure":
         """Copy with fractional coordinates wrapped into [0, 1)."""

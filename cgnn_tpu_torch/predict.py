@@ -1,6 +1,7 @@
 """Bulk predict with the port (``predict.py``'s counterpart):
 
-    python -m cgnn_tpu_torch.predict CKPT_DIR --synthetic 512 --out preds.csv
+    python -m cgnn_tpu_torch.predict CKPT_DIR DATA_DIR --out preds.csv
+    python -m cgnn_tpu_torch.predict CKPT_DIR --cache graphs.npz --compact on
     python -m cgnn_tpu_torch.predict CKPT_DIR --synthetic 64 --device cpu
 
 Loads a checkpoint directory written by ``python -m cgnn_tpu_torch.train``
@@ -10,6 +11,13 @@ normalizer through ``train.checkpoint.load_for_inference`` (``--best``
 for the best save, else the newest restorable one). It predicts and writes
 ``predict.py``'s CSV rows, ``id, target..., prediction...``, each number
 ``%.6f``, in input order.
+
+Data, as in ``predict.py``: ``--cache PATH`` (a graph cache, data/cache.py;
+a missing file exits 2), else ``--synthetic N``, else the CIF directory
+``DATA_DIR`` (``{id}.cif`` + ``id_prop.csv``), featurized here with its
+geometry kept when the raw wire is wanted, so ``--wire raw`` on a CIF
+directory builds the graphs on the device. A cache holds no atomic
+numbers, so its graphs take the featurized wire.
 
 Paths, as in ``predict.py``: ``--buckets N`` packs N size classes at
 their own snug capacities; by default batches pack into a shape ladder of
@@ -21,11 +29,16 @@ auto`` is raw on the card and featurized on the CPU. The default device
 is the card, which raises without one; ``--device cpu`` runs the kernels'
 plain versions.
 
-Not ported yet; each exits 2 naming its ROADMAP item (Queue 1): DATA_DIR
-and ``--cache`` (CIF input and the graph cache, item 3), ``--packing
-ladder`` (item 10), ``--compact on`` and ``--pack-workers`` above 0 (item
-4), ``--devices`` other than auto or 1 and ``--engine mesh`` (items 9 and
-11).
+``--compact on`` stages the featurized batches compactly (atoms and
+distances; the device rebuilds the batch, data/compact.py) into pooled
+staging buffers; ``auto`` does so on the card with the dense layout,
+``off`` never. Data that cannot stage compactly is reported: ``auto``
+then packs full, ``on`` exits 2. ``--pack-workers K`` packs on K threads
+(default: 4 on the card, 0 on the CPU).
+
+Not ported yet; each exits 2 naming its ROADMAP item (Queue 1):
+``--packing ladder`` (item 10), ``--devices`` other than auto or 1 and
+``--engine mesh`` (items 9 and 11).
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ import argparse
 import csv
 import json
 import math
+import os
 import sys
 
 
@@ -44,8 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("ckpt_dir", help="checkpoint directory written by "
                                     "python -m cgnn_tpu_torch.train")
     p.add_argument("root_dir", nargs="?", default=None,
-                   help="dataset dir of CIFs (not ported yet: Queue 1, "
-                        "item 3)")
+                   help="dataset dir: {id}.cif files + id_prop.csv")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--best", action="store_true",
@@ -55,8 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", type=int, default=0,
                    help="predict on N synthetic structures")
     p.add_argument("--cache", type=str, default="",
-                   help="featurized graph cache (not ported yet: Queue 1, "
-                        "item 3)")
+                   help="featurized graph cache (.npz, python -m "
+                        "cgnn_tpu_torch.data.preprocess)")
     p.add_argument("--packing", choices=["snug", "ladder"], default="snug",
                    help="snug = fill-to-capacity batches")
     p.add_argument("--buckets", type=int, default=0,
@@ -65,15 +78,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rungs", type=int, default=2,
                    help="shape-ladder depth")
     p.add_argument("--pack-workers", type=int, default=None,
-                   help="host pack threads (not ported yet: 0 only)")
+                   help="host pack threads (default: 4 on the card, 0 on "
+                        "the CPU)")
     p.add_argument("--wire", choices=["auto", "raw", "featurized"],
                    default="auto",
                    help="'raw' builds the graphs on the device; 'auto' is "
                         "raw on the card, featurized on the CPU")
     p.add_argument("--compact", choices=["auto", "on", "off"],
                    default="auto",
-                   help="compact staging (not ported yet: auto and off "
-                        "stage full batches)")
+                   help="compact staging of featurized batches; auto = on "
+                        "the card with the dense layout")
     p.add_argument("--devices", default="auto", metavar="{auto,N}",
                    help="devices to dispatch over (one card only so far)")
     p.add_argument("--engine", choices=["auto", "mesh", "threads"],
@@ -84,22 +98,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str | None:
     """Why these arguments ask for something not ported yet, or None."""
-    if args.root_dir or args.cache:
-        return ("DATA_DIR and --cache (CIF input and the graph cache) are "
-                "not ported yet (ROADMAP Queue 1, item 3); use --synthetic")
     if args.packing == "ladder":
         return ("--packing ladder is not ported yet (ROADMAP Queue 1, item "
                 "10)")
-    if args.compact == "on":
-        return "--compact on is not ported yet (ROADMAP Queue 1, item 4)"
-    if args.pack_workers:
-        return ("--pack-workers above 0 is not ported yet (ROADMAP Queue 1, "
-                "item 4)")
     if args.devices not in ("auto", "1") or args.engine == "mesh":
         return ("--devices other than auto/1 and --engine mesh are not "
                 "ported yet (ROADMAP Queue 1, items 9 and 11)")
-    if not args.synthetic:
-        return "--synthetic N is required (DATA_DIR: ROADMAP Queue 1, item 3)"
     return None
 
 
@@ -113,6 +117,13 @@ def main(argv=None) -> int:
     from cgnn_tpu_torch.device import resolve_device
     from cgnn_tpu_torch.train.checkpoint import load_for_inference
 
+    if not (args.cache or args.synthetic or args.root_dir):
+        print("DATA_DIR, --cache, or --synthetic is required",
+              file=sys.stderr)
+        return 2
+    if args.cache and not os.path.exists(args.cache):
+        print(f"--cache {args.cache} does not exist", file=sys.stderr)
+        return 2
     dev = resolve_device(args.device)
     try:
         state, meta, _ = load_for_inference(
@@ -130,12 +141,50 @@ def main(argv=None) -> int:
                 dev)
 
 
+def _load(args, fcfg, want_raw: bool):
+    """The graphs to predict: the cache, the synthetic set or the CIF
+    directory (module docstring)."""
+    if args.cache:
+        from cgnn_tpu_torch.data.cache import load_graph_cache
+
+        graphs = load_graph_cache(args.cache)
+        print(f"loaded {len(graphs)} graphs from {args.cache}")
+        return graphs
+    if args.synthetic:
+        from cgnn_tpu_torch.data.dataset import load_synthetic
+
+        return load_synthetic(args.synthetic, fcfg, keep_geometry=want_raw)
+    from cgnn_tpu_torch.data.dataset import load_cif_directory
+
+    return load_cif_directory(args.root_dir, fcfg, keep_geometry=want_raw)
+
+
+def _compact_spec(args, graphs, fcfg, layout_m, dev):
+    """-> (CompactSpec or None, None), or (None, why ``--compact on``
+    cannot be served)."""
+    if args.compact == "off" or (args.compact == "auto"
+                                 and dev.type != "cuda"):
+        return None, None
+    from cgnn_tpu_torch.data.compact import CompactSpec, CompactUnsupported
+
+    try:
+        if layout_m is None:
+            raise CompactUnsupported("compact staging requires the dense "
+                                     "layout")
+        return CompactSpec.build(graphs, fcfg.gdf(), dense_m=layout_m), None
+    except CompactUnsupported as e:
+        if args.compact == "on":
+            return None, f"--compact on: compact staging unavailable ({e})"
+        print(f"compact staging unavailable ({e}); using full-fidelity "
+              f"packing", file=sys.stderr)
+        return None, None
+
+
 def _run(args, state, model_cfg, data_cfg, dev) -> int:
     import time
 
     import numpy as np
 
-    from cgnn_tpu_torch.data.dataset import load_synthetic
     from cgnn_tpu_torch.train.infer import (
         _shape_set_plan,
         run_fast_inference,
@@ -145,17 +194,31 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
     fcfg = data_cfg.featurize_config()
     want_raw = args.wire == "raw" or (args.wire == "auto"
                                       and dev.type == "cuda")
-    graphs = load_synthetic(args.synthetic, fcfg, keep_geometry=want_raw)
+    try:
+        graphs = _load(args, fcfg, want_raw)
+    except (FileNotFoundError, ValueError) as e:  # no id_prop.csv, no usable CIF
+        print(e, file=sys.stderr)
+        return 2
     layout_m = model_cfg.dense_m or None
     n_targets = model_cfg.num_targets
+    compact, why = _compact_spec(args, graphs, fcfg, layout_m, dev)
+    if why:
+        print(why, file=sys.stderr)
+        return 2
+    pack_workers = (args.pack_workers if args.pack_workers is not None
+                    else 4 if dev.type == "cuda" else 0)
+    pipe: dict = {}
     # batches by wire on the ladder (None on the buckets path)
     counts = {"structures": len(graphs), "raw": 0, "batches_raw": None,
-              "batches_featurized": None}
+              "batches_featurized": None, "compact": compact is not None,
+              "pack_workers": pack_workers}
     if args.buckets >= 1:
         # per-size-class snug capacities derived from this dataset
         preds, rate = run_fast_inference(state, graphs, args.batch_size,
                                          buckets=args.buckets,
-                                         dense_m=layout_m)
+                                         dense_m=layout_m, compact=compact,
+                                         pack_workers=pack_workers,
+                                         stats=pipe)
         how = f"{args.buckets} size buckets"
     else:
         from cgnn_tpu_torch.serve.shapes import plan_shape_set
@@ -175,7 +238,7 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
                       file=sys.stderr)
         shape_set = plan_shape_set(graphs, args.batch_size, rungs=args.rungs,
                                    dense_m=layout_m, num_targets=n_targets,
-                                   raw=raw_spec)
+                                   compact=compact, raw=raw_spec)
         raw_idx: list[int] = []
         raws: list = []
         if raw_spec is not None:
@@ -198,7 +261,8 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
         if feat_idx:
             feat = [graphs[i] for i in feat_idx]
             preds[feat_idx], _ = run_fast_inference(
-                state, feat, args.batch_size, shape_set=shape_set)
+                state, feat, args.batch_size, shape_set=shape_set,
+                pack_workers=pack_workers, stats=pipe)
         rate = len(graphs) / (time.perf_counter() - t0)
         if feat_idx:
             counts["batches_featurized"] = sum(
@@ -208,9 +272,11 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
                                           / shape_set.largest.graph_cap)
         how = (f"{len(shape_set)}-rung shape ladder, {len(raw_idx)}/"
                f"{len(graphs)} structures on the raw wire")
-    print(f"inference throughput: {rate:.0f} structures/sec ({how}, {dev})")
-    print("predict: " + json.dumps(dict(counts, structures_per_s=rate),
-                                   allow_nan=False))
+    print(f"inference throughput: {rate:.0f} structures/sec ({how}, "
+          f"{'compact' if compact is not None else 'full'}-staged, "
+          f"{pack_workers} pack workers, {dev})")
+    print("predict: " + json.dumps(dict(counts, structures_per_s=rate,
+                                        pipeline=pipe), allow_nan=False))
     rows = [[g.cif_id] + [f"{t:.6f}" for t in np.atleast_1d(g.target)]
             + [f"{v:.6f}" for v in p] for g, p in zip(graphs, preds)]
     with open(args.out, "w", newline="") as f:

@@ -17,7 +17,12 @@ driven by one named worker thread::
         feat flush: deferred structures are featurized HERE, on the
                     worker, never on the caller's thread (a failure fails
                     that request alone) -> ShapeSet.pack_full -> .to(device)
-                    -> predict_step
+                    -> predict_step; with a compact spec, a flush whose
+                    every graph is compactable (probed here, on the
+                    worker, in one vectorized pass) packs ShapeSet.pack
+                    into a pooled staging buffer instead (the expander
+                    rebuilds the batch on the device), counted
+                    ``pack_compact``, else ``pack_full``
         -> resolve each future with its row
 
 In the flat COO layout (``ShapeSet.dense_m`` None) there is no raw wire,
@@ -28,9 +33,14 @@ featurization knows. A featurization failure rejects it alone (400).
 ``drain()`` is the stop path: it closes admission, lets the worker answer
 what was accepted, and joins it. ``counts["batches"]`` counts the flushes
 that ran, ``counts["pack_raw"]`` the raw ones, so a caller can tie kernel
-launches to flushes. Not ported yet: hot reload, the result cache,
-precision tiers, multi-device engines, compact staging, parallel packers,
-the edge-occupancy gauges and the observability plane.
+launches to flushes. A pooled compact buffer goes back to its pool after
+the flush's answers are fetched, which waits for the device. The JAX
+package probes compactability at admission, on the caller's thread; the
+port probes on the worker, because callers running numpy under the GIL
+beside the worker's eager dispatch cut a burst's requests/s 4x (measured
+on an H100 host). Not ported yet: hot reload, the result cache, precision
+tiers, multi-device engines, the background packer thread, the
+edge-occupancy gauges and the observability plane.
 """
 
 from __future__ import annotations
@@ -42,11 +52,14 @@ import time
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from cgnn_tpu_torch.config import DataConfig, ModelConfig
 from cgnn_tpu_torch.convert import from_flax_variables, load_params
+from cgnn_tpu_torch.data.compact import CompactSpec, CompactUnsupported
 from cgnn_tpu_torch.data.elements import MAX_Z
 from cgnn_tpu_torch.data.graph import CrystalGraph
+from cgnn_tpu_torch.data.pipeline import BufferPool
 from cgnn_tpu_torch.data.rawbatch import (
     RawStructure,
     RawUnsupported,
@@ -114,7 +127,9 @@ class InferenceServer:
         self.shape_set = shape_set
         self.version = version
         self.predict_step = make_predict_step(
-            raw_expander=shape_set.raw_expander(device=self.device))
+            raw_expander=shape_set.raw_expander(device=self.device),
+            expander=shape_set.expander(device=self.device))
+        self._pool = None if shape_set.compact is None else BufferPool()
         self._raw_precheck = bool(raw_precheck)
         self.batcher = MicroBatcher(shape_set, max_queue=max_queue,
                                     max_wait_ms=max_wait_ms)
@@ -131,6 +146,7 @@ class InferenceServer:
             "reject_oversize": 0, "reject_timeout": 0,
             "reject_shutdown": 0, "reject_malformed": 0,
             "pack_raw": 0, "responses_raw": 0, "ingest_cap_overflow": 0,
+            "pack_compact": 0, "pack_full": 0,
         }
         self._latencies: list[float] = []
         # (atom feature width, edge feature width) learned at warm(): the
@@ -141,16 +157,26 @@ class InferenceServer:
     # ---- lifecycle ----
 
     def warm(self, template: CrystalGraph) -> int:
-        """Run every rung once with one copy of ``template`` (and, with a
-        raw spec, the raw program once with ``spec.template()``): builds
-        the kernels and initializes the device libraries before traffic.
-        -> the number of rungs run."""
+        """Run every rung once with one copy of ``template`` (in both
+        staging forms with a compact spec, and, with a raw spec, the raw
+        program once with ``spec.template()``): builds the kernels and
+        initializes the device libraries before traffic. -> the number of
+        rungs run."""
         self._feature_dims = (template.atom_fea.shape[1],
                               template.edge_fea.shape[1])
         raw = self.shape_set.raw
         for shape in self.shape_set:
             batch = self.shape_set.pack_full([template], shape=shape)
             self.predict_step(self.state, batch.to(self.device)).cpu()
+            if self.shape_set.compactable(template):
+                # through a pooled staging buffer: its pinned allocation
+                # is paid here, not by the rung's first flush
+                key = self.shape_set.buffer_key(shape)
+                buf = self._pool.acquire(key, self.shape_set.buffer_factory(
+                    shape, pin=self.device.type == "cuda"))
+                cb = self.shape_set.pack([template], shape=shape, out=buf)
+                self.predict_step(self.state, cb.to(self.device)).cpu()
+                self._pool.release(key, buf)
             if raw is not None:
                 rb = self.shape_set.pack_raw([raw.template()], shape=shape)
                 self.predict_step(self.state, rb.to(self.device))[0].cpu()
@@ -321,7 +347,7 @@ class InferenceServer:
         reqs = flush.requests
         if not reqs:
             return
-        overflow = None
+        overflow = buf = None
         try:
             if raw:
                 self._count("pack_raw")
@@ -332,16 +358,24 @@ class InferenceServer:
                 out = preds.cpu().numpy()
                 overflow = overflow.cpu().numpy()
             else:
-                batch = self.shape_set.pack_full([r.graph for r in reqs],
-                                                 shape=flush.shape)
+                batch, buf = self._pack_featurized(flush)
                 out = self.predict_step(
-                    self.state, batch.to(self.device)).cpu().numpy()
+                    self.state,
+                    batch.to(self.device, non_blocking=buf is not None),
+                ).cpu().numpy()
         except Exception as e:  # noqa: BLE001 — fail the flush, not the server
             self._log(f"serve: batch {flush.flush_id} failed: {e!r}")
             self._count("batch_failures")
             for r in reqs:
                 r.future.set_error(e)
             return
+        finally:
+            if buf is not None:
+                if self.device.type == "cuda":
+                    # the fetch above has waited for the copy that reads
+                    # the buffer; a failed flush may have left it running
+                    torch.cuda.current_stream(self.device).synchronize()
+                self._pool.release(*buf)
         now = time.monotonic()
         occupancy = len(reqs) / flush.shape.graph_cap
         wire = "raw" if raw else "featurized"
@@ -361,6 +395,27 @@ class InferenceServer:
             if raw:
                 self._count("responses_raw")
         self._count("batches")
+
+    def _pack_featurized(self, flush: Flush):
+        """-> (batch, pooled buffer or None): the compact form into a
+        pooled staging buffer when the set has a compact spec and every
+        graph of the flush is compactable, else the full form."""
+        graphs = [r.graph for r in flush.requests]
+        if self.shape_set.compact is None:
+            return self.shape_set.pack_full(graphs, shape=flush.shape), None
+        if not all(self.shape_set.compact.compactable_many(graphs)):
+            self._count("pack_full")
+            return self.shape_set.pack_full(graphs, shape=flush.shape), None
+        key = self.shape_set.buffer_key(flush.shape)
+        buf = (key, self._pool.acquire(key, self.shape_set.buffer_factory(
+            flush.shape, pin=self.device.type == "cuda")))
+        try:
+            batch = self.shape_set.pack(graphs, shape=flush.shape, out=buf[1])
+        except Exception:
+            self._pool.release(*buf)
+            raise
+        self._count("pack_compact")
+        return batch, buf
 
     def _featurize_pending(self, flush: Flush) -> None:
         """Featurize the flush's deferred wire-form structures here, on
@@ -436,6 +491,7 @@ class InferenceServer:
             "shapes": [s.to_meta() for s in self.shape_set],
             "raw": (None if self.shape_set.raw is None
                     else self.shape_set.raw.to_meta()),
+            "compact": self.shape_set.compact is not None,
         }
 
 
@@ -488,6 +544,7 @@ def load_server(
     log_fn: Callable = print,
     wire: str = "auto",
     raw_precheck: bool = True,
+    compact: str = "auto",
 ):
     """Boot an InferenceServer from a saved model at ``path``: a parameter
     file and its meta (``load_server(npz, meta_json)``,
@@ -506,12 +563,21 @@ def load_server(
     0) serves the featurized wire only, whatever ``wire`` asks, and says
     so in the log. ``raw_precheck``: see InferenceServer.
 
+    ``compact``: 'on' stages featurized flushes compactly (a
+    ``CompactSpec`` built from the calibration), 'off' never, 'auto' on a
+    CUDA device with the dense layout. Where the calibration cannot stage
+    compactly (``CompactUnsupported``) the log says why and flushes pack
+    full.
+
     -> (server, dict of what callers reuse: meta, configs, template graph,
     the calibration sample).
     """
     if wire not in ("auto", "raw", "featurized"):
         raise ValueError(
             f"wire must be 'auto', 'raw' or 'featurized', got {wire!r}")
+    if compact not in ("auto", "on", "off"):
+        raise ValueError(
+            f"compact must be 'auto', 'on' or 'off', got {compact!r}")
     dev = resolve_device(device)
     if meta_json is None:
         state, meta, version = load_for_inference(path, tag, dev)
@@ -540,9 +606,24 @@ def load_server(
         except RawUnsupported as e:
             log_fn(f"serve: raw wire unavailable ({e}); featurized wire "
                    f"only")
+    compact_spec = None
+    want_compact = compact == "on" or (compact == "auto"
+                                       and dev.type == "cuda")
+    if want_compact and dense_m is None:
+        log_fn("serve: compact staging requires the dense layout; full "
+               "packing")
+    elif want_compact:
+        try:
+            compact_spec = CompactSpec.build(
+                list(calibration), data_cfg.featurize_config().gdf(),
+                dense_m=dense_m)
+        except CompactUnsupported as e:
+            log_fn(f"serve: compact staging unavailable ({e}); full "
+                   f"packing")
     shape_set = plan_shape_set(
         calibration, batch_size, rungs=rungs, dense_m=dense_m,
-        num_targets=model_cfg.num_targets, raw=raw_spec,
+        num_targets=model_cfg.num_targets, compact=compact_spec,
+        raw=raw_spec,
     )
     template = calibration[0]
     server = InferenceServer(

@@ -6,6 +6,10 @@ the smallest rung that fits. PyTorch runs eagerly, so the ladder buys no
 compile cache here — it bounds the shapes the kernels see and keeps the
 rungs equal to the JAX package's for the same calibration sample.
 
+With a ``CompactSpec`` (data/compact.py) ``pack`` stages the compact form
+(atoms and distances; the expander rebuilds the batch on the device) and
+``pack_full`` the full one, for a request that cannot stage compactly.
+
 With a :class:`RawSpec` the set also stages wire-form structures: a rung's
 raw batch holds ``graph_cap`` structure slots of ``snode_cap`` atoms, and
 the raw expander (ops/neighbor_search.py) builds the graph on the device.
@@ -23,6 +27,14 @@ from typing import Sequence
 
 import numpy as np
 
+from cgnn_tpu_torch.data.compact import (
+    CompactBatch,
+    CompactSpec,
+    alloc_compact_buffers,
+    compact_buffer_key,
+    make_expander,
+    pack_compact,
+)
 from cgnn_tpu_torch.data.graph import (
     CrystalGraph,
     GraphBatch,
@@ -60,16 +72,22 @@ class BatchShape:
 
 class ShapeSet:
     """An ascending ladder of :class:`BatchShape` rungs plus the packing
-    parameters every rung shares (edge layout, target width)."""
+    parameters every rung shares (edge layout, target width, the compact
+    and raw specs)."""
 
     def __init__(self, shapes: Sequence[BatchShape], *,
                  dense_m: int | None = None, num_targets: int = 1,
+                 compact: CompactSpec | None = None,
                  raw: RawSpec | None = None):
         if not shapes:
             raise ValueError("a ShapeSet needs at least one shape")
         self.shapes = tuple(sorted(set(shapes)))
         self.dense_m = dense_m
         self.num_targets = num_targets
+        self.compact = compact
+        if compact is not None and dense_m is None:
+            raise ValueError("compact staging requires the dense layout "
+                             "(dense_m)")
         self.raw = raw
         if raw is not None:
             if dense_m is None:
@@ -126,10 +144,9 @@ class ShapeSet:
                 return s
         return None
 
-    def pack_full(self, graphs: Sequence[CrystalGraph],
-                  shape: BatchShape | None = None) -> GraphBatch:
-        """Full-fidelity pack into ``shape`` (default: the smallest rung
-        that fits), without transpose slots."""
+    def _resolve(self, graphs: Sequence[CrystalGraph],
+                 shape: BatchShape | None) -> BatchShape:
+        """``shape``, or the smallest rung that fits ``graphs``."""
         if shape is None:
             n = sum(g.num_nodes for g in graphs)
             e = sum(self.graph_counts(g)[1] for g in graphs)
@@ -138,10 +155,62 @@ class ShapeSet:
                 raise ValueError(
                     f"{len(graphs)} graphs ({n} nodes) fit no shape in "
                     f"{self.shapes}")
+        return shape
+
+    def pack(self, graphs: Sequence[CrystalGraph],
+             shape: BatchShape | None = None,
+             out: CompactBatch | None = None) -> GraphBatch | CompactBatch:
+        """Pack into ``shape`` (default: the smallest rung that fits): the
+        compact form with a compact spec (``out``: a pooled staging
+        buffer, see ``buffer_factory``), else the full one."""
+        if self.compact is None:
+            return self.pack_full(graphs, shape)
+        shape = self._resolve(graphs, shape)
+        return pack_compact(list(graphs), shape.node_cap, shape.edge_cap,
+                            shape.graph_cap, self.compact,
+                            num_targets=self.num_targets,
+                            dense_m=self.dense_m, out=out)
+
+    def pack_full(self, graphs: Sequence[CrystalGraph],
+                  shape: BatchShape | None = None) -> GraphBatch:
+        """Full-fidelity pack into ``shape`` (default: the smallest rung
+        that fits), without transpose slots, whatever the compact spec:
+        the form of a request that cannot stage compactly."""
+        shape = self._resolve(graphs, shape)
         return pack_graphs(
             list(graphs), shape.node_cap, shape.edge_cap, shape.graph_cap,
             num_targets=self.num_targets, dense_m=self.dense_m,
         )
+
+    def compactable(self, graph: CrystalGraph) -> bool:
+        """Can this graph stage compactly under the set's spec? False
+        without one; never raises (the serving admission probe)."""
+        return (self.compact is not None
+                and self.compact.graph_compactable(graph))
+
+    def expander(self, device="cuda"):
+        """CompactBatch -> GraphBatch on ``device`` for this set's compact
+        spec (None without one): hand it to
+        ``train.step.make_predict_step(expander=...)``."""
+        if self.compact is None:
+            return None
+        return make_expander(self.compact, device)
+
+    def buffer_key(self, shape: BatchShape) -> tuple:
+        """Staging-buffer pool key of one rung (compact sets only)."""
+        if self.compact is None:
+            raise ValueError("buffer pooling applies to compact staging")
+        return compact_buffer_key(shape.node_cap, self.dense_m,
+                                  shape.graph_cap, self.num_targets)
+
+    def buffer_factory(self, shape: BatchShape, pin: bool = False):
+        """() -> fresh staging buffers for one rung (the BufferPool
+        factory); ``pin`` for a CUDA target."""
+        if self.compact is None:
+            raise ValueError("buffer pooling applies to compact staging")
+        return lambda: alloc_compact_buffers(
+            shape.node_cap, self.dense_m, shape.graph_cap, self.num_targets,
+            pin=pin)
 
     def raw_expander(self, impl: str = "pallas", device="cuda"):
         """RawBatch -> (GraphBatch, overflow, n_edges) for this set's raw
@@ -178,6 +247,7 @@ class ShapeSet:
     def to_meta(self) -> dict:
         return {"shapes": [s.to_meta() for s in self.shapes],
                 "dense_m": self.dense_m, "num_targets": self.num_targets,
+                "compact": self.compact is not None,
                 "raw": None if self.raw is None else self.raw.to_meta()}
 
 
@@ -188,6 +258,7 @@ def plan_shape_set(
     rungs: int = 3,
     dense_m: int | None = None,
     num_targets: int | None = None,
+    compact: CompactSpec | None = None,
     raw: RawSpec | None = None,
 ) -> ShapeSet:
     """Quantize a serving ladder from a calibration sample.
@@ -196,7 +267,8 @@ def plan_shape_set(
     at ``batch_size`` with ``graph_cap_for`` slack); each lower rung halves
     the graph budget and scales node capacity proportionally (8-aligned),
     floored so that ANY calibration-sized structure fits EVERY rung.
-    ``raw`` adds the raw wire (``data.rawbatch.plan_raw_spec``).
+    ``compact`` adds compact staging (``data.compact.CompactSpec.build``),
+    ``raw`` the raw wire (``data.rawbatch.plan_raw_spec``).
     """
     if not len(calibration):
         raise ValueError("shape planning needs a calibration sample")
@@ -219,4 +291,4 @@ def plan_shape_set(
             ec = _align8(max(math.ceil(edge_cap / scale), max_edges))
         shapes.append(BatchShape(graph_cap_for(b), nc, ec))
     return ShapeSet(shapes, dense_m=dense_m, num_targets=num_targets,
-                    raw=raw)
+                    compact=compact, raw=raw)

@@ -1,9 +1,19 @@
 """Train the CGCNN regression model with the port:
 
+    python -m cgnn_tpu_torch.train DATA_DIR --cache graphs.npz --epochs 30
     python -m cgnn_tpu_torch.train --synthetic 400 --epochs 30
     python -m cgnn_tpu_torch.train --device cpu --synthetic 40 --epochs 1
     python -m cgnn_tpu_torch.train --aggregation pallas --synthetic 400
     python -m cgnn_tpu_torch.train --synthetic 400 --epochs 40 --resume auto
+
+Data, as train.py reads it: ``--cache PATH`` loads a graph cache
+(data/cache.py) when PATH exists; otherwise ``--synthetic N`` structures,
+or the CIF directory ``DATA_DIR`` (``{id}.cif`` + ``id_prop.csv``)
+featurized on ``-j`` worker processes (0: every core; 1: this process),
+and ``--cache PATH`` then writes the cache. ``--compact-staging on``
+exits 2: the JAX package stages training batches compactly only under
+its scan driver, whose port is ROADMAP Queue 1, item 5; ``auto`` is off
+until then.
 
 ``--layout`` follows train.py's rules: ``auto`` is the dense layout unless
 ``--aggregation`` names a COO aggregation; ``--layout dense`` with
@@ -38,9 +48,16 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m cgnn_tpu_torch.train",
         description="Train CGCNN (regression) with the PyTorch/CUDA port.")
+    p.add_argument("root_dir", nargs="?", default=None,
+                   help="dataset dir: {id}.cif files + id_prop.csv")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
-                   help="train on N synthetic crystals (required: the "
-                        "port reads no CIF directory yet)")
+                   help="train on N synthetic crystals instead of root_dir")
+    p.add_argument("--cache", type=str, default="",
+                   help="graph cache (.npz): loaded if present, else written "
+                        "after featurization (python -m "
+                        "cgnn_tpu_torch.data.preprocess)")
+    p.add_argument("-j", "--workers", type=int, default=0,
+                   help="featurization worker processes (0 = all cores)")
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--start-epoch", type=int, default=0)
     p.add_argument("-b", "--batch-size", type=int, default=256)
@@ -85,6 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="edge layout: auto = dense unless --aggregation "
                         "is given")
+    p.add_argument("--compact-staging", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="compact staging of training batches: needs the "
+                        "scan driver (not ported: 'on' exits 2, 'auto' is "
+                        "off)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--ckpt-dir", default="checkpoints/torch",
@@ -124,16 +146,14 @@ def main(argv=None) -> int:
     dense_m = resolve_layout(args)
     if dense_m is None:
         return 2
-    if args.synthetic <= 0:
-        print("--synthetic N is required", file=sys.stderr)
+    if args.compact_staging == "on":
+        print("--compact-staging on requires the scan driver, which is not "
+              "ported yet (ROADMAP Queue 1, item 5)", file=sys.stderr)
         return 2
 
     from cgnn_tpu_torch import convert
     from cgnn_tpu_torch.config import DataConfig, ModelConfig
-    from cgnn_tpu_torch.data.dataset import (
-        load_synthetic,
-        train_val_test_split,
-    )
+    from cgnn_tpu_torch.data.dataset import train_val_test_split
     from cgnn_tpu_torch.device import resolve_device
     from cgnn_tpu_torch.train.checkpoint import CheckpointManager
     from cgnn_tpu_torch.train.loop import evaluate, fit
@@ -142,11 +162,9 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     data_cfg = DataConfig(radius=args.radius, max_num_nbr=args.max_num_nbr,
                           dmin=args.dmin, step=args.step)
-    t0 = time.perf_counter()
-    graphs = load_synthetic(args.synthetic, data_cfg.featurize_config(),
-                            seed=args.seed)
-    print(f"featurized {len(graphs)} structures "
-          f"in {time.perf_counter() - t0:.1f}s")
+    graphs = load_graphs(args, data_cfg)
+    if graphs is None:
+        return 2
     train_g, val_g, test_g = train_val_test_split(
         graphs, args.train_ratio, args.val_ratio, seed=args.seed)
     num_targets = int(train_g[0].target.shape[0])
@@ -199,6 +217,48 @@ def main(argv=None) -> int:
         normalizer_std=state.normalizer.std.cpu().numpy())
     print(f"wrote {npz} and {meta}")
     return 0
+
+
+def load_graphs(args, data_cfg):
+    """train.py's data rules (module docstring) -> graphs, or None after
+    printing why there are none."""
+    from cgnn_tpu_torch.data.cache import (
+        featurize_directory_parallel,
+        load_graph_cache,
+        save_graph_cache,
+    )
+    from cgnn_tpu_torch.data.dataset import load_cif_directory, load_synthetic
+
+    t0 = time.perf_counter()
+    if args.cache and os.path.exists(args.cache):
+        graphs = load_graph_cache(args.cache)
+        print(f"loaded {len(graphs)} graphs from {args.cache} "
+              f"in {time.perf_counter() - t0:.1f}s")
+        return graphs
+    fcfg = data_cfg.featurize_config()
+    if args.synthetic:
+        graphs = load_synthetic(args.synthetic, fcfg, seed=args.seed)
+    elif args.root_dir:
+        if args.workers != 1:
+            graphs, failures = featurize_directory_parallel(
+                args.root_dir, fcfg, workers=args.workers or None)
+            for cif_id, err in failures[:10]:
+                print(f"skipped {cif_id}: {err}", file=sys.stderr)
+            if not graphs:
+                print(f"no usable structures under {args.root_dir}",
+                      file=sys.stderr)
+                return None
+        else:
+            graphs = load_cif_directory(args.root_dir, fcfg)
+    else:
+        print("either DATA_DIR or --synthetic N is required", file=sys.stderr)
+        return None
+    print(f"featurized {len(graphs)} structures "
+          f"in {time.perf_counter() - t0:.1f}s")
+    if args.cache:
+        save_graph_cache(graphs, args.cache)
+        print(f"wrote cache {args.cache}")
+    return graphs
 
 
 def _resume(args, ckpt, state) -> int | None:

@@ -17,22 +17,37 @@ structures/s including packing)``. Each batch's output stays on the
 device; the host fetches once per ``_WINDOW`` batches, with one
 ``torch.cat(...).cpu()``, and never syncs once per batch.
 
+``run_fast_inference`` also stages compactly (``compact``, or a compact
+shape set): batches pack into pooled staging buffers (data/compact.py;
+pinned for a card) and the predict step's expander rebuilds them on the
+device. The copy to the card is asynchronous, so a buffer goes back to
+its pool only once a CUDA event recorded after its copy has completed
+(``_Fence``): before that, the next pack would overwrite bytes the copy
+still reads. ``pack_workers > 0`` packs on that many threads
+(data/pipeline.py), in order.
+
 Not ported yet, and refused with a ``ValueError`` naming the ROADMAP
-item (Queue 1) when asked for: compact staging and parallel packers
-(``compact``, ``pack_workers > 0``: item 4), multi-device dispatch
-(``devices``, ``engine``: items 9 and 11). Packing is snug
-(fill-to-capacity) only: the headroom/ladder capacities and the batch
-invariant checks (off by default in the JAX package) wait for item 10.
+item (Queue 1) when asked for: multi-device dispatch (``devices``,
+``engine``: items 9 and 11). Packing is snug (fill-to-capacity) only: the
+headroom/ladder capacities and the batch invariant checks (off by
+default in the JAX package) wait for item 10.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from cgnn_tpu_torch.data.compact import (
+    alloc_compact_buffers,
+    compact_buffer_key,
+    make_expander,
+    pack_compact,
+)
 from cgnn_tpu_torch.data.graph import (
     assign_size_buckets,
     capacities_for,
@@ -40,6 +55,7 @@ from cgnn_tpu_torch.data.graph import (
     pack_graphs,
     plan_batches,
 )
+from cgnn_tpu_torch.data.pipeline import BufferPool, PipelineStats, parallel_pack
 from cgnn_tpu_torch.train.step import make_predict_step
 
 # batches in flight before the host fetches their outputs (the JAX
@@ -47,14 +63,7 @@ from cgnn_tpu_torch.train.step import make_predict_step
 _WINDOW = 16
 
 
-def _refuse_unported(compact=None, pack_workers: int = 0, devices=None,
-                     engine: str = "auto") -> None:
-    if compact is not None:
-        raise ValueError("compact staging is not ported yet (ROADMAP "
-                         "Queue 1, item 4)")
-    if pack_workers:
-        raise ValueError("parallel packers (pack_workers > 0) are not "
-                         "ported yet (ROADMAP Queue 1, item 4)")
+def _refuse_unported(devices=None, engine: str = "auto") -> None:
     if devices is not None or engine != "auto":
         raise ValueError("multi-device dispatch (devices, engine) is not "
                          "ported yet (ROADMAP Queue 1, items 9 and 11)")
@@ -62,6 +71,36 @@ def _refuse_unported(compact=None, pack_workers: int = 0, devices=None,
 
 def _state_device(state) -> torch.device:
     return next(state.model.parameters()).device
+
+
+class _Fence:
+    """Pooled staging buffers in dispatch order, each with the CUDA event
+    recorded on the current stream right after its copy to the device
+    (None on the CPU, where the step has read the buffer when it returns).
+    A buffer goes back to its pool once its event has completed; the
+    stream runs in order, so the oldest entry completes first."""
+
+    def __init__(self, pool: BufferPool, dev: torch.device):
+        self.pool = pool
+        self.cuda = dev.type == "cuda"
+        self._pending: collections.deque = collections.deque()
+
+    def add(self, buf) -> None:
+        ev = None
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+        self._pending.append((ev, buf))
+
+    def release_done(self, wait: bool = False) -> None:
+        while self._pending:
+            ev, buf = self._pending[0]
+            if ev is not None and not ev.query():
+                if not wait:
+                    return
+                ev.synchronize()
+            self._pending.popleft()
+            self.pool.release(*buf)
 
 
 class _Window:
@@ -135,6 +174,7 @@ def run_fast_inference(
     pack_workers: int = 0,
     devices=None,
     engine: str = "auto",
+    stats: dict | None = None,
 ) -> tuple[np.ndarray, float]:
     """Predict featurized ``graphs`` with ``state`` (an InferenceState on
     its device) -> ([n, T] predictions in input order, end-to-end
@@ -144,30 +184,89 @@ def run_fast_inference(
     ``buckets``/``dense_m`` are ignored (the set carries the layout).
     Without, graphs are split into ``buckets`` node-count classes, each
     packed at its own snug capacities (fill-to-capacity) in input order.
+
+    ``compact`` (a ``data.compact.CompactSpec``; a compact ``shape_set``
+    implies it) stages the compact form into pooled buffers (module
+    docstring). ``pack_workers > 0`` packs on that many threads; 0 packs
+    on this thread, with the same outputs. ``stats``, when given, is
+    filled with the packers' counters (``wait_s``, ``pack_s``, ``jobs``)
+    and the pool's (``buffers_allocated``, ``buffers_reused``).
     """
-    _refuse_unported(compact, pack_workers, devices, engine)
+    _refuse_unported(devices, engine)
     if not len(graphs):
         raise ValueError("no graphs to predict")
+    if shape_set is not None and shape_set.compact is not None:
+        if compact is not None and compact is not shape_set.compact:
+            raise ValueError("shape_set already carries a compact spec")
+        compact = shape_set.compact
     dev = _state_device(state)
     state.model.eval()
-    step = make_predict_step()
+    step = make_predict_step(
+        expander=None if compact is None else make_expander(compact, dev))
+    pin = dev.type == "cuda"
+    pool = BufferPool() if compact is not None else None
+    fence = None if pool is None else _Fence(pool, dev)
+
+    def acquire(key, factory):
+        return key, pool.acquire(key, factory)
+
     n = len(graphs)
     t0 = time.perf_counter()
     if shape_set is not None:
-        jobs = ((span, shape_set.pack_full(sub, shape=shape))
-                for span, sub, shape in _shape_set_plan(graphs, shape_set))
+        def pack_job(job):
+            span, sub, shape = job
+            buf = None
+            if pool is not None:
+                buf = acquire(shape_set.buffer_key(shape),
+                              shape_set.buffer_factory(shape, pin))
+            batch = shape_set.pack(sub, shape=shape,
+                                   out=None if buf is None else buf[1])
+            return span, batch, buf
+
+        jobs = _shape_set_plan(graphs, shape_set)
     else:
+        tdim = int(np.atleast_1d(graphs[0].target).shape[0])
+
+        def pack_job(job):
+            span, sub, nc, ec, graph_cap = job
+            if compact is None:
+                return span, pack_graphs(sub, nc, ec, graph_cap,
+                                         dense_m=dense_m), None
+            buf = acquire(compact_buffer_key(nc, dense_m, graph_cap, tdim),
+                          lambda: alloc_compact_buffers(nc, dense_m,
+                                                        graph_cap, tdim,
+                                                        pin=pin))
+            return span, pack_compact(sub, nc, ec, graph_cap, compact,
+                                      num_targets=tdim, dense_m=dense_m,
+                                      out=buf[1]), buf
+
         jobs = _bucket_jobs(graphs, batch_size, buckets, dense_m)
+    pipe = PipelineStats()
+    packed = (parallel_pack(jobs, pack_job, workers=pack_workers,
+                            stats=pipe)
+              if pack_workers > 0 else map(pack_job, jobs))
     window = _Window(n)
-    for span, batch in jobs:
-        window.add(span, step(state, batch.to(dev)))
+    for span, batch, buf in packed:
+        on_dev = batch.to(dev, non_blocking=pin)
+        if buf is not None:
+            fence.add(buf)
+        window.add(span, step(state, on_dev))
+        if fence is not None:
+            fence.release_done()
     window.flush()
-    return window.preds, n / (time.perf_counter() - t0)
+    if fence is not None:
+        fence.release_done(wait=True)
+    rate = n / (time.perf_counter() - t0)
+    if stats is not None:
+        stats.update(wait_s=pipe.wait_s, pack_s=pipe.pack_s, jobs=pipe.jobs,
+                     buffers_allocated=0 if pool is None else pool.allocated,
+                     buffers_reused=0 if pool is None else pool.reused)
+    return window.preds, rate
 
 
 def _bucket_jobs(graphs, batch_size, buckets, dense_m):
-    """(index span, packed batch) per batch of each size class in turn,
-    in input order within a class."""
+    """(index span, graphs, node_cap, edge_cap, graph_cap) per batch of
+    each size class in turn, in input order within a class."""
     bucket_of = assign_size_buckets(graphs, buckets)
     graph_cap = graph_cap_for(batch_size)
     for b in range(int(bucket_of.max()) + 1):
@@ -177,8 +276,7 @@ def _bucket_jobs(graphs, batch_size, buckets, dense_m):
         sub = [graphs[int(i)] for i in idxs]
         nc, ec = capacities_for(sub, batch_size, dense_m=dense_m)
         for s, e in plan_batches(sub, batch_size, nc, ec, snug=True):
-            yield idxs[s:e], pack_graphs(sub[s:e], nc, ec, graph_cap,
-                                         dense_m=dense_m)
+            yield idxs[s:e], sub[s:e], nc, ec, graph_cap
 
 
 def run_raw_inference(

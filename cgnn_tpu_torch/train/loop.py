@@ -2,8 +2,11 @@
 ``run_epoch``, ``evaluate``).
 
 Each epoch packs its batches on the host (``batch_iterator``, snug
-fill-to-capacity packing), moves each to the device and runs one step on
-it. One ``np.random.default_rng(seed)`` shuffles every epoch's training
+fill-to-capacity packing) and stages them on the device through the
+prefetch loader (data/loader.py: a producer thread packs and copies
+``prefetch`` batches ahead of the step; 0 stages each batch on this
+thread), then runs one step on each. One ``np.random.default_rng(seed)``
+shuffles every epoch's training
 batches; training batches carry the two-tier transpose mapping for the
 scatter-free backward, validation batches none (``in_cap=0``). Metric
 sums accumulate on the device and are fetched once per epoch
@@ -13,8 +16,9 @@ sums accumulate on the device and are fetched once per epoch
 layout, whose batches carry no transpose mapping.
 
 Not ported yet: the whole-epoch scan loop, pack-once and
-device-resident staging, compact staging, size buckets, telemetry, the
-divergence guard and preemption.
+device-resident staging, compact staging (which the JAX package allows
+only under its scan loop), size buckets, telemetry, the divergence guard
+and preemption.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from cgnn_tpu_torch.data.graph import (
     batch_iterator,
     capacities_for,
 )
+from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
 from cgnn_tpu_torch.train.metrics import (
     accumulate_on_device,
     fetch_device_sums,
@@ -39,14 +44,25 @@ from cgnn_tpu_torch.train.metrics import (
 from cgnn_tpu_torch.train.step import make_eval_step, make_train_step
 
 
-def run_epoch(step_fn: Callable, state, batches: Iterable[GraphBatch],
-              device, *, train: bool = True, print_freq: int = 0,
-              epoch: int = 0, log_fn: Callable = print) -> dict:
-    """Drive one epoch of ``step_fn`` over host batches -> metric means."""
+def stage(batches: Iterable[GraphBatch], device, prefetch: int = 2,
+          stats: LoaderStats | None = None) -> Iterable[GraphBatch]:
+    """Host batches -> the same batches on ``device``, in order: through
+    the prefetch loader ``prefetch`` deep, or (0) each copied on this
+    thread as it is taken."""
+    if prefetch > 0:
+        return prefetch_to_device(batches, device, size=prefetch, stats=stats)
+    return (b.to(device) for b in batches)
+
+
+def run_epoch(step_fn: Callable, state, batches: Iterable[GraphBatch], *,
+              train: bool = True, print_freq: int = 0, epoch: int = 0,
+              log_fn: Callable = print) -> dict:
+    """Drive one epoch of ``step_fn`` over batches on the device (``stage``)
+    -> metric means."""
     sums = None
     steps = 0
     for it, batch in enumerate(batches):
-        sums = accumulate_on_device(sums, step_fn(state, batch.to(device)))
+        sums = accumulate_on_device(sums, step_fn(state, batch))
         steps += 1
         if print_freq and it % print_freq == 0:
             host = fetch_device_sums(sums)
@@ -90,6 +106,8 @@ def fit(
     log_fn: Callable = print,
     start_epoch: int = 0,
     on_epoch_end: Callable | None = None,
+    prefetch: int = 2,
+    loader_stats: LoaderStats | None = None,
 ) -> tuple:
     """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
     the best validation MAE.
@@ -101,7 +119,8 @@ def fit(
     at ``start_epoch`` and ``best`` from inf, so the first epoch of a
     resumed run moves the best pointer; ``on_epoch_end(state, epoch,
     val_metrics, is_best)`` runs after each epoch's validation (the
-    checkpoint hook)."""
+    checkpoint hook). ``prefetch``: the loader's depth (``stage``);
+    ``loader_stats`` gathers its counters over the run."""
     dense_m = dense_m or None
     node_cap, edge_cap = batch_caps(train_graphs, batch_size, dense_m,
                                     node_cap, edge_cap)
@@ -113,16 +132,17 @@ def fit(
         t0 = time.perf_counter()
         train_m = run_epoch(
             train_step, state,
-            batch_iterator(train_graphs, batch_size, node_cap, edge_cap,
-                           shuffle=True, rng=rng, dense_m=dense_m,
-                           snug=True),
-            device, train=True, print_freq=print_freq, epoch=epoch,
-            log_fn=log_fn)
+            stage(batch_iterator(train_graphs, batch_size, node_cap,
+                                 edge_cap, shuffle=True, rng=rng,
+                                 dense_m=dense_m, snug=True),
+                  device, prefetch, loader_stats),
+            train=True, print_freq=print_freq, epoch=epoch, log_fn=log_fn)
         val_m = run_epoch(
             eval_step, state,
-            batch_iterator(val_graphs, batch_size, node_cap, edge_cap,
-                           dense_m=dense_m, in_cap=0, snug=True),
-            device, train=False, epoch=epoch, log_fn=log_fn)
+            stage(batch_iterator(val_graphs, batch_size, node_cap, edge_cap,
+                                 dense_m=dense_m, in_cap=0, snug=True),
+                  device, prefetch, loader_stats),
+            train=False, epoch=epoch, log_fn=log_fn)
         metric = val_m.get("mae", np.nan)
         is_best = metric < best
         if is_best:
@@ -147,6 +167,6 @@ def evaluate(state, graphs: Sequence[CrystalGraph], batch_size: int,
                                     edge_cap)
     return run_epoch(
         make_eval_step(), state,
-        batch_iterator(graphs, batch_size, node_cap, edge_cap,
-                       dense_m=dense_m, in_cap=0, snug=True),
-        device, train=False)
+        stage(batch_iterator(graphs, batch_size, node_cap, edge_cap,
+                             dense_m=dense_m, in_cap=0, snug=True), device),
+        train=False)

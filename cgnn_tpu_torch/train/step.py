@@ -15,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from cgnn_tpu_torch.data.compact import CompactBatch
 from cgnn_tpu_torch.data.graph import GraphBatch
 from cgnn_tpu_torch.data.rawbatch import RawBatch
 from cgnn_tpu_torch.train.normalizer import Normalizer
@@ -74,10 +75,13 @@ def make_eval_step() -> Callable:
     return eval_step
 
 
-def make_predict_step(raw_expander: Callable | None = None) -> Callable:
+def make_predict_step(raw_expander: Callable | None = None,
+                      expander: Callable | None = None) -> Callable:
     """(state, batch) -> denormalized predictions [G, T]; padding graph
     slots are zeroed.
 
+    ``expander`` (``data.compact.make_expander``) adds compact staging: a
+    ``CompactBatch`` is rebuilt into its GraphBatch on the device first.
     ``raw_expander`` (``ops.neighbor_search.make_raw_expander``) adds the
     raw wire: a ``RawBatch`` is turned into a GraphBatch by the device
     neighbor search and featurization, and the step returns ``(predictions
@@ -92,6 +96,8 @@ def make_predict_step(raw_expander: Callable | None = None) -> Callable:
             out = state.model(gb)
             preds = state.normalizer.denorm(out) * gb.graph_mask[:, None]
             return preds, overflow, n_edges
+        if expander is not None and isinstance(batch, CompactBatch):
+            batch = expander(batch)
         out = state.model(batch)
         return state.normalizer.denorm(out) * batch.graph_mask[:, None]
 

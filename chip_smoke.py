@@ -117,7 +117,29 @@ into ``build/kernels``), then:
    ``--wire featurized`` (path ``predict``): CSV ids in input order, each
    prediction within rtol 1e-4 / atol 1e-4 of the plain model
    (``cgconv_impl`` off) on the same graphs on the card, kernel 1 n_conv
-   times a batch and kernel 8 once a raw batch; its structures/s.
+   times a batch and kernel 8 once a raw batch; its structures/s;
+8. cif_pipeline — real data through the entry points: 1024 MP-like
+   synthetic structures written as CIFs with ``id_prop.csv`` under
+   ``build/chip_smoke/cif`` (the port's ``write_cif_file``);
+   ``python -m cgnn_tpu_torch.data.preprocess`` with ``-j 8`` (its
+   structures/s; the cache bit-equal to an in-process
+   ``load_cif_directory`` of the directory); the train entry point from
+   ``DIR --cache``, batch 256, 2 epochs, ``--cgconv-impl pallas`` (path
+   ``train_cif``, launches exact); the per-step loop with the prefetch
+   loader and without it, in turns (on, off, off, on: step wall,
+   ``loader_wait_ms`` a step, device idle share); the predict entry point
+   on the cache at ``-b 16`` (64 batches, so the pooled pinned buffers
+   recycle) with ``--compact on --pack-workers 2`` (path
+   ``predict_compact``) and ``--compact off`` (path ``predict_cif_full``),
+   in turns (on, off, off, on), and ``--wire raw`` from the directory
+   (path ``predict_cif_raw``, kernel 8), each CSV within rtol 1e-4 / atol
+   1e-4 of the plain model on the card; a ``compact_flush_breakdown`` of
+   ``load_server(compact='on')`` on the calibration graphs (pack, copy,
+   the expander's device ms, step), the compactability probe's host time
+   a graph (one at a time, and batched as the worker runs it), and bursts of the 224 graphs (fresh copies each) through it and
+   through the full-packing server in turns (compact, full, full,
+   compact): the first compact burst is path ``serve_compact`` (every
+   flush packed compact), its answers equal to the full server's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 summary lines, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -151,6 +173,9 @@ M = 12  # the flagship's max_num_nbr: dense edge slots per node
 BATCH, EPOCHS = 256, 2
 N_TRAIN_SET = 640  # split 0.8 / 0.1 / 0.1 -> 512 train, 64 val, 64 test
 N_PREDICT = 512  # structures through the predict entry point, each wire
+N_CIF = 1024  # MP-like structures written as CIFs (cif_pipeline)
+CIF_PREDICT_BATCH = 16  # 64 predict batches, so the pooled buffers recycle
+PREPROCESS_WORKERS = 8
 COO_AGG = "pallas"  # the COO paths' aggregation: kernel 6
 NO_PATH = {"windowed_gather": "no entry point of the JAX package calls "
                               "windowed_gather (tests/test_ops.py:548 only)"}
@@ -1935,6 +1960,418 @@ def checkpoint_predict_phase(dev, work_dir, card):
     return summary, counts
 
 
+def write_cif_directory(root, n, seed):
+    """``n`` MP-like synthetic structures as ``{id}.cif`` + id_prop.csv
+    under ``root`` (emptied first), written by the port's
+    ``write_cif_file`` -> the ids in order."""
+    import shutil
+
+    import numpy as np
+
+    from cgnn_tpu_torch.data.cif import write_cif_file
+    from cgnn_tpu_torch.data.synthetic import synthetic_mp_dataset
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ids, rows = [], []
+    for sid, s, t in synthetic_mp_dataset(n, seed=seed):
+        write_cif_file(s, os.path.join(root, f"{sid}.cif"), name=sid)
+        rows.append(f"{sid},{float(np.atleast_1d(t)[0])!r}")
+        ids.append(sid)
+    with open(os.path.join(root, "id_prop.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return ids
+
+
+GRAPH_FIELDS = ("atom_fea", "edge_fea", "centers", "neighbors", "target",
+                "target_mask", "distances", "positions", "lattice",
+                "offsets")
+
+
+def graphs_bit_equal(got, want) -> bool:
+    import numpy as np
+
+    if [g.cif_id for g in got] != [g.cif_id for g in want]:
+        return False
+    for a, b in zip(got, want):
+        for f in GRAPH_FIELDS:
+            x, y = getattr(a, f), getattr(b, f)
+            if (x is None) != (y is None):
+                return False
+            if x is not None and not (
+                    np.asarray(x).dtype == np.asarray(y).dtype
+                    and np.array_equal(np.asarray(x), np.asarray(y))):
+                return False
+    return True
+
+
+def loader_breakdown(dev, train_g, loader, steps=8):
+    """The per-step training loop (kernel path, batch 256) fed through the
+    prefetch loader (``loader``) or with each batch packed and copied on
+    this thread: loop ms a step, the loader's wait a step, then the
+    device's busy time (profiler, copies included) and its idle share of
+    the loop."""
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.data.graph import batch_iterator, count_batches
+    from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
+    from cgnn_tpu_torch.train.step import make_train_step
+
+    _, state, node_cap, edge_cap = new_state(dev, train_g,
+                                             cgconv_impl="pallas")
+    step = make_train_step()
+    rng = np.random.default_rng(SEED + 7)
+
+    def host_batches():
+        while True:
+            yield from batch_iterator(train_g, BATCH, node_cap, edge_cap,
+                                      shuffle=True, rng=rng, dense_m=M,
+                                      snug=True)
+
+    stats = LoaderStats()
+    staged = (prefetch_to_device(host_batches(), dev, size=2, stats=stats)
+              if loader else (b.to(dev) for b in host_batches()))
+    try:
+        for _ in range(2):  # warm-up
+            step(state, next(staged))
+        torch.cuda.synchronize()
+        wait0 = stats.loader_wait_s
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, next(staged))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        wait_s = stats.loader_wait_s - wait0
+        busy_ms, by_kernel, _ = device_busy_ms(
+            lambda: step(state, next(staged)), steps)
+    finally:
+        staged.close()
+    per_batch = len(train_g) / count_batches(train_g, BATCH, node_cap,
+                                             edge_cap, snug=True)
+    res = {"loader": loader, "steps": steps,
+           "loop_ms_per_step": loop_s * 1e3 / steps,
+           "train_structures_per_s": per_batch * steps / loop_s,
+           "loader_wait_ms_per_step": wait_s * 1e3 / steps if loader
+           else None,
+           "loader_put_ms_per_batch": (stats.loader_put_s * 1e3
+                                       / max(stats.batches, 1)) if loader
+           else None,
+           "step_device_busy_ms": busy_ms}
+    if busy_ms is not None:
+        res["device_idle_share_of_loop"] = 1.0 - busy_ms / res[
+            "loop_ms_per_step"]
+        res["top_device_ops_ms_per_step"] = {
+            k[:80]: v for k, v in sorted(by_kernel.items(),
+                                         key=lambda kv: -kv[1])[:6]}
+    print(f"loader_breakdown: {res}")
+    return res
+
+
+def compact_flush_breakdown(dev, server, graphs, reps=10):
+    """One top-rung compact flush of ``graphs`` on a compact server, split
+    like ``flush_breakdown``: host pack into a pinned staging buffer, the
+    asynchronous host-to-device copy (synchronized), the predict step
+    (expander and model; host wall with a synchronize), the copy back;
+    the bytes staged beside the full form's; the expander's device time
+    alone and the step's device busy time and idle share (profiler)."""
+    import torch
+
+    ss, step, state = server.shape_set, server.predict_step, server.state
+    top = ss.largest
+    buf = ss.buffer_factory(top, pin=dev.type == "cuda")()
+    stages = {"pack_ms": [], "h2d_ms": [], "step_wall_ms": [], "d2h_ms": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        batch = ss.pack(graphs, shape=top, out=buf)
+        t1 = time.perf_counter()
+        on_dev = batch.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = step(state, on_dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.cpu()
+        t4 = time.perf_counter()
+        for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[key].append(dt * 1e3)
+    full = ss.pack_full(graphs, shape=top)
+    res = {"graphs": len(graphs), "nodes": sum(g.num_nodes for g in graphs),
+           "rung": list(vars(top).values()),
+           "staged_bytes": sum(t.nbytes for t in batch.tensors()),
+           "full_staged_bytes": sum(
+               v.nbytes for v in vars(full).values()
+               if isinstance(v, torch.Tensor))}
+    res.update({k: statistics.median(v) for k, v in stages.items()})
+    expander = ss.expander(dev)
+    res["expander_device_ms"] = device_ms(lambda: expander(on_dev))
+    busy_ms, by_kernel, _ = device_busy_ms(lambda: step(state, on_dev), reps)
+    res["step_device_busy_ms"] = busy_ms
+    if busy_ms is not None:
+        k1 = sum(v for k, v in by_kernel.items() if "fused_cgconv_eval_" in k)
+        res.update({
+            "fused_kernel_ms_per_step": k1,
+            "device_idle_share_of_step": 1.0 - busy_ms / res["step_wall_ms"],
+            "top_kernels_ms_per_step": {
+                k[:80]: v for k, v in sorted(by_kernel.items(),
+                                             key=lambda kv: -kv[1])[:6]}})
+    return res
+
+
+def cif_pipeline_phase(dev, work_dir, card, calibration):
+    """Paths 'train_cif', 'predict_compact', 'predict_cif_full',
+    'predict_cif_raw' and 'serve_compact': CIF directory -> preprocess ->
+    cache -> train -> predict (compact, full, raw) -> compact serving
+    (module docstring, item 8). -> (summary, counts by path, the loader
+    and compact flush breakdowns)."""
+    import csv as csvmod
+    import dataclasses as dc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
+    from cgnn_tpu_torch.data.cache import load_graph_cache
+    from cgnn_tpu_torch.data.dataset import (
+        load_cif_directory,
+        load_synthetic_mp,
+        train_val_test_split,
+    )
+    from cgnn_tpu_torch.data.graph import count_batches
+    from cgnn_tpu_torch.data.preprocess import main as preprocess_main
+    from cgnn_tpu_torch.predict import main as predict_main
+    from cgnn_tpu_torch.serve.server import load_server
+    from cgnn_tpu_torch.serve.shapes import plan_shape_set
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from cgnn_tpu_torch.train.infer import run_fast_inference
+    from cgnn_tpu_torch.train.normalizer import Normalizer
+    from cgnn_tpu_torch.train.state import init_train_state
+    from cgnn_tpu_torch.train.step import InferenceState
+
+    data_cfg = DataConfig()
+    model_cfg = ModelConfig(dense_m=M, cgconv_impl="pallas")
+    n_conv = model_cfg.n_conv
+    cif_dir = os.path.join(work_dir, "cif")
+    cache = os.path.join(work_dir, "cif_graphs.npz")
+    counts, summary = {}, {"card": card, "structures": N_CIF}
+
+    # 1. the CIF directory
+    t0 = time.perf_counter()
+    ids = write_cif_directory(cif_dir, N_CIF, SEED + 11)
+    summary["write_cifs_s"] = time.perf_counter() - t0
+
+    # 2. the preprocess entry point, 8 worker processes
+    if os.path.exists(cache):
+        os.remove(cache)
+    t0 = time.perf_counter()
+    rc, _ = run_main(preprocess_main, [cif_dir, "-o", cache, "-j",
+                                       str(PREPROCESS_WORKERS)],
+                     "preprocess")
+    pre_s = time.perf_counter() - t0
+    check(rc == 0, f"preprocess exited {rc}")
+    graphs = load_graph_cache(cache)
+    t0 = time.perf_counter()
+    direct = load_cif_directory(cif_dir, data_cfg.featurize_config())
+    serial_s = time.perf_counter() - t0
+    equal = graphs_bit_equal(graphs, direct)
+    print(f"preprocess: {len(graphs)} structures, -j {PREPROCESS_WORKERS} "
+          f"in {pre_s!r} s "
+          f"({len(graphs) / pre_s!r} structures/s), in-process "
+          f"load_cif_directory {serial_s!r} s; cache bit-equal to it: "
+          f"{'ok' if equal else 'FAIL'}")
+    check(equal and [g.cif_id for g in graphs] == ids,
+          "the preprocessed cache differs from load_cif_directory")
+    summary.update(preprocess_s=pre_s,
+                   preprocess_structures_per_s=len(graphs) / pre_s,
+                   load_cif_directory_s=serial_s,
+                   atoms=sum(g.num_nodes for g in graphs))
+
+    # 3. the train entry point from DIR --cache
+    train_g, val_g, test_g = train_val_test_split(graphs, 0.8, 0.1,
+                                                  seed=SEED)
+    _, node_cap, edge_cap = init_train_state(model_cfg, data_cfg, train_g,
+                                             batch_size=BATCH, device=dev,
+                                             seed=SEED)
+    steps, evals, tests = (count_batches(g, BATCH, node_cap, edge_cap,
+                                         snug=True)
+                           for g in (train_g, val_g, test_g))
+    ck = os.path.join(work_dir, "cif_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = [cif_dir, "--cache", cache, "-b", str(BATCH), "--epochs",
+            str(EPOCHS), "--cgconv-impl", "pallas", "--ckpt-dir", ck,
+            "--out-dir", os.path.join(work_dir, "cif_out"), "--print-freq",
+            "0", "--seed", str(SEED)]
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, out = run_main(train_main, argv, "train_cif")
+    torch.cuda.synchronize()
+    summary["train_wall_s"] = time.perf_counter() - t0
+    counts["train_cif"] = read_counts()
+    check(rc == 0 and f"loaded {N_CIF} graphs from {cache}" in out,
+          f"train entry point on the cache: rc {rc}")
+    want = dict.fromkeys(counts["train_cif"], 0) | {
+        "fused_cgconv_stats": EPOCHS * n_conv * steps,
+        "epilogue_reduce": EPOCHS * n_conv * steps,
+        "epilogue_dz": EPOCHS * n_conv * steps,
+        "fused_cgconv_eval": n_conv * (EPOCHS * (steps + evals) + tests),
+        "fused_cgconv_node": n_conv * (EPOCHS * (steps + evals) + tests)}
+    check(counts["train_cif"] == want,
+          f"train_cif: launches {counts['train_cif']} != {want}")
+    summary["train"] = {"split": [len(train_g), len(val_g), len(test_g)],
+                        "steps_per_epoch": steps, "node_cap": node_cap}
+
+    # 4. the per-step loop with the loader and without it, in turns
+    loader = [loader_breakdown(dev, train_g, on)
+              for on in (True, False, False, True)]
+
+    # 5. the predict entry point: compact and full on the cache, raw wire
+    # from the directory, against the plain model on the card
+    plain = InferenceState(
+        build_model(dc.replace(model_cfg, cgconv_impl=""), data_cfg,
+                    device=dev),
+        Normalizer.identity(1, device=dev))
+    mgr = CheckpointManager(ck)
+    plain = mgr.restore_for_inference(plain, "latest")
+    mgr.close()
+    want_preds, _ = run_fast_inference(
+        plain, graphs, CIF_PREDICT_BATCH,
+        shape_set=plan_shape_set(graphs, CIF_PREDICT_BATCH, rungs=2,
+                                 dense_m=M))
+    runs, preds, rates = {}, {}, {}
+    flags_of = {
+        "predict_compact": ["--cache", cache, "--wire", "featurized",
+                            "--compact", "on"],
+        "predict_cif_full": ["--cache", cache, "--wire", "featurized",
+                             "--compact", "off"],
+        "predict_cif_raw": ["--wire", "raw", "--compact", "on"]}
+    # compact and full in turns (A, B, B, A); each path's first run is
+    # the one its counts and checks come from
+    for path in ("predict_compact", "predict_cif_full", "predict_cif_full",
+                 "predict_compact", "predict_cif_raw"):
+        flags = flags_of[path]
+        out_csv = os.path.join(work_dir, f"{path}.csv")
+        head = [ck, cif_dir] if path == "predict_cif_raw" else [ck]
+        zero_counts()
+        rc, out = run_main(predict_main, head + flags + [
+            "--pack-workers", "2", "-b", str(CIF_PREDICT_BATCH), "--out",
+            out_csv], path)
+        torch.cuda.synchronize()
+        if path in runs:  # the repeat: its rate only
+            check(rc == 0, f"{path}: predict exited {rc}")
+            rates[path].append(json.loads(next(
+                line for line in out.splitlines()
+                if line.startswith("predict: "))[9:])["structures_per_s"])
+            continue
+        counts[path] = read_counts()
+        check(rc == 0, f"{path}: predict exited {rc}")
+        info = json.loads(next(line for line in out.splitlines()
+                               if line.startswith("predict: "))[9:])
+        rows = list(csvmod.reader(open(out_csv)))
+        got = np.array([[float(x) for x in r[2:]] for r in rows])
+        err = np.abs(got - want_preds)
+        ok = ([r[0] for r in rows] == ids and got.shape == want_preds.shape
+              and bool(np.all(err <= SERVE_ATOL
+                              + SERVE_RTOL * np.abs(want_preds))))
+        batches = info["batches_raw"] + info["batches_featurized"]
+        want_counts = dict.fromkeys(counts[path], 0) | {
+            "fused_cgconv_eval": n_conv * batches,
+            "fused_cgconv_node": n_conv * batches,
+            "neighbor_search": info["batches_raw"]}
+        print(f"{path}: {N_CIF} structures ({info['raw']} raw-staged, "
+              f"compact {info['compact']}), {batches} batches, launches "
+              f"{counts[path]}, pipeline {info['pipeline']}; max_abs_err vs "
+              f"the plain model {float(err.max())!r}: "
+              f"{'ok' if ok and counts[path] == want_counts else 'FAIL'}")
+        check(ok, f"{path}: the CSV disagrees with the plain model")
+        check(counts[path] == want_counts and batches > 0,
+              f"{path}: launches {counts[path]} != {want_counts}")
+        check(info["compact"] == (path != "predict_cif_full"),
+              f"{path}: compact staging {info['compact']}")
+        runs[path] = dict(info, max_abs_err_vs_plain=float(err.max()))
+        preds[path] = got
+        rates[path] = [info["structures_per_s"]]
+    check(runs["predict_compact"]["pipeline"]["buffers_reused"]
+          > 4 * runs["predict_compact"]["pipeline"]["buffers_allocated"] > 0,
+          f"the pooled buffers did not recycle: "
+          f"{runs['predict_compact']['pipeline']}")
+    check(runs["predict_cif_raw"]["batches_raw"] > 0,
+          "predict --wire raw staged nothing raw")
+    compact_vs_full = float(np.abs(preds["predict_compact"]
+                                   - preds["predict_cif_full"]).max())
+    check(bool(np.allclose(preds["predict_compact"],
+                           preds["predict_cif_full"], rtol=SERVE_RTOL,
+                           atol=SERVE_ATOL)),
+          f"compact and full CSVs differ by {compact_vs_full!r}")
+
+    # 6. compact serving: a flush broken down, then the 224-graph burst
+    npz = os.path.join(work_dir, "params.npz")
+    meta = os.path.join(work_dir, "meta.json")
+    kw = dict(batch_size=64, rungs=3, calibration=calibration, device=dev,
+              default_timeout_ms=60_000.0, wire="featurized",
+              log_fn=lambda *a: None)
+    server, _ = load_server(npz, meta, compact="on", **kw)
+    check(server.shape_set.compact is not None,
+          "load_server(compact='on') planned no compact spec")
+    breakdown = compact_flush_breakdown(dev, server, calibration)
+    burst_graphs = load_synthetic_mp(N_GRAPHS, data_cfg.featurize_config(),
+                                     seed=SEED + 1)
+
+    def fresh():
+        # new graph objects: no admission verdict cached from a burst
+        return [dc.replace(g) for g in burst_graphs]
+
+    # the compactability probe's host time a graph: one graph a call (the
+    # JAX package's admission probe), then the worker's batched pass
+    probe_us = {}
+    for how, probe in (("one_at_a_time", fresh()), ("batched", fresh())):
+        t0 = time.perf_counter()
+        if how == "batched":
+            ok = all(server.shape_set.compact.compactable_many(probe))
+        else:
+            ok = all(server.shape_set.compactable(g) for g in probe)
+        probe_us[how] = (time.perf_counter() - t0) / len(probe) * 1e6
+        check(ok, "a burst graph cannot stage compactly")
+    full_server, _ = load_server(npz, meta, compact="off", **kw)
+    c0 = dict(server.counts)
+    comp = burst(server, fresh())
+    counts["serve_compact"] = comp["launches"]
+    packed = {k: server.counts[k] - c0[k] for k in ("pack_compact",
+                                                    "pack_full")}
+    # then full, full, compact: the A/B in turns, requests/s each
+    full = burst(full_server, fresh())
+    turns = [("full", full), ("full", burst(full_server, fresh())),
+             ("compact", burst(server, fresh()))]
+    check(server.drain(timeout_s=60), "the compact server did not drain")
+    check(full_server.drain(timeout_s=60), "the full server did not drain")
+    err = float(np.abs(comp["preds"] - full["preds"]).max())
+    ok = (packed == {"pack_compact": comp["flushes"], "pack_full": 0}
+          and comp["launches"]["fused_cgconv_eval"]
+          == n_conv * comp["flushes"] > 0
+          and comp["launches"]["neighbor_search"] == 0
+          and bool(np.allclose(comp["preds"], full["preds"],
+                               rtol=SERVE_RTOL, atol=SERVE_ATOL)))
+    print(f"serve_compact: {N_GRAPHS} graphs, {comp['flushes']} flushes "
+          f"{packed}, launches {comp['launches']}; max_abs_err vs the full "
+          f"server {err!r}: {'ok' if ok else 'FAIL'}")
+    check(ok, "the compact server's flushes or answers are off")
+    for r in [comp] + [r for _, r in turns]:
+        r.pop("preds")
+        r.pop("wires")
+    summary.update(
+        predict_structures_per_s=rates,
+        predict=runs, predict_compact_vs_full_max_abs_diff=compact_vs_full,
+        serve_compact=dict(comp, packed=packed,
+                           max_abs_err_vs_full_server=err,
+                           probe_us_per_graph=probe_us),
+        serve_turns=[(form, {k: r[k] for k in (
+            "flushes", "requests_per_s", "latency_ms_p50",
+            "latency_ms_p99")}) for form, r in [("compact", comp)] + turns])
+    return summary, counts, {"loader_breakdown": loader,
+                             "compact_flush_breakdown": breakdown}
+
+
 def main() -> int:
     import torch
 
@@ -2006,10 +2443,12 @@ def main() -> int:
     coo_serve, coo_breakdown, coo_serve_counts = serve_coo_phase(
         dev, calibration, coo_weights)
     ckpt_summary, ckpt_counts = checkpoint_predict_phase(dev, work_dir, card)
+    cif_summary, cif_counts, cif_breakdowns = cif_pipeline_phase(
+        dev, work_dir, card, calibration)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
-                   **ckpt_counts)
+                   **ckpt_counts, **cif_counts)
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2033,6 +2472,8 @@ def main() -> int:
     print(json.dumps({"train_coo": coo_train, "serve_coo": coo_serve},
                      allow_nan=False))
     print(json.dumps({"checkpoint_predict": ckpt_summary}, allow_nan=False))
+    print(json.dumps(cif_breakdowns, allow_nan=False))
+    print(json.dumps({"cif_pipeline": cif_summary}, allow_nan=False))
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card)

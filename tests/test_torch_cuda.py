@@ -730,3 +730,65 @@ def test_raw_inference_launches_kernel_8_once_per_raw_batch(dev):
     assert fc.fused_cgconv_eval_cuda.launches - before[1] == 2 * batches
     want, _ = run_fast_inference(inf, keep, 16, shape_set=ss)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_compact_inference_recycles_pinned_buffers_safely(dev, workers):
+    """Bulk compact predict on the card over many more batches than the
+    pool holds buffers: each pinned buffer is reused only after the event
+    recorded behind its asynchronous copy has completed, so the answers
+    equal the full-staged ones (a buffer recycled under an in-flight copy
+    would hand the step another batch's bytes)."""
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.compact import CompactSpec
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.serve.shapes import plan_shape_set
+    from cgnn_tpu_torch.train.infer import run_fast_inference
+    from cgnn_tpu_torch.train.step import InferenceState
+
+    state, _, _, _ = _card_state(dev)
+    inf = InferenceState(state.model, state.normalizer)
+    fcfg = DataConfig().featurize_config()
+    graphs = load_synthetic(400, fcfg, seed=12)
+    spec = CompactSpec.build(graphs, fcfg.gdf(), dense_m=12)
+    full_ss = plan_shape_set(graphs, 4, rungs=2, dense_m=12)
+    comp_ss = plan_shape_set(graphs, 4, rungs=2, dense_m=12, compact=spec)
+    want, _ = run_fast_inference(inf, graphs, 4, shape_set=full_ss)
+    stats = {}
+    got, _ = run_fast_inference(inf, graphs, 4, shape_set=comp_ss,
+                                pack_workers=workers, stats=stats)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert stats["buffers_reused"] > 5 * stats["buffers_allocated"] > 0
+    # the buffers are page-locked: the copies to the card are asynchronous
+    buf = comp_ss.buffer_factory(comp_ss.largest, pin=True)()
+    assert all(t.is_pinned() for t in buf.tensors())
+
+
+def test_loader_side_stream_batches_equal_synchronous_copies(dev):
+    """prefetch_to_device on the card: batches copied on a side stream and
+    handed over through an event equal the synchronous ``.to`` copies bit
+    for bit, and a step reading them gives the same metrics; a device
+    named without an index is the caller's current one."""
+    from cgnn_tpu_torch.data.graph import batch_iterator
+    from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
+    from cgnn_tpu_torch.train.step import make_eval_step
+
+    state, graphs, nc, ec = _card_state(dev)
+    host = list(batch_iterator(graphs, 16, nc, ec, dense_m=12, snug=True))
+    stats = LoaderStats()
+    staged = list(prefetch_to_device(iter(host), dev, size=2, stats=stats))
+    assert len(staged) == len(host) == stats.batches >= 3
+    step = make_eval_step()
+    for got, h in zip(staged, host):
+        want = h.to(dev)
+        for name in ("nodes", "edges", "neighbors", "edge_mask", "targets",
+                     "in_slots", "over_slots"):
+            a, b = getattr(got, name), getattr(want, name)
+            assert a.device.type == "cuda" and torch.equal(a, b), name
+        # the pooling's index_add_ adds with atomics on the card, so a
+        # step repeated on the same bits may differ in the last ulp
+        ma, mb = step(state, got), step(state, want)
+        for k in mb:
+            torch.testing.assert_close(ma[k], mb[k], rtol=1e-6, atol=0)
+    again = list(prefetch_to_device(iter(host[:2]), "cuda", size=1))
+    assert all(b.nodes.device == dev for b in again)

@@ -18,6 +18,7 @@ model (non-trivial BatchNorm statistics, a non-identity normalizer):
 """
 
 import csv
+import dataclasses
 import os
 import types
 
@@ -152,9 +153,7 @@ def test_raw_inference_matches_jax(models):
 
 def test_inference_refuses_unported_options(models):
     tss = tshapes.plan_shape_set(models.port, B, rungs=1, dense_m=M)
-    for kw, item in ((dict(compact=object()), "item 4"),
-                     (dict(pack_workers=2), "item 4"),
-                     (dict(devices=["cpu"]), "items 9 and 11"),
+    for kw, item in ((dict(devices=["cpu"]), "items 9 and 11"),
                      (dict(engine="mesh"), "items 9 and 11")):
         with pytest.raises(ValueError, match=item):
             tinfer.run_fast_inference(models.state, models.port, B,
@@ -227,14 +226,14 @@ def test_predict_raw_and_featurized_csvs_agree(ckpt, capsys):
 
 
 REFUSED = {  # case -> (extra flags, what the message names)
-    "cache": (["--cache", "graphs.npz"], "item 3"),
+    "cache": (["--cache", "graphs.npz"], "does not exist"),
     "packing_ladder": (["--packing", "ladder"], "item 10"),
-    "compact_on": (["--compact", "on"], "item 4"),
-    "pack_workers": (["--pack-workers", "2"], "item 4"),
+    # a cache without raw distances cannot stage compactly
+    "compact_on": (["--compact", "on"], "compact staging unavailable"),
     "devices": (["--devices", "4"], "items 9 and 11"),
     "engine_mesh": (["--engine", "mesh"], "items 9 and 11"),
-    "data_dir": ([], "item 3"),
-    "no_data": ([], "item 3"),
+    "data_dir": ([], "id_prop.csv"),
+    "no_data": ([], "DATA_DIR, --cache, or --synthetic is required"),
     "no_checkpoint": ([], "no 'latest' checkpoint"),
 }
 
@@ -243,9 +242,17 @@ REFUSED = {  # case -> (extra flags, what the message names)
 def test_predict_refusals_exit_2(ckpt, case, capsys, tmp_path):
     flags, named = REFUSED[case]
     argv = [ckpt.dir, "--device", "cpu", "--out", str(tmp_path / "x.csv"),
-            *flags] + ([] if case == "no_data" else ["--synthetic", "4"])
+            *flags] + ([] if case in ("no_data", "data_dir", "compact_on")
+                       else ["--synthetic", "4"])
     if case == "data_dir":
-        argv.insert(1, "some/cif/dir")
+        argv.insert(1, str(tmp_path / "no_cif_dir"))
+    elif case == "compact_on":
+        from cgnn_tpu_torch.data.cache import save_graph_cache
+
+        cache = str(tmp_path / "no_distances.npz")
+        save_graph_cache([dataclasses.replace(g, distances=None)
+                          for g in ckpt.graphs[:4]], cache)
+        argv += ["--cache", cache]
     elif case == "no_checkpoint":
         argv[0] = str(tmp_path / "empty")
     assert predict_main(argv) == 2
