@@ -21,7 +21,10 @@ Both layouts are ported:
 The training batch iterator (``batch_iterator``, ``count_batches``) closes
 a batch on its graph, node and edge budgets; ``plan_batches`` gives the
 same spans without packing, and ``assign_size_buckets`` the size classes
-of bulk inference (train/infer.py).
+of bulk inference (train/infer.py) and of ``bucketed_batch_iterator``
+(training with one snug capacity per size class). ``batch_shape_key``
+names a batch's full shape: the graphs of the training driver
+(train/graphs.py, train/loop.py) are keyed on it.
 """
 
 from __future__ import annotations
@@ -373,6 +376,28 @@ def _in_degrees(g: CrystalGraph) -> np.ndarray:
     return np.bincount(g.neighbors, minlength=g.num_nodes)
 
 
+def batch_shape_key(batch) -> tuple:
+    """Hashable key of a batch's full shape, equal to the JAX package's
+    ``batch_shape_key`` for the same batch: nodes', edges' and the
+    transpose slots' shapes and the edge dtype's name (a compact batch:
+    ``data.compact.compact_shape_key``). Shapes are plain int tuples."""
+    if hasattr(batch, "atom_idx"):  # CompactBatch (duck-typed: no cycle)
+        from cgnn_tpu_torch.data.compact import compact_shape_key
+
+        return compact_shape_key(batch)
+
+    def shape(t):
+        return None if t is None else tuple(int(d) for d in t.shape)
+
+    return (
+        shape(batch.nodes),
+        shape(batch.edges),
+        str(batch.edges.dtype).replace("torch.", ""),
+        shape(batch.in_slots),
+        shape(batch.over_slots),
+    )
+
+
 def max_in_degree(graphs: Sequence[CrystalGraph]) -> int:
     """Largest per-node incoming-edge count over ``graphs``. In-degree is
     not bounded by ``max_num_nbr``: one atom can be among the nearest of
@@ -501,13 +526,14 @@ def plan_batches(graphs: Sequence[CrystalGraph], batch_size: int,
 
 
 def _pack_overflow_safe(bucket, node_cap, edge_cap, graph_cap, dense_m,
-                        in_cap, over_cap):
-    """pack_graphs, splitting the batch in half (same capacities, so the
-    same shapes) when it overruns the two-tier ``over_cap``. A single
-    graph that overruns it re-raises."""
+                        in_cap, over_cap, pack_fn=None):
+    """``pack_fn`` (default ``pack_graphs``), splitting the batch in half
+    (same capacities, so the same shapes) when it overruns the two-tier
+    ``over_cap``. A single graph that overruns it re-raises."""
     try:
-        yield pack_graphs(bucket, node_cap, edge_cap, graph_cap,
-                          dense_m=dense_m, in_cap=in_cap, over_cap=over_cap)
+        yield (pack_fn or pack_graphs)(
+            bucket, node_cap, edge_cap, graph_cap, dense_m=dense_m,
+            in_cap=in_cap, over_cap=over_cap)
     except TransposeOverflowError:
         if len(bucket) < 2:
             raise
@@ -518,7 +544,7 @@ def _pack_overflow_safe(bucket, node_cap, edge_cap, graph_cap, dense_m,
         for half in (bucket[:mid], bucket[mid:]):
             yield from _pack_overflow_safe(half, node_cap, edge_cap,
                                            graph_cap, dense_m, in_cap,
-                                           over_cap)
+                                           over_cap, pack_fn)
 
 
 def batch_iterator(
@@ -533,9 +559,11 @@ def batch_iterator(
     in_cap: int | None = None,
     snug: bool = False,
     over_cap: int | None = None,
+    pack_fn=None,
 ):
     """Yield GraphBatches of one shape (node_cap, edge_cap, graph_cap),
-    packed on the host.
+    packed on the host (``pack_fn``: another packer with ``pack_graphs``'
+    keywords, e.g. ``data.compact.compact_pack_fn``).
 
     A batch closes when it holds ``graph_cap`` graphs or the next graph
     would overflow a capacity. ``snug=True`` is fill-to-capacity packing:
@@ -575,11 +603,73 @@ def batch_iterator(
         ):
             yield from _pack_overflow_safe(bucket, node_cap, edge_cap,
                                            graph_cap, dense_m, in_cap,
-                                           over_cap)
+                                           over_cap, pack_fn)
             bucket, nn, ne = [], 0, 0
         bucket.append(g)
         nn += g.num_nodes
         ne += g.num_edges
     if bucket and (not drop_last or len(bucket) >= batch_size):
         yield from _pack_overflow_safe(bucket, node_cap, edge_cap, graph_cap,
-                                       dense_m, in_cap, over_cap)
+                                       dense_m, in_cap, over_cap, pack_fn)
+
+
+def bucketed_batch_iterator(
+    graphs: Sequence[CrystalGraph],
+    batch_size: int,
+    n_buckets: int,
+    shuffle: bool = False,
+    rng: np.random.Generator | None = None,
+    dense_m: int | None = None,
+    in_cap: int | None = None,
+    snug: bool = True,
+    pack_fn=None,
+):
+    """Batches with one capacity per size class (the JAX
+    ``bucketed_batch_iterator``, snug packing): graphs split into
+    ``n_buckets`` node-count classes (``assign_size_buckets``), each
+    batched at its own snug capacities, so at most ``n_buckets`` batch
+    shapes. Under ``shuffle`` the classes interleave by weighted random
+    picks (weights: each class's graph count), drawn from ``rng`` in the
+    JAX order; else class by class. Dense training batches carry the
+    two-tier transpose with ONE overflow capacity, sized by the worst
+    class, so equal class shapes stay equal; ``in_cap`` as in
+    ``batch_iterator``."""
+    if not snug:
+        raise NotImplementedError(
+            "only snug packing is ported (the headroom/ladder capacities "
+            "wait for ROADMAP Queue 1, item 10)")
+    rng = rng or np.random.default_rng()
+    bucket_of = assign_size_buckets(graphs, n_buckets)
+    over_cap = None
+    if dense_m is not None and in_cap is None:
+        gcap = graph_cap_for(batch_size)
+        over_cap = max(
+            overflow_cap([graphs[int(i)]
+                          for i in np.nonzero(bucket_of == b)[0]],
+                         gcap, dense_m)
+            for b in range(int(bucket_of.max()) + 1)
+            if np.any(bucket_of == b))
+    iters, weights = [], []
+    for b in range(int(bucket_of.max()) + 1):
+        idxs = np.nonzero(bucket_of == b)[0]
+        if len(idxs) == 0:
+            continue
+        sub = [graphs[int(i)] for i in idxs]
+        nc, ec = capacities_for(sub, batch_size, dense_m=dense_m)
+        iters.append(batch_iterator(sub, batch_size, nc, ec, shuffle=shuffle,
+                                    rng=rng, dense_m=dense_m, in_cap=in_cap,
+                                    snug=True, over_cap=over_cap,
+                                    pack_fn=pack_fn))
+        weights.append(float(len(idxs)))
+    active = list(range(len(iters)))
+    w = np.array(weights)
+    while active:
+        if shuffle and len(active) > 1:
+            p = w[active] / w[active].sum()
+            pick = int(rng.choice(active, p=p))
+        else:
+            pick = active[0]
+        try:
+            yield next(iters[pick])
+        except StopIteration:
+            active.remove(pick)

@@ -136,3 +136,14 @@ def launch(label: str, fn, ptrs, dims: dict, device) -> None:
         shape = ", ".join(f"{k}={v}" for k, v in dims.items())
         raise RuntimeError(
             f"{label} kernel launch failed: cudaError {err} ({shape})")
+
+
+def counted(n: int = 1) -> int:
+    """What a wrapper adds to its ``.launches`` for ``n`` kernels it just
+    queued: ``n``, or 0 while the current stream captures a CUDA graph.
+    A capture records the kernels and launches nothing; each replay of
+    the graph launches them without the wrapper (a trace of the card
+    counts those launches)."""
+    import torch
+
+    return 0 if torch.cuda.is_current_stream_capturing() else n

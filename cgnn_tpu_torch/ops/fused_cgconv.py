@@ -29,7 +29,8 @@ edge slots, as one op that writes only the [N, F] aggregate.
 
 Every kernel wrapper takes CUDA tensors only, checks them, launches on the
 current stream, raises on a refused launch, and counts its launches in
-``<wrapper>.launches``. ``impl='pallas'`` runs a kernel for a tensor that is
+``<wrapper>.launches`` (none while a CUDA graph is captured:
+``_build.counted``). ``impl='pallas'`` runs a kernel for a tensor that is
 not on the CPU (launch or raise, never a fallback) and the kernel's plain
 PyTorch version (``*_reference``) for a CPU tensor. ``window`` is accepted
 and ignored: the GPU gathers neighbor rows directly.
@@ -280,7 +281,7 @@ def fused_cgconv_node_cuda(nodes, kernel, bias):
         _build.entry("fused_cgconv", "cgconv_fused_node_f32", 4, 2),
         (nodes.data_ptr(), kernel.data_ptr(), bias.data_ptr(), p.data_ptr()),
         {"N": n, "F": f}, dev)
-    fused_cgconv_node_cuda.launches += 1
+    fused_cgconv_node_cuda.launches += _build.counted(1)
     return p
 
 
@@ -329,8 +330,8 @@ def fused_cgconv_eval_cuda(nodes, edges, kernel, bias, scale, bn_bias,
          bn_bias.data_ptr(), p.data_ptr(), out.data_ptr()),
         {"N": n, "M": m, "F": f, "G": g, "node_pass": int(node_pass),
          "eps": eps}, nodes.device)
-    fused_cgconv_eval_cuda.launches += 1
-    fused_cgconv_node_cuda.launches += node_pass
+    fused_cgconv_eval_cuda.launches += _build.counted(1)
+    fused_cgconv_node_cuda.launches += _build.counted(node_pass)
     return out
 
 
@@ -376,8 +377,8 @@ def fused_cgconv_stats_cuda(nodes, edges, kernel, bias, neighbors,
          shift.data_ptr(), p.data_ptr(), part.data_ptr(), out.data_ptr()),
         dict(N=n, M=m, F=f, G=g, blocks=blocks, node_pass=int(node_pass)),
         nodes.device)
-    fused_cgconv_stats_cuda.launches += 1
-    fused_cgconv_node_cuda.launches += node_pass
+    fused_cgconv_stats_cuda.launches += _build.counted(1)
+    fused_cgconv_node_cuda.launches += _build.counted(node_pass)
     return out
 
 

@@ -189,7 +189,7 @@ def epilogue_apply_cuda(z, mask, cst):
     _launch("epilogue_apply", 4,
             (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), out.data_ptr()),
             n, m, f, z.device)
-    epilogue_apply_cuda.launches += 1
+    epilogue_apply_cuda.launches += _build.counted(1)
     return out
 
 
@@ -209,7 +209,7 @@ def epilogue_reduce_cuda(z, mask, cst, ct):
             (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), ct.data_ptr(),
              part.data_ptr(), out.data_ptr()), n, m, f, z.device,
             blocks=blocks)
-    epilogue_reduce_cuda.launches += 1
+    epilogue_reduce_cuda.launches += _build.counted(1)
     return out
 
 
@@ -225,7 +225,7 @@ def epilogue_dz_cuda(z, mask, cst, red5, ct):
     _launch("epilogue_dz", 6,
             (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), red5.data_ptr(),
              ct.data_ptr(), out.data_ptr()), n, m, f, z.device)
-    epilogue_dz_cuda.launches += 1
+    epilogue_dz_cuda.launches += _build.counted(1)
     return out
 
 

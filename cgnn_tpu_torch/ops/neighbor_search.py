@@ -107,9 +107,19 @@ def radius_threshold(radius: float) -> float:
     return float(t)
 
 
+_CAPS: dict = {}
+
+
 def caps_tensor(spec: RawSpec, device) -> torch.Tensor:
-    """[3] f32 image caps on ``device``."""
-    return torch.tensor(spec.images, dtype=torch.float32, device=device)
+    """[3] f32 image caps on ``device``, made once per caps and device
+    (a host-to-device copy: never inside a captured step)."""
+    device = torch.device(device)
+    key = (tuple(int(c) for c in spec.images), str(device))
+    caps = _CAPS.get(key)
+    if caps is None:
+        caps = _CAPS[key] = torch.tensor(key[0], dtype=torch.float32,
+                                         device=device)
+    return caps
 
 
 def cap_overflow(lats, amask, spec: RawSpec,
@@ -256,7 +266,7 @@ def neighbor_search_cuda(frac, lats, amask, offsets, radius: float,
         {"G": g, "S": s, "K": k, "M": m, "home": home,
          "T": radius_threshold(radius)},
         dev)
-    neighbor_search_cuda.launches += 1
+    neighbor_search_cuda.launches += _build.counted(1)
     return nbr, dist, em, ne
 
 

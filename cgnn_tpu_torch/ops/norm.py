@@ -45,8 +45,9 @@ def masked_moments(x: torch.Tensor, mask: torch.Tensor | None):
         s2 = (xm * xs).sum(dim=axes) if one_pass else None
     else:
         m = None
-        n_real = torch.tensor(float(xf[..., 0].numel()), dtype=stat_dtype,
-                              device=x.device)
+        # a fill on the device: a host scalar made into a tensor here
+        # would be a host-to-device copy, which a CUDA graph cannot take
+        n_real = xf.new_full((), float(xf[..., 0].numel()))
         s1 = xs.sum(dim=axes)
         s2 = (xs * xs).sum(dim=axes) if one_pass else None
     n = torch.clamp_min(n_real, 1.0)

@@ -117,8 +117,26 @@ def segment_mean(
 ) -> torch.Tensor:
     """Masked segment mean: sum(w*x)/sum(w); empty segments return 0.
     ``weights`` (e.g. a node mask) keeps padding rows out of both the
-    numerator and the denominator."""
+    numerator and the denominator.
+
+    The rows of nonzero weight must have non-decreasing ``segment_ids``,
+    as every packer lays nodes out (``pack_graphs``: real nodes by graph,
+    padding after; the raw expander: one block a structure). Each
+    segment is then summed in row order by ``torch.segment_reduce``, the
+    same bits run to run on the card, where ``index_add_`` would add
+    with atomics in no fixed order; a zero-weight row joins the segment
+    of the last weighted row before it (``cummax``), adding zeros. The
+    offsets come from ``searchsorted``, so nothing waits for the
+    device."""
     data = data * weights[..., None]
-    denom = segment_sum(weights, segment_ids, num_segments)
-    total = segment_sum(data, segment_ids, num_segments)
+    ids = torch.where(weights > 0, segment_ids,
+                      torch.zeros_like(segment_ids))
+    key = torch.cummax(ids, dim=0).values
+    offsets = torch.searchsorted(
+        key, torch.arange(num_segments + 1, dtype=key.dtype,
+                          device=key.device))
+    denom = torch.segment_reduce(weights, "sum", offsets=offsets, axis=0,
+                                 unsafe=True)
+    total = torch.segment_reduce(data, "sum", offsets=offsets, axis=0,
+                                 unsafe=True)
     return total / torch.clamp_min(denom, 1.0)[..., None]

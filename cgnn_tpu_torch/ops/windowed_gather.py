@@ -124,7 +124,7 @@ def windowed_gather_cuda(nodes, neighbors, win_starts,
         (nodes.data_ptr(), neighbors.data_ptr(), win_starts.data_ptr(),
          out.data_ptr()),
         dict(N=n, M=m, F=f, window=window), dev)
-    windowed_gather_cuda.launches += 1
+    windowed_gather_cuda.launches += _build.counted(1)
     return out
 
 

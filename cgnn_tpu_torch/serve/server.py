@@ -10,20 +10,29 @@ driven by one named worker thread::
       -> batcher.offer (a change of form cuts a flush)
     worker "cgnn-torch-serve":
       batcher.next_flush() -> expired requests fail with TIMEOUT
-        raw flush:  ShapeSet.pack_raw -> .to(device) -> predict_step (the
+        raw flush:  ShapeSet.pack_raw -> the rung's raw predict graph (the
                     device neighbor search builds the graph) -> rows;
                     a structure flagged for cap overflow is re-offered as
                     a featurized request with the same future
         feat flush: deferred structures are featurized HERE, on the
                     worker, never on the caller's thread (a failure fails
-                    that request alone) -> ShapeSet.pack_full -> .to(device)
-                    -> predict_step; with a compact spec, a flush whose
-                    every graph is compactable (probed here, on the
-                    worker, in one vectorized pass) packs ShapeSet.pack
-                    into a pooled staging buffer instead (the expander
+                    that request alone) -> ShapeSet.pack_full -> the
+                    rung's full predict graph; with a compact spec, a
+                    flush whose every graph is compactable (probed here,
+                    on the worker, in one vectorized pass) packs
+                    ShapeSet.pack into a pooled staging buffer and
+                    replays the compact graph instead (the expander
                     rebuilds the batch on the device), counted
                     ``pack_compact``, else ``pack_full``
         -> resolve each future with its row
+
+Each (staging form, rung) has one predict graph (train/graphs.py): the
+step captured as a CUDA graph at ``warm()`` (full, compact where the
+template stages compactly, raw with a raw spec). A flush copies its host
+batch into the graph's static inputs and replays it; it never captures.
+``stats()["counts"]["captures_after_warm"]`` counts captures after
+``warm()`` (the JAX ``serve_recompiles_after_warm``): 0 by construction,
+and a rise is logged loudly. On the CPU the step runs eagerly.
 
 In the flat COO layout (``ShapeSet.dense_m`` None) there is no raw wire,
 and a wire-form structure is featurized at admission, on the caller's
@@ -79,6 +88,7 @@ from cgnn_tpu_torch.serve.batcher import (
 )
 from cgnn_tpu_torch.serve.shapes import ShapeSet, plan_shape_set
 from cgnn_tpu_torch.train.checkpoint import inference_state, load_for_inference
+from cgnn_tpu_torch.train.graphs import GraphCache, StepGraph
 from cgnn_tpu_torch.train.normalizer import Normalizer
 from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
 
@@ -129,6 +139,8 @@ class InferenceServer:
         self.predict_step = make_predict_step(
             raw_expander=shape_set.raw_expander(device=self.device),
             expander=shape_set.expander(device=self.device))
+        self.graphs = GraphCache(self._make_graph, log_fn=log_fn,
+                                 label="serve: predict graph")
         self._pool = None if shape_set.compact is None else BufferPool()
         self._raw_precheck = bool(raw_precheck)
         self.batcher = MicroBatcher(shape_set, max_queue=max_queue,
@@ -157,17 +169,17 @@ class InferenceServer:
     # ---- lifecycle ----
 
     def warm(self, template: CrystalGraph) -> int:
-        """Run every rung once with one copy of ``template`` (in both
-        staging forms with a compact spec, and, with a raw spec, the raw
-        program once with ``spec.template()``): builds the kernels and
-        initializes the device libraries before traffic. -> the number of
-        rungs run."""
+        """Capture every rung's predict graph with one copy of
+        ``template`` (in both staging forms with a compact spec, and,
+        with a raw spec, the raw form with ``spec.template()``), each run
+        once: builds the kernels and initializes the device libraries
+        before traffic. -> the number of rungs."""
         self._feature_dims = (template.atom_fea.shape[1],
                               template.edge_fea.shape[1])
         raw = self.shape_set.raw
         for shape in self.shape_set:
             batch = self.shape_set.pack_full([template], shape=shape)
-            self.predict_step(self.state, batch.to(self.device)).cpu()
+            self._predict("full", shape, batch).cpu()
             if self.shape_set.compactable(template):
                 # through a pooled staging buffer: its pinned allocation
                 # is paid here, not by the rung's first flush
@@ -175,14 +187,29 @@ class InferenceServer:
                 buf = self._pool.acquire(key, self.shape_set.buffer_factory(
                     shape, pin=self.device.type == "cuda"))
                 cb = self.shape_set.pack([template], shape=shape, out=buf)
-                self.predict_step(self.state, cb.to(self.device)).cpu()
+                self._predict("compact", shape, cb).cpu()
                 self._pool.release(key, buf)
             if raw is not None:
                 rb = self.shape_set.pack_raw([raw.template()], shape=shape)
-                self.predict_step(self.state, rb.to(self.device))[0].cpu()
+                self._predict("raw", shape, rb)[0].cpu()
+        self.graphs.mark_warm()
         self._log(f"serve: warmed {len(self.shape_set)} shapes on "
-                  f"{self.device}")
+                  f"{self.device} ({self.graphs.captures()} predict graphs "
+                  f"captured)")
         return len(self.shape_set)
+
+    def _make_graph(self, key, batch) -> StepGraph:
+        return StepGraph(lambda b: self.predict_step(self.state, b),
+                         batch, device=self.device,
+                         kind="predict_raw" if key[0] == "raw"
+                         else "predict", label=f"serve: predict graph {key}")
+
+    def _predict(self, form: str, shape, batch):
+        """The predict step on a host ``batch`` of ``form`` ('full',
+        'compact', 'raw') at rung ``shape``: its graph's replay on CUDA
+        (outputs static: fetch them before the next flush), eagerly on
+        the CPU."""
+        return self.graphs.run((form, shape), batch)
 
     def start(self) -> "InferenceServer":
         if self._worker is None or not self._worker.is_alive():
@@ -353,16 +380,14 @@ class InferenceServer:
                 self._count("pack_raw")
                 batch = self.shape_set.pack_raw([r.graph for r in reqs],
                                                 shape=flush.shape)
-                preds, overflow, _ = self.predict_step(
-                    self.state, batch.to(self.device))
+                preds, overflow, _ = self._predict("raw", flush.shape,
+                                                   batch)
                 out = preds.cpu().numpy()
                 overflow = overflow.cpu().numpy()
             else:
                 batch, buf = self._pack_featurized(flush)
-                out = self.predict_step(
-                    self.state,
-                    batch.to(self.device, non_blocking=buf is not None),
-                ).cpu().numpy()
+                out = self._predict("full" if buf is None else "compact",
+                                    flush.shape, batch).cpu().numpy()
         except Exception as e:  # noqa: BLE001 — fail the flush, not the server
             self._log(f"serve: batch {flush.flush_id} failed: {e!r}")
             self._count("batch_failures")
@@ -482,6 +507,9 @@ class InferenceServer:
     def stats(self) -> dict:
         with self._lock:
             counts = dict(self.counts)
+        counts.update(graph_captures=self.graphs.captures(),
+                      graph_replays=self.graphs.replays(),
+                      captures_after_warm=self.graphs.captures_after_warm)
         return {
             "counts": counts,
             "queue_depth": self.batcher.depth,

@@ -10,10 +10,19 @@ Data, as train.py reads it: ``--cache PATH`` loads a graph cache
 (data/cache.py) when PATH exists; otherwise ``--synthetic N`` structures,
 or the CIF directory ``DATA_DIR`` (``{id}.cif`` + ``id_prop.csv``)
 featurized on ``-j`` worker processes (0: every core; 1: this process),
-and ``--cache PATH`` then writes the cache. ``--compact-staging on``
-exits 2: the JAX package stages training batches compactly only under
-its scan driver, whose port is ROADMAP Queue 1, item 5; ``auto`` is off
-until then.
+and ``--cache PATH`` then writes the cache.
+
+Staging and driving, with train.py's rules: ``--buckets K`` packs per
+size class (K batch shapes); ``--pack-once`` packs the training batches
+once and reshuffles their order each epoch; ``--device-resident`` (which
+implies it) stages them on the card once, and selects the epoch driver
+(``--scan-epochs``, train/loop.py ``ScanEpochDriver``: every step a
+replayed CUDA graph, the JAX schedule, ``--chunk-steps`` its mean chunk)
+unless ``--no-scan-epochs`` keeps the per-step loop; both flags together
+exit 2. ``--compact-staging`` stages the batches compactly, rebuilt
+inside each step: ``auto`` (the default) is on wherever it is supported
+(the driver and the dense layout) and says why when the data cannot
+stage compactly; ``on`` exits 2 without them.
 
 ``--layout`` follows train.py's rules: ``auto`` is the dense layout unless
 ``--aggregation`` names a COO aggregation; ``--layout dense`` with
@@ -33,12 +42,14 @@ defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
 CPU (where the kernels' plain versions run); without a card the default
 raises. At the end it writes ``params.npz`` + ``meta.json`` to
 ``--out-dir`` (the JAX layout, convert.save_params), which ``load_server``
-serves, and prints the test-split MAE.
+serves, and prints the test-split MAE and one ``train: {...}`` JSON line
+(``run_summary``: epoch seconds, step graphs, the driver's staging).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -102,11 +113,31 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="edge layout: auto = dense unless --aggregation "
                         "is given")
+    p.add_argument("--buckets", type=int, default=1,
+                   help="size-class buckets for batching (>1: one batch "
+                        "shape, and one step graph, per bucket)")
+    p.add_argument("--pack-once", action="store_true",
+                   help="pack training batches once and shuffle batch "
+                        "order across epochs")
+    p.add_argument("--device-resident", action="store_true",
+                   help="stage packed batches on the card once and reuse "
+                        "them every epoch (implies --pack-once); selects "
+                        "--scan-epochs unless --no-scan-epochs")
+    p.add_argument("--scan-epochs", action="store_true",
+                   help="the epoch driver (implies --device-resident): "
+                        "the JAX scan driver's step sequence, every step "
+                        "a replayed CUDA graph")
+    p.add_argument("--no-scan-epochs", action="store_true",
+                   help="keep the per-step loop under --device-resident")
+    p.add_argument("--chunk-steps", type=int, default=2, metavar="C",
+                   help="the driver's mean chunk (lengths drawn from "
+                        "{C/2, C, 2C})")
     p.add_argument("--compact-staging", choices=["auto", "on", "off"],
                    default="auto",
-                   help="compact staging of training batches: needs the "
-                        "scan driver (not ported: 'on' exits 2, 'auto' is "
-                        "off)")
+                   help="stage training batches compactly (atoms + "
+                        "distances, rebuilt on the card inside the step): "
+                        "needs the epoch driver and the dense layout; "
+                        "'auto' is on where supported")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--ckpt-dir", default="checkpoints/torch",
@@ -146,9 +177,16 @@ def main(argv=None) -> int:
     dense_m = resolve_layout(args)
     if dense_m is None:
         return 2
-    if args.compact_staging == "on":
-        print("--compact-staging on requires the scan driver, which is not "
-              "ported yet (ROADMAP Queue 1, item 5)", file=sys.stderr)
+    if args.device_resident and not args.no_scan_epochs:
+        args.scan_epochs = True  # train.py: the device-resident default
+    if args.scan_epochs and args.no_scan_epochs:
+        print("--scan-epochs and --no-scan-epochs are contradictory",
+              file=sys.stderr)
+        return 2
+    compact_ok = args.scan_epochs and bool(dense_m)
+    if args.compact_staging == "on" and not compact_ok:
+        print("--compact-staging on requires --scan-epochs, the dense "
+              "layout, and a non-force task", file=sys.stderr)
         return 2
 
     from cgnn_tpu_torch import convert
@@ -194,12 +232,19 @@ def main(argv=None) -> int:
                               best_mae=val_m.get("mae", -1.0)),
                       is_best=is_best)
 
+        compact = None
+        if args.compact_staging != "off" and compact_ok:
+            compact = _compact_spec(args, train_g + val_g + test_g,
+                                    data_cfg, dense_m)
         state, result = fit(
             state, train_g, val_g, epochs=args.epochs,
             batch_size=args.batch_size, dense_m=dense_m, device=dev,
             node_cap=node_cap, edge_cap=edge_cap, seed=args.seed,
             print_freq=args.print_freq, start_epoch=start_epoch,
-            on_epoch_end=save)
+            on_epoch_end=save, buckets=args.buckets,
+            pack_once=args.pack_once, device_resident=args.device_resident,
+            scan_epochs=args.scan_epochs, chunk_steps=args.chunk_steps,
+            compact=compact)
         ckpt.wait()
     finally:
         ckpt.close()
@@ -207,6 +252,8 @@ def main(argv=None) -> int:
                       dev, edge_cap=edge_cap)
     print(f"** test mae: {test_m.get('mae', float('nan')):.4f} "
           f"(best val: {result['best']:.4f})")
+    print("train: " + json.dumps(run_summary(result, len(train_g)),
+                                 allow_nan=False))
     os.makedirs(args.out_dir, exist_ok=True)
     npz = os.path.join(args.out_dir, "params.npz")
     meta = os.path.join(args.out_dir, "meta.json")
@@ -217,6 +264,40 @@ def main(argv=None) -> int:
         normalizer_std=state.normalizer.std.cpu().numpy())
     print(f"wrote {npz} and {meta}")
     return 0
+
+
+def run_summary(result: dict, n_train: int) -> dict:
+    """The run's machine-readable line: per-epoch seconds and train
+    structures/s (the epoch's train and validation wall), the step
+    graphs' captures and replays, and the driver's staging."""
+    hist = result["history"]
+    out = {"epochs": [h["epoch"] for h in hist],
+           "epoch_seconds": [h["seconds"] for h in hist],
+           "train_structures_per_s": [n_train / h["seconds"] for h in hist],
+           "train_steps": [h["train"]["steps"] for h in hist],
+           "graphs": result["graphs"]}
+    if "staging" in result:
+        out["staging"] = result["staging"]
+    return out
+
+
+def _compact_spec(args, graphs, data_cfg, dense_m):
+    """train.py's compact-staging rule: the spec, or None after saying
+    why the data cannot stage compactly (``on`` raises instead)."""
+    from cgnn_tpu_torch.data.compact import CompactSpec, CompactUnsupported
+
+    try:
+        spec = CompactSpec.build(graphs, data_cfg.featurize_config().gdf(),
+                                 dense_m=dense_m)
+    except CompactUnsupported as e:
+        if args.compact_staging == "on":
+            raise
+        print(f"compact staging unavailable ({e}); using full staging",
+              file=sys.stderr)
+        return None
+    print("compact staging: on (raw atoms+distances staged; features "
+          "rebuilt on device)")
+    return spec
 
 
 def load_graphs(args, data_cfg):

@@ -1,0 +1,306 @@
+"""Captured steps: the port's form of ``jax.jit`` (CUDA graphs).
+
+A ``StepGraph`` is one step body captured for one batch shape
+(``data.graph.batch_shape_key``) on a CUDA device:
+
+- static input tensors, copies of an example batch's on the device;
+- warm-up runs of the body on a side stream before capture (PyTorch's
+  whole-network capture recipe: lazy initialization, the kernels' first
+  build and launch, the autograd engine's set-up happen there);
+- capture on that stream (``CUDAGraph.capture_begin``/``capture_end``:
+  ``torch.cuda.graph`` would also synchronize and empty the allocator's
+  cache each time), in thread-local mode (a loader thread's copies on
+  their own stream do not break it);
+- ``run(batch)``: ``copy_`` into the static inputs on the current
+  stream, then ``replay()``; the outputs are static tensors, written
+  again by the next replay.
+
+``eager_runs`` defers the capture: the first ``eager_runs`` runs step
+eagerly on a copy of their batch on the device, and the next run
+captures from its batch, so a shape met no more than ``eager_runs``
+times costs what eager steps cost (bulk predict).
+
+On the CPU ``run`` calls the body eagerly on the batch it is given: the
+tests run that path. On CUDA a capture that fails raises
+``GraphCaptureError``; there is no eager fallback.
+
+A train body updates parameters, running statistics and the optimizer
+in its warm-up runs: ``guard`` (``state_guard``) snapshots what a step
+writes before them and copies it back after the capture, or after its
+failure, in place, so a capture leaves the state as it found it and the
+graph holds the same addresses. The optimizer's host count is raised
+once a replay (``on_replay``).
+
+``COUNTS`` holds, for each kind of step (``train``, ``eval``,
+``predict``, and ``predict_raw``, the raw wire's step with its neighbor
+search), ``<kind>_runs`` (calls of ``run``: replays and eager steps),
+``<kind>_replays``, ``<kind>_captures`` and ``<kind>_warm_runs`` (the
+warm-up runs before the captures: ``WARMUP_RUNS[kind]`` a capture). A
+kernel wrapper counts the launches it makes
+(``ops/_build.counted``): those of eager steps and warm-up runs, not a
+replay's. A ``GraphCache`` (one graph per key) counts
+``captures_after_warm``, the captures after its owner declared it warm
+(``mark_warm``): the counterpart of the JAX
+``serve_recompiles_after_warm``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+from typing import Callable, Sequence
+
+import torch
+
+COUNTS: dict = {}
+KINDS = ("train", "eval", "predict", "predict_raw")
+# warm-up runs before a capture: two for a train step (the autograd
+# engine and the optimizer set up on the first), one for a forward-only
+# step, whose first run initializes all it needs
+WARMUP_RUNS = {"train": 2, "eval": 1, "predict": 1, "predict_raw": 1}
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+    for kind in KINDS:
+        for what in ("runs", "replays", "captures", "warm_runs"):
+            COUNTS[f"{kind}_{what}"] = 0
+
+
+reset_counts()
+
+
+class GraphCaptureError(RuntimeError):
+    """A step could not be captured as a CUDA graph."""
+
+
+def batch_tensors(batch) -> dict:
+    """{field: tensor} of a batch dataclass (None fields left out)."""
+    return {f.name: v for f in dataclasses.fields(batch)
+            if (v := getattr(batch, f.name)) is not None}
+
+
+def _static_copy(batch, device):
+    """A batch of fresh tensors on ``device`` with ``batch``'s fields."""
+    return dataclasses.replace(batch, **{
+        k: v.to(device, copy=True) for k, v in batch_tensors(batch).items()})
+
+
+def tensor_guard(tensors: Callable[[], list] = list,
+                 sums: Sequence = ()) -> Callable:
+    """-> a guard: called, it snapshots ``tensors()`` and the
+    accumulators of each ``metrics.DeviceSums`` in ``sums``, and returns
+    the restore, which copies them back in place (an accumulator made
+    after the snapshot is zeroed)."""
+
+    def guard():
+        ts = list(tensors())
+        saved = [t.detach().clone() for t in ts]
+        sums_saved = [{k: v.clone() for k, v in s.sums.items()}
+                      for s in sums]
+
+        @torch.no_grad()
+        def restore():
+            for t, v in zip(ts, saved):
+                t.copy_(v)
+            for s, was in zip(sums, sums_saved):
+                for k, v in s.sums.items():
+                    if k in was:
+                        v.copy_(was[k])
+                    else:
+                        v.zero_()
+
+        return restore
+
+    return guard
+
+
+def state_guard(state, extra: Callable[[], list] = list,
+                sums: Sequence = ()) -> Callable:
+    """``tensor_guard`` over every tensor a train step of ``state``
+    writes (parameters, buffers, optimizer buffers and device count),
+    ``extra()`` and ``sums``; its restore also resets the host count and
+    drops the gradients."""
+    inner = tensor_guard(lambda: (list(state.model.parameters())
+                                  + list(state.model.buffers())
+                                  + state.optimizer.tensors()
+                                  + list(extra())), sums)
+
+    def guard():
+        restore_tensors = inner()
+        count = state.optimizer.count
+
+        def restore():
+            restore_tensors()
+            state.optimizer._count = count
+            state.optimizer.zero_grad()
+
+        return restore
+
+    return guard
+
+
+class StepGraph:
+    """One step body captured for one batch shape (module docstring).
+
+    ``fn(batch)`` is the body; ``example`` a batch whose fields give the
+    static inputs (None: the body reads no batch, e.g. the epoch
+    driver's, which indexes its staged stacks itself). ``guard``
+    (``state_guard``) restores the state after the warm-up runs;
+    ``on_replay`` runs on the host after each replay; ``eager_runs``
+    eager steps come before the capture. ``capture=False`` steps eagerly
+    on any device."""
+
+    def __init__(self, fn: Callable, example=None, *, device,
+                 kind: str = "predict", label: str = "step",
+                 guard: Callable | None = None,
+                 on_replay: Callable | None = None, capture: bool = True,
+                 eager_runs: int = 0):
+        if kind not in KINDS:
+            raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+        self.fn = fn
+        self.device = torch.device(device)
+        self.kind = kind
+        self.label = label
+        self.on_replay = on_replay
+        self.replays = 0
+        self.graph = None
+        self.static = None
+        self.out = None
+        # None: eager (the CPU, or capture=False); else eager steps left
+        # before the capture
+        self._eager_left = None
+        if self.device.type != "cuda" or not capture:
+            return
+        self._guard = guard
+        self._eager_left = eager_runs
+        if eager_runs == 0:
+            self._capture(example)
+
+    def _body(self):
+        return self.fn(self.static) if self.static is not None else self.fn()
+
+    def _capture(self, example) -> None:
+        """Static inputs from ``example``, warm-up runs on a side stream,
+        then the capture there."""
+        kind = self.kind
+        dev = self.device
+        self.static = None if example is None else _static_copy(example,
+                                                                dev)
+        restore = self._guard() if self._guard is not None else None
+        self._side = torch.cuda.Stream(dev)
+        self._side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._side):
+            for _ in range(WARMUP_RUNS[kind]):
+                self._body()
+                COUNTS[f"{kind}_warm_runs"] += 1
+        graph = torch.cuda.CUDAGraph()
+        # ``torch.cuda.graph`` would synchronize and empty the allocator's
+        # cache first; the capture API alone does neither. A graph freed
+        # by the garbage collector mid-capture (an old StepGraph in a
+        # reference cycle) would destroy its executable, which a
+        # capturing thread may not: the collector waits until the end
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self._side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.out = self._body()
+                finally:
+                    graph.capture_end()
+        except Exception as e:
+            if restore is not None:
+                restore()
+            raise GraphCaptureError(
+                f"{self.label}: CUDA graph capture failed: {e!r}") from e
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream(dev).wait_stream(self._side)
+        if restore is not None:
+            restore()
+        self.graph = graph
+        COUNTS[f"{kind}_captures"] += 1
+
+    def run(self, batch=None):
+        """One step: on CUDA, ``batch``'s tensors into the static inputs
+        (when the graph has inputs) and a replay -> the static outputs
+        (an eager step before the capture -> its own outputs); on the
+        CPU the body on ``batch``."""
+        COUNTS[f"{self.kind}_runs"] += 1
+        if self._eager_left is None:
+            return self.fn(batch) if batch is not None else self.fn()
+        if self._eager_left > 0:
+            self._eager_left -= 1
+            if batch is None:
+                return self.fn()
+            return self.fn(batch.to(self.device, non_blocking=True))
+        if self.graph is None:
+            self._capture(batch)
+        if batch is not None:
+            static = batch_tensors(self.static)
+            given = batch_tensors(batch)
+            if static.keys() != given.keys():
+                raise ValueError(
+                    f"{self.label}: batch fields {sorted(given)} differ "
+                    f"from the captured {sorted(static)}")
+            for k, t in static.items():
+                t.copy_(given[k], non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        COUNTS[f"{self.kind}_replays"] += 1
+        if self.on_replay is not None:
+            self.on_replay()
+        return self.out
+
+
+class GraphCache:
+    """One ``StepGraph`` per key, made on first use by ``make(key,
+    *args)``; ``run`` steps a key's graph. ``captures_after_warm``
+    counts the captures after ``mark_warm``, and ``log_fn`` says so
+    loudly when one happens."""
+
+    def __init__(self, make: Callable, log_fn: Callable | None = None,
+                 label: str = "step"):
+        self._make = make
+        self._log = log_fn
+        self.label = label
+        self.graphs: dict = {}
+        self.warm = False
+        self.captures_after_warm = 0
+
+    def get(self, key, *args) -> StepGraph:
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._make(key, *args)
+            if g.graph is not None:
+                self._captured(key)
+        return g
+
+    def run(self, key, batch=None, *args):
+        """One step of ``key``'s graph (made from ``batch`` and ``args``
+        on first use) on ``batch``."""
+        g = self.get(key, batch, *args)
+        pending = g.graph is None
+        out = g.run(batch)
+        if pending and g.graph is not None:
+            self._captured(key)
+        return out
+
+    def _captured(self, key) -> None:
+        if not self.warm:
+            return
+        self.captures_after_warm += 1
+        if self._log is not None:
+            self._log(f"{self.label}: CAPTURE AFTER WARM-UP for shape {key} "
+                      f"(captures_after_warm={self.captures_after_warm})")
+
+    def mark_warm(self) -> None:
+        self.warm = True
+
+    def replays(self) -> int:
+        return sum(g.replays for g in self.graphs.values())
+
+    def captures(self) -> int:
+        return sum(g.graph is not None for g in self.graphs.values())

@@ -13,17 +13,23 @@
   the featurized path, never answered from its truncated graph.
 
 Both return ``([n, T] predictions in input order, end-to-end
-structures/s including packing)``. Each batch's output stays on the
-device; the host fetches once per ``_WINDOW`` batches, with one
-``torch.cat(...).cpu()``, and never syncs once per batch.
+structures/s including packing)``. Each batch runs its shape's predict
+graph (train/graphs.py; one a rung and form on the shape-set path, one a
+bucket shape on the buckets path): a shape's first two batches step
+eagerly, its third captures the graph, and from then on the host batch
+is copied into the graph's static inputs and the graph replayed; all
+eager on the CPU. Each batch's output is copied out of the
+graph's static output and stays on the device; the host fetches once
+per ``_WINDOW`` batches, with one ``torch.cat(...).cpu()``, and never
+syncs once per batch.
 
 ``run_fast_inference`` also stages compactly (``compact``, or a compact
 shape set): batches pack into pooled staging buffers (data/compact.py;
 pinned for a card) and the predict step's expander rebuilds them on the
 device. The copy to the card is asynchronous, so a buffer goes back to
-its pool only once a CUDA event recorded after its copy has completed
-(``_Fence``): before that, the next pack would overwrite bytes the copy
-still reads. ``pack_workers > 0`` packs on that many threads
+its pool only once a CUDA event recorded after its step (which follows
+its copy) has completed (``_Fence``): before that, the next pack would
+overwrite bytes the copy still reads. ``pack_workers > 0`` packs on that many threads
 (data/pipeline.py), in order.
 
 Not ported yet, and refused with a ``ValueError`` naming the ROADMAP
@@ -56,6 +62,7 @@ from cgnn_tpu_torch.data.graph import (
     plan_batches,
 )
 from cgnn_tpu_torch.data.pipeline import BufferPool, PipelineStats, parallel_pack
+from cgnn_tpu_torch.train.graphs import GraphCache, StepGraph, batch_tensors
 from cgnn_tpu_torch.train.step import make_predict_step
 
 # batches in flight before the host fetches their outputs (the JAX
@@ -135,6 +142,37 @@ class _Window:
                                np.nonzero(ovf[off: off + len(span)])[0]]
             off += out.shape[0]
         self._pending = []
+
+
+def _predict_graphs(state, step, dev) -> GraphCache:
+    """One predict graph per batch shape: a shape's first two batches
+    step eagerly and its third captures, so a shape met once or twice
+    costs no capture."""
+
+    def make(key, batch):
+        return StepGraph(lambda b: step(state, b), batch,
+                         device=dev, kind="predict_raw"
+                         if key[0] == "RawBatch" else "predict",
+                         label=f"predict graph {key}", eager_runs=2)
+
+    return GraphCache(make, label="predict graph")
+
+
+def _shape_key(batch) -> tuple:
+    return (type(batch).__name__,) + tuple(
+        (k, tuple(v.shape)) for k, v in batch_tensors(batch).items())
+
+
+def _run(graphs: GraphCache, batch):
+    """The batch's graph run -> its outputs, copied out of a captured
+    graph's static outputs (the next replay writes them again)."""
+    key = _shape_key(batch)
+    out = graphs.run(key, batch)
+    if graphs.graphs[key].graph is None:
+        return out
+    if isinstance(out, tuple):
+        return tuple(o.clone() for o in out)
+    return out.clone()
 
 
 def _shape_set_plan(graphs: Sequence, shape_set):
@@ -246,11 +284,12 @@ def run_fast_inference(
                             stats=pipe)
               if pack_workers > 0 else map(pack_job, jobs))
     window = _Window(n)
+    cache = _predict_graphs(state, step, dev)
     for span, batch, buf in packed:
-        on_dev = batch.to(dev, non_blocking=pin)
+        out = _run(cache, batch)
         if buf is not None:
             fence.add(buf)
-        window.add(span, step(state, on_dev))
+        window.add(span, out)
         if fence is not None:
             fence.release_done()
     window.flush()
@@ -260,7 +299,9 @@ def run_fast_inference(
     if stats is not None:
         stats.update(wait_s=pipe.wait_s, pack_s=pipe.pack_s, jobs=pipe.jobs,
                      buffers_allocated=0 if pool is None else pool.allocated,
-                     buffers_reused=0 if pool is None else pool.reused)
+                     buffers_reused=0 if pool is None else pool.reused,
+                     graph_captures=cache.captures(),
+                     graph_replays=cache.replays())
     return window.preds, rate
 
 
@@ -322,12 +363,13 @@ def run_raw_inference(
     t0 = time.perf_counter()
     big = shape_set.largest
     window = _Window(n)
+    cache = _predict_graphs(state, step, dev)
     for start in range(0, n, big.graph_cap):
         end = min(start + big.graph_cap, n)
         shape = next(s for s in shape_set.shapes
                      if s.graph_cap >= end - start)
         batch = shape_set.pack_raw(items[start:end], shape=shape)
-        preds, overflow, _ = step(state, batch.to(dev))
+        preds, overflow, _ = _run(cache, batch)
         window.add(np.arange(start, end), preds, overflow)
     window.flush()
     preds = window.preds

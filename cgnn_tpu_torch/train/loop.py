@@ -1,28 +1,52 @@
-"""The per-step training loop (``cgnn_tpu/train/loop.py`` ``fit``,
-``run_epoch``, ``evaluate``).
+"""The training loops (``cgnn_tpu/train/loop.py`` ``fit``, ``evaluate``,
+``PackOncePlan``, ``ScanEpochDriver``).
 
-Each epoch packs its batches on the host (``batch_iterator``, snug
-fill-to-capacity packing) and stages them on the device through the
-prefetch loader (data/loader.py: a producer thread packs and copies
-``prefetch`` batches ahead of the step; 0 stages each batch on this
-thread), then runs one step on each. One ``np.random.default_rng(seed)``
-shuffles every epoch's training
-batches; training batches carry the two-tier transpose mapping for the
-scatter-free backward, validation batches none (``in_cap=0``). Metric
-sums accumulate on the device and are fetched once per epoch
-(train/metrics.py). The loop keeps the best validation MAE and calls
-``on_epoch_end`` after each epoch's validation (the checkpoint hook;
-``start_epoch`` resumes). ``dense_m`` 0 or None trains on the flat COO
-layout, whose batches carry no transpose mapping.
+Two drivers, with ``fit``'s rules from the JAX package:
 
-Not ported yet: the whole-epoch scan loop, pack-once and
-device-resident staging, compact staging (which the JAX package allows
-only under its scan loop), size buckets, telemetry, the divergence guard
-and preemption.
+- the per-step loop: each epoch's batches (packed every epoch, or once
+  with ``pack_once``; staged through the prefetch loader, or once with
+  ``device_resident``) run one step each;
+- the epoch driver (``scan_epochs``, which implies ``device_resident``,
+  which implies ``pack_once``): every batch is packed and staged once,
+  stacked by shape (``batch_shape_key``) on the device, and each epoch
+  runs the JAX ``ScanEpochDriver``'s step sequence from the same seed:
+  its schedule (``_build_sched``: chunk lengths from {c/2, c, 2c},
+  weighted group picks drawn one epoch ahead, a mixed single-step tail)
+  is copied here, numpy for numpy.
+
+On a CUDA device every step is a replayed CUDA graph (train/graphs.py),
+one per (shape, train|eval), captured before the first epoch (the
+driver) or at a shape's first batch (the per-step loop). The driver's
+graph reads its batch as ``stacked[perm[cursor]]`` from its group's
+stacks and advances ``cursor`` on the device, so a chunk of length L is
+L replays with no host write between them; the host writes each group's
+permutation once an epoch. The per-step loop copies each batch into its
+graph's static inputs. Metric sums accumulate in static device tensors
+(``DeviceSums``) inside the graphs and are fetched once an epoch (the
+driver: once an epoch pair, train and eval in one copy). ``graphs=False``
+steps eagerly (on the CPU there are no graphs); ``evaluate`` always does.
+
+``compact`` (a ``data.compact.CompactSpec``; needs ``scan_epochs`` and
+the dense layout) stages training and validation batches compactly and
+rebuilds each inside its step (``make_expander``), as the JAX scan body
+does. The staged bytes are checked against the card's free memory
+(``check_device_resident_fit``); where they do not fit, the driver falls
+back LOUDLY to host pack-once staging through the per-step loop.
+
+The loop keeps the best validation MAE and calls ``on_epoch_end`` after
+each epoch's validation (the checkpoint hook; ``start_epoch`` resumes).
+``dense_m`` 0 or None trains on the flat COO layout.
+
+Not ported: preemption polling at chunk boundaries, the in-scan
+telemetry tap and the background pair fetch, the invariant checks on
+staged stacks, data-parallel drivers, the divergence guard, and
+``--profile`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import time
 from typing import Callable, Iterable, Sequence
 
@@ -33,15 +57,28 @@ from cgnn_tpu_torch.data.graph import (
     CrystalGraph,
     GraphBatch,
     batch_iterator,
+    batch_shape_key,
+    bucketed_batch_iterator,
     capacities_for,
 )
 from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
+from cgnn_tpu_torch.train.graphs import (
+    GraphCache,
+    StepGraph,
+    batch_tensors,
+    state_guard,
+    tensor_guard,
+)
 from cgnn_tpu_torch.train.metrics import (
-    accumulate_on_device,
+    DeviceSums,
     fetch_device_sums,
     means_from_sums,
 )
 from cgnn_tpu_torch.train.step import make_eval_step, make_train_step
+
+# share of the card's free memory the staged dataset may claim: the rest
+# is parameters, optimizer state, the graphs' pools and workspace
+_STAGE_FRACTION = 0.8
 
 
 def stage(batches: Iterable[GraphBatch], device, prefetch: int = 2,
@@ -54,23 +91,54 @@ def stage(batches: Iterable[GraphBatch], device, prefetch: int = 2,
     return (b.to(device) for b in batches)
 
 
-def run_epoch(step_fn: Callable, state, batches: Iterable[GraphBatch], *,
-              train: bool = True, print_freq: int = 0, epoch: int = 0,
-              log_fn: Callable = print) -> dict:
-    """Drive one epoch of ``step_fn`` over batches on the device (``stage``)
-    -> metric means."""
-    sums = None
-    steps = 0
-    for it, batch in enumerate(batches):
-        sums = accumulate_on_device(sums, step_fn(state, batch))
-        steps += 1
-        if print_freq and it % print_freq == 0:
-            host = fetch_device_sums(sums)
-            count = max(host.get("count", 1.0), 1.0)
-            log_fn(f"{'Epoch' if train else 'Val'}: [{epoch}][{it}]  "
-                   f"Loss {host['loss_sum'] / count:.4f}  "
-                   f"MAE {host['mae_sum'] / count:.4f}")
-    return means_from_sums(fetch_device_sums(sums), steps)
+def staged_nbytes(batches) -> int:
+    """Bytes the batches occupy staged on a device (every tensor of every
+    batch): the one count the device-resident fit check reads."""
+    return sum(t.nbytes for b in batches for t in batch_tensors(b).values())
+
+
+def device_hbm_budget(device=None) -> int | None:
+    """Staging budget in bytes on ``device``: 80% of the card's free
+    memory (``torch.cuda.mem_get_info``); None off a card (unknown)."""
+    device = torch.device(device or "cuda")
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free * _STAGE_FRACTION)
+
+
+def check_device_resident_fit(staged_bytes: int, n_devices: int = 1,
+                              log_fn: Callable = print,
+                              device=None) -> bool:
+    """True when ``staged_bytes`` fits the device-resident budget. False
+    (with a LOUD explanation of the fall-back and the knobs that shrink
+    staging): the caller keeps batches host-side and restages them each
+    epoch (pack-once) instead of dying in an out-of-memory error
+    mid-staging. An unknown budget (the CPU) passes."""
+    budget = device_hbm_budget(device)
+    if budget is None:
+        return True
+    per_device = staged_bytes / max(n_devices, 1)
+    if per_device <= budget:
+        return True
+    name = torch.cuda.get_device_name(torch.device(device or "cuda"))
+    log_fn(
+        f"device-resident staging needs {per_device / 1e9:.1f} GB/device "
+        f"but only ~{budget / 1e9:.1f} GB of HBM is budgeted for data "
+        f"({_STAGE_FRACTION:.0%} of {name} free memory): FALLING BACK to "
+        f"host-side pack-once staging (per-step H2D each epoch). To stage "
+        f"on-device: --compact-staging (~12x smaller; single-device runs "
+        f"today), more data-parallel devices, or a smaller dataset/batch "
+        f"capacity.")
+    return False
+
+
+def _log_progress(host: dict, train: bool, epoch: int, it: int,
+                  log_fn: Callable) -> None:
+    count = max(host.get("count", 1.0), 1.0)
+    log_fn(f"{'Epoch' if train else 'Val'}: [{epoch}][{it}]  "
+           f"Loss {host.get('loss_sum', 0.0) / count:.4f}  "
+           f"MAE {host.get('mae_sum', 0.0) / count:.4f}")
 
 
 def batch_caps(graphs: Sequence[CrystalGraph], batch_size: int,
@@ -88,6 +156,377 @@ def batch_caps(graphs: Sequence[CrystalGraph], batch_size: int,
         node_cap = snug_n if node_cap is None else node_cap
         edge_cap = snug_e if edge_cap is None else edge_cap
     return node_cap, edge_cap
+
+
+class PackOncePlan:
+    """pack_once / device_resident epoch staging: pack every batch on the
+    first epoch, reshuffle BATCH order (not graph membership) on later
+    epochs from ``rng``, and with ``device_resident`` stage each batch on
+    the device once (``stage``), so later epochs copy nothing."""
+
+    def __init__(self, make_train_batches: Callable,
+                 make_val_batches: Callable, rng: np.random.Generator,
+                 device_resident: bool = False,
+                 stage: Callable | None = None):
+        self._make_train = make_train_batches
+        self._make_val = make_val_batches
+        self._rng = rng
+        self._device_resident = device_resident
+        self._stage = stage
+        self._train: list | None = None
+        self._val: list | None = None
+
+    def epoch_iterators(self) -> tuple[Iterable, Iterable]:
+        if self._train is None:
+            self._train = list(self._make_train())
+            self._val = list(self._make_val())
+            if self._device_resident:
+                self._train = [self._stage(b) for b in self._train]
+                self._val = [self._stage(b) for b in self._val]
+            # packing order first: the first epoch is then the per-epoch
+            # packing path's with the same seed
+            order = np.arange(len(self._train))
+        else:
+            order = self._rng.permutation(len(self._train))
+        return (self._train[i] for i in order), iter(self._val)
+
+
+class _Group:
+    """One shape's staged batches: each field stacked on a leading axis
+    on the device, this epoch's permutation and the cursor into it (both
+    on the device, read and advanced inside the captured step), and
+    their host mirrors."""
+
+    def __init__(self, batches: list, device):
+        self.n = len(batches)
+        first = batches[0]
+        self.stacked = dataclasses.replace(first, **{
+            k: torch.stack([getattr(b, k) for b in batches]).to(device)
+            for k in batch_tensors(first)})
+        self.perm = torch.arange(self.n, dtype=torch.int64, device=device)
+        self.cursor = torch.zeros((), dtype=torch.int64, device=device)
+        self.host_perm = np.arange(self.n)
+        self.host_cursor = 0
+
+    def take(self):
+        """The batch at ``perm[cursor]`` (copied out of the stacks), and
+        the cursor advanced: device ops only, so a graph can hold them.
+        The cursor is read modulo the group's size: a capture's warm-up
+        runs may step past the end of a small group."""
+        at = torch.remainder(self.cursor, self.n).view(1)
+        idx = self.perm.index_select(0, at)
+        self.cursor.add_(1)
+        return dataclasses.replace(self.stacked, **{
+            k: t.index_select(0, idx).squeeze(0)
+            for k, t in batch_tensors(self.stacked).items()})
+
+    def begin(self, perm: np.ndarray | None) -> None:
+        """Start an epoch over ``perm`` (None: keep the current one)."""
+        if perm is not None and not np.array_equal(perm, self.host_perm):
+            self.host_perm = np.asarray(perm)
+            self.perm.copy_(torch.from_numpy(
+                np.ascontiguousarray(perm, dtype=np.int64)))
+        self.cursor.zero_()
+        self.host_cursor = 0
+
+
+class ScanEpochDriver:
+    """Whole-epoch driving of device-resident batches, the JAX
+    ``ScanEpochDriver``'s schedule with one captured step graph per
+    (shape, train|eval) in place of a ``lax.scan`` per (shape, chunk
+    length) (module docstring).
+
+    ``train_body(state, batch)`` / ``eval_body(state, batch)`` return a
+    step's metric sums (``make_train_step``, with its expander where the
+    batches are staged compactly).
+    ``warm(state)`` captures every graph before the first epoch and
+    leaves ``state`` as it was; unlike the JAX ``warm`` it draws nothing
+    from ``rng``, so ``fit`` with the driver walks the JAX ``fit``'s step
+    sequence. ``trace``, when a list, receives ``(shape key, batch
+    indices)`` for every chunk run, from the host mirrors."""
+
+    # mean steps a chunk and the mixed tail's cap: the JAX values
+    chunk_steps = 2
+    mixed_tail = 8
+
+    def __init__(self, train_body: Callable, eval_body: Callable,
+                 train_batches: list, val_batches: list,
+                 rng: np.random.Generator, *, device,
+                 chunk_steps: int | None = None, graphs: bool = True):
+        if chunk_steps is not None:
+            if chunk_steps < 1:
+                raise ValueError(
+                    f"chunk_steps must be >= 1, got {chunk_steps}")
+            self.chunk_steps = int(chunk_steps)
+        self._rng = rng
+        self.device = torch.device(device)
+        self._capture = graphs
+        self.timings: dict[str, float] = {}
+        t0 = time.perf_counter()
+        self._train_groups = self._stack_groups(train_batches)
+        self._val_groups = self._stack_groups(val_batches)
+        self.timings["init_stack_stage_s"] = time.perf_counter() - t0
+        self._train_body, self._eval_body = train_body, eval_body
+        self.train_sums, self.eval_sums = DeviceSums(), DeviceSums()
+        self.train_graphs = GraphCache(self._make_train_graph,
+                                       label="train graph")
+        self.eval_graphs = GraphCache(self._make_eval_graph,
+                                      label="eval graph")
+        self._state = None
+        self._sched_cache: dict = {}
+        self.trace: list | None = None
+
+    def _stack_groups(self, batches: list) -> dict:
+        """Group same-shape batches (first-seen order), stack and stage."""
+        groups: dict = {}
+        for b in batches:
+            groups.setdefault(batch_shape_key(b), []).append(b)
+        return {k: _Group(bs, self.device) for k, bs in groups.items()}
+
+    def _cursors(self) -> list:
+        return [g.cursor for g in (*self._train_groups.values(),
+                                   *self._val_groups.values())]
+
+    def _make_train_graph(self, key, state):
+        grp, sums = self._train_groups[key], self.train_sums
+        body = self._train_body
+        return StepGraph(
+            lambda: sums.add(body(state, grp.take())), device=self.device,
+            kind="train", label=f"train graph {key}", capture=self._capture,
+            guard=state_guard(state, self._cursors, [sums]),
+            on_replay=lambda: state.optimizer.advance(1))
+
+    def _make_eval_graph(self, key, state):
+        grp, sums = self._val_groups[key], self.eval_sums
+        body = self._eval_body
+        return StepGraph(lambda: sums.add(body(state, grp.take())),
+                         device=self.device, kind="eval",
+                         label=f"eval graph {key}", capture=self._capture,
+                         guard=tensor_guard(self._cursors, [sums]))
+
+    def warm(self, state) -> None:
+        """Capture every (shape, train|eval) graph (on CUDA; on the CPU
+        nothing is captured) and declare the driver warm: a capture
+        after this counts in ``captures_after_warm``."""
+        self._state = state
+        for key in self._train_groups:
+            self.train_graphs.get(key, state)
+        for key in self._val_groups:
+            self.eval_graphs.get(key, state)
+        for g in self._train_groups.values():
+            g.begin(np.arange(g.n))
+        for g in self._val_groups.values():
+            g.begin(None)
+        self.train_graphs.mark_warm()
+        self.eval_graphs.mark_warm()
+
+    def captures_after_warm(self) -> int:
+        return (self.train_graphs.captures_after_warm
+                + self.eval_graphs.captures_after_warm)
+
+    def _tail_for(self, n: int) -> int:
+        return min(self.mixed_tail, max(1, n // 4))
+
+    def _build_sched(self, groups: dict, train: bool, first: bool):
+        """(queues, tails, steps, pick_order, perms): the JAX
+        ``_build_sched``, numpy for numpy and draw for draw (the chunks
+        stay host index arrays; ``perms`` is each group's epoch order)."""
+        c = self.chunk_steps
+        queues, tails = [], []
+        steps = 0
+        pick_order: list[int] = []
+        perms = {}
+        multi = train and len(groups) > 1
+        for key, grp in groups.items():
+            n = grp.n
+            tail = self._tail_for(n) if multi else 0
+            perm = (np.arange(n) if (first or not train)
+                    else self._rng.permutation(n))
+            perms[key] = perm
+            head, foot = perm[: n - tail], perm[n - tail:]
+            if multi:
+                chunks, i = [], 0
+                sizes = [max(1, c // 2), c, 2 * c]
+                while i < len(head):
+                    rem = len(head) - i
+                    avail = [s for s in sizes if s <= rem]
+                    ln = int(self._rng.choice(avail)) if avail else rem
+                    chunks.append(head[i: i + ln])
+                    i += ln
+            else:
+                chunks = [head[i: i + c] for i in range(0, len(head), c)]
+            if chunks:
+                queues.append((key, grp, chunks))
+            if len(foot):
+                tails.append((key, grp, [foot[i: i + 1]
+                                         for i in range(len(foot))]))
+            steps += n
+        if multi and not first:
+            rem = [[len(ch) for ch in entry[2]] for entry in queues]
+            alive = list(range(len(queues)))
+            while alive:
+                if len(alive) > 1:
+                    w = np.array([float(sum(rem[i])) for i in alive])
+                    gi = alive[int(self._rng.choice(len(alive),
+                                                    p=w / w.sum()))]
+                else:
+                    gi = alive[0]
+                pick_order.append(gi)
+                rem[gi].pop(0)
+                if not rem[gi]:
+                    alive.remove(gi)
+        return queues, tails, steps, pick_order, perms
+
+    def _run_chunk(self, key, grp: _Group, length: int, train: bool) -> None:
+        """``length`` steps of ``key``'s graph, reading ``grp``'s next
+        ``length`` permuted batches."""
+        if self.trace is not None:
+            self.trace.append((key, grp.host_perm[
+                grp.host_cursor: grp.host_cursor + length].copy()))
+        graphs = self.train_graphs if train else self.eval_graphs
+        graph = graphs.get(key, self._state)
+        for _ in range(length):
+            graph.run()
+        grp.host_cursor += length
+
+    def _drive(self, state, groups: dict, train: bool, first: bool,
+               prebuild: bool = True) -> int:
+        """Run one epoch of ``groups`` (the JAX ``_drive``'s schedule)
+        -> steps run; the sums stay on the device."""
+        self._state = state
+        t0 = time.perf_counter()
+        sched_key = (id(groups), train, first)
+        if train:
+            sched = self._sched_cache.pop(sched_key, None)
+            if sched is None:
+                sched = self._build_sched(groups, train, first)
+        else:
+            sched = self._sched_cache.get(sched_key)
+            if sched is None:
+                sched = self._build_sched(groups, train, first)
+                self._sched_cache[sched_key] = sched
+        queues, tails, _, pick_order, perms = sched
+        for key, grp in groups.items():
+            grp.begin(perms[key])
+        (self.train_sums if train else self.eval_sums).zero()
+        queues = [(k, g, collections.deque(ch)) for k, g, ch in queues]
+        tails = [(k, g, collections.deque(ch)) for k, g, ch in tails]
+        multi = train and len(groups) > 1
+        executed = 0
+
+        def run_queues(qs, weighted):
+            nonlocal executed
+            rr = 0
+            picks = iter(pick_order)
+            by_index = list(qs)  # pick_order indexes the build order
+            while qs:
+                if weighted and pick_order:
+                    entry = by_index[next(picks)]
+                else:
+                    entry = qs[rr % len(qs)]
+                    rr += 1
+                key, grp, chunks = entry
+                chunk = chunks.popleft()
+                self._run_chunk(key, grp, len(chunk), train)
+                executed += len(chunk)
+                if not chunks:
+                    qs.remove(entry)
+
+        t_sched = time.perf_counter()
+        run_queues(queues, weighted=multi and not first)
+        run_queues(tails, weighted=False)
+        t_run = time.perf_counter()
+        if train and prebuild:
+            self._sched_cache[(id(groups), True, False)] = \
+                self._build_sched(groups, True, False)
+        phase = "train" if train else "eval"
+        tm = self.timings
+        for name, dt in (("sched_s", t_sched - t0),
+                         ("dispatch_s", t_run - t_sched),
+                         ("prebuild_s", time.perf_counter() - t_run)):
+            tm[f"{phase}_{name}"] = tm.get(f"{phase}_{name}", 0.0) + dt
+        tm[f"{phase}_steps"] = tm.get(f"{phase}_steps", 0) + executed
+        return executed
+
+    def train_epoch(self, state, first: bool) -> dict:
+        steps = self._drive(state, self._train_groups, train=True,
+                            first=first)
+        return means_from_sums(fetch_device_sums(self.train_sums.sums),
+                               steps)
+
+    def eval_epoch(self, state) -> dict:
+        steps = self._drive(state, self._val_groups, train=False,
+                            first=True)
+        return means_from_sums(fetch_device_sums(self.eval_sums.sums),
+                               steps)
+
+    def run_epoch_pair(self, state, first: bool) -> tuple:
+        """Train epoch + eval epoch with ONE fetch of both epochs' sums
+        -> (state, train means, val means)."""
+        tr_steps = self._drive(state, self._train_groups, train=True,
+                               first=first)
+        ev_steps = 0
+        if self._val_groups:
+            ev_steps = self._drive(state, self._val_groups, train=False,
+                                   first=True)
+        combined = {f"t:{k}": v for k, v in self.train_sums.sums.items()}
+        if ev_steps:
+            combined |= {f"e:{k}": v for k, v in self.eval_sums.sums.items()}
+        t0 = time.perf_counter()
+        fetched = fetch_device_sums(combined or None)
+        self.timings["pair_fetch_s"] = self.timings.get(
+            "pair_fetch_s", 0.0) + (time.perf_counter() - t0)
+        tr = {k[2:]: v for k, v in fetched.items() if k.startswith("t:")}
+        ev = {k[2:]: v for k, v in fetched.items() if k.startswith("e:")}
+        return state, means_from_sums(tr, tr_steps), means_from_sums(
+            ev, ev_steps)
+
+
+class StepRunner:
+    """The per-step loop's steps: one ``StepGraph`` per batch shape, made
+    at the shape's first batch (captured on CUDA unless ``graphs`` is
+    False), each batch copied into its static inputs; sums accumulate in
+    ``sums``."""
+
+    def __init__(self, step: Callable, state, device, *, train: bool,
+                 graphs: bool = True, log_fn: Callable | None = None):
+        self.state = state
+        self.sums = DeviceSums()
+        self.train = train
+        self._step = step
+        self._graphs = graphs
+        self.device = device
+        self.cache = GraphCache(self._make, log_fn=log_fn,
+                                label="train graph" if train
+                                else "eval graph")
+
+    def _make(self, key, batch):
+        state, sums, step = self.state, self.sums, self._step
+        guard = (state_guard(state, sums=[sums]) if self.train
+                 else tensor_guard(sums=[sums]))
+        return StepGraph(lambda b: sums.add(step(state, b)), batch,
+                         device=self.device,
+                         kind="train" if self.train else "eval",
+                         label=f"{self.cache.label} {key}", guard=guard,
+                         capture=self._graphs,
+                         on_replay=(lambda: state.optimizer.advance(1))
+                         if self.train else None)
+
+    def __call__(self, batch) -> None:
+        self.cache.run(batch_shape_key(batch), batch)
+
+    def epoch(self, batches: Iterable, *, print_freq: int = 0,
+              epoch: int = 0, log_fn: Callable = print) -> dict:
+        """One epoch over ``batches`` -> metric means (one fetch)."""
+        self.sums.zero()
+        steps = 0
+        for it, batch in enumerate(batches):
+            self(batch)
+            steps += 1
+            if print_freq and it % print_freq == 0:
+                _log_progress(fetch_device_sums(self.sums.sums), self.train,
+                              epoch, it, log_fn)
+        return means_from_sums(fetch_device_sums(self.sums.sums), steps)
 
 
 def fit(
@@ -108,41 +547,137 @@ def fit(
     on_epoch_end: Callable | None = None,
     prefetch: int = 2,
     loader_stats: LoaderStats | None = None,
+    buckets: int = 1,
+    pack_once: bool = False,
+    device_resident: bool = False,
+    scan_epochs: bool = False,
+    chunk_steps: int | None = None,
+    compact=None,
+    graphs: bool = True,
 ) -> tuple:
     """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
     the best validation MAE.
-    -> (state, {"best": best val MAE, "history": [per-epoch metrics]}).
+    -> (state, {"best", "history": [per-epoch metrics], "staging" (the
+    driver's: packed and staged bytes, compact or not, the fall-back),
+    "graphs": {captures, replays, captures_after_warm}}).
+
     ``dense_m`` 0 or None packs the flat COO layout. The capacities
-    default to the snug ones of the training graphs (``batch_caps``).
+    default to the snug ones of the training graphs (``batch_caps``);
+    ``buckets > 1`` packs per size class (``bucketed_batch_iterator``).
+    ``pack_once``, ``device_resident``, ``scan_epochs``, ``chunk_steps``,
+    ``compact``, ``graphs``: module docstring; the JAX rules hold
+    (``device_resident`` implies ``pack_once``, ``scan_epochs`` implies
+    ``device_resident``; ``compact`` needs ``scan_epochs`` and the dense
+    layout, else ValueError).
 
     As in the JAX loop, the data order's generator restarts from ``seed``
-    at ``start_epoch`` and ``best`` from inf, so the first epoch of a
-    resumed run moves the best pointer; ``on_epoch_end(state, epoch,
-    val_metrics, is_best)`` runs after each epoch's validation (the
-    checkpoint hook). ``prefetch``: the loader's depth (``stage``);
-    ``loader_stats`` gathers its counters over the run."""
+    at ``start_epoch`` and ``best`` from inf; ``on_epoch_end(state,
+    epoch, val_metrics, is_best)`` runs after each epoch's validation.
+    ``prefetch``: the loader's depth (``stage``); ``loader_stats``
+    gathers its counters. The state's tensors must not be rebound while
+    fit runs (the graphs hold their addresses): restore a checkpoint
+    before calling it."""
     dense_m = dense_m or None
+    device_resident = device_resident or scan_epochs
+    pack_once = pack_once or device_resident
+    if compact is not None and not scan_epochs:
+        raise ValueError("compact staging requires scan_epochs (the "
+                         "expander runs inside the scan body)")
+    if compact is not None and dense_m is None:
+        raise ValueError("compact staging requires the dense layout "
+                         "(dense_m)")
     node_cap, edge_cap = batch_caps(train_graphs, batch_size, dense_m,
                                     node_cap, edge_cap)
-    train_step, eval_step = make_train_step(), make_eval_step()
+    pack_fn = expand = None
+    if compact is not None:
+        from cgnn_tpu_torch.data.compact import compact_pack_fn, make_expander
+
+        pack_fn = compact_pack_fn(compact)
+        expand = make_expander(compact, device)
+    train_step = make_train_step(expander=expand)
+    eval_step = make_eval_step(expander=expand)
+
+    def train_batches(rng):
+        if buckets > 1:
+            return bucketed_batch_iterator(
+                train_graphs, batch_size, buckets, shuffle=True, rng=rng,
+                dense_m=dense_m, pack_fn=pack_fn)
+        return batch_iterator(train_graphs, batch_size, node_cap, edge_cap,
+                              shuffle=True, rng=rng, dense_m=dense_m,
+                              snug=True, pack_fn=pack_fn)
+
+    def val_batches():
+        if buckets > 1:
+            return bucketed_batch_iterator(val_graphs, batch_size, buckets,
+                                           dense_m=dense_m, in_cap=0,
+                                           pack_fn=pack_fn)
+        return batch_iterator(val_graphs, batch_size, node_cap, edge_cap,
+                              dense_m=dense_m, in_cap=0, snug=True,
+                              pack_fn=pack_fn)
+
     rng = np.random.default_rng(seed)
+    driver = None
+    staging: dict = {}
+    packed_lists = None
+    if scan_epochs:
+        if print_freq:
+            log_fn("scan_epochs: per-step prints are unavailable inside "
+                   "the epoch driver (epoch-level metrics only)")
+        t0 = time.perf_counter()
+        train_list = list(train_batches(rng))
+        val_list = list(val_batches())
+        staging["pack_s"] = time.perf_counter() - t0
+        staged = staged_nbytes(train_list + val_list)
+        staging.update(staged_bytes=staged, compact=compact is not None)
+        if check_device_resident_fit(staged, log_fn=log_fn, device=device):
+            t0 = time.perf_counter()
+            driver = ScanEpochDriver(
+                train_step, eval_step, train_list, val_list, rng,
+                device=device, chunk_steps=chunk_steps, graphs=graphs)
+            del train_list, val_list
+            staging["stage_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            driver.warm(state)
+            staging["capture_s"] = time.perf_counter() - t0
+        else:
+            staging["fallback"] = "host_pack_once"
+            scan_epochs = device_resident = False
+            packed_lists = (train_list, val_list)
+    plan = None
+    if pack_once and driver is None:
+        plan = PackOncePlan(
+            (lambda: packed_lists[0]) if packed_lists is not None
+            else (lambda: train_batches(rng)),
+            (lambda: packed_lists[1]) if packed_lists is not None
+            else val_batches,
+            rng, device_resident=device_resident,
+            stage=lambda b: b.to(device))
+    train_run = StepRunner(train_step, state, device, train=True,
+                           graphs=graphs, log_fn=log_fn)
+    eval_run = StepRunner(eval_step, state, device, train=False,
+                          graphs=graphs, log_fn=log_fn)
     best = np.inf
     history = []
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
-        train_m = run_epoch(
-            train_step, state,
-            stage(batch_iterator(train_graphs, batch_size, node_cap,
-                                 edge_cap, shuffle=True, rng=rng,
-                                 dense_m=dense_m, snug=True),
-                  device, prefetch, loader_stats),
-            train=True, print_freq=print_freq, epoch=epoch, log_fn=log_fn)
-        val_m = run_epoch(
-            eval_step, state,
-            stage(batch_iterator(val_graphs, batch_size, node_cap, edge_cap,
-                                 dense_m=dense_m, in_cap=0, snug=True),
-                  device, prefetch, loader_stats),
-            train=False, epoch=epoch, log_fn=log_fn)
+        if driver is not None:
+            state, train_m, val_m = driver.run_epoch_pair(
+                state, first=epoch == start_epoch)
+        else:
+            if plan is not None:
+                epoch_train, epoch_val = plan.epoch_iterators()
+            else:
+                epoch_train, epoch_val = train_batches(rng), val_batches()
+            if not device_resident:
+                epoch_train = stage(epoch_train, device, prefetch,
+                                    loader_stats)
+                epoch_val = stage(epoch_val, device, prefetch, loader_stats)
+            train_m = train_run.epoch(epoch_train, print_freq=print_freq,
+                                      epoch=epoch, log_fn=log_fn)
+            val_m = eval_run.epoch(epoch_val, epoch=epoch, log_fn=log_fn)
+            if epoch == start_epoch:
+                train_run.cache.mark_warm()
+                eval_run.cache.mark_warm()
         metric = val_m.get("mae", np.nan)
         is_best = metric < best
         if is_best:
@@ -154,19 +689,28 @@ def fit(
                f"  ({time.perf_counter() - t0:.1f}s)")
         if on_epoch_end is not None:
             on_epoch_end(state, epoch, val_m, is_best)
-    return state, {"best": best, "history": history}
+    caches = ([driver.train_graphs, driver.eval_graphs] if driver is not None
+              else [train_run.cache, eval_run.cache])
+    out = {"best": best, "history": history, "graphs": {
+        "captures": sum(c.captures() for c in caches),
+        "replays": sum(c.replays() for c in caches),
+        "captures_after_warm": sum(c.captures_after_warm for c in caches)}}
+    if staging:
+        if driver is not None:
+            staging["timings"] = dict(driver.timings)
+        out["staging"] = staging
+    return state, out
 
 
 def evaluate(state, graphs: Sequence[CrystalGraph], batch_size: int,
              node_cap: int, dense_m: int | None, device,
              edge_cap: int | None = None) -> dict:
     """Metric means of the eval step over ``graphs`` (capacities as in
-    ``fit``)."""
+    ``fit``), stepped eagerly."""
     dense_m = dense_m or None
     node_cap, edge_cap = batch_caps(graphs, batch_size, dense_m, node_cap,
                                     edge_cap)
-    return run_epoch(
-        make_eval_step(), state,
+    return StepRunner(make_eval_step(), state, device, train=False,
+                      graphs=False).epoch(
         stage(batch_iterator(graphs, batch_size, node_cap, edge_cap,
-                             dense_m=dense_m, in_cap=0, snug=True), device),
-        train=False)
+                             dense_m=dense_m, in_cap=0, snug=True), device))

@@ -1,11 +1,11 @@
 """Meters and eval metrics (``cgnn_tpu/train/metrics.py``).
 
-The device-side metric sums of the training loop (``accumulate_on_device``,
-``fetch_device_sums``, ``means_from_sums``): each step's sums are added on
-the device, with no host sync a step, and fetched once, in ONE
-device-to-host copy. The host-side meters and metrics (``AverageMeter``,
-``mae``, and the binary-classification ``class_eval`` with its
-rank-based AUC) are numpy.
+The device-side metric sums of the training loop (``DeviceSums``, the
+port's form of the JAX ``accumulate_on_device``; ``fetch_device_sums``,
+``means_from_sums``): each step's sums are added on the device, with no
+host sync a step, and fetched once, in ONE device-to-host copy. The
+host-side meters and metrics (``AverageMeter``, ``mae``, and the
+binary-classification ``class_eval`` with its rank-based AUC) are numpy.
 """
 
 from __future__ import annotations
@@ -14,17 +14,30 @@ import numpy as np
 import torch
 
 
-def accumulate_on_device(sums: dict | None, metrics: dict) -> dict:
-    """Add one step's metric sums into the running sums, on the device;
-    a key that first appears mid-epoch starts its own sum."""
-    if sums is None:
-        return {k: v.detach().clone() for k, v in metrics.items()}
-    for k, v in metrics.items():
-        if k in sums:
-            sums[k].add_(v)
-        else:
-            sums[k] = v.detach().clone()
-    return sums
+class DeviceSums:
+    """Static metric accumulators on the device, one 0-d tensor a key: a
+    captured step adds its sums into them (``add``), the host zeroes them
+    once an epoch and fetches them in one copy. A key must first appear
+    outside a capture (the graph's warm-up runs), where its tensor is
+    made; a key that first appears mid-epoch starts from zero."""
+
+    def __init__(self):
+        self.sums: dict = {}
+
+    def add(self, metrics: dict) -> dict:
+        for k, v in metrics.items():
+            acc = self.sums.get(k)
+            if acc is None:
+                if v.is_cuda and torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError(
+                        f"metric {k!r} first appeared inside a capture")
+                acc = self.sums[k] = torch.zeros_like(v.detach())
+            acc.add_(v.detach())
+        return self.sums
+
+    def zero(self) -> None:
+        for v in self.sums.values():
+            v.zero_()
 
 
 def fetch_device_sums(sums: dict | None) -> dict:

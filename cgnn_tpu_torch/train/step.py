@@ -6,6 +6,12 @@ device. The train step runs the model in ``.train()``, so the BatchNorm
 running statistics update inside the forward (flax's
 ``mutable=["batch_stats"]``), then takes ``loss.backward()`` and one
 optimizer update.
+
+The train and eval steps can be captured whole as CUDA graphs
+(train/graphs.py): the gradients are set to None and made anew inside
+the step, the optimizer's rate and count live on the device, and no op
+reads the device back. The loops add a step's metric sums into static
+accumulators (``metrics.DeviceSums``) inside the graph.
 """
 
 from __future__ import annotations
@@ -47,10 +53,14 @@ def regression_loss(out, batch: GraphBatch, normalizer: Normalizer):
     return loss, metrics
 
 
-def make_train_step() -> Callable:
-    """(state, batch) -> metric sums; updates ``state`` in place."""
+def make_train_step(expander: Callable | None = None) -> Callable:
+    """(state, batch) -> metric sums; updates ``state`` in place.
+    ``expander`` (``data.compact.make_expander``) rebuilds a
+    ``CompactBatch`` on the device first."""
 
     def train_step(state, batch: GraphBatch) -> dict:
+        if expander is not None and isinstance(batch, CompactBatch):
+            batch = expander(batch)
         state.model.train()
         out = state.model(batch)
         loss, metrics = regression_loss(out, batch, state.normalizer)
@@ -62,11 +72,14 @@ def make_train_step() -> Callable:
     return train_step
 
 
-def make_eval_step() -> Callable:
-    """(state, batch) -> metric sums, with the running BatchNorm stats."""
+def make_eval_step(expander: Callable | None = None) -> Callable:
+    """(state, batch) -> metric sums, with the running BatchNorm stats
+    (``expander``: as ``make_train_step``)."""
 
     @torch.no_grad()
     def eval_step(state, batch: GraphBatch) -> dict:
+        if expander is not None and isinstance(batch, CompactBatch):
+            batch = expander(batch)
         state.model.eval()
         out = state.model(batch)
         _, metrics = regression_loss(out, batch, state.normalizer)

@@ -139,7 +139,39 @@ into ``build/kernels``), then:
    a graph (one at a time, and batched as the worker runs it), and bursts of the 224 graphs (fresh copies each) through it and
    through the full-packing server in turns (compact, full, full,
    compact): the first compact burst is path ``serve_compact`` (every
-   flush packed compact), its answers equal to the full server's.
+   flush packed compact), its answers equal to the full server's;
+9. step_graphs — every step above already runs as a replayed CUDA graph
+   (train/graphs.py); then the train entry point as a user runs it under
+   the epoch driver, ``--synthetic 2048 --device-resident --buckets 3 -b
+   256 --epochs 3`` with ``--cgconv-impl pallas`` (path
+   ``driver_compact``: compact staging ``auto`` -> on), again with
+   ``--compact-staging off`` (``driver_full``) and with ``--aggregation
+   pallas`` (``driver_coo``), no capture after warm-up, structures/s,
+   staged bytes and host ms a step from its ``train:`` line; on 2048
+   MP-like structures the driver's 2-epoch trajectory against the eager
+   pack-once loop (bit-equal in every tensor under deterministic
+   algorithms, metrics rel 1e-5 with and without); the default
+   device-resident training (3 buckets, compact staging, the expander
+   inside the graphs) against the same schedule stepped eagerly
+   (bit-equal under deterministic algorithms) and against full staging
+   (metrics within tests/test_compact.py's rel 2e-2), every staged batch's
+   expansion within the expander's 2e-6 of its full pack; the driver
+   against the eager per-step loop in turns (driver, loop, loop, driver;
+   device idle share by the profiler); every rung of every serving form
+   (full, compact, raw; COO) replayed against the eager step under
+   deterministic algorithms.
+
+Launches on a path. A replayed graph launches its kernels without their
+wrappers, so each path's run (``PathRun``) is traced by the profiler,
+and a kernel's ``launches`` on it are the card's count of that kernel
+(``KERNEL_SYMBOLS``). ``check_path`` holds them exactly to the path's
+own steps: each batch or flush one run of its step graph (the counts of
+train/graphs.py against the batches this script counts, or the entry
+point reports), each capture ``WARMUP_RUNS`` warm-up runs, each kernel
+its launches a
+step times the steps run, and its wrapper's count the same over the
+steps that replayed no graph. Runs whose rates are compared in turns
+are not traced.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 summary lines, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -173,6 +205,7 @@ M = 12  # the flagship's max_num_nbr: dense edge slots per node
 BATCH, EPOCHS = 256, 2
 N_TRAIN_SET = 640  # split 0.8 / 0.1 / 0.1 -> 512 train, 64 val, 64 test
 N_PREDICT = 512  # structures through the predict entry point, each wire
+PREDICT_REPEATS = 5  # untraced runs of each, for the rate (their median)
 N_CIF = 1024  # MP-like structures written as CIFs (cif_pipeline)
 CIF_PREDICT_BATCH = 16  # 64 predict batches, so the pooled buffers recycle
 PREPROCESS_WORKERS = 8
@@ -277,8 +310,24 @@ def timings(fn, library_fn=None):
     return out
 
 
+# each kernel's name in a trace of the card, by its wrapper's name: one
+# launch of the wrapper is one launch of this kernel
+KERNEL_SYMBOLS = {
+    "fused_cgconv_eval": "fused_cgconv_eval_slot",  # either slot variant
+    "fused_cgconv_node": "fused_cgconv_eval_node_kernel",
+    "fused_cgconv_stats": "fused_cgconv_stats_slot_kernel",
+    "epilogue_apply": "epilogue_apply_kernel",
+    "epilogue_reduce": "epilogue_reduce_kernel",
+    "epilogue_dz": "epilogue_dz_kernel",
+    "neighbor_search": "neighbor_search_kernel",
+    "segment_sum_sorted": "segment_sum_sorted_kernel",
+    "windowed_gather": "windowed_gather_kernel",
+}
+
+
 def kernel_wrappers() -> dict:
-    """Each kernel's wrapper by name; ``.launches`` is its count."""
+    """Each kernel's wrapper by name; ``.launches`` counts the launches
+    it made (``ops/_build.counted``: not those a graph replay makes)."""
     from cgnn_tpu_torch.ops import fused_cgconv as fc
     from cgnn_tpu_torch.ops import fused_epilogue as fe
     from cgnn_tpu_torch.ops import neighbor_search as ns
@@ -299,12 +348,124 @@ def kernel_wrappers() -> dict:
 
 
 def zero_counts() -> None:
+    """Every kernel wrapper's count and the step graphs' counters at 0."""
+    from cgnn_tpu_torch.train.graphs import reset_counts
+
     for w in kernel_wrappers().values():
         w.launches = 0
+    reset_counts()
 
 
 def read_counts() -> dict:
     return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+class PathRun:
+    """One main path's run: ``with PathRun(label) as run:`` sets every
+    wrapper's count and the step graphs' counters (train/graphs.py
+    ``COUNTS``) to 0 just before and traces the card's kernels with the
+    profiler (CUDA activity alone); just after, ``run.launches`` holds
+    each kernel's launches on the card in the run (by ``KERNEL_SYMBOLS``,
+    the graph replays' included), ``run.wrapper`` the wrappers' counts
+    (the launches they made: eager steps and warm-up runs) and
+    ``run.steps`` the step graphs' counters."""
+
+    def __init__(self, label):
+        self.label = label
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        zero_counts()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+        return self
+
+    def __exit__(self, kind, exc, tb):
+        import torch
+
+        from cgnn_tpu_torch.train.graphs import COUNTS
+
+        torch.cuda.synchronize()
+        self.prof.stop()
+        self.wrapper = read_counts()
+        self.steps = dict(COUNTS)
+        kernels = [(e.key, e.count) for e in self.prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        self.launches = {k: sum(c for name, c in kernels if sym in name)
+                         for k, sym in KERNEL_SYMBOLS.items()}
+        self.prof = None
+        return False
+
+
+def dense_per_step(n_conv: int, epilogue: bool = False) -> dict:
+    """Each kernel's launches a step, by kind of step, on the dense
+    layout: kernel 1's node and slot passes a conv in every forward, with
+    kernels 2, 4 and 5 a conv in a train step (the forward shares one
+    node pass a conv); the raw wire adds kernel 8 once a step. With
+    ``epilogue`` (``fused_epilogue='pallas'``, kernel 1 off): kernel 3 a
+    conv in every forward, kernels 4 and 5 a conv in a train step."""
+    n = n_conv
+    if epilogue:
+        fwd = {"epilogue_apply": n}
+        train = fwd | {"epilogue_reduce": n, "epilogue_dz": n}
+    else:
+        fwd = {"fused_cgconv_eval": n, "fused_cgconv_node": n}
+        train = fwd | {"fused_cgconv_stats": n, "epilogue_reduce": n,
+                       "epilogue_dz": n}
+    return {"train": train, "eval": fwd, "predict": fwd,
+            "predict_raw": fwd | {"neighbor_search": 1}}
+
+
+def coo_per_step(n_conv: int) -> dict:
+    """The COO layout with aggregation='pallas': kernel 6 a conv in
+    every step."""
+    one = {"segment_sum_sorted": n_conv}
+    return {kind: one for kind in ("train", "eval", "predict")}
+
+
+def check_path(run, per_step: dict, logical: dict,
+               outside: dict | None = None) -> dict:
+    """Hold a path's run (``PathRun``) to its steps. ``logical``: the
+    steps of each kind the path takes (batches and flushes, counted by
+    this script or the entry point's report), each of which must be one
+    ``run`` of a step graph; a capture adds ``WARMUP_RUNS[kind]`` warm-up
+    runs; ``outside``: steps called directly, not
+    through a step graph. Each kernel's launches on the card must equal
+    its launches a step (``per_step``) times the steps run (runs plus
+    warm-up runs), and its wrapper's count the same over the steps that
+    did not replay a graph. -> the run's record."""
+    from cgnn_tpu_torch.train.graphs import KINDS, WARMUP_RUNS
+
+    outside = outside or {}
+    st = run.steps
+    for kind in KINDS:
+        runs, warm = st[f"{kind}_runs"], st[f"{kind}_warm_runs"]
+        check(runs == logical.get(kind, 0)
+              and warm == st[f"{kind}_captures"] * WARMUP_RUNS[kind],
+              f"{run.label}: {kind} step runs {runs}, warm-up runs {warm}, "
+              f"captures {st[f'{kind}_captures']}: want {logical.get(kind, 0)}"
+              f" runs and {WARMUP_RUNS[kind]} warm-up runs a capture")
+    card = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    made = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for kind, kernels in per_step.items():
+        ran = st[f"{kind}_runs"] + st[f"{kind}_warm_runs"] + outside.get(
+            kind, 0)
+        eager = ran - st[f"{kind}_replays"]
+        for k, n in kernels.items():
+            card[k] += n * ran
+            made[k] += n * eager
+    check(run.launches == card and run.wrapper == made,
+          f"{run.label}: launches on the card {run.launches} (want {card}), "
+          f"by the wrappers {run.wrapper} (want {made}); steps {st}")
+    rec = {"launches": run.launches, "wrapper_launches": run.wrapper,
+           "replayed_launches": {k: v - run.wrapper[k]
+                                 for k, v in run.launches.items() if v},
+           "step_counts": {k: v for k, v in st.items() if v}}
+    print(f"{run.label}: {json.dumps(rec, allow_nan=False)}: ok")
+    return rec
 
 
 def compare(name, got, want, rtol, atol=0.0, row_scale=False):
@@ -739,18 +900,15 @@ def serve_phase(dev, calibration, work_dir):
             for sid, s, _ in synthetic_mp_dataset(N_WIRE, seed=SEED + 2)]
     n_admitted = sum(spec.admits(r) for r in wire)
     n_conv = model_cfg.n_conv
+    per_step = dense_per_step(n_conv)
     # the featurized path's run, then the raw wire's, each with its counts
-    runs = {path: burst(server, reqs)
+    runs = {path: burst(server, reqs, path, per_step)
             for path, reqs in (("serve", graphs), ("serve_raw", wire))}
     feat, raw = runs["serve"], runs["serve_raw"]
     check(feat["wires"] == ["featurized"] * len(graphs)
-          and feat["raw_flushes"] == 0
-          and feat["launches"]["neighbor_search"] == 0
-          and feat["launches"]["fused_cgconv_eval"]
-          == n_conv * feat["flushes"] > 0,
-          f"featurized run: {feat['flushes']} flushes, launches "
-          f"{feat['launches']}: want no raw flush, no kernel-8 launch and "
-          f"n_conv {n_conv} kernel-1 launches a flush")
+          and feat["raw_flushes"] == 0 and feat["flushes"] > 0,
+          f"featurized run: {feat['flushes']} flushes, {feat['raw_flushes']}"
+          f" raw: want no raw flush")
     deferred = raw["wires"].count("featurized")
     print(f"serve_raw: {N_WIRE} wire structures ({n_admitted} admitted raw, "
           f"{deferred} featurized on the worker)")
@@ -758,13 +916,7 @@ def serve_phase(dev, calibration, work_dir):
           and deferred == N_WIRE - n_admitted >= 1,
           f"{raw['responses_raw']} raw answers, {deferred} deferred: want "
           f"{n_admitted} raw and at least one deferred")
-    check(raw["raw_flushes"] > 0
-          and raw["launches"]["neighbor_search"] == raw["raw_flushes"],
-          f"{raw['launches']['neighbor_search']} kernel-8 launches != "
-          f"{raw['raw_flushes']} raw flushes")
-    check(raw["launches"]["fused_cgconv_eval"] == n_conv * raw["flushes"],
-          f"{raw['launches']['fused_cgconv_eval']} kernel-1 launches != "
-          f"n_conv {n_conv} x {raw['flushes']} flushes (raw and featurized)")
+    check(raw["raw_flushes"] > 0, "the raw burst ran no raw flush")
     requests = graphs + wire
     preds = np.concatenate([feat.pop("preds"), raw.pop("preds")])
     wires = feat.pop("wires") + raw.pop("wires")
@@ -801,20 +953,24 @@ def serve_phase(dev, calibration, work_dir):
                    max_abs_err_vs_plain=float(err.max()),
                    raw_max_abs_err_vs_plain=float(err[raw_rows].max()))
     summary["overflow_leg"], overflow_counts = overflow_leg(
-        dev, npz, meta, calibration, n_conv)
+        dev, npz, meta, calibration, per_step)
     breakdown = flush_breakdown(dev, server.state, server.shape_set,
                                 calibration)
     raw_breakdown = raw_flush_breakdown(dev, server, calibration)
     check(server.drain(timeout_s=60), "the serve worker did not drain")
-    counts = {"serve": feat["launches"], "serve_raw": raw["launches"],
+    counts = {"serve": feat.pop("path"), "serve_raw": raw.pop("path"),
               "serve_raw_overflow": overflow_counts}
     return summary, breakdown, raw_breakdown, counts
 
 
-def burst(server, requests):
-    """``requests`` from N_CLIENTS threads at once, kernel counts at 0
-    just before and read just after -> the answers, their wire forms and
-    the run's flushes, launches, requests/s and latency quantiles."""
+def burst(server, requests, path=None, per_step=None):
+    """``requests`` from N_CLIENTS threads at once -> the answers, their
+    wire forms and the run's flushes, requests/s and latency quantiles.
+    With ``path``: the run is that path's (``PathRun``), every flush one
+    replay of its predict graph (``check_path`` against the flushes:
+    raw ones ``predict_raw`` steps, the rest ``predict`` steps), and its
+    record is under ``path``."""
+    import contextlib
     import numpy as np
 
     results = [None] * len(requests)
@@ -832,15 +988,14 @@ def burst(server, requests):
     threads = [threading.Thread(target=client, args=(k,),
                                 name=f"chip-smoke-client-{k}")
                for k in range(N_CLIENTS)]
-    zero_counts()
     c0 = dict(server.counts)
-    t0 = time.perf_counter()
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(timeout=300)
-    wall = time.perf_counter() - t0
-    counts = read_counts()
+    with (PathRun(path) if path else contextlib.nullcontext()) as run:
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
     check(not any(th.is_alive() for th in threads), "a client hung")
     check(not errors, f"client errors: {errors[:3]}")
     check(all(r is not None for r in results), "unanswered requests")
@@ -849,18 +1004,26 @@ def burst(server, requests):
     check(bool(np.isfinite(preds).all()), "non-finite predictions")
     delta = {k: server.counts[k] - c0[k]
              for k in ("batches", "pack_raw", "responses_raw")}
+    graphs = server.stats()["counts"]
+    check(graphs["captures_after_warm"] == 0,
+          f"the burst captured a graph after warm-up: {graphs}")
     p50, p99 = np.percentile([r.latency_ms for r in results], [50, 99])
-    run = {"requests": len(requests), "flushes": delta["batches"],
+    rec = {"requests": len(requests), "flushes": delta["batches"],
            "raw_flushes": delta["pack_raw"],
-           "responses_raw": delta["responses_raw"], "launches": counts,
+           "responses_raw": delta["responses_raw"], "traced": bool(path),
            "wall_s": wall, "requests_per_s": len(requests) / wall,
+           "captures_after_warm": graphs["captures_after_warm"],
            "latency_ms_p50": float(p50), "latency_ms_p99": float(p99)}
-    print(f"serve burst: {run}")
-    run.update(preds=preds, wires=[r.wire for r in results])
-    return run
+    print(f"serve burst: {rec}")
+    if path:
+        rec["path"] = check_path(run, per_step, {
+            "predict": rec["flushes"] - rec["raw_flushes"],
+            "predict_raw": rec["raw_flushes"]})
+    rec.update(preds=preds, wires=[r.wire for r in results])
+    return rec
 
 
-def overflow_leg(dev, npz, meta, calibration, n_conv):
+def overflow_leg(dev, npz, meta, calibration, per_step):
     """A one-atom 2 A cubic cell through a server that skips the host
     image-cap check: the device flags its overflow and it is answered
     through the featurized fallback, equal to its featurized answer."""
@@ -876,24 +1039,22 @@ def overflow_leg(dev, npz, meta, calibration, n_conv):
     tiny = RawStructure(np.zeros((1, 3)), np.eye(3) * 2.0,
                         np.array([6], np.int32))
     try:
-        # the overflow path's run: counts at 0 just before, read after
-        zero_counts()
-        res = server.predict(tiny, timeout_ms=60_000)
-        counts = read_counts()
+        # the overflow path's run: a raw flush, then the featurized one
+        # that answers it
+        with PathRun("serve_raw_overflow") as run:
+            res = server.predict(tiny, timeout_ms=60_000)
         ref = server.predict(structure_featurizer(info["data_cfg"])(tiny),
                              timeout_ms=60_000)
         c = dict(server.counts)
     finally:
         check(server.drain(timeout_s=60), "the serve worker did not drain")
     err = float(np.abs(res.prediction - ref.prediction).max())
+    counts = check_path(run, per_step, {"predict_raw": 1, "predict": 1})
     ok = (res.wire == "featurized" and c["ingest_cap_overflow"] == 1
-          and c["pack_raw"] == 1 and counts["neighbor_search"] == 1
-          and counts["fused_cgconv_eval"] == 2 * n_conv
-          and bool(np.allclose(res.prediction, ref.prediction,
+          and c["pack_raw"] == 1 and bool(np.allclose(res.prediction, ref.prediction,
                                rtol=SERVE_RTOL, atol=SERVE_ATOL)))
     print(f"overflow leg: answered via the {res.wire} wire, "
-          f"ingest_cap_overflow {c['ingest_cap_overflow']}, launches "
-          f"{counts}, max_abs_err vs its featurized answer {err!r}: "
+          f"ingest_cap_overflow {c['ingest_cap_overflow']}, max_abs_err vs its featurized answer {err!r}: "
           f"{'ok' if ok else 'FAIL'}")
     check(ok, "the overflow-flagged structure was not answered through "
               "the featurized fallback")
@@ -938,6 +1099,8 @@ def flush_breakdown(dev, state, shape_set, graphs, reps=10,
            "nodes": sum(g.num_nodes for g in graphs),
            "rung": list(vars(top).values())}
     res.update({k: statistics.median(v) for k, v in stages.items()})
+    res["replay"] = replay_breakdown(dev, lambda b: step(state, b), on_dev,
+                                     res["step_wall_ms"], reps)
     busy_ms, by_kernel, _ = device_busy_ms(lambda: step(state, on_dev), reps)
     if busy_ms is not None:
         ours_ms = sum(v for k, v in by_kernel.items() if kernel_key in k)
@@ -950,6 +1113,34 @@ def flush_breakdown(dev, state, shape_set, graphs, reps=10,
     else:  # the profiler saw no device activity on this machine
         res["step_device_busy_ms"] = None
     return res
+
+
+def replay_breakdown(dev, fn, batch, eager_wall_ms, reps=10,
+                     kind="predict"):
+    """The step ``fn(batch)`` (``batch`` on the card) as a captured
+    StepGraph: the step wall of a replay (the copy into its static inputs
+    and the replay, then a synchronize; median of ``reps``) beside the
+    eager one, the host's time a replay is queued (``host_us``, no sync),
+    and from a profiler trace its device busy time and idle share."""
+    import torch
+
+    from cgnn_tpu_torch.train.graphs import StepGraph
+
+    g = StepGraph(fn, batch, device=dev, kind=kind, label="breakdown")
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.run(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    busy, _, _ = device_busy_ms(lambda: g.run(batch), reps)
+    return {"replay_step_wall_ms": wall, "eager_step_wall_ms": eager_wall_ms,
+            "replay_host_us": host_us(lambda: g.run(batch), calls=50),
+            "replay_device_busy_ms": busy,
+            "replay_device_idle_share_of_step":
+            None if busy is None else 1.0 - busy / wall}
 
 
 def raw_flush_breakdown(dev, server, graphs, reps=10):
@@ -989,6 +1180,9 @@ def raw_flush_breakdown(dev, server, graphs, reps=10):
            "snode_cap": ss.raw.snode_cap, "images": list(ss.raw.images)}
     res.update({k: statistics.median(v) for k, v in stages.items()})
     res.update(host_syncs(lambda: step(state, on_dev)))
+    res["replay"] = replay_breakdown(dev, lambda b: step(state, b), on_dev,
+                                     res["step_wall_ms"], reps,
+                                     kind="predict_raw")
     busy_ms, by_kernel, _ = device_busy_ms(lambda: step(state, on_dev), reps)
     if busy_ms is None:  # the profiler saw no device activity
         res["step_device_busy_ms"] = None
@@ -1107,42 +1301,37 @@ def train_phase(dev, split, work_dir):
 
     from cgnn_tpu_torch import convert
     from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.graph import count_batches
     from cgnn_tpu_torch.serve.server import load_server
     from cgnn_tpu_torch.train.loop import fit
     from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
 
     train_g, val_g, test_g = split
     cfg, state, node_cap, _ = new_state(dev, train_g, cgconv_impl="pallas")
-    # the training path's run: counts at 0 just before, read just after
-    zero_counts()
-    t0 = time.perf_counter()
-    state, result = fit(state, train_g, val_g, epochs=EPOCHS,
-                        batch_size=BATCH, dense_m=M, device=dev,
-                        node_cap=node_cap, seed=SEED,
-                        log_fn=lambda s: print(f"train: {s}"))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
+    steps, evals = (EPOCHS * count_batches(g, BATCH, node_cap, node_cap * M,
+                                           snug=True)
+                    for g in (train_g, val_g))
+    # the training path's run
+    with PathRun("train_cgconv_pallas") as run:
+        t0 = time.perf_counter()
+        state, result = fit(state, train_g, val_g, epochs=EPOCHS,
+                            batch_size=BATCH, dense_m=M, device=dev,
+                            node_cap=node_cap, seed=SEED,
+                            log_fn=lambda s: print(f"train: {s}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     hist = result["history"]
-    steps = sum(h["train"]["steps"] for h in hist)
-    evals = sum(h["val"]["steps"] for h in hist)
     n_conv = cfg.n_conv
-    print(f"train: {steps} train steps, {evals} eval batches, launches "
-          f"{counts}")
-    for name in ("fused_cgconv_stats", "epilogue_reduce", "epilogue_dz"):
-        check(counts[name] == n_conv * steps,
-              f"{name}: {counts[name]} launches != n_conv {n_conv} x "
-              f"{steps} train steps")
-    check(counts["fused_cgconv_eval"] == n_conv * (steps + evals),
-          f"fused_cgconv_eval: {counts['fused_cgconv_eval']} launches != "
-          f"n_conv x ({steps} train steps + {evals} eval batches)")
-    # one node pass a conv: shared by the stats and apply passes in a
-    # train step, the apply pass's own in an eval batch
-    check(counts["fused_cgconv_node"] == n_conv * (steps + evals),
-          f"node pass: {counts['fused_cgconv_node']} launches != n_conv x "
-          f"({steps} train steps + {evals} eval batches): the training "
-          f"forward does not share one node pass a conv")
-    check(counts["epilogue_apply"] == 0, "kernel 3 ran on the cgconv path")
+    print(f"train: {steps} train steps, {evals} eval batches, graphs "
+          f"{result['graphs']}")
+    check(sum(h["train"]["steps"] for h in hist) == steps
+          and sum(h["val"]["steps"] for h in hist) == evals
+          and result["graphs"]["captures_after_warm"] == 0,
+          f"train: history steps, graphs {result['graphs']}")
+    # every step one run of its shape's graph; in a train step the
+    # forward runs one node pass a conv, shared by kernels 1 and 2
+    counts = check_path(run, dense_per_step(n_conv),
+                        {"train": steps, "eval": evals})
     for h in hist:
         vals = (h["train"]["loss"], h["train"]["mae"], h["val"]["mae"])
         check(all(math.isfinite(v) for v in vals),
@@ -1185,7 +1374,7 @@ def train_phase(dev, split, work_dir):
         "structures": [len(train_g), len(val_g), len(test_g)],
         "batch_size": BATCH, "epochs": EPOCHS, "node_cap": node_cap,
         "train_steps": steps, "eval_batches": evals,
-        "launches": counts, "fit_wall_s": wall,
+        "launches": counts["launches"], "fit_wall_s": wall,
         "fit_structures_per_s_incl_val_and_warmup": fit_graphs / wall,
         "train_loss": [h["train"]["loss"] for h in hist],
         "train_mae": [h["train"]["mae"] for h in hist],
@@ -1270,24 +1459,21 @@ def trajectory_phase(dev, train_g, val_g, node_cap, k=5):
         val_g, BATCH, node_cap, node_cap * M, dense_m=M, in_cap=0,
         snug=True))).to(dev)
     train_step, eval_step = make_train_step(), make_eval_step()
-    # the fused-epilogue path's run: counts at 0 just before, read after
-    zero_counts()
-    losses = [m["loss_sum"] / m["count"]
-              for m in (train_step(state, b) for b in batches[:3])]
-    ev = eval_step(state, val_batch)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    n = cfg.n_conv
-    want = dict.fromkeys(counts, 0) | {"epilogue_apply": n * 4,
-                                       "epilogue_reduce": n * 3,
-                                       "epilogue_dz": n * 3}
+    # the fused-epilogue path's run: 3 train steps and an eval batch,
+    # stepped directly
+    with PathRun("train_fused_epilogue_pallas") as run:
+        losses = [m["loss_sum"] / m["count"]
+                  for m in (train_step(state, b) for b in batches[:3])]
+        ev = eval_step(state, val_batch)
+    counts = check_path(run, dense_per_step(cfg.n_conv, epilogue=True), {},
+                        outside={"train": 3, "eval": 1})
     losses = torch.stack(losses).cpu()
     e_err = float((losses - loss_p[:3]).abs().max())
-    ok = (counts == want and bool(torch.isfinite(ev["mae_sum"]))
+    ok = (bool(torch.isfinite(ev["mae_sum"]))
           and bool(torch.allclose(losses, loss_p[:3], rtol=TRAIN_RTOL,
                                   atol=TRAIN_ATOL)))
     print(f"epilogue: 3 steps + 1 eval batch with fused_epilogue='pallas': "
-          f"launches {counts} (want {want}); losses {losses.tolist()}, max "
+          f"losses {losses.tolist()}, max "
           f"diff vs the plain path {e_err!r}: {'ok' if ok else 'FAIL'}")
     check(ok, "the fused-epilogue path did not run its kernels or "
               "disagrees with the plain path")
@@ -1535,29 +1721,31 @@ def train_coo_phase(dev, split, work_dir, k=5):
 
     from cgnn_tpu_torch import convert
     from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.graph import count_batches
     from cgnn_tpu_torch.train.loop import fit
 
     train_g, val_g, _ = split
     cfg, state, node_cap, edge_cap = new_state(dev, train_g, dense_m=0,
                                                aggregation=COO_AGG)
-    # the COO training path's run: counts at 0 just before, read after
-    zero_counts()
-    t0 = time.perf_counter()
-    state, result = fit(state, train_g, val_g, epochs=EPOCHS,
-                        batch_size=BATCH, dense_m=0, device=dev,
-                        node_cap=node_cap, edge_cap=edge_cap, seed=SEED,
-                        log_fn=lambda s: print(f"train_coo: {s}"))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
+    steps, evals = (EPOCHS * count_batches(g, BATCH, node_cap, edge_cap,
+                                           snug=True)
+                    for g in (train_g, val_g))
+    # the COO training path's run
+    with PathRun("train_coo") as run:
+        t0 = time.perf_counter()
+        state, result = fit(state, train_g, val_g, epochs=EPOCHS,
+                            batch_size=BATCH, dense_m=0, device=dev,
+                            node_cap=node_cap, edge_cap=edge_cap, seed=SEED,
+                            log_fn=lambda s: print(f"train_coo: {s}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     hist = result["history"]
-    steps = sum(h["train"]["steps"] for h in hist)
-    evals = sum(h["val"]["steps"] for h in hist)
-    want = dict.fromkeys(counts, 0) | {
-        "segment_sum_sorted": cfg.n_conv * (steps + evals)}
     print(f"train_coo: caps N={node_cap} E={edge_cap}, {steps} train steps, "
-          f"{evals} eval batches, launches {counts}")
-    check(counts == want, f"train_coo launches {counts} != {want}")
+          f"{evals} eval batches")
+    check(result["graphs"]["captures_after_warm"] == 0,
+          f"train_coo graphs {result['graphs']}")
+    counts = check_path(run, coo_per_step(cfg.n_conv),
+                        {"train": steps, "eval": evals})
     for h in hist:
         vals = (h["train"]["loss"], h["train"]["mae"], h["val"]["mae"])
         check(all(math.isfinite(v) for v in vals),
@@ -1579,7 +1767,8 @@ def train_coo_phase(dev, split, work_dir, k=5):
         {"dense_m": 0, "aggregation": "xla"})
     summary = {
         "node_cap": node_cap, "edge_cap": edge_cap, "train_steps": steps,
-        "eval_batches": evals, "launches": counts, "fit_wall_s": wall,
+        "eval_batches": evals, "launches": counts["launches"],
+        "fit_wall_s": wall,
         "fit_structures_per_s_incl_val_and_warmup":
             len(train_g) * EPOCHS / wall,
         "train_loss": [h["train"]["loss"] for h in hist],
@@ -1622,14 +1811,10 @@ def serve_coo_phase(dev, calibration, weights):
                                seed=SEED + 1)
     wire = [RawStructure.from_structure(s, cif_id=sid)
             for sid, s, _ in synthetic_mp_dataset(N_WIRE, seed=SEED + 2)]
-    run = burst(server, graphs + wire)
+    run = burst(server, graphs + wire, "serve_coo", coo_per_step(cfg.n_conv))
     preds, wires = run.pop("preds"), run.pop("wires")
-    want_counts = dict.fromkeys(run["launches"], 0) | {
-        "segment_sum_sorted": cfg.n_conv * run["flushes"]}
-    check(run["launches"] == want_counts and run["flushes"] > 0
-          and wires == ["featurized"] * len(wires),
-          f"serve_coo: {run['flushes']} flushes, launches "
-          f"{run['launches']}, want {want_counts}")
+    check(run["flushes"] > 0 and wires == ["featurized"] * len(wires),
+          f"serve_coo: {run['flushes']} flushes, wires {set(wires)}")
     plain = build_model(dc.replace(cfg, aggregation="xla"), data_cfg,
                         device=dev)
     plain.load_state_dict(convert.from_flax_variables(variables))
@@ -1661,7 +1846,8 @@ def serve_coo_phase(dev, calibration, weights):
     check(server.drain(timeout_s=60), "the serve worker did not drain")
     run.update(rungs=[list(vars(s).values()) for s in ss],
                max_abs_err_vs_plain=float(err.max()))
-    return run, breakdown, run["launches"]
+    path = run.pop("path")
+    return run, breakdown, path
 
 
 def run_main(entry, argv, label):
@@ -1707,6 +1893,15 @@ def bits_diff(a: dict, b: dict) -> tuple[bool, float, str]:
             if d >= worst:
                 worst, where = d, k
     return equal, worst, where
+
+
+def predict_path(run, per_step, info) -> dict:
+    """Bulk predict's path run against its batches: each one run of its
+    shape's predict graph (a shape's first two batches eager, the third
+    captured)."""
+    return check_path(run, per_step,
+                      {"predict": info["batches_featurized"],
+                       "predict_raw": info["batches_raw"]})
 
 
 def checkpoint_predict_phase(dev, work_dir, card):
@@ -1771,11 +1966,11 @@ def checkpoint_predict_phase(dev, work_dir, card):
             os.path.join(work_dir, "ckpt_out"), "--print-freq", "0",
             "--seed", str(SEED)]
     counts = {}
+    per_step = dense_per_step(n_conv)
     # 1. the train entry point, 2 epochs: 2 committed saves
-    zero_counts()
-    rc, out = run_main(train_main, argv + ["--epochs", "2"], "train_main")
-    torch.cuda.synchronize()
-    counts["train_main"] = read_counts()
+    with PathRun("train_main") as run:
+        rc, out = run_main(train_main, argv + ["--epochs", "2"],
+                           "train_main")
     check(rc == 0, f"train entry point exited {rc}")
     mgr = CheckpointManager(ck, log_fn=print)
     saves = sorted(n for n in os.listdir(ck) if n.startswith("ckpt-"))
@@ -1790,15 +1985,10 @@ def checkpoint_predict_phase(dev, work_dir, card):
     best = json.load(open(os.path.join(ck, "best.json")))["save"]
     check(best == saves[int(maes[1] < maes[0])],
           f"best.json points at {best}; val MAEs {maes}")
-    # 2 epochs of train steps and validation batches, then the test split
-    want = dict.fromkeys(counts["train_main"], 0) | {
-        "fused_cgconv_stats": 2 * n_conv * steps,
-        "epilogue_reduce": 2 * n_conv * steps,
-        "epilogue_dz": 2 * n_conv * steps,
-        "fused_cgconv_eval": n_conv * (2 * (steps + evals) + tests),
-        "fused_cgconv_node": n_conv * (2 * (steps + evals) + tests)}
-    check(counts["train_main"] == want,
-          f"train entry point: launches {counts['train_main']} != {want}")
+    # 2 epochs of train steps and validation batches, then the test
+    # split (eager)
+    counts["train_main"] = check_path(
+        run, per_step, {"train": 2 * steps, "eval": 2 * evals + tests})
     print(f"checkpoint: {saves} verified against their manifests, val MAEs "
           f"{maes}, best.json -> {best}: ok")
 
@@ -1861,7 +2051,8 @@ def checkpoint_predict_phase(dev, work_dir, card):
     if not resumed["bit_equal"]:
         # the same epoch from a copy of the in-memory state: does it
         # repeat its own bits? Then again with PyTorch's deterministic
-        # algorithms, which replace the CUDA atomic adds of index_add_
+        # algorithms (the graph pooling sums in a fixed order; an op
+        # PyTorch runs in no fixed order would show here)
         # (segment_sum of the graph pooling, ops/segment.py) by an
         # ordered sum
         rerun_bits, _ = epoch2(copy.deepcopy(again))
@@ -1874,8 +2065,7 @@ def checkpoint_predict_phase(dev, work_dir, card):
         resumed.update(
             in_memory_repeats_its_bits=bits_diff(rerun_bits, mem_bits)[0],
             bit_equal_with_deterministic_algorithms=bits_diff(*det)[0],
-            op="index_add_ (CUDA atomic adds) of segment_sum in the graph "
-               "pooling, cgnn_tpu_torch/ops/segment.py")
+            op=NONDET_OP)
         ok = all(torch.allclose(res_bits[k].double(), mem_bits[k].double(),
                                 rtol=RESUME_RTOL, atol=RESUME_ATOL)
                  for k in mem_bits)
@@ -1885,21 +2075,15 @@ def checkpoint_predict_phase(dev, work_dir, card):
     print(f"resume: epoch 2 from the restored state vs the in-memory one: "
           f"{resumed}: ok")
 
-    # 4. --resume continues the entry point's run
-    zero_counts()
-    rc, out = run_main(train_main, argv + ["--epochs", "3", "--resume", ck],
-                       "train_main")
-    counts["train_main_resume"] = read_counts()
+    # 4. --resume continues the entry point's run: one epoch
+    with PathRun("train_main_resume") as run:
+        rc, out = run_main(train_main, argv + ["--epochs", "3", "--resume",
+                                               ck], "train_main")
     check(rc == 0 and f"resumed from {ck} at epoch 2" in out
           and "Epoch 2:" in out and "Epoch 0:" not in out,
           f"--resume: rc {rc}, output {out[-400:]!r}")
-    want = dict.fromkeys(want, 0) | {  # 1 epoch, then the test split
-        "fused_cgconv_stats": n_conv * steps,
-        "epilogue_reduce": n_conv * steps, "epilogue_dz": n_conv * steps,
-        "fused_cgconv_eval": n_conv * (steps + evals + tests),
-        "fused_cgconv_node": n_conv * (steps + evals + tests)}
-    check(counts["train_main_resume"] == want,
-          f"--resume: launches {counts['train_main_resume']} != {want}")
+    counts["train_main_resume"] = check_path(
+        run, per_step, {"train": steps, "eval": evals + tests})
 
     # 5. bulk predict on both wires vs the plain model
     plain = InferenceState(
@@ -1912,17 +2096,29 @@ def checkpoint_predict_phase(dev, work_dir, card):
         plain, pred_graphs, BATCH,
         shape_set=plan_shape_set(pred_graphs, BATCH, rungs=2, dense_m=M))
     runs = {}
+    # each wire's path run (traced), then the same run PREDICT_REPEATS
+    # times untraced, for its rate (a run lasts tens of ms: the host's
+    # spread shows in a single one)
     for path, wire in (("predict_raw", "raw"), ("predict", "featurized")):
         out_csv = os.path.join(work_dir, f"{path}.csv")
-        zero_counts()
-        rc, out = run_main(predict_main, [ck, "--synthetic", str(N_PREDICT),
-                                          "-b", str(BATCH), "--wire", wire,
-                                          "--out", out_csv], path)
-        torch.cuda.synchronize()
-        counts[path] = read_counts()
+        argv_p = [ck, "--synthetic", str(N_PREDICT), "-b", str(BATCH),
+                  "--wire", wire, "--out", out_csv]
+        with PathRun(path) as run:
+            rc, out = run_main(predict_main, argv_p, path)
         check(rc == 0, f"predict --wire {wire} exited {rc}")
         info = json.loads(next(line for line in out.splitlines()
                                if line.startswith("predict: "))[9:])
+        counts[path] = predict_path(run, per_step, info)
+        rates = []
+        for _ in range(PREDICT_REPEATS):
+            rc, again = run_main(predict_main, argv_p, path)
+            check(rc == 0, f"predict --wire {wire} exited {rc}")
+            rates.append(json.loads(next(
+                line for line in again.splitlines()
+                if line.startswith("predict: "))[9:])["structures_per_s"])
+        info.update(traced_structures_per_s=info["structures_per_s"],
+                    structures_per_s=statistics.median(rates),
+                    structures_per_s_repeats=rates)
         rows = list(csvmod.reader(open(out_csv)))
         got = np.array([[float(x) for x in r[2:]] for r in rows])
         ids_ok = [r[0] for r in rows] == [g.cif_id for g in pred_graphs]
@@ -1930,19 +2126,14 @@ def checkpoint_predict_phase(dev, work_dir, card):
         ok = ids_ok and got.shape == want.shape and bool(
             np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(want)))
         batches = info["batches_raw"] + info["batches_featurized"]
-        want_counts = dict.fromkeys(counts[path], 0) | {
-            "fused_cgconv_eval": n_conv * batches,
-            "fused_cgconv_node": n_conv * batches,
-            "neighbor_search": info["batches_raw"]}
         print(f"{path}: {N_PREDICT} structures ({info['raw']} on the raw "
-              f"wire), {batches} batches, launches {counts[path]}; CSV ids "
-              f"in input order {ids_ok}, max_abs_err vs the plain model "
-              f"{float(err.max())!r} (rtol {SERVE_RTOL}, atol {SERVE_ATOL})"
-              f": {'ok' if ok and counts[path] == want_counts else 'FAIL'}")
+              f"wire), {batches} batches; CSV ids in input order {ids_ok}, "
+              f"max_abs_err vs the plain model {float(err.max())!r} (rtol "
+              f"{SERVE_RTOL}, atol {SERVE_ATOL}): {'ok' if ok else 'FAIL'}")
         check(ok, f"{path}: the CSV disagrees with the plain model")
-        check(counts[path] == want_counts and batches > 0
-              and (wire == "featurized" or info["batches_raw"] > 0),
-              f"{path}: launches {counts[path]} != {want_counts}")
+        check(batches > 0 and (wire == "featurized"
+                               or info["batches_raw"] > 0),
+              f"{path}: {batches} batches, {info['batches_raw']} raw")
         runs[path] = dict(info, max_abs_err_vs_plain=float(err.max()))
     mgr.close()
     own_mgr.close()
@@ -2203,22 +2394,17 @@ def cif_pipeline_phase(dev, work_dir, card, calibration):
             str(EPOCHS), "--cgconv-impl", "pallas", "--ckpt-dir", ck,
             "--out-dir", os.path.join(work_dir, "cif_out"), "--print-freq",
             "0", "--seed", str(SEED)]
-    zero_counts()
-    t0 = time.perf_counter()
-    rc, out = run_main(train_main, argv, "train_cif")
-    torch.cuda.synchronize()
-    summary["train_wall_s"] = time.perf_counter() - t0
-    counts["train_cif"] = read_counts()
+    per_step = dense_per_step(n_conv)
+    with PathRun("train_cif") as run:
+        t0 = time.perf_counter()
+        rc, out = run_main(train_main, argv, "train_cif")
+        torch.cuda.synchronize()
+        summary["train_wall_s"] = time.perf_counter() - t0
     check(rc == 0 and f"loaded {N_CIF} graphs from {cache}" in out,
           f"train entry point on the cache: rc {rc}")
-    want = dict.fromkeys(counts["train_cif"], 0) | {
-        "fused_cgconv_stats": EPOCHS * n_conv * steps,
-        "epilogue_reduce": EPOCHS * n_conv * steps,
-        "epilogue_dz": EPOCHS * n_conv * steps,
-        "fused_cgconv_eval": n_conv * (EPOCHS * (steps + evals) + tests),
-        "fused_cgconv_node": n_conv * (EPOCHS * (steps + evals) + tests)}
-    check(counts["train_cif"] == want,
-          f"train_cif: launches {counts['train_cif']} != {want}")
+    counts["train_cif"] = check_path(
+        run, per_step, {"train": EPOCHS * steps,
+                        "eval": EPOCHS * evals + tests})
     summary["train"] = {"split": [len(train_g), len(val_g), len(test_g)],
                         "steps_per_epoch": steps, "node_cap": node_cap}
 
@@ -2247,24 +2433,24 @@ def cif_pipeline_phase(dev, work_dir, card, calibration):
                              "--compact", "off"],
         "predict_cif_raw": ["--wire", "raw", "--compact", "on"]}
     # compact and full in turns (A, B, B, A); each path's first run is
-    # the one its counts and checks come from
+    # its path run (traced), which its counts and checks come from; the
+    # repeats run untraced, for their rates
     for path in ("predict_compact", "predict_cif_full", "predict_cif_full",
                  "predict_compact", "predict_cif_raw"):
         flags = flags_of[path]
         out_csv = os.path.join(work_dir, f"{path}.csv")
         head = [ck, cif_dir] if path == "predict_cif_raw" else [ck]
-        zero_counts()
-        rc, out = run_main(predict_main, head + flags + [
-            "--pack-workers", "2", "-b", str(CIF_PREDICT_BATCH), "--out",
-            out_csv], path)
-        torch.cuda.synchronize()
+        argv_p = head + flags + ["--pack-workers", "2", "-b",
+                                 str(CIF_PREDICT_BATCH), "--out", out_csv]
         if path in runs:  # the repeat: its rate only
+            rc, out = run_main(predict_main, argv_p, path)
             check(rc == 0, f"{path}: predict exited {rc}")
             rates[path].append(json.loads(next(
                 line for line in out.splitlines()
                 if line.startswith("predict: "))[9:])["structures_per_s"])
             continue
-        counts[path] = read_counts()
+        with PathRun(path) as run:
+            rc, out = run_main(predict_main, argv_p, path)
         check(rc == 0, f"{path}: predict exited {rc}")
         info = json.loads(next(line for line in out.splitlines()
                                if line.startswith("predict: "))[9:])
@@ -2275,18 +2461,13 @@ def cif_pipeline_phase(dev, work_dir, card, calibration):
               and bool(np.all(err <= SERVE_ATOL
                               + SERVE_RTOL * np.abs(want_preds))))
         batches = info["batches_raw"] + info["batches_featurized"]
-        want_counts = dict.fromkeys(counts[path], 0) | {
-            "fused_cgconv_eval": n_conv * batches,
-            "fused_cgconv_node": n_conv * batches,
-            "neighbor_search": info["batches_raw"]}
+        counts[path] = predict_path(run, per_step, info)
         print(f"{path}: {N_CIF} structures ({info['raw']} raw-staged, "
-              f"compact {info['compact']}), {batches} batches, launches "
-              f"{counts[path]}, pipeline {info['pipeline']}; max_abs_err vs "
-              f"the plain model {float(err.max())!r}: "
-              f"{'ok' if ok and counts[path] == want_counts else 'FAIL'}")
+              f"compact {info['compact']}), {batches} batches, pipeline "
+              f"{info['pipeline']}; max_abs_err vs the plain model "
+              f"{float(err.max())!r}: {'ok' if ok else 'FAIL'}")
         check(ok, f"{path}: the CSV disagrees with the plain model")
-        check(counts[path] == want_counts and batches > 0,
-              f"{path}: launches {counts[path]} != {want_counts}")
+        check(batches > 0, f"{path}: no batch")
         check(info["compact"] == (path != "predict_cif_full"),
               f"{path}: compact staging {info['compact']}")
         runs[path] = dict(info, max_abs_err_vs_plain=float(err.max()))
@@ -2334,26 +2515,25 @@ def cif_pipeline_phase(dev, work_dir, card, calibration):
         probe_us[how] = (time.perf_counter() - t0) / len(probe) * 1e6
         check(ok, "a burst graph cannot stage compactly")
     full_server, _ = load_server(npz, meta, compact="off", **kw)
+    # the path run (traced: every flush packed compact), then compact,
+    # full, full, compact untraced: the A/B in turns, requests/s each
     c0 = dict(server.counts)
-    comp = burst(server, fresh())
-    counts["serve_compact"] = comp["launches"]
+    comp = burst(server, fresh(), "serve_compact", per_step)
+    counts["serve_compact"] = comp.pop("path")
     packed = {k: server.counts[k] - c0[k] for k in ("pack_compact",
                                                     "pack_full")}
-    # then full, full, compact: the A/B in turns, requests/s each
-    full = burst(full_server, fresh())
-    turns = [("full", full), ("full", burst(full_server, fresh())),
-             ("compact", burst(server, fresh()))]
+    turns = [(form, burst(srv, fresh())) for form, srv in (
+        ("compact", server), ("full", full_server), ("full", full_server),
+        ("compact", server))]
+    full = turns[1][1]
     check(server.drain(timeout_s=60), "the compact server did not drain")
     check(full_server.drain(timeout_s=60), "the full server did not drain")
     err = float(np.abs(comp["preds"] - full["preds"]).max())
     ok = (packed == {"pack_compact": comp["flushes"], "pack_full": 0}
-          and comp["launches"]["fused_cgconv_eval"]
-          == n_conv * comp["flushes"] > 0
-          and comp["launches"]["neighbor_search"] == 0
-          and bool(np.allclose(comp["preds"], full["preds"],
+          and comp["flushes"] > 0 and bool(np.allclose(comp["preds"], full["preds"],
                                rtol=SERVE_RTOL, atol=SERVE_ATOL)))
     print(f"serve_compact: {N_GRAPHS} graphs, {comp['flushes']} flushes "
-          f"{packed}, launches {comp['launches']}; max_abs_err vs the full "
+          f"{packed}; max_abs_err vs the full "
           f"server {err!r}: {'ok' if ok else 'FAIL'}")
     check(ok, "the compact server's flushes or answers are off")
     for r in [comp] + [r for _, r in turns]:
@@ -2367,9 +2547,472 @@ def cif_pipeline_phase(dev, work_dir, card, calibration):
                            probe_us_per_graph=probe_us),
         serve_turns=[(form, {k: r[k] for k in (
             "flushes", "requests_per_s", "latency_ms_p50",
-            "latency_ms_p99")}) for form, r in [("compact", comp)] + turns])
+            "latency_ms_p99")}) for form, r in turns])
     return summary, counts, {"loader_breakdown": loader,
                              "compact_flush_breakdown": breakdown}
+
+
+N_DRIVER = 2048  # the step_graphs phase: --synthetic N, and MP-like N
+DRIVER_EPOCHS = 3
+TRAJ_RTOL, TRAJ_ATOL = 1e-5, 1e-6  # graphs vs eager, where not bit-equal
+REPLAY_TOL = 1e-6  # a replayed answer vs the eager one, where not bit-equal
+# compact staging against full under the driver: the JAX package's
+# tolerance for the two trajectories (tests/test_compact.py, val MAE rel
+# 2e-2 over 3 epochs), and the expander's bound on an expanded edge
+# feature (tests/test_compact.py, tests/test_torch_compact.py)
+COMPACT_RTOL, EDGE_ATOL = 2e-2, 2e-6
+# what differs where two runs that should be bit-equal are not: the graph
+# pooling sums in a fixed order (ops/segment.py ``segment_mean``), so the
+# rest is an op PyTorch orders freely without deterministic algorithms
+NONDET_OP = ("an op PyTorch runs in no fixed order without deterministic "
+             "algorithms (the graph pooling's sums are fixed-order: "
+             "cgnn_tpu_torch/ops/segment.py segment_mean)")
+
+
+class ProfileWindow:
+    """A torch.profiler trace opened and closed by hand: ``start()`` after
+    a synchronize, ``stop()`` -> (wall ms, device busy ms, idle share) of
+    the window, busy being the sum of its kernels' device time."""
+
+    def start(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        import torch
+
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - self.t0) * 1e3
+        self.prof.stop()
+        busy = sum(e.self_device_time_total for e in self.prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        return wall, busy, (1.0 - busy / wall) if busy > 0 else None
+
+
+def steady_rate(history, n_train) -> float:
+    """Train structures a second over the epochs after the first (their
+    train and validation wall)."""
+    later = history[1:]
+    return n_train * len(later) / sum(h["seconds"] for h in later)
+
+
+def driver_entry_runs(dev, work_dir, counts):
+    """The train entry point as a user runs it on the card: --synthetic
+    2048 --device-resident --buckets 3 -b 256 --epochs 3, with
+    --cgconv-impl pallas (compact staging auto -> on; path
+    driver_compact), again with --compact-staging off (driver_full), and
+    with --aggregation pallas (the COO layout, full staging; driver_coo).
+    Launches exact against the batches: each epoch runs every staged
+    train and validation batch once, then the test split is evaluated
+    eagerly; no capture after warm-up."""
+    import shutil
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import (
+        load_synthetic,
+        train_val_test_split,
+    )
+    from cgnn_tpu_torch.data.graph import (
+        bucketed_batch_iterator,
+        count_batches,
+    )
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+    from cgnn_tpu_torch.train.state import init_train_state
+
+    data_cfg = DataConfig()
+    graphs = load_synthetic(N_DRIVER, data_cfg.featurize_config(), seed=SEED)
+    train_g, val_g, test_g = train_val_test_split(graphs, 0.8, 0.1,
+                                                  seed=SEED)
+    logical = {}
+    for layout, cfg in (("dense", ModelConfig(dense_m=M)),
+                        ("coo", ModelConfig(dense_m=0, aggregation=COO_AGG))):
+        _, nc, ec = init_train_state(cfg, data_cfg, train_g, batch_size=BATCH,
+                                     device=dev, seed=SEED)
+        dm = cfg.dense_m or None
+        steps, evals = (sum(1 for _ in bucketed_batch_iterator(
+            g, BATCH, 3, dense_m=dm)) for g in (train_g, val_g))
+        logical[layout] = {"train": DRIVER_EPOCHS * steps,
+                           "eval": DRIVER_EPOCHS * evals + count_batches(
+                               test_g, BATCH, nc, ec, snug=True)}
+    base = ["--synthetic", str(N_DRIVER), "--device-resident", "--buckets",
+            "3", "-b", str(BATCH), "--epochs", str(DRIVER_EPOCHS),
+            "--print-freq", "0", "--seed", str(SEED)]
+    runs_out = {}
+    n_conv = ModelConfig().n_conv
+    for path, extra in (
+            ("driver_compact", ["--cgconv-impl", "pallas"]),
+            ("driver_full", ["--cgconv-impl", "pallas", "--compact-staging",
+                             "off"]),
+            ("driver_coo", ["--aggregation", COO_AGG])):
+        ck = os.path.join(work_dir, f"{path}_ckpt")
+        shutil.rmtree(ck, ignore_errors=True)
+        argv = base + extra + ["--ckpt-dir", ck, "--out-dir",
+                               os.path.join(work_dir, f"{path}_out")]
+        with PathRun(path) as run:
+            rc, out = run_main(train_main, argv, path)
+        check(rc == 0, f"{path}: the train entry point exited {rc}")
+        info = json.loads(next(line for line in out.splitlines()
+                               if line.startswith("train: "))[7:])
+        g, st = info["graphs"], info["staging"]
+        compact = path == "driver_compact"
+        check(g["captures"] > 0 and g["captures_after_warm"] == 0
+              and st["compact"] == compact
+              and ("compact staging: on" in out) == compact
+              and "fallback" not in st,
+              f"{path}: graphs {g}, staging {st}")
+        coo = path == "driver_coo"
+        counts[path] = check_path(
+            run, coo_per_step(n_conv) if coo else dense_per_step(n_conv),
+            logical["coo" if coo else "dense"])
+        tm = st["timings"]
+        runs_out[path] = {
+            "train_structures_per_s_by_epoch": info["train_structures_per_s"],
+            "epoch_seconds": info["epoch_seconds"],
+            "steady_train_structures_per_s": len(train_g) * (
+                DRIVER_EPOCHS - 1) / sum(info["epoch_seconds"][1:]),
+            "captures": g["captures"], "replays": g["replays"],
+            "captures_after_warm": g["captures_after_warm"],
+            "staged_bytes": st["staged_bytes"], "compact": st["compact"],
+            "host_ms_per_train_step": tm["train_dispatch_s"] * 1e3
+            / tm["train_steps"],
+            "host_ms_per_eval_step": tm["eval_dispatch_s"] * 1e3
+            / max(tm["eval_steps"], 1),
+            "capture_s": st["capture_s"], "stage_s": st["stage_s"],
+            "pack_s": st["pack_s"], "traced": True}
+        print(f"{path}: {json.dumps(runs_out[path], allow_nan=False)}")
+    return runs_out
+
+
+def driver_rate_pairs(dev, split, spec):
+    """The epoch driver (graphs, compact staging, 3 buckets) against the
+    eager per-step loop (host packing each epoch through the prefetch
+    loader, one bucket) on the same MP-like split at batch 256, in turns
+    driver, loop, loop, driver; the first of each traced by the profiler
+    over epochs 2-3 (device busy, idle share)."""
+    from cgnn_tpu_torch.train.loop import fit
+
+    train_g, val_g, _ = split
+    out = {"driver": [], "eager_loop": []}
+    for kind, traced in (("driver", True), ("eager_loop", True),
+                         ("eager_loop", False), ("driver", False)):
+        _, state, node_cap, _ = new_state(dev, train_g, cgconv_impl="pallas")
+        window = ProfileWindow()
+        traced_out = {}
+
+        def hook(s, epoch, val_m, is_best):
+            if traced and epoch == 0:
+                window.start()
+
+        kw = (dict(scan_epochs=True, buckets=3, compact=spec)
+              if kind == "driver" else dict(graphs=False, prefetch=2))
+        state, res = fit(state, train_g, val_g, epochs=DRIVER_EPOCHS,
+                         batch_size=BATCH, dense_m=M, device=dev,
+                         node_cap=node_cap, seed=SEED, log_fn=lambda s: None,
+                         on_epoch_end=hook, **kw)
+        if traced:
+            wall, busy, idle = window.stop()
+            traced_out = {"traced_wall_ms": wall, "device_busy_ms": busy,
+                          "device_idle_share": idle}
+        hist = res["history"]
+        steps = sum(h["train"]["steps"] for h in hist[1:])
+        run = {"traced": traced,
+               "steady_train_structures_per_s": steady_rate(hist,
+                                                            len(train_g)),
+               "epoch_seconds": [h["seconds"] for h in hist],
+               "train_steps_epochs_2_3": steps, **traced_out}
+        if traced_out.get("device_busy_ms"):
+            run["device_busy_ms_per_train_step"] = (
+                traced_out["device_busy_ms"] / steps)
+        if kind == "driver":
+            tm = res["staging"]["timings"]
+            run.update(graphs=res["graphs"],
+                       host_ms_per_train_step=tm["train_dispatch_s"] * 1e3
+                       / tm["train_steps"],
+                       staged_bytes=res["staging"]["staged_bytes"])
+            check(res["graphs"]["captures_after_warm"] == 0,
+                  f"driver rate run captured after warm-up: {res['graphs']}")
+        out[kind].append(run)
+        print(f"rate pair {kind}: {json.dumps(run, allow_nan=False)}")
+    return out
+
+
+def driver_trajectory(dev, split, epochs=2):
+    """One bucket, 2 epochs from the same weights: the epoch driver
+    (replayed graphs) against the pack-once per-step loop stepped eagerly.
+    Per-epoch train loss and val MAE within rel TRAJ_RTOL; every
+    parameter, running statistic and optimizer buffer bit-equal under
+    PyTorch's deterministic algorithms (else within TRAJ_RTOL/TRAJ_ATOL,
+    the op named); and the same pair without them: its metrics within
+    rel TRAJ_RTOL, its state's drift reported with the op named."""
+    import torch
+
+    from cgnn_tpu_torch.train.loop import fit
+
+    train_g, val_g, _ = split
+
+    def run(**kw):
+        _, state, node_cap, _ = new_state(dev, train_g, cgconv_impl="pallas")
+        state, res = fit(state, train_g, val_g, epochs=epochs,
+                         batch_size=BATCH, dense_m=M, device=dev,
+                         node_cap=node_cap, seed=SEED, log_fn=lambda s: None,
+                         **kw)
+        return state_bits(state), res["history"]
+
+    out = {}
+    for det in (True, False):
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            (gb, gh), (eb, eh) = (run(scan_epochs=True),
+                                  run(pack_once=True, graphs=False))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        equal, worst, where = bits_diff(gb, eb)
+        metrics = [(g[p][k], e[p][k]) for g, e in zip(gh, eh)
+                   for p, k in (("train", "loss"), ("val", "mae"))]
+        close = all(abs(a - b) <= TRAJ_RTOL * abs(b) for a, b in metrics)
+        within = all(torch.allclose(gb[k].double(), eb[k].double(),
+                                    rtol=TRAJ_RTOL, atol=TRAJ_ATOL)
+                     for k in gb if k.startswith("model/"))
+        out["deterministic" if det else "default"] = {
+            "bit_equal": equal, "max_diff": worst, "worst": where,
+            "metrics_graph_vs_eager": metrics, "metrics_within_rel": close,
+            "params_and_stats_within_tol": within,
+            "steps": [h["train"]["steps"] for h in gh]}
+        check(close, f"driver trajectory (deterministic={det}): per-epoch "
+                     f"metrics {metrics} beyond rel {TRAJ_RTOL}")
+        if det:
+            check(equal or within,
+                  f"driver trajectory under deterministic algorithms: "
+                  f"{out['deterministic']}")
+            if not equal:
+                out["deterministic"]["op"] = NONDET_OP
+        elif not equal:  # reported, not held: the op named
+            out["default"]["op"] = NONDET_OP
+    print(f"driver trajectory: {json.dumps(out, allow_nan=False)}")
+    return out
+
+
+def driver_compact_trajectory(dev, split, spec, epochs=2):
+    """The default device-resident training (3 buckets, compact staging,
+    the expander inside the captured train and eval graphs) held on the
+    card, 2 epochs from the same weights: replayed against the same
+    schedule stepped eagerly (``graphs=False``) under deterministic
+    algorithms, bit-equal in every tensor (else within TRAJ_RTOL /
+    TRAJ_ATOL with the op named) and per-epoch metrics within rel
+    TRAJ_RTOL; against full staging (3 buckets, replayed), per-epoch
+    metrics within COMPACT_RTOL; and every staged training batch's
+    expansion on the card against its full pack: edge features within
+    the expander's EDGE_ATOL, every other field bit-equal."""
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.data.compact import compact_pack_fn, make_expander
+    from cgnn_tpu_torch.data.graph import bucketed_batch_iterator
+    from cgnn_tpu_torch.train.graphs import batch_tensors
+    from cgnn_tpu_torch.train.loop import fit
+
+    train_g, val_g, _ = split
+
+    def run(**kw):
+        _, state, node_cap, _ = new_state(dev, train_g, cgconv_impl="pallas")
+        state, res = fit(state, train_g, val_g, epochs=epochs,
+                         batch_size=BATCH, dense_m=M, device=dev,
+                         node_cap=node_cap, seed=SEED, log_fn=lambda s: None,
+                         scan_epochs=True, buckets=3, **kw)
+        return state_bits(state), res
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (gb, gres), (eb, eres) = (run(compact=spec),
+                                  run(compact=spec, graphs=False))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    fb, fres = run()
+    check(gres["staging"]["compact"] and not fres["staging"]["compact"]
+          and gres["graphs"]["captures"] > 0
+          and gres["graphs"]["captures_after_warm"] == 0
+          and eres["graphs"]["captures"] == 0,
+          f"compact driver runs: staging {gres['staging']}, graphs "
+          f"{gres['graphs']} and eager {eres['graphs']}")
+
+    def metrics(res):
+        return [h[p][k] for h in res["history"]
+                for p, k in (("train", "loss"), ("val", "mae"))]
+
+    g_m, e_m, f_m = metrics(gres), metrics(eres), metrics(fres)
+    equal, worst, where = bits_diff(gb, eb)
+    within = all(torch.allclose(gb[k].double(), eb[k].double(),
+                                rtol=TRAJ_RTOL, atol=TRAJ_ATOL)
+                 for k in gb if k.startswith("model/"))
+    replay = {"bit_equal": equal, "max_diff": worst, "worst": where,
+              "metrics_replayed_vs_eager": list(zip(g_m, e_m))}
+    if not equal:
+        replay["op"] = NONDET_OP
+    check((equal or within)
+          and all(abs(a - b) <= TRAJ_RTOL * abs(b) for a, b in
+                  zip(g_m, e_m)),
+          f"compact driver replayed vs eager: {replay}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(g_m, f_m)]
+    check(max(rel) <= COMPACT_RTOL,
+          f"compact vs full driver: metrics {g_m} vs {f_m} (rel {rel}, "
+          f"want <= {COMPACT_RTOL})")
+    # the expander at the cell's shapes: each training batch of the 3
+    # buckets packed compactly and fully from the same draws
+    expand = make_expander(spec, dev)
+    edge_err, n_batches = 0.0, 0
+    for cb, fb_ in zip(
+            bucketed_batch_iterator(train_g, BATCH, 3, shuffle=True,
+                                    rng=np.random.default_rng(SEED),
+                                    dense_m=M,
+                                    pack_fn=compact_pack_fn(spec)),
+            bucketed_batch_iterator(train_g, BATCH, 3, shuffle=True,
+                                    rng=np.random.default_rng(SEED),
+                                    dense_m=M)):
+        got = batch_tensors(expand(cb.to(dev)))
+        want = batch_tensors(fb_.to(dev))
+        edge_err = max(edge_err, float((got["edges"] - want["edges"])
+                                       .abs().max()))
+        same = [k for k in got if k != "edges"
+                and torch.equal(got[k], want[k].to(got[k].dtype))]
+        check(len(same) == len(got) - 1 and edge_err <= EDGE_ATOL,
+              f"expanded batch {n_batches}: fields equal {same} of "
+              f"{sorted(got)}, edge err {edge_err!r}")
+        n_batches += 1
+    out = {"replayed_vs_eager_deterministic": replay,
+           "compact_vs_full_metrics": list(zip(g_m, f_m)),
+           "compact_vs_full_max_rel": max(rel),
+           "expanded_batches": n_batches,
+           "expanded_edge_max_abs_err": edge_err,
+           "captures": gres["graphs"]["captures"],
+           "staged_bytes": {"compact": gres["staging"]["staged_bytes"],
+                            "full": fres["staging"]["staged_bytes"]}}
+    print(f"compact driver trajectory: {json.dumps(out, allow_nan=False)}")
+    return out
+
+
+def answers_equal(label, got, want):
+    """A replayed answer against the eager one: bit-equal, or within
+    REPLAY_TOL with the op named -> its record."""
+    import torch
+
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    diff = float((got.double() - want.double()).abs().max())
+    ok = equal or bool(torch.allclose(got, want, rtol=REPLAY_TOL,
+                                      atol=REPLAY_TOL))
+    rec = {"bit_equal": equal, "max_abs_diff": diff}
+    if not equal:
+        rec["op"] = NONDET_OP
+    check(ok, f"{label}: replayed answers differ from eager ones: {rec}")
+    return rec
+
+
+def serve_replays(dev, work_dir, calibration, coo_weights):
+    """Every rung's predict graph of every staging form (full, compact,
+    raw on the dense kernel weights; full on the COO weights) replayed
+    on the calibration graphs that fit the rung, against the same step
+    run eagerly, under PyTorch's deterministic algorithms (servers
+    booted, so graphs captured, under them too): bit-equal, else within
+    REPLAY_TOL with the op named; nothing captured after warm-up."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _serve_replays(dev, work_dir, calibration, coo_weights)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _serve_replays(dev, work_dir, calibration, coo_weights):
+    from cgnn_tpu_torch.data.rawbatch import raw_from_graph
+    from cgnn_tpu_torch.serve.server import load_server
+
+    npz, meta = (os.path.join(work_dir, f) for f in ("params.npz",
+                                                     "meta.json"))
+    out = {}
+    for name, (w_npz, w_meta), kw in (
+            ("dense", (npz, meta), dict(wire="raw", compact="on")),
+            ("coo", coo_weights[:2], dict(wire="featurized"))):
+        server, _ = load_server(w_npz, w_meta, batch_size=64, rungs=3,
+                                calibration=calibration, device=dev,
+                                log_fn=lambda *a: None, **kw)
+        ss, step, st = server.shape_set, server.predict_step, server.state
+        try:
+            for shape in ss:
+                sub, n, e = [], 0, 0
+                for g in calibration:  # the graphs that fit, in order
+                    gn, ge = ss.graph_counts(g)
+                    if shape.fits(len(sub) + 1, n + gn, e + ge):
+                        sub.append(g)
+                        n, e = n + gn, e + ge
+                forms = {"full": ss.pack_full(sub, shape=shape)}
+                if ss.compact is not None and all(
+                        ss.compact.compactable_many(sub)):
+                    forms["compact"] = ss.pack(sub, shape=shape)
+                if ss.raw is not None:
+                    raws = [r for r in map(raw_from_graph, calibration)
+                            if ss.admits_raw(r)][:shape.graph_cap]
+                    forms["raw"] = ss.pack_raw(raws, shape=shape)
+                for form, batch in forms.items():
+                    eager = step(st, batch.to(dev))
+                    got = server._predict(form, shape, batch)
+                    if form == "raw":
+                        answers_equal(f"{name} raw overflow", got[1].int(),
+                                      eager[1].int())
+                        eager, got = eager[0], got[0]
+                    out[f"{name}/{form}/{shape.graph_cap}"] = answers_equal(
+                        f"{name} {form} rung {shape}", got, eager)
+            c = server.stats()["counts"]
+            check(c["captures_after_warm"] == 0,
+                  f"{name} server captured after warm-up: {c}")
+            out[f"{name}/graph_captures"] = c["graph_captures"]
+        finally:
+            check(server.drain(timeout_s=60), "the serve worker did not drain")
+    check(any(k.startswith("dense/compact") for k in out)
+          and any(k.startswith("dense/raw") for k in out)
+          and any(k.startswith("coo/full") for k in out),
+          f"not every form was replayed: {sorted(out)}")
+    print(f"serve replays vs eager: {json.dumps(out, allow_nan=False)}")
+    return out
+
+
+def step_graphs_phase(dev, work_dir, calibration, coo_weights, card):
+    """The step_graphs phase: the train entry point under the epoch
+    driver (paths driver_compact, driver_full, driver_coo), the driver's
+    trajectory against the eager loop, the default compact 3-bucket
+    driver against its eager twin and full staging, its training rate
+    against the eager per-step loop in turns, and every serving form
+    replayed against eager. -> (summary, counts)."""
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.compact import CompactSpec
+    from cgnn_tpu_torch.data.dataset import (
+        load_synthetic_mp,
+        train_val_test_split,
+    )
+
+    counts = {}
+    summary = {"card": card}
+    summary["entry_point"] = driver_entry_runs(dev, work_dir, counts)
+    t0 = time.perf_counter()
+    mp = load_synthetic_mp(N_DRIVER, seed=SEED + 5)
+    split = train_val_test_split(mp, 0.8, 0.1, seed=SEED)
+    print(f"step_graphs: featurized {N_DRIVER} MP-like structures in "
+          f"{time.perf_counter() - t0!r} s")
+    summary["trajectory"] = driver_trajectory(dev, split)
+    spec = CompactSpec.build(mp, DataConfig().featurize_config().gdf(),
+                             dense_m=M)
+    summary["compact_trajectory"] = driver_compact_trajectory(dev, split,
+                                                              spec)
+    summary["rate_pairs"] = driver_rate_pairs(dev, split, spec)
+    summary["serve_replays"] = serve_replays(dev, work_dir, calibration,
+                                             coo_weights)
+    return summary, counts
 
 
 def main() -> int:
@@ -2445,12 +3088,20 @@ def main() -> int:
     ckpt_summary, ckpt_counts = checkpoint_predict_phase(dev, work_dir, card)
     cif_summary, cif_counts, cif_breakdowns = cif_pipeline_phase(
         dev, work_dir, card, calibration)
+    graphs_summary, graphs_counts = step_graphs_phase(
+        dev, work_dir, calibration, coo_weights, card)
+    by_path.update(**graphs_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
                    **ckpt_counts, **cif_counts)
     for k in kernels:
-        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+        # launches on the card in each path's run (graph replays
+        # included), and those its wrapper made (eager steps, warm-ups)
+        k["launches_by_path"] = {p: c["launches"][k["name"]]
+                                 for p, c in by_path.items()}
+        k["wrapper_launches_by_path"] = {
+            p: c["wrapper_launches"][k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         if k["name"] in NO_PATH:  # no path exists: the kernel phase's
             check(k["launches"] == 0 and k["kernel_phase_launches"] > 0,
@@ -2474,6 +3125,7 @@ def main() -> int:
     print(json.dumps({"checkpoint_predict": ckpt_summary}, allow_nan=False))
     print(json.dumps(cif_breakdowns, allow_nan=False))
     print(json.dumps({"cif_pipeline": cif_summary}, allow_nan=False))
+    print(json.dumps({"step_graphs": graphs_summary}, allow_nan=False))
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card)

@@ -440,8 +440,10 @@ def test_neighbor_search_kernel_refuses_what_it_does_not_take(dev):
 
 def test_raw_server_runs_kernel_8(dev, tmp_path):
     """load_server(wire='raw') on the card launches kernel 8 once per raw
-    flush, and answers as the plain search asked for by name
-    (``raw_expander('xla')``) on the same staged batches."""
+    flush, counted on the card (each flush replays its rung's raw graph,
+    captured at warm(), so the wrapper launches nothing), and answers as
+    the plain search asked for by name (``raw_expander('xla')``) on the
+    same staged batches."""
     from cgnn_tpu_torch import convert
     from cgnn_tpu_torch.config import DataConfig, ModelConfig
     from cgnn_tpu_torch.data.dataset import load_synthetic
@@ -469,10 +471,14 @@ def test_raw_server_runs_kernel_8(dev, tmp_path):
     assert len(wire) >= 8
     before = ns.neighbor_search_cuda.launches
     flushes = server.counts["pack_raw"]
-    res = [server.predict(r, timeout_ms=60_000) for r in wire]
+    res = []
+    launched = _kernel_launches(
+        lambda: res.extend(server.predict(r, timeout_ms=60_000)
+                           for r in wire),
+        {"search": "neighbor_search_kernel"})
     assert all(r.wire == "raw" for r in res)
-    assert (ns.neighbor_search_cuda.launches - before
-            == server.counts["pack_raw"] - flushes > 0)
+    assert launched["search"] == server.counts["pack_raw"] - flushes > 0
+    assert ns.neighbor_search_cuda.launches == before
     assert server.drain(timeout_s=30)
     plain = make_predict_step(raw_expander=ss.raw_expander("xla", dev))
     before = ns.neighbor_search_cuda.launches
@@ -698,9 +704,28 @@ def test_checkpoint_of_card_state_restores_bit_equal(dev, tmp_path, optim):
     mgr.close()
 
 
+def _kernel_launches(fn, symbols: dict) -> dict:
+    """``fn()`` under the profiler -> {name: launches of the kernels whose
+    name holds ``symbols[name]``}, counted on the card (a graph replay's
+    kernels too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [(e.key, e.count) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {name: sum(c for k, c in events if sym in k)
+            for name, sym in symbols.items()}
+
+
 def test_raw_inference_launches_kernel_8_once_per_raw_batch(dev):
     """run_raw_inference on the card: kernel 8 once per raw batch, kernel
-    1 n_conv times a batch, the answers those of the featurized path."""
+    1 n_conv times a batch, counted on the card; the answers those of the
+    featurized path. A shape's first two batches step eagerly through
+    the wrappers, its third is captured after a warm-up run, and its
+    later ones replay the graph (train/graphs.py ``COUNTS``)."""
     import math
 
     from cgnn_tpu_torch.config import DataConfig
@@ -708,6 +733,7 @@ def test_raw_inference_launches_kernel_8_once_per_raw_batch(dev):
     from cgnn_tpu_torch.data.rawbatch import plan_raw_spec, raw_from_graph
     from cgnn_tpu_torch.ops import neighbor_search as ns
     from cgnn_tpu_torch.serve.shapes import plan_shape_set
+    from cgnn_tpu_torch.train.graphs import COUNTS, reset_counts
     from cgnn_tpu_torch.train.infer import (
         run_fast_inference,
         run_raw_inference,
@@ -723,11 +749,25 @@ def test_raw_inference_launches_kernel_8_once_per_raw_batch(dev):
     inf = InferenceState(state.model, state.normalizer)
     before = (ns.neighbor_search_cuda.launches,
               fc.fused_cgconv_eval_cuda.launches)
-    got, rate = run_raw_inference(inf, [raw_from_graph(g) for g in keep], ss)
+    reset_counts()
+    out = []
+    launched = _kernel_launches(
+        lambda: out.append(run_raw_inference(
+            inf, [raw_from_graph(g) for g in keep], ss)),
+        {"search": "neighbor_search_kernel",
+         "conv": "fused_cgconv_eval_slot"})
+    got, rate = out[0]
     batches = math.ceil(len(keep) / ss.largest.graph_cap)
-    assert batches >= 2 and rate > 0
-    assert ns.neighbor_search_cuda.launches - before[0] == batches
-    assert fc.fused_cgconv_eval_cuda.launches - before[1] == 2 * batches
+    warm = COUNTS["predict_raw_warm_runs"]
+    eager = COUNTS["predict_raw_runs"] - COUNTS["predict_raw_replays"] + warm
+    assert batches >= 3 and rate > 0
+    assert COUNTS["predict_raw_runs"] == batches
+    assert COUNTS["predict_raw_captures"] >= 1
+    assert warm == COUNTS["predict_raw_captures"]  # one warm-up run each
+    assert launched == {"search": batches + warm,
+                        "conv": 2 * (batches + warm)}
+    assert ns.neighbor_search_cuda.launches - before[0] == eager
+    assert fc.fused_cgconv_eval_cuda.launches - before[1] == 2 * eager
     want, _ = run_fast_inference(inf, keep, 16, shape_set=ss)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
@@ -785,10 +825,253 @@ def test_loader_side_stream_batches_equal_synchronous_copies(dev):
                      "in_slots", "over_slots"):
             a, b = getattr(got, name), getattr(want, name)
             assert a.device.type == "cuda" and torch.equal(a, b), name
-        # the pooling's index_add_ adds with atomics on the card, so a
-        # step repeated on the same bits may differ in the last ulp
+        # an op PyTorch runs in no fixed order may move the last ulp of a
+        # step repeated on the same bits (the pooling's sums are fixed)
         ma, mb = step(state, got), step(state, want)
         for k in mb:
             torch.testing.assert_close(ma[k], mb[k], rtol=1e-6, atol=0)
     again = list(prefetch_to_device(iter(host[:2]), "cuda", size=1))
     assert all(b.nodes.device == dev for b in again)
+
+
+# ---------------------------------------------------------------------------
+# step graphs (train/graphs.py): replay against eager, capture failures,
+# and the server's captures after warm-up
+# ---------------------------------------------------------------------------
+
+GRAPH_TOL = dict(rtol=1e-5, atol=1e-6)  # without deterministic algorithms
+
+
+def _state_tensors(state):
+    out = {f"model/{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, p in enumerate(state.optimizer.params):
+        for k, v in state.optimizer.inner.state[p].items():
+            out[f"opt/{i}/{k}"] = v.clone()
+    return out
+
+
+def _replay_vs_eager(dev, optim):
+    """Four train steps eagerly on one state and as replays of a train
+    StepGraph on another -> (eager state, replayed state, graph, the
+    eager sums, the graph's sums, kernel 2's launches: by its wrapper in
+    the capture's warm-up runs and in the replays, and on the card in
+    the replays)."""
+    from cgnn_tpu_torch.data.graph import batch_iterator
+    from cgnn_tpu_torch.train.graphs import StepGraph, state_guard
+    from cgnn_tpu_torch.train.metrics import DeviceSums, fetch_device_sums
+    from cgnn_tpu_torch.train.step import make_train_step
+
+    eager, graphs, nc, ec = _card_state(dev, optim)
+    replayed = _card_state(dev, optim)[0]
+    batches = [b.to(dev) for b in batch_iterator(graphs, 16, nc, ec,
+                                                 dense_m=12, snug=True)]
+    batches = (batches * 4)[:4]
+    step, sums = make_train_step(), DeviceSums()
+    for b in batches:
+        sums.add(step(eager, b))
+    before = _state_tensors(replayed)
+    gsums = DeviceSums()
+    wrapper = fc.fused_cgconv_stats_cuda
+    at_start = wrapper.launches
+    g = StepGraph(lambda b: gsums.add(step(replayed, b)), batches[0],
+                  device=dev, kind="train",
+                  guard=state_guard(replayed, sums=[gsums]),
+                  on_replay=lambda: replayed.optimizer.advance(1))
+    after_capture = _state_tensors(replayed)
+    for k, v in before.items():  # the capture left the state as it was
+        assert torch.equal(after_capture[k], v), k
+    gsums.zero()
+    at_replays = wrapper.launches
+
+    def replay():
+        for b in batches:
+            g.run(b)
+
+    card = _kernel_launches(replay, {"stats": "fused_cgconv_stats_slot"})
+    launched = {"warm_up": at_replays - at_start,
+                "replays": wrapper.launches - at_replays,
+                "card": card["stats"]}
+    return (eager, replayed, g, fetch_device_sums(sums.sums),
+            fetch_device_sums(gsums.sums), launched)
+
+
+def _diffs(a, b) -> dict:
+    return {k: float((a[k].double() - v.double()).abs().max())
+            for k, v in b.items() if not torch.equal(a[k], v)}
+
+
+@pytest.mark.parametrize("optim", ["sgd", "adam"])
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_train_step_graph_replays_equal_eager(dev, optim, deterministic):
+    """A train StepGraph replayed over 4 batches against the same steps
+    run eagerly: its capture leaves the state untouched, each replay
+    launches kernel 2 n_conv = 2 times on the card, through no wrapper
+    (the wrapper counted the two warm-up runs' launches alone), the host
+    count follows the device count. Under PyTorch's deterministic
+    algorithms every parameter, running stat and optimizer buffer is
+    bit-equal; without them (the pooling's sums are fixed-order, but
+    PyTorch may order another op freely) SGD's parameters and running
+    stats stay within GRAPH_TOL (its
+    momentum buffers hold near-zero sums of noisy gradients; Adam turns
+    the rounding noise
+    on fc_full's bias, whose true gradient is zero under BatchNorm, into
+    +-lr by its sign, so only its metric sums are compared)."""
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        eager, replayed, g, want, got, launched = _replay_vs_eager(dev,
+                                                                   optim)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert launched == {"warm_up": 2 * 2, "replays": 0, "card": 2 * 4}
+    assert replayed.optimizer.count == eager.optimizer.count == 4
+    assert int(replayed.optimizer._count_t) == 4
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    diffs = _diffs(_state_tensors(replayed), _state_tensors(eager))
+    if deterministic:
+        assert not diffs, diffs
+    elif optim == "sgd":  # every parameter and running stat
+        ew, gw = _state_tensors(eager), _state_tensors(replayed)
+        for k, v in ew.items():
+            if k.startswith("model/"):
+                torch.testing.assert_close(gw[k], v, **GRAPH_TOL,
+                                           msg=f"{k}: {diffs}")
+
+
+def test_eval_step_graph_replays_equal_eager(dev):
+    from cgnn_tpu_torch.data.graph import batch_iterator
+    from cgnn_tpu_torch.train.graphs import StepGraph
+    from cgnn_tpu_torch.train.metrics import DeviceSums, fetch_device_sums
+    from cgnn_tpu_torch.train.step import make_eval_step
+
+    state, graphs, nc, ec = _card_state(dev)
+    batches = [b.to(dev) for b in batch_iterator(graphs, 16, nc, ec,
+                                                 dense_m=12, in_cap=0,
+                                                 snug=True)]
+    esums, estep = DeviceSums(), make_eval_step()
+    eg = StepGraph(lambda b: esums.add(estep(state, b)), batches[0],
+                   device=dev, kind="eval")
+    for b in batches:
+        esums.zero()
+        eg.run(b)
+        got = fetch_device_sums(esums.sums)
+        want = make_eval_step()(state, b)
+        for k, v in want.items():
+            assert got[k] == pytest.approx(float(v), rel=1e-5), k
+
+
+def test_capture_blocker_raises_without_eager_fallback(dev):
+    """A step that reads the device back (``.item()``) runs in warm-up
+    but cannot be captured: the StepGraph raises, and nothing runs it
+    eagerly instead."""
+    from cgnn_tpu_torch.train.graphs import GraphCaptureError, StepGraph
+
+    x = torch.ones(8, device=dev)
+    calls = []
+
+    def body():
+        calls.append(1)
+        return x * float(x.sum().item())
+
+    with pytest.raises(GraphCaptureError, match="capture failed"):
+        StepGraph(body, device=dev)  # a predict step: one warm-up run
+    assert len(calls) == 2  # one warm-up run, one capture attempt
+
+
+def test_failed_capture_restores_the_state(dev):
+    """A train step that cannot be captured leaves the state as its
+    guard found it: the warm-up runs' updates are copied back before
+    the error is raised."""
+    from cgnn_tpu_torch.train.graphs import (
+        GraphCaptureError,
+        StepGraph,
+        tensor_guard,
+    )
+
+    w = torch.zeros(4, device=dev)
+
+    def body():
+        w.add_(1.0)
+        return w * float(w.sum().item())
+
+    with pytest.raises(GraphCaptureError):
+        StepGraph(body, device=dev, kind="train",
+                  guard=tensor_guard(lambda: [w]))
+    assert torch.equal(w, torch.zeros(4, device=dev))
+
+
+def test_predict_graph_defers_its_capture_to_the_third_batch(dev):
+    """``eager_runs=2`` (bulk predict's): the first two batches step
+    eagerly (no capture), the third captures after its warm-up run, and
+    every answer equals the eager step's on its own batch."""
+    from cgnn_tpu_torch.data.graph import batch_iterator
+    from cgnn_tpu_torch.train.graphs import COUNTS, StepGraph, reset_counts
+    from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
+
+    state, graphs, nc, ec = _card_state(dev)
+    state.model.eval()
+    inf, step = InferenceState(state.model, state.normalizer), \
+        make_predict_step()
+    host = list(batch_iterator(graphs, 16, nc, ec, dense_m=12, in_cap=0,
+                               snug=True))
+    reset_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        g = StepGraph(lambda b: step(inf, b), host[0], device=dev,
+                      eager_runs=2)
+        assert g.graph is None
+        got = [g.run(b).clone() for b in host[:2]]
+        assert g.graph is None and COUNTS["predict_captures"] == 0
+        for b in host[2:]:
+            got.append(g.run(b).clone())
+        want = [step(inf, b.to(dev)) for b in host]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(host) >= 3
+    assert g.graph is not None and g.replays == len(host) - 2
+    assert COUNTS["predict_captures"] == 1
+    assert COUNTS["predict_warm_runs"] == 1
+    for out, w in zip(got, want):
+        assert torch.equal(out, w)
+
+
+def test_server_captures_nothing_after_warm_over_a_mixed_burst(dev,
+                                                               tmp_path):
+    """load_server(wire='raw', compact='on') captures every rung's full,
+    compact and raw predict graphs at warm(); a burst over every rung and
+    both wires then replays them and captures nothing more."""
+    from cgnn_tpu_torch import convert
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
+    from cgnn_tpu_torch.data.synthetic import synthetic_dataset
+    from cgnn_tpu_torch.serve.server import load_server
+
+    cfg = ModelConfig(atom_fea_len=32, n_conv=2, dense_m=12,
+                      cgconv_impl="pallas")
+    dcfg = DataConfig()
+    npz, meta = str(tmp_path / "params.npz"), str(tmp_path / "meta.json")
+    convert.save_params(npz, meta, convert.init_params(cfg, dcfg, seed=1),
+                        cfg, dcfg)
+    calibration = load_synthetic(64, dcfg.featurize_config(), seed=3,
+                                 keep_geometry=True)
+    server, _ = load_server(npz, meta, batch_size=16, rungs=3,
+                            calibration=calibration, device=dev, wire="raw",
+                            compact="on", log_fn=lambda *a: None)
+    st = server.stats()["counts"]
+    assert st["graph_captures"] == 9 and st["captures_after_warm"] == 0
+    wire = [RawStructure.from_structure(s)
+            for _, s, _ in synthetic_dataset(24, seed=8)]
+    futs = []
+    for size in (1, 3, 17, 5, 40, 2):  # every rung, both wires
+        futs += [server.submit(g, timeout_ms=60_000)
+                 for g in calibration[:size]]
+        futs += [server.submit(r, timeout_ms=60_000)
+                 for r in wire[:size // 2]]
+        for f in futs:
+            f.result(timeout=120)
+    assert server.drain(timeout_s=30)
+    st = server.stats()["counts"]
+    assert st["captures_after_warm"] == 0 and st["batch_failures"] == 0
+    assert st["graph_replays"] == st["batches"] + 9 > 9

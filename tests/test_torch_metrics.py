@@ -1,6 +1,7 @@
 """The port's meters and metrics (``cgnn_tpu_torch/train/metrics.py``)
 against the JAX package's (``cgnn_tpu/train/metrics.py``) on seeded
-inputs: the device-side sums (accumulated, fetched in one copy, averaged)
+inputs: the device-side sums (``DeviceSums`` against the JAX
+``accumulate_on_device``, fetched in one copy, averaged)
 within 1e-6 relative (the JAX side fetches them as f32, the port as f64),
 and the host meters and metrics exactly."""
 
@@ -26,13 +27,12 @@ def test_device_sums_and_means_match_jax():
     rng = np.random.default_rng(0)
     steps = [_step_sums(rng) for _ in range(7)]
     steps[3]["extra_sum"] = np.float32(1.5)  # a key appearing mid-epoch
-    js = ts = None
+    js, ts = None, tm.DeviceSums()
     for s in steps:
         js = jm.accumulate_on_device(js, {k: jnp.asarray(v)
                                           for k, v in s.items()})
-        ts = tm.accumulate_on_device(ts, {k: torch.tensor(v)
-                                          for k, v in s.items()})
-    jh, th = jm.fetch_device_sums(js), tm.fetch_device_sums(ts)
+        ts.add({k: torch.tensor(v) for k, v in s.items()})
+    jh, th = jm.fetch_device_sums(js), tm.fetch_device_sums(ts.sums)
     assert list(th) == list(jh)  # sorted keys, one copy each
     for k in jh:
         assert th[k] == pytest.approx(jh[k], rel=1e-6), k
@@ -42,11 +42,14 @@ def test_device_sums_and_means_match_jax():
     for k in jmeans:
         assert tmeans[k] == pytest.approx(jmeans[k], rel=1e-6), k
     assert tm.fetch_device_sums(None) == {} == jm.fetch_device_sums(None)
-    # the first call copies: later in-place adds leave the step's tensors
+    # the accumulators are the sums' own: adds leave the step's tensors
     first = {"count": torch.tensor(1.0)}
-    sums = tm.accumulate_on_device(None, first)
-    tm.accumulate_on_device(sums, {"count": torch.tensor(2.0)})
-    assert float(first["count"]) == 1.0 and float(sums["count"]) == 3.0
+    sums = tm.DeviceSums()
+    sums.add(first)
+    sums.add({"count": torch.tensor(2.0)})
+    assert float(first["count"]) == 1.0 and float(sums.sums["count"]) == 3.0
+    sums.zero()
+    assert float(sums.sums["count"]) == 0.0
 
 
 def test_meter_and_mae_match_jax():

@@ -176,3 +176,37 @@ def test_unported_settings_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(ModelConfig(dense_m=12), dcfg)  # default device: cuda
+
+
+@pytest.mark.parametrize("layout", ["packed", "raw_blocks", "empty_slots"])
+def test_segment_mean_sorted_sums_equal_index_add(layout):
+    """The pooling's fixed-order segment sums (``segment_mean``) equal the
+    ``index_add_`` formula, values and gradient, on the node layouts the
+    packers make: real nodes by graph with padding after (graph slot 0),
+    one block of slots a structure with padding inside each block (the
+    raw expander's), and graph slots with no node."""
+    from cgnn_tpu_torch.ops.segment import segment_mean, segment_sum
+
+    rng = np.random.default_rng(3)
+    if layout == "raw_blocks":
+        g, s = 6, 8
+        ids = np.repeat(np.arange(g), s)
+        w = (rng.random(g * s) < 0.6).astype(np.float32)
+        w[s: 2 * s] = 0.0  # an all-padding structure slot
+    else:
+        g = 9 if layout == "empty_slots" else 6
+        ids = np.sort(rng.integers(0, 5, 40))
+        w = np.ones(len(ids), np.float32)
+        ids = np.concatenate([ids, np.zeros(12, np.int64)])
+        w = np.concatenate([w, np.zeros(12, np.float32)])
+    ids = torch.from_numpy(ids.astype(np.int32))
+    w = torch.from_numpy(w)
+    x = torch.from_numpy(rng.standard_normal((len(ids), 7)).astype(
+        np.float32)).requires_grad_(True)
+    got = segment_mean(x, ids, g, w)
+    want = (segment_sum(x * w[:, None], ids, g)
+            / torch.clamp_min(segment_sum(w, ids, g), 1.0)[:, None])
+    assert torch.equal(got, want)
+    ct = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32))
+    assert torch.equal(torch.autograd.grad((got * ct).sum(), x)[0],
+                       torch.autograd.grad((want * ct).sum(), x)[0])
