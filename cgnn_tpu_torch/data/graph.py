@@ -7,7 +7,8 @@
 
 Packing is numpy on the host and produces arrays bit-equal to the JAX
 package's ``pack_graphs`` for the same graphs and capacities; the batch
-then wraps them as CPU tensors without a copy and ``.to(device)`` moves it.
+then wraps them as CPU tensors without a copy (page-locked ones with
+``pin``) and ``.to(device)`` moves it.
 Both layouts are ported:
 
 - DENSE slots (``dense_m=M``): node slot ``n`` owns edge slots
@@ -16,7 +17,9 @@ Both layouts are ported:
 - flat COO (``dense_m=None``): the real edges first, sorted by center,
   then padding edges that point at the last node slot, masked, so
   ``centers`` stays non-decreasing (the sorted segment sum,
-  ops/scatter.py, relies on it). Transpose slots are dense-only.
+  ops/scatter.py, relies on it). A COO training batch carries its
+  endpoint gathers' transpose as CSR lists instead (``csr_transpose``),
+  which the port adds for its fixed-order backward.
 
 The training batch iterator (``batch_iterator``, ``count_batches``) closes
 a batch on its graph, node and edge budgets; ``plan_batches`` gives the
@@ -76,6 +79,12 @@ class CrystalGraph:
         return len(self.centers)
 
 
+_TORCH_DTYPES = {np.float32: torch.float32, np.int32: torch.int32}
+# the fields the port adds to the JAX package's batch struct: the COO
+# gathers' transpose, which only the port's fixed-order backward reads
+PORT_FIELDS = ("nbr_order", "nbr_offsets", "center_offsets")
+
+
 @dataclasses.dataclass
 class GraphBatch:
     """Fixed-capacity packed batch of graphs (tensors on one device)."""
@@ -103,6 +112,12 @@ class GraphBatch:
     over_slots: torch.Tensor | None = None  # [O] i32 overflow edge slots
     over_nodes: torch.Tensor | None = None  # [O] i32, non-decreasing
     over_mask: torch.Tensor | None = None  # [O] u8
+    # COO: the endpoint gathers' transpose (``coo_transpose``), read only
+    # by a backward pass: the edge slots in stable neighbor order, and
+    # each node's first position in that order and in the sorted centers
+    nbr_order: torch.Tensor | None = None  # [Ecap] i32
+    nbr_offsets: torch.Tensor | None = None  # [Ncap + 1] i32
+    center_offsets: torch.Tensor | None = None  # [Ncap + 1] i32
 
     @property
     def graph_capacity(self) -> int:
@@ -135,6 +150,8 @@ def pack_graphs(
     dense_m: int | None = None,
     in_cap: int | None = None,
     over_cap: int | None = None,
+    coo_transpose: bool = False,
+    pin: bool = False,
 ) -> GraphBatch:
     """Concatenate graphs into one fixed-capacity GraphBatch.
 
@@ -152,7 +169,16 @@ def pack_graphs(
     ``over_cap`` selects the two-tier transpose instead: tier 1 at width
     ``dense_m`` plus a node-sorted overflow list of capacity ``over_cap``,
     whose overrun raises ``TransposeOverflowError`` and never truncates.
-    Both need the dense layout.
+    Both need the dense layout. ``coo_transpose`` fills the COO layout's
+    counterpart (``nbr_order``, ``nbr_offsets``, ``center_offsets``, from
+    ``csr_transpose``), which the endpoint gathers' fixed-order backward
+    reads (ops/segment.py ``gather_fixed_order``).
+
+    ``pin`` packs into page-locked host memory (a CUDA build of torch),
+    so that a ``non_blocking`` copy to the card runs asynchronously.
+    PyTorch's caching host allocator hands a freed block out again only
+    once the copies that read it have completed, so a batch needs no pool
+    or fence of its own: drop it after its copy is queued.
     """
     if in_cap is not None and over_cap is not None:
         raise ValueError("in_cap (single-tier) and over_cap (two-tier) are "
@@ -160,6 +186,8 @@ def pack_graphs(
     if (in_cap is not None or over_cap is not None) and dense_m is None:
         raise ValueError("transpose slots require the dense layout "
                          "(dense_m)")
+    if coo_transpose and dense_m is not None:
+        raise ValueError("coo_transpose requires the COO layout")
     if not graphs:
         raise ValueError("cannot pack an empty graph list")
     if dense_m is not None and edge_cap != node_cap * dense_m:
@@ -179,30 +207,40 @@ def pack_graphs(
     node_dim = graphs[0].atom_fea.shape[1]
     edge_dim = graphs[0].edge_fea.shape[1]
     tdim = num_targets or int(np.atleast_1d(graphs[0].target).shape[0])
+    pinned: dict = {}  # id(array) -> the page-locked tensor it views
 
-    nodes = np.zeros((node_cap, node_dim), np.float32)
-    edges = np.zeros((edge_cap, edge_dim), np.float32)
+    def zeros(shape, dtype):
+        if not pin:
+            return np.zeros(shape, dtype)
+        t = torch.zeros(shape, dtype=_TORCH_DTYPES[dtype], pin_memory=True)
+        a = t.numpy()
+        pinned[id(a)] = t
+        return a
+
+    nodes = zeros((node_cap, node_dim), np.float32)
+    edges = zeros((edge_cap, edge_dim), np.float32)
+    centers = zeros(edge_cap, np.int32)
     if dense_m is None:
         # COO: padding edges point at the last node slot, so centers stay
         # sorted and their masked zero messages land on a padding node
-        centers = np.full(edge_cap, node_cap - 1, np.int32)
-        neighbors = np.full(edge_cap, node_cap - 1, np.int32)
+        centers[:] = node_cap - 1
     else:
         # slot k belongs to node k // M; padding slots are masked
         # self-loops on their owning node (centers stay sorted)
-        centers = (np.arange(edge_cap, dtype=np.int32)
-                   // dense_m).astype(np.int32)
-        neighbors = centers.copy()
-    node_graph = np.zeros(node_cap, np.int32)
-    node_mask = np.zeros(node_cap, np.float32)
-    edge_mask = np.zeros(edge_cap, np.float32)
-    graph_mask = np.zeros(graph_cap, np.float32)
-    targets = np.zeros((graph_cap, tdim), np.float32)
-    target_mask = np.zeros((graph_cap, tdim), np.float32)
-    positions = np.zeros((node_cap, 3), np.float32)
-    lattices = np.zeros((graph_cap, 3, 3), np.float32)
-    edge_offsets = np.zeros((edge_cap, 3), np.float32)
-    node_targets = np.zeros((node_cap, 3), np.float32)
+        np.floor_divide(np.arange(edge_cap, dtype=np.int32), dense_m,
+                        out=centers)
+    neighbors = zeros(edge_cap, np.int32)
+    neighbors[:] = centers
+    node_graph = zeros(node_cap, np.int32)
+    node_mask = zeros(node_cap, np.float32)
+    edge_mask = zeros(edge_cap, np.float32)
+    graph_mask = zeros(graph_cap, np.float32)
+    targets = zeros((graph_cap, tdim), np.float32)
+    target_mask = zeros((graph_cap, tdim), np.float32)
+    positions = zeros((node_cap, 3), np.float32)
+    lattices = zeros((graph_cap, 3, 3), np.float32)
+    edge_offsets = zeros((edge_cap, 3), np.float32)
+    node_targets = zeros((node_cap, 3), np.float32)
 
     nn_arr = np.fromiter((g.num_nodes for g in graphs), np.int64, n_graphs)
     ne_arr = np.fromiter((g.num_edges for g in graphs), np.int64, n_graphs)
@@ -288,14 +326,25 @@ def pack_graphs(
         in_slots, in_mask, over_slots, over_nodes, over_mask = (
             transpose_slots(neighbors, edge_mask > 0, node_cap, dense_m,
                             in_cap, over_cap))
+    nbr_order = nbr_offsets = center_offsets = None
+    if coo_transpose:
+        nbr_order, nbr_offsets = csr_transpose(neighbors, node_cap)
+        _, center_offsets = csr_transpose(centers, node_cap,
+                                          indices_sorted=True)
 
     def as_t(a):
-        return None if a is None else torch.from_numpy(a)
+        if a is None:
+            return None
+        if id(a) in pinned:
+            return pinned[id(a)]
+        t = torch.from_numpy(a)
+        # the mappings made above: small, copied into page-locked memory
+        return t.pin_memory() if pin else t
 
     return GraphBatch(
         nodes=as_t(nodes),
-        edges=as_t(edges if dense_m is None
-                   else edges.reshape(node_cap, dense_m, edge_dim)),
+        edges=(as_t(edges) if dense_m is None
+               else as_t(edges).view(node_cap, dense_m, edge_dim)),
         centers=as_t(centers),
         neighbors=as_t(neighbors),
         node_graph=as_t(node_graph),
@@ -313,7 +362,24 @@ def pack_graphs(
         over_slots=as_t(over_slots),
         over_nodes=as_t(over_nodes),
         over_mask=as_t(over_mask),
+        nbr_order=as_t(nbr_order),
+        nbr_offsets=as_t(nbr_offsets),
+        center_offsets=as_t(center_offsets),
     )
+
+
+def csr_transpose(indices: np.ndarray, num_rows: int,
+                  indices_sorted: bool = False) -> tuple:
+    """The gather ``values[indices]``'s transpose as a CSR list: (the
+    positions of ``indices`` in stable sorted order, i32, or None when
+    ``indices_sorted``; the [num_rows + 1] i32 offsets of each row's run
+    in that order). Row r's positions are ``order[offsets[r]:offsets[r +
+    1]]``, in increasing position."""
+    offsets = np.zeros(num_rows + 1, np.int32)
+    np.cumsum(np.bincount(indices, minlength=num_rows), out=offsets[1:])
+    if indices_sorted:
+        return None, offsets
+    return np.argsort(indices, kind="stable").astype(np.int32), offsets
 
 
 def transpose_slots(
@@ -526,14 +592,15 @@ def plan_batches(graphs: Sequence[CrystalGraph], batch_size: int,
 
 
 def _pack_overflow_safe(bucket, node_cap, edge_cap, graph_cap, dense_m,
-                        in_cap, over_cap, pack_fn=None):
-    """``pack_fn`` (default ``pack_graphs``), splitting the batch in half
-    (same capacities, so the same shapes) when it overruns the two-tier
-    ``over_cap``. A single graph that overruns it re-raises."""
+                        in_cap, over_cap, pack_fn=None, **kw):
+    """``pack_fn`` (default ``pack_graphs``; ``kw``, its further
+    keywords), splitting the batch in half (same capacities, so the same
+    shapes) when it overruns the two-tier ``over_cap``. A single graph
+    that overruns it re-raises."""
     try:
         yield (pack_fn or pack_graphs)(
             bucket, node_cap, edge_cap, graph_cap, dense_m=dense_m,
-            in_cap=in_cap, over_cap=over_cap)
+            in_cap=in_cap, over_cap=over_cap, **kw)
     except TransposeOverflowError:
         if len(bucket) < 2:
             raise
@@ -544,7 +611,7 @@ def _pack_overflow_safe(bucket, node_cap, edge_cap, graph_cap, dense_m,
         for half in (bucket[:mid], bucket[mid:]):
             yield from _pack_overflow_safe(half, node_cap, edge_cap,
                                            graph_cap, dense_m, in_cap,
-                                           over_cap, pack_fn)
+                                           over_cap, pack_fn, **kw)
 
 
 def batch_iterator(
@@ -576,9 +643,14 @@ def batch_iterator(
     two-tier transpose with ``overflow_cap`` (unless ``over_cap`` is
     given), ``in_cap > 0`` the single-tier one, ``in_cap=0`` none (eval
     batches, which run no backward). ``dense_m=None`` packs the flat COO
-    layout, with no transpose slots.
+    layout, with its gathers' transpose (``coo_transpose``) unless
+    ``in_cap=0``.
     """
     graph_cap = graph_cap_for(batch_size) if snug else batch_size
+    # COO training batches: the gathers' transpose (only then, so another
+    # packer, e.g. the dense-only compact one, never sees the keyword)
+    kw = ({"coo_transpose": True} if dense_m is None and in_cap is None
+          else {})
     if dense_m is not None and in_cap is None and over_cap is None:
         over_cap = overflow_cap(graphs, graph_cap, dense_m)
     if in_cap is not None:
@@ -603,14 +675,15 @@ def batch_iterator(
         ):
             yield from _pack_overflow_safe(bucket, node_cap, edge_cap,
                                            graph_cap, dense_m, in_cap,
-                                           over_cap, pack_fn)
+                                           over_cap, pack_fn, **kw)
             bucket, nn, ne = [], 0, 0
         bucket.append(g)
         nn += g.num_nodes
         ne += g.num_edges
     if bucket and (not drop_last or len(bucket) >= batch_size):
         yield from _pack_overflow_safe(bucket, node_cap, edge_cap, graph_cap,
-                                       dense_m, in_cap, over_cap, pack_fn)
+                                       dense_m, in_cap, over_cap, pack_fn,
+                                       **kw)
 
 
 def bucketed_batch_iterator(

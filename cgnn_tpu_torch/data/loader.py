@@ -4,10 +4,14 @@ A producer thread takes host batches from an iterator (packing them, as
 the iterator does) and copies each to the device ahead of the consumer,
 keeping up to ``size`` staged batches in a queue. On a CUDA device the
 copy runs with ``non_blocking=True`` on a side stream, then records an
-event; before the consumer reads a batch, its current stream waits on
-that event and every tensor of the batch is marked used on that stream
-(``record_stream``), so the caching allocator does not hand the memory out
-again while the step still reads it. On the CPU the put is the identity.
+event. It overlaps the step only from page-locked memory, so the packer
+packs into it (data/graph.py ``pack_graphs(pin=True)``, as train/loop.py
+``fit`` asks on a card); from pageable memory the CUDA runtime copies
+synchronously through a bounce buffer of its own. Before the consumer
+reads a batch, its current stream waits on that event and every tensor
+of the batch is marked used on that stream (``record_stream``), so the
+caching allocator does not hand the memory out again while the step
+still reads it. On the CPU the put is the identity.
 
 Every queue put is bounded by a stop event that the consumer generator's
 ``finally`` sets, so a consumer that abandons the iterator releases the

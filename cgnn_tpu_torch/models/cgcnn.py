@@ -28,7 +28,12 @@ batch's transpose mapping for its backward when the batch carries one.
     agg_i  = aggregate_edge_messages(msg, centers, impl=aggregation_impl)
 
 then BN2 and the residual as above. ``aggregation_impl='pallas'`` runs
-kernel 6 (ops/scatter.py) on the card. The COO branch takes neither
+kernel 6 (ops/scatter.py) on the card. When the batch carries the COO
+transpose (``nbr_order``, ``nbr_offsets``, ``center_offsets``: training
+batches, data/graph.py), the two endpoint gathers' backward sums each
+node's cotangents in a fixed order (``gather_fixed_order``, kernel 6
+again under ``'pallas'``), so COO training repeats its bits run to run,
+as the dense layout's transpose does. The COO branch takes neither
 ``cgconv_impl`` nor ``fused_epilogue`` (both fuse the dense layout).
 
 Module and parameter names follow the JAX parameter tree (``conv_0``,
@@ -55,6 +60,7 @@ from cgnn_tpu_torch.ops.segment import (
     AGGREGATION_IMPLS,
     aggregate_edge_messages,
     gather,
+    gather_fixed_order,
     gather_transpose,
     segment_mean,
 )
@@ -95,10 +101,11 @@ class CGConv(nn.Module):
     def forward(self, nodes, edges, centers, neighbors, edge_mask,
                 node_mask, transpose=None):
         """``transpose``: the batch's ``(in_slots, in_mask, over_slots,
-        over_nodes, over_mask)`` or None (dense layout only)."""
+        over_nodes, over_mask)`` (dense) or ``(center_offsets, nbr_order,
+        nbr_offsets)`` (COO), or None."""
         if self.dense_m is None:
             agg = self._coo_aggregate(nodes, edges, centers, neighbors,
-                                      edge_mask)
+                                      edge_mask, transpose)
         else:
             agg = self._dense_aggregate(nodes, edges, neighbors, edge_mask,
                                         transpose)
@@ -106,9 +113,18 @@ class CGConv(nn.Module):
         out = softplus(nodes + agg)
         return out * node_mask[:, None].to(out.dtype)
 
-    def _coo_aggregate(self, nodes, edges, centers, neighbors, edge_mask):
-        v_i = gather(nodes, centers)
-        v_j = gather(nodes, neighbors)
+    def _coo_aggregate(self, nodes, edges, centers, neighbors, edge_mask,
+                       transpose):
+        center_offsets = None
+        if transpose is None:
+            v_i, v_j = gather(nodes, centers), gather(nodes, neighbors)
+        else:
+            center_offsets, nbr_order, nbr_offsets = transpose
+            impl = self.aggregation_impl or "xla"
+            v_i = gather_fixed_order(nodes, centers, None, center_offsets,
+                                     impl)
+            v_j = gather_fixed_order(nodes, neighbors, nbr_order,
+                                     nbr_offsets, impl)
         z = torch.cat([v_i, v_j, edges.to(nodes.dtype)], dim=-1)
         z = z @ self.fc_full.kernel + self.fc_full.bias
         z = self.bn1(z, edge_mask)
@@ -116,7 +132,8 @@ class CGConv(nn.Module):
         msg = torch.sigmoid(gate) * softplus(core)
         msg = msg * edge_mask[:, None].to(msg.dtype)
         return aggregate_edge_messages(msg, centers, nodes.shape[0],
-                                       impl=self.aggregation_impl)
+                                       impl=self.aggregation_impl,
+                                       offsets=center_offsets)
 
     def _dense_aggregate(self, nodes, edges, neighbors, edge_mask,
                          transpose):
@@ -201,6 +218,9 @@ class CrystalGraphConvNet(nn.Module):
         if batch.in_slots is not None:
             transpose = (batch.in_slots, batch.in_mask, batch.over_slots,
                          batch.over_nodes, batch.over_mask)
+        elif batch.nbr_order is not None:
+            transpose = (batch.center_offsets, batch.nbr_order,
+                         batch.nbr_offsets)
         for i in range(self.n_conv):
             nodes = getattr(self, f"conv_{i}")(
                 nodes, batch.edges, batch.centers, batch.neighbors,

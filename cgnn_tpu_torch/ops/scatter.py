@@ -5,7 +5,8 @@
 The packer keeps ``centers`` non-decreasing (data/graph.py), so node n's
 messages are the contiguous rows ``[offsets[n], offsets[n+1])``, with the
 offsets from a device ``searchsorted`` (``segment_offsets``; ``bincount``
-would read its maximum back to the host). The sum accumulates in f32 and
+would read its maximum back to the host) or those a COO training batch
+carries (``center_offsets``). The sum accumulates in f32 and
 is cast back to the messages' dtype. No mask: padding edges carry zero
 messages because CGConv masks them, as in the JAX package.
 
@@ -108,9 +109,11 @@ class SegmentSumSorted(torch.autograd.Function):
     backward (the op is linear; centers get no gradient)."""
 
     @staticmethod
-    def forward(ctx, messages, centers, num_nodes: int, impl: str):
+    def forward(ctx, messages, centers, num_nodes: int, impl: str,
+                offsets=None):
         ctx.save_for_backward(centers)
-        offsets = segment_offsets(centers, num_nodes)
+        if offsets is None:
+            offsets = segment_offsets(centers, num_nodes)
         if runs_kernel(impl, messages):
             return segment_sum_sorted_cuda(messages.contiguous(),
                                            offsets).to(messages.dtype)
@@ -119,14 +122,17 @@ class SegmentSumSorted(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (centers,) = ctx.saved_tensors
-        return g.index_select(0, centers), None, None, None
+        return g.index_select(0, centers), None, None, None, None
 
 
 def segment_sum_sorted(messages: torch.Tensor, centers: torch.Tensor,
-                       num_nodes: int, impl: str = "pallas") -> torch.Tensor:
+                       num_nodes: int, impl: str = "pallas",
+                       offsets: torch.Tensor | None = None) -> torch.Tensor:
     """Sum [E, F] ``messages`` into [num_nodes, F] over non-decreasing
-    ``centers`` [E] i32 (module docstring)."""
-    return SegmentSumSorted.apply(messages, centers, num_nodes, impl)
+    ``centers`` [E] i32 (module docstring); ``offsets``: the centers'
+    [num_nodes + 1] i32 ``segment_offsets`` where the caller has them."""
+    return SegmentSumSorted.apply(messages, centers, num_nodes, impl,
+                                  offsets)
 
 
 def segment_sum_cost(e: int, n: int, f: int) -> dict:

@@ -1,11 +1,17 @@
 """Gather and segment reductions on tensors (``cgnn_tpu/ops/segment.py``),
-and ``aggregate_edge_messages``, the COO layout's aggregation."""
+``aggregate_edge_messages``, the COO layout's aggregation, and
+``gather_fixed_order``, the COO layout's endpoint gather with a backward
+that sums in a fixed order."""
 
 from __future__ import annotations
 
 import torch
 
-from cgnn_tpu_torch.ops.scatter import segment_sum_sorted
+from cgnn_tpu_torch.ops.fused_epilogue import runs_kernel
+from cgnn_tpu_torch.ops.scatter import (
+    segment_sum_sorted,
+    segment_sum_sorted_cuda,
+)
 
 AGGREGATION_IMPLS = ("xla", "sort", "pallas")
 
@@ -13,6 +19,44 @@ AGGREGATION_IMPLS = ("xla", "sort", "pallas")
 def gather(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """values[indices] — the edge-endpoint gather ([N, F] + [E] -> [E, F])."""
     return values.index_select(0, indices)
+
+
+class _SortedGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, indices, perm, offsets, impl: str):
+        ctx.save_for_backward(perm, offsets)
+        ctx.has_perm = perm is not None
+        ctx.impl = impl
+        return values.index_select(0, indices)
+
+    @staticmethod
+    def backward(ctx, ct):
+        perm, offsets = ctx.saved_tensors
+        ct = ct.contiguous()
+        if ctx.has_perm:
+            ct = ct.index_select(0, perm)
+        if runs_kernel(ctx.impl, ct) and ct.dtype == torch.float32:
+            grad = segment_sum_sorted_cuda(ct, offsets)
+        else:  # in the cotangent's own dtype
+            grad = torch.segment_reduce(ct, "sum", offsets=offsets, axis=0,
+                                        unsafe=True)
+        return grad, None, None, None, None
+
+
+def gather_fixed_order(values: torch.Tensor, indices: torch.Tensor,
+                       order: torch.Tensor | None, offsets: torch.Tensor,
+                       impl: str = "xla") -> torch.Tensor:
+    """``values[indices]`` whose backward sums each row's cotangents in a
+    fixed order, so a training run repeats its bits (``index_select``'s
+    own backward is ``index_add_``, whose CUDA atomics add in an order
+    that changes from run to run): the cotangent rows taken in stable
+    sorted order of the indices (``order``; None when the indices are
+    sorted already), then summed over each row's run (``offsets``), by
+    kernel 6 for ``impl='pallas'`` on a card (ops/scatter.py), by its
+    plain version (``torch.segment_reduce``) otherwise. The packer makes
+    both once a batch (data/graph.py ``csr_transpose``). First order
+    only."""
+    return _SortedGather.apply(values, indices, order, offsets, impl)
 
 
 def transpose_cotangent(ct, in_slots, in_mask, over_slots, over_nodes,
@@ -83,8 +127,9 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def aggregate_edge_messages(messages: torch.Tensor, centers: torch.Tensor,
-                            num_nodes: int,
-                            impl: str | None = None) -> torch.Tensor:
+                            num_nodes: int, impl: str | None = None,
+                            offsets: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Sum per-edge [E, F] messages into [num_nodes, F] node rows by their
     ``centers``. ``impl`` (None = ``'xla'``, the JAX default):
 
@@ -94,7 +139,8 @@ def aggregate_edge_messages(messages: torch.Tensor, centers: torch.Tensor,
       over the sorted rows (the JAX ``_aggregate_sort``);
     - ``'pallas'``: the sorted segment sum (ops/scatter.py): kernel 6 on a
       CUDA tensor, its plain version on a CPU tensor. Needs the packer's
-      non-decreasing centers.
+      non-decreasing centers; ``offsets``, their segment offsets, where
+      the batch carries them (``center_offsets``).
     """
     impl = impl or "xla"
     if impl == "xla":
@@ -104,7 +150,8 @@ def aggregate_edge_messages(messages: torch.Tensor, centers: torch.Tensor,
         return segment_sum(messages.index_select(0, order),
                            centers.index_select(0, order), num_nodes)
     if impl == "pallas":
-        return segment_sum_sorted(messages, centers, num_nodes)
+        return segment_sum_sorted(messages, centers, num_nodes,
+                                  offsets=offsets)
     raise ValueError(f"unknown aggregation impl {impl!r} "
                      f"(one of {AGGREGATION_IMPLS})")
 

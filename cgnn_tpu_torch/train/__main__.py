@@ -37,6 +37,23 @@ auto`` does so from ``--ckpt-dir`` when it holds one and starts fresh
 directory that cannot be restored (an inference-only checkpoint, which
 has no optimizer state, among them), or a meta without ``epoch``.
 
+Fault tolerance, with train.py's flags and defaults
+(``cgnn_tpu_torch/resilience``): ``--guard skip`` (the default) skips a
+non-finite update on the card, inside the replayed train graph;
+``--guard rollback`` also restores the last good checkpoint with the
+rate cut by ``--guard-lr-cut`` when ``--guard-max-skips`` steps of an
+epoch were skipped, at most ``--guard-max-rollbacks`` times (the cut and
+the rollbacks spent are kept in every save's meta and reapplied on
+``--resume``); ``--guard off`` does neither. SIGTERM or SIGINT saves a
+resumable checkpoint at the next epoch boundary (the next chunk boundary
+under the epoch driver) and exits 75 (``--no-preempt-handler`` leaves
+the signals alone); ``--resume auto`` then completes the run.
+``--debug-nans`` steps eagerly (a captured graph cannot stop at the
+first NaN) and raises at the first non-finite module output or backward
+op. The ``CGNN_TPU_FAULTS`` variable injects faults
+(resilience/faultinject.py) and is announced as ``FAULT INJECTION
+ACTIVE``.
+
 The flags are train.py's that this entry point serves, with train.py's
 defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
 CPU (where the kernels' plain versions run); without a card the default
@@ -49,6 +66,7 @@ serves, and prints the test-split MAE and one ``train: {...}`` JSON line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -145,6 +163,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keep-ckpts", type=int, default=3, metavar="K",
                    help="checkpoint retention: newest K versioned saves "
                         "plus the best-pointer target (0 keeps all)")
+    p.add_argument("--guard", choices=["off", "skip", "rollback"],
+                   default="skip",
+                   help="divergence guard. 'skip' (default): non-finite "
+                        "updates are skipped on the card, inside the "
+                        "replayed train graph (trajectory bit-equal when "
+                        "nothing fires). 'rollback' also restores the last "
+                        "good checkpoint with an LR cut when >= "
+                        "--guard-max-skips steps of one epoch were "
+                        "skipped. 'off' disables both")
+    p.add_argument("--guard-max-skips", type=int, default=3, metavar="K",
+                   help="skipped steps per epoch that count as divergence "
+                        "(--guard rollback)")
+    p.add_argument("--guard-lr-cut", type=float, default=0.5,
+                   help="LR multiplier applied per rollback")
+    p.add_argument("--guard-max-rollbacks", type=int, default=3,
+                   help="rollback budget before the run fails for real")
+    p.add_argument("--no-preempt-handler", action="store_true",
+                   help="do not trap SIGTERM/SIGINT for graceful "
+                        "checkpoint-and-resume (exit code 75)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail fast with a traceback at the first NaN "
+                        "(eager steps: the step graphs are turned off)")
     p.add_argument("--out-dir", default="checkpoints/torch",
                    help="where params.npz and meta.json are written")
     return p
@@ -189,14 +229,43 @@ def main(argv=None) -> int:
               "layout, and a non-force task", file=sys.stderr)
         return 2
 
+    preempt = None
+    if not args.no_preempt_handler:
+        from cgnn_tpu_torch.resilience.preempt import PreemptionHandler
+
+        preempt = PreemptionHandler.installed(log_fn=print)
+    try:
+        return _train(args, dense_m, compact_ok, preempt)
+    finally:
+        if preempt is not None:
+            preempt.uninstall()
+
+
+def _train(args, dense_m, compact_ok, preempt) -> int:
     from cgnn_tpu_torch import convert
     from cgnn_tpu_torch.config import DataConfig, ModelConfig
     from cgnn_tpu_torch.data.dataset import train_val_test_split
     from cgnn_tpu_torch.device import resolve_device
+    from cgnn_tpu_torch.resilience import faultinject
+    from cgnn_tpu_torch.resilience.guard import DivergenceMonitor, debug_nans
+    from cgnn_tpu_torch.resilience.preempt import resumable_exit
     from cgnn_tpu_torch.train.checkpoint import CheckpointManager
     from cgnn_tpu_torch.train.loop import evaluate, fit
     from cgnn_tpu_torch.train.state import init_train_state
 
+    fault_plan = faultinject.plan()
+    if fault_plan is not None:
+        print(f"FAULT INJECTION ACTIVE: {fault_plan.describe()}",
+              file=sys.stderr)
+        unported = faultinject.unported_keys(fault_plan)
+        if unported:
+            print(f"fault injection: {', '.join(unported)} not ported to "
+                  f"this trainer (serving and fleet hooks): ignored",
+                  file=sys.stderr)
+    if args.debug_nans:
+        print("--debug-nans: step graphs off; eager steps under "
+              "torch.autograd.detect_anomaly(check_nan=True), each module's "
+              "output checked")
     dev = resolve_device(args.device)
     data_cfg = DataConfig(radius=args.radius, max_num_nbr=args.max_num_nbr,
                           dmin=args.dmin, step=args.step)
@@ -221,33 +290,52 @@ def main(argv=None) -> int:
         lr_milestones_epochs=args.lr_milestones)
     ckpt = CheckpointManager(args.ckpt_dir, keep=args.keep_ckpts)
     try:
-        start_epoch = _resume(args, ckpt, state)
-        if start_epoch is None:
+        resumed = _resume(args, ckpt, state)
+        if resumed is None:
             return 2
+        start_epoch, resume_meta = resumed
         meta_base = {"model": model_cfg.to_meta(), "data": data_cfg.to_meta(),
                      "task": "regression"}
+        monitor = None
+        if args.guard == "rollback":
+            monitor = DivergenceMonitor(
+                ckpt, max_skips=args.guard_max_skips,
+                lr_cut=args.guard_lr_cut,
+                max_rollbacks=args.guard_max_rollbacks, log_fn=print)
+            if resume_meta is not None:
+                # the cut and the spent budget survive a requeue
+                state = monitor.resume_from_meta(state, resume_meta)
 
         def save(s, epoch, val_m, is_best):
+            extra = monitor.meta() if monitor is not None else {}
             ckpt.save(s, dict(meta_base, epoch=epoch,
-                              best_mae=val_m.get("mae", -1.0)),
+                              best_mae=val_m.get("mae", -1.0), **extra),
                       is_best=is_best)
 
         compact = None
         if args.compact_staging != "off" and compact_ok:
             compact = _compact_spec(args, train_g + val_g + test_g,
                                     data_cfg, dense_m)
-        state, result = fit(
-            state, train_g, val_g, epochs=args.epochs,
-            batch_size=args.batch_size, dense_m=dense_m, device=dev,
-            node_cap=node_cap, edge_cap=edge_cap, seed=args.seed,
-            print_freq=args.print_freq, start_epoch=start_epoch,
-            on_epoch_end=save, buckets=args.buckets,
-            pack_once=args.pack_once, device_resident=args.device_resident,
-            scan_epochs=args.scan_epochs, chunk_steps=args.chunk_steps,
-            compact=compact)
+        with (debug_nans(state.model) if args.debug_nans
+              else contextlib.nullcontext()):
+            state, result = fit(
+                state, train_g, val_g, epochs=args.epochs,
+                batch_size=args.batch_size, dense_m=dense_m, device=dev,
+                node_cap=node_cap, edge_cap=edge_cap, seed=args.seed,
+                print_freq=args.print_freq, start_epoch=start_epoch,
+                on_epoch_end=save, buckets=args.buckets,
+                pack_once=args.pack_once,
+                device_resident=args.device_resident,
+                scan_epochs=args.scan_epochs, chunk_steps=args.chunk_steps,
+                compact=compact, graphs=not args.debug_nans,
+                guard=args.guard != "off", monitor=monitor, preempt=preempt)
         ckpt.wait()
     finally:
         ckpt.close()
+    if result.get("preempted"):
+        # the loop saved a resumable checkpoint at the boundary and the
+        # close above waited for its commit (a failed save raised there)
+        return resumable_exit(print)
     test_m = evaluate(state, test_g, args.batch_size, node_cap, dense_m,
                       dev, edge_cap=edge_cap)
     print(f"** test mae: {test_m.get('mae', float('nan')):.4f} "
@@ -342,16 +430,16 @@ def load_graphs(args, data_cfg):
     return graphs
 
 
-def _resume(args, ckpt, state) -> int | None:
-    """train.py's resume rules -> the first epoch to run, or None after
-    printing why the run is refused."""
+def _resume(args, ckpt, state) -> tuple | None:
+    """train.py's resume rules -> (the first epoch to run, the restored
+    meta or None), or None after printing why the run is refused."""
     from cgnn_tpu_torch.train.checkpoint import (
         CheckpointManager,
         CheckpointRestoreError,
     )
 
     if not args.resume:
-        return args.start_epoch
+        return args.start_epoch, None
     auto = args.resume == "auto"
     resume_dir = args.ckpt_dir if auto else args.resume
     mgr = (ckpt if os.path.abspath(resume_dir) == ckpt.directory
@@ -359,7 +447,7 @@ def _resume(args, ckpt, state) -> int | None:
     if auto and not mgr.exists():
         print(f"--resume auto: no checkpoint under {resume_dir}; starting "
               f"fresh")
-        return args.start_epoch
+        return args.start_epoch, None
     try:
         _, meta = mgr.restore(state)
     except CheckpointRestoreError as e:
@@ -379,7 +467,7 @@ def _resume(args, ckpt, state) -> int | None:
         return None
     start_epoch = int(meta["epoch"]) + 1
     print(f"resumed from {resume_dir} at epoch {start_epoch}")
-    return start_epoch
+    return start_epoch, meta
 
 
 if __name__ == "__main__":

@@ -41,8 +41,12 @@ Where it differs from the JAX package:
   verification, is reported in the chain and is skipped;
 - a checkpoint without ``opt_state`` (``jax_checkpoint_to_torch.py``
   writes one) serves ``restore_for_inference`` but not ``restore``;
-- the telemetry spans and the fault-injection crash points are not
-  ported yet.
+- the telemetry spans are not ported yet (ROADMAP Queue 1, item 11).
+
+The finalizer has the JAX package's three fault-injection crash points
+(``resilience.faultinject.crash_point``): ``after_write`` (state and
+nothing else written), ``before_commit`` (the manifest written, the
+rename not done) and ``after_commit``.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ import numpy as np
 import torch
 
 from cgnn_tpu_torch import convert
+from cgnn_tpu_torch.resilience import faultinject
 from cgnn_tpu_torch.resilience.integrity import (
     read_manifest,
     tree_manifest,
@@ -335,11 +340,14 @@ class CheckpointManager:
         # a crash would: invisible to restore, swept by the next saver
         tree = _contiguous(tree)
         np.savez(os.path.join(tmp, STATE_FILE), **convert.flatten(tree))
+        faultinject.crash_point("after_write")
         with open(os.path.join(tmp, META_FILE), "w") as f:
             json.dump(_jsonfinite(meta), f, indent=1, allow_nan=False)
         # the manifest LAST: it is the commit marker
         write_manifest(tmp, tree_manifest(tree))
+        faultinject.crash_point("before_commit")
         os.replace(tmp, final)
+        faultinject.crash_point("after_commit")
         if is_best:
             self._point_best(name, meta)
         self._apply_retention()
@@ -428,8 +436,9 @@ class CheckpointManager:
 
     def restore(self, state, tag: str = _LATEST) -> tuple:
         """Restore into the TrainState ``state`` (in place: model,
-        optimizer with its ``count``, normalizer) -> (state, meta).
-        Falls back newest -> older -> best; raises
+        optimizer with its ``count``, normalizer; a captured graph keeps
+        its addresses, so a rollback mid-``fit`` captures nothing) ->
+        (state, meta). Falls back newest -> older -> best; raises
         ``CheckpointRestoreError`` when the chain is exhausted."""
         loaded = {}
 
@@ -441,7 +450,9 @@ class CheckpointManager:
         state.model.load_state_dict(loaded["model"])
         state.optimizer.inner.load_state_dict(loaded["optimizer"])
         state.optimizer.count = int(tree["opt_state"]["count"])
-        state.normalizer = _normalizer(tree, state.normalizer.mean.device)
+        norm = _normalizer(tree, state.normalizer.mean.device)
+        state.normalizer.mean.copy_(norm.mean)
+        state.normalizer.std.copy_(norm.std)
         return state, meta
 
     def restore_for_inference(self, state, tag: str = _LATEST):

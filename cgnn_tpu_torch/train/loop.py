@@ -37,16 +37,30 @@ The loop keeps the best validation MAE and calls ``on_epoch_end`` after
 each epoch's validation (the checkpoint hook; ``start_epoch`` resumes).
 ``dense_m`` 0 or None trains on the flat COO layout.
 
-Not ported: preemption polling at chunk boundaries, the in-scan
-telemetry tap and the background pair fetch, the invariant checks on
-staged stacks, data-parallel drivers, the divergence guard, and
-``--profile`` (ROADMAP Queue 1).
+Resilience (``cgnn_tpu_torch/resilience``), the JAX ``fit``'s contract:
+``guard`` wraps the train body in both drivers with the in-graph
+divergence guard (``guard_step``: the skip is a select inside the
+replayed graph), and the host mirror of the optimizer's count is settled
+from the epoch's one fetch (``settle_count``); ``monitor`` (a
+``DivergenceMonitor``) is consulted at each epoch's end, before the
+save, and may roll the state back in place with a cut rate; ``preempt``
+(a ``PreemptionHandler``) is polled at epoch boundaries and, by the
+driver, between chunks. A driver stopped mid-epoch skips its eval, the
+current weights are saved under the last completed epoch, and the result
+says ``{"preempted": True}``. The fault plan's batch faults
+(``faultinject.poison_batches``) reach the training batches before any
+staging takes them.
+
+Not ported: the in-scan telemetry tap and the background pair fetch,
+the invariant checks on staged stacks, data-parallel drivers and their
+guard, and ``--profile`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 from typing import Callable, Iterable, Sequence
 
@@ -60,8 +74,11 @@ from cgnn_tpu_torch.data.graph import (
     batch_shape_key,
     bucketed_batch_iterator,
     capacities_for,
+    pack_graphs,
 )
 from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
+from cgnn_tpu_torch.resilience import faultinject
+from cgnn_tpu_torch.resilience.guard import guard_step, skipped_steps
 from cgnn_tpu_torch.train.graphs import (
     GraphCache,
     StepGraph,
@@ -139,6 +156,52 @@ def _log_progress(host: dict, train: bool, epoch: int, it: int,
     log_fn(f"{'Epoch' if train else 'Val'}: [{epoch}][{it}]  "
            f"Loss {host.get('loss_sum', 0.0) / count:.4f}  "
            f"MAE {host.get('mae_sum', 0.0) / count:.4f}")
+
+
+def save_preempted_mid_epoch(state, epoch: int, on_epoch_end,
+                             log_fn: Callable) -> None:
+    """Chunk-boundary preemption: the epoch is partial, so the CURRENT
+    weights are saved under the last COMPLETED epoch, and a resume redoes
+    this epoch instead of skipping its unseen tail."""
+    log_fn(f"preemption: epoch {epoch} stopped at a chunk boundary; saving "
+           f"resumable checkpoint (epoch {epoch - 1})")
+    if on_epoch_end is not None:
+        on_epoch_end(state, epoch - 1, {}, False)
+
+
+def resilience_epoch_end(state, epoch: int, train_m: dict, val_m: dict,
+                         is_best: bool, *, monitor, on_epoch_end, preempt,
+                         log_fn: Callable):
+    """The epoch-boundary protocol: the divergence check BEFORE the save
+    (a diverged epoch never overwrites the last good checkpoint), the
+    save, the injected SIGTERM, and the preemption poll -> (state,
+    rolled_back, preempted)."""
+    rolled_back = False
+    if monitor is not None:
+        state, rolled_back = monitor.observe(state, epoch, train_m)
+    if on_epoch_end is not None and not rolled_back:
+        on_epoch_end(state, epoch, val_m, is_best)
+    faultinject.maybe_sigterm(epoch)
+    preempted = preempt is not None and preempt.requested
+    if preempted:
+        if rolled_back:
+            log_fn(f"preemption: stopping after epoch {epoch} — the epoch "
+                   f"diverged and was not saved; resume restarts from the "
+                   f"last good checkpoint")
+        else:
+            log_fn(f"preemption: stopping after epoch {epoch} (checkpoint "
+                   f"saved at the epoch boundary)")
+    return state, rolled_back, preempted
+
+
+def settle_count(state, train_m: dict) -> None:
+    """Set the optimizer's host count to its device count after an
+    epoch: a replay raised the host mirror by one whatever its step did,
+    and a step the guard skipped left the device count where it was, so
+    the epoch's skips (its fetched ``guard_skipped`` sums) come off."""
+    skipped = skipped_steps(train_m)
+    if skipped:
+        state.optimizer.advance(-skipped)
 
 
 def batch_caps(graphs: Sequence[CrystalGraph], batch_size: int,
@@ -243,7 +306,13 @@ class ScanEpochDriver:
     leaves ``state`` as it was; unlike the JAX ``warm`` it draws nothing
     from ``rng``, so ``fit`` with the driver walks the JAX ``fit``'s step
     sequence. ``trace``, when a list, receives ``(shape key, batch
-    indices)`` for every chunk run, from the host mirrors."""
+    indices)`` for every chunk run, from the host mirrors.
+
+    ``preempt`` (a ``resilience.PreemptionHandler``) is polled before
+    every chunk: an epoch can outlast a preemption's grace window, so on
+    a request the epoch driver stops at that chunk boundary and sets
+    ``aborted`` (``eval_truncated`` where the request landed during the
+    eval epoch, whose means then cover only the chunks that ran)."""
 
     # mean steps a chunk and the mixed tail's cap: the JAX values
     chunk_steps = 2
@@ -252,7 +321,8 @@ class ScanEpochDriver:
     def __init__(self, train_body: Callable, eval_body: Callable,
                  train_batches: list, val_batches: list,
                  rng: np.random.Generator, *, device,
-                 chunk_steps: int | None = None, graphs: bool = True):
+                 chunk_steps: int | None = None, graphs: bool = True,
+                 preempt=None):
         if chunk_steps is not None:
             if chunk_steps < 1:
                 raise ValueError(
@@ -261,6 +331,11 @@ class ScanEpochDriver:
         self._rng = rng
         self.device = torch.device(device)
         self._capture = graphs
+        self._preempt = preempt
+        # set when a preemption request stopped the last drive call at a
+        # chunk boundary (reset by each public drive call)
+        self.aborted = False
+        self.eval_truncated = False
         self.timings: dict[str, float] = {}
         t0 = time.perf_counter()
         self._train_groups = self._stack_groups(train_batches)
@@ -420,6 +495,11 @@ class ScanEpochDriver:
             picks = iter(pick_order)
             by_index = list(qs)  # pick_order indexes the build order
             while qs:
+                if self._preempt is not None and self._preempt.requested:
+                    # a chunk-boundary stop: the caller saves the
+                    # mid-epoch state; the means divide by the steps run
+                    self.aborted = True
+                    return
                 if weighted and pick_order:
                     entry = by_index[next(picks)]
                 else:
@@ -436,7 +516,7 @@ class ScanEpochDriver:
         run_queues(queues, weighted=multi and not first)
         run_queues(tails, weighted=False)
         t_run = time.perf_counter()
-        if train and prebuild:
+        if train and prebuild and not self.aborted:
             self._sched_cache[(id(groups), True, False)] = \
                 self._build_sched(groups, True, False)
         phase = "train" if train else "eval"
@@ -449,12 +529,14 @@ class ScanEpochDriver:
         return executed
 
     def train_epoch(self, state, first: bool) -> dict:
+        self.aborted = False
         steps = self._drive(state, self._train_groups, train=True,
                             first=first)
         return means_from_sums(fetch_device_sums(self.train_sums.sums),
                                steps)
 
     def eval_epoch(self, state) -> dict:
+        self.aborted = False
         steps = self._drive(state, self._val_groups, train=False,
                             first=True)
         return means_from_sums(fetch_device_sums(self.eval_sums.sums),
@@ -462,13 +544,20 @@ class ScanEpochDriver:
 
     def run_epoch_pair(self, state, first: bool) -> tuple:
         """Train epoch + eval epoch with ONE fetch of both epochs' sums
-        -> (state, train means, val means)."""
+        -> (state, train means, val means). A preempted train epoch
+        skips the eval epoch (the grace window is for the checkpoint); a
+        request during eval leaves the completed train epoch un-aborted
+        and sets ``eval_truncated``."""
+        self.aborted = self.eval_truncated = False
         tr_steps = self._drive(state, self._train_groups, train=True,
                                first=first)
+        train_aborted = self.aborted
         ev_steps = 0
-        if self._val_groups:
+        if self._val_groups and not train_aborted:
             ev_steps = self._drive(state, self._val_groups, train=False,
                                    first=True)
+            self.eval_truncated = self.aborted
+            self.aborted = train_aborted
         combined = {f"t:{k}": v for k, v in self.train_sums.sums.items()}
         if ev_steps:
             combined |= {f"e:{k}": v for k, v in self.eval_sums.sums.items()}
@@ -554,12 +643,16 @@ def fit(
     chunk_steps: int | None = None,
     compact=None,
     graphs: bool = True,
+    guard: bool = False,
+    monitor=None,
+    preempt=None,
 ) -> tuple:
     """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
     the best validation MAE.
     -> (state, {"best", "history": [per-epoch metrics], "staging" (the
     driver's: packed and staged bytes, compact or not, the fall-back),
-    "graphs": {captures, replays, captures_after_warm}}).
+    "graphs": {captures, replays, captures_after_warm}}, and
+    "preempted": True when a preemption request stopped the run).
 
     ``dense_m`` 0 or None packs the flat COO layout. The capacities
     default to the snug ones of the training graphs (``batch_caps``);
@@ -573,10 +666,14 @@ def fit(
     As in the JAX loop, the data order's generator restarts from ``seed``
     at ``start_epoch`` and ``best`` from inf; ``on_epoch_end(state,
     epoch, val_metrics, is_best)`` runs after each epoch's validation.
-    ``prefetch``: the loader's depth (``stage``); ``loader_stats``
-    gathers its counters. The state's tensors must not be rebound while
+    ``prefetch``: the loader's depth (``stage``; on a card the
+    batches it copies are packed page-locked); ``loader_stats`` gathers
+    its counters. The state's tensors must not be rebound while
     fit runs (the graphs hold their addresses): restore a checkpoint
-    before calling it."""
+    before calling it (a ``monitor``'s rollback restores in place).
+
+    ``guard``, ``monitor``, ``preempt``: the module docstring's
+    resilience; with none of them (and no fault plan) nothing changes."""
     dense_m = dense_m or None
     device_resident = device_resident or scan_epochs
     pack_once = pack_once or device_resident
@@ -594,17 +691,28 @@ def fit(
 
         pack_fn = compact_pack_fn(compact)
         expand = make_expander(compact, device)
+    elif torch.device(device).type == "cuda" and not scan_epochs:
+        # batches copied to the card as the epochs run: packed page-locked,
+        # so the copies run asynchronously (data/loader.py)
+        pack_fn = functools.partial(pack_graphs, pin=True)
     train_step = make_train_step(expander=expand)
+    if guard:
+        train_step = guard_step(train_step)
     eval_step = make_eval_step(expander=expand)
 
     def train_batches(rng):
         if buckets > 1:
-            return bucketed_batch_iterator(
+            it = bucketed_batch_iterator(
                 train_graphs, batch_size, buckets, shuffle=True, rng=rng,
                 dense_m=dense_m, pack_fn=pack_fn)
-        return batch_iterator(train_graphs, batch_size, node_cap, edge_cap,
-                              shuffle=True, rng=rng, dense_m=dense_m,
-                              snug=True, pack_fn=pack_fn)
+        else:
+            it = batch_iterator(train_graphs, batch_size, node_cap, edge_cap,
+                                shuffle=True, rng=rng, dense_m=dense_m,
+                                snug=True, pack_fn=pack_fn)
+        # the fault plan's NaN batch and loader failure, before pack-once
+        # or device-resident staging takes the batches (unwrapped when no
+        # plan is active)
+        return faultinject.poison_batches(it)
 
     def val_batches():
         if buckets > 1:
@@ -633,7 +741,8 @@ def fit(
             t0 = time.perf_counter()
             driver = ScanEpochDriver(
                 train_step, eval_step, train_list, val_list, rng,
-                device=device, chunk_steps=chunk_steps, graphs=graphs)
+                device=device, chunk_steps=chunk_steps, graphs=graphs,
+                preempt=preempt)
             del train_list, val_list
             staging["stage_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -658,11 +767,19 @@ def fit(
                           graphs=graphs, log_fn=log_fn)
     best = np.inf
     history = []
+    preempted = False
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
+        truncated = False
         if driver is not None:
             state, train_m, val_m = driver.run_epoch_pair(
                 state, first=epoch == start_epoch)
+            settle_count(state, train_m)
+            if driver.aborted:
+                save_preempted_mid_epoch(state, epoch, on_epoch_end, log_fn)
+                preempted = True
+                break
+            truncated = driver.eval_truncated
         else:
             if plan is not None:
                 epoch_train, epoch_val = plan.epoch_iterators()
@@ -675,11 +792,14 @@ def fit(
             train_m = train_run.epoch(epoch_train, print_freq=print_freq,
                                       epoch=epoch, log_fn=log_fn)
             val_m = eval_run.epoch(epoch_val, epoch=epoch, log_fn=log_fn)
+            settle_count(state, train_m)
             if epoch == start_epoch:
                 train_run.cache.mark_warm()
                 eval_run.cache.mark_warm()
         metric = val_m.get("mae", np.nan)
-        is_best = metric < best
+        # a preemption that cut eval short leaves a partial score: it
+        # never repoints the best
+        is_best = metric < best and not truncated
         if is_best:
             best = metric
         history.append({"epoch": epoch, "train": train_m, "val": val_m,
@@ -687,14 +807,19 @@ def fit(
         log_fn(f"Epoch {epoch}: train loss {train_m.get('loss', np.nan):.4f}"
                f"  val mae {metric:.4f}{' *' if is_best else ''}"
                f"  ({time.perf_counter() - t0:.1f}s)")
-        if on_epoch_end is not None:
-            on_epoch_end(state, epoch, val_m, is_best)
+        state, _, preempted = resilience_epoch_end(
+            state, epoch, train_m, val_m, is_best, monitor=monitor,
+            on_epoch_end=on_epoch_end, preempt=preempt, log_fn=log_fn)
+        if preempted:
+            break
     caches = ([driver.train_graphs, driver.eval_graphs] if driver is not None
               else [train_run.cache, eval_run.cache])
     out = {"best": best, "history": history, "graphs": {
         "captures": sum(c.captures() for c in caches),
         "replays": sum(c.replays() for c in caches),
         "captures_after_warm": sum(c.captures_after_warm for c in caches)}}
+    if preempted:
+        out["preempted"] = True
     if staging:
         if driver is not None:
             staging["timings"] = dict(driver.timings)

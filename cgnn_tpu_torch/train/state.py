@@ -132,6 +132,7 @@ class Optimizer:
         self._lr_table = torch.tensor(self.schedule.table(), dtype=dtype,
                                       device=dev)
         self._count = 0
+        self.lr_scale = 1.0
         self.inner = OptimizerSlots(self.params, self.kind, dict(
             lr=lr, momentum=momentum, weight_decay=weight_decay))
 
@@ -155,6 +156,18 @@ class Optimizer:
         buffers and the device count (train/graphs.py snapshots them)."""
         return [self._count_t] + [t for p in self.params
                                   for t in self.inner.state[p].values()]
+
+    @torch.no_grad()
+    def scale_lr(self, factor: float) -> None:
+        """Multiply every rate of the schedule by ``factor`` (the
+        divergence guard's cut, resilience/guard.py): the device table is
+        rewritten in place, from the schedule's rates times the running
+        ``lr_scale``, so a captured graph keeps reading it and a run cut
+        twice by f holds the same table as one resumed at f * f."""
+        self.lr_scale *= float(factor)
+        self._lr_table.copy_(torch.tensor(
+            [v * self.lr_scale for v in self.schedule.table()],
+            dtype=self._lr_table.dtype))
 
     def lr(self) -> torch.Tensor:
         """The device rate of the next update: the schedule's table row

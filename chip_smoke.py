@@ -90,7 +90,8 @@ into ``build/kernels``), then:
    capacity rounded up to 128), and zeros out of window on shuffled
    indices. Path ``train_coo``: ``fit`` with ``aggregation='pallas'``,
    ``dense_m=0``, same split, batch 256, 2 epochs, kernel 6 launched
-   exactly n_conv x (train steps + eval batches) times; a 5-step
+   exactly n_conv x (3 x train steps + eval batches) times (a train
+   step's aggregation and its two endpoint gathers' backward); a 5-step
    trajectory through ``'pallas'`` and ``'xla'`` aggregation within rtol
    1e-3 / atol 1e-4; the weights saved. Path ``serve_coo``:
    ``load_server(wire='auto')`` on them (it must log featurized-only),
@@ -159,7 +160,38 @@ into ``build/kernels``), then:
    against the eager per-step loop in turns (driver, loop, loop, driver;
    device idle share by the profiler); every rung of every serving form
    (full, compact, raw; COO) replayed against the eager step under
-   deterministic algorithms.
+   deterministic algorithms;
+10. resilience — the divergence guard inside the replayed train graphs,
+   at full width with the kernel path, on the step_graphs phase's
+   MP-like split (1638 training structures, one bucket, 3 epochs) and
+   the train phase's: the guarded epoch driver (path ``guard_driver``)
+   bit-equal in every tensor to the unguarded one from the same weights,
+   no step skipped, no capture after warm-up, and both rates over epochs
+   2-3 in turns (off, on, on, off); the per-step loop with graphs on 5
+   fixed batches, the third NaN (``faultinject.poison_nan``): bit-equal
+   to a run that never saw it, the same skipped step as the plain path
+   (``guard_nan_loop``); ``nan_batch=1`` under the epoch driver, the staged
+   poisoned batch skipped once each epoch, host count equal to the
+   device count, kernel and plain path alike, dense (kernels 1, 2, 4, 5;
+   ``guard_nan_driver``) and COO (kernel 6; ``guard_nan_coo``); one NaN
+   in a node's features and one in an edge's, the targets finite, dense
+   and COO (``guard_nan_features``, ``guard_nan_features_coo``): an
+   unguarded step's loss and non-finite parameters equal the plain
+   path's (NaN), and the guarded per-step loop skips the same steps on
+   both paths, so a kernel that drops a NaN fails it; the
+   driver with a ``DivergenceMonitor`` (max skips 1, 2 rollbacks) rolling
+   back twice with the rate table cut in place to x0.25 and no capture
+   after warm-up (``guard_rollback``), the cut restored from a save's
+   meta into a fresh state, and one more epoch raising
+   ``DivergenceError``; a preemption request polled by the epoch driver that
+   stops epoch 1 after its first chunk, saved under epoch 0
+   (``preempt_driver``); the train entry point in a subprocess
+   (``--device-resident``, 640 structures, 120 epochs) SIGTERMed at its
+   first commit (exit 75), resumed under ``crash=after_write:1:exit``
+   (exit 137, the save before it still the newest), and resumed to its
+   last epoch; COO training (kernel 6) run twice from the same weights
+   and resumed from a checkpoint against the in-memory state, without
+   deterministic algorithms: bit-equal in every tensor.
 
 Launches on a path. A replayed graph launches its kernels without their
 wrappers, so each path's run (``PathRun``) is traced by the profiler,
@@ -421,9 +453,12 @@ def dense_per_step(n_conv: int, epilogue: bool = False) -> dict:
 
 def coo_per_step(n_conv: int) -> dict:
     """The COO layout with aggregation='pallas': kernel 6 a conv in
-    every step."""
+    every step's aggregation, and in a train step twice more a conv, in
+    the backward of the two endpoint gathers (ops/segment.py
+    ``gather_fixed_order``)."""
     one = {"segment_sum_sorted": n_conv}
-    return {kind: one for kind in ("train", "eval", "predict")}
+    return {"train": {"segment_sum_sorted": 3 * n_conv}, "eval": one,
+            "predict": one}
 
 
 def check_path(run, per_step: dict, logical: dict,
@@ -2198,14 +2233,21 @@ def graphs_bit_equal(got, want) -> bool:
 
 def loader_breakdown(dev, train_g, loader, steps=8):
     """The per-step training loop (kernel path, batch 256) fed through the
-    prefetch loader (``loader``) or with each batch packed and copied on
-    this thread: loop ms a step, the loader's wait a step, then the
+    prefetch loader (``loader``; batches packed page-locked, as ``fit``
+    packs them on a card) or with each batch packed pageable and copied
+    on this thread: loop ms a step, the loader's wait a step, then the
     device's busy time (profiler, copies included) and its idle share of
     the loop."""
+    import functools
+
     import numpy as np
     import torch
 
-    from cgnn_tpu_torch.data.graph import batch_iterator, count_batches
+    from cgnn_tpu_torch.data.graph import (
+        batch_iterator,
+        count_batches,
+        pack_graphs,
+    )
     from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
     from cgnn_tpu_torch.train.step import make_train_step
 
@@ -2216,9 +2258,11 @@ def loader_breakdown(dev, train_g, loader, steps=8):
 
     def host_batches():
         while True:
-            yield from batch_iterator(train_g, BATCH, node_cap, edge_cap,
-                                      shuffle=True, rng=rng, dense_m=M,
-                                      snug=True)
+            yield from batch_iterator(
+                train_g, BATCH, node_cap, edge_cap, shuffle=True, rng=rng,
+                dense_m=M, snug=True,
+                pack_fn=functools.partial(pack_graphs, pin=True) if loader
+                else None)
 
     stats = LoaderStats()
     staged = (prefetch_to_device(host_batches(), dev, size=2, stats=stats)
@@ -2988,7 +3032,7 @@ def step_graphs_phase(dev, work_dir, calibration, coo_weights, card):
     trajectory against the eager loop, the default compact 3-bucket
     driver against its eager twin and full staging, its training rate
     against the eager per-step loop in turns, and every serving form
-    replayed against eager. -> (summary, counts)."""
+    replayed against eager. -> (summary, counts, the MP-like split)."""
     from cgnn_tpu_torch.config import DataConfig
     from cgnn_tpu_torch.data.compact import CompactSpec
     from cgnn_tpu_torch.data.dataset import (
@@ -3012,6 +3056,597 @@ def step_graphs_phase(dev, work_dir, calibration, coo_weights, card):
     summary["rate_pairs"] = driver_rate_pairs(dev, split, spec)
     summary["serve_replays"] = serve_replays(dev, work_dir, calibration,
                                              coo_weights)
+    return summary, counts, split
+
+
+# the resilience phase: the divergence guard inside the replayed train
+# graphs, rollback with a cut rate, preemption and fault injection
+GUARD_EPOCHS = 3  # the guard's no-op and rate runs (rates over epochs 2-3)
+PREEMPT_EPOCHS = 120  # the preempted entry point's run: long enough that
+# the SIGTERM sent at its first commit lands mid-run
+
+
+class RequestAfterPolls:
+    """A preemption request that reads as set from its (n+1)-th poll on:
+    a signal landing while the n-th chunk runs (``arm`` sets n from the
+    polls so far)."""
+
+    def __init__(self, n=10**9):
+        self.polls, self.n = 0, n
+
+    def arm(self, more: int) -> None:
+        self.n = self.polls + more
+
+    @property
+    def requested(self):
+        self.polls += 1
+        return self.polls > self.n
+
+
+def fault_plan(spec):
+    """Install a fresh fault plan (its counters at 0); None clears it."""
+    from cgnn_tpu_torch.resilience import faultinject
+
+    faultinject.set_plan(None if spec is None
+                         else faultinject.FaultPlan.parse(spec))
+
+
+def device_count(state) -> int:
+    return int(state.optimizer.tensors()[0])
+
+
+def skips_by_epoch(history) -> list:
+    from cgnn_tpu_torch.resilience.guard import skipped_steps
+
+    return [skipped_steps(h["train"]) for h in history]
+
+
+def resilient_fit(dev, split, path=None, counts=None, model_kw=None,
+                  extra_train_runs=0, **kw):
+    """``fit`` at full width from a fresh seeded state (the kernel path
+    unless ``model_kw`` says otherwise), traced as path ``path`` when one
+    is named: each train and eval batch one run of its step graph (plus
+    ``extra_train_runs``, the steps of an epoch stopped mid-way) ->
+    (state, result, wall seconds)."""
+    import torch
+
+    from cgnn_tpu_torch.train.loop import fit
+
+    train_g, val_g, _ = split
+    model_kw = {"cgconv_impl": "pallas"} if model_kw is None else model_kw
+    cfg, state, node_cap, edge_cap = new_state(dev, train_g, **model_kw)
+    coo = cfg.dense_m == 0
+    args = dict(epochs=GUARD_EPOCHS, batch_size=BATCH,
+                dense_m=None if coo else M, device=dev, node_cap=node_cap,
+                edge_cap=edge_cap if coo else None, seed=SEED,
+                log_fn=lambda s: None) | kw
+    t0 = time.perf_counter()
+    if path is None:
+        state, res = fit(state, train_g, val_g, **args)
+    else:
+        with PathRun(path) as run:
+            state, res = fit(state, train_g, val_g, **args)
+        hist = res["history"]
+        counts[path] = check_path(
+            run, coo_per_step(cfg.n_conv) if coo
+            else dense_per_step(cfg.n_conv),
+            {"train": sum(h["train"]["steps"] for h in hist)
+             + extra_train_runs,
+             "eval": sum(h["val"]["steps"] for h in hist)})
+    torch.cuda.synchronize()
+    return state, res, time.perf_counter() - t0
+
+
+def guard_noop(dev, split, counts):
+    """The epoch driver (one bucket, 3 epochs) with the guard and without
+    it, from the same weights: every tensor bit-equal, no step skipped, no
+    capture after warm-up; the guarded run traced (path
+    ``guard_driver``); then untraced in turns off, on, on, off for the
+    rate over epochs 2-3."""
+    train_g = split[0]
+    runs = {}
+    for guard, path in ((True, "guard_driver"), (False, None),
+                        (True, None), (True, None), (False, None)):
+        state, res, wall = resilient_fit(dev, split, path, counts,
+                                         scan_epochs=True, guard=guard)
+        hist = res["history"]
+        check(res["graphs"]["captures_after_warm"] == 0
+              and (not guard or skips_by_epoch(hist) == [0] * len(hist))
+              and state.optimizer.count == device_count(state),
+              f"guard no-op (guard={guard}): graphs {res['graphs']}, skips "
+              f"{skips_by_epoch(hist)}, count {state.optimizer.count} vs "
+              f"{device_count(state)}")
+        key = "on" if guard else "off"
+        if key not in runs:
+            runs[key] = state_bits(state)
+        rate = steady_rate(hist, len(train_g))
+        runs.setdefault(f"{key}_structures_per_s", []).append(
+            {"traced": path is not None, "rate": rate})
+        print(f"guard no-op: guard {key}{' (traced)' if path else ''}: "
+              f"{rate!r} train structures/s over epochs 2-3")
+    equal, worst, where = bits_diff(runs.pop("on"), runs.pop("off"))
+    check(equal, f"guard no-op: the guarded driver's trajectory leaves the "
+                 f"unguarded one ({worst!r} at {where})")
+    return runs | {"bit_equal": equal}
+
+
+def guard_nan_loop(dev, train_g, counts, poisoned=2, k=5):
+    """The per-step loop with graphs (``StepRunner``, one graph for the
+    batches' shape) on k fixed batches with batch ``poisoned`` NaN: the
+    kernel path (traced, path ``guard_nan_loop``) bit-equal to a run that
+    never saw that batch, and its skipped steps those of the plain path;
+    the host count settled to the device count."""
+    from cgnn_tpu_torch.resilience import faultinject
+    from cgnn_tpu_torch.resilience.guard import guard_step
+    from cgnn_tpu_torch.train.loop import StepRunner, settle_count
+    from cgnn_tpu_torch.train.step import make_train_step
+
+    def run(model_kw, batches, path=None):
+        cfg, state, node_cap, _ = new_state(dev, train_g, **model_kw)
+        runner = StepRunner(guard_step(make_train_step()), state, dev,
+                            train=True)
+        flags = []
+
+        def steps():
+            for b in batches:
+                m = runner.epoch([b])
+                settle_count(state, m)
+                flags.append(round(m["guard_skipped"]))
+
+        if path is None:
+            steps()
+        else:
+            with PathRun(path) as prun:
+                steps()
+            counts[path] = check_path(prun, dense_per_step(cfg.n_conv),
+                                      {"train": len(batches)})
+        check(state.optimizer.count == device_count(state)
+              and runner.cache.captures() == int(dev.type == "cuda"),
+              f"guard_nan_loop: count {state.optimizer.count} vs "
+              f"{device_count(state)}, captures {runner.cache.captures()}")
+        return state_bits(state), flags
+
+    _, _, node_cap, _ = new_state(dev, train_g)
+    clean = fixed_batches(dev, train_g, node_cap, k)
+    dirty = [faultinject.poison_nan(b) if i == poisoned else b
+             for i, b in enumerate(clean)]
+    bits_k, flags_k = run({"cgconv_impl": "pallas"}, dirty, "guard_nan_loop")
+    bits_skip, _ = run({"cgconv_impl": "pallas"},
+                       [b for i, b in enumerate(clean) if i != poisoned])
+    _, flags_p = run({}, dirty)
+    want = [int(i == poisoned) for i in range(k)]
+    equal, worst, where = bits_diff(bits_k, bits_skip)
+    check(flags_k == flags_p == want and equal,
+          f"guard_nan_loop: skips kernel {flags_k} plain {flags_p} (want "
+          f"{want}); against the run without batch {poisoned}: bit-equal "
+          f"{equal} ({worst!r} at {where})")
+    return {"skips_kernel": flags_k, "skips_plain": flags_p,
+            "bit_equal_to_run_without_the_batch": equal}
+
+
+def poison_feature(batch, where):
+    """``batch`` with one NaN in the features of its first real node
+    (``where='node'``) or of its first real edge (``'edge'``); its
+    targets stay finite, so only a kernel that carries the NaN on makes
+    the loss non-finite."""
+    import torch
+
+    if where == "node":
+        nodes = batch.nodes.clone()
+        nodes[int(torch.nonzero(batch.node_mask)[0]), 0] = float("nan")
+        return dataclasses.replace(batch, nodes=nodes)
+    edges = batch.edges.clone()
+    slot = int(torch.nonzero(batch.edge_mask)[0])
+    edges.view(-1, edges.shape[-1])[slot, 0] = float("nan")
+    return dataclasses.replace(batch, edges=edges)
+
+
+def guard_nan_features(dev, train_g, counts, k=4):
+    """One NaN in a node's features (batch 1) and in an edge's (batch 2),
+    the targets finite, dense through kernels 1, 2, 4, 5 and COO through
+    kernel 6, each beside its plain path: a kernel that drops a NaN gives
+    a finite loss where the plain path's is NaN. On each poisoned batch,
+    one unguarded eager train step from fresh weights: its loss and the
+    non-finite elements of each updated parameter equal the plain path's
+    (NaN loss on both). Then the guarded per-step loop with graphs over
+    the k batches (the kernel path traced, paths ``guard_nan_features``
+    and ``guard_nan_features_coo``): the same steps skipped on both
+    paths, and only the poisoned ones."""
+    import math
+
+    import torch
+
+    from cgnn_tpu_torch.resilience.guard import guard_step
+    from cgnn_tpu_torch.train.loop import StepRunner, settle_count
+    from cgnn_tpu_torch.train.step import make_train_step
+
+    out = {}
+    for label, path, kernel_kw, plain_kw in (
+            ("dense", "guard_nan_features", {"cgconv_impl": "pallas"}, {}),
+            ("coo", "guard_nan_features_coo",
+             {"dense_m": 0, "aggregation": COO_AGG},
+             {"dense_m": 0, "aggregation": "xla"})):
+        cfg, _, node_cap, edge_cap = new_state(dev, train_g, **kernel_kw)
+        clean = fixed_batches(dev, train_g, node_cap, k, edge_cap=edge_cap,
+                              dense_m=cfg.dense_m or None)
+        batches = list(clean)
+        batches[1] = poison_feature(clean[1], "node")
+        batches[2] = poison_feature(clean[2], "edge")
+        per_step = (coo_per_step(cfg.n_conv) if cfg.dense_m == 0
+                    else dense_per_step(cfg.n_conv))
+        res = {}
+        for impl, kw in (("kernel", kernel_kw), ("plain", plain_kw)):
+            unguarded = []
+            for i in (1, 2):
+                _, state, _, _ = new_state(dev, train_g, **kw)
+                loss = float(make_train_step()(state, batches[i])[
+                    "loss_sum"])
+                unguarded.append({
+                    "loss_finite": math.isfinite(loss),
+                    "nonfinite_params": {
+                        n: int((~torch.isfinite(p)).sum())
+                        for n, p in state.model.named_parameters()}})
+            _, state, _, _ = new_state(dev, train_g, **kw)
+            runner = StepRunner(guard_step(make_train_step()), state, dev,
+                                train=True)
+            flags = []
+
+            def steps():
+                for b in batches:
+                    m = runner.epoch([b])
+                    settle_count(state, m)
+                    flags.append(round(m["guard_skipped"]))
+
+            if impl == "kernel":
+                with PathRun(path) as prun:
+                    steps()
+                counts[path] = check_path(prun, per_step, {"train": k})
+            else:
+                steps()
+            check(state.optimizer.count == device_count(state) == k - 2,
+                  f"guard_nan_features {label} {impl}: count "
+                  f"{state.optimizer.count} vs {device_count(state)} (want "
+                  f"{k - 2})")
+            res[impl] = {"unguarded": unguarded, "skips": flags}
+        want = [int(i in (1, 2)) for i in range(k)]
+        check(res["kernel"]["unguarded"] == res["plain"]["unguarded"]
+              and not any(u["loss_finite"]
+                          for u in res["plain"]["unguarded"])
+              and res["kernel"]["skips"] == res["plain"]["skips"] == want,
+              f"guard_nan_features {label}: kernel {res['kernel']} plain "
+              f"{res['plain']} (want NaN losses, the same non-finite "
+              f"parameters and skips {want} on both paths)")
+        out[label] = {impl: {"skips": r["skips"],
+                             "loss_finite": [u["loss_finite"]
+                                             for u in r["unguarded"]]}
+                      for impl, r in res.items()}
+    print(f"guard_nan_features: {json.dumps(out, allow_nan=False)}")
+    return out
+
+
+def guard_nan_driver(dev, split, counts):
+    """``nan_batch=1`` under the epoch driver: the staged poisoned batch is
+    skipped once every epoch, losses finite, host count equal to the
+    device count, no capture after warm-up; dense with kernels 1, 2, 4, 5
+    (path ``guard_nan_driver``) and COO with kernel 6
+    (``guard_nan_coo``), each beside its plain path's skips."""
+    import math
+
+    out = {}
+    for label, path, kernel_kw, plain_kw in (
+            ("dense", "guard_nan_driver", {"cgconv_impl": "pallas"}, {}),
+            ("coo", "guard_nan_coo", {"dense_m": 0, "aggregation": COO_AGG},
+             {"dense_m": 0, "aggregation": "xla"})):
+        skips = {}
+        for impl, kw, traced in (("kernel", kernel_kw, True),
+                                 ("plain", plain_kw, False)):
+            fault_plan("nan_batch=1")
+            try:
+                state, res, _ = resilient_fit(
+                    dev, split, path if traced else None, counts,
+                    model_kw=kw, scan_epochs=True, guard=True)
+            finally:
+                fault_plan(None)
+            hist = res["history"]
+            skips[impl] = skips_by_epoch(hist)
+            check(all(math.isfinite(h["train"]["loss"]) for h in hist)
+                  and state.optimizer.count == device_count(state)
+                  and res["graphs"]["captures_after_warm"] == 0,
+                  f"guard_nan_driver {label} {impl}: losses "
+                  f"{[h['train']['loss'] for h in hist]}, count "
+                  f"{state.optimizer.count} vs {device_count(state)}, "
+                  f"graphs {res['graphs']}")
+        want = [1] * GUARD_EPOCHS
+        check(skips["kernel"] == skips["plain"] == want,
+              f"guard_nan_driver {label}: skips by epoch {skips} (want "
+              f"{want} on both paths)")
+        out[label] = skips
+    return out
+
+
+def guard_rollback(dev, split, work_dir, counts):
+    """--guard rollback with --guard-max-skips 1 under the epoch driver, the
+    poisoned batch staged (it recurs every epoch): epoch 0 has no
+    checkpoint to go back to and is saved; epochs 1 and 2 roll back to it,
+    each cutting the rate by 0.5 in place (the table keeps its address, no
+    capture after warm-up; path ``guard_rollback``). Every save's meta
+    carries the monitor's progress; a run resumed from a save made after
+    the rollbacks reapplies the cut; one more epoch spends the budget
+    (``DivergenceError``)."""
+    import shutil
+
+    import torch
+
+    from cgnn_tpu_torch.resilience.guard import (
+        DivergenceError,
+        DivergenceMonitor,
+    )
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from cgnn_tpu_torch.train.loop import fit
+
+    train_g, val_g, _ = split
+    ck = os.path.join(work_dir, "rollback_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    ckpt = CheckpointManager(ck, log_fn=lambda s: None)
+    metas, tables = [], []
+    mon = DivergenceMonitor(ckpt, max_skips=1, lr_cut=0.5, max_rollbacks=2,
+                            log_fn=lambda s: print(f"guard_rollback: {s}"))
+
+    def save(s, epoch, val_m, is_best):
+        tables.append(s.optimizer._lr_table.data_ptr())
+        metas.append({"epoch": epoch, **mon.meta()})
+        ckpt.save(s, metas[-1], is_best=is_best)
+
+    def cut_table(opt, scale):
+        return torch.tensor([v * scale for v in opt.schedule.table()],
+                            dtype=opt._lr_table.dtype)
+
+    try:
+        fault_plan("nan_batch=1")
+        state, res, _ = resilient_fit(dev, split, "guard_rollback", counts,
+                                      scan_epochs=True, guard=True,
+                                      monitor=mon, on_epoch_end=save)
+        opt = state.optimizer
+        check(mon.rollbacks == 2 and opt.lr_scale == 0.25
+              and opt._lr_table.data_ptr() == tables[0]
+              and torch.equal(opt._lr_table.cpu(), cut_table(opt, 0.25))
+              and res["graphs"]["captures_after_warm"] == 0
+              and metas == [{"epoch": 0, "guard_lr_scale": 1.0,
+                             "guard_rollbacks": 0}]
+              and skips_by_epoch(res["history"]) == [1] * GUARD_EPOCHS,
+              f"guard_rollback: rollbacks {mon.rollbacks}, lr scale "
+              f"{opt.lr_scale}, table {opt._lr_table.tolist()}, graphs "
+              f"{res['graphs']}, metas {metas}")
+        graphs = res["graphs"]
+        # a save after the rollbacks (what the next good epoch writes),
+        # then a resumed run: the cut comes back from the meta
+        save(state, GUARD_EPOCHS - 1, {}, False)
+        ckpt.wait()
+        _, fresh, node_cap, _ = new_state(dev, train_g, cgconv_impl="pallas")
+        table = fresh.optimizer._lr_table.data_ptr()
+        _, meta = ckpt.restore(fresh)
+        mon2 = DivergenceMonitor(ckpt, max_skips=1, lr_cut=0.5,
+                                 max_rollbacks=2, log_fn=lambda s: None)
+        mon2.resume_from_meta(fresh, meta)
+        check(meta["guard_lr_scale"] == 0.25 and meta["guard_rollbacks"] == 2
+              and fresh.optimizer.lr_scale == 0.25 and mon2.rollbacks == 2
+              and fresh.optimizer._lr_table.data_ptr() == table
+              and torch.equal(fresh.optimizer._lr_table.cpu(),
+                              cut_table(fresh.optimizer, 0.25)),
+              f"guard_rollback resume: meta {meta}, lr scale "
+              f"{fresh.optimizer.lr_scale}")
+        fault_plan("nan_batch=1")
+        spent = False
+        try:
+            fit(fresh, train_g, val_g, epochs=GUARD_EPOCHS + 1,
+                start_epoch=GUARD_EPOCHS, batch_size=BATCH, dense_m=M,
+                device=dev, node_cap=node_cap, seed=SEED,
+                log_fn=lambda s: None, scan_epochs=True, guard=True,
+                monitor=mon2)
+        except DivergenceError as e:
+            spent = "2 rollbacks already spent" in str(e)
+        check(spent, "guard_rollback: the spent budget did not raise "
+                     "DivergenceError")
+    finally:
+        fault_plan(None)
+        ckpt.close()
+    out = {"rollbacks": mon.rollbacks, "lr_scale": opt.lr_scale,
+           "metas": metas, "graphs": graphs, "resumed_meta": {
+               k: meta[k] for k in ("epoch", "guard_lr_scale",
+                                    "guard_rollbacks")},
+           "budget_spent_raises": spent}
+    print(f"guard_rollback: {json.dumps(out, allow_nan=False)}")
+    return out
+
+
+def preempt_in_process(dev, split, work_dir, counts):
+    """A preemption request polled by the epoch driver (7 train steps an
+    epoch, chunks of 2): armed at epoch 0's save, it turns true at epoch
+    1's second chunk boundary, so epoch 1 stops after 2 steps, its eval
+    skipped; fit saves the current weights under epoch 0 and returns
+    ``preempted`` (path ``preempt_driver``); the host count equals the
+    device count, 2 past epoch 0's."""
+    import shutil
+
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    ck = os.path.join(work_dir, "preempt_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    ckpt = CheckpointManager(ck, log_fn=lambda s: None)
+    pre = RequestAfterPolls()
+    saved = []
+
+    def save(s, epoch, val_m, is_best):
+        saved.append(epoch)
+        ckpt.save(s, {"epoch": epoch}, is_best=is_best)
+        if epoch == 0:  # the epoch-end poll, then epoch 1's first chunk
+            pre.arm(2)
+
+    try:
+        # the stopped epoch's train steps: one chunk of chunk_steps (2)
+        state, res, _ = resilient_fit(
+            dev, split, "preempt_driver", counts, extra_train_runs=2,
+            scan_epochs=True, guard=True, preempt=pre, on_epoch_end=save)
+        ckpt.wait()
+        meta = ckpt.read_meta()
+    finally:
+        ckpt.close()
+    hist = res["history"]
+    first = hist[0]["train"]["steps"] if hist else None
+    check(res.get("preempted") is True and [h["epoch"] for h in hist] == [0]
+          and saved == [0, 0] and meta["epoch"] == 0
+          and state.optimizer.count == device_count(state) == first + 2,
+          f"preempt_driver: result {res.get('preempted')}, epochs "
+          f"{[h['epoch'] for h in hist]}, saves {saved}, meta {meta}, count "
+          f"{state.optimizer.count} vs {device_count(state)}")
+    return {"stopped_epoch": 1, "steps_run_in_it": 2, "saved_epochs": saved,
+            "count": state.optimizer.count}
+
+
+def preempt_entry_point(dev, work_dir, extra_argv=()):
+    """The train entry point in a subprocess as a user runs it
+    (--device-resident, --synthetic 640, batch 256, the kernel path):
+    SIGTERM at its first commit -> exit 75 with a resumable save; then
+    --resume auto with ``crash=after_write:1:exit`` dies with 137 at its
+    first save, and the save before it still restores; then --resume auto
+    completes the run to its last epoch."""
+    import glob
+    import shutil
+    import signal
+
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ck = os.path.join(work_dir, "preempt_entry_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = [sys.executable, "-m", "cgnn_tpu_torch.train", "--synthetic",
+            str(N_TRAIN_SET), "--device-resident", "-b", str(BATCH),
+            "--epochs", str(PREEMPT_EPOCHS), "--cgconv-impl", "pallas",
+            "--print-freq", "0", "--seed", str(SEED), "--ckpt-dir", ck,
+            "--out-dir", os.path.join(work_dir, "preempt_entry_out"),
+            *extra_argv]
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("CGNN_TPU_FAULTS", None)
+
+    def finish(proc, label):
+        out, err = proc.communicate(timeout=600)
+        for line in out.splitlines()[-6:]:
+            print(f"{label}: {line}")
+        return proc.returncode, out, err
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 600
+        while not glob.glob(os.path.join(ck, "ckpt-*", "MANIFEST.json")):
+            check(proc.poll() is None and time.time() < deadline,
+                  f"preempt_entry: no commit (exit {proc.poll()})")
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGTERM)
+        rc, out, err = finish(proc, "preempt_entry")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    mgr = CheckpointManager(ck)
+    try:
+        preempted_at = mgr.read_meta()["epoch"]
+    finally:
+        mgr.close()
+    check(rc == 75 and "preempted: resumable checkpoint saved" in out
+          and preempted_at < PREEMPT_EPOCHS - 1,
+          f"preempt_entry: exit {rc} (want 75), saved epoch {preempted_at}; "
+          f"{err[-1500:]}")
+    crash = subprocess.run(argv + ["--resume", "auto"], cwd=root,
+                           env=dict(env, CGNN_TPU_FAULTS=
+                                    "crash=after_write:1:exit"),
+                           capture_output=True, text=True, timeout=600)
+    mgr = CheckpointManager(ck)
+    try:
+        survivor = mgr.read_meta()["epoch"]
+    finally:
+        mgr.close()
+    check(crash.returncode == 137 and "FAULT INJECTION ACTIVE" in crash.stderr
+          and survivor == preempted_at,
+          f"preempt_entry crash: exit {crash.returncode} (want 137), newest "
+          f"save epoch {survivor} (want {preempted_at}); "
+          f"{crash.stderr[-1500:]}")
+    resume = subprocess.Popen(argv + ["--resume", "auto"], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+    rc2, out2, err2 = finish(resume, "preempt_entry_resume")
+    check(rc2 == 0 and f"at epoch {preempted_at + 1}" in out2
+          and f"Epoch {PREEMPT_EPOCHS - 1}:" in out2,
+          f"preempt_entry resume: exit {rc2}; {err2[-1500:]}")
+    return {"preempted_after_epoch": preempted_at, "exit": rc,
+            "crash_exit": crash.returncode, "resume_exit": rc2,
+            "wall_s": time.perf_counter() - t0}
+
+
+def coo_repeats(dev, split, work_dir):
+    """COO training (kernel 6, the epoch driver) run twice from the same
+    weights, and resumed from a checkpoint against the in-memory state,
+    without deterministic algorithms: bit-equal in every tensor (else it
+    fails with the largest difference and where it is)."""
+    import shutil
+
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from cgnn_tpu_torch.train.loop import fit
+
+    train_g, val_g, _ = split
+    coo = {"dense_m": 0, "aggregation": COO_AGG}
+
+    def run(state, node_cap, edge_cap, epochs, start=0):
+        return fit(state, train_g, val_g, epochs=epochs, start_epoch=start,
+                   batch_size=BATCH, dense_m=None, device=dev,
+                   node_cap=node_cap, edge_cap=edge_cap, seed=SEED,
+                   log_fn=lambda s: None, scan_epochs=True)[0]
+
+    twice = []
+    for _ in range(2):
+        _, state, nc, ec = new_state(dev, train_g, **coo)
+        twice.append(state_bits(run(state, nc, ec, 2)))
+    rep_equal, rep_worst, rep_where = bits_diff(*twice)
+    ck = os.path.join(work_dir, "coo_resume_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    ckpt = CheckpointManager(ck, log_fn=lambda s: None)
+    try:
+        _, state, nc, ec = new_state(dev, train_g, **coo)
+        state = run(state, nc, ec, 1)
+        ckpt.save(state, {"epoch": 0})
+        _, restored, _, _ = new_state(dev, train_g, **coo)
+        ckpt.restore(restored)
+    finally:
+        ckpt.close()
+    resumed = state_bits(run(restored, nc, ec, 2, start=1))
+    in_memory = state_bits(run(state, nc, ec, 2, start=1))
+    res_equal, res_worst, res_where = bits_diff(resumed, in_memory)
+    check(rep_equal and res_equal,
+          f"coo_repeats: run twice bit-equal {rep_equal} ({rep_worst!r} at "
+          f"{rep_where}), resumed bit-equal {res_equal} ({res_worst!r} at "
+          f"{res_where})")
+    out = {"repeat_bit_equal": rep_equal, "repeat_max_diff": rep_worst,
+           "repeat_worst": rep_where, "resume_bit_equal": res_equal,
+           "resume_max_diff": res_worst, "resume_worst": res_where}
+    print(f"coo_repeats: {json.dumps(out, allow_nan=False)}")
+    return out
+
+
+def resilience_phase(dev, work_dir, split, mp_split):
+    """The resilience phase (module docstring) -> (summary, counts)."""
+    counts = {}
+    t0 = time.perf_counter()
+    summary = {"noop": guard_noop(dev, mp_split, counts)}
+    summary["nan_loop"] = guard_nan_loop(dev, split[0], counts)
+    summary["nan_driver"] = guard_nan_driver(dev, split, counts)
+    summary["nan_features"] = guard_nan_features(dev, split[0], counts)
+    summary["rollback"] = guard_rollback(dev, split, work_dir, counts)
+    summary["preempt_driver"] = preempt_in_process(dev, mp_split, work_dir,
+                                                   counts)
+    summary["preempt_entry"] = preempt_entry_point(dev, work_dir)
+    summary["coo_repeats"] = coo_repeats(dev, split, work_dir)
+    summary["wall_s"] = time.perf_counter() - t0
     return summary, counts
 
 
@@ -3062,6 +3697,8 @@ def main() -> int:
                                  0.8, 0.1, seed=SEED)
     print(f"featurized {N_TRAIN_SET} training structures in "
           f"{time.perf_counter() - t0!r} s")
+    work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke")
     kernels = [kernel_phase(dev, calibration, shape_set)]
     train_entries, kernels[0]["train_shape"] = train_kernel_phase(
         dev, split[0])
@@ -3070,8 +3707,6 @@ def main() -> int:
         dev, calibration, shape_set)
     kernels.append(search_entry)
     kernels += coo_kernel_phase(dev, split[0], calibration)
-    work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "build", "chip_smoke")
     summary, breakdown, raw_breakdown, by_path = serve_phase(
         dev, calibration, work_dir)
     train_summary, train_counts, node_cap = train_phase(dev, split, work_dir)
@@ -3088,9 +3723,11 @@ def main() -> int:
     ckpt_summary, ckpt_counts = checkpoint_predict_phase(dev, work_dir, card)
     cif_summary, cif_counts, cif_breakdowns = cif_pipeline_phase(
         dev, work_dir, card, calibration)
-    graphs_summary, graphs_counts = step_graphs_phase(
+    graphs_summary, graphs_counts, mp_split = step_graphs_phase(
         dev, work_dir, calibration, coo_weights, card)
-    by_path.update(**graphs_counts)
+    res_summary, res_counts = resilience_phase(dev, work_dir, split,
+                                               mp_split)
+    by_path.update(**graphs_counts, **res_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -3126,6 +3763,7 @@ def main() -> int:
     print(json.dumps(cif_breakdowns, allow_nan=False))
     print(json.dumps({"cif_pipeline": cif_summary}, allow_nan=False))
     print(json.dumps({"step_graphs": graphs_summary}, allow_nan=False))
+    print(json.dumps({"resilience": res_summary}, allow_nan=False))
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card)

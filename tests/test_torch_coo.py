@@ -90,6 +90,8 @@ def _t(a, dtype=None):
 def _assert_batches_equal(tb, jb):
     got = tb.numpy()
     for name, a in got.items():
+        if name in tgraph.PORT_FIELDS:  # held by the transpose test
+            continue
         want = getattr(jb, name)
         if a is None:
             assert want is None, name
@@ -162,6 +164,38 @@ def test_coo_capacities_and_batch_iterator_match_jax():
     edges = sum(graphs[i].num_edges for i in order[:first + 1])
     nodes = sum(graphs[i].num_nodes for i in order[:first + 1])
     assert edges > ec and nodes <= nc  # the edge budget closed batch 0
+
+
+def test_coo_training_batches_carry_the_transpose():
+    """A COO training batch (``batch_iterator`` without ``in_cap=0``)
+    carries its gathers' transpose: the edge slots in stable neighbor
+    order and each node's first position in it and in the centers, as
+    the CSR lists of ``np.argsort`` and ``np.searchsorted``; an eval batch
+    (``in_cap=0``) and a plain pack carry none, and the dense layout
+    refuses it."""
+    graphs = [_port(g) for g in _graphs(40, seed=5)]
+    nc, ec = tgraph.capacities_for(graphs, 12)
+    train = list(tgraph.batch_iterator(graphs, 12, nc, ec, snug=True))
+    rows = np.arange(nc + 1)
+    for b in train:
+        nbr, cen = b.neighbors.numpy(), b.centers.numpy()
+        order = np.argsort(nbr, kind="stable")
+        assert b.nbr_order.dtype == b.nbr_offsets.dtype == \
+            b.center_offsets.dtype == torch.int32
+        np.testing.assert_array_equal(b.nbr_order.numpy(), order)
+        np.testing.assert_array_equal(b.nbr_offsets.numpy(),
+                                      np.searchsorted(nbr[order], rows))
+        np.testing.assert_array_equal(b.center_offsets.numpy(),
+                                      np.searchsorted(cen, rows))
+    evals = list(tgraph.batch_iterator(graphs, 12, nc, ec, snug=True,
+                                       in_cap=0))
+    assert len(evals) == len(train) >= 2
+    plain = tgraph.pack_graphs(graphs[:4], nc, ec, 12)
+    for b in (*evals, plain):
+        assert b.nbr_order is b.nbr_offsets is b.center_offsets is None
+    with pytest.raises(ValueError, match="COO layout"):
+        tgraph.pack_graphs(graphs[:4], nc, nc * M, 12, dense_m=M,
+                           coo_transpose=True)
 
 
 def test_coo_plan_shape_set_matches_jax():

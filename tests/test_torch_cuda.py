@@ -3,9 +3,11 @@ PyTorch version at shapes and inputs the CPU tests cannot reach (ragged
 widths, G > F, rows that are all padding, NaN in masked slots), the
 fixed-order reductions (kernels 2 and 4) bit-identical from run to run,
 kernels 1 and 2 on a shared node pass, the training op's kernel path
-against its structured twin, a checkpoint of a card-resident state, and
-bulk raw inference's launches of kernel 8. Marked ``cuda``; they skip where there is no card. On a GPU machine, from the
-repository root:
+against its structured twin, a checkpoint of a card-resident state,
+bulk raw inference's launches of kernel 8, the divergence guard inside
+a replayed train graph and the COO gathers' fixed-order backward.
+Marked ``cuda``; they skip where there is no card. On a GPU machine,
+from the repository root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -1075,3 +1077,132 @@ def test_server_captures_nothing_after_warm_over_a_mixed_burst(dev,
     st = server.stats()["counts"]
     assert st["captures_after_warm"] == 0 and st["batch_failures"] == 0
     assert st["graph_replays"] == st["batches"] + 9 > 9
+
+
+# ---------------------------------------------------------------------------
+# the divergence guard inside a replayed graph; COO's fixed-order gather
+# ---------------------------------------------------------------------------
+
+
+def test_guarded_train_graph_skips_a_nan_batch_in_replay(dev):
+    """A guarded train StepGraph replayed over four batches, the second
+    NaN (``faultinject.poison_nan``), against the same guarded steps run
+    eagerly on the three clean ones, under deterministic algorithms:
+    every tensor bit-equal, the device count 3 and the host count
+    settled to it, one capture, the skip reported only for the NaN
+    batch."""
+    from cgnn_tpu_torch.data.graph import batch_iterator
+    from cgnn_tpu_torch.resilience.faultinject import poison_nan
+    from cgnn_tpu_torch.resilience.guard import guard_step
+    from cgnn_tpu_torch.train.graphs import StepGraph, state_guard
+    from cgnn_tpu_torch.train.loop import settle_count
+    from cgnn_tpu_torch.train.metrics import (
+        DeviceSums,
+        fetch_device_sums,
+        means_from_sums,
+    )
+    from cgnn_tpu_torch.train.step import make_train_step
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, graphs, nc, ec = _card_state(dev)
+        replayed = _card_state(dev)[0]
+        clean = [b.to(dev) for b in batch_iterator(graphs, 16, nc, ec,
+                                                   dense_m=12, snug=True)]
+        clean = (clean * 3)[:3]
+        step = guard_step(make_train_step())
+        for b in clean:
+            step(eager, b)
+        sums = DeviceSums()
+        g = StepGraph(lambda b: sums.add(step(replayed, b)), clean[0],
+                      device=dev, kind="train",
+                      guard=state_guard(replayed, sums=[sums]),
+                      on_replay=lambda: replayed.optimizer.advance(1))
+        skips = []
+        for b in [clean[0], poison_nan(clean[1]), clean[1], clean[2]]:
+            sums.zero()
+            g.run(b)
+            m = means_from_sums(fetch_device_sums(sums.sums), 1)
+            settle_count(replayed, m)
+            skips.append(round(m["guard_skipped"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert skips == [0, 1, 0, 0] and g.graph is not None
+    assert int(replayed.optimizer._count_t) == replayed.optimizer.count \
+        == eager.optimizer.count == 3
+    diffs = _diffs(_state_tensors(replayed), _state_tensors(eager))
+    assert not diffs, diffs
+
+
+def test_coo_gather_backward_is_fixed_order_on_the_card(dev):
+    """``gather_fixed_order``'s backward through kernel 6 ('pallas') and
+    through ``segment_reduce`` ('xla') on a packed COO batch's neighbors
+    and centers: each bit-equal run to run, within TOL of the other and
+    of ``index_select``'s ``index_add_`` gradient."""
+    from cgnn_tpu_torch.data.graph import csr_transpose
+    from cgnn_tpu_torch.ops.segment import gather_fixed_order
+
+    _, centers, n = _coo_batch_messages()
+    centers = centers.astype(np.int32)
+    rng = np.random.default_rng(3)
+    e = centers.size
+    neighbors = rng.integers(0, n, e).astype(np.int32)
+    orders = {}
+    for name, idx, sorted_ in (("centers", centers, True),
+                               ("neighbors", neighbors, False)):
+        order, offsets = csr_transpose(idx, n, sorted_)
+        orders[name] = (None if order is None
+                        else torch.from_numpy(order).to(dev),
+                        torch.from_numpy(offsets).to(dev))
+    centers = torch.from_numpy(centers).to(dev)
+    neighbors = torch.from_numpy(neighbors).to(dev)
+    values = torch.from_numpy(rng.standard_normal((n, 64)).astype(
+        np.float32)).to(dev)
+    ct = torch.from_numpy(rng.standard_normal((e, 64)).astype(
+        np.float32)).to(dev)
+
+    def grad(idx, name, impl):
+        x = values.clone().requires_grad_()
+        out = gather_fixed_order(x, idx, *orders[name], impl)
+        (out * ct).sum().backward()
+        return x.grad
+
+    for idx, name in ((centers, "centers"), (neighbors, "neighbors")):
+        y = values.clone().requires_grad_()
+        (y.index_select(0, idx) * ct).sum().backward()
+        for impl in ("pallas", "xla"):
+            first = grad(idx, name, impl)
+            assert torch.equal(grad(idx, name, impl), first), impl
+            torch.testing.assert_close(first, y.grad, **TOL)
+
+
+@pytest.mark.parametrize("layout", ["dense", "coo"])
+def test_pinned_pack_is_page_locked_and_bit_equal(dev, layout):
+    """``pack_graphs(pin=True)``, what the prefetch loader copies from on
+    a card: every tensor page-locked and bit-equal to the pageable pack,
+    on the host and after an asynchronous copy to the card."""
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic_mp
+    from cgnn_tpu_torch.data.graph import (
+        capacities_for,
+        overflow_cap,
+        pack_graphs,
+    )
+
+    graphs = load_synthetic_mp(64, DataConfig().featurize_config(), seed=4)
+    dense_m = 12 if layout == "dense" else None
+    nc, ec = capacities_for(graphs, 64, dense_m=dense_m)
+    kw = ({"over_cap": overflow_cap(graphs, 72, 12)} if dense_m
+          else {"coo_transpose": True})
+    want = pack_graphs(graphs, nc, ec, 72, dense_m=dense_m, **kw)
+    got = pack_graphs(graphs, nc, ec, 72, dense_m=dense_m, pin=True, **kw)
+    staged = got.to(dev, non_blocking=True)
+    torch.cuda.synchronize(dev)
+    for name, w in want.numpy().items():
+        g = getattr(got, name)
+        assert (w is None) == (g is None), name
+        if w is not None:
+            assert g.is_pinned(), name
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+            np.testing.assert_array_equal(
+                getattr(staged, name).cpu().numpy(), w, err_msg=name)

@@ -146,6 +146,9 @@ def test_pack_graphs_dense_bit_equal(n_graphs):
     got = tgraph.pack_graphs([_port_graph(g) for g in jg], nc, nc * m,
                              n_graphs + 3, dense_m=m).numpy()
     for field, a in got.items():
+        if field in tgraph.PORT_FIELDS:  # the COO transpose: None here
+            assert a is None, field
+            continue
         b = getattr(want, field)
         if a is None:
             assert b is None, field
@@ -205,6 +208,9 @@ def test_pack_graphs_refuses_unported_layouts():
 def _assert_batches_equal(got, want):
     got = got.numpy()
     for field, a in got.items():
+        if field in tgraph.PORT_FIELDS:  # the COO transpose: None here
+            assert a is None, field
+            continue
         b = getattr(want, field)
         if a is None:
             assert b is None, field

@@ -68,6 +68,8 @@ def test_importing_every_port_module_loads_no_jax():
                 "ops.windowed_gather", "train.state", "train.step",
                 "train.loop", "train.__main__", "train.checkpoint",
                 "train.metrics", "train.infer", "resilience.integrity",
+                "resilience.guard", "resilience.preempt",
+                "resilience.faultinject",
                 "predict", "data.cif", "data.cache", "data.preprocess",
                 "data.compact", "data.pipeline", "data.loader"):
         assert f"cgnn_tpu_torch.{mod}" in res["imported"], mod
