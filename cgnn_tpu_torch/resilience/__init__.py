@@ -13,7 +13,9 @@
   with a cut rate after too many skipped steps;
 - ``faultinject``: deterministic, environment-gated faults for the
   layers above (NaN batches, loader failures, a SIGTERM at an epoch's
-  end, crashes at the checkpoint finalizer's points, corrupted saves).
+  end, crashes at the checkpoint finalizer's points, corrupted saves)
+  and for the server (failed, wedged and slow dispatches, dropped
+  connections, boot crashes, a preemption mid-load).
 
-Not ported: the serving and fleet fault hooks (ROADMAP Queue 1, items 11
-and 12) and the data-parallel guard (item 9)."""
+Not ported: the continual trainer's ``label_noise`` hook (ROADMAP Queue
+1, item 12) and the data-parallel guard (item 9)."""

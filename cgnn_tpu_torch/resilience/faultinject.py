@@ -20,12 +20,26 @@ at exact, countable points:
 - ``loader_exc=N``: raise ``InjectedLoaderError`` in place of the N-th
   training batch.
 
-The serving and fleet keys (``dispatch_exc``, ``wedge_flush``,
-``slow_dispatch``, ``drop_conn``, ``boot_crash``, ``wedge_warm``,
-``exit75_at``) and the continual trainer's ``label_noise`` parse and
-describe as in the JAX package; their hooks are not ported (ROADMAP
-Queue 1, items 11 and 12), and ``unported_keys`` names the ones a plan
-sets, so the train entry point says so instead of ignoring them.
+The serving keys, counted over the serving worker's flush dispatches
+and the HTTP front door (``python -m cgnn_tpu_torch.serve``):
+
+- ``dispatch_exc=N[:COUNT]``: raise ``InjectedDispatchError`` at the
+  N-th (0-based) flush dispatch, or at each of ``[N, N+COUNT)``: that
+  flush fails alone, its clients get a 500;
+- ``wedge_flush=N[:SECS]``: stall the N-th dispatch SECS seconds
+  (default 600), the case the bounded ``--drain-timeout`` exit 3 is for;
+- ``slow_dispatch=MS[:EVERY]``: add MS ms to every EVERY-th dispatch;
+- ``drop_conn=N``: close every N-th ``/predict`` connection unanswered;
+- ``boot_crash=N``: ``os._exit(7)`` between the listener's bind and
+  ``warm()`` for the first N boots (counted across processes in the file
+  ``CGNN_TPU_FAULT_STATE`` names; without it every boot crashes);
+  ``wedge_warm[=SECS]``: hang there instead;
+- ``exit75_at=N``: SIGTERM this process at the N-th dispatch; after the
+  drain the entry point exits 75.
+
+The continual trainer's ``label_noise`` parses and describes as in the
+JAX package; its hook is not ported (ROADMAP Queue 1, item 12), and
+``unported_keys`` names it when a plan sets it.
 
 Without a plan every hook is a cheap no-op: ``plan()`` is None and
 iterators are returned unwrapped. ``corrupt_checkpoint`` damages a
@@ -38,11 +52,18 @@ from __future__ import annotations
 import dataclasses
 import os
 import signal
+import threading
+import time
 from typing import Iterable, Iterator
 
 import torch
 
 ENV_VAR = "CGNN_TPU_FAULTS"
+# the file whose size counts boots across processes (``boot_crash``: a
+# crashed boot keeps no state of its own)
+STATE_ENV = "CGNN_TPU_FAULT_STATE"
+# serving counters are bumped from several threads (HTTP handlers)
+_serve_lock = threading.Lock()
 
 
 class InjectedCrash(RuntimeError):
@@ -53,6 +74,10 @@ class InjectedLoaderError(RuntimeError):
     """An injected data-loader failure."""
 
 
+class InjectedDispatchError(RuntimeError):
+    """An injected serving dispatch failure."""
+
+
 @dataclasses.dataclass
 class FaultPlan:
     nan_batch: int | None = None
@@ -61,7 +86,7 @@ class FaultPlan:
     crash_hit: int = 1
     crash_exit: bool = False
     loader_exc: int | None = None
-    # serving and fleet faults: parsed, their hooks not ported
+    # serving faults
     dispatch_exc: int | None = None
     dispatch_exc_count: int = 1
     wedge_flush: int | None = None
@@ -72,12 +97,16 @@ class FaultPlan:
     boot_crash: int | None = None
     wedge_warm: float | None = None
     exit75_at: int | None = None
+    # the continual trainer's fault: parsed, its hook not ported
     label_noise_round: int | None = None
     label_noise_scale: float = 10.0
     # the hit counters (the determinism bookkeeping)
     _crash_hits: dict = dataclasses.field(default_factory=dict)
     _batches_seen: int = 0
     _sigterm_fired: bool = False
+    _dispatches_seen: int = 0
+    _conns_seen: int = 0
+    _exit75_fired: bool = False
 
     @classmethod
     def parse(cls, spec: str) -> "FaultPlan":
@@ -164,18 +193,30 @@ class FaultPlan:
         return ", ".join(parts) or "none"
 
 
-# the keys whose hooks live in the serving, fleet and continual layers
-_UNPORTED = (("dispatch_exc", "dispatch_exc"), ("wedge_flush", "wedge_flush"),
-             ("slow_dispatch_ms", "slow_dispatch"), ("drop_conn", "drop_conn"),
-             ("boot_crash", "boot_crash"), ("wedge_warm", "wedge_warm"),
-             ("exit75_at", "exit75_at"), ("label_noise_round", "label_noise"))
+# the keys whose hooks are not ported (the continual trainer's)
+_UNPORTED = (("label_noise_round", "label_noise"),)
+# the serving keys, which the train entry point does not run
+_SERVING = (("dispatch_exc", "dispatch_exc"),
+                ("wedge_flush", "wedge_flush"),
+                ("slow_dispatch_ms", "slow_dispatch"),
+                ("drop_conn", "drop_conn"), ("boot_crash", "boot_crash"),
+                ("wedge_warm", "wedge_warm"), ("exit75_at", "exit75_at"))
 
 
 def unported_keys(p: FaultPlan | None) -> list[str]:
     """The spec keys ``p`` sets whose hooks are not ported."""
+    return _set_keys(p, _UNPORTED)
+
+
+def serving_keys(p: FaultPlan | None) -> list[str]:
+    """The serving spec keys ``p`` sets (hooks of the serving path)."""
+    return _set_keys(p, _SERVING)
+
+
+def _set_keys(p: FaultPlan | None, table) -> list[str]:
     if p is None:
         return []
-    return [key for attr, key in _UNPORTED if getattr(p, attr) is not None]
+    return [key for attr, key in table if getattr(p, attr) is not None]
 
 
 _plan: FaultPlan | None = None
@@ -256,6 +297,82 @@ def poison_batches(batches: Iterable) -> Iterator:
             yield poison_nan(b) if i == p.nan_batch else b
 
     return wrapped()
+
+
+def boot_point() -> None:
+    """The boot fault point, between the listener's bind and ``warm()``
+    (``python -m cgnn_tpu_torch.serve``): ``boot_crash=N`` appends one
+    byte to the ``CGNN_TPU_FAULT_STATE`` file and dies with
+    ``os._exit(7)`` while it holds at most N bytes, so the first N boots
+    crash; without a state file every boot crashes. ``wedge_warm``
+    hangs here."""
+    p = plan()
+    if p is None or (p.boot_crash is None and p.wedge_warm is None):
+        return
+    if p.boot_crash is not None:
+        state = os.environ.get(STATE_ENV, "")
+        boots = p.boot_crash + 1  # no state file: crash every boot
+        if state:
+            fd = os.open(state, os.O_WRONLY | os.O_CREAT | os.O_APPEND,
+                         0o644)
+            try:
+                os.write(fd, b"b")
+            finally:
+                os.close(fd)
+            boots = os.path.getsize(state)
+        if boots <= p.boot_crash:
+            os._exit(7)  # a death mid-boot: no cleanup, no drain
+    if p.wedge_warm is not None:
+        time.sleep(p.wedge_warm)
+
+
+def exit75_requested() -> bool:
+    """True once ``exit75_at`` has fired: the serve entry point's clean
+    drain then exits 75 instead of 0."""
+    p = plan()
+    return p is not None and p._exit75_fired
+
+
+def dispatch_point() -> None:
+    """The serving fault point, called once a flush dispatch by the
+    serving worker: counts dispatches over the run and fires the slow,
+    wedge, exception and exit-75 faults at their ordinals."""
+    p = plan()
+    if p is None or (p.dispatch_exc is None and p.wedge_flush is None
+                     and p.slow_dispatch_ms is None
+                     and p.exit75_at is None):
+        return
+    with _serve_lock:
+        i = p._dispatches_seen
+        p._dispatches_seen += 1
+        fire75 = (p.exit75_at is not None and i >= p.exit75_at
+                  and not p._exit75_fired)
+        if fire75:
+            p._exit75_fired = True
+    if fire75:
+        # a preemption notice mid-load: the graceful drain runs, then the
+        # entry point exits 75
+        os.kill(os.getpid(), signal.SIGTERM)
+    if p.slow_dispatch_ms is not None and i % p.slow_every == 0:
+        time.sleep(p.slow_dispatch_ms / 1e3)
+    if p.wedge_flush is not None and i == p.wedge_flush:
+        time.sleep(p.wedge_secs)
+    if (p.dispatch_exc is not None
+            and p.dispatch_exc <= i < p.dispatch_exc + p.dispatch_exc_count):
+        raise InjectedDispatchError(
+            f"injected dispatch failure at flush {i}")
+
+
+def drop_connection() -> bool:
+    """True when this ``/predict`` connection is to be closed without a
+    response (every N-th, ``drop_conn=N``)."""
+    p = plan()
+    if p is None or p.drop_conn is None or p.drop_conn < 1:
+        return False
+    with _serve_lock:
+        i = p._conns_seen
+        p._conns_seen += 1
+    return i % p.drop_conn == p.drop_conn - 1
 
 
 def corrupt_checkpoint(save_dir: str, mode: str = "garble") -> str:

@@ -33,9 +33,12 @@ _DEFAULT_SIGNALS = (signal.SIGTERM, signal.SIGINT)
 class PreemptionHandler:
     """Latches termination signals into a pollable checkpoint request."""
 
-    def __init__(self, log_fn: Callable = print):
+    def __init__(self, log_fn: Callable = print,
+                 action: str = "checkpoint requested at the next "
+                               "epoch/chunk boundary"):
         self._event = threading.Event()
         self._log = log_fn
+        self._action = action  # what a first signal starts, for the log
         self._installed: dict[int, object] = {}
         self._callbacks: list[Callable] = []
 
@@ -71,9 +74,8 @@ class PreemptionHandler:
             self.uninstall()
             signal.raise_signal(signum)
             return
-        self._log(f"{signal.Signals(signum).name} received: checkpoint "
-                  f"requested at the next epoch/chunk boundary (send again "
-                  f"to exit now)")
+        self._log(f"{signal.Signals(signum).name} received: "
+                  f"{self._action} (send again to exit now)")
         self.request()
 
     def install(self, signals=_DEFAULT_SIGNALS) -> "PreemptionHandler":

@@ -257,10 +257,11 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
     if fault_plan is not None:
         print(f"FAULT INJECTION ACTIVE: {fault_plan.describe()}",
               file=sys.stderr)
-        unported = faultinject.unported_keys(fault_plan)
-        if unported:
-            print(f"fault injection: {', '.join(unported)} not ported to "
-                  f"this trainer (serving and fleet hooks): ignored",
+        ignored = (faultinject.serving_keys(fault_plan)
+                   + faultinject.unported_keys(fault_plan))
+        if ignored:
+            print(f"fault injection: {', '.join(ignored)} not run by "
+                  f"this trainer (serving and continual hooks): ignored",
                   file=sys.stderr)
     if args.debug_nans:
         print("--debug-nans: step graphs off; eager steps under "

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from cgnn_tpu_torch import convert
+from cgnn_tpu_torch.observe.metrics_io import jsonfinite
 from cgnn_tpu_torch.resilience import faultinject
 from cgnn_tpu_torch.resilience.integrity import (
     read_manifest,
@@ -90,18 +91,6 @@ class CheckpointRestoreError(RuntimeError):
         self.attempts = attempts
         detail = "; ".join(attempts) if attempts else "no checkpoints found"
         super().__init__(f"no restorable {tag!r} checkpoint: {detail}")
-
-
-def _jsonfinite(obj):
-    """Non-finite floats -> None, recursively (strict JSON: a diverging
-    run's NaN loss must not make its meta unparseable)."""
-    if isinstance(obj, dict):
-        return {k: _jsonfinite(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return [_jsonfinite(v) for v in obj]
-    if isinstance(obj, float) and not np.isfinite(obj):
-        return None
-    return obj
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -342,7 +331,7 @@ class CheckpointManager:
         np.savez(os.path.join(tmp, STATE_FILE), **convert.flatten(tree))
         faultinject.crash_point("after_write")
         with open(os.path.join(tmp, META_FILE), "w") as f:
-            json.dump(_jsonfinite(meta), f, indent=1, allow_nan=False)
+            json.dump(jsonfinite(meta), f, indent=1, allow_nan=False)
         # the manifest LAST: it is the commit marker
         write_manifest(tmp, tree_manifest(tree))
         faultinject.crash_point("before_commit")
@@ -356,7 +345,7 @@ class CheckpointManager:
         pointer = os.path.join(self.directory, _BEST_POINTER)
         tmp = pointer + ".tmp"
         with open(tmp, "w") as f:
-            json.dump(_jsonfinite({"save": name, "meta": meta}), f, indent=1,
+            json.dump(jsonfinite({"save": name, "meta": meta}), f, indent=1,
                       allow_nan=False)
             f.flush()
             os.fsync(f.fileno())
@@ -458,15 +447,26 @@ class CheckpointManager:
     def restore_for_inference(self, state, tag: str = _LATEST):
         """Restore parameters, BatchNorm statistics and the normalizer
         only, into ``state`` (anything with ``model`` and ``normalizer``:
-        an InferenceState or a TrainState) -> state."""
+        an InferenceState or a TrainState) -> state. In place, the
+        normalizer too: a captured predict graph reads its mean and std
+        by address."""
         loaded = {}
 
         def check(tree):
             loaded["model"] = _model_state_dict(tree, state.model)
+            norm = tree["normalizer"]
+            for k in ("mean", "std"):
+                want = tuple(getattr(state.normalizer, k).shape)
+                if np.shape(norm[k]) != want:
+                    raise ValueError(f"normalizer {k} has shape "
+                                     f"{np.shape(norm[k])}, want {want}")
 
         tree, _ = self._restore_chain(tag, check)
         state.model.load_state_dict(loaded["model"])
-        state.normalizer = _normalizer(tree, state.normalizer.mean.device)
+        norm = _normalizer(tree, state.normalizer.mean.device)
+        with torch.no_grad():
+            state.normalizer.mean.copy_(norm.mean)
+            state.normalizer.std.copy_(norm.std)
         return state
 
     def close(self):

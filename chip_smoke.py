@@ -191,7 +191,44 @@ into ``build/kernels``), then:
    (exit 137, the save before it still the newest), and resumed to its
    last epoch; COO training (kernel 6) run twice from the same weights
    and resumed from a checkpoint against the in-memory state, without
-   deterministic algorithms: bit-equal in every tensor.
+   deterministic algorithms: bit-equal in every tensor;
+11. serve_http — the server as users run it, ``python -m
+   cgnn_tpu_torch.serve CKPT`` over HTTP with serve.py's defaults (``-b
+   64``, 3 rungs, 5 ms, 1000 ms deadline, a 1024-entry cache, the raw
+   wire and compact staging on, one packer thread), each server a
+   subprocess on a free port. Two checkpoints from the train entry point
+   at flagship width (dense with ``--cgconv-impl pallas``, and COO with
+   ``--aggregation pallas``), 640 structures, 2 epochs. Path
+   ``serve_http``: ``/healthz`` must answer 503 (warming) before 200;
+   192 featurized graphs as JSON from 16 keep-alive clients (a client's
+   graph packs full), 32 of them again (every one a cache hit equal to its
+   miss), 192 more with their priority classes mixed from 32 clients
+   (every class answered, ``backfilled_total`` > 0), then SIGTERM 0.3 s
+   into a 512-graph burst (``--drain-linger 2``): 200 or 503 only,
+   ``/healthz`` 503 with draining true, exit 0. ``serve_http_raw``:
+   192 wire-form structures (kernel 8 + kernel 1); ``serve_http_compact``:
+   192 wire-form structures that the server featurizes on its packer
+   thread (``--wire featurized``: compact flushes). Every answer held to
+   the plain path (``cgconv_impl`` off) on host-featurized copies, rtol
+   1e-4 / atol 1e-4, requests/s and client p50/p99 reported, p99 <= 1000
+   ms. ``serve_http_reload`` (``--poll-interval 0.5``): clients loop over
+   96 graphs and 96 structures while a second version (weights x1.25,
+   normalizer mean + 1.5, std x1.5) is committed; no request fails,
+   answers come from both versions, each within tolerance of the plain
+   path under the version it reports, no old-version answer to a request
+   sent after ``/healthz`` showed the swap, one reload, no capture after
+   warm-up. Faults (``python -m``, untraced): ``dispatch_exc=2;
+   exit75_at=8`` answers 200, 200, 500, 200, ... and exits 75;
+   ``wedge_flush=1`` with ``--drain-timeout 3`` exits 3.
+   ``serve_http_coo``: the COO checkpoint, 96 graphs and 96 structures
+   featurized at admission (kernel 6). Each traced path runs the entry
+   point inside ``PathRun`` in its own process (``traced_serve``) and is
+   held by ``check_path`` to its warm-up replays and flushes. Then item
+   14's turns in process: 2048 requests at once from 64 threads through a
+   serial worker (``pack_workers=0``) and a pipelined one (1), serial,
+   pipelined, pipelined, serial, for featurized graphs packed full,
+   compact graphs and raw structures (64 MP-like calibration structures):
+   requests/s, p99, the worker's pack share and its wait on the packer.
 
 Launches on a path. A replayed graph launches its kernels without their
 wrappers, so each path's run (``PathRun``) is traced by the profiler,
@@ -219,6 +256,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 RTOL, ATOL = 1e-4, 1e-5  # kernel vs plain version: f32 roundoff, reordered sums
 STATS_RTOL = 1e-4  # kernel 2's column sums, on their row's largest entry
@@ -923,7 +961,8 @@ def serve_phase(dev, calibration, work_dir):
     t0 = time.perf_counter()
     server, info = load_server(npz, meta, batch_size=64, rungs=3,
                                calibration=calibration, device=dev,
-                               default_timeout_ms=60_000.0, wire="raw")
+                               default_timeout_ms=60_000.0, wire="raw",
+                               cache_size=0)
     spec = server.shape_set.raw
     check(spec is not None, "load_server(wire='raw') planned no raw spec")
     print(f"serve: load_server + warm {time.perf_counter() - t0!r} s; "
@@ -1070,7 +1109,8 @@ def overflow_leg(dev, npz, meta, calibration, per_step):
     server, info = load_server(npz, meta, batch_size=8, rungs=1,
                                calibration=calibration, device=dev,
                                default_timeout_ms=60_000.0, wire="raw",
-                               raw_precheck=False, log_fn=lambda *a: None)
+                               raw_precheck=False, cache_size=0,
+                               log_fn=lambda *a: None)
     tiny = RawStructure(np.zeros((1, 3)), np.eye(3) * 2.0,
                         np.array([6], np.int32))
     try:
@@ -1835,6 +1875,7 @@ def serve_coo_phase(dev, calibration, weights):
     server, _ = load_server(npz, meta, batch_size=64, rungs=3,
                             calibration=calibration, device=dev,
                             default_timeout_ms=60_000.0, wire="auto",
+                            cache_size=0,
                             log_fn=lambda s: (logs.append(s), print(s)))
     ss = server.shape_set
     check(ss.dense_m is None and ss.raw is None
@@ -2534,7 +2575,7 @@ def cif_pipeline_phase(dev, work_dir, card, calibration):
     npz = os.path.join(work_dir, "params.npz")
     meta = os.path.join(work_dir, "meta.json")
     kw = dict(batch_size=64, rungs=3, calibration=calibration, device=dev,
-              default_timeout_ms=60_000.0, wire="featurized",
+              default_timeout_ms=60_000.0, wire="featurized", cache_size=0,
               log_fn=lambda *a: None)
     server, _ = load_server(npz, meta, compact="on", **kw)
     check(server.shape_set.compact is not None,
@@ -2985,7 +3026,7 @@ def _serve_replays(dev, work_dir, calibration, coo_weights):
             ("coo", coo_weights[:2], dict(wire="featurized"))):
         server, _ = load_server(w_npz, w_meta, batch_size=64, rungs=3,
                                 calibration=calibration, device=dev,
-                                log_fn=lambda *a: None, **kw)
+                                cache_size=0, log_fn=lambda *a: None, **kw)
         ss, step, st = server.shape_set, server.predict_step, server.state
         try:
             for shape in ss:
@@ -3650,6 +3691,748 @@ def resilience_phase(dev, work_dir, split, mp_split):
     return summary, counts
 
 
+HTTP_CLIENTS = 16  # client threads of an HTTP burst
+N_HTTP = 192  # requests of an HTTP burst (each wire)
+N_HTTP_CACHE = 32  # requests repeated for the cache check
+N_HTTP_DRAIN = 512  # the burst SIGTERM lands in
+N_ITEM14 = 2048  # requests of an in-process burst (item 14's turns)
+ITEM14_CLIENTS = 64
+SERVE_BOOT_S = 300.0  # bound on a server's boot (imports, calibration, warm)
+HTTP_P99_MS = 1000.0  # the JAX server's default per-request deadline
+# the serve entry point run in a process under PathRun (traced_serve)
+TRACED_SERVE = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.traced_serve(sys.argv[1], sys.argv[2:]))")
+
+
+def traced_serve(out_path, argv) -> int:
+    """``python -m cgnn_tpu_torch.serve ARGV`` in this process inside a
+    ``PathRun`` (set up before the entry point starts, read after it
+    exits), with the server's final ``stats()``, written to ``out_path``
+    as JSON -> its exit code."""
+    import cgnn_tpu_torch.serve.server as srv
+    from cgnn_tpu_torch.serve.__main__ import main as serve_main
+
+    servers = []
+    load = srv.load_server
+
+    def loading(*a, **kw):
+        server, parts = load(*a, **kw)
+        servers.append(server)
+        return server, parts
+
+    srv.load_server = loading
+    with PathRun("serve") as run:
+        rc = serve_main(argv)
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, "launches": run.launches,
+                   "wrapper": run.wrapper, "steps": run.steps,
+                   "stats": servers[0].stats() if servers else None}, f,
+                  allow_nan=False)
+    return rc
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(port, method, path, body=None, timeout=120.0):
+    """One request on a new connection -> (status, JSON body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+class ServeProcess:
+    """``python -m cgnn_tpu_torch.serve CKPT`` on a free port in a
+    subprocess (through ``traced_serve`` when ``traced``), its output in
+    ``<work_dir>/<label>.log``. ``stop`` (or the owner's ``finally``
+    through ``kill``) ends it."""
+
+    def __init__(self, label, ckpt, work_dir, args=(), faults="",
+                 traced=True):
+        self.label = label
+        self.port = free_port()
+        self.trace_path = os.path.join(work_dir, f"{label}.trace.json")
+        self.log_path = os.path.join(work_dir, f"{label}.log")
+        argv = [ckpt, "--port", str(self.port), *args]
+        cmd = ([sys.executable, "-c", TRACED_SERVE, self.trace_path, *argv]
+               if traced else
+               [sys.executable, "-m", "cgnn_tpu_torch.serve", *argv])
+        env = {k: v for k, v in os.environ.items() if k != "CGNN_TPU_FAULTS"}
+        if faults:
+            env["CGNN_TPU_FAULTS"] = faults
+        self._log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=self._log, stderr=subprocess.STDOUT)
+
+    def tail(self, n=3000) -> str:
+        self._log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def wait_ready(self) -> dict:
+        """Poll ``/healthz`` until 200 -> its statuses in order (None:
+        not listening yet) and the seconds from the start."""
+        seen = []
+        while time.perf_counter() - self.t0 < SERVE_BOOT_S:
+            check(self.proc.poll() is None,
+                  f"{self.label}: the server exited {self.proc.returncode} "
+                  f"while booting:\n{self.tail()}")
+            try:
+                st, body = http_call(self.port, "GET", "/healthz", timeout=5)
+            except OSError:
+                st, body = None, None
+            if not seen or seen[-1] != st:
+                seen.append(st)
+            if st == 200:
+                return {"statuses": seen, "boot_s": time.perf_counter()
+                        - self.t0, "healthz": body}
+            time.sleep(0.02)
+        raise SmokeFailure(f"{self.label}: not ready after {SERVE_BOOT_S} s "
+                           f"({seen}):\n{self.tail()}")
+
+    def stats(self) -> dict:
+        st, body = http_call(self.port, "GET", "/stats")
+        check(st == 200, f"{self.label}: /stats answered {st}")
+        return body
+
+    def wait(self, timeout=120.0) -> int:
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise SmokeFailure(f"{self.label}: still running after "
+                               f"{timeout} s:\n{self.tail()}") from None
+
+    def stop(self, timeout=120.0) -> int:
+        """SIGTERM, then the exit code."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        return self.wait(timeout)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._log.close()
+
+    def trace(self) -> dict:
+        with open(self.trace_path) as f:
+            return json.load(f)
+
+
+def http_burst(port, bodies, clients=HTTP_CLIENTS, stop_on=None):
+    """POST each body to ``/predict`` from ``clients`` threads, each on
+    its own keep-alive connection -> (a result per body: status, answer,
+    client start and end time; None for a body not sent), wall seconds.
+    A client stops sending once it gets a status in ``stop_on``."""
+    import http.client
+
+    results = [None] * len(bodies)
+
+    def client(k):
+        conn = None
+        for i in range(k, len(bodies), clients):
+            t0 = time.perf_counter()
+            try:
+                if conn is None:
+                    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                      timeout=120)
+                conn.request("POST", "/predict", body=bodies[i],
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                status, body = r.status, json.loads(r.read())
+            except (OSError, http.client.HTTPException, ValueError) as e:
+                status, body = None, {"error": repr(e)}
+                if conn is not None:
+                    conn.close()
+                conn = None
+            results[i] = {"status": status, "body": body, "t0": t0,
+                          "t1": time.perf_counter()}
+            if stop_on and status in stop_on:
+                break
+        if conn is not None:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,),
+                                name=f"chip-smoke-http-{k}")
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    check(not any(th.is_alive() for th in threads), "an HTTP client hung")
+    return results, time.perf_counter() - t0
+
+
+def burst_rates(label, results, wall) -> dict:
+    """requests/s and client-side latency quantiles of a burst, every
+    answer a 200 with a finite prediction of one target, p99 in bound."""
+    import numpy as np
+
+    bad = [r for r in results if r is None or r["status"] != 200]
+    check(not bad, f"{label}: {len(bad)} requests not answered 200: "
+                   f"{bad[:2]}")
+    preds = np.array([r["body"]["prediction"] for r in results], np.float64)
+    check(preds.shape == (len(results), 1) and np.isfinite(preds).all(),
+          f"{label}: predictions of shape {preds.shape}, finite "
+          f"{bool(np.isfinite(preds).all())}")
+    lat = [(r["t1"] - r["t0"]) * 1e3 for r in results]
+    p50, p99 = np.percentile(lat, [50, 99])
+    rec = {"requests": len(results), "wall_s": wall,
+           "requests_per_s": len(results) / wall,
+           "latency_ms_p50": float(p50), "latency_ms_p99": float(p99),
+           "server_latency_ms_p99": float(np.percentile(
+               [r["body"]["latency_ms"] for r in results], 99))}
+    print(f"{label}: {rec}")
+    check(p99 <= HTTP_P99_MS, f"{label}: p99 {p99!r} ms > {HTTP_P99_MS} ms")
+    return rec
+
+
+def graph_body(g, **extra) -> bytes:
+    payload = {"atom_fea": g.atom_fea.tolist(),
+               "edge_fea": g.edge_fea.tolist(),
+               "centers": g.centers.tolist(),
+               "neighbors": g.neighbors.tolist(), "id": g.cif_id}
+    return json.dumps({"graph": payload, **extra}, allow_nan=False).encode()
+
+
+def structure_body(rs, **extra) -> bytes:
+    return json.dumps({"structure": {
+        "lattice": rs.lattice.tolist(),
+        "frac_coords": rs.frac_coords.tolist(),
+        "numbers": rs.numbers.tolist(), "id": rs.cif_id}, **extra},
+        allow_nan=False).encode()
+
+
+def plain_answers(dev, ck, name, graphs):
+    """The plain path (``cgconv_impl`` off; ``aggregation='xla'`` in the
+    COO layout) under save ``name`` of checkpoint ``ck``, on the card, on
+    ``graphs`` -> [n, T]."""
+    import dataclasses as dc
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
+    from cgnn_tpu_torch.serve.shapes import plan_shape_set
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from cgnn_tpu_torch.train.infer import run_fast_inference
+    from cgnn_tpu_torch.train.normalizer import Normalizer
+    from cgnn_tpu_torch.train.step import InferenceState
+
+    mgr = CheckpointManager(ck)
+    meta = mgr.read_meta(name)
+    cfg = ModelConfig.from_meta(meta["model"]).for_arbitrary_inputs()
+    cfg = dc.replace(cfg, cgconv_impl="",
+                     aggregation="xla" if not cfg.dense_m else None)
+    state = InferenceState(
+        build_model(cfg, DataConfig.from_meta(meta["data"]),
+                    device=dev).eval(),
+        Normalizer.identity(cfg.num_targets, device=dev))
+    mgr.restore_for_inference(state, name)
+    ss = plan_shape_set(graphs, BATCH, rungs=2, dense_m=cfg.dense_m or None)
+    return run_fast_inference(state, graphs, BATCH, shape_set=ss)[0]
+
+
+def hold_answers(label, results, want) -> float:
+    """Every answer within SERVE_RTOL / SERVE_ATOL of its plain answer ->
+    the largest difference."""
+    import numpy as np
+
+    got = np.array([r["body"]["prediction"] for r in results], np.float64)
+    err = np.abs(got - want)
+    ok = bool(np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(want)))
+    print(f"{label}: {len(results)} answers vs the plain path: max_abs_err "
+          f"{float(err.max())!r} (rtol {SERVE_RTOL}, atol {SERVE_ATOL}): "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: answers disagree with the plain path")
+    return float(err.max())
+
+
+def http_path(proc, rc, per_step) -> dict:
+    """A traced server's run held to its flushes: each predict graph's
+    warm-up replay (one a graph captured at ``warm()``) and each flush
+    one run of its graph (raw flushes ``predict_raw`` steps); nothing
+    failed, nothing captured after warm-up."""
+    t = proc.trace()
+    check(t["rc"] == rc == 0, f"{proc.label}: exit {rc}, traced {t['rc']}")
+    st = t["stats"]
+    c, by_form = st["counts"], st["captures_by_form"]
+    check(c["captures_after_warm"] == 0 and c["batch_failures"] == 0,
+          f"{proc.label}: {c}")
+    warm_feat = by_form.get("full", 0) + by_form.get("compact", 0)
+    run = types.SimpleNamespace(label=proc.label, launches=t["launches"],
+                                wrapper=t["wrapper"], steps=t["steps"])
+    return check_path(run, per_step, {
+        "predict": warm_feat + c["batches"] - c["pack_raw"],
+        "predict_raw": by_form.get("raw", 0) + c["pack_raw"]})
+
+
+def commit_changed(ck) -> str:
+    """Commit a new version of ``ck``'s newest save with changed weights
+    (every parameter x1.25) and normalizer (mean + 1.5, std x1.5), the
+    way a trainer commits one -> its name."""
+    import numpy as np
+
+    from cgnn_tpu_torch.train.checkpoint import (
+        STATE_FILE,
+        CheckpointManager,
+        load_tree,
+    )
+
+    mgr = CheckpointManager(ck, keep=0)
+    newest = mgr.newest_committed()
+    tree = load_tree(os.path.join(ck, newest, STATE_FILE))
+
+    def scaled(t):
+        if isinstance(t, dict):
+            return {k: scaled(v) for k, v in t.items()}
+        return (t * np.float32(1.25)).astype(t.dtype)
+
+    tree["params"] = scaled(tree["params"])
+    norm = tree["normalizer"]
+    tree["normalizer"] = {"mean": (norm["mean"] + 1.5).astype(np.float32),
+                          "std": (norm["std"] * 1.5).astype(np.float32)}
+    mgr.save_tree(tree, mgr.read_meta(newest))
+    mgr.close()
+    return CheckpointManager(ck).newest_committed()
+
+
+def serve_http_phase(dev, work_dir, card):
+    """The serve_http phase (module docstring) -> (summary, counts by
+    path)."""
+    import shutil
+    import signal
+
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
+    from cgnn_tpu_torch.data.synthetic import synthetic_dataset
+    from cgnn_tpu_torch.serve.server import structure_featurizer
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "serve_http")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ck, coo_ck = (os.path.join(root, d) for d in ("ckpt", "ckpt_coo"))
+    base = ["--synthetic", str(N_TRAIN_SET), "-b", str(BATCH), "--epochs",
+            "2", "--print-freq", "0", "--seed", str(SEED)]
+    for d, flags in ((ck, ["--cgconv-impl", "pallas"]),
+                     (coo_ck, ["--aggregation", COO_AGG])):
+        rc, _ = run_main(train_main, base + flags + [
+            "--ckpt-dir", d, "--out-dir", d + "_out"], "serve_http train")
+        check(rc == 0, f"train entry point exited {rc}")
+    v1 = CheckpointManager(ck).newest_committed()
+    meta = CheckpointManager(ck).read_meta()
+    data_cfg = DataConfig.from_meta(meta["data"])
+    n_conv = meta["model"]["n_conv"]
+    fcfg = data_cfg.featurize_config()
+    featurize = structure_featurizer(data_cfg)
+    per_step = dense_per_step(n_conv)
+
+    def graphs(n, seed):
+        return load_synthetic(n, fcfg, seed=seed)
+
+    def structures(n, seed):
+        return [RawStructure.from_structure(s, cif_id=sid)
+                for sid, s, _ in synthetic_dataset(n, seed=seed)]
+
+    summary = {"card": card, "checkpoint": v1}
+    counts = {}
+    procs = []
+
+    def serve(label, ckpt=ck, args=(), faults="", traced=True):
+        p = ServeProcess(label, ckpt, root, args, faults, traced)
+        procs.append(p)
+        return p
+
+    try:
+        # 2-4. boot and readiness; featurized graph JSON (full packs);
+        # the cache; the classes; SIGTERM mid-burst -> drained, exit 0
+        p = serve("serve_http", args=("--drain-linger", "2"))
+        ready = p.wait_ready()
+        check(503 in ready["statuses"]
+              and ready["statuses"][-1] == 200
+              and ready["statuses"].index(503)
+              < ready["statuses"].index(200),
+              f"serve_http: /healthz went {ready['statuses']}, want 503 "
+              f"(warming) then 200")
+        print(f"serve_http: /healthz {ready['statuses']} in "
+              f"{ready['boot_s']!r} s")
+        g_full = graphs(N_HTTP, SEED + 21)
+        res, wall = http_burst(p.port, [graph_body(g) for g in g_full])
+        rec = {"featurized": burst_rates("serve_http featurized", res, wall)}
+        check(all(r["body"]["wire"] == "featurized"
+                  and not r["body"]["cached"] for r in res),
+              "serve_http: a featurized answer came from the cache or the "
+              "raw wire")
+        rec["featurized"]["max_abs_err_vs_plain"] = hold_answers(
+            "serve_http featurized", res,
+            plain_answers(dev, ck, v1, g_full))
+        first = res
+        res, wall = http_burst(p.port, [graph_body(g) for g in
+                                        g_full[:N_HTTP_CACHE]])
+        hits = sum(r["body"]["cached"] for r in res)
+        same = all(r["body"]["prediction"] == f["body"]["prediction"]
+                   for r, f in zip(res, first))
+        print(f"serve_http cache: {hits}/{N_HTTP_CACHE} repeats answered "
+              f"cached, values equal to the misses' {same}")
+        check(hits == N_HTTP_CACHE and same,
+              "serve_http: repeats were not cache hits equal to the misses")
+        rec["cache"] = {"repeats": N_HTTP_CACHE, "hits": hits}
+        g_cls = graphs(N_HTTP, SEED + 22)
+        classes = ("interactive", "batch", "scavenger")
+        res, wall = http_burst(
+            p.port, [graph_body(g, **{"class": classes[i % 3],
+                                      "tenant": f"t{i % 2}"})
+                     for i, g in enumerate(g_cls)], clients=32)
+        rec["classes"] = burst_rates("serve_http classes", res, wall)
+        pri = p.stats()["priority"]
+        by_class = {c: sum(r["body"]["class"] == c for r in res)
+                    for c in classes}
+        print(f"serve_http classes: answered {by_class}; priority {pri}")
+        check(all(by_class[c] == N_HTTP // 3 for c in classes)
+              and pri["backfilled_total"] > 0,
+              f"serve_http classes: answered {by_class}, backfilled "
+              f"{pri['backfilled_total']}")
+        rec["classes"].update(answered=by_class, priority=pri)
+        hold_answers("serve_http classes", res,
+                     plain_answers(dev, ck, v1, g_cls))
+        # SIGTERM lands mid-burst: accepted requests answered, the rest
+        # 503 (a client stops at its first 503), /healthz draining
+        g_drain = graphs(N_HTTP_DRAIN, SEED + 23)
+        bodies = [graph_body(g) for g in g_drain]
+        out = {}
+
+        def drain_burst():
+            out["res"], out["wall"] = http_burst(p.port, bodies,
+                                                 stop_on=(503,))
+
+        th = threading.Thread(target=drain_burst, name="chip-smoke-drain")
+        th.start()
+        time.sleep(0.3)
+        p.proc.send_signal(signal.SIGTERM)
+        draining = None
+        while draining is None and p.proc.poll() is None:
+            try:
+                st, body = http_call(p.port, "GET", "/healthz", timeout=5)
+            except OSError:
+                break
+            if body.get("draining"):
+                draining = (st, body)
+            time.sleep(0.01)
+        th.join(timeout=600)
+        rc = p.wait()
+        res = [r for r in out["res"] if r is not None]
+        statuses = {s: sum(r["status"] == s for r in res)
+                    for s in {r["status"] for r in res}}
+        print(f"serve_http drain: exit {rc}; statuses {statuses}; "
+              f"/healthz while draining {draining}")
+        check(rc == 0 and set(statuses) <= {200, 503}
+              and statuses.get(200, 0) > 0 and statuses.get(503, 0) > 0
+              and draining is not None and draining[0] == 503,
+              f"serve_http drain: exit {rc}, statuses {statuses}, /healthz "
+              f"{draining}")
+        ok = [r for r, g in zip(out["res"], g_drain)
+              if r is not None and r["status"] == 200]
+        hold_answers("serve_http drain", ok, plain_answers(
+            dev, ck, v1, [g for r, g in zip(out["res"], g_drain)
+                          if r is not None and r["status"] == 200]))
+        rec["drain"] = {"exit": rc, "statuses": statuses}
+        counts["serve_http"] = http_path(p, rc, per_step)
+        rec["boot"] = ready
+        summary["serve_http"] = rec
+
+        # wire-form structures, each path its own process: staged raw
+        # for the device search, and featurized on the packer thread
+        # (``--wire featurized``), which stages them compactly
+        for path, args, seed in (
+                ("serve_http_raw", (), SEED + 24),
+                ("serve_http_compact", ("--wire", "featurized"), SEED + 25)):
+            p = serve(path, args=args)
+            p.wait_ready()
+            xs = structures(N_HTTP, seed)
+            res, wall = http_burst(p.port, [structure_body(x) for x in xs])
+            rec = burst_rates(path, res, wall)
+            rec["max_abs_err_vs_plain"] = hold_answers(
+                path, res, plain_answers(dev, ck, v1,
+                                         [featurize(x) for x in xs]))
+            c = p.stats()["counts"]
+            rec["wires"] = {w: sum(r["body"]["wire"] == w for r in res)
+                            for w in ("raw", "featurized")}
+            rec["packed"] = {k: c[k] for k in ("pack_raw", "pack_compact",
+                                               "pack_full")}
+            # a structure the device flags for cap overflow is answered
+            # through the featurized wire, never from its truncated graph
+            rec["ingest_cap_overflow"] = c["ingest_cap_overflow"]
+            print(f"{path}: {rec['wires']}, {rec['packed']}, cap overflows "
+                  f"{c['ingest_cap_overflow']}")
+            check((c["pack_raw"] > 0 and rec["wires"]["raw"] > 0)
+                  if path.endswith("raw") else c["pack_compact"] > 0,
+                  f"{path}: flushes {rec['packed']}, wires {rec['wires']}")
+            rc = p.stop()
+            counts[path] = http_path(p, rc, per_step)
+            summary[path] = rec
+
+        # 5. a hot reload mid-burst: a second version committed while the
+        # clients loop over the same requests (repeats hit the cache)
+        p = serve("serve_http_reload", args=("--poll-interval", "0.5"))
+        p.wait_ready()
+        xs = graphs(N_HTTP // 2, SEED + 26)
+        ss = structures(N_HTTP // 2, SEED + 27)
+        bodies = [graph_body(x) for x in xs] + [structure_body(x)
+                                                for x in ss]
+        ref_graphs = xs + [featurize(x) for x in ss]
+        passes, swap = [], {}
+        stop = threading.Event()
+
+        def loop():
+            while not stop.is_set():
+                passes.append(http_burst(p.port, bodies)[0])
+
+        th = threading.Thread(target=loop, name="chip-smoke-reload")
+        th.start()
+        while len(passes) < 1:
+            time.sleep(0.01)
+        v2 = commit_changed(ck)
+        t_commit = time.perf_counter()
+        while time.perf_counter() - t_commit < 60:
+            st, body = http_call(p.port, "GET", "/healthz")
+            if body["param_version"] == v2:
+                swap["seen_at"] = time.perf_counter()
+                break
+            time.sleep(0.005)
+        check("seen_at" in swap, f"serve_http_reload: {v2} never went live")
+        n_seen = len(passes)
+        while len(passes) < n_seen + 2:
+            time.sleep(0.01)
+        stop.set()
+        th.join(timeout=600)
+        stats = p.stats()
+        rc = p.stop()
+        want = {v1: plain_answers(dev, ck, v1, ref_graphs),
+                v2: plain_answers(dev, ck, v2, ref_graphs)}
+        results = [r for one in passes for r in one]
+        check(all(r is not None and r["status"] == 200 for r in results),
+              "serve_http_reload: a request was not answered 200")
+        by_version = {v: 0 for v in want}
+        stale, worst = [], 0.0
+        for one in passes:
+            for i, r in enumerate(one):
+                b = r["body"]
+                v = b["param_version"]
+                check(v in want, f"serve_http_reload: answered by {v}")
+                by_version[v] += 1
+                err = abs(b["prediction"][0] - float(want[v][i, 0]))
+                check(err <= SERVE_ATOL + SERVE_RTOL * abs(want[v][i, 0]),
+                      f"serve_http_reload: request {i} answered by {v} "
+                      f"differs from the plain path under {v} by {err!r}")
+                worst = max(worst, err)
+                if v == v1 and r["t0"] > swap["seen_at"]:
+                    stale.append((i, b["cached"]))
+        c = stats["counts"]
+        print(f"serve_http_reload: {len(passes)} passes, answers by "
+              f"version {by_version}, max_abs_err vs the plain path of "
+              f"their version {worst!r}; old-version answers to requests "
+              f"sent after the swap was seen {stale}; reloads "
+              f"{c['reloads']}, captures after warm-up "
+              f"{c['captures_after_warm']}")
+        check(all(by_version.values()) and not stale and c["reloads"] == 1
+              and c["captures_after_warm"] == 0 and rc == 0,
+              "serve_http_reload: the reload broke its contract")
+        counts["serve_http_reload"] = http_path(p, rc, per_step)
+        summary["serve_http_reload"] = {
+            "passes": len(passes), "answers_by_version": by_version,
+            "max_abs_err_vs_plain_of_version": worst,
+            "swap_seen_s_after_commit": swap["seen_at"] - t_commit,
+            "cache": stats.get("cache"), "reload": stats.get("reload")}
+
+        # 6. the fault hooks: a failed dispatch fails its flush alone;
+        # an injected preemption exits 75; a wedged flush exits 3
+        p = serve("serve_http_faults", faults="dispatch_exc=2;exit75_at=8",
+                  traced=False)
+        p.wait_ready()
+        seq = []
+        for x in structures(16, SEED + 28):
+            try:
+                st, body = http_call(p.port, "POST", "/predict",
+                                     structure_body(x))
+            except OSError:
+                break
+            seq.append((st, body.get("reason")))
+            if st not in (200, 500):
+                break
+        rc = p.wait()
+        print(f"serve_http faults: statuses {seq}; exit {rc}")
+        check(seq[:4] == [(200, None), (200, None),
+                          (500, "dispatch_failed"), (200, None)]
+              and rc == 75, f"serve_http faults: {seq}, exit {rc}")
+        p = serve("serve_http_wedge", faults="wedge_flush=1:600",
+                  args=("--drain-timeout", "3"), traced=False)
+        p.wait_ready()
+        xs = structures(2, SEED + 29)
+        st0, _ = http_call(p.port, "POST", "/predict", structure_body(xs[0]))
+        stuck = threading.Thread(
+            target=lambda: http_burst(p.port, [structure_body(xs[1])], 1),
+            name="chip-smoke-wedged", daemon=True)
+        stuck.start()
+        time.sleep(1.0)
+        rc = p.stop(timeout=60)
+        print(f"serve_http wedge: first answer {st0}, exit {rc}; "
+              f"{p.tail(400)!r}")
+        check(st0 == 200 and rc == 3 and "unanswered" in p.tail(),
+              f"serve_http wedge: {st0}, exit {rc}")
+        summary["faults"] = {"dispatch_exc_statuses": seq, "exit75": 75,
+                             "wedge_exit": rc}
+
+        # 7. COO weights through the entry point (kernel 6): featurized
+        # graph JSON and structures featurized at admission
+        p = serve("serve_http_coo", ckpt=coo_ck)
+        p.wait_ready()
+        xs = graphs(N_HTTP // 2, SEED + 30)
+        ss = structures(N_HTTP // 2, SEED + 31)
+        res, wall = http_burst(p.port, [graph_body(x) for x in xs]
+                               + [structure_body(x) for x in ss])
+        rec = burst_rates("serve_http_coo", res, wall)
+        rec["max_abs_err_vs_plain"] = hold_answers(
+            "serve_http_coo", res, plain_answers(
+                dev, coo_ck, CheckpointManager(coo_ck).newest_committed(),
+                xs + [featurize(x) for x in ss]))
+        rc = p.stop()
+        coo_meta = CheckpointManager(coo_ck).read_meta()
+        counts["serve_http_coo"] = http_path(
+            p, rc, coo_per_step(coo_meta["model"]["n_conv"]))
+        summary["serve_http_coo"] = rec
+    finally:
+        for p in procs:
+            p.kill()
+
+    # 8. item 14: the serial worker against the pipelined one, in turns
+    summary["item14"] = item14_turns(dev, ck, v1)
+    summary["wall_s"] = time.perf_counter() - t_phase
+    return summary, counts
+
+
+def item14_turns(dev, ck, version):
+    """In-process bursts that fill top-rung flushes: ``N_ITEM14``
+    requests submitted at once from ``ITEM14_CLIENTS`` threads, through a
+    serial worker (``pack_workers=0``, A) and a pipelined one (1, B) on
+    the same checkpoint, in turns A B B A for each wire (featurized graphs
+    packed full, compact, raw structures) -> requests/s, p99 (ms), the
+    worker's wait on the pack stage and the share of its time it spent
+    packing, each turn."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from cgnn_tpu_torch.data.dataset import load_synthetic_mp
+    from cgnn_tpu_torch.data.rawbatch import raw_from_graph
+    from cgnn_tpu_torch.serve.server import load_server
+
+    calibration = load_synthetic_mp(64, seed=SEED, keep_geometry=True)
+    servers = {}
+    for name, workers in (("serial", 0), ("pipelined", 1)):
+        servers[name], _ = load_server(
+            ck, batch_size=64, rungs=3, calibration=calibration, device=dev,
+            pack_workers=workers, cache_size=0, max_queue=N_ITEM14,
+            default_timeout_ms=120_000.0, watch=False, wire="raw",
+            compact="on", log_fn=lambda *a: None)
+    ss = servers["serial"].shape_set
+    raws = [r for r in map(raw_from_graph, calibration)
+            if ss.admits_raw(r)]
+    wires = {"featurized": [dc.replace(g, distances=None)
+                            for g in calibration],
+             "compact": calibration, "raw": raws}
+    out = {}
+    try:
+        for wire, pool in wires.items():
+            reqs = [pool[i % len(pool)] for i in range(N_ITEM14)]
+            turns = []
+            for name in ("serial", "pipelined", "pipelined", "serial"):
+                turns.append(dict(item14_burst(servers[name], reqs),
+                                  worker=name))
+            out[wire] = turns
+            print(f"item14 {wire}: " + "; ".join(
+                f"{t['worker']} {t['requests_per_s']!r} req/s p99 "
+                f"{t['latency_ms_p99']!r} ms pack share "
+                f"{t['worker_pack_share']!r} wait "
+                f"{t['pipeline_wait_s']!r} s" for t in turns))
+        for name, server in servers.items():
+            c = server.stats()["counts"]
+            check(c["captures_after_warm"] == 0 and c["batch_failures"] == 0,
+                  f"item14 {name} server: {c}")
+    finally:
+        for server in servers.values():
+            check(server.drain(timeout_s=60), "an item-14 server did not "
+                                              "drain")
+    for wire, turns in out.items():
+        a = [t["requests_per_s"] for t in turns if t["worker"] == "serial"]
+        b = [t["requests_per_s"] for t in turns
+             if t["worker"] == "pipelined"]
+        out[wire] = {"turns": turns, "pipelined_over_serial":
+                     float(np.mean(b) / np.mean(a))}
+    return out
+
+
+def item14_burst(server, reqs) -> dict:
+    """``reqs`` submitted at once from ``ITEM14_CLIENTS`` threads (each
+    submits its share, then waits for its answers) -> requests/s, p99 of
+    the served latency, and the worker's timings over the burst."""
+    import numpy as np
+
+    before = server.stats()["ingest"]
+    c0 = dict(server.counts)
+    results = [None] * len(reqs)
+    errors = []
+
+    def client(k):
+        try:
+            futs = [(i, server.submit(reqs[i]))
+                    for i in range(k, len(reqs), ITEM14_CLIENTS)]
+            for i, f in futs:
+                results[i] = f.result(timeout=300)
+        except Exception as e:  # noqa: BLE001 — reported by the check below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,),
+                                name=f"chip-smoke-item14-{k}")
+               for k in range(ITEM14_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and all(r is not None for r in results),
+          f"item14: errors {errors[:2]}")
+    after = server.stats()["ingest"]
+    d = {k: after[k] - before[k] for k in ("worker_pack_s",
+                                           "worker_dispatch_s",
+                                           "pipeline_wait_s",
+                                           "packers_pack_s")}
+    flushes = server.counts["batches"] - c0["batches"]
+    return {"requests_per_s": len(reqs) / wall, "wall_s": wall,
+            "latency_ms_p99": float(np.percentile(
+                [r.latency_ms for r in results], 99)),
+            "flushes": flushes, "graphs_per_flush": len(reqs) / flushes,
+            "worker_pack_share": d["worker_pack_s"] / wall, **d}
+
+
 def main() -> int:
     import torch
 
@@ -3727,7 +4510,8 @@ def main() -> int:
         dev, work_dir, calibration, coo_weights, card)
     res_summary, res_counts = resilience_phase(dev, work_dir, split,
                                                mp_split)
-    by_path.update(**graphs_counts, **res_counts)
+    http_summary, http_counts = serve_http_phase(dev, work_dir, card)
+    by_path.update(**graphs_counts, **res_counts, **http_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -3764,6 +4548,7 @@ def main() -> int:
     print(json.dumps({"cif_pipeline": cif_summary}, allow_nan=False))
     print(json.dumps({"step_graphs": graphs_summary}, allow_nan=False))
     print(json.dumps({"resilience": res_summary}, allow_nan=False))
+    print(json.dumps({"serve_http": http_summary}, allow_nan=False))
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card)

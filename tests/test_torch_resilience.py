@@ -185,9 +185,14 @@ class TestFaultPlan:
             faultinject.FaultPlan.parse("chaos_monkey=1")
 
     def test_unported_keys_are_named(self):
+        # the serving hooks are ported (serve/server.py, serve/http.py,
+        # python -m cgnn_tpu_torch.serve); only label_noise is not
         p = faultinject.FaultPlan.parse(SPECS[4] + ";nan_batch=1")
-        assert faultinject.unported_keys(p) == [
+        assert faultinject.unported_keys(p) == []
+        assert faultinject.serving_keys(p) == [
             "dispatch_exc", "wedge_flush", "slow_dispatch"]
+        assert faultinject.unported_keys(
+            faultinject.FaultPlan.parse(SPECS[6])) == ["label_noise"]
         assert faultinject.unported_keys(
             faultinject.FaultPlan.parse(SPECS[0])) == []
 
