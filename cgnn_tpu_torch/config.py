@@ -22,6 +22,16 @@ device: a CUDA tensor under ``'pallas'`` launches the kernel or raises.
 ``cgconv_window`` is kept for the meta round trip and ignored — the GPU
 kernel gathers neighbor rows directly, with no window.
 
+``dtype='bfloat16'`` computes in bf16 with f32 parameters and statistics
+(models/cgcnn.py); its edges are staged in bf16 (``edge_dtype``). On a
+CUDA device it needs a bf16 instance of every kernel its settings run, so
+``build`` refuses two settings there, naming their ROADMAP item:
+``fused_epilogue='pallas'`` (kernel 3 has no bf16 instance yet) and the
+COO layout with ``aggregation='pallas'`` (kernel 6 has none either). On
+the CPU both run their plain versions. ``classification`` (a
+``num_classes`` log-softmax head, ``dropout`` in train mode) and
+``multi_task_head`` (models/heads.py) build anywhere.
+
 ``dense_m=0`` is the flat COO layout; there ``aggregation`` picks the
 edge aggregation (ops/segment.py ``aggregate_edge_messages``: None or
 ``'xla'`` the library scatter-add, ``'sort'``, or ``'pallas'``, kernel 6
@@ -33,7 +43,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from cgnn_tpu_torch.device import resolve_device
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -74,6 +88,21 @@ class ModelConfig:
             kw["aggregation"] = None
         return cls(**kw)
 
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The compute dtype, which is also the edge features' storage
+        dtype on every wire (train.py's ``edge_dtype``)."""
+        if self.dtype not in TORCH_DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(TORCH_DTYPES)}, "
+                             f"got {self.dtype!r}")
+        return TORCH_DTYPES[self.dtype]
+
+    @property
+    def out_dim(self) -> int:
+        """Columns of the model's output: ``num_classes`` log-probs for a
+        classifier, else ``num_targets``."""
+        return self.num_classes if self.classification else self.num_targets
+
     def for_arbitrary_inputs(self) -> "ModelConfig":
         """This config with data-derived bounds widened to always-correct
         settings, for inference entry points: ``cgconv_window=0``."""
@@ -81,24 +110,28 @@ class ModelConfig:
             return self
         return dataclasses.replace(self, cgconv_window=0)
 
-    def build(self, nbr_fea_len: int, device="cuda"):
+    def build(self, nbr_fea_len: int, device="cuda", dropout_seed: int = 0):
         """The model on ``device`` in eval mode (the caller puts it in
         ``.train()`` to train; raises when CUDA is asked for and absent).
         ``nbr_fea_len`` is the Gaussian edge width G
-        (``DataConfig.nbr_fea_len``)."""
+        (``DataConfig.nbr_fea_len``); ``dropout_seed`` seeds the dropout
+        mask's generator."""
         from cgnn_tpu_torch.data.elements import ATOM_FEA_DIM
         from cgnn_tpu_torch.models.cgcnn import CrystalGraphConvNet
 
         dev = resolve_device(device)
-        unported = {
-            "classification": self.classification,
-            "multi_task_head": self.multi_task_head,
-            "dtype='bfloat16'": self.dtype != "float32",
-        }
-        bad = [k for k, on in unported.items() if on]
-        if bad:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(bad)}")
+        dtype = self.torch_dtype
+        if dev.type == "cuda" and dtype == torch.bfloat16:
+            if self.fused_epilogue == "pallas":
+                raise NotImplementedError(
+                    "dtype='bfloat16' with fused_epilogue='pallas' on the "
+                    "card: kernel 3 has no bf16 instance yet (ROADMAP "
+                    "Queue 2)")
+            if not self.dense_m and self.aggregation == "pallas":
+                raise NotImplementedError(
+                    "dtype='bfloat16' with the COO layout and "
+                    "aggregation='pallas' on the card: kernel 6 has no "
+                    "bf16 instance yet (ROADMAP Queue 2)")
         return CrystalGraphConvNet(
             orig_atom_fea_len=ATOM_FEA_DIM,
             nbr_fea_len=nbr_fea_len,
@@ -111,6 +144,12 @@ class ModelConfig:
             cgconv_impl=self.cgconv_impl,
             fused_epilogue=self.fused_epilogue,
             aggregation_impl=self.aggregation,
+            classification=self.classification,
+            num_classes=self.num_classes,
+            dropout=self.dropout,
+            dtype=dtype,
+            multi_task_head=self.multi_task_head,
+            dropout_seed=dropout_seed,
         ).to(dev).eval()
 
 
@@ -145,6 +184,15 @@ class DataConfig:
         return self.featurize_config().gdf().num_features
 
 
-def build_model(model_cfg: ModelConfig, data_cfg: DataConfig, device="cuda"):
-    """The regression model for a (model, data) config pair on ``device``."""
-    return model_cfg.build(data_cfg.nbr_fea_len, device=device)
+def build_model(model_cfg: ModelConfig, data_cfg: DataConfig, device="cuda",
+                task: str = "regression", dropout_seed: int = 0):
+    """The model for a (model, data) config pair and ``task`` on
+    ``device``: regression and classification (the config says which);
+    the force task is not ported yet (ROADMAP Queue 1, item 8)."""
+    if task == "force":
+        raise NotImplementedError(
+            "task='force' is not ported yet (ROADMAP Queue 1, item 8)")
+    if task not in ("regression", "classification"):
+        raise ValueError(f"unknown task {task!r}")
+    return model_cfg.build(data_cfg.nbr_fea_len, device=device,
+                           dropout_seed=dropout_seed)

@@ -138,7 +138,9 @@ def _lecun_normal(rng: np.random.Generator, fan_in: int,
 def init_params(model_cfg: ModelConfig, data_cfg: DataConfig,
                 seed: int = 0) -> dict:
     """Random JAX-layout variables from a numpy seed: lecun-normal
-    kernels, zero biases, unit BN scales, running stats (0, 1)."""
+    kernels, zero biases, unit BN scales, running stats (0, 1); the head
+    the config asks for (``fc_out`` at ``out_dim``, or the multi-task
+    head's ``head/task{t}_...`` stacks)."""
     rng = np.random.default_rng(seed)
     f, h = model_cfg.atom_fea_len, model_cfg.h_fea_len
     g = data_cfg.nbr_fea_len
@@ -162,7 +164,17 @@ def init_params(model_cfg: ModelConfig, data_cfg: DataConfig,
                                "bn1": bn1, "bn2": bn2}
         stats[f"conv_{i}"] = {"bn1": bn1_s, "bn2": bn2_s}
     params["conv_to_fc"] = dense(f, h)
+    if model_cfg.multi_task_head and not model_cfg.classification:
+        # the JAX MultiTaskHead's tree (models/heads.py), in its order
+        head: dict = {}
+        for t in range(model_cfg.num_targets):
+            for i in range(model_cfg.n_h - 1):
+                head[f"task{t}_fc{i}"] = dense(h, h)
+            head[f"task{t}_out"] = dense(h, 1)
+        params["head"] = head
+        return {"params": params, "batch_stats": stats}
     for i in range(model_cfg.n_h - 1):
         params[f"fc_{i}"] = dense(h, h)
-    params["fc_out"] = dense(h, model_cfg.num_targets)
+    # num_classes log-prob columns for a classifier (ModelConfig.out_dim)
+    params["fc_out"] = dense(h, model_cfg.out_dim)
     return {"params": params, "batch_stats": stats}

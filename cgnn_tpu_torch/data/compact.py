@@ -109,6 +109,8 @@ class CompactSpec:
     gauss_filter: np.ndarray  # [G] f32 mu grid
     gauss_var: float
     dense_m: int
+    # the expanded edge features' type: bf16 for a bf16 model
+    edge_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
         # identity token for per-graph probe verdicts: a verdict cached
@@ -189,6 +191,7 @@ class CompactSpec:
 
     @classmethod
     def build(cls, graphs: Sequence, gdf, dense_m: int,
+              edge_dtype=torch.float32,
               validate_k: int = 8) -> "CompactSpec":
         """Probe a dataset for compact staging. ``gdf`` is the
         GaussianDistance believed to have featurized it; ``validate_k``
@@ -212,7 +215,7 @@ class CompactSpec:
                     f"featurized with different radius/step?)")
         vocab = AtomVocab.build(graphs)
         return cls(vocab, np.asarray(gdf.filter, np.float32),
-                   float(gdf.var), int(dense_m))
+                   float(gdf.var), int(dense_m), edge_dtype)
 
 
 @dataclasses.dataclass
@@ -491,12 +494,14 @@ def make_expander(spec: CompactSpec, device="cuda"
     var^2)`` in f32; the device's ``exp`` is not numpy's, so the edge
     features agree within the reference's own bound (atol 2e-6), the rest
     bit for bit. Geometry fields come back None: the model does not read
-    them.
+    them. The features are cast to ``spec.edge_dtype`` last, on the
+    device, as the JAX expander casts them (``compact.py:519``).
     """
     dev = torch.device(device)
     table = torch.from_numpy(np.asarray(spec.vocab.table, np.float32)).to(dev)
     mu = torch.from_numpy(np.asarray(spec.gauss_filter, np.float32)).to(dev)
     var2 = float(np.float32(spec.gauss_var) ** 2)
+    edge_dtype = spec.edge_dtype
 
     def expand(cb: CompactBatch) -> GraphBatch:
         n, m = cb.distances.shape
@@ -504,7 +509,7 @@ def make_expander(spec: CompactSpec, device="cuda"
         nodes = table[cb.atom_idx] * node_mask[:, None]
         emask = cb.edge_mask.to(torch.float32)
         efea = torch.exp(-((cb.distances[..., None] - mu) ** 2) / var2)
-        efea = efea * emask[..., None]
+        efea = (efea * emask[..., None]).to(edge_dtype)
         centers = torch.div(torch.arange(n * m, dtype=torch.int32,
                                          device=cb.distances.device),
                             m, rounding_mode="floor")

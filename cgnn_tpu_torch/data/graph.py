@@ -152,6 +152,7 @@ def pack_graphs(
     over_cap: int | None = None,
     coo_transpose: bool = False,
     pin: bool = False,
+    edge_dtype=torch.float32,
 ) -> GraphBatch:
     """Concatenate graphs into one fixed-capacity GraphBatch.
 
@@ -179,7 +180,17 @@ def pack_graphs(
     PyTorch's caching host allocator hands a freed block out again only
     once the copies that read it have completed, so a batch needs no pool
     or fence of its own: drop it after its copy is queued.
+
+    ``edge_dtype`` is the edge features' storage type: ``torch.bfloat16``
+    for a bf16 model (train.py's ``edge_dtype``). numpy has no bf16 here,
+    so the edges are packed in f32 and cast once, at the end, into a bf16
+    tensor (page-locked under ``pin``), rounding to nearest even as
+    ``astype(bfloat16)`` does.
     """
+    if edge_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"edge_dtype must be torch.float32 or "
+                         f"torch.bfloat16, got {edge_dtype}")
+    cast_edges = edge_dtype != torch.float32
     if in_cap is not None and over_cap is not None:
         raise ValueError("in_cap (single-tier) and over_cap (two-tier) are "
                          "mutually exclusive")
@@ -218,7 +229,9 @@ def pack_graphs(
         return a
 
     nodes = zeros((node_cap, node_dim), np.float32)
-    edges = zeros((edge_cap, edge_dim), np.float32)
+    # f32 edges that are cast at the end need no page-locked memory
+    edges = (np.zeros((edge_cap, edge_dim), np.float32) if cast_edges
+             else zeros((edge_cap, edge_dim), np.float32))
     centers = zeros(edge_cap, np.int32)
     if dense_m is None:
         # COO: padding edges point at the last node slot, so centers stay
@@ -341,10 +354,16 @@ def pack_graphs(
         # the mappings made above: small, copied into page-locked memory
         return t.pin_memory() if pin else t
 
+    if cast_edges:
+        edges_t = torch.empty((edge_cap, edge_dim), dtype=edge_dtype,
+                              pin_memory=pin)
+        edges_t.copy_(torch.from_numpy(edges))
+    else:
+        edges_t = as_t(edges)
     return GraphBatch(
         nodes=as_t(nodes),
-        edges=(as_t(edges) if dense_m is None
-               else as_t(edges).view(node_cap, dense_m, edge_dim)),
+        edges=(edges_t if dense_m is None
+               else edges_t.view(node_cap, dense_m, edge_dim)),
         centers=as_t(centers),
         neighbors=as_t(neighbors),
         node_graph=as_t(node_graph),

@@ -10,7 +10,10 @@ Per conv layer, over the dense [N, M] edge slots (node n owns slots
     v_i'   = softplus(v_i + BN2(agg_i))
 
 and the full model: Linear(92->F) embedding, n_conv such layers, masked
-per-crystal mean pooling, softplus MLP head. ``cgconv_impl`` picks how a
+per-crystal mean pooling, softplus MLP head; for classification the head
+ends in ``num_classes`` log-probs (LogSoftmax), with inverted dropout
+after ``conv_to_fc`` in train mode; ``multi_task_head`` replaces the MLP
+head with models/heads.py's ``MultiTaskHead`` (one stack a target). ``cgconv_impl`` picks how a
 conv runs (config.py): ``'pallas'``/``'xla'`` the whole-conv fused op of
 ops/fused_cgconv.py, ``''`` the unfused path written out below, whose
 BN1 -> gate -> sum chain ``fused_epilogue`` (``'pallas'``/``'xla'``) can
@@ -36,10 +39,23 @@ again under ``'pallas'``), so COO training repeats its bits run to run,
 as the dense layout's transpose does. The COO branch takes neither
 ``cgconv_impl`` nor ``fused_epilogue`` (both fuse the dense layout).
 
+``dtype=torch.bfloat16`` is the JAX ``dtype=bfloat16`` compute: f32
+parameters and BatchNorm statistics, every Dense as flax's
+``Dense(dtype=...)`` (input, weight and bias cast to bf16, the product
+in bf16), activations in bf16, the output promoted back to f32. The
+whole-conv op then takes bf16 nodes and edges (its bf16 kernel
+instances on the card).
+
+Dropout draws its keep mask from the model's own ``torch.Generator``
+(``dropout_generator``, on the parameters' device, seeded from
+``dropout_seed``), never the global one: train/graphs.py registers it
+with every captured train step, so each replay draws a fresh mask, and
+train/checkpoint.py saves and restores its state.
+
 Module and parameter names follow the JAX parameter tree (``conv_0``,
-``fc_full.kernel``, ``bn1``, ``conv_to_fc``, ``fc_out``) so convert.py maps
-one onto the other by name; ``fc_full.kernel`` is [2F+G, 2F] in both
-layouts. Not ported yet: ``MultiTaskHead`` and classification.
+``fc_full.kernel``, ``bn1``, ``conv_to_fc``, ``fc_out``, ``head/task{t}_
+...``) so convert.py maps one onto the other by name; ``fc_full.kernel``
+is [2F+G, 2F] in both layouts.
 """
 
 from __future__ import annotations
@@ -48,6 +64,7 @@ import torch
 from torch import nn
 
 from cgnn_tpu_torch.data.graph import GraphBatch
+from cgnn_tpu_torch.models.heads import Dense, MultiTaskHead
 from cgnn_tpu_torch.ops.fused_cgconv import (
     FcFullParams,
     fused_cgconv,
@@ -72,8 +89,10 @@ class CGConv(nn.Module):
 
     def __init__(self, features: int, nbr_fea_len: int, dense_m: int | None,
                  cgconv_impl: str = "", fused_epilogue: str = "",
-                 aggregation_impl: str | None = None):
+                 aggregation_impl: str | None = None, compute_dtype=None):
         super().__init__()
+        # None: the parameters' own precision (f32, or f64 in tests)
+        self.compute_dtype = compute_dtype
         for name, v in (("cgconv_impl", cgconv_impl),
                         ("fused_epilogue", fused_epilogue)):
             if v not in ("", "xla", "pallas"):
@@ -126,7 +145,9 @@ class CGConv(nn.Module):
             v_j = gather_fixed_order(nodes, neighbors, nbr_order,
                                      nbr_offsets, impl)
         z = torch.cat([v_i, v_j, edges.to(nodes.dtype)], dim=-1)
-        z = z @ self.fc_full.kernel + self.fc_full.bias
+        dt = self.compute_dtype or self.fc_full.kernel.dtype
+        z = (z.to(dt) @ self.fc_full.kernel.to(dt)
+             + self.fc_full.bias.to(dt))
         z = self.bn1(z, edge_mask)
         gate, core = z.chunk(2, dim=-1)
         msg = torch.sigmoid(gate) * softplus(core)
@@ -147,24 +168,27 @@ class CGConv(nn.Module):
                     bn1.weight, bn1.bias, neighbors, emask)
             if self.training:
                 agg, mean, var, n_real = fused_cgconv(
-                    *conv, transpose, eps=bn1.eps, impl=self.cgconv_impl)
+                    *conv, transpose, eps=bn1.eps, impl=self.cgconv_impl,
+                    dtype=self.compute_dtype or torch.float32)
                 update_running_stats(bn1.running_mean, bn1.running_var,
                                      mean.detach(), var.detach(),
                                      n_real.detach(), bn1.momentum)
             else:
                 agg = fused_cgconv_eval(
                     *conv, bn1.running_mean, bn1.running_var, eps=bn1.eps,
-                    impl=self.cgconv_impl)
+                    impl=self.cgconv_impl,
+                    dtype=self.compute_dtype or torch.float32)
             agg = agg.to(nodes.dtype)
         else:
             v_j = gather_transpose(nodes, neighbors, *(transpose or ()))
             v_j = v_j.reshape(n, m, f)
-            k = self.fc_full.kernel
+            dt = self.compute_dtype or self.fc_full.kernel.dtype
+            k = self.fc_full.kernel.to(dt)
             z = (
-                (nodes @ k[:f])[:, None, :]
-                + v_j @ k[f: 2 * f]
-                + e.to(nodes.dtype) @ k[2 * f:]
-            ) + self.fc_full.bias
+                (nodes.to(dt) @ k[:f])[:, None, :]
+                + v_j.to(dt) @ k[f: 2 * f]
+                + e.to(nodes.dtype).to(dt) @ k[2 * f:]
+            ) + self.fc_full.bias.to(dt)
             if isinstance(bn1, FusedBN1GateSum):
                 agg = bn1(z, emask).to(nodes.dtype)
             else:
@@ -180,9 +204,21 @@ class CGConv(nn.Module):
         return agg
 
 
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout``'s inverted dropout given its keep mask:
+    ``where(keep, x / keep_prob, 0)``, keep_prob rounded to x's dtype
+    first, as JAX rounds a weakly typed scalar (a fill on the device: a
+    host scalar made into a tensor would be a copy a capture cannot
+    take)."""
+    keep_prob = x.new_full((), 1.0 - rate)
+    return torch.where(keep, x / keep_prob, x.new_zeros(()))
+
+
 class CrystalGraphConvNet(nn.Module):
-    """Full CGCNN regression model. Returns [G, num_targets], one row per
-    graph slot; padding slots are zeroed."""
+    """Full CGCNN. Returns [G, num_targets] (regression; the multi-task
+    head's T columns) or [G, num_classes] log-probs (classification), in
+    f32, one row per graph slot; padding slots are zeroed."""
 
     def __init__(
         self,
@@ -197,22 +233,57 @@ class CrystalGraphConvNet(nn.Module):
         cgconv_impl: str = "",
         fused_epilogue: str = "",
         aggregation_impl: str | None = None,
+        classification: bool = False,
+        num_classes: int = 2,
+        dropout: float = 0.0,
+        dtype=torch.float32,
+        multi_task_head: bool = False,
+        dropout_seed: int = 0,
     ):
         super().__init__()
         self.n_conv = n_conv
         self.n_h = n_h
-        self.embedding = nn.Linear(orig_atom_fea_len, atom_fea_len)
+        self.classification = classification
+        self.dropout = dropout
+        # the configured dtype (also the edge features' storage type);
+        # f32 computes in the parameters' own precision
+        self.dtype = dtype
+        cdt = None if dtype == torch.float32 else dtype
+        self.dropout_seed = dropout_seed
+        self._generator = None
+        self.embedding = Dense(orig_atom_fea_len, atom_fea_len, cdt)
         for i in range(n_conv):
             self.add_module(f"conv_{i}", CGConv(
                 atom_fea_len, nbr_fea_len, dense_m, cgconv_impl,
-                fused_epilogue, aggregation_impl))
-        self.conv_to_fc = nn.Linear(atom_fea_len, h_fea_len)
-        for i in range(n_h - 1):
-            self.add_module(f"fc_{i}", nn.Linear(h_fea_len, h_fea_len))
-        self.fc_out = nn.Linear(h_fea_len, num_targets)
+                fused_epilogue, aggregation_impl, cdt))
+        self.conv_to_fc = Dense(atom_fea_len, h_fea_len, cdt)
+        # the JAX rule: the multi-task head replaces the fc stack, and a
+        # classifier never takes it
+        self.head = (MultiTaskHead(num_targets, h_fea_len, n_h, cdt)
+                     if multi_task_head and not classification else None)
+        if self.head is None:
+            for i in range(n_h - 1):
+                self.add_module(f"fc_{i}", Dense(h_fea_len, h_fea_len, cdt))
+            self.fc_out = Dense(
+                h_fea_len, num_classes if classification else num_targets,
+                cdt)
+
+    def dropout_generator(self) -> torch.Generator:
+        """The dropout mask's generator, on the parameters' device, made
+        on first use from ``dropout_seed``."""
+        dev = self.conv_to_fc.weight.device
+        gen = self._generator
+        if gen is None or gen.device != dev:
+            gen = self._generator = torch.Generator(device=dev)
+            gen.manual_seed(self.dropout_seed)
+        return gen
+
+    def draws_dropout(self) -> bool:
+        """Whether a train-mode forward draws from ``dropout_generator``."""
+        return self.classification and self.dropout > 0
 
     def forward(self, batch: GraphBatch) -> torch.Tensor:
-        nodes = self.embedding(batch.nodes.to(self.embedding.weight.dtype))
+        nodes = self.embedding(batch.nodes)
         nodes = nodes * batch.node_mask[:, None].to(nodes.dtype)
         transpose = None
         if batch.in_slots is not None:
@@ -228,7 +299,19 @@ class CrystalGraphConvNet(nn.Module):
         crys = segment_mean(nodes, batch.node_graph, batch.graph_capacity,
                             weights=batch.node_mask.to(nodes.dtype))
         crys = softplus(self.conv_to_fc(softplus(crys)))
-        for i in range(self.n_h - 1):
-            crys = softplus(getattr(self, f"fc_{i}")(crys))
-        out = self.fc_out(crys)
-        return out * batch.graph_mask[:, None].to(out.dtype)
+        if self.training and self.draws_dropout():
+            keep = torch.rand(crys.shape, device=crys.device,
+                              generator=self.dropout_generator()) < (
+                                  1.0 - self.dropout)
+            crys = apply_dropout(crys, keep, self.dropout)
+        if self.head is not None:
+            out = self.head(crys)
+        else:
+            for i in range(self.n_h - 1):
+                crys = softplus(getattr(self, f"fc_{i}")(crys))
+            out = self.fc_out(crys)
+            if self.classification:
+                out = torch.log_softmax(out, dim=-1)
+        out = out * batch.graph_mask[:, None].to(out.dtype)
+        # low-precision compute comes back in f32 (f64 stays f64)
+        return out.to(torch.promote_types(out.dtype, torch.float32))

@@ -2,11 +2,28 @@
 // its own shared library and includes this header).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cgnn {
 
 constexpr int kMaxSmemBytes = 232448;  // 227 KB opt-in per block on sm_90
+
+// A stored value as f32: an f32 as it is, a bf16 widened (exact: every
+// bf16 value is an f32 value). The bf16 instances of the kernels load
+// through these and do all their arithmetic in f32, as the TPU kernels do
+// on bf16 inputs.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// An f32 result stored in the output's type (bf16: rounded to nearest
+// even, as jnp's astype rounds).
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));

@@ -98,8 +98,25 @@
 // staging and the epilogue, not the product, as the question to measure
 // first. The GPU gathers rows directly, so the TPU kernels' one-hot window
 // tiles and tail-block garbage rows are gone.
+//
+// bf16 instances (`cgconv_fused_*_bf16`). The TPU kernel loads bf16 nodes
+// and edges and widens them to f32 before any arithmetic
+// (`_z_block`, pallas_cgconv.py:250-256); its constants (W, b, the BN
+// vectors) stay f32. Each kernel above is therefore a template on the
+// storage type T of nodes (the node pass) and edges (the slot passes):
+// T = __nv_bfloat16 widens every element on load (`cgnn::to_f32`) and
+// runs the f32 instance's arithmetic in the same order, so a bf16
+// instance gives the f32 instance's bits on the widened inputs. P, agg
+// and the stats stay f32. The staged copies differ: a bf16 edge row of
+// G = 41 is 82 bytes, not a multiple of 16 or even 4, so a bf16 slot pass
+// stages its rows by plain 2-byte loads widened into the same f32 staging
+// layout (no cp.async; shared-memory sizes unchanged), issued after the
+// barrier of the row or tile before, as the f32 copies are. What bounds
+// them: the same f32 FMAs; the edge bytes halve.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -107,6 +124,8 @@ namespace {
 
 using cgnn::sigmoid_f32;
 using cgnn::softplus_f32;
+using cgnn::to_f32;
+using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
 // kernel 1, the apply pass: launch 1a (node pass), then launch 1b (slot pass)
@@ -127,8 +146,9 @@ constexpr int kSlotRowsPerBlock = 8;     // node rows a slot-pass block
 // Up to 64 of the F inputs are staged at a time (one load phase at F=64,
 // every load in flight at once), nodes' rows and W's columns in shared
 // memory. Each output adds its F products in k order, then the bias.
+template <typename T>
 __global__ void __launch_bounds__(256) fused_cgconv_eval_node_kernel(
-    const float* __restrict__ nodes, const float* __restrict__ w,
+    const T* __restrict__ nodes, const float* __restrict__ w,
     const float* __restrict__ bias, float* __restrict__ p, int n, int f) {
   __shared__ __align__(16) float a_s[kNodeK][kNodeRows + 4];  // [k][row]
   __shared__ __align__(16) float b_s[kNodeK][kNodeCols];      // [k][col]
@@ -149,7 +169,8 @@ __global__ void __launch_bounds__(256) fused_cgconv_eval_node_kernel(
       const int i = tid + it * 256;
       const int r = i / kNodeK, kk = i % kNodeK;
       const int row = row0 + r, k = k0 + kk;
-      a_s[kk][r] = (row < n && k < f) ? nodes[(size_t)row * f + k] : 0.0f;
+      a_s[kk][r] = (row < n && k < f) ? to_f32(nodes[(size_t)row * f + k])
+                                      : 0.0f;
     }
 #pragma unroll
     for (int it = 0; it < kNodeK * kNodeCols / 256; ++it) {
@@ -246,9 +267,10 @@ __device__ __forceinline__ void add_gated(float z_g, float z_c, float mu_g,
 //   z = P[row, 0:2F] + P[j, 2F:4F] + e . W_e,
 // the edge row read as broadcast float4s; then BN1 with the given stats,
 // sigmoid * softplus, added into agg. Padding slots are skipped.
+template <typename T>
 __global__ void __launch_bounds__(kSlotThreads, 2)
     fused_cgconv_eval_slot_kernel(
-    const float* __restrict__ p, const float* __restrict__ edges,
+    const float* __restrict__ p, const T* __restrict__ edges,
     const int* __restrict__ nbr, const float* __restrict__ mask,
     const float* __restrict__ w_e, const float* __restrict__ mean,
     const float* __restrict__ var, const float* __restrict__ scale,
@@ -262,7 +284,8 @@ __global__ void __launch_bounds__(kSlotThreads, 2)
   const int two_f = 2 * f, four_f = 4 * f;
   const int stage = stage_floats(m, G4);
   const int row0 = blockIdx.x * ry * k_rows;
-  const bool vec16 = g == G4 && (reinterpret_cast<size_t>(edges) & 15) == 0;
+  const bool vec16 = std::is_same_v<T, float> && g == G4 &&
+                     (reinterpret_cast<size_t>(edges) & 15) == 0;
 
   // the pad columns [G, G4) stay 0 (the copies never write them)
   for (int i = tid; i < 2 * ry * stage; i += nthreads) smem[i] = 0.0f;
@@ -272,13 +295,23 @@ __global__ void __launch_bounds__(kSlotThreads, 2)
     const int row = row0 + y + ry * k;
     if (row >= n) return;
     float* e_s = smem + ((k & 1) * ry + y) * stage;
-    const float* src = edges + (size_t)row * m * g;
-    if (vec16) {
-      for (int i = c; i < m * KQ; i += f) cp_async16(e_s + 4 * i, src + 4 * i);
-    } else {
+    const T* src = edges + (size_t)row * m * g;
+    if constexpr (std::is_same_v<T, float>) {
+      if (vec16) {
+        for (int i = c; i < m * KQ; i += f) {
+          cp_async16(e_s + 4 * i, src + 4 * i);
+        }
+      } else {
+        int s = c / g, q = c % g;
+        for (int i = c; i < m * g; i += f) {
+          cp_async4(e_s + s * G4 + q, src + i);
+          for (q += f; q >= g; q -= g) ++s;
+        }
+      }
+    } else {  // bf16: widened on the way in (header note)
       int s = c / g, q = c % g;
       for (int i = c; i < m * g; i += f) {
-        cp_async4(e_s + s * G4 + q, src + i);
+        e_s[s * G4 + q] = to_f32(src[i]);
         for (q += f; q >= g; q -= g) ++s;
       }
     }
@@ -362,9 +395,10 @@ __global__ void __launch_bounds__(kSlotThreads, 2)
 
 // Launch 1b for G > kRegG: W_e [G, 2F] in shared memory, the edge
 // rows read from device memory (a broadcast within a row's threads).
+template <typename T>
 __global__ void __launch_bounds__(kSlotThreads)
     fused_cgconv_eval_slot_smem_kernel(
-    const float* __restrict__ p, const float* __restrict__ edges,
+    const float* __restrict__ p, const T* __restrict__ edges,
     const int* __restrict__ nbr, const float* __restrict__ mask,
     const float* __restrict__ w_e, const float* __restrict__ mean,
     const float* __restrict__ var, const float* __restrict__ scale,
@@ -391,10 +425,10 @@ __global__ void __launch_bounds__(kSlotThreads)
       const size_t slot = (size_t)row * m + s;
       if (!(mask[slot] > 0.0f)) continue;
       const float* p_j = p + (size_t)nbr[slot] * four_f + two_f;
-      const float* e = edges + slot * g;
+      const T* e = edges + slot * g;
       float z_g = 0.0f, z_c = 0.0f;
       for (int q = 0; q < g; ++q) {
-        const float v = e[q];
+        const float v = to_f32(e[q]);
         z_g = fmaf(v, we_s[q * two_f + c], z_g);
         z_c = fmaf(v, we_s[q * two_f + c + f], z_c);
       }
@@ -438,9 +472,10 @@ __host__ __device__ inline int stats_smem_floats(int g) {
 // channel, z = P[i, 0:2F] + P[j, 2F:4F] + e . W_e; block (x, y) walks
 // tiles x, x + gridDim.x, ... over columns 128 y .. 128 y + 127 and writes
 // its [2, 128] share of partial x (see the header note).
+template <typename T>
 __global__ void __launch_bounds__(kStatsThreads, 2)
     fused_cgconv_stats_slot_kernel(
-    const float* __restrict__ p, const float* __restrict__ edges,
+    const float* __restrict__ p, const T* __restrict__ edges,
     const int* __restrict__ nbr, const float* __restrict__ mask,
     const float* __restrict__ w_e, const float* __restrict__ shift,
     float* __restrict__ part, int n, int m, int f, int g) {
@@ -476,10 +511,14 @@ __global__ void __launch_bounds__(kStatsThreads, 2)
     float* e_s = st_s + buf * stage;
     const long long base = (long long)tile * kStatsTileSlots;
     const int slots = (int)min((long long)kStatsTileSlots, total - base);
-    const float* src = edges + base * g;
+    const T* src = edges + base * g;
     int s = tid / g, q = tid - s * g;
     for (int i = tid; i < slots * g; i += kStatsThreads) {
-      cp_async4(e_s + s * stride + q, src + i);
+      if constexpr (std::is_same_v<T, float>) {
+        cp_async4(e_s + s * stride + q, src + i);
+      } else {  // bf16: widened on the way in (header note)
+        e_s[s * stride + q] = to_f32(src[i]);
+      }
       s += ds;
       q += dq;
       if (q >= g) {
@@ -619,14 +658,14 @@ cudaError_t opt_in_smem(const void* kernel, int smem) {
 }
 
 // Launch 1a / 2a: P [N, 4F] = nodes . [W_i | W_j] + [b | 0].
+template <typename T>
 cudaError_t launch_node_pass(const void* nodes, const void* w,
                              const void* bias, void* p, int n, int f,
                              cudaStream_t st) {
   const dim3 grid((n + kNodeRows - 1) / kNodeRows,
                   (4 * f + kNodeCols - 1) / kNodeCols);
-  fused_cgconv_eval_node_kernel<<<grid, 256, 0, st>>>(
-      (const float*)nodes, (const float*)w, (const float*)bias, (float*)p, n,
-      f);
+  fused_cgconv_eval_node_kernel<T><<<grid, 256, 0, st>>>(
+      (const T*)nodes, (const float*)w, (const float*)bias, (float*)p, n, f);
   return cudaGetLastError();
 }
 
@@ -645,22 +684,116 @@ bool slot_pass_in_registers(int m, int f, int g) {
   return g <= kRegG && smem <= cgnn::kMaxSmemBytes;
 }
 
+// Kernel 1, the apply pass, on nodes and edges of type T (module note
+// at the entry points below).
+template <typename T>
+int eval_pass(const void* nodes, const void* edges, const void* nbr,
+              const void* mask, const void* w, const void* bias,
+              const void* mean, const void* var, const void* scale,
+              const void* bn_bias, void* p, void* out, int n, int m, int f,
+              int g, int node_pass, float eps, void* stream) {
+  if (bad_shape(n, m, f, g) || f > kSlotThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
+  if (node_pass) {
+    err = launch_node_pass<T>(nodes, w, bias, p, n, f, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int ry = slot_pass_rows(m, f, g);
+  const int k_rows = (kSlotRowsPerBlock + ry - 1) / ry;
+  const dim3 block(f, ry);
+  const dim3 grid((n + ry * k_rows - 1) / (ry * k_rows));
+  const float* w_e = (const float*)w + (size_t)2 * f * 2 * f;
+  if (!slot_pass_in_registers(m, f, g)) {
+    const int smem = (int)sizeof(float) * g * 2 * f;
+    err = opt_in_smem((const void*)fused_cgconv_eval_slot_smem_kernel<T>,
+                      smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_cgconv_eval_slot_smem_kernel<T><<<grid, block, smem, st>>>(
+        (const float*)p, (const T*)edges, (const int*)nbr,
+        (const float*)mask, w_e, (const float*)mean, (const float*)var,
+        (const float*)scale, (const float*)bn_bias, eps, (float*)out, n, m, f,
+        g, k_rows);
+    return (int)cudaGetLastError();
+  }
+  const int smem = 2 * ry * stage_floats(m, kRegG) * (int)sizeof(float);
+  if (smem > kStageBudget) {
+    err = opt_in_smem((const void*)fused_cgconv_eval_slot_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fused_cgconv_eval_slot_kernel<T><<<grid, block, smem, st>>>(
+      (const float*)p, (const T*)edges, (const int*)nbr,
+      (const float*)mask, w_e, (const float*)mean, (const float*)var,
+      (const float*)scale, (const float*)bn_bias, eps, (float*)out, n, m, f,
+      g, k_rows);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 2, the stats pass, on nodes and edges of type T.
+template <typename T>
+int stats_pass(const void* nodes, const void* edges, const void* nbr,
+               const void* mask, const void* w, const void* bias,
+               const void* shift, void* p, void* part, void* out, int n,
+               int m, int f, int g, int blocks, int node_pass,
+               void* stream) {
+  const long long tiles =
+      ((long long)n * m + kStatsTileSlots - 1) / kStatsTileSlots;
+  if (bad_shape(n, m, f, g) || blocks <= 0 || blocks > tiles) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
+  if (node_pass) {
+    err = launch_node_pass<T>(nodes, w, bias, p, n, f, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int smem = (int)sizeof(float) * stats_smem_floats(g);
+  if (smem > 48 * 1024) {
+    err = opt_in_smem((const void*)fused_cgconv_stats_slot_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(blocks, (2 * f + kStatsTileCols - 1) / kStatsTileCols);
+  fused_cgconv_stats_slot_kernel<T><<<grid, kStatsThreads, smem, st>>>(
+      (const float*)p, (const T*)edges, (const int*)nbr,
+      (const float*)mask, (const float*)w + (size_t)2 * f * 2 * f,
+      (const float*)shift, (float*)part, n, m, f, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cgnn::launch_sum_partials((const float*)part, (float*)out,
+                                        blocks, 4 * f, st);
+}
+
 }  // namespace
 
-// Dynamic shared memory of the stats slot pass for G, in bytes.
+// Dynamic shared memory of the stats slot pass for G, in bytes (the same
+// for both storage types: bf16 rows are staged widened to f32).
 extern "C" int cgconv_fused_stats_smem_bytes(int g) {
   return (int)sizeof(float) * stats_smem_floats(g);
 }
 
+// Every entry point launches on `stream` and returns the cudaError_t of its
+// launches (0 = queued). All pointers are device pointers to contiguous
+// row-major data: nodes and edges f32 (`_f32`) or bf16 (`_bf16`), nbr i32,
+// everything else f32.
+
 // Kernel 1's node pass alone: P [N, 4F] into `p`, for a caller that hands
 // the same P to the stats pass and the apply pass (`node_pass` = 0 there).
-// Launches on `stream`; returns the cudaError_t of the launch (0 = queued).
-// All pointers are device pointers to contiguous row-major f32/i32 data.
 extern "C" int cgconv_fused_node_f32(const void* nodes, const void* w,
                                      const void* bias, void* p, int n, int f,
                                      void* stream) {
   if (n <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_node_pass(nodes, w, bias, p, n, f, (cudaStream_t)stream);
+  return (int)launch_node_pass<float>(nodes, w, bias, p, n, f,
+                                      (cudaStream_t)stream);
+}
+
+extern "C" int cgconv_fused_node_bf16(const void* nodes, const void* w,
+                                      const void* bias, void* p, int n, int f,
+                                      void* stream) {
+  if (n <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_node_pass<bf16>(nodes, w, bias, p, n, f,
+                                     (cudaStream_t)stream);
 }
 
 // Kernel 1, the apply pass: with `node_pass` 1, launch 1a writes P [N, 4F]
@@ -672,42 +805,18 @@ extern "C" int cgconv_fused_eval_f32(
     const void* w, const void* bias, const void* mean, const void* var,
     const void* scale, const void* bn_bias, void* p, void* out, int n, int m,
     int f, int g, int node_pass, float eps, void* stream) {
-  if (bad_shape(n, m, f, g) || f > kSlotThreads) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaSuccess;
-  if (node_pass) {
-    err = launch_node_pass(nodes, w, bias, p, n, f, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int ry = slot_pass_rows(m, f, g);
-  const int k_rows = (kSlotRowsPerBlock + ry - 1) / ry;
-  const dim3 block(f, ry);
-  const dim3 grid((n + ry * k_rows - 1) / (ry * k_rows));
-  const float* w_e = (const float*)w + (size_t)2 * f * 2 * f;
-  if (!slot_pass_in_registers(m, f, g)) {
-    const int smem = (int)sizeof(float) * g * 2 * f;
-    err = opt_in_smem((const void*)fused_cgconv_eval_slot_smem_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_cgconv_eval_slot_smem_kernel<<<grid, block, smem, st>>>(
-        (const float*)p, (const float*)edges, (const int*)nbr,
-        (const float*)mask, w_e, (const float*)mean, (const float*)var,
-        (const float*)scale, (const float*)bn_bias, eps, (float*)out, n, m, f,
-        g, k_rows);
-    return (int)cudaGetLastError();
-  }
-  const int smem = 2 * ry * stage_floats(m, kRegG) * (int)sizeof(float);
-  if (smem > kStageBudget) {
-    err = opt_in_smem((const void*)fused_cgconv_eval_slot_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  fused_cgconv_eval_slot_kernel<<<grid, block, smem, st>>>(
-      (const float*)p, (const float*)edges, (const int*)nbr,
-      (const float*)mask, w_e, (const float*)mean, (const float*)var,
-      (const float*)scale, (const float*)bn_bias, eps, (float*)out, n, m, f,
-      g, k_rows);
-  return (int)cudaGetLastError();
+  return eval_pass<float>(nodes, edges, nbr, mask, w, bias, mean, var, scale,
+                          bn_bias, p, out, n, m, f, g, node_pass, eps,
+                          stream);
+}
+
+extern "C" int cgconv_fused_eval_bf16(
+    const void* nodes, const void* edges, const void* nbr, const void* mask,
+    const void* w, const void* bias, const void* mean, const void* var,
+    const void* scale, const void* bn_bias, void* p, void* out, int n, int m,
+    int f, int g, int node_pass, float eps, void* stream) {
+  return eval_pass<bf16>(nodes, edges, nbr, mask, w, bias, mean, var, scale,
+                         bn_bias, p, out, n, m, f, g, node_pass, eps, stream);
 }
 
 // Kernel 2, the stats pass: with `node_pass` 1, launch 2a writes P into
@@ -720,29 +829,15 @@ extern "C" int cgconv_fused_stats_f32(
     const void* w, const void* bias, const void* shift, void* p, void* part,
     void* out, int n, int m, int f, int g, int blocks, int node_pass,
     void* stream) {
-  const long long tiles =
-      ((long long)n * m + kStatsTileSlots - 1) / kStatsTileSlots;
-  if (bad_shape(n, m, f, g) || blocks <= 0 || blocks > tiles) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaSuccess;
-  if (node_pass) {
-    err = launch_node_pass(nodes, w, bias, p, n, f, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int smem = cgconv_fused_stats_smem_bytes(g);
-  if (smem > 48 * 1024) {
-    err = opt_in_smem((const void*)fused_cgconv_stats_slot_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(blocks, (2 * f + kStatsTileCols - 1) / kStatsTileCols);
-  fused_cgconv_stats_slot_kernel<<<grid, kStatsThreads, smem, st>>>(
-      (const float*)p, (const float*)edges, (const int*)nbr,
-      (const float*)mask, (const float*)w + (size_t)2 * f * 2 * f,
-      (const float*)shift, (float*)part, n, m, f, g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)cgnn::launch_sum_partials((const float*)part, (float*)out,
-                                        blocks, 4 * f, st);
+  return stats_pass<float>(nodes, edges, nbr, mask, w, bias, shift, p, part,
+                           out, n, m, f, g, blocks, node_pass, stream);
+}
+
+extern "C" int cgconv_fused_stats_bf16(
+    const void* nodes, const void* edges, const void* nbr, const void* mask,
+    const void* w, const void* bias, const void* shift, void* p, void* part,
+    void* out, int n, int m, int f, int g, int blocks, int node_pass,
+    void* stream) {
+  return stats_pass<bf16>(nodes, edges, nbr, mask, w, bias, shift, p, part,
+                          out, n, m, f, g, blocks, node_pass, stream);
 }

@@ -50,8 +50,19 @@
 //     rows in order; one [4, 2F] partial a block, added through shared
 //     memory in thread-row order, then `sum_partials` in a fixed order: the
 //     result is bit-identical from run to run.
+//
+// bf16 instances of kernels 4 and 5 (`epilogue_reduce_bf16`,
+// `epilogue_dz_bf16`): the TPU's `_reduce_kernel` and `_dz_kernel` read
+// z of any dtype and work in f32, and `_dz_kernel` writes dz in z's dtype
+// (fused_epilogue.py:152-189). Both kernels are templates on z's storage
+// type T: T = __nv_bfloat16 widens z on load (kernel 4's V = 4 path reads
+// 4 bf16 = 8 bytes a load), runs the f32 instance's arithmetic, and kernel
+// 5 rounds dz to bf16 on its store. ct, cst, red5 and the partials stay
+// f32. Both stay byte-bound; z's bytes (and dz's) halve.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -59,6 +70,9 @@ namespace {
 
 using cgnn::sigmoid_f32;
 using cgnn::softplus_f32;
+using cgnn::store_as;
+using cgnn::to_f32;
+using bf16 = __nv_bfloat16;
 
 struct Channel {
   float mean, rstd, scale, bias;
@@ -126,19 +140,30 @@ constexpr int kReduceThreads = 256;  // a block: (F / V) x rows threads
                                      // (the scalar path: F x 1 past 256)
 constexpr int kReduceChunk = 4;      // slots whose loads are in flight at once
 
-// V floats of `src` at `i` (16-byte aligned when V = 4).
-template <int V>
-__device__ __forceinline__ void load_v(const float* __restrict__ src,
-                                       size_t i, float* out) {
-  if constexpr (V == 4) {
+// V values of `src` at `i` as f32 (V = 4: one 16-byte load of f32, one
+// 8-byte load of bf16, aligned to its size).
+template <int V, typename T>
+__device__ __forceinline__ void load_v(const T* __restrict__ src, size_t i,
+                                       float* out) {
+  if constexpr (V == 4 && std::is_same_v<T, float>) {
     const float4 v = *reinterpret_cast<const float4*>(src + i);
     out[0] = v.x;
     out[1] = v.y;
     out[2] = v.z;
     out[3] = v.w;
+  } else if constexpr (V == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src + i);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    out[0] = a.x;
+    out[1] = a.y;
+    out[2] = b.x;
+    out[3] = b.y;
   } else {
 #pragma unroll
-    for (int k = 0; k < V; ++k) out[k] = src[i + k];
+    for (int k = 0; k < V; ++k) out[k] = to_f32(src[i + k]);
   }
 }
 
@@ -146,9 +171,9 @@ __device__ __forceinline__ void load_v(const float* __restrict__ src,
 // gridDim.x, ... of `rows` rows, thread row ty row ty of each. Per real
 // slot and channel: g = dL/dy, xhat, dxhat = g * scale, summed as g,
 // g xhat, dxhat, dxhat xhat; one [4, 2F] partial a block.
-template <int V>
+template <int V, typename T>
 __global__ void __launch_bounds__(V == 4 ? kReduceThreads : 1024)
-    epilogue_reduce_kernel(const float* __restrict__ z,
+    epilogue_reduce_kernel(const T* __restrict__ z,
                            const float* __restrict__ mask,
                            const float* __restrict__ cst,
                            const float* __restrict__ ct,
@@ -174,7 +199,7 @@ __global__ void __launch_bounds__(V == 4 ? kReduceThreads : 1024)
   for (int row = blockIdx.x * rows + ty; row < n; row += gridDim.x * rows) {
     float dmsg[V];
     load_v<V>(ct, (size_t)row * f + c0, dmsg);
-    const float* zr = z + (size_t)row * m * two_f;
+    const T* zr = z + (size_t)row * m * two_f;
     const float* mr = mask + (size_t)row * m;
     for (int s0 = 0; s0 < m; s0 += kReduceChunk) {
       float mk[kReduceChunk], zg[kReduceChunk][V], zc[kReduceChunk][V];
@@ -232,13 +257,13 @@ __global__ void __launch_bounds__(V == 4 ? kReduceThreads : 1024)
   }
 }
 
-__global__ void epilogue_dz_kernel(const float* __restrict__ z,
+template <typename T>
+__global__ void epilogue_dz_kernel(const T* __restrict__ z,
                                    const float* __restrict__ mask,
                                    const float* __restrict__ cst,
                                    const float* __restrict__ red5,
                                    const float* __restrict__ ct,
-                                   float* __restrict__ dz, int n, int m,
-                                   int f) {
+                                   T* __restrict__ dz, int n, int m, int f) {
   const int c = threadIdx.x;
   const int row = blockIdx.x * blockDim.y + threadIdx.y;
   if (row >= n) return;  // no block-wide barrier in this kernel
@@ -255,17 +280,17 @@ __global__ void epilogue_dz_kernel(const float* __restrict__ z,
     const size_t slot = (size_t)row * m + s;
     float out_g = 0.0f, out_c = 0.0f;
     if (mask[slot] > 0.0f) {
-      const float* zr = z + slot * two_f;
-      const float x_g = (zr[c] - kg.mean) * kg.rstd;
-      const float x_c = (zr[c + f] - kc.mean) * kc.rstd;
+      const T* zr = z + slot * two_f;
+      const float x_g = (to_f32(zr[c]) - kg.mean) * kg.rstd;
+      const float x_c = (to_f32(zr[c + f]) - kc.mean) * kc.rstd;
       float g_g, g_c;
       gate_grad(x_g * kg.scale + kg.bias, x_c * kc.scale + kc.bias, dmsg,
                 &g_g, &g_c);
       out_g = kg.rstd * (g_g * kg.scale - (mdx_g + x_g * mdxx_g));
       out_c = kc.rstd * (g_c * kc.scale - (mdx_c + x_c * mdxx_c));
     }
-    dz[slot * two_f + c] = out_g;
-    dz[slot * two_f + c + f] = out_c;
+    store_as(dz + slot * two_f + c, out_g);
+    store_as(dz + slot * two_f + c + f, out_c);
   }
 }
 
@@ -297,8 +322,8 @@ extern "C" int epilogue_apply_f32(const void* z, const void* mask,
 // with blocks <= N, of which the kernel fills min(blocks, row groups);
 // `out` is [4, 2F].
 namespace {
-template <int V>
-cudaError_t launch_reduce(const float* z, const float* mask,
+template <int V, typename T>
+cudaError_t launch_reduce(const T* z, const float* mask,
                           const float* cst, const float* ct, float* part,
                           float* out, int n, int m, int f, int blocks,
                           cudaStream_t st) {
@@ -308,33 +333,63 @@ cudaError_t launch_reduce(const float* z, const float* mask,
   const int smem = (int)sizeof(float) * 8 * rows * f;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        (const void*)epilogue_reduce_kernel<V>,
+        (const void*)epilogue_reduce_kernel<V, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const int groups = (n + rows - 1) / rows;
   const int nb = groups < blocks ? groups : blocks;
-  epilogue_reduce_kernel<V><<<nb, dim3(t, rows), smem, st>>>(
+  epilogue_reduce_kernel<V, T><<<nb, dim3(t, rows), smem, st>>>(
       z, mask, cst, ct, part, n, m, f);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return cgnn::launch_sum_partials(part, out, nb, 8 * f, st);
 }
+
+template <typename T>
+int reduce(const void* z, const void* mask, const void* cst, const void* ct,
+           void* part, void* out, int n, int m, int f, int blocks,
+           void* stream) {
+  if (bad_shape(n, m, f, 1) || blocks <= 0 || blocks > n) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // V = 4: four z values a load, aligned to the load's size
+  const size_t align = 4 * sizeof(T) - 1;
+  const bool vec = f % 4 == 0 && (reinterpret_cast<size_t>(z) & align) == 0 &&
+                   (reinterpret_cast<size_t>(ct) & 15) == 0;
+  const auto launch = vec ? &launch_reduce<4, T> : &launch_reduce<1, T>;
+  return (int)launch((const T*)z, (const float*)mask, (const float*)cst,
+                     (const float*)ct, (float*)part, (float*)out, n, m, f,
+                     blocks, (cudaStream_t)stream);
+}
+
+template <typename T>
+int dz_pass(const void* z, const void* mask, const void* cst,
+            const void* red5, const void* ct, void* dz, int n, int m, int f,
+            int rows, void* stream) {
+  if (bad_shape(n, m, f, rows)) return (int)cudaErrorInvalidValue;
+  const dim3 block(f, rows);
+  const dim3 grid((n + rows - 1) / rows);
+  epilogue_dz_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const T*)z, (const float*)mask, (const float*)cst, (const float*)red5,
+      (const float*)ct, (T*)dz, n, m, f);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
+// z (and dz) f32 in the `_f32` entries, bf16 in the `_bf16` ones.
 extern "C" int epilogue_reduce_f32(const void* z, const void* mask,
                                    const void* cst, const void* ct,
                                    void* part, void* out, int n, int m,
                                    int f, int blocks, void* stream) {
-  if (bad_shape(n, m, f, 1) || blocks <= 0 || blocks > n) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const bool vec = f % 4 == 0 && (reinterpret_cast<size_t>(z) & 15) == 0 &&
-                   (reinterpret_cast<size_t>(ct) & 15) == 0;
-  const auto launch = vec ? &launch_reduce<4> : &launch_reduce<1>;
-  return (int)launch((const float*)z, (const float*)mask, (const float*)cst,
-                     (const float*)ct, (float*)part, (float*)out, n, m, f,
-                     blocks, (cudaStream_t)stream);
+  return reduce<float>(z, mask, cst, ct, part, out, n, m, f, blocks, stream);
+}
+
+extern "C" int epilogue_reduce_bf16(const void* z, const void* mask,
+                                    const void* cst, const void* ct,
+                                    void* part, void* out, int n, int m,
+                                    int f, int blocks, void* stream) {
+  return reduce<bf16>(z, mask, cst, ct, part, out, n, m, f, blocks, stream);
 }
 
 // red5 [5, 2F]: the reduce's four rows, then 1 / max(n_real, 1) broadcast.
@@ -342,11 +397,12 @@ extern "C" int epilogue_dz_f32(const void* z, const void* mask,
                                const void* cst, const void* red5,
                                const void* ct, void* dz, int n, int m, int f,
                                int rows, void* stream) {
-  if (bad_shape(n, m, f, rows)) return (int)cudaErrorInvalidValue;
-  const dim3 block(f, rows);
-  const dim3 grid((n + rows - 1) / rows);
-  epilogue_dz_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)z, (const float*)mask, (const float*)cst,
-      (const float*)red5, (const float*)ct, (float*)dz, n, m, f);
-  return (int)cudaGetLastError();
+  return dz_pass<float>(z, mask, cst, red5, ct, dz, n, m, f, rows, stream);
+}
+
+extern "C" int epilogue_dz_bf16(const void* z, const void* mask,
+                                const void* cst, const void* red5,
+                                const void* ct, void* dz, int n, int m,
+                                int f, int rows, void* stream) {
+  return dz_pass<bf16>(z, mask, cst, red5, ct, dz, n, m, f, rows, stream);
 }

@@ -30,7 +30,20 @@ edge slots, as one op that writes only the [N, F] aggregate.
 Every kernel wrapper takes CUDA tensors only, checks them, launches on the
 current stream, raises on a refused launch, and counts its launches in
 ``<wrapper>.launches`` (none while a CUDA graph is captured:
-``_build.counted``). ``impl='pallas'`` runs a kernel for a tensor that is
+``_build.counted``).
+
+bf16 compute (``dtype=torch.bfloat16``): nodes and edges arrive in bf16,
+and on the card go straight to the bf16 instances of kernels 1 and 2
+(``fused_cgconv_node_bf16_cuda``, ``fused_cgconv_eval_bf16_cuda``,
+``fused_cgconv_stats_bf16_cuda``), which widen them on load and compute
+what the f32 instances compute on the widened values, as the TPU kernel
+does (pallas_cgconv.py ``_z_block``); no f32 copy of either is made. The
+weights and BN vectors stay f32 (the TPU kernel's ``cst``). The plain
+version of a bf16 instance is therefore the f32 plain version on
+``x.float()``. The training backward rematerializes z in bf16 and runs
+the bf16 instances of kernels 4 and 5. A bf16 input on the card under
+``'pallas'`` never runs in f32 or in a plain version: a mix of storage
+types, or one without an instance, raises. ``impl='pallas'`` runs a kernel for a tensor that is
 not on the CPU (launch or raise, never a fallback) and the kernel's plain
 PyTorch version (``*_reference``) for a CPU tensor. ``window`` is accepted
 and ignored: the GPU gathers neighbor rows directly.
@@ -98,7 +111,9 @@ def _gate_sum(y, mask):
 def fused_cgconv_eval_reference(nodes, edges, kernel, bias, scale, bn_bias,
                                 neighbors, edge_mask, mean, var, *,
                                 eps: float = 1e-5, dtype=torch.float32):
-    """Kernel 1's plain version (the JAX ``impl='xla'`` eval pass)."""
+    """Kernel 1's plain version (the JAX ``impl='xla'`` eval pass; with
+    ``dtype`` f32 on bf16 inputs, the plain version of the bf16
+    instance: the f32 pass on the widened values)."""
     n, m = edges.shape[0], edges.shape[1]
     rstd = torch.rsqrt(var.float() + eps)
     z = _z_structured(nodes, edges, kernel, bias, neighbors, dtype)
@@ -173,6 +188,10 @@ def _shift_row0(nodes, edges, kernel, bias, neighbors, dtype):
 # the Hopper kernels (csrc/fused_cgconv.cu)
 # ---------------------------------------------------------------------------
 
+# the storage types of nodes and edges the kernels have instances for, by
+# the suffix of their entry points
+INSTANCES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may opt into
 SLOT_PASS_MAX_F = 256  # kernel 1's slot pass: one thread a channel pair
 W_E_REGISTER_MAX_G = 44  # kernel 1's slot pass keeps W_e in registers up
@@ -197,12 +216,15 @@ _NOT_VECTORS = frozenset(("nodes", "edges", "kernel", "neighbors",
                           "edge_mask"))
 
 
-def _check_conv_args(name: str, args: dict) -> tuple:
+def _check_conv_args(name: str, args: dict,
+                     storage=torch.float32) -> tuple:
     """Device, dtype, contiguity and shape checks shared by the kernel
     wrappers. ``args`` holds nodes, edges, kernel, neighbors, edge_mask and
-    [2F] vectors by name; -> (N, M, F, G). Devices are compared by index
-    (``get_device``, an int, where ``.device`` builds an object a tensor);
-    a message is formatted only for a fault."""
+    [2F] vectors by name; nodes and edges must be of the instance's
+    ``storage`` type, neighbors int32, the rest f32; -> (N, M, F, G).
+    Devices are compared by index (``get_device``, an int, where
+    ``.device`` builds an object a tensor); a message is formatted only
+    for a fault."""
     nodes, edges = args["nodes"], args["edges"]
     dev = nodes.device
     if dev.type != "cuda":
@@ -211,7 +233,9 @@ def _check_conv_args(name: str, args: dict) -> tuple:
     for key, t in args.items():
         if t.get_device() != index:
             raise ValueError(f"{key} is on {t.device}, nodes on {dev}")
-        want = torch.int32 if key == "neighbors" else torch.float32
+        want = (torch.int32 if key == "neighbors"
+                else storage if key in ("nodes", "edges")
+                else torch.float32)
         if t.dtype != want:
             raise ValueError(f"{key} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -250,6 +274,37 @@ def _check_p(p, n: int, f: int, nodes) -> None:
         raise ValueError(f"p must be [{n}, {4 * f}], got {tuple(p.shape)}")
 
 
+def _node_pass(name: str, storage, nodes, kernel, bias):
+    """Launch the node pass of ``storage``'s instance -> P."""
+    dev = nodes.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {dev}")
+    for key, t in (("nodes", nodes), ("kernel", kernel), ("bias", bias)):
+        if t.get_device() != nodes.get_device():
+            raise ValueError(f"{key} is on {t.device}, nodes on {dev}")
+        want = storage if key == "nodes" else torch.float32
+        if t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{key} must be contiguous {want}, got "
+                             f"{t.dtype}")
+    n, f = nodes.shape
+    if kernel.dim() != 2 or kernel.shape[1] != 2 * f \
+            or kernel.shape[0] <= 2 * f or bias.shape != (2 * f,):
+        raise ValueError(
+            f"kernel must be [2F+G, {2 * f}] and bias [{2 * f}], got "
+            f"{tuple(kernel.shape)} and {tuple(bias.shape)}")
+    p = torch.empty((n, 4 * f), dtype=torch.float32, device=dev)
+    if n == 0:
+        return p
+    _build.launch(
+        name,
+        _build.entry("fused_cgconv",
+                     f"cgconv_fused_node_{INSTANCES[storage]}", 4, 2),
+        (nodes.data_ptr(), kernel.data_ptr(), bias.data_ptr(), p.data_ptr()),
+        {"N": n, "F": f}, dev)
+    NODE_CUDA[storage].launches += _build.counted(1)
+    return p
+
+
 def fused_cgconv_node_cuda(nodes, kernel, bias):
     """Kernel 1's node pass alone (launch 1a, which is also kernel 2's
     launch 2a) -> P [N, 4F] f32 = nodes . [W[0:F] | W[F:2F]] + [b | 0],
@@ -258,34 +313,59 @@ def fused_cgconv_node_cuda(nodes, kernel, bias):
     device. ``.launches`` counts every node pass, also those that
     ``fused_cgconv_eval_cuda`` and ``fused_cgconv_stats_cuda`` run
     themselves when given no P."""
-    dev = nodes.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_cgconv_node_cuda takes CUDA tensors, got "
-                         f"{dev}")
-    for key, t in (("nodes", nodes), ("kernel", kernel), ("bias", bias)):
-        if t.get_device() != nodes.get_device():
-            raise ValueError(f"{key} is on {t.device}, nodes on {dev}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{key} must be contiguous torch.float32")
-    n, f = nodes.shape
-    if kernel.dim() != 2 or kernel.shape[1] != 2 * f \
-            or kernel.shape[0] <= 2 * f or bias.shape != (2 * f,):
-        raise ValueError(
-            f"kernel must be [2F+G, {2 * f}] and bias [{2 * f}], got "
-            f"{tuple(kernel.shape)} and {tuple(bias.shape)}")
-    p = nodes.new_empty((n, 4 * f))
-    if n == 0:
-        return p
-    _build.launch(
-        "fused_cgconv_node",
-        _build.entry("fused_cgconv", "cgconv_fused_node_f32", 4, 2),
-        (nodes.data_ptr(), kernel.data_ptr(), bias.data_ptr(), p.data_ptr()),
-        {"N": n, "F": f}, dev)
-    fused_cgconv_node_cuda.launches += _build.counted(1)
-    return p
+    return _node_pass("fused_cgconv_node_cuda", torch.float32, nodes,
+                      kernel, bias)
+
+
+def fused_cgconv_node_bf16_cuda(nodes, kernel, bias):
+    """The bf16 instance of ``fused_cgconv_node_cuda``: nodes bf16, kernel
+    and bias f32 -> P [N, 4F] f32 (module docstring); ``.launches`` as
+    there, for the bf16 instances."""
+    return _node_pass("fused_cgconv_node_bf16_cuda", torch.bfloat16, nodes,
+                      kernel, bias)
 
 
 fused_cgconv_node_cuda.launches = 0
+fused_cgconv_node_bf16_cuda.launches = 0
+NODE_CUDA = {torch.float32: fused_cgconv_node_cuda,
+             torch.bfloat16: fused_cgconv_node_bf16_cuda}
+
+
+def _eval_pass(name: str, storage, nodes, edges, kernel, bias, scale,
+               bn_bias, neighbors, edge_mask, mean, var, eps, p):
+    args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
+                scale=scale, bn_bias=bn_bias, neighbors=neighbors,
+                edge_mask=edge_mask, mean=mean, var=var)
+    n, m, f, g = _check_conv_args(name, args, storage)
+    if f > SLOT_PASS_MAX_F:
+        raise ValueError(f"F={f} exceeds the slot pass's "
+                         f"{SLOT_PASS_MAX_F} threads per row")
+    if 4 * g * 2 * f > _SMEM_LIMIT:
+        raise ValueError(
+            f"F={f}, G={g}: W_e [{g}, {2 * f}] does not fit one block's "
+            f"shared memory ({4 * g * 2 * f} > {_SMEM_LIMIT} bytes)")
+    out = torch.empty((n, f), dtype=torch.float32, device=nodes.device)
+    if n == 0:
+        return out
+    node_pass = p is None
+    if node_pass:
+        p = torch.empty((n, 4 * f), dtype=torch.float32,
+                        device=nodes.device)
+    else:
+        _check_p(p, n, f, nodes)
+    _build.launch(
+        name,
+        _build.entry("fused_cgconv",
+                     f"cgconv_fused_eval_{INSTANCES[storage]}", 12, 5, 1),
+        (nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
+         edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+         mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
+         bn_bias.data_ptr(), p.data_ptr(), out.data_ptr()),
+        {"N": n, "M": m, "F": f, "G": g, "node_pass": int(node_pass),
+         "eps": eps}, nodes.device)
+    EVAL_CUDA[storage].launches += _build.counted(1)
+    NODE_CUDA[storage].launches += _build.counted(node_pass)
+    return out
 
 
 def fused_cgconv_eval_cuda(nodes, edges, kernel, bias, scale, bn_bias,
@@ -302,40 +382,62 @@ def fused_cgconv_eval_cuda(nodes, edges, kernel, bias, scale, bn_bias,
     vectors [2F]; F <= 256, and for G > 44 W_e [G, 2F] must fit one block's
     shared memory. Neighbor indices must lie in [0, N), as pack_graphs
     makes them."""
-    args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
-                scale=scale, bn_bias=bn_bias, neighbors=neighbors,
-                edge_mask=edge_mask, mean=mean, var=var)
-    n, m, f, g = _check_conv_args("fused_cgconv_eval_cuda", args)
-    if f > SLOT_PASS_MAX_F:
-        raise ValueError(f"F={f} exceeds the slot pass's "
-                         f"{SLOT_PASS_MAX_F} threads per row")
-    if 4 * g * 2 * f > _SMEM_LIMIT:
-        raise ValueError(
-            f"F={f}, G={g}: W_e [{g}, {2 * f}] does not fit one block's "
-            f"shared memory ({4 * g * 2 * f} > {_SMEM_LIMIT} bytes)")
-    out = nodes.new_empty((n, f))
-    if n == 0:
-        return out
-    node_pass = p is None
-    if node_pass:
-        p = nodes.new_empty((n, 4 * f))
-    else:
-        _check_p(p, n, f, nodes)
-    _build.launch(
-        "fused_cgconv_eval",
-        _build.entry("fused_cgconv", "cgconv_fused_eval_f32", 12, 5, 1),
-        (nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
-         edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-         mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
-         bn_bias.data_ptr(), p.data_ptr(), out.data_ptr()),
-        {"N": n, "M": m, "F": f, "G": g, "node_pass": int(node_pass),
-         "eps": eps}, nodes.device)
-    fused_cgconv_eval_cuda.launches += _build.counted(1)
-    fused_cgconv_node_cuda.launches += _build.counted(node_pass)
-    return out
+    return _eval_pass("fused_cgconv_eval_cuda", torch.float32, nodes,
+                      edges, kernel, bias, scale, bn_bias, neighbors,
+                      edge_mask, mean, var, eps, p)
+
+
+def fused_cgconv_eval_bf16_cuda(nodes, edges, kernel, bias, scale, bn_bias,
+                                neighbors, edge_mask, mean, var, *,
+                                eps: float = 1e-5, p=None):
+    """The bf16 instance of kernel 1 (``fused_cgconv_eval_cuda`` with
+    nodes and edges in bf16, everything else as there; its node pass
+    counts in ``fused_cgconv_node_bf16_cuda.launches``). Its plain
+    version is ``fused_cgconv_eval_reference`` on the widened inputs."""
+    return _eval_pass("fused_cgconv_eval_bf16_cuda", torch.bfloat16, nodes,
+                      edges, kernel, bias, scale, bn_bias, neighbors,
+                      edge_mask, mean, var, eps, p)
 
 
 fused_cgconv_eval_cuda.launches = 0
+fused_cgconv_eval_bf16_cuda.launches = 0
+EVAL_CUDA = {torch.float32: fused_cgconv_eval_cuda,
+             torch.bfloat16: fused_cgconv_eval_bf16_cuda}
+
+
+def _stats_pass(name: str, storage, nodes, edges, kernel, bias, neighbors,
+                edge_mask, shift, p):
+    args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
+                neighbors=neighbors, edge_mask=edge_mask, shift=shift)
+    n, m, f, g = _check_conv_args(name, args, storage)
+    smem = _stats_smem_bytes(g)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"G={g}: W_e's columns and the staged edge rows do not fit one "
+            f"block's shared memory ({smem} > {_SMEM_LIMIT} bytes)")
+    dev = nodes.device
+    if n == 0:
+        return torch.zeros((2, 2 * f), dtype=torch.float32, device=dev)
+    node_pass = p is None
+    if node_pass:
+        p = torch.empty((n, 4 * f), dtype=torch.float32, device=dev)
+    else:
+        _check_p(p, n, f, nodes)
+    blocks = min(-(-n * m // STATS_TILE_SLOTS), STATS_BLOCKS)
+    part = torch.empty((blocks, 2, 2 * f), dtype=torch.float32, device=dev)
+    out = torch.empty((2, 2 * f), dtype=torch.float32, device=dev)
+    _build.launch(
+        name,
+        _build.entry("fused_cgconv",
+                     f"cgconv_fused_stats_{INSTANCES[storage]}", 10, 6),
+        (nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
+         edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+         shift.data_ptr(), p.data_ptr(), part.data_ptr(), out.data_ptr()),
+        dict(N=n, M=m, F=f, G=g, blocks=blocks, node_pass=int(node_pass)),
+        dev)
+    STATS_CUDA[storage].launches += _build.counted(1)
+    NODE_CUDA[storage].launches += _build.counted(node_pass)
+    return out
 
 
 def fused_cgconv_stats_cuda(nodes, edges, kernel, bias, neighbors,
@@ -350,39 +452,25 @@ def fused_cgconv_stats_cuda(nodes, edges, kernel, bias, neighbors,
     ``fused_cgconv_eval_cuda``'s, with shift [2F] in place of the BN
     vectors; W_e's 128-column tiles and two staged tiles of edge rows must
     fit one block's shared memory (G up to about 200)."""
-    args = dict(nodes=nodes, edges=edges, kernel=kernel, bias=bias,
-                neighbors=neighbors, edge_mask=edge_mask, shift=shift)
-    n, m, f, g = _check_conv_args("fused_cgconv_stats_cuda", args)
-    smem = _stats_smem_bytes(g)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"G={g}: W_e's columns and the staged edge rows do not fit one "
-            f"block's shared memory ({smem} > {_SMEM_LIMIT} bytes)")
-    if n == 0:
-        return torch.zeros((2, 2 * f), dtype=torch.float32,
-                           device=nodes.device)
-    node_pass = p is None
-    if node_pass:
-        p = nodes.new_empty((n, 4 * f))
-    else:
-        _check_p(p, n, f, nodes)
-    blocks = min(-(-n * m // STATS_TILE_SLOTS), STATS_BLOCKS)
-    part = nodes.new_empty((blocks, 2, 2 * f))
-    out = nodes.new_empty((2, 2 * f))
-    _build.launch(
-        "fused_cgconv_stats",
-        _build.entry("fused_cgconv", "cgconv_fused_stats_f32", 10, 6),
-        (nodes.data_ptr(), edges.data_ptr(), neighbors.data_ptr(),
-         edge_mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-         shift.data_ptr(), p.data_ptr(), part.data_ptr(), out.data_ptr()),
-        dict(N=n, M=m, F=f, G=g, blocks=blocks, node_pass=int(node_pass)),
-        nodes.device)
-    fused_cgconv_stats_cuda.launches += _build.counted(1)
-    fused_cgconv_node_cuda.launches += _build.counted(node_pass)
-    return out
+    return _stats_pass("fused_cgconv_stats_cuda", torch.float32, nodes,
+                       edges, kernel, bias, neighbors, edge_mask, shift, p)
+
+
+def fused_cgconv_stats_bf16_cuda(nodes, edges, kernel, bias, neighbors,
+                                 edge_mask, shift, *, p=None):
+    """The bf16 instance of kernel 2 (``fused_cgconv_stats_cuda`` with
+    nodes and edges in bf16, staged widened to f32: the same shared
+    memory). Its plain version is ``fused_cgconv_stats_reference`` on the
+    widened inputs."""
+    return _stats_pass("fused_cgconv_stats_bf16_cuda", torch.bfloat16,
+                       nodes, edges, kernel, bias, neighbors, edge_mask,
+                       shift, p)
 
 
 fused_cgconv_stats_cuda.launches = 0
+fused_cgconv_stats_bf16_cuda.launches = 0
+STATS_CUDA = {torch.float32: fused_cgconv_stats_cuda,
+              torch.bfloat16: fused_cgconv_stats_bf16_cuda}
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +482,24 @@ def _f32(t):
     return t.float().contiguous()
 
 
+def instance(table: dict, nodes):
+    """The kernel wrapper of ``table`` for nodes' storage type; raises
+    for a type without an instance (never a cast to one that has)."""
+    fn = table.get(nodes.dtype)
+    if fn is None:
+        raise ValueError(
+            f"no instance of {table[torch.float32].__name__} for "
+            f"{nodes.dtype} (instances: {sorted(map(str, table))})")
+    return fn
+
+
+def _kernel_dtype(impl: str, dtype):
+    """The plain versions' compute type: the kernel's (f32 on the widened
+    inputs) for ``'pallas'``, the structured twin's ``dtype`` for
+    ``'xla'``."""
+    return torch.float32 if impl == "pallas" else dtype
+
+
 def fused_cgconv_eval(nodes, edges, kernel, bias, scale, bn_bias,
                       neighbors, edge_mask, mean, var, *,
                       eps: float = 1e-5, impl: str = "pallas",
@@ -402,12 +508,13 @@ def fused_cgconv_eval(nodes, edges, kernel, bias, scale, bn_bias,
     ``window`` is ignored (module docstring)."""
     del window
     if runs_kernel(impl, nodes):
-        return fused_cgconv_eval_cuda(
-            nodes, edges, kernel, bias, scale, bn_bias, neighbors,
-            edge_mask, mean, var, eps=eps)
+        return instance(EVAL_CUDA, nodes)(
+            nodes.contiguous(), edges.contiguous(), _f32(kernel),
+            _f32(bias), _f32(scale), _f32(bn_bias), neighbors.contiguous(),
+            _f32(edge_mask), _f32(mean), _f32(var), eps=eps)
     return fused_cgconv_eval_reference(
         nodes, edges, kernel, bias, scale, bn_bias, neighbors, edge_mask,
-        mean, var, eps=eps, dtype=dtype)
+        mean, var, eps=eps, dtype=_kernel_dtype(impl, dtype))
 
 
 class _FusedCGConv(torch.autograd.Function):
@@ -419,28 +526,30 @@ class _FusedCGConv(torch.autograd.Function):
         on_card = runs_kernel("pallas", nodes)
         shift = _shift_row0(nodes, edges, kernel, bias, neighbors, dtype)
         if on_card:
-            conv = (_f32(nodes), _f32(edges), _f32(kernel), _f32(bias))
+            # nodes and edges in their own storage type: the instance for
+            # it widens them on load (no f32 copy); the constants are f32
+            conv = (nodes.contiguous(), edges.contiguous(), _f32(kernel),
+                    _f32(bias))
             nbr, emask = neighbors.contiguous(), _f32(edge_mask)
             # one node pass feeds both slot passes
-            p = fused_cgconv_node_cuda(conv[0], conv[2], conv[3])
-            s = fused_cgconv_stats_cuda(*conv, nbr, emask, shift, p=p)
+            p = instance(NODE_CUDA, nodes)(conv[0], conv[2], conv[3])
+            s = instance(STATS_CUDA, nodes)(*conv, nbr, emask, shift, p=p)
         else:
             s = fused_cgconv_stats_reference(
-                nodes, edges, kernel, bias, neighbors, edge_mask, shift,
-                dtype=dtype)
+                nodes, edges, kernel, bias, neighbors, edge_mask, shift)
         n_real = edge_mask.float().sum()
         c = torch.clamp_min(n_real, 1.0)
         mean_s = s[0] / c
         var = torch.clamp_min(s[1] / c - mean_s * mean_s, 0.0)
         mean = mean_s + shift
         if on_card:
-            agg = fused_cgconv_eval_cuda(*conv, _f32(scale), _f32(bn_bias),
-                                         nbr, emask, mean, var, eps=eps,
-                                         p=p)
+            agg = instance(EVAL_CUDA, nodes)(
+                *conv, _f32(scale), _f32(bn_bias), nbr, emask, mean, var,
+                eps=eps, p=p)
         else:
             agg = fused_cgconv_eval_reference(
                 nodes, edges, kernel, bias, scale, bn_bias, neighbors,
-                edge_mask, mean, var, eps=eps, dtype=dtype)
+                edge_mask, mean, var, eps=eps)
         ctx.save_for_backward(nodes, edges, kernel, bias, scale, bn_bias,
                               neighbors, edge_mask, mean,
                               torch.rsqrt(var + eps), n_real,
@@ -553,12 +662,14 @@ def unfactored_flops(f: int, g: int, real_slots: int, real_rows: int) -> int:
     return 2 * 2 * f * (real_rows * f + real_slots * (f + g))
 
 
-def _pass_bytes(n: int, m: int, g: int, f: int) -> int:
+def _pass_bytes(n: int, m: int, g: int, f: int,
+                storage_bytes: int = 4) -> int:
     """The compulsory bytes of one apply pass: ``fused_conv_hbm_bytes``'s
-    inputs read once (nodes once: the GPU has no window tiles), the four
-    [2F] vectors, the [N, F] output written once."""
-    b = fused_conv_hbm_bytes(n, m, g, f)
-    return (b["reads_per_pass"] - n * f * 4 + 4 * 2 * f * 4
+    inputs read once (nodes once: the GPU has no window tiles; nodes and
+    edges at ``storage_bytes`` an element, 2 for the bf16 instances), the
+    four [2F] vectors, the [N, F] f32 output written once."""
+    b = fused_conv_hbm_bytes(n, m, g, f, dtype_bytes=storage_bytes)
+    return (b["reads_per_pass"] - n * f * storage_bytes + 4 * 2 * f * 4
             + b["write_bytes"])
 
 
@@ -570,17 +681,17 @@ def _factored_flops(g: int, f: int, real_slots: int, touched: int) -> int:
 
 
 def eval_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
-                   touched: int) -> dict:
+                   touched: int, storage_bytes: int = 4) -> dict:
     """Compulsory work of one eval pass on this data, counted as the least
     work (the factored z, ``_factored_flops``); bytes as ``_pass_bytes``
     (the P scratch is not compulsory). The gate's transcendentals are not
     counted."""
-    return {"bytes": _pass_bytes(n, m, g, f),
+    return {"bytes": _pass_bytes(n, m, g, f, storage_bytes),
             "flops": _factored_flops(g, f, real_slots, touched)}
 
 
 def stats_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
-                    touched: int) -> dict:
+                    touched: int, storage_bytes: int = 4) -> dict:
     """Compulsory work of one stats pass on this data: the inputs of
     ``eval_pass_cost`` with the shift [2F] in place of the three BN
     vectors and the [2, 2F] sums in place of the [N, F] output; FLOPs the
@@ -588,8 +699,8 @@ def stats_pass_cost(n: int, m: int, g: int, f: int, real_slots: int,
     add, multiply-add) per real slot and channel for the two moments. The
     count of z taken whole per slot, the first design's work, is
     ``unfactored_flops`` plus the same three."""
-    nbytes = (_pass_bytes(n, m, g, f) - 2 * 2 * f * 4 - n * f * 4
-              + 2 * 2 * f * 4)
+    nbytes = (_pass_bytes(n, m, g, f, storage_bytes) - 2 * 2 * f * 4
+              - n * f * 4 + 2 * 2 * f * 4)
     return {"bytes": nbytes,
             "flops": _factored_flops(g, f, real_slots, touched)
             + 3 * real_slots * 2 * f}

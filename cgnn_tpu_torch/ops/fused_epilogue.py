@@ -17,6 +17,13 @@ Each pass has three pieces here:
   that is not on the CPU (launch or raise, never a fallback) and the plain
   version otherwise.
 
+bf16 z: kernels 4 and 5 have bf16 instances (``epilogue_reduce_bf16_cuda``,
+``epilogue_dz_bf16_cuda``) that widen z on load, compute in f32 and (kernel
+5) write dz in bf16, as ``_reduce_kernel`` and ``_dz_kernel`` do; their
+plain versions are the f32 ones on the widened z, dz cast to z's type.
+Kernel 3 has none yet (ROADMAP Queue 2): a bf16 z on the card under
+``'pallas'`` raises there.
+
 The batch statistics stay in plain torch (``masked_stats``, the JAX
 estimator). Kernels 4 and 5 also serve the backward of the whole-conv op
 (ops/fused_cgconv.py). ``FusedBN1GateSum`` is the module: its parameter and
@@ -140,9 +147,11 @@ REDUCE_BLOCKS = 264  # kernel 4's persistent grid: at most two blocks an
                      # SM of an H100's 132, one [4, 2F] partial each
 
 
-def _check(name, z, mask, cst, extra: dict) -> tuple[int, int, int]:
-    """Device, dtype, contiguity and shape checks shared by the three
-    wrappers; -> (N, M, F)."""
+def _check(name, z, mask, cst, extra: dict,
+           z_dtype=torch.float32) -> tuple[int, int, int]:
+    """Device, dtype, contiguity and shape checks shared by the
+    wrappers: z of the instance's type ``z_dtype``, the rest f32;
+    -> (N, M, F)."""
     dev = z.device
     if dev.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors, got {dev}")
@@ -159,8 +168,9 @@ def _check(name, z, mask, cst, extra: dict) -> tuple[int, int, int]:
     for k, t in args.items():
         if t.device != dev:
             raise ValueError(f"{k} is on {t.device}, z on {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{k} must be torch.float32, got {t.dtype}")
+        dtype = z_dtype if k == "z" else torch.float32
+        if t.dtype != dtype:
+            raise ValueError(f"{k} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{k} must be contiguous")
         if tuple(t.shape) != want[k]:
@@ -169,14 +179,19 @@ def _check(name, z, mask, cst, extra: dict) -> tuple[int, int, int]:
     return n, m, f
 
 
-def _launch(name: str, n_ptrs: int, ptrs, n, m, f, dev, blocks=None):
-    """Launch ``<name>_f32`` with N, M, F and one more int: kernel 4's
-    ``blocks``, else the rows a block of kernels 3 and 5."""
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _launch(name: str, n_ptrs: int, ptrs, n, m, f, dev, blocks=None,
+            z_dtype=torch.float32):
+    """Launch ``<name>_f32`` (``_bf16`` for a bf16 z) with N, M, F and one
+    more int: kernel 4's ``blocks``, else the rows a block of kernels 3
+    and 5."""
     last = ({"rows": rows_per_block(f)} if blocks is None
             else {"blocks": blocks})
-    _build.launch(name, _build.entry("fused_epilogue", f"{name}_f32",
-                                     n_ptrs, 4), ptrs,
-                  dict(N=n, M=m, F=f, **last), dev)
+    _build.launch(name, _build.entry(
+        "fused_epilogue", f"{name}_{_SUFFIX[z_dtype]}", n_ptrs, 4), ptrs,
+        dict(N=n, M=m, F=f, **last), dev)
 
 
 def epilogue_apply_cuda(z, mask, cst):
@@ -193,12 +208,9 @@ def epilogue_apply_cuda(z, mask, cst):
     return out
 
 
-def epilogue_reduce_cuda(z, mask, cst, ct):
-    """Kernel 4 (replaces fused_epilogue.py ``_reduce_kernel``): -> [4, 2F],
-    one partial for each of at most ``REDUCE_BLOCKS`` blocks, summed in a
-    fixed order (bit-identical run to run)."""
-    n, m, f = _check("epilogue_reduce_cuda", z, mask, cst,
-                     {"ct": (ct, (z.shape[0], z.shape[-1] // 2))})
+def _reduce(name, z_dtype, z, mask, cst, ct):
+    n, m, f = _check(name, z, mask, cst,
+                     {"ct": (ct, (z.shape[0], z.shape[-1] // 2))}, z_dtype)
     if n == 0:
         return torch.zeros((4, 2 * f), dtype=torch.float32, device=z.device)
     out = torch.empty((4, 2 * f), dtype=torch.float32, device=z.device)
@@ -208,30 +220,62 @@ def epilogue_reduce_cuda(z, mask, cst, ct):
     _launch("epilogue_reduce", 6,
             (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), ct.data_ptr(),
              part.data_ptr(), out.data_ptr()), n, m, f, z.device,
-            blocks=blocks)
-    epilogue_reduce_cuda.launches += _build.counted(1)
+            blocks=blocks, z_dtype=z_dtype)
+    REDUCE_CUDA[z_dtype].launches += _build.counted(1)
+    return out
+
+
+def epilogue_reduce_cuda(z, mask, cst, ct):
+    """Kernel 4 (replaces fused_epilogue.py ``_reduce_kernel``): -> [4, 2F],
+    one partial for each of at most ``REDUCE_BLOCKS`` blocks, summed in a
+    fixed order (bit-identical run to run)."""
+    return _reduce("epilogue_reduce_cuda", torch.float32, z, mask, cst, ct)
+
+
+def epilogue_reduce_bf16_cuda(z, mask, cst, ct):
+    """The bf16 instance of kernel 4: z bf16, the rest as
+    ``epilogue_reduce_cuda``'s."""
+    return _reduce("epilogue_reduce_bf16_cuda", torch.bfloat16, z, mask,
+                   cst, ct)
+
+
+def _dz(name, z_dtype, z, mask, cst, red5, ct):
+    n, m, f = _check(name, z, mask, cst,
+                     {"red5": (red5, (5, z.shape[-1])),
+                      "ct": (ct, (z.shape[0], z.shape[-1] // 2))}, z_dtype)
+    out = torch.empty_like(z)
+    if n == 0:
+        return out
+    _launch("epilogue_dz", 6,
+            (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), red5.data_ptr(),
+             ct.data_ptr(), out.data_ptr()), n, m, f, z.device,
+            z_dtype=z_dtype)
+    DZ_CUDA[z_dtype].launches += _build.counted(1)
     return out
 
 
 def epilogue_dz_cuda(z, mask, cst, red5, ct):
     """Kernel 5 (replaces fused_epilogue.py ``_dz_kernel``): -> dz [N, M,
     2F], written once, padding slots 0."""
-    n, m, f = _check("epilogue_dz_cuda", z, mask, cst,
-                     {"red5": (red5, (5, z.shape[-1])),
-                      "ct": (ct, (z.shape[0], z.shape[-1] // 2))})
-    out = torch.empty_like(z)
-    if n == 0:
-        return out
-    _launch("epilogue_dz", 6,
-            (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), red5.data_ptr(),
-             ct.data_ptr(), out.data_ptr()), n, m, f, z.device)
-    epilogue_dz_cuda.launches += _build.counted(1)
-    return out
+    return _dz("epilogue_dz_cuda", torch.float32, z, mask, cst, red5, ct)
+
+
+def epilogue_dz_bf16_cuda(z, mask, cst, red5, ct):
+    """The bf16 instance of kernel 5: z bf16 -> dz bf16 (each value the
+    f32 instance's, rounded to nearest even), the rest f32."""
+    return _dz("epilogue_dz_bf16_cuda", torch.bfloat16, z, mask, cst, red5,
+               ct)
 
 
 epilogue_apply_cuda.launches = 0
 epilogue_reduce_cuda.launches = 0
+epilogue_reduce_bf16_cuda.launches = 0
 epilogue_dz_cuda.launches = 0
+epilogue_dz_bf16_cuda.launches = 0
+REDUCE_CUDA = {torch.float32: epilogue_reduce_cuda,
+               torch.bfloat16: epilogue_reduce_bf16_cuda}
+DZ_CUDA = {torch.float32: epilogue_dz_cuda,
+           torch.bfloat16: epilogue_dz_bf16_cuda}
 
 
 # ---------------------------------------------------------------------------
@@ -263,16 +307,19 @@ def epilogue_backward(z, mask, cst, n_real, ct, impl: str):
     then kernel 5 with 1 / max(n_real, 1) precomputed."""
     on_card = runs_kernel(impl, z)
     if on_card:
+        if z.dtype not in REDUCE_CUDA:
+            raise ValueError(f"kernels 4 and 5 have no instance for z of "
+                             f"{z.dtype}")
         z, mask = z.contiguous(), mask.float().contiguous()
         ct = ct.float().contiguous()
-        red = epilogue_reduce_cuda(z, mask, cst, ct)
+        red = REDUCE_CUDA[z.dtype](z, mask, cst, ct)
     else:
         red = epilogue_reduce_reference(z, mask, cst, ct)
     inv_c = (1.0 / torch.clamp_min(n_real.float(), 1.0)) * red.new_ones(
         (1, red.shape[1]))
     red5 = torch.cat([red, inv_c], dim=0)
     if on_card:
-        dz = epilogue_dz_cuda(z, mask, cst, red5, ct)
+        dz = DZ_CUDA[z.dtype](z, mask, cst, red5, ct)
     else:
         dz = epilogue_dz_reference(z, mask, cst, red5, ct)
     return dz, red[1], red[0]
@@ -344,13 +391,14 @@ class FusedBN1GateSum(MaskedBatchNorm):
 
 
 def epilogue_pass_cost(kind: str, n: int, m: int, f: int,
-                       real_slots: int) -> dict:
+                       real_slots: int, z_bytes: int = 4) -> dict:
     """Compulsory bytes and f32 operations of one pass on this data: every
     input read once, every output written once (z [N, M, 2F], mask [N, M],
     cst [4, 2F], ct [N, F], red5 [5, 2F]; outputs agg [N, F], red [4, 2F],
-    dz [N, M, 2F]). Operations: the arithmetic per real slot and channel
+    dz [N, M, 2F]; ``z_bytes`` a z and dz element: 2 for the bf16
+    instances). Operations: the arithmetic per real slot and channel
     (apply 5, reduce 16, dz 19, counting each transcendental as one)."""
-    z_b = n * m * 2 * f * 4
+    z_b = n * m * 2 * f * z_bytes
     base = z_b + n * m * 4 + 4 * 2 * f * 4
     nbytes = {
         "apply": base + n * f * 4,

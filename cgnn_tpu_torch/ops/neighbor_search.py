@@ -300,7 +300,7 @@ def neighbor_search(frac, lats, amask, spec: RawSpec, impl: str = "pallas",
 
 
 def make_raw_expander(spec: RawSpec, impl: str = "pallas",
-                      device="cuda") -> Callable:
+                      device="cuda", edge_dtype=torch.float32) -> Callable:
     """RawBatch -> (GraphBatch, overflow [G] bool, n_edges [G] i32), the
     raw wire's graph construction on ``device``.
 
@@ -309,7 +309,10 @@ def make_raw_expander(spec: RawSpec, impl: str = "pallas",
     structure g owns node slots ``[g*S, (g+1)*S)``; every dense-layout
     invariant holds (centers = slot // M, masks zero on padding, padding
     edge slots self-loop their node). Fields the model does not read
-    (geometry, force labels, transpose slots) are None.
+    (geometry, force labels, transpose slots) are None. The edge
+    features are cast to ``edge_dtype`` (bf16 for a bf16 model) on the
+    device, last, as the JAX expander casts them (neighbor_search.py:292);
+    the search itself runs on f32 positions either way.
     """
     check_impl(impl)
     dev = resolve_device(device)
@@ -330,7 +333,8 @@ def make_raw_expander(spec: RawSpec, impl: str = "pallas",
             * node_mask[:, None]
         # the one radial-basis formula, division form
         efea = torch.exp(-((dist[..., None] - mu) ** 2) / var2)
-        edges = (efea * emask[..., None]).reshape(g_cap * s_cap, m, -1)
+        edges = (efea * emask[..., None]).to(edge_dtype).reshape(
+            g_cap * s_cap, m, -1)
         base = (torch.arange(g_cap, dtype=torch.int32, device=dev)
                 * s_cap)[:, None, None]
         gb = GraphBatch(

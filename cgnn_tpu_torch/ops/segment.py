@@ -35,9 +35,14 @@ class _SortedGather(torch.autograd.Function):
         ct = ct.contiguous()
         if ctx.has_perm:
             ct = ct.index_select(0, perm)
-        if runs_kernel(ctx.impl, ct) and ct.dtype == torch.float32:
+        if runs_kernel(ctx.impl, ct):
+            # kernel 6 or a raise: never the library call in its place
+            if ct.dtype != torch.float32:
+                raise ValueError(
+                    f"kernel 6 has no instance for a {ct.dtype} cotangent "
+                    f"(f32 only; its bf16 instance is ROADMAP Queue 2)")
             grad = segment_sum_sorted_cuda(ct, offsets)
-        else:  # in the cotangent's own dtype
+        else:  # the plain version, in the cotangent's own dtype
             grad = torch.segment_reduce(ct, "sum", offsets=offsets, axis=0,
                                         unsafe=True)
         return grad, None, None, None, None

@@ -10,7 +10,10 @@ the model and featurization configs from its meta, the weights and the
 normalizer through ``train.checkpoint.load_for_inference`` (``--best``
 for the best save, else the newest restorable one). It predicts and writes
 ``predict.py``'s CSV rows, ``id, target..., prediction...``, each number
-``%.6f``, in input order.
+``%.6f``, in input order. A classifier's prediction columns are its
+``num_classes`` log-probs; a multi-task model's, its T targets. A bf16
+model (``dtype`` in the meta) stages its edge features in bf16 on every
+wire.
 
 Data, as in ``predict.py``: ``--cache PATH`` (a graph cache, data/cache.py;
 a missing file exits 2), else ``--synthetic N``, else the CIF directory
@@ -132,9 +135,9 @@ def main(argv=None) -> int:
         print(e, file=sys.stderr)
         return 2
     task = meta.get("task", "regression")
-    if task != "regression":
-        print(f"task {task!r} is not ported yet (ROADMAP Queue 1, items 7 "
-              f"and 8)", file=sys.stderr)
+    if task not in ("regression", "classification"):
+        print(f"task {task!r} is not ported yet (ROADMAP Queue 1, item 8)",
+              file=sys.stderr)
         return 2
     model_cfg = ModelConfig.from_meta(meta["model"]).for_arbitrary_inputs()
     return _run(args, state, model_cfg, DataConfig.from_meta(meta["data"]),
@@ -159,7 +162,7 @@ def _load(args, fcfg, want_raw: bool):
     return load_cif_directory(args.root_dir, fcfg, keep_geometry=want_raw)
 
 
-def _compact_spec(args, graphs, fcfg, layout_m, dev):
+def _compact_spec(args, graphs, fcfg, layout_m, dev, edge_dtype):
     """-> (CompactSpec or None, None), or (None, why ``--compact on``
     cannot be served)."""
     if args.compact == "off" or (args.compact == "auto"
@@ -171,7 +174,8 @@ def _compact_spec(args, graphs, fcfg, layout_m, dev):
         if layout_m is None:
             raise CompactUnsupported("compact staging requires the dense "
                                      "layout")
-        return CompactSpec.build(graphs, fcfg.gdf(), dense_m=layout_m), None
+        return CompactSpec.build(graphs, fcfg.gdf(), dense_m=layout_m,
+                                 edge_dtype=edge_dtype), None
     except CompactUnsupported as e:
         if args.compact == "on":
             return None, f"--compact on: compact staging unavailable ({e})"
@@ -201,7 +205,9 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
         return 2
     layout_m = model_cfg.dense_m or None
     n_targets = model_cfg.num_targets
-    compact, why = _compact_spec(args, graphs, fcfg, layout_m, dev)
+    edge_dtype = model_cfg.torch_dtype
+    compact, why = _compact_spec(args, graphs, fcfg, layout_m, dev,
+                                 edge_dtype)
     if why:
         print(why, file=sys.stderr)
         return 2
@@ -238,7 +244,8 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
                       file=sys.stderr)
         shape_set = plan_shape_set(graphs, args.batch_size, rungs=args.rungs,
                                    dense_m=layout_m, num_targets=n_targets,
-                                   compact=compact, raw=raw_spec)
+                                   compact=compact, raw=raw_spec,
+                                   edge_dtype=edge_dtype)
         raw_idx: list[int] = []
         raws: list = []
         if raw_spec is not None:
@@ -249,7 +256,9 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
                        if r is not None and shape_set.admits_raw(r)]
         admitted = set(raw_idx)
         feat_idx = [i for i in range(len(graphs)) if i not in admitted]
-        preds = np.zeros((len(graphs), n_targets), np.float32)
+        # the model's columns: a classifier's num_classes log-probs, not
+        # the label width
+        preds = np.zeros((len(graphs), model_cfg.out_dim), np.float32)
         counts["batches_featurized"] = 0
         # one rate over both wires, end to end
         t0 = time.perf_counter()

@@ -27,7 +27,7 @@ The default device is the card, which raises without one; ``--device
 cpu`` runs the kernels' plain versions.
 
 Flags refused, exit 2, each naming its ROADMAP item (Queue 1):
-``--precision`` other than f32 (item 7); ``--devices`` other than auto/1
+``--precision`` other than f32 (item 11); ``--devices`` other than auto/1
 and ``--engine mesh`` (items 9 and 11); ``--telemetry-dir``,
 ``--live-metrics``, ``--profile-dir``, ``--trace-ring``,
 ``--flightrec-dir``, ``--log-json`` and the SLO flags (``--no-slo``,
@@ -149,8 +149,9 @@ def _unported(args) -> str | None:
     """Why these arguments ask for something not ported, or None."""
     tiers = [t.strip() for t in str(args.precision).split(",") if t.strip()]
     if tiers and tiers != ["f32"]:
-        return (f"--precision {args.precision}: only f32 is ported (bf16 "
-                f"and int8 tiers: ROADMAP Queue 1, item 7)")
+        return (f"--precision {args.precision}: only the model's own tier, "
+                f"f32, is served (the bf16 and int8 tiers of quantize.py: "
+                f"ROADMAP Queue 1, item 11)")
     if args.devices not in ("auto", "1") or args.engine == "mesh":
         return ("--devices other than auto/1 and --engine mesh are not "
                 "ported yet (ROADMAP Queue 1, items 9 and 11)")

@@ -57,8 +57,13 @@ featurization knows.
 what was accepted and exits. ``install_signal_handlers()`` turns SIGTERM
 and SIGINT into that drain.
 
-Not ported yet: precision tiers beyond f32 (ROADMAP Queue 1, item 7),
-multi-device engines (items 9 and 11), the edge-occupancy gauges, the
+A model serves in the dtype it was trained in: a bf16 model's flushes stage
+bf16 edge features on every wire (``ShapeSet.edge_dtype``, from the
+meta's ``dtype``) and run the bf16 kernel instances; a classifier answers
+its ``num_classes`` log-probs, a multi-task model its T targets.
+
+Not ported yet: precision tiers other than the model's own (the
+``quantize.py`` tiers, ROADMAP Queue 1, item 11), multi-device engines (items 9 and 11), the edge-occupancy gauges, the
 telemetry, span, SLO, time-series and flight-recorder plane (item 11), the
 label journal and peer cache fill (item 12).
 """
@@ -114,8 +119,8 @@ from cgnn_tpu_torch.train.graphs import GraphCache, StepGraph
 from cgnn_tpu_torch.train.normalizer import Normalizer
 from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
 
-# the precision tiers this server warms: f32 only (bf16 and int8 wait
-# for bf16 instances of kernels 1 and 8, ROADMAP Queue 1, item 7)
+# the precision tiers this server warms: the model's own, named f32 (the
+# quantized tiers are ROADMAP Queue 1, item 11)
 PRECISIONS = ("f32",)
 
 
@@ -1069,14 +1074,14 @@ def load_server(
         try:
             compact_spec = CompactSpec.build(
                 list(calibration), data_cfg.featurize_config().gdf(),
-                dense_m=dense_m)
+                dense_m=dense_m, edge_dtype=model_cfg.torch_dtype)
         except CompactUnsupported as e:
             log_fn(f"serve: compact staging unavailable ({e}); full "
                    f"packing")
     shape_set = plan_shape_set(
         calibration, batch_size, rungs=rungs, dense_m=dense_m,
         num_targets=model_cfg.num_targets, compact=compact_spec,
-        raw=raw_spec,
+        raw=raw_spec, edge_dtype=model_cfg.torch_dtype,
     )
     if pack_workers is None:
         pack_workers = 1 if dev.type == "cuda" else 0

@@ -26,6 +26,7 @@ import math
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from cgnn_tpu_torch.data.compact import (
     CompactBatch,
@@ -72,18 +73,24 @@ class BatchShape:
 
 class ShapeSet:
     """An ascending ladder of :class:`BatchShape` rungs plus the packing
-    parameters every rung shares (edge layout, target width, the compact
-    and raw specs)."""
+    parameters every rung shares (edge layout, target width, the edge
+    features' storage type, the compact and raw specs)."""
 
     def __init__(self, shapes: Sequence[BatchShape], *,
                  dense_m: int | None = None, num_targets: int = 1,
                  compact: CompactSpec | None = None,
-                 raw: RawSpec | None = None):
+                 raw: RawSpec | None = None,
+                 edge_dtype=torch.float32):
         if not shapes:
             raise ValueError("a ShapeSet needs at least one shape")
         self.shapes = tuple(sorted(set(shapes)))
         self.dense_m = dense_m
         self.num_targets = num_targets
+        self.edge_dtype = edge_dtype
+        if compact is not None and compact.edge_dtype != edge_dtype:
+            raise ValueError(
+                f"compact spec edge_dtype {compact.edge_dtype} != the "
+                f"set's {edge_dtype}")
         self.compact = compact
         if compact is not None and dense_m is None:
             raise ValueError("compact staging requires the dense layout "
@@ -180,6 +187,7 @@ class ShapeSet:
         return pack_graphs(
             list(graphs), shape.node_cap, shape.edge_cap, shape.graph_cap,
             num_targets=self.num_targets, dense_m=self.dense_m,
+            edge_dtype=self.edge_dtype,
         )
 
     def compactable(self, graph: CrystalGraph) -> bool:
@@ -221,7 +229,8 @@ class ShapeSet:
             return None
         from cgnn_tpu_torch.ops.neighbor_search import make_raw_expander
 
-        return make_raw_expander(self.raw, impl=impl, device=device)
+        return make_raw_expander(self.raw, impl=impl, device=device,
+                                 edge_dtype=self.edge_dtype)
 
     def admits_raw(self, rs: RawStructure) -> bool:
         """Host pre-check: can this wire-form structure stage raw? False
@@ -247,6 +256,7 @@ class ShapeSet:
     def to_meta(self) -> dict:
         return {"shapes": [s.to_meta() for s in self.shapes],
                 "dense_m": self.dense_m, "num_targets": self.num_targets,
+                "edge_dtype": str(self.edge_dtype).replace("torch.", ""),
                 "compact": self.compact is not None,
                 "raw": None if self.raw is None else self.raw.to_meta()}
 
@@ -260,6 +270,7 @@ def plan_shape_set(
     num_targets: int | None = None,
     compact: CompactSpec | None = None,
     raw: RawSpec | None = None,
+    edge_dtype=torch.float32,
 ) -> ShapeSet:
     """Quantize a serving ladder from a calibration sample.
 
@@ -268,7 +279,8 @@ def plan_shape_set(
     the graph budget and scales node capacity proportionally (8-aligned),
     floored so that ANY calibration-sized structure fits EVERY rung.
     ``compact`` adds compact staging (``data.compact.CompactSpec.build``),
-    ``raw`` the raw wire (``data.rawbatch.plan_raw_spec``).
+    ``raw`` the raw wire (``data.rawbatch.plan_raw_spec``);
+    ``edge_dtype`` the edge features' storage type (the model's dtype).
     """
     if not len(calibration):
         raise ValueError("shape planning needs a calibration sample")
@@ -291,4 +303,4 @@ def plan_shape_set(
             ec = _align8(max(math.ceil(edge_cap / scale), max_edges))
         shapes.append(BatchShape(graph_cap_for(b), nc, ec))
     return ShapeSet(shapes, dense_m=dense_m, num_targets=num_targets,
-                    compact=compact, raw=raw)
+                    compact=compact, raw=raw, edge_dtype=edge_dtype)

@@ -1,7 +1,10 @@
-"""Train the CGCNN regression model with the port:
+"""Train CGCNN with the port:
 
     python -m cgnn_tpu_torch.train DATA_DIR --cache graphs.npz --epochs 30
     python -m cgnn_tpu_torch.train --synthetic 400 --epochs 30
+    python -m cgnn_tpu_torch.train --synthetic 400 --bf16 --cgconv-impl pallas
+    python -m cgnn_tpu_torch.train DATA_DIR --task classification --dropout 0.1
+    python -m cgnn_tpu_torch.train DATA_DIR --multi-task-head --n-h 2
     python -m cgnn_tpu_torch.train --device cpu --synthetic 40 --epochs 1
     python -m cgnn_tpu_torch.train --aggregation pallas --synthetic 400
     python -m cgnn_tpu_torch.train --synthetic 400 --epochs 40 --resume auto
@@ -54,13 +57,27 @@ op. The ``CGNN_TPU_FAULTS`` variable injects faults
 (resilience/faultinject.py) and is announced as ``FAULT INJECTION
 ACTIVE``.
 
+Tasks and modes, with train.py's flags: ``--task classification``
+(``--num-classes`` log-prob head, NLL loss, accuracy; the first label
+column must hold class indices in [0, num_classes), else exit 2 naming
+the first bad row; an identity normalizer; the best save is the highest
+validation accuracy; the test split's ``class_eval`` line: accuracy and,
+for two classes, precision, recall, F1 and AUC), ``--dropout P`` (after
+``conv_to_fc``, classification only, its masks drawn from a generator
+seeded by ``--seed`` and saved with the optimizer state),
+``--multi-task-head`` (one softplus stack a target column, each task's
+test MAE printed), ``--bf16`` (bf16 compute with f32 parameters and
+statistics, bf16 edge storage; on the card the bf16 kernel instances).
+``--task force`` exits 2 (ROADMAP Queue 1, item 8).
+
 The flags are train.py's that this entry point serves, with train.py's
 defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
 CPU (where the kernels' plain versions run); without a card the default
 raises. At the end it writes ``params.npz`` + ``meta.json`` to
 ``--out-dir`` (the JAX layout, convert.save_params), which ``load_server``
-serves, and prints the test-split MAE and one ``train: {...}`` JSON line
-(``run_summary``: epoch seconds, step graphs, the driver's staging).
+serves, and prints the test-split MAE (a classifier's accuracy) and one
+``train: {...}`` JSON line (``run_summary``: epoch seconds, step graphs,
+the driver's staging, the test metrics).
 """
 
 from __future__ import annotations
@@ -76,7 +93,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m cgnn_tpu_torch.train",
-        description="Train CGCNN (regression) with the PyTorch/CUDA port.")
+        description="Train CGCNN with the PyTorch/CUDA port.")
     p.add_argument("root_dir", nargs="?", default=None,
                    help="dataset dir: {id}.cif files + id_prop.csv")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
@@ -87,6 +104,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "cgnn_tpu_torch.data.preprocess)")
     p.add_argument("-j", "--workers", type=int, default=0,
                    help="featurization worker processes (0 = all cores)")
+    p.add_argument("--task", default="regression",
+                   choices=["regression", "classification", "force"])
+    p.add_argument("--num-classes", type=int, default=2)
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="dropout after conv_to_fc (classification only)")
+    p.add_argument("--multi-task-head", action="store_true",
+                   help="per-task MLP stacks over the pooled features "
+                        "(multi-target regression)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute (f32 parameters and statistics, "
+                        "bf16 edge storage)")
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--start-epoch", type=int, default=0)
     p.add_argument("-b", "--batch-size", type=int, default=256)
@@ -214,6 +242,10 @@ def resolve_layout(args) -> int | None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.task == "force":
+        print("--task force is not ported yet (ROADMAP Queue 1, item 8)",
+              file=sys.stderr)
+        return 2
     dense_m = resolve_layout(args)
     if dense_m is None:
         return 2
@@ -276,9 +308,18 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
     train_g, val_g, test_g = train_val_test_split(
         graphs, args.train_ratio, args.val_ratio, seed=args.seed)
     num_targets = int(train_g[0].target.shape[0])
+    classification = args.task == "classification"
+    if classification:
+        bad = bad_label(graphs, args.num_classes)
+        if bad is not None:
+            print(bad, file=sys.stderr)
+            return 2
     model_cfg = ModelConfig(
         atom_fea_len=args.atom_fea_len, n_conv=args.n_conv,
         h_fea_len=args.h_fea_len, n_h=args.n_h, num_targets=num_targets,
+        classification=classification, num_classes=args.num_classes,
+        dropout=args.dropout, dtype="bfloat16" if args.bf16 else "float32",
+        multi_task_head=args.multi_task_head,
         aggregation=args.aggregation, dense_m=dense_m,
         fused_epilogue="" if args.fused_epilogue == "off"
         else args.fused_epilogue,
@@ -296,7 +337,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
             return 2
         start_epoch, resume_meta = resumed
         meta_base = {"model": model_cfg.to_meta(), "data": data_cfg.to_meta(),
-                     "task": "regression"}
+                     "task": args.task}
+        sel_key = "correct" if classification else "mae"
         monitor = None
         if args.guard == "rollback":
             monitor = DivergenceMonitor(
@@ -309,14 +351,15 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
 
         def save(s, epoch, val_m, is_best):
             extra = monitor.meta() if monitor is not None else {}
+            # train.py's key, whatever the selection metric
             ckpt.save(s, dict(meta_base, epoch=epoch,
-                              best_mae=val_m.get("mae", -1.0), **extra),
+                              best_mae=val_m.get(sel_key, -1.0), **extra),
                       is_best=is_best)
 
         compact = None
         if args.compact_staging != "off" and compact_ok:
             compact = _compact_spec(args, train_g + val_g + test_g,
-                                    data_cfg, dense_m)
+                                    data_cfg, dense_m, model_cfg.torch_dtype)
         with (debug_nans(state.model) if args.debug_nans
               else contextlib.nullcontext()):
             state, result = fit(
@@ -339,9 +382,18 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         return resumable_exit(print)
     test_m = evaluate(state, test_g, args.batch_size, node_cap, dense_m,
                       dev, edge_cap=edge_cap)
-    print(f"** test mae: {test_m.get('mae', float('nan')):.4f} "
+    print(f"** test {sel_key}: {test_m.get(sel_key, float('nan')):.4f} "
           f"(best val: {result['best']:.4f})")
-    print("train: " + json.dumps(run_summary(result, len(train_g)),
+    for t in range(num_targets):
+        if f"mae_task{t}" in test_m:
+            print(f"** test mae task {t}: {test_m[f'mae_task{t}']:.4f}")
+    if classification:
+        cls, n_batches = class_eval_on(state, test_g, args.batch_size,
+                                         node_cap, edge_cap, dense_m, dev)
+        test_m = dict(test_m, **cls, class_eval_batches=n_batches)
+        print("** test " + "  ".join(
+            f"{k} {v:.4f}" for k, v in cls.items() if v == v))
+    print("train: " + json.dumps(run_summary(result, len(train_g), test_m),
                                  allow_nan=False))
     os.makedirs(args.out_dir, exist_ok=True)
     npz = os.path.join(args.out_dir, "params.npz")
@@ -355,10 +407,12 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
     return 0
 
 
-def run_summary(result: dict, n_train: int) -> dict:
+def run_summary(result: dict, n_train: int, test: dict | None = None
+                ) -> dict:
     """The run's machine-readable line: per-epoch seconds and train
     structures/s (the epoch's train and validation wall), the step
-    graphs' captures and replays, and the driver's staging."""
+    graphs' captures and replays, the driver's staging, and the test
+    metrics (a NaN, e.g. an AUC with one class present, as null)."""
     hist = result["history"]
     out = {"epochs": [h["epoch"] for h in hist],
            "epoch_seconds": [h["seconds"] for h in hist],
@@ -367,17 +421,65 @@ def run_summary(result: dict, n_train: int) -> dict:
            "graphs": result["graphs"]}
     if "staging" in result:
         out["staging"] = result["staging"]
+    if test is not None:
+        out["test"] = {k: (None if v != v else v) for k, v in test.items()}
     return out
 
 
-def _compact_spec(args, graphs, data_cfg, dense_m):
+def bad_label(graphs, num_classes: int) -> str | None:
+    """Why the first label column does not hold class indices in [0,
+    num_classes) (the row that does not, in dataset order), or None. A
+    label the step truncates (as train.py's int32 cast) into the range
+    passes; an out-of-range index would make a gather on the card
+    assert."""
+    import numpy as np
+
+    for i, g in enumerate(graphs):
+        t = float(np.atleast_1d(g.target)[0])
+        if not (np.isfinite(t) and 0 <= int(t) < num_classes):
+            return (f"--task classification: row {i} ({g.cif_id!r}) has "
+                    f"label {t!r}, outside [0, {num_classes}) "
+                    f"(--num-classes {num_classes})")
+    return None
+
+
+def class_eval_on(state, graphs, batch_size: int, node_cap: int,
+                    edge_cap: int, dense_m, dev) -> tuple[dict, int]:
+    """train.py's test ``class_eval``: the predict step's log-probs for
+    each test structure, in order, on eager steps -> (class_eval's
+    metrics, predict batches run)."""
+    import numpy as np
+
+    from cgnn_tpu_torch.data.graph import batch_iterator
+    from cgnn_tpu_torch.train.loop import batch_caps, edge_pack_fn
+    from cgnn_tpu_torch.train.metrics import class_eval
+    from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
+
+    dense_m = dense_m or None
+    node_cap, edge_cap = batch_caps(graphs, batch_size, dense_m, node_cap,
+                                    edge_cap)
+    step = make_predict_step()
+    inference = InferenceState(state.model, state.normalizer)
+    state.model.eval()
+    scores, n_batches = [], 0
+    for b in batch_iterator(graphs, batch_size, node_cap, edge_cap,
+                            dense_m=dense_m, in_cap=0, snug=True,
+                            pack_fn=edge_pack_fn(state.model.dtype)):
+        n_real = int(b.graph_mask.sum())
+        scores.append(step(inference, b.to(dev))[:n_real].cpu().numpy())
+        n_batches += 1
+    labels = np.array([int(np.atleast_1d(g.target)[0]) for g in graphs])
+    return class_eval(np.concatenate(scores), labels), n_batches
+
+
+def _compact_spec(args, graphs, data_cfg, dense_m, edge_dtype):
     """train.py's compact-staging rule: the spec, or None after saying
     why the data cannot stage compactly (``on`` raises instead)."""
     from cgnn_tpu_torch.data.compact import CompactSpec, CompactUnsupported
 
     try:
         spec = CompactSpec.build(graphs, data_cfg.featurize_config().gdf(),
-                                 dense_m=dense_m)
+                                 dense_m=dense_m, edge_dtype=edge_dtype)
     except CompactUnsupported as e:
         if args.compact_staging == "on":
             raise

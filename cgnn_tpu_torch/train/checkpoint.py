@@ -35,7 +35,9 @@ Where it differs from the JAX package:
   (``convert.to_flax_variables``); ``opt_state``: the torch optimizer's
   tensors by parameter name and state key, plus ``count``, so the
   step-counted lr milestones resume; and ``normalizer`` (``mean``,
-  ``std``). There is no ``rng``: the data order is seeded per ``fit``;
+  ``std``). ``rng`` holds only the dropout generator's state, where the
+  model draws a mask (``graphs.state_generators``): the data order is
+  seeded per ``fit``;
 - the legacy tag layout (orbax only) is not read; a JAX save found in a
   port directory (a ``ckpt-*`` without ``state.npz``) fails
   verification, is reported in the chain and is skipped;
@@ -72,6 +74,7 @@ from cgnn_tpu_torch.resilience.integrity import (
     verify_tree,
     write_manifest,
 )
+from cgnn_tpu_torch.train.graphs import state_generators
 from cgnn_tpu_torch.train.normalizer import Normalizer
 
 _LATEST = "latest"
@@ -117,7 +120,7 @@ def state_tree(state) -> dict:
                  for k, v in inner.get(p, {}).items() if v is not None}
         if slots:
             opt[name] = slots
-    return {
+    tree = {
         "step": np.asarray(state.optimizer.count, np.int64),
         "params": variables["params"],
         "batch_stats": variables["batch_stats"],
@@ -125,6 +128,13 @@ def state_tree(state) -> dict:
         "normalizer": {"mean": _host(state.normalizer.mean).numpy(),
                        "std": _host(state.normalizer.std).numpy()},
     }
+    gens = state_generators(state)
+    if gens:
+        # the dropout generator's state (the JAX ``rng``): a resumed run
+        # draws the masks the uninterrupted one would
+        tree["rng"] = {f"gen{i}": g.get_state().numpy().copy()
+                       for i, g in enumerate(gens)}
+    return tree
 
 
 def _contiguous(tree):
@@ -439,6 +449,10 @@ class CheckpointManager:
         state.model.load_state_dict(loaded["model"])
         state.optimizer.inner.load_state_dict(loaded["optimizer"])
         state.optimizer.count = int(tree["opt_state"]["count"])
+        for i, g in enumerate(state_generators(state)):
+            saved = tree.get("rng", {}).get(f"gen{i}")
+            if saved is not None:
+                g.set_state(torch.from_numpy(np.array(saved, np.uint8)))
         norm = _normalizer(tree, state.normalizer.mean.device)
         state.normalizer.mean.copy_(norm.mean)
         state.normalizer.std.copy_(norm.std)

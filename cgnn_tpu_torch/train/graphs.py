@@ -31,6 +31,16 @@ failure, in place, so a capture leaves the state as it found it and the
 graph holds the same addresses. The optimizer's host count is raised
 once a replay (``on_replay``).
 
+A step that draws random numbers (a classifier's dropout) draws them
+from generators of its own (``state_generators``), never the global one.
+``generators`` registers each with the graph before the capture
+(``CUDAGraph.register_generator_state``), so every replay draws from the
+generator's current seed and offset and advances it, as an eager step
+does: a replay draws a fresh mask, and a replay and an eager step from
+the same generator state draw the same bits. ``state_guard`` snapshots
+and restores the generators' states with the rest, so a capture leaves
+them as it found them.
+
 ``COUNTS`` holds, for each kind of step (``train``, ``eval``,
 ``predict``, and ``predict_raw``, the raw wire's step with its neighbor
 search), ``<kind>_runs`` (calls of ``run``: replays and eager steps),
@@ -115,12 +125,22 @@ def tensor_guard(tensors: Callable[[], list] = list,
     return guard
 
 
+def state_generators(state) -> list:
+    """The generators a train step of ``state`` draws from: the model's
+    dropout generator where its train-mode forward draws a mask."""
+    model = getattr(state, "model", None)
+    draws = getattr(model, "draws_dropout", None)
+    return [model.dropout_generator()] if draws is not None and draws() \
+        else []
+
+
 def state_guard(state, extra: Callable[[], list] = list,
                 sums: Sequence = ()) -> Callable:
     """``tensor_guard`` over every tensor a train step of ``state``
     writes (parameters, buffers, optimizer buffers and device count),
-    ``extra()`` and ``sums``; its restore also resets the host count and
-    drops the gradients."""
+    ``extra()`` and ``sums``; its restore also resets the host count,
+    the generators' states (``state_generators``) and drops the
+    gradients."""
     inner = tensor_guard(lambda: (list(state.model.parameters())
                                   + list(state.model.buffers())
                                   + state.optimizer.tensors()
@@ -129,9 +149,13 @@ def state_guard(state, extra: Callable[[], list] = list,
     def guard():
         restore_tensors = inner()
         count = state.optimizer.count
+        gens = state_generators(state)
+        gen_states = [g.get_state() for g in gens]
 
         def restore():
             restore_tensors()
+            for g, st in zip(gens, gen_states):
+                g.set_state(st)
             state.optimizer._count = count
             state.optimizer.zero_grad()
 
@@ -149,16 +173,18 @@ class StepGraph:
     (``state_guard``) restores the state after the warm-up runs;
     ``on_replay`` runs on the host after each replay; ``eager_runs``
     eager steps come before the capture. ``capture=False`` steps eagerly
-    on any device."""
+    on any device. ``generators``: those the body draws from, registered
+    with the graph (module docstring)."""
 
     def __init__(self, fn: Callable, example=None, *, device,
                  kind: str = "predict", label: str = "step",
                  guard: Callable | None = None,
                  on_replay: Callable | None = None, capture: bool = True,
-                 eager_runs: int = 0):
+                 eager_runs: int = 0, generators: Sequence = ()):
         if kind not in KINDS:
             raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
         self.fn = fn
+        self.generators = tuple(generators)
         self.device = torch.device(device)
         self.kind = kind
         self.label = label
@@ -195,6 +221,10 @@ class StepGraph:
                 self._body()
                 COUNTS[f"{kind}_warm_runs"] += 1
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            # before capture_begin: each replay then reads the generator's
+            # seed and offset and advances it
+            graph.register_generator_state(gen)
         # ``torch.cuda.graph`` would synchronize and empty the allocator's
         # cache first; the capture API alone does neither. A graph freed
         # by the garbage collector mid-capture (an old StepGraph in a

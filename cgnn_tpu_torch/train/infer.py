@@ -63,7 +63,7 @@ from cgnn_tpu_torch.data.graph import (
 )
 from cgnn_tpu_torch.data.pipeline import BufferPool, PipelineStats, parallel_pack
 from cgnn_tpu_torch.train.graphs import GraphCache, StepGraph, batch_tensors
-from cgnn_tpu_torch.train.step import make_predict_step
+from cgnn_tpu_torch.train.step import make_predict_step, model_task
 
 # batches in flight before the host fetches their outputs (the JAX
 # package's dispatch window): one fetch per window, never one per batch
@@ -239,6 +239,9 @@ def run_fast_inference(
         compact = shape_set.compact
     dev = _state_device(state)
     state.model.eval()
+    # the edge features' storage type is the model's (a shape set and a
+    # compact spec carry the same one)
+    _, edge_dtype = model_task(state.model)
     step = make_predict_step(
         expander=None if compact is None else make_expander(compact, dev))
     pin = dev.type == "cuda"
@@ -269,7 +272,8 @@ def run_fast_inference(
             span, sub, nc, ec, graph_cap = job
             if compact is None:
                 return span, pack_graphs(sub, nc, ec, graph_cap,
-                                         dense_m=dense_m), None
+                                         dense_m=dense_m,
+                                         edge_dtype=edge_dtype), None
             buf = acquire(compact_buffer_key(nc, dense_m, graph_cap, tdim),
                           lambda: alloc_compact_buffers(nc, dense_m,
                                                         graph_cap, tdim,

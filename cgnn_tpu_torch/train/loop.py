@@ -33,9 +33,13 @@ does. The staged bytes are checked against the card's free memory
 (``check_device_resident_fit``); where they do not fit, the driver falls
 back LOUDLY to host pack-once staging through the per-step loop.
 
-The loop keeps the best validation MAE and calls ``on_epoch_end`` after
-each epoch's validation (the checkpoint hook; ``start_epoch`` resumes).
-``dense_m`` 0 or None trains on the flat COO layout.
+The loop keeps the best validation MAE (a classifier's: the highest
+accuracy, ``correct``, as the JAX loop does) and calls ``on_epoch_end``
+after each epoch's validation (the checkpoint hook; ``start_epoch``
+resumes). ``dense_m`` 0 or None trains on the flat COO layout. The task
+and the edge features' storage type follow the model: a classifier
+takes ``classification_loss``, a bf16 model's batches stage bf16 edges
+(``pack_graphs(edge_dtype=...)``; a compact spec must carry the same).
 
 Resilience (``cgnn_tpu_torch/resilience``), the JAX ``fit``'s contract:
 ``guard`` wraps the train body in both drivers with the in-graph
@@ -83,6 +87,7 @@ from cgnn_tpu_torch.train.graphs import (
     GraphCache,
     StepGraph,
     batch_tensors,
+    state_generators,
     state_guard,
     tensor_guard,
 )
@@ -91,7 +96,11 @@ from cgnn_tpu_torch.train.metrics import (
     fetch_device_sums,
     means_from_sums,
 )
-from cgnn_tpu_torch.train.step import make_eval_step, make_train_step
+from cgnn_tpu_torch.train.step import (
+    make_eval_step,
+    make_train_step,
+    model_task,
+)
 
 # share of the card's free memory the staged dataset may claim: the rest
 # is parameters, optimizer state, the graphs' pools and workspace
@@ -153,9 +162,21 @@ def check_device_resident_fit(staged_bytes: int, n_devices: int = 1,
 def _log_progress(host: dict, train: bool, epoch: int, it: int,
                   log_fn: Callable) -> None:
     count = max(host.get("count", 1.0), 1.0)
-    log_fn(f"{'Epoch' if train else 'Val'}: [{epoch}][{it}]  "
-           f"Loss {host.get('loss_sum', 0.0) / count:.4f}  "
-           f"MAE {host.get('mae_sum', 0.0) / count:.4f}")
+    parts = [f"{'Epoch' if train else 'Val'}: [{epoch}][{it}]",
+             f"Loss {host.get('loss_sum', 0.0) / count:.4f}"]
+    if "mae_sum" in host:
+        parts.append(f"MAE {host['mae_sum'] / count:.4f}")
+    if "correct_sum" in host:
+        parts.append(f"Acc {host['correct_sum'] / count:.4f}")
+    log_fn("  ".join(parts))
+
+
+def edge_pack_fn(edge_dtype, pin: bool = False):
+    """``pack_graphs`` with the edge storage type (and ``pin``), or None
+    where the defaults do."""
+    if edge_dtype == torch.float32 and not pin:
+        return None
+    return functools.partial(pack_graphs, pin=pin, edge_dtype=edge_dtype)
 
 
 def save_preempted_mid_epoch(state, epoch: int, on_epoch_end,
@@ -369,7 +390,8 @@ class ScanEpochDriver:
             lambda: sums.add(body(state, grp.take())), device=self.device,
             kind="train", label=f"train graph {key}", capture=self._capture,
             guard=state_guard(state, self._cursors, [sums]),
-            on_replay=lambda: state.optimizer.advance(1))
+            on_replay=lambda: state.optimizer.advance(1),
+            generators=state_generators(state))
 
     def _make_eval_graph(self, key, state):
         grp, sums = self._val_groups[key], self.eval_sums
@@ -599,7 +621,9 @@ class StepRunner:
                          label=f"{self.cache.label} {key}", guard=guard,
                          capture=self._graphs,
                          on_replay=(lambda: state.optimizer.advance(1))
-                         if self.train else None)
+                         if self.train else None,
+                         generators=state_generators(state)
+                         if self.train else ())
 
     def __call__(self, batch) -> None:
         self.cache.run(batch_shape_key(batch), batch)
@@ -648,7 +672,7 @@ def fit(
     preempt=None,
 ) -> tuple:
     """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
-    the best validation MAE.
+    the best validation MAE (a classifier's highest accuracy).
     -> (state, {"best", "history": [per-epoch metrics], "staging" (the
     driver's: packed and staged bytes, compact or not, the fall-back),
     "graphs": {captures, replays, captures_after_warm}}, and
@@ -685,20 +709,27 @@ def fit(
                          "(dense_m)")
     node_cap, edge_cap = batch_caps(train_graphs, batch_size, dense_m,
                                     node_cap, edge_cap)
+    classification, edge_dtype = model_task(state.model)
     pack_fn = expand = None
     if compact is not None:
         from cgnn_tpu_torch.data.compact import compact_pack_fn, make_expander
 
+        if compact.edge_dtype != edge_dtype:
+            raise ValueError(f"compact spec edge_dtype {compact.edge_dtype}"
+                             f" != the model's {edge_dtype}")
         pack_fn = compact_pack_fn(compact)
         expand = make_expander(compact, device)
-    elif torch.device(device).type == "cuda" and not scan_epochs:
+    else:
         # batches copied to the card as the epochs run: packed page-locked,
         # so the copies run asynchronously (data/loader.py)
-        pack_fn = functools.partial(pack_graphs, pin=True)
-    train_step = make_train_step(expander=expand)
+        pack_fn = edge_pack_fn(edge_dtype, pin=torch.device(
+            device).type == "cuda" and not scan_epochs)
+    train_step = make_train_step(expander=expand,
+                                 classification=classification)
     if guard:
         train_step = guard_step(train_step)
-    eval_step = make_eval_step(expander=expand)
+    eval_step = make_eval_step(expander=expand,
+                               classification=classification)
 
     def train_batches(rng):
         if buckets > 1:
@@ -765,7 +796,8 @@ def fit(
                            graphs=graphs, log_fn=log_fn)
     eval_run = StepRunner(eval_step, state, device, train=False,
                           graphs=graphs, log_fn=log_fn)
-    best = np.inf
+    best_key = "correct" if classification else "mae"
+    best = -np.inf if classification else np.inf
     history = []
     preempted = False
     for epoch in range(start_epoch, epochs):
@@ -796,16 +828,17 @@ def fit(
             if epoch == start_epoch:
                 train_run.cache.mark_warm()
                 eval_run.cache.mark_warm()
-        metric = val_m.get("mae", np.nan)
+        metric = val_m.get(best_key, np.nan)
         # a preemption that cut eval short leaves a partial score: it
         # never repoints the best
-        is_best = metric < best and not truncated
+        is_best = (metric > best if classification
+                   else metric < best) and not truncated
         if is_best:
             best = metric
         history.append({"epoch": epoch, "train": train_m, "val": val_m,
                         "seconds": time.perf_counter() - t0})
         log_fn(f"Epoch {epoch}: train loss {train_m.get('loss', np.nan):.4f}"
-               f"  val mae {metric:.4f}{' *' if is_best else ''}"
+               f"  val {best_key} {metric:.4f}{' *' if is_best else ''}"
                f"  ({time.perf_counter() - t0:.1f}s)")
         state, _, preempted = resilience_epoch_end(
             state, epoch, train_m, val_m, is_best, monitor=monitor,
@@ -814,7 +847,8 @@ def fit(
             break
     caches = ([driver.train_graphs, driver.eval_graphs] if driver is not None
               else [train_run.cache, eval_run.cache])
-    out = {"best": best, "history": history, "graphs": {
+    out = {"best": best, "best_key": best_key, "history": history,
+           "graphs": {
         "captures": sum(c.captures() for c in caches),
         "replays": sum(c.replays() for c in caches),
         "captures_after_warm": sum(c.captures_after_warm for c in caches)}}
@@ -831,11 +865,13 @@ def evaluate(state, graphs: Sequence[CrystalGraph], batch_size: int,
              node_cap: int, dense_m: int | None, device,
              edge_cap: int | None = None) -> dict:
     """Metric means of the eval step over ``graphs`` (capacities as in
-    ``fit``), stepped eagerly."""
+    ``fit``; the task and edge dtype the model's), stepped eagerly."""
     dense_m = dense_m or None
     node_cap, edge_cap = batch_caps(graphs, batch_size, dense_m, node_cap,
                                     edge_cap)
-    return StepRunner(make_eval_step(), state, device, train=False,
-                      graphs=False).epoch(
+    classification, edge_dtype = model_task(state.model)
+    return StepRunner(make_eval_step(classification=classification), state,
+                      device, train=False, graphs=False).epoch(
         stage(batch_iterator(graphs, batch_size, node_cap, edge_cap,
-                             dense_m=dense_m, in_cap=0, snug=True), device))
+                             dense_m=dense_m, in_cap=0, snug=True,
+                             pack_fn=edge_pack_fn(edge_dtype)), device))

@@ -261,8 +261,9 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
                      lr_milestones_epochs: Sequence[int] = (100,)):
     """A fresh TrainState as ``python -m cgnn_tpu_torch.train`` starts one
     -> (state, node_cap, edge_cap): the model on ``device`` with the
-    numpy-seeded init (convert.init_params), the normalizer fitted on the
-    training targets, the optimizer with its epoch milestones counted in
+    numpy-seeded init (convert.init_params) and its dropout generator
+    seeded from ``seed``, the normalizer fitted on the training targets
+    (a classifier's is the identity, as train.py's), the optimizer with its epoch milestones counted in
     optimizer steps (x the snug batches per epoch, as train.py does), and
     the snug batch capacities of the model's layout (``dense_m=0``: COO,
     whose edge capacity is its own)."""
@@ -272,14 +273,19 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
     from cgnn_tpu_torch.config import build_model
     from cgnn_tpu_torch.data.graph import capacities_for, count_batches
 
-    model = build_model(model_cfg, data_cfg, device=device)
+    model = build_model(model_cfg, data_cfg, device=device,
+                        dropout_seed=seed)
     model.load_state_dict(convert.from_flax_variables(
         convert.init_params(model_cfg, data_cfg, seed=seed)))
-    normalizer = Normalizer.fit(
-        np.stack([g.target for g in train_graphs]),
-        np.stack([np.ones_like(g.target) if g.target_mask is None
-                  else g.target_mask for g in train_graphs]),
-        device=device)
+    if model_cfg.classification:
+        normalizer = Normalizer.identity(model_cfg.num_targets,
+                                         device=device)
+    else:
+        normalizer = Normalizer.fit(
+            np.stack([g.target for g in train_graphs]),
+            np.stack([np.ones_like(g.target) if g.target_mask is None
+                      else g.target_mask for g in train_graphs]),
+            device=device)
     node_cap, edge_cap = capacities_for(train_graphs, batch_size,
                                         dense_m=model_cfg.dense_m or None)
     per_epoch = max(1, count_batches(train_graphs, batch_size, node_cap,

@@ -1,7 +1,8 @@
 """Train, eval and predict steps (``cgnn_tpu/train/step.py``).
 
-Metrics are returned as sums (``loss_sum``, ``mae_sum``, ``count``), never
-means, so accumulation over batches is exact; they stay tensors on the
+Metrics are returned as sums (``loss_sum``, ``mae_sum``, ``count``; a
+classifier's ``correct_sum`` in place of ``mae_sum``), never means, so
+accumulation over batches is exact; they stay tensors on the
 device. The train step runs the model in ``.train()``, so the BatchNorm
 running statistics update inside the forward (flax's
 ``mutable=["batch_stats"]``), then takes ``loss.backward()`` and one
@@ -53,17 +54,48 @@ def regression_loss(out, batch: GraphBatch, normalizer: Normalizer):
     return loss, metrics
 
 
-def make_train_step(expander: Callable | None = None) -> Callable:
+def classification_loss(out, batch: GraphBatch, normalizer=None):
+    """NLL of the label column's log-prob (the reference's NLLLoss after
+    LogSoftmax) over the real graph slots, and the count of correct
+    argmax predictions. Labels must lie in [0, num_classes): a gather on
+    the card asserts on one outside (the entry point checks them on the
+    host first)."""
+    del normalizer  # a classifier's is the identity
+    labels = batch.targets[:, 0].long()
+    w = batch.graph_mask
+    nll = -out.gather(1, labels[:, None])[:, 0] * w
+    n = torch.clamp_min(w.sum(), 1.0)
+    loss = nll.sum() / n
+    correct = (out.argmax(dim=-1) == labels).to(w.dtype) * w
+    return loss, {"loss_sum": nll.sum(), "correct_sum": correct.sum(),
+                  "count": w.sum()}
+
+
+def model_task(model) -> tuple[bool, torch.dtype]:
+    """(classification, edge storage dtype) of a model: what the steps,
+    the packers and the expanders follow."""
+    return (bool(getattr(model, "classification", False)),
+            getattr(model, "dtype", torch.float32))
+
+
+def loss_for(classification: bool) -> Callable:
+    return classification_loss if classification else regression_loss
+
+
+def make_train_step(expander: Callable | None = None,
+                    classification: bool = False) -> Callable:
     """(state, batch) -> metric sums; updates ``state`` in place.
     ``expander`` (``data.compact.make_expander``) rebuilds a
-    ``CompactBatch`` on the device first."""
+    ``CompactBatch`` on the device first; ``classification`` takes
+    ``classification_loss``, else ``regression_loss``."""
+    compute_loss = loss_for(classification)
 
     def train_step(state, batch: GraphBatch) -> dict:
         if expander is not None and isinstance(batch, CompactBatch):
             batch = expander(batch)
         state.model.train()
         out = state.model(batch)
-        loss, metrics = regression_loss(out, batch, state.normalizer)
+        loss, metrics = compute_loss(out, batch, state.normalizer)
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
@@ -72,9 +104,11 @@ def make_train_step(expander: Callable | None = None) -> Callable:
     return train_step
 
 
-def make_eval_step(expander: Callable | None = None) -> Callable:
+def make_eval_step(expander: Callable | None = None,
+                   classification: bool = False) -> Callable:
     """(state, batch) -> metric sums, with the running BatchNorm stats
-    (``expander``: as ``make_train_step``)."""
+    (``expander``, ``classification``: as ``make_train_step``)."""
+    compute_loss = loss_for(classification)
 
     @torch.no_grad()
     def eval_step(state, batch: GraphBatch) -> dict:
@@ -82,7 +116,7 @@ def make_eval_step(expander: Callable | None = None) -> Callable:
             batch = expander(batch)
         state.model.eval()
         out = state.model(batch)
-        _, metrics = regression_loss(out, batch, state.normalizer)
+        _, metrics = compute_loss(out, batch, state.normalizer)
         return metrics
 
     return eval_step
@@ -90,8 +124,9 @@ def make_eval_step(expander: Callable | None = None) -> Callable:
 
 def make_predict_step(raw_expander: Callable | None = None,
                       expander: Callable | None = None) -> Callable:
-    """(state, batch) -> denormalized predictions [G, T]; padding graph
-    slots are zeroed.
+    """(state, batch) -> denormalized predictions [G, T] (a classifier's
+    [G, num_classes] log-probs, through its identity normalizer);
+    padding graph slots are zeroed.
 
     ``expander`` (``data.compact.make_expander``) adds compact staging: a
     ``CompactBatch`` is rebuilt into its GraphBatch on the device first.

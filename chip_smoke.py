@@ -5,7 +5,8 @@ Run from the repository root on a machine with an H100:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``cgnn_tpu_torch/ops/csrc`` with
+It builds the hand-written kernels (and their bf16 instances) from
+``cgnn_tpu_torch/ops/csrc`` with
 nvcc (``fused_cgconv.cu``, ``fused_epilogue.cu``, ``neighbor_search.cu``,
 ``segment_sum.cu`` and ``windowed_gather.cu``, one nvcc each, in parallel,
 into ``build/kernels``), then:
@@ -43,7 +44,14 @@ into ``build/kernels``), then:
    1e-4 / 5e-4 of their row's largest entry (sums of ~10^5 terms in
    another order), and bit-identical when run again; kernel 8's outputs
    (neighbors, distances, edge mask, edge counts) bit-equal to its plain
-   version's and to its own on a second run;
+   version's and to its own on a second run. The bf16 instances of
+   kernels 1, 2, 4 and 5 (rows ``1-bf16`` .. ``5-bf16``) at the training
+   shape, its nodes and edges rounded to bf16 and z rematerialized in
+   bf16 (kernel 1 also at the top serving rung): each held to its plain
+   version (the f32 plain version on the widened inputs; kernel 5's bf16
+   dz within one bf16 ulp) at the f32 tolerances, bit-equal to its f32
+   instance on the widened inputs, kernels 2 and 4 to themselves run to
+   run, and timed beside bounds that count nodes, edges and z at 2 bytes;
 2. serve phase — boots ``load_server(wire='raw')`` on seeded random
    weights at full width (``cgconv_impl='pallas'``, batch 64, 3 rungs) and
    answers, from 4 client threads, a burst of 224 featurized MP-like
@@ -228,7 +236,33 @@ into ``build/kernels``), then:
    serial worker (``pack_workers=0``) and a pipelined one (1), serial,
    pipelined, pipelined, serial, for featurized graphs packed full,
    compact graphs and raw structures (64 MP-like calibration structures):
-   requests/s, p99, the worker's pack share and its wait on the packer.
+   requests/s, p99, the worker's pack share and its wait on the packer;
+12. heads_modes (run right after the kernel phase) — the heads and
+   modes at full width on 640 MP-like
+   structures written as CIFs (``write_label_directories``: the
+   regression targets, 0/1 labels by the median, and 4 multi-task
+   columns with a quarter of the cells empty, over the same CIFs).
+   bf16: the train entry point ``DIR --cache --bf16 --cgconv-impl pallas
+   --device-resident --buckets 3`` (path ``hm_bf16_driver``: only the
+   bf16 instances of kernels 1, 2, 4 and 5 launch, exactly; no capture
+   after warm-up), full staging's bytes in bf16 against f32, a 5-step
+   kernel-path vs plain-path trajectory in bf16 (BF16_TOL of each
+   tensor's largest |entry|), the saved checkpoint through predict on the
+   featurized, compact and raw wires (``hm_bf16_predict*``) and
+   ``load_server`` (``hm_bf16_serve``, ``hm_bf16_serve_raw``), every
+   answer within BF16_TOL of the largest |answer| of the bf16 plain path
+   on host-featurized copies, each gap to the f32 model reported.
+   Classification (``--task classification --dropout 0.1``, path
+   ``hm_class_driver``, the ``class_eval`` line): a replayed train step
+   bit-equal to an eager one from the same generator state, two replays
+   from the same weights drawing different masks, the resumed epoch
+   bit-equal to the uninterrupted one (the dropout generator restored),
+   ``--resume`` (``hm_class_resume``), predict and serve
+   (``hm_class_predict``, ``hm_class_serve``): two log-prob columns
+   whose exp sums to 1 within 1e-5, rtol 1e-4 / atol 1e-4 of the plain
+   path. Multi-task (``--multi-task-head --n-h 2``, ``hm_multitask``, the
+   per-task MAE lines) served with 4 columns (``hm_multitask_serve``).
+   The phase prints its seconds.
 
 Launches on a path. A replayed graph launches its kernels without their
 wrappers, so each path's run (``PathRun``) is traced by the profiler,
@@ -263,6 +297,12 @@ STATS_RTOL = 1e-4  # kernel 2's column sums, on their row's largest entry
 REDUCE_RTOL = 5e-4  # kernel 4's (the JAX package's tolerance for d_scale/d_bias)
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-4  # model outputs (|y| ~ 10-100)
 TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4  # kernel vs plain path: 5 f32 SGD steps
+# the bf16 kernel path (f32 arithmetic on bf16 loads, as the TPU kernel)
+# against the bf16 plain path (bf16 matmuls): of the reference's largest
+# |entry|, plus BF16_ATOL for tensors near zero (fc_full's bias, whose
+# gradient is roundoff under BN1), tests/test_torch_bf16.py's tolerance
+BF16_TOL, BF16_ATOL = 2e-2, 1e-3
+BF16_ULP = 2.0 ** -7  # kernel 5's bf16 dz vs its plain version: one ulp
 # a resumed epoch vs the uninterrupted one, where not bit-equal (the op
 # that breaks it is named in the output)
 RESUME_RTOL, RESUME_ATOL = 1e-6, 1e-7
@@ -292,6 +332,12 @@ NO_LIBRARY = {
     "epilogue_reduce": "no PyTorch call computes the gate's gradient sums",
     "epilogue_dz": "no PyTorch call computes the BN backward on masked slots",
 }
+# the bf16 instances (kernels 1, 2, 4, 5 on bf16 inputs): no library call
+# either, for the same reasons
+BF16_ROWS = {"fused_cgconv_eval_bf16": "1-bf16",
+             "fused_cgconv_stats_bf16": "2-bf16",
+             "epilogue_reduce_bf16": "4-bf16", "epilogue_dz_bf16": "5-bf16"}
+NO_LIBRARY.update({k: NO_LIBRARY[k[: -len("_bf16")]] for k in BF16_ROWS})
 
 
 class SmokeFailure(RuntimeError):
@@ -381,7 +427,8 @@ def timings(fn, library_fn=None):
 
 
 # each kernel's name in a trace of the card, by its wrapper's name: one
-# launch of the wrapper is one launch of this kernel
+# launch of the wrapper is one launch of this kernel. A ``_bf16`` key is
+# the same template instantiated on __nv_bfloat16 (``kernel_matches``)
 KERNEL_SYMBOLS = {
     "fused_cgconv_eval": "fused_cgconv_eval_slot",  # either slot variant
     "fused_cgconv_node": "fused_cgconv_eval_node_kernel",
@@ -392,7 +439,20 @@ KERNEL_SYMBOLS = {
     "neighbor_search": "neighbor_search_kernel",
     "segment_sum_sorted": "segment_sum_sorted_kernel",
     "windowed_gather": "windowed_gather_kernel",
+    "fused_cgconv_eval_bf16": "fused_cgconv_eval_slot",
+    "fused_cgconv_node_bf16": "fused_cgconv_eval_node_kernel",
+    "fused_cgconv_stats_bf16": "fused_cgconv_stats_slot_kernel",
+    "epilogue_reduce_bf16": "epilogue_reduce_kernel",
+    "epilogue_dz_bf16": "epilogue_dz_kernel",
 }
+
+
+def kernel_matches(key: str, name: str) -> bool:
+    """Whether the card's kernel ``name`` is a launch of ``key``'s kernel:
+    its symbol, instantiated on bf16 for a ``_bf16`` key and on f32
+    otherwise (the templates' demangled names carry their type)."""
+    return (KERNEL_SYMBOLS[key] in name
+            and ("bfloat16" in name) == key.endswith("_bf16"))
 
 
 def kernel_wrappers() -> dict:
@@ -414,7 +474,12 @@ def kernel_wrappers() -> dict:
             "epilogue_dz": fe.epilogue_dz_cuda,
             "neighbor_search": ns.neighbor_search_cuda,
             "segment_sum_sorted": scatter.segment_sum_sorted_cuda,
-            "windowed_gather": wg.windowed_gather_cuda}
+            "windowed_gather": wg.windowed_gather_cuda,
+            "fused_cgconv_eval_bf16": fc.fused_cgconv_eval_bf16_cuda,
+            "fused_cgconv_node_bf16": fc.fused_cgconv_node_bf16_cuda,
+            "fused_cgconv_stats_bf16": fc.fused_cgconv_stats_bf16_cuda,
+            "epilogue_reduce_bf16": fe.epilogue_reduce_bf16_cuda,
+            "epilogue_dz_bf16": fe.epilogue_dz_bf16_cuda}
 
 
 def zero_counts() -> None:
@@ -428,6 +493,14 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+# the margin a path's trace keeps at each edge of its window. Late in a
+# long process a server burst, whose first replay starts a few ms after
+# the trace does, lost the first record or two of that replay (with no
+# margin, and with 0.05 s); the trace now also runs a kernel of its own
+# before the path starts
+PATH_WINDOW_MARGIN_S = 0.3
 
 
 class PathRun:
@@ -451,6 +524,9 @@ class PathRun:
         zero_counts()
         self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.prof.start()
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(PATH_WINDOW_MARGIN_S)
         return self
 
     def __exit__(self, kind, exc, tb):
@@ -459,32 +535,38 @@ class PathRun:
         from cgnn_tpu_torch.train.graphs import COUNTS
 
         torch.cuda.synchronize()
+        time.sleep(PATH_WINDOW_MARGIN_S)
         self.prof.stop()
         self.wrapper = read_counts()
         self.steps = dict(COUNTS)
         kernels = [(e.key, e.count) for e in self.prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        self.launches = {k: sum(c for name, c in kernels if sym in name)
-                         for k, sym in KERNEL_SYMBOLS.items()}
+        self.launches = {k: sum(c for name, c in kernels
+                                if kernel_matches(k, name))
+                         for k in KERNEL_SYMBOLS}
         self.prof = None
         return False
 
 
-def dense_per_step(n_conv: int, epilogue: bool = False) -> dict:
+def dense_per_step(n_conv: int, epilogue: bool = False,
+                   bf16: bool = False) -> dict:
     """Each kernel's launches a step, by kind of step, on the dense
     layout: kernel 1's node and slot passes a conv in every forward, with
     kernels 2, 4 and 5 a conv in a train step (the forward shares one
     node pass a conv); the raw wire adds kernel 8 once a step. With
     ``epilogue`` (``fused_epilogue='pallas'``, kernel 1 off): kernel 3 a
-    conv in every forward, kernels 4 and 5 a conv in a train step."""
+    conv in every forward, kernels 4 and 5 a conv in a train step. With
+    ``bf16``: the bf16 instances of kernels 1, 2, 4 and 5 in place of the
+    f32 ones (kernel 8 is the same kernel)."""
     n = n_conv
+    sfx = "_bf16" if bf16 else ""
     if epilogue:
         fwd = {"epilogue_apply": n}
         train = fwd | {"epilogue_reduce": n, "epilogue_dz": n}
     else:
-        fwd = {"fused_cgconv_eval": n, "fused_cgconv_node": n}
-        train = fwd | {"fused_cgconv_stats": n, "epilogue_reduce": n,
-                       "epilogue_dz": n}
+        fwd = {f"fused_cgconv_eval{sfx}": n, f"fused_cgconv_node{sfx}": n}
+        train = fwd | {f"fused_cgconv_stats{sfx}": n,
+                       f"epilogue_reduce{sfx}": n, f"epilogue_dz{sfx}": n}
     return {"train": train, "eval": fwd, "predict": fwd,
             "predict_raw": fwd | {"neighbor_search": 1}}
 
@@ -1037,7 +1119,7 @@ def serve_phase(dev, calibration, work_dir):
     return summary, breakdown, raw_breakdown, counts
 
 
-def burst(server, requests, path=None, per_step=None):
+def burst(server, requests, path=None, per_step=None, width=1):
     """``requests`` from N_CLIENTS threads at once -> the answers, their
     wire forms and the run's flushes, requests/s and latency quantiles.
     With ``path``: the run is that path's (``PathRun``), every flush one
@@ -1074,7 +1156,7 @@ def burst(server, requests, path=None, per_step=None):
     check(not errors, f"client errors: {errors[:3]}")
     check(all(r is not None for r in results), "unanswered requests")
     preds = np.stack([r.prediction for r in results])
-    check(preds.shape == (len(requests), 1), f"bad shape {preds.shape}")
+    check(preds.shape == (len(requests), width), f"bad shape {preds.shape}")
     check(bool(np.isfinite(preds).all()), "non-finite predictions")
     delta = {k: server.counts[k] - c0[k]
              for k in ("batches", "pack_raw", "responses_raw")}
@@ -1283,7 +1365,17 @@ def device_busy_ms(run_step, reps):
     """A torch.profiler trace of ``reps`` calls of ``run_step`` -> (device
     busy ms per call: the sum of its kernels' device time, {kernel name:
     ms per call}, {host op: self CPU ms per call}); the first is None when
-    the trace holds no device time."""
+    the trace holds no device time. A trace that came back without any
+    device activity (the card's activity records lost, seen now and then
+    on this machine) is taken again, up to twice."""
+    for _ in range(2):
+        out = _device_busy_ms(run_step, reps)
+        if out[0] is not None:
+            return out
+    return _device_busy_ms(run_step, reps)
+
+
+def _device_busy_ms(run_step, reps):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1459,29 +1551,36 @@ def train_phase(dev, split, work_dir):
     return summary, counts, node_cap
 
 
-def fixed_batches(dev, train_g, node_cap, k, edge_cap=None, dense_m=M):
+def fixed_batches(dev, train_g, node_cap, k, edge_cap=None, dense_m=M,
+                  edge_dtype=None):
     """The first ``k`` shuffled snug training batches (epochs in turn, one
     seeded generator), on the card; ``dense_m=None``: COO batches of
-    ``edge_cap`` edges."""
+    ``edge_cap`` edges; ``edge_dtype``: the edges' storage type (a bf16
+    model's batches carry bf16 edges)."""
     import numpy as np
 
     from cgnn_tpu_torch.data.graph import batch_iterator
+    from cgnn_tpu_torch.train.loop import edge_pack_fn
 
     rng = np.random.default_rng(SEED + 5)
     edge_cap = node_cap * dense_m if dense_m else edge_cap
+    pack_fn = None if edge_dtype is None else edge_pack_fn(edge_dtype)
     out = []
     while len(out) < k:
         out += list(batch_iterator(train_g, BATCH, node_cap, edge_cap,
                                    shuffle=True, rng=rng, dense_m=dense_m,
-                                   snug=True))
+                                   snug=True, pack_fn=pack_fn))
     return [b.to(dev) for b in out[:k]]
 
 
-def compare_trajectories(dev, train_g, batches, label, kernel_kw, plain_kw):
+def compare_trajectories(dev, train_g, batches, label, kernel_kw, plain_kw,
+                         rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
     """The same steps on ``batches`` from the same initial weights through
     the kernel path (``kernel_kw``) and the plain path (``plain_kw``):
     per-step loss and every parameter and running statistic within
-    TRAIN_RTOL / TRAIN_ATOL -> (the plain losses, {max diffs})."""
+    ``rtol`` / ``atol`` (default TRAIN_RTOL / TRAIN_ATOL; ``rtol`` of the
+    tensor's largest |entry| where ``rtol`` is BF16_TOL, the bf16
+    comparison) -> (the plain losses, {max diffs})."""
     import torch
 
     from cgnn_tpu_torch.train.step import make_train_step
@@ -1496,20 +1595,24 @@ def compare_trajectories(dev, train_g, batches, label, kernel_kw, plain_kw):
                      {key: v.detach().clone()
                       for key, v in state.model.state_dict().items()}))
     (loss_k, sd_k), (loss_p, sd_p) = runs
+
+    def close(a, b):
+        if rtol == BF16_TOL:  # of the tensor's largest |entry|
+            return bool(((a - b).abs() <= rtol * b.abs().max() + atol).all())
+        return bool(torch.allclose(a, b, rtol=rtol, atol=atol))
+
     loss_err = float((loss_k - loss_p).abs().max())
-    ok = bool(torch.allclose(loss_k, loss_p, rtol=TRAIN_RTOL,
-                             atol=TRAIN_ATOL))
+    ok = close(loss_k, loss_p)
     param_err, worst = 0.0, ""
     for key in sd_p:
         e = float((sd_k[key] - sd_p[key]).abs().max())
         if e > param_err:
             param_err, worst = e, key
-        ok = ok and bool(torch.allclose(sd_k[key], sd_p[key],
-                                        rtol=TRAIN_RTOL, atol=TRAIN_ATOL))
+        ok = ok and close(sd_k[key].float(), sd_p[key].float())
     print(f"{label}: {len(batches)} steps, kernel path vs plain path: "
           f"losses {loss_k.tolist()} vs {loss_p.tolist()}, max loss diff "
           f"{loss_err!r}, max parameter diff {param_err!r} ({worst}) "
-          f"(rtol {TRAIN_RTOL}, atol {TRAIN_ATOL}): {'ok' if ok else 'FAIL'}")
+          f"(rtol {rtol}, atol {atol}): {'ok' if ok else 'FAIL'}")
     check(ok, f"{label}: the kernel path's trajectory leaves the plain "
               f"path's")
     return loss_p, {"steps": len(batches), "max_loss_diff": loss_err,
@@ -3920,10 +4023,12 @@ def structure_body(rs, **extra) -> bytes:
         allow_nan=False).encode()
 
 
-def plain_answers(dev, ck, name, graphs):
+def plain_answers(dev, ck, name, graphs, dtype=None):
     """The plain path (``cgconv_impl`` off; ``aggregation='xla'`` in the
     COO layout) under save ``name`` of checkpoint ``ck``, on the card, on
-    ``graphs`` -> [n, T]."""
+    ``graphs`` -> [n, T] (a classifier's [n, C]); ``dtype`` overrides the
+    model's compute dtype (``'float32'``: the f32 model on the same
+    weights), whose edge dtype the batches stage."""
     import dataclasses as dc
 
     from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
@@ -3937,13 +4042,15 @@ def plain_answers(dev, ck, name, graphs):
     meta = mgr.read_meta(name)
     cfg = ModelConfig.from_meta(meta["model"]).for_arbitrary_inputs()
     cfg = dc.replace(cfg, cgconv_impl="",
-                     aggregation="xla" if not cfg.dense_m else None)
+                     aggregation="xla" if not cfg.dense_m else None,
+                     **({} if dtype is None else {"dtype": dtype}))
     state = InferenceState(
         build_model(cfg, DataConfig.from_meta(meta["data"]),
                     device=dev).eval(),
         Normalizer.identity(cfg.num_targets, device=dev))
     mgr.restore_for_inference(state, name)
-    ss = plan_shape_set(graphs, BATCH, rungs=2, dense_m=cfg.dense_m or None)
+    ss = plan_shape_set(graphs, BATCH, rungs=2, dense_m=cfg.dense_m or None,
+                        edge_dtype=cfg.torch_dtype)
     return run_fast_inference(state, graphs, BATCH, shape_set=ss)[0]
 
 
@@ -4433,6 +4540,657 @@ def item14_burst(server, reqs) -> dict:
             "worker_pack_share": d["worker_pack_s"] / wall, **d}
 
 
+# ---------------------------------------------------------------------------
+# heads and modes: bf16 compute, classification with dropout, multi-task
+# ---------------------------------------------------------------------------
+
+N_HM = 640  # MP-like CIFs of the heads_modes phase (512/64/64)
+HM_EPOCHS = 2
+HM_TASKS = ("formation_energy", "band_gap", "bulk_modulus", "shear_modulus")
+HM_EMPTY = 0.25  # share of the multi-task label cells left empty
+N_HM_SERVE = 96  # featurized requests of each heads_modes burst
+N_HM_RAW = 32  # wire-form requests of the bf16 raw burst
+
+
+def bf16_kernel_phase(dev, train_graphs, calibration, shape_set):
+    """The bf16 instances of kernels 1, 2, 4 and 5 at the training shape
+    (a snug batch-256 pack of MP-like structures, its nodes and edges
+    rounded to bf16; z for kernels 4 and 5 rematerialized in bf16 as the
+    training backward does), kernel 1 also at the top serving rung: each
+    against its plain version (the f32 plain version on the widened
+    inputs; kernel 5's dz in bf16, within one bf16 ulp), each also
+    bit-equal to its f32 instance on the widened inputs, timed beside its
+    bound with 2-byte nodes, edges and z -> their entries."""
+    import torch
+
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.ops import fused_cgconv as fc
+    from cgnn_tpu_torch.ops import fused_epilogue as fe
+
+    bf16 = torch.bfloat16
+    node_cap, edge_cap = capacities_for(train_graphs, BATCH, dense_m=M)
+    batch = next(iter(batch_iterator(train_graphs, BATCH, node_cap,
+                                     edge_cap, dense_m=M, in_cap=0,
+                                     snug=True)))
+    n, m, g = batch.edges.shape
+    f = 64
+    real_slots, _ = slot_counts(batch)
+    touched = fc.touched_nodes(batch.neighbors, batch.edge_mask, n)
+
+    def bf16_args(b):
+        a = list(conv_inputs(dev, b))
+        a[0], a[1] = a[0].to(bf16), a[1].to(bf16)
+        return a
+
+    def wide(a):
+        return [a[0].float(), a[1].float(), *a[2:]]
+
+    entries = []
+    # 1-bf16: the training shape, then the top serving rung
+    cargs = bf16_args(batch)
+    got = fc.fused_cgconv_eval_bf16_cuda(*cargs)
+    check(torch.equal(got, fc.fused_cgconv_eval_cuda(*wide(cargs))),
+          "kernel 1-bf16 differs from kernel 1 on the widened inputs")
+    errs = compare("fused_cgconv_eval_bf16", got,
+                   fc.fused_cgconv_eval_reference(*cargs), RTOL, ATOL)
+    entry = kernel_entry(
+        "fused_cgconv_eval_bf16", "fused_cgconv.cu",
+        "cgnn_tpu/ops/pallas_cgconv.py:305", errs,
+        timings(cold(fc.fused_cgconv_eval_bf16_cuda, *cargs)),
+        time_ms(cold(fc.fused_cgconv_eval_reference, *cargs)),
+        fc.eval_pass_cost(n, m, g, f, real_slots, touched, storage_bytes=2))
+    entry["device_ms_by_launch"] = by_launch(
+        cold(fc.fused_cgconv_eval_bf16_cuda, *cargs), K1_PARTS)
+    top = shape_set.pack_full(calibration, shape=shape_set.largest)
+    targs = bf16_args(top)
+    tn = top.edges.shape[0]
+    t_real, _ = slot_counts(top)
+    t_errs = compare("fused_cgconv_eval_bf16 at the top serving rung",
+                     fc.fused_cgconv_eval_bf16_cuda(*targs),
+                     fc.fused_cgconv_eval_reference(*targs), RTOL, ATOL)
+    t_bound, t_by = bound(fc.eval_pass_cost(
+        tn, m, g, f, t_real, fc.touched_nodes(top.neighbors, top.edge_mask,
+                                              tn), storage_bytes=2))
+    entry["top_serving_rung"] = {
+        "N": tn, "max_abs_err": t_errs[0], "max_rel_err": t_errs[1],
+        **timings(cold(fc.fused_cgconv_eval_bf16_cuda, *targs)),
+        "plain_ms": time_ms(cold(fc.fused_cgconv_eval_reference, *targs)),
+        "bound_ms": t_bound, "bound_by": t_by,
+        "device_ms_by_launch": by_launch(
+            cold(fc.fused_cgconv_eval_bf16_cuda, *targs), K1_PARTS)}
+    print(f"fused_cgconv_eval_bf16 at the top serving rung (N={tn}): "
+          f"{entry['top_serving_rung']}")
+    entries.append(entry)
+
+    # 2-bf16: alone, again, on a shared node pass, and against kernel 2
+    nodes, edges, kernel, bias, scale, bn_bias, nbr, emask = cargs[:8]
+    shift = fc._shift_row0(nodes, edges, kernel, bias, nbr, bf16)
+    sargs = (nodes, edges, kernel, bias, nbr, emask, shift)
+    got = fc.fused_cgconv_stats_bf16_cuda(*sargs)
+    again = fc.fused_cgconv_stats_bf16_cuda(*sargs)
+    shared = fc.fused_cgconv_stats_bf16_cuda(
+        *sargs, p=fc.fused_cgconv_node_bf16_cuda(nodes, kernel, bias))
+    f32 = fc.fused_cgconv_stats_cuda(nodes.float(), edges.float(),
+                                     *sargs[2:])
+    torch.cuda.synchronize()
+    check(torch.equal(got, again) and torch.equal(got, shared)
+          and torch.equal(got, f32),
+          "kernel 2-bf16: not the same bits run to run, on a shared node "
+          "pass, or as kernel 2 on the widened inputs")
+    errs = compare("fused_cgconv_stats_bf16", got,
+                   fc.fused_cgconv_stats_reference(*sargs), STATS_RTOL,
+                   row_scale=True)
+    entry = kernel_entry(
+        "fused_cgconv_stats_bf16", "fused_cgconv.cu",
+        "cgnn_tpu/ops/pallas_cgconv.py:277", errs,
+        timings(cold(fc.fused_cgconv_stats_bf16_cuda, *sargs)),
+        time_ms(cold(fc.fused_cgconv_stats_reference, *sargs)),
+        fc.stats_pass_cost(n, m, g, f, real_slots, touched,
+                           storage_bytes=2))
+    entry["device_ms_by_launch"] = by_launch(
+        cold(fc.fused_cgconv_stats_bf16_cuda, *sargs), K2_PARTS)
+    entries.append(entry)
+
+    # 4-bf16 and 5-bf16 on z rematerialized in bf16
+    z = fc._z_structured(nodes, edges, kernel, bias, nbr, bf16).contiguous()
+    mean, var, n_real = fe.masked_stats(z, emask)
+    cst = fe.pack_cst(mean, torch.rsqrt(var + 1e-5), scale, bn_bias)
+    ct = torch.randn(n, f, device=dev,
+                     generator=torch.Generator(dev).manual_seed(SEED))
+    got = fe.epilogue_reduce_bf16_cuda(z, emask, cst, ct)
+    again = fe.epilogue_reduce_bf16_cuda(z, emask, cst, ct)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again)
+          and torch.equal(got, fe.epilogue_reduce_cuda(z.float(), emask,
+                                                       cst, ct)),
+          "kernel 4-bf16: not the same bits run to run or as kernel 4 on "
+          "the widened z")
+    red = fe.epilogue_reduce_reference(z, emask, cst, ct)
+    errs = compare("epilogue_reduce_bf16", got, red, REDUCE_RTOL,
+                   row_scale=True)
+    entry = kernel_entry(
+        "epilogue_reduce_bf16", "fused_epilogue.cu",
+        "cgnn_tpu/ops/fused_epilogue.py:152", errs,
+        timings(cold(fe.epilogue_reduce_bf16_cuda, z, emask, cst, ct)),
+        time_ms(cold(fe.epilogue_reduce_reference, z, emask, cst, ct)),
+        fe.epilogue_pass_cost("reduce", n, m, f, real_slots, z_bytes=2))
+    entry["device_ms_by_launch"] = by_launch(
+        cold(fe.epilogue_reduce_bf16_cuda, z, emask, cst, ct), K4_PARTS)
+    entries.append(entry)
+
+    inv_c = torch.full((1, 2 * f), 1.0 / max(float(n_real), 1.0),
+                       device=dev)
+    red5 = torch.cat([red, inv_c]).contiguous()
+    got = fe.epilogue_dz_bf16_cuda(z, emask, cst, red5, ct)
+    check(got.dtype == bf16 and torch.equal(
+        got, fe.epilogue_dz_cuda(z.float(), emask, cst, red5, ct).to(bf16)),
+        "kernel 5-bf16 is not kernel 5's dz on the widened z, rounded")
+    errs = compare("epilogue_dz_bf16 (one bf16 ulp)", got.float(),
+                   fe.epilogue_dz_reference(z, emask, cst, red5,
+                                            ct).float(), BF16_ULP, ATOL)
+    entries.append(kernel_entry(
+        "epilogue_dz_bf16", "fused_epilogue.cu",
+        "cgnn_tpu/ops/fused_epilogue.py:175", errs,
+        timings(cold(fe.epilogue_dz_bf16_cuda, z, emask, cst, red5, ct)),
+        time_ms(cold(fe.epilogue_dz_reference, z, emask, cst, red5, ct)),
+        fe.epilogue_pass_cost("dz", n, m, f, real_slots, z_bytes=2)))
+    for e in entries:
+        e.update(row=BF16_ROWS[e["name"]], dtype="bf16", N=n)
+    return entries
+
+
+def write_label_directories(root, n, seed) -> dict:
+    """The heads_modes data: ``n`` MP-like structures written as CIFs with
+    ``write_cif_directory`` (id_prop.csv: the synthetic regression
+    target) under ``root/reg``, and over the same CIFs (symlinked) two more
+    label sets: ``root/cls``, 0/1 by the target above or below the set's
+    median; ``root/mt``, four columns after BASELINE config #3
+    (formation energy, band gap, bulk and shear modulus; the last three
+    seeded functions of the target plus noise, at their own scales), a
+    seeded HM_EMPTY of the cells empty (masked labels) -> {name: dir}."""
+    import numpy as np
+
+    dirs = {k: os.path.join(root, k) for k in ("reg", "cls", "mt")}
+    ids = write_cif_directory(dirs["reg"], n, seed)
+    with open(os.path.join(dirs["reg"], "id_prop.csv")) as f:
+        target = np.array([float(line.split(",")[1])
+                           for line in f.read().split()])
+    median = float(np.median(target))
+    rng = np.random.default_rng(seed)
+    cols = np.stack([
+        target,
+        np.abs(2.0 + 0.8 * target + rng.normal(0, 0.5, n)),
+        np.abs(150.0 + 40.0 * target + rng.normal(0, 20.0, n)),
+        np.abs(70.0 + 20.0 * target + rng.normal(0, 10.0, n))], axis=1)
+    empty = rng.random(cols.shape) < HM_EMPTY
+    empty[np.arange(n), rng.integers(0, 4, n)] = False  # one label a row
+    rows = {"cls": [f"{sid},{int(t > median)}" for sid, t in
+                    zip(ids, target)],
+            "mt": [",".join([sid] + ["" if empty[i, k] else repr(float(v))
+                                     for k, v in enumerate(cols[i])])
+                   for i, sid in enumerate(ids)]}
+    for name, lines in rows.items():
+        os.makedirs(dirs[name])
+        for sid in ids:
+            os.symlink(os.path.join(dirs["reg"], f"{sid}.cif"),
+                       os.path.join(dirs[name], f"{sid}.cif"))
+        with open(os.path.join(dirs[name], "id_prop.csv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return dirs | {"empty_share": float(empty.mean())}
+
+
+def hm_logical(graphs, driver: bool, epochs: int, extra_eval: int = 0):
+    """The steps the train entry point takes on ``graphs`` with BATCH, 3
+    buckets under the epoch driver (``driver``) or the per-step loop's
+    snug batches otherwise -> (train/val/test split, {kind: steps}):
+    each epoch every train and validation batch, then the test split's
+    eval batches."""
+    from cgnn_tpu_torch.data.dataset import train_val_test_split
+    from cgnn_tpu_torch.data.graph import (
+        bucketed_batch_iterator,
+        capacities_for,
+        count_batches,
+    )
+
+    split = train_val_test_split(graphs, 0.8, 0.1, seed=SEED)
+    train_g, val_g, test_g = split
+    nc, ec = capacities_for(train_g, BATCH, dense_m=M)
+    if driver:
+        steps, evals = (sum(1 for _ in bucketed_batch_iterator(
+            gs, BATCH, 3, dense_m=M)) for gs in (train_g, val_g))
+    else:
+        steps, evals = (count_batches(gs, BATCH, nc, ec, snug=True)
+                        for gs in (train_g, val_g))
+    tests = count_batches(test_g, BATCH, nc, ec, snug=True)
+    return split, {"train": epochs * steps,
+                   "eval": epochs * evals + tests + extra_eval}
+
+
+def hm_train(path, argv, cache, driver, per_step, epochs=HM_EPOCHS):
+    """The train entry point on one label set, as ``path`` (exact
+    launches) -> (its output, its ``train:`` record, the graphs, the
+    split)."""
+    from cgnn_tpu_torch.data.cache import load_graph_cache
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+
+    with PathRun(path) as run:
+        rc, out = run_main(train_main, argv, path)
+    check(rc == 0, f"{path}: the train entry point exited {rc}")
+    info = json.loads(next(line for line in out.splitlines()
+                           if line.startswith("train: "))[7:])
+    graphs = load_graph_cache(cache)
+    split, logical = hm_logical(graphs, driver, epochs)
+    outside = {"predict": info["test"].get("class_eval_batches") or 0}
+    check(info["graphs"]["captures_after_warm"] == 0,
+          f"{path}: captures after warm-up: {info['graphs']}")
+    return out, info, graphs, split, check_path(run, per_step, logical,
+                                                outside=outside)
+
+
+def hm_predict(path, argv, per_step, want, tol, width):
+    """The predict entry point as ``path`` (exact launches); its CSV
+    against ``want`` [n, width], every entry within ``tol`` x the largest
+    |want| (or SERVE_RTOL / SERVE_ATOL when ``tol`` is None) -> (the CSV's
+    predictions, its record)."""
+    import csv as csvmod
+
+    import numpy as np
+
+    from cgnn_tpu_torch.predict import main as predict_main
+
+    out_csv = argv[argv.index("--out") + 1]
+    with PathRun(path) as run:
+        rc, out = run_main(predict_main, argv, path)
+    check(rc == 0, f"{path}: the predict entry point exited {rc}")
+    info = json.loads(next(line for line in out.splitlines()
+                           if line.startswith("predict: "))[9:])
+    rec = predict_path(run, per_step, info)
+    rows = list(csvmod.reader(open(out_csv)))
+    n_targets = len(rows[0]) - 1 - width
+    got = np.array([[float(x) for x in r[1 + n_targets:]] for r in rows])
+    check(got.shape == want.shape, f"{path}: CSV {got.shape}, want "
+                                   f"{want.shape}")
+    err = np.abs(got - want)
+    if tol is None:
+        ok = bool(np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(want)))
+        how = f"rtol {SERVE_RTOL}, atol {SERVE_ATOL}"
+    else:
+        ok = bool(np.all(err <= tol * np.abs(want).max()))
+        how = f"{tol} of the largest |answer|"
+    print(f"{path}: {len(rows)} rows x {width} columns, max_abs_err vs the "
+          f"plain path {float(err.max())!r} ({how}): "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{path}: the CSV disagrees with the plain path")
+    return got, dict(info, max_abs_err_vs_plain=float(err.max()),
+                     path=rec)
+
+
+def hm_burst(server, label, requests, per_step, want, tol, width):
+    """A burst through ``server`` as path ``label``; every answer against
+    ``want`` as ``hm_predict`` holds a CSV -> (answers, record)."""
+    import numpy as np
+
+    rec = burst(server, requests, label, per_step, width=width)
+    got = rec.pop("preds")
+    rec.pop("wires")
+    err = np.abs(got - want)
+    ok = (bool(np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(want)))
+          if tol is None else bool(np.all(err <= tol * np.abs(want).max())))
+    print(f"{label}: {len(requests)} answers x {width}, max_abs_err vs the "
+          f"plain path {float(err.max())!r}: {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: answers disagree with the plain path")
+    return got, dict(rec, max_abs_err_vs_plain=float(err.max()))
+
+
+def class_replay_checks(dev, train_g):
+    """A classification train step with dropout 0.1 (kernel path) as a
+    replayed CUDA graph against the same step run eagerly from the same
+    generator state, under deterministic algorithms: every tensor bit for
+    bit; then two consecutive replays from the same weights but the
+    advanced generator draw different masks (different updates), and the
+    generator's offset moves each replay."""
+    import torch
+
+    from cgnn_tpu_torch.train.graphs import (
+        StepGraph,
+        state_generators,
+        state_guard,
+        tensor_guard,
+    )
+    from cgnn_tpu_torch.train.step import make_train_step
+
+    _, state, nc, _ = new_state(dev, train_g, cgconv_impl="pallas",
+                                classification=True, dropout=0.1)
+    batch = fixed_batches(dev, train_g, nc, 1)[0]
+    step = make_train_step(classification=True)
+    gens = state_generators(state)
+    check(len(gens) == 1, f"dropout generators: {gens}")
+    gen = gens[0]
+    graph = StepGraph(lambda b: step(state, b), batch, device=dev,
+                      kind="train", label="class replay",
+                      guard=state_guard(state), generators=gens,
+                      on_replay=lambda: state.optimizer.advance(1))
+    check(graph.graph is not None, "the classification step was not "
+                                   "captured")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        restore = state_guard(state)()
+        g0 = gen.get_state()
+        graph.run(batch)
+        replayed = state_bits(state)
+        g1 = gen.get_state()
+        restore()
+        check(torch.equal(gen.get_state(), g0), "restore missed the "
+                                                "generator")
+        step(state, batch)
+        eager = state_bits(state)
+        same, worst, where = bits_diff(replayed, eager)
+        check(same and torch.equal(gen.get_state(), g1),
+              f"replay vs eager from one generator state: max diff "
+              f"{worst!r} at {where}")
+        # two replays from the same weights: the second draws from where
+        # the first left the generator
+        restore()
+        weights = tensor_guard(lambda: (list(state.model.parameters())
+                                        + list(state.model.buffers())
+                                        + state.optimizer.tensors()))()
+        graph.run(batch)
+        first = state_bits(state)
+        weights()
+        state.optimizer._count = 0
+        graph.run(batch)
+        second = state_bits(state)
+        equal, _, _ = bits_diff(first, second)
+        check(not equal and not torch.equal(gen.get_state(), g1),
+              "two consecutive replays drew the same mask")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec = {"replay_equals_eager_bits": True,
+           "consecutive_replays_differ": True,
+           "generator_offset_moves": True}
+    print(f"classification replay: {rec}: ok")
+    return rec
+
+
+def class_resume_bits(dev, split, work_dir, model_cfg, data_cfg):
+    """Resume repeats the uninterrupted run: a classifier with dropout
+    0.1 (kernel path, the per-step loop with graphs) trains 2 epochs,
+    saving each, then epoch 2 in memory (the uninterrupted run); a fresh
+    state restored from the epoch-1 save (weights, optimizer and the
+    dropout generator) runs the same epoch 2: bit-equal in every tensor
+    and the generator, under deterministic algorithms."""
+    import shutil
+
+    import torch
+
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from cgnn_tpu_torch.train.graphs import state_generators
+    from cgnn_tpu_torch.train.loop import fit
+
+    train_g, val_g, _ = split
+    ck = os.path.join(work_dir, "hm_class_resume")
+    shutil.rmtree(ck, ignore_errors=True)
+    mgr = CheckpointManager(ck, keep=0)
+    meta = {"model": model_cfg.to_meta(), "data": data_cfg.to_meta(),
+            "task": "classification"}
+    kw = dict(cgconv_impl="pallas", classification=True, dropout=0.1)
+
+    def run(state, start, end, save):
+        return fit(state, train_g, val_g, epochs=end, batch_size=BATCH,
+                   dense_m=M, device=dev, seed=SEED, start_epoch=start,
+                   on_epoch_end=(lambda s, e, vm, best: mgr.save(
+                       s, dict(meta, epoch=e), is_best=best)) if save
+                   else None, log_fn=lambda *_: None)[0]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, state, _, _ = new_state(dev, train_g, **kw)
+        state = run(state, 0, 2, True)
+        mgr.wait()
+        state = run(state, 2, 3, False)
+        uninterrupted = state_bits(state)
+        gen_u = state_generators(state)[0].get_state()
+        _, fresh, _, _ = new_state(dev, train_g, **kw)
+        _, saved = mgr.restore(fresh)
+        check(saved["epoch"] == 1, f"restored epoch {saved['epoch']}")
+        fresh = run(fresh, 2, 3, False)
+        same, worst, where = bits_diff(state_bits(fresh), uninterrupted)
+        gen_same = torch.equal(state_generators(fresh)[0].get_state(),
+                               gen_u)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        mgr.close()
+    check(same and gen_same, f"the resumed classifier leaves the "
+                             f"uninterrupted run: max diff {worst!r} at "
+                             f"{where}, generator equal {gen_same}")
+    print("classification resume: epoch 2 from the restored save vs the "
+          "uninterrupted run: bit-equal, generator equal: ok")
+    return {"resumed_bits_equal": True, "generator_equal": True}
+
+
+def heads_modes_phase(dev, work_dir, card, calibration):
+    """The heads and modes at full width (F=64, 3 convs, h=128, M=12,
+    8 A, G=41, batch 256) on MP-like CIFs (``write_label_directories``):
+
+    - bf16: the train entry point ``DIR --cache --bf16 --cgconv-impl
+      pallas --device-resident --buckets 3`` under the epoch driver, its
+      compact staging 'auto' (path ``hm_bf16_driver``: only the bf16
+      instances of kernels 1, 2, 4 and 5 launch, exactly; no capture after
+      warm-up); the staged bytes of full staging in bf16 against f32 on
+      the same batches; a 5-step kernel-path vs plain-path trajectory in
+      bf16; the saved checkpoint through the predict entry point on the
+      featurized (``hm_bf16_predict``), compact (``hm_bf16_predict_compact``)
+      and raw (``hm_bf16_predict_raw``, kernel 8 unchanged) wires and
+      ``load_server`` (``hm_bf16_serve``: featurized graphs staged
+      compactly; ``hm_bf16_serve_raw``: wire structures), every answer
+      within BF16_TOL of the bf16 plain path on host-featurized copies, and
+      its gap to the f32 model on the same weights reported;
+    - classification: 0/1 labels by the median, ``--task classification
+      --dropout 0.1 --cgconv-impl pallas`` under the driver
+      (``hm_class_driver``; the ``class_eval`` line printed), a replay
+      against eager from one generator state and two replays' masks
+      (``class_replay_checks``), resume bits (``class_resume_bits``) and
+      ``--resume`` (``hm_class_resume``), then predict
+      (``hm_class_predict``) and serve (``hm_class_serve``): 2 columns of
+      log-probs whose exp sums to 1 within 1e-5, held to the plain path;
+    - multi-task: 4 columns, about a quarter of the cells empty,
+      ``--multi-task-head --n-h 2 --cgconv-impl pallas`` in the per-step
+      loop (``hm_multitask``; the per-task MAE lines printed) and served
+      (``hm_multitask_serve``: 4 columns, held to the plain path).
+    -> (summary, counts by path)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.graph import (
+        bucketed_batch_iterator,
+        capacities_for,
+    )
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
+    from cgnn_tpu_torch.data.synthetic import synthetic_mp_dataset
+    from cgnn_tpu_torch.serve.server import load_server, structure_featurizer
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+    from cgnn_tpu_torch.train.loop import edge_pack_fn, staged_nbytes
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "heads_modes")
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = write_label_directories(root, N_HM, SEED + 13)
+    data_cfg = DataConfig()
+    n_conv = ModelConfig().n_conv
+    f32_steps = dense_per_step(n_conv)
+    bf16_steps = dense_per_step(n_conv, bf16=True)
+    counts, summary = {}, {"card": card, "structures": N_HM,
+                           "multi_task_empty_share": dirs["empty_share"]}
+
+    def base(name):
+        return [dirs[name], "--cache", os.path.join(root, f"{name}.npz"),
+                "-j", str(PREPROCESS_WORKERS), "-b", str(BATCH),
+                "--epochs", str(HM_EPOCHS), "--print-freq", "0", "--seed",
+                str(SEED), "--ckpt-dir", os.path.join(root, f"{name}_ck"),
+                "--out-dir", os.path.join(root, f"{name}_out")]
+
+    # --- bf16 -------------------------------------------------------------
+    out, info, graphs, split, counts["hm_bf16_driver"] = hm_train(
+        "hm_bf16_driver", base("reg") + [
+            "--bf16", "--cgconv-impl", "pallas", "--device-resident",
+            "--buckets", "3"],
+        os.path.join(root, "reg.npz"), True, bf16_steps)
+    st = info["staging"]
+    check(st["compact"] and "compact staging: on" in out,
+          f"hm_bf16_driver: staging {st}")
+    train_g = split[0]
+    full = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        full[name] = staged_nbytes(list(bucketed_batch_iterator(
+            train_g, BATCH, 3, shuffle=True, rng=np.random.default_rng(SEED),
+            dense_m=M, pack_fn=edge_pack_fn(dtype))))
+    summary["bf16_driver"] = {
+        "staged_bytes_compact": st["staged_bytes"],
+        "full_staging_bytes_bf16": full["bf16"],
+        "full_staging_bytes_f32": full["f32"],
+        "full_staging_bf16_over_f32": full["bf16"] / full["f32"],
+        "epoch_seconds": info["epoch_seconds"],
+        "train_structures_per_s": info["train_structures_per_s"],
+        "captures_after_warm": info["graphs"]["captures_after_warm"],
+        "test": info["test"]}
+    print(f"hm_bf16_driver: {summary['bf16_driver']}")
+    _, traj = compare_trajectories(
+        dev, train_g, fixed_batches(
+            dev, train_g, capacities_for(train_g, BATCH, dense_m=M)[0], 5,
+            edge_dtype=torch.bfloat16),
+        "bf16 trajectory", {"cgconv_impl": "pallas", "dtype": "bfloat16"},
+        {"cgconv_impl": "", "dtype": "bfloat16"}, rtol=BF16_TOL,
+        atol=BF16_ATOL)
+    summary["bf16_trajectory"] = traj
+    ck = os.path.join(root, "reg_ck")
+    want = plain_answers(dev, ck, "latest", graphs)
+    want32 = plain_answers(dev, ck, "latest", graphs, dtype="float32")
+    preds = {}
+    cache = os.path.join(root, "reg.npz")
+    for path, extra in (
+            ("hm_bf16_predict", ["--cache", cache, "--compact", "off",
+                                 "--wire", "featurized"]),
+            ("hm_bf16_predict_compact", ["--cache", cache, "--compact", "on",
+                                         "--wire", "featurized"]),
+            ("hm_bf16_predict_raw", [dirs["reg"], "--wire", "raw"])):
+        got, rec = hm_predict(
+            path, [ck, *extra, "-b", str(BATCH), "--out",
+                   os.path.join(root, f"{path}.csv")],
+            bf16_steps, want, BF16_TOL, 1)
+        counts[path] = rec.pop("path")
+        rec["max_abs_gap_to_f32_model"] = float(np.abs(got - want32).max())
+        preds[path] = rec
+    check(preds["hm_bf16_predict_raw"]["batches_raw"] > 0
+          and preds["hm_bf16_predict_compact"]["compact"],
+          f"bf16 predict wires: {preds}")
+    summary["bf16_predict"] = preds
+    server, _ = load_server(ck, wire="raw", compact="on",
+                            calibration=calibration, device=dev,
+                            log_fn=lambda *_: None, watch=False)
+    # the first CIFs' structures in wire form (write_cif_directory's
+    # generator and seed), and their host-featurized copies
+    wire = list(synthetic_mp_dataset(N_HM_RAW, seed=SEED + 13))
+    raws = [RawStructure.from_structure(st, cif_id=sid)
+            for sid, st, _ in wire]
+    featurize = structure_featurizer(data_cfg)
+    geo = [featurize(st) for _, st, _ in wire]
+    serve_g = graphs[:N_HM_SERVE]
+    serves = {}
+    for label, reqs, ref_g in (("hm_bf16_serve", serve_g, serve_g),
+                               ("hm_bf16_serve_raw", raws, geo)):
+        w = plain_answers(dev, ck, "latest", ref_g)
+        w32 = plain_answers(dev, ck, "latest", ref_g, dtype="float32")
+        got, rec = hm_burst(server, label, reqs, bf16_steps, w, BF16_TOL, 1)
+        counts[label] = rec.pop("path")
+        rec["max_abs_gap_to_f32_model"] = float(np.abs(got - w32).max())
+        serves[label] = rec
+    check(serves["hm_bf16_serve_raw"]["raw_flushes"] > 0,
+          "the bf16 raw burst ran no raw flush")
+    check(server.drain(timeout_s=60), "the bf16 server did not drain")
+    summary["bf16_serve"] = serves
+
+    # --- classification ---------------------------------------------------
+    out, info, graphs, split, counts["hm_class_driver"] = hm_train(
+        "hm_class_driver", base("cls") + [
+            "--task", "classification", "--dropout", "0.1",
+            "--cgconv-impl", "pallas", "--device-resident", "--buckets",
+            "3"], os.path.join(root, "cls.npz"), True, f32_steps)
+    check("** test accuracy" in out and info["test"].get("accuracy")
+          is not None, "hm_class_driver: no class_eval line")
+    cls_cfg = ModelConfig(dense_m=M, cgconv_impl="pallas",
+                          classification=True, dropout=0.1)
+    summary["class_driver"] = {"test": info["test"],
+                               "epoch_seconds": info["epoch_seconds"]}
+    summary["class_replay"] = class_replay_checks(dev, split[0])
+    summary["class_resume"] = class_resume_bits(dev, split, work_dir,
+                                                cls_cfg, data_cfg)
+    ck = os.path.join(root, "cls_ck")
+    with PathRun("hm_class_resume") as run:
+        rc, out = run_main(train_main, base("cls") + [
+                               "--task", "classification", "--dropout",
+                               "0.1", "--cgconv-impl", "pallas",
+                               "--device-resident", "--buckets", "3",
+                               "--epochs", str(HM_EPOCHS + 1),
+                               "--resume", ck], "hm_class_resume")
+    check(rc == 0 and f"resumed from {ck} at epoch {HM_EPOCHS}" in out,
+          f"hm_class_resume: rc {rc}, {out[-300:]!r}")
+    info = json.loads(next(line for line in out.splitlines()
+                           if line.startswith("train: "))[7:])
+    _, logical = hm_logical(graphs, True, 1)
+    counts["hm_class_resume"] = check_path(
+        run, f32_steps, logical,
+        outside={"predict": info["test"]["class_eval_batches"]})
+    want = plain_answers(dev, ck, "latest", graphs)
+    got, rec = hm_predict("hm_class_predict", [
+        ck, "--cache", os.path.join(root, "cls.npz"), "-b", str(BATCH),
+        "--out", os.path.join(root, "hm_class_predict.csv")],
+        f32_steps, want, None, 2)
+    counts["hm_class_predict"] = rec.pop("path")
+    sums = np.exp(got).sum(axis=1)
+    check(bool(np.all(np.abs(sums - 1.0) <= 1e-5)),
+          f"predicted class probabilities sum to {sums.min()}..{sums.max()}")
+    server, _ = load_server(ck, calibration=calibration, device=dev,
+                            log_fn=lambda *_: None, watch=False)
+    got_s, srec = hm_burst(server, "hm_class_serve", graphs[:N_HM_SERVE],
+                           f32_steps, want[:N_HM_SERVE], None, 2)
+    counts["hm_class_serve"] = srec.pop("path")
+    check(server.drain(timeout_s=60), "the classifier's server did not "
+                                      "drain")
+    ssums = np.exp(got_s).sum(axis=1)
+    check(bool(np.all(np.abs(ssums - 1.0) <= 1e-5)),
+          f"served class probabilities sum to {ssums.min()}..{ssums.max()}")
+    summary["class_predict"] = dict(rec, max_prob_sum_gap=float(
+        np.abs(sums - 1.0).max()))
+    summary["class_serve"] = dict(srec, max_prob_sum_gap=float(
+        np.abs(ssums - 1.0).max()))
+
+    # --- multi-task -------------------------------------------------------
+    out, info, graphs, _, counts["hm_multitask"] = hm_train(
+        "hm_multitask", base("mt") + [
+            "--multi-task-head", "--n-h", "2", "--cgconv-impl", "pallas"],
+        os.path.join(root, "mt.npz"), False, f32_steps)
+    check(all(f"** test mae task {t}:" in out for t in range(4)),
+          "hm_multitask: per-task MAE lines missing")
+    ck = os.path.join(root, "mt_ck")
+    want = plain_answers(dev, ck, "latest", graphs[:N_HM_SERVE])
+    server, _ = load_server(ck, calibration=calibration, device=dev,
+                            log_fn=lambda *_: None, watch=False)
+    _, srec = hm_burst(server, "hm_multitask_serve", graphs[:N_HM_SERVE],
+                       f32_steps, want, None, 4)
+    counts["hm_multitask_serve"] = srec.pop("path")
+    check(server.drain(timeout_s=60), "the multi-task server did not drain")
+    summary["multitask"] = {
+        "test": info["test"], "serve": srec,
+        "test_mae_by_task": {HM_TASKS[t]: info["test"].get(f"mae_task{t}")
+                             for t in range(4)}}
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"heads_modes: {summary['seconds']!r} s")
+    return summary, counts
+
+
 def main() -> int:
     import torch
 
@@ -4490,6 +5248,9 @@ def main() -> int:
         dev, calibration, shape_set)
     kernels.append(search_entry)
     kernels += coo_kernel_phase(dev, split[0], calibration)
+    kernels += bf16_kernel_phase(dev, split[0], calibration, shape_set)
+    hm_summary, hm_counts = heads_modes_phase(dev, work_dir, card,
+                                              calibration)
     summary, breakdown, raw_breakdown, by_path = serve_phase(
         dev, calibration, work_dir)
     train_summary, train_counts, node_cap = train_phase(dev, split, work_dir)
@@ -4511,7 +5272,8 @@ def main() -> int:
     res_summary, res_counts = resilience_phase(dev, work_dir, split,
                                                mp_split)
     http_summary, http_counts = serve_http_phase(dev, work_dir, card)
-    by_path.update(**graphs_counts, **res_counts, **http_counts)
+    by_path.update(**graphs_counts, **res_counts, **http_counts,
+                   **hm_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -4549,6 +5311,7 @@ def main() -> int:
     print(json.dumps({"step_graphs": graphs_summary}, allow_nan=False))
     print(json.dumps({"resilience": res_summary}, allow_nan=False))
     print(json.dumps({"serve_http": http_summary}, allow_nan=False))
+    print(json.dumps({"heads_modes": hm_summary}, allow_nan=False))
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card)

@@ -1206,3 +1206,149 @@ def test_pinned_pack_is_page_locked_and_bit_equal(dev, layout):
             np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
             np.testing.assert_array_equal(
                 getattr(staged, name).cpu().numpy(), w, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instances of kernels 1, 2, 4 and 5
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("n,m,f,g", [
+    (1784, 12, 64, 41),  # the flagship's top serving rung
+    (37, 8, 16, 26),  # the CPU tests' widths
+    (100, 12, 32, 100),  # G > 44: the slot pass keeps W_e in shared memory
+    (129, 5, 96, 7),  # F not a power of two
+])
+def test_bf16_conv_instances_match(dev, n, m, f, g):
+    """Kernels 1 and 2 on bf16 nodes and edges: the f32 instances' bits on
+    the widened inputs (the same arithmetic in the same order), and their
+    plain version (the f32 one on the widened inputs) within TOL; counted
+    by the bf16 wrappers alone; a mix of storage types refused."""
+    args = list(_args(dev, n, m, f, g))
+    args[0], args[1] = args[0].to(BF16), args[1].to(BF16)
+    wide = [args[0].float(), args[1].float(), *args[2:]]
+    counts = [w.launches for w in (fc.fused_cgconv_node_bf16_cuda,
+                                   fc.fused_cgconv_eval_bf16_cuda,
+                                   fc.fused_cgconv_stats_bf16_cuda)]
+    got = fc.fused_cgconv_eval_bf16_cuda(*args)
+    shift = args[8]
+    sargs = (*args[:4], args[6], args[7], shift)
+    stats = fc.fused_cgconv_stats_bf16_cuda(*sargs)
+    p = fc.fused_cgconv_node_bf16_cuda(args[0], args[2], args[3])
+    torch.cuda.synchronize()
+    assert [fc.fused_cgconv_node_bf16_cuda.launches,
+            fc.fused_cgconv_eval_bf16_cuda.launches,
+            fc.fused_cgconv_stats_bf16_cuda.launches] == [
+                counts[0] + 3, counts[1] + 1, counts[2] + 1]
+    assert torch.equal(got, fc.fused_cgconv_eval_cuda(*wide))
+    torch.testing.assert_close(got, fc.fused_cgconv_eval_reference(*args),
+                               **TOL)
+    wsargs = (*wide[:4], wide[6], wide[7], shift)
+    assert torch.equal(stats, fc.fused_cgconv_stats_cuda(*wsargs))
+    want = fc.fused_cgconv_stats_reference(*sargs)
+    for row in range(2):
+        _close_on_scale(stats[row], want[row])
+    assert torch.equal(p, fc.fused_cgconv_node_cuda(wide[0], wide[2],
+                                                    wide[3]))
+    with pytest.raises(ValueError, match="edges must be torch.bfloat16"):
+        fc.fused_cgconv_eval_bf16_cuda(args[0], wide[1], *args[2:])
+    with pytest.raises(ValueError, match="nodes must be torch.float32"):
+        fc.fused_cgconv_eval_cuda(*args)
+
+
+@pytest.mark.parametrize("n,m,f", [(7832, 12, 64), (37, 8, 16),
+                                   (129, 5, 96), (301, 12, 18)])
+def test_bf16_epilogue_instances_match(dev, n, m, f):
+    """Kernels 4 and 5 on bf16 z: the f32 instances' bits on the widened
+    z (dz rounded to bf16), their plain versions within the f32
+    tolerances; F = 18 takes kernel 4's scalar path."""
+    fe, z, mask, cst, ct, red5 = _epilogue_args(dev, n, m, f)
+    zb = z.to(BF16)
+    counts = [fe.epilogue_reduce_bf16_cuda.launches,
+              fe.epilogue_dz_bf16_cuda.launches]
+    red = fe.epilogue_reduce_bf16_cuda(zb, mask, cst, ct)
+    dz = fe.epilogue_dz_bf16_cuda(zb, mask, cst, red5, ct)
+    torch.cuda.synchronize()
+    assert [fe.epilogue_reduce_bf16_cuda.launches,
+            fe.epilogue_dz_bf16_cuda.launches] == [counts[0] + 1,
+                                                    counts[1] + 1]
+    assert dz.dtype == BF16
+    assert torch.equal(red, fe.epilogue_reduce_cuda(zb.float(), mask, cst,
+                                                    ct))
+    assert torch.equal(dz, fe.epilogue_dz_cuda(zb.float(), mask, cst, red5,
+                                               ct).to(BF16))
+    want = fe.epilogue_reduce_reference(zb, mask, cst, ct)
+    for row in range(4):
+        _close_on_scale(red[row], want[row], rtol=5e-4)
+    torch.testing.assert_close(
+        dz, fe.epilogue_dz_reference(zb, mask, cst, red5, ct),
+        rtol=2 ** -7, atol=1e-5)
+    assert (dz[mask == 0] == 0).all()
+
+
+def test_bf16_training_op_runs_only_bf16_instances(dev):
+    """fused_cgconv on bf16 nodes and edges on the card: one bf16 node,
+    stats and apply pass and one bf16 kernel 4 and 5, no f32 instance;
+    values and gradients within 2e-2 of the f32 kernel path's on the
+    widened inputs (bf16 z in the backward)."""
+    from cgnn_tpu_torch.data.dataset import load_synthetic_mp
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.ops import fused_epilogue as fe
+
+    graphs = load_synthetic_mp(48, seed=5)
+    nc, ec = capacities_for(graphs, 48, dense_m=12)
+    batch = next(iter(batch_iterator(graphs, 48, nc, ec, dense_m=12,
+                                     snug=True))).to(dev)
+    n = batch.nodes.shape[0]
+    f, g = 64, batch.edges.shape[-1]
+    rng = np.random.default_rng(2)
+
+    def leaf(shape, s=1.0):
+        return torch.tensor(s * rng.standard_normal(shape),
+                            dtype=torch.float32, device=dev)
+
+    inputs = [leaf((n, f)).to(BF16),
+              leaf((2 * f + g, 2 * f), (2 * f + g) ** -0.5),
+              leaf(2 * f, 0.1), 1.0 + leaf(2 * f, 0.1), leaf(2 * f, 0.2)]
+    ct = leaf((n, f))
+    tr = (batch.in_slots, batch.in_mask, batch.over_slots, batch.over_nodes,
+          batch.over_mask)
+    wrappers = {"f32": (fc.fused_cgconv_node_cuda, fc.fused_cgconv_stats_cuda,
+                        fc.fused_cgconv_eval_cuda, fe.epilogue_reduce_cuda,
+                        fe.epilogue_dz_cuda),
+                "bf16": (fc.fused_cgconv_node_bf16_cuda,
+                         fc.fused_cgconv_stats_bf16_cuda,
+                         fc.fused_cgconv_eval_bf16_cuda,
+                         fe.epilogue_reduce_bf16_cuda,
+                         fe.epilogue_dz_bf16_cuda)}
+    res = []
+    for kind in ("bf16", "f32"):
+        before = {k: [w.launches for w in ws] for k, ws in wrappers.items()}
+        x = [a.clone().requires_grad_() if kind == "bf16"
+             else a.float().clone().requires_grad_() for a in inputs]
+        edges = batch.edges.to(BF16) if kind == "bf16" \
+            else batch.edges.to(BF16).float()
+        outs = fc.fused_cgconv(x[0], edges, x[1], x[2], x[3], x[4],
+                               batch.neighbors,
+                               batch.edge_mask.reshape(n, 12), tr,
+                               impl="pallas",
+                               dtype=BF16 if kind == "bf16"
+                               else torch.float32)
+        (outs[0] * ct).sum().backward()
+        ran = {k: [w.launches - b for w, b in zip(ws, before[k])]
+               for k, ws in wrappers.items()}
+        other = "f32" if kind == "bf16" else "bf16"
+        assert ran == {kind: [1] * 5, other: [0] * 5}, ran
+        res.append(([o.detach().float() for o in outs[:3]],
+                    [a.grad.float() for a in x]))
+    (got, got_g), (want, want_g) = res
+    for k, (a, b) in enumerate(zip(got + got_g, want + want_g)):
+        assert torch.isfinite(a).all()
+        if k == len(got) + 2:
+            # fc_full's bias: BN1 makes the loss invariant to it, so its
+            # gradient is roundoff on both paths
+            continue
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2e-2 * max(scale, 1e-6), k

@@ -154,11 +154,31 @@ def test_model_config_meta_matches_jax():
 
 
 def test_unported_settings_raise(monkeypatch):
+    import cgnn_tpu_torch.config as tconfig
+
     dcfg = DataConfig()
-    for bad in (dict(classification=True), dict(multi_task_head=True),
-                dict(dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            build_model(ModelConfig(dense_m=12, **bad), dcfg, device="cpu")
+    # what stays refused: bf16 where a kernel has no bf16 instance on the
+    # card (kernel 3: fused_epilogue='pallas'; kernel 6: COO with
+    # aggregation='pallas'), named by its ROADMAP item, and the force task
+    bf16_no_instance = (dict(dense_m=12, fused_epilogue="pallas"),
+                        dict(dense_m=0, aggregation="pallas"))
+    for bad in bf16_no_instance:
+        cfg = ModelConfig(dtype="bfloat16", **bad)
+        # on the CPU both run their plain versions
+        assert build_model(cfg, dcfg, device="cpu") is not None
+        with monkeypatch.context() as m:  # the card, stood in for
+            m.setattr(tconfig, "resolve_device",
+                      lambda device: torch.device("cuda"))
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+                build_model(cfg, dcfg, device="cuda")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        build_model(ModelConfig(dense_m=12), dcfg, device="cpu",
+                    task="force")
+    # classification, the multi-task head and bf16 build
+    for ok in (dict(classification=True), dict(multi_task_head=True),
+               dict(dtype="bfloat16")):
+        assert build_model(ModelConfig(dense_m=12, **ok), dcfg,
+                           device="cpu") is not None
     # COO is ported (tests/test_torch_coo.py), without the dense-layout
     # fused ops
     with pytest.raises(NotImplementedError, match="dense layout"):

@@ -180,7 +180,7 @@ def test_boot_crash_dies_once_then_boots(ckpt):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--precision", "f32,bf16"], "item 7"),
+    (["--precision", "f32,bf16"], "item 11"),
     (["--devices", "4"], "items 9 and 11"),
     (["--engine", "mesh"], "items 9 and 11"),
     (["--telemetry-dir", "x"], "item 11"),
