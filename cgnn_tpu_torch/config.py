@@ -24,13 +24,14 @@ kernel gathers neighbor rows directly, with no window.
 
 ``dtype='bfloat16'`` computes in bf16 with f32 parameters and statistics
 (models/cgcnn.py); its edges are staged in bf16 (``edge_dtype``). On a
-CUDA device it needs a bf16 instance of every kernel its settings run, so
-``build`` refuses two settings there, naming their ROADMAP item:
-``fused_epilogue='pallas'`` (kernel 3 has no bf16 instance yet) and the
-COO layout with ``aggregation='pallas'`` (kernel 6 has none either). On
-the CPU both run their plain versions. ``classification`` (a
+CUDA device every kernel its settings run has a bf16 instance (kernels
+1-6). ``classification`` (a
 ``num_classes`` log-softmax head, ``dropout`` in train mode) and
 ``multi_task_head`` (models/heads.py) build anywhere.
+
+``build_model(task='force')`` builds the force field instead
+(``build_force_model``, models/forcefield.py): the same widths and
+dtype, the edge featurization in the model, no BatchNorm.
 
 ``dense_m=0`` is the flat COO layout; there ``aggregation`` picks the
 edge aggregation (ops/segment.py ``aggregate_edge_messages``: None or
@@ -121,17 +122,6 @@ class ModelConfig:
 
         dev = resolve_device(device)
         dtype = self.torch_dtype
-        if dev.type == "cuda" and dtype == torch.bfloat16:
-            if self.fused_epilogue == "pallas":
-                raise NotImplementedError(
-                    "dtype='bfloat16' with fused_epilogue='pallas' on the "
-                    "card: kernel 3 has no bf16 instance yet (ROADMAP "
-                    "Queue 2)")
-            if not self.dense_m and self.aggregation == "pallas":
-                raise NotImplementedError(
-                    "dtype='bfloat16' with the COO layout and "
-                    "aggregation='pallas' on the card: kernel 6 has no "
-                    "bf16 instance yet (ROADMAP Queue 2)")
         return CrystalGraphConvNet(
             orig_atom_fea_len=ATOM_FEA_DIM,
             nbr_fea_len=nbr_fea_len,
@@ -184,14 +174,58 @@ class DataConfig:
         return self.featurize_config().gdf().num_features
 
 
+# why the force task refuses the COO layout's kernel aggregation: the
+# reference fails there (ROADMAP Queue 3), so the port has nothing to
+# hold such a run to
+FORCE_PALLAS_REFUSAL = (
+    "--task force with --aggregation pallas: the JAX package's force step "
+    "fails there (the outer derivative takes a JVP of kernel 6's "
+    "custom-VJP forward, and pallas_call has no JVP rule: "
+    "NotImplementedError from _pallas_call_jvp_rule), so the port refuses "
+    "it too (ROADMAP Queue 3); use the dense layout or --aggregation xla")
+
+
+def build_force_model(model_cfg: ModelConfig, data_cfg: DataConfig,
+                      device="cuda"):
+    """The force field (models/forcefield.py) for a config pair, in eval
+    mode on ``device``, after ``cgnn_tpu/config.py``'s ``build_model``:
+    the edge featurization in the model (``dmax`` the cutoff radius), the
+    config's dtype, layout and COO aggregation. Refused, as the JAX
+    package refuses them: ``fused_epilogue`` and ``cgconv_impl`` (they
+    fuse BatchNorm, which the trunk lacks) and ``aggregation='pallas'``
+    on COO (``FORCE_PALLAS_REFUSAL``)."""
+    from cgnn_tpu_torch.data.elements import ATOM_FEA_DIM
+    from cgnn_tpu_torch.models.forcefield import ForceFieldCGCNN
+
+    if model_cfg.fused_epilogue or model_cfg.cgconv_impl:
+        raise NotImplementedError(
+            "the force task refuses fused_epilogue and cgconv_impl: both "
+            "fuse the BN1 -> gate -> sum chain, and the force field's trunk "
+            "has no BatchNorm")
+    if not model_cfg.dense_m and model_cfg.aggregation == "pallas":
+        raise NotImplementedError(FORCE_PALLAS_REFUSAL)
+    dev = resolve_device(device)
+    return ForceFieldCGCNN(
+        orig_atom_fea_len=ATOM_FEA_DIM,
+        atom_fea_len=model_cfg.atom_fea_len,
+        n_conv=model_cfg.n_conv,
+        h_fea_len=model_cfg.h_fea_len,
+        dmin=data_cfg.dmin,
+        dmax=data_cfg.radius,
+        step=data_cfg.step,
+        dtype=model_cfg.torch_dtype,
+        aggregation_impl=model_cfg.aggregation,
+        dense_m=model_cfg.dense_m or None,
+    ).to(dev).eval()
+
+
 def build_model(model_cfg: ModelConfig, data_cfg: DataConfig, device="cuda",
                 task: str = "regression", dropout_seed: int = 0):
     """The model for a (model, data) config pair and ``task`` on
-    ``device``: regression and classification (the config says which);
-    the force task is not ported yet (ROADMAP Queue 1, item 8)."""
+    ``device``: regression and classification (the config says which),
+    or the force field (``build_force_model``)."""
     if task == "force":
-        raise NotImplementedError(
-            "task='force' is not ported yet (ROADMAP Queue 1, item 8)")
+        return build_force_model(model_cfg, data_cfg, device)
     if task not in ("regression", "classification"):
         raise ValueError(f"unknown task {task!r}")
     return model_cfg.build(data_cfg.nbr_fea_len, device=device,

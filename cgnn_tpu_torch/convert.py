@@ -11,7 +11,9 @@ Layout rules: a Dense ``kernel`` [in, out] becomes ``nn.Linear.weight``
 [out, in]; ``fc_full/kernel`` stays [2F+G, 2F], the layout the fused
 kernel reads; BatchNorm ``scale`` becomes ``weight``, and the
 ``batch_stats`` ``mean``/``var`` become the ``running_mean``/
-``running_var`` buffers.
+``running_var`` buffers. The force field's tree has no ``batch_stats``
+(its trunk has no BatchNorm): an empty or absent collection carries as
+none.
 """
 
 from __future__ import annotations
@@ -98,8 +100,10 @@ def to_flax_variables(state_dict) -> dict:
 
 def save_params(params_npz: str, meta_json: str, variables: dict,
                 model_cfg: ModelConfig, data_cfg: DataConfig,
-                normalizer_mean=(0.0,), normalizer_std=(1.0,)) -> None:
-    """Write the JAX-layout ``variables`` and the meta beside them."""
+                normalizer_mean=(0.0,), normalizer_std=(1.0,),
+                task: str | None = None) -> None:
+    """Write the JAX-layout ``variables`` and the meta beside them
+    (``task``, where given, too: a server refuses the force task's)."""
     np.savez(params_npz, **flatten(variables))
     meta = {
         "model": model_cfg.to_meta(),
@@ -109,6 +113,8 @@ def save_params(params_npz: str, meta_json: str, variables: dict,
             "std": [float(x) for x in np.asarray(normalizer_std, np.float32)],
         },
     }
+    if task is not None:
+        meta["task"] = task
     with open(meta_json, "w") as f:
         json.dump(meta, f, indent=1, allow_nan=False)
 
@@ -136,11 +142,13 @@ def _lecun_normal(rng: np.random.Generator, fan_in: int,
 
 
 def init_params(model_cfg: ModelConfig, data_cfg: DataConfig,
-                seed: int = 0) -> dict:
+                seed: int = 0, task: str = "regression") -> dict:
     """Random JAX-layout variables from a numpy seed: lecun-normal
     kernels, zero biases, unit BN scales, running stats (0, 1); the head
     the config asks for (``fc_out`` at ``out_dim``, or the multi-task
-    head's ``head/task{t}_...`` stacks)."""
+    head's ``head/task{t}_...`` stacks). ``task='force'``: the force
+    field's tree (``embedding``, ``conv_{i}/fc_full``,
+    ``ForceHead_0/{fc,out}``), with no ``batch_stats``."""
     rng = np.random.default_rng(seed)
     f, h = model_cfg.atom_fea_len, model_cfg.h_fea_len
     g = data_cfg.nbr_fea_len
@@ -148,6 +156,13 @@ def init_params(model_cfg: ModelConfig, data_cfg: DataConfig,
     def dense(n_in, n_out):
         return {"kernel": _lecun_normal(rng, n_in, (n_in, n_out)),
                 "bias": np.zeros(n_out, np.float32)}
+
+    if task == "force":
+        params = {"embedding": dense(ATOM_FEA_DIM, f)}
+        for i in range(model_cfg.n_conv):
+            params[f"conv_{i}"] = {"fc_full": dense(2 * f + g, 2 * f)}
+        params["ForceHead_0"] = {"fc": dense(f, h), "out": dense(h, 1)}
+        return {"params": params}
 
     def bn(c):
         return ({"scale": np.ones(c, np.float32),

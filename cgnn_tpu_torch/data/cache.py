@@ -68,6 +68,8 @@ def save_graph_cache(graphs: Sequence[CrystalGraph], path: str) -> None:
         payload["positions"] = np.concatenate([g.positions for g in graphs])
         payload["lattices"] = np.stack([g.lattice for g in graphs])
         payload["offsets"] = np.concatenate([g.offsets for g in graphs])
+    if all(g.forces is not None for g in graphs):
+        payload["forces"] = np.concatenate([g.forces for g in graphs])
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **payload)
@@ -76,8 +78,7 @@ def save_graph_cache(graphs: Sequence[CrystalGraph], path: str) -> None:
 
 def load_graph_cache(path: str) -> list[CrystalGraph]:
     """Load a cache back into CrystalGraphs (views into the mmap'd
-    arrays). The JAX package's per-atom force labels, when present, are
-    not read: the force task is not ported."""
+    arrays), with the per-atom force labels where the cache holds them."""
     z = np.load(path, mmap_mode="r", allow_pickle=False)
     if int(z["version"]) != _VERSION:
         raise ValueError(
@@ -96,6 +97,7 @@ def load_graph_cache(path: str) -> list[CrystalGraph]:
     cif_ids = np.asarray(z["cif_ids"])
     has_geom = bool(int(z["has_geometry"]))
     distances = z["distances"] if "distances" in z else None
+    forces = z["forces"] if "forces" in z else None
     graphs = []
     for i in range(len(node_counts)):
         ns = slice(node_off[i], node_off[i + 1])
@@ -112,6 +114,7 @@ def load_graph_cache(path: str) -> list[CrystalGraph]:
             positions=z["positions"][ns] if has_geom else None,
             lattice=np.asarray(z["lattices"][i]) if has_geom else None,
             offsets=z["offsets"][ne] if has_geom else None,
+            forces=None if forces is None else forces[ns],
         ))
     return graphs
 

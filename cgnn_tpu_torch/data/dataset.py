@@ -130,6 +130,47 @@ def load_synthetic_mp(
     ]
 
 
+def load_synthetic_oc20(
+    num_structures: int,
+    cfg: FeaturizeConfig | None = None,
+    seed: int = 0,
+) -> list[CrystalGraph]:
+    """OC20 IS2RE stand-in: catalyst-slab graphs of 37-255 atoms (surface
+    under-coordination, vacuum gaps, a wide size spread)."""
+    from cgnn_tpu_torch.data.synthetic import synthetic_oc20_dataset
+
+    cfg = cfg or FeaturizeConfig()
+    gdf = cfg.gdf()
+    return [
+        featurize_structure(s, t, cfg, sid, gdf)
+        for sid, s, t in synthetic_oc20_dataset(num_structures, seed)
+    ]
+
+
+def load_trajectory(
+    num_frames: int,
+    cfg: FeaturizeConfig | None = None,
+    seed: int = 0,
+    num_atoms: int = 8,
+    jitter: float = 0.08,
+) -> list[CrystalGraph]:
+    """MD17 stand-in: LJ trajectory frames with energy and force labels.
+    The graphs keep their geometry, from which the force model recomputes
+    the distances, and carry per-atom ``forces``."""
+    from cgnn_tpu_torch.data.synthetic import synthetic_trajectory
+
+    cfg = cfg or FeaturizeConfig()
+    gdf = cfg.gdf()
+    graphs = []
+    for sid, s, energy, forces in synthetic_trajectory(
+        num_frames, seed=seed, num_atoms=num_atoms, jitter=jitter
+    ):
+        g = featurize_structure(s, energy, cfg, sid, gdf, keep_geometry=True)
+        g.forces = forces.astype(np.float32)
+        graphs.append(g)
+    return graphs
+
+
 def train_val_test_split(
     graphs: Sequence[CrystalGraph],
     train_ratio: float = 0.8,

@@ -69,6 +69,7 @@ class CrystalGraph:
     lattice: np.ndarray | None = None  # [3, 3] f32 row vectors
     offsets: np.ndarray | None = None  # [E, 3] i32 periodic image of j
     numbers: np.ndarray | None = None  # [N] i32 atomic numbers
+    forces: np.ndarray | None = None  # [N, 3] f32 per-atom force labels
 
     @property
     def num_nodes(self) -> int:
@@ -100,7 +101,7 @@ class GraphBatch:
     targets: torch.Tensor  # [Gcap, T] f32
     target_mask: torch.Tensor  # [Gcap, T] f32
     # geometry (from graphs featurized with keep_geometry, else zeros) and
-    # the per-atom labels of the force task (zeros: not ported)
+    # the per-atom labels of the force task (zeros where a graph has none)
     positions: torch.Tensor  # [Ncap, 3] f32
     lattices: torch.Tensor  # [Gcap, 3, 3] f32
     edge_offsets: torch.Tensor  # [Ecap, 3] f32
@@ -328,6 +329,8 @@ def pack_graphs(
             o = g.offsets if order is None else g.offsets[
                 np.argsort(g.centers, kind="stable")]
             edge_offsets[slots[edge_offs[gi]:edge_offs[gi + 1]]] = o
+        if g.forces is not None:
+            node_targets[node_offs[gi]:node_offs[gi + 1]] = g.forces
         t = np.atleast_1d(np.asarray(g.target, np.float32))
         targets[gi, : len(t)] = t
         target_mask[gi, : len(t)] = (

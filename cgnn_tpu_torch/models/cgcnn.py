@@ -73,6 +73,7 @@ from cgnn_tpu_torch.ops.fused_cgconv import (
 )
 from cgnn_tpu_torch.ops.fused_epilogue import FusedBN1GateSum
 from cgnn_tpu_torch.ops.norm import MaskedBatchNorm, update_running_stats
+from cgnn_tpu_torch.ops.scatter import segment_sum_sorted
 from cgnn_tpu_torch.ops.segment import (
     AGGREGATION_IMPLS,
     aggregate_edge_messages,
@@ -85,11 +86,21 @@ from cgnn_tpu_torch.ops.segment import (
 
 class CGConv(nn.Module):
     """One edge-gated crystal-graph convolution: the dense branch, or the
-    flat COO branch when ``dense_m`` is None."""
+    flat COO branch when ``dense_m`` is None.
+
+    ``use_batchnorm=False`` (the force field's trunk, as the JAX
+    ``CGConv(use_batchnorm=False)``) drops BN1 and BN2 and with them
+    ``cgconv_impl`` and ``fused_epilogue``, which fuse BN1.
+    ``fixed_order_sum`` sums a COO training batch's messages with the
+    fixed-order op (ops/scatter.py ``segment_sum_sorted``, over the
+    batch's ``center_offsets``) whatever ``aggregation_impl`` says, so a
+    model differentiated twice keeps every sum in edge order (the library
+    scatter-add's derivative of a derivative is a scatter-add again)."""
 
     def __init__(self, features: int, nbr_fea_len: int, dense_m: int | None,
                  cgconv_impl: str = "", fused_epilogue: str = "",
-                 aggregation_impl: str | None = None, compute_dtype=None):
+                 aggregation_impl: str | None = None, compute_dtype=None,
+                 use_batchnorm: bool = True, fixed_order_sum: bool = False):
         super().__init__()
         # None: the parameters' own precision (f32, or f64 in tests)
         self.compute_dtype = compute_dtype
@@ -105,6 +116,10 @@ class CGConv(nn.Module):
             raise NotImplementedError(
                 "cgconv_impl and fused_epilogue require the dense layout "
                 "(dense_m)")
+        if not use_batchnorm and (cgconv_impl or fused_epilogue):
+            raise NotImplementedError(
+                "cgconv_impl and fused_epilogue fuse the BN1 -> gate -> sum "
+                "chain: they require use_batchnorm")
         if aggregation_impl not in (None, *AGGREGATION_IMPLS):
             raise ValueError(f"aggregation_impl must be None or one of "
                              f"{AGGREGATION_IMPLS}, got {aggregation_impl!r}")
@@ -112,10 +127,14 @@ class CGConv(nn.Module):
         self.dense_m = dense_m
         self.cgconv_impl = cgconv_impl
         self.aggregation_impl = aggregation_impl
+        self.fixed_order_sum = fixed_order_sum
         self.fc_full = FcFullParams(2 * features + nbr_fea_len, 2 * features)
-        self.bn1 = (FusedBN1GateSum(2 * features, impl=fused_epilogue)
-                    if fused_epilogue else MaskedBatchNorm(2 * features))
-        self.bn2 = MaskedBatchNorm(features)
+        if use_batchnorm:
+            self.bn1 = (FusedBN1GateSum(2 * features, impl=fused_epilogue)
+                        if fused_epilogue else MaskedBatchNorm(2 * features))
+            self.bn2 = MaskedBatchNorm(features)
+        else:  # the force field's trunk: the tree holds fc_full alone
+            self.bn1 = self.bn2 = None
 
     def forward(self, nodes, edges, centers, neighbors, edge_mask,
                 node_mask, transpose=None):
@@ -128,7 +147,8 @@ class CGConv(nn.Module):
         else:
             agg = self._dense_aggregate(nodes, edges, neighbors, edge_mask,
                                         transpose)
-        agg = self.bn2(agg, node_mask)
+        if self.bn2 is not None:
+            agg = self.bn2(agg, node_mask)
         out = softplus(nodes + agg)
         return out * node_mask[:, None].to(out.dtype)
 
@@ -139,7 +159,7 @@ class CGConv(nn.Module):
             v_i, v_j = gather(nodes, centers), gather(nodes, neighbors)
         else:
             center_offsets, nbr_order, nbr_offsets = transpose
-            impl = self.aggregation_impl or "xla"
+            impl = "pallas" if self.aggregation_impl == "pallas" else "xla"
             v_i = gather_fixed_order(nodes, centers, None, center_offsets,
                                      impl)
             v_j = gather_fixed_order(nodes, neighbors, nbr_order,
@@ -148,10 +168,14 @@ class CGConv(nn.Module):
         dt = self.compute_dtype or self.fc_full.kernel.dtype
         z = (z.to(dt) @ self.fc_full.kernel.to(dt)
              + self.fc_full.bias.to(dt))
-        z = self.bn1(z, edge_mask)
+        if self.bn1 is not None:
+            z = self.bn1(z, edge_mask)
         gate, core = z.chunk(2, dim=-1)
         msg = torch.sigmoid(gate) * softplus(core)
         msg = msg * edge_mask[:, None].to(msg.dtype)
+        if self.fixed_order_sum and center_offsets is not None:
+            return segment_sum_sorted(msg, centers, nodes.shape[0], impl,
+                                      offsets=center_offsets)
         return aggregate_edge_messages(msg, centers, nodes.shape[0],
                                        impl=self.aggregation_impl,
                                        offsets=center_offsets)
@@ -192,7 +216,8 @@ class CGConv(nn.Module):
             if isinstance(bn1, FusedBN1GateSum):
                 agg = bn1(z, emask).to(nodes.dtype)
             else:
-                z = bn1(z, emask)
+                if bn1 is not None:
+                    z = bn1(z, emask)
                 gate, core = z.chunk(2, dim=-1)
                 msg = torch.sigmoid(gate) * softplus(core)
                 # load-bearing for gradients, not only values: the

@@ -4,6 +4,9 @@
 formation energy, band gap, bulk and shear modulus) shares one conv trunk
 and gives each task its own softplus MLP stack over the pooled crystal
 features. Missing labels are left out of the loss by ``target_mask``.
+
+``ForceHead``: the force field's per-atom energy readout
+(models/forcefield.py).
 """
 
 from __future__ import annotations
@@ -58,3 +61,21 @@ class MultiTaskHead(nn.Module):
                 h = softplus(getattr(self, f"task{t}_fc{i}")(h))
             outs.append(getattr(self, f"task{t}_out")(h))
         return torch.cat(outs, dim=-1)
+
+
+class ForceHead(nn.Module):
+    """Per-atom scalar energy, [N, F] -> [N]: ``out(softplus(fc(x)))``,
+    zeroed on padding nodes (the JAX ``ForceHead``; its tree is
+    ``ForceHead_0/{fc,out}``). Energies depend on positions only through
+    distances, so forces taken as their gradient are equivariant."""
+
+    def __init__(self, in_features: int, h_fea_len: int = 64,
+                 compute_dtype=None):
+        super().__init__()
+        self.fc = Dense(in_features, h_fea_len, compute_dtype)
+        self.out = Dense(h_fea_len, 1, compute_dtype)
+
+    def forward(self, node_fea: torch.Tensor,
+                node_mask: torch.Tensor) -> torch.Tensor:
+        e = self.out(softplus(self.fc(node_fea)))[:, 0]
+        return e * node_mask.to(e.dtype)

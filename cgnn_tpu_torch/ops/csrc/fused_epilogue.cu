@@ -51,14 +51,17 @@
 //     memory in thread-row order, then `sum_partials` in a fixed order: the
 //     result is bit-identical from run to run.
 //
-// bf16 instances of kernels 4 and 5 (`epilogue_reduce_bf16`,
-// `epilogue_dz_bf16`): the TPU's `_reduce_kernel` and `_dz_kernel` read
-// z of any dtype and work in f32, and `_dz_kernel` writes dz in z's dtype
-// (fused_epilogue.py:152-189). Both kernels are templates on z's storage
-// type T: T = __nv_bfloat16 widens z on load (kernel 4's V = 4 path reads
-// 4 bf16 = 8 bytes a load), runs the f32 instance's arithmetic, and kernel
-// 5 rounds dz to bf16 on its store. ct, cst, red5 and the partials stay
-// f32. Both stay byte-bound; z's bytes (and dz's) halve.
+// bf16 instances of kernels 3, 4 and 5 (`epilogue_apply_bf16`,
+// `epilogue_reduce_bf16`, `epilogue_dz_bf16`): the TPU's `_apply_kernel`,
+// `_reduce_kernel` and `_dz_kernel` read z of any dtype and work in f32;
+// `_apply_kernel` writes its sum in f32 and `_dz_kernel` writes dz in z's
+// dtype (fused_epilogue.py:142-189). The three kernels are templates on
+// z's storage type T: T = __nv_bfloat16 widens z on load (kernel 4's V =
+// 4 path reads 4 bf16 = 8 bytes a load), runs the f32 instance's
+// arithmetic in its order, kernel 3 writes its f32 sum as the f32 instance
+// does, and kernel 5 rounds dz to bf16 on its store. ct, cst, red5 and the
+// partials stay f32. All three stay byte-bound; z's bytes (and dz's)
+// halve.
 
 #include <cuda_runtime.h>
 
@@ -111,7 +114,8 @@ __device__ __forceinline__ void gate_grad_fast(float y_g, float y_c,
   *g_c = dmsg * sg * spg;
 }
 
-__global__ void epilogue_apply_kernel(const float* __restrict__ z,
+template <typename T>
+__global__ void epilogue_apply_kernel(const T* __restrict__ z,
                                       const float* __restrict__ mask,
                                       const float* __restrict__ cst,
                                       float* __restrict__ out, int n, int m,
@@ -127,9 +131,9 @@ __global__ void epilogue_apply_kernel(const float* __restrict__ z,
   for (int s = 0; s < m; ++s) {
     const size_t slot = (size_t)row * m + s;
     if (mask[slot] > 0.0f) {
-      const float* zr = z + slot * two_f;
-      const float y_g = (zr[c] - kg.mean) * rs_g + kg.bias;
-      const float y_c = (zr[c + f] - kc.mean) * rs_c + kc.bias;
+      const T* zr = z + slot * two_f;
+      const float y_g = (to_f32(zr[c]) - kg.mean) * rs_g + kg.bias;
+      const float y_c = (to_f32(zr[c + f]) - kc.mean) * rs_c + kc.bias;
       acc += sigmoid_f32(y_g) * softplus_f32(y_c);
     }
   }
@@ -305,16 +309,31 @@ bool bad_shape(int n, int m, int f, int rows) {
 // row-major f32 data; `rows` node rows per block, F * rows <= 1024
 // (kernels 3 and 5).
 
-extern "C" int epilogue_apply_f32(const void* z, const void* mask,
-                                  const void* cst, void* out, int n, int m,
-                                  int f, int rows, void* stream) {
+namespace {
+template <typename T>
+int apply(const void* z, const void* mask, const void* cst, void* out, int n,
+          int m, int f, int rows, void* stream) {
   if (bad_shape(n, m, f, rows)) return (int)cudaErrorInvalidValue;
   const dim3 block(f, rows);
   const dim3 grid((n + rows - 1) / rows);
-  epilogue_apply_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)z, (const float*)mask, (const float*)cst, (float*)out, n,
-      m, f);
+  epilogue_apply_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const T*)z, (const float*)mask, (const float*)cst, (float*)out, n, m,
+      f);
   return (int)cudaGetLastError();
+}
+}  // namespace
+
+// z f32 (`_f32`) or bf16 (`_bf16`, widened on load); out [N, F] f32 in both.
+extern "C" int epilogue_apply_f32(const void* z, const void* mask,
+                                  const void* cst, void* out, int n, int m,
+                                  int f, int rows, void* stream) {
+  return apply<float>(z, mask, cst, out, n, m, f, rows, stream);
+}
+
+extern "C" int epilogue_apply_bf16(const void* z, const void* mask,
+                                   const void* cst, void* out, int n, int m,
+                                   int f, int rows, void* stream) {
+  return apply<bf16>(z, mask, cst, out, n, m, f, rows, stream);
 }
 
 // Kernel 4 sizes its own blocks (F / V x 256 V / F threads) and takes

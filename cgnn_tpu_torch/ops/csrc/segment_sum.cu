@@ -36,6 +36,13 @@
 // whatever the skew (a real hub anywhere, not only padding on N-1).
 // 416 rows become 26 a warp, two rounds.
 //
+// bf16 instance (`segment_sum_sorted_bf16`): the TPU kernel sums bf16
+// messages in an f32 accumulator and casts the sums back to bf16
+// (pallas_scatter.py:83-88). The kernel is a template on the message type
+// T: T = __nv_bfloat16 widens each element on load, adds in f32 in the
+// f32 instance's order and rounds each sum to bf16 on its store. Still
+// byte-bound; the message and output bytes halve.
+//
 // Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W, each call's
 // messages read from device memory (not L2): 0.0114 ms on the device at
 // the training shape (bound 0.0079 ms), 0.0062 ms at the serving rung,
@@ -44,14 +51,21 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
+
+using cgnn::store_as;
+using cgnn::to_f32;
+using bf16 = __nv_bfloat16;
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 16;
 
 // acc += rows [begin, end) of msg, in edge order, kRows rows loaded a round
-template <int PER_LANE>
-__device__ __forceinline__ void sum_rows(const float* __restrict__ msg,
+// (each element widened to f32 on load)
+template <int PER_LANE, typename T>
+__device__ __forceinline__ void sum_rows(const T* __restrict__ msg,
                                          int begin, int end, int f, int lane,
                                          float (&acc)[PER_LANE]) {
   constexpr int kRows = 32 / PER_LANE;
@@ -59,11 +73,11 @@ __device__ __forceinline__ void sum_rows(const float* __restrict__ msg,
     float v[kRows][PER_LANE];
 #pragma unroll
     for (int u = 0; u < kRows; ++u) {
-      const float* row = msg + (size_t)(e + u) * f;
+      const T* row = msg + (size_t)(e + u) * f;
 #pragma unroll
       for (int p = 0; p < PER_LANE; ++p) {
         const int c = lane + p * kWarp;
-        v[u][p] = (e + u < end && c < f) ? row[c] : 0.0f;
+        v[u][p] = (e + u < end && c < f) ? to_f32(row[c]) : 0.0f;
       }
     }
 #pragma unroll
@@ -76,11 +90,11 @@ __device__ __forceinline__ void sum_rows(const float* __restrict__ msg,
   }
 }
 
-template <int PER_LANE>
+template <int PER_LANE, typename T>
 __global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
-    segment_sum_sorted_kernel(const float* __restrict__ msg,
+    segment_sum_sorted_kernel(const T* __restrict__ msg,
                               const int* __restrict__ offsets,
-                              float* __restrict__ out, int n, int f) {
+                              T* __restrict__ out, int n, int f) {
   constexpr int kLong = 2 * (32 / PER_LANE);  // rows a warp sums alone
   __shared__ float part_s[kWarpsPerBlock][PER_LANE * kWarp];
   const int lane = threadIdx.x;
@@ -98,11 +112,11 @@ __global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
 #pragma unroll
       for (int p = 0; p < PER_LANE; ++p) acc[p] = 0.0f;
       sum_rows<PER_LANE>(msg, begin, end, f, lane, acc);
-      float* dst = out + (size_t)node * f;
+      T* dst = out + (size_t)node * f;
 #pragma unroll
       for (int p = 0; p < PER_LANE; ++p) {
         const int c = lane + p * kWarp;
-        if (c < f) dst[c] = acc[p];
+        if (c < f) store_as(dst + c, acc[p]);
       }
     }
   }
@@ -126,38 +140,52 @@ __global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
     for (int p = 0; p < PER_LANE; ++p) part_s[warp][lane + p * kWarp] = acc[p];
     __syncthreads();
     if (warp == w) {
-      float* dst = out + (size_t)(first + w) * f;
+      T* dst = out + (size_t)(first + w) * f;
 #pragma unroll
       for (int p = 0; p < PER_LANE; ++p) {
         const int c = lane + p * kWarp;
         float total = 0.0f;
         for (int q = 0; q < kWarpsPerBlock; ++q) total += part_s[q][c];
-        if (c < f) dst[c] = total;
+        if (c < f) store_as(dst + c, total);
       }
     }
     __syncthreads();  // part_s is free for the next long node
   }
 }
 
-template <int PER_LANE>
-cudaError_t launch(const float* msg, const int* offsets, float* out, int n,
-                   int f, cudaStream_t stream) {
+template <int PER_LANE, typename T>
+cudaError_t launch(const T* msg, const int* offsets, T* out, int n, int f,
+                   cudaStream_t stream) {
   const dim3 block(kWarp, kWarpsPerBlock);
   const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  segment_sum_sorted_kernel<PER_LANE>
+  segment_sum_sorted_kernel<PER_LANE, T>
       <<<grid, block, 0, stream>>>(msg, offsets, out, n, f);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// msg [E, F] f32, offsets [N + 1] i32 (non-decreasing, offsets[N] <= E)
-// -> out [N, F] f32. 1 <= F <= 256.
-extern "C" int segment_sum_sorted_f32(const float* msg, const int* offsets,
-                                      float* out, int n, int f,
-                                      cudaStream_t stream) {
+template <typename T>
+int segment_sum(const T* msg, const int* offsets, T* out, int n, int f,
+                cudaStream_t stream) {
   if (f <= 32) return launch<1>(msg, offsets, out, n, f, stream);
   if (f <= 64) return launch<2>(msg, offsets, out, n, f, stream);
   if (f <= 128) return launch<4>(msg, offsets, out, n, f, stream);
   return launch<8>(msg, offsets, out, n, f, stream);
+}
+
+}  // namespace
+
+// msg [E, F], offsets [N + 1] i32 (non-decreasing, offsets[N] <= E) ->
+// out [N, F] in msg's type: f32 (`_f32`) or bf16 (`_bf16`, each sum
+// accumulated in f32 in the f32 instance's order, then rounded to nearest
+// even). 1 <= F <= 256.
+extern "C" int segment_sum_sorted_f32(const float* msg, const int* offsets,
+                                      float* out, int n, int f,
+                                      cudaStream_t stream) {
+  return segment_sum(msg, offsets, out, n, f, stream);
+}
+
+extern "C" int segment_sum_sorted_bf16(const bf16* msg, const int* offsets,
+                                       bf16* out, int n, int f,
+                                       cudaStream_t stream) {
+  return segment_sum(msg, offsets, out, n, f, stream);
 }

@@ -17,12 +17,12 @@ Each pass has three pieces here:
   that is not on the CPU (launch or raise, never a fallback) and the plain
   version otherwise.
 
-bf16 z: kernels 4 and 5 have bf16 instances (``epilogue_reduce_bf16_cuda``,
-``epilogue_dz_bf16_cuda``) that widen z on load, compute in f32 and (kernel
-5) write dz in bf16, as ``_reduce_kernel`` and ``_dz_kernel`` do; their
-plain versions are the f32 ones on the widened z, dz cast to z's type.
-Kernel 3 has none yet (ROADMAP Queue 2): a bf16 z on the card under
-``'pallas'`` raises there.
+bf16 z: kernels 3, 4 and 5 have bf16 instances (``epilogue_apply_bf16_cuda``,
+``epilogue_reduce_bf16_cuda``, ``epilogue_dz_bf16_cuda``) that widen z on
+load and compute in f32; kernel 3 writes its f32 sum, kernel 5 dz in
+bf16, as ``_apply_kernel``, ``_reduce_kernel`` and ``_dz_kernel`` do.
+Their plain versions are the f32 ones on the widened z, dz cast to z's
+type. A z of another dtype on the card under ``'pallas'`` raises.
 
 The batch statistics stay in plain torch (``masked_stats``, the JAX
 estimator). Kernels 4 and 5 also serve the backward of the whole-conv op
@@ -194,18 +194,28 @@ def _launch(name: str, n_ptrs: int, ptrs, n, m, f, dev, blocks=None,
         dict(N=n, M=m, F=f, **last), dev)
 
 
-def epilogue_apply_cuda(z, mask, cst):
-    """Kernel 3 (replaces fused_epilogue.py ``_apply_kernel``): z [N, M,
-    2F], mask [N, M], cst [4, 2F], all f32 on one CUDA device -> [N, F]."""
-    n, m, f = _check("epilogue_apply_cuda", z, mask, cst, {})
+def _apply(name, z_dtype, z, mask, cst):
+    n, m, f = _check(name, z, mask, cst, {}, z_dtype)
     out = torch.empty((n, f), dtype=torch.float32, device=z.device)
     if n == 0:
         return out
     _launch("epilogue_apply", 4,
             (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), out.data_ptr()),
-            n, m, f, z.device)
-    epilogue_apply_cuda.launches += _build.counted(1)
+            n, m, f, z.device, z_dtype=z_dtype)
+    APPLY_CUDA[z_dtype].launches += _build.counted(1)
     return out
+
+
+def epilogue_apply_cuda(z, mask, cst):
+    """Kernel 3 (replaces fused_epilogue.py ``_apply_kernel``): z [N, M,
+    2F], mask [N, M], cst [4, 2F], all f32 on one CUDA device -> [N, F]."""
+    return _apply("epilogue_apply_cuda", torch.float32, z, mask, cst)
+
+
+def epilogue_apply_bf16_cuda(z, mask, cst):
+    """The bf16 instance of kernel 3: z bf16, widened on load; the rest
+    and the [N, F] sum f32, as ``epilogue_apply_cuda``'s."""
+    return _apply("epilogue_apply_bf16_cuda", torch.bfloat16, z, mask, cst)
 
 
 def _reduce(name, z_dtype, z, mask, cst, ct):
@@ -268,10 +278,13 @@ def epilogue_dz_bf16_cuda(z, mask, cst, red5, ct):
 
 
 epilogue_apply_cuda.launches = 0
+epilogue_apply_bf16_cuda.launches = 0
 epilogue_reduce_cuda.launches = 0
 epilogue_reduce_bf16_cuda.launches = 0
 epilogue_dz_cuda.launches = 0
 epilogue_dz_bf16_cuda.launches = 0
+APPLY_CUDA = {torch.float32: epilogue_apply_cuda,
+              torch.bfloat16: epilogue_apply_bf16_cuda}
 REDUCE_CUDA = {torch.float32: epilogue_reduce_cuda,
                torch.bfloat16: epilogue_reduce_bf16_cuda}
 DZ_CUDA = {torch.float32: epilogue_dz_cuda,
@@ -297,8 +310,10 @@ def runs_kernel(impl: str, t: torch.Tensor) -> bool:
 
 def epilogue_apply(z, mask, cst, impl: str):
     if runs_kernel(impl, z):
-        return epilogue_apply_cuda(z.contiguous(), mask.float().contiguous(),
-                                   cst)
+        if z.dtype not in APPLY_CUDA:
+            raise ValueError(f"kernel 3 has no instance for z of {z.dtype}")
+        return APPLY_CUDA[z.dtype](z.contiguous(),
+                                   mask.float().contiguous(), cst)
     return epilogue_apply_reference(z, mask, cst)
 
 

@@ -1,16 +1,19 @@
 """Gather and segment reductions on tensors (``cgnn_tpu/ops/segment.py``),
-``aggregate_edge_messages``, the COO layout's aggregation, and
-``gather_fixed_order``, the COO layout's endpoint gather with a backward
-that sums in a fixed order."""
+``aggregate_edge_messages``, the COO layout's aggregation, and the two
+gathers whose backward sums in a fixed order: ``gather_fixed_order`` (the
+COO layout's endpoint gather) and ``gather_transpose`` (the dense
+layout's neighbor gather). Each backward is an op of its own through
+``.apply``, whose backward is the gather again, so both can be
+differentiated any number of times (the force task differentiates
+twice), every sum in the packer's order, with no host sync."""
 
 from __future__ import annotations
 
 import torch
 
-from cgnn_tpu_torch.ops.fused_epilogue import runs_kernel
 from cgnn_tpu_torch.ops.scatter import (
+    SortedGather,
     segment_sum_sorted,
-    segment_sum_sorted_cuda,
 )
 
 AGGREGATION_IMPLS = ("xla", "sort", "pallas")
@@ -19,33 +22,6 @@ AGGREGATION_IMPLS = ("xla", "sort", "pallas")
 def gather(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """values[indices] — the edge-endpoint gather ([N, F] + [E] -> [E, F])."""
     return values.index_select(0, indices)
-
-
-class _SortedGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, values, indices, perm, offsets, impl: str):
-        ctx.save_for_backward(perm, offsets)
-        ctx.has_perm = perm is not None
-        ctx.impl = impl
-        return values.index_select(0, indices)
-
-    @staticmethod
-    def backward(ctx, ct):
-        perm, offsets = ctx.saved_tensors
-        ct = ct.contiguous()
-        if ctx.has_perm:
-            ct = ct.index_select(0, perm)
-        if runs_kernel(ctx.impl, ct):
-            # kernel 6 or a raise: never the library call in its place
-            if ct.dtype != torch.float32:
-                raise ValueError(
-                    f"kernel 6 has no instance for a {ct.dtype} cotangent "
-                    f"(f32 only; its bf16 instance is ROADMAP Queue 2)")
-            grad = segment_sum_sorted_cuda(ct, offsets)
-        else:  # the plain version, in the cotangent's own dtype
-            grad = torch.segment_reduce(ct, "sum", offsets=offsets, axis=0,
-                                        unsafe=True)
-        return grad, None, None, None, None
 
 
 def gather_fixed_order(values: torch.Tensor, indices: torch.Tensor,
@@ -57,11 +33,13 @@ def gather_fixed_order(values: torch.Tensor, indices: torch.Tensor,
     that changes from run to run): the cotangent rows taken in stable
     sorted order of the indices (``order``; None when the indices are
     sorted already), then summed over each row's run (``offsets``), by
-    kernel 6 for ``impl='pallas'`` on a card (ops/scatter.py), by its
-    plain version (``torch.segment_reduce``) otherwise. The packer makes
-    both once a batch (data/graph.py ``csr_transpose``). First order
-    only."""
-    return _SortedGather.apply(values, indices, order, offsets, impl)
+    kernel 6 for ``impl='pallas'`` on a card (ops/scatter.py; its bf16
+    instance for a bf16 cotangent), by its plain version otherwise. The
+    packer makes both once a batch (data/graph.py ``csr_transpose``).
+    That sum's own backward is this gather (ops/scatter.py
+    ``SortedGather``/``SortedSum``): differentiable any number of
+    times."""
+    return SortedGather.apply(values, indices, order, offsets, impl)
 
 
 def transpose_cotangent(ct, in_slots, in_mask, over_slots, over_nodes,
@@ -70,13 +48,15 @@ def transpose_cotangent(ct, in_slots, in_mask, over_slots, over_nodes,
     mapping ([E, F] -> [N, F]): a gather of ``ct`` by ``in_slots``, a
     masked sum over the in-degree axis, then the overflow rows summed
     into their (sorted) ``over_nodes``. Every sum runs in a fixed order:
-    the overflow tier goes through ``torch.segment_reduce``, not
-    ``index_add_``, whose CUDA atomics add in an order that changes from
-    run to run. Nothing here waits for the device: the segment offsets
-    come from ``searchsorted`` on the sorted ``over_nodes`` (``bincount``
-    would read its maximum back to the host), and the reduce skips its
-    validation, which reads the lengths back (pack_graphs builds
-    ``over_nodes`` sorted and in [0, N))."""
+    the overflow tier goes through ``torch.segment_reduce`` in ct's
+    dtype, not ``index_add_``, whose CUDA atomics add in an order that
+    changes from run to run. Nothing here waits for the device: the
+    segment offsets come from ``searchsorted`` on the sorted
+    ``over_nodes`` (``bincount`` would read its maximum back to the host),
+    and the reduce skips its validation, which reads the lengths back
+    (pack_graphs builds ``over_nodes`` sorted and in [0, N)). First order
+    as written: ``gather_transpose`` wraps it in an op whose backward is
+    the gather."""
     contrib = ct.index_select(0, in_slots).reshape(*in_mask.shape,
                                                    ct.shape[-1])
     grad = (contrib * in_mask[..., None].to(ct.dtype)).sum(dim=1)
@@ -92,19 +72,41 @@ def transpose_cotangent(ct, in_slots, in_mask, over_slots, over_nodes,
 
 
 class _GatherTranspose(torch.autograd.Function):
+    """``nodes[neighbors]``; its backward is ``_TransposeCotangent``."""
+
     @staticmethod
     def forward(ctx, nodes, neighbors, in_slots, in_mask, over_slots,
                 over_nodes, over_mask):
-        ctx.save_for_backward(in_slots, in_mask, over_slots, over_nodes,
-                              over_mask)
+        ctx.save_for_backward(neighbors, in_slots, in_mask, over_slots,
+                              over_nodes, over_mask)
         ctx.num_nodes = nodes.shape[0]
         return nodes.index_select(0, neighbors)
 
     @staticmethod
     def backward(ctx, ct):
-        grad = transpose_cotangent(ct.contiguous(), *ctx.saved_tensors,
-                                   ctx.num_nodes)
-        return grad, None, None, None, None, None, None
+        return (_TransposeCotangent.apply(ct, *ctx.saved_tensors,
+                                          ctx.num_nodes),
+                None, None, None, None, None, None)
+
+
+class _TransposeCotangent(torch.autograd.Function):
+    """``transpose_cotangent`` as an op; its backward is the neighbor
+    gather (``_GatherTranspose``): the JAX ``linear_call`` pair, whose
+    transpose of the transpose is the forward gather."""
+
+    @staticmethod
+    def forward(ctx, ct, neighbors, in_slots, in_mask, over_slots,
+                over_nodes, over_mask, num_nodes: int):
+        ctx.save_for_backward(neighbors, in_slots, in_mask, over_slots,
+                              over_nodes, over_mask)
+        return transpose_cotangent(ct.contiguous(), in_slots, in_mask,
+                                   over_slots, over_nodes, over_mask,
+                                   num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_GatherTranspose.apply(g, *ctx.saved_tensors),
+                None, None, None, None, None, None, None)
 
 
 def gather_transpose(nodes, neighbors, in_slots=None, in_mask=None,
@@ -116,7 +118,8 @@ def gather_transpose(nodes, neighbors, in_slots=None, in_mask=None,
     Equal to the plain gather's gradient only when the cotangent is zero
     on the padding edge slots the mapping leaves out; CGConv guarantees
     that (the edge mask on the messages, masked BatchNorm statistics).
-    First order only.
+    With the mapping it can be differentiated any number of times: the
+    backward's own backward is this gather (the JAX ``linear_call``).
     """
     if in_slots is None:
         return gather(nodes, neighbors)

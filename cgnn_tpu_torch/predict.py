@@ -39,6 +39,15 @@ staging buffers; ``auto`` does so on the card with the dense layout,
 then packs full, ``on`` exits 2. ``--pack-workers K`` packs on K threads
 (default: 4 on the card, 0 on the CPU).
 
+A force-field checkpoint (meta ``task: force``) predicts as
+``predict.py`` does for it: ``--synthetic N`` LJ trajectory frames, a
+trajectory ``.npz`` or directory as ``DATA_DIR`` (else CIFs, geometry
+kept), or a cache with geometry; snug batches carrying the gathers'
+transpose, each step a replayed CUDA graph on the card (one graph a
+batch shape, captured at its first batch); CSV rows ``id, target,
+energy``, and ``<out>.forces.npz`` with ``ids`` and ``forces_<i>``, the
+i-th structure's [n_atoms, 3] forces in original units.
+
 Not ported yet; each exits 2 naming its ROADMAP item (Queue 1):
 ``--packing ladder`` (item 10), ``--devices`` other than auto or 1 and
 ``--engine mesh`` (items 9 and 11).
@@ -135,13 +144,11 @@ def main(argv=None) -> int:
         print(e, file=sys.stderr)
         return 2
     task = meta.get("task", "regression")
-    if task not in ("regression", "classification"):
-        print(f"task {task!r} is not ported yet (ROADMAP Queue 1, item 8)",
-              file=sys.stderr)
-        return 2
     model_cfg = ModelConfig.from_meta(meta["model"]).for_arbitrary_inputs()
-    return _run(args, state, model_cfg, DataConfig.from_meta(meta["data"]),
-                dev)
+    data_cfg = DataConfig.from_meta(meta["data"])
+    if task == "force":
+        return _run_force(args, state, model_cfg, data_cfg, dev)
+    return _run(args, state, model_cfg, data_cfg, dev)
 
 
 def _load(args, fcfg, want_raw: bool):
@@ -293,6 +300,96 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
     print(f"wrote {len(rows)} predictions to {args.out}")
     return 0
 
+
+
+def _load_force(args, fcfg):
+    """The force task's structures (module docstring), geometry kept."""
+    if args.cache:
+        from cgnn_tpu_torch.data.cache import load_graph_cache
+
+        graphs = load_graph_cache(args.cache)
+        print(f"loaded {len(graphs)} graphs from {args.cache}")
+        return graphs
+    if args.synthetic:
+        from cgnn_tpu_torch.data.dataset import load_trajectory
+
+        return load_trajectory(args.synthetic, fcfg)
+    from cgnn_tpu_torch.data.trajectory import (
+        is_trajectory_path,
+        load_trajectory_root,
+    )
+
+    if is_trajectory_path(args.root_dir):
+        return [g for grp in load_trajectory_root(args.root_dir, fcfg)
+                for g in grp]
+    from cgnn_tpu_torch.data.dataset import load_cif_directory
+
+    return load_cif_directory(args.root_dir, fcfg, keep_geometry=True)
+
+
+def _run_force(args, state, model_cfg, data_cfg, dev) -> int:
+    """Bulk predict of a force-field checkpoint: energies to the CSV, the
+    per-atom forces to ``<out>.forces.npz`` (predict.py's force path)."""
+    import time
+
+    import numpy as np
+
+    from cgnn_tpu_torch.data.graph import batch_iterator, batch_shape_key
+    from cgnn_tpu_torch.train.force_step import make_force_predict_step
+    from cgnn_tpu_torch.train.graphs import GraphCache, StepGraph
+    from cgnn_tpu_torch.train.loop import batch_caps, edge_pack_fn
+
+    try:
+        graphs = _load_force(args, data_cfg.featurize_config())
+    except (FileNotFoundError, ValueError) as e:
+        print(e, file=sys.stderr)
+        return 2
+    if any(g.positions is None for g in graphs):
+        print("the force task needs geometry (positions, lattice, image "
+              "offsets): this cache has none; refeaturize", file=sys.stderr)
+        return 2
+    layout_m = model_cfg.dense_m or None
+    node_cap, edge_cap = batch_caps(graphs, args.batch_size, layout_m,
+                                    None, None)
+    step = make_force_predict_step()
+    cache = GraphCache(lambda key, b: StepGraph(
+        lambda x: step(state, x), b, device=dev, kind="predict",
+        label=f"force predict graph {key}"), label="force predict graph")
+    rows, ids, forces_out = [], [], []
+    idx = n_batches = 0
+    t0 = time.perf_counter()
+    # the gathers' transpose rides in each batch (in_cap None): the forces
+    # are a backward pass, summed in a fixed order
+    for batch in batch_iterator(graphs, args.batch_size, node_cap, edge_cap,
+                                dense_m=layout_m, snug=True,
+                                pack_fn=edge_pack_fn(model_cfg.torch_dtype)):
+        energies, forces = cache.run(batch_shape_key(batch), batch.to(dev))
+        energies, forces = energies.cpu().numpy(), forces.cpu().numpy()
+        node_graph = batch.node_graph.numpy()
+        node_mask = batch.node_mask.numpy() > 0
+        for k in range(int(batch.graph_mask.sum())):
+            g = graphs[idx]
+            rows.append([g.cif_id]
+                        + [f"{t:.6f}" for t in np.atleast_1d(g.target)]
+                        + [f"{energies[k]:.6f}"])
+            ids.append(g.cif_id)
+            forces_out.append(forces[(node_graph == k) & node_mask])
+            idx += 1
+        n_batches += 1
+    rate = len(graphs) / (time.perf_counter() - t0)
+    print(f"inference throughput: {rate:.0f} structures/sec (force field, "
+          f"{n_batches} batches, {dev})")
+    print("predict: " + json.dumps({
+        "structures": len(graphs), "batches": n_batches,
+        "structures_per_s": rate, "captures": cache.captures(),
+        "replays": cache.replays()}, allow_nan=False))
+    with open(args.out, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    print(f"wrote {len(rows)} predictions to {args.out}")
+    np.savez(args.out + ".forces.npz", ids=np.array(ids),
+             **{f"forces_{i}": a for i, a in enumerate(forces_out)})
+    print(f"wrote per-atom forces to {args.out}.forces.npz")
+    return 0
 
 if __name__ == "__main__":
     sys.exit(main())

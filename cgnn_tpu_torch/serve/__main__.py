@@ -220,7 +220,8 @@ def main(argv=None) -> int:
             warm=False,
             log_fn=log,
         )
-    except FileNotFoundError as e:
+    except (FileNotFoundError, NotImplementedError) as e:
+        # a missing checkpoint, or one whose task is not served (force)
         print(str(e), file=sys.stderr)
         return 2
     if args.reload_gated and server.watcher is not None:

@@ -72,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import os
 import threading
 import time
@@ -957,6 +958,30 @@ def structure_featurizer(data_cfg: DataConfig) -> Callable:
     return featurize
 
 
+# the JAX server's refusal (cgnn_tpu/serve/server.py), word for word
+FORCE_SERVE_REFUSAL = (
+    "online serving covers property prediction; the force task's per-atom "
+    "output extraction is offline-only (predict.py)")
+
+
+def _refuse_force(path: str, meta_json: str | None, tag: str) -> None:
+    """Raise NotImplementedError for a force-field checkpoint or weight
+    file, before anything is built (the JAX ``load_server``'s rule)."""
+    if meta_json is not None:
+        with open(meta_json) as f:
+            meta = json.load(f)
+    else:
+        mgr = CheckpointManager(path)
+        try:
+            if not mgr.exists(tag):
+                return  # load_for_inference names what is missing
+            meta = mgr.read_meta(tag)
+        finally:
+            mgr.close()
+    if meta.get("task") == "force":
+        raise NotImplementedError(FORCE_SERVE_REFUSAL)
+
+
 def _load_weight_file(params_npz: str, meta_json: str, dev):
     """(InferenceState, meta) from convert.save_params' two files."""
     variables, meta = load_params(params_npz, meta_json)
@@ -1035,6 +1060,7 @@ def load_server(
         raise ValueError(
             f"compact must be 'auto', 'on' or 'off', got {compact!r}")
     dev = resolve_device(device)
+    _refuse_force(path, meta_json, tag)
     mgr = None
     if meta_json is None:
         state, meta, version = load_for_inference(path, tag, dev)

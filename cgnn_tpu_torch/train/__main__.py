@@ -8,6 +8,8 @@
     python -m cgnn_tpu_torch.train --device cpu --synthetic 40 --epochs 1
     python -m cgnn_tpu_torch.train --aggregation pallas --synthetic 400
     python -m cgnn_tpu_torch.train --synthetic 400 --epochs 40 --resume auto
+    python -m cgnn_tpu_torch.train --task force --synthetic 2048 --md-atoms 21
+    python -m cgnn_tpu_torch.train TRAJ_DIR_OR_NPZ --task force --epochs 30
 
 Data, as train.py reads it: ``--cache PATH`` loads a graph cache
 (data/cache.py) when PATH exists; otherwise ``--synthetic N`` structures,
@@ -68,7 +70,22 @@ seeded by ``--seed`` and saved with the optimizer state),
 ``--multi-task-head`` (one softplus stack a target column, each task's
 test MAE printed), ``--bf16`` (bf16 compute with f32 parameters and
 statistics, bf16 edge storage; on the card the bf16 kernel instances).
-``--task force`` exits 2 (ROADMAP Queue 1, item 8).
+``--task force`` trains the force field (models/forcefield.py: distances
+recomputed in the model, ``F = -dE/dr``) on the composite loss
+``--energy-weight`` x MSE(E) + ``--force-weight`` x MSE(F)
+(train/force_step.py): on ``--synthetic N`` LJ trajectory frames of
+``--md-atoms`` atoms jittered by ``--md-jitter``, on a trajectory ``.npz``
+or a directory of them as ``DATA_DIR`` (data/trajectory.py; MD17's
+R/z/E/F files load unchanged), or on a cache that carries force labels
+(one without them exits 2). Its split keeps each trajectory's frames
+together (``split_trajectory_groups``); the best save is the lowest
+validation force MAE, and the test line adds the energy MAE. With
+``--task force``, as train.py: ``--fused-epilogue`` and
+``--cgconv-impl`` exit 2 (they fuse BatchNorm, which the force trunk
+lacks), and so does ``--compact-staging on``; the port also refuses
+``--aggregation pallas``, where the JAX package's force step fails
+(``config.FORCE_PALLAS_REFUSAL``). ``--synthetic-oc20 N`` trains on N
+OC20-like catalyst slabs (37-255 atoms).
 
 The flags are train.py's that this entry point serves, with train.py's
 defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
@@ -98,6 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dataset dir: {id}.cif files + id_prop.csv")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="train on N synthetic crystals instead of root_dir")
+    p.add_argument("--synthetic-oc20", type=int, default=0, metavar="N",
+                   help="train on N synthetic OC20-like catalyst slabs "
+                        "(50-200+ atom graphs)")
     p.add_argument("--cache", type=str, default="",
                    help="graph cache (.npz): loaded if present, else written "
                         "after featurization (python -m "
@@ -215,6 +235,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(eager steps: the step graphs are turned off)")
     p.add_argument("--out-dir", default="checkpoints/torch",
                    help="where params.npz and meta.json are written")
+    # the force task
+    p.add_argument("--energy-weight", type=float, default=1.0,
+                   help="w_e in L = w_e*MSE(E) + w_f*MSE(F)")
+    p.add_argument("--force-weight", type=float, default=10.0,
+                   help="w_f in L = w_e*MSE(E) + w_f*MSE(F)")
+    p.add_argument("--md-atoms", type=int, default=8,
+                   help="atoms per frame for --synthetic MD trajectories")
+    p.add_argument("--md-jitter", type=float, default=0.08,
+                   help="per-frame Cartesian jitter (A) for synthetic MD")
     return p
 
 
@@ -227,25 +256,28 @@ def resolve_layout(args) -> int | None:
         return None
     use_dense = (args.aggregation is None if args.layout == "auto"
                  else args.layout == "dense")
-    if args.fused_epilogue != "off" and not use_dense:
-        print("--fused-epilogue requires the dense layout (not --layout coo "
-              "or --aggregation)", file=sys.stderr)
+    force = args.task == "force"
+    if args.fused_epilogue != "off" and (not use_dense or force):
+        print("--fused-epilogue requires the dense layout with BatchNorm "
+              "(not --layout coo / --aggregation / --task force)",
+              file=sys.stderr)
         return None
-    if args.cgconv_impl != "off" and (not use_dense
+    if args.cgconv_impl != "off" and (not use_dense or force
                                       or args.fused_epilogue != "off"):
         print("--cgconv-impl (the whole-conv fused kernel) requires the "
-              "dense layout and no --fused-epilogue (it subsumes it)",
-              file=sys.stderr)
+              "dense layout with BatchNorm and no --fused-epilogue (it "
+              "subsumes it; not --task force)", file=sys.stderr)
+        return None
+    if force and not use_dense and args.aggregation == "pallas":
+        from cgnn_tpu_torch.config import FORCE_PALLAS_REFUSAL
+
+        print(FORCE_PALLAS_REFUSAL, file=sys.stderr)
         return None
     return args.max_num_nbr if use_dense else 0
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.task == "force":
-        print("--task force is not ported yet (ROADMAP Queue 1, item 8)",
-              file=sys.stderr)
-        return 2
     dense_m = resolve_layout(args)
     if dense_m is None:
         return 2
@@ -255,7 +287,8 @@ def main(argv=None) -> int:
         print("--scan-epochs and --no-scan-epochs are contradictory",
               file=sys.stderr)
         return 2
-    compact_ok = args.scan_epochs and bool(dense_m)
+    compact_ok = (args.scan_epochs and bool(dense_m)
+                  and args.task != "force")
     if args.compact_staging == "on" and not compact_ok:
         print("--compact-staging on requires --scan-epochs, the dense "
               "layout, and a non-force task", file=sys.stderr)
@@ -302,13 +335,23 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
     dev = resolve_device(args.device)
     data_cfg = DataConfig(radius=args.radius, max_num_nbr=args.max_num_nbr,
                           dmin=args.dmin, step=args.step)
-    graphs = load_graphs(args, data_cfg)
-    if graphs is None:
+    loaded = load_graphs(args, data_cfg)
+    if loaded is None:
         return 2
-    train_g, val_g, test_g = train_val_test_split(
-        graphs, args.train_ratio, args.val_ratio, seed=args.seed)
+    graphs, traj_groups = loaded
+    if traj_groups is not None:
+        from cgnn_tpu_torch.data.trajectory import split_trajectory_groups
+
+        train_g, val_g, test_g = split_trajectory_groups(
+            traj_groups, args.train_ratio, args.val_ratio, seed=args.seed)
+        print(f"trajectory-aware split: {len(train_g)}/{len(val_g)}/"
+              f"{len(test_g)} frames over {len(traj_groups)} trajectories")
+    else:
+        train_g, val_g, test_g = train_val_test_split(
+            graphs, args.train_ratio, args.val_ratio, seed=args.seed)
     num_targets = int(train_g[0].target.shape[0])
     classification = args.task == "classification"
+    force = args.task == "force"
     if classification:
         bad = bad_label(graphs, args.num_classes)
         if bad is not None:
@@ -329,7 +372,7 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         model_cfg, data_cfg, train_g, batch_size=args.batch_size, device=dev,
         seed=args.seed, optim=args.optim, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
-        lr_milestones_epochs=args.lr_milestones)
+        lr_milestones_epochs=args.lr_milestones, task=args.task)
     ckpt = CheckpointManager(args.ckpt_dir, keep=args.keep_ckpts)
     try:
         resumed = _resume(args, ckpt, state)
@@ -338,7 +381,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         start_epoch, resume_meta = resumed
         meta_base = {"model": model_cfg.to_meta(), "data": data_cfg.to_meta(),
                      "task": args.task}
-        sel_key = "correct" if classification else "mae"
+        sel_key = ("force_mae" if force
+                   else "correct" if classification else "mae")
         monitor = None
         if args.guard == "rollback":
             monitor = DivergenceMonitor(
@@ -372,7 +416,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
                 device_resident=args.device_resident,
                 scan_epochs=args.scan_epochs, chunk_steps=args.chunk_steps,
                 compact=compact, graphs=not args.debug_nans,
-                guard=args.guard != "off", monitor=monitor, preempt=preempt)
+                guard=args.guard != "off", monitor=monitor, preempt=preempt,
+                force_weights=(args.energy_weight, args.force_weight))
         ckpt.wait()
     finally:
         ckpt.close()
@@ -381,9 +426,12 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         # close above waited for its commit (a failed save raised there)
         return resumable_exit(print)
     test_m = evaluate(state, test_g, args.batch_size, node_cap, dense_m,
-                      dev, edge_cap=edge_cap)
+                      dev, edge_cap=edge_cap,
+                      force_weights=(args.energy_weight, args.force_weight))
     print(f"** test {sel_key}: {test_m.get(sel_key, float('nan')):.4f} "
           f"(best val: {result['best']:.4f})")
+    if force:
+        print(f"** test energy mae: {test_m.get('mae', float('nan')):.4f}")
     for t in range(num_targets):
         if f"mae_task{t}" in test_m:
             print(f"** test mae task {t}: {test_m[f'mae_task{t}']:.4f}")
@@ -402,7 +450,7 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         npz, meta, convert.to_flax_variables(state.model.state_dict()),
         model_cfg, data_cfg,
         normalizer_mean=state.normalizer.mean.cpu().numpy(),
-        normalizer_std=state.normalizer.std.cpu().numpy())
+        normalizer_std=state.normalizer.std.cpu().numpy(), task=args.task)
     print(f"wrote {npz} and {meta}")
     return 0
 
@@ -492,24 +540,65 @@ def _compact_spec(args, graphs, data_cfg, dense_m, edge_dtype):
 
 
 def load_graphs(args, data_cfg):
-    """train.py's data rules (module docstring) -> graphs, or None after
-    printing why there are none."""
+    """train.py's data rules (module docstring) -> (graphs, the force
+    task's trajectory groups or None), or None after printing why there
+    are none."""
     from cgnn_tpu_torch.data.cache import (
         featurize_directory_parallel,
         load_graph_cache,
         save_graph_cache,
     )
-    from cgnn_tpu_torch.data.dataset import load_cif_directory, load_synthetic
+    from cgnn_tpu_torch.data.dataset import (
+        load_cif_directory,
+        load_synthetic,
+        load_synthetic_oc20,
+        load_trajectory,
+    )
+    from cgnn_tpu_torch.data.trajectory import (
+        is_trajectory_path,
+        load_trajectory_root,
+        regroup_by_trajectory,
+    )
 
+    force = args.task == "force"
+    traj_groups = None
     t0 = time.perf_counter()
     if args.cache and os.path.exists(args.cache):
         graphs = load_graph_cache(args.cache)
         print(f"loaded {len(graphs)} graphs from {args.cache} "
               f"in {time.perf_counter() - t0:.1f}s")
-        return graphs
+        if force:
+            if any(g.forces is None or g.positions is None for g in graphs):
+                print(f"cache {args.cache} lacks force labels/geometry; "
+                      f"refeaturize from the trajectory files",
+                      file=sys.stderr)
+                return None
+            traj_groups = regroup_by_trajectory(graphs)
+        return graphs, traj_groups
     fcfg = data_cfg.featurize_config()
-    if args.synthetic:
+    if args.synthetic_oc20:
+        graphs = load_synthetic_oc20(args.synthetic_oc20, fcfg,
+                                     seed=args.seed)
+    elif args.synthetic and force:
+        graphs = load_trajectory(args.synthetic, fcfg, seed=args.seed,
+                                 num_atoms=args.md_atoms,
+                                 jitter=args.md_jitter)
+        # one trajectory: the contiguous-block split of on-disk ones
+        traj_groups = [graphs]
+    elif args.synthetic:
         graphs = load_synthetic(args.synthetic, fcfg, seed=args.seed)
+    elif force:
+        if not args.root_dir or not is_trajectory_path(args.root_dir):
+            print("--task force needs --synthetic N or an on-disk "
+                  "trajectory dataset: a .npz file or a directory of them, "
+                  "one file per trajectory (key conventions: "
+                  "cgnn_tpu_torch/data/trajectory.py; MD17/sGDML R/z/E/F "
+                  "files load unchanged)", file=sys.stderr)
+            return None
+        traj_groups = load_trajectory_root(args.root_dir, fcfg)
+        graphs = [g for grp in traj_groups for g in grp]
+        print(f"loaded {len(traj_groups)} trajectories ({len(graphs)} "
+              f"frames) from {args.root_dir}")
     elif args.root_dir:
         if args.workers != 1:
             graphs, failures = featurize_directory_parallel(
@@ -530,7 +619,7 @@ def load_graphs(args, data_cfg):
     if args.cache:
         save_graph_cache(graphs, args.cache)
         print(f"wrote cache {args.cache}")
-    return graphs
+    return graphs, traj_groups
 
 
 def _resume(args, ckpt, state) -> tuple | None:

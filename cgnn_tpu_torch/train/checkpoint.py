@@ -123,7 +123,8 @@ def state_tree(state) -> dict:
     tree = {
         "step": np.asarray(state.optimizer.count, np.int64),
         "params": variables["params"],
-        "batch_stats": variables["batch_stats"],
+        # empty for the force field, whose trunk has no BatchNorm
+        "batch_stats": variables.get("batch_stats", {}),
         "opt_state": opt,
         "normalizer": {"mean": _host(state.normalizer.mean).numpy(),
                        "std": _host(state.normalizer.std).numpy()},
@@ -149,7 +150,8 @@ def _model_state_dict(tree, model) -> dict:
     """The model's state_dict from a tree's JAX-layout variables; raises
     unless it has exactly the model's keys and shapes."""
     sd = convert.from_flax_variables(
-        {"params": tree["params"], "batch_stats": tree["batch_stats"]})
+        {"params": tree["params"],
+         "batch_stats": tree.get("batch_stats", {})})
     want = model.state_dict()
     if set(sd) != set(want):
         raise ValueError(
@@ -502,7 +504,7 @@ def inference_state(meta: dict, device):
 
     model_cfg = ModelConfig.from_meta(meta["model"]).for_arbitrary_inputs()
     model = build_model(model_cfg, DataConfig.from_meta(meta["data"]),
-                        device=device)
+                        device=device, task=meta.get("task", "regression"))
     return InferenceState(model, Normalizer.identity(model_cfg.num_targets,
                                                      device=device))
 

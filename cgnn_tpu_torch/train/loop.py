@@ -34,12 +34,17 @@ does. The staged bytes are checked against the card's free memory
 back LOUDLY to host pack-once staging through the per-step loop.
 
 The loop keeps the best validation MAE (a classifier's: the highest
-accuracy, ``correct``, as the JAX loop does) and calls ``on_epoch_end``
+accuracy, ``correct``, as the JAX loop does; the force task's: the force
+MAE, ``force_mae``) and calls ``on_epoch_end``
 after each epoch's validation (the checkpoint hook; ``start_epoch``
 resumes). ``dense_m`` 0 or None trains on the flat COO layout. The task
 and the edge features' storage type follow the model: a classifier
 takes ``classification_loss``, a bf16 model's batches stage bf16 edges
 (``pack_graphs(edge_dtype=...)``; a compact spec must carry the same).
+The force field (train/force_step.py) takes the composite energy + force
+loss in every driver; its validation batches carry the gathers'
+transpose (its eval step takes a gradient), and compact staging is
+refused for it, as train.py refuses it.
 
 Resilience (``cgnn_tpu_torch/resilience``), the JAX ``fit``'s contract:
 ``guard`` wraps the train body in both drivers with the in-graph
@@ -96,7 +101,12 @@ from cgnn_tpu_torch.train.metrics import (
     fetch_device_sums,
     means_from_sums,
 )
+from cgnn_tpu_torch.train.force_step import (
+    make_force_eval_step,
+    make_force_train_step,
+)
 from cgnn_tpu_torch.train.step import (
+    is_force,
     make_eval_step,
     make_train_step,
     model_task,
@@ -670,6 +680,7 @@ def fit(
     guard: bool = False,
     monitor=None,
     preempt=None,
+    force_weights: tuple = (1.0, 10.0),
 ) -> tuple:
     """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
     the best validation MAE (a classifier's highest accuracy).
@@ -697,7 +708,8 @@ def fit(
     before calling it (a ``monitor``'s rollback restores in place).
 
     ``guard``, ``monitor``, ``preempt``: the module docstring's
-    resilience; with none of them (and no fault plan) nothing changes."""
+    resilience; with none of them (and no fault plan) nothing changes.
+    ``force_weights``: the force task's (w_energy, w_force)."""
     dense_m = dense_m or None
     device_resident = device_resident or scan_epochs
     pack_once = pack_once or device_resident
@@ -710,6 +722,11 @@ def fit(
     node_cap, edge_cap = batch_caps(train_graphs, batch_size, dense_m,
                                     node_cap, edge_cap)
     classification, edge_dtype = model_task(state.model)
+    force = is_force(state.model)
+    if compact is not None and force:
+        raise ValueError("compact staging is refused for the force task "
+                         "(train.py's rule): the model recomputes its "
+                         "edges from the positions")
     pack_fn = expand = None
     if compact is not None:
         from cgnn_tpu_torch.data.compact import compact_pack_fn, make_expander
@@ -724,12 +741,19 @@ def fit(
         # so the copies run asynchronously (data/loader.py)
         pack_fn = edge_pack_fn(edge_dtype, pin=torch.device(
             device).type == "cuda" and not scan_epochs)
-    train_step = make_train_step(expander=expand,
-                                 classification=classification)
+    if force:
+        train_step = make_force_train_step(*force_weights)
+        eval_step = make_force_eval_step(*force_weights)
+    else:
+        train_step = make_train_step(expander=expand,
+                                     classification=classification)
+        eval_step = make_eval_step(expander=expand,
+                                   classification=classification)
     if guard:
         train_step = guard_step(train_step)
-    eval_step = make_eval_step(expander=expand,
-                               classification=classification)
+    # validation batches carry the gathers' transpose where the eval step
+    # takes a gradient (the forces), so its sums run in a fixed order too
+    val_in_cap = None if force else 0
 
     def train_batches(rng):
         if buckets > 1:
@@ -748,10 +772,11 @@ def fit(
     def val_batches():
         if buckets > 1:
             return bucketed_batch_iterator(val_graphs, batch_size, buckets,
-                                           dense_m=dense_m, in_cap=0,
+                                           dense_m=dense_m,
+                                           in_cap=val_in_cap,
                                            pack_fn=pack_fn)
         return batch_iterator(val_graphs, batch_size, node_cap, edge_cap,
-                              dense_m=dense_m, in_cap=0, snug=True,
+                              dense_m=dense_m, in_cap=val_in_cap, snug=True,
                               pack_fn=pack_fn)
 
     rng = np.random.default_rng(seed)
@@ -796,7 +821,8 @@ def fit(
                            graphs=graphs, log_fn=log_fn)
     eval_run = StepRunner(eval_step, state, device, train=False,
                           graphs=graphs, log_fn=log_fn)
-    best_key = "correct" if classification else "mae"
+    best_key = ("force_mae" if force
+                else "correct" if classification else "mae")
     best = -np.inf if classification else np.inf
     history = []
     preempted = False
@@ -863,15 +889,20 @@ def fit(
 
 def evaluate(state, graphs: Sequence[CrystalGraph], batch_size: int,
              node_cap: int, dense_m: int | None, device,
-             edge_cap: int | None = None) -> dict:
+             edge_cap: int | None = None,
+             force_weights: tuple = (1.0, 10.0)) -> dict:
     """Metric means of the eval step over ``graphs`` (capacities as in
-    ``fit``; the task and edge dtype the model's), stepped eagerly."""
+    ``fit``; the task and edge dtype the model's; ``force_weights`` the
+    force task's loss weights), stepped eagerly."""
     dense_m = dense_m or None
     node_cap, edge_cap = batch_caps(graphs, batch_size, dense_m, node_cap,
                                     edge_cap)
     classification, edge_dtype = model_task(state.model)
-    return StepRunner(make_eval_step(classification=classification), state,
-                      device, train=False, graphs=False).epoch(
+    force = is_force(state.model)
+    step = (make_force_eval_step(*force_weights) if force
+            else make_eval_step(classification=classification))
+    return StepRunner(step, state, device, train=False, graphs=False).epoch(
         stage(batch_iterator(graphs, batch_size, node_cap, edge_cap,
-                             dense_m=dense_m, in_cap=0, snug=True,
-                             pack_fn=edge_pack_fn(edge_dtype)), device))
+                             dense_m=dense_m, in_cap=None if force else 0,
+                             snug=True, pack_fn=edge_pack_fn(edge_dtype)),
+              device))

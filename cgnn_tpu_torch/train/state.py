@@ -258,7 +258,8 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
                      device, seed: int = 0, optim: str = "sgd",
                      lr: float = 0.01, momentum: float = 0.9,
                      weight_decay: float = 0.0,
-                     lr_milestones_epochs: Sequence[int] = (100,)):
+                     lr_milestones_epochs: Sequence[int] = (100,),
+                     task: str = "regression"):
     """A fresh TrainState as ``python -m cgnn_tpu_torch.train`` starts one
     -> (state, node_cap, edge_cap): the model on ``device`` with the
     numpy-seeded init (convert.init_params) and its dropout generator
@@ -266,17 +267,18 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
     (a classifier's is the identity, as train.py's), the optimizer with its epoch milestones counted in
     optimizer steps (x the snug batches per epoch, as train.py does), and
     the snug batch capacities of the model's layout (``dense_m=0``: COO,
-    whose edge capacity is its own)."""
+    whose edge capacity is its own). ``task='force'`` builds the force
+    field (config.build_force_model) with its own tree."""
     import numpy as np
 
     from cgnn_tpu_torch import convert
     from cgnn_tpu_torch.config import build_model
     from cgnn_tpu_torch.data.graph import capacities_for, count_batches
 
-    model = build_model(model_cfg, data_cfg, device=device,
+    model = build_model(model_cfg, data_cfg, device=device, task=task,
                         dropout_seed=seed)
     model.load_state_dict(convert.from_flax_variables(
-        convert.init_params(model_cfg, data_cfg, seed=seed)))
+        convert.init_params(model_cfg, data_cfg, seed=seed, task=task)))
     if model_cfg.classification:
         normalizer = Normalizer.identity(model_cfg.num_targets,
                                          device=device)

@@ -78,6 +78,12 @@ def model_task(model) -> tuple[bool, torch.dtype]:
             getattr(model, "dtype", torch.float32))
 
 
+def is_force(model) -> bool:
+    """Whether ``model`` is the force field (models/forcefield.py), whose
+    steps are train/force_step.py's."""
+    return getattr(model, "task", "") == "force"
+
+
 def loss_for(classification: bool) -> Callable:
     return classification_loss if classification else regression_loss
 

@@ -263,6 +263,36 @@ into ``build/kernels``), then:
    path. Multi-task (``--multi-task-head --n-h 2``, ``hm_multitask``, the
    per-task MAE lines) served with 4 columns (``hm_multitask_serve``).
    The phase prints its seconds.
+13. bf16_paths (right after heads_modes) — the bf16 instances of kernels
+   3 and 6 on their paths, on 1024 synthetic cells at full width: the
+   train entry point ``--bf16 --layout coo --aggregation pallas``
+   (``bf16_coo_train``: only kernel 6's bf16 instance launches, in every
+   aggregation and in the gathers' backward), predict
+   (``bf16_coo_predict``) and a burst on the COO ladder
+   (``bf16_coo_serve``); ``--bf16 --fused-epilogue pallas``
+   (``bf16_epilogue_train``: only the bf16 instances of kernels 3, 4 and
+   5) and predict (``bf16_epilogue_predict``, raw wire included). The
+   kernel phase adds rows ``3-bf16`` (bf16 z at the training shape, an
+   f32 sum equal to kernel 3's on the widened z) and ``6-bf16`` (bf16
+   messages at the COO training shape, each sum kernel 6's on the
+   widened messages, rounded; ``torch.segment_reduce`` on bf16 beside
+   it).
+14. force_task (last) — the force field at full width on 2048 synthetic LJ
+   frames of 21 atoms (MD17 aspirin's count): the train entry point
+   under the epoch driver, dense (``force_driver``), COO with
+   ``--aggregation xla`` (``force_coo``) and bf16 (``force_bf16``), no
+   kernel of the port on those paths (exact counts) and every step a
+   replay, their rates; ``--resume`` (``force_resume``); predict on the
+   test split (``force_predict``: every batch a replay, the CSV and
+   ``.forces.npz`` against the eager step, rtol 1e-4 / atol 1e-4); a
+   replayed force train step bit-equal to eager, two driver runs
+   bit-equal and a resumed epoch bit-equal (deterministic algorithms);
+   the forces against a central difference of the energy in f64 (step
+   1e-4 A, within 1e-5 of the largest |F|); the step's device time split
+   into forward, forces and the double backward; the refusals (a force
+   checkpoint to ``load_server`` and the serve entry point,
+   ``--aggregation pallas``, ``--compact-staging on``); and the
+   regression task on 256 OC20-like slabs (``oc20_train``).
 
 Launches on a path. A replayed graph launches its kernels without their
 wrappers, so each path's run (``PathRun``) is traced by the profiler,
@@ -336,8 +366,11 @@ NO_LIBRARY = {
 # either, for the same reasons
 BF16_ROWS = {"fused_cgconv_eval_bf16": "1-bf16",
              "fused_cgconv_stats_bf16": "2-bf16",
-             "epilogue_reduce_bf16": "4-bf16", "epilogue_dz_bf16": "5-bf16"}
-NO_LIBRARY.update({k: NO_LIBRARY[k[: -len("_bf16")]] for k in BF16_ROWS})
+             "epilogue_apply_bf16": "3-bf16",
+             "epilogue_reduce_bf16": "4-bf16", "epilogue_dz_bf16": "5-bf16",
+             "segment_sum_sorted_bf16": "6-bf16"}
+NO_LIBRARY.update({k: NO_LIBRARY[k[: -len("_bf16")]] for k in BF16_ROWS
+                   if k[: -len("_bf16")] in NO_LIBRARY})
 
 
 class SmokeFailure(RuntimeError):
@@ -442,8 +475,10 @@ KERNEL_SYMBOLS = {
     "fused_cgconv_eval_bf16": "fused_cgconv_eval_slot",
     "fused_cgconv_node_bf16": "fused_cgconv_eval_node_kernel",
     "fused_cgconv_stats_bf16": "fused_cgconv_stats_slot_kernel",
+    "epilogue_apply_bf16": "epilogue_apply_kernel",
     "epilogue_reduce_bf16": "epilogue_reduce_kernel",
     "epilogue_dz_bf16": "epilogue_dz_kernel",
+    "segment_sum_sorted_bf16": "segment_sum_sorted_kernel",
 }
 
 
@@ -478,8 +513,10 @@ def kernel_wrappers() -> dict:
             "fused_cgconv_eval_bf16": fc.fused_cgconv_eval_bf16_cuda,
             "fused_cgconv_node_bf16": fc.fused_cgconv_node_bf16_cuda,
             "fused_cgconv_stats_bf16": fc.fused_cgconv_stats_bf16_cuda,
+            "epilogue_apply_bf16": fe.epilogue_apply_bf16_cuda,
             "epilogue_reduce_bf16": fe.epilogue_reduce_bf16_cuda,
-            "epilogue_dz_bf16": fe.epilogue_dz_bf16_cuda}
+            "epilogue_dz_bf16": fe.epilogue_dz_bf16_cuda,
+            "segment_sum_sorted_bf16": scatter.segment_sum_sorted_bf16_cuda}
 
 
 def zero_counts() -> None:
@@ -556,13 +593,13 @@ def dense_per_step(n_conv: int, epilogue: bool = False,
     node pass a conv); the raw wire adds kernel 8 once a step. With
     ``epilogue`` (``fused_epilogue='pallas'``, kernel 1 off): kernel 3 a
     conv in every forward, kernels 4 and 5 a conv in a train step. With
-    ``bf16``: the bf16 instances of kernels 1, 2, 4 and 5 in place of the
-    f32 ones (kernel 8 is the same kernel)."""
+    ``bf16``: the bf16 instances of kernels 1-5 in place of the f32 ones
+    (kernel 8 is the same kernel)."""
     n = n_conv
     sfx = "_bf16" if bf16 else ""
     if epilogue:
-        fwd = {"epilogue_apply": n}
-        train = fwd | {"epilogue_reduce": n, "epilogue_dz": n}
+        fwd = {f"epilogue_apply{sfx}": n}
+        train = fwd | {f"epilogue_reduce{sfx}": n, f"epilogue_dz{sfx}": n}
     else:
         fwd = {f"fused_cgconv_eval{sfx}": n, f"fused_cgconv_node{sfx}": n}
         train = fwd | {f"fused_cgconv_stats{sfx}": n,
@@ -571,14 +608,14 @@ def dense_per_step(n_conv: int, epilogue: bool = False,
             "predict_raw": fwd | {"neighbor_search": 1}}
 
 
-def coo_per_step(n_conv: int) -> dict:
+def coo_per_step(n_conv: int, bf16: bool = False) -> dict:
     """The COO layout with aggregation='pallas': kernel 6 a conv in
     every step's aggregation, and in a train step twice more a conv, in
     the backward of the two endpoint gathers (ops/segment.py
-    ``gather_fixed_order``)."""
-    one = {"segment_sum_sorted": n_conv}
-    return {"train": {"segment_sum_sorted": 3 * n_conv}, "eval": one,
-            "predict": one}
+    ``gather_fixed_order``); its bf16 instance alone with ``bf16``."""
+    k6 = "segment_sum_sorted_bf16" if bf16 else "segment_sum_sorted"
+    one = {k6: n_conv}
+    return {"train": {k6: 3 * n_conv}, "eval": one, "predict": one}
 
 
 def check_path(run, per_step: dict, logical: dict,
@@ -4024,7 +4061,8 @@ def structure_body(rs, **extra) -> bytes:
 
 
 def plain_answers(dev, ck, name, graphs, dtype=None):
-    """The plain path (``cgconv_impl`` off; ``aggregation='xla'`` in the
+    """The plain path (``cgconv_impl`` and ``fused_epilogue`` off;
+    ``aggregation='xla'`` in the
     COO layout) under save ``name`` of checkpoint ``ck``, on the card, on
     ``graphs`` -> [n, T] (a classifier's [n, C]); ``dtype`` overrides the
     model's compute dtype (``'float32'``: the f32 model on the same
@@ -4041,7 +4079,7 @@ def plain_answers(dev, ck, name, graphs, dtype=None):
     mgr = CheckpointManager(ck)
     meta = mgr.read_meta(name)
     cfg = ModelConfig.from_meta(meta["model"]).for_arbitrary_inputs()
-    cfg = dc.replace(cfg, cgconv_impl="",
+    cfg = dc.replace(cfg, cgconv_impl="", fused_epilogue="",
                      aggregation="xla" if not cfg.dense_m else None,
                      **({} if dtype is None else {"dtype": dtype}))
     state = InferenceState(
@@ -4694,9 +4732,78 @@ def bf16_kernel_phase(dev, train_graphs, calibration, shape_set):
         timings(cold(fe.epilogue_dz_bf16_cuda, z, emask, cst, red5, ct)),
         time_ms(cold(fe.epilogue_dz_reference, z, emask, cst, red5, ct)),
         fe.epilogue_pass_cost("dz", n, m, f, real_slots, z_bytes=2)))
+
+    # 3-bf16 on the same bf16 z: an f32 sum, as kernel 3's
+    got = fe.epilogue_apply_bf16_cuda(z, emask, cst)
+    check(got.dtype == torch.float32 and torch.equal(
+        got, fe.epilogue_apply_cuda(z.float(), emask, cst)),
+        "kernel 3-bf16 is not kernel 3 on the widened z")
+    errs = compare("epilogue_apply_bf16", got,
+                   fe.epilogue_apply_reference(z, emask, cst), RTOL, ATOL)
+    entries.append(kernel_entry(
+        "epilogue_apply_bf16", "fused_epilogue.cu",
+        "cgnn_tpu/ops/fused_epilogue.py:142", errs,
+        timings(cold(fe.epilogue_apply_bf16_cuda, z, emask, cst)),
+        time_ms(cold(fe.epilogue_apply_reference, z, emask, cst)),
+        fe.epilogue_pass_cost("apply", n, m, f, real_slots, z_bytes=2)))
+    entries.append(segment_sum_bf16_entry(dev, train_graphs))
     for e in entries:
-        e.update(row=BF16_ROWS[e["name"]], dtype="bf16", N=n)
+        e.update(row=BF16_ROWS[e["name"]], dtype="bf16")
+        e.setdefault("N", n)
     return entries
+
+
+def segment_sum_bf16_entry(dev, train_graphs):
+    """Kernel 6's bf16 instance at the COO training shape (a snug batch-256
+    COO pack of MP-like structures): seeded [E, 64] messages rounded to
+    bf16 and zeroed on the padding edges; each sum the f32 instance's on
+    the widened messages rounded to bf16 (bit-equal), the same bits run
+    to run, its plain version within one bf16 ulp; timed beside the plain
+    version, ``torch.segment_reduce`` on the same bf16 messages and the
+    bound with 2-byte messages and sums -> its entry."""
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.ops import scatter
+
+    bf16 = torch.bfloat16
+    node_cap, edge_cap = capacities_for(train_graphs, BATCH)
+    batch = next(iter(batch_iterator(train_graphs, BATCH, node_cap,
+                                     edge_cap, snug=True)))
+    e, f, n = batch.edge_mask.shape[0], 64, batch.nodes.shape[0]
+    rng = np.random.default_rng(SEED + 5)
+    msgs = rng.standard_normal((e, f)) * batch.edge_mask.numpy()[:, None]
+    msgs = torch.from_numpy(msgs.astype(np.float32)).to(dev).to(bf16)
+    offsets = scatter.segment_offsets(batch.centers.to(dev), n)
+    got = scatter.segment_sum_sorted_bf16_cuda(msgs, offsets)
+    again = scatter.segment_sum_sorted_bf16_cuda(msgs, offsets)
+    torch.cuda.synchronize()
+    check(got.dtype == bf16 and torch.equal(got, again) and torch.equal(
+        got, scatter.segment_sum_sorted_cuda(msgs.float(),
+                                             offsets).to(bf16)),
+        "kernel 6-bf16: not the same bits run to run, or not kernel 6's "
+        "sums on the widened messages, rounded")
+    errs = compare("segment_sum_sorted_bf16 (one bf16 ulp)", got.float(),
+                   scatter.segment_sum_sorted_reference(msgs,
+                                                        offsets).float(),
+                   BF16_ULP, ATOL)
+
+    def library(x, o):
+        return torch.segment_reduce(x, "sum", offsets=o, axis=0,
+                                    unsafe=True)
+
+    entry = kernel_entry(
+        "segment_sum_sorted_bf16", "segment_sum.cu",
+        "cgnn_tpu/ops/pallas_scatter.py:52", errs,
+        timings(cold(scatter.segment_sum_sorted_bf16_cuda, msgs, offsets),
+                cold(library, msgs, offsets)),
+        time_ms(cold(scatter.segment_sum_sorted_reference, msgs, offsets)),
+        scatter.segment_sum_cost(e, n, f, elem_bytes=2),
+        library_call="torch.segment_reduce(bf16 messages, 'sum', "
+                     "offsets=offsets, axis=0, unsafe=True)")
+    entry.update(N=n, E=e, F=f, real_edges=int(batch.edge_mask.sum()))
+    return entry
 
 
 def write_label_directories(root, n, seed) -> dict:
@@ -5191,6 +5298,544 @@ def heads_modes_phase(dev, work_dir, card, calibration):
     return summary, counts
 
 
+N_BF16_PATHS = 1024  # --synthetic cells of the bf16_coo and bf16_epilogue
+BF16_PATH_EPOCHS = 2  # paths (small cells, 2-12 atoms), and their epochs
+N_BF16_PREDICT = 256  # structures predicted on each bf16 path
+N_FORCE = 2048  # --synthetic LJ frames of the force task
+FORCE_ATOMS = 21  # MD17 aspirin's atom count
+FORCE_EPOCHS = 3
+N_FORCE_BITS = 512  # frames of the in-process bit checks (train part)
+FD_STEP = 1e-4  # the central difference's step, in A (f64)
+FD_RTOL = 1e-5  # |F - F_fd| within this of the largest |F| (f64)
+N_OC20 = 256  # --synthetic-oc20 slabs (37-255 atoms)
+OC20_BATCH = 64
+
+
+def entry_logical(split, dense_m, epochs, batch=None):
+    """The steps the train entry point takes on a split with snug
+    batches (the per-step loop, or the epoch driver with one bucket):
+    each epoch every train and validation batch, then the test split's
+    eval batches -> {kind: steps}."""
+    from cgnn_tpu_torch.data.graph import capacities_for, count_batches
+
+    batch = batch or BATCH
+    train_g, val_g, test_g = split
+    nc, ec = capacities_for(train_g, batch, dense_m=dense_m)
+    steps, evals, tests = (count_batches(gs, batch, nc, ec, snug=True)
+                           for gs in (train_g, val_g, test_g))
+    return {"train": epochs * steps, "eval": epochs * evals + tests}
+
+
+def entry_train(path, argv, per_step, logical):
+    """The train entry point as ``path`` (exact launches) -> (its output,
+    its ``train:`` record, the path's record)."""
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+
+    with PathRun(path) as run:
+        rc, out = run_main(train_main, argv, path)
+    check(rc == 0, f"{path}: the train entry point exited {rc}")
+    info = json.loads(next(line for line in out.splitlines()
+                           if line.startswith("train: "))[7:])
+    check(info["graphs"]["captures_after_warm"] == 0,
+          f"{path}: captures after warm-up: {info['graphs']}")
+    return out, info, check_path(run, per_step, logical)
+
+
+def bf16_paths_phase(dev, work_dir, card, calibration):
+    """The bf16 instances of kernels 3 and 6 on their paths, at full width
+    (F=64, 3 convs, h=128, M=12, 8 A, G=41, batch 256) on N_BF16_PATHS
+    synthetic cells:
+
+    - ``bf16_coo``: the train entry point ``--layout coo --aggregation
+      pallas --bf16`` (path ``bf16_coo_train``: kernel 6's bf16 instance
+      in every aggregation and in the gathers' backward, exactly, no f32
+      instance), the predict entry point (``bf16_coo_predict``) and a
+      burst through ``load_server`` on the COO ladder
+      (``bf16_coo_serve``);
+    - ``bf16_epilogue``: ``--fused-epilogue pallas --bf16``
+      (``bf16_epilogue_train``: kernel 3's bf16 instance a conv in every
+      forward, with 4-bf16 and 5-bf16 in the backward, no f32 instance),
+      then predict (``bf16_epilogue_predict``, raw wire included);
+
+    every answer within BF16_TOL of the largest |answer| of the bf16 plain
+    path (``plain_answers``) -> (summary, counts by path)."""
+    import shutil
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import (
+        load_synthetic,
+        train_val_test_split,
+    )
+    from cgnn_tpu_torch.serve.server import load_server
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "bf16_paths")
+    shutil.rmtree(root, ignore_errors=True)
+    fcfg = DataConfig().featurize_config()
+    graphs = load_synthetic(N_BF16_PATHS, fcfg, seed=SEED)
+    split = train_val_test_split(graphs, 0.8, 0.1, seed=SEED)
+    pred_g = load_synthetic(N_BF16_PREDICT, fcfg, seed=SEED)
+    n_conv = ModelConfig().n_conv
+    counts, summary = {}, {"card": card, "structures": N_BF16_PATHS}
+    for name, layout, per_step, dense_m in (
+            ("bf16_coo", ["--layout", "coo", "--aggregation", "pallas"],
+             coo_per_step(n_conv, bf16=True), None),
+            ("bf16_epilogue", ["--fused-epilogue", "pallas"],
+             dense_per_step(n_conv, epilogue=True, bf16=True), M)):
+        ck = os.path.join(root, f"{name}_ck")
+        out, info, counts[f"{name}_train"] = entry_train(
+            f"{name}_train", [
+                "--synthetic", str(N_BF16_PATHS), "--bf16", *layout, "-b",
+                str(BATCH), "--epochs", str(BF16_PATH_EPOCHS),
+                "--print-freq", "0", "--seed", str(SEED), "--ckpt-dir", ck,
+                "--out-dir", os.path.join(root, f"{name}_out")],
+            per_step, entry_logical(split, dense_m, BF16_PATH_EPOCHS))
+        want = plain_answers(dev, ck, "latest", pred_g)
+        _, rec = hm_predict(
+            f"{name}_predict", [ck, "--synthetic", str(N_BF16_PREDICT), "-b",
+                                str(BATCH), "--out",
+                                os.path.join(root, f"{name}.csv")],
+            per_step, want, BF16_TOL, 1)
+        counts[f"{name}_predict"] = rec.pop("path")
+        summary[name] = {"train_structures_per_s":
+                         info["train_structures_per_s"],
+                         "epoch_seconds": info["epoch_seconds"],
+                         "test": info["test"], "predict": rec}
+        if name == "bf16_coo":
+            server, _ = load_server(ck, calibration=calibration, device=dev,
+                                    log_fn=lambda *_: None, watch=False)
+            _, srec = hm_burst(server, "bf16_coo_serve",
+                               pred_g[:N_HM_SERVE], per_step,
+                               want[:N_HM_SERVE], BF16_TOL, 1)
+            counts["bf16_coo_serve"] = srec.pop("path")
+            check(server.drain(timeout_s=60),
+                  "the bf16 COO server did not drain")
+            summary[name]["serve"] = srec
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"bf16_paths: {summary['seconds']!r} s")
+    return summary, counts
+
+
+def free_card_memory() -> dict:
+    """Collect unreachable objects (graphs of earlier phases' steps and
+    servers among them) and hand the allocator's unused cached blocks
+    back to the card -> {allocated, reserved} GiB after it."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+
+
+def force_state(dev, train_g, dense_m, dtype="float32"):
+    """A fresh force-field TrainState at full width (Adam, lr 2e-3, the
+    numpy-seeded init), as the train entry point makes one."""
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.train.state import init_train_state
+
+    return init_train_state(
+        ModelConfig(dense_m=dense_m or 0, dtype=dtype), DataConfig(),
+        train_g, batch_size=BATCH, device=dev, seed=SEED, optim="adam",
+        lr=2e-3, task="force")[0]
+
+
+def force_replay_bits(dev, train_g):
+    """A force train step (forces with ``create_graph``, then the
+    composite loss's backward) captured as a StepGraph and replayed over
+    3 full-width batches against the same steps run eagerly, under
+    deterministic algorithms: every tensor bit-equal, the metric sums
+    equal -> record."""
+    import torch
+
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.train.force_step import make_force_train_step
+    from cgnn_tpu_torch.train.graphs import StepGraph, state_guard
+    from cgnn_tpu_torch.train.metrics import DeviceSums, fetch_device_sums
+
+    nc, ec = capacities_for(train_g, BATCH, dense_m=M)
+    batches = [b.to(dev) for b in batch_iterator(train_g, BATCH, nc, ec,
+                                                 dense_m=M, snug=True)][:3]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, replayed = (force_state(dev, train_g, M) for _ in range(2))
+        step, sums, gsums = make_force_train_step(), DeviceSums(), \
+            DeviceSums()
+        for b in batches:
+            sums.add(step(eager, b))
+        before = state_bits(replayed)
+        g = StepGraph(lambda b: gsums.add(step(replayed, b)), batches[0],
+                      device=dev, kind="train",
+                      guard=state_guard(replayed, sums=[gsums]),
+                      on_replay=lambda: replayed.optimizer.advance(1))
+        check(g.graph is not None, "the force train step was not captured")
+        same, _, where = bits_diff(state_bits(replayed), before)
+        check(same, f"the capture changed the state at {where}")
+        gsums.zero()
+        for b in batches:
+            g.run(b)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same, worst, where = bits_diff(state_bits(replayed), state_bits(eager))
+    want, got = fetch_device_sums(sums.sums), fetch_device_sums(gsums.sums)
+    check(same and want == got, f"the replayed force step leaves the eager "
+                                f"one: max diff {worst!r} at {where}; sums "
+                                f"{got} vs {want}")
+    print(f"force replay vs eager over {len(batches)} batches: bit-equal, "
+          f"sums equal: ok")
+    return {"batches": len(batches), "bit_equal": True, "sums": got}
+
+
+def force_fit_bits(dev, split, work_dir):
+    """Two in-process runs of the epoch driver (2 epochs, dense, graphs
+    on, N_FORCE_BITS training frames) from the same init, bit-equal; then
+    resume: epochs 0-1 saved, epoch 2 in memory against a fresh state
+    restored from the epoch-1 save, bit-equal; all under deterministic
+    algorithms -> record."""
+    import shutil
+
+    import torch
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from cgnn_tpu_torch.train.loop import fit
+
+    train_g, val_g = split[0][:N_FORCE_BITS], split[1][:BATCH]
+    ck = os.path.join(work_dir, "force_resume_bits")
+    shutil.rmtree(ck, ignore_errors=True)
+    mgr = CheckpointManager(ck, keep=0)
+    meta = {"model": ModelConfig(dense_m=M).to_meta(),
+            "data": DataConfig().to_meta(), "task": "force"}
+
+    def run(state, start, end, save=False):
+        return fit(state, train_g, val_g, epochs=end, batch_size=BATCH,
+                   dense_m=M, device=dev, seed=SEED, start_epoch=start,
+                   scan_epochs=True, on_epoch_end=(
+                       lambda s, e, vm, best: mgr.save(
+                           s, dict(meta, epoch=e), is_best=best))
+                   if save else None, log_fn=lambda *_: None)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        first, res = run(force_state(dev, train_g, M), 0, 2, save=True)
+        check(res["graphs"]["captures_after_warm"] == 0
+              and res["graphs"]["replays"] > 0, f"fit graphs {res}")
+        mgr.wait()
+        second, _ = run(force_state(dev, train_g, M), 0, 2)
+        twice, worst, where = bits_diff(state_bits(first),
+                                        state_bits(second))
+        check(twice, f"two force runs differ: {worst!r} at {where}")
+        first, _ = run(first, 2, 3)
+        fresh = force_state(dev, train_g, M)
+        _, saved = mgr.restore(fresh)
+        check(saved["epoch"] == 1, f"restored epoch {saved['epoch']}")
+        fresh, _ = run(fresh, 2, 3)
+        resumed, worst, where = bits_diff(state_bits(fresh),
+                                          state_bits(first))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        mgr.close()
+    check(resumed, f"the resumed force epoch leaves the uninterrupted one: "
+                   f"{worst!r} at {where}")
+    print("force: two driver runs bit-equal; the resumed epoch bit-equal to "
+          "the uninterrupted one: ok")
+    return {"two_runs_bit_equal": True, "resumed_bit_equal": True,
+            "frames": len(train_g)}
+
+
+def force_central_difference(dev, ck, test_g):
+    """The trained model (``ck``, latest) in f64 on the card: its forces
+    on a test batch against a central difference of the energy on a few
+    atoms (step FD_STEP), within FD_RTOL of the largest |F|; beside it the
+    f32 model's forces' gap to the f64 ones -> record."""
+    import dataclasses as dc
+
+    import torch
+
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.models.forcefield import energy_and_forces
+    from cgnn_tpu_torch.train.checkpoint import load_for_inference
+
+    state, _, _ = load_for_inference(ck, "latest", dev)
+    model = state.model
+    nc, ec = capacities_for(test_g, 16, dense_m=M)
+    batch = next(iter(batch_iterator(test_g, 16, nc, ec, dense_m=M,
+                                     snug=True))).to(dev)
+    _, f32_forces = energy_and_forces(model, batch)
+    model = model.double()
+    b64 = dc.replace(batch, positions=batch.positions.double(),
+                     lattices=batch.lattices.double(),
+                     edge_offsets=batch.edge_offsets.double())
+    _, forces = energy_and_forces(model, b64)
+    pos = b64.positions
+    worst, scale = 0.0, float(forces.abs().max())
+    atoms = [0, 5, FORCE_ATOMS + 3, 2 * FORCE_ATOMS + 10]
+    with torch.no_grad():
+        for atom in atoms:
+            for axis in range(3):
+                e = []
+                for sign in (1.0, -1.0):
+                    p = pos.clone()
+                    p[atom, axis] += sign * FD_STEP
+                    e.append(float(model(b64, p).sum()))
+                fd = -(e[0] - e[1]) / (2 * FD_STEP)
+                worst = max(worst, abs(fd - float(forces[atom, axis])))
+    gap32 = float((f32_forces.double() - forces).abs().max())
+    ok = worst <= FD_RTOL * scale
+    print(f"force central difference (f64, h={FD_STEP}, {len(atoms)} atoms "
+          f"x 3): max |F - F_fd| {worst!r} against max |F| {scale!r} "
+          f"(rtol {FD_RTOL}): {'ok' if ok else 'FAIL'}; f32 forces' gap to "
+          f"f64 {gap32!r}")
+    check(ok, "the force field's forces are not -dE/dr")
+    return {"max_abs_err": worst, "max_abs_force": scale, "step": FD_STEP,
+            "atoms": len(atoms), "f32_gap_to_f64": gap32}
+
+
+def force_step_split(dev, train_g):
+    """Device time of one full-width force train step split in its
+    parts, on the first training batch: the energy forward, the forward
+    with the forces (``create_graph``), and those with the composite
+    loss's backward to the parameters (the double backward); eager, the
+    profiler's device time (events as well) -> record with the double
+    backward's share."""
+    import torch
+
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.models.forcefield import energy_and_forces
+    from cgnn_tpu_torch.train.force_step import force_loss
+
+    state = force_state(dev, train_g, M)
+    model = state.model.train()
+    nc, ec = capacities_for(train_g, BATCH, dense_m=M)
+    batch = next(iter(batch_iterator(train_g, BATCH, nc, ec, dense_m=M,
+                                     snug=True))).to(dev)
+    params = list(state.optimizer.params)
+
+    def forward():
+        with torch.no_grad():
+            model(batch)
+
+    def forces():
+        energy_and_forces(model, batch, create_graph=True)
+
+    def full():
+        e, f = energy_and_forces(model, batch, create_graph=True)
+        loss, _ = force_loss(e, f, batch, state.normalizer)
+        grads = torch.autograd.grad(loss, params)
+        del grads
+
+    rec = {}
+    for name, fn in (("forward", forward), ("forces", forces),
+                     ("step_no_update", full)):
+        rec[f"{name}_device_ms"] = device_ms(fn)
+        rec[f"{name}_ms"] = time_ms(fn, calls=10, trials=3)
+    for how, sfx in (("device", "_device_ms"), ("events", "_ms")):
+        step_t, forces_t = rec[f"step_no_update{sfx}"], rec[f"forces{sfx}"]
+        rec[f"double_backward_share_{how}"] = (
+            None if step_t is None or forces_t is None
+            else (step_t - forces_t) / step_t)
+    rec["N"] = int(batch.nodes.shape[0])
+    print(f"force step split: {rec}")
+    return rec
+
+
+def force_task_phase(dev, work_dir, card):
+    """The force task at full width (F=64, 3 convs, h=128, M=12, 8 A,
+    G=41, batch 256) on N_FORCE synthetic LJ frames of FORCE_ATOMS atoms
+    (MD17 aspirin's count), split in contiguous blocks:
+
+    - the train entry point under the epoch driver, dense
+      (``force_driver``), COO with ``--aggregation xla`` (``force_coo``)
+      and dense bf16 (``force_bf16``), FORCE_EPOCHS epochs each: every
+      step a replayed CUDA graph (exact step counts; no kernel of the
+      port's launches on these paths: the force task runs none, as the
+      JAX package's runs no Pallas kernel), no capture after warm-up;
+      their rates;
+    - ``--resume`` (``force_resume``); the predict entry point on the
+      test split (``force_predict``: every batch a replay; the CSV's
+      energies and ``.forces.npz`` against the eager predict step, rtol
+      1e-4 / atol 1e-4);
+    - a replayed step bit-equal to eager, two runs bit-equal, a resumed
+      epoch bit-equal (deterministic algorithms); forces against a
+      central difference of E in f64; the step's split;
+    - the refusals: ``load_server`` and the serve entry point on a force
+      checkpoint, ``--aggregation pallas``, ``--compact-staging on``;
+    - the regression task on N_OC20 OC20-like slabs (``oc20_train``,
+      kernel path, per-step loop).
+    -> (summary, counts by path)."""
+    import csv as csvmod
+    import shutil
+
+    import numpy as np
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.cache import save_graph_cache
+    from cgnn_tpu_torch.data.dataset import (
+        load_synthetic_oc20,
+        load_trajectory,
+        train_val_test_split,
+    )
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.data.trajectory import split_trajectory_groups
+    from cgnn_tpu_torch.predict import main as predict_main
+    from cgnn_tpu_torch.serve.__main__ import main as serve_main
+    from cgnn_tpu_torch.serve.server import FORCE_SERVE_REFUSAL, load_server
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+    from cgnn_tpu_torch.train.checkpoint import load_for_inference
+    from cgnn_tpu_torch.train.force_step import make_force_predict_step
+
+    t_phase = time.perf_counter()
+    # the last phase: what earlier phases left cached goes back first
+    memory_at_start = free_card_memory()
+    print(f"force_task: card memory at the start {memory_at_start}")
+    root = os.path.join(work_dir, "force")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    fcfg = DataConfig().featurize_config()
+    t0 = time.perf_counter()
+    graphs = load_trajectory(N_FORCE, fcfg, seed=SEED,
+                             num_atoms=FORCE_ATOMS)
+    split = split_trajectory_groups([graphs], 0.8, 0.1, seed=SEED)
+    counts = {}
+    summary = {"card": card, "frames": N_FORCE, "atoms": FORCE_ATOMS,
+               "featurize_s": time.perf_counter() - t0,
+               "split": [len(s) for s in split],
+               "card_memory_at_start": memory_at_start}
+    base = ["--task", "force", "--synthetic", str(N_FORCE), "--md-atoms",
+            str(FORCE_ATOMS), "-b", str(BATCH), "--optim", "Adam", "--lr",
+            "0.002", "--print-freq", "0", "--seed", str(SEED)]
+
+    def ck_args(name, epochs=FORCE_EPOCHS):
+        ck = os.path.join(root, name)
+        return ["--epochs", str(epochs), "--ckpt-dir", ck, "--out-dir",
+                ck + "_out"]
+
+    rates = {}
+    for name, extra, dense_m in (
+            ("force_driver", [], M),
+            ("force_coo", ["--layout", "coo", "--aggregation", "xla"], None),
+            ("force_bf16", ["--bf16"], M)):
+        free_card_memory()
+        out, info, counts[name] = entry_train(
+            name, base + ["--device-resident", *extra] + ck_args(name), {},
+            entry_logical(split, dense_m, FORCE_EPOCHS))
+        check("** test force_mae" in out and "** test energy mae" in out
+              and "trajectory-aware split" in out, f"{name}: output lines")
+        check(info["graphs"]["replays"] > 0, f"{name}: no replay")
+        rates[name] = {
+            "train_structures_per_s": info["train_structures_per_s"],
+            "steady_structures_per_s": len(split[0]) * (FORCE_EPOCHS - 1)
+            / sum(info["epoch_seconds"][1:]),
+            "epoch_seconds": info["epoch_seconds"],
+            "staged_bytes": info["staging"]["staged_bytes"],
+            "graphs": info["graphs"], "test": info["test"]}
+    summary["rates"] = rates
+    print(f"force rates: {json.dumps(rates, allow_nan=False)}")
+
+    ck = os.path.join(root, "force_driver")
+    free_card_memory()
+    out, info, counts["force_resume"] = entry_train(
+        "force_resume", base + ["--device-resident", "--resume", ck]
+        + ck_args("force_driver", FORCE_EPOCHS + 1), {},
+        entry_logical(split, M, 1))
+    check(f"resumed from {ck} at epoch {FORCE_EPOCHS}" in out,
+          "force_resume did not resume")
+
+    test_g = split[2]
+    cache = os.path.join(root, "test.npz")
+    save_graph_cache(test_g, cache)
+    out_csv = os.path.join(root, "force_predict.csv")
+    with PathRun("force_predict") as run:
+        rc, out = run_main(predict_main, [ck, "--cache", cache, "-b",
+                                          str(BATCH), "--out", out_csv],
+                           "force_predict")
+    check(rc == 0, f"force_predict exited {rc}")
+    pinfo = json.loads(next(line for line in out.splitlines()
+                            if line.startswith("predict: "))[9:])
+    counts["force_predict"] = check_path(run, {},
+                                         {"predict": pinfo["batches"]})
+    check(pinfo["replays"] == pinfo["batches"], f"force_predict {pinfo}")
+    rows = list(csvmod.reader(open(out_csv)))
+    z = np.load(out_csv + ".forces.npz")
+    check(len(rows) == len(test_g) and list(z["ids"]) == [
+        g.cif_id for g in test_g], "force_predict: rows or ids")
+    state, _, _ = load_for_inference(ck, "latest", dev)
+    step = make_force_predict_step()
+    nc, ec = capacities_for(test_g, BATCH, dense_m=M)
+    want_e, want_f = [], []
+    for b in batch_iterator(test_g, BATCH, nc, ec, dense_m=M, snug=True):
+        e, f = step(state, b.to(dev))
+        e, f = e.cpu().numpy(), f.cpu().numpy()
+        mask = b.node_mask.numpy() > 0
+        for k in range(int(b.graph_mask.sum())):
+            want_e.append(e[k])
+            want_f.append(f[(b.node_graph.numpy() == k) & mask])
+    got_e = np.array([float(r[2]) for r in rows])
+    err_e = float(np.abs(got_e - np.array(want_e)).max())
+    err_f = max(float(np.abs(z[f"forces_{i}"] - w).max())
+                for i, w in enumerate(want_f))
+    check(all(z[f"forces_{i}"].shape == (FORCE_ATOMS, 3)
+              for i in range(len(rows))), "force_predict: force shapes")
+    check(np.allclose(got_e, want_e, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+          and all(np.allclose(z[f"forces_{i}"], w, rtol=SERVE_RTOL,
+                              atol=SERVE_ATOL)
+                  for i, w in enumerate(want_f)),
+          f"force_predict vs the eager step: energies {err_e!r}, forces "
+          f"{err_f!r}")
+    summary["predict"] = dict(pinfo, max_abs_err_energy_vs_eager=err_e,
+                              max_abs_err_forces_vs_eager=err_f)
+
+    for key, fn, args in (
+            ("replay", force_replay_bits, (dev, split[0])),
+            ("bits", force_fit_bits, (dev, split, work_dir)),
+            ("central_difference", force_central_difference,
+             (dev, ck, test_g)),
+            ("step_split", force_step_split, (dev, split[0]))):
+        free_card_memory()
+        summary[key] = fn(*args)
+
+    refusals = {}
+    try:
+        load_server(ck, device=dev, warm=False, watch=False,
+                    log_fn=lambda *_: None)
+        refusals["load_server"] = "served"
+    except NotImplementedError as e:
+        refusals["load_server"] = str(e)
+    refusals["serve_entry_rc"] = run_main(serve_main, [ck, "--port", "0"],
+                                          "force_serve")[0]
+    for key, extra in (("aggregation_pallas_rc",
+                        ["--layout", "coo", "--aggregation", "pallas"]),
+                       ("compact_on_rc", ["--device-resident",
+                                          "--compact-staging", "on"])):
+        refusals[key] = run_main(train_main, base + extra + ck_args(
+            "refused", 1), f"force_{key}")[0]
+    check(refusals == {"load_server": FORCE_SERVE_REFUSAL,
+                       "serve_entry_rc": 2, "aggregation_pallas_rc": 2,
+                       "compact_on_rc": 2}, f"force refusals: {refusals}")
+    summary["refusals"] = refusals
+
+    oc20 = load_synthetic_oc20(N_OC20, fcfg, seed=SEED)
+    free_card_memory()
+    out, info, counts["oc20_train"] = entry_train(
+        "oc20_train", ["--synthetic-oc20", str(N_OC20), "--cgconv-impl",
+                       "pallas", "-b", str(OC20_BATCH), "--epochs", "2",
+                       "--print-freq", "0", "--seed", str(SEED)]
+        + ck_args("oc20", 2), dense_per_step(ModelConfig().n_conv),
+        entry_logical(train_val_test_split(oc20, 0.8, 0.1, seed=SEED), M,
+                      2, batch=OC20_BATCH))
+    summary["oc20"] = {"atoms": [min(g.num_nodes for g in oc20),
+                                 max(g.num_nodes for g in oc20)],
+                       "train_structures_per_s":
+                       info["train_structures_per_s"], "test": info["test"]}
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"force_task: {summary['seconds']!r} s")
+    return summary, counts
+
+
 def main() -> int:
     import torch
 
@@ -5251,6 +5896,8 @@ def main() -> int:
     kernels += bf16_kernel_phase(dev, split[0], calibration, shape_set)
     hm_summary, hm_counts = heads_modes_phase(dev, work_dir, card,
                                               calibration)
+    bp_summary, bp_counts = bf16_paths_phase(dev, work_dir, card,
+                                             calibration)
     summary, breakdown, raw_breakdown, by_path = serve_phase(
         dev, calibration, work_dir)
     train_summary, train_counts, node_cap = train_phase(dev, split, work_dir)
@@ -5272,8 +5919,11 @@ def main() -> int:
     res_summary, res_counts = resilience_phase(dev, work_dir, split,
                                                mp_split)
     http_summary, http_counts = serve_http_phase(dev, work_dir, card)
+    # last: its paths launch no kernel but oc20_train's, and an in-process
+    # server burst's trace lost a kernel record when it ran before them
+    force_summary, force_counts = force_task_phase(dev, work_dir, card)
     by_path.update(**graphs_counts, **res_counts, **http_counts,
-                   **hm_counts)
+                   **hm_counts, **bp_counts, **force_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -5312,6 +5962,8 @@ def main() -> int:
     print(json.dumps({"resilience": res_summary}, allow_nan=False))
     print(json.dumps({"serve_http": http_summary}, allow_nan=False))
     print(json.dumps({"heads_modes": hm_summary}, allow_nan=False))
+    print(json.dumps({"bf16_paths": bp_summary}, allow_nan=False))
+    print(json.dumps({"force_task": force_summary}, allow_nan=False))
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card)

@@ -60,7 +60,6 @@ from cgnn_tpu_torch.data import compact as tcompact
 from cgnn_tpu_torch.data import graph as tgraph
 from cgnn_tpu_torch.ops import fused_cgconv as tops
 from cgnn_tpu_torch.ops import fused_epilogue as tfe
-from cgnn_tpu_torch.ops import segment as tsegment
 from cgnn_tpu_torch.train import state as tstate
 from cgnn_tpu_torch.train.normalizer import Normalizer
 from cgnn_tpu_torch.train.step import make_train_step
@@ -426,22 +425,33 @@ def test_bf16_one_sgd_step_matches_jax(impl):
 # ---------------------------------------------------------------------------
 
 
-def test_kernel6_backward_raises_for_a_bf16_cotangent_on_the_card():
-    """The fixed-order gather's backward on the card launches kernel 6 or
-    raises naming the dtype: never ``torch.segment_reduce`` in its place.
-    A ``meta`` tensor stands in for the card."""
-    ctx = types.SimpleNamespace(
-        saved_tensors=(None, torch.tensor([0, 2, 4], dtype=torch.int32)),
-        has_perm=False, impl="pallas")
+def test_kernel6_backward_raises_for_a_bf16_cotangent_on_the_card(
+        monkeypatch):
+    """The fixed-order gather's backward on the card sums a bf16
+    cotangent with kernel 6's bf16 instance, through the sum op (never
+    ``torch.segment_reduce`` in its place), and raises naming the dtype
+    where kernel 6 has no instance (f16). A ``meta`` tensor stands in for
+    the card, a recording stand-in for the bf16 instance."""
+    from cgnn_tpu_torch.ops import scatter
+
+    offsets = torch.tensor([0, 2, 4], dtype=torch.int32)
+    idx = torch.tensor([0, 0, 1, 1], dtype=torch.int32)
+    seen = []
+    monkeypatch.setattr(
+        scatter, "segment_sum_sorted_bf16_cuda",
+        lambda rows, off: seen.append(rows.dtype) or rows.new_zeros(
+            (off.numel() - 1, rows.shape[1])))
+    ctx = types.SimpleNamespace(saved_tensors=(idx, None, offsets),
+                                impl="pallas")
     ct = torch.zeros((4, F), dtype=BF16, device="meta")
-    with pytest.raises(ValueError, match="bfloat16"):
-        tsegment._SortedGather.backward(ctx, ct)
-    # on the CPU the plain version runs, in the cotangent's dtype
-    cpu = types.SimpleNamespace(
-        saved_tensors=(None, torch.tensor([0, 2, 4])), has_perm=False,
-        impl="pallas")
-    grad = tsegment._SortedGather.backward(
-        cpu, torch.ones((4, F), dtype=BF16))[0]
+    grad = scatter.SortedGather.backward(ctx, ct)[0]
+    assert seen == [BF16] and grad.dtype == BF16
+    with pytest.raises(ValueError, match="float16"):
+        scatter.SortedGather.backward(ctx, ct.half())
+    # on the CPU the plain version runs, summed in f32, in the
+    # cotangent's dtype
+    grad = scatter.SortedGather.backward(
+        ctx, torch.ones((4, F), dtype=BF16))[0]
     assert grad.dtype == BF16 and torch.equal(
         grad, torch.full((2, F), 2.0, dtype=BF16))
 

@@ -1352,3 +1352,164 @@ def test_bf16_training_op_runs_only_bf16_instances(dev):
             continue
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 2e-2 * max(scale, 1e-6), k
+
+
+@pytest.mark.parametrize("n,m,f", [(7832, 12, 64), (37, 8, 16),
+                                   (301, 12, 18)])
+def test_bf16_apply_instance_matches(dev, n, m, f):
+    """Kernel 3 on bf16 z: the f32 instance's bits on the widened z, its
+    plain version within the f32 tolerances, an f32 sum; one launch of
+    the bf16 instance, none of the f32 one; the dispatcher routes a bf16
+    z to it."""
+    fe, z, mask, cst, _, _ = _epilogue_args(dev, n, m, f)
+    zb = z.to(BF16)
+    counts = [fe.epilogue_apply_bf16_cuda.launches,
+              fe.epilogue_apply_cuda.launches]
+    got = fe.epilogue_apply_bf16_cuda(zb, mask, cst)
+    torch.cuda.synchronize()
+    assert [fe.epilogue_apply_bf16_cuda.launches,
+            fe.epilogue_apply_cuda.launches] == [counts[0] + 1, counts[1]]
+    assert got.dtype == torch.float32
+    assert torch.equal(got, fe.epilogue_apply_cuda(zb.float(), mask, cst))
+    torch.testing.assert_close(got, fe.epilogue_apply_reference(zb, mask,
+                                                                cst), **TOL)
+    assert torch.equal(fe.epilogue_apply(zb, mask, cst, "pallas"), got)
+    with pytest.raises(ValueError, match="z must be torch.bfloat16"):
+        fe.epilogue_apply_bf16_cuda(z, mask, cst)
+
+
+@pytest.mark.parametrize("case", ["coo_batch", "hub"])
+@pytest.mark.parametrize("f", [16, 64, 100])
+def test_bf16_segment_sum_instance_matches(dev, case, f):
+    """Kernel 6 on bf16 messages: each sum the f32 instance's on the
+    widened messages, rounded to bf16 (bit-equal: the same f32 adds in
+    the same order), its plain version within one bf16 ulp; the op and
+    the gathers' backward route bf16 to it."""
+    from cgnn_tpu_torch.ops import scatter
+    from cgnn_tpu_torch.ops.segment import gather_fixed_order
+
+    if case == "coo_batch":
+        msgs, centers, n = _coo_batch_messages()
+        msgs = msgs[:, :f] if msgs.shape[1] >= f else np.tile(
+            msgs, (1, -(-f // msgs.shape[1])))[:, :f]
+    else:
+        centers = np.sort(np.concatenate([np.full(700, 5),
+                                          np.arange(0, 90, 3)])).astype(
+                                              np.int32)
+        n = 100
+        msgs = np.random.default_rng(3).normal(size=(len(centers), f))
+    m = torch.from_numpy(np.asarray(msgs, np.float32)).to(dev).to(BF16)
+    c = torch.from_numpy(centers).to(dev)
+    offsets = scatter.segment_offsets(c, n)
+    before = scatter.segment_sum_sorted_bf16_cuda.launches
+    f32_before = scatter.segment_sum_sorted_cuda.launches
+    got = scatter.segment_sum_sorted_bf16_cuda(m, offsets)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16
+    assert torch.equal(got, scatter.segment_sum_sorted_cuda(
+        m.float(), offsets).to(BF16))
+    want = scatter.segment_sum_sorted_reference(m, offsets)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
+    assert torch.equal(scatter.segment_sum_sorted(m, c, n, impl="pallas"),
+                       got)
+    x = torch.zeros((n, f), device=dev, dtype=BF16, requires_grad=True)
+    gather_fixed_order(x, c, None, offsets, "pallas").backward(m)
+    assert torch.equal(x.grad, got)
+    assert scatter.segment_sum_sorted_bf16_cuda.launches == before + 3
+    assert scatter.segment_sum_sorted_cuda.launches == f32_before + 1
+
+
+def test_fixed_order_ops_second_derivative_on_the_card(dev):
+    """The COO gather differentiated twice with impl='pallas' on the
+    card (kernel 6 in the first backward, the gather again in the
+    second, kernel 6 in the third) against the same on the CPU with the
+    plain version: within TOL, and the card's bits repeat."""
+    from cgnn_tpu_torch.data.graph import csr_transpose
+    from cgnn_tpu_torch.ops import scatter
+    from cgnn_tpu_torch.ops.segment import gather_fixed_order
+
+    rng = np.random.default_rng(4)
+    n, e, f = 300, 4000, 32
+    idx = rng.integers(0, n, e).astype(np.int32)
+    order, offsets = csr_transpose(idx, n)
+    x0 = rng.standard_normal((n, f)).astype(np.float32)
+    w = rng.standard_normal((e, f)).astype(np.float32)
+
+    def run(device, impl):
+        t = [torch.from_numpy(a).to(device) for a in (idx, order, offsets)]
+        x = torch.from_numpy(x0).to(device).requires_grad_()
+        y = gather_fixed_order(x, t[0], t[1], t[2], impl)
+        (g,) = torch.autograd.grad((y * torch.from_numpy(w).to(device)
+                                    * y).sum(), x, create_graph=True)
+        (gg,) = torch.autograd.grad((g * g).sum(), x)
+        return g.detach().cpu(), gg.cpu()
+
+    before = scatter.segment_sum_sorted_cuda.launches
+    card = run(dev, "pallas")
+    assert scatter.segment_sum_sorted_cuda.launches - before >= 2
+    again = run(dev, "pallas")
+    plain = run("cpu", "xla")
+    for a, b, c in zip(card, again, plain):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "coo"])
+def test_force_train_graph_replays_equal_eager(dev, dense):
+    """The force task's train step (forces with create_graph inside)
+    captured as a StepGraph and replayed over 3 batches against the same
+    steps run eagerly, under deterministic algorithms: every parameter
+    and optimizer buffer bit-equal, the metric sums equal, the capture
+    left the state as it found it."""
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import load_trajectory
+    from cgnn_tpu_torch.data.graph import batch_iterator, capacities_for
+    from cgnn_tpu_torch.train import state as tstate
+    from cgnn_tpu_torch.train.force_step import make_force_train_step
+    from cgnn_tpu_torch.train.graphs import StepGraph, state_guard
+    from cgnn_tpu_torch.train.metrics import DeviceSums, fetch_device_sums
+
+    dcfg = DataConfig()
+    mcfg = ModelConfig(dense_m=12 if dense else 0)
+    graphs = load_trajectory(48, dcfg.featurize_config(), num_atoms=21)
+    dm = 12 if dense else None
+    nc, ec = capacities_for(graphs, 16, dense_m=dm)
+    batches = [b.to(dev) for b in batch_iterator(graphs, 16, nc, ec,
+                                                 dense_m=dm, snug=True)][:3]
+
+    def new():
+        st, _, _ = tstate.init_train_state(mcfg, dcfg, graphs,
+                                           batch_size=16, device=dev,
+                                           optim="adam", lr=1e-3,
+                                           task="force")
+        return st
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, replayed = new(), new()
+        step, sums, gsums = make_force_train_step(), DeviceSums(), \
+            DeviceSums()
+        for b in batches:
+            sums.add(step(eager, b))
+        before = {k: v.clone() for k, v in
+                  replayed.model.state_dict().items()}
+        g = StepGraph(lambda b: gsums.add(step(replayed, b)), batches[0],
+                      device=dev, kind="train",
+                      guard=state_guard(replayed, sums=[gsums]),
+                      on_replay=lambda: replayed.optimizer.advance(1))
+        assert g.graph is not None
+        for k, v in replayed.model.state_dict().items():
+            assert torch.equal(v, before[k]), k
+        gsums.zero()
+        for b in batches:
+            g.run(b)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert fetch_device_sums(sums.sums) == fetch_device_sums(gsums.sums)
+    for (k, a), b in zip(eager.model.state_dict().items(),
+                         replayed.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    for a, b in zip(eager.optimizer.tensors(), replayed.optimizer.tensors()):
+        assert torch.equal(a, b)

@@ -157,23 +157,30 @@ def test_unported_settings_raise(monkeypatch):
     import cgnn_tpu_torch.config as tconfig
 
     dcfg = DataConfig()
-    # what stays refused: bf16 where a kernel has no bf16 instance on the
-    # card (kernel 3: fused_epilogue='pallas'; kernel 6: COO with
-    # aggregation='pallas'), named by its ROADMAP item, and the force task
-    bf16_no_instance = (dict(dense_m=12, fused_epilogue="pallas"),
-                        dict(dense_m=0, aggregation="pallas"))
-    for bad in bf16_no_instance:
-        cfg = ModelConfig(dtype="bfloat16", **bad)
-        # on the CPU both run their plain versions
+    # bf16 builds on the card with every setting whose kernels have bf16
+    # instances: kernel 3 (fused_epilogue='pallas') and kernel 6 (COO with
+    # aggregation='pallas') among them
+    bf16_kernel_paths = (dict(dense_m=12, fused_epilogue="pallas"),
+                         dict(dense_m=0, aggregation="pallas"))
+    for ok in bf16_kernel_paths:
+        cfg = ModelConfig(dtype="bfloat16", **ok)
         assert build_model(cfg, dcfg, device="cpu") is not None
         with monkeypatch.context() as m:  # the card, stood in for
             m.setattr(tconfig, "resolve_device",
                       lambda device: torch.device("cuda"))
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-                build_model(cfg, dcfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_model(ModelConfig(dense_m=12), dcfg, device="cpu",
-                    task="force")
+            m.setattr(torch.nn.Module, "to", lambda self, *a, **k: self)
+            assert build_model(cfg, dcfg, device="cuda") is not None
+    # what stays refused: the force task where the JAX package fails or
+    # refuses (COO with aggregation='pallas'; the BN-fusing ops), named
+    assert build_model(ModelConfig(dense_m=12), dcfg, device="cpu",
+                       task="force") is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
+        build_model(ModelConfig(dense_m=0, aggregation="pallas"), dcfg,
+                    device="cpu", task="force")
+    for bad in (dict(fused_epilogue="pallas"), dict(cgconv_impl="xla")):
+        with pytest.raises(NotImplementedError, match="BatchNorm"):
+            build_model(ModelConfig(dense_m=12, **bad), dcfg, device="cpu",
+                        task="force")
     # classification, the multi-task head and bf16 build
     for ok in (dict(classification=True), dict(multi_task_head=True),
                dict(dtype="bfloat16")):
