@@ -21,6 +21,8 @@ from typing import Sequence
 
 import numpy as np
 
+from cgnn_tpu_torch import native
+from cgnn_tpu_torch.data import invariants
 from cgnn_tpu_torch.data.dataset import read_id_prop
 from cgnn_tpu_torch.data.featurize import featurize_cif_job
 from cgnn_tpu_torch.data.graph import CrystalGraph
@@ -78,7 +80,9 @@ def save_graph_cache(graphs: Sequence[CrystalGraph], path: str) -> None:
 
 def load_graph_cache(path: str) -> list[CrystalGraph]:
     """Load a cache back into CrystalGraphs (views into the mmap'd
-    arrays), with the per-atom force labels where the cache holds them."""
+    arrays), with the per-atom force labels where the cache holds them;
+    spot-checked (``invariants.spot_check_graphs``) when the invariant
+    checks are on."""
     z = np.load(path, mmap_mode="r", allow_pickle=False)
     if int(z["version"]) != _VERSION:
         raise ValueError(
@@ -116,7 +120,10 @@ def load_graph_cache(path: str) -> list[CrystalGraph]:
             offsets=z["offsets"][ne] if has_geom else None,
             forces=None if forces is None else forces[ns],
         ))
-    return graphs
+    # sample-validated under --check-invariants: a truncated or
+    # bit-rotted cache would otherwise surface as silent training
+    # corruption
+    return invariants.maybe_spot_check_graphs(graphs)
 
 
 def featurize_directory_parallel(
@@ -149,6 +156,9 @@ def featurize_directory_parallel(
     if workers <= 1:
         consume(map(featurize_cif_job, jobs))
     else:
+        # build the native neighbor search here, once, so the workers
+        # load it instead of each compiling it
+        native.resolve("auto")
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
             consume(pool.map(featurize_cif_job, jobs,

@@ -242,6 +242,15 @@ class CompactBatch:
     over_nodes: torch.Tensor | None = None  # [O] i32
     over_mask: torch.Tensor | None = None  # [O] u8
 
+    # the GraphBatch interface PaddingStats reads
+    @property
+    def node_capacity(self) -> int:
+        return self.atom_idx.shape[0]
+
+    @property
+    def edge_capacity(self) -> int:
+        return self.distances.shape[0] * self.distances.shape[1]
+
     def tensors(self) -> list[torch.Tensor]:
         return [v for f in dataclasses.fields(self)
                 if (v := getattr(self, f.name)) is not None]

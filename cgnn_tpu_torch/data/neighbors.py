@@ -1,13 +1,27 @@
-"""Periodic neighbor lists: the numpy backend of ``cgnn_tpu/data/neighbors.py``.
+"""Periodic neighbor lists (``cgnn_tpu/data/neighbors.py``).
 
 Edges are returned in flat COO form: for each pair within ``radius``,
 ``centers[k]`` is the receiving atom i, ``neighbors[k]`` the source atom j,
 ``offsets[k]`` the integer image of j, and ``distances[k]`` = |r_j + offset@L
 - r_i|. Self-pairs are excluded only in the home image.
 
-The JAX package's default backend is a ctypes C++ cell-list search
-(``cgnn_tpu/native/neighbors.cpp``); this module carries only the vectorized
-numpy search, whose output it reproduces bit for bit.
+Two backends behind ``neighbor_list(backend=)``, which give the same
+arrays bit for bit, order included (pairs by center, then neighbor, then
+image in ``np.mgrid`` order: the canonical order whose stable lexsort
+breaks the k-nearest cut's distance ties, ``knn_neighbor_list``):
+
+- ``'numpy'``: vectorized over every periodic image of every atom,
+  chunked over centers;
+- ``'native'``: the C++ cell list (``cgnn_tpu_torch/native``) finds the
+  candidate pairs within the radius plus a margin, in that order; their
+  distances are then computed by the numpy backend's own arithmetic (its
+  image-shift table, ``img_pos - cart[i]``, its einsum and square root)
+  and cut at ``dist <= radius``, so no pair at the cut's edge can land on
+  the other side. The JAX package's cell list keeps its own order and
+  f32 distances; this one does not.
+
+``'auto'`` (the default) is native where g++ is on PATH (native/__init__.py).
+``neighbor_list_brute`` is the explicit-loop oracle of the tests.
 """
 
 from __future__ import annotations
@@ -18,7 +32,12 @@ import warnings
 
 import numpy as np
 
+from cgnn_tpu_torch import native
 from cgnn_tpu_torch.data.structure import Structure
+
+# the native candidates' radius margin (A): far above the few-ulp gap
+# between the cell list's distance formula and the numpy search's
+_MARGIN = 1e-6
 
 
 @dataclasses.dataclass
@@ -40,21 +59,88 @@ def _image_counts(lattice: np.ndarray, radius: float) -> tuple[int, int, int]:
                  for k in range(3))
 
 
+def neighbor_list_brute(structure: Structure, radius: float) -> NeighborList:
+    """Explicit-loop reference (tests only; O(N^2 * images))."""
+    s = structure.wrapped()
+    cart = s.cart_coords
+    n = s.num_atoms
+    na, nb, nc = _image_counts(s.lattice, radius)
+    centers, neighbors, dists, offs = [], [], [], []
+    for i in range(n):
+        for j in range(n):
+            for ia in range(-na, na + 1):
+                for ib in range(-nb, nb + 1):
+                    for ic in range(-nc, nc + 1):
+                        if i == j and ia == 0 and ib == 0 and ic == 0:
+                            continue
+                        shift = (np.array([ia, ib, ic], dtype=np.float64)
+                                 @ s.lattice)
+                        d = float(np.linalg.norm(cart[j] + shift - cart[i]))
+                        if d <= radius:
+                            centers.append(i)
+                            neighbors.append(j)
+                            dists.append(d)
+                            offs.append((ia, ib, ic))
+    return NeighborList(
+        np.asarray(centers, dtype=np.int32),
+        np.asarray(neighbors, dtype=np.int32),
+        np.asarray(dists, dtype=np.float32),
+        np.asarray(offs, dtype=np.int32).reshape(-1, 3),
+    )
+
+
+def _images(s: Structure, radius: float):
+    """(image counts, the image grid [K, 3] in np.mgrid order, its shifts
+    [K, 3] f64): the numpy search's table, shared by both backends."""
+    na, nb, nc = _image_counts(s.lattice, radius)
+    grid = np.mgrid[-na : na + 1, -nb : nb + 1, -nc : nc + 1].reshape(3, -1).T
+    return (na, nb, nc), grid, grid.astype(np.float64) @ s.lattice
+
+
 def neighbor_list(
     structure: Structure,
     radius: float,
     chunk_elems: int = 8_000_000,
+    backend: str = "auto",
 ) -> NeighborList:
-    """Periodic radius search, vectorized over all periodic images with
-    chunking over center atoms to bound memory."""
+    """Periodic radius search on ``backend`` ('auto', 'native' or 'numpy';
+    module docstring): the same arrays from either."""
     if radius <= 0:
         raise ValueError(f"radius must be positive, got {radius}")
+    ran = native.resolve(backend)
     s = structure.wrapped()
     cart = s.cart_coords  # [N, 3]
+    counts, grid, shifts = _images(s, radius)
+    nl = (_native_search(s, cart, radius, counts, shifts) if ran == "native"
+          else _numpy_search(s, cart, radius, grid, shifts, chunk_elems))
+    native.note(ran)
+    return nl
+
+
+def _native_search(s: Structure, cart: np.ndarray, radius: float, counts,
+                   shifts: np.ndarray) -> NeighborList:
+    """The cell list's candidates, their distances by the numpy search's
+    arithmetic, cut at ``radius``."""
+    na, nb, nc = counts
+    ci, j, off = native.candidates(s.lattice, s.frac_coords, cart,
+                                   radius + _MARGIN, counts)
+    img = ((off[:, 0] + na) * (2 * nb + 1) + (off[:, 1] + nb)) \
+        * (2 * nc + 1) + (off[:, 2] + nc)
+    # as the numpy search: (cart[j] + shift) - cart[i], einsum, sqrt
+    img_pos = cart[j] + shifts[img]
+    delta = (img_pos - cart[ci])[None]  # [1, E, 3]
+    dist = np.sqrt(np.einsum("cpk,cpk->cp", delta, delta))[0]
+    keep = dist <= radius
+    return NeighborList(ci[keep], j[keep], dist[keep].astype(np.float32),
+                        off[keep])
+
+
+def _numpy_search(s: Structure, cart: np.ndarray, radius: float,
+                  grid: np.ndarray, shifts: np.ndarray,
+                  chunk_elems: int) -> NeighborList:
+    """Vectorized over all periodic images, chunked over center atoms to
+    bound memory."""
     n = s.num_atoms
-    na, nb, nc = _image_counts(s.lattice, radius)
-    grid = np.mgrid[-na : na + 1, -nb : nb + 1, -nc : nc + 1].reshape(3, -1).T
-    shifts = grid.astype(np.float64) @ s.lattice  # [K, 3]
     k = len(grid)
 
     # positions of every image of every atom: [N*K, 3]
@@ -91,6 +177,7 @@ def knn_neighbor_list(
     radius: float,
     max_num_nbr: int,
     warn_under_coordinated: bool = True,
+    backend: str = "auto",
 ) -> NeighborList:
     """Radius search truncated to the ``max_num_nbr`` nearest per center.
 
@@ -98,7 +185,7 @@ def knn_neighbor_list(
     own order, as the lexsort is stable) and warns when an atom has fewer
     than M within the radius; no padding edges are created here.
     """
-    nl = neighbor_list(structure, radius)
+    nl = neighbor_list(structure, radius, backend=backend)
     n = structure.num_atoms
     order = np.lexsort((nl.distances, nl.centers))
     centers = nl.centers[order]

@@ -4,7 +4,9 @@
 
 ``python -m cgnn_tpu.data.preprocess``'s flags and cache format (version 1,
 data/cache.py): either stack reads the other's caches. The train and
-predict entry points read the cache through ``--cache``.
+predict entry points read the cache through ``--cache``. The neighbor
+search is the native cell list where g++ is on PATH, else numpy (the
+same arrays either way; data/neighbors.py): the last line names it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ def main(argv=None) -> int:
                    help="store positions, lattices and image offsets")
     args = p.parse_args(argv)
 
+    from cgnn_tpu_torch import native
     from cgnn_tpu_torch.data.cache import (
         featurize_directory_parallel,
         save_graph_cache,
@@ -39,6 +42,7 @@ def main(argv=None) -> int:
     cfg = FeaturizeConfig(radius=args.radius, max_num_nbr=args.max_num_nbr,
                           dmin=args.dmin, step=args.step)
     t0 = time.perf_counter()
+    backend = native.resolve("auto")
     graphs, failures = featurize_directory_parallel(
         args.root_dir, cfg, workers=args.workers or None,
         keep_geometry=args.keep_geometry)
@@ -52,7 +56,8 @@ def main(argv=None) -> int:
         return 1
     save_graph_cache(graphs, args.out)
     print(f"featurized {len(graphs)} structures in {dt:.1f}s "
-          f"({len(graphs) / max(dt, 1e-9):.0f} structs/s) -> {args.out}")
+          f"({len(graphs) / max(dt, 1e-9):.0f} structs/s) -> {args.out} "
+          f"(neighbor search: {backend})")
     return 0
 
 

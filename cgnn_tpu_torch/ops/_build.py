@@ -9,6 +9,12 @@ an unchanged one loads as it is. ``build`` starts
 one nvcc per source, all together, and waits for them. Nothing here runs
 when the module is imported, and nothing falls back: a missing nvcc or a
 failed build raises.
+
+``build_host`` does the same for a host C++ source (the native neighbor
+search, ``cgnn_tpu_torch/native``): g++ into
+``<checkout>/build/native/<name>-<hash>.so``. Both write to a file named
+after the process and rename it into place, so processes that build the
+same library at once (featurization workers) never load half of one.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "native"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -89,6 +97,35 @@ def build(names) -> dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return targets
+
+
+def build_host(source: Path) -> Path:
+    """Compile the host C++ ``source`` with g++ unless it is built already
+    -> the path of its shared library. Raises where g++ is not on PATH,
+    and with the compiler's output where it fails."""
+    source = Path(source)
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(HOST_FLAGS).encode()).hexdigest()
+    target = HOST_BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    if target.exists():
+        return target
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {source.name} builds "
+                           "only where a C++ compiler is installed")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([gxx, *HOST_FLAGS, str(source), "-o", str(tmp)],
+                          capture_output=True, text=True, timeout=300)
+    build_info[source.stem] = {"seconds": time.perf_counter() - t0,
+                               "log": proc.stdout + proc.stderr}
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed to build {source} (exit "
+                           f"{proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, target)  # atomic: a reader never sees half
+    return target
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -23,9 +23,10 @@ directory builds the graphs on the device. A cache holds no atomic
 numbers, so its graphs take the featurized wire.
 
 Paths, as in ``predict.py``: ``--buckets N`` packs N size classes at
-their own snug capacities; by default batches pack into a shape ladder of
-``--rungs`` rungs. On the ladder, ``--wire raw`` stages the structures
-that fit the raw caps as positions, lattice and species, and the device
+their own capacities (snug, or ``--packing ladder``'s); by default
+batches pack into a shape ladder of ``--rungs`` rungs. On the ladder,
+``--wire raw`` stages the structures that fit the raw caps as
+positions, lattice and species, and the device
 builds their graphs (kernel 8 on the card); the rest, and any structure
 the device flags for cap overflow, take the featurized wire. ``--wire
 auto`` is raw on the card and featurized on the CPU. The default device
@@ -42,15 +43,20 @@ then packs full, ``on`` exits 2. ``--pack-workers K`` packs on K threads
 A force-field checkpoint (meta ``task: force``) predicts as
 ``predict.py`` does for it: ``--synthetic N`` LJ trajectory frames, a
 trajectory ``.npz`` or directory as ``DATA_DIR`` (else CIFs, geometry
-kept), or a cache with geometry; snug batches carrying the gathers'
-transpose, each step a replayed CUDA graph on the card (one graph a
+kept), or a cache with geometry; batches (snug or ladder) carrying the
+gathers' transpose, each step a replayed CUDA graph on the card (one graph a
 batch shape, captured at its first batch); CSV rows ``id, target,
 energy``, and ``<out>.forces.npz`` with ``ids`` and ``forces_<i>``, the
 i-th structure's [n_atoms, 3] forces in original units.
 
+``--packing``, as in ``predict.py``: ``snug`` (the default) or
+``ladder`` (batches of at most ``-b`` graphs at the headroom/ladder
+capacities) on the buckets path and the force path; the shape ladder
+packs its own rungs either way.
+
 Not ported yet; each exits 2 naming its ROADMAP item (Queue 1):
-``--packing ladder`` (item 10), ``--devices`` other than auto or 1 and
-``--engine mesh`` (items 9 and 11).
+``--devices`` other than auto or 1 and ``--engine mesh`` (items 9 and
+11).
 """
 
 from __future__ import annotations
@@ -83,7 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="featurized graph cache (.npz, python -m "
                         "cgnn_tpu_torch.data.preprocess)")
     p.add_argument("--packing", choices=["snug", "ladder"], default="snug",
-                   help="snug = fill-to-capacity batches")
+                   help="snug = fill-to-capacity batches (train.py's "
+                        "default); ladder = at most -b graphs a batch at "
+                        "ladder capacities (buckets and force paths)")
     p.add_argument("--buckets", type=int, default=0,
                    help="per-size-class capacities (3 for mixed sizes); "
                         "the default packs into the shape ladder (--rungs)")
@@ -110,9 +118,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str | None:
     """Why these arguments ask for something not ported yet, or None."""
-    if args.packing == "ladder":
-        return ("--packing ladder is not ported yet (ROADMAP Queue 1, item "
-                "10)")
     if args.devices not in ("auto", "1") or args.engine == "mesh":
         return ("--devices other than auto/1 and --engine mesh are not "
                 "ported yet (ROADMAP Queue 1, items 9 and 11)")
@@ -221,17 +226,20 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
     pack_workers = (args.pack_workers if args.pack_workers is not None
                     else 4 if dev.type == "cuda" else 0)
     pipe: dict = {}
-    # batches by wire on the ladder (None on the buckets path)
-    counts = {"structures": len(graphs), "raw": 0, "batches_raw": None,
-              "batches_featurized": None, "compact": compact is not None,
+    # batches by wire (the buckets path's are all featurized)
+    counts = {"structures": len(graphs), "raw": 0, "batches_raw": 0,
+              "batches_featurized": 0, "compact": compact is not None,
               "pack_workers": pack_workers}
     if args.buckets >= 1:
-        # per-size-class snug capacities derived from this dataset
+        # per-size-class capacities derived from this dataset
         preds, rate = run_fast_inference(state, graphs, args.batch_size,
                                          buckets=args.buckets,
-                                         dense_m=layout_m, compact=compact,
+                                         dense_m=layout_m,
+                                         snug=args.packing == "snug",
+                                         compact=compact,
                                          pack_workers=pack_workers,
                                          stats=pipe)
+        counts["batches_featurized"] = pipe["batches"]
         how = f"{args.buckets} size buckets"
     else:
         from cgnn_tpu_torch.serve.shapes import plan_shape_set
@@ -349,8 +357,9 @@ def _run_force(args, state, model_cfg, data_cfg, dev) -> int:
               "offsets): this cache has none; refeaturize", file=sys.stderr)
         return 2
     layout_m = model_cfg.dense_m or None
+    snug = args.packing == "snug"
     node_cap, edge_cap = batch_caps(graphs, args.batch_size, layout_m,
-                                    None, None)
+                                    None, None, snug=snug)
     step = make_force_predict_step()
     cache = GraphCache(lambda key, b: StepGraph(
         lambda x: step(state, x), b, device=dev, kind="predict",
@@ -361,7 +370,7 @@ def _run_force(args, state, model_cfg, data_cfg, dev) -> int:
     # the gathers' transpose rides in each batch (in_cap None): the forces
     # are a backward pass, summed in a fixed order
     for batch in batch_iterator(graphs, args.batch_size, node_cap, edge_cap,
-                                dense_m=layout_m, snug=True,
+                                dense_m=layout_m, snug=snug,
                                 pack_fn=edge_pack_fn(model_cfg.torch_dtype)):
         energies, forces = cache.run(batch_shape_key(batch), batch.to(dev))
         energies, forces = energies.cpu().numpy(), forces.cpu().numpy()

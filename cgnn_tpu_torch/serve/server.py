@@ -281,7 +281,10 @@ class InferenceServer:
             shape, pin=self.device.type == "cuda")
 
     def _make_graph(self, key, batch) -> StepGraph:
-        return StepGraph(lambda b: self.predict_step(self.state, b),
+        # over the step and the state, not the server: a graph that held
+        # the server would keep it, and every graph's pool, in a cycle
+        step, state = self.predict_step, self.state
+        return StepGraph(lambda b: step(state, b),
                          batch, device=self.device,
                          kind="predict_raw" if key[0] == "raw"
                          else "predict", label=f"serve: predict graph {key}")

@@ -87,6 +87,17 @@ lacks), and so does ``--compact-staging on``; the port also refuses
 (``config.FORCE_PALLAS_REFUSAL``). ``--synthetic-oc20 N`` trains on N
 OC20-like catalyst slabs (37-255 atoms).
 
+Packing and capacities, with train.py's flags: ``--packing snug`` (the
+default: fill-to-capacity batches) or ``ladder`` (batches closed at
+``--batch-size`` graphs, headroom/ladder capacities); the training
+batches' padding efficiency is logged at the first epoch.
+``--node-cap``/``--edge-cap`` (0: auto) replace the computed
+capacities; on the dense layout the edge capacity is ``node_cap`` x M,
+so ``--edge-cap`` is ignored there with a warning. ``--check-invariants``
+validates every batch the iterators pack and the epoch driver stages,
+and the cache on load (data/invariants.py); a broken invariant raises
+``BatchInvariantError`` naming it, and the run exits non-zero.
+
 The flags are train.py's that this entry point serves, with train.py's
 defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
 CPU (where the kernels' plain versions run); without a card the default
@@ -161,8 +172,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dmin", type=float, default=0.0)
     p.add_argument("--step", type=float, default=0.2)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--packing", choices=["snug"], default="snug",
-                   help="fill-to-capacity batches (the only packing ported)")
+    p.add_argument("--check-invariants", action="store_true",
+                   help="validate every packed batch's GraphBatch "
+                        "invariants (sorted centers, mask/slot consistency, "
+                        "dense ownership, transpose completeness) host-side "
+                        "before it reaches the step; ~free vs device time, "
+                        "on by default in the test suite")
+    p.add_argument("--node-cap", type=int, default=0, help="0 = auto")
+    p.add_argument("--edge-cap", type=int, default=0, help="0 = auto")
+    p.add_argument("--packing", choices=["snug", "ladder"], default="snug",
+                   help="'snug': fill-to-capacity packing with exact "
+                        "batch-count-balanced capacities (~0.99 padding "
+                        "efficiency); 'ladder': close batches at "
+                        "--batch-size graphs with geometric-ladder "
+                        "capacities (round-2 behavior)")
     p.add_argument("--cgconv-impl", choices=["off", "xla", "pallas"],
                    default="off",
                    help="whole-conv fused op; 'pallas' runs the CUDA "
@@ -299,9 +322,15 @@ def main(argv=None) -> int:
         from cgnn_tpu_torch.resilience.preempt import PreemptionHandler
 
         preempt = PreemptionHandler.installed(log_fn=print)
+    from cgnn_tpu_torch.data import invariants
+
+    checks_were = invariants.enabled()
+    if args.check_invariants:
+        invariants.enable()
     try:
         return _train(args, dense_m, compact_ok, preempt)
     finally:
+        invariants.enable(checks_were)
         if preempt is not None:
             preempt.uninstall()
 
@@ -372,7 +401,15 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         model_cfg, data_cfg, train_g, batch_size=args.batch_size, device=dev,
         seed=args.seed, optim=args.optim, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
-        lr_milestones_epochs=args.lr_milestones, task=args.task)
+        lr_milestones_epochs=args.lr_milestones, task=args.task,
+        packing=args.packing, node_cap=args.node_cap or None,
+        edge_cap=args.edge_cap or None)
+    if dense_m and args.edge_cap:
+        print(f"warning: --edge-cap {args.edge_cap} ignored by the dense "
+              f"layout (edge capacity is node_cap * max_num_nbr = "
+              f"{node_cap * dense_m}); use --layout coo to honor it",
+              file=sys.stderr)
+    snug = args.packing == "snug"
     ckpt = CheckpointManager(args.ckpt_dir, keep=args.keep_ckpts)
     try:
         resumed = _resume(args, ckpt, state)
@@ -417,7 +454,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
                 scan_epochs=args.scan_epochs, chunk_steps=args.chunk_steps,
                 compact=compact, graphs=not args.debug_nans,
                 guard=args.guard != "off", monitor=monitor, preempt=preempt,
-                force_weights=(args.energy_weight, args.force_weight))
+                force_weights=(args.energy_weight, args.force_weight),
+                packing=args.packing)
         ckpt.wait()
     finally:
         ckpt.close()
@@ -427,7 +465,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         return resumable_exit(print)
     test_m = evaluate(state, test_g, args.batch_size, node_cap, dense_m,
                       dev, edge_cap=edge_cap,
-                      force_weights=(args.energy_weight, args.force_weight))
+                      force_weights=(args.energy_weight, args.force_weight),
+                      snug=snug)
     print(f"** test {sel_key}: {test_m.get(sel_key, float('nan')):.4f} "
           f"(best val: {result['best']:.4f})")
     if force:
@@ -437,7 +476,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
             print(f"** test mae task {t}: {test_m[f'mae_task{t}']:.4f}")
     if classification:
         cls, n_batches = class_eval_on(state, test_g, args.batch_size,
-                                         node_cap, edge_cap, dense_m, dev)
+                                         node_cap, edge_cap, dense_m, dev,
+                                         snug=snug)
         test_m = dict(test_m, **cls, class_eval_batches=n_batches)
         print("** test " + "  ".join(
             f"{k} {v:.4f}" for k, v in cls.items() if v == v))
@@ -467,6 +507,8 @@ def run_summary(result: dict, n_train: int, test: dict | None = None
            "train_structures_per_s": [n_train / h["seconds"] for h in hist],
            "train_steps": [h["train"]["steps"] for h in hist],
            "graphs": result["graphs"]}
+    if "padding" in result:
+        out["padding"] = result["padding"]
     if "staging" in result:
         out["staging"] = result["staging"]
     if test is not None:
@@ -492,7 +534,8 @@ def bad_label(graphs, num_classes: int) -> str | None:
 
 
 def class_eval_on(state, graphs, batch_size: int, node_cap: int,
-                    edge_cap: int, dense_m, dev) -> tuple[dict, int]:
+                    edge_cap: int, dense_m, dev,
+                    snug: bool = True) -> tuple[dict, int]:
     """train.py's test ``class_eval``: the predict step's log-probs for
     each test structure, in order, on eager steps -> (class_eval's
     metrics, predict batches run)."""
@@ -505,13 +548,13 @@ def class_eval_on(state, graphs, batch_size: int, node_cap: int,
 
     dense_m = dense_m or None
     node_cap, edge_cap = batch_caps(graphs, batch_size, dense_m, node_cap,
-                                    edge_cap)
+                                    edge_cap, snug=snug)
     step = make_predict_step()
     inference = InferenceState(state.model, state.normalizer)
     state.model.eval()
     scores, n_batches = [], 0
     for b in batch_iterator(graphs, batch_size, node_cap, edge_cap,
-                            dense_m=dense_m, in_cap=0, snug=True,
+                            dense_m=dense_m, in_cap=0, snug=snug,
                             pack_fn=edge_pack_fn(state.model.dtype)):
         n_real = int(b.graph_mask.sum())
         scores.append(step(inference, b.to(dev))[:n_real].cpu().numpy())

@@ -6,7 +6,9 @@ A ``StepGraph`` is one step body captured for one batch shape
 - static input tensors, copies of an example batch's on the device;
 - warm-up runs of the body on a side stream before capture (PyTorch's
   whole-network capture recipe: lazy initialization, the kernels' first
-  build and launch, the autograd engine's set-up happen there);
+  build and launch, the autograd engine's set-up happen there); one side
+  stream a thread and device (``capture_stream``), since cuBLAS keeps a
+  workspace for every stream it has run on;
 - capture on that stream (``CUDAGraph.capture_begin``/``capture_end``:
   ``torch.cuda.graph`` would also synchronize and empty the allocator's
   cache each time), in thread-local mode (a loader thread's copies on
@@ -21,7 +23,10 @@ captures from its batch, so a shape met no more than ``eager_runs``
 times costs what eager steps cost (bulk predict).
 
 On the CPU ``run`` calls the body eagerly on the batch it is given: the
-tests run that path. On CUDA a capture that fails raises
+tests run that path. A graph's pool and static tensors go back to the
+allocator when its ``StepGraph`` is dropped: nothing here holds its
+owner (``GraphCache`` keeps a bound method weakly), so reference counts
+free them without a ``gc.collect()``. On CUDA a capture that fails raises
 ``GraphCaptureError``; there is no eager fallback.
 
 A train body updates parameters, running statistics and the optimizer
@@ -58,6 +63,9 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import inspect
+import threading
+import weakref
 from typing import Callable, Sequence
 
 import torch
@@ -82,6 +90,23 @@ reset_counts()
 
 class GraphCaptureError(RuntimeError):
     """A step could not be captured as a CUDA graph."""
+
+
+_capture_streams = threading.local()
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """This thread's side stream on ``device`` for warm-up runs and
+    captures, made once. cuBLAS keeps a workspace (32 MiB and 1 MiB on an
+    H100) for every stream it runs on, for the life of the process, so a
+    new stream a graph would leave ~33 MiB behind each capture."""
+    streams = getattr(_capture_streams, "by_device", None)
+    if streams is None:
+        streams = _capture_streams.by_device = {}
+    stream = streams.get(device)
+    if stream is None:
+        stream = streams[device] = torch.cuda.Stream(device)
+    return stream
 
 
 def batch_tensors(batch) -> dict:
@@ -214,7 +239,7 @@ class StepGraph:
         self.static = None if example is None else _static_copy(example,
                                                                 dev)
         restore = self._guard() if self._guard is not None else None
-        self._side = torch.cuda.Stream(dev)
+        self._side = capture_stream(dev)
         self._side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self._side):
             for _ in range(WARMUP_RUNS[kind]):
@@ -289,11 +314,18 @@ class GraphCache:
     """One ``StepGraph`` per key, made on first use by ``make(key,
     *args)``; ``run`` steps a key's graph. ``captures_after_warm``
     counts the captures after ``mark_warm``, and ``log_fn`` says so
-    loudly when one happens."""
+    loudly when one happens.
+
+    A bound method as ``make`` is held by a weak reference: its owner
+    keeps the cache, and a strong reference back would make a cycle
+    that holds every graph, its memory pool and the owner's staged
+    tensors until a ``gc.collect()`` (the graphs' closures must not
+    reference the owner either)."""
 
     def __init__(self, make: Callable, log_fn: Callable | None = None,
                  label: str = "step"):
-        self._make = make
+        self._make = (weakref.WeakMethod(make) if inspect.ismethod(make)
+                      else lambda: make)
         self._log = log_fn
         self.label = label
         self.graphs: dict = {}
@@ -303,7 +335,7 @@ class GraphCache:
     def get(self, key, *args) -> StepGraph:
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = self._make(key, *args)
+            g = self.graphs[key] = self._make()(key, *args)
             if g.graph is not None:
                 self._captured(key)
         return g

@@ -32,11 +32,15 @@ its copy) has completed (``_Fence``): before that, the next pack would
 overwrite bytes the copy still reads. ``pack_workers > 0`` packs on that many threads
 (data/pipeline.py), in order.
 
+The buckets path packs snug (fill-to-capacity) batches, or with
+``snug=False`` the ladder's (``capacities_for(snug=False)``: at most
+``batch_size`` graphs a batch). Under ``--check-invariants``
+(``data.invariants.enable``) every packer checks the batch it packs, on
+its own thread, before the batch is staged.
+
 Not ported yet, and refused with a ``ValueError`` naming the ROADMAP
 item (Queue 1) when asked for: multi-device dispatch (``devices``,
-``engine``: items 9 and 11). Packing is snug (fill-to-capacity) only: the
-headroom/ladder capacities and the batch invariant checks (off by
-default in the JAX package) wait for item 10.
+``engine``: items 9 and 11).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from cgnn_tpu_torch.data import invariants
 from cgnn_tpu_torch.data.compact import (
     alloc_compact_buffers,
     compact_buffer_key,
@@ -207,6 +212,7 @@ def run_fast_inference(
     *,
     buckets: int = 1,
     dense_m: int | None = None,
+    snug: bool = True,
     shape_set=None,
     compact=None,
     pack_workers: int = 0,
@@ -221,14 +227,16 @@ def run_fast_inference(
     With ``shape_set`` the batches pack into its fixed rungs and
     ``buckets``/``dense_m`` are ignored (the set carries the layout).
     Without, graphs are split into ``buckets`` node-count classes, each
-    packed at its own snug capacities (fill-to-capacity) in input order.
+    packed at its own capacities in input order: snug (fill-to-capacity),
+    or the ladder's with ``snug=False``.
 
     ``compact`` (a ``data.compact.CompactSpec``; a compact ``shape_set``
     implies it) stages the compact form into pooled buffers (module
     docstring). ``pack_workers > 0`` packs on that many threads; 0 packs
     on this thread, with the same outputs. ``stats``, when given, is
-    filled with the packers' counters (``wait_s``, ``pack_s``, ``jobs``)
-    and the pool's (``buffers_allocated``, ``buffers_reused``).
+    filled with the batches run, the packers' counters (``wait_s``,
+    ``pack_s``, ``jobs``) and the pool's (``buffers_allocated``,
+    ``buffers_reused``).
     """
     _refuse_unported(devices, engine)
     if not len(graphs):
@@ -262,7 +270,8 @@ def run_fast_inference(
                               shape_set.buffer_factory(shape, pin))
             batch = shape_set.pack(sub, shape=shape,
                                    out=None if buf is None else buf[1])
-            return span, batch, buf
+            return span, invariants.maybe_check(batch, shape_set.dense_m), \
+                buf
 
         jobs = _shape_set_plan(graphs, shape_set)
     else:
@@ -270,26 +279,30 @@ def run_fast_inference(
 
         def pack_job(job):
             span, sub, nc, ec, graph_cap = job
+            buf = None
             if compact is None:
-                return span, pack_graphs(sub, nc, ec, graph_cap,
-                                         dense_m=dense_m,
-                                         edge_dtype=edge_dtype), None
-            buf = acquire(compact_buffer_key(nc, dense_m, graph_cap, tdim),
-                          lambda: alloc_compact_buffers(nc, dense_m,
-                                                        graph_cap, tdim,
-                                                        pin=pin))
-            return span, pack_compact(sub, nc, ec, graph_cap, compact,
-                                      num_targets=tdim, dense_m=dense_m,
-                                      out=buf[1]), buf
+                batch = pack_graphs(sub, nc, ec, graph_cap, dense_m=dense_m,
+                                    edge_dtype=edge_dtype)
+            else:
+                buf = acquire(compact_buffer_key(nc, dense_m, graph_cap,
+                                                 tdim),
+                              lambda: alloc_compact_buffers(
+                                  nc, dense_m, graph_cap, tdim, pin=pin))
+                batch = pack_compact(sub, nc, ec, graph_cap, compact,
+                                     num_targets=tdim, dense_m=dense_m,
+                                     out=buf[1])
+            return span, invariants.maybe_check(batch, dense_m), buf
 
-        jobs = _bucket_jobs(graphs, batch_size, buckets, dense_m)
+        jobs = _bucket_jobs(graphs, batch_size, buckets, dense_m, snug)
     pipe = PipelineStats()
     packed = (parallel_pack(jobs, pack_job, workers=pack_workers,
                             stats=pipe)
               if pack_workers > 0 else map(pack_job, jobs))
     window = _Window(n)
     cache = _predict_graphs(state, step, dev)
+    batches = 0
     for span, batch, buf in packed:
+        batches += 1
         out = _run(cache, batch)
         if buf is not None:
             fence.add(buf)
@@ -301,7 +314,8 @@ def run_fast_inference(
         fence.release_done(wait=True)
     rate = n / (time.perf_counter() - t0)
     if stats is not None:
-        stats.update(wait_s=pipe.wait_s, pack_s=pipe.pack_s, jobs=pipe.jobs,
+        stats.update(batches=batches, wait_s=pipe.wait_s,
+                     pack_s=pipe.pack_s, jobs=pipe.jobs,
                      buffers_allocated=0 if pool is None else pool.allocated,
                      buffers_reused=0 if pool is None else pool.reused,
                      graph_captures=cache.captures(),
@@ -309,18 +323,18 @@ def run_fast_inference(
     return window.preds, rate
 
 
-def _bucket_jobs(graphs, batch_size, buckets, dense_m):
+def _bucket_jobs(graphs, batch_size, buckets, dense_m, snug=True):
     """(index span, graphs, node_cap, edge_cap, graph_cap) per batch of
     each size class in turn, in input order within a class."""
     bucket_of = assign_size_buckets(graphs, buckets)
-    graph_cap = graph_cap_for(batch_size)
+    graph_cap = graph_cap_for(batch_size) if snug else batch_size
     for b in range(int(bucket_of.max()) + 1):
         idxs = np.nonzero(bucket_of == b)[0]
         if len(idxs) == 0:
             continue
         sub = [graphs[int(i)] for i in idxs]
-        nc, ec = capacities_for(sub, batch_size, dense_m=dense_m)
-        for s, e in plan_batches(sub, batch_size, nc, ec, snug=True):
+        nc, ec = capacities_for(sub, batch_size, dense_m=dense_m, snug=snug)
+        for s, e in plan_batches(sub, batch_size, nc, ec, snug=snug):
             yield idxs[s:e], sub[s:e], nc, ec, graph_cap
 
 

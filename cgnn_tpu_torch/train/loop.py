@@ -60,9 +60,19 @@ says ``{"preempted": True}``. The fault plan's batch faults
 (``faultinject.poison_batches``) reach the training batches before any
 staging takes them.
 
+Packing (``packing``): ``'snug'`` fill-to-capacity batches, or
+``'ladder'``, the JAX package's headroom/ladder capacities
+(``capacities_for(snug=False)``) with batches closed at ``batch_size``
+graphs. ``fit`` counts the training batches' padding (``PaddingStats``)
+and logs its summary at the first epoch, as the JAX loop does. Under
+``--check-invariants`` (``data.invariants.enable``) the iterators check
+each batch they pack, and the epoch driver checks every train
+(``train=True``) and validation batch again before it stages them, on
+the host copies.
+
 Not ported: the in-scan telemetry tap and the background pair fetch,
-the invariant checks on staged stacks, data-parallel drivers and their
-guard, and ``--profile`` (ROADMAP Queue 1).
+data-parallel drivers and their guard, and ``--profile`` (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -76,9 +86,11 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from cgnn_tpu_torch.data import invariants
 from cgnn_tpu_torch.data.graph import (
     CrystalGraph,
     GraphBatch,
+    PaddingStats,
     batch_iterator,
     batch_shape_key,
     bucketed_batch_iterator,
@@ -237,18 +249,22 @@ def settle_count(state, train_m: dict) -> None:
 
 def batch_caps(graphs: Sequence[CrystalGraph], batch_size: int,
                dense_m: int | None, node_cap: int | None = None,
-               edge_cap: int | None = None) -> tuple[int, int]:
-    """(node_cap, edge_cap) of the batches: the given ones, the rest the
-    snug capacities of ``graphs``. Dense (``dense_m`` > 0): the edge
-    capacity is ``node_cap * dense_m``; COO (0 or None): its own."""
+               edge_cap: int | None = None, snug: bool = True,
+               headroom: float = 1.15) -> tuple[int, int]:
+    """(node_cap, edge_cap) of the batches: the given ones, the rest
+    ``capacities_for(graphs, batch_size, headroom, snug=snug)``. Dense
+    (``dense_m`` > 0): the edge capacity is ``node_cap * dense_m``; COO
+    (0 or None): its own."""
     if dense_m:
         if node_cap is None:
-            node_cap, _ = capacities_for(graphs, batch_size, dense_m=dense_m)
+            node_cap, _ = capacities_for(graphs, batch_size, headroom,
+                                         dense_m=dense_m, snug=snug)
         return node_cap, node_cap * dense_m
     if node_cap is None or edge_cap is None:
-        snug_n, snug_e = capacities_for(graphs, batch_size)
-        node_cap = snug_n if node_cap is None else node_cap
-        edge_cap = snug_e if edge_cap is None else edge_cap
+        cap_n, cap_e = capacities_for(graphs, batch_size, headroom,
+                                      snug=snug)
+        node_cap = cap_n if node_cap is None else node_cap
+        edge_cap = cap_e if edge_cap is None else edge_cap
     return node_cap, edge_cap
 
 
@@ -339,6 +355,9 @@ class ScanEpochDriver:
     sequence. ``trace``, when a list, receives ``(shape key, batch
     indices)`` for every chunk run, from the host mirrors.
 
+    Under ``--check-invariants`` every input batch is checked before it
+    is staged (``timings["check_s"]``).
+
     ``preempt`` (a ``resilience.PreemptionHandler``) is polled before
     every chunk: an epoch can outlast a preemption's grace window, so on
     a request the epoch driver stops at that chunk boundary and sets
@@ -368,9 +387,22 @@ class ScanEpochDriver:
         self.aborted = False
         self.eval_truncated = False
         self.timings: dict[str, float] = {}
+        # the driver trusts these batches for a whole run: each is checked
+        # before it is staged (the host copies; --check-invariants)
+        t0 = time.perf_counter()
+        for b in train_batches:
+            invariants.maybe_check_any(b, train=True)
+        for b in val_batches:
+            invariants.maybe_check_any(b)
+        self.timings["check_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self._train_groups = self._stack_groups(train_batches)
         self._val_groups = self._stack_groups(val_batches)
+        groups = (self._train_groups, self._val_groups)
+        # every group's cursor, for the graphs' guards: a closure over the
+        # groups, not the driver, so no graph holds the driver (a cycle)
+        self._cursors = lambda: [g.cursor for d in groups
+                                 for g in d.values()]
         self.timings["init_stack_stage_s"] = time.perf_counter() - t0
         self._train_body, self._eval_body = train_body, eval_body
         self.train_sums, self.eval_sums = DeviceSums(), DeviceSums()
@@ -388,10 +420,6 @@ class ScanEpochDriver:
         for b in batches:
             groups.setdefault(batch_shape_key(b), []).append(b)
         return {k: _Group(bs, self.device) for k, bs in groups.items()}
-
-    def _cursors(self) -> list:
-        return [g.cursor for g in (*self._train_groups.values(),
-                                   *self._val_groups.values())]
 
     def _make_train_graph(self, key, state):
         grp, sums = self._train_groups[key], self.train_sums
@@ -681,17 +709,24 @@ def fit(
     monitor=None,
     preempt=None,
     force_weights: tuple = (1.0, 10.0),
+    packing: str = "snug",
+    headroom: float = 1.15,
 ) -> tuple:
     """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
     the best validation MAE (a classifier's highest accuracy).
     -> (state, {"best", "history": [per-epoch metrics], "staging" (the
     driver's: packed and staged bytes, compact or not, the fall-back),
-    "graphs": {captures, replays, captures_after_warm}}, and
-    "preempted": True when a preemption request stopped the run).
+    "graphs": {captures, replays, captures_after_warm}}, "padding" (the
+    first epoch's training batches: ``PaddingStats``' efficiencies, the
+    batch count, their (node_cap, edge_cap) shapes, and ``summary``), and
+    "preempted": True when a
+    preemption request stopped the run).
 
-    ``dense_m`` 0 or None packs the flat COO layout. The capacities
-    default to the snug ones of the training graphs (``batch_caps``);
-    ``buckets > 1`` packs per size class (``bucketed_batch_iterator``).
+    ``dense_m`` 0 or None packs the flat COO layout. ``packing`` is
+    ``'snug'`` or ``'ladder'`` (module docstring; ``headroom`` the
+    ladder's). The capacities default to those of the training graphs
+    under that packing (``batch_caps``); ``buckets > 1`` packs per size
+    class (``bucketed_batch_iterator``).
     ``pack_once``, ``device_resident``, ``scan_epochs``, ``chunk_steps``,
     ``compact``, ``graphs``: module docstring; the JAX rules hold
     (``device_resident`` implies ``pack_once``, ``scan_epochs`` implies
@@ -711,6 +746,10 @@ def fit(
     resilience; with none of them (and no fault plan) nothing changes.
     ``force_weights``: the force task's (w_energy, w_force)."""
     dense_m = dense_m or None
+    if packing not in ("snug", "ladder"):
+        raise ValueError(f"packing must be 'snug' or 'ladder', got "
+                         f"{packing!r}")
+    snug = packing == "snug"
     device_resident = device_resident or scan_epochs
     pack_once = pack_once or device_resident
     if compact is not None and not scan_epochs:
@@ -720,7 +759,8 @@ def fit(
         raise ValueError("compact staging requires the dense layout "
                          "(dense_m)")
     node_cap, edge_cap = batch_caps(train_graphs, batch_size, dense_m,
-                                    node_cap, edge_cap)
+                                    node_cap, edge_cap, snug=snug,
+                                    headroom=headroom)
     classification, edge_dtype = model_task(state.model)
     force = is_force(state.model)
     if compact is not None and force:
@@ -754,16 +794,18 @@ def fit(
     # validation batches carry the gathers' transpose where the eval step
     # takes a gradient (the forces), so its sums run in a fixed order too
     val_in_cap = None if force else 0
+    pad_stats = PaddingStats()
 
     def train_batches(rng):
         if buckets > 1:
             it = bucketed_batch_iterator(
                 train_graphs, batch_size, buckets, shuffle=True, rng=rng,
-                dense_m=dense_m, pack_fn=pack_fn)
+                stats=pad_stats, headroom=headroom, dense_m=dense_m,
+                snug=snug, pack_fn=pack_fn)
         else:
-            it = batch_iterator(train_graphs, batch_size, node_cap, edge_cap,
-                                shuffle=True, rng=rng, dense_m=dense_m,
-                                snug=True, pack_fn=pack_fn)
+            it = pad_stats.wrap(batch_iterator(
+                train_graphs, batch_size, node_cap, edge_cap, shuffle=True,
+                rng=rng, dense_m=dense_m, snug=snug, pack_fn=pack_fn))
         # the fault plan's NaN batch and loader failure, before pack-once
         # or device-resident staging takes the batches (unwrapped when no
         # plan is active)
@@ -772,11 +814,12 @@ def fit(
     def val_batches():
         if buckets > 1:
             return bucketed_batch_iterator(val_graphs, batch_size, buckets,
+                                           headroom=headroom,
                                            dense_m=dense_m,
-                                           in_cap=val_in_cap,
+                                           in_cap=val_in_cap, snug=snug,
                                            pack_fn=pack_fn)
         return batch_iterator(val_graphs, batch_size, node_cap, edge_cap,
-                              dense_m=dense_m, in_cap=val_in_cap, snug=True,
+                              dense_m=dense_m, in_cap=val_in_cap, snug=snug,
                               pack_fn=pack_fn)
 
     rng = np.random.default_rng(seed)
@@ -825,6 +868,7 @@ def fit(
                 else "correct" if classification else "mae")
     best = -np.inf if classification else np.inf
     history = []
+    padding = None
     preempted = False
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
@@ -854,6 +898,13 @@ def fit(
             if epoch == start_epoch:
                 train_run.cache.mark_warm()
                 eval_run.cache.mark_warm()
+        if epoch == start_epoch:
+            log_fn(pad_stats.summary())
+            padding = {"node_efficiency": pad_stats.node_efficiency,
+                       "edge_efficiency": pad_stats.edge_efficiency,
+                       "batches": pad_stats.batches,
+                       "shapes": sorted(pad_stats.shapes),
+                       "summary": pad_stats.summary()}
         metric = val_m.get(best_key, np.nan)
         # a preemption that cut eval short leaves a partial score: it
         # never repoints the best
@@ -878,6 +929,8 @@ def fit(
         "captures": sum(c.captures() for c in caches),
         "replays": sum(c.replays() for c in caches),
         "captures_after_warm": sum(c.captures_after_warm for c in caches)}}
+    if padding is not None:
+        out["padding"] = padding
     if preempted:
         out["preempted"] = True
     if staging:
@@ -890,13 +943,14 @@ def fit(
 def evaluate(state, graphs: Sequence[CrystalGraph], batch_size: int,
              node_cap: int, dense_m: int | None, device,
              edge_cap: int | None = None,
-             force_weights: tuple = (1.0, 10.0)) -> dict:
-    """Metric means of the eval step over ``graphs`` (capacities as in
-    ``fit``; the task and edge dtype the model's; ``force_weights`` the
-    force task's loss weights), stepped eagerly."""
+             force_weights: tuple = (1.0, 10.0),
+             snug: bool = True) -> dict:
+    """Metric means of the eval step over ``graphs`` (capacities and
+    packing as in ``fit``; the task and edge dtype the model's;
+    ``force_weights`` the force task's loss weights), stepped eagerly."""
     dense_m = dense_m or None
     node_cap, edge_cap = batch_caps(graphs, batch_size, dense_m, node_cap,
-                                    edge_cap)
+                                    edge_cap, snug=snug)
     classification, edge_dtype = model_task(state.model)
     force = is_force(state.model)
     step = (make_force_eval_step(*force_weights) if force
@@ -904,5 +958,5 @@ def evaluate(state, graphs: Sequence[CrystalGraph], batch_size: int,
     return StepRunner(step, state, device, train=False, graphs=False).epoch(
         stage(batch_iterator(graphs, batch_size, node_cap, edge_cap,
                              dense_m=dense_m, in_cap=None if force else 0,
-                             snug=True, pack_fn=edge_pack_fn(edge_dtype)),
+                             snug=snug, pack_fn=edge_pack_fn(edge_dtype)),
               device))

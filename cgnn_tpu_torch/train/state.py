@@ -259,21 +259,27 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
                      lr: float = 0.01, momentum: float = 0.9,
                      weight_decay: float = 0.0,
                      lr_milestones_epochs: Sequence[int] = (100,),
-                     task: str = "regression"):
+                     task: str = "regression", packing: str = "snug",
+                     node_cap: int | None = None,
+                     edge_cap: int | None = None):
     """A fresh TrainState as ``python -m cgnn_tpu_torch.train`` starts one
     -> (state, node_cap, edge_cap): the model on ``device`` with the
     numpy-seeded init (convert.init_params) and its dropout generator
     seeded from ``seed``, the normalizer fitted on the training targets
     (a classifier's is the identity, as train.py's), the optimizer with its epoch milestones counted in
-    optimizer steps (x the snug batches per epoch, as train.py does), and
-    the snug batch capacities of the model's layout (``dense_m=0``: COO,
-    whose edge capacity is its own). ``task='force'`` builds the force
-    field (config.build_force_model) with its own tree."""
+    optimizer steps (x the batches per epoch, as train.py counts them),
+    and the batch capacities of the model's layout under ``packing``
+    ('snug' or 'ladder'; ``dense_m=0``: COO, whose edge capacity is its
+    own), the given ``node_cap``/``edge_cap`` in place of the computed
+    ones (a dense layout's edge capacity is always ``node_cap * M``).
+    ``task='force'`` builds the force field (config.build_force_model)
+    with its own tree."""
     import numpy as np
 
     from cgnn_tpu_torch import convert
     from cgnn_tpu_torch.config import build_model
-    from cgnn_tpu_torch.data.graph import capacities_for, count_batches
+    from cgnn_tpu_torch.data.graph import count_batches
+    from cgnn_tpu_torch.train.loop import batch_caps
 
     model = build_model(model_cfg, data_cfg, device=device, task=task,
                         dropout_seed=seed)
@@ -288,10 +294,12 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
             np.stack([np.ones_like(g.target) if g.target_mask is None
                       else g.target_mask for g in train_graphs]),
             device=device)
-    node_cap, edge_cap = capacities_for(train_graphs, batch_size,
-                                        dense_m=model_cfg.dense_m or None)
+    snug = packing == "snug"
+    node_cap, edge_cap = batch_caps(train_graphs, batch_size,
+                                    model_cfg.dense_m or None, node_cap,
+                                    edge_cap, snug=snug)
     per_epoch = max(1, count_batches(train_graphs, batch_size, node_cap,
-                                     edge_cap, snug=True))
+                                     edge_cap, snug=snug))
     optimizer = make_optimizer(
         model.parameters(), optim=optim, lr=lr, momentum=momentum,
         weight_decay=weight_decay,

@@ -292,7 +292,31 @@ into ``build/kernels``), then:
    into forward, forces and the double backward; the refusals (a force
    checkpoint to ``load_server`` and the serve entry point,
    ``--aggregation pallas``, ``--compact-staging on``); and the
-   regression task on 256 OC20-like slabs (``oc20_train``).
+   regression task on 256 OC20-like slabs (``oc20_train``);
+15. data_layer (after cif_pipeline) — the rest of the data layer: the
+   native host neighbor search (cgnn_tpu_torch/native, built with g++)
+   against the numpy one at 8 A on 64 MP-like cells, 8 OC20-like slabs
+   and the four tie cells (SrTiO3, Cu, NaCl, Si): every array bit-equal,
+   order included, the k-nearest cut at M too, ``backend_used()``
+   native, ms a structure both ways; ``preprocess -j 8`` of the
+   cif_pipeline directory with the native search and with the numpy one
+   (PATH emptied: 'auto' resolves to numpy), the caches bit-equal, each
+   rate; the train entry point from that cache at full width with
+   ``--cgconv-impl pallas --packing ladder --check-invariants
+   --scan-epochs`` (path ``data_ladder_train``: kernels 1, 2, 4, 5
+   exact), then untraced ladder runs with the checks on, off, off, on
+   (steady rates, the driver's ``check_s``) and a snug run (padding
+   efficiencies from each run's ``PaddingStats``); COO with
+   ``--aggregation pallas --node-cap 3000 --edge-cap 36000``
+   (``data_coo_caps``: kernel 6 exact, every batch that shape); the
+   predict entry point with ``--packing ladder --buckets 1`` on the
+   ladder checkpoint (``data_predict_ladder``: kernel 1 exact) within
+   rtol 1e-4 / atol 1e-4 of ``--packing snug``'s answers; the train
+   entry point with ``--check-invariants`` on a corrupted copy of the
+   cache (a subprocess: a non-zero exit naming the broken invariant); and
+   two full-width ``fit`` runs under the driver, each dropped with the
+   collector off: the second's allocation back to within 8 MiB of where
+   it began, and a ``gc.collect()`` after either frees nothing.
 
 Launches on a path. A replayed graph launches its kernels without their
 wrappers, so each path's run (``PathRun``) is traced by the profiler,
@@ -2775,6 +2799,358 @@ def cif_pipeline_phase(dev, work_dir, card, calibration):
             "latency_ms_p99")}) for form, r in turns])
     return summary, counts, {"loader_breakdown": loader,
                              "compact_flush_breakdown": breakdown}
+
+
+N_SEARCH_MP = 64  # MP-like cells of the data_layer phase's search check
+N_SEARCH_SLABS = 8  # OC20-like slabs of it
+DL_EPOCHS = 5  # the data_layer phase's training runs (rates: epochs 2-5)
+COO_CAPS = (3000, 36000)  # --node-cap/--edge-cap of its COO path
+MEMORY_SLACK = 8 * 2**20  # a dropped fit's allocation left, at most (B)
+# the conventional cubic cells whose M-th neighbor sits on a distance
+# tie (tests/test_torch_ties.py): lattice constant (A), fractional
+# positions, atomic numbers
+_FCC = [[0.0, 0.0, 0.0], [0.5, 0.5, 0.0], [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]]
+TIE_CELLS = {
+    "SrTiO3": (3.905, [[0.0, 0.0, 0.0], [0.5, 0.5, 0.5], [0.5, 0.5, 0.0],
+                       [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]], [38, 22, 8, 8, 8]),
+    "Cu": (3.615, _FCC, [29] * 4),
+    "NaCl": (5.640, _FCC + [[(x + 0.5) % 1.0, y, z] for x, y, z in _FCC],
+             [11] * 4 + [17] * 4),
+    "Si": (5.431, _FCC + [[x + 0.25, y + 0.25, z + 0.25]
+                          for x, y, z in _FCC], [14] * 8),
+}
+
+
+def search_check(card) -> dict:
+    """The native host neighbor search against the numpy one at the
+    flagship's radius on MP-like cells, OC20-like slabs and the tie cells:
+    every array bit-equal, order included (the k-nearest cut at M too);
+    each structure's search timed once both ways after a warm call."""
+    import numpy as np
+
+    from cgnn_tpu_torch import native
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.neighbors import knn_neighbor_list, neighbor_list
+    from cgnn_tpu_torch.data.structure import Structure
+    from cgnn_tpu_torch.data.synthetic import (
+        synthetic_mp_dataset,
+        synthetic_oc20_dataset,
+    )
+
+    radius = DataConfig().radius
+    sets = {
+        "mp": [s for _, s, _ in synthetic_mp_dataset(N_SEARCH_MP,
+                                                     seed=SEED + 21)],
+        "slabs": [s for _, s, _ in synthetic_oc20_dataset(N_SEARCH_SLABS,
+                                                          seed=SEED + 22)],
+        "ties": [Structure(np.eye(3) * a, frac, z)
+                 for a, frac, z in TIE_CELLS.values()]}
+    fields = ("centers", "neighbors", "distances", "offsets")
+    neighbor_list(sets["ties"][0], radius, backend="native")  # build, warm
+    out = {"card": card, "radius": radius}
+    for name, structures in sets.items():
+        t_np = t_nat = 0.0
+        edges = 0
+        for s in structures:
+            t0 = time.perf_counter()
+            want = neighbor_list(s, radius, backend="numpy")
+            t1 = time.perf_counter()
+            got = neighbor_list(s, radius, backend="native")
+            t2 = time.perf_counter()
+            check(native.backend_used() == "native",
+                  f"search {name}: backend {native.backend_used()}")
+            t_np += t1 - t0
+            t_nat += t2 - t1
+            edges += len(got)
+            knn = [knn_neighbor_list(s, radius, M, backend=b,
+                                     warn_under_coordinated=False)
+                   for b in ("native", "numpy")]
+            for a, b in ((got, want), tuple(knn)):
+                check(all(getattr(a, f).dtype == getattr(b, f).dtype
+                          and np.array_equal(getattr(a, f), getattr(b, f))
+                          for f in fields),
+                      f"search {name}: native and numpy differ")
+        n = len(structures)
+        out[name] = {
+            "structures": n,
+            "atoms": [min(s.num_atoms for s in structures),
+                      max(s.num_atoms for s in structures)],
+            "pairs": edges, "numpy_ms_per_structure": t_np / n * 1e3,
+            "native_ms_per_structure": t_nat / n * 1e3,
+            "speedup": t_np / t_nat}
+        print(f"search {name}: {n} structures bit-equal native vs numpy "
+              f"(pairs and the k-nearest cut at M={M}); ms a structure "
+              f"numpy {t_np / n * 1e3!r}, native {t_nat / n * 1e3!r} "
+              f"({t_np / t_nat!r}x)")
+    return out
+
+
+def preprocess_backends(cif_dir, work_dir) -> tuple[dict, str]:
+    """``python -m cgnn_tpu_torch.data.preprocess DIR -j 8`` with the
+    native search (g++ on PATH) and with the numpy one (PATH emptied:
+    'auto' resolves to numpy in the entry point and in each worker): the
+    two caches bit-equal -> (rates, the native cache's path)."""
+    from cgnn_tpu_torch.data.cache import load_graph_cache
+    from cgnn_tpu_torch.data.preprocess import main as preprocess_main
+
+    out, caches = {}, {}
+    for backend in ("native", "numpy"):
+        cache = os.path.join(work_dir, f"data_layer_{backend}.npz")
+        path_was = os.environ.get("PATH", "")
+        if backend == "numpy":
+            os.environ["PATH"] = ""
+        try:
+            t0 = time.perf_counter()
+            rc, said = run_main(preprocess_main, [
+                cif_dir, "-o", cache, "-j", str(PREPROCESS_WORKERS)],
+                f"preprocess_{backend}")
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ["PATH"] = path_was
+        check(rc == 0 and f"(neighbor search: {backend})" in said,
+              f"preprocess with the {backend} search: rc {rc}")
+        caches[backend] = load_graph_cache(cache)
+        out[f"{backend}_structures_per_s"] = len(caches[backend]) / wall
+        out[f"{backend}_s"] = wall
+    equal = graphs_bit_equal(caches["native"], caches["numpy"])
+    print(f"preprocess -j {PREPROCESS_WORKERS}: native "
+          f"{out['native_structures_per_s']!r} structures/s, numpy "
+          f"{out['numpy_structures_per_s']!r}; caches bit-equal: "
+          f"{'ok' if equal else 'FAIL'}")
+    check(equal, "the native and numpy preprocess caches differ")
+    out["speedup"] = out["numpy_s"] / out["native_s"]
+    return out, os.path.join(work_dir, "data_layer_native.npz")
+
+
+def dropped_fit_memory(dev, split) -> dict:
+    """Two full-width ``fit`` runs under the epoch driver (ladder packing,
+    the kernel path), each dropped with the collector off: the card's
+    allocation before each, its peak, after, and after a ``gc.collect()``
+    (MiB). The second (after the first made what cuBLAS keeps for the
+    process: a workspace for each stream it runs on) must end within
+    MEMORY_SLACK of where it began, without the collect."""
+    import gc
+
+    import torch
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.train.loop import fit
+    from cgnn_tpu_torch.train.state import init_train_state
+
+    train_g, val_g, _ = split
+    state, _, _ = init_train_state(
+        ModelConfig(dense_m=M, cgconv_impl="pallas"), DataConfig(), train_g,
+        batch_size=BATCH, device=dev, seed=SEED, packing="ladder")
+    runs = []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        gc.disable()
+        try:
+            state, result = fit(state, train_g, val_g, epochs=2,
+                                batch_size=BATCH, dense_m=M, device=dev,
+                                seed=SEED, scan_epochs=True,
+                                packing="ladder", log_fn=lambda *_: None)
+            check(result["graphs"]["captures"] > 0,
+                  "the fit captured nothing")
+            del result
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated(dev)
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            gc.enable()
+        gc.collect()
+        torch.cuda.synchronize()
+        runs.append({"before_mib": before / 2**20, "peak_mib": peak / 2**20,
+                     "after_mib": after / 2**20,
+                     "after_collect_mib":
+                     torch.cuda.memory_allocated(dev) / 2**20})
+    last = runs[-1]
+    ok = ((last["after_mib"] - last["before_mib"]) * 2**20 < MEMORY_SLACK
+          and last["peak_mib"] > last["before_mib"]
+          and all(r["after_collect_mib"] == r["after_mib"] for r in runs))
+    print(f"dropped fits, card memory: "
+          f"{json.dumps(runs, allow_nan=False)}: {'ok' if ok else 'FAIL'}")
+    check(ok, f"a dropped fit kept card memory: {runs}")
+    return {"runs": runs}
+
+
+def corrupted_cache_exit(cache, work_dir) -> dict:
+    """The train entry point with ``--check-invariants`` on a copy of the
+    cache whose first graph's neighbors are out of range (the spot check
+    samples it): a non-zero exit naming the check."""
+    import numpy as np
+
+    bad = os.path.join(work_dir, "data_layer_corrupted.npz")
+    with np.load(cache) as z:
+        payload = {k: np.asarray(z[k]).copy() for k in z.files}
+    payload["neighbors"][: int(payload["edge_counts"][0])] = 10**6
+    with open(bad, "wb") as f:
+        np.savez(f, **payload)
+    proc = subprocess.run(
+        [sys.executable, "-m", "cgnn_tpu_torch.train", "--cache", bad,
+         "--check-invariants", "-b", str(BATCH), "--epochs", "1",
+         "--ckpt-dir", os.path.join(work_dir, "data_layer_bad_ck"),
+         "--out-dir", os.path.join(work_dir, "data_layer_bad_out")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    named = ("BatchInvariantError" in proc.stderr
+             and "edge endpoints out of range" in proc.stderr)
+    last = (proc.stderr.strip().splitlines() or [""])[-1]
+    print(f"corrupted cache under --check-invariants: exit "
+          f"{proc.returncode}, {last!r}: "
+          f"{'ok' if proc.returncode != 0 and named else 'FAIL'}")
+    check(proc.returncode != 0 and named,
+          f"the corrupted cache was not refused by name: {proc.stderr!r}")
+    return {"exit": proc.returncode, "error": last}
+
+
+def data_layer_phase(dev, work_dir, card):
+    """Paths 'data_ladder_train', 'data_coo_caps' and
+    'data_predict_ladder': the rest of the data layer on the card (module
+    docstring, item 15) -> (summary, counts by path)."""
+    import csv as csvmod
+    import shutil
+
+    import numpy as np
+
+    from cgnn_tpu_torch.config import ModelConfig
+    from cgnn_tpu_torch.data.cache import load_graph_cache
+    from cgnn_tpu_torch.data.dataset import train_val_test_split
+    from cgnn_tpu_torch.data.graph import capacities_for, count_batches
+    from cgnn_tpu_torch.predict import main as predict_main
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+
+    t_phase = time.perf_counter()
+    n_conv = ModelConfig().n_conv
+    root = os.path.join(work_dir, "data_layer")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    counts, summary = {}, {"card": card}
+
+    # (a) the native search against the numpy one
+    summary["search"] = search_check(card)
+
+    # (b) preprocess -j 8 of the cif_pipeline directory, both searches
+    cif_dir = os.path.join(work_dir, "cif")
+    if not os.path.exists(os.path.join(cif_dir, "id_prop.csv")):
+        write_cif_directory(cif_dir, N_CIF, SEED + 11)
+    summary["preprocess"], cache = preprocess_backends(cif_dir, root)
+    graphs = load_graph_cache(cache)
+    split = train_val_test_split(graphs, 0.8, 0.1, seed=SEED)
+
+    # (c) the train entry point, dense, ladder packing, the checks, the
+    # epoch driver: the traced run, then the rates with the checks on and
+    # off in turns, and snug packing for its padding
+    def train_argv(name, *extra):
+        return [cif_dir, "--cache", cache, "-b", str(BATCH), "--epochs",
+                str(DL_EPOCHS), "--scan-epochs", "--print-freq", "0",
+                "--seed", str(SEED), "--ckpt-dir",
+                os.path.join(root, f"{name}_ck"), "--out-dir",
+                os.path.join(root, f"{name}_out"), *extra]
+
+    # the dense runs take the kernel path (kernels 1, 2, 4 and 5)
+    ladder = ["--cgconv-impl", "pallas", "--packing", "ladder"]
+    out, info, counts["data_ladder_train"] = entry_train(
+        "data_ladder_train", train_argv("ladder", *ladder,
+                                        "--check-invariants"),
+        dense_per_step(n_conv),
+        entry_logical(split, M, DL_EPOCHS, snug=False))
+    check(info["padding"]["summary"] in out,
+          "data_ladder_train: no padding line")
+
+    def rate_run(name, *extra):
+        rc, out = run_main(train_main, train_argv(name, *extra), name)
+        check(rc == 0, f"{name}: the train entry point exited {rc}")
+        rec = json.loads(next(line for line in out.splitlines()
+                              if line.startswith("train: "))[7:])
+        eps = rec["epoch_seconds"]
+        st = rec["staging"]
+        return {"steady_structures_per_s":
+                len(split[0]) * (len(eps) - 1) / sum(eps[1:]),
+                "first_epoch_s": eps[0], "check_s": st["timings"]["check_s"],
+                "pack_s": st["pack_s"], "stage_s": st["stage_s"],
+                "capture_s": st["capture_s"], "padding": rec["padding"]}
+
+    turns = [rate_run(f"ladder_{tag}{i}", *ladder, *flags)
+             for i, (tag, flags) in enumerate((
+                 ("checks", ["--check-invariants"]), ("plain", []),
+                 ("plain", []), ("checks", ["--check-invariants"])))]
+    snug = rate_run("snug_plain", "--cgconv-impl", "pallas")
+    summary["train"] = {
+        "ladder_checks_traced": {"padding": info["padding"],
+                                 "staging": info["staging"]},
+        "turns_checks_plain_plain_checks": turns, "snug": snug}
+    for tag, rec in (("ladder", turns[1]), ("snug", snug)):
+        print(f"data_layer {tag}: {rec['padding']['summary']}; steady "
+              f"{rec['steady_structures_per_s']!r} structures/s")
+    print("data_layer checks on/off, steady structures/s: "
+          f"{[t['steady_structures_per_s'] for t in turns]!r}; check_s "
+          f"{[t['check_s'] for t in turns]!r}")
+    check(snug["padding"]["node_efficiency"]
+          > turns[1]["padding"]["node_efficiency"],
+          "snug packing padded more than the ladder")
+
+    # (d) COO with kernel 6 at the user's capacities
+    out, info, counts["data_coo_caps"] = entry_train(
+        "data_coo_caps", train_argv(
+            "coo_caps", "--aggregation", "pallas", "--node-cap",
+            str(COO_CAPS[0]), "--edge-cap", str(COO_CAPS[1])),
+        coo_per_step(n_conv),
+        entry_logical(split, None, DL_EPOCHS, caps=COO_CAPS))
+    check(info["padding"]["shapes"] == [list(COO_CAPS)],
+          f"data_coo_caps: batch shapes {info['padding']['shapes']}")
+    summary["coo_caps"] = {"shapes": info["padding"]["shapes"],
+                           "padding": info["padding"]["summary"]}
+    print(f"data_coo_caps: every batch {info['padding']['shapes']}: ok")
+
+    # (e) predict with --packing ladder on (c)'s checkpoint, against snug
+    ck = os.path.join(root, "ladder_ck")
+    preds = {}
+    for packing in ("ladder", "snug"):
+        out_csv = os.path.join(root, f"predict_{packing}.csv")
+        argv = [ck, "--cache", cache, "--packing", packing, "--buckets",
+                "1", "--wire", "featurized", "--compact", "off", "-b",
+                str(BATCH), "--out", out_csv]
+        if packing == "ladder":
+            with PathRun("data_predict_ladder") as run:
+                rc, out = run_main(predict_main, argv, "data_predict_ladder")
+            check(rc == 0, f"data_predict_ladder exited {rc}")
+            pinfo = json.loads(next(line for line in out.splitlines()
+                                    if line.startswith("predict: "))[9:])
+            nc, ec = capacities_for(graphs, BATCH, dense_m=M, snug=False)
+            check(pinfo["batches_featurized"] == count_batches(
+                graphs, BATCH, nc, ec, snug=False),
+                f"data_predict_ladder: {pinfo['batches_featurized']} "
+                f"batches")
+            counts["data_predict_ladder"] = predict_path(
+                run, dense_per_step(n_conv), pinfo)
+        else:
+            rc, _ = run_main(predict_main, argv, "predict_snug")
+            check(rc == 0, f"predict --packing snug exited {rc}")
+        rows = list(csvmod.reader(open(out_csv)))
+        check([r[0] for r in rows] == [g.cif_id for g in graphs],
+              f"predict --packing {packing}: ids")
+        preds[packing] = np.array([[float(x) for x in r[2:]] for r in rows])
+    err = np.abs(preds["ladder"] - preds["snug"])
+    ok = bool(np.all(err <= SERVE_ATOL + SERVE_RTOL
+                     * np.abs(preds["snug"])))
+    print(f"predict --packing ladder vs snug: max_abs_err "
+          f"{float(err.max())!r}: {'ok' if ok else 'FAIL'}")
+    check(ok, "ladder predictions disagree with snug ones")
+    summary["predict"] = {"batches": pinfo["batches_featurized"],
+                          "structures_per_s": pinfo["structures_per_s"],
+                          "max_abs_err_vs_snug": float(err.max())}
+
+    # (f) a corrupted cache under --check-invariants; the memory of a
+    # dropped fit
+    summary["corrupted_cache"] = corrupted_cache_exit(cache, root)
+    summary["dropped_fit_memory"] = dropped_fit_memory(dev, split)
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"data_layer: {summary['seconds']!r} s")
+    return summary, counts
 
 
 N_DRIVER = 2048  # the step_graphs phase: --synthetic N, and MP-like N
@@ -5311,17 +5687,20 @@ N_OC20 = 256  # --synthetic-oc20 slabs (37-255 atoms)
 OC20_BATCH = 64
 
 
-def entry_logical(split, dense_m, epochs, batch=None):
-    """The steps the train entry point takes on a split with snug
-    batches (the per-step loop, or the epoch driver with one bucket):
-    each epoch every train and validation batch, then the test split's
-    eval batches -> {kind: steps}."""
+def entry_logical(split, dense_m, epochs, batch=None, snug=True,
+                  caps=None):
+    """The steps the train entry point takes on a split (the per-step
+    loop, or the epoch driver with one bucket), its batches snug or, with
+    ``snug=False``, the ladder's, at the training graphs' capacities or
+    ``caps`` (node_cap, edge_cap): each epoch every train and validation
+    batch, then the test split's eval batches -> {kind: steps}."""
     from cgnn_tpu_torch.data.graph import capacities_for, count_batches
 
     batch = batch or BATCH
     train_g, val_g, test_g = split
-    nc, ec = capacities_for(train_g, batch, dense_m=dense_m)
-    steps, evals, tests = (count_batches(gs, batch, nc, ec, snug=True)
+    nc, ec = caps or capacities_for(train_g, batch, dense_m=dense_m,
+                                    snug=snug)
+    steps, evals, tests = (count_batches(gs, batch, nc, ec, snug=snug)
                            for gs in (train_g, val_g, test_g))
     return {"train": epochs * steps, "eval": epochs * evals + tests}
 
@@ -5417,18 +5796,24 @@ def bf16_paths_phase(dev, work_dir, card, calibration):
 
 
 def free_card_memory() -> dict:
-    """Collect unreachable objects (graphs of earlier phases' steps and
-    servers among them) and hand the allocator's unused cached blocks
-    back to the card -> {allocated, reserved} GiB after it."""
+    """Hand the allocator's unused cached blocks (ended phases' graph
+    pools and batches) back to the card, so a later capture's pool can
+    take them -> {allocated, reserved} GiB after it, and what a
+    ``gc.collect()`` before it freed of the allocation: nothing, now that
+    no graph, driver or server sits in a reference cycle (PERF.md §7)."""
     import gc
 
     import torch
 
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     gc.collect()
     torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
     torch.cuda.empty_cache()
     return {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
-            "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+            "collect_freed_gib": freed / 2**30}
 
 
 def force_state(dev, train_g, dense_m, dtype="float32"):
@@ -5914,6 +6299,7 @@ def main() -> int:
     ckpt_summary, ckpt_counts = checkpoint_predict_phase(dev, work_dir, card)
     cif_summary, cif_counts, cif_breakdowns = cif_pipeline_phase(
         dev, work_dir, card, calibration)
+    dl_summary, dl_counts = data_layer_phase(dev, work_dir, card)
     graphs_summary, graphs_counts, mp_split = step_graphs_phase(
         dev, work_dir, calibration, coo_weights, card)
     res_summary, res_counts = resilience_phase(dev, work_dir, split,
@@ -5923,7 +6309,7 @@ def main() -> int:
     # server burst's trace lost a kernel record when it ran before them
     force_summary, force_counts = force_task_phase(dev, work_dir, card)
     by_path.update(**graphs_counts, **res_counts, **http_counts,
-                   **hm_counts, **bp_counts, **force_counts)
+                   **hm_counts, **bp_counts, **force_counts, **dl_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -5958,6 +6344,7 @@ def main() -> int:
     print(json.dumps({"checkpoint_predict": ckpt_summary}, allow_nan=False))
     print(json.dumps(cif_breakdowns, allow_nan=False))
     print(json.dumps({"cif_pipeline": cif_summary}, allow_nan=False))
+    print(json.dumps({"data_layer": dl_summary}, allow_nan=False))
     print(json.dumps({"step_graphs": graphs_summary}, allow_nan=False))
     print(json.dumps({"resilience": res_summary}, allow_nan=False))
     print(json.dumps({"serve_http": http_summary}, allow_nan=False))

@@ -1513,3 +1513,47 @@ def test_force_train_graph_replays_equal_eager(dev, dense):
         assert torch.equal(a, b), k
     for a, b in zip(eager.optimizer.tensors(), replayed.optimizer.tensors()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["driver", "per_step"])
+def test_dropped_fit_gives_card_memory_back(dev, mode):
+    """A ``fit`` that returned and was dropped gives its graphs' pools and
+    staged batches back without ``gc.collect()``: nothing of the epoch
+    driver, the step runners or their graph caches sits in a reference
+    cycle (the collector is off while it runs, so only reference counts
+    free them). The second of two fits, after the first made the capture
+    stream's cuBLAS workspace (kept for the process), ends within 8 MiB
+    of the allocation before it (the parameters' gradients stay with the
+    state)."""
+    import gc
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.train import state as tstate
+    from cgnn_tpu_torch.train.loop import fit
+
+    dcfg = DataConfig()
+    graphs = load_synthetic(96, dcfg.featurize_config(), seed=3)
+    st, _, _ = tstate.init_train_state(ModelConfig(dense_m=12), dcfg,
+                                       graphs[:64], batch_size=16,
+                                       device=dev)
+    kw = dict(epochs=2, batch_size=16, dense_m=12, device=dev,
+              log_fn=lambda *a: None, scan_epochs=mode == "driver",
+              buckets=2)
+    st, _ = fit(st, graphs[:64], graphs[64:], **kw)  # the warm fit
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    gc.disable()
+    try:
+        st, out = fit(st, graphs[:64], graphs[64:], **kw)
+        assert out["graphs"]["captures"] > 0
+        del out
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        gc.enable()
+    assert peak > before
+    assert after - before < 8 * 2**20, (before, peak, after)

@@ -71,7 +71,8 @@ def test_importing_every_port_module_loads_no_jax():
                 "resilience.guard", "resilience.preempt",
                 "resilience.faultinject",
                 "predict", "data.cif", "data.cache", "data.preprocess",
-                "data.compact", "data.pipeline", "data.loader"):
+                "data.compact", "data.pipeline", "data.loader",
+                "data.invariants", "native"):
         assert f"cgnn_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 

@@ -227,7 +227,9 @@ def test_predict_raw_and_featurized_csvs_agree(ckpt, capsys):
 
 REFUSED = {  # case -> (extra flags, what the message names)
     "cache": (["--cache", "graphs.npz"], "does not exist"),
-    "packing_ladder": (["--packing", "ladder"], "item 10"),
+    # refused until the ladder was ported; now accepted (named None):
+    # its answers must equal the snug packing's
+    "packing_ladder": (["--packing", "ladder", "--buckets", "1"], None),
     # a cache without raw distances cannot stage compactly
     "compact_on": (["--compact", "on"], "compact staging unavailable"),
     "devices": (["--devices", "4"], "items 9 and 11"),
@@ -255,6 +257,19 @@ def test_predict_refusals_exit_2(ckpt, case, capsys, tmp_path):
         argv += ["--cache", cache]
     elif case == "no_checkpoint":
         argv[0] = str(tmp_path / "empty")
+    if named is None:
+        snug = str(tmp_path / "snug.csv")
+        assert predict_main(argv) == 0
+        assert predict_main([*argv[:4], snug, "--buckets", "1",
+                             "--synthetic", "4"]) == 0
+        got, want = _csv(str(tmp_path / "x.csv")), _csv(snug)
+        assert [r[0] for r in got] == [r[0] for r in want]
+        # the same graphs in other batch shapes: f32 sums reordered
+        np.testing.assert_allclose(
+            np.array([[float(v) for v in r[1:]] for r in got]),
+            np.array([[float(v) for v in r[1:]] for r in want]),
+            rtol=1e-5, atol=2e-6)
+        return
     assert predict_main(argv) == 2
     assert named in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "x.csv")

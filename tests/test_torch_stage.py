@@ -111,8 +111,19 @@ def test_single_bucket_is_batch_iterator(data):
 
 
 def test_ladder_packing_is_refused(data):
-    with pytest.raises(NotImplementedError, match="snug"):
-        next(tgraph.bucketed_batch_iterator(data[1], 8, 2, snug=False))
+    """Ladder packing was refused here until it was ported; now its
+    bucketed batches are the JAX package's, bit for bit (the name is
+    kept: tests/test_torch_ladder.py holds the rest of the ladder)."""
+    jg, tg = data
+    jrng, trng = np.random.default_rng(5), np.random.default_rng(5)
+    want = list(jgraph.bucketed_batch_iterator(
+        jg, 8, 2, shuffle=True, rng=jrng, dense_m=M, snug=False))
+    got = list(tgraph.bucketed_batch_iterator(
+        tg, 8, 2, shuffle=True, rng=trng, dense_m=M, snug=False))
+    assert len(got) == len(want) > 2
+    for a, b in zip(got, want):
+        _assert_equal(a, b)
+    assert trng.bit_generator.state == jrng.bit_generator.state
 
 
 @pytest.mark.parametrize("device_resident", [False, True])
