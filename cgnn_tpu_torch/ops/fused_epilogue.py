@@ -137,10 +137,17 @@ def epilogue_dz_reference(z, mask, cst, red5, ct):
 # the Hopper kernels
 # ---------------------------------------------------------------------------
 
-def rows_per_block(f: int) -> int:
-    """Node rows per block of kernels 3 and 5: one thread per (c, c + F)
-    channel pair."""
-    return max(1, min(8, 1024 // f))
+VECTOR_WIDTH = {torch.float32: 4, torch.bfloat16: 8}  # 16 bytes of z
+
+
+def vector_width(f: int, z_dtype, ptrs) -> int:
+    """Kernels 3 and 5's V, the last int of their C entries: the z values
+    a thread moves as one 16-byte vector (4 f32, 8 bf16) where F is a
+    multiple of it and every address in ``ptrs`` (the tensors the kernel
+    reads or writes in vectors) is 16-byte aligned; else 1, the scalar
+    path of the same kernel."""
+    v = VECTOR_WIDTH[z_dtype]
+    return v if f % v == 0 and all(p % 16 == 0 for p in ptrs) else 1
 
 
 REDUCE_BLOCKS = 264  # kernel 4's persistent grid: at most two blocks an
@@ -182,13 +189,10 @@ def _check(name, z, mask, cst, extra: dict,
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _launch(name: str, n_ptrs: int, ptrs, n, m, f, dev, blocks=None,
+def _launch(name: str, n_ptrs: int, ptrs, n, m, f, dev, last: dict,
             z_dtype=torch.float32):
     """Launch ``<name>_f32`` (``_bf16`` for a bf16 z) with N, M, F and one
-    more int: kernel 4's ``blocks``, else the rows a block of kernels 3
-    and 5."""
-    last = ({"rows": rows_per_block(f)} if blocks is None
-            else {"blocks": blocks})
+    more int, ``last``: kernel 4's ``blocks``, kernels 3 and 5's ``v``."""
     _build.launch(name, _build.entry(
         "fused_epilogue", f"{name}_{_SUFFIX[z_dtype]}", n_ptrs, 4), ptrs,
         dict(N=n, M=m, F=f, **last), dev)
@@ -199,9 +203,9 @@ def _apply(name, z_dtype, z, mask, cst):
     out = torch.empty((n, f), dtype=torch.float32, device=z.device)
     if n == 0:
         return out
-    _launch("epilogue_apply", 4,
-            (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), out.data_ptr()),
-            n, m, f, z.device, z_dtype=z_dtype)
+    ptrs = (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), out.data_ptr())
+    v = vector_width(f, z_dtype, ptrs[:1] + ptrs[2:])
+    _launch("epilogue_apply", 4, ptrs, n, m, f, z.device, {"v": v}, z_dtype)
     APPLY_CUDA[z_dtype].launches += _build.counted(1)
     return out
 
@@ -230,7 +234,7 @@ def _reduce(name, z_dtype, z, mask, cst, ct):
     _launch("epilogue_reduce", 6,
             (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), ct.data_ptr(),
              part.data_ptr(), out.data_ptr()), n, m, f, z.device,
-            blocks=blocks, z_dtype=z_dtype)
+            {"blocks": blocks}, z_dtype)
     REDUCE_CUDA[z_dtype].launches += _build.counted(1)
     return out
 
@@ -256,10 +260,10 @@ def _dz(name, z_dtype, z, mask, cst, red5, ct):
     out = torch.empty_like(z)
     if n == 0:
         return out
-    _launch("epilogue_dz", 6,
-            (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), red5.data_ptr(),
-             ct.data_ptr(), out.data_ptr()), n, m, f, z.device,
-            z_dtype=z_dtype)
+    ptrs = (z.data_ptr(), mask.data_ptr(), cst.data_ptr(), red5.data_ptr(),
+            ct.data_ptr(), out.data_ptr())
+    v = vector_width(f, z_dtype, ptrs[:1] + ptrs[2:])
+    _launch("epilogue_dz", 6, ptrs, n, m, f, z.device, {"v": v}, z_dtype)
     DZ_CUDA[z_dtype].launches += _build.counted(1)
     return out
 

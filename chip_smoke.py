@@ -339,6 +339,7 @@ prints no result.
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -715,6 +716,42 @@ def bound(cost):
     ops_ms = cost["flops"] / PEAK_F32_FLOPS * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
                                    else "operations")
+
+
+# the kernels redesigned with a vector and a scalar path (kernels 3 and
+# 5): each row's template symbol, its vector width and its z type in the
+# mangled names of ptxas's report
+VECTOR_ROWS = {"epilogue_apply": ("epilogue_apply_kernel", 4, "f"),
+               "epilogue_dz": ("epilogue_dz_kernel", 4, "f"),
+               "epilogue_apply_bf16": ("epilogue_apply_kernel", 8,
+                                       "13__nv_bfloat16"),
+               "epilogue_dz_bf16": ("epilogue_dz_kernel", 8,
+                                    "13__nv_bfloat16")}
+
+
+def ptxas_usage(log: str, row: str) -> dict:
+    """A ``VECTOR_ROWS`` row's registers and spill bytes from nvcc's
+    ``-Xptxas -v`` report: its vector path and its scalar path (V = 1),
+    each {"v", "registers", "spill_stores", "spill_loads"}, None where the
+    report lacks it (a library built by an earlier process)."""
+    symbol, wide, ztype = VECTOR_ROWS[row]
+    found: dict = {}
+    cur = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(rf"{symbol}ILi(\d+)E{ztype}E", line)
+            cur = found.setdefault(int(m.group(1)), {}) if m else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return {path: ({"v": v, **found[v]} if v in found else None)
+            for path, v in (("vector", wide), ("scalar", 1))}
 
 
 K1_PARTS = {"node_pass": "eval_node_kernel", "slot_pass": "eval_slot"}
@@ -6315,6 +6352,12 @@ def main() -> int:
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
                    **ckpt_counts, **cif_counts)
     for k in kernels:
+        if k["name"] in VECTOR_ROWS:
+            k["ptxas"] = ptxas_usage(
+                _build.build_info["fused_epilogue"]["log"], k["name"])
+            check(all(not u or u["spill_stores"] == u["spill_loads"] == 0
+                      for u in k["ptxas"].values()),
+                  f"{k['name']} spills registers: {k['ptxas']}")
         # launches on the card in each path's run (graph replays
         # included), and those its wrapper made (eager steps, warm-ups)
         k["launches_by_path"] = {p: c["launches"][k["name"]]

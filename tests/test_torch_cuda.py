@@ -216,13 +216,15 @@ def _epilogue_args(dev, n, m, f, seed=0):
 
 
 _EPI_SHAPES = [(7000, 12, 64), (4, 1, 64), (37, 8, 16), (129, 5, 96),
-               (50, 12, 40), (7832, 12, 64), (301, 12, 18), (97, 7, 37)]
+               (50, 12, 40), (7832, 12, 64), (301, 12, 18), (97, 7, 37),
+               # M of 1, 5 and 7 on the vector path: partial slot chunks
+               (300, 1, 64), (200, 5, 64), (150, 7, 64), (61, 5, 20)]
 
 
 @pytest.mark.parametrize("n,m,f", _EPI_SHAPES)
 def test_epilogue_kernels_match_plain_versions(dev, n, m, f):
     """Kernels 3, 4 and 5 (NaN z in masked slots, all-padding rows; F of
-    18 and 37 take kernel 4's scalar path, M of 7 a partial slot chunk)
+    18 and 37 take the scalar paths, M of 1, 5 and 7 partial slot chunks)
     against their plain versions; kernel 4 bit-identical when run again."""
     fe, z, mask, cst, ct, red5 = _epilogue_args(dev, n, m, f)
     counts = [w.launches for w in (fe.epilogue_apply_cuda,
@@ -1259,11 +1261,15 @@ def test_bf16_conv_instances_match(dev, n, m, f, g):
 
 
 @pytest.mark.parametrize("n,m,f", [(7832, 12, 64), (37, 8, 16),
-                                   (129, 5, 96), (301, 12, 18)])
+                                   (129, 5, 96), (301, 12, 18),
+                                   # F % 8 = 4: kernel 5's scalar path
+                                   (50, 12, 20),
+                                   (300, 1, 64), (200, 5, 64), (150, 7, 64)])
 def test_bf16_epilogue_instances_match(dev, n, m, f):
     """Kernels 4 and 5 on bf16 z: the f32 instances' bits on the widened
     z (dz rounded to bf16), their plain versions within the f32
-    tolerances; F = 18 takes kernel 4's scalar path."""
+    tolerances; F = 18 takes kernel 4's scalar path, F = 18 and 20 kernel
+    5's."""
     fe, z, mask, cst, ct, red5 = _epilogue_args(dev, n, m, f)
     zb = z.to(BF16)
     counts = [fe.epilogue_reduce_bf16_cuda.launches,
@@ -1355,7 +1361,8 @@ def test_bf16_training_op_runs_only_bf16_instances(dev):
 
 
 @pytest.mark.parametrize("n,m,f", [(7832, 12, 64), (37, 8, 16),
-                                   (301, 12, 18)])
+                                   (301, 12, 18), (50, 12, 20),
+                                   (300, 1, 64), (200, 5, 64), (150, 7, 64)])
 def test_bf16_apply_instance_matches(dev, n, m, f):
     """Kernel 3 on bf16 z: the f32 instance's bits on the widened z, its
     plain version within the f32 tolerances, an f32 sum; one launch of
@@ -1376,6 +1383,82 @@ def test_bf16_apply_instance_matches(dev, n, m, f):
     assert torch.equal(fe.epilogue_apply(zb, mask, cst, "pallas"), got)
     with pytest.raises(ValueError, match="z must be torch.bfloat16"):
         fe.epilogue_apply_bf16_cuda(z, mask, cst)
+
+
+def _offset(t, elements=1):
+    """A contiguous copy of ``t`` whose data starts ``elements`` elements
+    into a flat buffer: its address is off the 16-byte grid."""
+    flat = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    view = flat[elements:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+def _kernels_3_and_5(fe, dtype, z, mask, cst, red5, ct):
+    return (fe.APPLY_CUDA[dtype](z, mask, cst),
+            fe.DZ_CUDA[dtype](z, mask, cst, red5, ct))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("n,m,f", [(7832, 12, 64), (301, 7, 32),
+                                   (97, 1, 128), (40, 5, 16)])
+def test_epilogue_scalar_path_equals_vector_path(dev, dtype, n, m, f):
+    """Kernels 3 and 5 on a z (and, for kernel 5, a ct) one element off
+    the 16-byte grid take the scalar path: the vector path's bits on the
+    same data, each launch counted once; padding slots (NaN z) give dz 0."""
+    fe, z, mask, cst, ct, red5 = _epilogue_args(dev, n, m, f)
+    z = z.to(dtype)
+    wide = fe.VECTOR_WIDTH[dtype]
+    assert fe.vector_width(f, dtype, (z.data_ptr(), cst.data_ptr(),
+                                      ct.data_ptr())) == wide
+    zo, cto = _offset(z), _offset(ct)
+    assert fe.vector_width(f, dtype, (zo.data_ptr(),)) == 1
+    assert fe.vector_width(f, dtype, (cto.data_ptr(),)) == 1
+    counts = [fe.APPLY_CUDA[dtype].launches, fe.DZ_CUDA[dtype].launches]
+    vec = _kernels_3_and_5(fe, dtype, z, mask, cst, red5, ct)
+    scalar = _kernels_3_and_5(fe, dtype, zo, mask, cst, red5, ct)
+    dz_ct = fe.DZ_CUDA[dtype](z, mask, cst, red5, cto)
+    torch.cuda.synchronize()
+    assert [fe.APPLY_CUDA[dtype].launches, fe.DZ_CUDA[dtype].launches] == [
+        counts[0] + 2, counts[1] + 3]
+    assert torch.equal(vec[0], scalar[0])
+    assert torch.equal(vec[1], scalar[1]) and torch.equal(vec[1], dz_ct)
+    torch.testing.assert_close(vec[0], fe.epilogue_apply_reference(
+        z, mask, cst), **TOL)
+    assert (vec[1][mask == 0] == 0).all() and torch.isfinite(vec[1]).all()
+
+
+def test_epilogue_passes_for_every_f(dev):
+    """F = 1 .. 130 in both dtypes (each F's vector width or the scalar
+    path, blocks of up to 256 threads, partial chunks at M = 5): kernels 3
+    and 5 against their plain versions, the bf16 instances bit-equal to
+    the f32 ones on the widened z, and the vector path bit-equal to the
+    scalar path on a z one element off."""
+    from cgnn_tpu_torch.ops import fused_epilogue as fe
+
+    for f in range(1, 131):
+        _, z, mask, cst, ct, red5 = _epilogue_args(dev, 37, 5, f, seed=f)
+        zb = z.to(BF16)
+        for dtype, zz in ((torch.float32, z), (BF16, zb)):
+            agg, dz = _kernels_3_and_5(fe, dtype, zz, mask, cst, red5, ct)
+            agg_o, dz_o = _kernels_3_and_5(fe, dtype, _offset(zz), mask,
+                                           cst, red5, ct)
+            assert torch.equal(agg, agg_o) and torch.equal(dz, dz_o), f
+            torch.testing.assert_close(agg, fe.epilogue_apply_reference(
+                zz, mask, cst), **TOL, msg=f"F={f} {dtype}")
+            want = fe.epilogue_dz_reference(zz, mask, cst, red5, ct)
+            if dtype == BF16:
+                torch.testing.assert_close(dz, want, rtol=2 ** -7,
+                                           atol=1e-5, msg=f"F={f} bf16")
+                wide = _kernels_3_and_5(fe, torch.float32, zb.float(), mask,
+                                        cst, red5, ct)
+                assert torch.equal(agg, wide[0]), f
+                assert torch.equal(dz, wide[1].to(BF16)), f
+            else:
+                torch.testing.assert_close(dz, want, **TOL,
+                                           msg=f"F={f} f32")
+            assert (dz[mask == 0] == 0).all(), f
 
 
 @pytest.mark.parametrize("case", ["coo_batch", "hub"])
