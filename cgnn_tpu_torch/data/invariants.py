@@ -300,11 +300,18 @@ def check_stacked_batch(stacked, dense_m: int | None = None,
 
 def check_any(batch, dense_m: int | None = None, train: bool = False):
     """Dispatch on stacking: 1-D node_mask -> one batch, 2-D -> stacked.
-    A single training batch cannot be empty by construction, so ``train``
-    adds the non-empty-row rule for stacked batches only."""
-    if batch.node_mask.dim() == 1:
-        return _checker(batch)(batch, dense_m)
-    return check_stacked_batch(batch, dense_m, train=train)
+    ``train`` adds the training rule: at least one real graph in the
+    batch (in every row of a stack). An all-padding batch
+    (``parallel.empty_batch_like``) pads eval steps only: in a training
+    step its zero gradients would dilute the average and its statistics
+    the running ones."""
+    if batch.node_mask.dim() != 1:
+        return check_stacked_batch(batch, dense_m, train=train)
+    _checker(batch)(batch, dense_m)
+    if train and float(_np(batch.graph_mask).sum()) == 0:
+        _fail("a TRAINING batch has zero real graphs (empty batches are "
+              "eval-only padding; training on one dilutes the gradient)")
+    return batch
 
 
 def maybe_check_any(batch, dense_m: int | None = None, train: bool = False):

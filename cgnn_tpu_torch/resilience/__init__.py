@@ -8,9 +8,10 @@
   ``RESUMABLE_EXIT_CODE`` (75), for a scheduler to requeue with
   ``--resume auto``;
 - ``guard``: the divergence guard, a select of old against new state
-  inside the replayed train graph (bit-equal when nothing fires), and
-  ``DivergenceMonitor``, which rolls back to the last good checkpoint
-  with a cut rate after too many skipped steps;
+  inside the replayed train graph (bit-equal when nothing fires; in a
+  data-parallel step after the collective, so every rank skips alike),
+  and ``DivergenceMonitor``, which rolls back to the last good
+  checkpoint with a cut rate after too many skipped steps;
 - ``faultinject``: deterministic, environment-gated faults for the
   layers above (NaN batches, loader failures, a SIGTERM at an epoch's
   end, crashes at the checkpoint finalizer's points, corrupted saves)
@@ -18,4 +19,4 @@
   connections, boot crashes, a preemption mid-load).
 
 Not ported: the continual trainer's ``label_noise`` hook (ROADMAP Queue
-1, item 12) and the data-parallel guard (item 9)."""
+1, item 12)."""

@@ -20,6 +20,16 @@ through ``DeviceSums``. The host mirror of the count, which a replay
 raises by one whatever the step did, is settled at the epoch's one fetch
 (train/loop.py ``settle_count``).
 
+**The data-parallel guard** (``StepGuard``, the JAX
+``make_parallel_train_step(guard=True)``): the data-parallel step
+(parallel/data_parallel.py) saves the shadow before its forward and
+selects after the collective and the update, on the averaged parameters
+and BatchNorm statistics and the loss summed over the ranks, so a NaN on
+any rank makes every rank skip the same step and the ranks stay
+bit-equal. Its ``DivergenceMonitor`` reads the checkpoint through
+``data_parallel.CoordinatedCheckpoint``: process 0 restores from its own
+save and every rank takes the restored state from it by broadcast.
+
 **The host rollback** (``DivergenceMonitor``) watches each epoch's skip
 count. When ``max_skips`` or more steps of an epoch were skipped, or the
 epoch's loss is not finite, it restores the last good checkpoint through
@@ -100,23 +110,41 @@ class _Shadow:
         return ok
 
 
-def guard_step(body: Callable) -> Callable:
-    """Wrap a train body so non-finite updates are skipped on the device
-    (module docstring)."""
-    shadows: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+class StepGuard:
+    """The in-graph skip in two halves, for a step split around a
+    collective (the data-parallel step, parallel/data_parallel.py):
+    ``save(state)`` before the step writes anything, ``select(state,
+    metrics)`` after its update -> the guarded metric sums. Taken after
+    the collective, the verdict reads the averaged parameters and
+    statistics and the summed ``loss_sum``, so every rank keeps or skips
+    the same step."""
 
-    def guarded(state, batch) -> dict:
-        shadow = shadows.get(state.optimizer)
+    def __init__(self):
+        self._shadows: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+    def save(self, state) -> None:
+        shadow = self._shadows.get(state.optimizer)
         if shadow is None:
-            shadow = shadows[state.optimizer] = _Shadow(state)
+            shadow = self._shadows[state.optimizer] = _Shadow(state)
         shadow.save()
-        metrics = body(state, batch)
-        ok = shadow.select(metrics.get("loss_sum"))
+
+    def select(self, state, metrics: dict) -> dict:
+        ok = self._shadows[state.optimizer].select(metrics.get("loss_sum"))
         out = {k: torch.where(ok, v, 0.0) for k, v in metrics.items()}
         okf = ok.to(torch.float32)
         out["guard_skipped_sum"] = 1.0 - okf
         out["guard_skipped_count"] = torch.ones_like(okf)
         return out
+
+
+def guard_step(body: Callable) -> Callable:
+    """Wrap a train body so non-finite updates are skipped on the device
+    (module docstring)."""
+    guard = StepGuard()
+
+    def guarded(state, batch) -> dict:
+        guard.save(state)
+        return guard.select(state, body(state, batch))
 
     return guarded
 

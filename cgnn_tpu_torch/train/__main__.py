@@ -10,6 +10,7 @@
     python -m cgnn_tpu_torch.train --synthetic 400 --epochs 40 --resume auto
     python -m cgnn_tpu_torch.train --task force --synthetic 2048 --md-atoms 21
     python -m cgnn_tpu_torch.train TRAJ_DIR_OR_NPZ --task force --epochs 30
+    python -m cgnn_tpu_torch.train --synthetic 400 --data-parallel
 
 Data, as train.py reads it: ``--cache PATH`` loads a graph cache
 (data/cache.py) when PATH exists; otherwise ``--synthetic N`` structures,
@@ -97,6 +98,26 @@ so ``--edge-cap`` is ignored there with a warning. ``--check-invariants``
 validates every batch the iterators pack and the epoch driver stages,
 and the cache on load (data/invariants.py); a broken invariant raises
 ``BatchInvariantError`` naming it, and the run exits non-zero.
+
+Data parallel, with train.py's multi-process rules
+(``cgnn_tpu_torch/parallel``): ``--data-parallel`` under the environment
+triple ``CGNN_TPU_COORDINATOR`` (``host:port``) /
+``CGNN_TPU_NUM_PROCESSES`` / ``CGNN_TPU_PROCESS_ID`` makes this process
+one rank: the process group starts before anything touches CUDA
+(``--dist-backend auto``: gloo on the CPU, NCCL on CUDA; ``gloo`` for
+ranks that share a card; every collective waits at most
+``dist.DEFAULT_TIMEOUT_S``), each rank trains on its strided shard of the training and
+validation splits with the one-collective step
+(``parallel.data_parallel``), the test split is evaluated whole on every
+rank, and process 0 alone commits checkpoints and writes ``--out-dir``
+(``--resume`` restores there and the ranks take its state). Without the
+triple, ``--data-parallel`` starts one worker a visible card with the
+triple set (coordinator on localhost); with one card it is the
+one-process fit. Exit 2, as train.py: the triple without
+``--data-parallel``; with it, ``--scan-epochs``, ``--device-resident``,
+``--pack-once`` or ``--compact-staging on``; and, the port's own,
+``--task force`` (ROADMAP Queue 1, item 9b) and more ranks than cards
+under NCCL.
 
 The flags are train.py's that this entry point serves, with train.py's
 defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
@@ -258,6 +279,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "(eager steps: the step graphs are turned off)")
     p.add_argument("--out-dir", default="checkpoints/torch",
                    help="where params.npz and meta.json are written")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="data-parallel training, one process a card: "
+                        "under the CGNN_TPU_COORDINATOR/_NUM_PROCESSES/"
+                        "_PROCESS_ID triple this process is one rank; "
+                        "without it one worker is started for each "
+                        "visible card (one card: the one-process fit)")
+    p.add_argument("--dist-backend", choices=["auto", "gloo"],
+                   default="auto",
+                   help="--data-parallel's collectives: auto = gloo on "
+                        "the CPU, NCCL on CUDA (a card a rank); gloo on "
+                        "CUDA for ranks that share a card")
     # the force task
     p.add_argument("--energy-weight", type=float, default=1.0,
                    help="w_e in L = w_e*MSE(E) + w_f*MSE(F)")
@@ -299,11 +331,121 @@ def resolve_layout(args) -> int | None:
     return args.max_num_nbr if use_dense else 0
 
 
+def data_parallel_plan(args) -> tuple | None:
+    """train.py's data-parallel rules -> ("single", None): the
+    one-process fit; ("spawn", n): start one worker for each of n cards;
+    ("rank", backend): this process is one rank of the environment
+    triple's run. None after printing why the flags do not go together."""
+    import torch
+
+    from cgnn_tpu_torch.parallel import dist, mesh
+
+    try:
+        cfg = dist.configured_env()
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return None
+    if cfg is not None and not args.data_parallel:
+        print("multi-process run (CGNN_TPU_COORDINATOR set) requires "
+              "--data-parallel: without the data-parallel step there is "
+              "no cross-process gradient reduction and the processes "
+              "would silently train divergent models", file=sys.stderr)
+        return None
+    if not args.data_parallel:
+        return "single", None
+    device_type = torch.device(args.device).type
+    cards = mesh.device_count() if device_type == "cuda" else 0
+    world = cfg["num_processes"] if cfg is not None else cards
+    if world < 2:
+        print(f"--data-parallel: {world} visible card(s) and no "
+              f"CGNN_TPU_* triple: the one-process fit")
+        return "single", None
+    if args.scan_epochs or args.device_resident or args.pack_once:
+        print("multi-process DP runs the per-step loop; drop "
+              "--scan-epochs/--device-resident/--pack-once",
+              file=sys.stderr)
+        return None
+    if args.compact_staging == "on":
+        print("--compact-staging on is not yet supported with "
+              "--data-parallel (full staging only); drop the flag or use "
+              "auto", file=sys.stderr)
+        return None
+    if args.task == "force":
+        print("--task force is not data-parallel yet (ROADMAP Queue 1, "
+              "item 9b); drop --data-parallel", file=sys.stderr)
+        return None
+    backend, why = dist.resolve_backend(args.dist_backend, device_type,
+                                        world, cards)
+    if backend is None:
+        print(f"--data-parallel: {why}", file=sys.stderr)
+        return None
+    return ("rank", backend) if cfg is not None else ("spawn", world)
+
+
+def launch_local(argv, world: int, timeout: float | None = None) -> int:
+    """``--data-parallel`` over this host's cards: ``world`` workers of
+    this entry point with ``argv``, rank r with the environment triple
+    (coordinator on localhost, a free port) -> their exit code: the
+    first failure's (the others are stopped: a rank that died leaves its
+    peers blocked in a collective), else 75 when the run was preempted,
+    else 0. SIGTERM and SIGINT are passed on to the workers; past
+    ``timeout`` seconds every worker is killed (exit 124)."""
+    import signal
+    import socket
+    import subprocess
+
+    from cgnn_tpu_torch.parallel import dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cgnn_tpu_torch.train", *argv],
+        env=dict(os.environ, **dist.env_for(f"localhost:{port}", world, r)))
+        for r in range(world)]
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    old = {sig: signal.signal(sig, forward)
+           for sig in (signal.SIGTERM, signal.SIGINT)}
+    deadline = None if timeout is None else time.monotonic() + timeout
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next((p.returncode for p in procs
+                           if p.returncode not in (None, 0, 75)), None)
+            if deadline is not None and time.monotonic() > deadline:
+                failed = 124
+            time.sleep(0.1)
+    finally:
+        for sig, handler in old.items():
+            signal.signal(sig, handler)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    print(f"--data-parallel: {world} workers exited {codes}")
+    bad = [c for c in codes if c not in (0, 75)]
+    if failed is not None or bad:
+        return failed if failed is not None else bad[0]
+    return 75 if 75 in codes else 0
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     dense_m = resolve_layout(args)
     if dense_m is None:
         return 2
+    plan = data_parallel_plan(args)
+    if plan is None:
+        return 2
+    if plan[0] == "spawn":
+        return launch_local(argv, plan[1])
     if args.device_resident and not args.no_scan_epochs:
         args.scan_epochs = True  # train.py: the device-resident default
     if args.scan_epochs and args.no_scan_epochs:
@@ -323,13 +465,18 @@ def main(argv=None) -> int:
 
         preempt = PreemptionHandler.installed(log_fn=print)
     from cgnn_tpu_torch.data import invariants
+    from cgnn_tpu_torch.parallel import dist
 
     checks_were = invariants.enabled()
     if args.check_invariants:
         invariants.enable()
     try:
+        if plan[0] == "rank":
+            # before anything touches CUDA
+            dist.initialize_from_env(backend=plan[1])
         return _train(args, dense_m, compact_ok, preempt)
     finally:
+        dist.shutdown()
         invariants.enable(checks_were)
         if preempt is not None:
             preempt.uninstall()
@@ -340,6 +487,12 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
     from cgnn_tpu_torch.config import DataConfig, ModelConfig
     from cgnn_tpu_torch.data.dataset import train_val_test_split
     from cgnn_tpu_torch.device import resolve_device
+    from cgnn_tpu_torch.parallel import dist
+    from cgnn_tpu_torch.parallel.data_parallel import (
+        CoordinatedCheckpoint,
+        seed_rank_dropout,
+    )
+    from cgnn_tpu_torch.parallel.mesh import rank_device
     from cgnn_tpu_torch.resilience import faultinject
     from cgnn_tpu_torch.resilience.guard import DivergenceMonitor, debug_nans
     from cgnn_tpu_torch.resilience.preempt import resumable_exit
@@ -361,7 +514,20 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         print("--debug-nans: step graphs off; eager steps under "
               "torch.autograd.detect_anomaly(check_nan=True), each module's "
               "output checked")
-    dev = resolve_device(args.device)
+    dp = dist.active()
+    rank, world = dist.process_index(), dist.process_count()
+    dev = resolve_device(rank_device(args.device, rank) if dp
+                         else args.device)
+    if dp:
+        import torch
+
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        elif "OMP_NUM_THREADS" not in os.environ:
+            # the ranks share this host's cores: as many intra-op threads
+            # each as leaves them unshared (oversubscribed, they spin)
+            torch.set_num_threads(
+                max(1, len(os.sched_getaffinity(0)) // world))
     data_cfg = DataConfig(radius=args.radius, max_num_nbr=args.max_num_nbr,
                           dmin=args.dmin, step=args.step)
     loaded = load_graphs(args, data_cfg)
@@ -378,6 +544,19 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
     else:
         train_g, val_g, test_g = train_val_test_split(
             graphs, args.train_ratio, args.val_ratio, seed=args.seed)
+    # the normalizer, the capacities and the milestones come from the
+    # whole training split, so every rank holds the same
+    full_train = train_g
+    per_epoch = None
+    if dp:
+        # every rank ran the same split; each takes its strided shard
+        train_g = dist.host_shard(train_g)
+        val_g = dist.host_shard(val_g)
+        print(f"data-parallel: process {rank}/{world} trains "
+              f"{len(train_g)} / validates {len(val_g)} structures "
+              f"(strided host shard); test eval runs the full split on "
+              f"every process")
+        per_epoch = _dp_steps_per_epoch(args, full_train, train_g, dense_m)
     num_targets = int(train_g[0].target.shape[0])
     classification = args.task == "classification"
     force = args.task == "force"
@@ -398,7 +577,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         cgconv_impl="" if args.cgconv_impl == "off" else args.cgconv_impl,
     )
     state, node_cap, edge_cap = init_train_state(
-        model_cfg, data_cfg, train_g, batch_size=args.batch_size, device=dev,
+        model_cfg, data_cfg, full_train, batch_size=args.batch_size,
+        device=dev, steps_per_epoch=per_epoch,
         seed=args.seed, optim=args.optim, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
         lr_milestones_epochs=args.lr_milestones, task=args.task,
@@ -410,9 +590,14 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
               f"{node_cap * dense_m}); use --layout coo to honor it",
               file=sys.stderr)
     snug = args.packing == "snug"
-    ckpt = CheckpointManager(args.ckpt_dir, keep=args.keep_ckpts)
+    # process 0 alone commits (and, under --resume, restores: the other
+    # ranks take its state by broadcast)
+    ckpt = (CheckpointManager(args.ckpt_dir, keep=args.keep_ckpts)
+            if dist.is_coordinator() else None)
     try:
-        resumed = _resume(args, ckpt, state)
+        resumed = _resume(args, ckpt, state) if ckpt is not None else None
+        if dp:
+            resumed = _agree_resume(resumed)
         if resumed is None:
             return 2
         start_epoch, resume_meta = resumed
@@ -423,14 +608,24 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         monitor = None
         if args.guard == "rollback":
             monitor = DivergenceMonitor(
-                ckpt, max_skips=args.guard_max_skips,
+                CoordinatedCheckpoint(ckpt) if dp else ckpt,
+                max_skips=args.guard_max_skips,
                 lr_cut=args.guard_lr_cut,
                 max_rollbacks=args.guard_max_rollbacks, log_fn=print)
             if resume_meta is not None:
                 # the cut and the spent budget survive a requeue
                 state = monitor.resume_from_meta(state, resume_meta)
 
+        skip_noted = []
+
         def save(s, epoch, val_m, is_best):
+            if ckpt is None:
+                if not skip_noted:
+                    skip_noted.append(True)
+                    print(f"data-parallel: process {rank} skips "
+                          f"checkpoint commits (process 0 is the single "
+                          f"committer)")
+                return
             extra = monitor.meta() if monitor is not None else {}
             # train.py's key, whatever the selection metric
             ckpt.save(s, dict(meta_base, epoch=epoch,
@@ -441,6 +636,9 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         if args.compact_staging != "off" and compact_ok:
             compact = _compact_spec(args, train_g + val_g + test_g,
                                     data_cfg, dense_m, model_cfg.torch_dtype)
+        if dp:
+            seed_rank_dropout(state.model, args.seed, rank, world,
+                              start_epoch)
         with (debug_nans(state.model) if args.debug_nans
               else contextlib.nullcontext()):
             state, result = fit(
@@ -451,14 +649,17 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
                 on_epoch_end=save, buckets=args.buckets,
                 pack_once=args.pack_once,
                 device_resident=args.device_resident,
-                scan_epochs=args.scan_epochs, chunk_steps=args.chunk_steps,
-                compact=compact, graphs=not args.debug_nans,
-                guard=args.guard != "off", monitor=monitor, preempt=preempt,
+                scan_epochs=args.scan_epochs,
+                chunk_steps=args.chunk_steps, compact=compact,
+                graphs=not args.debug_nans, guard=args.guard != "off",
+                monitor=monitor, preempt=preempt,
                 force_weights=(args.energy_weight, args.force_weight),
                 packing=args.packing)
-        ckpt.wait()
+        if ckpt is not None:
+            ckpt.wait()
     finally:
-        ckpt.close()
+        if ckpt is not None:
+            ckpt.close()
     if result.get("preempted"):
         # the loop saved a resumable checkpoint at the boundary and the
         # close above waited for its commit (a failed save raised there)
@@ -483,6 +684,10 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
             f"{k} {v:.4f}" for k, v in cls.items() if v == v))
     print("train: " + json.dumps(run_summary(result, len(train_g), test_m),
                                  allow_nan=False))
+    if not dist.is_coordinator():
+        print(f"data-parallel: process {rank} leaves --out-dir to "
+              f"process 0")
+        return 0
     os.makedirs(args.out_dir, exist_ok=True)
     npz = os.path.join(args.out_dir, "params.npz")
     meta = os.path.join(args.out_dir, "meta.json")
@@ -495,18 +700,66 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
     return 0
 
 
+def _dp_steps_per_epoch(args, full_train, shard, dense_m) -> int:
+    """The training steps every rank runs an epoch (the least batch
+    count of the ranks' shards, at the whole split's capacities): what
+    the milestones count in a data-parallel run."""
+    from cgnn_tpu_torch.data.graph import count_batches
+    from cgnn_tpu_torch.parallel import dist
+    from cgnn_tpu_torch.train.loop import batch_caps
+
+    snug = args.packing == "snug"
+    caps = batch_caps(full_train, args.batch_size, dense_m or None,
+                      args.node_cap or None, args.edge_cap or None,
+                      snug=snug)
+    return dist.min_over_hosts(count_batches(shard, args.batch_size, *caps,
+                                             snug=snug))
+
+
+def _agree_resume(resumed) -> tuple | None:
+    """Process 0's resume decision (``_resume``'s: the first epoch and
+    the meta the guard keeps, or a refusal) on every rank."""
+    from cgnn_tpu_torch.parallel import dist
+
+    wire = ""
+    if resumed is not None:
+        start, meta = resumed
+        keep = {k: v for k, v in (meta or {}).items()
+                if k in ("guard_lr_scale", "guard_rollbacks")}
+        wire = json.dumps({"start": start,
+                           "meta": keep if meta is not None else None})
+    wire = dist.broadcast_str(wire)
+    if not wire:
+        return None
+    got = json.loads(wire)
+    return got["start"], got["meta"]
+
+
 def run_summary(result: dict, n_train: int, test: dict | None = None
                 ) -> dict:
     """The run's machine-readable line: per-epoch seconds and train
     structures/s (the epoch's train and validation wall), the step
     graphs' captures and replays, the driver's staging, and the test
-    metrics (a NaN, e.g. an AUC with one class present, as null)."""
+    metrics (a NaN, e.g. an AUC with one class present, as null); the
+    steps each validation epoch took and the steps the guard skipped,
+    each epoch's train loss and validation metric (``best_key``'s); a
+    data-parallel run's ``dp`` record (rank, world, backend, per-epoch
+    state digests)."""
+    from cgnn_tpu_torch.resilience.guard import skipped_steps
+
     hist = result["history"]
     out = {"epochs": [h["epoch"] for h in hist],
            "epoch_seconds": [h["seconds"] for h in hist],
            "train_structures_per_s": [n_train / h["seconds"] for h in hist],
            "train_steps": [h["train"]["steps"] for h in hist],
+           "eval_steps": [h["val"].get("steps", 0) for h in hist],
+           "guard_skipped": [skipped_steps(h["train"]) for h in hist],
+           "train_loss": [_finite(h["train"].get("loss")) for h in hist],
+           "val_metric": [_finite(h["val"].get(result["best_key"]))
+                          for h in hist],
            "graphs": result["graphs"]}
+    if "dp" in result:
+        out["dp"] = result["dp"]
     if "padding" in result:
         out["padding"] = result["padding"]
     if "staging" in result:
@@ -514,6 +767,14 @@ def run_summary(result: dict, n_train: int, test: dict | None = None
     if test is not None:
         out["test"] = {k: (None if v != v else v) for k, v in test.items()}
     return out
+
+
+def _finite(v) -> float | None:
+    """``v``, or None where it is missing or not finite (JSON has no
+    NaN)."""
+    import math
+
+    return v if v is not None and math.isfinite(v) else None
 
 
 def bad_label(graphs, num_classes: int) -> str | None:

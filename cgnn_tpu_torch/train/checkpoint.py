@@ -292,7 +292,14 @@ class CheckpointManager:
     def save_tree(self, tree: dict, meta: dict,
                   is_best: bool = False) -> None:
         """``save`` for a tree of host arrays the caller no longer
-        mutates (a converted checkpoint)."""
+        mutates (a converted checkpoint). Process 0 alone commits a
+        multi-process run's saves (parallel/dist.py)."""
+        from cgnn_tpu_torch.parallel import dist
+
+        if not dist.is_coordinator():
+            raise RuntimeError(
+                f"process {dist.process_index()} may not commit: process 0 "
+                f"alone commits a multi-process run's checkpoints")
         with self._lock:
             seq = self._next_seq
             self._next_seq += 1

@@ -46,9 +46,19 @@ the same generator state draw the same bits. ``state_guard`` snapshots
 and restores the generators' states with the rest, so a capture leaves
 them as it found them.
 
+The data-parallel train step is two graphs around a collective, which
+a graph cannot hold (gloo runs on the host; NCCL's capture is later
+work): graph A (kind ``train``, one a batch shape) runs the forward and
+backward and writes the gradients, the new BatchNorm statistics and the
+metric sums into one flat bucket; the host all-reduces the bucket; graph
+B (kind ``train_apply``, one for every shape: it reads only the bucket)
+averages the gradient and statistics regions, runs the optimizer and the
+guard's select and adds the summed metrics up (parallel/data_parallel.py
+``ParallelTrainStep``, train/loop.py ``SplitStepRunner``).
+
 ``COUNTS`` holds, for each kind of step (``train``, ``eval``,
-``predict``, and ``predict_raw``, the raw wire's step with its neighbor
-search), ``<kind>_runs`` (calls of ``run``: replays and eager steps),
+``predict``, ``predict_raw``, the raw wire's step with its neighbor
+search, and ``train_apply``), ``<kind>_runs`` (calls of ``run``: replays and eager steps),
 ``<kind>_replays``, ``<kind>_captures`` and ``<kind>_warm_runs`` (the
 warm-up runs before the captures: ``WARMUP_RUNS[kind]`` a capture). A
 kernel wrapper counts the launches it makes
@@ -71,11 +81,13 @@ from typing import Callable, Sequence
 import torch
 
 COUNTS: dict = {}
-KINDS = ("train", "eval", "predict", "predict_raw")
+KINDS = ("train", "eval", "predict", "predict_raw", "train_apply")
 # warm-up runs before a capture: two for a train step (the autograd
 # engine and the optimizer set up on the first), one for a forward-only
-# step, whose first run initializes all it needs
-WARMUP_RUNS = {"train": 2, "eval": 1, "predict": 1, "predict_raw": 1}
+# step, whose first run initializes all it needs, and one for the
+# data-parallel step's update (plain tensor ops on static buffers)
+WARMUP_RUNS = {"train": 2, "eval": 1, "predict": 1, "predict_raw": 1,
+               "train_apply": 1}
 
 
 def reset_counts() -> None:

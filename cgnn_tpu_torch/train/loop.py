@@ -70,9 +70,22 @@ each batch they pack, and the epoch driver checks every train
 (``train=True``) and validation batch again before it stages them, on
 the host copies.
 
+Data parallel (the JAX multi-process contract, parallel/
+data_parallel.py): under a live process group (``dist.active()``)
+``fit`` runs the per-step loop on this rank's shards with
+``SplitStepRunner``, whose train step is two graphs around the
+collective; each epoch's lists are cut or padded to the step count every
+rank runs (``parallel_batches``), the eval sums are reduced once an
+epoch, the state is replicated from rank 0 first and held to its bits
+after every epoch (``check_replicated``), and the preemption request is
+agreed across the ranks. The force task, compact staging, pack-once,
+device-resident staging and the epoch driver are not data-parallel
+(ValueError; the JAX multi-process path refuses the last three, the
+rest wait for ROADMAP Queue 1, item 9b).
+
 Not ported: the in-scan telemetry tap and the background pair fetch,
-data-parallel drivers and their guard, and ``--profile`` (ROADMAP
-Queue 1).
+the epoch driver's data-parallel and graph-sharded forms, and
+``--profile`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -98,6 +111,15 @@ from cgnn_tpu_torch.data.graph import (
     pack_graphs,
 )
 from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
+from cgnn_tpu_torch.parallel import dist
+from cgnn_tpu_torch.parallel.data_parallel import (
+    AgreedPreemption,
+    check_replicated,
+    make_parallel_train_step,
+    parallel_batches,
+    replicate_state,
+    sum_reducer_for_sums,
+)
 from cgnn_tpu_torch.resilience import faultinject
 from cgnn_tpu_torch.resilience.guard import guard_step, skipped_steps
 from cgnn_tpu_torch.train.graphs import (
@@ -635,10 +657,12 @@ class StepRunner:
     """The per-step loop's steps: one ``StepGraph`` per batch shape, made
     at the shape's first batch (captured on CUDA unless ``graphs`` is
     False), each batch copied into its static inputs; sums accumulate in
-    ``sums``."""
+    ``sums``. ``apply`` is a split step's second graph
+    (``SplitStepRunner``)."""
 
     def __init__(self, step: Callable, state, device, *, train: bool,
                  graphs: bool = True, log_fn: Callable | None = None):
+        self.apply: StepGraph | None = None
         self.state = state
         self.sums = DeviceSums()
         self.train = train
@@ -667,8 +691,11 @@ class StepRunner:
         self.cache.run(batch_shape_key(batch), batch)
 
     def epoch(self, batches: Iterable, *, print_freq: int = 0,
-              epoch: int = 0, log_fn: Callable = print) -> dict:
-        """One epoch over ``batches`` -> metric means (one fetch)."""
+              epoch: int = 0, log_fn: Callable = print,
+              reduce: Callable | None = None) -> dict:
+        """One epoch over ``batches`` -> metric means (one fetch).
+        ``reduce(sums)``, where given, combines the epoch's device sums
+        across ranks in place before the fetch (the data-parallel eval)."""
         self.sums.zero()
         steps = 0
         for it, batch in enumerate(batches):
@@ -677,7 +704,49 @@ class StepRunner:
             if print_freq and it % print_freq == 0:
                 _log_progress(fetch_device_sums(self.sums.sums), self.train,
                               epoch, it, log_fn)
+        if reduce is not None:
+            reduce(self.sums.sums)
         return means_from_sums(fetch_device_sums(self.sums.sums), steps)
+
+
+class SplitStepRunner(StepRunner):
+    """The per-step loop's data-parallel train steps: graph A
+    (``step.grad_part``) a batch shape, the collective (``step.reduce``)
+    on the host, then graph B (``step.apply_part``), one for every shape,
+    captured at the first step (train/graphs.py; ``step`` a
+    ``parallel.data_parallel.ParallelTrainStep``). Graph B's warm-up run
+    and capture overwrite the bucket, so its guard restores the bucket
+    with the state."""
+
+    def __init__(self, step, state, device, *, graphs: bool = True,
+                 log_fn: Callable | None = None):
+        super().__init__(step, state, device, train=True, graphs=graphs,
+                         log_fn=log_fn)
+
+    def _make(self, key, batch):
+        state, step = self.state, self._step
+        return StepGraph(lambda b: step.grad_part(state, b), batch,
+                         device=self.device, kind="train",
+                         label=f"{self.cache.label} {key}",
+                         guard=state_guard(state), capture=self._graphs,
+                         generators=state_generators(state))
+
+    def _make_apply(self) -> StepGraph:
+        state, step, sums = self.state, self._step, self.sums
+        return StepGraph(lambda: sums.add(step.apply_part(state)),
+                         device=self.device, kind="train_apply",
+                         label="train apply graph",
+                         guard=state_guard(state, lambda: [step.bucket],
+                                           [sums]),
+                         capture=self._graphs,
+                         on_replay=lambda: state.optimizer.advance(1))
+
+    def __call__(self, batch) -> None:
+        self.cache.run(batch_shape_key(batch), batch)
+        self._step.reduce()
+        if self.apply is None:
+            self.apply = self._make_apply()
+        self.apply.run()
 
 
 def fit(
@@ -718,9 +787,10 @@ def fit(
     driver's: packed and staged bytes, compact or not, the fall-back),
     "graphs": {captures, replays, captures_after_warm}}, "padding" (the
     first epoch's training batches: ``PaddingStats``' efficiencies, the
-    batch count, their (node_cap, edge_cap) shapes, and ``summary``), and
-    "preempted": True when a
-    preemption request stopped the run).
+    batch count, their (node_cap, edge_cap) shapes, and ``summary``),
+    "preempted": True when a preemption request stopped the run, and,
+    data-parallel, "dp": rank, world, backend and the per-epoch state
+    digests, also kept in each history entry as "digest").
 
     ``dense_m`` 0 or None packs the flat COO layout. ``packing`` is
     ``'snug'`` or ``'ladder'`` (module docstring; ``headroom`` the
@@ -744,8 +814,14 @@ def fit(
 
     ``guard``, ``monitor``, ``preempt``: the module docstring's
     resilience; with none of them (and no fault plan) nothing changes.
-    ``force_weights``: the force task's (w_energy, w_force)."""
+    ``force_weights``: the force task's (w_energy, w_force).
+
+    Under a live process group the run is data-parallel (module
+    docstring): ``train_graphs`` and ``val_graphs`` are this rank's
+    shards (``dist.host_shard``), ``batch_size`` is per rank, ``monitor``
+    must read its checkpoint through ``CoordinatedCheckpoint``."""
     dense_m = dense_m or None
+    dp = dist.active()
     if packing not in ("snug", "ladder"):
         raise ValueError(f"packing must be 'snug' or 'ladder', got "
                          f"{packing!r}")
@@ -767,6 +843,11 @@ def fit(
         raise ValueError("compact staging is refused for the force task "
                          "(train.py's rule): the model recomputes its "
                          "edges from the positions")
+    if dp and (force or pack_once or compact is not None):
+        raise ValueError("data parallel runs the per-step loop of the "
+                         "non-force tasks: no force task (ROADMAP Queue 1, "
+                         "item 9b), compact staging, pack-once, "
+                         "device-resident staging or epoch driver")
     pack_fn = expand = None
     if compact is not None:
         from cgnn_tpu_torch.data.compact import compact_pack_fn, make_expander
@@ -860,14 +941,24 @@ def fit(
             else val_batches,
             rng, device_resident=device_resident,
             stage=lambda b: b.to(device))
-    train_run = StepRunner(train_step, state, device, train=True,
-                           graphs=graphs, log_fn=log_fn)
+    reduce_sums = None
+    if dp:
+        train_run = SplitStepRunner(
+            make_parallel_train_step(classification, guard), state, device,
+            graphs=graphs, log_fn=log_fn)
+        reduce_sums = sum_reducer_for_sums()
+        if preempt is not None:
+            preempt = AgreedPreemption(preempt)
+        state = replicate_state(state)
+    else:
+        train_run = StepRunner(train_step, state, device, train=True,
+                               graphs=graphs, log_fn=log_fn)
     eval_run = StepRunner(eval_step, state, device, train=False,
                           graphs=graphs, log_fn=log_fn)
     best_key = ("force_mae" if force
                 else "correct" if classification else "mae")
     best = -np.inf if classification else np.inf
-    history = []
+    history, digests = [], []
     padding = None
     preempted = False
     for epoch in range(start_epoch, epochs):
@@ -887,13 +978,21 @@ def fit(
                 epoch_train, epoch_val = plan.epoch_iterators()
             else:
                 epoch_train, epoch_val = train_batches(rng), val_batches()
+            if dp:
+                # the whole epoch is packed first: its count is what the
+                # ranks agree on
+                epoch_train = parallel_batches(epoch_train, train=True,
+                                               dense_m=dense_m)
+                epoch_val = parallel_batches(epoch_val, train=False,
+                                             dense_m=dense_m)
             if not device_resident:
                 epoch_train = stage(epoch_train, device, prefetch,
                                     loader_stats)
                 epoch_val = stage(epoch_val, device, prefetch, loader_stats)
             train_m = train_run.epoch(epoch_train, print_freq=print_freq,
                                       epoch=epoch, log_fn=log_fn)
-            val_m = eval_run.epoch(epoch_val, epoch=epoch, log_fn=log_fn)
+            val_m = eval_run.epoch(epoch_val, epoch=epoch, log_fn=log_fn,
+                                   reduce=reduce_sums)
             settle_count(state, train_m)
             if epoch == start_epoch:
                 train_run.cache.mark_warm()
@@ -914,7 +1013,16 @@ def fit(
             best = metric
         history.append({"epoch": epoch, "train": train_m, "val": val_m,
                         "seconds": time.perf_counter() - t0})
-        log_fn(f"Epoch {epoch}: train loss {train_m.get('loss', np.nan):.4f}"
+        tag = ""
+        if dp:
+            digest = check_replicated(state, f"epoch {epoch}")
+            digests.append(digest)
+            history[-1]["digest"] = digest
+            log_fn(f"dp: process {dist.process_index()}/"
+                   f"{dist.process_count()} epoch {epoch} digest {digest}")
+            tag = f" [dp x{dist.process_count()}]"
+        log_fn(f"Epoch {epoch}{tag}: train loss "
+               f"{train_m.get('loss', np.nan):.4f}"
                f"  val {best_key} {metric:.4f}{' *' if is_best else ''}"
                f"  ({time.perf_counter() - t0:.1f}s)")
         state, _, preempted = resilience_epoch_end(
@@ -924,11 +1032,18 @@ def fit(
             break
     caches = ([driver.train_graphs, driver.eval_graphs] if driver is not None
               else [train_run.cache, eval_run.cache])
+    apply = [] if train_run.apply is None else [train_run.apply]
     out = {"best": best, "best_key": best_key, "history": history,
            "graphs": {
-        "captures": sum(c.captures() for c in caches),
-        "replays": sum(c.replays() for c in caches),
+        "captures": (sum(c.captures() for c in caches)
+                     + sum(g.graph is not None for g in apply)),
+        "replays": (sum(c.replays() for c in caches)
+                    + sum(g.replays for g in apply)),
         "captures_after_warm": sum(c.captures_after_warm for c in caches)}}
+    if dp:
+        out["dp"] = {"rank": dist.process_index(),
+                     "world": dist.process_count(),
+                     "backend": dist.backend(), "digests": digests}
     if padding is not None:
         out["padding"] = padding
     if preempted:

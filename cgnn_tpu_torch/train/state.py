@@ -261,7 +261,8 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
                      lr_milestones_epochs: Sequence[int] = (100,),
                      task: str = "regression", packing: str = "snug",
                      node_cap: int | None = None,
-                     edge_cap: int | None = None):
+                     edge_cap: int | None = None,
+                     steps_per_epoch: int | None = None):
     """A fresh TrainState as ``python -m cgnn_tpu_torch.train`` starts one
     -> (state, node_cap, edge_cap): the model on ``device`` with the
     numpy-seeded init (convert.init_params) and its dropout generator
@@ -272,8 +273,10 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
     ('snug' or 'ladder'; ``dense_m=0``: COO, whose edge capacity is its
     own), the given ``node_cap``/``edge_cap`` in place of the computed
     ones (a dense layout's edge capacity is always ``node_cap * M``).
-    ``task='force'`` builds the force field (config.build_force_model)
-    with its own tree."""
+    ``steps_per_epoch`` replaces the training graphs' batch count in the
+    milestones (a data-parallel run's: the steps every rank runs an
+    epoch). ``task='force'`` builds the force field
+    (config.build_force_model) with its own tree."""
     import numpy as np
 
     from cgnn_tpu_torch import convert
@@ -298,8 +301,8 @@ def init_train_state(model_cfg, data_cfg, train_graphs, *, batch_size: int,
     node_cap, edge_cap = batch_caps(train_graphs, batch_size,
                                     model_cfg.dense_m or None, node_cap,
                                     edge_cap, snug=snug)
-    per_epoch = max(1, count_batches(train_graphs, batch_size, node_cap,
-                                     edge_cap, snug=snug))
+    per_epoch = max(1, steps_per_epoch or count_batches(
+        train_graphs, batch_size, node_cap, edge_cap, snug=snug))
     optimizer = make_optimizer(
         model.parameters(), optim=optim, lr=lr, momentum=momentum,
         weight_decay=weight_decay,

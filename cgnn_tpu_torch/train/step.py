@@ -88,15 +88,19 @@ def loss_for(classification: bool) -> Callable:
     return classification_loss if classification else regression_loss
 
 
-def make_train_step(expander: Callable | None = None,
-                    classification: bool = False) -> Callable:
-    """(state, batch) -> metric sums; updates ``state`` in place.
-    ``expander`` (``data.compact.make_expander``) rebuilds a
-    ``CompactBatch`` on the device first; ``classification`` takes
-    ``classification_loss``, else ``regression_loss``."""
+def make_grad_step(expander: Callable | None = None,
+                   classification: bool = False) -> Callable:
+    """(state, batch) -> metric sums: the train step up to its optimizer
+    update. The forward runs in ``.train()`` (the BatchNorm running
+    statistics update), and the gradient of the batch's mean loss is left
+    in each parameter's ``.grad``. The data-parallel step
+    (parallel/data_parallel.py) reduces across ranks between this part
+    and the update, as the JAX step ``pmean``s its grads and statistics
+    before ``apply_gradients``. ``expander``, ``classification``: as
+    ``make_train_step``."""
     compute_loss = loss_for(classification)
 
-    def train_step(state, batch: GraphBatch) -> dict:
+    def grad_step(state, batch: GraphBatch) -> dict:
         if expander is not None and isinstance(batch, CompactBatch):
             batch = expander(batch)
         state.model.train()
@@ -104,8 +108,24 @@ def make_train_step(expander: Callable | None = None,
         loss, metrics = compute_loss(out, batch, state.normalizer)
         state.optimizer.zero_grad()
         loss.backward()
-        state.optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
+
+    return grad_step
+
+
+def make_train_step(expander: Callable | None = None,
+                    classification: bool = False) -> Callable:
+    """(state, batch) -> metric sums; updates ``state`` in place: the
+    grad part (``make_grad_step``), then one optimizer update.
+    ``expander`` (``data.compact.make_expander``) rebuilds a
+    ``CompactBatch`` on the device first; ``classification`` takes
+    ``classification_loss``, else ``regression_loss``."""
+    grad_step = make_grad_step(expander, classification)
+
+    def train_step(state, batch: GraphBatch) -> dict:
+        metrics = grad_step(state, batch)
+        state.optimizer.step()
+        return metrics
 
     return train_step
 

@@ -317,6 +317,32 @@ into ``build/kernels``), then:
    two full-width ``fit`` runs under the driver, each dropped with the
    collector off: the second's allocation back to within 8 MiB of where
    it began, and a ``gc.collect()`` after either frees nothing.
+16. data_parallel (after resilience) — data-parallel training as users
+   run it, two ranks of the train entry point (``--data-parallel
+   --dist-backend gloo``, the environment triple, each a process under
+   ``PathRun`` through ``traced_train``) sharing the one card, at full
+   width on a cache of 2048 MP-like structures (1638 train, ~819 a
+   rank), batch 256 a rank, 3 epochs: ``dp_dense`` (``--cgconv-impl
+   pallas``: kernels 1, 2, 4, 5) alone, then the one-process entry
+   point on the same data for the rate (two ranks on one card say
+   nothing of scaling), then ``dp_coo`` (``--aggregation pallas``:
+   kernel 6) and ``dp_guard`` (dense, ``nan_batch=1`` in rank 1's
+   environment only) side by side, the emulations below beside them. Each rank's launches exact
+   against its own steps (paths ``<leg>.rank<r>``: graph A a train
+   step, graph B ``train_apply``, every validation step padding
+   included, the test batches); both ranks' state digests equal after
+   every epoch, and their summed metrics and steps; no capture after
+   warm-up; process 0 committed every epoch and no other rank wrote its
+   ``--ckpt-dir`` or ``--out-dir``; ``dp_guard``'s ranks skipped the
+   same steps (>= 1). ``dp_dense`` and ``dp_coo``'s per-epoch train loss
+   and val MAE within rel 1e-5 of a one-process emulation on the card
+   (the same shards and shuffles, each step's grad part for rank 0's
+   batch and then rank 1's, the buckets summed and applied once).
+   ``dp_predict``: the predict entry point on process 0's checkpoint,
+   512 structures, rtol 1e-4 / atol 1e-4 of the plain path. A rank that
+   fails or hangs (past ``DP_RANK_TIMEOUT_S``; a collective waits the
+   process group's timeout, ``dist.DEFAULT_TIMEOUT_S``) is killed with
+   its peers and fails the phase.
 
 Launches on a path. A replayed graph launches its kernels without their
 wrappers, so each path's run (``PathRun``) is traced by the profiler,
@@ -4244,6 +4270,396 @@ def resilience_phase(dev, work_dir, split, mp_split):
     return summary, counts
 
 
+N_DP = 2048  # the data_parallel phase's MP-like structures (a graph cache)
+DP_WORLD = 2  # its ranks, sharing the one card over gloo
+DP_EPOCHS = 3
+DP_RANK_TIMEOUT_S = 300.0  # a rank's wall bound: killed past it, phase fails
+DP_RTOL = 1e-5  # two ranks vs the one-process emulation, per-epoch metrics
+# the train entry point run in a process under PathRun (traced_train)
+TRACED_TRAIN = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.traced_train(sys.argv[1], sys.argv[2:]))")
+
+
+def traced_train(out_path, argv) -> int:
+    """``python -m cgnn_tpu_torch.train ARGV`` in this process inside a
+    ``PathRun`` (this rank's card set first), its output captured and
+    echoed, written with the run's launches and step counters to
+    ``out_path`` as JSON -> its exit code."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cgnn_tpu_torch.parallel import dist
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+
+    cfg = dist.configured_env()
+    if cfg is not None:
+        torch.cuda.set_device(cfg["process_id"] % torch.cuda.device_count())
+    buf = io.StringIO()
+    with PathRun("train") as run:
+        with contextlib.redirect_stdout(buf):
+            rc = train_main(argv)
+    out = buf.getvalue()
+    sys.stdout.write(out)
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, "launches": run.launches, "wrapper": run.wrapper,
+                   "steps": run.steps, "out": out}, f, allow_nan=False)
+    return rc
+
+
+class DataParallelRun:
+    """``DP_WORLD`` ranks of the train entry point (``traced_train``, the
+    environment triple, the coordinator on a free localhost port), rank
+    r with ``--ckpt-dir``/``--out-dir`` of its own under
+    ``<work_dir>/<label>``; ``rank_env`` adds variables to one rank's
+    environment. ``wait`` bounds every rank by ``DP_RANK_TIMEOUT_S`` and
+    kills all of them on a failure or a hang; ``kill`` stops them
+    whatever their state."""
+
+    def __init__(self, label, work_dir, argv, rank_env=None):
+        import shutil
+
+        from cgnn_tpu_torch.parallel import dist
+
+        self.label = label
+        self.dir = os.path.join(work_dir, label)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir)
+        root = os.path.dirname(os.path.abspath(__file__))
+        coord = f"localhost:{free_port()}"
+        self.procs, self._logs = [], []
+        self.t0 = time.perf_counter()
+        for r in range(DP_WORLD):
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("CGNN_TPU_")}
+            env.update(dist.env_for(coord, DP_WORLD, r),
+                       PYTHONPATH=root, **(rank_env or {}).get(r, {}))
+            log = open(os.path.join(self.dir, f"rank{r}.log"), "w")
+            self._logs.append(log)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", TRACED_TRAIN, self.trace_path(r),
+                 *argv, "--ckpt-dir", self.ckpt(r), "--out-dir",
+                 os.path.join(self.dir, f"out-rank{r}")],
+                cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def kill(self) -> None:
+        """Every rank still running killed and reaped; the logs closed."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in self._logs:
+            log.close()
+
+    def trace_path(self, r) -> str:
+        return os.path.join(self.dir, f"rank{r}.trace.json")
+
+    def ckpt(self, r) -> str:
+        return os.path.join(self.dir, f"ckpt-rank{r}")
+
+    def wait(self) -> list:
+        """Every rank's trace (``traced_train``'s JSON) with its wall."""
+        deadline = self.t0 + DP_RANK_TIMEOUT_S
+        try:
+            # a rank that failed leaves the others blocked in a
+            # collective until the group's timeout: stop them at once
+            while (any(p.poll() is None for p in self.procs)
+                   and not any(p.poll() for p in self.procs)
+                   and time.perf_counter() < deadline):
+                time.sleep(0.2)
+        finally:
+            self.kill()
+        wall = time.perf_counter() - self.t0
+        codes = [p.returncode for p in self.procs]
+        for r in range(DP_WORLD):
+            tail = open(os.path.join(self.dir, f"rank{r}.log")).read()
+            for line in tail.splitlines()[-40:] if codes[r] else []:
+                print(f"{self.label} rank {r}: {line}")
+        check(codes == [0] * DP_WORLD,
+              f"{self.label}: ranks exited {codes} (a hung rank is killed "
+              f"after {DP_RANK_TIMEOUT_S} s)")
+        traces = []
+        for r in range(DP_WORLD):
+            with open(self.trace_path(r)) as f:
+                t = json.load(f)
+            t["info"] = json.loads(next(
+                line for line in t["out"].splitlines()
+                if line.startswith("train: "))[7:])
+            t["wall_s"] = wall
+            traces.append(t)
+        return traces
+
+
+def dp_logical(info) -> dict:
+    """A rank's steps from its ``train:`` record: each train step one run
+    of graph A (``train``) and one of graph B (``train_apply``); each
+    validation step, padding included, and each test batch one eval
+    run."""
+    train = sum(info["train_steps"])
+    return {"train": train, "train_apply": train,
+            "eval": sum(info["eval_steps"]) + info["test"]["steps"]}
+
+
+def dp_hold(label, traces, per_step, counts) -> dict:
+    """The ranks of one leg held together: rc 0, equal state digests
+    after every epoch, the same steps and test metrics, no capture after
+    warm-up, each rank's launches exact (``check_path``, path
+    ``<label>.rank<r>``), process 0's checkpoint committed and no other
+    rank's directories written -> the leg's record."""
+    infos = [t["info"] for t in traces]
+    digests = [i["dp"]["digests"] for i in infos]
+    check(all(d == digests[0] for d in digests)
+          and len(digests[0]) == DP_EPOCHS,
+          f"{label}: the ranks' digests differ: {digests}")
+    # the summed metrics are the same bits on every rank; the test
+    # split's, evaluated by each rank alone, may differ in the last bits
+    for key in ("train_steps", "eval_steps", "guard_skipped", "train_loss",
+                "val_metric"):
+        check(all(i[key] == infos[0][key] for i in infos),
+              f"{label}: the ranks' {key} differ: "
+              f"{[i[key] for i in infos]}")
+    for r, (t, i) in enumerate(zip(traces, infos)):
+        check(i["graphs"]["captures_after_warm"] == 0
+              and i["graphs"]["captures"] > 0,
+              f"{label} rank {r}: graphs {i['graphs']}")
+        run = types.SimpleNamespace(label=f"{label}.rank{r}",
+                                    launches=t["launches"],
+                                    wrapper=t["wrapper"], steps=t["steps"])
+        counts[run.label] = check_path(run, per_step, dp_logical(i))
+    return {"digests": digests[0], "train_steps": infos[0]["train_steps"],
+            "eval_steps": infos[0]["eval_steps"],
+            "guard_skipped": infos[0]["guard_skipped"],
+            "train_loss": infos[0]["train_loss"],
+            "val_mae": infos[0]["val_metric"], "test": infos[0]["test"],
+            "graphs": [i["graphs"] for i in infos],
+            "train_structures_per_s_by_rank": [
+                i["train_structures_per_s"] for i in infos],
+            "epoch_seconds_by_rank": [i["epoch_seconds"] for i in infos],
+            "wall_s": traces[0]["wall_s"]}
+
+
+def dp_committer(leg, r0_ckpt, other_dirs) -> None:
+    """Process 0 committed every epoch; no other rank wrote a directory."""
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(r0_ckpt)
+    saved = mgr.exists() and mgr.read_meta().get("epoch") == DP_EPOCHS - 1
+    mgr.close()
+    stray = [d for d in other_dirs if os.path.exists(d)]
+    check(saved and not stray,
+          f"{leg}: process 0's checkpoint committed {saved}; written by "
+          f"other ranks: {stray}")
+
+
+def dp_emulation(dev, graphs, model_kw, guard=True) -> dict:
+    """The two ranks' run in one process on the card: the same split,
+    host shards, per-rank shuffles and capacities as the entry point,
+    the same kernels, each step's grad part run for rank 0's batch and
+    then rank 1's (the BatchNorm statistics put back between them), the
+    buckets summed as the collective sums them and applied once; each
+    rank's validation batches padded as the ranks pad them and the sums
+    added up -> per-epoch train loss and val MAE."""
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import train_val_test_split
+    from cgnn_tpu_torch.data.graph import batch_iterator, count_batches
+    from cgnn_tpu_torch.parallel import dist
+    from cgnn_tpu_torch.parallel.data_parallel import (
+        ParallelTrainStep,
+        parallel_batches,
+    )
+    from cgnn_tpu_torch.train.loop import batch_caps
+    from cgnn_tpu_torch.train.metrics import DeviceSums, fetch_device_sums
+    from cgnn_tpu_torch.train.state import init_train_state
+    from cgnn_tpu_torch.train.step import make_eval_step, make_grad_step
+
+    train_g, val_g, _ = train_val_test_split(graphs, 0.8, 0.1, seed=SEED)
+    cfg = ModelConfig(**model_kw)
+    dense_m = cfg.dense_m or None
+    tshards = [dist.host_shard(train_g, r, DP_WORLD)
+               for r in range(DP_WORLD)]
+    vshards = [dist.host_shard(val_g, r, DP_WORLD) for r in range(DP_WORLD)]
+    nc, ec = batch_caps(train_g, BATCH, dense_m)
+    per_epoch = min(count_batches(s, BATCH, nc, ec, snug=True)
+                    for s in tshards)
+    state, nc, ec = init_train_state(cfg, DataConfig(), train_g,
+                                     batch_size=BATCH, device=dev,
+                                     seed=SEED, steps_per_epoch=per_epoch)
+    step = ParallelTrainStep(make_grad_step(), reducer=None,
+                             world=DP_WORLD, guard=guard)
+    eval_step = make_eval_step()
+    rngs = [np.random.default_rng(SEED) for _ in range(DP_WORLD)]
+    buffers = [b for b in state.model.buffers() if b.is_floating_point()]
+    out = {"train_loss": [], "val_mae": []}
+    for _ in range(DP_EPOCHS):
+        lists = [list(batch_iterator(tshards[r], BATCH, nc, ec, shuffle=True,
+                                     rng=rngs[r], dense_m=dense_m,
+                                     snug=True))
+                 for r in range(DP_WORLD)]
+        steps = min(map(len, lists))
+        tsums = DeviceSums()
+        for i in range(steps):
+            before = [b.clone() for b in buffers]
+            total = None
+            for r in range(DP_WORLD):
+                with torch.no_grad():
+                    torch._foreach_copy_(buffers, before)
+                step.grad_part(state, lists[r][i].to(dev))
+                total = (step.bucket.clone() if total is None
+                         else total + step.bucket)
+            step.bucket.copy_(total)
+            tsums.add(step.apply_part(state))
+        vlists = [list(batch_iterator(vshards[r], BATCH, nc, ec,
+                                      dense_m=dense_m, in_cap=0, snug=True))
+                  for r in range(DP_WORLD)]
+        longest = max(map(len, vlists))
+        vsums = [DeviceSums() for _ in range(DP_WORLD)]
+        for r in range(DP_WORLD):
+            for b in parallel_batches(vlists[r], train=False, steps=longest):
+                vsums[r].add(eval_step(state, b.to(dev)))
+        with torch.no_grad():
+            total = {k: sum(s.sums[k] for s in vsums) for k in vsums[0].sums}
+        t, v = fetch_device_sums(tsums.sums), fetch_device_sums(total)
+        out["train_loss"].append(t["loss_sum"] / t["count"])
+        out["val_mae"].append(v["mae_sum"] / v["count"])
+    return out
+
+
+def dp_against_emulation(label, leg, want) -> dict:
+    """A leg's per-epoch train loss and val MAE within DP_RTOL of the
+    one-process emulation's -> the largest relative difference."""
+    rel = max(abs(g - w) / max(abs(w), 1e-12)
+              for key in ("train_loss", "val_mae")
+              for g, w in zip(leg[key], want[key]))
+    ok = (len(leg["train_loss"]) == len(want["train_loss"]) == DP_EPOCHS
+          and rel <= DP_RTOL)
+    print(f"{label}: train loss {leg['train_loss']} / val MAE "
+          f"{leg['val_mae']} vs the one-process emulation "
+          f"{want['train_loss']} / {want['val_mae']}: max rel {rel!r} "
+          f"(rtol {DP_RTOL}): {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the two ranks leave the one-process emulation")
+    return {"emulation": want, "max_rel_vs_emulation": rel}
+
+
+def dp_steady_rate(n_train, seconds) -> float:
+    """Train structures/s over epochs 2.. (the first captures)."""
+    return n_train * (len(seconds) - 1) / sum(seconds[1:])
+
+
+def data_parallel_phase(dev, work_dir, card):
+    """The data_parallel phase (module docstring) -> (summary, counts)."""
+    import numpy as np
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.cache import save_graph_cache
+    from cgnn_tpu_torch.data.dataset import (
+        load_synthetic,
+        load_synthetic_mp,
+        train_val_test_split,
+    )
+    from cgnn_tpu_torch.predict import main as predict_main
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+
+    t_phase = time.perf_counter()
+    counts, summary = {}, {"card": card}
+    os.makedirs(work_dir, exist_ok=True)
+    graphs = load_synthetic_mp(N_DP, DataConfig().featurize_config(),
+                               seed=SEED)
+    cache = os.path.join(work_dir, "dp_graphs.npz")
+    save_graph_cache(graphs, cache)
+    n_train = len(train_val_test_split(graphs, 0.8, 0.1, seed=SEED)[0])
+    base = ["--cache", cache, "-b", str(BATCH), "--epochs", str(DP_EPOCHS),
+            "--print-freq", "0", "--seed", str(SEED)]
+    dp = ["--data-parallel", "--dist-backend", "gloo"]
+    dense = ["--cgconv-impl", "pallas"]
+    coo = ["--aggregation", COO_AGG]
+    n_conv = ModelConfig().n_conv
+    # the rates first, each run alone on the card: two ranks, then one
+    # process of the same entry point on the same data and flags
+    legs = {"dp_dense": DataParallelRun("dp_dense", work_dir,
+                                        base + dp + dense).wait()}
+    one = os.path.join(work_dir, "dp_one_process")
+    rc, out = run_main(train_main, base + dense + [
+        "--ckpt-dir", os.path.join(one, "ckpt"), "--out-dir",
+        os.path.join(one, "out")], "dp_one_process")
+    check(rc == 0, f"dp_one_process: the train entry point exited {rc}")
+    info = json.loads(next(line for line in out.splitlines()
+                           if line.startswith("train: "))[7:])
+    # then COO and the NaN leg side by side, the emulations beside them
+    runs = {"dp_coo": DataParallelRun("dp_coo", work_dir, base + dp + coo),
+            "dp_guard": DataParallelRun(
+                "dp_guard", work_dir, base + dp + dense,
+                rank_env={1: {"CGNN_TPU_FAULTS": "nan_batch=1"}})}
+    try:
+        emulated = {label: dp_emulation(dev, graphs, kw) for label, kw in (
+            ("dp_dense", {"dense_m": M, "cgconv_impl": "pallas"}),
+            ("dp_coo", {"dense_m": 0, "aggregation": COO_AGG}))}
+        legs.update({k: r.wait() for k, r in runs.items()})
+    finally:
+        for r in runs.values():
+            r.kill()
+    for label, traces in legs.items():
+        per_step = (coo_per_step(n_conv) if label == "dp_coo"
+                    else dense_per_step(n_conv))
+        summary[label] = dp_hold(label, traces, per_step, counts)
+        run_dir = os.path.join(work_dir, label)
+        dp_committer(label, os.path.join(run_dir, "ckpt-rank0"),
+                     [os.path.join(run_dir, f"{d}-rank{r}")
+                      for r in range(1, DP_WORLD) for d in ("ckpt", "out")])
+    g = summary["dp_guard"]
+    check(sum(g["guard_skipped"]) >= 1
+          and "FAULT INJECTION ACTIVE" in open(os.path.join(
+              work_dir, "dp_guard", "rank1.log")).read(),
+          f"dp_guard: skipped {g['guard_skipped']}")
+    print(f"dp_guard: both ranks skipped {g['guard_skipped']} steps by "
+          f"epoch, digests equal: ok")
+    for label, want in emulated.items():
+        summary[label].update(dp_against_emulation(label, summary[label],
+                                                   want))
+    two_s = np.max(summary["dp_dense"]["epoch_seconds_by_rank"],
+                   axis=0).tolist()
+    rates = {"two_ranks_one_card": dp_steady_rate(n_train, two_s),
+             "one_process": dp_steady_rate(n_train, info["epoch_seconds"])}
+    print(f"data_parallel rates on {card}: train structures/s over epochs "
+          f"2-{DP_EPOCHS}, {DP_WORLD} ranks sharing the card "
+          f"{rates['two_ranks_one_card']!r}, one process "
+          f"{rates['one_process']!r} (one card: not a scaling figure)")
+    summary["train_structures_per_s"] = rates
+    # predict on process 0's checkpoint, against the plain path
+    ck = os.path.join(work_dir, "dp_dense", "ckpt-rank0")
+    pred_graphs = load_synthetic(N_PREDICT, DataConfig().featurize_config())
+    want = plain_answers(dev, ck, "latest", pred_graphs)
+    out_csv = os.path.join(work_dir, "dp_predict.csv")
+    with PathRun("dp_predict") as run:
+        rc, out = run_main(predict_main, [
+            ck, "--synthetic", str(N_PREDICT), "-b", str(BATCH), "--wire",
+            "featurized", "--out", out_csv], "dp_predict")
+    check(rc == 0, f"dp_predict exited {rc}")
+    info = json.loads(next(line for line in out.splitlines()
+                           if line.startswith("predict: "))[9:])
+    counts["dp_predict"] = predict_path(run, dense_per_step(n_conv), info)
+    import csv as csvmod
+
+    rows = list(csvmod.reader(open(out_csv)))
+    got = np.array([[float(x) for x in r[2:]] for r in rows])
+    err = np.abs(got - want)
+    ok = ([r[0] for r in rows] == [x.cif_id for x in pred_graphs]
+          and got.shape == want.shape
+          and bool(np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(want))))
+    print(f"dp_predict: {N_PREDICT} structures on process 0's checkpoint "
+          f"vs the plain path: max_abs_err {float(err.max())!r} (rtol "
+          f"{SERVE_RTOL}, atol {SERVE_ATOL}): {'ok' if ok else 'FAIL'}")
+    check(ok, "dp_predict: the CSV disagrees with the plain path")
+    summary["dp_predict"] = {"max_abs_err_vs_plain": float(err.max()),
+                             "structures_per_s": info["structures_per_s"]}
+    summary["wall_s"] = time.perf_counter() - t_phase
+    print(f"data_parallel: {summary['wall_s']!r} s")
+    return summary, counts
+
+
 HTTP_CLIENTS = 16  # client threads of an HTTP burst
 N_HTTP = 192  # requests of an HTTP burst (each wire)
 N_HTTP_CACHE = 32  # requests repeated for the cache check
@@ -6341,12 +6757,14 @@ def main() -> int:
         dev, work_dir, calibration, coo_weights, card)
     res_summary, res_counts = resilience_phase(dev, work_dir, split,
                                                mp_split)
+    dp_summary, dp_counts = data_parallel_phase(dev, work_dir, card)
     http_summary, http_counts = serve_http_phase(dev, work_dir, card)
     # last: its paths launch no kernel but oc20_train's, and an in-process
     # server burst's trace lost a kernel record when it ran before them
     force_summary, force_counts = force_task_phase(dev, work_dir, card)
     by_path.update(**graphs_counts, **res_counts, **http_counts,
-                   **hm_counts, **bp_counts, **force_counts, **dl_counts)
+                   **hm_counts, **bp_counts, **force_counts, **dl_counts,
+                   **dp_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -6390,6 +6808,7 @@ def main() -> int:
     print(json.dumps({"data_layer": dl_summary}, allow_nan=False))
     print(json.dumps({"step_graphs": graphs_summary}, allow_nan=False))
     print(json.dumps({"resilience": res_summary}, allow_nan=False))
+    print(json.dumps({"data_parallel": dp_summary}, allow_nan=False))
     print(json.dumps({"serve_http": http_summary}, allow_nan=False))
     print(json.dumps({"heads_modes": hm_summary}, allow_nan=False))
     print(json.dumps({"bf16_paths": bp_summary}, allow_nan=False))

@@ -5,7 +5,8 @@ fixed-order reductions (kernels 2 and 4) bit-identical from run to run,
 kernels 1 and 2 on a shared node pass, the training op's kernel path
 against its structured twin, a checkpoint of a card-resident state,
 bulk raw inference's launches of kernel 8, the divergence guard inside
-a replayed train graph and the COO gathers' fixed-order backward.
+a replayed train graph, the COO gathers' fixed-order backward and two
+data-parallel ranks sharing the card over gloo.
 Marked ``cuda``; they skip where there is no card. On a GPU machine,
 from the repository root:
 
@@ -1640,3 +1641,25 @@ def test_dropped_fit_gives_card_memory_back(dev, mode):
         gc.enable()
     assert peak > before
     assert after - before < 8 * 2**20, (before, peak, after)
+
+
+def test_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Data parallel on one card: two ranks of the train entry point over
+    gloo on cuda:0 (chip_smoke's ``DataParallelRun``), the kernel path:
+    equal state digests after every epoch, the same summed metrics, no
+    capture after warm-up, and each rank's kernel launches exact on the
+    card (``check_path`` against its own steps)."""
+    import chip_smoke as c
+
+    argv = ["--synthetic", "96", "-b", "16", "--epochs", str(c.DP_EPOCHS),
+            "--atom-fea-len", "16", "--h-fea-len", "24", "--n-conv", "2",
+            "--cgconv-impl", "pallas", "--print-freq", "0",
+            "--data-parallel", "--dist-backend", "gloo"]
+    traces = c.DataParallelRun("dp_card", str(tmp_path), argv).wait()
+    counts = {}
+    c.dp_hold("dp_card", traces, c.dense_per_step(2), counts)
+    assert sorted(counts) == ["dp_card.rank0", "dp_card.rank1"]
+    for rec in counts.values():
+        for k in ("fused_cgconv_eval", "fused_cgconv_stats",
+                  "epilogue_reduce", "epilogue_dz"):
+            assert rec["launches"][k] > 0, (k, rec)
