@@ -220,13 +220,23 @@ def build_force_model(model_cfg: ModelConfig, data_cfg: DataConfig,
 
 
 def build_model(model_cfg: ModelConfig, data_cfg: DataConfig, device="cuda",
-                task: str = "regression", dropout_seed: int = 0):
+                task: str = "regression", dropout_seed: int = 0,
+                graph_group=None):
     """The model for a (model, data) config pair and ``task`` on
     ``device``: regression and classification (the config says which),
-    or the force field (``build_force_model``)."""
+    or the force field (``build_force_model``). ``graph_group`` (a
+    ``parallel.dist.Group``; the JAX ``edge_axis_name``) shards every
+    conv's edge work over its ranks (models/cgcnn.py
+    ``set_graph_group``): a run-time choice, not part of the config, so a
+    checkpoint restores into the unsharded model unchanged. The force
+    task refuses it, as the JAX package does."""
     if task == "force":
+        if graph_group is not None:
+            raise NotImplementedError(
+                "graph sharding is not supported for the force task")
         return build_force_model(model_cfg, data_cfg, device)
     if task not in ("regression", "classification"):
         raise ValueError(f"unknown task {task!r}")
-    return model_cfg.build(data_cfg.nbr_fea_len, device=device,
-                           dropout_seed=dropout_seed)
+    model = model_cfg.build(data_cfg.nbr_fea_len, device=device,
+                            dropout_seed=dropout_seed)
+    return model.set_graph_group(graph_group) if graph_group else model

@@ -171,6 +171,7 @@ def pack_graphs(
     coo_transpose: bool = False,
     pin: bool = False,
     edge_dtype=torch.float32,
+    transpose_shards: int = 1,
 ) -> GraphBatch:
     """Concatenate graphs into one fixed-capacity GraphBatch.
 
@@ -192,6 +193,13 @@ def pack_graphs(
     counterpart (``nbr_order``, ``nbr_offsets``, ``center_offsets``, from
     ``csr_transpose``), which the endpoint gathers' fixed-order backward
     reads (ops/segment.py ``gather_fixed_order``).
+
+    ``transpose_shards > 1`` (two-tier only) packs the per-shard stacked
+    mappings of node-strip graph sharding directly
+    (``shard_transpose_slots``: [S, ...] with slot indices local to each
+    strip) in place of the flat one; a shard's overflow is never larger
+    than the batch's, so ``over_cap`` bounds it as it bounds the flat
+    build.
 
     ``pin`` packs into page-locked host memory (a CUDA build of torch),
     so that a ``non_blocking`` copy to the card runs asynchronously.
@@ -217,6 +225,10 @@ def pack_graphs(
                          "(dense_m)")
     if coo_transpose and dense_m is not None:
         raise ValueError("coo_transpose requires the COO layout")
+    if transpose_shards > 1 and over_cap is None and in_cap is not None:
+        raise ValueError("transpose_shards requires the two-tier layout "
+                         "(over_cap; in_cap single-tier mappings cannot "
+                         "shard)")
     if not graphs:
         raise ValueError("cannot pack an empty graph list")
     if dense_m is not None and edge_cap != node_cap * dense_m:
@@ -355,7 +367,11 @@ def pack_graphs(
             else np.broadcast_to(np.atleast_1d(g.target_mask), (len(t),)))
 
     in_slots = in_mask = over_slots = over_nodes = over_mask = None
-    if in_cap is not None or over_cap is not None:
+    if transpose_shards > 1 and over_cap is not None:
+        in_slots, in_mask, over_slots, over_nodes, over_mask = (
+            shard_transpose_slots(neighbors, edge_mask > 0, node_cap,
+                                  dense_m, transpose_shards, over_cap))
+    elif in_cap is not None or over_cap is not None:
         in_slots, in_mask, over_slots, over_nodes, over_mask = (
             transpose_slots(neighbors, edge_mask > 0, node_cap, dense_m,
                             in_cap, over_cap))
@@ -477,6 +493,40 @@ def transpose_slots(
     return in_slots, in_mask, over_slots, over_nodes, over_mask
 
 
+def shard_transpose_slots(neighbors: np.ndarray, edge_real: np.ndarray,
+                          node_cap: int, dense_m: int, n_shards: int,
+                          over_cap: int) -> tuple:
+    """Per-shard two-tier transpose mappings for node-strip graph
+    sharding (parallel/edge_parallel.py): shard s owns the node strip
+    ``[s*N/S, (s+1)*N/S)`` and, by dense slot ownership, exactly that
+    strip's edge slots, whose neighbors point anywhere. Each shard's
+    mapping groups ITS slots by neighbor over all N nodes, with slot
+    indices local to the strip; tier 1 stays ``dense_m`` wide and the
+    overflow capacity stays the batch-global ``over_cap`` (an edge's rank
+    within one shard never exceeds its global rank). -> stacked
+    ``in_slots`` [S, N*M], ``in_mask`` [S, N, M], ``over_slots``/
+    ``over_nodes``/``over_mask`` [S, over_cap]."""
+    # strips must be whole node rows: node_cap divisibility is the real
+    # precondition (it implies the edge capacity's)
+    if node_cap % n_shards:
+        raise ValueError(
+            f"node_cap {node_cap} not divisible by {n_shards} shards "
+            f"(node-strip sharding owns whole node rows; round node_cap "
+            f"up to a multiple of the shard count)")
+    e_cap = len(neighbors)
+    if e_cap % n_shards:
+        raise ValueError(
+            f"edge capacity {e_cap} not divisible by {n_shards} shards "
+            f"(expected node_cap * dense_m with node_cap a multiple of "
+            f"the shard count)")
+    e_s = e_cap // n_shards
+    parts = [transpose_slots(neighbors[s * e_s:(s + 1) * e_s],
+                             edge_real[s * e_s:(s + 1) * e_s], node_cap,
+                             dense_m, None, over_cap)
+             for s in range(n_shards)]
+    return tuple(np.stack([p[i] for p in parts]) for i in range(5))
+
+
 def _in_degrees(g: CrystalGraph) -> np.ndarray:
     return np.bincount(g.neighbors, minlength=g.num_nodes)
 
@@ -560,6 +610,7 @@ def capacities_for(
     headroom: float = 1.15,
     dense_m: int | None = None,
     snug: bool = True,
+    node_multiple: int = 1,
 ) -> tuple[int, int]:
     """One (node_cap, edge_cap) for a dataset, the JAX package's integers.
 
@@ -576,7 +627,16 @@ def capacities_for(
     for snug on MP-like data (the JAX docstring's figures).
 
     With ``dense_m`` the edge capacity is ``node_cap * dense_m``.
+
+    ``node_multiple`` rounds the node capacity up to a multiple (node-strip
+    graph sharding: every shard owns a whole strip), and a dense edge
+    capacity with it.
     """
+    if node_multiple > 1:
+        nc, ec = capacities_for(graphs, batch_size, headroom,
+                                dense_m=dense_m, snug=snug)
+        nc = -(-nc // node_multiple) * node_multiple
+        return nc, (nc * dense_m if dense_m is not None else ec)
     nodes = np.array([g.num_nodes for g in graphs])
     if snug:
         b_count = max(1, math.ceil(len(graphs) / batch_size))
@@ -767,6 +827,7 @@ def batch_iterator(
     snug: bool = False,
     over_cap: int | None = None,
     pack_fn=None,
+    transpose_shards: int = 1,
 ):
     """Yield GraphBatches of one shape (node_cap, edge_cap, graph_cap),
     packed on the host (``pack_fn``: another packer with ``pack_graphs``'
@@ -786,13 +847,16 @@ def batch_iterator(
     given), ``in_cap > 0`` the single-tier one, ``in_cap=0`` none (eval
     batches, which run no backward). ``dense_m=None`` packs the flat COO
     layout, with its gathers' transpose (``coo_transpose``) unless
-    ``in_cap=0``.
+    ``in_cap=0``. ``transpose_shards > 1`` packs the two-tier mapping per
+    node strip (``pack_graphs``).
     """
     graph_cap = graph_cap_for(batch_size) if snug else batch_size
     # COO training batches: the gathers' transpose (only then, so another
     # packer, e.g. the dense-only compact one, never sees the keyword)
     kw = ({"coo_transpose": True} if dense_m is None and in_cap is None
           else {})
+    if transpose_shards > 1:
+        kw["transpose_shards"] = transpose_shards
     if dense_m is not None and in_cap is None and over_cap is None:
         over_cap = overflow_cap(graphs, graph_cap, dense_m)
     if in_cap is not None:
@@ -843,6 +907,8 @@ def bucketed_batch_iterator(
     snug: bool = True,
     per_bucket_in_cap: bool = False,
     pack_fn=None,
+    node_multiple: int = 1,
+    transpose_shards: int = 1,
 ):
     """Batches with one capacity per size class (the JAX
     ``bucketed_batch_iterator``): graphs split into ``n_buckets``
@@ -856,7 +922,8 @@ def bucketed_batch_iterator(
     transpose with ONE overflow capacity, sized by the worst class, so
     equal class shapes stay equal; ``per_bucket_in_cap`` packs the
     single-tier slots sized by each class's own worst in-degree instead;
-    ``in_cap`` as in ``batch_iterator``."""
+    ``in_cap`` and ``transpose_shards`` as in ``batch_iterator``;
+    ``node_multiple`` as in ``capacities_for``."""
     rng = rng or np.random.default_rng()
     bucket_of = assign_size_buckets(graphs, n_buckets)
     over_cap = None
@@ -875,13 +942,14 @@ def bucketed_batch_iterator(
             continue
         sub = [graphs[int(i)] for i in idxs]
         nc, ec = capacities_for(sub, batch_size, headroom, dense_m=dense_m,
-                                snug=snug)
+                                snug=snug, node_multiple=node_multiple)
         b_in_cap = in_cap
         if dense_m is not None and b_in_cap is None and per_bucket_in_cap:
             b_in_cap = in_degree_cap(sub)
         it = batch_iterator(sub, batch_size, nc, ec, shuffle=shuffle,
                             rng=rng, dense_m=dense_m, in_cap=b_in_cap,
-                            snug=snug, over_cap=over_cap, pack_fn=pack_fn)
+                            snug=snug, over_cap=over_cap, pack_fn=pack_fn,
+                            transpose_shards=transpose_shards)
         iters.append(stats.wrap(it) if stats is not None else it)
         weights.append(float(len(idxs)))
     active = list(range(len(iters)))

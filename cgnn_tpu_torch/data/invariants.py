@@ -152,32 +152,58 @@ def _check_transpose_mapping(batch, neighbors, real_e, ncap):
     """The transpose slots' completeness (flat ``neighbors`` [E] and
     ``real_e`` [E] bool), shared by GraphBatch and CompactBatch: every
     real edge slot listed exactly once, under its neighbor's row, in the
-    tier-1 slots or the node-sorted overflow list."""
+    tier-1 slots or the node-sorted overflow list. A per-shard stack
+    (``in_mask`` [S, N, tier], node-strip graph sharding) is read shard
+    by shard, each shard's local slots moved to their global ids: each
+    shard lists its own strip's real edges, and the union is held to the
+    same rule."""
+
+    def collect(in_slots, in_mask, over, slot_range, offset, tag):
+        if in_mask.shape[0] != ncap:
+            _fail(f"{tag}in_slots/in_mask row count != node capacity")
+        lst = in_slots.reshape(in_mask.shape)[in_mask > 0]
+        if lst.size and (lst.min() < 0 or lst.max() >= slot_range):
+            _fail(f"{tag}transpose mapping lists a slot outside its range "
+                  f"[0, {slot_range})")
+        parts = [lst + offset]
+        rows = [np.repeat(np.arange(ncap), (in_mask > 0).sum(axis=1))]
+        if over is not None:
+            osl, ond, omk = over
+            _shape(ond, osl.shape, "over_nodes")
+            _shape(omk, osl.shape, "over_mask")
+            if np.any(np.diff(ond) < 0):
+                _fail(f"{tag}over_nodes is not non-decreasing "
+                      f"(sorted-scatter promise broken)")
+            sel = omk > 0
+            if sel.any() and (osl[sel].min() < 0
+                              or osl[sel].max() >= slot_range):
+                _fail(f"{tag}overflow lists a slot outside its range")
+            parts.append(osl[sel] + offset)
+            rows.append(ond[sel])
+        return parts, rows
+
     in_mask = _np(batch.in_mask)
-    if in_mask.shape[0] != ncap:
-        _fail("in_slots/in_mask row count != node capacity")
-    slot_range = len(real_e)
-    lst = _np(batch.in_slots).reshape(in_mask.shape)[in_mask > 0]
-    if lst.size and (lst.min() < 0 or lst.max() >= slot_range):
-        _fail(f"transpose mapping lists a slot outside its range "
-              f"[0, {slot_range})")
-    parts = [lst]
-    rows = [np.repeat(np.arange(ncap), (in_mask > 0).sum(axis=1))]
-    if batch.over_slots is not None:
-        osl = _np(batch.over_slots)
-        ond = _np(batch.over_nodes)
-        omk = _np(batch.over_mask)
-        _shape(ond, osl.shape, "over_nodes")
-        _shape(omk, osl.shape, "over_mask")
-        if np.any(np.diff(ond) < 0):
-            _fail("over_nodes is not non-decreasing (sorted-scatter promise "
-                  "broken)")
-        sel = omk > 0
-        if sel.any() and (osl[sel].min() < 0
-                          or osl[sel].max() >= slot_range):
-            _fail("overflow lists a slot outside its range")
-        parts.append(osl[sel])
-        rows.append(ond[sel])
+    over_all = (None if batch.over_slots is None
+                else (_np(batch.over_slots), _np(batch.over_nodes),
+                      _np(batch.over_mask)))
+    if in_mask.ndim == 3:
+        n_sh = in_mask.shape[0]
+        if len(real_e) % n_sh:
+            _fail("sharded transpose mapping: edge capacity not divisible "
+                  "by the shard count")
+        e_s = len(real_e) // n_sh
+        in_slots = _np(batch.in_slots).reshape(n_sh, -1)
+        parts, rows = [], []
+        for s in range(n_sh):
+            p, r = collect(in_slots[s], in_mask[s],
+                           None if over_all is None
+                           else tuple(x[s] for x in over_all),
+                           e_s, s * e_s, f"shard {s} ")
+            parts += p
+            rows += r
+    else:
+        parts, rows = collect(_np(batch.in_slots), in_mask, over_all,
+                              len(real_e), 0, "")
     listed = np.concatenate(parts)
     rows = np.concatenate(rows)
     if listed.size != int(real_e.sum()):

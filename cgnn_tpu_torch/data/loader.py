@@ -13,6 +13,15 @@ of the batch is marked used on that stream (``record_stream``), so the
 caching allocator does not hand the memory out again while the step
 still reads it. On the CPU the put is the identity.
 
+The side stream comes from PyTorch's high-priority stream pool
+(``staging_stream``). Step graphs capture on a stream of the other pool
+(train/graphs.py ``capture_stream``): the pools hand out their 32
+streams in turn, so a side stream from the same pool is the capture
+stream every 32nd loader, and its copies and event, enqueued by the
+producer while the consumer captures a step, land in the graph; the
+consumer's wait on that event then fails (``CUDA error: invalid
+argument``).
+
 Every queue put is bounded by a stop event that the consumer generator's
 ``finally`` sets, so a consumer that abandons the iterator releases the
 producer within one tick. ``LoaderStats`` holds the counters:
@@ -47,6 +56,13 @@ class LoaderStats:
 def _tensors(batch) -> list[torch.Tensor]:
     return [v for f in dataclasses.fields(batch)
             if isinstance(v := getattr(batch, f.name), torch.Tensor)]
+
+
+def staging_stream(device) -> torch.cuda.Stream:
+    """A side stream for the loader's copies on ``device``, from the
+    high-priority pool, which no capture stream comes from (module
+    docstring)."""
+    return torch.cuda.Stream(device, priority=-1)
 
 
 def prefetch_to_device(
@@ -85,7 +101,7 @@ def prefetch_to_device(
             side = None
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
-                side = torch.cuda.Stream(dev)
+                side = staging_stream(dev)
             it = iter(batches)
             while not stop.is_set():
                 t0 = time.perf_counter()

@@ -39,6 +39,30 @@ again under ``'pallas'``), so COO training repeats its bits run to run,
 as the dense layout's transpose does. The COO branch takes neither
 ``cgconv_impl`` nor ``fused_epilogue`` (both fuse the dense layout).
 
+Graph sharding (``graph_group``, a ``parallel.dist.Group``: the JAX
+``edge_axis_name``; ``set_graph_group``) splits every batch's edge work
+over the group's ranks, each holding the whole node and graph leaves and
+only its own part of the edge leaves (parallel/edge_parallel.py
+``rank_view``):
+
+- dense: rank s owns the node strip ``[s*N/G, (s+1)*N/G)`` and its
+  [N/G, M] edge slots, so each node's message sum is whole on its rank;
+  the strips are all-gathered into the full [N, F] aggregate (backward:
+  the rank's strip of the cotangent);
+- COO: rank s holds a contiguous chunk of the center-sorted edge list
+  and sums it to a partial [N, F], made whole by an all-reduce (backward:
+  the identity);
+
+with BN1's moments over every rank's edges (ops/norm.py ``group``), and
+the nodes entering the sharded region through ``Group.enter``, whose
+backward sums the ranks' partial node cotangents. The edge-side
+parameters (``fc_full``, ``bn1``: ``sharded_parameters``) get partial
+gradients on each rank and are summed over the group after the backward
+(train/step.py); the node-side ones (the embedding, ``bn2``, the head)
+are whole on every rank already. ``cgconv_impl`` and ``fused_epilogue``
+are refused with it (the JAX rule: they fuse the unsharded dense conv).
+The parameter tree does not change.
+
 ``dtype=torch.bfloat16`` is the JAX ``dtype=bfloat16`` compute: f32
 parameters and BatchNorm statistics, every Dense as flax's
 ``Dense(dtype=...)`` (input, weight and bias cast to bf16, the product
@@ -125,6 +149,8 @@ class CGConv(nn.Module):
                              f"{AGGREGATION_IMPLS}, got {aggregation_impl!r}")
         self.features = features
         self.dense_m = dense_m
+        # graph sharding's group (CrystalGraphConvNet.set_graph_group)
+        self.graph_group = None
         self.cgconv_impl = cgconv_impl
         self.aggregation_impl = aggregation_impl
         self.fixed_order_sum = fixed_order_sum
@@ -141,7 +167,10 @@ class CGConv(nn.Module):
         """``transpose``: the batch's ``(in_slots, in_mask, over_slots,
         over_nodes, over_mask)`` (dense) or ``(center_offsets, nbr_order,
         nbr_offsets)`` (COO), or None."""
-        if self.dense_m is None:
+        if self.graph_group is not None:
+            agg = self._sharded_aggregate(nodes, edges, centers, neighbors,
+                                          edge_mask, transpose)
+        elif self.dense_m is None:
             agg = self._coo_aggregate(nodes, edges, centers, neighbors,
                                       edge_mask, transpose)
         else:
@@ -152,8 +181,62 @@ class CGConv(nn.Module):
         out = softplus(nodes + agg)
         return out * node_mask[:, None].to(out.dtype)
 
+    def _sharded_aggregate(self, nodes, edges, centers, neighbors,
+                           edge_mask, transpose):
+        """This rank's share of the conv's edge work under graph sharding
+        (module docstring) -> the whole [N, F] aggregate, the same on
+        every rank of the group."""
+        grp = self.graph_group
+        n, f = nodes.shape[0], self.features
+        nodes_v = grp.enter(nodes)
+        if self.dense_m is None:
+            return grp.sum_partials(self._coo_aggregate(
+                nodes_v, edges, centers, neighbors, edge_mask, transpose,
+                grp))
+        m = self.dense_m
+        e = edges if edges.dim() == 3 else edges.reshape(-1, m,
+                                                         edges.shape[-1])
+        n_strip = e.shape[0]
+        if n_strip * grp.size != n:
+            raise ValueError(
+                f"a node strip of {n_strip} rows over {grp.size} graph "
+                f"shards does not cover the batch's {n} nodes")
+        if transpose is not None:
+            # a rank's mapping arrives as its row of the per-shard stack
+            # ([1, ...], parallel/edge_parallel.py rank_view); a stack for
+            # another shard count would drop cotangents silently
+            if transpose[1].dim() == 3:
+                if transpose[1].shape[0] != 1:
+                    raise ValueError(
+                        f"per-shard transpose mapping was built for "
+                        f"{transpose[1].shape[0]}x this group's graph-shard "
+                        f"count (pack with transpose_shards == the "
+                        f"group's size)")
+                transpose = tuple(None if t is None else t[0]
+                                  for t in transpose)
+            v_j = gather_transpose(nodes_v, neighbors, *transpose)
+        else:
+            v_j = gather(nodes_v, neighbors)
+        v_j = v_j.reshape(n_strip, m, f)
+        lo = grp.index * n_strip
+        strip = nodes_v[lo:lo + n_strip]
+        dt = self.compute_dtype or self.fc_full.kernel.dtype
+        k = self.fc_full.kernel.to(dt)
+        z = (
+            (strip.to(dt) @ k[:f])[:, None, :]
+            + v_j.to(dt) @ k[f: 2 * f]
+            + e.to(nodes.dtype).to(dt) @ k[2 * f:]
+        ) + self.fc_full.bias.to(dt)
+        emask = edge_mask.reshape(n_strip, m)
+        if self.bn1 is not None:
+            z = self.bn1(z, emask, group=grp)
+        gate, core = z.chunk(2, dim=-1)
+        msg = torch.sigmoid(gate) * softplus(core)
+        msg = msg * emask[..., None].to(msg.dtype)
+        return grp.gather_strips(msg.sum(dim=1))
+
     def _coo_aggregate(self, nodes, edges, centers, neighbors, edge_mask,
-                       transpose):
+                       transpose, group=None):
         center_offsets = None
         if transpose is None:
             v_i, v_j = gather(nodes, centers), gather(nodes, neighbors)
@@ -169,7 +252,7 @@ class CGConv(nn.Module):
         z = (z.to(dt) @ self.fc_full.kernel.to(dt)
              + self.fc_full.bias.to(dt))
         if self.bn1 is not None:
-            z = self.bn1(z, edge_mask)
+            z = self.bn1(z, edge_mask, group=group)
         gate, core = z.chunk(2, dim=-1)
         msg = torch.sigmoid(gate) * softplus(core)
         msg = msg * edge_mask[:, None].to(msg.dtype)
@@ -276,6 +359,9 @@ class CrystalGraphConvNet(nn.Module):
         cdt = None if dtype == torch.float32 else dtype
         self.dropout_seed = dropout_seed
         self._generator = None
+        self.cgconv_impl = cgconv_impl
+        self.fused_epilogue = fused_epilogue
+        self.graph_group = None
         self.embedding = Dense(orig_atom_fea_len, atom_fea_len, cdt)
         for i in range(n_conv):
             self.add_module(f"conv_{i}", CGConv(
@@ -292,6 +378,35 @@ class CrystalGraphConvNet(nn.Module):
             self.fc_out = Dense(
                 h_fea_len, num_classes if classification else num_targets,
                 cdt)
+
+    def set_graph_group(self, group) -> "CrystalGraphConvNet":
+        """Shard every conv's edge work over ``group`` (a
+        ``parallel.dist.Group``; None: unsharded again), the JAX
+        ``edge_axis_name`` (module docstring). Refused, with the JAX
+        message, for ``cgconv_impl`` and ``fused_epilogue``."""
+        if group is not None and self.fused_epilogue:
+            raise NotImplementedError(
+                "fused_epilogue requires the dense layout with BatchNorm "
+                "(it fuses the BN1->gate->mask->sum chain) and no graph "
+                "sharding")
+        if group is not None and self.cgconv_impl:
+            raise NotImplementedError(
+                "cgconv_impl (the whole-conv fused kernel) requires the "
+                "dense layout with BatchNorm and no graph sharding")
+        self.graph_group = group
+        for i in range(self.n_conv):
+            getattr(self, f"conv_{i}").graph_group = group
+        return self
+
+    def sharded_parameters(self) -> list:
+        """The parameters used inside the sharded region (each conv's
+        ``fc_full`` and ``bn1``): their gradients are partial on each
+        rank of a graph group."""
+        return [p for i in range(self.n_conv)
+                for name in ("fc_full", "bn1")
+                if (mod := getattr(getattr(self, f"conv_{i}"), name))
+                is not None
+                for p in mod.parameters()]
 
     def dropout_generator(self) -> torch.Generator:
         """The dropout mask's generator, on the parameters' device, made

@@ -13,7 +13,16 @@ JAX module defines them:
 - the running update uses momentum 0.1 and the unbiased variance
   var * n / max(n - 1, 1), done in place on the buffers under no_grad;
   an all-padding batch leaves the running statistics untouched;
-- eval mode normalizes with the running statistics.
+- eval mode normalizes with the running statistics;
+- ``group`` (a ``parallel.dist.Group``, the JAX ``axis_name``): the rows
+  are split over the group's ranks (graph sharding), and the statistics
+  span them all: the shift is the group's mean of the ranks' shifts (a
+  strip's first row may be padding, and the ranks must agree on it for
+  their sums to add), then f32 reduces ``(n_real, s1, s2)`` once, f64
+  ``(n_real, s1)`` and then the centered sum. The sums are made whole
+  with ``Group.sum_partials`` and enter the rank's rows again with
+  ``Group.enter``, so their cotangents, partial on each rank, are summed
+  in the backward.
 
 ``nn.BatchNorm1d`` cannot stand in: it takes no mask.
 """
@@ -24,9 +33,22 @@ import torch
 from torch import nn
 
 
-def masked_moments(x: torch.Tensor, mask: torch.Tensor | None):
+def _group_sums(group, *sums):
+    """The ranks' sums added over ``group`` in one collective, each
+    differentiable (module docstring), or as they are without a group."""
+    if group is None:
+        return sums
+    sizes = [t.numel() for t in sums]
+    flat = torch.cat([t.reshape(-1) for t in sums])
+    flat = group.enter(group.sum_partials(flat))
+    return tuple(v.view(t.shape) for v, t in zip(flat.split(sizes), sums))
+
+
+def masked_moments(x: torch.Tensor, mask: torch.Tensor | None,
+                   group=None):
     """-> (mean, biased var, n_real) over every axis but the last, in the
-    statistics dtype (float64 for float64 input, else float32).
+    statistics dtype (float64 for float64 input, else float32), over the
+    rows of every rank of ``group`` when one is given (module docstring).
     Differentiable in ``x``; the cancellation shift is not."""
     stat_dtype = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(stat_dtype)
@@ -34,6 +56,8 @@ def masked_moments(x: torch.Tensor, mask: torch.Tensor | None):
     one_pass = stat_dtype == torch.float32
     if one_pass:
         shift = xf[:1].mean(dim=axes).detach()
+        if group is not None:
+            shift = group.mean_(shift.clone())
         xs = xf - shift
     else:
         xs = xf
@@ -50,6 +74,11 @@ def masked_moments(x: torch.Tensor, mask: torch.Tensor | None):
         n_real = xf.new_full((), float(xf[..., 0].numel()))
         s1 = xs.sum(dim=axes)
         s2 = (xs * xs).sum(dim=axes) if one_pass else None
+    if one_pass:
+        n_real, s1, s2 = _group_sums(group, n_real.reshape(1), s1, s2)
+    else:
+        n_real, s1 = _group_sums(group, n_real.reshape(1), s1)
+    n_real = n_real.reshape(())
     n = torch.clamp_min(n_real, 1.0)
     if one_pass:
         mean_s = s1 / n
@@ -59,7 +88,8 @@ def masked_moments(x: torch.Tensor, mask: torch.Tensor | None):
     centered = (xf - mean) ** 2
     if m is not None:
         centered = centered * m[..., None]
-    return mean, centered.sum(dim=axes) / n, n_real
+    (ss,) = _group_sums(group, centered.sum(dim=axes))
+    return mean, ss / n, n_real
 
 
 @torch.no_grad()
@@ -96,10 +126,12 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                group=None) -> torch.Tensor:
+        """``group``: the ranks ``x``'s rows are split over (module
+        docstring); train mode only reads it."""
         if self.training:
-            mean, var, n_real = masked_moments(x, mask)
+            mean, var, n_real = masked_moments(x, mask, group)
             update_running_stats(self.running_mean, self.running_var,
                                  mean.detach(), var.detach(),
                                  n_real.detach(), self.momentum)

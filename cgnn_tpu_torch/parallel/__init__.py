@@ -1,12 +1,16 @@
-"""Data-parallel training over ``torch.distributed`` (``cgnn_tpu/
-parallel``): one process a card, the JAX package's multi-process
-contract (dist.py: the process group, host shards and coordination;
-mesh.py: a rank's card; data_parallel.py: the step, the replicated state
-and the per-rank batch lists, which train/loop.py ``fit`` runs as its
-per-step loop under a live process group). There is no ``compat.py``:
-``shard_map`` and ``pcast`` have no PyTorch counterpart. Graph sharding
-(``edge_parallel``) and the multi-device forward paths (``executor``)
-are not ported yet (ROADMAP Queue 1, items 9b and 9c)."""
+"""Data-parallel and graph-sharded training over ``torch.distributed``
+(``cgnn_tpu/parallel``): one process a card, the JAX package's
+multi-process contract (dist.py: the process group, its graph and data
+groups, host shards, coordination and the autograd collectives; mesh.py:
+a rank's card and its place in a D x G layout; data_parallel.py: the
+step, the replicated state and the per-rank batch lists; edge_parallel.py:
+a rank's strip or chunk of every batch's edge leaves), which
+train/loop.py ``fit`` runs as its per-step loop under a live process
+group. There is no ``compat.py``: ``shard_map`` and ``pcast`` have no
+PyTorch counterpart (``dist.Group``'s collectives take their place). The
+epoch driver's data-parallel and graph-sharded forms (ROADMAP Queue 1,
+item 9b, second part) and the multi-device forward paths (``executor``,
+item 9c) are not ported yet."""
 
 from cgnn_tpu_torch.parallel.data_parallel import (
     CoordinatedCheckpoint,
@@ -21,19 +25,44 @@ from cgnn_tpu_torch.parallel.data_parallel import (
     stack_batches,
     state_digest,
 )
-from cgnn_tpu_torch.parallel.mesh import device_count, rank_device
+from cgnn_tpu_torch.parallel.dist import Group
+from cgnn_tpu_torch.parallel.edge_parallel import (
+    EDGE_FIELDS,
+    chunk_transpose,
+    edge_nbytes,
+    pad_edges_divisible,
+    prepare_dense_sharded,
+    rank_view,
+)
+from cgnn_tpu_torch.parallel.mesh import (
+    data_group_ranks,
+    device_count,
+    graph_group_ranks,
+    rank_device,
+    rank_layout,
+)
 
 __all__ = [
+    "EDGE_FIELDS",
     "CoordinatedCheckpoint",
+    "Group",
     "ParallelTrainStep",
     "ReplicaDriftError",
     "check_replicated",
+    "chunk_transpose",
+    "data_group_ranks",
     "device_count",
+    "edge_nbytes",
     "empty_batch_like",
+    "graph_group_ranks",
     "make_parallel_eval_step",
     "make_parallel_train_step",
+    "pad_edges_divisible",
     "parallel_batches",
+    "prepare_dense_sharded",
     "rank_device",
+    "rank_layout",
+    "rank_view",
     "replicate_state",
     "stack_batches",
     "state_digest",

@@ -39,8 +39,18 @@ totals agree up to the order of the additions). The JAX multi-process
 path instead cuts the validation batches to the shortest host's count,
 which drops structures (ROADMAP Queue 3).
 
+Under graph sharding (a D x G run, parallel/edge_parallel.py) the G
+ranks of a graph group train one data index's batches together: the
+sharded grad step leaves the same whole gradients, statistics and metric
+sums on each of them, so the step averages and sums over the DATA group
+only (the D ranks of one graph index; ``dist.data_group``): a world-wide
+sum would count every step G times. The host shards, the shuffles and
+the dropout streams follow the data index, so the ranks of a graph group
+hold the same node leaves.
+
 The per-step loop is train/loop.py ``fit``, which takes this path under
-a live process group.
+a live process group. The force task takes it too, its grad part
+``train/force_step.py`` ``make_force_grad_step``.
 """
 
 from __future__ import annotations
@@ -106,7 +116,8 @@ def empty_batch_like(batch: GraphBatch) -> GraphBatch:
 
 def parallel_batches(batches: Iterable[GraphBatch], *, train: bool,
                      dense_m: int | None = None,
-                     steps: int | None = None) -> list:
+                     steps: int | None = None,
+                     prep_fn: Callable | None = None) -> list:
     """This rank's batches of one epoch at the step count every rank
     runs: ``steps``, by default the shortest rank's count for training
     (an unmatched all-reduce hangs, so the longer ranks drop their tail,
@@ -114,7 +125,12 @@ def parallel_batches(batches: Iterable[GraphBatch], *, train: bool,
     shorter ranks pad with ``empty_batch_like`` copies of their last
     batch (every structure scored once). A training epoch with no step
     raises. Under ``--check-invariants`` every batch is checked, and a
-    training batch must hold a real graph."""
+    training batch must hold a real graph. ``prep_fn`` then maps each
+    batch (graph sharding: ``edge_parallel.rank_view``, which drops an
+    eval batch's mapping and keeps this rank's part of the edge
+    leaves). The batches come packed (train/loop.py ``fit`` packs them
+    with the capacities' ``node_multiple`` and the mapping's
+    ``transpose_shards``)."""
     out = list(batches)
     if steps is None:
         steps = (dist.min_over_hosts(len(out)) if train
@@ -136,7 +152,7 @@ def parallel_batches(batches: Iterable[GraphBatch], *, train: bool,
     if invariants.enabled():
         for b in out:
             invariants.check_any(b, dense_m, train=train)
-    return out
+    return out if prep_fn is None else [prep_fn(b) for b in out]
 
 
 def state_tensors(state) -> list:
@@ -187,11 +203,13 @@ def replicate_state(state):
 
 def seed_rank_dropout(model, seed: int, rank: int, world: int,
                       start_epoch: int = 0) -> None:
-    """Give rank ``rank``'s dropout generator a stream of its own (the
+    """Give data index ``rank`` (of ``world``; the rank itself without
+    graph sharding, ``dist.data_index()`` with it, so the ranks of a
+    graph group draw the same masks) a dropout stream of its own (the
     JAX step folds the device index into its key): seed + rank from a
     fresh start. Process 0 alone commits, so a resume restores process
-    0's generator; every other rank re-seeds with seed + rank + world *
-    start_epoch, a seed no other (rank, epoch) takes."""
+    0's generator; every other index re-seeds with seed + rank + world *
+    start_epoch, a seed no other (index, epoch) takes."""
     draws = getattr(model, "draws_dropout", None)
     if draws is None or not draws():
         return
@@ -205,12 +223,15 @@ class ParallelTrainStep:
     """One rank's data-parallel train step (module docstring):
     ``grad_part(state, batch)``, ``reduce()``, ``apply_part(state) ->
     metric sums``; called, the three in turn. ``grad_step`` is
-    train/step.py's ``make_grad_step``; ``reducer`` the SUM all-reduce
-    (``dist.SumReducer``, or any callable that sums the bucket over the
-    ranks in place); ``world`` the ranks it averages over. The bucket is
-    laid out at the first call: the gradients of the parameters that
-    have one, every floating buffer of the model (the BatchNorm
-    statistics), then the metric sums, in the parameters' dtype."""
+    train/step.py's ``make_grad_step`` (or the force task's
+    ``make_force_grad_step``); ``reducer`` the SUM all-reduce
+    (``dist.SumReducer`` over the data group, or any callable that sums
+    the bucket over the ranks in place); ``world`` the ranks it averages
+    over. The bucket is laid out at the first call: the gradients of the
+    parameters that have one, every persistent floating buffer of the
+    model (the BatchNorm statistics; a constant such as the force
+    field's Gaussian centres is not state and stays out), then the
+    metric sums, in the parameters' dtype."""
 
     def __init__(self, grad_step: Callable, reducer: Callable, world: int,
                  guard: bool = False):
@@ -227,8 +248,9 @@ class ParallelTrainStep:
     def _layout(self, state, metrics: dict) -> None:
         self._params = [p for p in state.optimizer.params
                         if p.grad is not None]
-        self._buffers = [b for b in state.model.buffers()
-                         if b.is_floating_point()]
+        persistent = state.model.state_dict().keys()
+        self._buffers = [b for name, b in state.model.named_buffers()
+                         if b.is_floating_point() and name in persistent]
         self._keys = sorted(metrics)
         dtype = self._params[0].dtype
         odd = [t.dtype for t in self._params + self._buffers
@@ -271,7 +293,8 @@ class ParallelTrainStep:
         views = [v.view(t.shape) for v, t in zip(
             averaged.split(self._sizes), self._params + self._buffers)]
         n_p = len(self._params)
-        torch._foreach_copy_(self._buffers, views[n_p:])
+        if self._buffers:  # the force field has no statistics
+            torch._foreach_copy_(self._buffers, views[n_p:])
         for p, g in zip(self._params, views[:n_p]):
             p.grad = g
         state.optimizer.step()
@@ -288,22 +311,28 @@ class ParallelTrainStep:
 
 
 def make_parallel_train_step(classification: bool = False,
-                             guard: bool = False) -> ParallelTrainStep:
-    """The data-parallel train step over the live process group:
-    ``step(state, batch)`` with this rank's batch -> the metric sums
-    summed over the ranks, the state updated with the averaged gradients
-    and statistics (module docstring)."""
+                             guard: bool = False,
+                             grad_step: Callable | None = None
+                             ) -> ParallelTrainStep:
+    """The data-parallel train step over the live process group's data
+    group: ``step(state, batch)`` with this rank's batch -> the metric
+    sums summed over the data group, the state updated with the averaged
+    gradients and statistics (module docstring). ``grad_step``: the grad
+    part (default ``make_grad_step(classification=...)``, which a
+    graph-sharded model makes the sharded grad step)."""
     from cgnn_tpu_torch.train.step import make_grad_step
 
-    return ParallelTrainStep(make_grad_step(classification=classification),
-                             dist.SumReducer(), dist.process_count(),
-                             guard=guard)
+    group = dist.data_group()
+    return ParallelTrainStep(
+        grad_step or make_grad_step(classification=classification),
+        dist.SumReducer(group), group.size if group else 1, guard=guard)
 
 
 def sum_reducer_for_sums() -> Callable:
     """-> ``reduce(sums)``: a dict of 0-d device sums summed over the
-    ranks in place, in one collective (sorted keys, one stacked tensor)."""
-    reducer = dist.SumReducer()
+    data group in place, in one collective (sorted keys, one stacked
+    tensor)."""
+    reducer = dist.SumReducer(dist.data_group())
 
     def reduce(sums: dict) -> None:
         if not sums:
@@ -320,8 +349,8 @@ def sum_reducer_for_sums() -> Callable:
 def make_parallel_eval_step(classification: bool = False) -> Callable:
     """``step(state, batch)`` with this rank's batch (an
     ``empty_batch_like`` one where it has none left) -> the metric sums
-    summed over the ranks: the eval step, then one collective. The loop
-    (train/loop.py ``fit``) sums an epoch's steps on each rank and
+    summed over the data group: the eval step, then one collective. The
+    loop (train/loop.py ``fit``) sums an epoch's steps on each rank and
     reduces once at its end instead."""
     from cgnn_tpu_torch.train.step import make_eval_step
 

@@ -18,8 +18,18 @@ contract.
   ``max_over_hosts`` (the step-count equalizers) and
   ``ReloadCoordinator``, the cross-process hot-reload agreement.
 - **The data collective**: ``SumReducer``, an in-place SUM all-reduce of
-  one tensor over the process group. Gloo with a CUDA tensor is staged
-  through a page-locked host copy, chosen by the backend.
+  one tensor over the process group (or one ``Group`` of it). Gloo with
+  a CUDA tensor is staged through a page-locked host copy, chosen by the
+  backend.
+- **Graph sharding** (``initialize(graph_shards=G)``): the world is D x G
+  ranks (parallel/mesh.py ``rank_layout``); each graph group (the G
+  ranks that shard one data index's batches) and each data group (the D
+  ranks of one graph index) is a ``Group``, made with ``new_group`` in
+  the same order on every rank. A ``Group`` carries the collectives the
+  sharded model differentiates through (``enter``, ``sum_partials``,
+  ``gather_strips``) and plain ones (``all_reduce_``, ``mean_``).
+  ``graph_hosts_problem`` names a graph group that spans hosts (the JAX
+  package keeps graph meshes on one host).
 - **Checkpointing**: ``is_coordinator`` gates saves: process 0 alone
   commits.
 
@@ -36,10 +46,13 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 import time
 from typing import Callable, Sequence
 
 import torch
+
+from cgnn_tpu_torch.parallel import mesh
 
 _ENV_COORD = "CGNN_TPU_COORDINATOR"
 _ENV_NPROC = "CGNN_TPU_NUM_PROCESSES"
@@ -54,14 +67,142 @@ _STR_BYTES = 256
 DEFAULT_TIMEOUT_S = 120.0
 
 
-class _Run:
-    """The live process group of this process (``initialize``)."""
+class Group:
+    """Some of the run's ranks as one collective group: ``ranks`` (world
+    ranks, in order), ``size``, this rank's ``index`` among them, the
+    torch process group ``pg`` (None for a group of one) and the
+    run's ``backend``. Gloo with a CUDA tensor is staged through a
+    page-locked host copy; a low-precision tensor is summed in f32 and
+    rounded back. A group of one reduces nothing.
 
-    def __init__(self, backend: str, rank: int, world: int, host_group):
+    The autograd collectives of graph sharding (models/cgcnn.py), each
+    the transpose of the other's role (JAX's ``pcast`` / ``psum``):
+
+    - ``enter(x)``: a replicated tensor entering the sharded region;
+      identity forward, SUM all-reduce of the cotangent backward (each
+      rank's cotangent is the part from its own shard);
+    - ``sum_partials(x)``: per-rank partial sums made whole; SUM
+      all-reduce forward, identity backward (replicated code consumes
+      the sum, so its cotangent is already whole on every rank);
+    - ``gather_strips(x)``: the ranks' [n, ...] strips concatenated in
+      rank order; all-gather forward, backward "take my strip".
+
+    Every collective blocks and must be called by every rank of the
+    group in the same order."""
+
+    def __init__(self, ranks, pg, backend: str, rank: int):
+        self.ranks = tuple(ranks)
+        self.size = len(self.ranks)
+        self.index = self.ranks.index(rank)
+        self.pg = pg
+        self.backend = backend
+
+    def staged(self, t: torch.Tensor) -> bool:
+        return t.is_cuda and self.backend == "gloo"
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM of ``t`` over the group, in place (``t`` contiguous)."""
+        if self.size == 1:
+            return t
+        import torch.distributed as tdist
+
+        buf = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+        if self.staged(buf):
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            host.copy_(buf)
+            tdist.all_reduce(host, group=self.pg)
+            buf.copy_(host, non_blocking=True)
+        else:
+            tdist.all_reduce(buf, group=self.pg)
+        if buf is not t:
+            t.copy_(buf)
+        return t
+
+    def mean_(self, t: torch.Tensor) -> torch.Tensor:
+        """The group's mean of ``t``, in place (no gradient)."""
+        if self.size > 1:
+            self.all_reduce_(t).div_(self.size)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``t`` concatenated on dim 0, in rank order."""
+        if self.size == 1:
+            return t
+        import torch.distributed as tdist
+
+        staged = self.staged(t)
+        src = t.contiguous()
+        if staged:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(src)
+            src = host
+        if src.dtype in (torch.bfloat16, torch.float16):
+            src = src.view(torch.uint8)  # bits as bytes: gloo has no bf16
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        tdist.all_gather(parts, src, group=self.pg)
+        out = torch.cat(parts).view(t.dtype)
+        return out.to(t.device, non_blocking=True) if staged else out
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _Enter.apply(x, self) if self.size > 1 else x
+
+    def sum_partials(self, x: torch.Tensor) -> torch.Tensor:
+        return _SumPartials.apply(x, self) if self.size > 1 else x
+
+    def gather_strips(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherStrips.apply(x, self) if self.size > 1 else x
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce_(g.contiguous().clone()), None
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherStrips(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rows = x.shape[0]
+        ctx.index = group.index
+        return group.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.index * ctx.rows
+        return g[lo:lo + ctx.rows], None
+
+
+class _Run:
+    """The live process group of this process (``initialize``): the
+    world, its host (gloo) group, and the graph and data groups of a
+    graph-sharded run (``graph`` None without sharding; ``data`` the
+    world then)."""
+
+    def __init__(self, backend: str, rank: int, world: int, host_group,
+                 graph_shards: int = 1, groups: tuple = (None, None)):
         self.backend = backend
         self.rank = rank
         self.world = world
         self.host_group = host_group
+        self.graph_shards = graph_shards
+        self.world_group = Group(range(world), None, backend, rank)
+        self.graph, data = groups
+        self.data = data or self.world_group
 
 
 _run: _Run | None = None
@@ -108,9 +249,11 @@ def resolve_backend(requested: str, device_type: str, world: int,
 
 def initialize(coordinator: str, num_processes: int, process_id: int, *,
                backend: str = "gloo", timeout_s: float = DEFAULT_TIMEOUT_S,
-               log_fn: Callable = print) -> None:
+               log_fn: Callable = print, graph_shards: int = 1) -> None:
     """Join the process group of ``num_processes`` ranks whose store rank
-    0 serves at ``coordinator`` (``host:port``). Idempotent per process."""
+    0 serves at ``coordinator`` (``host:port``); with ``graph_shards`` G >
+    1 also make the graph and data groups of a D x G layout (module
+    docstring). Idempotent per process."""
     global _run
     if _run is not None:
         return
@@ -121,6 +264,9 @@ def initialize(coordinator: str, num_processes: int, process_id: int, *,
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process_id {process_id} outside "
                          f"[0, {num_processes})")
+    if graph_shards < 1 or num_processes % graph_shards:
+        raise ValueError(f"{num_processes} processes do not split into "
+                         f"graph groups of {graph_shards}")
     timeout = datetime.timedelta(seconds=timeout_s)
     init = coordinator if "://" in coordinator else f"tcp://{coordinator}"
     tdist.init_process_group(backend, init_method=init,
@@ -128,20 +274,59 @@ def initialize(coordinator: str, num_processes: int, process_id: int, *,
                              timeout=timeout)
     host = (tdist.group.WORLD if backend == "gloo"
             else tdist.new_group(backend="gloo", timeout=timeout))
-    _run = _Run(backend, process_id, num_processes, host)
+    groups = (None, None)
+    if graph_shards > 1:
+        groups = _make_groups(process_id, num_processes, graph_shards,
+                              backend, timeout)
+    _run = _Run(backend, process_id, num_processes, host, graph_shards,
+                groups)
+    layout = (f"; data x{num_processes // graph_shards} * graph "
+              f"x{graph_shards}" if graph_shards > 1 else "")
     log_fn(f"dist: process {process_id}/{num_processes} up ({backend}; "
-           f"coordinator {coordinator}; timeout {timeout_s:g} s)")
+           f"coordinator {coordinator}; timeout {timeout_s:g} s{layout})")
+
+
+def _make_groups(rank: int, world: int, graph_shards: int, backend: str,
+                 timeout) -> tuple:
+    """(this rank's graph Group, its data Group): every group made on
+    every rank, in one order (``new_group`` is a collective); a group
+    that spans the world is the world's own."""
+    import torch.distributed as tdist
+
+    n_data = world // graph_shards
+
+    def make(ranks):
+        if len(ranks) == world:
+            return tdist.group.WORLD
+        if len(ranks) == 1:
+            return None
+        return tdist.new_group(ranks, timeout=timeout)
+
+    graph = data = None
+    for d in range(n_data):
+        ranks = mesh.graph_group_ranks(d, graph_shards)
+        pg = make(ranks)
+        if rank in ranks:
+            graph = Group(ranks, pg, backend, rank)
+    for g in range(graph_shards):
+        ranks = mesh.data_group_ranks(g, world, graph_shards)
+        pg = make(ranks)
+        if rank in ranks:
+            data = Group(ranks, pg, backend, rank)
+    return graph, data
 
 
 def initialize_from_env(*, backend: str = "gloo",
                         timeout_s: float = DEFAULT_TIMEOUT_S,
-                        log_fn: Callable = print) -> bool:
+                        log_fn: Callable = print,
+                        graph_shards: int = 1) -> bool:
     """Initialize iff the CGNN_TPU_* env triple is set -> did it."""
     cfg = configured_env()
     if cfg is None:
         return False
     initialize(cfg["coordinator"], cfg["num_processes"], cfg["process_id"],
-               backend=backend, timeout_s=timeout_s, log_fn=log_fn)
+               backend=backend, timeout_s=timeout_s, log_fn=log_fn,
+               graph_shards=graph_shards)
     return True
 
 
@@ -171,6 +356,53 @@ def process_index() -> int:
 
 def process_count() -> int:
     return _run.world if _run is not None else 1
+
+
+def graph_shards() -> int:
+    """G of a graph-sharded run, else 1."""
+    return _run.graph_shards if _run is not None else 1
+
+
+def graph_group() -> Group | None:
+    """This rank's graph group (None without graph sharding)."""
+    return _run.graph if _run is not None else None
+
+
+def data_group() -> Group | None:
+    """This rank's data group: the ranks a data-parallel step averages
+    over (the world without graph sharding; None single-process)."""
+    return _run.data if _run is not None else None
+
+
+def data_index() -> int:
+    """This rank's data index: what its host shard, its shuffle and its
+    dropout follow (its rank without graph sharding)."""
+    return mesh.rank_layout(process_index(), graph_shards())[0]
+
+
+def data_count() -> int:
+    """D: the data indices of the run."""
+    return process_count() // graph_shards()
+
+
+def graph_hosts_problem() -> str:
+    """'' when every graph group lies on one host, else which does not
+    (a collective over the world: every rank gets the same answer)."""
+    if _run is None or _run.graph is None:
+        return ""
+    import torch.distributed as tdist
+
+    hosts = [None] * _run.world
+    tdist.all_gather_object(hosts, socket.gethostname(),
+                            group=_run.host_group)
+    for d in range(data_count()):
+        ranks = mesh.graph_group_ranks(d, _run.graph_shards)
+        names = sorted({hosts[r] for r in ranks})
+        if len(names) > 1:
+            return (f"graph group {d} (ranks {ranks[0]}-{ranks[-1]}) spans "
+                    f"hosts {names}: graph shards exchange activations in "
+                    f"every conv, so a graph group must lie on one host")
+    return ""
 
 
 def is_coordinator() -> bool:
@@ -255,29 +487,35 @@ def max_over_hosts(value: int) -> int:
 
 
 class SumReducer:
-    """In-place SUM all-reduce of one tensor over the process group
-    (``reducer(t)``; a no-op in a single-process run). NCCL reduces a
-    CUDA tensor where it lies; gloo reduces CPU tensors, so a CUDA tensor
-    is copied to a page-locked host buffer (the copy waits for the
-    stream's earlier work), reduced there and copied back on the stream."""
+    """In-place SUM all-reduce of one tensor over the process group, or
+    over ``group`` (a ``Group``; its ``data_group()``'s ranks for a
+    data-parallel step) -> ``reducer(t)``; a no-op in a single-process
+    run and over a group of one. NCCL reduces a CUDA tensor where it
+    lies; gloo reduces CPU tensors, so a CUDA tensor is copied to a
+    page-locked host buffer (the copy waits for the stream's earlier
+    work), reduced there and copied back on the stream."""
 
-    def __init__(self):
+    def __init__(self, group: Group | None = None):
         self._host: torch.Tensor | None = None
+        self._group = group
 
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
         if _run is None:
             return t
         import torch.distributed as tdist
 
-        if not (t.is_cuda and _run.backend == "gloo"):
-            tdist.all_reduce(t)
+        group = self._group or _run.world_group
+        if group.size == 1:
+            return t
+        if not group.staged(t):
+            tdist.all_reduce(t, group=group.pg)
             return t
         host = self._host
         if host is None or host.shape != t.shape or host.dtype != t.dtype:
             host = self._host = torch.empty(t.shape, dtype=t.dtype,
                                             pin_memory=True)
         host.copy_(t)
-        tdist.all_reduce(host)
+        tdist.all_reduce(host, group=group.pg)
         t.copy_(host, non_blocking=True)
         return t
 

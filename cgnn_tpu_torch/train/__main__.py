@@ -11,6 +11,7 @@
     python -m cgnn_tpu_torch.train --task force --synthetic 2048 --md-atoms 21
     python -m cgnn_tpu_torch.train TRAJ_DIR_OR_NPZ --task force --epochs 30
     python -m cgnn_tpu_torch.train --synthetic 400 --data-parallel
+    python -m cgnn_tpu_torch.train --synthetic 400 --graph-shards 2
 
 Data, as train.py reads it: ``--cache PATH`` loads a graph cache
 (data/cache.py) when PATH exists; otherwise ``--synthetic N`` structures,
@@ -114,10 +115,24 @@ rank, and process 0 alone commits checkpoints and writes ``--out-dir``
 triple, ``--data-parallel`` starts one worker a visible card with the
 triple set (coordinator on localhost); with one card it is the
 one-process fit. Exit 2, as train.py: the triple without
-``--data-parallel``; with it, ``--scan-epochs``, ``--device-resident``,
-``--pack-once`` or ``--compact-staging on``; and, the port's own,
-``--task force`` (ROADMAP Queue 1, item 9b) and more ranks than cards
-under NCCL.
+``--data-parallel`` (or ``--graph-shards``); with it, ``--scan-epochs``,
+``--device-resident``, ``--pack-once`` or ``--compact-staging on``; and,
+the port's own, more ranks than cards under NCCL. ``--task force``
+trains data-parallel too (the force step's gradients and statistics
+averaged, its metric sums summed).
+
+Graph sharding, with train.py's rules (``cgnn_tpu_torch/parallel/
+edge_parallel.py``): ``--graph-shards G`` splits every batch's edge work
+over G ranks (dense: node strips; COO: edge chunks), each staging only
+its part of the edge leaves; with ``--data-parallel`` the world is D x G
+ranks (D the cards // G without the triple, the triple's count // G with
+it), rank r with data index r // G and graph index r % G. The host
+shards, the shuffles and the dropout streams follow the data index.
+Without the triple, ``launch_local`` starts the D·G workers; a graph
+group must lie on one host (exit 2 otherwise). Exit 2, as train.py:
+``--graph-shards`` with ``--task force``, ``--fused-epilogue`` or
+``--cgconv-impl``, ``--buckets`` > 1 on COO, and ``--compact-staging
+on``; a world that G does not divide.
 
 The flags are train.py's that this entry point serves, with train.py's
 defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
@@ -285,6 +300,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "_PROCESS_ID triple this process is one rank; "
                         "without it one worker is started for each "
                         "visible card (one card: the one-process fit)")
+    p.add_argument("--graph-shards", type=int, default=1, metavar="G",
+                   help="shard every batch's edge work over G ranks (node "
+                        "strips on the dense layout, edge chunks on COO); "
+                        "with --data-parallel a D x G layout")
     p.add_argument("--dist-backend", choices=["auto", "gloo"],
                    default="auto",
                    help="--data-parallel's collectives: auto = gloo on "
@@ -331,11 +350,39 @@ def resolve_layout(args) -> int | None:
     return args.max_num_nbr if use_dense else 0
 
 
+def graph_shards_refusal(args, dense_m) -> str:
+    """Why ``--graph-shards`` does not go with the other flags (train.py's
+    reasons), or ''."""
+    if args.graph_shards < 1:
+        return f"--graph-shards must be >= 1, got {args.graph_shards}"
+    if args.graph_shards == 1:
+        return ""
+    if args.task == "force":
+        return "--graph-shards is not supported for --task force"
+    if args.fused_epilogue != "off":
+        return ("--fused-epilogue requires the dense layout with BatchNorm "
+                "and no graph sharding (not --layout coo / --task force / "
+                "--graph-shards)")
+    if args.cgconv_impl != "off":
+        return ("--cgconv-impl (the whole-conv fused kernel) requires the "
+                "dense layout with BatchNorm, no graph sharding, and no "
+                "--fused-epilogue (it subsumes it)")
+    if args.buckets > 1 and not dense_m:
+        return ("--buckets with --graph-shards requires the dense layout "
+                "(drop --layout coo)")
+    if args.compact_staging == "on":
+        return ("--compact-staging on is not yet supported with "
+                "--data-parallel/--graph-shards (full staging only); drop "
+                "the flag or use auto")
+    return ""
+
+
 def data_parallel_plan(args) -> tuple | None:
-    """train.py's data-parallel rules -> ("single", None): the
-    one-process fit; ("spawn", n): start one worker for each of n cards;
-    ("rank", backend): this process is one rank of the environment
-    triple's run. None after printing why the flags do not go together."""
+    """train.py's data-parallel and graph-sharding rules -> ("single",
+    None): the one-process fit; ("spawn", n): start n workers (one a
+    card, G a data index under ``--graph-shards G``); ("rank", backend):
+    this process is one rank of the environment triple's run. None after
+    printing why the flags do not go together."""
     import torch
 
     from cgnn_tpu_torch.parallel import dist, mesh
@@ -345,17 +392,30 @@ def data_parallel_plan(args) -> tuple | None:
     except ValueError as e:
         print(e, file=sys.stderr)
         return None
-    if cfg is not None and not args.data_parallel:
+    shards = args.graph_shards
+    if cfg is not None and not (args.data_parallel or shards > 1):
         print("multi-process run (CGNN_TPU_COORDINATOR set) requires "
               "--data-parallel: without the data-parallel step there is "
               "no cross-process gradient reduction and the processes "
               "would silently train divergent models", file=sys.stderr)
         return None
-    if not args.data_parallel:
+    if not (args.data_parallel or shards > 1):
         return "single", None
     device_type = torch.device(args.device).type
     cards = mesh.device_count() if device_type == "cuda" else 0
-    world = cfg["num_processes"] if cfg is not None else cards
+    if cfg is not None:
+        world = cfg["num_processes"]
+    elif shards > 1:
+        world = shards * (max(1, cards // shards) if args.data_parallel
+                          else 1)
+    else:
+        world = cards
+    if world % shards or (not args.data_parallel and world != shards):
+        print(f"--graph-shards {shards}: {world} processes do not make "
+              f"{'D x ' if args.data_parallel else ''}{shards} ranks "
+              f"(--data-parallel for more than one data index)",
+              file=sys.stderr)
+        return None
     if world < 2:
         print(f"--data-parallel: {world} visible card(s) and no "
               f"CGNN_TPU_* triple: the one-process fit")
@@ -369,10 +429,6 @@ def data_parallel_plan(args) -> tuple | None:
         print("--compact-staging on is not yet supported with "
               "--data-parallel (full staging only); drop the flag or use "
               "auto", file=sys.stderr)
-        return None
-    if args.task == "force":
-        print("--task force is not data-parallel yet (ROADMAP Queue 1, "
-              "item 9b); drop --data-parallel", file=sys.stderr)
         return None
     backend, why = dist.resolve_backend(args.dist_backend, device_type,
                                         world, cards)
@@ -441,6 +497,10 @@ def main(argv=None) -> int:
     dense_m = resolve_layout(args)
     if dense_m is None:
         return 2
+    refusal = graph_shards_refusal(args, dense_m)
+    if refusal:
+        print(refusal, file=sys.stderr)
+        return 2
     plan = data_parallel_plan(args)
     if plan is None:
         return 2
@@ -473,7 +533,12 @@ def main(argv=None) -> int:
     try:
         if plan[0] == "rank":
             # before anything touches CUDA
-            dist.initialize_from_env(backend=plan[1])
+            dist.initialize_from_env(backend=plan[1],
+                                     graph_shards=args.graph_shards)
+            problem = dist.graph_hosts_problem()
+            if problem:
+                print(f"--graph-shards: {problem}", file=sys.stderr)
+                return 2
         return _train(args, dense_m, compact_ok, preempt)
     finally:
         dist.shutdown()
@@ -516,6 +581,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
               "output checked")
     dp = dist.active()
     rank, world = dist.process_index(), dist.process_count()
+    # what the host shards, the shuffles and the dropout streams follow
+    data_index, n_data = dist.data_index(), dist.data_count()
     dev = resolve_device(rank_device(args.device, rank) if dp
                          else args.device)
     if dp:
@@ -549,10 +616,14 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
     full_train = train_g
     per_epoch = None
     if dp:
-        # every rank ran the same split; each takes its strided shard
-        train_g = dist.host_shard(train_g)
-        val_g = dist.host_shard(val_g)
-        print(f"data-parallel: process {rank}/{world} trains "
+        # every rank ran the same split; each data index takes its
+        # strided shard (the G ranks of a graph group the same one)
+        train_g = dist.host_shard(train_g, data_index, n_data)
+        val_g = dist.host_shard(val_g, data_index, n_data)
+        layout = (f" (data index {data_index}/{n_data}, graph shard "
+                  f"{rank % args.graph_shards}/{args.graph_shards})"
+                  if args.graph_shards > 1 else "")
+        print(f"data-parallel: process {rank}/{world}{layout} trains "
               f"{len(train_g)} / validates {len(val_g)} structures "
               f"(strided host shard); test eval runs the full split on "
               f"every process")
@@ -637,8 +708,12 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
             compact = _compact_spec(args, train_g + val_g + test_g,
                                     data_cfg, dense_m, model_cfg.torch_dtype)
         if dp:
-            seed_rank_dropout(state.model, args.seed, rank, world,
+            seed_rank_dropout(state.model, args.seed, data_index, n_data,
                               start_epoch)
+        # the sharded model trains; the test split and the saves read
+        # the same parameters unsharded
+        if dist.graph_group() is not None:
+            state.model.set_graph_group(dist.graph_group())
         with (debug_nans(state.model) if args.debug_nans
               else contextlib.nullcontext()):
             state, result = fit(
@@ -658,6 +733,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         if ckpt is not None:
             ckpt.wait()
     finally:
+        if dist.graph_group() is not None:
+            state.model.set_graph_group(None)
         if ckpt is not None:
             ckpt.close()
     if result.get("preempted"):
@@ -706,12 +783,13 @@ def _dp_steps_per_epoch(args, full_train, shard, dense_m) -> int:
     the milestones count in a data-parallel run."""
     from cgnn_tpu_torch.data.graph import count_batches
     from cgnn_tpu_torch.parallel import dist
-    from cgnn_tpu_torch.train.loop import batch_caps
+    from cgnn_tpu_torch.train.loop import batch_caps, sharded_caps
 
     snug = args.packing == "snug"
-    caps = batch_caps(full_train, args.batch_size, dense_m or None,
-                      args.node_cap or None, args.edge_cap or None,
-                      snug=snug)
+    caps = sharded_caps(*batch_caps(full_train, args.batch_size,
+                                    dense_m or None, args.node_cap or None,
+                                    args.edge_cap or None, snug=snug),
+                        dense_m or None, args.graph_shards)
     return dist.min_over_hosts(count_batches(shard, args.batch_size, *caps,
                                              snug=snug))
 
@@ -743,8 +821,10 @@ def run_summary(result: dict, n_train: int, test: dict | None = None
     metrics (a NaN, e.g. an AUC with one class present, as null); the
     steps each validation epoch took and the steps the guard skipped,
     each epoch's train loss and validation metric (``best_key``'s); a
-    data-parallel run's ``dp`` record (rank, world, backend, per-epoch
-    state digests)."""
+    data-parallel run's ``dp`` record (rank, world, backend, data index,
+    graph shards, per-epoch state digests); the per-step loop's
+    ``edge_bytes`` (the first epoch's edge leaves as this rank staged
+    them)."""
     from cgnn_tpu_torch.resilience.guard import skipped_steps
 
     hist = result["history"]
@@ -760,6 +840,8 @@ def run_summary(result: dict, n_train: int, test: dict | None = None
            "graphs": result["graphs"]}
     if "dp" in result:
         out["dp"] = result["dp"]
+    if "edge_bytes" in result:
+        out["edge_bytes"] = result["edge_bytes"]
     if "padding" in result:
         out["padding"] = result["padding"]
     if "staging" in result:

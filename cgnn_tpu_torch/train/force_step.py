@@ -65,12 +65,18 @@ def force_loss(energies, forces, batch: GraphBatch, normalizer: Normalizer,
     return loss, metrics
 
 
-def make_force_train_step(w_energy: float = 1.0,
-                          w_force: float = 10.0) -> Callable:
-    """(state, batch) -> metric sums; one composite-loss update of
-    ``state`` in place (module docstring)."""
+def make_force_grad_step(w_energy: float = 1.0,
+                         w_force: float = 10.0) -> Callable:
+    """(state, batch) -> metric sums: the force train step up to its
+    optimizer update, the composite loss's parameter gradients left in
+    each ``.grad``. The data-parallel step (parallel/data_parallel.py
+    ``ParallelTrainStep``) takes it as its grad part: it averages the
+    gradients and the statistics over the ranks and sums the metric
+    sums, so the guard's NaN check reads the loss every rank agrees on,
+    as the JAX step with ``axis_name`` pmeans and psums before its
+    health check (``cgnn_tpu/train/force_step.py:116-128``)."""
 
-    def train_step(state, batch: GraphBatch) -> dict:
+    def grad_step(state, batch: GraphBatch) -> dict:
         model = state.model
         model.train()
         energies, forces = energy_and_forces(model, batch, create_graph=True)
@@ -78,8 +84,22 @@ def make_force_train_step(w_energy: float = 1.0,
                                    w_energy, w_force)
         state.optimizer.zero_grad()
         loss.backward(inputs=list(state.optimizer.params))
-        state.optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
+
+    return grad_step
+
+
+def make_force_train_step(w_energy: float = 1.0,
+                          w_force: float = 10.0) -> Callable:
+    """(state, batch) -> metric sums; one composite-loss update of
+    ``state`` in place (module docstring): the grad part
+    (``make_force_grad_step``), then the optimizer update."""
+    grad_step = make_force_grad_step(w_energy, w_force)
+
+    def train_step(state, batch: GraphBatch) -> dict:
+        metrics = grad_step(state, batch)
+        state.optimizer.step()
+        return metrics
 
     return train_step
 

@@ -12,7 +12,8 @@ A ``StepGraph`` is one step body captured for one batch shape
 - capture on that stream (``CUDAGraph.capture_begin``/``capture_end``:
   ``torch.cuda.graph`` would also synchronize and empty the allocator's
   cache each time), in thread-local mode (a loader thread's copies on
-  their own stream do not break it);
+  their own stream do not break it; that stream comes from another
+  stream pool, so it is never the capture stream);
 - ``run(batch)``: ``copy_`` into the static inputs on the current
   stream, then ``replay()``; the outputs are static tensors, written
   again by the next replay.
@@ -111,7 +112,9 @@ def capture_stream(device) -> torch.cuda.Stream:
     """This thread's side stream on ``device`` for warm-up runs and
     captures, made once. cuBLAS keeps a workspace (32 MiB and 1 MiB on an
     H100) for every stream it runs on, for the life of the process, so a
-    new stream a graph would leave ~33 MiB behind each capture."""
+    new stream a graph would leave ~33 MiB behind each capture. It comes
+    from the normal-priority pool, which the prefetch loader's side
+    streams do not (data/loader.py ``staging_stream``)."""
     streams = getattr(_capture_streams, "by_device", None)
     if streams is None:
         streams = _capture_streams.by_device = {}

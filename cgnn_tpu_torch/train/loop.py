@@ -78,10 +78,23 @@ collective; each epoch's lists are cut or padded to the step count every
 rank runs (``parallel_batches``), the eval sums are reduced once an
 epoch, the state is replicated from rank 0 first and held to its bits
 after every epoch (``check_replicated``), and the preemption request is
-agreed across the ranks. The force task, compact staging, pack-once,
-device-resident staging and the epoch driver are not data-parallel
-(ValueError; the JAX multi-process path refuses the last three, the
-rest wait for ROADMAP Queue 1, item 9b).
+agreed across the ranks. The force task takes the same path with its
+own grad part. Compact staging, pack-once, device-resident staging and
+the epoch driver are not data-parallel (ValueError; the JAX
+multi-process path refuses them).
+
+Graph sharding (parallel/edge_parallel.py; the model's ``graph_group``,
+models/cgcnn.py): under a live process group whose model shards its
+edge work over a graph group of G ranks, the per-step loop packs every
+batch as the JAX ``fit_data_parallel`` does (dense: ``node_cap`` rounded
+up to a multiple of 8·G, ``edge_cap = node_cap·M`` and the training
+batches' mappings per shard; COO: ``edge_cap`` rounded up to a multiple
+of G), hands each rank its view (``rank_view``) after the step counts
+and the checks, and averages and sums over the data group only. A
+sharded step has collectives inside its forward and backward, so under
+gloo it runs eagerly: no captured graph (``captures`` 0); capture under
+NCCL is a later candidate. The epoch log carries the JAX tag, ``[dp xD
+* graph xG]``.
 
 Not ported: the in-scan telemetry tap and the background pair fetch,
 the epoch driver's data-parallel and graph-sharded forms, and
@@ -120,6 +133,7 @@ from cgnn_tpu_torch.parallel.data_parallel import (
     replicate_state,
     sum_reducer_for_sums,
 )
+from cgnn_tpu_torch.parallel.edge_parallel import edge_nbytes, rank_view
 from cgnn_tpu_torch.resilience import faultinject
 from cgnn_tpu_torch.resilience.guard import guard_step, skipped_steps
 from cgnn_tpu_torch.train.graphs import (
@@ -137,6 +151,7 @@ from cgnn_tpu_torch.train.metrics import (
 )
 from cgnn_tpu_torch.train.force_step import (
     make_force_eval_step,
+    make_force_grad_step,
     make_force_train_step,
 )
 from cgnn_tpu_torch.train.step import (
@@ -267,6 +282,30 @@ def settle_count(state, train_m: dict) -> None:
     skipped = skipped_steps(train_m)
     if skipped:
         state.optimizer.advance(-skipped)
+
+
+def sharded_caps(node_cap: int, edge_cap: int, dense_m: int | None,
+                 graph_shards: int) -> tuple[int, int]:
+    """(node_cap, edge_cap) rounded for ``graph_shards``-way graph
+    sharding, as the JAX ``fit_data_parallel`` rounds them: dense, the
+    node capacity up to a multiple of 8·G (each strip whole and
+    8-aligned) and the edge capacity ``node_cap * M``; COO, the edge
+    capacity up to a multiple of G."""
+    if graph_shards <= 1:
+        return node_cap, edge_cap
+    if dense_m:
+        mult = 8 * graph_shards
+        node_cap = -(-node_cap // mult) * mult
+        return node_cap, node_cap * dense_m
+    return node_cap, -(-edge_cap // graph_shards) * graph_shards
+
+
+def counted_edge_bytes(batches: Iterable, counter: list) -> Iterable:
+    """``batches`` as they are, ``edge_nbytes`` of each added into
+    ``counter[0]`` as it passes."""
+    for b in batches:
+        counter[0] += edge_nbytes(b)
+        yield b
 
 
 def batch_caps(graphs: Sequence[CrystalGraph], batch_size: int,
@@ -788,9 +827,12 @@ def fit(
     "graphs": {captures, replays, captures_after_warm}}, "padding" (the
     first epoch's training batches: ``PaddingStats``' efficiencies, the
     batch count, their (node_cap, edge_cap) shapes, and ``summary``),
-    "preempted": True when a preemption request stopped the run, and,
-    data-parallel, "dp": rank, world, backend and the per-epoch state
-    digests, also kept in each history entry as "digest").
+    "preempted": True when a preemption request stopped the run,
+    "edge_bytes": the per-step loop's first training epoch's edge leaves
+    as this rank staged them (``edge_nbytes``), and, data-parallel,
+    "dp": rank, world, backend, data index and graph shards, and the
+    per-epoch state digests, also kept in each history entry as
+    "digest").
 
     ``dense_m`` 0 or None packs the flat COO layout. ``packing`` is
     ``'snug'`` or ``'ladder'`` (module docstring; ``headroom`` the
@@ -818,8 +860,10 @@ def fit(
 
     Under a live process group the run is data-parallel (module
     docstring): ``train_graphs`` and ``val_graphs`` are this rank's
-    shards (``dist.host_shard``), ``batch_size`` is per rank, ``monitor``
-    must read its checkpoint through ``CoordinatedCheckpoint``."""
+    data index's shards (``dist.host_shard``), ``batch_size`` is per data
+    index, ``monitor`` must read its checkpoint through
+    ``CoordinatedCheckpoint``; a model with a ``graph_group`` shards
+    each batch's edge work over it (module docstring)."""
     dense_m = dense_m or None
     dp = dist.active()
     if packing not in ("snug", "ladder"):
@@ -843,11 +887,29 @@ def fit(
         raise ValueError("compact staging is refused for the force task "
                          "(train.py's rule): the model recomputes its "
                          "edges from the positions")
-    if dp and (force or pack_once or compact is not None):
-        raise ValueError("data parallel runs the per-step loop of the "
-                         "non-force tasks: no force task (ROADMAP Queue 1, "
-                         "item 9b), compact staging, pack-once, "
-                         "device-resident staging or epoch driver")
+    if dp and (pack_once or compact is not None):
+        raise ValueError("data parallel runs the per-step loop: no "
+                         "compact staging, pack-once, device-resident "
+                         "staging or epoch driver")
+    group = getattr(state.model, "graph_group", None)
+    shards = group.size if group is not None else 1
+    prep = None
+    if shards > 1:
+        if not dp:
+            raise ValueError("a graph-sharded model trains under a live "
+                             "process group")
+        if buckets > 1 and dense_m is None:
+            raise ValueError("--buckets with --graph-shards requires the "
+                             "dense layout (per-size-class capacities "
+                             "shard by node strips)")
+        node_cap, edge_cap = sharded_caps(node_cap, edge_cap, dense_m,
+                                          shards)
+        # collectives inside the forward and backward: eager steps
+        graphs = False
+        prep = functools.partial(rank_view, n_shards=shards,
+                                 index=group.index)
+    node_multiple = 8 * shards if shards > 1 and dense_m else 1
+    transpose_shards = shards if dense_m else 1
     pack_fn = expand = None
     if compact is not None:
         from cgnn_tpu_torch.data.compact import compact_pack_fn, make_expander
@@ -862,9 +924,11 @@ def fit(
         # so the copies run asynchronously (data/loader.py)
         pack_fn = edge_pack_fn(edge_dtype, pin=torch.device(
             device).type == "cuda" and not scan_epochs)
+    grad_step = None
     if force:
         train_step = make_force_train_step(*force_weights)
         eval_step = make_force_eval_step(*force_weights)
+        grad_step = make_force_grad_step(*force_weights)
     else:
         train_step = make_train_step(expander=expand,
                                      classification=classification)
@@ -882,11 +946,13 @@ def fit(
             it = bucketed_batch_iterator(
                 train_graphs, batch_size, buckets, shuffle=True, rng=rng,
                 stats=pad_stats, headroom=headroom, dense_m=dense_m,
-                snug=snug, pack_fn=pack_fn)
+                snug=snug, pack_fn=pack_fn, node_multiple=node_multiple,
+                transpose_shards=transpose_shards)
         else:
             it = pad_stats.wrap(batch_iterator(
                 train_graphs, batch_size, node_cap, edge_cap, shuffle=True,
-                rng=rng, dense_m=dense_m, snug=snug, pack_fn=pack_fn))
+                rng=rng, dense_m=dense_m, snug=snug, pack_fn=pack_fn,
+                transpose_shards=transpose_shards))
         # the fault plan's NaN batch and loader failure, before pack-once
         # or device-resident staging takes the batches (unwrapped when no
         # plan is active)
@@ -898,7 +964,8 @@ def fit(
                                            headroom=headroom,
                                            dense_m=dense_m,
                                            in_cap=val_in_cap, snug=snug,
-                                           pack_fn=pack_fn)
+                                           pack_fn=pack_fn,
+                                           node_multiple=node_multiple)
         return batch_iterator(val_graphs, batch_size, node_cap, edge_cap,
                               dense_m=dense_m, in_cap=val_in_cap, snug=snug,
                               pack_fn=pack_fn)
@@ -944,8 +1011,8 @@ def fit(
     reduce_sums = None
     if dp:
         train_run = SplitStepRunner(
-            make_parallel_train_step(classification, guard), state, device,
-            graphs=graphs, log_fn=log_fn)
+            make_parallel_train_step(classification, guard, grad_step),
+            state, device, graphs=graphs, log_fn=log_fn)
         reduce_sums = sum_reducer_for_sums()
         if preempt is not None:
             preempt = AgreedPreemption(preempt)
@@ -961,6 +1028,7 @@ def fit(
     history, digests = [], []
     padding = None
     preempted = False
+    edge_bytes = [0]
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         truncated = False
@@ -982,9 +1050,12 @@ def fit(
                 # the whole epoch is packed first: its count is what the
                 # ranks agree on
                 epoch_train = parallel_batches(epoch_train, train=True,
-                                               dense_m=dense_m)
+                                               dense_m=dense_m,
+                                               prep_fn=prep)
                 epoch_val = parallel_batches(epoch_val, train=False,
-                                             dense_m=dense_m)
+                                             dense_m=dense_m, prep_fn=prep)
+            if epoch == start_epoch:
+                epoch_train = counted_edge_bytes(epoch_train, edge_bytes)
             if not device_resident:
                 epoch_train = stage(epoch_train, device, prefetch,
                                     loader_stats)
@@ -1020,7 +1091,8 @@ def fit(
             history[-1]["digest"] = digest
             log_fn(f"dp: process {dist.process_index()}/"
                    f"{dist.process_count()} epoch {epoch} digest {digest}")
-            tag = f" [dp x{dist.process_count()}]"
+            tag = (f" [dp x{dist.data_count()} * graph x{shards}]"
+                   if shards > 1 else f" [dp x{dist.process_count()}]")
         log_fn(f"Epoch {epoch}{tag}: train loss "
                f"{train_m.get('loss', np.nan):.4f}"
                f"  val {best_key} {metric:.4f}{' *' if is_best else ''}"
@@ -1040,10 +1112,14 @@ def fit(
         "replays": (sum(c.replays() for c in caches)
                     + sum(g.replays for g in apply)),
         "captures_after_warm": sum(c.captures_after_warm for c in caches)}}
+    if driver is None:
+        out["edge_bytes"] = edge_bytes[0]
     if dp:
         out["dp"] = {"rank": dist.process_index(),
                      "world": dist.process_count(),
-                     "backend": dist.backend(), "digests": digests}
+                     "backend": dist.backend(),
+                     "data_index": dist.data_index(),
+                     "graph_shards": shards, "digests": digests}
     if padding is not None:
         out["padding"] = padding
     if preempted:

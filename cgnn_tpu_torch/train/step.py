@@ -88,6 +88,25 @@ def loss_for(classification: bool) -> Callable:
     return classification_loss if classification else regression_loss
 
 
+def complete_sharded_grads(model) -> None:
+    """Sum the gradients of ``model.sharded_parameters()`` over its graph
+    group, in one collective: each rank's are partial (its own edges'),
+    and the sum is the whole gradient, the same bits on every rank. The
+    node-side parameters' gradients are whole already and stay as they
+    are (summing them would count them G times). A no-op for a model
+    that is not graph-sharded."""
+    group = getattr(model, "graph_group", None)
+    if group is None or group.size == 1:
+        return
+    grads = [p.grad for p in model.sharded_parameters()
+             if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    group.all_reduce_(flat)
+    with torch.no_grad():
+        torch._foreach_copy_(grads, [v.view(g.shape) for v, g in zip(
+            flat.split([g.numel() for g in grads]), grads)])
+
+
 def make_grad_step(expander: Callable | None = None,
                    classification: bool = False) -> Callable:
     """(state, batch) -> metric sums: the train step up to its optimizer
@@ -96,7 +115,13 @@ def make_grad_step(expander: Callable | None = None,
     in each parameter's ``.grad``. The data-parallel step
     (parallel/data_parallel.py) reduces across ranks between this part
     and the update, as the JAX step ``pmean``s its grads and statistics
-    before ``apply_gradients``. ``expander``, ``classification``: as
+    before ``apply_gradients``. A graph-sharded model's step (the model
+    built with a ``graph_group``) is the sharded grad step: after the
+    backward, every rank of the group holds the whole gradients, the
+    same on each (``complete_sharded_grads``), its loss and metric sums
+    are the group's, equal on every rank, and the collectives inside the
+    forward and backward keep it eager (no captured graph: gloo's cannot
+    be captured). ``expander``, ``classification``: as
     ``make_train_step``."""
     compute_loss = loss_for(classification)
 
@@ -108,6 +133,7 @@ def make_grad_step(expander: Callable | None = None,
         loss, metrics = compute_loss(out, batch, state.normalizer)
         state.optimizer.zero_grad()
         loss.backward()
+        complete_sharded_grads(state.model)
         return {k: v.detach() for k, v in metrics.items()}
 
     return grad_step

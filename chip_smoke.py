@@ -343,6 +343,32 @@ into ``build/kernels``), then:
    fails or hangs (past ``DP_RANK_TIMEOUT_S``; a collective waits the
    process group's timeout, ``dist.DEFAULT_TIMEOUT_S``) is killed with
    its peers and fails the phase.
+17. graph_shards (after data_parallel) — graph sharding as users run it,
+   ranks of the train entry point sharing the one card over gloo
+   (``DataParallelRun``), at full width: ``gs_dense`` (``--graph-shards
+   2`` on data_parallel's cache of 2048 MP-like structures, batch 256, 3
+   epochs: node strips on the plain dense path) alone, then one
+   unsharded process of the entry point at the same ``--node-cap`` (the
+   sharded run's, rounded to 8·G) for the rate; ``dp_force`` (``--task
+   force --data-parallel``, 2 ranks, 1024 LJ frames of 21 atoms, Adam
+   0.002, 2 epochs) alone, then its one-process run; then ``gs_coo``
+   (``--graph-shards 2 --aggregation pallas`` on 256 OC20-like slabs,
+   batch 64, node and edge caps given to both sides, 2 epochs: edge
+   chunks through kernel 6) and ``gs_dp`` (``--data-parallel
+   --graph-shards 2``, 4 ranks as 2 x 2, dense, 2 epochs) side by side,
+   gs_coo's one unsharded process and the one-process emulations of
+   gs_dp and dp_force beside them. Each leg: digests equal on every rank
+   after every epoch; per-epoch train loss and val MAE (dp_force: force
+   MAE) within rel 1e-4 (``GS_RTOL``) of its unsharded process or
+   emulation; each rank's launches exact (paths ``<leg>.rank<r>``;
+   sharded steps run eagerly, so no capture; kernel 6 on gs_coo's
+   chunks; no kernel on the dense and force legs, as in the JAX
+   package); process 0 alone writes; each rank's staged edge bytes
+   (``train:``'s ``edge_bytes``) at most 1/G + 0.05 of the unsharded
+   process's. ``gs_predict``: the predict entry point on gs_dense's
+   process-0 checkpoint through the one-card path, 512 structures, rtol
+   1e-4 / atol 1e-4 of the plain path. Train structures/s (frames/s) of
+   the ranks and of one process are reported, no limit.
 
 Launches on a path. A replayed graph launches its kernels without their
 wrappers, so each path's run (``PathRun``) is traced by the profiler,
@@ -4309,20 +4335,22 @@ def traced_train(out_path, argv) -> int:
 
 
 class DataParallelRun:
-    """``DP_WORLD`` ranks of the train entry point (``traced_train``, the
-    environment triple, the coordinator on a free localhost port), rank
-    r with ``--ckpt-dir``/``--out-dir`` of its own under
-    ``<work_dir>/<label>``; ``rank_env`` adds variables to one rank's
-    environment. ``wait`` bounds every rank by ``DP_RANK_TIMEOUT_S`` and
-    kills all of them on a failure or a hang; ``kill`` stops them
-    whatever their state."""
+    """``world`` ranks (``DP_WORLD`` by default) of the train entry point
+    (``traced_train``, the environment triple, the coordinator on a free
+    localhost port), rank r with ``--ckpt-dir``/``--out-dir`` of its own
+    under ``<work_dir>/<label>``; ``rank_env`` adds variables to one
+    rank's environment. ``wait`` bounds every rank by
+    ``DP_RANK_TIMEOUT_S`` and kills all of them on a failure or a hang;
+    ``kill`` stops them whatever their state."""
 
-    def __init__(self, label, work_dir, argv, rank_env=None):
+    def __init__(self, label, work_dir, argv, rank_env=None,
+                 world=DP_WORLD):
         import shutil
 
         from cgnn_tpu_torch.parallel import dist
 
         self.label = label
+        self.world = world
         self.dir = os.path.join(work_dir, label)
         shutil.rmtree(self.dir, ignore_errors=True)
         os.makedirs(self.dir)
@@ -4330,10 +4358,10 @@ class DataParallelRun:
         coord = f"localhost:{free_port()}"
         self.procs, self._logs = [], []
         self.t0 = time.perf_counter()
-        for r in range(DP_WORLD):
+        for r in range(world):
             env = {k: v for k, v in os.environ.items()
                    if not k.startswith("CGNN_TPU_")}
-            env.update(dist.env_for(coord, DP_WORLD, r),
+            env.update(dist.env_for(coord, world, r),
                        PYTHONPATH=root, **(rank_env or {}).get(r, {}))
             log = open(os.path.join(self.dir, f"rank{r}.log"), "w")
             self._logs.append(log)
@@ -4372,15 +4400,15 @@ class DataParallelRun:
             self.kill()
         wall = time.perf_counter() - self.t0
         codes = [p.returncode for p in self.procs]
-        for r in range(DP_WORLD):
+        for r in range(self.world):
             tail = open(os.path.join(self.dir, f"rank{r}.log")).read()
             for line in tail.splitlines()[-40:] if codes[r] else []:
                 print(f"{self.label} rank {r}: {line}")
-        check(codes == [0] * DP_WORLD,
+        check(codes == [0] * self.world,
               f"{self.label}: ranks exited {codes} (a hung rank is killed "
               f"after {DP_RANK_TIMEOUT_S} s)")
         traces = []
-        for r in range(DP_WORLD):
+        for r in range(self.world):
             with open(self.trace_path(r)) as f:
                 t = json.load(f)
             t["info"] = json.loads(next(
@@ -4401,16 +4429,17 @@ def dp_logical(info) -> dict:
             "eval": sum(info["eval_steps"]) + info["test"]["steps"]}
 
 
-def dp_hold(label, traces, per_step, counts) -> dict:
+def dp_hold(label, traces, per_step, counts, epochs=DP_EPOCHS,
+            captured=True) -> dict:
     """The ranks of one leg held together: rc 0, equal state digests
-    after every epoch, the same steps and test metrics, no capture after
-    warm-up, each rank's launches exact (``check_path``, path
-    ``<label>.rank<r>``), process 0's checkpoint committed and no other
-    rank's directories written -> the leg's record."""
+    after every one of ``epochs`` epochs, the same steps and test
+    metrics, no capture after warm-up (and, ``captured``, some capture;
+    a graph-sharded step runs eagerly: none), each rank's launches exact
+    (``check_path``, path ``<label>.rank<r>``) -> the leg's record."""
     infos = [t["info"] for t in traces]
     digests = [i["dp"]["digests"] for i in infos]
     check(all(d == digests[0] for d in digests)
-          and len(digests[0]) == DP_EPOCHS,
+          and len(digests[0]) == epochs,
           f"{label}: the ranks' digests differ: {digests}")
     # the summed metrics are the same bits on every rank; the test
     # split's, evaluated by each rank alone, may differ in the last bits
@@ -4421,7 +4450,7 @@ def dp_hold(label, traces, per_step, counts) -> dict:
               f"{[i[key] for i in infos]}")
     for r, (t, i) in enumerate(zip(traces, infos)):
         check(i["graphs"]["captures_after_warm"] == 0
-              and i["graphs"]["captures"] > 0,
+              and (i["graphs"]["captures"] > 0) == captured,
               f"{label} rank {r}: graphs {i['graphs']}")
         run = types.SimpleNamespace(label=f"{label}.rank{r}",
                                     launches=t["launches"],
@@ -4436,15 +4465,16 @@ def dp_hold(label, traces, per_step, counts) -> dict:
             "train_structures_per_s_by_rank": [
                 i["train_structures_per_s"] for i in infos],
             "epoch_seconds_by_rank": [i["epoch_seconds"] for i in infos],
+            "edge_bytes_by_rank": [i.get("edge_bytes") for i in infos],
             "wall_s": traces[0]["wall_s"]}
 
 
-def dp_committer(leg, r0_ckpt, other_dirs) -> None:
+def dp_committer(leg, r0_ckpt, other_dirs, epochs=DP_EPOCHS) -> None:
     """Process 0 committed every epoch; no other rank wrote a directory."""
     from cgnn_tpu_torch.train.checkpoint import CheckpointManager
 
     mgr = CheckpointManager(r0_ckpt)
-    saved = mgr.exists() and mgr.read_meta().get("epoch") == DP_EPOCHS - 1
+    saved = mgr.exists() and mgr.read_meta().get("epoch") == epochs - 1
     mgr.close()
     stray = [d for d in other_dirs if os.path.exists(d)]
     check(saved and not stray,
@@ -4452,96 +4482,122 @@ def dp_committer(leg, r0_ckpt, other_dirs) -> None:
           f"other ranks: {stray}")
 
 
-def dp_emulation(dev, graphs, model_kw, guard=True) -> dict:
-    """The two ranks' run in one process on the card: the same split,
-    host shards, per-rank shuffles and capacities as the entry point,
-    the same kernels, each step's grad part run for rank 0's batch and
-    then rank 1's (the BatchNorm statistics put back between them), the
+def dp_emulation(dev, graphs, model_kw, guard=True, *, node_cap=None,
+                 epochs=DP_EPOCHS, world=DP_WORLD, force=False) -> dict:
+    """``world`` data-parallel ranks' run in one process on the card: the
+    same split, host shards, per-rank shuffles and capacities as the
+    entry point (``node_cap`` where the run was given one), the same
+    kernels, each step's grad part run for rank 0's batch, then rank
+    1's, ... (the BatchNorm statistics put back between them), the
     buckets summed as the collective sums them and applied once; each
     rank's validation batches padded as the ranks pad them and the sums
-    added up -> per-epoch train loss and val MAE."""
+    added up -> per-epoch train loss and val MAE. ``force``: the force
+    task as ``--task force --optim Adam --lr 0.002`` trains it (the
+    trajectory split, its grad and eval steps, the validation batches
+    with their mapping; the val metric the force MAE)."""
     import numpy as np
     import torch
 
     from cgnn_tpu_torch.config import DataConfig, ModelConfig
     from cgnn_tpu_torch.data.dataset import train_val_test_split
     from cgnn_tpu_torch.data.graph import batch_iterator, count_batches
+    from cgnn_tpu_torch.data.trajectory import split_trajectory_groups
     from cgnn_tpu_torch.parallel import dist
     from cgnn_tpu_torch.parallel.data_parallel import (
         ParallelTrainStep,
         parallel_batches,
+    )
+    from cgnn_tpu_torch.train.force_step import (
+        make_force_eval_step,
+        make_force_grad_step,
     )
     from cgnn_tpu_torch.train.loop import batch_caps
     from cgnn_tpu_torch.train.metrics import DeviceSums, fetch_device_sums
     from cgnn_tpu_torch.train.state import init_train_state
     from cgnn_tpu_torch.train.step import make_eval_step, make_grad_step
 
-    train_g, val_g, _ = train_val_test_split(graphs, 0.8, 0.1, seed=SEED)
+    if force:
+        train_g, val_g, _ = split_trajectory_groups([graphs], 0.8, 0.1,
+                                                    seed=SEED)
+    else:
+        train_g, val_g, _ = train_val_test_split(graphs, 0.8, 0.1,
+                                                 seed=SEED)
     cfg = ModelConfig(**model_kw)
     dense_m = cfg.dense_m or None
-    tshards = [dist.host_shard(train_g, r, DP_WORLD)
-               for r in range(DP_WORLD)]
-    vshards = [dist.host_shard(val_g, r, DP_WORLD) for r in range(DP_WORLD)]
-    nc, ec = batch_caps(train_g, BATCH, dense_m)
+    tshards = [dist.host_shard(train_g, r, world) for r in range(world)]
+    vshards = [dist.host_shard(val_g, r, world) for r in range(world)]
+    nc, ec = batch_caps(train_g, BATCH, dense_m, node_cap)
     per_epoch = min(count_batches(s, BATCH, nc, ec, snug=True)
                     for s in tshards)
+    opt = dict(optim="Adam", lr=0.002) if force else {}
     state, nc, ec = init_train_state(cfg, DataConfig(), train_g,
                                      batch_size=BATCH, device=dev,
-                                     seed=SEED, steps_per_epoch=per_epoch)
-    step = ParallelTrainStep(make_grad_step(), reducer=None,
-                             world=DP_WORLD, guard=guard)
-    eval_step = make_eval_step()
-    rngs = [np.random.default_rng(SEED) for _ in range(DP_WORLD)]
+                                     seed=SEED, steps_per_epoch=per_epoch,
+                                     node_cap=node_cap,
+                                     task="force" if force else "regression",
+                                     **opt)
+    step = ParallelTrainStep(make_force_grad_step() if force
+                             else make_grad_step(), reducer=None,
+                             world=world, guard=guard)
+    eval_step = make_force_eval_step() if force else make_eval_step()
+    rngs = [np.random.default_rng(SEED) for _ in range(world)]
     buffers = [b for b in state.model.buffers() if b.is_floating_point()]
     out = {"train_loss": [], "val_mae": []}
-    for _ in range(DP_EPOCHS):
+    for _ in range(epochs):
         lists = [list(batch_iterator(tshards[r], BATCH, nc, ec, shuffle=True,
                                      rng=rngs[r], dense_m=dense_m,
                                      snug=True))
-                 for r in range(DP_WORLD)]
+                 for r in range(world)]
         steps = min(map(len, lists))
         tsums = DeviceSums()
         for i in range(steps):
             before = [b.clone() for b in buffers]
             total = None
-            for r in range(DP_WORLD):
+            for r in range(world):
                 with torch.no_grad():
-                    torch._foreach_copy_(buffers, before)
+                    if buffers:
+                        torch._foreach_copy_(buffers, before)
                 step.grad_part(state, lists[r][i].to(dev))
                 total = (step.bucket.clone() if total is None
                          else total + step.bucket)
             step.bucket.copy_(total)
             tsums.add(step.apply_part(state))
         vlists = [list(batch_iterator(vshards[r], BATCH, nc, ec,
-                                      dense_m=dense_m, in_cap=0, snug=True))
-                  for r in range(DP_WORLD)]
+                                      dense_m=dense_m,
+                                      in_cap=None if force else 0,
+                                      snug=True))
+                  for r in range(world)]
         longest = max(map(len, vlists))
-        vsums = [DeviceSums() for _ in range(DP_WORLD)]
-        for r in range(DP_WORLD):
+        vsums = [DeviceSums() for _ in range(world)]
+        for r in range(world):
             for b in parallel_batches(vlists[r], train=False, steps=longest):
                 vsums[r].add(eval_step(state, b.to(dev)))
         with torch.no_grad():
             total = {k: sum(s.sums[k] for s in vsums) for k in vsums[0].sums}
         t, v = fetch_device_sums(tsums.sums), fetch_device_sums(total)
         out["train_loss"].append(t["loss_sum"] / t["count"])
-        out["val_mae"].append(v["mae_sum"] / v["count"])
+        out["val_mae"].append(v["force_mae_sum"] / v["force_mae_count"]
+                              if force else v["mae_sum"] / v["count"])
     return out
 
 
-def dp_against_emulation(label, leg, want) -> dict:
-    """A leg's per-epoch train loss and val MAE within DP_RTOL of the
-    one-process emulation's -> the largest relative difference."""
+def dp_against_emulation(label, leg, want, rtol=DP_RTOL, epochs=DP_EPOCHS,
+                         what="the one-process emulation") -> dict:
+    """A leg's per-epoch train loss and val MAE within ``rtol`` of the
+    one-process emulation's (or another one-process run's, ``what``) ->
+    the largest relative difference."""
     rel = max(abs(g - w) / max(abs(w), 1e-12)
               for key in ("train_loss", "val_mae")
               for g, w in zip(leg[key], want[key]))
-    ok = (len(leg["train_loss"]) == len(want["train_loss"]) == DP_EPOCHS
-          and rel <= DP_RTOL)
+    ok = (len(leg["train_loss"]) == len(want["train_loss"]) == epochs
+          and rel <= rtol)
     print(f"{label}: train loss {leg['train_loss']} / val MAE "
-          f"{leg['val_mae']} vs the one-process emulation "
-          f"{want['train_loss']} / {want['val_mae']}: max rel {rel!r} "
-          f"(rtol {DP_RTOL}): {'ok' if ok else 'FAIL'}")
-    check(ok, f"{label}: the two ranks leave the one-process emulation")
-    return {"emulation": want, "max_rel_vs_emulation": rel}
+          f"{leg['val_mae']} vs {what} {want['train_loss']} / "
+          f"{want['val_mae']}: max rel {rel!r} (rtol {rtol}): "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the ranks leave {what}")
+    return {"reference": what, "emulation": want,
+            "max_rel_vs_emulation": rel}
 
 
 def dp_steady_rate(n_train, seconds) -> float:
@@ -4657,6 +4713,205 @@ def data_parallel_phase(dev, work_dir, card):
                              "structures_per_s": info["structures_per_s"]}
     summary["wall_s"] = time.perf_counter() - t_phase
     print(f"data_parallel: {summary['wall_s']!r} s")
+    return summary, counts
+
+
+GS_SHARDS = 2  # the graph_shards phase: G, ranks sharing the one card
+GS_EPOCHS = 3  # gs_dense's epochs (gs_coo, gs_dp, dp_force: GS_SHORT)
+GS_SHORT = 2
+GS_RTOL = 1e-4  # a sharded leg vs one unsharded process (sums reordered)
+N_DP_FORCE = 1024  # dp_force's synthetic LJ frames (FORCE_ATOMS atoms)
+GS_EDGE_SHARE = 1.0 / GS_SHARDS + 0.05  # a rank's edge bytes over one's
+
+
+def gs_one_process(label, argv) -> dict:
+    """One unsharded process of the train entry point (in this process;
+    not traced) -> its ``train:`` record."""
+    from cgnn_tpu_torch.train.__main__ import main as train_main
+
+    rc, out = run_main(train_main, argv, label)
+    check(rc == 0, f"{label}: the train entry point exited {rc}")
+    return json.loads(next(line for line in out.splitlines()
+                           if line.startswith("train: "))[7:])
+
+
+def gs_edge_bytes(label, leg, one) -> dict:
+    """Each rank's staged edge bytes (its strip or chunk of the edge
+    leaves, its mapping) against the unsharded process's, held to about
+    1/G -> the record."""
+    shares = [b / one["edge_bytes"] for b in leg["edge_bytes_by_rank"]]
+    ok = all(0 < x <= GS_EDGE_SHARE for x in shares)
+    print(f"{label}: edge bytes a rank {leg['edge_bytes_by_rank']} vs one "
+          f"process {one['edge_bytes']}: shares {shares} (<= "
+          f"{GS_EDGE_SHARE}): {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: a rank stages more than ~1/{GS_SHARDS} of the "
+              f"edge bytes")
+    return {"edge_bytes_by_rank": leg["edge_bytes_by_rank"],
+            "edge_bytes_one_process": one["edge_bytes"],
+            "edge_share_by_rank": shares}
+
+
+def graph_shards_phase(dev, work_dir, card):
+    """The graph_shards phase (module docstring) -> (summary, counts)."""
+    import numpy as np
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.cache import load_graph_cache, save_graph_cache
+    from cgnn_tpu_torch.data.dataset import (
+        load_synthetic,
+        load_synthetic_mp,
+        load_synthetic_oc20,
+        load_trajectory,
+        train_val_test_split,
+    )
+    from cgnn_tpu_torch.data.trajectory import split_trajectory_groups
+    from cgnn_tpu_torch.predict import main as predict_main
+    from cgnn_tpu_torch.train.loop import batch_caps, sharded_caps
+
+    t_phase = time.perf_counter()
+    counts, summary = {}, {"card": card}
+    os.makedirs(work_dir, exist_ok=True)
+    fcfg = DataConfig().featurize_config()
+    n_conv = ModelConfig().n_conv
+    cache = os.path.join(work_dir, "dp_graphs.npz")
+    if os.path.exists(cache):  # the data_parallel phase's
+        graphs = load_graph_cache(cache)
+    else:
+        graphs = load_synthetic_mp(N_DP, fcfg, seed=SEED)
+        save_graph_cache(graphs, cache)
+    oc20 = load_synthetic_oc20(N_OC20, fcfg, seed=SEED)
+    oc20_cache = os.path.join(work_dir, "gs_oc20.npz")
+    save_graph_cache(oc20, oc20_cache)
+    force_frames = load_trajectory(N_DP_FORCE, fcfg, seed=SEED,
+                                   num_atoms=FORCE_ATOMS)
+    mp_train = train_val_test_split(graphs, 0.8, 0.1, seed=SEED)[0]
+    oc_train = train_val_test_split(oc20, 0.8, 0.1, seed=SEED)[0]
+    f_train = split_trajectory_groups([force_frames], 0.8, 0.1,
+                                      seed=SEED)[0]
+    # the capacities the sharded runs round to, given to both sides so
+    # the unsharded process packs the same batches
+    nc, _ = sharded_caps(*batch_caps(mp_train, BATCH, M), M, GS_SHARDS)
+    onc, oec = sharded_caps(*batch_caps(oc_train, OC20_BATCH, None), None,
+                            GS_SHARDS)
+    summary["caps"] = {"dense_node_cap": nc, "coo": [onc, oec]}
+    common = ["--print-freq", "0", "--seed", str(SEED)]
+    dense = ["--cache", cache, "-b", str(BATCH), "--node-cap", str(nc),
+             *common]
+    coo = ["--cache", oc20_cache, "-b", str(OC20_BATCH), "--aggregation",
+           COO_AGG, "--node-cap", str(onc), "--edge-cap", str(oec),
+           "--epochs", str(GS_SHORT), *common]
+    force = ["--task", "force", "--synthetic", str(N_DP_FORCE),
+             "--md-atoms", str(FORCE_ATOMS), "-b", str(BATCH), "--optim",
+             "Adam", "--lr", "0.002", "--epochs", str(GS_SHORT), *common]
+    shard = ["--graph-shards", str(GS_SHARDS), "--dist-backend", "gloo"]
+    dp = ["--data-parallel", "--dist-backend", "gloo"]
+
+    def one_dirs(label):
+        d = os.path.join(work_dir, label)
+        return ["--ckpt-dir", os.path.join(d, "ckpt"), "--out-dir",
+                os.path.join(d, "out")]
+
+    # the rates first, each run alone on the card: the sharded ranks, then
+    # one unsharded process of the entry point on the same data and caps
+    legs = {"gs_dense": DataParallelRun(
+        "gs_dense", work_dir, dense + ["--epochs", str(GS_EPOCHS)] + shard,
+        world=GS_SHARDS).wait()}
+    ones = {"gs_dense": gs_one_process("gs_dense_one", dense + [
+        "--epochs", str(GS_EPOCHS)] + one_dirs("gs_dense_one"))}
+    legs["dp_force"] = DataParallelRun("dp_force", work_dir,
+                                       force + dp).wait()
+    ones["dp_force"] = gs_one_process("dp_force_one",
+                                      force + one_dirs("dp_force_one"))
+    # then the COO and D x G legs side by side, the references beside them
+    runs = {"gs_coo": DataParallelRun("gs_coo", work_dir, coo + shard,
+                                      world=GS_SHARDS),
+            "gs_dp": DataParallelRun(
+                "gs_dp", work_dir, dense + ["--epochs", str(GS_SHORT)]
+                + shard + dp, world=2 * GS_SHARDS)}
+    try:
+        ones["gs_coo"] = gs_one_process("gs_coo_one",
+                                        coo + one_dirs("gs_coo_one"))
+        emulated = {
+            "gs_dp": dp_emulation(dev, graphs, {"dense_m": M}, node_cap=nc,
+                                  epochs=GS_SHORT),
+            "dp_force": dp_emulation(dev, force_frames, {"dense_m": M},
+                                     epochs=GS_SHORT, force=True)}
+        legs.update({k: r.wait() for k, r in runs.items()})
+    finally:
+        for r in runs.values():
+            r.kill()
+    per_step = {"gs_dense": {}, "gs_dp": {}, "dp_force": {},
+                "gs_coo": coo_per_step(n_conv)}
+    epochs = {"gs_dense": GS_EPOCHS}
+    for label, traces in legs.items():
+        ep = epochs.get(label, GS_SHORT)
+        summary[label] = dp_hold(label, traces, per_step[label], counts,
+                                 epochs=ep, captured=label == "dp_force")
+        run_dir = os.path.join(work_dir, label)
+        dp_committer(label, os.path.join(run_dir, "ckpt-rank0"),
+                     [os.path.join(run_dir, f"{d}-rank{r}")
+                      for r in range(1, len(traces))
+                      for d in ("ckpt", "out")], epochs=ep)
+    for label in ("gs_dense", "gs_coo"):
+        one = ones[label]
+        summary[label].update(dp_against_emulation(
+            label, summary[label], {"train_loss": one["train_loss"],
+                                    "val_mae": one["val_metric"]},
+            rtol=GS_RTOL, epochs=epochs.get(label, GS_SHORT),
+            what="one unsharded process"))
+        summary[label].update(gs_edge_bytes(label, summary[label], one))
+    for label, want in emulated.items():
+        summary[label].update(dp_against_emulation(
+            label, summary[label], want, rtol=GS_RTOL, epochs=GS_SHORT))
+    for r in range(2):
+        check(counts[f"gs_coo.rank{r}"]["launches"]["segment_sum_sorted"]
+              > 0, f"gs_coo rank {r}: kernel 6 never launched")
+    n_train = {"gs_dense": len(mp_train), "gs_dp": len(mp_train),
+               "gs_coo": len(oc_train), "dp_force": len(f_train)}
+    rates = {}
+    for label in legs:
+        ranks = np.max(summary[label]["epoch_seconds_by_rank"],
+                       axis=0).tolist()
+        rates[label] = {"ranks": dp_steady_rate(n_train[label], ranks)}
+        if label in ones:
+            rates[label]["one_process"] = dp_steady_rate(
+                n_train[label], ones[label]["epoch_seconds"])
+    print(f"graph_shards rates on {card}: train structures/s (dp_force: "
+          f"frames/s) over epochs 2.., the ranks sharing the card, and one "
+          f"process; gs_dense and dp_force each ran alone, gs_coo and gs_dp "
+          f"beside each other and the references (one card: not a "
+          f"scaling figure): {json.dumps(rates, allow_nan=False)}")
+    summary["structures_per_s"] = rates
+    # predict on gs_dense's process-0 checkpoint, against the plain path
+    ck = os.path.join(work_dir, "gs_dense", "ckpt-rank0")
+    pred_graphs = load_synthetic(N_PREDICT, fcfg)
+    want = plain_answers(dev, ck, "latest", pred_graphs)
+    out_csv = os.path.join(work_dir, "gs_predict.csv")
+    with PathRun("gs_predict") as run:
+        rc, out = run_main(predict_main, [
+            ck, "--synthetic", str(N_PREDICT), "-b", str(BATCH), "--wire",
+            "featurized", "--out", out_csv], "gs_predict")
+    check(rc == 0, f"gs_predict exited {rc}")
+    info = json.loads(next(line for line in out.splitlines()
+                           if line.startswith("predict: "))[9:])
+    counts["gs_predict"] = predict_path(run, {}, info)
+    import csv as csvmod
+
+    rows = list(csvmod.reader(open(out_csv)))
+    got = np.array([[float(x) for x in r[2:]] for r in rows])
+    err = np.abs(got - want)
+    ok = ([r[0] for r in rows] == [x.cif_id for x in pred_graphs]
+          and got.shape == want.shape
+          and bool(np.all(err <= SERVE_ATOL + SERVE_RTOL * np.abs(want))))
+    print(f"gs_predict: {N_PREDICT} structures on gs_dense's process-0 "
+          f"checkpoint vs the plain path: max_abs_err {float(err.max())!r} "
+          f"(rtol {SERVE_RTOL}, atol {SERVE_ATOL}): "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "gs_predict: the CSV disagrees with the plain path")
+    summary["gs_predict"] = {"max_abs_err_vs_plain": float(err.max()),
+                             "structures_per_s": info["structures_per_s"]}
+    summary["wall_s"] = time.perf_counter() - t_phase
+    print(f"graph_shards: {summary['wall_s']!r} s")
     return summary, counts
 
 
@@ -6758,13 +7013,14 @@ def main() -> int:
     res_summary, res_counts = resilience_phase(dev, work_dir, split,
                                                mp_split)
     dp_summary, dp_counts = data_parallel_phase(dev, work_dir, card)
+    gs_summary, gs_counts = graph_shards_phase(dev, work_dir, card)
     http_summary, http_counts = serve_http_phase(dev, work_dir, card)
     # last: its paths launch no kernel but oc20_train's, and an in-process
     # server burst's trace lost a kernel record when it ran before them
     force_summary, force_counts = force_task_phase(dev, work_dir, card)
     by_path.update(**graphs_counts, **res_counts, **http_counts,
                    **hm_counts, **bp_counts, **force_counts, **dl_counts,
-                   **dp_counts)
+                   **dp_counts, **gs_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -6809,6 +7065,7 @@ def main() -> int:
     print(json.dumps({"step_graphs": graphs_summary}, allow_nan=False))
     print(json.dumps({"resilience": res_summary}, allow_nan=False))
     print(json.dumps({"data_parallel": dp_summary}, allow_nan=False))
+    print(json.dumps({"graph_shards": gs_summary}, allow_nan=False))
     print(json.dumps({"serve_http": http_summary}, allow_nan=False))
     print(json.dumps({"heads_modes": hm_summary}, allow_nan=False))
     print(json.dumps({"bf16_paths": bp_summary}, allow_nan=False))

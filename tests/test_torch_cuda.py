@@ -5,8 +5,9 @@ fixed-order reductions (kernels 2 and 4) bit-identical from run to run,
 kernels 1 and 2 on a shared node pass, the training op's kernel path
 against its structured twin, a checkpoint of a card-resident state,
 bulk raw inference's launches of kernel 8, the divergence guard inside
-a replayed train graph, the COO gathers' fixed-order backward and two
-data-parallel ranks sharing the card over gloo.
+a replayed train graph, the COO gathers' fixed-order backward, two
+data-parallel ranks sharing the card over gloo, two graph-sharded
+ranks sharing it, and the prefetch loader staging beside a capture.
 Marked ``cuda``; they skip where there is no card. On a GPU machine,
 from the repository root:
 
@@ -15,6 +16,9 @@ from the repository root:
 (``--noconftest``: the suite's conftest imports JAX, which a GPU machine
 need not have; this file imports none of it.)
 """
+
+import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -837,6 +841,60 @@ def test_loader_side_stream_batches_equal_synchronous_copies(dev):
             torch.testing.assert_close(ma[k], mb[k], rtol=1e-6, atol=0)
     again = list(prefetch_to_device(iter(host[:2]), "cuda", size=1))
     assert all(b.nodes.device == dev for b in again)
+
+
+@dataclasses.dataclass
+class _Staged:
+    a: torch.Tensor
+
+    def to(self, device, non_blocking=False):
+        return _Staged(self.a.to(device, non_blocking=non_blocking))
+
+
+def test_loader_stages_beside_a_capture_on_every_pool_turn(dev):
+    """The loader's side stream is never the capture stream: the stream
+    pools hand out 32 streams in turn, and a side stream from the capture
+    stream's pool was that stream every 32nd loader. Over 33 loaders, each
+    stages a batch while the consumer captures a step on
+    ``capture_stream``; every batch arrives whole and the graph replays."""
+    from cgnn_tpu_torch.data.loader import prefetch_to_device, staging_stream
+    from cgnn_tpu_torch.train.graphs import capture_stream
+
+    cap = capture_stream(dev)
+    assert all(staging_stream(dev).cuda_stream != cap.cuda_stream
+               for _ in range(64))
+    x = torch.arange(8.0, device=dev)
+    for turn in range(33):
+        host = [_Staged((torch.arange(4096.0) + 10 * turn + i).pin_memory())
+                for i in range(3)]
+        capturing, staged = threading.Event(), threading.Event()
+
+        def batches():
+            yield host[0]
+            assert capturing.wait(30)
+            yield host[1]  # staged while the consumer captures
+            staged.set()
+            yield host[2]
+
+        got = []
+        for i, b in enumerate(prefetch_to_device(batches(), dev, size=2)):
+            got.append(b.a.clone())
+            if i == 0:
+                g = torch.cuda.CUDAGraph()
+                cap.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(cap):
+                    g.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        out = x * 2
+                        capturing.set()
+                        assert staged.wait(30)
+                    finally:
+                        g.capture_end()
+                torch.cuda.current_stream(dev).wait_stream(cap)
+                g.replay()
+                assert torch.equal(out, torch.arange(8.0, device=dev) * 2)
+        assert [torch.equal(a.cpu(), h.a) for a, h in zip(got, host)] == [
+            True] * 3, turn
 
 
 # ---------------------------------------------------------------------------
@@ -1663,3 +1721,39 @@ def test_two_gloo_ranks_share_the_card(dev, tmp_path):
         for k in ("fused_cgconv_eval", "fused_cgconv_stats",
                   "epilogue_reduce", "epilogue_dz"):
             assert rec["launches"][k] > 0, (k, rec)
+
+
+@pytest.mark.parametrize("layout", ["dense", "coo"])
+def test_graph_shards_two_gloo_ranks_share_the_card(dev, tmp_path, layout):
+    """Graph sharding on one card: ``--graph-shards 2`` over gloo on
+    cuda:0 (chip_smoke's ``DataParallelRun``), dense node strips and COO
+    edge chunks with kernel 6: equal state digests after every epoch,
+    the same summed metrics, eager steps (no capture), each rank's
+    launches exact (kernel 6's, COO, on its chunk), and per-epoch metrics
+    within chip_smoke's ``GS_RTOL`` of one unsharded process at the same
+    capacities."""
+    import chip_smoke as c
+
+    caps = (["--node-cap", "96"] if layout == "dense" else
+            ["--aggregation", "pallas", "--node-cap", "160", "--edge-cap",
+             "2400"])
+    base = ["--synthetic", "96", "-b", "16", "--epochs", str(c.DP_EPOCHS),
+            "--atom-fea-len", "16", "--h-fea-len", "24", "--n-conv", "2",
+            "--print-freq", "0", *caps]
+    traces = c.DataParallelRun(
+        f"gs_card_{layout}", str(tmp_path),
+        base + ["--graph-shards", "2", "--dist-backend", "gloo"]).wait()
+    counts = {}
+    leg = c.dp_hold(f"gs_card_{layout}", traces,
+                    c.coo_per_step(2) if layout == "coo" else {}, counts,
+                    captured=False)
+    if layout == "coo":
+        for rec in counts.values():
+            assert rec["launches"]["segment_sum_sorted"] > 0, rec
+    one = c.gs_one_process(f"gs_card_{layout}_one", base + [
+        "--ckpt-dir", str(tmp_path / "one_ck"), "--out-dir",
+        str(tmp_path / "one_out")])
+    c.dp_against_emulation(f"gs_card_{layout}", leg, {
+        "train_loss": one["train_loss"], "val_mae": one["val_metric"]},
+        rtol=c.GS_RTOL, what="one unsharded process")
+    c.gs_edge_bytes(f"gs_card_{layout}", leg, one)

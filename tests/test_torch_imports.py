@@ -72,7 +72,9 @@ def test_importing_every_port_module_loads_no_jax():
                 "resilience.faultinject",
                 "predict", "data.cif", "data.cache", "data.preprocess",
                 "data.compact", "data.pipeline", "data.loader",
-                "data.invariants", "native"):
+                "data.invariants", "native", "parallel.dist",
+                "parallel.mesh", "parallel.data_parallel",
+                "parallel.edge_parallel"):
         assert f"cgnn_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 

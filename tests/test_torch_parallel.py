@@ -600,7 +600,8 @@ REFUSALS = {
     "scan_epochs": (["--data-parallel", "--scan-epochs"], "per-step loop"),
     "compact_on": (["--data-parallel", "--compact-staging", "on"],
                    "--compact-staging on is not yet supported"),
-    "force": (["--data-parallel", "--task", "force"], "item 9b"),
+    "force": (["--data-parallel", "--graph-shards", "2", "--task",
+               "force"], "--graph-shards is not supported for --task force"),
 }
 
 
