@@ -25,7 +25,9 @@ The training batch iterator (``batch_iterator``, ``count_batches``) closes
 a batch on its graph, node and edge budgets; ``plan_batches`` gives the
 same spans without packing, and ``assign_size_buckets`` the size classes
 of bulk inference (train/infer.py) and of ``bucketed_batch_iterator``
-(training with one capacity per size class). Capacities are snug
+(training with one capacity per size class; ``size_classes`` fits the
+classes and their capacities on other graphs where asked, so ranks that
+pack shards of one split get the same shapes). Capacities are snug
 (fill-to-capacity) or, with ``snug=False``, the JAX package's ladder
 (``capacities_for``, ``round_to_bucket``); ``PaddingStats`` measures the
 padding either leaves. The iterators pass every batch through
@@ -754,15 +756,75 @@ def count_batches(
     return count + (1 if in_bucket else 0)
 
 
+def size_bucket_cuts(graphs: Sequence[CrystalGraph],
+                     n_buckets: int) -> np.ndarray:
+    """The node-count quantiles that split ``graphs`` into ``n_buckets``
+    size classes (empty for one class)."""
+    sizes = np.array([g.num_nodes for g in graphs])
+    if n_buckets <= 1:
+        return np.zeros(0)
+    return np.quantile(sizes, np.linspace(0, 1, n_buckets + 1)[1:-1])
+
+
 def assign_size_buckets(graphs: Sequence[CrystalGraph],
-                        n_buckets: int) -> np.ndarray:
+                        n_buckets: int,
+                        cuts: np.ndarray | None = None) -> np.ndarray:
     """Bucket index per graph by node-count quantiles ([len(graphs)]
-    int64)."""
+    int64): those of ``graphs`` (``size_bucket_cuts``), or ``cuts``
+    fitted on other graphs."""
     sizes = np.array([g.num_nodes for g in graphs])
     if n_buckets <= 1:
         return np.zeros(len(graphs), np.int64)
-    cuts = np.quantile(sizes, np.linspace(0, 1, n_buckets + 1)[1:-1])
+    if cuts is None:
+        cuts = size_bucket_cuts(graphs, n_buckets)
     return np.searchsorted(cuts, sizes, side="left")
+
+
+def size_classes(graphs: Sequence[CrystalGraph], batch_size: int,
+                 n_buckets: int, headroom: float = 1.15,
+                 dense_m: int | None = None, in_cap: int | None = None,
+                 snug: bool = True, per_bucket_in_cap: bool = False,
+                 node_multiple: int = 1,
+                 fit_graphs: Sequence[CrystalGraph] | None = None):
+    """``bucketed_batch_iterator``'s plan -> (class of each of ``graphs``,
+    {class: (node_cap, edge_cap, in_cap)}, over_cap). The class
+    boundaries, each class's capacities and the two-tier overflow
+    capacity are fitted on ``fit_graphs`` (default ``graphs``): ranks
+    that pack shards of one split and fit on the whole split get the
+    same shapes for the same class."""
+    fit = graphs if fit_graphs is None else fit_graphs
+    cuts = size_bucket_cuts(fit, n_buckets)
+    fit_of = assign_size_buckets(fit, n_buckets, cuts)
+    bucket_of = assign_size_buckets(graphs, n_buckets, cuts)
+    members = {b: [fit[int(i)] for i in np.nonzero(fit_of == b)[0]]
+               for b in range(int(fit_of.max(initial=0)) + 1)
+               if np.any(fit_of == b)}
+    over_cap = None
+    if dense_m is not None and in_cap is None and not per_bucket_in_cap:
+        gcap = graph_cap_for(batch_size) if snug else batch_size
+        over_cap = max(overflow_cap(sub, gcap, dense_m)
+                       for sub in members.values())
+    caps = {}
+    for b, sub in members.items():
+        nc, ec = capacities_for(sub, batch_size, headroom, dense_m=dense_m,
+                                snug=snug, node_multiple=node_multiple)
+        b_in_cap = in_cap
+        if dense_m is not None and b_in_cap is None and per_bucket_in_cap:
+            b_in_cap = in_degree_cap(sub)
+        caps[b] = (nc, ec, b_in_cap)
+    return bucket_of, caps, over_cap
+
+
+def bucket_batch_counts(graphs: Sequence[CrystalGraph], batch_size: int,
+                        n_buckets: int, **kw) -> dict:
+    """{size class: the batches ``bucketed_batch_iterator`` packs of it}
+    (``count_batches`` on the class's graphs in their order; ``kw`` as
+    ``size_classes``)."""
+    bucket_of, caps, _ = size_classes(graphs, batch_size, n_buckets, **kw)
+    return {b: count_batches([graphs[int(i)]
+                              for i in np.nonzero(bucket_of == b)[0]],
+                             batch_size, nc, ec, snug=kw.get("snug", True))
+            for b, (nc, ec, _) in caps.items()}
 
 
 def plan_batches(graphs: Sequence[CrystalGraph], batch_size: int,
@@ -909,6 +971,7 @@ def bucketed_batch_iterator(
     pack_fn=None,
     node_multiple: int = 1,
     transpose_shards: int = 1,
+    fit_graphs: Sequence[CrystalGraph] | None = None,
 ):
     """Batches with one capacity per size class (the JAX
     ``bucketed_batch_iterator``): graphs split into ``n_buckets``
@@ -923,29 +986,20 @@ def bucketed_batch_iterator(
     equal class shapes stay equal; ``per_bucket_in_cap`` packs the
     single-tier slots sized by each class's own worst in-degree instead;
     ``in_cap`` and ``transpose_shards`` as in ``batch_iterator``;
-    ``node_multiple`` as in ``capacities_for``."""
+    ``node_multiple`` as in ``capacities_for``. ``fit_graphs``: the
+    graphs the classes and capacities are fitted on (``size_classes``;
+    default ``graphs``)."""
     rng = rng or np.random.default_rng()
-    bucket_of = assign_size_buckets(graphs, n_buckets)
-    over_cap = None
-    if dense_m is not None and in_cap is None and not per_bucket_in_cap:
-        gcap = graph_cap_for(batch_size) if snug else batch_size
-        over_cap = max(
-            overflow_cap([graphs[int(i)]
-                          for i in np.nonzero(bucket_of == b)[0]],
-                         gcap, dense_m)
-            for b in range(int(bucket_of.max()) + 1)
-            if np.any(bucket_of == b))
+    bucket_of, caps, over_cap = size_classes(
+        graphs, batch_size, n_buckets, headroom=headroom, dense_m=dense_m,
+        in_cap=in_cap, snug=snug, per_bucket_in_cap=per_bucket_in_cap,
+        node_multiple=node_multiple, fit_graphs=fit_graphs)
     iters, weights = [], []
-    for b in range(int(bucket_of.max()) + 1):
+    for b, (nc, ec, b_in_cap) in caps.items():
         idxs = np.nonzero(bucket_of == b)[0]
         if len(idxs) == 0:
             continue
         sub = [graphs[int(i)] for i in idxs]
-        nc, ec = capacities_for(sub, batch_size, headroom, dense_m=dense_m,
-                                snug=snug, node_multiple=node_multiple)
-        b_in_cap = in_cap
-        if dense_m is not None and b_in_cap is None and per_bucket_in_cap:
-            b_in_cap = in_degree_cap(sub)
         it = batch_iterator(sub, batch_size, nc, ec, shuffle=shuffle,
                             rng=rng, dense_m=dense_m, in_cap=b_in_cap,
                             snug=snug, over_cap=over_cap, pack_fn=pack_fn,

@@ -5,17 +5,20 @@ groups, host shards, coordination and the autograd collectives; mesh.py:
 a rank's card and its place in a D x G layout; data_parallel.py: the
 step, the replicated state and the per-rank batch lists; edge_parallel.py:
 a rank's strip or chunk of every batch's edge leaves), which
-train/loop.py ``fit`` runs as its per-step loop under a live process
-group. There is no ``compat.py``: ``shard_map`` and ``pcast`` have no
-PyTorch counterpart (``dist.Group``'s collectives take their place). The
-epoch driver's data-parallel and graph-sharded forms (ROADMAP Queue 1,
-item 9b, second part) and the multi-device forward paths (``executor``,
-item 9c) are not ported yet."""
+train/loop.py ``fit`` runs under a live process group, in its per-step
+loop and in its epoch driver (``agree_batches``: the same shape groups on
+every rank). There is no ``compat.py``: ``shard_map`` and ``pcast`` have
+no PyTorch counterpart (``dist.Group``'s collectives take their place).
+The multi-device forward paths (``executor``, ROADMAP Queue 1, item 9c)
+are not ported yet."""
 
 from cgnn_tpu_torch.parallel.data_parallel import (
     CoordinatedCheckpoint,
     ParallelTrainStep,
     ReplicaDriftError,
+    ScheduleDivergedError,
+    agree_batches,
+    agree_lists,
     check_replicated,
     empty_batch_like,
     make_parallel_eval_step,
@@ -48,6 +51,9 @@ __all__ = [
     "Group",
     "ParallelTrainStep",
     "ReplicaDriftError",
+    "ScheduleDivergedError",
+    "agree_batches",
+    "agree_lists",
     "check_replicated",
     "chunk_transpose",
     "data_group_ranks",

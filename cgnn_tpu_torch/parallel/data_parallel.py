@@ -48,6 +48,15 @@ sum would count every step G times. The host shards, the shuffles and
 the dropout streams follow the data index, so the ranks of a graph group
 hold the same node leaves.
 
+The epoch driver (train/loop.py ``ScanEpochDriver``) and pack-once
+staging run under a process group on one host: each rank packs its
+shard once, and ``agree_batches`` brings every rank's lists to the same
+shape groups with the same sizes (the per-rank counterpart of the JAX
+per-shape ``drop_last`` of device groups), so one schedule drawn from
+process 0's generator (``sync_rng``) drives every rank and each step's
+collective meets its peers; ``check_agreed`` fails loudly where the
+schedules differ instead of hanging.
+
 The per-step loop is train/loop.py ``fit``, which takes this path under
 a live process group. The force task takes it too, its grad part
 ``train/force_step.py`` ``make_force_grad_step``.
@@ -62,7 +71,7 @@ from typing import Callable, Iterable, Sequence
 import torch
 
 from cgnn_tpu_torch.data import invariants
-from cgnn_tpu_torch.data.graph import GraphBatch
+from cgnn_tpu_torch.data.graph import GraphBatch, batch_shape_key
 from cgnn_tpu_torch.parallel import dist
 from cgnn_tpu_torch.resilience.guard import StepGuard
 
@@ -153,6 +162,129 @@ def parallel_batches(batches: Iterable[GraphBatch], *, train: bool,
         for b in out:
             invariants.check_any(b, dense_m, train=train)
     return out if prep_fn is None else [prep_fn(b) for b in out]
+
+
+def shape_counts(batches: Sequence[GraphBatch]) -> dict:
+    """{shape key: batches of that shape}, in first-seen order."""
+    counts: dict = {}
+    for b in batches:
+        k = batch_shape_key(b)
+        counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+def agreed_shapes(counts_by_rank: Sequence[dict], train: bool) -> dict:
+    """The per-shape step counts every rank runs -> {key: count}, in one
+    order on every rank (rank 0's first-seen keys, then each later
+    rank's new ones): a training shape at the least count of any rank
+    (the JAX per-shape ``drop_last``: absent on one rank, it drops out),
+    a validation shape at the largest."""
+    order: list = []
+    for counts in counts_by_rank:
+        order += [k for k in counts if k not in order]
+    pick = min if train else max
+    out = {k: pick(c.get(k, 0) for c in counts_by_rank) for k in order}
+    return {k: n for k, n in out.items() if n}
+
+
+def cut_and_pad(batches: Sequence[GraphBatch], agreed: dict,
+                templates: dict | None = None) -> list:
+    """``batches`` cut to ``agreed``'s count of each shape (the first
+    ones, in order), then each shape short of its count padded with
+    ``empty_batch_like`` copies of its first batch (or of
+    ``templates[key]`` where this rank has none), in ``agreed``'s order
+    at the end."""
+    kept: dict = {k: 0 for k in agreed}
+    out, first = [], {}
+    for b in batches:
+        k = batch_shape_key(b)
+        first.setdefault(k, b)
+        if k in agreed and kept[k] < agreed[k]:
+            kept[k] += 1
+            out.append(b)
+    for k, n in agreed.items():
+        if kept[k] < n:
+            like = first.get(k)
+            if like is None:
+                like = (templates or {})[k]
+            out += [empty_batch_like(like)] * (n - kept[k])
+    return out
+
+
+def agree_lists(lists_by_rank: Sequence[list], train: bool) -> list:
+    """Every rank's list cut or padded to the agreed per-shape counts
+    (``agreed_shapes``, ``cut_and_pad``) in one process: the one-process
+    twin of ``agree_batches``, for emulations and tests."""
+    agreed = agreed_shapes([shape_counts(b) for b in lists_by_rank], train)
+    templates = {}
+    for batches in lists_by_rank:
+        for b in batches:
+            templates.setdefault(batch_shape_key(b), b)
+    return [cut_and_pad(b, agreed, templates) for b in lists_by_rank]
+
+
+def agree_batches(batches: Iterable[GraphBatch], *, train: bool,
+                  dense_m: int | None = None) -> tuple[list, list]:
+    """This rank's packed batches of one split at the per-shape counts
+    every rank runs (the epoch driver's and pack-once's lists: the same
+    shape groups, with the same sizes, on every rank) -> (batches, the
+    agreed key order). The keys and counts are exchanged once over the
+    host group. Training shapes are cut to the least count; validation
+    shapes padded to the largest with ``empty_batch_like`` batches, and
+    a rank that holds no batch of a shape takes its template from the
+    lowest rank that does (one broadcast a shape). Under
+    ``--check-invariants`` every kept batch is checked; a training
+    split with no step raises, as ``parallel_batches`` does."""
+    batches = list(batches)
+    mine = shape_counts(batches)
+    counts_by_rank = dist.all_gather_object(mine)
+    agreed = agreed_shapes(counts_by_rank, train)
+    if train and not agreed:
+        raise ValueError(
+            "no training step: the ranks packed no training batch of a "
+            "shape every rank holds (fewer training graphs than ranks, or "
+            "a batch size too large for a shard)")
+    templates = {}
+    for k in agreed:
+        holders = [r for r, c in enumerate(counts_by_rank) if k in c]
+        if len(holders) < len(counts_by_rank):
+            like = next((b for b in batches if batch_shape_key(b) == k),
+                        None)
+            like = dist.broadcast_object(
+                empty_batch_like(like) if like is not None else None,
+                src=holders[0])
+            if k not in mine:
+                templates[k] = like
+    out = cut_and_pad(batches, agreed, templates)
+    if invariants.enabled():
+        for b in out:
+            invariants.check_any(b, dense_m, train=train)
+    return out, list(agreed)
+
+
+def sync_rng(rng) -> None:
+    """Process 0's generator state into ``rng`` on every process: the
+    draws after packing (the epoch driver's schedule, pack-once's batch
+    order) are then the same on every rank."""
+    rng.bit_generator.state = dist.broadcast_object(rng.bit_generator.state)
+
+
+class ScheduleDivergedError(RuntimeError):
+    """The ranks drew different epoch-driver schedules."""
+
+
+def check_agreed(value: str, where: str) -> None:
+    """Hold ``value`` (a digest) to process 0's on every rank: every
+    rank raises ``ScheduleDivergedError`` together, naming the ranks
+    that differ, where any does (one host collective)."""
+    if not dist.active():
+        return
+    values = dist.all_gather_object(value)
+    bad = [r for r, v in enumerate(values) if v != values[0]]
+    if bad:
+        raise ScheduleDivergedError(
+            f"{where}: process(es) {bad} drew another schedule than "
+            f"process 0 ({values[0][:16]}); a collective would hang")
 
 
 def state_tensors(state) -> list:

@@ -15,8 +15,11 @@ contract.
 - **Coordination** on a gloo group of CPU tensors of its own, so it works
   under NCCL too: ``barrier``, ``broadcast_str`` (process 0 -> every
   process, a fixed 256-slot wire), ``min_over_hosts`` /
-  ``max_over_hosts`` (the step-count equalizers) and
-  ``ReloadCoordinator``, the cross-process hot-reload agreement.
+  ``max_over_hosts`` (the step-count equalizers), ``all_gather_object``
+  and ``broadcast_object`` (small host records: the shape agreement of
+  the epoch driver), and ``ReloadCoordinator``, the cross-process
+  hot-reload agreement. ``hosts_problem`` names a run that spans hosts
+  (the epoch driver and pack-once staging are host-local).
 - **The data collective**: ``SumReducer``, an in-place SUM all-reduce of
   one tensor over the process group (or one ``Group`` of it). Gloo with
   a CUDA tensor is staged through a page-locked host copy, chosen by the
@@ -390,11 +393,7 @@ def graph_hosts_problem() -> str:
     (a collective over the world: every rank gets the same answer)."""
     if _run is None or _run.graph is None:
         return ""
-    import torch.distributed as tdist
-
-    hosts = [None] * _run.world
-    tdist.all_gather_object(hosts, socket.gethostname(),
-                            group=_run.host_group)
+    hosts = all_gather_object(socket.gethostname())
     for d in range(data_count()):
         ranks = mesh.graph_group_ranks(d, _run.graph_shards)
         names = sorted({hosts[r] for r in ranks})
@@ -402,6 +401,21 @@ def graph_hosts_problem() -> str:
             return (f"graph group {d} (ranks {ranks[0]}-{ranks[-1]}) spans "
                     f"hosts {names}: graph shards exchange activations in "
                     f"every conv, so a graph group must lie on one host")
+    return ""
+
+
+def hosts_problem() -> str:
+    """'' when every rank of the run lies on one host, else which hosts
+    it spans (a collective over the world: every rank gets the same
+    answer). The epoch driver, pack-once and device-resident staging are
+    host-local: the JAX package refuses them across hosts."""
+    if _run is None:
+        return ""
+    names = sorted(set(all_gather_object(socket.gethostname())))
+    if len(names) > 1:
+        return (f"the ranks span hosts {names}: multi-host DP runs the "
+                f"per-step loop; drop --scan-epochs/--device-resident/"
+                f"--pack-once")
     return ""
 
 
@@ -452,6 +466,29 @@ def broadcast_str(value: str) -> str:
     tdist.broadcast(buf, src=0, group=_run.host_group)
     out = buf[buf != 0].to(torch.uint8).numpy().tobytes()
     return out.decode(errors="replace")
+
+
+def all_gather_object(obj) -> list:
+    """Every process's ``obj`` (picklable), in process order (``[obj]``
+    in a single-process run)."""
+    if _run is None:
+        return [obj]
+    import torch.distributed as tdist
+
+    out = [None] * _run.world
+    tdist.all_gather_object(out, obj, group=_run.host_group)
+    return out
+
+
+def broadcast_object(obj, src: int = 0):
+    """Process ``src``'s ``obj`` (picklable) on every process."""
+    if _run is None:
+        return obj
+    import torch.distributed as tdist
+
+    box = [obj if _run.rank == src else None]
+    tdist.broadcast_object_list(box, src=src, group=_run.host_group)
+    return box[0]
 
 
 def _reduce_int(value: int, op) -> int:

@@ -175,7 +175,8 @@ def rank_view(batch: GraphBatch, n_shards: int, index: int) -> GraphBatch:
 
 def edge_nbytes(batch: GraphBatch) -> int:
     """Bytes of a batch's edge leaves, its transpose mapping and its COO
-    transpose: what graph sharding divides among the ranks."""
+    transpose: what graph sharding divides among the ranks (of a compact
+    batch, the fields of those names it has)."""
     return sum(t.nbytes for name in (*EDGE_FIELDS, *MAPPING_FIELDS,
                                      "nbr_order")
-               if (t := getattr(batch, name)) is not None)
+               if (t := getattr(batch, name, None)) is not None)

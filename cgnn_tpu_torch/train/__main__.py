@@ -114,12 +114,17 @@ rank, and process 0 alone commits checkpoints and writes ``--out-dir``
 (``--resume`` restores there and the ranks take its state). Without the
 triple, ``--data-parallel`` starts one worker a visible card with the
 triple set (coordinator on localhost); with one card it is the
-one-process fit. Exit 2, as train.py: the triple without
-``--data-parallel`` (or ``--graph-shards``); with it, ``--scan-epochs``,
-``--device-resident``, ``--pack-once`` or ``--compact-staging on``; and,
-the port's own, more ranks than cards under NCCL. ``--task force``
-trains data-parallel too (the force step's gradients and statistics
-averaged, its metric sums summed).
+one-process fit. ``--device-resident`` (with its ``--scan-epochs``
+default), ``--scan-epochs`` and ``--pack-once`` run under the triple when
+every rank is on one host: each rank packs its shard once and the ranks
+agree on the same shape groups (train/loop.py); ``--compact-staging
+auto`` is off there. Exit 2, as train.py: the triple without
+``--data-parallel`` (or ``--graph-shards``); with it, ``--compact-staging
+on``, and ``--scan-epochs``, ``--device-resident`` or ``--pack-once``
+when the ranks span hosts (after the process group starts, every rank
+alike); and, the port's own, more ranks than cards under NCCL. ``--task
+force`` trains data-parallel too (the force step's gradients and
+statistics averaged, its metric sums summed).
 
 Graph sharding, with train.py's rules (``cgnn_tpu_torch/parallel/
 edge_parallel.py``): ``--graph-shards G`` splits every batch's edge work
@@ -420,11 +425,6 @@ def data_parallel_plan(args) -> tuple | None:
         print(f"--data-parallel: {world} visible card(s) and no "
               f"CGNN_TPU_* triple: the one-process fit")
         return "single", None
-    if args.scan_epochs or args.device_resident or args.pack_once:
-        print("multi-process DP runs the per-step loop; drop "
-              "--scan-epochs/--device-resident/--pack-once",
-              file=sys.stderr)
-        return None
     if args.compact_staging == "on":
         print("--compact-staging on is not yet supported with "
               "--data-parallel (full staging only); drop the flag or use "
@@ -512,8 +512,10 @@ def main(argv=None) -> int:
         print("--scan-epochs and --no-scan-epochs are contradictory",
               file=sys.stderr)
         return 2
+    # compact staging is single-process (train.py decides it outside its
+    # data-parallel branch)
     compact_ok = (args.scan_epochs and bool(dense_m)
-                  and args.task != "force")
+                  and args.task != "force" and plan[0] == "single")
     if args.compact_staging == "on" and not compact_ok:
         print("--compact-staging on requires --scan-epochs, the dense "
               "layout, and a non-force task", file=sys.stderr)
@@ -539,6 +541,12 @@ def main(argv=None) -> int:
             if problem:
                 print(f"--graph-shards: {problem}", file=sys.stderr)
                 return 2
+            if args.scan_epochs or args.device_resident or args.pack_once:
+                # host-local staging: every rank on one host (train.py)
+                problem = dist.hosts_problem()
+                if problem:
+                    print(problem, file=sys.stderr)
+                    return 2
         return _train(args, dense_m, compact_ok, preempt)
     finally:
         dist.shutdown()
@@ -613,7 +621,7 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
             graphs, args.train_ratio, args.val_ratio, seed=args.seed)
     # the normalizer, the capacities and the milestones come from the
     # whole training split, so every rank holds the same
-    full_train = train_g
+    full_train, full_val = train_g, val_g
     per_epoch = None
     if dp:
         # every rank ran the same split; each data index takes its
@@ -729,7 +737,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
                 graphs=not args.debug_nans, guard=args.guard != "off",
                 monitor=monitor, preempt=preempt,
                 force_weights=(args.energy_weight, args.force_weight),
-                packing=args.packing)
+                packing=args.packing,
+                fit_on=(full_train, full_val) if dp else None)
         if ckpt is not None:
             ckpt.wait()
     finally:
@@ -778,18 +787,32 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
 
 
 def _dp_steps_per_epoch(args, full_train, shard, dense_m) -> int:
-    """The training steps every rank runs an epoch (the least batch
-    count of the ranks' shards, at the whole split's capacities): what
-    the milestones count in a data-parallel run."""
-    from cgnn_tpu_torch.data.graph import count_batches
+    """The training steps every rank runs an epoch, at the whole split's
+    capacities: what the milestones count in a data-parallel run. The
+    per-step loop runs the least batch count of the ranks' shards; lists
+    packed once (``--pack-once``, ``--device-resident``, the epoch
+    driver) run, of each size class, the least count of any rank
+    (parallel/data_parallel.py ``agree_batches``)."""
+    from cgnn_tpu_torch.data.graph import bucket_batch_counts, count_batches
     from cgnn_tpu_torch.parallel import dist
     from cgnn_tpu_torch.train.loop import batch_caps, sharded_caps
 
     snug = args.packing == "snug"
+    dense_m = dense_m or None
+    once = args.pack_once or args.device_resident or args.scan_epochs
+    if once and args.buckets > 1:
+        shards = args.graph_shards
+        kw = dict(dense_m=dense_m, snug=snug, fit_graphs=full_train,
+                  node_multiple=8 * shards if shards > 1 and dense_m else 1)
+        counts = bucket_batch_counts(shard, args.batch_size, args.buckets,
+                                     **kw)
+        classes = bucket_batch_counts(full_train, args.batch_size,
+                                      args.buckets, **kw)
+        return sum(dist.min_over_hosts(counts.get(b, 0)) for b in classes)
     caps = sharded_caps(*batch_caps(full_train, args.batch_size,
-                                    dense_m or None, args.node_cap or None,
+                                    dense_m, args.node_cap or None,
                                     args.edge_cap or None, snug=snug),
-                        dense_m or None, args.graph_shards)
+                        dense_m, args.graph_shards)
     return dist.min_over_hosts(count_batches(shard, args.batch_size, *caps,
                                              snug=snug))
 
@@ -822,9 +845,8 @@ def run_summary(result: dict, n_train: int, test: dict | None = None
     steps each validation epoch took and the steps the guard skipped,
     each epoch's train loss and validation metric (``best_key``'s); a
     data-parallel run's ``dp`` record (rank, world, backend, data index,
-    graph shards, per-epoch state digests); the per-step loop's
-    ``edge_bytes`` (the first epoch's edge leaves as this rank staged
-    them)."""
+    graph shards, per-epoch state digests); ``edge_bytes`` (the first
+    epoch's edge leaves as this rank staged them)."""
     from cgnn_tpu_torch.resilience.guard import skipped_steps
 
     hist = result["history"]

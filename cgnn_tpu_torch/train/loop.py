@@ -72,33 +72,49 @@ the host copies.
 
 Data parallel (the JAX multi-process contract, parallel/
 data_parallel.py): under a live process group (``dist.active()``)
-``fit`` runs the per-step loop on this rank's shards with
+``fit`` trains on this rank's shards. The per-step loop runs
 ``SplitStepRunner``, whose train step is two graphs around the
 collective; each epoch's lists are cut or padded to the step count every
-rank runs (``parallel_batches``), the eval sums are reduced once an
+rank runs (``parallel_batches``). Pack-once, device-resident staging and
+the epoch driver run too, on one host (the JAX single-process mesh's
+counterpart): every batch is packed once and the lists are brought to
+the same shape groups with the same sizes on every rank
+(``agree_batches``: a training shape cut to the least count, a
+validation shape padded to the largest), and the generator takes process
+0's state, so every rank draws one schedule (its digest is held across
+the ranks each epoch: a diverged schedule fails loudly instead of
+hanging). The driver's train step is then graph A a shape
+(``step.grad_part`` on the stacked batch), the collective on the host
+and one graph B (``step.apply_part``, which adds the summed sums). The
+staging check is agreed (``agreed_resident_fit``: ranks that share a card
+count each other's bytes), and its fall-back to host pack-once is taken
+by every rank or none. In every form the eval sums are reduced once an
 epoch, the state is replicated from rank 0 first and held to its bits
 after every epoch (``check_replicated``), and the preemption request is
-agreed across the ranks. The force task takes the same path with its
-own grad part. Compact staging, pack-once, device-resident staging and
-the epoch driver are not data-parallel (ValueError; the JAX
-multi-process path refuses them).
+agreed across the ranks (the driver polls it between chunks). The force
+task takes the same paths with its own grad part. Compact staging is not
+data-parallel (ValueError, as the JAX package refuses it). ``fit_on``
+names the graphs the shapes are fitted on (the whole split, where a rank
+packs its shard): the capacities, size classes and transpose overflow
+then mean the same on every rank.
 
 Graph sharding (parallel/edge_parallel.py; the model's ``graph_group``,
 models/cgcnn.py): under a live process group whose model shards its
-edge work over a graph group of G ranks, the per-step loop packs every
-batch as the JAX ``fit_data_parallel`` does (dense: ``node_cap`` rounded
+edge work over a graph group of G ranks, every batch is packed as the
+JAX ``fit_data_parallel`` packs it (dense: ``node_cap`` rounded
 up to a multiple of 8·G, ``edge_cap = node_cap·M`` and the training
 batches' mappings per shard; COO: ``edge_cap`` rounded up to a multiple
-of G), hands each rank its view (``rank_view``) after the step counts
-and the checks, and averages and sums over the data group only. A
-sharded step has collectives inside its forward and backward, so under
-gloo it runs eagerly: no captured graph (``captures`` 0); capture under
-NCCL is a later candidate. The epoch log carries the JAX tag, ``[dp xD
-* graph xG]``.
+of G), each rank takes its view (``rank_view``) after the step counts
+and the checks (the driver and pack-once stage only that view: about
+1/G of the edge bytes, as the JAX ``shard_scan_stack_2d`` splits the edge
+leaves over ``graph``), and the steps average and sum over the data
+group only. A sharded step has collectives inside its forward and
+backward, so under gloo it runs eagerly: no captured graph (``captures``
+0); capture under NCCL is a later candidate. The epoch log carries the
+JAX tag, ``[dp xD * graph xG]``.
 
 Not ported: the in-scan telemetry tap and the background pair fetch,
-the epoch driver's data-parallel and graph-sharded forms, and
-``--profile`` (ROADMAP Queue 1).
+and ``--profile`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -106,6 +122,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import hashlib
+import socket
 import time
 from typing import Callable, Iterable, Sequence
 
@@ -121,17 +139,22 @@ from cgnn_tpu_torch.data.graph import (
     batch_shape_key,
     bucketed_batch_iterator,
     capacities_for,
+    graph_cap_for,
+    overflow_cap,
     pack_graphs,
 )
 from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
 from cgnn_tpu_torch.parallel import dist
 from cgnn_tpu_torch.parallel.data_parallel import (
     AgreedPreemption,
+    agree_batches,
+    check_agreed,
     check_replicated,
     make_parallel_train_step,
     parallel_batches,
     replicate_state,
     sum_reducer_for_sums,
+    sync_rng,
 )
 from cgnn_tpu_torch.parallel.edge_parallel import edge_nbytes, rank_view
 from cgnn_tpu_torch.resilience import faultinject
@@ -215,6 +238,42 @@ def check_device_resident_fit(staged_bytes: int, n_devices: int = 1,
         f"on-device: --compact-staging (~12x smaller; single-device runs "
         f"today), more data-parallel devices, or a smaller dataset/batch "
         f"capacity.")
+    return False
+
+
+def agreed_resident_fit(staged_bytes: int, device,
+                        log_fn: Callable = print) -> bool:
+    """``check_device_resident_fit`` agreed by the ranks of a process
+    group (every rank gets the same answer): the ranks that share a card
+    (one host, one device) count their staged bytes together against
+    the least budget any of them sees (each sees the others'
+    allocations in its free memory), and when any card is short every
+    rank falls back to host pack-once staging, LOUDLY."""
+    device = torch.device(device)
+    card = str(device)
+    if device.type == "cuda" and device.index is None:
+        card = f"cuda:{torch.cuda.current_device()}"
+    records = dist.all_gather_object((socket.gethostname(), card,
+                                      int(staged_bytes),
+                                      device_hbm_budget(device)))
+    cards: dict = {}
+    for host, name, need, budget in records:
+        c = cards.setdefault((host, name), [0, None])
+        c[0] += need
+        if budget is not None:
+            c[1] = budget if c[1] is None else min(c[1], budget)
+    short = {k: c for k, c in cards.items()
+             if c[1] is not None and c[0] > c[1]}
+    if not short:
+        return True
+    where = "; ".join(f"{host} {name}: {need / 1e9:.3f} GB staged by its "
+                      f"ranks, ~{budget / 1e9:.3f} GB budgeted"
+                      for (host, name), (need, budget) in short.items())
+    log_fn(f"device-resident staging does not fit ({where}; "
+           f"{_STAGE_FRACTION:.0%} of the free memory): FALLING BACK to "
+           f"host-side pack-once staging on every rank (per-step H2D each "
+           f"epoch). To stage on-device: more data-parallel devices, "
+           f"--graph-shards, or a smaller dataset/batch capacity.")
     return False
 
 
@@ -423,7 +482,16 @@ class ScanEpochDriver:
     every chunk: an epoch can outlast a preemption's grace window, so on
     a request the epoch driver stops at that chunk boundary and sets
     ``aborted`` (``eval_truncated`` where the request landed during the
-    eval epoch, whose means then cover only the chunks that ran)."""
+    eval epoch, whose means then cover only the chunks that ran).
+
+    ``split_step`` (a ``ParallelTrainStep``) makes it the data-parallel
+    driver (module docstring): a train step is graph A a shape
+    (``grad_part``), the collective, then graph B (``apply_part``); the
+    eval sums are reduced over the data group once an epoch, each
+    epoch's schedule digest is held across the ranks
+    (``check_agreed``), and the batches come checked and agreed
+    (``agree_batches``; ``key_order``: the agreed (train, val) key
+    orders, so every rank's groups are in one order)."""
 
     # mean steps a chunk and the mixed tail's cap: the JAX values
     chunk_steps = 2
@@ -433,7 +501,8 @@ class ScanEpochDriver:
                  train_batches: list, val_batches: list,
                  rng: np.random.Generator, *, device,
                  chunk_steps: int | None = None, graphs: bool = True,
-                 preempt=None):
+                 preempt=None, split_step=None,
+                 key_order: tuple = (None, None)):
         if chunk_steps is not None:
             if chunk_steps < 1:
                 raise ValueError(
@@ -451,14 +520,17 @@ class ScanEpochDriver:
         # the driver trusts these batches for a whole run: each is checked
         # before it is staged (the host copies; --check-invariants)
         t0 = time.perf_counter()
-        for b in train_batches:
+        # a data-parallel caller checked its batches as the ranks agreed
+        # them, before each rank took its view (agree_batches)
+        checked = split_step is not None
+        for b in () if checked else train_batches:
             invariants.maybe_check_any(b, train=True)
-        for b in val_batches:
+        for b in () if checked else val_batches:
             invariants.maybe_check_any(b)
         self.timings["check_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self._train_groups = self._stack_groups(train_batches)
-        self._val_groups = self._stack_groups(val_batches)
+        self._train_groups = self._stack_groups(train_batches, key_order[0])
+        self._val_groups = self._stack_groups(val_batches, key_order[1])
         groups = (self._train_groups, self._val_groups)
         # every group's cursor, for the graphs' guards: a closure over the
         # groups, not the driver, so no graph holds the driver (a cycle)
@@ -466,6 +538,11 @@ class ScanEpochDriver:
                                  for g in d.values()]
         self.timings["init_stack_stage_s"] = time.perf_counter() - t0
         self._train_body, self._eval_body = train_body, eval_body
+        self._split = split_step
+        self._reduce_eval = (sum_reducer_for_sums() if split_step is not None
+                             else None)
+        # the data-parallel step's graph B (one for every shape)
+        self.apply_graph: StepGraph | None = None
         self.train_sums, self.eval_sums = DeviceSums(), DeviceSums()
         self.train_graphs = GraphCache(self._make_train_graph,
                                        label="train graph")
@@ -475,16 +552,27 @@ class ScanEpochDriver:
         self._sched_cache: dict = {}
         self.trace: list | None = None
 
-    def _stack_groups(self, batches: list) -> dict:
-        """Group same-shape batches (first-seen order), stack and stage."""
+    def _stack_groups(self, batches: list, order=None) -> dict:
+        """Group same-shape batches (in ``order``, the keys' agreed
+        order, else first-seen order), stack and stage."""
         groups: dict = {}
         for b in batches:
             groups.setdefault(batch_shape_key(b), []).append(b)
-        return {k: _Group(bs, self.device) for k, bs in groups.items()}
+        order = list(groups) if order is None else order
+        return {k: _Group(groups[k], self.device) for k in order
+                if k in groups}
 
     def _make_train_graph(self, key, state):
         grp, sums = self._train_groups[key], self.train_sums
-        body = self._train_body
+        body, split = self._train_body, self._split
+        if split is not None:
+            # graph A: the forward and backward into the bucket
+            return StepGraph(
+                lambda: split.grad_part(state, grp.take()),
+                device=self.device, kind="train", label=f"train graph {key}",
+                capture=self._capture,
+                guard=state_guard(state, self._cursors),
+                generators=state_generators(state))
         return StepGraph(
             lambda: sums.add(body(state, grp.take())), device=self.device,
             kind="train", label=f"train graph {key}", capture=self._capture,
@@ -500,13 +588,32 @@ class ScanEpochDriver:
                          label=f"eval graph {key}", capture=self._capture,
                          guard=tensor_guard(self._cursors, [sums]))
 
+    def _apply(self, state) -> StepGraph:
+        """The data-parallel step's graph B, made at its first use (after
+        a graph A laid the bucket out): the averaged update, the guard's
+        select and the summed sums into ``train_sums``. Its warm-up and
+        capture overwrite the bucket, so its guard restores the bucket
+        with the state (``SplitStepRunner``'s)."""
+        if self.apply_graph is None:
+            split, sums = self._split, self.train_sums
+            self.apply_graph = StepGraph(
+                lambda: sums.add(split.apply_part(state)),
+                device=self.device, kind="train_apply",
+                label="train apply graph", capture=self._capture,
+                guard=state_guard(state, lambda: [split.bucket], [sums]),
+                on_replay=lambda: state.optimizer.advance(1))
+        return self.apply_graph
+
     def warm(self, state) -> None:
         """Capture every (shape, train|eval) graph (on CUDA; on the CPU
-        nothing is captured) and declare the driver warm: a capture
-        after this counts in ``captures_after_warm``."""
+        nothing is captured), and the data-parallel graph B, and declare
+        the driver warm: a capture after this counts in
+        ``captures_after_warm``."""
         self._state = state
         for key in self._train_groups:
             self.train_graphs.get(key, state)
+        if self._split is not None and self._split.bucket is not None:
+            self._apply(state)
         for key in self._val_groups:
             self.eval_graphs.get(key, state)
         for g in self._train_groups.values():
@@ -581,8 +688,15 @@ class ScanEpochDriver:
                 grp.host_cursor: grp.host_cursor + length].copy()))
         graphs = self.train_graphs if train else self.eval_graphs
         graph = graphs.get(key, self._state)
-        for _ in range(length):
-            graph.run()
+        if train and self._split is not None:
+            # graph A, the collective on the host, graph B
+            for _ in range(length):
+                graph.run()
+                self._split.reduce()
+                self._apply(self._state).run()
+        else:
+            for _ in range(length):
+                graph.run()
         grp.host_cursor += length
 
     def _drive(self, state, groups: dict, train: bool, first: bool,
@@ -602,6 +716,9 @@ class ScanEpochDriver:
                 sched = self._build_sched(groups, train, first)
                 self._sched_cache[sched_key] = sched
         queues, tails, _, pick_order, perms = sched
+        if self._split is not None:
+            check_agreed(sched_digest(sched),
+                         f"{'train' if train else 'eval'} schedule")
         for key, grp in groups.items():
             grp.begin(perms[key])
         (self.train_sums if train else self.eval_sums).zero()
@@ -660,6 +777,8 @@ class ScanEpochDriver:
         self.aborted = False
         steps = self._drive(state, self._val_groups, train=False,
                             first=True)
+        if self._reduce_eval is not None and steps:
+            self._reduce_eval(self.eval_sums.sums)
         return means_from_sums(fetch_device_sums(self.eval_sums.sums),
                                steps)
 
@@ -679,6 +798,10 @@ class ScanEpochDriver:
                                    first=True)
             self.eval_truncated = self.aborted
             self.aborted = train_aborted
+        if self._reduce_eval is not None and ev_steps:
+            # once an epoch, over the data group (the ranks stop their
+            # eval at the same chunk, so the sums cover the same steps)
+            self._reduce_eval(self.eval_sums.sums)
         combined = {f"t:{k}": v for k, v in self.train_sums.sums.items()}
         if ev_steps:
             combined |= {f"e:{k}": v for k, v in self.eval_sums.sums.items()}
@@ -690,6 +813,20 @@ class ScanEpochDriver:
         ev = {k[2:]: v for k, v in fetched.items() if k.startswith("e:")}
         return state, means_from_sums(tr, tr_steps), means_from_sums(
             ev, ev_steps)
+
+
+def sched_digest(sched) -> str:
+    """sha256 of an epoch schedule (``ScanEpochDriver._build_sched``'s):
+    each queue's and tail's shape key and chunks, in order, and the
+    weighted pick order: what every rank of a data-parallel driver must
+    draw alike."""
+    queues, tails, steps, pick_order, _ = sched
+    h = hashlib.sha256(f"{steps}:{pick_order}".encode())
+    for key, _, chunks in queues + tails:
+        h.update(repr(key).encode())
+        for ch in chunks:
+            h.update(np.asarray(ch, np.int64).tobytes() + b"|")
+    return h.hexdigest()
 
 
 class StepRunner:
@@ -819,6 +956,7 @@ def fit(
     force_weights: tuple = (1.0, 10.0),
     packing: str = "snug",
     headroom: float = 1.15,
+    fit_on: tuple | None = None,
 ) -> tuple:
     """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
     the best validation MAE (a classifier's highest accuracy).
@@ -828,8 +966,9 @@ def fit(
     first epoch's training batches: ``PaddingStats``' efficiencies, the
     batch count, their (node_cap, edge_cap) shapes, and ``summary``),
     "preempted": True when a preemption request stopped the run,
-    "edge_bytes": the per-step loop's first training epoch's edge leaves
-    as this rank staged them (``edge_nbytes``), and, data-parallel,
+    "edge_bytes": the first training epoch's edge leaves as this rank
+    staged them (``edge_nbytes``; the driver's staged training batches),
+    and, data-parallel,
     "dp": rank, world, backend, data index and graph shards, and the
     per-epoch state digests, also kept in each history entry as
     "digest").
@@ -863,7 +1002,9 @@ def fit(
     data index's shards (``dist.host_shard``), ``batch_size`` is per data
     index, ``monitor`` must read its checkpoint through
     ``CoordinatedCheckpoint``; a model with a ``graph_group`` shards
-    each batch's edge work over it (module docstring)."""
+    each batch's edge work over it (module docstring). ``fit_on``
+    (train graphs, val graphs): what the capacities, the size classes
+    and the transpose overflow are fitted on (default the given ones)."""
     dense_m = dense_m or None
     dp = dist.active()
     if packing not in ("snug", "ladder"):
@@ -878,7 +1019,9 @@ def fit(
     if compact is not None and dense_m is None:
         raise ValueError("compact staging requires the dense layout "
                          "(dense_m)")
-    node_cap, edge_cap = batch_caps(train_graphs, batch_size, dense_m,
+    fit_train, fit_val = (fit_on if fit_on is not None
+                          else (train_graphs, val_graphs))
+    node_cap, edge_cap = batch_caps(fit_train, batch_size, dense_m,
                                     node_cap, edge_cap, snug=snug,
                                     headroom=headroom)
     classification, edge_dtype = model_task(state.model)
@@ -887,10 +1030,9 @@ def fit(
         raise ValueError("compact staging is refused for the force task "
                          "(train.py's rule): the model recomputes its "
                          "edges from the positions")
-    if dp and (pack_once or compact is not None):
-        raise ValueError("data parallel runs the per-step loop: no "
-                         "compact staging, pack-once, device-resident "
-                         "staging or epoch driver")
+    if dp and compact is not None:
+        raise ValueError("compact staging is not data-parallel (the JAX "
+                         "package refuses it under data parallelism)")
     group = getattr(state.model, "graph_group", None)
     shards = group.size if group is not None else 1
     prep = None
@@ -940,6 +1082,17 @@ def fit(
     # takes a gradient (the forces), so its sums run in a fixed order too
     val_in_cap = None if force else 0
     pad_stats = PaddingStats()
+    # shapes fitted on other graphs (a rank's shard packed at the whole
+    # split's shapes): the overflow capacity of the two-tier transpose
+    # too, which batch_iterator would fit on the graphs it packs
+    graph_cap = graph_cap_for(batch_size) if snug else batch_size
+    train_over = val_over = None
+    if fit_on is not None and dense_m is not None:
+        train_over = overflow_cap(fit_train, graph_cap, dense_m)
+        if val_in_cap is None:
+            val_over = overflow_cap(fit_val, graph_cap, dense_m)
+    fit_kw = ({} if fit_on is None else {"fit_graphs": fit_train},
+              {} if fit_on is None else {"fit_graphs": fit_val})
 
     def train_batches(rng):
         if buckets > 1:
@@ -947,12 +1100,12 @@ def fit(
                 train_graphs, batch_size, buckets, shuffle=True, rng=rng,
                 stats=pad_stats, headroom=headroom, dense_m=dense_m,
                 snug=snug, pack_fn=pack_fn, node_multiple=node_multiple,
-                transpose_shards=transpose_shards)
+                transpose_shards=transpose_shards, **fit_kw[0])
         else:
             it = pad_stats.wrap(batch_iterator(
                 train_graphs, batch_size, node_cap, edge_cap, shuffle=True,
                 rng=rng, dense_m=dense_m, snug=snug, pack_fn=pack_fn,
-                transpose_shards=transpose_shards))
+                transpose_shards=transpose_shards, over_cap=train_over))
         # the fault plan's NaN batch and loader failure, before pack-once
         # or device-resident staging takes the batches (unwrapped when no
         # plan is active)
@@ -965,31 +1118,71 @@ def fit(
                                            dense_m=dense_m,
                                            in_cap=val_in_cap, snug=snug,
                                            pack_fn=pack_fn,
-                                           node_multiple=node_multiple)
+                                           node_multiple=node_multiple,
+                                           **fit_kw[1])
         return batch_iterator(val_graphs, batch_size, node_cap, edge_cap,
                               dense_m=dense_m, in_cap=val_in_cap, snug=snug,
-                              pack_fn=pack_fn)
+                              pack_fn=pack_fn, over_cap=val_over)
 
     rng = np.random.default_rng(seed)
-    driver = None
+    reduce_sums = pstep = None
+    if dp:
+        pstep = make_parallel_train_step(classification, guard, grad_step)
+        reduce_sums = sum_reducer_for_sums()
+        if preempt is not None:
+            preempt = AgreedPreemption(preempt)
+        state = replicate_state(state)
     staging: dict = {}
+    edge_bytes = [0]
+
+    def pack_lists() -> tuple:
+        """Every batch packed once -> (train, val, key orders); under a
+        process group at the shape counts the ranks agreed on (checked
+        there), the generator at process 0's state, each rank's view."""
+        t0 = time.perf_counter()
+        train_list = list(train_batches(rng))
+        val_list = list(val_batches())
+        staging["pack_s"] = time.perf_counter() - t0
+        if not dp:
+            return train_list, val_list, (None, None)
+        t0 = time.perf_counter()
+        train_list, train_keys = agree_batches(train_list, train=True,
+                                               dense_m=dense_m)
+        val_list, val_keys = agree_batches(val_list, train=False,
+                                           dense_m=dense_m)
+        sync_rng(rng)
+        staging["agree_s"] = time.perf_counter() - t0
+        orders = (train_keys, val_keys)
+        if prep is not None:
+            views = ([prep(b) for b in train_list], [prep(b) for b in val_list])
+            # the agreed key order, as the views' keys
+            orders = tuple(
+                [dict((batch_shape_key(h), batch_shape_key(v))
+                      for h, v in zip(host, view))[k] for k in keys]
+                for host, view, keys in zip((train_list, val_list), views,
+                                            orders))
+            train_list, val_list = views
+        return train_list, val_list, orders
+
+    driver = None
     packed_lists = None
     if scan_epochs:
         if print_freq:
             log_fn("scan_epochs: per-step prints are unavailable inside "
                    "the epoch driver (epoch-level metrics only)")
-        t0 = time.perf_counter()
-        train_list = list(train_batches(rng))
-        val_list = list(val_batches())
-        staging["pack_s"] = time.perf_counter() - t0
+        train_list, val_list, orders = pack_lists()
         staged = staged_nbytes(train_list + val_list)
         staging.update(staged_bytes=staged, compact=compact is not None)
-        if check_device_resident_fit(staged, log_fn=log_fn, device=device):
+        fits = (agreed_resident_fit(staged, device, log_fn) if dp
+                else check_device_resident_fit(staged, log_fn=log_fn,
+                                               device=device))
+        if fits:
+            edge_bytes[0] = sum(edge_nbytes(b) for b in train_list)
             t0 = time.perf_counter()
             driver = ScanEpochDriver(
                 train_step, eval_step, train_list, val_list, rng,
                 device=device, chunk_steps=chunk_steps, graphs=graphs,
-                preempt=preempt)
+                preempt=preempt, split_step=pstep, key_order=orders)
             del train_list, val_list
             staging["stage_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -1001,6 +1194,9 @@ def fit(
             packed_lists = (train_list, val_list)
     plan = None
     if pack_once and driver is None:
+        if packed_lists is None and dp:
+            # the lists cut and padded once, to the agreed shape counts
+            packed_lists = pack_lists()[:2]
         plan = PackOncePlan(
             (lambda: packed_lists[0]) if packed_lists is not None
             else (lambda: train_batches(rng)),
@@ -1008,15 +1204,9 @@ def fit(
             else val_batches,
             rng, device_resident=device_resident,
             stage=lambda b: b.to(device))
-    reduce_sums = None
     if dp:
-        train_run = SplitStepRunner(
-            make_parallel_train_step(classification, guard, grad_step),
-            state, device, graphs=graphs, log_fn=log_fn)
-        reduce_sums = sum_reducer_for_sums()
-        if preempt is not None:
-            preempt = AgreedPreemption(preempt)
-        state = replicate_state(state)
+        train_run = SplitStepRunner(pstep, state, device, graphs=graphs,
+                                    log_fn=log_fn)
     else:
         train_run = StepRunner(train_step, state, device, train=True,
                                graphs=graphs, log_fn=log_fn)
@@ -1028,7 +1218,6 @@ def fit(
     history, digests = [], []
     padding = None
     preempted = False
-    edge_bytes = [0]
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         truncated = False
@@ -1046,7 +1235,7 @@ def fit(
                 epoch_train, epoch_val = plan.epoch_iterators()
             else:
                 epoch_train, epoch_val = train_batches(rng), val_batches()
-            if dp:
+            if dp and plan is None:
                 # the whole epoch is packed first: its count is what the
                 # ranks agree on
                 epoch_train = parallel_batches(epoch_train, train=True,
@@ -1102,9 +1291,13 @@ def fit(
             on_epoch_end=on_epoch_end, preempt=preempt, log_fn=log_fn)
         if preempted:
             break
-    caches = ([driver.train_graphs, driver.eval_graphs] if driver is not None
-              else [train_run.cache, eval_run.cache])
-    apply = [] if train_run.apply is None else [train_run.apply]
+    if driver is not None:
+        caches = [driver.train_graphs, driver.eval_graphs]
+        apply = [driver.apply_graph]
+    else:
+        caches = [train_run.cache, eval_run.cache]
+        apply = [train_run.apply]
+    apply = [g for g in apply if g is not None]
     out = {"best": best, "best_key": best_key, "history": history,
            "graphs": {
         "captures": (sum(c.captures() for c in caches)
@@ -1112,8 +1305,7 @@ def fit(
         "replays": (sum(c.replays() for c in caches)
                     + sum(g.replays for g in apply)),
         "captures_after_warm": sum(c.captures_after_warm for c in caches)}}
-    if driver is None:
-        out["edge_bytes"] = edge_bytes[0]
+    out["edge_bytes"] = edge_bytes[0]
     if dp:
         out["dp"] = {"rank": dist.process_index(),
                      "world": dist.process_count(),

@@ -204,7 +204,10 @@ into ``build/kernels``), then:
    cgnn_tpu_torch.serve CKPT`` over HTTP with serve.py's defaults (``-b
    64``, 3 rungs, 5 ms, 1000 ms deadline, a 1024-entry cache, the raw
    wire and compact staging on, one packer thread), each server a
-   subprocess on a free port. Two checkpoints from the train entry point
+   subprocess on a free port; the servers boot side by side in two
+   groups (``serve_http`` with the two wire-form servers; the faults,
+   wedge and COO servers), each group all ready before its first timed
+   burst. Two checkpoints from the train entry point
    at flagship width (dense with ``--cgconv-impl pallas``, and COO with
    ``--aggregation pallas``), 640 structures, 2 epochs. Path
    ``serve_http``: ``/healthz`` must answer 503 (warming) before 200;
@@ -232,7 +235,7 @@ into ``build/kernels``), then:
    featurized at admission (kernel 6). Each traced path runs the entry
    point inside ``PathRun`` in its own process (``traced_serve``) and is
    held by ``check_path`` to its warm-up replays and flushes. Then item
-   14's turns in process: 2048 requests at once from 64 threads through a
+   14's turns in process: 1024 requests at once from 64 threads through a
    serial worker (``pack_workers=0``) and a pipelined one (1), serial,
    pipelined, pipelined, serial, for featurized graphs packed full,
    compact graphs and raw structures (64 MP-like calibration structures):
@@ -277,7 +280,7 @@ into ``build/kernels``), then:
    messages at the COO training shape, each sum kernel 6's on the
    widened messages, rounded; ``torch.segment_reduce`` on bf16 beside
    it).
-14. force_task (last) — the force field at full width on 2048 synthetic LJ
+14. force_task (last) — the force field at full width on 1024 synthetic LJ
    frames of 21 atoms (MD17 aspirin's count): the train entry point
    under the epoch driver, dense (``force_driver``), COO with
    ``--aggregation xla`` (``force_coo``) and bf16 (``force_bf16``), no
@@ -346,7 +349,7 @@ into ``build/kernels``), then:
 17. graph_shards (after data_parallel) — graph sharding as users run it,
    ranks of the train entry point sharing the one card over gloo
    (``DataParallelRun``), at full width: ``gs_dense`` (``--graph-shards
-   2`` on data_parallel's cache of 2048 MP-like structures, batch 256, 3
+   2`` on data_parallel's cache of 2048 MP-like structures, batch 256, 2
    epochs: node strips on the plain dense path) alone, then one
    unsharded process of the entry point at the same ``--node-cap`` (the
    sharded run's, rounded to 8·G) for the rate; ``dp_force`` (``--task
@@ -369,6 +372,39 @@ into ``build/kernels``), then:
    process-0 checkpoint through the one-card path, 512 structures, rtol
    1e-4 / atol 1e-4 of the plain path. Train structures/s (frames/s) of
    the ranks and of one process are reported, no limit.
+18. dp_driver (after graph_shards) — the epoch driver under a process
+   group, ``--device-resident`` (its ``--scan-epochs`` default) with
+   ``--data-parallel`` and ``--graph-shards``, ranks of the train entry
+   point sharing the one card over gloo (``DataParallelRun``; each rank
+   records its driver's chunks, ``record_driver_trace``), at full width:
+   ``dpd_dense`` (2 ranks, ``--cgconv-impl pallas --buckets 3`` on
+   data_parallel's 2048-structure cache, batch 256, 3 epochs: kernels 1,
+   2, 4, 5 in graph A) alone, then one process under the driver on the
+   same data and flags for the rate; then side by side ``dpd_coo`` (2
+   ranks, ``--aggregation pallas``: kernel 6) and ``gsd_dense``
+   (``--graph-shards 2`` at graph_shards' node cap), then ``gsd_coo``
+   (``--graph-shards 2`` on graph_shards' slabs with kernel 6 on each
+   rank's chunk) and ``dpd_force`` (``--task force``, 1024 LJ frames),
+   2 epochs each, the emulations and unsharded references beside them.
+   Each leg: the driver ran on every rank (staging recorded, no
+   fall-back) and every rank ran the same chunks; digests equal after
+   every epoch; per-epoch train loss and val MAE within rel 1e-5 of
+   ``dp_emulation`` run on the driver's trace (each rank's shard packed
+   once at the whole split's shapes and agreed as the ranks agree it), or
+   rel 1e-4 (``GS_RTOL``) of one unsharded process under the driver for
+   the sharded legs; no capture after warm-up on the replayed legs, none
+   on the sharded ones (eager); launches exact on each rank; each
+   ``gsd_*`` rank's staged edge bytes at most 1/G + 0.05 of one
+   process's; only process 0 writes. ``dpd_preempt``: two ranks under
+   the driver at batch 32, process 1 alone SIGTERMed at process 0's
+   first commit: both exit 75 after the same preemption line, the save
+   under epoch − 1 (mid-epoch), and ``--resume auto`` completes the run
+   with equal digests. Train structures/s, each run alone: two ranks
+   under the driver, two under the per-step loop (data_parallel's
+   ``dp_dense``), one process under the driver; one card measures no
+   scaling.
+
+Every phase prints its seconds (``phase <name>: <s> s``).
 
 Launches on a path. A replayed graph launches its kernels without their
 wrappers, so each path's run (``PathRun``) is traced by the profiler,
@@ -4323,6 +4359,7 @@ def traced_train(out_path, argv) -> int:
     if cfg is not None:
         torch.cuda.set_device(cfg["process_id"] % torch.cuda.device_count())
     buf = io.StringIO()
+    trace = record_driver_trace()
     with PathRun("train") as run:
         with contextlib.redirect_stdout(buf):
             rc = train_main(argv)
@@ -4330,8 +4367,33 @@ def traced_train(out_path, argv) -> int:
     sys.stdout.write(out)
     with open(out_path, "w") as f:
         json.dump({"rc": rc, "launches": run.launches, "wrapper": run.wrapper,
-                   "steps": run.steps, "out": out}, f, allow_nan=False)
+                   "steps": run.steps, "out": out, "driver_trace": trace},
+                  f, allow_nan=False)
     return rc
+
+
+def record_driver_trace() -> list:
+    """Every epoch driver ``fit`` makes in this process from here on
+    records its run into the list returned: ``"epoch"`` at each epoch
+    pair, then ``[train, shape key, batch indices]`` for every chunk, in
+    the order run (the driver's host mirrors), for ``dp_emulation``."""
+    from cgnn_tpu_torch.train import loop
+
+    out = []
+    base = loop.ScanEpochDriver
+
+    class Traced(base):
+        def _run_chunk(self, key, grp, length, train):
+            out.append([bool(train), key, grp.host_perm[
+                grp.host_cursor:grp.host_cursor + length].tolist()])
+            return super()._run_chunk(key, grp, length, train)
+
+        def run_epoch_pair(self, state, first):
+            out.append("epoch")
+            return super().run_epoch_pair(state, first)
+
+    loop.ScanEpochDriver = Traced
+    return out
 
 
 class DataParallelRun:
@@ -4344,7 +4406,7 @@ class DataParallelRun:
     ``kill`` stops them whatever their state."""
 
     def __init__(self, label, work_dir, argv, rank_env=None,
-                 world=DP_WORLD):
+                 world=DP_WORLD, fresh=True):
         import shutil
 
         from cgnn_tpu_torch.parallel import dist
@@ -4352,8 +4414,9 @@ class DataParallelRun:
         self.label = label
         self.world = world
         self.dir = os.path.join(work_dir, label)
-        shutil.rmtree(self.dir, ignore_errors=True)
-        os.makedirs(self.dir)
+        if fresh:  # else the last run's directories stay (a resume)
+            shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir, exist_ok=True)
         root = os.path.dirname(os.path.abspath(__file__))
         coord = f"localhost:{free_port()}"
         self.procs, self._logs = [], []
@@ -4386,14 +4449,16 @@ class DataParallelRun:
     def ckpt(self, r) -> str:
         return os.path.join(self.dir, f"ckpt-rank{r}")
 
-    def wait(self) -> list:
-        """Every rank's trace (``traced_train``'s JSON) with its wall."""
+    def wait(self, expect=0) -> list:
+        """Every rank's trace (``traced_train``'s JSON) with its wall;
+        every rank must exit ``expect``."""
         deadline = self.t0 + DP_RANK_TIMEOUT_S
         try:
             # a rank that failed leaves the others blocked in a
             # collective until the group's timeout: stop them at once
             while (any(p.poll() is None for p in self.procs)
-                   and not any(p.poll() for p in self.procs)
+                   and not any(p.poll() not in (None, expect)
+                               for p in self.procs)
                    and time.perf_counter() < deadline):
                 time.sleep(0.2)
         finally:
@@ -4404,16 +4469,16 @@ class DataParallelRun:
             tail = open(os.path.join(self.dir, f"rank{r}.log")).read()
             for line in tail.splitlines()[-40:] if codes[r] else []:
                 print(f"{self.label} rank {r}: {line}")
-        check(codes == [0] * self.world,
-              f"{self.label}: ranks exited {codes} (a hung rank is killed "
-              f"after {DP_RANK_TIMEOUT_S} s)")
+        check(codes == [expect] * self.world,
+              f"{self.label}: ranks exited {codes}, want {expect} (a hung "
+              f"rank is killed after {DP_RANK_TIMEOUT_S} s)")
         traces = []
         for r in range(self.world):
             with open(self.trace_path(r)) as f:
                 t = json.load(f)
             t["info"] = json.loads(next(
-                line for line in t["out"].splitlines()
-                if line.startswith("train: "))[7:])
+                (line for line in t["out"].splitlines()
+                 if line.startswith("train: ")), "train: {}")[7:])
             t["wall_s"] = wall
             traces.append(t)
         return traces
@@ -4482,8 +4547,62 @@ def dp_committer(leg, r0_ckpt, other_dirs, epochs=DP_EPOCHS) -> None:
           f"other ranks: {stray}")
 
 
+def driver_lists(shards, full, dense_m, nc, ec, rngs, *, train, buckets,
+                 force=False) -> list:
+    """Each rank's batches as ``fit`` packs them once for the epoch
+    driver under a process group (its shard, its shuffle, the whole
+    split's shapes: ``fit_on``), agreed as the ranks agree them
+    (``agree_lists``) -> per rank {JSON shape key: batches in order}."""
+    from cgnn_tpu_torch.data.graph import (
+        batch_iterator,
+        batch_shape_key,
+        bucketed_batch_iterator,
+        graph_cap_for,
+        overflow_cap,
+    )
+    from cgnn_tpu_torch.parallel.data_parallel import agree_lists
+
+    in_cap = None if (train or force) else 0
+    over = (overflow_cap(full, graph_cap_for(BATCH), dense_m)
+            if dense_m and in_cap is None else None)
+    lists = []
+    for r, shard in enumerate(shards):
+        kw = dict(shuffle=True, rng=rngs[r]) if train else {}
+        if buckets > 1:
+            it = bucketed_batch_iterator(shard, BATCH, buckets,
+                                         dense_m=dense_m, in_cap=in_cap,
+                                         snug=True, fit_graphs=full, **kw)
+        else:
+            it = batch_iterator(shard, BATCH, nc, ec, dense_m=dense_m,
+                                in_cap=in_cap, snug=True, over_cap=over,
+                                **kw)
+        lists.append(list(it))
+    out = []
+    for batches in agree_lists(lists, train):
+        groups: dict = {}
+        for b in batches:
+            groups.setdefault(json.dumps(batch_shape_key(b), allow_nan=False),
+                              []).append(b)
+        out.append(groups)
+    return out
+
+
+def trace_epochs(trace) -> list:
+    """A rank's ``record_driver_trace`` -> per epoch, its chunks
+    ``(train, JSON shape key, indices)`` in the order run."""
+    epochs = []
+    for entry in trace:
+        if entry == "epoch":
+            epochs.append([])
+        else:
+            epochs[-1].append((entry[0], json.dumps(entry[1], allow_nan=False),
+                               entry[2]))
+    return epochs
+
+
 def dp_emulation(dev, graphs, model_kw, guard=True, *, node_cap=None,
-                 epochs=DP_EPOCHS, world=DP_WORLD, force=False) -> dict:
+                 epochs=DP_EPOCHS, world=DP_WORLD, force=False, trace=None,
+                 buckets=1) -> dict:
     """``world`` data-parallel ranks' run in one process on the card: the
     same split, host shards, per-rank shuffles and capacities as the
     entry point (``node_cap`` where the run was given one), the same
@@ -4494,7 +4613,12 @@ def dp_emulation(dev, graphs, model_kw, guard=True, *, node_cap=None,
     added up -> per-epoch train loss and val MAE. ``force``: the force
     task as ``--task force --optim Adam --lr 0.002`` trains it (the
     trajectory split, its grad and eval steps, the validation batches
-    with their mapping; the val metric the force MAE)."""
+    with their mapping; the val metric the force MAE). ``trace``: a
+    rank's ``record_driver_trace`` of the epoch driver (``--device-
+    resident``, ``buckets`` size classes): every batch packed once as
+    the ranks pack and agree it (``driver_lists``), and each epoch's
+    train and eval chunks run in the trace's order, every rank's batch
+    at each index."""
     import numpy as np
     import torch
 
@@ -4543,6 +4667,47 @@ def dp_emulation(dev, graphs, model_kw, guard=True, *, node_cap=None,
     rngs = [np.random.default_rng(SEED) for _ in range(world)]
     buffers = [b for b in state.model.buffers() if b.is_floating_point()]
     out = {"train_loss": [], "val_mae": []}
+
+    def train_step(batches) -> dict:
+        """One step: each rank's grad part (the statistics put back
+        between them), the buckets summed, applied once."""
+        before = [b.clone() for b in buffers]
+        total = None
+        for b in batches:
+            with torch.no_grad():
+                if buffers:
+                    torch._foreach_copy_(buffers, before)
+            step.grad_part(state, b.to(dev))
+            total = (step.bucket.clone() if total is None
+                     else total + step.bucket)
+        step.bucket.copy_(total)
+        return step.apply_part(state)
+
+    def means(tsums, vsums) -> None:
+        with torch.no_grad():
+            total = {k: sum(s.sums[k] for s in vsums) for k in vsums[0].sums}
+        t, v = fetch_device_sums(tsums.sums), fetch_device_sums(total)
+        out["train_loss"].append(t["loss_sum"] / t["count"])
+        out["val_mae"].append(v["force_mae_sum"] / v["force_mae_count"]
+                              if force else v["mae_sum"] / v["count"])
+
+    if trace is not None:
+        tgroups = driver_lists(tshards, train_g, dense_m, nc, ec, rngs,
+                               train=True, buckets=buckets, force=force)
+        vgroups = driver_lists(vshards, val_g, dense_m, nc, ec, rngs,
+                               train=False, buckets=buckets, force=force)
+        for chunks in trace_epochs(trace)[:epochs]:
+            tsums, vsums = DeviceSums(), [DeviceSums() for _ in range(world)]
+            for train, key, idx in chunks:
+                for i in idx:
+                    if train:
+                        tsums.add(train_step([g[key][i] for g in tgroups]))
+                    else:
+                        for r in range(world):
+                            vsums[r].add(eval_step(state,
+                                                   vgroups[r][key][i].to(dev)))
+            means(tsums, vsums)
+        return out
     for _ in range(epochs):
         lists = [list(batch_iterator(tshards[r], BATCH, nc, ec, shuffle=True,
                                      rng=rngs[r], dense_m=dense_m,
@@ -4551,17 +4716,7 @@ def dp_emulation(dev, graphs, model_kw, guard=True, *, node_cap=None,
         steps = min(map(len, lists))
         tsums = DeviceSums()
         for i in range(steps):
-            before = [b.clone() for b in buffers]
-            total = None
-            for r in range(world):
-                with torch.no_grad():
-                    if buffers:
-                        torch._foreach_copy_(buffers, before)
-                step.grad_part(state, lists[r][i].to(dev))
-                total = (step.bucket.clone() if total is None
-                         else total + step.bucket)
-            step.bucket.copy_(total)
-            tsums.add(step.apply_part(state))
+            tsums.add(train_step([lists[r][i] for r in range(world)]))
         vlists = [list(batch_iterator(vshards[r], BATCH, nc, ec,
                                       dense_m=dense_m,
                                       in_cap=None if force else 0,
@@ -4572,12 +4727,7 @@ def dp_emulation(dev, graphs, model_kw, guard=True, *, node_cap=None,
         for r in range(world):
             for b in parallel_batches(vlists[r], train=False, steps=longest):
                 vsums[r].add(eval_step(state, b.to(dev)))
-        with torch.no_grad():
-            total = {k: sum(s.sums[k] for s in vsums) for k in vsums[0].sums}
-        t, v = fetch_device_sums(tsums.sums), fetch_device_sums(total)
-        out["train_loss"].append(t["loss_sum"] / t["count"])
-        out["val_mae"].append(v["force_mae_sum"] / v["force_mae_count"]
-                              if force else v["mae_sum"] / v["count"])
+        means(tsums, vsums)
     return out
 
 
@@ -4717,7 +4867,7 @@ def data_parallel_phase(dev, work_dir, card):
 
 
 GS_SHARDS = 2  # the graph_shards phase: G, ranks sharing the one card
-GS_EPOCHS = 3  # gs_dense's epochs (gs_coo, gs_dp, dp_force: GS_SHORT)
+GS_EPOCHS = 2  # gs_dense's epochs (gs_coo, gs_dp, dp_force: GS_SHORT)
 GS_SHORT = 2
 GS_RTOL = 1e-4  # a sharded leg vs one unsharded process (sums reordered)
 N_DP_FORCE = 1024  # dp_force's synthetic LJ frames (FORCE_ATOMS atoms)
@@ -4915,11 +5065,275 @@ def graph_shards_phase(dev, work_dir, card):
     return summary, counts
 
 
+DPD_EPOCHS = 3  # dpd_dense's epochs (its rate over epochs 2-3)
+DPD_SHORT = 2  # the other dp_driver legs' epochs
+DPD_PREEMPT_EPOCHS = 10  # the preempted ranks' run: long enough that the
+# SIGTERM sent at process 0's first commit lands mid-run
+DPD_PREEMPT_BATCH = 32  # many chunks an epoch: the signal lands between two
+
+
+def dpd_driver_ran(label, traces) -> None:
+    """Every rank of a leg trained under the epoch driver (its staging
+    recorded, no fall-back) and drew the same chunks."""
+    for r, t in enumerate(traces):
+        staging = t["info"].get("staging", {})
+        check("staged_bytes" in staging and "fallback" not in staging
+              and t["driver_trace"],
+              f"{label} rank {r}: the epoch driver did not run: {staging}")
+        check(t["driver_trace"] == traces[0]["driver_trace"],
+              f"{label}: rank {r} ran other chunks than rank 0")
+    print(f"{label}: the epoch driver ran on every rank, "
+          f"{sum(e != 'epoch' for e in traces[0]['driver_trace'])} chunks "
+          f"each, the same on every rank: ok")
+
+
+def dpd_preempt_argv(cache) -> list:
+    return ["--cache", cache, "-b", str(DPD_PREEMPT_BATCH), "--epochs",
+            str(DPD_PREEMPT_EPOCHS), "--print-freq", "0", "--seed",
+            str(SEED), "--cgconv-impl", "pallas", "--device-resident",
+            "--data-parallel", "--dist-backend", "gloo"]
+
+
+def dpd_preempt_start(work_dir, cache):
+    """Two ranks under the driver (the kernel path, batch
+    ``DPD_PREEMPT_BATCH``) and a thread that SIGTERMs process 1 alone at
+    process 0's first commit -> (the run, the thread)."""
+    import glob
+    import signal
+    import threading
+
+    run = DataParallelRun("dpd_preempt", work_dir, dpd_preempt_argv(cache))
+
+    def at_first_commit():
+        deadline = time.time() + DP_RANK_TIMEOUT_S
+        while (not glob.glob(os.path.join(run.ckpt(0), "ckpt-*",
+                                          "MANIFEST.json"))
+               and all(p.poll() is None for p in run.procs)
+               and time.time() < deadline):
+            time.sleep(0.02)
+        if run.procs[1].poll() is None:
+            run.procs[1].send_signal(signal.SIGTERM)
+
+    sender = threading.Thread(target=at_first_commit,
+                              name="chip-smoke-dpd-sigterm", daemon=True)
+    sender.start()
+    return run, sender
+
+
+def dpd_preempt_finish(work_dir, cache, run, sender) -> dict:
+    """``dpd_preempt_start``'s ranks: both exit 75 after the same
+    preemption line, the save under the epoch before the stopped one
+    (mid-epoch; the same epoch at a boundary); then ``--resume auto``
+    runs both to the last epoch, digests equal."""
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    try:
+        traces = run.wait(expect=75)
+    finally:
+        run.kill()
+        sender.join(timeout=60)
+    lines = [[line for line in t["out"].splitlines()
+              if line.startswith("preemption: ")] for t in traces]
+    check(lines[0] and all(x == lines[0] for x in lines),
+          f"dpd_preempt: the ranks stopped apart: {lines}")
+    mid = "stopped at a chunk boundary" in lines[0][0]
+    stopped = int(lines[0][0].split("epoch ")[1].split()[0])
+    mgr = CheckpointManager(run.ckpt(0))
+    try:
+        saved = mgr.read_meta()["epoch"]
+    finally:
+        mgr.close()
+    check(saved == (stopped - 1 if mid else stopped),
+          f"dpd_preempt: stopped in epoch {stopped} ({lines[0][0]!r}) but "
+          f"the save is under epoch {saved}")
+    print(f"dpd_preempt: both ranks exited 75 after {lines[0][0]!r}; the "
+          f"save under epoch {saved}: ok")
+    resumed = DataParallelRun("dpd_preempt", work_dir,
+                              dpd_preempt_argv(cache) + ["--resume", "auto"],
+                              fresh=False).wait()
+    infos = [t["info"] for t in resumed]
+    digests = [i["dp"]["digests"] for i in infos]
+    check(all(d == digests[0] for d in digests)
+          and infos[0]["epochs"][0] == saved + 1
+          and infos[0]["epochs"][-1] == DPD_PREEMPT_EPOCHS - 1,
+          f"dpd_preempt resume: epochs {infos[0]['epochs']}, digests equal "
+          f"{all(d == digests[0] for d in digests)}")
+    print(f"dpd_preempt: resumed at epoch {saved + 1}, ran to "
+          f"{DPD_PREEMPT_EPOCHS - 1}, digests equal on both ranks: ok")
+    return {"preemption_line": lines[0][0], "mid_epoch": mid,
+            "stopped_epoch": stopped, "saved_epoch": saved,
+            "resumed_epochs": infos[0]["epochs"],
+            "resume_wall_s": time.perf_counter() - t0}
+
+
+def dp_driver_phase(dev, work_dir, card, per_step_rate):
+    """The dp_driver phase (module docstring) -> (summary, counts).
+    ``per_step_rate``: data_parallel's two ranks under the per-step loop
+    (``dp_dense``, run alone in this call)."""
+    import numpy as np
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.cache import load_graph_cache, save_graph_cache
+    from cgnn_tpu_torch.data.dataset import (
+        load_synthetic_mp,
+        load_synthetic_oc20,
+        load_trajectory,
+        train_val_test_split,
+    )
+    from cgnn_tpu_torch.train.loop import batch_caps, sharded_caps
+
+    t_phase = time.perf_counter()
+    counts, summary = {}, {"card": card}
+    os.makedirs(work_dir, exist_ok=True)
+    fcfg = DataConfig().featurize_config()
+    n_conv = ModelConfig().n_conv
+    cache = os.path.join(work_dir, "dp_graphs.npz")
+    oc20_cache = os.path.join(work_dir, "gs_oc20.npz")
+    if os.path.exists(cache):  # the data_parallel phase's
+        graphs = load_graph_cache(cache)
+    else:
+        graphs = load_synthetic_mp(N_DP, fcfg, seed=SEED)
+        save_graph_cache(graphs, cache)
+    if os.path.exists(oc20_cache):  # the graph_shards phase's
+        oc20 = load_graph_cache(oc20_cache)
+    else:
+        oc20 = load_synthetic_oc20(N_OC20, fcfg, seed=SEED)
+        save_graph_cache(oc20, oc20_cache)
+    force_frames = load_trajectory(N_DP_FORCE, fcfg, seed=SEED,
+                                   num_atoms=FORCE_ATOMS)
+    mp_train = train_val_test_split(graphs, 0.8, 0.1, seed=SEED)[0]
+    oc_train = train_val_test_split(oc20, 0.8, 0.1, seed=SEED)[0]
+    nc, _ = sharded_caps(*batch_caps(mp_train, BATCH, M), M, GS_SHARDS)
+    onc, oec = sharded_caps(*batch_caps(oc_train, OC20_BATCH, None), None,
+                            GS_SHARDS)
+    common = ["--print-freq", "0", "--seed", str(SEED), "--device-resident"]
+    dense = ["--cache", cache, "-b", str(BATCH), *common]
+    kernel = ["--cgconv-impl", "pallas", "--buckets", "3"]
+    short = ["--epochs", str(DPD_SHORT)]
+    coo = ["--cache", oc20_cache, "-b", str(OC20_BATCH), "--aggregation",
+           COO_AGG, "--node-cap", str(onc), "--edge-cap", str(oec), *short,
+           *common]
+    force = ["--task", "force", "--synthetic", str(N_DP_FORCE), "--md-atoms",
+             str(FORCE_ATOMS), "-b", str(BATCH), "--optim", "Adam", "--lr",
+             "0.002", *short, *common]
+    dp = ["--data-parallel", "--dist-backend", "gloo"]
+    shard = ["--graph-shards", str(GS_SHARDS), "--dist-backend", "gloo"]
+    # one process: the driver's compact staging off, as under the ranks
+    one = ["--compact-staging", "off"]
+
+    def one_dirs(label):
+        d = os.path.join(work_dir, label)
+        return ["--ckpt-dir", os.path.join(d, "ckpt"), "--out-dir",
+                os.path.join(d, "out")]
+
+    # the rates first, each run alone on the card: two ranks under the
+    # driver, then one process under the driver on the same data and flags
+    full = dense + ["--epochs", str(DPD_EPOCHS)] + kernel
+    legs = {"dpd_dense": DataParallelRun("dpd_dense", work_dir,
+                                         full + dp).wait()}
+    ones = {"dpd_dense": gs_one_process("dpd_one", full + one
+                                        + one_dirs("dpd_one"))}
+    trace = {"dpd_dense": legs["dpd_dense"][0]["driver_trace"]}
+    # then the rest side by side, two legs at a time, the emulations and
+    # the unsharded references beside them
+    gs_dense = dense + ["--node-cap", str(nc)] + short
+    runs = {"dpd_coo": DataParallelRun(
+                "dpd_coo", work_dir, dense + short + ["--aggregation",
+                                                      COO_AGG] + dp),
+            "gsd_dense": DataParallelRun("gsd_dense", work_dir,
+                                         gs_dense + shard)}
+    try:
+        emulated = {"dpd_dense": dp_emulation(
+            dev, graphs, {"dense_m": M, "cgconv_impl": "pallas"},
+            epochs=DPD_EPOCHS, trace=trace["dpd_dense"], buckets=3)}
+        ones["gsd_dense"] = gs_one_process(
+            "gsd_dense_one", gs_dense + one + one_dirs("gsd_dense_one"))
+        legs.update({k: r.wait() for k, r in runs.items()})
+    finally:
+        for r in runs.values():
+            r.kill()
+    runs = {"gsd_coo": DataParallelRun("gsd_coo", work_dir, coo + shard),
+            "dpd_force": DataParallelRun("dpd_force", work_dir, force + dp)}
+    preempt = dpd_preempt_start(work_dir, cache)
+    try:
+        emulated["dpd_coo"] = dp_emulation(
+            dev, graphs, {"dense_m": 0, "aggregation": COO_AGG},
+            epochs=DPD_SHORT, trace=legs["dpd_coo"][0]["driver_trace"])
+        ones["gsd_coo"] = gs_one_process("gsd_coo_one",
+                                         coo + one_dirs("gsd_coo_one"))
+        legs.update({k: r.wait() for k, r in runs.items()})
+        summary["dpd_preempt"] = dpd_preempt_finish(work_dir, cache,
+                                                     *preempt)
+    finally:
+        for r in [*runs.values(), preempt[0]]:
+            r.kill()
+    emulated["dpd_force"] = dp_emulation(
+        dev, force_frames, {"dense_m": M}, epochs=DPD_SHORT, force=True,
+        trace=legs["dpd_force"][0]["driver_trace"])
+    per_step = {"dpd_dense": dense_per_step(n_conv),
+                "dpd_coo": coo_per_step(n_conv), "gsd_dense": {},
+                "gsd_coo": coo_per_step(n_conv), "dpd_force": {}}
+    for label, traces in legs.items():
+        ep = DPD_EPOCHS if label == "dpd_dense" else DPD_SHORT
+        summary[label] = dp_hold(label, traces, per_step[label], counts,
+                                 epochs=ep,
+                                 captured=not label.startswith("gsd"))
+        dpd_driver_ran(label, traces)
+        run_dir = os.path.join(work_dir, label)
+        dp_committer(label, os.path.join(run_dir, "ckpt-rank0"),
+                     [os.path.join(run_dir, f"{d}-rank{r}")
+                      for r in range(1, len(traces))
+                      for d in ("ckpt", "out")], epochs=ep)
+    for label, want in emulated.items():
+        ep = DPD_EPOCHS if label == "dpd_dense" else DPD_SHORT
+        summary[label].update(dp_against_emulation(label, summary[label],
+                                                   want, epochs=ep))
+    for label in ("gsd_dense", "gsd_coo"):
+        one_rec = ones[label]
+        check("fallback" not in one_rec["staging"],
+              f"{label}: the unsharded process fell back: "
+              f"{one_rec['staging']}")
+        summary[label].update(dp_against_emulation(
+            label, summary[label], {"train_loss": one_rec["train_loss"],
+                                    "val_mae": one_rec["val_metric"]},
+            rtol=GS_RTOL, epochs=DPD_SHORT, what="one unsharded process"))
+        summary[label].update(gs_edge_bytes(label, summary[label], one_rec))
+    for label, kernels in (("dpd_dense", ("fused_cgconv_eval",
+                                          "fused_cgconv_stats",
+                                          "epilogue_reduce", "epilogue_dz")),
+                           ("dpd_coo", ("segment_sum_sorted",)),
+                           ("gsd_coo", ("segment_sum_sorted",))):
+        for r in range(DP_WORLD):
+            got = counts[f"{label}.rank{r}"]["launches"]
+            check(all(got[k] > 0 for k in kernels),
+                  f"{label} rank {r}: a kernel never launched: {got}")
+    n_train = len(mp_train)
+    two_s = np.max(summary["dpd_dense"]["epoch_seconds_by_rank"],
+                   axis=0).tolist()
+    rates = {"two_ranks_driver": dp_steady_rate(n_train, two_s),
+             "two_ranks_per_step_loop": per_step_rate,
+             "one_process_driver": dp_steady_rate(
+                 n_train, ones["dpd_dense"]["epoch_seconds"])}
+    print(f"dp_driver rates on {card}: train structures/s over epochs "
+          f"2-{DPD_EPOCHS} on the 2048-structure cache, each run alone: two "
+          f"ranks sharing the card under the driver "
+          f"{rates['two_ranks_driver']!r} (--buckets 3), two ranks under the "
+          f"per-step loop {rates['two_ranks_per_step_loop']!r} "
+          f"(data_parallel's dp_dense, one bucket), one process under the "
+          f"driver {rates['one_process_driver']!r} (one card: not a scaling "
+          f"figure)")
+    summary["train_structures_per_s"] = rates
+    summary["wall_s"] = time.perf_counter() - t_phase
+    print(f"dp_driver: {summary['wall_s']!r} s")
+    return summary, counts
+
+
 HTTP_CLIENTS = 16  # client threads of an HTTP burst
 N_HTTP = 192  # requests of an HTTP burst (each wire)
 N_HTTP_CACHE = 32  # requests repeated for the cache check
 N_HTTP_DRAIN = 512  # the burst SIGTERM lands in
-N_ITEM14 = 2048  # requests of an in-process burst (item 14's turns)
+N_ITEM14 = 1024  # requests of an in-process burst (item 14's turns)
 ITEM14_CLIENTS = 64
 SERVE_BOOT_S = 300.0  # bound on a server's boot (imports, calibration, warm)
 HTTP_P99_MS = 1000.0  # the JAX server's default per-request deadline
@@ -5293,8 +5707,15 @@ def serve_http_phase(dev, work_dir, card):
     try:
         # 2-4. boot and readiness; featurized graph JSON (full packs);
         # the cache; the classes; SIGTERM mid-burst -> drained, exit 0
+        # servers boot side by side, all ready before a timed burst: the
+        # two wire-form servers beside this one
         p = serve("serve_http", args=("--drain-linger", "2"))
+        wire_servers = {path: serve(path, args=args) for path, args in (
+            ("serve_http_raw", ()),
+            ("serve_http_compact", ("--wire", "featurized")))}
         ready = p.wait_ready()
+        for q in wire_servers.values():
+            q.wait_ready()
         check(503 in ready["statuses"]
               and ready["statuses"][-1] == 200
               and ready["statuses"].index(503)
@@ -5390,11 +5811,9 @@ def serve_http_phase(dev, work_dir, card):
         # wire-form structures, each path its own process: staged raw
         # for the device search, and featurized on the packer thread
         # (``--wire featurized``), which stages them compactly
-        for path, args, seed in (
-                ("serve_http_raw", (), SEED + 24),
-                ("serve_http_compact", ("--wire", "featurized"), SEED + 25)):
-            p = serve(path, args=args)
-            p.wait_ready()
+        for path, seed in (("serve_http_raw", SEED + 24),
+                           ("serve_http_compact", SEED + 25)):
+            p = wire_servers[path]
             xs = structures(N_HTTP, seed)
             res, wall = http_burst(p.port, [structure_body(x) for x in xs])
             rec = burst_rates(path, res, wall)
@@ -5493,9 +5912,14 @@ def serve_http_phase(dev, work_dir, card):
 
         # 6. the fault hooks: a failed dispatch fails its flush alone;
         # an injected preemption exits 75; a wedged flush exits 3
+        # the faults, wedge and COO servers boot side by side
         p = serve("serve_http_faults", faults="dispatch_exc=2;exit75_at=8",
                   traced=False)
-        p.wait_ready()
+        wedge = serve("serve_http_wedge", faults="wedge_flush=1:600",
+                      args=("--drain-timeout", "3"), traced=False)
+        coo = serve("serve_http_coo", ckpt=coo_ck)
+        for q in (p, wedge, coo):
+            q.wait_ready()
         seq = []
         for x in structures(16, SEED + 28):
             try:
@@ -5511,9 +5935,7 @@ def serve_http_phase(dev, work_dir, card):
         check(seq[:4] == [(200, None), (200, None),
                           (500, "dispatch_failed"), (200, None)]
               and rc == 75, f"serve_http faults: {seq}, exit {rc}")
-        p = serve("serve_http_wedge", faults="wedge_flush=1:600",
-                  args=("--drain-timeout", "3"), traced=False)
-        p.wait_ready()
+        p = wedge
         xs = structures(2, SEED + 29)
         st0, _ = http_call(p.port, "POST", "/predict", structure_body(xs[0]))
         stuck = threading.Thread(
@@ -5531,8 +5953,7 @@ def serve_http_phase(dev, work_dir, card):
 
         # 7. COO weights through the entry point (kernel 6): featurized
         # graph JSON and structures featurized at admission
-        p = serve("serve_http_coo", ckpt=coo_ck)
-        p.wait_ready()
+        p = coo
         xs = graphs(N_HTTP // 2, SEED + 30)
         ss = structures(N_HTTP // 2, SEED + 31)
         res, wall = http_burst(p.port, [graph_body(x) for x in xs]
@@ -6385,7 +6806,7 @@ def heads_modes_phase(dev, work_dir, card, calibration):
 N_BF16_PATHS = 1024  # --synthetic cells of the bf16_coo and bf16_epilogue
 BF16_PATH_EPOCHS = 2  # paths (small cells, 2-12 atoms), and their epochs
 N_BF16_PREDICT = 256  # structures predicted on each bf16 path
-N_FORCE = 2048  # --synthetic LJ frames of the force task
+N_FORCE = 1024  # --synthetic LJ frames of the force task
 FORCE_ATOMS = 21  # MD17 aspirin's atom count
 FORCE_EPOCHS = 3
 N_FORCE_BITS = 512  # frames of the in-process bit checks (train part)
@@ -6929,6 +7350,14 @@ def force_task_phase(dev, work_dir, card):
     return summary, counts
 
 
+def timed(name, phase, *args):
+    """``phase(*args)``, its seconds printed."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {name}: {time.perf_counter() - t0!r} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6978,49 +7407,64 @@ def main() -> int:
           f"{time.perf_counter() - t0!r} s")
     work_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chip_smoke")
-    kernels = [kernel_phase(dev, calibration, shape_set)]
-    train_entries, kernels[0]["train_shape"] = train_kernel_phase(
-        dev, split[0])
+    kernels = [timed("kernel", kernel_phase, dev, calibration, shape_set)]
+    train_entries, kernels[0]["train_shape"] = timed(
+        "train_kernel", train_kernel_phase, dev, split[0])
     kernels += train_entries
-    search_entry, kernels[0]["raw_top_rung"] = search_kernel_phase(
-        dev, calibration, shape_set)
+    search_entry, kernels[0]["raw_top_rung"] = timed(
+        "search_kernel", search_kernel_phase, dev, calibration, shape_set)
     kernels.append(search_entry)
-    kernels += coo_kernel_phase(dev, split[0], calibration)
-    kernels += bf16_kernel_phase(dev, split[0], calibration, shape_set)
-    hm_summary, hm_counts = heads_modes_phase(dev, work_dir, card,
-                                              calibration)
-    bp_summary, bp_counts = bf16_paths_phase(dev, work_dir, card,
-                                             calibration)
-    summary, breakdown, raw_breakdown, by_path = serve_phase(
-        dev, calibration, work_dir)
-    train_summary, train_counts, node_cap = train_phase(dev, split, work_dir)
-    traj, epi_counts = trajectory_phase(dev, split[0], split[1], node_cap)
+    kernels += timed("coo_kernel", coo_kernel_phase, dev, split[0],
+                     calibration)
+    kernels += timed("bf16_kernel", bf16_kernel_phase, dev, split[0],
+                     calibration, shape_set)
+    hm_summary, hm_counts = timed("heads_modes", heads_modes_phase, dev,
+                                  work_dir, card, calibration)
+    bp_summary, bp_counts = timed("bf16_paths", bf16_paths_phase, dev,
+                                  work_dir, card, calibration)
+    summary, breakdown, raw_breakdown, by_path = timed(
+        "serve", serve_phase, dev, calibration, work_dir)
+    train_summary, train_counts, node_cap = timed("train", train_phase, dev,
+                                                  split, work_dir)
+    traj, epi_counts = timed("trajectory", trajectory_phase, dev, split[0],
+                             split[1], node_cap)
     breakdowns = [train_breakdown(dev, split[0], "kernel path",
                                   cgconv_impl="pallas"),
                   train_breakdown(dev, split[0], "plain path"),
                   train_breakdown(dev, split[0], "COO kernel path",
                                   dense_m=0, aggregation=COO_AGG)]
-    coo_train, coo_train_counts, coo_weights = train_coo_phase(
-        dev, split, work_dir)
-    coo_serve, coo_breakdown, coo_serve_counts = serve_coo_phase(
-        dev, calibration, coo_weights)
-    ckpt_summary, ckpt_counts = checkpoint_predict_phase(dev, work_dir, card)
-    cif_summary, cif_counts, cif_breakdowns = cif_pipeline_phase(
-        dev, work_dir, card, calibration)
-    dl_summary, dl_counts = data_layer_phase(dev, work_dir, card)
-    graphs_summary, graphs_counts, mp_split = step_graphs_phase(
-        dev, work_dir, calibration, coo_weights, card)
-    res_summary, res_counts = resilience_phase(dev, work_dir, split,
-                                               mp_split)
-    dp_summary, dp_counts = data_parallel_phase(dev, work_dir, card)
-    gs_summary, gs_counts = graph_shards_phase(dev, work_dir, card)
-    http_summary, http_counts = serve_http_phase(dev, work_dir, card)
+    coo_train, coo_train_counts, coo_weights = timed(
+        "train_coo", train_coo_phase, dev, split, work_dir)
+    coo_serve, coo_breakdown, coo_serve_counts = timed(
+        "serve_coo", serve_coo_phase, dev, calibration, coo_weights)
+    ckpt_summary, ckpt_counts = timed("checkpoint_predict",
+                                      checkpoint_predict_phase, dev,
+                                      work_dir, card)
+    cif_summary, cif_counts, cif_breakdowns = timed(
+        "cif_pipeline", cif_pipeline_phase, dev, work_dir, card, calibration)
+    dl_summary, dl_counts = timed("data_layer", data_layer_phase, dev,
+                                  work_dir, card)
+    graphs_summary, graphs_counts, mp_split = timed(
+        "step_graphs", step_graphs_phase, dev, work_dir, calibration,
+        coo_weights, card)
+    res_summary, res_counts = timed("resilience", resilience_phase, dev,
+                                    work_dir, split, mp_split)
+    dp_summary, dp_counts = timed("data_parallel", data_parallel_phase, dev,
+                                  work_dir, card)
+    gs_summary, gs_counts = timed("graph_shards", graph_shards_phase, dev,
+                                  work_dir, card)
+    dpd_summary, dpd_counts = timed(
+        "dp_driver", dp_driver_phase, dev, work_dir, card,
+        dp_summary["train_structures_per_s"]["two_ranks_one_card"])
+    http_summary, http_counts = timed("serve_http", serve_http_phase, dev,
+                                      work_dir, card)
     # last: its paths launch no kernel but oc20_train's, and an in-process
     # server burst's trace lost a kernel record when it ran before them
-    force_summary, force_counts = force_task_phase(dev, work_dir, card)
+    force_summary, force_counts = timed("force_task", force_task_phase, dev,
+                                        work_dir, card)
     by_path.update(**graphs_counts, **res_counts, **http_counts,
                    **hm_counts, **bp_counts, **force_counts, **dl_counts,
-                   **dp_counts, **gs_counts)
+                   **dp_counts, **gs_counts, **dpd_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -7066,6 +7510,7 @@ def main() -> int:
     print(json.dumps({"resilience": res_summary}, allow_nan=False))
     print(json.dumps({"data_parallel": dp_summary}, allow_nan=False))
     print(json.dumps({"graph_shards": gs_summary}, allow_nan=False))
+    print(json.dumps({"dp_driver": dpd_summary}, allow_nan=False))
     print(json.dumps({"serve_http": http_summary}, allow_nan=False))
     print(json.dumps({"heads_modes": hm_summary}, allow_nan=False))
     print(json.dumps({"bf16_paths": bp_summary}, allow_nan=False))

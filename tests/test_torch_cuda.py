@@ -1757,3 +1757,94 @@ def test_graph_shards_two_gloo_ranks_share_the_card(dev, tmp_path, layout):
         "train_loss": one["train_loss"], "val_mae": one["val_metric"]},
         rtol=c.GS_RTOL, what="one unsharded process")
     c.gs_edge_bytes(f"gs_card_{layout}", leg, one)
+
+
+# two ranks of ``fit`` under the epoch driver on cuda:0, replayed and
+# eager: python -c DP_DRIVER_RANK rank port out
+DP_DRIVER_RANK = r'''
+import sys
+import numpy as np
+import torch
+from cgnn_tpu_torch.config import DataConfig, ModelConfig
+from cgnn_tpu_torch.data.dataset import load_synthetic
+from cgnn_tpu_torch.parallel import dist
+from cgnn_tpu_torch.parallel.data_parallel import state_digest
+from cgnn_tpu_torch.train.loop import fit
+from cgnn_tpu_torch.train.state import init_train_state
+
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+dist.initialize(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=120,
+                log_fn=lambda *a: None)
+graphs = load_synthetic(96, DataConfig(max_num_nbr=8).featurize_config(),
+                        seed=4)
+train, val = graphs[:80], graphs[80:]
+out = {}
+try:
+    for replay in (True, False):
+        state, nc, ec = init_train_state(
+            ModelConfig(atom_fea_len=16, n_conv=2, h_fea_len=24, dense_m=8,
+                        cgconv_impl="pallas"),
+            DataConfig(max_num_nbr=8), train, batch_size=16, device="cuda",
+            seed=0)
+        state, res = fit(state, dist.host_shard(train), dist.host_shard(val),
+                         epochs=2, batch_size=16, dense_m=8, device="cuda",
+                         node_cap=nc, edge_cap=ec, seed=1, buckets=2,
+                         scan_epochs=True, graphs=replay, guard=True,
+                         log_fn=lambda *a: None, fit_on=(train, val))
+        out[replay] = {"digest": state_digest(state),
+                       "digests": res["dp"]["digests"],
+                       "graphs": res["graphs"],
+                       "metrics": [(h["train"], h["val"])
+                                   for h in res["history"]]}
+finally:
+    dist.shutdown()
+torch.save(out, sys.argv[3])
+'''
+
+
+def test_dp_driver_replayed_split_step_equals_eager(dev, tmp_path):
+    """Two gloo ranks on the card under the epoch driver with the kernel
+    path: graph A a shape, the host's all-reduce, graph B, replayed,
+    against the same driver stepping eagerly (``graphs=False``) under
+    deterministic algorithms: the same bits after every epoch, and the
+    same per-epoch metrics, on both ranks."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CGNN_")}
+    env.update(PYTHONPATH=root, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_DRIVER_RANK, str(r), str(port),
+         str(tmp_path / f"out{r}.pt")], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    outs = [torch.load(tmp_path / f"out{r}.pt", weights_only=False)
+            for r in range(2)]
+    for out in outs:
+        replayed, eager = out[True], out[False]
+        assert replayed["graphs"]["captures"] > 0
+        assert replayed["graphs"]["captures_after_warm"] == 0
+        assert eager["graphs"]["captures"] == 0
+        assert replayed["digests"] == eager["digests"]
+        assert replayed["digest"] == eager["digest"]
+        assert replayed["metrics"] == eager["metrics"]
+    assert outs[0][True]["digests"] == outs[1][True]["digests"]

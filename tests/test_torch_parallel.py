@@ -592,29 +592,80 @@ def test_launch_local_runs_two_workers(tmp_path, monkeypatch, capfd):
 # the refusals (exit 2, before any process group starts)
 # ---------------------------------------------------------------------------
 
+# host-local staging: trained when every rank is on one host, refused
+# (train.py's reason) when the ranks span hosts
+HOST_LOCAL = {"device_resident": ["--device-resident"],
+              "pack_once": ["--pack-once"],
+              "scan_epochs": ["--scan-epochs"]}
+MULTI_HOST = ("multi-host DP runs the per-step loop; drop "
+              "--scan-epochs/--device-resident/--pack-once")
 REFUSALS = {
     "triple_without_dp": ([], "requires --data-parallel"),
     "device_resident": (["--data-parallel", "--device-resident"],
-                        "per-step loop"),
-    "pack_once": (["--data-parallel", "--pack-once"], "per-step loop"),
-    "scan_epochs": (["--data-parallel", "--scan-epochs"], "per-step loop"),
+                        MULTI_HOST),
+    "pack_once": (["--data-parallel", "--pack-once"], MULTI_HOST),
+    "scan_epochs": (["--data-parallel", "--scan-epochs"], MULTI_HOST),
     "compact_on": (["--data-parallel", "--compact-staging", "on"],
                    "--compact-staging on is not yet supported"),
     "force": (["--data-parallel", "--graph-shards", "2", "--task",
                "force"], "--graph-shards is not supported for --task force"),
 }
+# the entry point with this rank's host name faked: python -c ... host argv
+ON_HOST = ("import socket, sys; socket.gethostname = lambda: sys.argv[1]; "
+           "from cgnn_tpu_torch.train.__main__ import main; "
+           "sys.exit(main(sys.argv[2:]))")
+
+
+def _ranks_on_hosts(tmp_path, argv, hosts):
+    """Ranks of the train entry point, rank r on host ``hosts[r]`` ->
+    (exit codes, outputs)."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", ON_HOST, host, *argv],
+        cwd=tmp_path, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=_child_env(**dist.env_for(f"localhost:{port}", len(hosts), r)),
+        text=True) for r, host in enumerate(hosts)]
+    logs = _wait_all(procs, RANK_TIMEOUT_S)
+    return [p.returncode for p in procs], logs
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_entry_point_refusals_exit_2(case, monkeypatch, capsys):
+def test_entry_point_refusals_exit_2(case, monkeypatch, capsys, tmp_path):
+    """Exit 2 with train.py's reason: before any process group starts,
+    or, for the host-local staging flags, on every rank once the group
+    has found that the ranks span hosts (host names faked per rank)."""
     from cgnn_tpu_torch.train.__main__ import main
 
     argv, reason = REFUSALS[case]
+    if case in HOST_LOCAL:
+        codes, logs = _ranks_on_hosts(
+            tmp_path, ["--device", "cpu", "--synthetic", "8", *argv],
+            ["node-a", "node-b"])
+        assert codes == [2, 2], logs
+        assert all(reason in log for log in logs), logs
+        return
     for k, v in dist.env_for("localhost:1", 2, 1).items():
         monkeypatch.setenv(k, v)
     assert main(["--device", "cpu", "--synthetic", "8", *argv]) == 2
     assert reason in capsys.readouterr().err
     assert not dist.active()
+
+
+@pytest.mark.parametrize("case", list(HOST_LOCAL))
+def test_host_local_flags_train_two_ranks_on_one_host(case, tmp_path):
+    """``--device-resident``, ``--pack-once`` and ``--scan-epochs`` train
+    two ranks on one host to the end, bit-equal after every epoch."""
+    logs = _entry_ranks(tmp_path, ["--buckets", "2", *HOST_LOCAL[case]])
+    s0, s1 = map(_summary, logs)
+    assert len(s0["dp"]["digests"]) == 2
+    assert s0["dp"]["digests"] == s1["dp"]["digests"]
+    for key in ("train_steps", "eval_steps", "train_loss", "val_metric"):
+        assert s0[key] == s1[key], key
+    staging = s0["staging"]
+    assert "agree_s" in staging  # the lists agreed once
+    assert ("staged_bytes" in staging) == (case != "pack_once")
+    assert "fallback" not in staging
+    assert (tmp_path / "out0" / "params.npz").exists()
 
 
 def test_more_ranks_than_cards_needs_gloo(monkeypatch, capsys):
