@@ -80,24 +80,27 @@ class AtomVocab:
         return len(self.table)
 
     def indices(self, g) -> np.ndarray:
-        """[N] i32 vocabulary index per atom (cached on the graph); a row
-        the table does not reproduce exactly (a hash collision, another
-        featurizer) raises ``CompactUnsupported``."""
-        idx = getattr(g, "_vocab_idx", None)
-        if idx is None:
-            h = getattr(g, "_vocab_hashes", None)
-            if h is None:
-                h = np.asarray(g.atom_fea, np.float64) @ self._hash_vec
-            idx = np.searchsorted(self._sorted_hashes, h).astype(np.int32)
-            if (idx.max(initial=0) >= self.size
-                    or not np.array_equal(
-                        self.table[idx], np.asarray(g.atom_fea, np.float32))):
-                raise CompactUnsupported(
-                    f"graph {g.cif_id!r} has atom rows outside the "
-                    f"vocabulary (hash collision or mixed featurizers)")
-            g._vocab_idx = idx
-            if hasattr(g, "_vocab_hashes"):
-                del g._vocab_hashes
+        """[N] i32 vocabulary index per atom (cached on the graph, keyed
+        to this vocabulary: a graph packed under two vocabularies, as by
+        two servers of one process, must not read one's indices into the
+        other's table); a row the table does not reproduce exactly (a hash
+        collision, another featurizer) raises ``CompactUnsupported``."""
+        cached = getattr(g, "_vocab_idx", None)
+        if cached is not None and cached[0] is self:
+            return cached[1]
+        h = getattr(g, "_vocab_hashes", None)
+        if h is None:
+            h = np.asarray(g.atom_fea, np.float64) @ self._hash_vec
+        idx = np.searchsorted(self._sorted_hashes, h).astype(np.int32)
+        if (idx.max(initial=0) >= self.size
+                or not np.array_equal(
+                    self.table[idx], np.asarray(g.atom_fea, np.float32))):
+            raise CompactUnsupported(
+                f"graph {g.cif_id!r} has atom rows outside the "
+                f"vocabulary (hash collision or mixed featurizers)")
+        g._vocab_idx = (self, idx)
+        if hasattr(g, "_vocab_hashes"):
+            del g._vocab_hashes
         return idx
 
 

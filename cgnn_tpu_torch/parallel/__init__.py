@@ -9,8 +9,8 @@ train/loop.py ``fit`` runs under a live process group, in its per-step
 loop and in its epoch driver (``agree_batches``: the same shape groups on
 every rank). There is no ``compat.py``: ``shard_map`` and ``pcast`` have
 no PyTorch counterpart (``dist.Group``'s collectives take their place).
-The multi-device forward paths (``executor``, ROADMAP Queue 1, item 9c)
-are not ported yet."""
+executor.py is the mesh engine of the forward paths (``MeshExecutor``:
+bulk predict and serving over a device set, one process)."""
 
 from cgnn_tpu_torch.parallel.data_parallel import (
     CoordinatedCheckpoint,
@@ -29,6 +29,7 @@ from cgnn_tpu_torch.parallel.data_parallel import (
     state_digest,
 )
 from cgnn_tpu_torch.parallel.dist import Group
+from cgnn_tpu_torch.parallel.executor import MeshExecutor
 from cgnn_tpu_torch.parallel.edge_parallel import (
     EDGE_FIELDS,
     chunk_transpose,
@@ -49,6 +50,7 @@ __all__ = [
     "EDGE_FIELDS",
     "CoordinatedCheckpoint",
     "Group",
+    "MeshExecutor",
     "ParallelTrainStep",
     "ReplicaDriftError",
     "ScheduleDivergedError",

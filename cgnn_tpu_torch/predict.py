@@ -54,9 +54,14 @@ i-th structure's [n_atoms, 3] forces in original units.
 capacities) on the buckets path and the force path; the shape ladder
 packs its own rungs either way.
 
-Not ported yet; each exits 2 naming its ROADMAP item (Queue 1):
-``--devices`` other than auto or 1 and ``--engine mesh`` (items 9 and
-11).
+``--devices``, as in ``predict.py``: ``auto`` (every visible card on the
+card, the one CPU device on the CPU) or N, the first N cards; asking for
+more than exist exits 2, never clamped. ``--engine``: ``mesh`` (the
+``auto`` choice over more than one card) stacks N same-shape batches into
+one sharded dispatch, ``threads`` round-robins the batches over the
+cards' replicas (train/infer.py); one card runs the single loop, and the
+summary line names the device count and the engine that ran. The force
+task predicts on the first device.
 """
 
 from __future__ import annotations
@@ -109,29 +114,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compact staging of featurized batches; auto = on "
                         "the card with the dense layout")
     p.add_argument("--devices", default="auto", metavar="{auto,N}",
-                   help="devices to dispatch over (one card only so far)")
+                   help="devices to dispatch over: 'auto' = every visible "
+                        "card (one CPU device on the CPU); N = the first N "
+                        "cards (more than exist exits 2)")
     p.add_argument("--engine", choices=["auto", "mesh", "threads"],
                    default="auto",
-                   help="multi-device execution layer (not ported yet)")
+                   help="multi-device execution layer: 'mesh' (auto with "
+                        ">1 device) stacks N batches into one sharded "
+                        "dispatch; 'threads' round-robins over replicas")
     return p
-
-
-def _unported(args) -> str | None:
-    """Why these arguments ask for something not ported yet, or None."""
-    if args.devices not in ("auto", "1") or args.engine == "mesh":
-        return ("--devices other than auto/1 and --engine mesh are not "
-                "ported yet (ROADMAP Queue 1, items 9 and 11)")
-    return None
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    why = _unported(args)
-    if why:
-        print(why, file=sys.stderr)
-        return 2
     from cgnn_tpu_torch.config import DataConfig, ModelConfig
     from cgnn_tpu_torch.device import resolve_device
+    from cgnn_tpu_torch.serve.devices import resolve_devices
     from cgnn_tpu_torch.train.checkpoint import load_for_inference
 
     if not (args.cache or args.synthetic or args.root_dir):
@@ -143,6 +141,12 @@ def main(argv=None) -> int:
         return 2
     dev = resolve_device(args.device)
     try:
+        # never clamped: more devices than exist is an error
+        devices = resolve_devices(args.devices, dev)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
+    try:
         state, meta, _ = load_for_inference(
             args.ckpt_dir, "best" if args.best else "latest", dev)
     except FileNotFoundError as e:
@@ -153,7 +157,7 @@ def main(argv=None) -> int:
     data_cfg = DataConfig.from_meta(meta["data"])
     if task == "force":
         return _run_force(args, state, model_cfg, data_cfg, dev)
-    return _run(args, state, model_cfg, data_cfg, dev)
+    return _run(args, state, model_cfg, data_cfg, dev, devices)
 
 
 def _load(args, fcfg, want_raw: bool):
@@ -196,7 +200,7 @@ def _compact_spec(args, graphs, fcfg, layout_m, dev, edge_dtype):
         return None, None
 
 
-def _run(args, state, model_cfg, data_cfg, dev) -> int:
+def _run(args, state, model_cfg, data_cfg, dev, devices) -> int:
     import time
 
     import numpy as np
@@ -229,7 +233,9 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
     # batches by wire (the buckets path's are all featurized)
     counts = {"structures": len(graphs), "raw": 0, "batches_raw": 0,
               "batches_featurized": 0, "compact": compact is not None,
-              "pack_workers": pack_workers}
+              "pack_workers": pack_workers, "devices": len(devices)}
+    multi = dict(devices=devices, engine=args.engine)
+    raw_stats: dict = {}
     if args.buckets >= 1:
         # per-size-class capacities derived from this dataset
         preds, rate = run_fast_inference(state, graphs, args.batch_size,
@@ -238,7 +244,7 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
                                          snug=args.packing == "snug",
                                          compact=compact,
                                          pack_workers=pack_workers,
-                                         stats=pipe)
+                                         stats=pipe, **multi)
         counts["batches_featurized"] = pipe["batches"]
         how = f"{args.buckets} size buckets"
     else:
@@ -281,12 +287,13 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
             by_id = {id(raws[i]): graphs[i] for i in raw_idx}
             preds[raw_idx], _ = run_raw_inference(
                 state, [raws[i] for i in raw_idx], shape_set,
-                raw_fallback=lambda rs: by_id[id(rs)])
+                raw_fallback=lambda rs: by_id[id(rs)], stats=raw_stats,
+                **multi)
         if feat_idx:
             feat = [graphs[i] for i in feat_idx]
             preds[feat_idx], _ = run_fast_inference(
                 state, feat, args.batch_size, shape_set=shape_set,
-                pack_workers=pack_workers, stats=pipe)
+                pack_workers=pack_workers, stats=pipe, **multi)
         rate = len(graphs) / (time.perf_counter() - t0)
         if feat_idx:
             counts["batches_featurized"] = sum(
@@ -296,9 +303,12 @@ def _run(args, state, model_cfg, data_cfg, dev) -> int:
                                           / shape_set.largest.graph_cap)
         how = (f"{len(shape_set)}-rung shape ladder, {len(raw_idx)}/"
                f"{len(graphs)} structures on the raw wire")
+    # the engine that ran (a one-entry set runs the single loop)
+    engine = counts["engine"] = (pipe or raw_stats)["engine"]
     print(f"inference throughput: {rate:.0f} structures/sec ({how}, "
           f"{'compact' if compact is not None else 'full'}-staged, "
-          f"{pack_workers} pack workers, {dev})")
+          f"{pack_workers} pack workers, {len(devices)} device(s), "
+          f"{engine} engine, {dev})")
     print("predict: " + json.dumps(dict(counts, structures_per_s=rate,
                                         pipeline=pipe), allow_nan=False))
     rows = [[g.cif_id] + [f"{t:.6f}" for t in np.atleast_1d(g.target)]

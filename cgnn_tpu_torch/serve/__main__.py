@@ -20,15 +20,20 @@ listener and exits:
   (``CGNN_TPU_FAULTS=exit75_at=N``);
 - 3, at once (``os._exit``), when the drain outlasts ``--drain-timeout``,
   with the count of accepted requests left unanswered;
-- 2 when the arguments ask for what is not ported or the directory holds
-  no checkpoint.
+- 2 when the arguments ask for what is not ported, an unknown precision
+  tier or more devices than exist, or the directory holds no checkpoint.
 
 The default device is the card, which raises without one; ``--device
 cpu`` runs the kernels' plain versions.
 
+``--precision f32,bf16,int8`` warms those tiers (serve/quantize.py; a
+request picks one with its ``precision`` field); ``--devices`` ``auto``
+(every visible card) or N (the first N; more than exist exits 2, never
+clamped); ``--engine`` ``auto`` (mesh over more than one card), ``mesh`` or
+``threads``, as ``serve.py`` takes them.
+
 Flags refused, exit 2, each naming its ROADMAP item (Queue 1):
-``--precision`` other than f32 (item 11); ``--devices`` other than auto/1
-and ``--engine mesh`` (items 9 and 11); ``--telemetry-dir``,
+``--telemetry-dir``,
 ``--live-metrics``, ``--profile-dir``, ``--trace-ring``,
 ``--flightrec-dir``, ``--log-json`` and the SLO flags (``--no-slo``,
 ``--slo-*``, ``--class-slo-ms``) (item 11); ``--journal`` (item 12).
@@ -125,14 +130,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reload-gated", action="store_true",
                    help="hold the reload watcher at the boot version until "
                         "POST /reload-control raises the gate")
-    # not ported: parsed so that asking for them is refused by name
     p.add_argument("--precision", default="f32", metavar="TIERS",
-                   help="precision tiers to warm: f32 only")
+                   help="comma-separated precision tiers to warm "
+                        "(f32,bf16,int8); a request picks one with its "
+                        "'precision' field (default f32)")
     p.add_argument("--devices", default="auto", metavar="{auto,N}",
-                   help="dispatch devices: one card only")
+                   help="dispatch devices: 'auto' = every visible card; N "
+                        "= the first N (more than exist exits 2)")
     p.add_argument("--engine", choices=["auto", "mesh", "threads"],
                    default="auto",
-                   help="multi-device execution layer (not ported)")
+                   help="multi-device execution layer: 'mesh' (auto with "
+                        ">1 device) runs each flush as one sharded dispatch; "
+                        "'threads' routes flushes to per-device threads")
+    # not ported: parsed so that asking for it is refused by name
     p.add_argument("--compile-cache", default="", metavar="DIR",
                    help="no counterpart in the port: refused when set")
     for dest, flag, item in _REFUSED:
@@ -147,14 +157,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> str | None:
     """Why these arguments ask for something not ported, or None."""
-    tiers = [t.strip() for t in str(args.precision).split(",") if t.strip()]
-    if tiers and tiers != ["f32"]:
-        return (f"--precision {args.precision}: only the model's own tier, "
-                f"f32, is served (the bf16 and int8 tiers of quantize.py: "
-                f"ROADMAP Queue 1, item 11)")
-    if args.devices not in ("auto", "1") or args.engine == "mesh":
-        return ("--devices other than auto/1 and --engine mesh are not "
-                "ported yet (ROADMAP Queue 1, items 9 and 11)")
     if args.compile_cache:
         return ("--compile-cache has no counterpart in the port (its "
                 "kernels build once into build/kernels)")
@@ -175,7 +177,9 @@ def main(argv=None) -> int:
     from cgnn_tpu_torch.resilience import faultinject
     from cgnn_tpu_torch.resilience.preempt import RESUMABLE_EXIT_CODE
     from cgnn_tpu_torch.serve.batcher import parse_kv_spec
+    from cgnn_tpu_torch.serve.devices import resolve_devices
     from cgnn_tpu_torch.serve.http import make_http_server
+    from cgnn_tpu_torch.serve.quantize import parse_precisions
     from cgnn_tpu_torch.serve.server import load_server
 
     log = functools.partial(print, flush=True)
@@ -188,6 +192,12 @@ def main(argv=None) -> int:
             print(f"fault injection: {', '.join(ignored)} not ported: "
                   f"ignored", file=sys.stderr)
     dev = resolve_device(args.device)
+    try:
+        precisions = parse_precisions(args.precision)
+        devices = resolve_devices(args.devices, dev)
+    except ValueError as e:  # an unknown tier; more devices than exist
+        print(str(e), file=sys.stderr)
+        return 2
     calibration = None
     if args.calibration_cache:
         from cgnn_tpu_torch.data.cache import load_graph_cache
@@ -213,6 +223,9 @@ def main(argv=None) -> int:
             wire=args.wire,
             pack_workers=args.pack_workers,
             device=dev,
+            devices=devices,
+            engine=args.engine,
+            precision=precisions,
             watch=args.poll_interval > 0,
             poll_interval_s=args.poll_interval or 2.0,
             # warmed after the listener binds (below): /healthz answers
@@ -246,7 +259,9 @@ def main(argv=None) -> int:
     wire = ("raw+featurized" if server.shape_set.raw is not None
             else "featurized")
     log(f"serving on http://{args.host}:{args.port} (params "
-        f"{server.version}; shapes {shapes}; {server.device}; wire: {wire}; "
+        f"{server.version}; shapes {shapes}; {len(server.device_set)} "
+        f"device(s) from {server.device}, {server.engine} engine; tiers "
+        f"{','.join(server.precisions)}; wire: {wire}; "
         f"compact: {server.shape_set.compact is not None}; pack workers: "
         f"{server.stats()['ingest']['pack_workers']})")
     try:

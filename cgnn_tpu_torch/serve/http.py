@@ -10,7 +10,8 @@ deadlines, backpressure, the cache, reload) lives in serve/server.py:
   [N]; ``id``), the wire form, staged raw for the device neighbor search
   or featurized on a packer, never on this handler thread. Optional body
   keys: ``class`` (or ``priority``), ``tenant``, ``timeout_ms``,
-  ``precision`` (``f32`` only: other tiers are ROADMAP Queue 1, item 11),
+  ``precision`` (a tier the server warmed: ``f32``, ``bf16``, ``int8``;
+  another is refused 400 at admission; the response reports the tier),
   ``fingerprint`` (or the ``X-Fingerprint`` header), ``trace_id`` (or
   ``X-Request-Id``, echoed in the response's ``X-Request-Id``) and
   ``trace_parent`` (or ``X-Trace-Parent``). Any other key of a graph is

@@ -14,15 +14,18 @@ reference. The port's predict graphs read one set of tensors by address,
 so a swap cannot publish new tensors. Instead:
 
 - the watcher restores on its own thread into staging tensors (a model
-  and normalizer of their own on the serving device), and records an
-  event on its stream after the copies;
-- it stages them in the :class:`ParamStore` and calls the server's hook,
-  which takes the dispatch lock: the worker holds that lock across each
-  flush's replay and fetch, so the swap lands between two flushes;
-- under the lock the staged parameters, buffers and normalizer are
-  copied into the live ones in place, behind that event, on the stream
-  the replays use, and only then is the version bumped
-  (``ParamStore.apply_pending``).
+  and normalizer of their own on the serving device); ``ParamStore.stage``
+  derives there, outside every lock, all the swap needs: the staged
+  tensors on each device of the set and each precision tier's payload
+  (the int8 tier's q and scales, serve/quantize.py), then records an
+  event after the copies;
+- the server's hook takes every entry's dispatch lock: a flush holds its
+  entry's lock (every entry's, under the mesh engine) across its replay
+  and fetch, so the swap lands between flushes on every entry;
+- under the locks ``ParamStore.apply_pending`` copies the staged tensors
+  into each entry's live parameters, buffers and normalizer in place
+  (the bf16 and int8 tiers share those), and each tier's payload into its
+  own tensors, waits for the copies, and only then bumps the version.
 
 Every flush then runs wholly on one version, the version it reports is
 the version that computed it, and no graph is captured after a swap.
@@ -36,6 +39,7 @@ save, or cap what it may swap to, as in the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import threading
 from typing import Callable
@@ -44,15 +48,62 @@ import torch
 
 
 class ParamStore:
-    """The live serving state and its version, plus at most one staged
-    swap. ``state`` (an InferenceState) holds the tensors the predict
-    graphs read; it is never replaced, only written in place."""
+    """The live serving states, one per (entry, tier), their one version,
+    and at most one staged swap. The states hold the tensors the predict
+    graphs read; they are never replaced, only written in place.
 
-    def __init__(self, state, version: str = "init"):
-        self.state = state
+    ``devices`` replicates ``state`` once per entry
+    (``serve.devices.replicate_state``); the server passes it under every
+    engine, since a replicated state is placed alike under both.
+    ``placer`` (the JAX package's signature: a callable mapping ``state``
+    to one state per entry) is for a caller that places the entries its
+    own way; not both (the JAX package's rule). ``tier_specs``
+    (serve/quantize.py) derives each tier's state from its entry's native
+    one, once: a bf16 or int8 tier shares the native parameters and
+    normalizer, and the int8 tier holds its own q and scales.
+    ``get(i, tier)`` -> (state, version)."""
+
+    def __init__(self, state, version: str = "init", devices=None,
+                 tier_specs=None, placer=None):
+        if placer is not None and devices is not None:
+            raise ValueError(
+                "ParamStore takes devices (per-replica mode) OR placer "
+                "(one sharded tree), not both")
+        from cgnn_tpu_torch.serve.devices import replicate_state
+
+        self._specs = {t: spec for t, spec in (tier_specs or {}).items()
+                       if t != "f32"}
+        if placer is not None:
+            replicas = list(placer(state))
+        elif devices:
+            replicas = replicate_state(state, devices)
+        else:
+            replicas = [state]
+        self._states = [
+            {"f32": r, **{t: spec.state_for(r)
+                          for t, spec in self._specs.items()}}
+            for r in replicas]
         self._version = version
-        self._pending = None  # (staged state, version, event or None)
+        self._pending = None  # (sources by device, payloads, version, events)
         self._lock = threading.Lock()
+
+    @property
+    def state(self):
+        """Entry 0's native state."""
+        return self._states[0]["f32"]
+
+    @property
+    def tiers(self) -> tuple:
+        return tuple(self._states[0])
+
+    def __len__(self) -> int:
+        return len(self._states)
+
+    def get(self, device_index: int = 0, tier: str = "f32"):
+        """-> (the state of entry ``device_index`` and ``tier``, the live
+        version)."""
+        with self._lock:
+            return self._states[device_index][tier], self._version
 
     @property
     def version(self) -> str:
@@ -63,40 +114,79 @@ class ParamStore:
     def pending(self) -> str | None:
         """The staged version not yet applied, or None."""
         with self._lock:
-            return None if self._pending is None else self._pending[1]
+            return None if self._pending is None else self._pending[2]
 
+    def _devices(self) -> list:
+        from cgnn_tpu_torch.serve.devices import state_device
+
+        return list(dict.fromkeys(state_device(t["f32"])
+                                  for t in self._states))
+
+    @torch.no_grad()
     def stage(self, staged, version: str) -> None:
-        """Hand over a restored state (a newer stage replaces an older
-        one not yet applied). On CUDA an event recorded on this thread's
-        stream marks the end of the copies that filled ``staged``."""
-        event = None
-        dev = staged.normalizer.mean.device
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
+        """Hand over a restored state (a newer stage replaces an older one
+        not yet applied). Everything a swap needs is derived here, on the
+        caller's thread and outside every lock: the staged tensors on each
+        device of the set, and each tier's payload (the int8 tier's q and
+        scales). On CUDA an event recorded on each device's stream marks
+        the end of the copies."""
+        from cgnn_tpu_torch.serve.devices import state_device
+
+        src_dev = state_device(staged)
+        host = {t: spec.payload(staged) for t, spec in self._specs.items()}
+        sources, payloads, events = {}, {}, []
+        for dev in self._devices():
+            if dev == src_dev:
+                sd = staged.model.state_dict()
+                norm = (staged.normalizer.mean, staged.normalizer.std)
+            else:
+                sd = {k: v.to(dev, copy=True)
+                      for k, v in staged.model.state_dict().items()}
+                norm = (staged.normalizer.mean.to(dev, copy=True),
+                        staged.normalizer.std.to(dev, copy=True))
+            sources[dev] = (sd, norm)
+            payloads[dev] = {t: None if p is None else {
+                k: dataclasses.replace(q, q=q.q.to(dev),
+                                       scale=q.scale.to(dev))
+                for k, q in p.items()} for t, p in host.items()}
+        for dev in {src_dev, *sources}:
+            if dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                events.append((dev, ev))
         with self._lock:
-            self._pending = (staged, version, event)
+            self._pending = (sources, payloads, version, events)
 
     @torch.no_grad()
     def apply_pending(self) -> str | None:
-        """Copy a staged state into the live tensors, in place, on the
-        caller's stream, then publish its version -> that version, or
-        None when nothing was staged. The caller guarantees no flush is
-        running (the server's dispatch lock)."""
+        """Copy a staged swap into every entry's and tier's live tensors,
+        in place, then publish its version -> that version, or None when
+        nothing was staged. The caller guarantees no flush is running on
+        any entry (the server holds every entry's dispatch lock); the
+        copies finish before this returns, so the next replay on any
+        entry's stream reads the new tensors."""
+        from cgnn_tpu_torch.serve.devices import state_device
+
         with self._lock:
             pending, self._pending = self._pending, None
         if pending is None:
             return None
-        staged, version, event = pending
-        live = self.state
-        if event is not None:
-            torch.cuda.current_stream(
-                live.normalizer.mean.device).wait_event(event)
-        src = staged.model.state_dict()
-        for k, t in live.model.state_dict().items():
-            t.copy_(src[k])
-        live.normalizer.mean.copy_(staged.normalizer.mean)
-        live.normalizer.std.copy_(staged.normalizer.std)
+        sources, payloads, version, events = pending
+        for dev, ev in events:
+            torch.cuda.current_stream(dev).wait_event(ev)
+        for tiers in self._states:
+            live = tiers["f32"]
+            dev = state_device(live)
+            sd, (mean, std) = sources[dev]
+            for k, t in live.model.state_dict().items():
+                t.copy_(sd[k])
+            live.normalizer.mean.copy_(mean)
+            live.normalizer.std.copy_(std)
+            for t, spec in self._specs.items():
+                spec.load(tiers[t], payloads[dev][t])
+        for dev in sources:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
         with self._lock:
             self._version = version
         return version

@@ -24,29 +24,50 @@ cgnn_tpu_torch.serve``) are thin layers on top::
                     packs ShapeSet.pack into a pooled pinned buffer,
                     counted ``pack_compact``, else ShapeSet.pack_full
     the worker "cgnn-torch-serve" (_run_flush), in flush order:
-      under the dispatch lock: the fault point, copy into the rung's
-      predict graph's static inputs, replay, fetch; then each future gets
-      its row (a raw row the device flagged for cap overflow is
-      re-offered as a featurized request with the same future), and the
-      cache its (row, version)
+      under the entry's dispatch lock: the fault point, copy into the
+      predict graph's static inputs of the flush's (entry, tier, form,
+      rung), replay, fetch; then each future gets its row (a raw row the
+      device flagged for cap overflow is re-offered as a featurized
+      request with the same future), and the cache its (row, version)
     the reload watcher (serve/reload.py), on its own thread: a verified
-      save goes live under the same dispatch lock, so between two flushes
+      save goes live under every entry's dispatch lock, so between flushes
 
 So while the worker replays flush N, flush N+1 packs and the batcher
 coalesces N+2; ``pack_workers=0`` runs the same stages on the worker.
-Only the worker touches a ``StepGraph``. A pooled buffer goes back to its
-pool after the flush's fetch (which waits for the device); a failed flush
-synchronizes the stream first. Answers leave in flush order, and a pack
-error fails its own flush only.
+A pooled buffer goes back to its pool after the flush's fetch (which
+waits for the device); a failed flush synchronizes its stream first.
+Answers leave in flush order, and a pack error fails its own flush only.
 
-Each (staging form, rung) has one predict graph (train/graphs.py): the
-step captured as a CUDA graph at ``warm()`` (full, compact where the
-template stages compactly, raw with a raw spec). A flush never captures:
-``stats()["counts"]["captures_after_warm"]`` counts captures after
-``warm()`` (the JAX ``serve_recompiles_after_warm``), 0 by construction,
-and a rise is logged loudly. A hot reload copies new weights into the
-tensors the graphs read (serve/reload.py), so it captures nothing either.
-On the CPU the step runs eagerly.
+The device set (serve/devices.py; ``devices``, default the one
+``device``) and its engine (``engine``):
+
+- one entry: the loop above ("single", whatever was asked);
+- ``'mesh'`` (``'auto'`` with more than one entry; parallel/executor.py):
+  each packed flush is split round-robin over the entries, every shard
+  packed at one common rung and stacked; the worker stages each entry's
+  slice and runs every entry's graph on its own stream from its one
+  thread, holding every entry's lock: one dispatch covers the set;
+- ``'threads'``: a router (the worker) hands each packed flush to the
+  entry with the fewest flushes in flight, over a bounded queue, to that
+  entry's dispatch thread, which replays on the entry's stream and
+  fetches before it takes the next flush, so a pooled buffer goes back
+  only after the entry that read it has finished with it.
+
+Every entry holds its own copy of the state, its own graphs and its own
+stream; two entries may share a card. Precision tiers (serve/quantize.py;
+``precisions``): each (entry, tier, form, rung) has one predict graph,
+all captured at ``warm()``; a request picks its tier at admission
+(``submit(precision=)``, refused when the tier was not warmed), the
+batcher cuts a flush where the tier changes, and the result cache keys a
+tier's rows apart (``<tier>:<fingerprint>`` for tiers other than f32).
+
+Each predict graph is the step captured as a CUDA graph at ``warm()``
+(full, compact where the template stages compactly, raw with a raw spec).
+A flush never captures: ``stats()["counts"]["captures_after_warm"]``
+counts captures after ``warm()`` (the JAX ``serve_recompiles_after_warm``),
+0 by construction, and a rise is logged loudly. A hot reload copies new
+weights into the tensors the graphs read (serve/reload.py), so it captures
+nothing either. On the CPU the step runs eagerly.
 
 In the flat COO layout (``ShapeSet.dense_m`` None) there is no raw wire,
 and a wire-form structure is featurized at admission, on the caller's
@@ -62,18 +83,19 @@ bf16 edge features on every wire (``ShapeSet.edge_dtype``, from the
 meta's ``dtype``) and run the bf16 kernel instances; a classifier answers
 its ``num_classes`` log-probs, a multi-task model its T targets.
 
-Not ported yet: precision tiers other than the model's own (the
-``quantize.py`` tiers, ROADMAP Queue 1, item 11), multi-device engines (items 9 and 11), the edge-occupancy gauges, the
-telemetry, span, SLO, time-series and flight-recorder plane (item 11), the
+Not ported yet: the edge-occupancy gauges, the telemetry, span, SLO,
+time-series and flight-recorder plane (ROADMAP Queue 1, item 11), the
 label journal and peer cache fill (item 12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
 import os
+import queue
 import threading
 import time
 from typing import Callable, Sequence
@@ -85,7 +107,7 @@ from cgnn_tpu_torch.config import DataConfig, ModelConfig
 from cgnn_tpu_torch.convert import from_flax_variables, load_params
 from cgnn_tpu_torch.data.compact import CompactSpec, CompactUnsupported
 from cgnn_tpu_torch.data.elements import MAX_Z
-from cgnn_tpu_torch.data.graph import CrystalGraph
+from cgnn_tpu_torch.data.graph import CrystalGraph, GraphBatch
 from cgnn_tpu_torch.data.pipeline import BufferPool, PipelineStats, parallel_pack
 from cgnn_tpu_torch.data.rawbatch import (
     RawStructure,
@@ -108,7 +130,15 @@ from cgnn_tpu_torch.serve.batcher import (
     RequestFuture,
     ServeRejection,
 )
+from cgnn_tpu_torch.parallel.executor import open_entries
 from cgnn_tpu_torch.serve.cache import ResultCache, structure_fingerprint
+from cgnn_tpu_torch.serve.devices import (
+    DeviceSet,
+    canonical,
+    on_stream,
+    resolve_devices,
+)
+from cgnn_tpu_torch.serve.quantize import build_tier_specs, parse_precisions
 from cgnn_tpu_torch.serve.reload import CheckpointWatcher, ParamStore
 from cgnn_tpu_torch.serve.shapes import ShapeSet, plan_shape_set
 from cgnn_tpu_torch.train.checkpoint import (
@@ -119,11 +149,6 @@ from cgnn_tpu_torch.train.checkpoint import (
 from cgnn_tpu_torch.train.graphs import GraphCache, StepGraph
 from cgnn_tpu_torch.train.normalizer import Normalizer
 from cgnn_tpu_torch.train.step import InferenceState, make_predict_step
-
-# the precision tiers this server warms: the model's own, named f32 (the
-# quantized tiers are ROADMAP Queue 1, item 11)
-PRECISIONS = ("f32",)
-
 
 @dataclasses.dataclass
 class ServeResult:
@@ -148,17 +173,20 @@ class ServeResult:
 
 
 class InferenceServer:
-    """Micro-batching online inference over a shape ladder on one device.
+    """Micro-batching online inference over a shape ladder on a device set.
 
-    ``state`` holds the eval model and normalizer; both move to
-    ``device`` (default CUDA, which raises when absent). With a raw spec
-    on the shape set, the raw expander runs the neighbor search as kernel
-    8 on a CUDA device and as its plain version on the CPU; a kernel that
-    fails to build or launch fails its flush. ``raw_precheck=False``
-    skips the host image-cap check at admission and leaves the decision
-    to the device's overflow flag. ``pack_workers`` packer threads pack
-    flushes while the worker replays (0: the worker packs).
-    ``cache_size`` 0 disables the result cache."""
+    ``state`` holds the eval model and normalizer. ``devices`` lists the
+    entries (default: the one ``device``, CUDA by default, which raises
+    when absent; repeats make several entries on one card); ``engine``
+    'auto', 'mesh' or 'threads' drives a set of more than one (module
+    docstring); ``precisions`` the tiers warmed beside f32
+    (serve/quantize.py). With a raw spec on the shape set, the raw
+    expander runs the neighbor search as kernel 8 on a CUDA device and as
+    its plain version on the CPU; a kernel that fails to build or launch
+    fails its flush. ``raw_precheck=False`` skips the host image-cap check
+    at admission and leaves the decision to the device's overflow flag.
+    ``pack_workers`` packer threads pack flushes while the worker replays
+    (0: the worker packs). ``cache_size`` 0 disables the result cache."""
 
     def __init__(
         self,
@@ -176,18 +204,35 @@ class InferenceServer:
         pack_workers: int = 1,
         featurizer: Callable[[RawStructure], CrystalGraph] | None = None,
         device="cuda",
+        devices: Sequence | None = None,
+        engine: str = "auto",
+        precisions: Sequence[str] = ("f32",),
         log_fn: Callable = print,
         raw_precheck: bool = True,
     ):
-        self.device = resolve_device(device)
-        self.state = InferenceState(state.model.to(self.device).eval(),
-                                    state.normalizer.to(self.device))
-        self.param_store = ParamStore(self.state, version)
+        entries = [canonical(resolve_device(d)) for d in
+                   (devices if devices is not None else [device])]
+        # one predict step a device: the expanders' constants live there
+        ents = open_entries(entries, engine, lambda d: make_predict_step(
+            raw_expander=shape_set.raw_expander(device=d),
+            expander=shape_set.expander(device=d)))
+        self.device_set = DeviceSet(entries)
+        self.device = entries[0]
+        self.mesh_exec = ents.mesh
+        # what runs, not what was asked: one entry takes the single loop
+        self.engine = ents.engine
+        self._streams = ents.streams
+        self._steps = ents.steps
+        self.predict_step = self._steps[0]
+        self.precisions = tuple(dict.fromkeys(("f32", *precisions)))
+        tier_specs = (None if self.precisions == ("f32",)
+                      else build_tier_specs(self.precisions))
+        state = InferenceState(state.model.to(self.device).eval(),
+                               state.normalizer.to(self.device))
+        self.param_store = ParamStore(state, version, devices=entries,
+                                      tier_specs=tier_specs)
+        self.state = self.param_store.state
         self.shape_set = shape_set
-        self.precisions = PRECISIONS
-        self.predict_step = make_predict_step(
-            raw_expander=shape_set.raw_expander(device=self.device),
-            expander=shape_set.expander(device=self.device))
         self.graphs = GraphCache(self._make_graph, log_fn=log_fn,
                                  label="serve: predict graph")
         self._pool = None if shape_set.compact is None else BufferPool()
@@ -208,9 +253,11 @@ class InferenceServer:
         self._log = log_fn
         self._worker: threading.Thread | None = None
         self._watcher: CheckpointWatcher | None = None
-        # held by the worker across a flush's swap, replay and fetch, so
-        # a hot reload lands only between two flushes
-        self._dispatch_lock = threading.Lock()
+        # one dispatch lock an entry, held across a flush's copy, replay
+        # and fetch (every entry's under the mesh engine, always taken in
+        # entry order), so a hot reload, which takes them all, lands only
+        # between flushes
+        self._locks = [threading.Lock() for _ in entries]
         self._lock = threading.Lock()
         self._draining = False
         self.warmed = False
@@ -242,39 +289,72 @@ class InferenceServer:
         """The live parameter version."""
         return self.param_store.version
 
+    @contextlib.contextmanager
+    def _locked(self, entries=None):
+        """Hold the dispatch locks of ``entries`` (default: all), taken in
+        entry order."""
+        with contextlib.ExitStack() as stack:
+            for i in range(len(self._locks)) if entries is None else entries:
+                stack.enter_context(self._locks[i])
+            yield
+
     # ---- lifecycle ----
 
     def warm(self, template: CrystalGraph) -> int:
-        """Capture every rung's predict graph with one copy of
-        ``template`` (in both staging forms with a compact spec, and,
-        with a raw spec, the raw form with ``spec.template()``), each run
-        once: builds the kernels and initializes the device libraries
-        before traffic. -> the number of rungs."""
+        """Capture every predict graph: each rung x staging form x tier x
+        entry, with one copy of ``template`` (both staging forms with a
+        compact spec; with a raw spec, the raw form with
+        ``spec.template()``), each run once (under the mesh engine, through
+        the sharded dispatch): builds the kernels and initializes the
+        device libraries before traffic. -> the number of rungs."""
         self._feature_dims = (template.atom_fea.shape[1],
                               template.edge_fea.shape[1])
         raw = self.shape_set.raw
-        with self._dispatch_lock:
+        n = len(self.device_set)
+        with self._locked():
             for shape in self.shape_set:
-                batch = self.shape_set.pack_full([template], shape=shape)
-                self._predict("full", shape, batch).cpu()
+                forms = {"full": self.shape_set.pack_full([template],
+                                                          shape=shape)}
                 if self.shape_set.compactable(template):
-                    # through a pooled staging buffer: its pinned
-                    # allocation is paid here, not by the first flush
-                    key = self.shape_set.buffer_key(shape)
-                    buf = self._pool.acquire(key, self._buffer_factory(shape))
-                    cb = self.shape_set.pack([template], shape=shape, out=buf)
-                    self._predict("compact", shape, cb).cpu()
-                    self._pool.release(key, buf)
+                    forms["compact"] = None  # packed per use: pooled
                 if raw is not None:
-                    rb = self.shape_set.pack_raw([raw.template()],
-                                                 shape=shape)
-                    self._predict("raw", shape, rb)[0].cpu()
+                    forms["raw"] = self.shape_set.pack_raw([raw.template()],
+                                                           shape=shape)
+                for form, batch in forms.items():
+                    for tier in self.precisions:
+                        if self.mesh_exec is not None:
+                            b = batch if batch is not None else \
+                                self.shape_set.pack([template], shape=shape)
+                            staged = self.mesh_exec.stage(
+                                self.mesh_exec.stack([b] * n))
+                            self._mesh_predict(tier, form, shape, staged)
+                            continue
+                        for i in range(n):
+                            self._warm_one(i, tier, form, shape, batch,
+                                           template)
         self.graphs.mark_warm()
         self.warmed = True
-        self._log(f"serve: warmed {len(self.shape_set)} shapes on "
-                  f"{self.device} ({self.graphs.captures()} predict graphs "
+        self._log(f"serve: warmed {len(self.shape_set)} shapes x "
+                  f"{len(self.precisions)} tier(s) {list(self.precisions)} "
+                  f"on {n} entr{'y' if n == 1 else 'ies'} [{self.engine} "
+                  f"engine] ({self.graphs.captures()} predict graphs "
                   f"captured)")
         return len(self.shape_set)
+
+    def _warm_one(self, i, tier, form, shape, batch, template) -> None:
+        """One warm-up run of entry ``i``'s graph; a compact batch goes
+        through a pooled staging buffer, so its pinned allocation is paid
+        here, not by the first flush."""
+        with on_stream(self._streams[i]):
+            if batch is not None:
+                out = self._predict(form, shape, batch, i, tier)
+                (out[0] if form == "raw" else out).cpu()
+                return
+            key = self.shape_set.buffer_key(shape)
+            buf = self._pool.acquire(key, self._buffer_factory(shape))
+            cb = self.shape_set.pack([template], shape=shape, out=buf)
+            self._predict(form, shape, cb, i, tier).cpu()
+            self._pool.release(key, buf)
 
     def _buffer_factory(self, shape):
         return self.shape_set.buffer_factory(
@@ -283,18 +363,29 @@ class InferenceServer:
     def _make_graph(self, key, batch) -> StepGraph:
         # over the step and the state, not the server: a graph that held
         # the server would keep it, and every graph's pool, in a cycle
-        step, state = self.predict_step, self.state
+        i, tier, form, _ = key
+        step = self._steps[i]
+        state = self.param_store.get(i, tier)[0]
         return StepGraph(lambda b: step(state, b),
-                         batch, device=self.device,
-                         kind="predict_raw" if key[0] == "raw"
-                         else "predict", label=f"serve: predict graph {key}")
+                         batch, device=self.device_set.devices[i],
+                         kind="predict_raw" if form == "raw" else "predict",
+                         label=f"serve: predict graph {key}",
+                         replay_stream=self._streams[i])
 
-    def _predict(self, form: str, shape, batch):
-        """The predict step on a host ``batch`` of ``form`` ('full',
-        'compact', 'raw') at rung ``shape``: its graph's replay on CUDA
+    def _predict(self, form: str, shape, batch, entry: int = 0,
+                 tier: str = "f32"):
+        """The predict step of entry ``entry`` and ``tier`` on a host
+        ``batch`` of ``form`` ('full', 'compact', 'raw') at rung
+        ``shape``: its graph's replay on CUDA, on the caller's stream
         (outputs static: fetch them before the next flush), eagerly on
         the CPU."""
-        return self.graphs.run((form, shape), batch)
+        return self.graphs.run((entry, tier, form, shape), batch)
+
+    def _mesh_predict(self, tier, form, shape, staged):
+        """One sharded dispatch (parallel/executor.py) of (tier, form,
+        rung) over every entry's staged slice -> outputs [N, G, ...]."""
+        return self.mesh_exec.shard_predict(
+            lambda i, b: self._predict(form, shape, b, i, tier))(staged)
 
     def start(self) -> "InferenceServer":
         if self._worker is None or not self._worker.is_alive():
@@ -325,10 +416,9 @@ class InferenceServer:
 
     def _on_stage(self, version: str) -> None:  # noqa: ARG002 — the watcher's hook
         """A reload was staged (the watcher's thread): it goes live under
-        the dispatch lock, which the worker holds across each flush's
-        replay and fetch, so between two flushes and on the stream the
-        replays use; the cache's rows of the old version go."""
-        with self._dispatch_lock:
+        every entry's dispatch lock, so between flushes on every entry;
+        the cache's rows of the old version go."""
+        with self._locked():
             old = self.param_store.version
             new = self.param_store.apply_pending()
             if new is None:
@@ -507,7 +597,7 @@ class InferenceServer:
             self._count(f"reject_{e.reason}")
             raise
         is_raw_wire = isinstance(graph, RawStructure)
-        fp = self._cache_key(graph, is_raw_wire, form, fingerprint)
+        fp = self._cache_key(graph, is_raw_wire, form, fingerprint, tier)
         if fp is not None:
             hit = self.cache.get(fp)
             if hit is not None:
@@ -516,7 +606,7 @@ class InferenceServer:
                 # flight across a swap writes its rows after the clear
                 if version == self.param_store.version:
                     return self._answer_hit(row, version, tid, queued, now,
-                                            form, kl)
+                                            form, kl, tier)
         timeout = (timeout_ms / 1000.0 if timeout_ms is not None
                    else self.default_timeout)
         req = Request(graph=graph, enqueued=now,
@@ -561,11 +651,13 @@ class InferenceServer:
         return req.future
 
     def _cache_key(self, graph, is_raw_wire: bool, form: str,
-                   fingerprint: str | None) -> str | None:
+                   fingerprint: str | None, tier: str = "f32") -> str | None:
         """The request's cache key, or None without a cache. A raw-wire
         request's ``raw:`` key becomes ``fs:`` when the host featurizes
         it: the two programs agree only to f32 round-off, and a cached
-        row is determined by (parameters, structure, program)."""
+        row is determined by (parameters, structure, program). A tier
+        other than f32 prefixes the key (``<tier>:``), so an f32 row never
+        answers an int8 request, nor the reverse."""
         if self.cache is None:
             return None
         fp = None
@@ -580,16 +672,16 @@ class InferenceServer:
                   else structure_fingerprint(graph))
         if is_raw_wire and form != "raw":
             fp = "fs:" + fp[len("raw:"):]
-        return fp
+        return fp if tier == "f32" else f"{tier}:{fp}"
 
     def _answer_hit(self, row, version, tid, queued, t0, form,
-                    kl) -> RequestFuture:
+                    kl, tier) -> RequestFuture:
         self._count("cache_hits")
         fut = RequestFuture()
         latency_ms = (time.monotonic() - t0) * 1e3
         fut.set_result(ServeResult(
             prediction=row, param_version=version, latency_ms=latency_ms,
-            cached=True, device_id=-1, trace_id=tid,
+            cached=True, precision=tier, device_id=-1, trace_id=tid,
             stamps={"queued": queued, "replied": time.perf_counter()},
             wire="raw" if form == "raw" else "featurized", klass=kl))
         self._record_latency(latency_ms)
@@ -648,6 +740,17 @@ class InferenceServer:
     # ---- the flush stream, the pack stage and the worker ----
 
     def _serve_loop(self) -> None:
+        if self.mesh_exec is not None:
+            return self._serve_loop_mesh()
+        if len(self.device_set) > 1:
+            return self._serve_loop_multidev()
+        for item in self._packed_stream():
+            self._run_flush(*item)
+
+    def _packed_stream(self):
+        """(flush, batch, pooled buffer, error) in flush order, through
+        the packer threads or in line; the worker's wait on the pack stage
+        is timed here."""
         if self._pack_workers > 0:
             stream = iter(parallel_pack(
                 self._flushes(), self._pack_one, workers=self._pack_workers,
@@ -668,7 +771,50 @@ class InferenceServer:
             # the wait for the next flush, less packing done in line
             self._timing["wait_s"] += (time.perf_counter() - t0
                                        - (self._timing["pack_s"] - packed0))
-            self._run_flush(*item)
+            yield item
+
+    def _serve_loop_multidev(self) -> None:
+        """The threads engine: the worker routes each packed flush to the
+        entry with the fewest flushes in flight (``DeviceSet.pick``) over
+        that entry's bounded queue; the entry's dispatch thread replays on
+        the entry's stream and fetches before it takes its next flush, so
+        a pooled buffer returns to the pool only after the entry that read
+        it is done with it. Answers are in order per entry."""
+        n = len(self.device_set)
+        qs = [queue.Queue(maxsize=self.device_set.window) for _ in range(n)]
+
+        def entry_worker(i: int) -> None:
+            with on_stream(self._streams[i]):
+                while True:
+                    item = qs[i].get()
+                    if item is None:
+                        return
+                    self._run_flush(*item, entry=i, routed=True)
+
+        workers = [threading.Thread(target=entry_worker, args=(i,),
+                                    daemon=True,
+                                    name=f"cgnn-torch-serve-dispatch-{i}")
+                   for i in range(n)]
+        for t in workers:
+            t.start()
+        try:
+            for item in self._packed_stream():
+                i = self.device_set.pick()
+                # counted before the put, so pick() sees routed load
+                self.device_set.note_enqueue(i)
+                qs[i].put(item)
+        finally:
+            for q in qs:
+                q.put(None)
+            for t in workers:
+                t.join()
+
+    def _serve_loop_mesh(self) -> None:
+        """The mesh engine: each packed flush (already split over the
+        entries, ``_pack_flush``) is ONE sharded dispatch from this thread
+        (``_run_flush_mesh``); answers leave in flush order."""
+        for item in self._packed_stream():
+            self._run_flush_mesh(*item)
 
     def _flushes(self):
         """The flush stream: expiries are answered here, before the pack
@@ -709,31 +855,43 @@ class InferenceServer:
         flush's RawBatch; else its deferred structures featurized, then
         the compact form into a pooled staging buffer when the set has a
         compact spec and every graph of the flush is compactable, else
-        the full form."""
+        the full form. Under the mesh engine the batch is the split one:
+        ``(stack of per-shard batches at one rung, real graphs a shard,
+        rung)``, packed fresh (the stack copies every byte at once)."""
+        if flush.form != "raw":
+            self._featurize_pending(flush)
+            if not flush.requests:
+                raise ValueError("every request in the flush failed "
+                                 "featurization")
+        graphs = [r.graph for r in flush.requests]
+        ss = self.shape_set
         if flush.form == "raw":
             self._count("pack_raw")
-            return self.shape_set.pack_raw([r.graph for r in flush.requests],
-                                           shape=flush.shape), None
-        self._featurize_pending(flush)
-        if not flush.requests:
-            raise ValueError("every request in the flush failed "
-                             "featurization")
-        graphs = [r.graph for r in flush.requests]
-        if self.shape_set.compact is None:
-            return self.shape_set.pack_full(graphs, shape=flush.shape), None
-        if not all(self.shape_set.compact.compactable_many(graphs)):
+            pack = ss.pack_raw
+        elif ss.compact is None:
+            pack = ss.pack_full
+        elif not all(ss.compact.compactable_many(graphs)):
             self._count("pack_full")
-            return self.shape_set.pack_full(graphs, shape=flush.shape), None
-        key = self.shape_set.buffer_key(flush.shape)
-        buf = (key, self._pool.acquire(key,
-                                       self._buffer_factory(flush.shape)))
-        try:
-            batch = self.shape_set.pack(graphs, shape=flush.shape, out=buf[1])
-        except Exception:
-            self._pool.release(*buf)
-            raise
-        self._count("pack_compact")
-        return batch, buf
+            pack = ss.pack_full
+        else:
+            self._count("pack_compact")
+            pack = ss.pack
+            if self.mesh_exec is None:
+                key = ss.buffer_key(flush.shape)
+                buf = (key, self._pool.acquire(
+                    key, self._buffer_factory(flush.shape)))
+                try:
+                    return ss.pack(graphs, shape=flush.shape,
+                                   out=buf[1]), buf
+                except Exception:
+                    self._pool.release(*buf)
+                    raise
+        if self.mesh_exec is not None:
+            groups, shape, counts = self.mesh_exec.plan_flush(graphs, ss)
+            stacked = self.mesh_exec.stack([pack(g, shape=shape)
+                                            for g in groups])
+            return (stacked, counts, shape), None
+        return pack(graphs, shape=flush.shape), None
 
     def _featurize_pending(self, flush: Flush) -> None:
         """Featurize the flush's deferred wire-form structures (on a
@@ -756,63 +914,140 @@ class InferenceServer:
             keep.append(r)
         flush.requests = keep
 
-    def _run_flush(self, flush: Flush, batch, buf, err) -> None:
-        """Dispatch one packed flush (the worker): the replay and its
-        fetch under the dispatch lock; a failed flush fails alone. A
-        pooled buffer goes back after the fetch, or after a stream
-        synchronize when the flush failed."""
+    def _fail_flush(self, flush: Flush, e: Exception, where: str) -> None:
+        self._log(f"serve: batch {flush.flush_id} failed ({where}): {e!r}")
+        self._count("batch_failures")
+        for r in flush.requests:
+            if not r.future.done():
+                r.future.set_error(e)
+
+    def _run_flush(self, flush: Flush, batch, buf, err, *, entry: int = 0,
+                   routed: bool = False) -> None:
+        """Dispatch one packed flush on ``entry`` (the worker, or the
+        entry's dispatch thread): the replay and its fetch under the
+        entry's dispatch lock; a failed flush fails alone. The entry's
+        in-flight count and busy time move once a flush (``routed``: the
+        router counted the enqueue). A pooled buffer goes back after the
+        fetch, or after a stream synchronize when the flush failed."""
+        if not routed:
+            self.device_set.note_enqueue(entry)
         t0 = time.perf_counter()
+        ok = False
         try:
             if err is not None:
                 raise err
-            self._dispatch_flush(flush, batch, buf)
+            self._dispatch_flush(flush, batch, buf, entry)
+            ok = True
         except Exception as e:  # noqa: BLE001 — fail the flush, not the server
-            self._log(f"serve: batch {flush.flush_id} failed: {e!r}")
-            self._count("batch_failures")
-            for r in flush.requests:
-                if not r.future.done():
-                    r.future.set_error(e)
-            if buf is not None and self.device.type == "cuda":
+            self._fail_flush(flush, e, f"entry {entry}")
+            dev = self.device_set.devices[entry]
+            if buf is not None and dev.type == "cuda":
                 # a failed flush may have left the copy that reads the
                 # buffer running
-                torch.cuda.current_stream(self.device).synchronize()
+                torch.cuda.current_stream(dev).synchronize()
         finally:
             if buf is not None:
                 self._pool.release(*buf)
-            self._timing["dispatch_s"] += time.perf_counter() - t0
+            busy = time.perf_counter() - t0
+            self.device_set.note_complete(entry, busy, ok=ok)
+            with self._lock:
+                self._timing["dispatch_s"] += busy
 
-    def _dispatch_flush(self, flush: Flush, batch, buf) -> None:
-        reqs = flush.requests
+    def _dispatch_flush(self, flush: Flush, batch, buf, entry: int) -> None:
         raw = flush.form == "raw"
-        overflow = None
-        with self._dispatch_lock:
+        tier = flush.precision
+        with self._locked([entry]):
             faultinject.dispatch_point()
             version = self.param_store.version
             flush.stamps["dispatched"] = time.perf_counter()
+            form = "raw" if raw else "full" if buf is None else "compact"
+            out = self._predict(form, flush.shape, batch, entry, tier)
             if raw:
-                preds, overflow, _ = self._predict("raw", flush.shape, batch)
-                out = preds.cpu().numpy()
-                overflow = overflow.cpu().numpy()
+                out = tuple(o.cpu().numpy() for o in out)
             else:
-                out = self._predict("full" if buf is None else "compact",
-                                    flush.shape, batch).cpu().numpy()
+                out = out.cpu().numpy()
             flush.stamps["fetched"] = time.perf_counter()
+        self._answer(flush, version, out, entry,
+                     len(flush.requests) / flush.shape.graph_cap)
+
+    def _run_flush_mesh(self, flush: Flush, packed, buf, err) -> None:
+        """The mesh engine's ``_run_flush``: one dispatch serves every
+        shard, so the accounting covers each shard the split populated;
+        a failed flush fails alone."""
+        counts = packed[1] if packed is not None else []
+        shards = [i for i, c in enumerate(counts) if c > 0]
+        for i in shards:
+            self.device_set.note_enqueue(i)
+        t0 = time.perf_counter()
+        ok = False
+        try:
+            if err is not None:
+                raise err
+            self._dispatch_flush_mesh(flush, packed)
+            ok = True
+        except Exception as e:  # noqa: BLE001 — fail the flush, not the server
+            self._fail_flush(flush, e, "mesh")
+        finally:
+            # the shards ran at once under one dispatch: each was busy for
+            # the flush's wall time
+            busy = time.perf_counter() - t0
+            for i in shards:
+                self.device_set.note_complete(i, busy, ok=ok)
+            self._timing["dispatch_s"] += busy
+
+    def _dispatch_flush_mesh(self, flush: Flush, packed) -> None:
+        stacked, counts, shape = packed
+        n = len(self.mesh_exec)
+        with self._locked():
+            faultinject.dispatch_point()
+            version = self.param_store.version
+            flush.stamps["dispatched"] = time.perf_counter()
+            form = ("raw" if flush.form == "raw" else "full"
+                    if isinstance(stacked, GraphBatch) else "compact")
+            out = self._mesh_predict(flush.precision, form, shape,
+                                     self.mesh_exec.stage(stacked))
+            if form == "raw":
+                out = tuple(o.cpu().numpy() for o in out)
+            else:
+                out = out.cpu().numpy()
+            flush.stamps["fetched"] = time.perf_counter()
+        for i, c in enumerate(counts):
+            if c > 0:
+                self._count(f"batches_device{i}")
+        # request j sat at shard j % N, row j // N (split_round_robin)
+        self._answer(flush, version, out, None,
+                     len(flush.requests) / (n * shape.graph_cap),
+                     rows=[(j % n, j // n)
+                           for j in range(len(flush.requests))])
+
+    def _answer(self, flush: Flush, version: str, out, entry, occupancy,
+                rows=None) -> None:
+        """Each request of a fetched flush gets its row: ``out`` is the
+        host [G, T] (a raw flush's (preds, overflow, n_edges)) of one
+        entry, or with ``rows`` the mesh's [N, G, ...] indexed by each
+        request's (shard, row), the shard its ``device_id``."""
+        reqs = flush.requests
+        raw = flush.form == "raw"
+        tier = flush.precision
+        preds, overflow = (out[0], out[1]) if raw else (out, None)
         now = time.monotonic()
-        occupancy = len(reqs) / flush.shape.graph_cap
         wire = "raw" if raw else "featurized"
-        for i, r in enumerate(reqs):
-            if overflow is not None and overflow[i]:
+        for j, r in enumerate(reqs):
+            at, dev_id = (j, entry) if rows is None else (rows[j],
+                                                          rows[j][0])
+            if overflow is not None and overflow[at]:
                 # the device's cap-overflow flag: this row came from a
                 # truncated graph and is never served
                 self._fallback_overflow(r)
                 continue
-            row = out[i].copy()
+            row = preds[at].copy()
             latency_ms = (now - r.enqueued) * 1e3
             if self.cache is not None and r.fingerprint is not None:
                 self.cache.put(r.fingerprint, (row, version))
             r.future.set_result(ServeResult(
                 prediction=row, param_version=version, latency_ms=latency_ms,
-                batch_occupancy=occupancy, trace_id=r.trace_id,
+                precision=tier, batch_occupancy=occupancy,
+                device_id=dev_id, trace_id=r.trace_id,
                 flush_id=flush.flush_id,
                 stamps={**r.stamps, **flush.stamps,
                         "replied": time.perf_counter()},
@@ -824,7 +1059,10 @@ class InferenceServer:
                 self._count("responses_backfilled")
             if raw:
                 self._count("responses_raw")
+            if tier != "f32":
+                self._count(f"responses_{tier}")
         self._count("batches")
+        self._count(f"batches_{tier}" + ("_raw" if raw else ""))
         with self._lock:
             self._occupancies.append(occupancy)
             del self._occupancies[:-4096]
@@ -883,14 +1121,22 @@ class InferenceServer:
                       graph_replays=self.graphs.replays(),
                       captures_after_warm=self.graphs.captures_after_warm)
         captured: dict[str, int] = {}
-        for (form, _), g in list(self.graphs.graphs.items()):
-            captured[form] = captured.get(form, 0) + (g.graph is not None)
+        by_tier: dict[str, dict[str, int]] = {}
+        for (_, tier, form, _), g in list(self.graphs.graphs.items()):
+            got = g.graph is not None
+            captured[form] = captured.get(form, 0) + got
+            tiers = by_tier.setdefault(tier, {})
+            tiers[form] = tiers.get(form, 0) + got
         out = {
             "counts": counts,
             "captures_by_form": captured,
+            "captures_by_tier": by_tier,
             "queue_depth": self.batcher.depth,
             "param_version": self.param_store.version,
-            "engine": "single",
+            # what drives the entries: 'single', 'mesh' or 'threads'
+            "engine": self.engine,
+            "devices": self.device_set.stats(),
+            "device_inflight": self.device_set.inflight_depths(),
             "device": str(self.device),
             "draining": draining,
             "warmed": self.warmed,
@@ -924,6 +1170,8 @@ class InferenceServer:
                 "packed_flushes": self._pipe.jobs,
             },
         }
+        if self.mesh_exec is not None:
+            out["staged_bytes"] = list(self.mesh_exec.staged_bytes)
         if self.cache is not None:
             cstats = self.cache.stats()
             with self._sf_lock:
@@ -1015,6 +1263,9 @@ def load_server(
     cache_size: int = 1024,
     pack_workers: int | None = None,
     device="cuda",
+    devices="auto",
+    engine: str = "auto",
+    precision="f32",
     log_fn: Callable = print,
     wire: str = "auto",
     raw_precheck: bool = True,
@@ -1050,8 +1301,17 @@ def load_server(
     full.
 
     ``pack_workers``: packer threads beside the worker; None follows the
-    JAX package's rule, 1 on a card (packing overlaps the replay) and 0 on
-    the CPU (a packer would take the cores the step runs on).
+    JAX package's rule, 1 on a card (packing overlaps the replay) or over
+    more than one entry, else 0 (on the CPU a packer would take the cores
+    the step runs on).
+
+    ``devices``: 'auto' (every visible card on CUDA, the one CPU device on
+    the CPU), an int N (the first N cards; more than exist raises), or an
+    explicit list of devices, taken as given (``[cuda:0, cuda:0]``: two
+    entries on one card). ``engine``: 'auto' (mesh over more than one
+    entry), 'mesh' or 'threads' (serve/devices.py, parallel/executor.py).
+    ``precision``: the tiers to warm, 'f32,bf16,int8' or a sequence
+    (serve/quantize.py; f32 always).
 
     -> (server, dict of what callers reuse: manager (None for a weight
     file), meta, configs, template graph, the calibration sample).
@@ -1063,6 +1323,10 @@ def load_server(
         raise ValueError(
             f"compact must be 'auto', 'on' or 'off', got {compact!r}")
     dev = resolve_device(device)
+    device_list = (list(devices) if isinstance(devices, (list, tuple))
+                   else resolve_devices(devices, dev))
+    precisions = (parse_precisions(precision) if isinstance(precision, str)
+                  else parse_precisions(",".join(precision)))
     _refuse_force(path, meta_json, tag)
     mgr = None
     if meta_json is None:
@@ -1113,7 +1377,7 @@ def load_server(
         raw=raw_spec, edge_dtype=model_cfg.torch_dtype,
     )
     if pack_workers is None:
-        pack_workers = 1 if dev.type == "cuda" else 0
+        pack_workers = 1 if dev.type == "cuda" or len(device_list) > 1 else 0
     template = calibration[0]
     server = InferenceServer(
         state, shape_set, version=version, max_queue=max_queue,
@@ -1121,8 +1385,9 @@ def load_server(
         backfill=backfill, wfq_weights=wfq_weights,
         default_timeout_ms=default_timeout_ms, cache_size=cache_size,
         pack_workers=pack_workers,
-        featurizer=structure_featurizer(data_cfg), device=dev,
-        log_fn=log_fn, raw_precheck=raw_precheck,
+        featurizer=structure_featurizer(data_cfg), devices=device_list,
+        engine=engine, precisions=precisions, log_fn=log_fn,
+        raw_precheck=raw_precheck,
     )
     if mgr is not None and watch:
         server.attach_watcher(mgr, lambda: inference_state(meta, dev),

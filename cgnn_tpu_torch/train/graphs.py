@@ -91,11 +91,21 @@ WARMUP_RUNS = {"train": 2, "eval": 1, "predict": 1, "predict_raw": 1,
                "train_apply": 1}
 
 
+# serving's threads engine runs steps on one thread an entry
+_COUNTS_LOCK = threading.Lock()
+
+
 def reset_counts() -> None:
-    COUNTS.clear()
-    for kind in KINDS:
-        for what in ("runs", "replays", "captures", "warm_runs"):
-            COUNTS[f"{kind}_{what}"] = 0
+    with _COUNTS_LOCK:
+        COUNTS.clear()
+        for kind in KINDS:
+            for what in ("runs", "replays", "captures", "warm_runs"):
+                COUNTS[f"{kind}_{what}"] = 0
+
+
+def _bump(key: str) -> None:
+    with _COUNTS_LOCK:
+        COUNTS[key] += 1
 
 
 reset_counts()
@@ -108,19 +118,26 @@ class GraphCaptureError(RuntimeError):
 _capture_streams = threading.local()
 
 
-def capture_stream(device) -> torch.cuda.Stream:
+def capture_stream(device, replay_stream=None) -> torch.cuda.Stream:
     """This thread's side stream on ``device`` for warm-up runs and
-    captures, made once. cuBLAS keeps a workspace (32 MiB and 1 MiB on an
-    H100) for every stream it runs on, for the life of the process, so a
-    new stream a graph would leave ~33 MiB behind each capture. It comes
-    from the normal-priority pool, which the prefetch loader's side
-    streams do not (data/loader.py ``staging_stream``)."""
+    captures of graphs that replay on ``replay_stream`` (None: the
+    default stream), made once. cuBLAS keeps a workspace (32 MiB and 1
+    MiB on an H100) for every stream it runs on, for the life of the
+    process, so a new stream a graph would leave ~33 MiB behind each
+    capture. A graph bakes its capture stream's workspace in, so graphs
+    that replay at once on different streams (two entries of a device
+    set) must capture on different side streams: sharing one workspace
+    between concurrent replays races on it and has hung the card. It
+    comes from the normal-priority pool, which the prefetch loader's
+    side streams and the entries' streams do not (data/loader.py
+    ``staging_stream``, serve/devices.py ``entry_streams``)."""
     streams = getattr(_capture_streams, "by_device", None)
     if streams is None:
         streams = _capture_streams.by_device = {}
-    stream = streams.get(device)
+    key = (device, replay_stream)
+    stream = streams.get(key)
     if stream is None:
-        stream = streams[device] = torch.cuda.Stream(device)
+        stream = streams[key] = torch.cuda.Stream(device)
     return stream
 
 
@@ -214,17 +231,21 @@ class StepGraph:
     ``on_replay`` runs on the host after each replay; ``eager_runs``
     eager steps come before the capture. ``capture=False`` steps eagerly
     on any device. ``generators``: those the body draws from, registered
-    with the graph (module docstring)."""
+    with the graph (module docstring). ``replay_stream``: the stream the
+    graph replays on (None: the default), which picks its capture
+    stream (``capture_stream``)."""
 
     def __init__(self, fn: Callable, example=None, *, device,
                  kind: str = "predict", label: str = "step",
                  guard: Callable | None = None,
                  on_replay: Callable | None = None, capture: bool = True,
-                 eager_runs: int = 0, generators: Sequence = ()):
+                 eager_runs: int = 0, generators: Sequence = (),
+                 replay_stream=None):
         if kind not in KINDS:
             raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
         self.fn = fn
         self.generators = tuple(generators)
+        self.replay_stream = replay_stream
         self.device = torch.device(device)
         self.kind = kind
         self.label = label
@@ -254,12 +275,12 @@ class StepGraph:
         self.static = None if example is None else _static_copy(example,
                                                                 dev)
         restore = self._guard() if self._guard is not None else None
-        self._side = capture_stream(dev)
+        self._side = capture_stream(dev, self.replay_stream)
         self._side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self._side):
             for _ in range(WARMUP_RUNS[kind]):
                 self._body()
-                COUNTS[f"{kind}_warm_runs"] += 1
+                _bump(f"{kind}_warm_runs")
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             # before capture_begin: each replay then reads the generator's
@@ -291,14 +312,14 @@ class StepGraph:
         if restore is not None:
             restore()
         self.graph = graph
-        COUNTS[f"{kind}_captures"] += 1
+        _bump(f"{kind}_captures")
 
     def run(self, batch=None):
         """One step: on CUDA, ``batch``'s tensors into the static inputs
         (when the graph has inputs) and a replay -> the static outputs
         (an eager step before the capture -> its own outputs); on the
         CPU the body on ``batch``."""
-        COUNTS[f"{self.kind}_runs"] += 1
+        _bump(f"{self.kind}_runs")
         if self._eager_left is None:
             return self.fn(batch) if batch is not None else self.fn()
         if self._eager_left > 0:
@@ -319,7 +340,7 @@ class StepGraph:
                 t.copy_(given[k], non_blocking=True)
         self.graph.replay()
         self.replays += 1
-        COUNTS[f"{self.kind}_replays"] += 1
+        _bump(f"{self.kind}_replays")
         if self.on_replay is not None:
             self.on_replay()
         return self.out

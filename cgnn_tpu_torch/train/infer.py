@@ -38,9 +38,22 @@ The buckets path packs snug (fill-to-capacity) batches, or with
 (``data.invariants.enable``) every packer checks the batch it packs, on
 its own thread, before the batch is staged.
 
-Not ported yet, and refused with a ``ValueError`` naming the ROADMAP
-item (Queue 1) when asked for: multi-device dispatch (``devices``,
-``engine``: items 9 and 11).
+Both run over a device set (``devices``, serve/devices.py; None: the
+state's own device) with the JAX package's two engines (``engine``):
+
+- ``'mesh'`` (``'auto'`` with more than one entry; parallel/executor.py):
+  consecutive same-shape batches are grouped N at a time (a short group,
+  at a shape change or the end, is padded with its last batch, whose rows
+  are never read), stacked, each entry staged its own slice, and one
+  sharded dispatch runs every entry's graph; outputs come back restacked
+  on the caller's stream, into one window fetched there;
+- ``'threads'``: batch k runs on entry k % N, on that entry's stream,
+  against its replica; each entry has its own ``_WINDOW`` fence, its own
+  buffer pool and its own ``_Fence``, so a pooled buffer goes back only
+  once the entry that read it has passed its event.
+
+Every entry holds its own state copy, graphs and stream; the answers are
+bit-equal to one entry's on the same packed batches.
 """
 
 from __future__ import annotations
@@ -67,22 +80,17 @@ from cgnn_tpu_torch.data.graph import (
     plan_batches,
 )
 from cgnn_tpu_torch.data.pipeline import BufferPool, PipelineStats, parallel_pack
+from cgnn_tpu_torch.serve.devices import (
+    on_stream,
+    replicate_state,
+    state_device,
+)
 from cgnn_tpu_torch.train.graphs import GraphCache, StepGraph, batch_tensors
 from cgnn_tpu_torch.train.step import make_predict_step, model_task
 
 # batches in flight before the host fetches their outputs (the JAX
 # package's dispatch window): one fetch per window, never one per batch
 _WINDOW = 16
-
-
-def _refuse_unported(devices=None, engine: str = "auto") -> None:
-    if devices is not None or engine != "auto":
-        raise ValueError("multi-device dispatch (devices, engine) is not "
-                         "ported yet (ROADMAP Queue 1, items 9 and 11)")
-
-
-def _state_device(state) -> torch.device:
-    return next(state.model.parameters()).device
 
 
 class _Fence:
@@ -117,10 +125,12 @@ class _Fence:
 
 class _Window:
     """Outputs kept on the device, fetched to the host ``_WINDOW`` batches
-    at a time, each row written back to its input position."""
+    at a time, each row written back to its input position (in ``sink``'s
+    arrays: the windows of a set's entries share one)."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, sink: "_Window | None" = None):
         self.n = n
+        self.sink = self if sink is None else sink
         self.preds: np.ndarray | None = None
         self.flags: list[int] = []  # input positions flagged for overflow
         self._pending: list = []  # (span, preds [G, T], overflow [G] | None)
@@ -137,28 +147,86 @@ class _Window:
         ovf = None
         if self._pending[0][2] is not None:
             ovf = torch.cat([f for _, _, f in self._pending]).cpu().numpy()
-        if self.preds is None:
-            self.preds = np.zeros((self.n, host.shape[-1]), np.float32)
+        sink = self.sink
+        if sink.preds is None:
+            sink.preds = np.zeros((self.n, host.shape[-1]), np.float32)
         off = 0
         for span, out, _ in self._pending:
-            self.preds[span] = host[off: off + len(span)]
+            sink.preds[span] = host[off: off + len(span)]
             if ovf is not None:
-                self.flags += [int(span[k]) for k in
+                sink.flags += [int(span[k]) for k in
                                np.nonzero(ovf[off: off + len(span)])[0]]
             off += out.shape[0]
         self._pending = []
 
 
-def _predict_graphs(state, step, dev) -> GraphCache:
-    """One predict graph per batch shape: a shape's first two batches
-    step eagerly and its third captures, so a shape met once or twice
-    costs no capture."""
+class _Entries:
+    """A forward path's device set (module docstring), opened by
+    ``parallel.executor.open_entries`` as the server's is: the engine
+    that runs, each entry's stream and step, under the mesh engine its
+    ``MeshExecutor``; here also each entry's state copy and predict
+    graphs. ``make_step(device)`` builds the predict step for one
+    device."""
+
+    def __init__(self, state, devices, engine: str, make_step: Callable):
+        from cgnn_tpu_torch.parallel.executor import open_entries
+
+        ents = open_entries(devices or [state_device(state)], engine,
+                            make_step)
+        self.devices, self.engine = ents.devices, ents.engine
+        self.mesh, self.streams = ents.mesh, ents.streams
+        self.states = replicate_state(state, self.devices)
+        self.caches = [_predict_graphs(*e) for e in zip(
+            self.states, ents.steps, self.devices, self.streams)]
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def run(self, i: int, batch):
+        """Entry ``i``'s predict graph on ``batch`` (on the caller's
+        stream: enter the entry's first)."""
+        return _run(self.caches[i], batch)
+
+    def sharded(self, batches: list):
+        """One mesh dispatch of up to N same-shape batches (padded with
+        the last) -> outputs [N, G, ...], restacked on the caller's
+        stream."""
+        mesh = self.mesh
+        batches = batches + [batches[-1]] * (len(mesh) - len(batches))
+        return mesh.shard_predict(self.run)(mesh.stage(mesh.stack(batches)))
+
+    def flush(self, windows: list) -> None:
+        """Fetch every window's rest. A threads window flushes on its
+        entry's stream, which made its outputs; the mesh engine restacks
+        on the caller's stream, so its window flushes there (entry 0's
+        stream never waits for the restack)."""
+        streams = ([None] * len(windows) if self.mesh is not None
+                   else self.streams)
+        for w, stream in zip(windows, streams):
+            with on_stream(stream):
+                w.flush()
+
+    def stats(self) -> dict:
+        replays = [c.replays() for c in self.caches]
+        out = {"engine": self.engine, "entries": len(self),
+               "graph_captures": sum(c.captures() for c in self.caches),
+               "graph_replays": sum(replays), "entry_replays": replays}
+        if self.mesh is not None:
+            out["staged_bytes"] = list(self.mesh.staged_bytes)
+        return out
+
+
+def _predict_graphs(state, step, dev, stream=None) -> GraphCache:
+    """One predict graph per batch shape, replayed on ``stream`` (the
+    entry's): a shape's first two batches step eagerly and its third
+    captures, so a shape met once or twice costs no capture."""
 
     def make(key, batch):
         return StepGraph(lambda b: step(state, b), batch,
                          device=dev, kind="predict_raw"
                          if key[0] == "RawBatch" else "predict",
-                         label=f"predict graph {key}", eager_runs=2)
+                         label=f"predict graph {key}", eager_runs=2,
+                         replay_stream=stream)
 
     return GraphCache(make, label="predict graph")
 
@@ -233,94 +301,134 @@ def run_fast_inference(
     ``compact`` (a ``data.compact.CompactSpec``; a compact ``shape_set``
     implies it) stages the compact form into pooled buffers (module
     docstring). ``pack_workers > 0`` packs on that many threads; 0 packs
-    on this thread, with the same outputs. ``stats``, when given, is
-    filled with the batches run, the packers' counters (``wait_s``,
-    ``pack_s``, ``jobs``) and the pool's (``buffers_allocated``,
-    ``buffers_reused``).
+    on this thread, with the same outputs. ``devices`` (a list of
+    devices, repeats included; None: the state's device) and ``engine``
+    ('auto', 'mesh', 'threads'): the module docstring. ``stats``, when
+    given, is filled with the batches packed, the dispatches (a mesh
+    group is one), the packers' counters (``wait_s``, ``pack_s``,
+    ``jobs``), the pools' (``buffers_allocated``, ``buffers_reused``),
+    the engine, entries and graph counters (``entry_replays``: each
+    entry's graph replays), and under the mesh engine
+    each entry's ``staged_bytes``.
     """
-    _refuse_unported(devices, engine)
     if not len(graphs):
         raise ValueError("no graphs to predict")
     if shape_set is not None and shape_set.compact is not None:
         if compact is not None and compact is not shape_set.compact:
             raise ValueError("shape_set already carries a compact spec")
         compact = shape_set.compact
-    dev = _state_device(state)
     state.model.eval()
     # the edge features' storage type is the model's (a shape set and a
     # compact spec carry the same one)
     _, edge_dtype = model_task(state.model)
-    step = make_predict_step(
-        expander=None if compact is None else make_expander(compact, dev))
-    pin = dev.type == "cuda"
-    pool = BufferPool() if compact is not None else None
-    fence = None if pool is None else _Fence(pool, dev)
+    ents = _Entries(state, devices, engine, lambda d: make_predict_step(
+        expander=None if compact is None else make_expander(compact, d)))
+    n_ent = len(ents)
+    pin = any(d.type == "cuda" for d in ents.devices)
+    # the threads engine's pools, one an entry; the mesh engine stacks
+    # (copies) every batch at once and packs fresh
+    pools = fences = None
+    if compact is not None and ents.mesh is None:
+        pools = [BufferPool() for _ in range(n_ent)]
+        fences = [_Fence(p, d) for p, d in zip(pools, ents.devices)]
 
-    def acquire(key, factory):
-        return key, pool.acquire(key, factory)
+    def acquire(k, key, factory):
+        # batch k runs on entry k % N: its buffer comes from that pool
+        return None if pools is None else (
+            key, pools[k % n_ent].acquire(key, factory))
 
     n = len(graphs)
     t0 = time.perf_counter()
     if shape_set is not None:
         def pack_job(job):
-            span, sub, shape = job
+            k, (span, sub, shape) = job
             buf = None
-            if pool is not None:
-                buf = acquire(shape_set.buffer_key(shape),
+            if compact is not None:
+                buf = acquire(k, shape_set.buffer_key(shape),
                               shape_set.buffer_factory(shape, pin))
             batch = shape_set.pack(sub, shape=shape,
                                    out=None if buf is None else buf[1])
             return span, invariants.maybe_check(batch, shape_set.dense_m), \
                 buf
 
-        jobs = _shape_set_plan(graphs, shape_set)
+        jobs = enumerate(_shape_set_plan(graphs, shape_set))
     else:
         tdim = int(np.atleast_1d(graphs[0].target).shape[0])
 
         def pack_job(job):
-            span, sub, nc, ec, graph_cap = job
+            k, (span, sub, nc, ec, graph_cap) = job
             buf = None
             if compact is None:
                 batch = pack_graphs(sub, nc, ec, graph_cap, dense_m=dense_m,
                                     edge_dtype=edge_dtype)
             else:
-                buf = acquire(compact_buffer_key(nc, dense_m, graph_cap,
-                                                 tdim),
+                buf = acquire(k, compact_buffer_key(nc, dense_m, graph_cap,
+                                                    tdim),
                               lambda: alloc_compact_buffers(
                                   nc, dense_m, graph_cap, tdim, pin=pin))
                 batch = pack_compact(sub, nc, ec, graph_cap, compact,
                                      num_targets=tdim, dense_m=dense_m,
-                                     out=buf[1])
+                                     out=None if buf is None else buf[1])
             return span, invariants.maybe_check(batch, dense_m), buf
 
-        jobs = _bucket_jobs(graphs, batch_size, buckets, dense_m, snug)
+        jobs = enumerate(_bucket_jobs(graphs, batch_size, buckets, dense_m,
+                                      snug))
     pipe = PipelineStats()
     packed = (parallel_pack(jobs, pack_job, workers=pack_workers,
                             stats=pipe)
               if pack_workers > 0 else map(pack_job, jobs))
-    window = _Window(n)
-    cache = _predict_graphs(state, step, dev)
-    batches = 0
-    for span, batch, buf in packed:
-        batches += 1
-        out = _run(cache, batch)
-        if buf is not None:
-            fence.add(buf)
-        window.add(span, out)
-        if fence is not None:
-            fence.release_done()
-    window.flush()
-    if fence is not None:
+    windows = [_Window(n)]
+    windows += [_Window(n, windows[0]) for _ in range(1, n_ent)]
+    batches = dispatches = 0
+    if ents.mesh is not None:
+        group: list = []  # [(span, batch)] of one shape
+        group_key = None
+        for span, batch, _ in packed:
+            batches += 1
+            key = _shape_key(batch)
+            if group and (key != group_key or len(group) == n_ent):
+                dispatches += _mesh_group(ents, group, windows[0])
+            group_key = key
+            group.append((span, batch))
+        if group:
+            dispatches += _mesh_group(ents, group, windows[0])
+    else:
+        for k, (span, batch, buf) in enumerate(packed):
+            i = k % n_ent
+            batches += 1
+            dispatches += 1
+            with on_stream(ents.streams[i]):
+                out = ents.run(i, batch)
+                if buf is not None:
+                    fences[i].add(buf)
+                windows[i].add(span, out)
+                if fences is not None:
+                    fences[i].release_done()
+    ents.flush(windows)
+    for fence in fences or ():
         fence.release_done(wait=True)
     rate = n / (time.perf_counter() - t0)
     if stats is not None:
-        stats.update(batches=batches, wait_s=pipe.wait_s,
-                     pack_s=pipe.pack_s, jobs=pipe.jobs,
-                     buffers_allocated=0 if pool is None else pool.allocated,
-                     buffers_reused=0 if pool is None else pool.reused,
-                     graph_captures=cache.captures(),
-                     graph_replays=cache.replays())
-    return window.preds, rate
+        stats.update(batches=batches, dispatches=dispatches,
+                     wait_s=pipe.wait_s, pack_s=pipe.pack_s, jobs=pipe.jobs,
+                     buffers_allocated=sum(p.allocated for p in pools or ()),
+                     buffers_reused=sum(p.reused for p in pools or ()),
+                     **ents.stats())
+    return windows[0].preds, rate
+
+
+def _mesh_group(ents: _Entries, group: list, window: _Window) -> int:
+    """Dispatch a mesh group (``_Entries.sharded``), its real shards'
+    outputs into ``window``, and empty it -> 1 (the dispatch)."""
+    out = ents.sharded([b for _, b in group])
+    if isinstance(out, tuple):
+        for j, (span, _) in enumerate(group):
+            window.add(span, out[0][j], out[1][j])
+    else:
+        for j, (span, _) in enumerate(group):
+            window.add(span, out[j])
+    group.clear()
+    return 1
 
 
 def _bucket_jobs(graphs, batch_size, buckets, dense_m, snug=True):
@@ -346,6 +454,7 @@ def run_raw_inference(
     devices=None,
     engine: str = "auto",
     raw_fallback: Callable | None = None,
+    stats: dict | None = None,
 ) -> tuple[np.ndarray, float]:
     """Predict wire-form ``RawStructure`` items through the device
     neighbor search -> ([n, T] predictions in input order, end-to-end
@@ -356,11 +465,12 @@ def run_raw_inference(
     Batches fill the largest rung's graph slots in input order; the tail
     takes the smallest rung whose slots fit it. Structures the device
     flags for cap overflow are re-served through ``raw_fallback``
-    (RawStructure -> CrystalGraph) when given, else raise.
+    (RawStructure -> CrystalGraph) when given, else raise. ``devices``
+    and ``engine``: as ``run_fast_inference``; ``stats`` gets the batches,
+    dispatches and the device set's counters.
     """
     from cgnn_tpu_torch.data.rawbatch import RawStructure
 
-    _refuse_unported(devices=devices, engine=engine)
     if shape_set is None or shape_set.raw is None:
         raise ValueError("run_raw_inference needs a shape set with a raw "
                          "spec (plan_shape_set(raw=...))")
@@ -374,22 +484,41 @@ def run_raw_inference(
                 f"structure {it.cif_id!r} exceeds the raw rung caps: "
                 f"{shape_set.raw.oversize_detail(it)} — route it through "
                 f"the featurized path")
-    dev = _state_device(state)
     state.model.eval()
-    step = make_predict_step(raw_expander=shape_set.raw_expander(device=dev))
+    ents = _Entries(state, devices, engine, lambda d: make_predict_step(
+        raw_expander=shape_set.raw_expander(device=d)))
+    n_ent = len(ents)
     n = len(items)
     t0 = time.perf_counter()
     big = shape_set.largest
-    window = _Window(n)
-    cache = _predict_graphs(state, step, dev)
-    for start in range(0, n, big.graph_cap):
+    windows = [_Window(n)]
+    windows += [_Window(n, windows[0]) for _ in range(1, n_ent)]
+    group: list = []  # the mesh engine's [(span, batch)] of one rung
+    batches = dispatches = 0
+    for k, start in enumerate(range(0, n, big.graph_cap)):
         end = min(start + big.graph_cap, n)
         shape = next(s for s in shape_set.shapes
                      if s.graph_cap >= end - start)
         batch = shape_set.pack_raw(items[start:end], shape=shape)
-        preds, overflow, _ = _run(cache, batch)
-        window.add(np.arange(start, end), preds, overflow)
-    window.flush()
+        span = np.arange(start, end)
+        batches += 1
+        if ents.mesh is not None:
+            if group and (_shape_key(group[0][1]) != _shape_key(batch)
+                          or len(group) == n_ent):
+                dispatches += _mesh_group(ents, group, windows[0])
+            group.append((span, batch))
+            continue
+        i = k % n_ent
+        dispatches += 1
+        with on_stream(ents.streams[i]):
+            preds, overflow, _ = ents.run(i, batch)
+            windows[i].add(span, preds, overflow)
+    if group:
+        dispatches += _mesh_group(ents, group, windows[0])
+    ents.flush(windows)
+    window = windows[0]
+    if stats is not None:
+        stats.update(batches=batches, dispatches=dispatches, **ents.stats())
     preds = window.preds
     if window.flags:
         # the device's cap-overflow flag fired: never serve a truncated

@@ -404,6 +404,45 @@ into ``build/kernels``), then:
    ``dp_dense``), one process under the driver; one card measures no
    scaling.
 
+19. serve_devices_tiers (after serve_coo) — serving's device and
+   precision dimensions. Tiers: the flagship trained by the train phase
+   (dense, ``cgconv_impl='pallas'``), saved as a checkpoint directory,
+   served in process with ``precision='f32,bf16,int8'`` on the raw wire:
+   a burst of bf16 and int8 requests of the MP-like held-out split (path
+   ``tiers_serve``) and one of wire-form structures (``tiers_serve_raw``)
+   launch only the bf16 instances of kernels 1 (and kernel 8), exactly a
+   conv a flush; the train_coo phase's COO weights alike
+   (``tiers_serve_coo``, kernel 6's bf16 instance). Each tier's answers
+   within BF16_TOL of the largest |answer| of its plain path (the tier
+   over the unfused model; COO ``aggregation='xla'``), and each tier's MAE
+   on the held-out split at most 1.005 of f32's. Then ``python -m
+   cgnn_tpu_torch.serve --precision f32,bf16,int8`` over HTTP answers a
+   mixed-tier burst, each answer in its tier and within BF16_TOL of its
+   plain path, the MAE ratios again, an int8 request never answered by a
+   cached f32 row, nothing captured after warm-up. Devices on the one
+   card: ``predict --devices 2`` exits 2 with the no-clamp message;
+   ``engine='mesh'`` over one entry reads ``single``; ``stage`` hands
+   each entry of ``[cuda:0, cuda:0]`` its slice alone; bulk predict on
+   both wires over ``[cuda:0, cuda:0]`` under both engines (paths
+   ``devices_predict_{mesh,threads}``, ``devices_predict_raw_{mesh,
+   threads}``), at DEV_BATCHES batches or more a wire so that every
+   entry replays its captured graphs, bit-equal to one entry; in-process
+   servers over the same set (``devices_serve_{mesh,threads}``) answer
+   one request a flush bit-equal to a one-entry server, and a burst
+   from every entry (both dispatch under threads); a hot swap under
+   concurrent sharded dispatch leaves no client an answer of the old
+   version after it has seen the new one, every answer within SERVE_RTOL
+   of its version's weights.
+   Structures/s an engine and requests/s a tier, no limit (one card
+   measures no scaling).
+
+20. tiers_raw_late (last) — ROADMAP Queue 3, item 13's probe: the
+   ``tiers_serve_raw`` burst again on a fresh tiers server, late in the
+   process (``tiers_serve_raw_late``): answers within BF16_TOL of the
+   plain path, step and wrapper counts exact, every kernel of the path
+   launched on the card, and whether the trace's count is exact
+   recorded (``card_exact``), not held.
+
 Every phase prints its seconds (``phase <name>: <s> s``).
 
 Launches on a path. A replayed graph launches its kernels without their
@@ -420,8 +459,9 @@ are not traced.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 summary lines, and as the last line ``{"ok": true, "device": {...}}``. Any
-failed check exits non-zero before that line. Without CUDA it exits 2 and
-prints no result.
+failed check exits non-zero before that line; a run still going after
+``HANG_DUMP_S`` seconds dumps every thread's stack and exits 1. Without
+CUDA it exits 2 and prints no result.
 """
 
 import dataclasses
@@ -453,6 +493,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 L2_BYTES = 50 * 2**20  # H100 SXM L2: the timers rotate inputs past twice this
 SEED = 0
+HANG_DUMP_S = 1190  # past it the run dumps its threads' stacks and exits 1
 N_CLIENTS, N_GRAPHS, N_WIRE = 4, 224, 32
 M = 12  # the flagship's max_num_nbr: dense edge slots per node
 BATCH, EPOCHS = 256, 2
@@ -732,7 +773,7 @@ def coo_per_step(n_conv: int, bf16: bool = False) -> dict:
 
 
 def check_path(run, per_step: dict, logical: dict,
-               outside: dict | None = None) -> dict:
+               outside: dict | None = None, card_exact: bool = True) -> dict:
     """Hold a path's run (``PathRun``) to its steps. ``logical``: the
     steps of each kind the path takes (batches and flushes, counted by
     this script or the entry point's report), each of which must be one
@@ -741,7 +782,11 @@ def check_path(run, per_step: dict, logical: dict,
     through a step graph. Each kernel's launches on the card must equal
     its launches a step (``per_step``) times the steps run (runs plus
     warm-up runs), and its wrapper's count the same over the steps that
-    did not replay a graph. -> the run's record."""
+    did not replay a graph. With ``card_exact=False`` (ROADMAP Queue 3,
+    item 13's probe) the card's count is recorded (``card_exact``,
+    ``card_want``) instead: each kernel of the path must still launch on
+    the card, and the step and wrapper counts are held as always. -> the
+    run's record."""
     from cgnn_tpu_torch.train.graphs import KINDS, WARMUP_RUNS
 
     outside = outside or {}
@@ -762,13 +807,17 @@ def check_path(run, per_step: dict, logical: dict,
         for k, n in kernels.items():
             card[k] += n * ran
             made[k] += n * eager
-    check(run.launches == card and run.wrapper == made,
+    exact = run.launches == card
+    check((exact or not card_exact) and run.wrapper == made
+          and all(run.launches[k] > 0 for k, n in card.items() if n),
           f"{run.label}: launches on the card {run.launches} (want {card}), "
           f"by the wrappers {run.wrapper} (want {made}); steps {st}")
     rec = {"launches": run.launches, "wrapper_launches": run.wrapper,
            "replayed_launches": {k: v - run.wrapper[k]
                                  for k, v in run.launches.items() if v},
            "step_counts": {k: v for k, v in st.items() if v}}
+    if not card_exact:
+        rec.update(card_exact=exact, card_want=card)
     print(f"{run.label}: {json.dumps(rec, allow_nan=False)}: ok")
     return rec
 
@@ -1305,13 +1354,16 @@ def serve_phase(dev, calibration, work_dir):
     return summary, breakdown, raw_breakdown, counts
 
 
-def burst(server, requests, path=None, per_step=None, width=1):
+def burst(server, requests, path=None, per_step=None, width=1, tiers=None,
+          runs_a_flush=1, card_exact=True):
     """``requests`` from N_CLIENTS threads at once -> the answers, their
     wire forms and the run's flushes, requests/s and latency quantiles.
     With ``path``: the run is that path's (``PathRun``), every flush one
     replay of its predict graph (``check_path`` against the flushes:
     raw ones ``predict_raw`` steps, the rest ``predict`` steps), and its
-    record is under ``path``."""
+    record is under ``path``. ``tiers``: each request's precision tier;
+    ``runs_a_flush``: graph runs a flush (a mesh flush runs one a
+    shard); ``card_exact``: ``check_path``'s."""
     import contextlib
     import numpy as np
 
@@ -1320,7 +1372,8 @@ def burst(server, requests, path=None, per_step=None, width=1):
 
     def client(k):
         try:
-            futs = [(i, server.submit(requests[i]))
+            futs = [(i, server.submit(
+                requests[i], precision=None if tiers is None else tiers[i]))
                     for i in range(k, len(requests), N_CLIENTS)]
             for i, fut in futs:
                 results[i] = fut.result(timeout=120)
@@ -1359,9 +1412,12 @@ def burst(server, requests, path=None, per_step=None, width=1):
     print(f"serve burst: {rec}")
     if path:
         rec["path"] = check_path(run, per_step, {
-            "predict": rec["flushes"] - rec["raw_flushes"],
-            "predict_raw": rec["raw_flushes"]})
-    rec.update(preds=preds, wires=[r.wire for r in results])
+            "predict": runs_a_flush * (rec["flushes"] - rec["raw_flushes"]),
+            "predict_raw": runs_a_flush * rec["raw_flushes"]},
+            card_exact=card_exact)
+    rec.update(preds=preds, wires=[r.wire for r in results],
+               precisions=[r.precision for r in results],
+               device_ids=[r.device_id for r in results])
     return rec
 
 
@@ -5558,13 +5614,14 @@ def structure_body(rs, **extra) -> bytes:
         allow_nan=False).encode()
 
 
-def plain_answers(dev, ck, name, graphs, dtype=None):
+def plain_answers(dev, ck, name, graphs, dtype=None, tier=None):
     """The plain path (``cgconv_impl`` and ``fused_epilogue`` off;
     ``aggregation='xla'`` in the
     COO layout) under save ``name`` of checkpoint ``ck``, on the card, on
     ``graphs`` -> [n, T] (a classifier's [n, C]); ``dtype`` overrides the
     model's compute dtype (``'float32'``: the f32 model on the same
-    weights), whose edge dtype the batches stage."""
+    weights), whose edge dtype the batches stage; ``tier``: the serving
+    precision tier's model over it (serve/quantize.py)."""
     import dataclasses as dc
 
     from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
@@ -5585,6 +5642,10 @@ def plain_answers(dev, ck, name, graphs, dtype=None):
                     device=dev).eval(),
         Normalizer.identity(cfg.num_targets, device=dev))
     mgr.restore_for_inference(state, name)
+    if tier is not None:
+        from cgnn_tpu_torch.serve.quantize import TierSpec
+
+        state = TierSpec(tier).state_for(state)
     ss = plan_shape_set(graphs, BATCH, rungs=2, dense_m=cfg.dense_m or None,
                         edge_dtype=cfg.torch_dtype)
     return run_fast_inference(state, graphs, BATCH, shape_set=ss)[0]
@@ -6086,6 +6147,536 @@ def item14_burst(server, reqs) -> dict:
 # ---------------------------------------------------------------------------
 # heads and modes: bf16 compute, classification with dropout, multi-task
 # ---------------------------------------------------------------------------
+
+TIERS = ("f32", "bf16", "int8")
+MAE_GATE = 1.005  # a tier's held-out MAE over f32's (scripts/quant_parity.py)
+N_TIER_WIRE = 48  # wire-form MP-like structures of the tiers_serve_raw burst
+N_DEV_PREDICT = 1024  # MP-like structures of the device-set bulk predicts
+DEV_BATCHES = 16  # least batches a wire's bulk predict (8 an entry)
+N_SWAP_CLIENTS = 8  # client threads of the hot swap under sharded dispatch
+
+
+def weights_checkpoint(npz, meta_json, ck) -> str:
+    """A checkpoint directory holding a parameter file's weights and
+    normalizer (an inference-only save, as jax_checkpoint_to_torch.py
+    writes one) -> its save's name."""
+    import numpy as np
+
+    from cgnn_tpu_torch.convert import load_params
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    variables, meta = load_params(npz, meta_json)
+    norm = meta["normalizer"]
+    tree = {"step": np.asarray(0, np.int64), "params": variables["params"],
+            "batch_stats": variables.get("batch_stats", {}),
+            "normalizer": {"mean": np.asarray(norm["mean"], np.float32),
+                           "std": np.asarray(norm["std"], np.float32)}}
+    mgr = CheckpointManager(ck, keep=0)
+    try:
+        mgr.save_tree(tree, {"model": meta["model"], "data": meta["data"],
+                             "task": "regression", "epoch": 0}, is_best=True)
+        mgr.wait()
+        return mgr.newest_committed()
+    finally:
+        mgr.close()
+
+
+def weights_state(dev, npz, meta_json, **cfg_over):
+    """An InferenceState of a parameter file's weights, its model config
+    overridden by ``cfg_over`` (the plain path's settings)."""
+    import dataclasses as dc
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
+    from cgnn_tpu_torch.convert import from_flax_variables, load_params
+    from cgnn_tpu_torch.train.normalizer import Normalizer
+    from cgnn_tpu_torch.train.step import InferenceState
+
+    variables, meta = load_params(npz, meta_json)
+    cfg = dc.replace(ModelConfig.from_meta(meta["model"]), **cfg_over)
+    model = build_model(cfg, DataConfig.from_meta(meta["data"]), device=dev)
+    model.load_state_dict(from_flax_variables(variables))
+    norm = meta["normalizer"]
+    return InferenceState(model.eval(), Normalizer.from_arrays(
+        norm["mean"], norm["std"], device=dev))
+
+
+def hold_tier(label, got, want) -> float:
+    """Every answer within BF16_TOL of the largest |answer| of its plain
+    path -> the largest difference."""
+    import numpy as np
+
+    err = float(np.abs(np.asarray(got, np.float64) - want).max())
+    scale = float(np.abs(want).max())
+    ok = err <= BF16_TOL * scale
+    print(f"{label}: {len(want)} answers vs the plain path: max_abs_err "
+          f"{err!r} (BF16_TOL {BF16_TOL} of {scale!r}): "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: answers disagree with the plain path")
+    return err
+
+
+def mae_ratios(label, preds, targets) -> dict:
+    """Each tier's MAE on the held-out split over f32's, at most
+    MAE_GATE."""
+    import numpy as np
+
+    mae = {t: float(np.abs(np.asarray(p, np.float64) - targets).mean())
+           for t, p in preds.items()}
+    ratio = {t: mae[t] / mae["f32"] for t in mae if t != "f32"}
+    ok = mae["f32"] > 0 and all(r <= MAE_GATE for r in ratio.values())
+    print(f"{label}: held-out MAE {mae}, ratio to f32 {ratio} (gate "
+          f"{MAE_GATE}): {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: a tier's MAE exceeds {MAE_GATE} of f32's")
+    return {"mae": mae, "ratio_to_f32": ratio}
+
+
+def swap_under_sharded_dispatch(dev, server, ck, graphs) -> dict:
+    """Clients hammer the mesh ``server`` while a changed version is
+    committed to ``ck`` and swapped in: every answer within SERVE_RTOL /
+    SERVE_ATOL of the plain path under the version it reports, and no
+    client gets the old version after it has seen the new one."""
+    import numpy as np
+
+    v1 = server.version
+    results, lock, stop = [], threading.Lock(), threading.Event()
+    errors = []
+
+    def client(ci):
+        rng = np.random.default_rng(ci)
+        try:
+            while not stop.is_set():
+                k = int(rng.integers(len(graphs)))
+                r = server.predict(graphs[k], timeout_ms=60_000)
+                with lock:
+                    results.append((ci, k, r))
+        except Exception as e:  # noqa: BLE001 — reported by the check below
+            errors.append(repr(e))
+
+    def wait_for(n):
+        end = time.perf_counter() + 120
+        while time.perf_counter() < end:
+            with lock:
+                if len(results) >= n:
+                    return
+            time.sleep(0.005)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True,
+                                name=f"chip-smoke-swap-{i}")
+               for i in range(N_SWAP_CLIENTS)]
+    for th in threads:
+        th.start()
+    try:
+        wait_for(64)
+        v2 = commit_changed(ck)
+        check(server.watcher.poll_once(), "the mesh server staged no swap")
+        with lock:
+            at_swap = len(results)
+        wait_for(at_swap + 128)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"swap clients: {errors[:2]}")
+    refs = {v: plain_answers(dev, ck, v, graphs) for v in (v1, v2)}
+    seen_new, worst, versions = set(), 0.0, set()
+    for ci, k, r in results:
+        versions.add(r.param_version)
+        want = refs[r.param_version][k]
+        err = float(np.abs(r.prediction - want).max())
+        check(bool(np.all(np.abs(r.prediction - want)
+                          <= SERVE_ATOL + SERVE_RTOL * np.abs(want))),
+              f"swap: an answer labeled {r.param_version} (shard "
+              f"{r.device_id}) is off its weights by {err!r}")
+        worst = max(worst, err)
+        if r.param_version == v2:
+            seen_new.add(ci)
+        else:
+            check(ci not in seen_new, f"swap: client {ci} got {v1} after "
+                                      f"{v2}")
+    check(versions == {v1, v2}, f"swap: versions seen {versions}")
+    rec = {"answers": len(results), "at_swap": at_swap, "versions": [v1, v2],
+           "shards": sorted({r.device_id for _, _, r in results}),
+           "max_abs_err_vs_plain": worst,
+           "captures_after_warm":
+               server.stats()["counts"]["captures_after_warm"]}
+    check(rec["captures_after_warm"] == 0, f"swap: {rec}")
+    print(f"devices swap: {json.dumps(rec, allow_nan=False)}: ok")
+    return rec
+
+
+def serve_devices_tiers_phase(dev, work_dir, card, split, calibration,
+                              coo_weights):
+    """The serve_devices_tiers phase (module docstring) -> (summary,
+    counts by path)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.config import ModelConfig
+    from cgnn_tpu_torch.data.cache import save_graph_cache
+    from cgnn_tpu_torch.data.dataset import load_synthetic_mp
+    from cgnn_tpu_torch.data.rawbatch import raw_from_graph
+    from cgnn_tpu_torch.parallel.executor import MeshExecutor, batch_fields
+    from cgnn_tpu_torch.predict import main as predict_main
+    from cgnn_tpu_torch.serve.devices import resolve_devices
+    from cgnn_tpu_torch.serve.quantize import TierSpec
+    from cgnn_tpu_torch.serve.server import InferenceServer, load_server
+    from cgnn_tpu_torch.serve.shapes import plan_shape_set
+    from cgnn_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        load_for_inference,
+    )
+    from cgnn_tpu_torch.train.infer import (
+        run_fast_inference,
+        run_raw_inference,
+    )
+
+    root = os.path.join(work_dir, "devices_tiers")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    trained = os.path.join(work_dir, "trained")
+    ck = os.path.join(root, "ckpt")
+    v1 = weights_checkpoint(os.path.join(trained, "params.npz"),
+                            os.path.join(trained, "meta.json"), ck)
+    n_conv = ModelConfig.from_meta(CheckpointManager(ck).read_meta(v1)[
+        "model"]).n_conv
+    test_g = split[2]
+    targets = np.stack([np.atleast_1d(g.target) for g in test_g]).astype(
+        np.float64)
+    n = len(test_g)
+    quiet = lambda *a, **k: None  # noqa: E731
+    kw = dict(batch_size=64, rungs=3, calibration=calibration, device=dev,
+              default_timeout_ms=60_000.0, cache_size=0, wire="raw",
+              log_fn=quiet, poll_interval_s=3600.0)
+    summary = {"card": card, "checkpoint": v1}
+    counts = {}
+    # the HTTP server boots while the in-process legs run, its ladder
+    # planned from the same MP-like calibration
+    cal_cache = os.path.join(root, "calibration.npz")
+    save_graph_cache(list(calibration), cal_cache)
+    http = ServeProcess("tiers_http", ck, root,
+                        ("--device", str(dev), "--precision",
+                         "f32,bf16,int8", "--poll-interval", "0",
+                         "--calibration-cache", cal_cache), traced=False)
+    servers = []
+    try:
+        # ---- tiers, in process: dense, both wires ----
+        t0 = time.perf_counter()
+        server, _ = load_server(ck, precision="f32,bf16,int8", **kw)
+        servers.append(server)
+        boot = time.perf_counter() - t0
+        st = server.stats()
+        check(server.precisions == TIERS and server.engine == "single"
+              and set(st["captures_by_tier"]) == set(TIERS),
+              f"tiers server: {server.precisions}, {server.engine}, "
+              f"{st['captures_by_tier']}")
+        print(f"tiers: load_server + warm {boot!r} s, captures by tier "
+              f"{st['captures_by_tier']}")
+        lowp = ["bf16"] * n + ["int8"] * n
+        rec = burst(server, test_g + test_g, "tiers_serve",
+                    dense_per_step(n_conv, bf16=True), tiers=lowp)
+        f32 = burst(server, test_g, tiers=["f32"] * n)
+        check(rec["precisions"] == lowp and f32["precisions"] == ["f32"] * n,
+              "tiers_serve: an answer reports another tier")
+        preds = {"f32": f32["preds"], "bf16": rec["preds"][:n],
+                 "int8": rec["preds"][n:]}
+        plain = {t: plain_answers(dev, ck, v1, test_g, tier=t)
+                 for t in TIERS}
+        tiers = {"errors_vs_plain": {
+            t: hold_tier(f"tiers_serve {t}", preds[t], plain[t])
+            for t in TIERS}}
+        tiers.update(mae_ratios("tiers_serve", preds, targets))
+        wire_g = load_synthetic_mp(N_TIER_WIRE, seed=SEED + 41,
+                                   keep_geometry=True)
+        raws = [raw_from_graph(g) for g in wire_g]
+        w = len(raws)
+        rrec = burst(server, raws + raws, "tiers_serve_raw",
+                     dense_per_step(n_conv, bf16=True),
+                     tiers=["bf16"] * w + ["int8"] * w)
+        check(rrec["raw_flushes"] > 0, "tiers_serve_raw ran no raw flush")
+        for k, t in enumerate(("bf16", "int8")):
+            tiers["errors_vs_plain"][f"raw_{t}"] = hold_tier(
+                f"tiers_serve_raw {t}", rrec["preds"][k * w:(k + 1) * w],
+                plain_answers(dev, ck, v1, wire_g, tier=t))
+        # each tier alone, untraced, the same 2n requests
+        tiers["requests_per_s"] = {
+            t: burst(server, test_g + test_g, tiers=[t] * (2 * n))[
+                "requests_per_s"] for t in TIERS}
+        tiers["requests_per_s"].update(
+            raw_bf16_int8_traced=rrec["requests_per_s"])
+        counts["tiers_serve"] = rec.pop("path")
+        counts["tiers_serve_raw"] = rrec.pop("path")
+        tiers["raw_flushes"] = rrec["raw_flushes"]
+
+        # ---- tiers, COO ----
+        cnpz, cmeta, _, ccfg = coo_weights
+        cserver, _ = load_server(cnpz, cmeta, batch_size=64, rungs=3,
+                                 calibration=calibration, device=dev,
+                                 default_timeout_ms=60_000.0, cache_size=0,
+                                 wire="featurized", log_fn=quiet,
+                                 precision="f32,bf16,int8")
+        servers.append(cserver)
+        crec = burst(cserver, test_g + test_g, "tiers_serve_coo",
+                     coo_per_step(ccfg.n_conv, bf16=True), tiers=lowp)
+        cplain = weights_state(dev, cnpz, cmeta, aggregation="xla")
+        css = plan_shape_set(test_g, BATCH, rungs=2, dense_m=None)
+        for k, t in enumerate(("bf16", "int8")):
+            want = run_fast_inference(TierSpec(t).state_for(cplain),
+                                      test_g, BATCH, shape_set=css)[0]
+            tiers["errors_vs_plain"][f"coo_{t}"] = hold_tier(
+                f"tiers_serve_coo {t}", crec["preds"][k * n:(k + 1) * n],
+                want)
+        tiers["requests_per_s"]["coo_bf16_int8_traced"] = \
+            crec["requests_per_s"]
+        counts["tiers_serve_coo"] = crec.pop("path")
+        check(cserver.drain(timeout_s=60), "the COO tiers server did not "
+                                           "drain")
+        servers.remove(cserver)
+
+        # ---- tiers over HTTP, the entry point ----
+        ready = http.wait_ready()
+        bodies, want_tier = [], []
+        for t in TIERS:
+            bodies += [graph_body(g, precision=t) for g in test_g]
+            want_tier += [t] * n
+        res, wall = http_burst(http.port, bodies)
+        hrec = burst_rates("tiers_http", res, wall)
+        check([r["body"]["precision"] for r in res] == want_tier,
+              "tiers_http: an answer reports another tier")
+        hpreds = {t: np.array([r["body"]["prediction"]
+                               for r in res[k * n:(k + 1) * n]])
+                  for k, t in enumerate(TIERS)}
+        hrec["errors_vs_plain"] = {
+            t: hold_tier(f"tiers_http {t}", hpreds[t], plain[t])
+            for t in TIERS}
+        hrec.update(mae_ratios("tiers_http", hpreds, targets))
+        g_new = load_synthetic_mp(1, seed=SEED + 43)[0]
+        seq = [(t, http_call(http.port, "POST", "/predict",
+                             graph_body(g_new, precision=t))[1])
+               for t in ("f32", "f32", "int8", "int8")]
+        ok = (not seq[0][1]["cached"] and seq[1][1]["cached"]
+              and not seq[2][1]["cached"] and seq[3][1]["cached"]
+              and seq[2][1]["precision"] == seq[3][1]["precision"] == "int8"
+              and seq[2][1]["prediction"] != seq[0][1]["prediction"]
+              and seq[3][1]["prediction"] == seq[2][1]["prediction"])
+        print(f"tiers_http cache: {[(t, b['cached'], b['precision']) for t, b in seq]}: "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, "tiers_http: the cache mixed tiers")
+        hst = http.stats()
+        check(hst["counts"]["captures_after_warm"] == 0
+              and hst["counts"]["batch_failures"] == 0
+              and hst["precisions"] == list(TIERS),
+              f"tiers_http stats: {hst['counts']}")
+        hrec.update(boot_s=ready["boot_s"],
+                    responses_by_tier={t: hst["counts"].get(
+                        f"responses_{t}", 0) for t in ("bf16", "int8")})
+        check(http.stop() == 0, "tiers_http: exit code")
+        tiers["http"] = hrec
+        summary["tiers"] = tiers
+
+        # ---- devices on the one card ----
+        devs = {}
+        err = io.StringIO()
+        too_many = (torch.cuda.device_count() if dev.type == "cuda"
+                    else 1) + 1
+        with contextlib.redirect_stderr(err):
+            rc = predict_main([ck, "--device", str(dev), "--devices",
+                               str(too_many), "--synthetic", "4", "--out",
+                               os.path.join(root, "x.csv")])
+        check(rc == 2 and "local device(s) exist" in err.getvalue(),
+              f"predict --devices {too_many}: exit {rc}, {err.getvalue()!r}")
+        devs["predict_devices_beyond"] = {"devices": too_many, "exit": rc,
+                                          "message": err.getvalue().strip()}
+        auto = InferenceServer(server.state, server.shape_set, device=dev,
+                               devices=resolve_devices("auto", dev),
+                               engine="mesh", log_fn=quiet)
+        check(auto.engine == "single", f"mesh on auto reads {auto.engine}")
+        devs["mesh_on_auto"] = auto.engine
+        del auto
+        pair = [dev, dev]
+        ss = server.shape_set
+        ex = MeshExecutor(pair)
+        parts = [ss.pack_full(test_g[k:k + 4], shape=ss.largest)
+                 for k in (0, 4)]
+        staged = ex.stage(ex.stack(parts))
+        torch.cuda.synchronize()
+        one = sum(t.numel() * t.element_size()
+                  for t in batch_fields(parts[0]).values())
+        check(ex.staged_bytes == [one, one]
+              and all(torch.equal(batch_fields(s)[k].cpu(), t)
+                      for s, p in zip(staged, parts)
+                      for k, t in batch_fields(p).items())
+              and all(t.device == dev for s in staged
+                      for t in batch_fields(s).values()),
+              f"stage: {ex.staged_bytes}, want {one} an entry")
+        devs["stage_bytes_each"] = one
+        # bulk predict, both wires, both engines, at DEV_BATCHES batches
+        # or more a wire: every entry meets the top rung often enough to
+        # capture it and replay (a shape's third batch captures)
+        state, _, _ = load_for_inference(ck, v1, dev)
+        pg = load_synthetic_mp(N_DEV_PREDICT, seed=SEED + 42,
+                               keep_geometry=True)
+        praws = [r for r in map(raw_from_graph, pg) if ss.admits_raw(r)]
+        need = DEV_BATCHES * ss.largest.graph_cap
+        praws = (praws * -(-need // len(praws)))[:max(need, len(praws))]
+
+        def bulk(wire, stats=None, **kw_):
+            if wire:
+                return run_raw_inference(state, praws, ss, stats=stats,
+                                         **kw_)
+            return run_fast_inference(state, pg, 64, shape_set=ss,
+                                      stats=stats, **kw_)
+
+        # structures/s end to end, from a second, untraced call of the
+        # same inputs (each call opens its own entries and captures its
+        # own graphs: capture included)
+        rates, want = {}, {}
+        for wire in ("", "raw_"):
+            st_ = {}
+            want[wire] = bulk(wire, st_)[0]
+            check(st_["batches"] >= DEV_BATCHES
+                  and st_["entry_replays"][0] > 0,
+                  f"one entry, {wire or 'featurized'}: {st_}")
+            rates[f"devices_predict_{wire}single"] = {
+                "structures_per_s": bulk(wire)[1],
+                "batches": st_["batches"], "graph_replays":
+                    st_["graph_replays"]}
+        for engine in ("mesh", "threads"):
+            shards = 2 if engine == "mesh" else 1
+            for wire in ("", "raw_"):
+                label = f"devices_predict_{wire}{engine}"
+                st_ = {}
+                with PathRun(label) as run:
+                    got = bulk(wire, st_, devices=pair, engine=engine)[0]
+                check(np.array_equal(got, want[wire]),
+                      f"{label}: answers differ from one entry's, max "
+                      f"{float(np.abs(got - want[wire]).max())!r}")
+                check(st_["batches"] >= DEV_BATCHES
+                      and all(r > 0 for r in st_["entry_replays"]),
+                      f"{label}: an entry replayed no graph: {st_}")
+                kind = "predict_raw" if wire else "predict"
+                counts[label] = check_path(run, dense_per_step(n_conv), {
+                    kind: st_["dispatches"] * shards})
+                rates[label] = {
+                    "structures_per_s": bulk(wire, devices=pair,
+                                             engine=engine)[1],
+                    "batches": st_["batches"],
+                    "dispatches": st_["dispatches"],
+                    "entry_replays": st_["entry_replays"],
+                    "staged_bytes": st_.get("staged_bytes")}
+                if engine == "mesh":
+                    sb = st_["staged_bytes"]
+                    check(sb[0] == sb[1] > 0, f"{label}: staged {sb}")
+        devs["bulk_predict"] = rates
+        # servers over the pair, one request a flush against one entry
+        for engine in ("mesh", "threads"):
+            eck = ck
+            if engine == "mesh":  # the swap leg commits to its own copy
+                eck = os.path.join(root, "ckpt_mesh")
+                shutil.copytree(ck, eck)
+            srv, _ = load_server(eck, devices=pair, engine=engine, **kw)
+            servers.append(srv)
+            check(srv.engine == engine, f"{engine}: reads {srv.engine}")
+            for g in test_g[:16]:
+                a = srv.predict(g, timeout_ms=60_000)
+                b = server.predict(g, timeout_ms=60_000)
+                check(np.array_equal(a.prediction, b.prediction),
+                      f"devices_serve_{engine}: one request a flush differs "
+                      f"from one entry's by "
+                      f"{float(np.abs(a.prediction - b.prediction).max())!r}")
+            label = f"devices_serve_{engine}"
+            drec = burst(srv, test_g + test_g, label, dense_per_step(n_conv),
+                         runs_a_flush=2 if engine == "mesh" else 1)
+            want = np.concatenate([preds["f32"]] * 2)
+            close = bool(np.all(np.abs(drec["preds"] - want)
+                                <= SERVE_ATOL + SERVE_RTOL * np.abs(want)))
+            sst = srv.stats()
+            dispatches = [d["dispatches"] for d in sst["devices"]]
+            # every entry dispatches (under threads the router's
+            # round-robin ties spread even one request a flush); a mesh
+            # flush of several requests answers from both shards
+            check(close and all(x >= 1 for x in dispatches)
+                  and (engine == "threads"
+                       or set(drec["device_ids"]) == {0, 1}),
+                  f"{label}: close {close}, dispatches {dispatches}, "
+                  f"shards {set(drec['device_ids'])}")
+            counts[label] = drec.pop("path")
+            # the rate untraced, the same 2n f32 requests as the one-entry
+            # server's tiers["requests_per_s"]["f32"]
+            entry = {"requests_per_s": burst(srv, test_g + test_g)[
+                         "requests_per_s"],
+                     "dispatches": dispatches,
+                     "flushes": drec["flushes"]}
+            if engine == "mesh":
+                sb = sst["staged_bytes"]
+                check(sb[0] == sb[1] > 0, f"{label}: staged {sb}")
+                entry["staged_bytes"] = sb
+                entry["swap"] = swap_under_sharded_dispatch(dev, srv, eck,
+                                                            test_g)
+            devs[label] = entry
+            check(srv.drain(timeout_s=60), f"{label}: did not drain")
+            servers.remove(srv)
+        summary["devices"] = devs
+    finally:
+        for srv in servers:
+            srv.drain(timeout_s=60)
+        http.kill()
+    return summary, counts
+
+
+def tiers_raw_late_phase(dev, work_dir, calibration):
+    """ROADMAP Queue 3, item 13's probe: ``serve_devices_tiers``'s
+    ``tiers_serve_raw`` burst again, on a fresh tiers server over the
+    phase's checkpoint, late in the process (after every other phase),
+    as ``tiers_serve_raw_late``. The answers are held to the plain path
+    and the step and wrapper counts to the flushes as in the early
+    burst; the card's count from the trace is recorded, exact or not
+    (``check_path(card_exact=False)``: each kernel must still launch on
+    the card), since a trace short of a record late in a long process is
+    the open question this leg reads. -> (record, counts by path)."""
+    from cgnn_tpu_torch.config import ModelConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic_mp
+    from cgnn_tpu_torch.data.rawbatch import raw_from_graph
+    from cgnn_tpu_torch.serve.server import load_server
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    ck = os.path.join(work_dir, "devices_tiers", "ckpt")
+    v1 = CheckpointManager(ck).newest_committed()
+    n_conv = ModelConfig.from_meta(CheckpointManager(ck).read_meta(v1)[
+        "model"]).n_conv
+    server, _ = load_server(ck, precision="f32,bf16,int8", batch_size=64,
+                            rungs=3, calibration=calibration, device=dev,
+                            default_timeout_ms=60_000.0, cache_size=0,
+                            wire="raw", log_fn=lambda *a, **k: None,
+                            poll_interval_s=3600.0)
+    try:
+        wire_g = load_synthetic_mp(N_TIER_WIRE, seed=SEED + 41,
+                                   keep_geometry=True)
+        raws = [raw_from_graph(g) for g in wire_g]
+        w = len(raws)
+        rec = burst(server, raws + raws, "tiers_serve_raw_late",
+                    dense_per_step(n_conv, bf16=True),
+                    tiers=["bf16"] * w + ["int8"] * w, card_exact=False)
+        check(rec["raw_flushes"] > 0, "tiers_serve_raw_late ran no raw "
+                                      "flush")
+        errs = {t: hold_tier(f"tiers_serve_raw_late {t}",
+                             rec["preds"][k * w:(k + 1) * w],
+                             plain_answers(dev, ck, v1, wire_g, tier=t))
+                for k, t in enumerate(("bf16", "int8"))}
+    finally:
+        check(server.drain(timeout_s=60), "the late tiers server did not "
+                                          "drain")
+    path = rec.pop("path")
+    out = {"card_exact": path["card_exact"], "flushes": rec["flushes"],
+           "raw_flushes": rec["raw_flushes"], "errors_vs_plain": errs,
+           "launches": path["launches"], "card_want": path["card_want"]}
+    print(f"tiers_serve_raw_late: card count exact: {path['card_exact']}")
+    return out, {"tiers_serve_raw_late": path}
+
 
 N_HM = 640  # MP-like CIFs of the heads_modes phase (512/64/64)
 HM_EPOCHS = 2
@@ -7359,12 +7950,16 @@ def timed(name, phase, *args):
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run",
               file=sys.stderr)
         return 2
+    # a hang dumps every thread's stack and fails before the time limit
+    faulthandler.dump_traceback_later(HANG_DUMP_S, exit=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from cgnn_tpu_torch.config import DataConfig
@@ -7437,6 +8032,11 @@ def main() -> int:
         "train_coo", train_coo_phase, dev, split, work_dir)
     coo_serve, coo_breakdown, coo_serve_counts = timed(
         "serve_coo", serve_coo_phase, dev, calibration, coo_weights)
+    # early in the process, with the other in-process traced bursts: late
+    # in the long process a burst's trace has lost a kernel record
+    dt_summary, dt_counts = timed(
+        "serve_devices_tiers", serve_devices_tiers_phase, dev, work_dir,
+        card, split, calibration, coo_weights)
     ckpt_summary, ckpt_counts = timed("checkpoint_predict",
                                       checkpoint_predict_phase, dev,
                                       work_dir, card)
@@ -7462,9 +8062,13 @@ def main() -> int:
     # server burst's trace lost a kernel record when it ran before them
     force_summary, force_counts = timed("force_task", force_task_phase, dev,
                                         work_dir, card)
+    # item 13's probe: the early raw tiers burst again, last
+    late_summary, late_counts = timed("tiers_raw_late", tiers_raw_late_phase,
+                                      dev, work_dir, calibration)
     by_path.update(**graphs_counts, **res_counts, **http_counts,
                    **hm_counts, **bp_counts, **force_counts, **dl_counts,
-                   **dp_counts, **gs_counts, **dpd_counts)
+                   **dp_counts, **gs_counts, **dpd_counts, **dt_counts,
+                   **late_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -7512,6 +8116,8 @@ def main() -> int:
     print(json.dumps({"graph_shards": gs_summary}, allow_nan=False))
     print(json.dumps({"dp_driver": dpd_summary}, allow_nan=False))
     print(json.dumps({"serve_http": http_summary}, allow_nan=False))
+    print(json.dumps({"serve_devices_tiers": dt_summary}, allow_nan=False))
+    print(json.dumps({"tiers_raw_late": late_summary}, allow_nan=False))
     print(json.dumps({"heads_modes": hm_summary}, allow_nan=False))
     print(json.dumps({"bf16_paths": bp_summary}, allow_nan=False))
     print(json.dumps({"force_task": force_summary}, allow_nan=False))

@@ -106,6 +106,30 @@ def test_expander_reproduces_pack_graphs(models, specs, kind):
     assert got.positions is None and got.lattices is None
 
 
+def test_graph_packed_under_two_vocabularies(models):
+    """A graph staged under one vocabulary, then under another (two
+    servers of one process, each with its own calibration), expands to
+    its own atom rows under each: the cached index is keyed to its
+    vocabulary. (The JAX package caches it unkeyed: there the second
+    vocabulary reads the first's indices, wrong rows.)"""
+    graphs = [dataclasses.replace(g) for g in models.port]
+    caps = _caps(graphs)
+    # two vocabularies whose tables order the rows differently
+    first = tcompact.CompactSpec.build(graphs[len(graphs) // 2:], CFG.gdf(),
+                                       dense_m=M)
+    second = tcompact.CompactSpec.build(graphs, CFG.gdf(), dense_m=M)
+    assert not np.array_equal(first.vocab.table[:len(second.vocab.table)],
+                              second.vocab.table[:len(first.vocab.table)])
+    full = tgraph.pack_graphs(graphs, *caps, dense_m=M)
+    for spec in (first, second, first):
+        sub = [g for g in graphs if spec.graph_compactable(g)]
+        got = tcompact.make_expander(spec, "cpu")(
+            tcompact.pack_compact(sub, *caps, spec))
+        want = tgraph.pack_graphs(sub, *caps, dense_m=M)
+        assert len(sub) > 0 and torch.equal(got.nodes, want.nodes)
+    assert full.nodes.shape[0] == caps[0]
+
+
 def test_expander_matches_the_jax_expander(models, specs):
     """The same CompactBatch through both expanders: the JAX one
     multiplies by 1/var², the port divides by var² as ``pack_graphs``

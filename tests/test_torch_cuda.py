@@ -4,8 +4,11 @@ widths, G > F, rows that are all padding, NaN in masked slots), the
 fixed-order reductions (kernels 2 and 4) bit-identical from run to run,
 kernels 1 and 2 on a shared node pass, the training op's kernel path
 against its structured twin, a checkpoint of a card-resident state,
-bulk raw inference's launches of kernel 8, the divergence guard inside
-a replayed train graph, the COO gathers' fixed-order backward, two
+bulk raw inference's launches of kernel 8, bulk predict over two
+entries on one card under both engines (each entry capturing on a side
+stream of its own), two serving entries on one
+card in every precision tier, the divergence guard inside a replayed
+train graph, the COO gathers' fixed-order backward, two
 data-parallel ranks sharing the card over gloo, two graph-sharded
 ranks sharing it, and the prefetch loader staging beside a capture.
 Marked ``cuda``; they skip where there is no card. On a GPU machine,
@@ -1138,6 +1141,123 @@ def test_server_captures_nothing_after_warm_over_a_mixed_burst(dev,
     st = server.stats()["counts"]
     assert st["captures_after_warm"] == 0 and st["batch_failures"] == 0
     assert st["graph_replays"] == st["batches"] + 9 > 9
+
+
+def test_entries_capture_on_side_streams_of_their_own(dev):
+    """Graphs that replay on different streams capture on different side
+    streams, and graphs that replay on one stream on one: cuBLAS bakes
+    the capture stream's workspace into a graph, so two entries that
+    replay at once must not share it (shared, the replays raced on it
+    and hung the card)."""
+    from cgnn_tpu_torch.serve.devices import entry_streams
+    from cgnn_tpu_torch.train.graphs import capture_stream
+
+    a, b = entry_streams([dev, dev])
+    assert capture_stream(dev, a) is capture_stream(dev, a)
+    assert capture_stream(dev, a) != capture_stream(dev, b)
+    assert capture_stream(dev) not in (capture_stream(dev, a),
+                                       capture_stream(dev, b))
+
+
+@pytest.mark.parametrize("wire", ["full", "compact", "raw"])
+@pytest.mark.parametrize("engine", ["mesh", "threads"])
+def test_bulk_predict_over_two_entries_on_one_card(dev, engine, wire):
+    """Bulk predict over [cuda:0, cuda:0] under both engines, over more
+    than one fetch window and a partial last one: every entry replays
+    its captured graphs, and the answers are bit-equal to one entry's on
+    the same packed batches (the mesh engine's last window is fetched on
+    the stream that restacked it; a threads entry's pooled buffers go
+    back behind its own fence)."""
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.compact import CompactSpec
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.data.rawbatch import plan_raw_spec, raw_from_graph
+    from cgnn_tpu_torch.serve.shapes import plan_shape_set
+    from cgnn_tpu_torch.train import infer
+    from cgnn_tpu_torch.train.step import InferenceState
+
+    state, _, _, _ = _card_state(dev)
+    inf = InferenceState(state.model, state.normalizer)
+    fcfg = DataConfig().featurize_config()
+    graphs = load_synthetic(300, fcfg, seed=13, keep_geometry=True)
+    kw = {}
+    if wire == "compact":
+        kw["compact"] = CompactSpec.build(graphs, fcfg.gdf(), dense_m=12)
+    if wire == "raw":
+        kw["raw"] = plan_raw_spec(graphs, fcfg.gdf(), fcfg.radius, 12)
+    ss = plan_shape_set(graphs, 4, rungs=2, dense_m=12, **kw)
+    if wire == "raw":
+        items = [r for r in map(raw_from_graph, graphs) if ss.admits_raw(r)]
+
+        def count(xs):
+            return -(-len(xs) // ss.largest.graph_cap)
+
+        def run(xs, **k):
+            return infer.run_raw_inference(inf, xs, ss, **k)
+    else:
+        items = graphs
+
+        def count(xs):
+            return len(list(infer._shape_set_plan(xs, ss)))
+
+        def run(xs, **k):
+            return infer.run_fast_inference(inf, xs, 4, shape_set=ss, **k)
+    while count(items) % infer._WINDOW == 0:  # a partial last window
+        items = items[:-1]
+    one, _ = run(items)
+    stats = {}
+    got, _ = run(items, devices=[dev, dev], engine=engine, stats=stats)
+    assert stats["engine"] == engine
+    assert stats["batches"] > infer._WINDOW, stats
+    assert all(r > 0 for r in stats["entry_replays"]), stats
+    assert np.array_equal(got, one)
+
+
+@pytest.mark.parametrize("engine", ["mesh", "threads"])
+def test_two_entries_on_one_card_serve_every_tier(dev, tmp_path, engine):
+    """load_server over [cuda:0, cuda:0] warming f32, bf16 and int8
+    captures each rung's full, compact and raw graphs a tier and an
+    entry; a mixed-tier burst captures nothing more; one request a flush
+    answers bit-equal to a one-entry server in every tier."""
+    from cgnn_tpu_torch import convert
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.serve.server import load_server
+
+    cfg = ModelConfig(atom_fea_len=32, n_conv=2, dense_m=12,
+                      cgconv_impl="pallas")
+    dcfg = DataConfig()
+    npz, meta = str(tmp_path / "params.npz"), str(tmp_path / "meta.json")
+    convert.save_params(npz, meta, convert.init_params(cfg, dcfg, seed=1),
+                        cfg, dcfg)
+    calibration = load_synthetic(64, dcfg.featurize_config(), seed=3,
+                                 keep_geometry=True)
+    kw = dict(batch_size=16, rungs=3, calibration=calibration, device=dev,
+              wire="raw", compact="on", cache_size=0,
+              precision="f32,bf16,int8", log_fn=lambda *a: None)
+    one, _ = load_server(npz, meta, **kw)
+    two, _ = load_server(npz, meta, devices=[dev, dev], engine=engine, **kw)
+    try:
+        assert two.engine == engine
+        st = two.stats()["counts"]
+        assert st["graph_captures"] == 3 * 3 * 3 * 2
+        tiers = ("f32", "bf16", "int8")
+        for k, g in enumerate(calibration[:12]):
+            t = tiers[k % 3]
+            a = two.predict(g, timeout_ms=60_000, precision=t)
+            b = one.predict(g, timeout_ms=60_000, precision=t)
+            assert a.precision == b.precision == t
+            assert np.array_equal(a.prediction, b.prediction), (t, k)
+        # a tier at a time: flushes of many requests, every shard real
+        futs = [two.submit(g, timeout_ms=60_000, precision=t)
+                for t in tiers for g in calibration]
+        for f in futs:
+            f.result(timeout=120)
+        st = two.stats()
+        assert st["counts"]["captures_after_warm"] == 0
+        assert all(d["dispatches"] >= 1 for d in st["devices"])
+    finally:
+        assert one.drain(timeout_s=30) and two.drain(timeout_s=30)
 
 
 # ---------------------------------------------------------------------------

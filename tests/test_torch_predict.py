@@ -11,8 +11,8 @@ model (non-trivial BatchNorm statistics, a non-identity normalizer):
   JAX model the unfused path;
 - ``python -m cgnn_tpu_torch.predict``: its raw-wire and featurized CSVs
   agree (same ids in input order, predictions within 1e-4: f32 distances
-  on the raw wire, f64 on the host), every flag it does not port yet
-  exits 2, and its default device is the card;
+  on the raw wire, f64 on the host), what it refuses exits 2 (more
+  devices than exist among them), and its default device is the card;
 - ``load_server`` on a checkpoint directory answers as on the same
   weights saved as ``params.npz`` + ``meta.json``.
 """
@@ -152,10 +152,13 @@ def test_raw_inference_matches_jax(models):
 
 
 def test_inference_refuses_unported_options(models):
+    """What bulk inference refuses: an engine neither package has, and a
+    raw call without a raw spec. ``devices`` and ``engine='mesh'`` are
+    served (tests/test_torch_executor.py)."""
     tss = tshapes.plan_shape_set(models.port, B, rungs=1, dense_m=M)
-    for kw, item in ((dict(devices=["cpu"]), "items 9 and 11"),
-                     (dict(engine="mesh"), "items 9 and 11")):
-        with pytest.raises(ValueError, match=item):
+    for kw in (dict(engine="ring"), dict(devices=["cpu", "cpu"],
+                                         engine="pmap")):
+        with pytest.raises(ValueError, match="engine must be"):
             tinfer.run_fast_inference(models.state, models.port, B,
                                       shape_set=tss, **kw)
     with pytest.raises(ValueError, match="raw spec"):
@@ -232,8 +235,10 @@ REFUSED = {  # case -> (extra flags, what the message names)
     "packing_ladder": (["--packing", "ladder", "--buckets", "1"], None),
     # a cache without raw distances cannot stage compactly
     "compact_on": (["--compact", "on"], "compact staging unavailable"),
-    "devices": (["--devices", "4"], "items 9 and 11"),
-    "engine_mesh": (["--engine", "mesh"], "items 9 and 11"),
+    # more devices than exist: never clamped
+    "devices": (["--devices", "4"], "local device(s) exist"),
+    # accepted: one CPU device runs the single loop whatever the engine
+    "engine_mesh": (["--engine", "mesh"], None),
     "data_dir": ([], "id_prop.csv"),
     "no_data": ([], "DATA_DIR, --cache, or --synthetic is required"),
     "no_checkpoint": ([], "no 'latest' checkpoint"),

@@ -9,7 +9,8 @@ boot, readiness, drain and exit-code contract of ``serve.py``):
 - ``wedge_flush=0`` with a 1 s ``--drain-timeout``: SIGTERM, the drain
   times out and the process exits 3 with the unanswered count;
 - a flag whose module is not ported exits 2 naming its ROADMAP item, as
-  does a directory without a checkpoint; without a card the default
+  do an unknown precision tier, more devices than exist (never clamped)
+  and a directory without a checkpoint; without a card the default
   device raises.
 """
 
@@ -180,9 +181,9 @@ def test_boot_crash_dies_once_then_boots(ckpt):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--precision", "f32,bf16"], "item 11"),
-    (["--devices", "4"], "items 9 and 11"),
-    (["--engine", "mesh"], "items 9 and 11"),
+    (["--precision", "f32,fp4"], "unknown precision tier"),
+    (["--devices", "4"], "local device(s) exist"),
+    (["--devices", "0"], "--devices must be >= 1"),
     (["--telemetry-dir", "x"], "item 11"),
     (["--slo-target", "0.99"], "item 11"),
     (["--log-json"], "item 11"),
