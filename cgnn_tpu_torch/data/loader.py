@@ -27,7 +27,8 @@ Every queue put is bounded by a stop event that the consumer generator's
 producer within one tick. ``LoaderStats`` holds the counters:
 ``loader_wait_s``, the consumer's time blocked on an empty queue (the
 loader not hiding host work), and ``loader_put_s``, the producer's time
-packing and staging.
+packing and staging; a ``telemetry`` (observe/telemetry.py) counts the
+same two under the same names, as the JAX loader does.
 """
 
 from __future__ import annotations
@@ -71,12 +72,13 @@ def prefetch_to_device(
     size: int = 2,
     stats: LoaderStats | None = None,
     join_timeout: float = 5.0,
+    telemetry=None,
 ) -> Iterator:
     """Wrap a host batch iterator (GraphBatch, CompactBatch or RawBatch:
     dataclasses of tensors with ``.to``) with a ``size``-deep queue of
     batches staged on ``device``, in the iterator's order. An exception
     of the producer is re-raised at the consumer after the batches before
-    it."""
+    it. ``telemetry``: counts ``loader_put_s`` and ``loader_wait_s``."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         # the producer thread sets its device: name the caller's current one
@@ -117,7 +119,10 @@ def prefetch_to_device(
                         staged = b.to(dev, non_blocking=True)
                         done = torch.cuda.Event()
                         done.record(side)
-                stats.loader_put_s += time.perf_counter() - t0
+                put_s = time.perf_counter() - t0
+                stats.loader_put_s += put_s
+                if telemetry is not None:
+                    telemetry.counter_add("loader_put_s", put_s)
                 if not bounded_put((staged, done)):
                     return  # the consumer abandoned the iterator
         except BaseException as e:  # noqa: BLE001 — re-raised at the consumer
@@ -132,7 +137,10 @@ def prefetch_to_device(
         while True:
             t0 = time.perf_counter()
             item = q.get()
-            stats.loader_wait_s += time.perf_counter() - t0
+            wait_s = time.perf_counter() - t0
+            stats.loader_wait_s += wait_s
+            if telemetry is not None:
+                telemetry.counter_add("loader_wait_s", wait_s)
             if item is _SENTINEL:
                 break
             staged, done = item

@@ -1,0 +1,258 @@
+"""Gauges (``cgnn_tpu/observe/gauges.py``): padding efficiency, device
+memory, and the derived health figures of a run's counters.
+
+``padding_gauges`` turns a ``data.graph.PaddingStats`` into per-bucket
+efficiency records; ``hbm_gauges`` samples each card's memory
+(``torch.cuda.mem_get_info`` and the caching allocator's
+``memory_allocated``, source ``memory_stats``). The device-kind table
+the JAX module falls back on holds TPU capacities; the port's is empty,
+since a card reports its own, so a CPU device reports ``unknown``. The
+rollups (``device_gauges``, ``ingest_gauges``, ``priority_gauges``,
+``cache_gauges``, ``pipeline_gauges``) are the JAX functions as they
+are.
+"""
+
+from __future__ import annotations
+
+# device memory by device kind, for a runtime that cannot report it: a
+# card reports its own, so nothing is listed
+_HBM_BYTES: dict[str, int] = {}
+
+
+def device_hbm_table_bytes(device_kind: str) -> int | None:
+    """Total device memory for a device kind, or None when unknown."""
+    return _HBM_BYTES.get(device_kind)
+
+
+def hbm_gauges(devices=None) -> list[dict]:
+    """One record per device: bytes in use / limit and the source.
+
+    ``source`` is ``"memory_stats"`` on a card (its total memory, and
+    the bytes the caching allocator holds in tensors), ``"table"`` when
+    only the device-kind capacity is known, ``"unknown"`` when neither
+    is (the CPU). ``devices``: torch devices (default: every visible
+    card, else the CPU).
+    """
+    import torch
+
+    if devices is None:
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if torch.cuda.is_available() else [torch.device("cpu")])
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        cuda = d.type == "cuda"
+        rec = {
+            "device": str(d),
+            "kind": torch.cuda.get_device_name(d) if cuda else "cpu",
+            "platform": d.type,
+        }
+        if cuda:
+            _, total = torch.cuda.mem_get_info(d)
+            rec["source"] = "memory_stats"
+            rec["bytes_limit"] = int(total)
+            rec["bytes_in_use"] = int(torch.cuda.memory_allocated(d))
+            rec["occupancy"] = rec["bytes_in_use"] / max(
+                rec["bytes_limit"], 1
+            )
+        else:
+            total = device_hbm_table_bytes(rec["kind"])
+            if total is not None:
+                rec["source"] = "table"
+                rec["bytes_limit"] = total
+            else:
+                rec["source"] = "unknown"
+        out.append(rec)
+    return out
+
+
+def padding_gauges(stats) -> list[dict]:
+    """Per-bucket padding efficiency/occupancy records from a
+    ``PaddingStats`` (one record per compiled (node_cap, edge_cap)
+    shape, plus an ``"overall"`` rollup)."""
+    out = []
+    for shape, acc in sorted(getattr(stats, "per_shape", {}).items()):
+        real_n, real_e, slot_n, slot_e, batches = acc
+        out.append({
+            "bucket": f"{shape[0]}n/{shape[1]}e",
+            "node_cap": int(shape[0]),
+            "edge_cap": int(shape[1]),
+            "batches": int(batches),
+            "node_efficiency": real_n / max(slot_n, 1),
+            "edge_efficiency": real_e / max(slot_e, 1),
+        })
+    out.append({
+        "bucket": "overall",
+        "batches": int(stats.batches),
+        "node_efficiency": stats.node_efficiency,
+        "edge_efficiency": stats.edge_efficiency,
+        "shapes": len(stats.shapes),
+    })
+    return out
+
+
+def device_gauges(counters: dict, gauges: dict) -> dict:
+    """Derived health figures for the device-parallel dispatch layer
+    (serve/devices.py), from a run's counters/gauges — the
+    ``pipeline_gauges`` analog for the device dimension.
+
+    ``DeviceSet.flush_gauges`` writes the raw per-device names
+    (``device{i}_dispatches`` / ``device{i}_occupancy`` /
+    ``device{i}_window_depth`` plus ``device_count``); this rollup adds:
+
+    - ``devices_active``: devices that dispatched at least one flush —
+      what a distribution check keys on;
+    - ``device_dispatch_min_share`` / ``device_dispatch_max_share``:
+      each device's share of total dispatches — min near 1/N means the
+      least-loaded router balanced, max near 1 means one chip served
+      everything.
+    """
+    n = int(gauges.get("device_count", 0))
+    if n <= 0:
+        return {}
+    dispatches = [float(gauges.get(f"device{i}_dispatches", 0.0))
+                  for i in range(n)]
+    total = sum(dispatches)
+    out = {"devices_active": float(sum(1 for d in dispatches if d > 0))}
+    if total > 0:
+        shares = [d / total for d in dispatches]
+        out["device_dispatch_min_share"] = min(shares)
+        out["device_dispatch_max_share"] = max(shares)
+    return out
+
+
+def ingest_gauges(counters: dict, gauges: dict) -> dict:
+    """Derived health figures for the on-device ingest path,
+    from a run's counters/gauges — the raw-wire analog of
+    ``pipeline_gauges``.
+
+    - ``ingest_cap_overflow_total``: structures the IN-PROGRAM
+      neighbor search flagged (lattice needed more periodic images than
+      the rung provides) and re-served host-featurized. Non-zero on a
+      calibrated ladder means the image caps are mis-planned for live
+      traffic;
+    - ``ingest_rung{i}_edge_occupancy``: true in-program edge count
+      over allocated edge slots per rung, the signal for re-calibrating
+      ``snode_cap``/``dense_m`` (occupancy near 0 = caps too generous,
+      padded search work; near 1 = truncation pressure).
+    """
+    out = {}
+    if "ingest_cap_overflow" in counters:
+        out["ingest_cap_overflow_total"] = float(
+            counters["ingest_cap_overflow"])
+    occ = {k: float(v) for k, v in gauges.items()
+           if k.startswith("ingest_rung") and k.endswith("_edge_occupancy")}
+    if occ:
+        out.update(sorted(occ.items()))
+        out["ingest_edge_occupancy_min"] = min(occ.values())
+        out["ingest_edge_occupancy_max"] = max(occ.values())
+    if "ingest_raw_wire" in gauges:
+        out["ingest_raw_wire"] = float(gauges["ingest_raw_wire"])
+    return out
+
+
+def priority_gauges(counters: dict, gauges: dict) -> dict:
+    """Derived health figures for priority-class serving,
+    from a run's counters/gauges — the ``ingest_gauges`` analog for the
+    continuous batcher's front door.
+
+    - ``serve_padding_fill_share``: of the graph slots higher-class
+      flushes would have PADDED, the fraction lower-class backfill
+      actually filled — the padding→goodput conversion rate (0 with
+      backfill off or under single-class load);
+    - ``serve_class_{c}_responses``: answers per priority class, the
+      share view WFQ/aging fairness assertions read;
+    - ``serve_backfilled_total``: responses that rode another class's
+      flush slack rather than waiting for their own cut.
+    """
+    out = {}
+    if "serve_padding_fill_share" in gauges:
+        out["serve_padding_fill_share"] = float(
+            gauges["serve_padding_fill_share"])
+    if "serve_backfill_enabled" in gauges:
+        out["serve_backfill_enabled"] = float(
+            gauges["serve_backfill_enabled"])
+    if "serve_responses_backfilled" in counters:
+        out["serve_backfilled_total"] = float(
+            counters["serve_responses_backfilled"])
+    classes = {k: float(v) for k, v in counters.items()
+               if k.startswith("serve_responses_class_")}
+    for k, v in sorted(classes.items()):
+        out[k.replace("serve_responses_class_", "serve_class_")
+            + "_responses"] = v
+    if classes and sum(classes.values()) > 0:
+        total = sum(classes.values())
+        out["serve_class_max_share"] = max(classes.values()) / total
+    return out
+
+
+def cache_gauges(counters: dict, gauges: dict) -> dict:
+    """Derived health figures for the result cache, from a run's
+    counters/gauges — the ``priority_gauges`` analog for the cache
+    plane.
+
+    - ``serve_cache_hit_ratio``: raw LRU hits over lookups, from the
+      cache's consistent snapshot counters (one lock acquisition);
+    - ``serve_cache_fill_ratio``: occupied over capacity;
+    - ``serve_cache_effective_hit_ratio``: answers that needed no
+      forward pass on THIS replica — version-valid hits plus coalesced
+      followers — over requests;
+    - ``serve_cache_coalesced_share`` / ``serve_cache_dup_miss_total``:
+      single-flight conversion rate and the duplicate in-flight misses;
+    - ``fleet_owner_routed_share``: of owner-routable dispatches, the
+      fraction the healthy owner actually answered (a fleet router's).
+    """
+    out = {}
+    hits = float(counters.get("serve_cache_lookup_hits", 0.0))
+    misses = float(counters.get("serve_cache_lookup_misses", 0.0))
+    if hits + misses > 0:
+        out["serve_cache_hit_ratio"] = hits / (hits + misses)
+    cap = float(gauges.get("serve_cache_capacity", 0.0))
+    if cap > 0:
+        out["serve_cache_fill_ratio"] = (
+            float(gauges.get("serve_cache_size", 0.0)) / cap)
+    requests = float(counters.get("serve_requests", 0.0))
+    valid_hits = float(counters.get("serve_cache_hits", 0.0))
+    coalesced = float(counters.get("serve_cache_coalesced", 0.0))
+    if requests > 0:
+        out["serve_cache_effective_hit_ratio"] = (
+            (valid_hits + coalesced) / requests)
+        out["serve_cache_coalesced_share"] = coalesced / requests
+    if "serve_cache_dup_misses" in counters:
+        out["serve_cache_dup_miss_total"] = float(
+            counters["serve_cache_dup_misses"])
+    if "serve_cache_fills" in counters:
+        out["serve_cache_fill_total"] = float(counters["serve_cache_fills"])
+    routed = float(counters.get("fleet_owner_routed", 0.0))
+    fallback = float(counters.get("fleet_owner_fallback", 0.0))
+    if routed + fallback > 0:
+        out["fleet_owner_routed_share"] = routed / (routed + fallback)
+    return out
+
+
+def pipeline_gauges(counters: dict, gauges: dict) -> dict:
+    """Derived health figures for the parallel ingest pipeline
+    (data/pipeline.py), from a run's counters/gauges — the
+    ``loader_wait_s`` analog for the forward path.
+
+    - ``pipeline_wait_share``: consumer wait over (wait + pack) — near 0
+      means the packers kept the dispatch loop fed; near 1 means the
+      device idled on the host (add workers / enable compact staging);
+    - ``pipeline_pack_s_per_job``: mean worker seconds per packed batch.
+
+    The raw series (``pipeline_wait_s`` p50/p95/p99 via
+    ``Telemetry.observe_value``) and the ``pipeline_occupancy`` gauge the
+    pipeline sets directly complement these rollups.
+    """
+    wait = float(counters.get("pipeline_wait_s", 0.0))
+    pack = float(counters.get("pipeline_pack_s", 0.0))
+    jobs = float(counters.get("pipeline_jobs", 0.0))
+    out = {}
+    if wait + pack > 0:
+        out["pipeline_wait_share"] = wait / (wait + pack)
+    if jobs > 0:
+        out["pipeline_pack_s_per_job"] = pack / jobs
+    if "pipeline_occupancy" in gauges:
+        out["pipeline_occupancy"] = float(gauges["pipeline_occupancy"])
+    return out

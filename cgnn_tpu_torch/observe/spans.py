@@ -1,0 +1,203 @@
+"""Host-side span tracing -> Chrome-trace/Perfetto JSON
+(``cgnn_tpu/observe/spans.py``).
+
+Lightweight nested wall-clock spans for the host orchestration phases the
+device profiler cannot see (featurize, pack, stage, compile+warmup, epoch
+dispatch, checkpoint writes). ``SpanTracer.span`` is a context manager;
+nesting is tracked per thread and exported as complete events (``"ph":
+"X"``) in the Chrome trace event format, which Perfetto and
+``chrome://tracing`` open directly.
+
+Timestamps are ``time.perf_counter`` microseconds relative to tracer
+construction (Chrome traces only need a consistent monotonic base).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import threading
+import time
+from typing import Iterator
+
+from cgnn_tpu_torch.observe.metrics_io import jsonfinite
+
+
+class SpanTracer:
+    """Nested host spans; ``export()`` writes trace.json (Chrome format).
+
+    The event buffer is a BOUNDED RING (``max_events``): per-request
+    serving spans at thousands of rps would otherwise grow a days-long
+    server's trace without limit. Once full, the OLDEST events are
+    evicted (and counted in ``dropped``) — the live-tracing consumers
+    (reconstructing a recent slow request, a profile capture's host
+    window) need the most recent spans, not the startup era — and
+    ``export`` stamps the drop count into the trace metadata so a
+    truncated trace is never mistaken for a complete one.
+    """
+
+    def __init__(self, process_name: str = "cgnn-tpu host",
+                 max_events: int = 200_000):
+        import collections
+
+        self._t0 = time.perf_counter()
+        # the wall-clock epoch of _t0: what rebases this process's
+        # relative-µs timestamps onto a timeline shared with other
+        # processes. Sampled at the same instant as _t0, so abs(event) =
+        # t0_unix + ts/1e6.
+        self.t0_unix = time.time()
+        self._events: collections.deque = collections.deque(
+            maxlen=int(max_events))
+        self._lock = threading.Lock()
+        self._depth = threading.local()
+        self._tids: dict[int, int] = {}
+        self._process_name = process_name
+        self.max_events = int(max_events)
+        self.dropped = 0
+
+    @staticmethod
+    def now_s() -> float:
+        """The stamp clock (``time.perf_counter`` seconds). Callers that
+        record per-stage timestamps for later ``complete()`` calls must
+        use THIS clock so retro-stamped spans line up with live ones."""
+        return time.perf_counter()
+
+    def _now_us(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e6
+
+    def _append(self, event: dict) -> None:
+        with self._lock:
+            if len(self._events) == self._events.maxlen:
+                self.dropped += 1  # the deque evicts its oldest entry
+            self._events.append(event)
+
+    def _tid(self) -> int:
+        # stable small ints per thread (raw thread idents overflow the
+        # int32 tid some trace viewers assume)
+        ident = threading.get_ident()
+        with self._lock:
+            return self._tids.setdefault(ident, len(self._tids))
+
+    @contextlib.contextmanager
+    def span(self, name: str, **args) -> Iterator[None]:
+        """Time a block; ``args`` become the event's args dict (viewable
+        in the Perfetto detail pane)."""
+        depth = getattr(self._depth, "value", 0)
+        self._depth.value = depth + 1
+        start = self._now_us()
+        try:
+            yield
+        finally:
+            self._depth.value = depth
+            event = {
+                "name": name,
+                "ph": "X",
+                "ts": start,
+                "dur": self._now_us() - start,
+                "pid": 0,
+                "tid": self._tid(),
+                "args": {k: v for k, v in args.items()} | {"depth": depth},
+            }
+            self._append(event)
+
+    def complete(self, name: str, start_s: float, end_s: float,
+                 **args) -> None:
+        """Record a span from explicit ``now_s()`` stamps taken earlier
+        — the request-tracing path, where a stage's start was stamped on
+        one thread and its end observed on another. Emitted on the
+        calling thread's track."""
+        if end_s < start_s:
+            start_s, end_s = end_s, start_s
+        self._append({
+            "name": name,
+            "ph": "X",
+            "ts": (start_s - self._t0) * 1e6,
+            "dur": (end_s - start_s) * 1e6,
+            "pid": 0,
+            "tid": self._tid(),
+            "args": dict(args),
+        })
+
+    def instant(self, name: str, **args) -> None:
+        """Zero-duration marker event."""
+        self._append({
+            "name": name,
+            "ph": "i",
+            "ts": self._now_us(),
+            "s": "t",
+            "pid": 0,
+            "tid": self._tid(),
+            "args": dict(args),
+        })
+
+    @property
+    def events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def window(self, since_s: float | None = None) -> dict:
+        """The ring as one self-describing dict — what ``GET /trace``
+        serves (the JAX package's trace-join wire format).
+
+        Carries everything a joiner needs to NOT silently render a
+        partial tree: ``dropped`` (ring evictions so far) plus the
+        retained window's bounds (``begin_us``/``end_us``, relative µs
+        like the event timestamps) — a chain whose root predates
+        ``begin_us`` is provably incomplete, not merely sparse.
+        ``since_s`` (unix seconds) filters to events ending at or after
+        that wall-clock instant (incremental pulls)."""
+        with self._lock:
+            events = list(self._events)
+            dropped = self.dropped
+        end_us = self._now_us()
+        begin_us = events[0]["ts"] if events else end_us
+        if since_s is not None:
+            cut_us = (float(since_s) - self.t0_unix) * 1e6
+            events = [e for e in events
+                      if e["ts"] + e.get("dur", 0.0) >= cut_us]
+        return {
+            "process": self._process_name,
+            "pid": os.getpid(),
+            "t0_unix": self.t0_unix,
+            "dropped": dropped,
+            "max_events": self.max_events,
+            "begin_us": begin_us,
+            "end_us": end_us,
+            "events": events,
+        }
+
+    def export(self, path: str) -> str:
+        """Write the Chrome trace JSON; returns the path."""
+        meta = [
+            {
+                "name": "process_name",
+                "ph": "M",
+                "pid": 0,
+                "args": {"name": self._process_name},
+            }
+        ]
+        with self._lock:
+            dropped = self.dropped
+        if dropped:
+            meta.append({
+                "name": "events_dropped",
+                "ph": "M",
+                "pid": 0,
+                "args": {"dropped": dropped,
+                         "max_events": self.max_events},
+            })
+        doc = {"traceEvents": meta + self.events, "displayTimeUnit": "ms"}
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        # span args can carry request-derived floats; non-finite -> null
+        # keeps trace.json loadable by Perfetto's strict parser.
+        # Serialize BEFORE opening so the
+        # all-finite common case never deep-copies a 200k-event ring and
+        # a non-finite fallback can't leave a truncated file behind.
+        try:
+            body = json.dumps(doc, allow_nan=False)
+        except ValueError:
+            body = json.dumps(jsonfinite(doc))
+        with open(path, "w") as f:
+            f.write(body)
+        return path

@@ -1,0 +1,277 @@
+"""The ``Telemetry`` facade (``cgnn_tpu/observe/telemetry.py``): one
+object the training and serving stacks thread through.
+
+Levels (the train entry point's ``--telemetry`` flag):
+
+- ``off``   — a true no-op: no files, no spans, no tap anywhere.
+- ``epoch`` — the default: epoch records in ``metrics.jsonl``, host span
+  tracing (``trace.json``), the run manifest and end-of-run gauges. No
+  tap is put into any step.
+- ``step``  — everything above plus the per-step stream
+  (``StepStream``, a ring on the device written by the replayed step
+  graphs) and the in-graph grad-health metrics.
+
+Counter, gauge and series summaries are buffered and flushed at
+``close()`` (registered with ``atexit``), so the first records in
+``metrics.jsonl`` are the epoch-0 aggregates and the ``run_summary``,
+``padding`` and ``hbm`` events come after the epoch records. The JAX
+facade's lock is racecheck-instrumented; the port's is a plain
+``threading.Lock`` (racecheck is ROADMAP Queue 1, item 13).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+from typing import Callable, Iterator
+
+from cgnn_tpu_torch.observe.gauges import (
+    cache_gauges,
+    device_gauges,
+    hbm_gauges,
+    ingest_gauges,
+    padding_gauges,
+    pipeline_gauges,
+    priority_gauges,
+)
+from cgnn_tpu_torch.observe.metrics_io import MetricsLogger
+from cgnn_tpu_torch.observe.spans import SpanTracer
+from cgnn_tpu_torch.observe.stream import StepStream
+
+LEVELS = ("off", "epoch", "step")
+
+
+class Telemetry:
+    """Metric sink + span tracer + step stream + gauges, behind one level
+    switch. Every method is safe (a no-op) at ``off``, so call sites never
+    branch — except where putting a TAP into a step is the difference,
+    which is exactly what ``stream is None`` gates."""
+
+    def __init__(self, level: str = "epoch", log_dir: str = "",
+                 use_clu: bool = True, series_window_s: float = 900.0):
+        if level not in LEVELS:
+            raise ValueError(f"telemetry level {level!r} not in {LEVELS}")
+        self.level = level
+        # value-series retention window (observe_value docstring); the
+        # run-summary quantiles at close cover at most this much history
+        self.series_window_s = float(series_window_s)
+        self.enabled = level != "off"
+        self.step_level = level == "step"
+        self.log_dir = log_dir
+        self.logger: MetricsLogger | None = None
+        self.spans: SpanTracer | None = None
+        self.stream: StepStream | None = None
+        if self.enabled:
+            self.logger = MetricsLogger(log_dir, use_clu=use_clu)
+            self.spans = SpanTracer()
+        if self.step_level:
+            self.stream = StepStream(self.logger)
+        self._lock = threading.Lock()
+        self._counters: dict[str, float] = {}
+        self._gauges: dict[str, float] = {}
+        self._series: dict = {}
+        self._pending_events: list[tuple[str, dict]] = []
+        self._padding_stats = None
+        self._warmups = 0
+        self._summary_written = False
+        self._closed = False
+        if self.enabled:
+            # a run that crashes mid-training is exactly the run whose
+            # telemetry matters: flush the summary and export the span
+            # trace at interpreter exit if close() was never reached
+            import atexit
+
+            atexit.register(self.close)
+
+    @classmethod
+    def disabled(cls) -> "Telemetry":
+        return cls(level="off")
+
+    # ---- spans ----
+
+    def span(self, name: str, **args) -> contextlib.AbstractContextManager:
+        if self.spans is None:
+            return contextlib.nullcontext()
+        return self.spans.span(name, **args)
+
+    # ---- epoch records ----
+
+    def write_scalars(self, step: int, values: dict, prefix: str = "") -> None:
+        if self.logger is not None:
+            self.logger.write(step, values, prefix=prefix)
+
+    def write_epoch(self, epoch: int, train_m: dict, val_m: dict) -> None:
+        self.write_scalars(epoch, train_m, prefix="train")
+        self.write_scalars(epoch, val_m, prefix="val")
+
+    # ---- manifest ----
+
+    def write_manifest(self, config: dict | None = None, **extra) -> None:
+        if not self.enabled:
+            return
+        from cgnn_tpu_torch.observe.manifest import write_manifest
+
+        write_manifest(self.log_dir, config, **extra)
+
+    # ---- gauges / counters (buffered; flushed at close) ----
+
+    def counter_add(self, name: str, value: float) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            if self._warmups:
+                return  # warm-up runs are not run work
+            self._counters[name] = self._counters.get(name, 0.0) + float(value)
+
+    def counters(self) -> dict:
+        with self._lock:
+            return dict(self._counters)
+
+    def set_gauge(self, name: str, value: float) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            self._gauges[name] = float(value)
+
+    def gauges(self) -> dict:
+        """Live gauge view (the export registry scrapes this)."""
+        with self._lock:
+            return dict(self._gauges)
+
+    def observe_value(self, name: str, value: float,
+                      keep: int = 8192) -> None:
+        """Append one sample to a windowed value series (latencies, batch
+        occupancies). At close the series flushes as p50/p95/p99 + mean +
+        count gauges in the run summary.
+
+        Retention (observe.export.RollingSeries) is bounded both ways:
+        at most ``keep`` samples and nothing older than
+        ``series_window_s`` (default 15 min). The export registry reads
+        narrower sub-windows (60 s) for live scrapes via
+        ``series_quantiles(window_s=...)``."""
+        if not self.enabled:
+            return
+        from cgnn_tpu_torch.observe.export import RollingSeries
+
+        with self._lock:
+            series = self._series.get(name)
+            if series is None or series.max_samples != keep:
+                old = series
+                series = RollingSeries(window_s=self.series_window_s,
+                                       max_samples=keep)
+                if old is not None:
+                    series.reseed_from(old)
+                self._series[name] = series
+        series.add(float(value))
+
+    def series_names(self) -> list[str]:
+        with self._lock:
+            return list(self._series)
+
+    def series_quantiles(self, name: str,
+                         window_s: float | None = None) -> dict:
+        """{p50, p95, p99, mean, count} for one series ({} if empty).
+
+        Default: everything retained (the run-summary view). Pass
+        ``window_s`` for a live sub-window — the /metrics scrape."""
+        with self._lock:
+            series = self._series.get(name)
+        if series is None:
+            return {}
+        return series.quantiles(window_s=window_s)
+
+    def observe_padding(self, stats) -> None:
+        """Remember the run's PaddingStats; per-bucket gauges are derived
+        at close (the stats object keeps accumulating until then)."""
+        if self.enabled:
+            self._padding_stats = stats
+
+    def sample_hbm(self, tag: str) -> None:
+        """Sample each device's memory now; the records flush at close."""
+        if not self.enabled:
+            return
+        recs = [dict(r, tag=tag) for r in hbm_gauges()]
+        with self._lock:
+            self._pending_events.extend(("hbm", r) for r in recs)
+
+    # ---- step-stream passthroughs (no-ops below step level) ----
+
+    def wrap_train_body(self, body: Callable, phase: str = "train") -> Callable:
+        return body if self.stream is None else self.stream.wrap_train(
+            body, phase)
+
+    def wrap_eval_body(self, body: Callable, phase: str = "eval") -> Callable:
+        return body if self.stream is None else self.stream.wrap_eval(
+            body, phase)
+
+    @contextlib.contextmanager
+    def warmup(self) -> Iterator[None]:
+        """Mute the step stream AND the counters for warm-up and capture
+        runs (they run the real steps but are not run work)."""
+        with self._lock:
+            self._warmups += 1
+        try:
+            if self.stream is None:
+                yield
+            else:
+                with self.stream.muted():
+                    yield
+        finally:
+            with self._lock:
+                self._warmups -= 1
+
+    # ---- teardown ----
+
+    def flush_summary(self) -> None:
+        """Write the buffered gauges/counters/HBM/padding events to
+        metrics.jsonl, once a run (a second call is a no-op)."""
+        if not self.enabled or self.logger is None:
+            return
+        with self._lock:
+            if self._summary_written:
+                return
+            self._summary_written = True
+            pending, self._pending_events = self._pending_events, []
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            series_names = list(self._series)
+        for name in series_names:
+            q = self.series_quantiles(name)
+            for stat, v in q.items():
+                gauges[f"{name}_{stat}"] = v
+        for name, rec in pending:
+            self.logger.event(name, rec)
+        if self._padding_stats is not None:
+            for rec in padding_gauges(self._padding_stats):
+                self.logger.event("padding", rec)
+        scan = counters.get("scan_steps", 0.0)
+        per_step = counters.get("per_step_steps", 0.0)
+        if scan + per_step > 0:
+            gauges["scan_dispatch_share"] = scan / (scan + per_step)
+        gauges.update(pipeline_gauges(counters, gauges))
+        gauges.update(device_gauges(counters, gauges))
+        gauges.update(ingest_gauges(counters, gauges))
+        gauges.update(priority_gauges(counters, gauges))
+        gauges.update(cache_gauges(counters, gauges))
+        if counters or gauges:
+            self.logger.event("run_summary", {
+                "counters": counters, "gauges": gauges,
+            })
+
+    def close(self) -> None:
+        if self._closed or not self.enabled:
+            self._closed = True
+            return
+        if self.stream is not None:
+            # every queued row lands in metrics.jsonl before the summary
+            self.stream.close()
+        self.flush_summary()
+        if self.spans is not None:
+            self.spans.export(os.path.join(self.log_dir, "trace.json"))
+        if self.logger is not None:
+            self.logger.close()
+        self._closed = True
+        import atexit
+
+        atexit.unregister(self.close)

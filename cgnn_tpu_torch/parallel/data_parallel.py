@@ -72,6 +72,7 @@ import torch
 
 from cgnn_tpu_torch.data import invariants
 from cgnn_tpu_torch.data.graph import GraphBatch, batch_shape_key
+from cgnn_tpu_torch.observe.health import step_with_health
 from cgnn_tpu_torch.parallel import dist
 from cgnn_tpu_torch.resilience.guard import StepGuard
 
@@ -363,14 +364,17 @@ class ParallelTrainStep:
     parameters that have one, every persistent floating buffer of the
     model (the BatchNorm statistics; a constant such as the force
     field's Gaussian centres is not state and stays out), then the
-    metric sums, in the parameters' dtype."""
+    metric sums, in the parameters' dtype. ``grad_health`` adds the
+    grad-health metrics (observe/health.py) in ``apply_part``, from the
+    averaged gradients, so every rank holds the same values."""
 
     def __init__(self, grad_step: Callable, reducer: Callable, world: int,
-                 guard: bool = False):
+                 guard: bool = False, grad_health: bool = False):
         self.grad_step = grad_step
         self.reducer = reducer
         self.world = int(world)
         self.guard = StepGuard() if guard else None
+        self.grad_health = grad_health
         self.bucket: torch.Tensor | None = None
         self._params: list = []
         self._buffers: list = []
@@ -429,9 +433,13 @@ class ParallelTrainStep:
             torch._foreach_copy_(self._buffers, views[n_p:])
         for p, g in zip(self._params, views[:n_p]):
             p.grad = g
-        state.optimizer.step()
         summed = self.bucket[n_avg:].clone()
         metrics = dict(zip(self._keys, summed.unbind()))
+        if self.grad_health:
+            # from the averaged gradients, so every rank holds the same
+            metrics = step_with_health(state, metrics, state.optimizer.step)
+        else:
+            state.optimizer.step()
         if self.guard is not None:
             metrics = self.guard.select(state, metrics)
         return metrics
@@ -444,7 +452,8 @@ class ParallelTrainStep:
 
 def make_parallel_train_step(classification: bool = False,
                              guard: bool = False,
-                             grad_step: Callable | None = None
+                             grad_step: Callable | None = None,
+                             grad_health: bool = False
                              ) -> ParallelTrainStep:
     """The data-parallel train step over the live process group's data
     group: ``step(state, batch)`` with this rank's batch -> the metric
@@ -457,7 +466,8 @@ def make_parallel_train_step(classification: bool = False,
     group = dist.data_group()
     return ParallelTrainStep(
         grad_step or make_grad_step(classification=classification),
-        dist.SumReducer(group), group.size if group else 1, guard=guard)
+        dist.SumReducer(group), group.size if group else 1, guard=guard,
+        grad_health=grad_health)
 
 
 def sum_reducer_for_sums() -> Callable:

@@ -26,6 +26,15 @@ listener and exits:
 The default device is the card, which raises without one; ``--device
 cpu`` runs the kernels' plain versions.
 
+Observability, as ``serve.py``: ``GET /metrics`` (serve/http.py) always;
+``--telemetry-dir DIR`` writes the serving ``metrics.jsonl`` there (the
+``run_summary`` with the latency, pack and occupancy series and the
+per-device gauges at exit) and ``trace.json`` (the ``serve.request``,
+``serve.pack`` and ``serve.dispatch`` spans); ``--live-metrics SECS``
+appends the registry's snapshot to ``metrics_live.jsonl`` (in the
+telemetry dir, else the checkpoint dir) every SECS seconds; ``--log-json``
+logs one JSON line an event (role, pid, trace id) to stderr.
+
 ``--precision f32,bf16,int8`` warms those tiers (serve/quantize.py; a
 request picks one with its ``precision`` field); ``--devices`` ``auto``
 (every visible card) or N (the first N; more than exist exits 2, never
@@ -33,10 +42,9 @@ clamped); ``--engine`` ``auto`` (mesh over more than one card), ``mesh`` or
 ``threads``, as ``serve.py`` takes them.
 
 Flags refused, exit 2, each naming its ROADMAP item (Queue 1):
-``--telemetry-dir``,
-``--live-metrics``, ``--profile-dir``, ``--trace-ring``,
-``--flightrec-dir``, ``--log-json`` and the SLO flags (``--no-slo``,
-``--slo-*``, ``--class-slo-ms``) (item 11); ``--journal`` (item 12).
+``--profile-dir``, ``--trace-ring``, ``--flightrec-dir`` and the SLO
+flags (``--no-slo``, ``--slo-*``, ``--class-slo-ms``) (item 11);
+``--journal`` (item 12).
 ``--compile-cache`` has no counterpart (nothing is compiled by XLA) and
 is refused when set.
 """
@@ -52,12 +60,9 @@ import time
 
 # flags of serve.py whose modules are not ported: (dest, flag, item)
 _REFUSED = (
-    ("telemetry_dir", "--telemetry-dir", "11"),
-    ("live_metrics", "--live-metrics", "11"),
     ("profile_dir", "--profile-dir", "11"),
     ("trace_ring", "--trace-ring", "11"),
     ("flightrec_dir", "--flightrec-dir", "11"),
-    ("log_json", "--log-json", "11"),
     ("no_slo", "--no-slo", "11"),
     ("slo_target", "--slo-target", "11"),
     ("slo_latency_ms", "--slo-latency-ms", "11"),
@@ -142,11 +147,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-device execution layer: 'mesh' (auto with "
                         ">1 device) runs each flush as one sharded dispatch; "
                         "'threads' routes flushes to per-device threads")
+    p.add_argument("--telemetry-dir", type=str, default="",
+                   help="write serving metrics.jsonl and trace.json here "
+                        "('' disables)")
+    p.add_argument("--live-metrics", type=float, default=0.0,
+                   metavar="SECS",
+                   help="append a registry snapshot (counters, gauges, "
+                        "rolling quantiles) to metrics_live.jsonl every "
+                        "SECS seconds (0 disables); the same live view "
+                        "GET /metrics serves in Prometheus format")
+    p.add_argument("--log-json", action="store_true",
+                   help="one JSON line an event (role, pid, trace id) "
+                        "on stderr instead of plain prints")
     # not ported: parsed so that asking for it is refused by name
     p.add_argument("--compile-cache", default="", metavar="DIR",
                    help="no counterpart in the port: refused when set")
     for dest, flag, item in _REFUSED:
-        if dest in ("log_json", "no_slo"):
+        if dest == "no_slo":
             p.add_argument(flag, action="store_true",
                            help=f"not ported (ROADMAP Queue 1, item {item})")
         else:
@@ -174,6 +191,8 @@ def main(argv=None) -> int:
         print(why, file=sys.stderr)
         return 2
     from cgnn_tpu_torch.device import resolve_device
+    from cgnn_tpu_torch.observe.log import json_log_fn
+    from cgnn_tpu_torch.observe.telemetry import Telemetry
     from cgnn_tpu_torch.resilience import faultinject
     from cgnn_tpu_torch.resilience.preempt import RESUMABLE_EXIT_CODE
     from cgnn_tpu_torch.serve.batcher import parse_kv_spec
@@ -182,7 +201,10 @@ def main(argv=None) -> int:
     from cgnn_tpu_torch.serve.quantize import parse_precisions
     from cgnn_tpu_torch.serve.server import load_server
 
-    log = functools.partial(print, flush=True)
+    # one sink for what this process logs: JSON lines (role, pid, trace
+    # id) under --log-json, plain prints otherwise
+    log = (json_log_fn("replica") if args.log_json
+           else functools.partial(print, flush=True))
     fault_plan = faultinject.plan()
     if fault_plan is not None:
         print(f"FAULT INJECTION ACTIVE: {fault_plan.describe()}",
@@ -198,6 +220,8 @@ def main(argv=None) -> int:
     except ValueError as e:  # an unknown tier; more devices than exist
         print(str(e), file=sys.stderr)
         return 2
+    telemetry = (Telemetry(level="epoch", log_dir=args.telemetry_dir)
+                 if args.telemetry_dir else Telemetry.disabled())
     calibration = None
     if args.calibration_cache:
         from cgnn_tpu_torch.data.cache import load_graph_cache
@@ -232,6 +256,7 @@ def main(argv=None) -> int:
             # ready=false meanwhile instead of refusing connections
             warm=False,
             log_fn=log,
+            telemetry=telemetry,
         )
     except (FileNotFoundError, NotImplementedError) as e:
         # a missing checkpoint, or one whose task is not served (force)
@@ -241,6 +266,15 @@ def main(argv=None) -> int:
         server.watcher.set_gate(server.version)
         log(f"reload gate held at boot version {server.version} (POST "
             f"/reload-control to promote)")
+    live_writer = None
+    if args.live_metrics > 0:
+        from cgnn_tpu_torch.observe.export import LiveMetricsWriter
+
+        live_writer = LiveMetricsWriter(
+            server.registry,
+            os.path.join(args.telemetry_dir or args.ckpt_dir,
+                         "metrics_live.jsonl"),
+            interval_s=args.live_metrics).start()
     httpd = make_http_server(server, host=args.host, port=args.port)
     stop = threading.Event()
     handler = server.install_signal_handlers()
@@ -263,7 +297,8 @@ def main(argv=None) -> int:
         f"device(s) from {server.device}, {server.engine} engine; tiers "
         f"{','.join(server.precisions)}; wire: {wire}; "
         f"compact: {server.shape_set.compact is not None}; pack workers: "
-        f"{server.stats()['ingest']['pack_workers']})")
+        f"{server.stats()['ingest']['pack_workers']}; live plane: GET "
+        f"/metrics)")
     try:
         while not stop.wait(0.5):
             pass
@@ -277,12 +312,15 @@ def main(argv=None) -> int:
     httpd.shutdown()
     httpd.server_close()
     handler.uninstall()
+    if live_writer is not None:
+        live_writer.stop()
     stats = server.stats()
     lat = stats["latency_ms"]
     if lat:
         log(f"drained: {stats['counts']['responses']} responses, "
             f"{stats['counts']['cache_hits']} cache hits, p50 "
             f"{lat['p50']:.1f} ms / p99 {lat['p99']:.1f} ms")
+    telemetry.close()
     if not clean:
         # a wedged flush must not hold shutdown forever: a daemon worker
         # blocked in it could pin interpreter teardown, so exit at once

@@ -34,9 +34,10 @@ A request whose own deadline passed while queued is returned in
 
 The decision core, ``poll(now)``, takes its clock from the caller, so it
 is testable without threads; ``next_flush``
-adds the blocking loop the server's worker runs. Not ported: the racecheck
-instrumentation and the queue-wait histogram (ROADMAP Queue 1, items 11
-and 13).
+adds the blocking loop the server's worker runs. ``queue_wait_hist`` (an
+``observe.hist.Histogram``) takes each fired request's enqueue-to-flush
+wait in ms at the flush decision. Not ported: the racecheck
+instrumentation (ROADMAP Queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -199,6 +200,10 @@ class Flush:
     def __bool__(self) -> bool:
         return bool(self.requests or self.expired)
 
+    def trace_ids(self) -> list:
+        """The members' trace ids (a span's join keys)."""
+        return [r.trace_id for r in self.requests]
+
 
 class MicroBatcher:
     """Bounded priority queue + the flush policy of the module
@@ -213,12 +218,16 @@ class MicroBatcher:
         class_max_wait_ms: dict | None = None,
         backfill: bool = True,
         wfq_weights: dict | None = None,
+        queue_wait_hist=None,
     ):
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.shape_set = shape_set
         self.max_queue = max_queue
         self.max_wait = max_wait_ms / 1000.0
+        # each fired request's enqueue -> flush wait (ms), at the flush
+        # decision; None keeps the hot path untouched
+        self.queue_wait_hist = queue_wait_hist
         self.class_wait = {c: self.max_wait * _DEFAULT_WAIT_MULT[c]
                            for c in CLASSES}
         for c, ms in (class_max_wait_ms or {}).items():
@@ -422,6 +431,9 @@ class MicroBatcher:
                     self._slack_total += slack
             drop = set(map(id, fired)) | set(map(id, expired))
             self._queue = [r for r in self._queue if id(r) not in drop]
+            if self.queue_wait_hist is not None:
+                for r in fired:
+                    self.queue_wait_hist.observe((now - r.enqueued) * 1e3)
             if fired:
                 self._vtime = max(self._vtime, max(r.vft for r in fired))
             self._flush_seq += 1

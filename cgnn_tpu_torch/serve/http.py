@@ -26,6 +26,10 @@ deadlines, backpressure, the cache, reload) lives in serve/server.py:
   entry point binds before ``warm()``, so a warming server answers
   ready=false instead of refusing connections.
 - ``GET /stats``: the server's ``stats()``.
+- ``GET /metrics``: the Prometheus scrape, ``server.registry.
+  prometheus_text()`` (text exposition format 0.0.4): the request
+  counters, the queue, device and edge-occupancy gauges, the rolling
+  latency and occupancy summaries and the mergeable histograms.
 - ``POST /reload-control``: ``{"pin": name|null, "gate": name|null}``
   drives the reload watcher (serve/reload.py); 501 without one.
 
@@ -34,10 +38,14 @@ oversize, 429 queue full, 503 draining or warming, 504 deadline; 429 and
 503 carry ``Retry-After`` (1 s and 5 s). A flush that fails answers its
 members 500 (``dispatch_failed``).
 
+A ``/predict`` is answered with its trace id bound
+(``observe.log.bind_trace``), so a ``--log-json`` line logged on the
+handler's thread meanwhile carries it.
+
 Routes whose modules are not ported answer as the JAX handler answers a
-path it does not serve (404): ``GET /metrics``, ``/timeseries``,
-``/trace``, ``/flightrec`` and ``POST /profile`` (ROADMAP Queue 1, item
-11); ``POST /label`` and ``/cache-fill`` (item 12).
+path it does not serve (404): ``GET /timeseries``, ``/trace``,
+``/flightrec`` and ``POST /profile`` (ROADMAP Queue 1, item 11);
+``POST /label`` and ``/cache-fill`` (item 12).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import numpy as np
 
 from cgnn_tpu_torch.data.graph import CrystalGraph
 from cgnn_tpu_torch.data.rawbatch import RawStructure
+from cgnn_tpu_torch.observe.log import bind_trace
 from cgnn_tpu_torch.observe.metrics_io import jsonfinite
 from cgnn_tpu_torch.observe.tracectx import TRACE_PARENT_HEADER, parse_parent
 from cgnn_tpu_torch.resilience import faultinject
@@ -119,6 +128,15 @@ def make_handler(server):
             self.end_headers()
             self.wfile.write(body)
 
+        def _reply_text(self, status: int, text: str,
+                        content_type: str) -> None:
+            body = text.encode()
+            self.send_response(status)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
         def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler API
             if self.path == "/healthz":
                 draining = server.draining
@@ -134,6 +152,11 @@ def make_handler(server):
                         "Retry-After": str(_RETRY_AFTER_S[SHUTDOWN])})
             elif self.path == "/stats":
                 self._reply(200, server.stats())
+            elif self.path == "/metrics":
+                # the live registry, in the text exposition format
+                self._reply_text(
+                    200, server.registry.prometheus_text(),
+                    "text/plain; version=0.0.4; charset=utf-8")
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
@@ -204,14 +227,15 @@ def make_handler(server):
             fingerprint = (self.headers.get("X-Fingerprint")
                            or payload.get("fingerprint"))
             try:
-                result = server.predict(
-                    graph, timeout_ms=timeout_ms, trace_id=trace_id,
-                    precision=payload.get("precision"),
-                    trace_parent=trace_parent,
-                    klass=(payload.get("class")
-                           or payload.get("priority")),
-                    tenant=payload.get("tenant"),
-                    fingerprint=fingerprint)
+                with bind_trace(trace_id or ""):
+                    result = server.predict(
+                        graph, timeout_ms=timeout_ms, trace_id=trace_id,
+                        precision=payload.get("precision"),
+                        trace_parent=trace_parent,
+                        klass=(payload.get("class")
+                               or payload.get("priority")),
+                        tenant=payload.get("tenant"),
+                        fingerprint=fingerprint)
             except ServeRejection as e:
                 headers = None
                 if e.reason in _RETRY_AFTER_S:

@@ -83,9 +83,22 @@ bf16 edge features on every wire (``ShapeSet.edge_dtype``, from the
 meta's ``dtype``) and run the bf16 kernel instances; a classifier answers
 its ``num_classes`` log-probs, a multi-task model its T targets.
 
-Not ported yet: the edge-occupancy gauges, the telemetry, span, SLO,
-time-series and flight-recorder plane (ROADMAP Queue 1, item 11), the
-label journal and peer cache fill (item 12).
+Observability (the JAX server's, cgnn_tpu_torch/observe): ``registry``
+(a ``MetricsRegistry`` with the ``serve`` provider, ``_registry_snapshot``)
+is the scrape point behind ``GET /metrics`` and ``stats()["rolling"]``:
+the request counters, the queue, drain, warm and device gauges, each
+rung's edge-slot occupancy (``ingest_rung{i}_edge_occupancy``: a raw
+flush's true edge count from the device over its slots, a featurized
+flush's host-known edges over the rung's), the 60 s rolling latency and
+occupancy series, and three mergeable histograms (``hists``: latency,
+queue wait, flush occupancy). ``telemetry`` (an ``observe.Telemetry``;
+the entry point's ``--telemetry-dir``) mirrors the counters as
+``serve_*``, keeps the value series, records the ``serve.request``,
+``serve.pack`` and ``serve.dispatch`` spans, and takes the per-entry
+device gauges at the drain. Not ported yet: the SLO engine, time-series
+store, flight recorder, trace ring and profiling (ROADMAP Queue 1, item
+11, parts 3-5; the registry leaves their gauges out), the label journal
+and peer cache fill (item 12).
 """
 
 from __future__ import annotations
@@ -117,6 +130,15 @@ from cgnn_tpu_torch.data.rawbatch import (
 )
 from cgnn_tpu_torch.data.structure import Structure
 from cgnn_tpu_torch.device import resolve_device
+from cgnn_tpu_torch.observe.export import MetricsRegistry, RollingSeries
+from cgnn_tpu_torch.observe.gauges import cache_gauges
+from cgnn_tpu_torch.observe.hist import (
+    LATENCY_MS_BOUNDS,
+    OCCUPANCY_BOUNDS,
+    QUEUE_WAIT_MS_BOUNDS,
+    Histogram,
+)
+from cgnn_tpu_torch.observe.telemetry import Telemetry
 from cgnn_tpu_torch.resilience import faultinject
 from cgnn_tpu_torch.serve.batcher import (
     CLASSES,
@@ -186,7 +208,8 @@ class InferenceServer:
     fails its flush. ``raw_precheck=False`` skips the host image-cap check
     at admission and leaves the decision to the device's overflow flag.
     ``pack_workers`` packer threads pack flushes while the worker replays
-    (0: the worker packs). ``cache_size`` 0 disables the result cache."""
+    (0: the worker packs). ``cache_size`` 0 disables the result cache.
+    ``telemetry``: module docstring (None: off)."""
 
     def __init__(
         self,
@@ -209,6 +232,7 @@ class InferenceServer:
         precisions: Sequence[str] = ("f32",),
         log_fn: Callable = print,
         raw_precheck: bool = True,
+        telemetry: Telemetry | None = None,
     ):
         entries = [canonical(resolve_device(d)) for d in
                    (devices if devices is not None else [device])]
@@ -238,10 +262,19 @@ class InferenceServer:
         self._pool = None if shape_set.compact is None else BufferPool()
         self._pack_workers = max(0, int(pack_workers))
         self._raw_precheck = bool(raw_precheck)
+        self.telemetry = telemetry or Telemetry.disabled()
+        # mergeable fixed-bucket histograms beside the rolling quantiles
+        # (observe/hist.py): integer bucket counts add across processes
+        self.hists: dict[str, Histogram] = {
+            "serve_latency_ms_hist": Histogram(LATENCY_MS_BOUNDS),
+            "serve_queue_wait_ms_hist": Histogram(QUEUE_WAIT_MS_BOUNDS),
+            "serve_flush_occupancy_hist": Histogram(OCCUPANCY_BOUNDS),
+        }
         self.batcher = MicroBatcher(
             shape_set, max_queue=max_queue, max_wait_ms=max_wait_ms,
             class_max_wait_ms=class_max_wait_ms, backfill=backfill,
-            wfq_weights=wfq_weights)
+            wfq_weights=wfq_weights,
+            queue_wait_hist=self.hists["serve_queue_wait_ms_hist"])
         self.default_timeout = (
             None if default_timeout_ms is None else default_timeout_ms / 1000.0
         )
@@ -272,6 +305,17 @@ class InferenceServer:
         }
         self._latencies: list[float] = []
         self._occupancies: list[float] = []
+        # each rung's last edge-slot occupancy (the cap-calibration
+        # signal, /metrics and stats())
+        self._rung_edge_occ: dict[int, float] = {}
+        # what the last 60 s looked like, whatever the telemetry level:
+        # stats()["rolling"] and the /metrics scrape
+        self.rolling_window_s = 60.0
+        self._lat_rolling = RollingSeries(window_s=self.rolling_window_s)
+        self._occ_rolling = RollingSeries(window_s=self.rolling_window_s)
+        self.registry = MetricsRegistry(window_s=self.rolling_window_s)
+        self.registry.attach_telemetry(self.telemetry)
+        self.registry.add_provider("serve", self._registry_snapshot)
         # where the worker's time goes (s): packing on the worker (the
         # in-line path), waiting on the pack stage, and dispatch (copy,
         # replay, fetch, answers); the packers' own time is in _pipe
@@ -311,7 +355,7 @@ class InferenceServer:
                               template.edge_fea.shape[1])
         raw = self.shape_set.raw
         n = len(self.device_set)
-        with self._locked():
+        with self._locked(), self.telemetry.warmup():
             for shape in self.shape_set:
                 forms = {"full": self.shape_set.pack_full([template],
                                                           shape=shape)}
@@ -464,9 +508,14 @@ class InferenceServer:
             self._watcher.stop()
         if self._worker is None:
             self._serve_loop()  # never started: answer accepted work here
-            return True
-        self._worker.join(timeout=timeout_s)
-        return not self._worker.is_alive()
+            done = True
+        else:
+            self._worker.join(timeout=timeout_s)
+            done = not self._worker.is_alive()
+        self.telemetry.set_gauge("serve_drained_clean", float(done))
+        # the per-entry dispatch gauges into the run summary
+        self.device_set.flush_gauges(self.telemetry)
+        return done
 
     # ---- request path ----
 
@@ -679,11 +728,15 @@ class InferenceServer:
         self._count("cache_hits")
         fut = RequestFuture()
         latency_ms = (time.monotonic() - t0) * 1e3
+        replied = time.perf_counter()
         fut.set_result(ServeResult(
             prediction=row, param_version=version, latency_ms=latency_ms,
             cached=True, precision=tier, device_id=-1, trace_id=tid,
-            stamps={"queued": queued, "replied": time.perf_counter()},
+            stamps={"queued": queued, "replied": replied},
             wire="raw" if form == "raw" else "featurized", klass=kl))
+        if self._spans_on:
+            self._span("serve.request", queued, replied, trace_id=tid,
+                       cached=True)
         self._record_latency(latency_ms)
         self._count(f"responses_class_{kl}")
         return fut
@@ -705,14 +758,17 @@ class InferenceServer:
                 w["future"].set_error(err)
                 continue
             latency_ms = (time.monotonic() - w["t0"]) * 1e3
+            replied = time.perf_counter()
             w["future"].set_result(ServeResult(
                 prediction=res.prediction, param_version=res.param_version,
                 latency_ms=latency_ms, cached=res.cached,
                 device_id=res.device_id, trace_id=w["trace_id"],
                 precision=w["tier"],
-                stamps={"queued": w["queued"],
-                        "replied": time.perf_counter()},
+                stamps={"queued": w["queued"], "replied": replied},
                 wire=res.wire, klass=w["klass"], coalesced=True))
+            if self._spans_on:
+                self._span("serve.request", w["queued"], replied,
+                           trace_id=w["trace_id"], coalesced=True)
             self._record_latency(latency_ms)
             self._count("responses")
             self._count(f"responses_class_{w['klass']}")
@@ -769,8 +825,12 @@ class InferenceServer:
                 self._log(f"serve: pack pipeline error: {e!r}")
                 continue
             # the wait for the next flush, less packing done in line
-            self._timing["wait_s"] += (time.perf_counter() - t0
-                                       - (self._timing["pack_s"] - packed0))
+            wait = (time.perf_counter() - t0
+                    - (self._timing["pack_s"] - packed0))
+            self._timing["wait_s"] += wait
+            if self._pack_workers > 0:
+                # the worker's stall on the packers (the JAX series)
+                self.telemetry.observe_value("pipeline_wait_s", wait)
             yield item
 
     def _serve_loop_multidev(self) -> None:
@@ -848,6 +908,11 @@ class InferenceServer:
         flush.stamps["packed"] = t1
         if self._pack_workers == 0:
             self._timing["pack_s"] += t1 - t0
+        if self._spans_on:
+            self._span("serve.pack", t0, t1, flush_id=flush.flush_id,
+                       n=len(flush.requests), trace_ids=flush.trace_ids(),
+                       error=repr(err) if err is not None else "")
+        self.telemetry.observe_value("serve_pack_s", t1 - t0)
         return flush, batch, buf, err
 
     def _pack_flush(self, flush: Flush):
@@ -967,6 +1032,13 @@ class InferenceServer:
             else:
                 out = out.cpu().numpy()
             flush.stamps["fetched"] = time.perf_counter()
+        if self._spans_on:
+            self._span("serve.dispatch", flush.stamps["dispatched"],
+                       flush.stamps["fetched"], flush_id=flush.flush_id,
+                       device=entry, shape=str(flush.shape),
+                       trace_ids=flush.trace_ids())
+        self._count(f"batches_device{entry}")
+        self._note_edge_occupancy(flush, out[2] if raw else None)
         self._answer(flush, version, out, entry,
                      len(flush.requests) / flush.shape.graph_cap)
 
@@ -1011,9 +1083,18 @@ class InferenceServer:
             else:
                 out = out.cpu().numpy()
             flush.stamps["fetched"] = time.perf_counter()
+        if self._spans_on:
+            self._span("serve.dispatch", flush.stamps["dispatched"],
+                       flush.stamps["fetched"], flush_id=flush.flush_id,
+                       engine="mesh", shards=n, shape=str(shape),
+                       trace_ids=flush.trace_ids())
         for i, c in enumerate(counts):
             if c > 0:
                 self._count(f"batches_device{i}")
+        # one accounting with the other engines, over the n shards the
+        # dispatch spanned (n_edges comes back [n, G])
+        self._note_edge_occupancy(flush, out[2] if form == "raw" else None,
+                                  shape=shape, n_shards=n)
         # request j sat at shard j % N, row j // N (split_round_robin)
         self._answer(flush, version, out, None,
                      len(flush.requests) / (n * shape.graph_cap),
@@ -1044,14 +1125,26 @@ class InferenceServer:
             latency_ms = (now - r.enqueued) * 1e3
             if self.cache is not None and r.fingerprint is not None:
                 self.cache.put(r.fingerprint, (row, version))
+            stamps = {**r.stamps, **flush.stamps,
+                      "replied": time.perf_counter()}
             r.future.set_result(ServeResult(
                 prediction=row, param_version=version, latency_ms=latency_ms,
                 precision=tier, batch_occupancy=occupancy,
                 device_id=dev_id, trace_id=r.trace_id,
-                flush_id=flush.flush_id,
-                stamps={**r.stamps, **flush.stamps,
-                        "replied": time.perf_counter()},
+                flush_id=flush.flush_id, stamps=stamps,
                 wire=wire, klass=r.klass, backfilled=r.backfilled))
+            if self._spans_on:
+                args = {"trace_id": r.trace_id, "flush_id": flush.flush_id,
+                        "device": dev_id,
+                        "queue_ms": round((stamps["packed"]
+                                           - stamps["queued"]) * 1e3, 3),
+                        "dispatch_ms": round((stamps["fetched"]
+                                              - stamps["dispatched"]) * 1e3,
+                                             3)}
+                if r.trace_parent:
+                    args["parent"] = r.trace_parent
+                self._span("serve.request", stamps["queued"],
+                           stamps["replied"], **args)
             self._record_latency(latency_ms)
             self._count("responses")
             self._count(f"responses_class_{r.klass}")
@@ -1066,6 +1159,10 @@ class InferenceServer:
         with self._lock:
             self._occupancies.append(occupancy)
             del self._occupancies[:-4096]
+        self._occ_rolling.add(occupancy)
+        self.hists["serve_flush_occupancy_hist"].observe(occupancy)
+        self.telemetry.observe_value("serve_batch_occupancy", occupancy)
+        self.telemetry.set_gauge("serve_queue_depth", self.batcher.depth)
 
     def _fallback_overflow(self, r: Request) -> None:
         """Re-offer an overflow-flagged raw request as a featurized one
@@ -1093,11 +1190,114 @@ class InferenceServer:
     def _count(self, key: str) -> None:
         with self._lock:
             self.counts[key] = self.counts.get(key, 0) + 1
+        self.telemetry.counter_add(f"serve_{key}", 1)
 
     def _record_latency(self, latency_ms: float) -> None:
+        """One answered request (a cache hit too: a client got its
+        answer) into the recent list, the rolling series, the latency
+        histogram and the telemetry's series."""
         with self._lock:
             self._latencies.append(latency_ms)
             del self._latencies[:-8192]
+        self._lat_rolling.add(latency_ms)
+        self.hists["serve_latency_ms_hist"].observe(latency_ms)
+        self.telemetry.observe_value("serve_latency_ms", latency_ms)
+
+    @property
+    def _spans_on(self) -> bool:
+        return self.telemetry.spans is not None
+
+    def _span(self, name: str, start_s: float, end_s: float,
+              **args) -> None:
+        """One retro-stamped hop span into the telemetry's tracer
+        (trace.json at close)."""
+        self.telemetry.spans.complete(name, start_s, end_s, **args)
+
+    def _note_edge_occupancy(self, flush: Flush, raw_edges,
+                             shape=None, n_shards: int = 1) -> None:
+        """A rung's edge-slot occupancy (observe/gauges.py
+        ``ingest_gauges``; /metrics): a raw flush's true edge count from
+        the device (``n_edges``) over its edge slots, a featurized
+        flush's host-known edges over the rung's; the mesh engine passes
+        its common rung and shard count (the dispatch spanned
+        ``n_shards`` copies of the rung's slots)."""
+        shape = shape or flush.shape
+        try:
+            rung = self.shape_set.shapes.index(shape)
+        except ValueError:
+            return
+        if flush.form == "raw":
+            if raw_edges is None:
+                return
+            spec = self.shape_set.raw
+            slots = (n_shards * shape.graph_cap * spec.snode_cap
+                     * spec.dense_m)
+            occ = float(np.asarray(raw_edges).sum()) / max(slots, 1)
+        else:
+            occ = sum(r.graph.num_edges for r in flush.requests) \
+                / max(n_shards * shape.edge_cap, 1)
+        with self._lock:
+            self._rung_edge_occ[rung] = occ
+        self.telemetry.set_gauge(f"ingest_rung{rung}_edge_occupancy", occ)
+
+    def _registry_snapshot(self) -> dict:
+        """The ``serve`` provider of ``self.registry``: request counters,
+        live queue, drain and device gauges, each rung's edge occupancy,
+        the rolling-window series and the histograms, all readable with
+        telemetry off (the JAX provider's names; the gauges of the
+        unported SLO, time-series, flight-recorder, trace-ring and
+        profiling planes are left out)."""
+        with self._lock:
+            counts = dict(self.counts)
+            draining = self._draining
+            rung_occ = dict(self._rung_edge_occ)
+        counters = {f"serve_{k}": float(v) for k, v in counts.items()}
+        counters["pipeline_jobs"] = float(self._pipe.jobs)
+        counters["pipeline_pack_s"] = float(self._pipe.pack_s)
+        counters["pipeline_wait_s"] = float(self._timing["wait_s"])
+        # under its own (unprefixed) name: ingest_cap_overflow_total
+        counters["ingest_cap_overflow"] = float(
+            counts.get("ingest_cap_overflow", 0))
+        filled = self.batcher.backfilled_total
+        slack = self.batcher.slack_total
+        gauges = {
+            "serve_queue_depth": float(self.batcher.depth),
+            "serve_draining": float(draining),
+            "serve_warmed": float(self.warmed),
+            "serve_recompiles_after_warm":
+                float(self.graphs.captures_after_warm),
+            "serve_rolling_window_s": self.rolling_window_s,
+            "pipeline_pack_workers": float(self._pack_workers),
+            "device_count": float(len(self.device_set)),
+            "serve_engine_mesh": float(self.mesh_exec is not None),
+            "ingest_raw_wire": float(self.shape_set.raw is not None),
+        }
+        for rung, occ in sorted(rung_occ.items()):
+            gauges[f"ingest_rung{rung}_edge_occupancy"] = float(occ)
+        gauges["serve_backfill_enabled"] = float(self.batcher.backfill)
+        gauges["serve_padding_fill_share"] = filled / slack if slack else 0.0
+        counters["serve_backfill_filled_slots"] = float(filled)
+        counters["serve_backfill_slack_slots"] = float(slack)
+        if self.cache is not None:
+            hits, misses, size, capacity = self.cache.snapshot()
+            counters["serve_cache_lookup_hits"] = float(hits)
+            counters["serve_cache_lookup_misses"] = float(misses)
+            gauges["serve_cache_size"] = float(size)
+            gauges["serve_cache_capacity"] = float(capacity)
+        # single flight rides the cache: a miss with a fingerprint
+        gauges["serve_single_flight"] = float(self.cache is not None)
+        gauges.update(cache_gauges(counters, gauges))
+        for i, depth in enumerate(self.device_set.inflight_depths()):
+            gauges[f"device{i}_inflight"] = float(depth)
+        series = {}
+        for name, roll in (("serve_latency_ms", self._lat_rolling),
+                           ("serve_batch_occupancy", self._occ_rolling)):
+            q = roll.quantiles()
+            if q:
+                series[name] = q
+        return {"counters": counters, "gauges": gauges, "series": series,
+                "histograms": {name: h.snapshot()
+                               for name, h in self.hists.items()}}
 
     def latency_quantiles(self) -> dict:
         """{p50, p95, p99, mean, count} over recent responses (ms)."""
@@ -1115,6 +1315,7 @@ class InferenceServer:
             counts = dict(self.counts)
             occ = list(self._occupancies)
             draining = self._draining
+            rung_occ = dict(self._rung_edge_occ)
         filled = self.batcher.backfilled_total
         slack = self.batcher.slack_total
         counts.update(graph_captures=self.graphs.captures(),
@@ -1141,6 +1342,13 @@ class InferenceServer:
             "draining": draining,
             "warmed": self.warmed,
             "latency_ms": self.latency_quantiles(),
+            # the last rolling_window_s seconds, not the whole run
+            "rolling": {
+                "window_s": self.rolling_window_s,
+                "latency_ms": self._lat_rolling.quantiles(),
+                "batch_occupancy": self._occ_rolling.quantiles(),
+                "device_inflight": self.device_set.inflight_depths(),
+            },
             "batch_occupancy_mean": float(np.mean(occ)) if occ else 0.0,
             "shapes": [s.to_meta() for s in self.shape_set],
             "precisions": list(self.precisions),
@@ -1168,6 +1376,8 @@ class InferenceServer:
                 "pipeline_wait_s": self._timing["wait_s"],
                 "packers_pack_s": self._pipe.pack_s,
                 "packed_flushes": self._pipe.jobs,
+                "rung_edge_occupancy": {str(k): v for k, v in
+                                        sorted(rung_occ.items())},
             },
         }
         if self.mesh_exec is not None:
@@ -1273,6 +1483,7 @@ def load_server(
     watch: bool = True,
     poll_interval_s: float = 2.0,
     warm: bool = True,
+    telemetry: Telemetry | None = None,
 ):
     """Boot an InferenceServer from a saved model at ``path``: a parameter
     file and its meta (``load_server(npz, meta_json)``,
@@ -1311,7 +1522,8 @@ def load_server(
     entries on one card). ``engine``: 'auto' (mesh over more than one
     entry), 'mesh' or 'threads' (serve/devices.py, parallel/executor.py).
     ``precision``: the tiers to warm, 'f32,bf16,int8' or a sequence
-    (serve/quantize.py; f32 always).
+    (serve/quantize.py; f32 always). ``telemetry``: the server's
+    (InferenceServer).
 
     -> (server, dict of what callers reuse: manager (None for a weight
     file), meta, configs, template graph, the calibration sample).
@@ -1387,7 +1599,7 @@ def load_server(
         pack_workers=pack_workers,
         featurizer=structure_featurizer(data_cfg), devices=device_list,
         engine=engine, precisions=precisions, log_fn=log_fn,
-        raw_precheck=raw_precheck,
+        raw_precheck=raw_precheck, telemetry=telemetry,
     )
     if mgr is not None and watch:
         server.attach_watcher(mgr, lambda: inference_state(meta, dev),

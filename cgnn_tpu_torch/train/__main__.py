@@ -297,6 +297,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-nans", action="store_true",
                    help="fail fast with a traceback at the first NaN "
                         "(eager steps: the step graphs are turned off)")
+    # observability (cgnn_tpu_torch.observe)
+    p.add_argument("--telemetry", choices=["off", "epoch", "step"],
+                   default="epoch",
+                   help="telemetry level. 'epoch' (default, nothing added "
+                        "to a step): epoch records in metrics.jsonl, the "
+                        "host span trace (trace.json, opens in Perfetto), "
+                        "the run manifest (manifest.json) and the padding, "
+                        "memory and dispatch gauges. 'step' adds one "
+                        "record a step (loss, grad and update norms, "
+                        "NaN/Inf counts) from the replayed step graphs "
+                        "through a ring on the card, and the in-graph "
+                        "grad-health metrics. 'off' writes nothing")
+    p.add_argument("--log-dir", type=str, default="",
+                   help="telemetry dir (metrics.jsonl, trace.json, "
+                        "manifest.json); default: <ckpt-dir>/logs")
+    p.add_argument("--live-metrics", type=float, default=0.0,
+                   metavar="SECS",
+                   help="append a live registry snapshot (counters, "
+                        "gauges, rolling-window quantiles) to "
+                        "metrics_live.jsonl in the log dir every SECS "
+                        "seconds (0 disables; needs --telemetry != off). "
+                        "SIGUSR2's on-demand profile capture is not "
+                        "ported yet (ROADMAP Queue 1, item 11)")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="not ported yet (ROADMAP Queue 1, item 11): "
+                        "refused when set")
     p.add_argument("--out-dir", default="checkpoints/torch",
                    help="where params.npz and meta.json are written")
     p.add_argument("--data-parallel", action="store_true",
@@ -494,6 +520,10 @@ def launch_local(argv, world: int, timeout: float | None = None) -> int:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    if args.profile:
+        print("--profile is not ported yet (ROADMAP Queue 1, item 11)",
+              file=sys.stderr)
+        return 2
     dense_m = resolve_layout(args)
     if dense_m is None:
         return 2
@@ -556,22 +586,12 @@ def main(argv=None) -> int:
 
 
 def _train(args, dense_m, compact_ok, preempt) -> int:
-    from cgnn_tpu_torch import convert
-    from cgnn_tpu_torch.config import DataConfig, ModelConfig
-    from cgnn_tpu_torch.data.dataset import train_val_test_split
+    from cgnn_tpu_torch.config import DataConfig
     from cgnn_tpu_torch.device import resolve_device
+    from cgnn_tpu_torch.observe.telemetry import Telemetry
     from cgnn_tpu_torch.parallel import dist
-    from cgnn_tpu_torch.parallel.data_parallel import (
-        CoordinatedCheckpoint,
-        seed_rank_dropout,
-    )
     from cgnn_tpu_torch.parallel.mesh import rank_device
     from cgnn_tpu_torch.resilience import faultinject
-    from cgnn_tpu_torch.resilience.guard import DivergenceMonitor, debug_nans
-    from cgnn_tpu_torch.resilience.preempt import resumable_exit
-    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
-    from cgnn_tpu_torch.train.loop import evaluate, fit
-    from cgnn_tpu_torch.train.state import init_train_state
 
     fault_plan = faultinject.plan()
     if fault_plan is not None:
@@ -589,8 +609,6 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
               "output checked")
     dp = dist.active()
     rank, world = dist.process_index(), dist.process_count()
-    # what the host shards, the shuffles and the dropout streams follow
-    data_index, n_data = dist.data_index(), dist.data_count()
     dev = resolve_device(rank_device(args.device, rank) if dp
                          else args.device)
     if dp:
@@ -605,9 +623,60 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
                 max(1, len(os.sched_getaffinity(0)) // world))
     data_cfg = DataConfig(radius=args.radius, max_num_nbr=args.max_num_nbr,
                           dmin=args.dmin, step=args.step)
+    # the data first: a run refused for its data leaves no directory
     loaded = load_graphs(args, data_cfg)
     if loaded is None:
         return 2
+    log_dir = args.log_dir or os.path.join(args.ckpt_dir, "logs")
+    # process 0 alone writes the telemetry files, as it alone commits
+    telemetry = (Telemetry(args.telemetry, log_dir) if dist.is_coordinator()
+                 else Telemetry.disabled())
+    live_writer = None
+    if args.live_metrics > 0 and telemetry.enabled:
+        from cgnn_tpu_torch.observe.export import (
+            LiveMetricsWriter,
+            MetricsRegistry,
+        )
+
+        # the telemetry's window (15 min), not serving's 60 s: an epoch
+        # time is observed once an epoch
+        live_writer = LiveMetricsWriter(
+            MetricsRegistry(window_s=telemetry.series_window_s
+                            ).attach_telemetry(telemetry),
+            os.path.join(log_dir, "metrics_live.jsonl"),
+            interval_s=args.live_metrics).start()
+    try:
+        return _train_run(args, dense_m, compact_ok, preempt, dev, data_cfg,
+                          loaded, telemetry)
+    finally:
+        if live_writer is not None:
+            live_writer.stop()
+        # flushes the counters and gauges, exports trace.json: also on
+        # the resumable exit and on an error
+        telemetry.close()
+
+
+def _train_run(args, dense_m, compact_ok, preempt, dev, data_cfg, loaded,
+               telemetry) -> int:
+    """``_train``'s run on its device, with its telemetry."""
+    from cgnn_tpu_torch import convert
+    from cgnn_tpu_torch.config import ModelConfig
+    from cgnn_tpu_torch.data.dataset import train_val_test_split
+    from cgnn_tpu_torch.parallel import dist
+    from cgnn_tpu_torch.parallel.data_parallel import (
+        CoordinatedCheckpoint,
+        seed_rank_dropout,
+    )
+    from cgnn_tpu_torch.resilience.guard import DivergenceMonitor, debug_nans
+    from cgnn_tpu_torch.resilience.preempt import resumable_exit
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from cgnn_tpu_torch.train.loop import evaluate, fit
+    from cgnn_tpu_torch.train.state import init_train_state
+
+    dp = dist.active()
+    rank, world = dist.process_index(), dist.process_count()
+    # what the host shards, the shuffles and the dropout streams follow
+    data_index, n_data = dist.data_index(), dist.data_count()
     graphs, traj_groups = loaded
     if traj_groups is not None:
         from cgnn_tpu_torch.data.trajectory import split_trajectory_groups
@@ -655,14 +724,15 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         else args.fused_epilogue,
         cgconv_impl="" if args.cgconv_impl == "off" else args.cgconv_impl,
     )
-    state, node_cap, edge_cap = init_train_state(
-        model_cfg, data_cfg, full_train, batch_size=args.batch_size,
-        device=dev, steps_per_epoch=per_epoch,
-        seed=args.seed, optim=args.optim, lr=args.lr,
-        momentum=args.momentum, weight_decay=args.weight_decay,
-        lr_milestones_epochs=args.lr_milestones, task=args.task,
-        packing=args.packing, node_cap=args.node_cap or None,
-        edge_cap=args.edge_cap or None)
+    with telemetry.span("state_init"):
+        state, node_cap, edge_cap = init_train_state(
+            model_cfg, data_cfg, full_train, batch_size=args.batch_size,
+            device=dev, steps_per_epoch=per_epoch,
+            seed=args.seed, optim=args.optim, lr=args.lr,
+            momentum=args.momentum, weight_decay=args.weight_decay,
+            lr_milestones_epochs=args.lr_milestones, task=args.task,
+            packing=args.packing, node_cap=args.node_cap or None,
+            edge_cap=args.edge_cap or None)
     if dense_m and args.edge_cap:
         print(f"warning: --edge-cap {args.edge_cap} ignored by the dense "
               f"layout (edge capacity is node_cap * max_num_nbr = "
@@ -671,7 +741,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
     snug = args.packing == "snug"
     # process 0 alone commits (and, under --resume, restores: the other
     # ranks take its state by broadcast)
-    ckpt = (CheckpointManager(args.ckpt_dir, keep=args.keep_ckpts)
+    ckpt = (CheckpointManager(args.ckpt_dir, keep=args.keep_ckpts,
+                              telemetry=telemetry)
             if dist.is_coordinator() else None)
     try:
         resumed = _resume(args, ckpt, state) if ckpt is not None else None
@@ -680,6 +751,11 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         if resumed is None:
             return 2
         start_epoch, resume_meta = resumed
+        # the run manifest: config, device inventory, git SHA, once
+        telemetry.write_manifest(
+            vars(args), task=args.task,
+            mesh_shape={"data": n_data if dp else 1,
+                        "graph": args.graph_shards})
         meta_base = {"model": model_cfg.to_meta(), "data": data_cfg.to_meta(),
                      "task": args.task}
         sel_key = ("force_mae" if force
@@ -738,7 +814,9 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
                 monitor=monitor, preempt=preempt,
                 force_weights=(args.energy_weight, args.force_weight),
                 packing=args.packing,
-                fit_on=(full_train, full_val) if dp else None)
+                fit_on=(full_train, full_val) if dp else None,
+                telemetry=telemetry,
+                on_epoch_metrics=telemetry.write_epoch)
         if ckpt is not None:
             ckpt.wait()
     finally:
@@ -748,12 +826,16 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
             ckpt.close()
     if result.get("preempted"):
         # the loop saved a resumable checkpoint at the boundary and the
-        # close above waited for its commit (a failed save raised there)
+        # close above waited for its commit (a failed save raised there);
+        # the caller flushes the telemetry before the exit
+        telemetry.sample_hbm("preempted")
         return resumable_exit(print)
-    test_m = evaluate(state, test_g, args.batch_size, node_cap, dense_m,
-                      dev, edge_cap=edge_cap,
-                      force_weights=(args.energy_weight, args.force_weight),
-                      snug=snug)
+    with telemetry.span("test_eval"):
+        test_m = evaluate(state, test_g, args.batch_size, node_cap, dense_m,
+                          dev, edge_cap=edge_cap,
+                          force_weights=(args.energy_weight,
+                                         args.force_weight),
+                          snug=snug)
     print(f"** test {sel_key}: {test_m.get(sel_key, float('nan')):.4f} "
           f"(best val: {result['best']:.4f})")
     if force:
@@ -768,6 +850,8 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
         test_m = dict(test_m, **cls, class_eval_batches=n_batches)
         print("** test " + "  ".join(
             f"{k} {v:.4f}" for k, v in cls.items() if v == v))
+    telemetry.write_scalars(args.epochs, test_m, prefix="test")
+    telemetry.sample_hbm("end_of_run")
     print("train: " + json.dumps(run_summary(result, len(train_g), test_m),
                                  allow_nan=False))
     if not dist.is_coordinator():

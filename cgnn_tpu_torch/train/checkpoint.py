@@ -42,8 +42,13 @@ Where it differs from the JAX package:
   port directory (a ``ckpt-*`` without ``state.npz``) fails
   verification, is reported in the chain and is skipped;
 - a checkpoint without ``opt_state`` (``jax_checkpoint_to_torch.py``
-  writes one) serves ``restore_for_inference`` but not ``restore``;
-- the telemetry spans are not ported yet (ROADMAP Queue 1, item 11).
+  writes one) serves ``restore_for_inference`` but not ``restore``.
+
+``telemetry`` (observe/telemetry.py) wraps the caller's part of a save
+(the copy to the host) in a ``checkpoint_save`` span and a restore in a
+``checkpoint_restore`` span, as the JAX manager does. The telemetry's
+``logs/`` directory beside the saves is no save: every listing here
+matches save names (``ckpt-*``) only.
 
 The finalizer has the JAX package's three fault-injection crash points
 (``resilience.faultinject.crash_point``): ``after_write`` (state and
@@ -53,6 +58,7 @@ rename not done) and ``after_commit``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -199,9 +205,10 @@ class CheckpointManager:
     ``keep=0`` keeps all)."""
 
     def __init__(self, directory: str, keep: int = 3,
-                 log_fn: Callable | None = None):
+                 log_fn: Callable | None = None, telemetry=None):
         # restore-fallback reports are operator diagnostics: stderr
         self._log = log_fn or (lambda msg: print(msg, file=sys.stderr))
+        self._telemetry = telemetry
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.keep = keep
@@ -287,7 +294,14 @@ class CheckpointManager:
         """Commit a new versioned save of a TrainState: the caller's
         thread copies the state to the host; the write, manifest, commit
         rename, best pointer and retention run on the finalizer."""
-        self.save_tree(state_tree(state), meta, is_best)
+        with self._span("checkpoint_save", is_best=is_best):
+            tree = state_tree(state)
+        self.save_tree(tree, meta, is_best)
+
+    def _span(self, name: str, **args):
+        if self._telemetry is None:
+            return contextlib.nullcontext()
+        return self._telemetry.span(name, **args)
 
     def save_tree(self, tree: dict, meta: dict,
                   is_best: bool = False) -> None:
@@ -454,7 +468,8 @@ class CheckpointManager:
             loaded["model"] = _model_state_dict(tree, state.model)
             loaded["optimizer"] = _optimizer_state_dict(tree, state)
 
-        tree, meta = self._restore_chain(tag, check)
+        with self._span("checkpoint_restore", tag=tag):
+            tree, meta = self._restore_chain(tag, check)
         state.model.load_state_dict(loaded["model"])
         state.optimizer.inner.load_state_dict(loaded["optimizer"])
         state.optimizer.count = int(tree["opt_state"]["count"])

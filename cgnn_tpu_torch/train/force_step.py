@@ -31,6 +31,7 @@ import torch
 
 from cgnn_tpu_torch.data.graph import GraphBatch
 from cgnn_tpu_torch.models.forcefield import energy_and_forces
+from cgnn_tpu_torch.observe.health import step_with_health
 from cgnn_tpu_torch.train.normalizer import Normalizer
 
 
@@ -90,14 +91,18 @@ def make_force_grad_step(w_energy: float = 1.0,
 
 
 def make_force_train_step(w_energy: float = 1.0,
-                          w_force: float = 10.0) -> Callable:
+                          w_force: float = 10.0,
+                          grad_health: bool = False) -> Callable:
     """(state, batch) -> metric sums; one composite-loss update of
     ``state`` in place (module docstring): the grad part
-    (``make_force_grad_step``), then the optimizer update."""
+    (``make_force_grad_step``), then the optimizer update (with the
+    grad-health metrics when ``grad_health``, as train/step.py's)."""
     grad_step = make_force_grad_step(w_energy, w_force)
 
     def train_step(state, batch: GraphBatch) -> dict:
         metrics = grad_step(state, batch)
+        if grad_health:
+            return step_with_health(state, metrics, state.optimizer.step)
         state.optimizer.step()
         return metrics
 

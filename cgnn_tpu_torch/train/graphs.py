@@ -57,6 +57,11 @@ averages the gradient and statistics regions, runs the optimizer and the
 guard's select and adds the summed metrics up (parallel/data_parallel.py
 ``ParallelTrainStep``, train/loop.py ``SplitStepRunner``).
 
+A body's host callbacks (``on_each_run``: the step stream counting its
+rows, observe/stream.py) run once for each run of the step: at once on
+an eager run, at every replay when registered inside the capture, never
+on a warm-up run (``warming``).
+
 ``COUNTS`` holds, for each kind of step (``train``, ``eval``,
 ``predict``, ``predict_raw``, the raw wire's step with its neighbor
 search, and ``train_apply``), ``<kind>_runs`` (calls of ``run``: replays and eager steps),
@@ -113,6 +118,27 @@ reset_counts()
 
 class GraphCaptureError(RuntimeError):
     """A step could not be captured as a CUDA graph."""
+
+
+# this thread's capture state: set while a StepGraph runs its warm-ups
+# (``warming``) and while it captures (the hooks its body registers)
+_tls = threading.local()
+
+
+def warming() -> bool:
+    """True inside a StepGraph's warm-up runs before its capture."""
+    return getattr(_tls, "warming", False)
+
+
+def on_each_run(fn: Callable) -> None:
+    """Run ``fn`` (a host callback) once for each run of the step being
+    traced: now on an eager run; at every replay when called inside a
+    capture (the graph keeps it); never on a warm-up run."""
+    hooks = getattr(_tls, "hooks", None)
+    if hooks is not None:
+        hooks.append(fn)
+    elif not warming():
+        fn()
 
 
 _capture_streams = threading.local()
@@ -254,6 +280,7 @@ class StepGraph:
         self.graph = None
         self.static = None
         self.out = None
+        self.hooks: tuple = ()  # on_each_run callbacks of the capture
         # None: eager (the CPU, or capture=False); else eager steps left
         # before the capture
         self._eager_left = None
@@ -277,10 +304,14 @@ class StepGraph:
         restore = self._guard() if self._guard is not None else None
         self._side = capture_stream(dev, self.replay_stream)
         self._side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self._side):
-            for _ in range(WARMUP_RUNS[kind]):
-                self._body()
-                _bump(f"{kind}_warm_runs")
+        _tls.warming = True
+        try:
+            with torch.cuda.stream(self._side):
+                for _ in range(WARMUP_RUNS[kind]):
+                    self._body()
+                    _bump(f"{kind}_warm_runs")
+        finally:
+            _tls.warming = False
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             # before capture_begin: each replay then reads the generator's
@@ -293,6 +324,7 @@ class StepGraph:
         # capturing thread may not: the collector waits until the end
         collecting = gc.isenabled()
         gc.disable()
+        _tls.hooks = hooks = []
         try:
             with torch.cuda.stream(self._side):
                 graph.capture_begin(capture_error_mode="thread_local")
@@ -306,12 +338,14 @@ class StepGraph:
             raise GraphCaptureError(
                 f"{self.label}: CUDA graph capture failed: {e!r}") from e
         finally:
+            _tls.hooks = None
             if collecting:
                 gc.enable()
         torch.cuda.current_stream(dev).wait_stream(self._side)
         if restore is not None:
             restore()
         self.graph = graph
+        self.hooks = tuple(hooks)
         _bump(f"{kind}_captures")
 
     def run(self, batch=None):
@@ -341,6 +375,8 @@ class StepGraph:
         self.graph.replay()
         self.replays += 1
         _bump(f"{self.kind}_replays")
+        for hook in self.hooks:
+            hook()
         if self.on_replay is not None:
             self.on_replay()
         return self.out

@@ -113,8 +113,20 @@ backward, so under gloo it runs eagerly: no captured graph (``captures``
 0); capture under NCCL is a later candidate. The epoch log carries the
 JAX tag, ``[dp xD * graph xG]``.
 
-Not ported: the in-scan telemetry tap and the background pair fetch,
-and ``--profile`` (ROADMAP Queue 1).
+Telemetry (``telemetry``, an ``observe.Telemetry``; the JAX ``fit``'s):
+at ``step`` level the train step computes the grad-health metrics in its
+graph and every train and eval step taps its scalar sums into the step
+stream's device ring (observe/stream.py; the driver marks each chunk's
+end, the per-step loop each step); spans ``pack``, ``stage_scan_stacks``,
+``epoch`` and ``eval``; the counters ``scan_steps``,
+``scan_{train,eval}_dispatches``, ``per_step_steps``, ``data_wait_s``
+and the loader's; the epoch gauges and ``epoch_time_s``. With the driver
+the epoch pair's sums are fetched on a thread (``PendingPairMetrics``),
+and with no checkpoint hook, divergence monitor, preemption handler or
+process group a pair's bookkeeping runs one epoch late, while the next
+epoch's steps run; the means, schedules and trajectory are the
+synchronous path's, bit for bit. ``--profile`` is not ported (ROADMAP
+Queue 1, item 11, part 3).
 """
 
 from __future__ import annotations
@@ -124,6 +136,7 @@ import dataclasses
 import functools
 import hashlib
 import socket
+import threading
 import time
 from typing import Callable, Iterable, Sequence
 
@@ -144,6 +157,7 @@ from cgnn_tpu_torch.data.graph import (
     pack_graphs,
 )
 from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
+from cgnn_tpu_torch.observe.telemetry import Telemetry
 from cgnn_tpu_torch.parallel import dist
 from cgnn_tpu_torch.parallel.data_parallel import (
     AgreedPreemption,
@@ -171,6 +185,7 @@ from cgnn_tpu_torch.train.metrics import (
     DeviceSums,
     fetch_device_sums,
     means_from_sums,
+    snapshot_device_sums,
 )
 from cgnn_tpu_torch.train.force_step import (
     make_force_eval_step,
@@ -190,12 +205,14 @@ _STAGE_FRACTION = 0.8
 
 
 def stage(batches: Iterable[GraphBatch], device, prefetch: int = 2,
-          stats: LoaderStats | None = None) -> Iterable[GraphBatch]:
+          stats: LoaderStats | None = None,
+          telemetry: Telemetry | None = None) -> Iterable[GraphBatch]:
     """Host batches -> the same batches on ``device``, in order: through
-    the prefetch loader ``prefetch`` deep, or (0) each copied on this
-    thread as it is taken."""
+    the prefetch loader ``prefetch`` deep (its counters also into
+    ``telemetry``), or (0) each copied on this thread as it is taken."""
     if prefetch > 0:
-        return prefetch_to_device(batches, device, size=prefetch, stats=stats)
+        return prefetch_to_device(batches, device, size=prefetch, stats=stats,
+                                  telemetry=telemetry)
     return (b.to(device) for b in batches)
 
 
@@ -421,6 +438,40 @@ class PackOncePlan:
         return (self._train[i] for i in order), iter(self._val)
 
 
+class PendingPairMetrics:
+    """An epoch pair's sums fetch running on a background thread (the
+    JAX class): ``result()`` joins the thread and returns ``(train
+    means, val means)``, the values the synchronous fetch gives, bit for
+    bit; an exception of the fetch re-raises at the join. ``done_at``:
+    the ``time.perf_counter()`` at which the sums reached the host (the
+    card had finished the pair)."""
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+        self._out = None
+        self._err: BaseException | None = None
+        self.done_at: float | None = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="cgnn-pair-fetch")
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            self._out = self._fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised at result()
+            self._err = e
+        self.done_at = time.perf_counter()
+
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+    def result(self):
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
 class _Group:
     """One shape's staged batches: each field stacked on a leading axis
     on the device, this epoch's permutation and the cursor into it (both
@@ -491,7 +542,12 @@ class ScanEpochDriver:
     epoch's schedule digest is held across the ranks
     (``check_agreed``), and the batches come checked and agreed
     (``agree_batches``; ``key_order``: the agreed (train, val) key
-    orders, so every rank's groups are in one order)."""
+    orders, so every rank's groups are in one order); ``apply_fn(state,
+    None)`` is graph B's body (default ``split_step.apply_part``).
+
+    ``telemetry`` (the module docstring's): its step stream is marked at
+    each chunk's end and sized above the longest chunk, and the drive
+    counts ``scan_steps`` and ``scan_{train,eval}_dispatches``."""
 
     # mean steps a chunk and the mixed tail's cap: the JAX values
     chunk_steps = 2
@@ -502,12 +558,18 @@ class ScanEpochDriver:
                  rng: np.random.Generator, *, device,
                  chunk_steps: int | None = None, graphs: bool = True,
                  preempt=None, split_step=None,
-                 key_order: tuple = (None, None)):
+                 key_order: tuple = (None, None),
+                 telemetry: Telemetry | None = None,
+                 apply_fn: Callable | None = None):
         if chunk_steps is not None:
             if chunk_steps < 1:
                 raise ValueError(
                     f"chunk_steps must be >= 1, got {chunk_steps}")
             self.chunk_steps = int(chunk_steps)
+        self._telemetry = telemetry or Telemetry.disabled()
+        self._stream = self._telemetry.stream
+        if self._stream is not None:
+            self._stream.reserve(2 * self.chunk_steps)
         self._rng = rng
         self.device = torch.device(device)
         self._capture = graphs
@@ -539,6 +601,9 @@ class ScanEpochDriver:
         self.timings["init_stack_stage_s"] = time.perf_counter() - t0
         self._train_body, self._eval_body = train_body, eval_body
         self._split = split_step
+        self._apply_fn = apply_fn or (
+            None if split_step is None
+            else lambda st, _: split_step.apply_part(st))
         self._reduce_eval = (sum_reducer_for_sums() if split_step is not None
                              else None)
         # the data-parallel step's graph B (one for every shape)
@@ -595,9 +660,9 @@ class ScanEpochDriver:
         capture overwrite the bucket, so its guard restores the bucket
         with the state (``SplitStepRunner``'s)."""
         if self.apply_graph is None:
-            split, sums = self._split, self.train_sums
+            split, sums, apply_fn = self._split, self.train_sums, self._apply_fn
             self.apply_graph = StepGraph(
-                lambda: sums.add(split.apply_part(state)),
+                lambda: sums.add(apply_fn(state, None)),
                 device=self.device, kind="train_apply",
                 label="train apply graph", capture=self._capture,
                 guard=state_guard(state, lambda: [split.bucket], [sums]),
@@ -698,9 +763,10 @@ class ScanEpochDriver:
             for _ in range(length):
                 graph.run()
         grp.host_cursor += length
+        if self._stream is not None:
+            self._stream.mark("train" if train else "eval", self.device)
 
-    def _drive(self, state, groups: dict, train: bool, first: bool,
-               prebuild: bool = True) -> int:
+    def _drive(self, state, groups: dict, train: bool, first: bool) -> int:
         """Run one epoch of ``groups`` (the JAX ``_drive``'s schedule)
         -> steps run; the sums stay on the device."""
         self._state = state
@@ -722,13 +788,16 @@ class ScanEpochDriver:
         for key, grp in groups.items():
             grp.begin(perms[key])
         (self.train_sums if train else self.eval_sums).zero()
+        phase = "train" if train else "eval"
+        if self._stream is not None:
+            self._stream.mark(phase, self.device, start=True)
         queues = [(k, g, collections.deque(ch)) for k, g, ch in queues]
         tails = [(k, g, collections.deque(ch)) for k, g, ch in tails]
         multi = train and len(groups) > 1
-        executed = 0
+        executed = n_chunks = 0
 
         def run_queues(qs, weighted):
-            nonlocal executed
+            nonlocal executed, n_chunks
             rr = 0
             picks = iter(pick_order)
             by_index = list(qs)  # pick_order indexes the build order
@@ -747,6 +816,7 @@ class ScanEpochDriver:
                 chunk = chunks.popleft()
                 self._run_chunk(key, grp, len(chunk), train)
                 executed += len(chunk)
+                n_chunks += 1
                 if not chunks:
                     qs.remove(entry)
 
@@ -754,22 +824,30 @@ class ScanEpochDriver:
         run_queues(queues, weighted=multi and not first)
         run_queues(tails, weighted=False)
         t_run = time.perf_counter()
-        if train and prebuild and not self.aborted:
-            self._sched_cache[(id(groups), True, False)] = \
-                self._build_sched(groups, True, False)
-        phase = "train" if train else "eval"
         tm = self.timings
         for name, dt in (("sched_s", t_sched - t0),
-                         ("dispatch_s", t_run - t_sched),
-                         ("prebuild_s", time.perf_counter() - t_run)):
+                         ("dispatch_s", t_run - t_sched)):
             tm[f"{phase}_{name}"] = tm.get(f"{phase}_{name}", 0.0) + dt
         tm[f"{phase}_steps"] = tm.get(f"{phase}_steps", 0) + executed
+        self._telemetry.counter_add("scan_steps", executed)
+        self._telemetry.counter_add(f"scan_{phase}_dispatches", n_chunks)
         return executed
+
+    def _prebuild(self) -> None:
+        """The next train epoch's schedule, built while the card runs
+        this one (its draws are the next epoch's, in order)."""
+        t0 = time.perf_counter()
+        self._sched_cache[(id(self._train_groups), True, False)] = \
+            self._build_sched(self._train_groups, True, False)
+        self.timings["train_prebuild_s"] = self.timings.get(
+            "train_prebuild_s", 0.0) + (time.perf_counter() - t0)
 
     def train_epoch(self, state, first: bool) -> dict:
         self.aborted = False
         steps = self._drive(state, self._train_groups, train=True,
                             first=first)
+        if not self.aborted:
+            self._prebuild()
         return means_from_sums(fetch_device_sums(self.train_sums.sums),
                                steps)
 
@@ -782,12 +860,22 @@ class ScanEpochDriver:
         return means_from_sums(fetch_device_sums(self.eval_sums.sums),
                                steps)
 
-    def run_epoch_pair(self, state, first: bool) -> tuple:
+    def run_epoch_pair(self, state, first: bool,
+                       async_fetch: bool = False) -> tuple:
         """Train epoch + eval epoch with ONE fetch of both epochs' sums
         -> (state, train means, val means). A preempted train epoch
         skips the eval epoch (the grace window is for the checkpoint); a
         request during eval leaves the completed train epoch un-aborted
-        and sets ``eval_truncated``."""
+        and sets ``eval_truncated``.
+
+        The sums are copied on the device at once, into a fresh tensor
+        (the next epoch zeroes the accumulators in place), then to
+        page-locked memory without blocking, and the next train epoch's
+        schedule is built while the copy runs (eval draws nothing, so
+        the rng draws keep the per-epoch order). ``async_fetch=True``
+        returns ``(state, PendingPairMetrics)``, whose thread waits for
+        the copy while the caller goes on: schedules, trajectory and
+        means are the synchronous return's, bit for bit."""
         self.aborted = self.eval_truncated = False
         tr_steps = self._drive(state, self._train_groups, train=True,
                                first=first)
@@ -805,14 +893,24 @@ class ScanEpochDriver:
         combined = {f"t:{k}": v for k, v in self.train_sums.sums.items()}
         if ev_steps:
             combined |= {f"e:{k}": v for k, v in self.eval_sums.sums.items()}
-        t0 = time.perf_counter()
-        fetched = fetch_device_sums(combined or None)
-        self.timings["pair_fetch_s"] = self.timings.get(
-            "pair_fetch_s", 0.0) + (time.perf_counter() - t0)
-        tr = {k[2:]: v for k, v in fetched.items() if k.startswith("t:")}
-        ev = {k[2:]: v for k, v in fetched.items() if k.startswith("e:")}
-        return state, means_from_sums(tr, tr_steps), means_from_sums(
-            ev, ev_steps)
+        fetch = snapshot_device_sums(combined)
+
+        def fetch_pair():
+            t0 = time.perf_counter()
+            fetched = fetch()
+            self.timings["pair_fetch_s"] = self.timings.get(
+                "pair_fetch_s", 0.0) + (time.perf_counter() - t0)
+            tr = {k[2:]: v for k, v in fetched.items() if k.startswith("t:")}
+            ev = {k[2:]: v for k, v in fetched.items() if k.startswith("e:")}
+            return means_from_sums(tr, tr_steps), means_from_sums(ev,
+                                                                  ev_steps)
+
+        pending = PendingPairMetrics(fetch_pair) if async_fetch else None
+        if not train_aborted:
+            self._prebuild()
+        if pending is None:
+            return (state, *fetch_pair())
+        return state, pending
 
 
 def sched_digest(sched) -> str:
@@ -834,10 +932,13 @@ class StepRunner:
     at the shape's first batch (captured on CUDA unless ``graphs`` is
     False), each batch copied into its static inputs; sums accumulate in
     ``sums``. ``apply`` is a split step's second graph
-    (``SplitStepRunner``)."""
+    (``SplitStepRunner``). ``telemetry``: its step stream is marked after
+    each step, and an epoch counts ``per_step_steps`` and
+    ``data_wait_s`` (the time blocked on the next batch)."""
 
     def __init__(self, step: Callable, state, device, *, train: bool,
-                 graphs: bool = True, log_fn: Callable | None = None):
+                 graphs: bool = True, log_fn: Callable | None = None,
+                 telemetry: Telemetry | None = None):
         self.apply: StepGraph | None = None
         self.state = state
         self.sums = DeviceSums()
@@ -845,6 +946,7 @@ class StepRunner:
         self._step = step
         self._graphs = graphs
         self.device = device
+        self._telemetry = telemetry or Telemetry.disabled()
         self.cache = GraphCache(self._make, log_fn=log_fn,
                                 label="train graph" if train
                                 else "eval graph")
@@ -872,32 +974,51 @@ class StepRunner:
         """One epoch over ``batches`` -> metric means (one fetch).
         ``reduce(sums)``, where given, combines the epoch's device sums
         across ranks in place before the fetch (the data-parallel eval)."""
+        stream = self._telemetry.stream
+        phase = "train" if self.train else "eval"
         self.sums.zero()
+        if stream is not None:
+            stream.mark(phase, self.device, start=True)
         steps = 0
-        for it, batch in enumerate(batches):
+        wait = 0.0
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            wait += time.perf_counter() - t0
+            if batch is None:
+                break
             self(batch)
-            steps += 1
-            if print_freq and it % print_freq == 0:
+            if stream is not None:
+                stream.mark(phase, self.device)
+            if print_freq and steps % print_freq == 0:
                 _log_progress(fetch_device_sums(self.sums.sums), self.train,
-                              epoch, it, log_fn)
+                              epoch, steps, log_fn)
+            steps += 1
         if reduce is not None:
             reduce(self.sums.sums)
+        self._telemetry.counter_add("per_step_steps", steps)
+        self._telemetry.counter_add("data_wait_s", wait)
         return means_from_sums(fetch_device_sums(self.sums.sums), steps)
 
 
 class SplitStepRunner(StepRunner):
     """The per-step loop's data-parallel train steps: graph A
     (``step.grad_part``) a batch shape, the collective (``step.reduce``)
-    on the host, then graph B (``step.apply_part``), one for every shape,
-    captured at the first step (train/graphs.py; ``step`` a
+    on the host, then graph B (``apply_fn(state, None)``, default
+    ``step.apply_part``), one for every shape, captured at the first
+    step (train/graphs.py; ``step`` a
     ``parallel.data_parallel.ParallelTrainStep``). Graph B's warm-up run
     and capture overwrite the bucket, so its guard restores the bucket
     with the state."""
 
     def __init__(self, step, state, device, *, graphs: bool = True,
-                 log_fn: Callable | None = None):
+                 log_fn: Callable | None = None,
+                 telemetry: Telemetry | None = None,
+                 apply_fn: Callable | None = None):
         super().__init__(step, state, device, train=True, graphs=graphs,
-                         log_fn=log_fn)
+                         log_fn=log_fn, telemetry=telemetry)
+        self._apply_fn = apply_fn or (lambda st, _: step.apply_part(st))
 
     def _make(self, key, batch):
         state, step = self.state, self._step
@@ -909,7 +1030,8 @@ class SplitStepRunner(StepRunner):
 
     def _make_apply(self) -> StepGraph:
         state, step, sums = self.state, self._step, self.sums
-        return StepGraph(lambda: sums.add(step.apply_part(state)),
+        apply_fn = self._apply_fn
+        return StepGraph(lambda: sums.add(apply_fn(state, None)),
                          device=self.device, kind="train_apply",
                          label="train apply graph",
                          guard=state_guard(state, lambda: [step.bucket],
@@ -957,6 +1079,8 @@ def fit(
     packing: str = "snug",
     headroom: float = 1.15,
     fit_on: tuple | None = None,
+    telemetry: Telemetry | None = None,
+    on_epoch_metrics: Callable | None = None,
 ) -> tuple:
     """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
     the best validation MAE (a classifier's highest accuracy).
@@ -1004,7 +1128,12 @@ def fit(
     ``CoordinatedCheckpoint``; a model with a ``graph_group`` shards
     each batch's edge work over it (module docstring). ``fit_on``
     (train graphs, val graphs): what the capacities, the size classes
-    and the transpose overflow are fitted on (default the given ones)."""
+    and the transpose overflow are fitted on (default the given ones).
+
+    ``telemetry``: the module docstring's (None: off);
+    ``on_epoch_metrics(epoch, train means, val means)`` runs at each
+    epoch's bookkeeping (the train entry point writes the epoch
+    records there)."""
     dense_m = dense_m or None
     dp = dist.active()
     if packing not in ("snug", "ladder"):
@@ -1066,18 +1195,29 @@ def fit(
         # so the copies run asynchronously (data/loader.py)
         pack_fn = edge_pack_fn(edge_dtype, pin=torch.device(
             device).type == "cuda" and not scan_epochs)
+    telemetry = telemetry or Telemetry.disabled()
+    stream = telemetry.stream
+    # the grad-health metrics in the graph at step level: metric outputs
+    # only, the trajectory unchanged
+    health = telemetry.step_level
     grad_step = None
     if force:
-        train_step = make_force_train_step(*force_weights)
+        train_step = make_force_train_step(*force_weights,
+                                           grad_health=health)
         eval_step = make_force_eval_step(*force_weights)
         grad_step = make_force_grad_step(*force_weights)
     else:
         train_step = make_train_step(expander=expand,
-                                     classification=classification)
+                                     classification=classification,
+                                     grad_health=health)
         eval_step = make_eval_step(expander=expand,
                                    classification=classification)
     if guard:
         train_step = guard_step(train_step)
+    # the step stream's tap after the guard's select, so a record sees
+    # the skip flag
+    train_step = telemetry.wrap_train_body(train_step)
+    eval_step = telemetry.wrap_eval_body(eval_step)
     # validation batches carry the gathers' transpose where the eval step
     # takes a gradient (the forces), so its sums run in a fixed order too
     val_in_cap = None if force else 0
@@ -1125,9 +1265,13 @@ def fit(
                               pack_fn=pack_fn, over_cap=val_over)
 
     rng = np.random.default_rng(seed)
-    reduce_sums = pstep = None
+    reduce_sums = pstep = apply_fn = None
     if dp:
-        pstep = make_parallel_train_step(classification, guard, grad_step)
+        pstep = make_parallel_train_step(classification, guard, grad_step,
+                                         grad_health=health)
+        # graph B's body: the update, then the tap
+        apply_fn = telemetry.wrap_train_body(
+            lambda st, _: pstep.apply_part(st))
         reduce_sums = sum_reducer_for_sums()
         if preempt is not None:
             preempt = AgreedPreemption(preempt)
@@ -1140,8 +1284,9 @@ def fit(
         process group at the shape counts the ranks agreed on (checked
         there), the generator at process 0's state, each rank's view."""
         t0 = time.perf_counter()
-        train_list = list(train_batches(rng))
-        val_list = list(val_batches())
+        with telemetry.span("pack"):
+            train_list = list(train_batches(rng))
+            val_list = list(val_batches())
         staging["pack_s"] = time.perf_counter() - t0
         if not dp:
             return train_list, val_list, (None, None)
@@ -1179,14 +1324,18 @@ def fit(
         if fits:
             edge_bytes[0] = sum(edge_nbytes(b) for b in train_list)
             t0 = time.perf_counter()
-            driver = ScanEpochDriver(
-                train_step, eval_step, train_list, val_list, rng,
-                device=device, chunk_steps=chunk_steps, graphs=graphs,
-                preempt=preempt, split_step=pstep, key_order=orders)
+            with telemetry.span("stage_scan_stacks", staged_bytes=staged):
+                driver = ScanEpochDriver(
+                    train_step, eval_step, train_list, val_list, rng,
+                    device=device, chunk_steps=chunk_steps, graphs=graphs,
+                    preempt=preempt, split_step=pstep, key_order=orders,
+                    telemetry=telemetry, apply_fn=apply_fn)
             del train_list, val_list
             staging["stage_s"] = time.perf_counter() - t0
+            telemetry.sample_hbm("post_staging")
             t0 = time.perf_counter()
-            driver.warm(state)
+            with telemetry.warmup():
+                driver.warm(state)
             staging["capture_s"] = time.perf_counter() - t0
         else:
             staging["fallback"] = "host_pack_once"
@@ -1206,30 +1355,118 @@ def fit(
             stage=lambda b: b.to(device))
     if dp:
         train_run = SplitStepRunner(pstep, state, device, graphs=graphs,
-                                    log_fn=log_fn)
+                                    log_fn=log_fn, telemetry=telemetry,
+                                    apply_fn=apply_fn)
     else:
         train_run = StepRunner(train_step, state, device, train=True,
-                               graphs=graphs, log_fn=log_fn)
+                               graphs=graphs, log_fn=log_fn,
+                               telemetry=telemetry)
     eval_run = StepRunner(eval_step, state, device, train=False,
-                          graphs=graphs, log_fn=log_fn)
+                          graphs=graphs, log_fn=log_fn, telemetry=telemetry)
+    telemetry.observe_padding(pad_stats)
     best_key = ("force_mae" if force
                 else "correct" if classification else "mae")
     best = -np.inf if classification else np.inf
     history, digests = [], []
     padding = None
     preempted = False
+
+    def finish_epoch(epoch, train_m, val_m, truncated, t0,
+                     t1=None) -> bool:
+        """The epoch's bookkeeping on its fetched means (the best, the
+        history, the digest, the log, the gauges) -> is_best: in the
+        epoch's iteration, or one epoch late on the deferred path. The
+        epoch's seconds run from ``t0`` to ``t1`` (default: now)."""
+        nonlocal best, padding
+        if epoch == start_epoch:
+            log_fn(pad_stats.summary())
+            padding = {"node_efficiency": pad_stats.node_efficiency,
+                       "edge_efficiency": pad_stats.edge_efficiency,
+                       "batches": pad_stats.batches,
+                       "shapes": sorted(pad_stats.shapes),
+                       "summary": pad_stats.summary()}
+        metric = val_m.get(best_key, np.nan)
+        # a preemption that cut eval short leaves a partial score: it
+        # never repoints the best
+        is_best = (metric > best if classification
+                   else metric < best) and not truncated
+        if is_best:
+            best = metric
+        epoch_s = (time.perf_counter() if t1 is None else t1) - t0
+        history.append({"epoch": epoch, "train": train_m, "val": val_m,
+                        "seconds": epoch_s})
+        tag = ""
+        if dp:
+            digest = check_replicated(state, f"epoch {epoch}")
+            digests.append(digest)
+            history[-1]["digest"] = digest
+            log_fn(f"dp: process {dist.process_index()}/"
+                   f"{dist.process_count()} epoch {epoch} digest {digest}")
+            tag = (f" [dp x{dist.data_count()} * graph x{shards}]"
+                   if shards > 1 else f" [dp x{dist.process_count()}]")
+        log_fn(f"Epoch {epoch}{tag}: train loss "
+               f"{train_m.get('loss', np.nan):.4f}"
+               f"  val {best_key} {metric:.4f}{' *' if is_best else ''}"
+               f"  ({epoch_s:.1f}s)")
+        # live-progress gauges and the epoch-time series: host-side
+        # bookkeeping a mid-run scrape reads
+        telemetry.set_gauge("train_epoch", float(epoch))
+        telemetry.set_gauge("train_loss_last",
+                            float(train_m.get("loss", np.nan)))
+        telemetry.set_gauge(f"val_{best_key}_last", float(metric))
+        telemetry.set_gauge(f"val_{best_key}_best", float(best))
+        telemetry.observe_value("epoch_time_s", epoch_s)
+        if stream is not None:
+            stream.flush(wait=False)
+        if on_epoch_metrics is not None:
+            on_epoch_metrics(epoch, train_m, val_m)
+        return is_best
+
+    # the driver's pair fetch runs on a thread; the pair's bookkeeping
+    # moves one epoch late (its fetch overlapping the next epoch's steps)
+    # where no checkpoint hook needs the state and the means together at
+    # the boundary, no divergence monitor reads the means before going
+    # on, no preemption handler polls there, and no process group checks
+    # the state's replicas there. A deferred epoch's seconds run from the
+    # later of its start and the previous epoch's fetch to its own fetch,
+    # so the epochs' windows tile the run.
+    defer_pair = (driver is not None and on_epoch_end is None
+                  and monitor is None and preempt is None and not dp)
+    pending_prev = None  # (epoch, pending, eval truncated, t0)
+    last_done = -np.inf
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         truncated = False
         if driver is not None:
-            state, train_m, val_m = driver.run_epoch_pair(
-                state, first=epoch == start_epoch)
+            with telemetry.span("epoch", epoch=epoch, driver="scan"):
+                state, pending = driver.run_epoch_pair(
+                    state, first=epoch == start_epoch, async_fetch=True)
+            aborted, truncated = driver.aborted, driver.eval_truncated
+            if defer_pair:
+                if pending_prev is not None:
+                    p_epoch, p_pending, p_trunc, p_t0 = pending_prev
+                    p_train, p_val = p_pending.result()
+                    settle_count(state, p_train)
+                    finish_epoch(p_epoch, p_train, p_val, p_trunc,
+                                 max(p_t0, last_done), p_pending.done_at)
+                    last_done = p_pending.done_at
+                    pending_prev = None
+                if aborted:
+                    # only a preemption poll aborts, and deferral has
+                    # none: the partial epoch's means are dropped
+                    save_preempted_mid_epoch(state, epoch, on_epoch_end,
+                                             log_fn)
+                    preempted = True
+                    break
+                pending_prev = (epoch, pending, truncated, t0)
+                faultinject.maybe_sigterm(epoch)
+                continue
+            train_m, val_m = pending.result()
             settle_count(state, train_m)
-            if driver.aborted:
+            if aborted:
                 save_preempted_mid_epoch(state, epoch, on_epoch_end, log_fn)
                 preempted = True
                 break
-            truncated = driver.eval_truncated
         else:
             if plan is not None:
                 epoch_train, epoch_val = plan.epoch_iterators()
@@ -1247,50 +1484,35 @@ def fit(
                 epoch_train = counted_edge_bytes(epoch_train, edge_bytes)
             if not device_resident:
                 epoch_train = stage(epoch_train, device, prefetch,
-                                    loader_stats)
-                epoch_val = stage(epoch_val, device, prefetch, loader_stats)
-            train_m = train_run.epoch(epoch_train, print_freq=print_freq,
-                                      epoch=epoch, log_fn=log_fn)
-            val_m = eval_run.epoch(epoch_val, epoch=epoch, log_fn=log_fn,
-                                   reduce=reduce_sums)
+                                    loader_stats, telemetry)
+                epoch_val = stage(epoch_val, device, prefetch, loader_stats,
+                                  telemetry)
+            with telemetry.span("epoch", epoch=epoch, driver="per_step"):
+                train_m = train_run.epoch(epoch_train, print_freq=print_freq,
+                                          epoch=epoch, log_fn=log_fn)
+            with telemetry.span("eval", epoch=epoch):
+                val_m = eval_run.epoch(epoch_val, epoch=epoch, log_fn=log_fn,
+                                       reduce=reduce_sums)
             settle_count(state, train_m)
             if epoch == start_epoch:
                 train_run.cache.mark_warm()
                 eval_run.cache.mark_warm()
-        if epoch == start_epoch:
-            log_fn(pad_stats.summary())
-            padding = {"node_efficiency": pad_stats.node_efficiency,
-                       "edge_efficiency": pad_stats.edge_efficiency,
-                       "batches": pad_stats.batches,
-                       "shapes": sorted(pad_stats.shapes),
-                       "summary": pad_stats.summary()}
-        metric = val_m.get(best_key, np.nan)
-        # a preemption that cut eval short leaves a partial score: it
-        # never repoints the best
-        is_best = (metric > best if classification
-                   else metric < best) and not truncated
-        if is_best:
-            best = metric
-        history.append({"epoch": epoch, "train": train_m, "val": val_m,
-                        "seconds": time.perf_counter() - t0})
-        tag = ""
-        if dp:
-            digest = check_replicated(state, f"epoch {epoch}")
-            digests.append(digest)
-            history[-1]["digest"] = digest
-            log_fn(f"dp: process {dist.process_index()}/"
-                   f"{dist.process_count()} epoch {epoch} digest {digest}")
-            tag = (f" [dp x{dist.data_count()} * graph x{shards}]"
-                   if shards > 1 else f" [dp x{dist.process_count()}]")
-        log_fn(f"Epoch {epoch}{tag}: train loss "
-               f"{train_m.get('loss', np.nan):.4f}"
-               f"  val {best_key} {metric:.4f}{' *' if is_best else ''}"
-               f"  ({time.perf_counter() - t0:.1f}s)")
+        is_best = finish_epoch(epoch, train_m, val_m, truncated, t0)
         state, _, preempted = resilience_epoch_end(
             state, epoch, train_m, val_m, is_best, monitor=monitor,
             on_epoch_end=on_epoch_end, preempt=preempt, log_fn=log_fn)
         if preempted:
             break
+    if pending_prev is not None:
+        # the deferred path's last epoch: nothing overlaps its fetch
+        p_epoch, p_pending, p_trunc, p_t0 = pending_prev
+        p_train, p_val = p_pending.result()
+        settle_count(state, p_train)
+        finish_epoch(p_epoch, p_train, p_val, p_trunc, max(p_t0, last_done),
+                     p_pending.done_at)
+    if stream is not None:
+        # every row of the run in the records before fit returns
+        stream.flush()
     if driver is not None:
         caches = [driver.train_graphs, driver.eval_graphs]
         apply = [driver.apply_graph]

@@ -3,12 +3,16 @@
 The device-side metric sums of the training loop (``DeviceSums``, the
 port's form of the JAX ``accumulate_on_device``; ``fetch_device_sums``,
 ``means_from_sums``): each step's sums are added on the device, with no
-host sync a step, and fetched once, in ONE device-to-host copy. The
+host sync a step, and fetched once, in ONE device-to-host copy
+(``snapshot_device_sums``: the same copy without blocking). The
 host-side meters and metrics (``AverageMeter``, ``mae``, and the
 binary-classification ``class_eval`` with its rank-based AUC) are numpy.
 """
 
 from __future__ import annotations
+
+import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -42,11 +46,43 @@ class DeviceSums:
 
 def fetch_device_sums(sums: dict | None) -> dict:
     """The device sums as Python floats, in ONE device-to-host copy."""
+    return snapshot_device_sums(sums)()
+
+
+def snapshot_device_sums(sums: dict | None) -> Callable[[], dict]:
+    """Copy the device sums now, on the current stream, into one fresh
+    tensor (an in-place zero of the accumulators enqueued later does not
+    reach it), and from there to page-locked host memory without
+    blocking -> ``result()``, which waits for the copy and returns the
+    floats."""
     if not sums:
-        return {}
+        return dict
     keys = sorted(sums)
-    values = torch.stack([sums[k].double() for k in keys]).cpu().tolist()
-    return dict(zip(keys, values))
+    stacked = torch.stack([sums[k].double() for k in keys])
+    done = None
+    if stacked.is_cuda:
+        host = torch.empty(stacked.shape, dtype=stacked.dtype,
+                           pin_memory=True)
+        host.copy_(stacked, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(stacked.device))
+    else:
+        host = stacked
+
+    def result() -> dict:
+        if done is not None:
+            wait_event(done)
+        return dict(zip(keys, host.tolist()))
+
+    return result
+
+
+def wait_event(event, poll_s: float = 1e-4) -> None:
+    """Wait for a CUDA event by polling it (``query``, then a short
+    sleep): between polls the waiting thread holds neither the
+    interpreter nor the driver, whatever the event's sync flags."""
+    while not event.query():
+        time.sleep(poll_s)
 
 
 def means_from_sums(sums: dict, steps: int) -> dict:

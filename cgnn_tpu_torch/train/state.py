@@ -146,6 +146,11 @@ class Optimizer:
         self._count = int(value)
         self._count_t.fill_(int(value))
 
+    @property
+    def device_count(self) -> torch.Tensor:
+        """The device count (0-d int64): what a captured step reads."""
+        return self._count_t
+
     def advance(self, steps: int = 1) -> None:
         """Raise the host mirror by ``steps`` updates that a graph replay
         applied on the device."""

@@ -25,6 +25,7 @@ import torch
 from cgnn_tpu_torch.data.compact import CompactBatch
 from cgnn_tpu_torch.data.graph import GraphBatch
 from cgnn_tpu_torch.data.rawbatch import RawBatch
+from cgnn_tpu_torch.observe.health import step_with_health
 from cgnn_tpu_torch.train.normalizer import Normalizer
 
 
@@ -140,16 +141,22 @@ def make_grad_step(expander: Callable | None = None,
 
 
 def make_train_step(expander: Callable | None = None,
-                    classification: bool = False) -> Callable:
+                    classification: bool = False,
+                    grad_health: bool = False) -> Callable:
     """(state, batch) -> metric sums; updates ``state`` in place: the
     grad part (``make_grad_step``), then one optimizer update.
     ``expander`` (``data.compact.make_expander``) rebuilds a
     ``CompactBatch`` on the device first; ``classification`` takes
-    ``classification_loss``, else ``regression_loss``."""
+    ``classification_loss``, else ``regression_loss``. ``grad_health``
+    adds the in-graph grad-norm, update-norm and NaN/Inf-count metrics
+    (observe/health.py): extra metric outputs only, the update untouched,
+    so the trajectory is the same with it on or off."""
     grad_step = make_grad_step(expander, classification)
 
     def train_step(state, batch: GraphBatch) -> dict:
         metrics = grad_step(state, batch)
+        if grad_health:
+            return step_with_health(state, metrics, state.optimizer.step)
         state.optimizer.step()
         return metrics
 

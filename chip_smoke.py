@@ -442,6 +442,28 @@ into ``build/kernels``), then:
    plain path, step and wrapper counts exact, every kernel of the path
    launched on the card, and whether the trace's count is exact
    recorded (``card_exact``), not held.
+21. observe (after serve_devices_tiers) — the observability core as
+   users run it: the train entry point at full width with the kernel
+   path under the epoch driver (``--synthetic 640 --device-resident -b
+   256 --epochs 8 --cgconv-impl pallas``) at ``--telemetry off`` (path
+   ``observe_train_off``) and ``step`` (``observe_train_step``), launches
+   exact; the two final states (every tensor of the newest save, and the
+   parameter file) bit-equal; at ``step`` ``<ckpt>/logs/metrics.jsonl``
+   holds one train record an optimizer step (steps 1..N, finite
+   ``grad_norm``) and one eval record an eval step, ``trace.json``
+   parses with its epoch and checkpoint spans, ``manifest.json`` names
+   the card; at ``off`` no ``logs/``. Then ``python -m
+   cgnn_tpu_torch.serve`` on the step run's checkpoint with
+   ``--telemetry-dir`` (path ``observe_serve``, traced) answers a burst
+   of featurized graphs and wire-form structures over HTTP; ``GET
+   /metrics`` parses (``observe.export.parse_prometheus_text``) and each
+   ``serve_*`` counter equals ``/stats``'s count, each rung's
+   ``ingest_rung*_edge_occupancy`` lies in (0, 1] (a raw rung among
+   them), and the drained server's ``metrics.jsonl`` ends with its
+   ``run_summary`` and ``trace.json`` holds the request spans. Prints
+   ``{"observe": ...}`` with the train steps/s of epochs 2-8 (their
+   train and validation wall, traced) at ``off`` and ``step`` beside the
+   card's name and power limit.
 
 Every phase prints its seconds (``phase <name>: <s> s``).
 
@@ -4444,9 +4466,9 @@ def record_driver_trace() -> list:
                 grp.host_cursor:grp.host_cursor + length].tolist()])
             return super()._run_chunk(key, grp, length, train)
 
-        def run_epoch_pair(self, state, first):
+        def run_epoch_pair(self, state, first, **kw):
             out.append("epoch")
-            return super().run_epoch_pair(state, first)
+            return super().run_epoch_pair(state, first, **kw)
 
     loop.ScanEpochDriver = Traced
     return out
@@ -7941,6 +7963,215 @@ def force_task_phase(dev, work_dir, card):
     return summary, counts
 
 
+# the observe phase's training runs: the entry point's small cells (2
+# train steps an epoch at batch 256), epochs enough for a rate over
+# epochs 2 on without featurizing more structures
+OBS_EPOCHS = 8
+N_OBS_HTTP = 96  # requests of each wire in the observe phase's burst
+
+
+def http_text(port, path) -> tuple:
+    """One GET on a new connection -> (status, content type, text)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read().decode()
+    finally:
+        conn.close()
+
+
+def save_tree_bits(ck) -> dict:
+    """Every array of the newest committed save of ``ck``, by path."""
+    from cgnn_tpu_torch.train.checkpoint import (
+        STATE_FILE,
+        CheckpointManager,
+        load_tree,
+    )
+
+    mgr = CheckpointManager(ck)
+    tree = load_tree(os.path.join(ck, mgr.newest_committed(), STATE_FILE))
+    mgr.close()
+    out = {}
+
+    def walk(prefix, t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(f"{prefix}/{k}", v)
+        else:
+            out[prefix] = t
+
+    walk("", tree)
+    return out
+
+
+def observe_phase(dev, work_dir, card):
+    """Paths 'observe_train_off', 'observe_train_step' and
+    'observe_serve' (module docstring, 21) -> (summary, counts by
+    path)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import (
+        load_synthetic,
+        train_val_test_split,
+    )
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
+    from cgnn_tpu_torch.data.synthetic import synthetic_dataset
+    from cgnn_tpu_torch.observe.export import parse_prometheus_text
+    from cgnn_tpu_torch.observe.metrics_io import read_jsonl
+
+    del dev  # the entry points run on the default card
+    root = os.path.join(work_dir, "observe")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    data_cfg = DataConfig()
+    split = train_val_test_split(load_synthetic(
+        N_TRAIN_SET, data_cfg.featurize_config(), seed=SEED), 0.8, 0.1,
+        seed=SEED)
+    n_conv = ModelConfig().n_conv
+    per_step = dense_per_step(n_conv)
+    logical = entry_logical(split, M, OBS_EPOCHS)
+    base = ["--synthetic", str(N_TRAIN_SET), "--device-resident", "-b",
+            str(BATCH), "--epochs", str(OBS_EPOCHS), "--cgconv-impl",
+            "pallas", "--print-freq", "0", "--seed", str(SEED)]
+    summary = {"card": card}
+    counts, infos = {}, {}
+    for level in ("off", "step"):
+        path = f"observe_train_{level}"
+        ck = os.path.join(root, f"{level}_ckpt")
+        _, info, counts[path] = entry_train(
+            path, base + ["--telemetry", level, "--ckpt-dir", ck,
+                          "--out-dir", os.path.join(root, f"{level}_out")],
+            per_step, logical)
+        check("fallback" not in info["staging"]
+              and info["graphs"]["captures"] > 0,
+              f"{path}: the driver did not run: {info['staging']}")
+        infos[level] = info
+    # the tap and the grad-health metrics read, and write, nothing of
+    # the trajectory: every tensor of the saves, and the parameter file
+    off_bits = save_tree_bits(os.path.join(root, "off_ckpt"))
+    step_bits = save_tree_bits(os.path.join(root, "step_ckpt"))
+    check(off_bits.keys() == step_bits.keys() and all(
+        np.array_equal(off_bits[k], step_bits[k]) for k in off_bits),
+        "observe: the final states at --telemetry off and step differ")
+    with np.load(os.path.join(root, "off_out", "params.npz")) as a, \
+            np.load(os.path.join(root, "step_out", "params.npz")) as b:
+        check(sorted(a.files) == sorted(b.files)
+              and all(np.array_equal(a[k], b[k]) for k in a.files),
+              "observe: the parameter files at off and step differ")
+    check(infos["off"]["train_loss"] == infos["step"]["train_loss"]
+          and infos["off"]["val_metric"] == infos["step"]["val_metric"],
+          f"observe: epoch means differ: {infos['off']['train_loss']} vs "
+          f"{infos['step']['train_loss']}")
+    check(not os.path.exists(os.path.join(root, "off_ckpt", "logs")),
+          "observe: --telemetry off wrote logs/")
+    logs = os.path.join(root, "step_ckpt", "logs")
+    recs = read_jsonl(os.path.join(logs, "metrics.jsonl"))
+    steps = [r for r in recs if r.get("event") == "step"]
+    train = sorted((r for r in steps if r["phase"] == "train"),
+                   key=lambda r: r["step"])
+    n_train = sum(infos["step"]["train_steps"])
+    check([r["step"] for r in train] == list(range(1, n_train + 1))
+          and all(np.isfinite(r["grad_norm"]) for r in train),
+          f"observe: {len(train)} train records for {n_train} optimizer "
+          f"steps, steps {[r['step'] for r in train][:8]}...")
+    n_eval = sum(r["phase"] == "eval" for r in steps)
+    check(n_eval == sum(infos["step"]["eval_steps"]),
+          f"observe: {n_eval} eval records for "
+          f"{infos['step']['eval_steps']} eval steps")
+    run_summary = next(r for r in recs if r.get("event") == "run_summary")
+    trace = json.load(open(os.path.join(logs, "trace.json")))
+    names = {e["name"] for e in trace["traceEvents"]}
+    check({"epoch", "checkpoint_save", "stage_scan_stacks"} <= names,
+          f"observe: trace.json spans {sorted(names)}")
+    manifest = json.load(open(os.path.join(logs, "manifest.json")))
+    check(manifest["backend"] == "cuda" and manifest["devices"][0]["kind"]
+          == torch.cuda.get_device_name(0),
+          f"observe: manifest devices {manifest['devices']}")
+    rates = {}
+    for level, info in infos.items():
+        # epochs 2 on (the first pays the captures' first replays)
+        secs = sum(info["epoch_seconds"][1:])
+        rates[level] = {
+            "train_steps_per_s": sum(info["train_steps"][1:]) / secs,
+            "train_structures_per_s": len(split[0]) * (OBS_EPOCHS - 1)
+            / secs}
+    stream_rates = [r["steps_per_s"] for r in train if "steps_per_s" in r]
+    summary.update(
+        train_rates_steady=rates,
+        step_over_off=rates["step"]["train_steps_per_s"]
+        / rates["off"]["train_steps_per_s"],
+        stream_records={"train": len(train), "eval": n_eval},
+        stream_steps_per_s_median=float(np.median(stream_rates)),
+        grad_norm_last=train[-1]["grad_norm"],
+        run_summary_counters=run_summary["counters"])
+    print(f"observe train: {json.dumps(summary, allow_nan=False)}")
+
+    # serving: featurized graphs and wire-form structures over HTTP
+    tdir = os.path.join(root, "serve_telemetry")
+    proc = ServeProcess("observe_serve", os.path.join(root, "step_ckpt"),
+                        root, ("--telemetry-dir", tdir, "--live-metrics",
+                               "0.5"))
+    try:
+        proc.wait_ready()
+        fcfg = data_cfg.featurize_config()
+        graphs = load_synthetic(N_OBS_HTTP, fcfg, seed=SEED + 41)
+        structs = [RawStructure.from_structure(s, cif_id=sid) for sid, s, _
+                   in synthetic_dataset(N_OBS_HTTP, seed=SEED + 42)]
+        res, wall = http_burst(proc.port, [graph_body(g) for g in graphs]
+                               + [structure_body(rs) for rs in structs])
+        burst = burst_rates("observe_serve", res, wall)
+        st, ctype, text = http_text(proc.port, "/metrics")
+        check(st == 200 and ctype.startswith("text/plain; version=0.0.4"),
+              f"observe_serve: /metrics answered {st} {ctype}")
+        stats = proc.stats()
+        fams = parse_prometheus_text(text)
+        c = stats["counts"]
+        # every serving counter (stats() adds the graph counts, which
+        # are no serve_* counters)
+        graph_keys = ("graph_captures", "graph_replays",
+                      "captures_after_warm")
+        bad = {k: (v, fams.get(f"cgnn_serve_{k}_total"))
+               for k, v in c.items() if k not in graph_keys
+               and [x[1] for x in fams.get(f"cgnn_serve_{k}_total",
+                                           {"samples": []})["samples"]]
+               != [float(v)]}
+        check(not bad, f"observe_serve: /metrics counters differ from "
+                       f"/stats: {bad}")
+        occ = {n: f["samples"][0][1] for n, f in fams.items()
+               if re.match(r"cgnn_ingest_rung\d+_edge_occupancy$", n)}
+        check(occ and all(0.0 < v <= 1.0 for v in occ.values())
+              and c["pack_raw"] > 0,
+              f"observe_serve: edge occupancy {occ}, pack_raw "
+              f"{c['pack_raw']}")
+        rc = proc.stop()
+    finally:
+        proc.kill()
+    counts["observe_serve"] = http_path(proc, rc, per_step)
+    srecs = read_jsonl(os.path.join(tdir, "metrics.jsonl"))
+    check(srecs and srecs[-1]["event"] == "run_summary"
+          and srecs[-1]["counters"]["serve_responses"] == c["responses"],
+          f"observe_serve: metrics.jsonl ends {srecs[-1:]}")
+    snames = {e["name"] for e in json.load(open(os.path.join(
+        tdir, "trace.json")))["traceEvents"]}
+    check({"serve.request", "serve.pack", "serve.dispatch"} <= snames,
+          f"observe_serve: trace.json spans {sorted(snames)}")
+    check(os.path.exists(os.path.join(tdir, "metrics_live.jsonl")),
+          "observe_serve: no metrics_live.jsonl")
+    summary["serve"] = {"burst": burst, "edge_occupancy": occ,
+                        "families": len(fams),
+                        "pack_raw": c["pack_raw"],
+                        "responses": c["responses"]}
+    print(f"observe: {json.dumps(summary, allow_nan=False)}")
+    return summary, counts
+
+
 def timed(name, phase, *args):
     """``phase(*args)``, its seconds printed."""
     t0 = time.perf_counter()
@@ -8037,6 +8268,8 @@ def main() -> int:
     dt_summary, dt_counts = timed(
         "serve_devices_tiers", serve_devices_tiers_phase, dev, work_dir,
         card, split, calibration, coo_weights)
+    obs_summary, obs_counts = timed("observe", observe_phase, dev, work_dir,
+                                    card)
     ckpt_summary, ckpt_counts = timed("checkpoint_predict",
                                       checkpoint_predict_phase, dev,
                                       work_dir, card)
@@ -8068,7 +8301,7 @@ def main() -> int:
     by_path.update(**graphs_counts, **res_counts, **http_counts,
                    **hm_counts, **bp_counts, **force_counts, **dl_counts,
                    **dp_counts, **gs_counts, **dpd_counts, **dt_counts,
-                   **late_counts)
+                   **late_counts, **obs_counts)
     by_path.update(train_cgconv_pallas=train_counts,
                    train_fused_epilogue_pallas=epi_counts,
                    train_coo=coo_train_counts, serve_coo=coo_serve_counts,
@@ -8121,6 +8354,7 @@ def main() -> int:
     print(json.dumps({"heads_modes": hm_summary}, allow_nan=False))
     print(json.dumps({"bf16_paths": bp_summary}, allow_nan=False))
     print(json.dumps({"force_task": force_summary}, allow_nan=False))
+    print(json.dumps({"observe": obs_summary}, allow_nan=False))
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(card)

@@ -10,7 +10,9 @@ stream of its own), two serving entries on one
 card in every precision tier, the divergence guard inside a replayed
 train graph, the COO gathers' fixed-order backward, two
 data-parallel ranks sharing the card over gloo, two graph-sharded
-ranks sharing it, and the prefetch loader staging beside a capture.
+ranks sharing it, the prefetch loader staging beside a capture, and the
+epoch driver's background pair fetch (deferred and joined) bit-equal to
+the synchronous one.
 Marked ``cuda``; they skip where there is no card. On a GPU machine,
 from the repository root:
 
@@ -1819,6 +1821,112 @@ def test_dropped_fit_gives_card_memory_back(dev, mode):
         gc.enable()
     assert peak > before
     assert after - before < 8 * 2**20, (before, peak, after)
+
+
+def _driver_setup(dev):
+    from cgnn_tpu_torch.config import DataConfig, ModelConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.train import state as tstate
+
+    dcfg = DataConfig()
+    graphs = load_synthetic(160, dcfg.featurize_config(), seed=3)
+    cfg = ModelConfig(atom_fea_len=32, n_conv=2, dense_m=12,
+                      cgconv_impl="pallas")
+
+    def fresh():
+        return tstate.init_train_state(cfg, dcfg, graphs[:128],
+                                       batch_size=16, device=dev, seed=5)
+
+    return graphs, fresh
+
+
+@pytest.mark.parametrize("level", ["off", "step"])
+def test_deferred_pair_fetch_on_the_card_equals_the_joined_one(
+        dev, tmp_path, level):
+    """``fit`` under the epoch driver on the card, the kernel path, two
+    size classes: the deferred bookkeeping (no hook: each pair's sums
+    copied out before the next epoch zeroes its accumulators in place,
+    and fetched while that epoch runs), at telemetry ``off`` and
+    ``step``, against the same run with a checkpoint hook (each fetch
+    joined before the next epoch): the same epoch means and final
+    parameters, bit for bit, and the deferred epochs' seconds within
+    the run's wall."""
+    import time
+
+    from cgnn_tpu_torch.observe.telemetry import Telemetry
+    from cgnn_tpu_torch.train.loop import fit
+
+    graphs, fresh = _driver_setup(dev)
+    kw = dict(epochs=5, batch_size=16, dense_m=12, device=dev, seed=7,
+              log_fn=lambda *a: None, scan_epochs=True, buckets=2)
+    outs = {}
+    for mode in ("joined", "deferred"):
+        st, nc, ec = fresh()
+        tel = Telemetry(level if mode == "deferred" else "off",
+                        str(tmp_path / mode))
+        t0 = time.perf_counter()
+        st, res = fit(st, graphs[:128], graphs[128:], node_cap=nc,
+                      edge_cap=ec, telemetry=tel,
+                      on_epoch_end=(lambda *a: None) if mode == "joined"
+                      else None, **kw)
+        wall = time.perf_counter() - t0
+        tel.close()
+        outs[mode] = (res["history"], {k: v.detach().clone() for k, v in
+                                       st.model.state_dict().items()})
+        assert res["graphs"]["captures"] > 0
+        assert res["graphs"]["captures_after_warm"] == 0
+    (h0, s0), (h1, s1) = outs["joined"], outs["deferred"]
+    assert len(h0) == len(h1) == kw["epochs"]
+    for a, b in zip(h0, h1):
+        for part in ("train", "val"):
+            # step level adds the grad-health means; the rest are equal
+            assert {k: b[part][k] for k in a[part]} == a[part], part
+    for k, v in s0.items():
+        assert torch.equal(s1[k], v), k
+    assert all(h["seconds"] > 0 for h in h1)
+    assert sum(h["seconds"] for h in h1) <= wall
+
+
+def test_async_pair_fetch_on_the_card_equals_the_sync_one(dev):
+    """``ScanEpochDriver.run_epoch_pair`` on the card, kernel path, two
+    size classes: ``async_fetch=True`` (the sums stacked into a fresh
+    tensor, copied to page-locked memory and waited for on a thread)
+    against the synchronous return, epoch after epoch: the same
+    schedules, means and parameters, bit for bit."""
+    from cgnn_tpu_torch.data.graph import bucketed_batch_iterator
+    from cgnn_tpu_torch.train import loop as tloop
+    from cgnn_tpu_torch.train.step import make_eval_step, make_train_step
+
+    graphs, fresh = _driver_setup(dev)
+    outs = []
+    for async_fetch in (False, True):
+        state, nc, ec = fresh()
+        rng = np.random.default_rng(3)
+        batches = list(bucketed_batch_iterator(
+            graphs[:128], 16, 2, shuffle=True, rng=rng, dense_m=12))
+        vals = list(bucketed_batch_iterator(graphs[128:], 16, 2,
+                                            dense_m=12))
+        drv = tloop.ScanEpochDriver(make_train_step(), make_eval_step(),
+                                    batches, vals, rng, device=dev)
+        drv.trace = []
+        drv.warm(state)
+        means = []
+        for epoch in range(5):
+            if async_fetch:
+                state, pending = drv.run_epoch_pair(
+                    state, first=epoch == 0, async_fetch=True)
+                means.append(pending.result())
+            else:
+                state, tm, vm = drv.run_epoch_pair(state, first=epoch == 0)
+                means.append((tm, vm))
+        outs.append((means, [(k, list(c)) for k, c in drv.trace],
+                     {k: v.detach().clone() for k, v in
+                      state.model.state_dict().items()}))
+    (m0, t0, s0), (m1, t1, s1) = outs
+    assert m0 == m1 and t0 == t1
+    assert len({k for k, _ in t0}) == 4  # two classes, train and eval
+    for k, v in s0.items():
+        assert torch.equal(s1[k], v), k
 
 
 def test_two_gloo_ranks_share_the_card(dev, tmp_path):

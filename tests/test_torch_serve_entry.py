@@ -184,9 +184,9 @@ def test_boot_crash_dies_once_then_boots(ckpt):
     (["--precision", "f32,fp4"], "unknown precision tier"),
     (["--devices", "4"], "local device(s) exist"),
     (["--devices", "0"], "--devices must be >= 1"),
-    (["--telemetry-dir", "x"], "item 11"),
+    (["--profile-dir", "x"], "item 11"),
     (["--slo-target", "0.99"], "item 11"),
-    (["--log-json"], "item 11"),
+    (["--trace-ring", "4096"], "item 11"),
     (["--journal", "j.jsonl"], "item 12"),
     (["--compile-cache", "/tmp/x"], "no counterpart"),
 ])

@@ -203,7 +203,7 @@ def test_unported_routes_answer_404(checkpoints):
     t.start()
     port = httpd.server_address[1]
     try:
-        for method, path in (("GET", "/metrics"), ("GET", "/trace"),
+        for method, path in (("GET", "/trace"),
                              ("GET", "/timeseries"), ("GET", "/flightrec"),
                              ("POST", "/profile"), ("POST", "/label"),
                              ("POST", "/cache-fill")):
