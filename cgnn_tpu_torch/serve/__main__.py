@@ -33,7 +33,21 @@ per-device gauges at exit) and ``trace.json`` (the ``serve.request``,
 ``serve.pack`` and ``serve.dispatch`` spans); ``--live-metrics SECS``
 appends the registry's snapshot to ``metrics_live.jsonl`` (in the
 telemetry dir, else the checkpoint dir) every SECS seconds; ``--log-json``
-logs one JSON line an event (role, pid, trace id) to stderr.
+logs one JSON line an event (role, pid, trace id) to stderr. At the
+defaults four more planes run, each as ``serve.py`` runs it:
+
+- the trace ring (``--trace-ring 65536``; 0 off) behind ``GET /trace``;
+- the flight recorder (``--flightrec-dir auto``: the telemetry dir, else
+  ``CKPT_DIR/flightrec``; '' off) behind ``GET /flightrec``, its bundles
+  on a 5xx burst, an SLO alert and the drain's forced exit (written
+  before the exit 3);
+- the SLO engine and time-series store (off with ``--no-slo``):
+  objectives from ``--slo-target``, ``--slo-latency-ms``,
+  ``--slo-window`` and ``--class-slo-ms``; the rules scaled to the
+  window unless ``--slo-fast-s`` and ``--slo-slow-s`` are both given
+  (with ``--slo-factor``, ``--slo-for-s``); ``GET /timeseries``;
+- on-demand profiling (``--profile-dir auto``: the telemetry dir, else
+  ``CKPT_DIR/profiles``; '' off): ``POST /profile`` and SIGUSR2.
 
 ``--precision f32,bf16,int8`` warms those tiers (serve/quantize.py; a
 request picks one with its ``precision`` field); ``--devices`` ``auto``
@@ -41,12 +55,9 @@ request picks one with its ``precision`` field); ``--devices`` ``auto``
 clamped); ``--engine`` ``auto`` (mesh over more than one card), ``mesh`` or
 ``threads``, as ``serve.py`` takes them.
 
-Flags refused, exit 2, each naming its ROADMAP item (Queue 1):
-``--profile-dir``, ``--trace-ring``, ``--flightrec-dir`` and the SLO
-flags (``--no-slo``, ``--slo-*``, ``--class-slo-ms``) (item 11);
-``--journal`` (item 12).
-``--compile-cache`` has no counterpart (nothing is compiled by XLA) and
-is refused when set.
+Refused, exit 2: ``--journal`` (ROADMAP Queue 1, item 12);
+``--compile-cache``, which has no counterpart (nothing is compiled by
+XLA), when set.
 """
 
 from __future__ import annotations
@@ -60,18 +71,6 @@ import time
 
 # flags of serve.py whose modules are not ported: (dest, flag, item)
 _REFUSED = (
-    ("profile_dir", "--profile-dir", "11"),
-    ("trace_ring", "--trace-ring", "11"),
-    ("flightrec_dir", "--flightrec-dir", "11"),
-    ("no_slo", "--no-slo", "11"),
-    ("slo_target", "--slo-target", "11"),
-    ("slo_latency_ms", "--slo-latency-ms", "11"),
-    ("slo_window", "--slo-window", "11"),
-    ("slo_fast_s", "--slo-fast-s", "11"),
-    ("slo_slow_s", "--slo-slow-s", "11"),
-    ("slo_factor", "--slo-factor", "11"),
-    ("slo_for_s", "--slo-for-s", "11"),
-    ("class_slo_ms", "--class-slo-ms", "11"),
     ("journal", "--journal", "12"),
 )
 
@@ -159,16 +158,51 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-json", action="store_true",
                    help="one JSON line an event (role, pid, trace id) "
                         "on stderr instead of plain prints")
+    p.add_argument("--profile-dir", type=str, default="auto",
+                   help="where POST /profile and SIGUSR2 write bounded "
+                        "on-demand torch.profiler captures ('auto' = the "
+                        "telemetry dir when set, else CKPT_DIR/profiles; "
+                        "'' disables)")
+    p.add_argument("--trace-ring", type=int, default=65536, metavar="N",
+                   help="bounded always-on serving span ring behind GET "
+                        "/trace; 0 disables")
+    p.add_argument("--flightrec-dir", type=str, default="auto",
+                   help="incident flight-recorder bundles land here "
+                        "('auto' = the telemetry dir when set, else "
+                        "CKPT_DIR/flightrec; '' disables). Triggers: 5xx "
+                        "burst, SLO burn, drain force-exit")
+    p.add_argument("--no-slo", action="store_true",
+                   help="disable the SLO engine, the mergeable histogram "
+                        "families and the embedded time-series store")
+    p.add_argument("--slo-target", type=float, default=0.999,
+                   help="availability objective (fraction of requests "
+                        "that must be answered)")
+    p.add_argument("--slo-latency-ms", type=float, default=1000.0,
+                   help="latency objective threshold: 95%% of answers "
+                        "must land under this")
+    p.add_argument("--slo-window", type=float, default=300.0,
+                   help="error-budget accounting window (seconds)")
+    p.add_argument("--slo-fast-s", type=float, default=None,
+                   help="burn-rate rule override: fast window seconds "
+                        "(set both --slo-fast-s and --slo-slow-s; default: "
+                        "the standard pairs scaled to --slo-window)")
+    p.add_argument("--slo-slow-s", type=float, default=None,
+                   help="burn-rate rule override: slow window seconds")
+    p.add_argument("--slo-factor", type=float, default=6.0,
+                   help="burn-rate rule override: burn factor")
+    p.add_argument("--slo-for-s", type=float, default=0.0,
+                   help="burn-rate rule override: hold time before "
+                        "pending becomes firing")
+    p.add_argument("--class-slo-ms", default="",
+                   help="per-class p95 latency SLO objectives, e.g. "
+                        "'interactive=250,batch=2000': a class-scoped "
+                        "latency objective each")
     # not ported: parsed so that asking for it is refused by name
     p.add_argument("--compile-cache", default="", metavar="DIR",
                    help="no counterpart in the port: refused when set")
-    for dest, flag, item in _REFUSED:
-        if dest == "no_slo":
-            p.add_argument(flag, action="store_true",
-                           help=f"not ported (ROADMAP Queue 1, item {item})")
-        else:
-            p.add_argument(flag, default=None,
-                           help=f"not ported (ROADMAP Queue 1, item {item})")
+    for _, flag, item in _REFUSED:
+        p.add_argument(flag, default=None,
+                       help=f"not ported (ROADMAP Queue 1, item {item})")
     return p
 
 
@@ -178,7 +212,7 @@ def _unported(args) -> str | None:
         return ("--compile-cache has no counterpart in the port (its "
                 "kernels build once into build/kernels)")
     for dest, flag, item in _REFUSED:
-        if getattr(args, dest) not in (None, False):
+        if getattr(args, dest) is not None:
             return (f"{flag} is not ported yet (ROADMAP Queue 1, item "
                     f"{item})")
     return None
@@ -227,6 +261,15 @@ def main(argv=None) -> int:
         from cgnn_tpu_torch.data.cache import load_graph_cache
 
         calibration = load_graph_cache(args.calibration_cache)
+    profile_dir = args.profile_dir
+    if profile_dir == "auto":
+        profile_dir = args.telemetry_dir or os.path.join(args.ckpt_dir,
+                                                         "profiles")
+    try:
+        slo_objectives, slo_rules = _slo_from_args(args)
+    except ValueError as e:  # a target outside (0, 1), a bad window
+        print(str(e), file=sys.stderr)
+        return 2
     try:
         server, parts = load_server(
             args.ckpt_dir,
@@ -257,11 +300,37 @@ def main(argv=None) -> int:
             warm=False,
             log_fn=log,
             telemetry=telemetry,
+            trace_ring=args.trace_ring,
+            slo_layer=not args.no_slo,
+            slo_objectives=slo_objectives,
+            slo_rules=slo_rules,
+            profile_dir=profile_dir,
         )
     except (FileNotFoundError, NotImplementedError) as e:
         # a missing checkpoint, or one whose task is not served (force)
         print(str(e), file=sys.stderr)
         return 2
+    recorder = None
+    flightrec_dir = args.flightrec_dir
+    if flightrec_dir == "auto":
+        flightrec_dir = args.telemetry_dir or os.path.join(args.ckpt_dir,
+                                                           "flightrec")
+    if flightrec_dir:
+        from cgnn_tpu_torch.observe.flightrec import FlightRecorder
+
+        recorder = FlightRecorder(
+            flightrec_dir, role="replica", name=f"replica:{args.port}",
+            registry=server.registry, tracer=server.tracer,
+            manifest={"ckpt_dir": args.ckpt_dir,
+                      "param_version": server.version, "port": args.port,
+                      "engine": server.engine,
+                      "precisions": list(server.precisions)},
+            log_fn=log)
+        server.attach_flight_recorder(recorder)
+    if server.profiler is not None:
+        from cgnn_tpu_torch.observe.profile import install_sigusr2
+
+        install_sigusr2(server.profiler, log_fn=log)
     if args.reload_gated and server.watcher is not None:
         server.watcher.set_gate(server.version)
         log(f"reload gate held at boot version {server.version} (POST "
@@ -298,7 +367,11 @@ def main(argv=None) -> int:
         f"{','.join(server.precisions)}; wire: {wire}; "
         f"compact: {server.shape_set.compact is not None}; pack workers: "
         f"{server.stats()['ingest']['pack_workers']}; live plane: GET "
-        f"/metrics)")
+        f"/metrics"
+        + (", GET /trace" if server.tracer is not None else "")
+        + (f", flightrec -> {flightrec_dir}" if recorder else "")
+        + (f", POST /profile -> {profile_dir}" if profile_dir else "")
+        + ")")
     try:
         while not stop.wait(0.5):
             pass
@@ -328,6 +401,13 @@ def main(argv=None) -> int:
         rejected = sum(v for k, v in c.items() if k.startswith("reject_"))
         unanswered = (c.get("requests", 0) - c.get("responses", 0)
                       - c.get("cache_hits", 0) - rejected)
+        if recorder is not None:
+            # the bundle for this incident, written before the hard exit
+            # (wait), whatever the rate limit (force)
+            recorder.trigger(
+                "drain_force_exit",
+                f"{max(unanswered, 0)} unanswered after "
+                f"{args.drain_timeout:g} s drain", wait=True, force=True)
         print(f"drain timed out after {args.drain_timeout:g} s: "
               f"{max(unanswered, 0)} accepted request(s) unanswered, "
               f"{stats['queue_depth']} still queued; force-exiting 3",
@@ -335,9 +415,43 @@ def main(argv=None) -> int:
         sys.stderr.flush()
         sys.stdout.flush()
         os._exit(3)
+    if recorder is not None:
+        recorder.wait_idle(timeout_s=10.0)
     if faultinject.exit75_requested():
         return RESUMABLE_EXIT_CODE
     return 0
+
+
+def _slo_from_args(args) -> tuple:
+    """serve.py's objectives and rules from the flags -> (objectives,
+    rules), both None under --no-slo; rules None unless --slo-fast-s and
+    --slo-slow-s are both given."""
+    if args.no_slo:
+        return None, None
+    from cgnn_tpu_torch.observe.slo import BurnRateRule, SLOObjective
+    from cgnn_tpu_torch.serve.batcher import parse_kv_spec
+
+    objectives = (
+        SLOObjective("availability", target=args.slo_target,
+                     window_s=args.slo_window),
+        SLOObjective("latency", target=0.95,
+                     latency_threshold_ms=args.slo_latency_ms,
+                     window_s=args.slo_window),
+    )
+    if args.class_slo_ms:
+        # class-scoped: only the class's events feed these windows
+        objectives += tuple(
+            SLOObjective(f"latency_{kl}", target=0.95,
+                         latency_threshold_ms=ms, window_s=args.slo_window,
+                         klass=kl)
+            for kl, ms in parse_kv_spec(args.class_slo_ms).items())
+    rules = None
+    if args.slo_fast_s is not None and args.slo_slow_s is not None:
+        rules = (BurnRateRule(fast_s=args.slo_fast_s,
+                              slow_s=args.slo_slow_s,
+                              factor=args.slo_factor,
+                              for_s=args.slo_for_s),)
+    return objectives, rules
 
 
 if __name__ == "__main__":

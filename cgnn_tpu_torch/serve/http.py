@@ -30,6 +30,20 @@ deadlines, backpressure, the cache, reload) lives in serve/server.py:
   prometheus_text()`` (text exposition format 0.0.4): the request
   counters, the queue, device and edge-occupancy gauges, the rolling
   latency and occupancy summaries and the mergeable histograms.
+- ``GET /trace[?since=<unix s>]``: the server's trace ring as a
+  joinable window (observe/trace_join.py; ``dropped`` and the retained
+  bounds included); 501 with ``--trace-ring 0``; 400 on a bad ``since``.
+- ``GET /flightrec``: the flight recorder's snapshot (its recent-request
+  ring, triggers and metrics); 501 without a recorder.
+- ``GET /timeseries?name=<series>&res=<10s|1m|10m>``: the time-series
+  store's ring of ``{t, count, sum, min, max, last, mean}`` buckets; no
+  ``name``: the index (names, resolutions, stats); 400 on an unknown
+  resolution; 501 with ``--no-slo``.
+- ``POST /profile``: ``{"duration_ms": 500}`` -> one bounded
+  ``torch.profiler`` capture (observe/profile.py), answered 200 with its
+  record; 409 ``busy`` while a capture or another profiler session runs
+  (rejected, never stacked); 501 with no profile dir; 500 with the error
+  when the profiler fails.
 - ``POST /reload-control``: ``{"pin": name|null, "gate": name|null}``
   drives the reload watcher (serve/reload.py); 501 without one.
 
@@ -40,18 +54,20 @@ members 500 (``dispatch_failed``).
 
 A ``/predict`` is answered with its trace id bound
 (``observe.log.bind_trace``), so a ``--log-json`` line logged on the
-handler's thread meanwhile carries it.
+handler's thread meanwhile carries it, and every ``/predict`` status
+feeds the flight recorder's 5xx burst trigger
+(``server.note_http_status``).
 
-Routes whose modules are not ported answer as the JAX handler answers a
-path it does not serve (404): ``GET /timeseries``, ``/trace``,
-``/flightrec`` and ``POST /profile`` (ROADMAP Queue 1, item 11);
-``POST /label`` and ``/cache-fill`` (item 12).
+``POST /label`` and ``/cache-fill`` are not ported (ROADMAP Queue 1,
+item 12): they answer 404, as the JAX handler answers a path it does
+not serve.
 """
 
 from __future__ import annotations
 
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
@@ -59,6 +75,8 @@ from cgnn_tpu_torch.data.graph import CrystalGraph
 from cgnn_tpu_torch.data.rawbatch import RawStructure
 from cgnn_tpu_torch.observe.log import bind_trace
 from cgnn_tpu_torch.observe.metrics_io import jsonfinite
+from cgnn_tpu_torch.observe.profile import ProfileBusy
+from cgnn_tpu_torch.observe.trace_join import parse_since_query
 from cgnn_tpu_torch.observe.tracectx import TRACE_PARENT_HEADER, parse_parent
 from cgnn_tpu_torch.resilience import faultinject
 from cgnn_tpu_torch.serve.batcher import (
@@ -157,8 +175,70 @@ def make_handler(server):
                 self._reply_text(
                     200, server.registry.prometheus_text(),
                     "text/plain; version=0.0.4; charset=utf-8")
+            elif self.path.split("?", 1)[0] == "/timeseries":
+                self._do_timeseries()
+            elif self.path.split("?", 1)[0] == "/trace":
+                self._do_trace()
+            elif self.path == "/flightrec":
+                if server.flightrec is None:
+                    self._reply(501, {
+                        "error": "flight recorder not configured "
+                                 "(--flightrec-dir)"})
+                else:
+                    self._reply(200, server.flightrec.snapshot())
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
+
+        def _do_timeseries(self) -> None:
+            if server.tsdb is None:
+                self._reply(501, {"error": "time-series store disabled "
+                                           "(--no-slo)"})
+                return
+            q = parse_qs(urlsplit(self.path).query)
+            name = (q.get("name") or [""])[0]
+            res = (q.get("res") or ["10s"])[0]
+            if not name:
+                # the index: what can be queried, at which resolutions
+                self._reply(200, {"names": server.tsdb.names(),
+                                  "resolutions": server.tsdb.resolutions(),
+                                  "stats": server.tsdb.stats()})
+                return
+            try:
+                points = server.tsdb.query(name, res)
+            except KeyError as e:  # an unknown resolution
+                self._reply(400, {"error": str(e)})
+                return
+            self._reply(200, {"name": name, "res": res, "points": points})
+
+        def _do_trace(self) -> None:
+            since, err = parse_since_query(self.path)
+            if err:
+                self._reply(400, {"error": err})
+                return
+            window = server.trace_window(since_s=since)
+            if window is None:
+                self._reply(501, {"error": "span ring disabled "
+                                           "(--trace-ring 0)"})
+            else:
+                self._reply(200, window)
+
+        def _do_profile(self, payload: dict) -> None:
+            if server.profiler is None:
+                self._reply(501, {"error": "profiling not configured "
+                                           "(--profile-dir)"})
+                return
+            duration_ms = payload.get("duration_ms")
+            try:
+                record = server.profiler.capture(
+                    None if duration_ms is None
+                    else float(duration_ms) / 1000.0)
+            except ProfileBusy as e:
+                self._reply(409, {"error": str(e), "reason": "busy"})
+                return
+            except Exception as e:  # noqa: BLE001 — report it, keep serving
+                self._reply(500, {"error": repr(e)})
+                return
+            self._reply(200, {"ok": True, **record})
 
         def _do_reload_control(self, payload: dict) -> None:
             # keys absent = untouched; present and null = cleared
@@ -195,11 +275,23 @@ def make_handler(server):
             if self.path == "/reload-control":
                 self._do_reload_control(payload)
                 return
+            if self.path == "/profile":
+                self._do_profile(payload)
+                return
             if self.path != "/predict":
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return
+            self._predict(payload)
+
+        def _preply(self, status: int, payload: dict,
+                    headers: dict | None = None) -> None:
+            # every /predict status feeds the recorder's burst trigger
+            server.note_http_status(status)
+            self._reply(status, payload, headers=headers)
+
+        def _predict(self, payload: dict) -> None:
             if not server.warmed:
-                self._reply(503, {
+                self._preply(503, {
                     "error": "server is warming (capturing its predict "
                              "graphs)", "reason": SHUTDOWN,
                 }, headers={"Retry-After": str(_RETRY_AFTER_S[SHUTDOWN])})
@@ -217,7 +309,7 @@ def make_handler(server):
                 if timeout_ms is not None:
                     timeout_ms = float(timeout_ms)
             except (TypeError, ValueError) as e:
-                self._reply(400, {"error": str(e)})
+                self._preply(400, {"error": str(e)})
                 return
             trace_id = (self.headers.get("X-Request-Id")
                         or payload.get("trace_id"))
@@ -241,19 +333,19 @@ def make_handler(server):
                 if e.reason in _RETRY_AFTER_S:
                     headers = {
                         "Retry-After": str(_RETRY_AFTER_S[e.reason])}
-                self._reply(HTTP_STATUS.get(e.reason, 500), {
+                self._preply(HTTP_STATUS.get(e.reason, 500), {
                     "error": str(e), "reason": e.reason,
                 }, headers=headers)
                 return
             except TimeoutError:
-                self._reply(504, {"error": "result wait timed out",
+                self._preply(504, {"error": "result wait timed out",
                                   "reason": TIMEOUT})
                 return
             except Exception as e:  # noqa: BLE001 — a failed flush: typed 500
-                self._reply(500, {"error": repr(e),
+                self._preply(500, {"error": repr(e),
                                   "reason": "dispatch_failed"})
                 return
-            self._reply(200, {
+            self._preply(200, {
                 "prediction": np.asarray(result.prediction).tolist(),
                 "param_version": result.param_version,
                 "latency_ms": result.latency_ms,

@@ -90,15 +90,35 @@ the request counters, the queue, drain, warm and device gauges, each
 rung's edge-slot occupancy (``ingest_rung{i}_edge_occupancy``: a raw
 flush's true edge count from the device over its slots, a featurized
 flush's host-known edges over the rung's), the 60 s rolling latency and
-occupancy series, and three mergeable histograms (``hists``: latency,
-queue wait, flush occupancy). ``telemetry`` (an ``observe.Telemetry``;
-the entry point's ``--telemetry-dir``) mirrors the counters as
-``serve_*``, keeps the value series, records the ``serve.request``,
-``serve.pack`` and ``serve.dispatch`` spans, and takes the per-entry
-device gauges at the drain. Not ported yet: the SLO engine, time-series
-store, flight recorder, trace ring and profiling (ROADMAP Queue 1, item
-11, parts 3-5; the registry leaves their gauges out), the label journal
-and peer cache fill (item 12).
+occupancy series, and the mergeable histograms (``hists``: latency,
+queue wait, flush occupancy; the labelled families
+``serve_version_latency_ms_hist``, ``serve_class_latency_ms_hist`` and
+``serve_cache_lookup_ms_hist`` by tier, form and outcome). ``telemetry``
+(an ``observe.Telemetry``; the entry point's ``--telemetry-dir``)
+mirrors the counters as ``serve_*``, keeps the value series, records the
+``serve.request``, ``serve.pack`` and ``serve.dispatch`` spans, and takes
+the per-entry device gauges at the drain. The planes the JAX server runs
+beside it:
+
+- the trace ring (``trace_ring`` events, default 65536; 0 off): a
+  ``SpanTracer`` of its own that the serving spans land in whatever the
+  telemetry level, behind ``GET /trace`` (``trace_window``) and the
+  flight recorder's bundles;
+- the flight recorder (``attach_flight_recorder``; observe/flightrec.py):
+  every finished request in its ring, the HTTP statuses into its
+  ``5xx_burst`` trigger (``note_http_status``), an SLO alert into
+  ``slo_burn_<objective>``;
+- the SLO engine and time-series store (``slo_layer``, default on; off
+  also drops the histograms): every answer a good or bad event, every
+  failed or expired request a bad one; a collector thread appends the
+  registry's snapshot to the store every ``tsdb_interval_s`` and
+  advances the alerts on the same tick (``GET /timeseries``,
+  ``stats()["slo"]``, ``stats()["tsdb"]``);
+- on-demand profiling (``enable_profiling``; observe/profile.py):
+  ``POST /profile`` and SIGUSR2 captures, waited out by the drain.
+
+Not ported yet: the label journal and peer cache fill (ROADMAP Queue 1,
+item 12) and the racecheck watchdog's trigger (item 13).
 """
 
 from __future__ import annotations
@@ -111,6 +131,7 @@ import os
 import queue
 import threading
 import time
+from collections import OrderedDict
 from typing import Callable, Sequence
 
 import numpy as np
@@ -137,8 +158,12 @@ from cgnn_tpu_torch.observe.hist import (
     OCCUPANCY_BOUNDS,
     QUEUE_WAIT_MS_BOUNDS,
     Histogram,
+    format_labels,
 )
+from cgnn_tpu_torch.observe.slo import SLOEngine, SLOObjective
+from cgnn_tpu_torch.observe.spans import SpanTracer
 from cgnn_tpu_torch.observe.telemetry import Telemetry
+from cgnn_tpu_torch.observe.tsdb import TimeSeriesStore, TsdbCollector
 from cgnn_tpu_torch.resilience import faultinject
 from cgnn_tpu_torch.serve.batcher import (
     CLASSES,
@@ -209,7 +234,10 @@ class InferenceServer:
     at admission and leaves the decision to the device's overflow flag.
     ``pack_workers`` packer threads pack flushes while the worker replays
     (0: the worker packs). ``cache_size`` 0 disables the result cache.
-    ``telemetry``: module docstring (None: off)."""
+    ``telemetry``, ``trace_ring``, ``slo_layer`` (with ``slo_objectives``,
+    ``slo_rules`` and ``tsdb_interval_s``): module docstring (telemetry
+    None: off; the default objectives are the JAX server's, availability
+    0.999 and 95% within 1000 ms over 300 s)."""
 
     def __init__(
         self,
@@ -233,6 +261,11 @@ class InferenceServer:
         log_fn: Callable = print,
         raw_precheck: bool = True,
         telemetry: Telemetry | None = None,
+        trace_ring: int = 65536,
+        slo_layer: bool = True,
+        slo_objectives=None,
+        slo_rules=None,
+        tsdb_interval_s: float = 2.0,
     ):
         entries = [canonical(resolve_device(d)) for d in
                    (devices if devices is not None else [device])]
@@ -264,17 +297,40 @@ class InferenceServer:
         self._raw_precheck = bool(raw_precheck)
         self.telemetry = telemetry or Telemetry.disabled()
         # mergeable fixed-bucket histograms beside the rolling quantiles
-        # (observe/hist.py): integer bucket counts add across processes
-        self.hists: dict[str, Histogram] = {
-            "serve_latency_ms_hist": Histogram(LATENCY_MS_BOUNDS),
-            "serve_queue_wait_ms_hist": Histogram(QUEUE_WAIT_MS_BOUNDS),
-            "serve_flush_occupancy_hist": Histogram(OCCUPANCY_BOUNDS),
-        }
+        # (observe/hist.py): integer bucket counts add across processes.
+        # They, the SLO engine and the time-series store ride slo_layer
+        self.hists: dict[str, Histogram] = {}
+        self.slo = None
+        self.tsdb = None
+        self._tsdb_collector = None
+        if slo_layer:
+            self.hists = {
+                "serve_latency_ms_hist": Histogram(LATENCY_MS_BOUNDS),
+                "serve_queue_wait_ms_hist": Histogram(QUEUE_WAIT_MS_BOUNDS),
+                "serve_flush_occupancy_hist": Histogram(OCCUPANCY_BOUNDS),
+            }
+            objectives = (tuple(slo_objectives) if slo_objectives else (
+                SLOObjective("availability", target=0.999, window_s=300.0),
+                SLOObjective("latency", target=0.95,
+                             latency_threshold_ms=1000.0, window_s=300.0),
+            ))
+            # the fire hook reads self.flightrec when it fires, so a
+            # recorder attached later still gets the alerts
+            self.slo = SLOEngine(objectives, rules=slo_rules,
+                                 on_fire=self._on_slo_fire,
+                                 on_resolve=self._on_slo_resolve)
+            self.tsdb = TimeSeriesStore()
+        # labelled latency families (a bounded map of the latest param
+        # versions; one a class) and cache-lookup families, made lazily
+        self._version_hists: OrderedDict = OrderedDict()
+        self._version_hists_cap = 8
+        self._class_hists: dict[str, Histogram] = {}
+        self._cache_hists: dict[tuple, Histogram] = {}
         self.batcher = MicroBatcher(
             shape_set, max_queue=max_queue, max_wait_ms=max_wait_ms,
             class_max_wait_ms=class_max_wait_ms, backfill=backfill,
             wfq_weights=wfq_weights,
-            queue_wait_hist=self.hists["serve_queue_wait_ms_hist"])
+            queue_wait_hist=self.hists.get("serve_queue_wait_ms_hist"))
         self.default_timeout = (
             None if default_timeout_ms is None else default_timeout_ms / 1000.0
         )
@@ -316,6 +372,20 @@ class InferenceServer:
         self.registry = MetricsRegistry(window_s=self.rolling_window_s)
         self.registry.attach_telemetry(self.telemetry)
         self.registry.add_provider("serve", self._registry_snapshot)
+        if self.tsdb is not None:
+            # one heartbeat: registry snapshots into the store, and the
+            # alerts advance on the same tick (they resolve with no
+            # traffic too)
+            self._tsdb_collector = TsdbCollector(
+                self.registry, self.tsdb, interval_s=tsdb_interval_s)
+            self._tsdb_collector.add_on_tick(self._slo_tick)
+        # the trace ring: serving spans whatever the telemetry level
+        self.tracer = (SpanTracer(process_name=f"serve-{os.getpid()}",
+                                  max_events=int(trace_ring))
+                       if trace_ring else None)
+        # attached by the entry point (None: every hook a no-op)
+        self.flightrec = None
+        self.profiler = None
         # where the worker's time goes (s): packing on the worker (the
         # in-line path), waiting on the pack stage, and dispatch (copy,
         # replay, fetch, answers); the packers' own time is in _pipe
@@ -438,6 +508,8 @@ class InferenceServer:
             self._worker.start()
         if self._watcher is not None:
             self._watcher.start()
+        if self._tsdb_collector is not None:
+            self._tsdb_collector.start()
         return self
 
     def attach_watcher(self, manager: CheckpointManager, make_staging,
@@ -506,12 +578,18 @@ class InferenceServer:
         self.begin_drain()
         if self._watcher is not None:
             self._watcher.stop()
+        if self._tsdb_collector is not None:
+            self._tsdb_collector.stop()
         if self._worker is None:
             self._serve_loop()  # never started: answer accepted work here
             done = True
         else:
             self._worker.join(timeout=timeout_s)
             done = not self._worker.is_alive()
+        if self.profiler is not None:
+            # a capture in flight is written before the process goes
+            # (bounded: a capture lasts at most max_duration_s)
+            self.profiler.wait_idle()
         self.telemetry.set_gauge("serve_drained_clean", float(done))
         # the per-entry dispatch gauges into the run summary
         self.device_set.flush_gauges(self.telemetry)
@@ -646,16 +724,21 @@ class InferenceServer:
             self._count(f"reject_{e.reason}")
             raise
         is_raw_wire = isinstance(graph, RawStructure)
+        lookup_t0 = time.monotonic()
         fp = self._cache_key(graph, is_raw_wire, form, fingerprint, tier)
         if fp is not None:
             hit = self.cache.get(fp)
+            lookup_ms = (time.monotonic() - lookup_t0) * 1e3
             if hit is not None:
                 row, version = hit
                 # served only while its version is live: a flush in
                 # flight across a swap writes its rows after the clear
                 if version == self.param_store.version:
+                    self._observe_cache_lookup(tier, form, "hit", lookup_ms)
                     return self._answer_hit(row, version, tid, queued, now,
-                                            form, kl, tier)
+                                            form, kl, tier, trace_parent)
+            # a stale-version hit is a miss: a forward pass answers it
+            self._observe_cache_lookup(tier, form, "miss", lookup_ms)
         timeout = (timeout_ms / 1000.0 if timeout_ms is not None
                    else self.default_timeout)
         req = Request(graph=graph, enqueued=now,
@@ -724,20 +807,26 @@ class InferenceServer:
         return fp if tier == "f32" else f"{tier}:{fp}"
 
     def _answer_hit(self, row, version, tid, queued, t0, form,
-                    kl, tier) -> RequestFuture:
+                    kl, tier, trace_parent=None) -> RequestFuture:
         self._count("cache_hits")
         fut = RequestFuture()
         latency_ms = (time.monotonic() - t0) * 1e3
         replied = time.perf_counter()
+        wire = "raw" if form == "raw" else "featurized"
         fut.set_result(ServeResult(
             prediction=row, param_version=version, latency_ms=latency_ms,
             cached=True, precision=tier, device_id=-1, trace_id=tid,
             stamps={"queued": queued, "replied": replied},
-            wire="raw" if form == "raw" else "featurized", klass=kl))
+            wire=wire, klass=kl))
         if self._spans_on:
-            self._span("serve.request", queued, replied, trace_id=tid,
-                       cached=True)
-        self._record_latency(latency_ms)
+            args = {"trace_id": tid, "cached": True}
+            if trace_parent:
+                args["parent"] = trace_parent
+            self._span("serve.request", queued, replied, **args)
+        self._note_request(trace_id=tid, status="ok", cached=True,
+                           param_version=version, precision=tier, wire=wire,
+                           latency_ms=latency_ms)
+        self._record_latency(latency_ms, version, kl)
         self._count(f"responses_class_{kl}")
         return fut
 
@@ -769,7 +858,12 @@ class InferenceServer:
             if self._spans_on:
                 self._span("serve.request", w["queued"], replied,
                            trace_id=w["trace_id"], coalesced=True)
-            self._record_latency(latency_ms)
+            self._note_request(trace_id=w["trace_id"], status="ok",
+                               cached=bool(res.cached),
+                               param_version=res.param_version,
+                               precision=w["tier"], wire=res.wire,
+                               latency_ms=latency_ms)
+            self._record_latency(latency_ms, res.param_version, w["klass"])
             self._count("responses")
             self._count(f"responses_class_{w['klass']}")
 
@@ -889,7 +983,10 @@ class InferenceServer:
 
     def _fail_expired(self, flush: Flush) -> None:
         for r in flush.expired:
+            self._record_slo_bad(r.klass)
             self._count("reject_timeout")
+            self._note_request(trace_id=r.trace_id, status="timeout",
+                               precision=r.precision)
             r.future.set_error(ServeRejection(
                 TIMEOUT, f"deadline exceeded after "
                 f"{(time.monotonic() - r.enqueued) * 1e3:.1f} ms in queue"))
@@ -985,6 +1082,11 @@ class InferenceServer:
         for r in flush.requests:
             if not r.future.done():
                 r.future.set_error(e)
+                self._record_slo_bad(r.klass)
+                self._note_request(trace_id=r.trace_id,
+                                   status="dispatch_failed", error=repr(e),
+                                   precision=r.precision,
+                                   flush_id=flush.flush_id)
 
     def _run_flush(self, flush: Flush, batch, buf, err, *, entry: int = 0,
                    routed: bool = False) -> None:
@@ -1145,7 +1247,12 @@ class InferenceServer:
                     args["parent"] = r.trace_parent
                 self._span("serve.request", stamps["queued"],
                            stamps["replied"], **args)
-            self._record_latency(latency_ms)
+            self._note_request(trace_id=r.trace_id, status="ok",
+                               param_version=version, precision=tier,
+                               wire=wire, flush_id=flush.flush_id,
+                               device=dev_id, latency_ms=latency_ms,
+                               stamps=stamps)
+            self._record_latency(latency_ms, version, r.klass)
             self._count("responses")
             self._count(f"responses_class_{r.klass}")
             if r.backfilled:
@@ -1160,7 +1267,9 @@ class InferenceServer:
             self._occupancies.append(occupancy)
             del self._occupancies[:-4096]
         self._occ_rolling.add(occupancy)
-        self.hists["serve_flush_occupancy_hist"].observe(occupancy)
+        oh = self.hists.get("serve_flush_occupancy_hist")
+        if oh is not None:
+            oh.observe(occupancy)
         self.telemetry.observe_value("serve_batch_occupancy", occupancy)
         self.telemetry.set_gauge("serve_queue_depth", self.batcher.depth)
 
@@ -1192,26 +1301,146 @@ class InferenceServer:
             self.counts[key] = self.counts.get(key, 0) + 1
         self.telemetry.counter_add(f"serve_{key}", 1)
 
-    def _record_latency(self, latency_ms: float) -> None:
+    def _record_latency(self, latency_ms: float, version: str | None = None,
+                        klass: str | None = None) -> None:
         """One answered request (a cache hit too: a client got its
-        answer) into the recent list, the rolling series, the latency
-        histogram and the telemetry's series."""
+        answer) into the recent list, the rolling series, the telemetry's
+        series, the latency histograms (its param version's and its
+        class's labelled members too) and the SLO engine as a good
+        event."""
         with self._lock:
             self._latencies.append(latency_ms)
             del self._latencies[:-8192]
         self._lat_rolling.add(latency_ms)
-        self.hists["serve_latency_ms_hist"].observe(latency_ms)
         self.telemetry.observe_value("serve_latency_ms", latency_ms)
+        h = self.hists.get("serve_latency_ms_hist")
+        if h is not None:
+            h.observe(latency_ms)
+            if version is not None:
+                with self._lock:
+                    vh = self._version_hists.get(version)
+                    if vh is None:
+                        vh = self._version_hists[version] = Histogram(
+                            LATENCY_MS_BOUNDS)
+                        while len(self._version_hists) > \
+                                self._version_hists_cap:
+                            self._version_hists.popitem(last=False)
+                vh.observe(latency_ms)
+            if klass is not None:
+                ch = self._class_hists.get(klass)
+                if ch is None:
+                    with self._lock:
+                        ch = self._class_hists.setdefault(
+                            klass, Histogram(LATENCY_MS_BOUNDS))
+                ch.observe(latency_ms)
+        if self.slo is not None:
+            self.slo.record(True, latency_ms, klass=klass)
+
+    def _observe_cache_lookup(self, tier: str, form: str, outcome: str,
+                              lookup_ms: float) -> None:
+        """One cache probe into its (tier, form, outcome) member of
+        ``serve_cache_lookup_ms_hist``: the counts give mergeable hit
+        ratios, the values the probe's cost (ms)."""
+        if not self.hists:
+            return
+        key = (str(tier), str(form), str(outcome))
+        h = self._cache_hists.get(key)
+        if h is None:
+            with self._lock:
+                h = self._cache_hists.setdefault(
+                    key, Histogram(LATENCY_MS_BOUNDS))
+        h.observe(lookup_ms)
+
+    def _record_slo_bad(self, klass: str | None = None) -> None:
+        """One failed request (a failed flush, an expired deadline) into
+        the error budget. Admission rejections are not: they are the
+        server protecting itself or the client's fault."""
+        if self.slo is not None:
+            self.slo.record(False, 0.0, klass=klass)
+
+    def _slo_tick(self) -> None:
+        """The collector's heartbeat: pending -> firing and firing ->
+        resolved happen on the clock, not only when traffic comes."""
+        if self.slo is not None:
+            self.slo.evaluate()
+
+    def _on_slo_fire(self, tr: dict) -> None:
+        """A burn-rate alert fires: the flight recorder's
+        ``slo_burn_<objective>`` trigger, so the bundle's manifest names
+        the alert."""
+        self._log(f"serve: SLO ALERT firing: objective={tr['objective']} "
+                  f"rule={tr['rule']} burn_fast={tr['burn_fast']:.2f} "
+                  f"burn_slow={tr['burn_slow']:.2f} "
+                  f"(factor {tr['factor']:g})")
+        fr = self.flightrec
+        if fr is not None:
+            fr.trigger(f"slo_burn_{tr['objective']}",
+                       detail=(f"rule={tr['rule']} "
+                               f"burn_fast={tr['burn_fast']:.3f} "
+                               f"burn_slow={tr['burn_slow']:.3f} "
+                               f"factor={tr['factor']:g}"))
+
+    def _on_slo_resolve(self, tr: dict) -> None:
+        self._log(f"serve: SLO alert resolved: objective={tr['objective']} "
+                  f"rule={tr['rule']}")
+
+    def _note_request(self, **record) -> None:
+        """A finished request into the flight recorder's ring (a no-op
+        without one)."""
+        fr = self.flightrec
+        if fr is not None:
+            fr.note_request(record)
+
+    def note_http_status(self, status: int) -> None:
+        """The HTTP front end's hook: each /predict status into the
+        recorder's 5xx burst trigger."""
+        fr = self.flightrec
+        if fr is not None:
+            fr.note_status(int(status))
+
+    def attach_flight_recorder(self, recorder) -> None:
+        """Wire an ``observe.flightrec.FlightRecorder`` into the serving
+        path (module docstring)."""
+        self.flightrec = recorder
+
+    def trace_window(self, since_s: float | None = None) -> dict | None:
+        """The ``GET /trace`` body: the trace ring (else the telemetry's
+        spans) as a joinable window (observe/trace_join.py), or None
+        when neither exists."""
+        tracer = self.tracer or self.telemetry.spans
+        if tracer is None:
+            return None
+        w = tracer.window(since_s=since_s)
+        w["role"] = "replica"
+        return w
+
+    def enable_profiling(self, out_dir: str, *,
+                         default_duration_s: float = 1.0,
+                         max_duration_s: float = 10.0):
+        """On-demand profiling (``POST /profile``, SIGUSR2) into
+        ``out_dir`` -> the ``ProfileCapture`` (one capture at a time:
+        another is rejected, never stacked)."""
+        from cgnn_tpu_torch.observe.profile import ProfileCapture
+
+        self.profiler = ProfileCapture(
+            out_dir, spans=self.telemetry.spans,
+            default_duration_s=default_duration_s,
+            max_duration_s=max_duration_s, log_fn=self._log)
+        return self.profiler
 
     @property
     def _spans_on(self) -> bool:
-        return self.telemetry.spans is not None
+        return self.telemetry.spans is not None or self.tracer is not None
 
     def _span(self, name: str, start_s: float, end_s: float,
               **args) -> None:
-        """One retro-stamped hop span into the telemetry's tracer
-        (trace.json at close)."""
-        self.telemetry.spans.complete(name, start_s, end_s, **args)
+        """One retro-stamped hop span into every live sink: the
+        telemetry's tracer (trace.json at close) and the trace ring."""
+        spans = self.telemetry.spans
+        if spans is not None:
+            spans.complete(name, start_s, end_s, **args)
+        if self.tracer is not None:
+            self.tracer.complete(name, start_s, end_s, **args)
 
     def _note_edge_occupancy(self, flush: Flush, raw_edges,
                              shape=None, n_shards: int = 1) -> None:
@@ -1243,10 +1472,10 @@ class InferenceServer:
     def _registry_snapshot(self) -> dict:
         """The ``serve`` provider of ``self.registry``: request counters,
         live queue, drain and device gauges, each rung's edge occupancy,
-        the rolling-window series and the histograms, all readable with
-        telemetry off (the JAX provider's names; the gauges of the
-        unported SLO, time-series, flight-recorder, trace-ring and
-        profiling planes are left out)."""
+        the trace ring's, flight recorder's, profiler's, SLO engine's and
+        time-series store's gauges, the rolling-window series and the
+        histograms, all readable with telemetry off (the JAX provider's
+        names)."""
         with self._lock:
             counts = dict(self.counts)
             draining = self._draining
@@ -1287,17 +1516,49 @@ class InferenceServer:
         # single flight rides the cache: a miss with a fingerprint
         gauges["serve_single_flight"] = float(self.cache is not None)
         gauges.update(cache_gauges(counters, gauges))
+        gauges["observe_trace_ring"] = float(self.tracer is not None)
+        if self.tracer is not None:
+            gauges["observe_trace_dropped"] = float(self.tracer.dropped)
+        fr = self.flightrec
+        if fr is not None:
+            frs = fr.stats()
+            gauges["flightrec_bundles"] = float(frs["bundles"])
+            gauges["flightrec_suppressed"] = float(frs["suppressed"])
         for i, depth in enumerate(self.device_set.inflight_depths()):
             gauges[f"device{i}_inflight"] = float(depth)
+        if self.profiler is not None:
+            gauges["profile_captures"] = float(self.profiler.captures)
+            gauges["profile_busy"] = float(self.profiler.busy)
         series = {}
         for name, roll in (("serve_latency_ms", self._lat_rolling),
                            ("serve_batch_occupancy", self._occ_rolling)):
             q = roll.quantiles()
             if q:
                 series[name] = q
-        return {"counters": counters, "gauges": gauges, "series": series,
-                "histograms": {name: h.snapshot()
-                               for name, h in self.hists.items()}}
+        out = {"counters": counters, "gauges": gauges, "series": series}
+        if self.hists:
+            hists = {name: h.snapshot() for name, h in self.hists.items()}
+            with self._lock:
+                labelled = (
+                    [("serve_version_latency_ms_hist",
+                      {"param_version": str(v)}, h)
+                     for v, h in self._version_hists.items()]
+                    + [("serve_class_latency_ms_hist", {"class": str(k)}, h)
+                       for k, h in sorted(self._class_hists.items())]
+                    + [("serve_cache_lookup_ms_hist",
+                        {"tier": t, "form": f, "outcome": o}, h)
+                       for (t, f, o), h in sorted(self._cache_hists.items())])
+            for family, labels, h in labelled:
+                hists[family + format_labels(labels)] = h.snapshot()
+            out["histograms"] = hists
+        if self.slo is not None:
+            gauges.update(self.slo.gauges())
+        if self.tsdb is not None:
+            ts = self.tsdb.stats()
+            gauges["tsdb_series"] = float(ts["series"])
+            gauges["tsdb_points"] = float(ts["points"])
+            gauges["tsdb_dropped_series"] = float(ts["dropped_series"])
+        return out
 
     def latency_quantiles(self) -> dict:
         """{p50, p95, p99, mean, count} over recent responses (ms)."""
@@ -1395,6 +1656,18 @@ class InferenceServer:
                              "skipped": self._watcher.skipped,
                              "pending": self.param_store.pending,
                              **self._watcher.control()}
+        if self.slo is not None:
+            out["slo"] = self.slo.state()
+        if self.tsdb is not None:
+            out["tsdb"] = self.tsdb.stats()
+        if self.flightrec is not None:
+            out["flightrec"] = self.flightrec.stats()
+        if self.profiler is not None:
+            out["profile"] = {"captures": self.profiler.captures,
+                              "rejected": self.profiler.rejected,
+                              "busy": self.profiler.busy,
+                              "recording": self.profiler.recording,
+                              "last": self.profiler.last}
         return out
 
 
@@ -1484,6 +1757,11 @@ def load_server(
     poll_interval_s: float = 2.0,
     warm: bool = True,
     telemetry: Telemetry | None = None,
+    trace_ring: int = 65536,
+    slo_layer: bool = True,
+    slo_objectives=None,
+    slo_rules=None,
+    profile_dir: str = "",
 ):
     """Boot an InferenceServer from a saved model at ``path``: a parameter
     file and its meta (``load_server(npz, meta_json)``,
@@ -1522,8 +1800,10 @@ def load_server(
     entries on one card). ``engine``: 'auto' (mesh over more than one
     entry), 'mesh' or 'threads' (serve/devices.py, parallel/executor.py).
     ``precision``: the tiers to warm, 'f32,bf16,int8' or a sequence
-    (serve/quantize.py; f32 always). ``telemetry``: the server's
-    (InferenceServer).
+    (serve/quantize.py; f32 always). ``telemetry``, ``trace_ring``,
+    ``slo_layer``, ``slo_objectives``, ``slo_rules``: the server's
+    (InferenceServer). ``profile_dir`` (non-empty) enables on-demand
+    profiling into it (``enable_profiling``).
 
     -> (server, dict of what callers reuse: manager (None for a weight
     file), meta, configs, template graph, the calibration sample).
@@ -1600,7 +1880,11 @@ def load_server(
         featurizer=structure_featurizer(data_cfg), devices=device_list,
         engine=engine, precisions=precisions, log_fn=log_fn,
         raw_precheck=raw_precheck, telemetry=telemetry,
+        trace_ring=trace_ring, slo_layer=slo_layer,
+        slo_objectives=slo_objectives, slo_rules=slo_rules,
     )
+    if profile_dir:
+        server.enable_profiling(profile_dir)
     if mgr is not None and watch:
         server.attach_watcher(mgr, lambda: inference_state(meta, dev),
                               poll_interval_s=poll_interval_s, log_fn=log_fn)

@@ -136,8 +136,16 @@ shards, the shuffles and the dropout streams follow the data index.
 Without the triple, ``launch_local`` starts the D·G workers; a graph
 group must lie on one host (exit 2 otherwise). Exit 2, as train.py:
 ``--graph-shards`` with ``--task force``, ``--fused-epilogue`` or
-``--cgconv-impl``, ``--buckets`` > 1 on COO, and ``--compact-staging
-on``; a world that G does not divide.
+``--cgconv-impl``, ``--buckets`` > 1 on COO, ``--compact-staging
+on`` and ``--profile``; a world that G does not divide.
+
+Profiling, as train.py: ``--profile N`` traces N steps after the first
+of the first epoch with ``torch.profiler`` into the log dir (train/
+loop.py ``profile_wrap``; ``--device-resident`` then keeps the per-step
+loop, and an explicit ``--scan-epochs`` logs that it traces nothing).
+With telemetry on, SIGUSR2 takes one bounded capture into a
+``profile-<stamp>-<nnn>/`` of the log dir (observe/profile.py), and
+every exit waits an in-flight capture out.
 
 The flags are train.py's that this entry point serves, with train.py's
 defaults. It runs on the CUDA card unless ``--device cpu`` asks for the
@@ -155,6 +163,7 @@ import argparse
 import contextlib
 import json
 import os
+import signal
 import sys
 import time
 
@@ -318,11 +327,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "gauges, rolling-window quantiles) to "
                         "metrics_live.jsonl in the log dir every SECS "
                         "seconds (0 disables; needs --telemetry != off). "
-                        "SIGUSR2's on-demand profile capture is not "
-                        "ported yet (ROADMAP Queue 1, item 11)")
+                        "SIGUSR2 additionally captures a bounded on-demand "
+                        "torch.profiler trace into the log dir")
     p.add_argument("--profile", type=int, default=0, metavar="N",
-                   help="not ported yet (ROADMAP Queue 1, item 11): "
-                        "refused when set")
+                   help="trace N steps after the first of the first epoch "
+                        "with torch.profiler (a Chrome trace in the log "
+                        "dir; the per-step loop: --device-resident then "
+                        "keeps it, and the epoch driver traces nothing)")
     p.add_argument("--out-dir", default="checkpoints/torch",
                    help="where params.npz and meta.json are written")
     p.add_argument("--data-parallel", action="store_true",
@@ -405,6 +416,9 @@ def graph_shards_refusal(args, dense_m) -> str:
         return ("--compact-staging on is not yet supported with "
                 "--data-parallel/--graph-shards (full staging only); drop "
                 "the flag or use auto")
+    if args.profile:
+        return ("--profile is not supported with --graph-shards "
+                "(edge-sharded meshes)")
     return ""
 
 
@@ -520,10 +534,6 @@ def launch_local(argv, world: int, timeout: float | None = None) -> int:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.profile:
-        print("--profile is not ported yet (ROADMAP Queue 1, item 11)",
-              file=sys.stderr)
-        return 2
     dense_m = resolve_layout(args)
     if dense_m is None:
         return 2
@@ -536,8 +546,11 @@ def main(argv=None) -> int:
         return 2
     if plan[0] == "spawn":
         return launch_local(argv, plan[1])
-    if args.device_resident and not args.no_scan_epochs:
-        args.scan_epochs = True  # train.py: the device-resident default
+    if (args.device_resident and not args.no_scan_epochs
+            and not args.profile):
+        # train.py: the device-resident default, but not for per-step
+        # profiling, which the epoch driver cannot give
+        args.scan_epochs = True
     if args.scan_epochs and args.no_scan_epochs:
         print("--scan-epochs and --no-scan-epochs are contradictory",
               file=sys.stderr)
@@ -645,10 +658,36 @@ def _train(args, dense_m, compact_ok, preempt) -> int:
                             ).attach_telemetry(telemetry),
             os.path.join(log_dir, "metrics_live.jsonl"),
             interval_s=args.live_metrics).start()
+    profiler = None
+    sigusr2 = getattr(signal, "SIGUSR2", None)
+    old_sigusr2 = None
+    if telemetry.enabled:
+        # SIGUSR2 -> one bounded capture into the log dir (host-side
+        # only: the trajectory is bit-equal with or without one)
+        from cgnn_tpu_torch.observe.profile import (
+            ProfileCapture,
+            install_sigusr2,
+        )
+
+        profiler = ProfileCapture(log_dir, spans=telemetry.spans)
+        if sigusr2 is not None:
+            old_sigusr2 = signal.getsignal(sigusr2)
+        if install_sigusr2(profiler, log_fn=print):
+            print(f"profile: SIGUSR2 takes a "
+                  f"{profiler.default_duration_s:g} s capture into "
+                  f"{log_dir}")
+        else:
+            old_sigusr2 = None
     try:
         return _train_run(args, dense_m, compact_ok, preempt, dev, data_cfg,
                           loaded, telemetry)
     finally:
+        if profiler is not None:
+            # every exit (the end, 75, an error) waits a capture out, so
+            # its trace is written
+            profiler.wait_idle()
+        if old_sigusr2 is not None:
+            signal.signal(sigusr2, old_sigusr2)
         if live_writer is not None:
             live_writer.stop()
         # flushes the counters and gauges, exports trace.json: also on
@@ -816,7 +855,10 @@ def _train_run(args, dense_m, compact_ok, preempt, dev, data_cfg, loaded,
                 packing=args.packing,
                 fit_on=(full_train, full_val) if dp else None,
                 telemetry=telemetry,
-                on_epoch_metrics=telemetry.write_epoch)
+                on_epoch_metrics=telemetry.write_epoch,
+                profile_steps=args.profile,
+                profile_dir=args.log_dir or os.path.join(args.ckpt_dir,
+                                                         "logs"))
         if ckpt is not None:
             ckpt.wait()
     finally:

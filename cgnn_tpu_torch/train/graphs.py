@@ -73,10 +73,18 @@ replay's. A ``GraphCache`` (one graph per key) counts
 ``captures_after_warm``, the captures after its owner declared it warm
 (``mark_warm``): the counterpart of the JAX
 ``serve_recompiles_after_warm``.
+
+A profiler that starts or stops while another thread captures can
+break that capture (CUPTI changes what the stream records). Every
+capture runs inside ``CAPTURE_GATE.capturing()``, and the profiling
+sessions (observe/profile.py) start and stop inside
+``CAPTURE_GATE.quiet()``, which waits out the captures in flight and
+holds new ones off meanwhile.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import inspect
@@ -114,6 +122,46 @@ def _bump(key: str) -> None:
 
 
 reset_counts()
+
+
+class _CaptureGate:
+    """Captures in flight, and a hold that keeps new ones off (module
+    docstring): any number of threads capture at once; ``quiet`` waits
+    until none does and holds the rest off while its body runs."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._active = 0
+        self._held = False
+
+    @contextlib.contextmanager
+    def capturing(self):
+        with self._cv:
+            while self._held:
+                self._cv.wait()
+            self._active += 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._active -= 1
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def quiet(self):
+        with self._cv:
+            while self._held or self._active:
+                self._cv.wait()
+            self._held = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._held = False
+                self._cv.notify_all()
+
+
+CAPTURE_GATE = _CaptureGate()
 
 
 class GraphCaptureError(RuntimeError):
@@ -326,7 +374,7 @@ class StepGraph:
         gc.disable()
         _tls.hooks = hooks = []
         try:
-            with torch.cuda.stream(self._side):
+            with CAPTURE_GATE.capturing(), torch.cuda.stream(self._side):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     self.out = self._body()

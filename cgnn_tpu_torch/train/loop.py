@@ -125,8 +125,14 @@ the epoch pair's sums are fetched on a thread (``PendingPairMetrics``),
 and with no checkpoint hook, divergence monitor, preemption handler or
 process group a pair's bookkeeping runs one epoch late, while the next
 epoch's steps run; the means, schedules and trajectory are the
-synchronous path's, bit for bit. ``--profile`` is not ported (ROADMAP
-Queue 1, item 11, part 3).
+synchronous path's, bit for bit.
+
+Profiling (``profile_steps``, ``profile_dir``; train's ``--profile N``):
+the per-step loop traces steps [1, 1 + N) of the first epoch in a
+``torch.profiler`` session (``profile_wrap``; step 0 captures the
+shape's graph), written under ``profile_dir``; the epoch driver has no
+steps to wrap, so under ``scan_epochs`` the request is logged and
+nothing is traced, as in the JAX loop.
 """
 
 from __future__ import annotations
@@ -157,6 +163,7 @@ from cgnn_tpu_torch.data.graph import (
     pack_graphs,
 )
 from cgnn_tpu_torch.data.loader import LoaderStats, prefetch_to_device
+from cgnn_tpu_torch.observe.metrics_io import profile_trace
 from cgnn_tpu_torch.observe.telemetry import Telemetry
 from cgnn_tpu_torch.parallel import dist
 from cgnn_tpu_torch.parallel.data_parallel import (
@@ -214,6 +221,32 @@ def stage(batches: Iterable[GraphBatch], device, prefetch: int = 2,
         return prefetch_to_device(batches, device, size=prefetch, stats=stats,
                                   telemetry=telemetry)
     return (b.to(device) for b in batches)
+
+
+def profile_wrap(iterator, profile_steps: int, profile_dir: str,
+                 log_fn: Callable = print):
+    """Trace steps [1, 1 + profile_steps) of ``iterator`` in a profiler
+    session (observe/metrics_io.py ``profile_trace``; step 0 captures the
+    step's graph, which would swamp the timeline). The session starts
+    before step 1's batch is handed out and stops when the step after
+    the window asks for its batch, after the card drains."""
+    if not profile_steps:
+        yield from iterator
+        return
+    window = None
+    try:
+        for i, b in enumerate(iterator):
+            if i == 1:
+                window = profile_trace(profile_dir or "profile")
+                window.__enter__()
+            yield b
+            if window is not None and i >= profile_steps:
+                window.__exit__(None, None, None)
+                window = None
+                log_fn(f"profiler trace written to {profile_dir}")
+    finally:
+        if window is not None:
+            window.__exit__(None, None, None)
 
 
 def staged_nbytes(batches) -> int:
@@ -1081,6 +1114,8 @@ def fit(
     fit_on: tuple | None = None,
     telemetry: Telemetry | None = None,
     on_epoch_metrics: Callable | None = None,
+    profile_steps: int = 0,
+    profile_dir: str = "",
 ) -> tuple:
     """Train/validate epochs ``start_epoch`` .. ``epochs - 1``, tracking
     the best validation MAE (a classifier's highest accuracy).
@@ -1133,7 +1168,8 @@ def fit(
     ``telemetry``: the module docstring's (None: off);
     ``on_epoch_metrics(epoch, train means, val means)`` runs at each
     epoch's bookkeeping (the train entry point writes the epoch
-    records there)."""
+    records there). ``profile_steps``, ``profile_dir``: the module
+    docstring's profiling."""
     dense_m = dense_m or None
     dp = dist.active()
     if packing not in ("snug", "ladder"):
@@ -1312,9 +1348,10 @@ def fit(
     driver = None
     packed_lists = None
     if scan_epochs:
-        if print_freq:
-            log_fn("scan_epochs: per-step prints are unavailable inside "
-                   "the epoch driver (epoch-level metrics only)")
+        if profile_steps or print_freq:
+            log_fn("scan_epochs: --profile and per-step prints are "
+                   "unavailable inside the epoch driver (epoch-level "
+                   "metrics only)")
         train_list, val_list, orders = pack_lists()
         staged = staged_nbytes(train_list + val_list)
         staging.update(staged_bytes=staged, compact=compact is not None)
@@ -1487,6 +1524,9 @@ def fit(
                                     loader_stats, telemetry)
                 epoch_val = stage(epoch_val, device, prefetch, loader_stats,
                                   telemetry)
+            if epoch == start_epoch:
+                epoch_train = profile_wrap(epoch_train, profile_steps,
+                                           profile_dir, log_fn)
             with telemetry.span("epoch", epoch=epoch, driver="per_step"):
                 train_m = train_run.epoch(epoch_train, print_freq=print_freq,
                                           epoch=epoch, log_fn=log_fn)

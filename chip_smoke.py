@@ -107,8 +107,8 @@ into ``build/kernels``), then:
    featurized at admission, every answer within rtol 1e-4 / atol 1e-4 of
    the plain model (``aggregation='xla'``) on host-featurized copies,
    kernel 6 launched n_conv times a flush; a top-rung flush breakdown;
-7. checkpoint_predict — the port's train entry point
-   (``cgnn_tpu_torch.train.__main__.main``) at full width with
+7. checkpoint_predict (beside the main process) — the port's train
+   entry point (``cgnn_tpu_torch.train.__main__.main``) at full width with
    ``--cgconv-impl pallas``, 640 synthetic structures (512/64/64), batch
    256, 2 epochs into ``build/chip_smoke/ckpt`` (path ``train_main``,
    each kernel's launches exact): 2 committed saves, each verified
@@ -280,10 +280,11 @@ into ``build/kernels``), then:
    messages at the COO training shape, each sum kernel 6's on the
    widened messages, rounded; ``torch.segment_reduce`` on bf16 beside
    it).
-14. force_task (last) — the force field at full width on 1024 synthetic LJ
-   frames of 21 atoms (MD17 aspirin's count): the train entry point
-   under the epoch driver, dense (``force_driver``), COO with
-   ``--aggregation xla`` (``force_coo``) and bf16 (``force_bf16``), no
+14. force_task (beside the main process) — the force field at full
+   width on 1024 synthetic LJ frames of 21 atoms (MD17 aspirin's count):
+   the train entry point under the epoch driver, dense
+   (``force_driver``), COO with ``--aggregation xla`` (``force_coo``) and
+   bf16 (``force_bf16``), no
    kernel of the port on those paths (exact counts) and every step a
    replay, their rates; ``--resume`` (``force_resume``); predict on the
    test split (``force_predict``: every batch a replay, the CSV and
@@ -346,8 +347,8 @@ into ``build/kernels``), then:
    fails or hangs (past ``DP_RANK_TIMEOUT_S``; a collective waits the
    process group's timeout, ``dist.DEFAULT_TIMEOUT_S``) is killed with
    its peers and fails the phase.
-17. graph_shards (after data_parallel) — graph sharding as users run it,
-   ranks of the train entry point sharing the one card over gloo
+17. graph_shards (beside the main process) — graph sharding as users
+   run it, ranks of the train entry point sharing the one card over gloo
    (``DataParallelRun``), at full width: ``gs_dense`` (``--graph-shards
    2`` on data_parallel's cache of 2048 MP-like structures, batch 256, 2
    epochs: node strips on the plain dense path) alone, then one
@@ -372,7 +373,7 @@ into ``build/kernels``), then:
    process-0 checkpoint through the one-card path, 512 structures, rtol
    1e-4 / atol 1e-4 of the plain path. Train structures/s (frames/s) of
    the ranks and of one process are reported, no limit.
-18. dp_driver (after graph_shards) — the epoch driver under a process
+18. dp_driver (after data_parallel) — the epoch driver under a process
    group, ``--device-resident`` (its ``--scan-epochs`` default) with
    ``--data-parallel`` and ``--graph-shards``, ranks of the train entry
    point sharing the one card over gloo (``DataParallelRun``; each rank
@@ -380,7 +381,9 @@ into ``build/kernels``), then:
    ``dpd_dense`` (2 ranks, ``--cgconv-impl pallas --buckets 3`` on
    data_parallel's 2048-structure cache, batch 256, 3 epochs: kernels 1,
    2, 4, 5 in graph A) alone, then one process under the driver on the
-   same data and flags for the rate; then side by side ``dpd_coo`` (2
+   same data and flags for the rate (``dp_driver_phase``); its other legs
+   run in a process beside the main one early on (``dp_driver_legs``):
+   side by side ``dpd_coo`` (2
    ranks, ``--aggregation pallas``: kernel 6) and ``gsd_dense``
    (``--graph-shards 2`` at graph_shards' node cap), then ``gsd_coo``
    (``--graph-shards 2`` on graph_shards' slabs with kernel 6 on each
@@ -442,7 +445,7 @@ into ``build/kernels``), then:
    plain path, step and wrapper counts exact, every kernel of the path
    launched on the card, and whether the trace's count is exact
    recorded (``card_exact``), not held.
-21. observe (after serve_devices_tiers) — the observability core as
+21. observe (after the side-by-side stage) — the observability core as
    users run it: the train entry point at full width with the kernel
    path under the epoch driver (``--synthetic 640 --device-resident -b
    256 --epochs 8 --cgconv-impl pallas``) at ``--telemetry off`` (path
@@ -463,9 +466,48 @@ into ``build/kernels``), then:
    ``run_summary`` and ``trace.json`` holds the request spans. Prints
    ``{"observe": ...}`` with the train steps/s of epochs 2-8 (their
    train and validation wall, traced) at ``off`` and ``step`` beside the
-   card's name and power limit.
+   card's name and power limit. A ``POST /profile`` to the traced server
+   answers 409: the trace holds the process's one profiler session.
+22. observe_capture (beside the main process) — on-demand profiling, the
+   flight recorder and the SLO engine through the entry points, every
+   process untraced (a capture is its process's one profiler session).
+   The train entry point three times side by side in the per-step loop
+   (``--synthetic 640 --device-resident -b 64 --epochs 40 --cgconv-impl
+   pallas --telemetry step``): with ``--profile 3`` (its trace must hold
+   exactly three train steps' records of kernels 1, 2, 4 and 5) and a
+   SIGUSR2 once epoch 1 ends (a ``profile-*/`` under the log dir holding
+   records of our kernels); with a SIGUSR2 every 0.1 s through epoch 0,
+   so captures start and stop around the step graphs' captures (each
+   capture written); and with ``--no-scan-epochs`` and neither: every
+   tensor of the saves, the parameter file and the losses bit-equal.
+   Then ``python -m cgnn_tpu_torch.serve`` at serve.py's defaults on
+   the plain run's checkpoint, with ``--profile-dir`` and
+   SLO windows of 45 s and 60 s, under ``dispatch_exc=0:25``: five failed
+   flushes fire ``slo_burn_availability`` into a flight-recorder bundle,
+   and past the recorder's 30 s rate limit twenty more fire
+   ``5xx_burst`` (each bundle's manifest names its reason); then a 10 s
+   ``POST /profile`` window holds a featurized and a raw burst, every
+   answer within SERVE_RTOL / SERVE_ATOL of the plain path, and the
+   capture's records must equal n_conv x flushes of kernel 1 and the raw
+   flushes of kernel 8, both counted by ``/stats`` across the window
+   (kernel 8 so counted apart from the trace: ROADMAP Queue 3, item 13);
+   a second ``POST /profile`` answers 409; ``GET /trace`` holds the
+   request, pack and dispatch spans, ``/flightrec`` both triggers,
+   ``/timeseries`` the latency series' points; nothing is captured after
+   warm-up and the server drains with 0.
 
-Every phase prints its seconds (``phase <name>: <s> s``).
+Every phase prints its seconds (``phase <name>: <s> s``). After the
+kernel phases the phases that compare no rate run side by side:
+force_task; checkpoint_predict then observe_capture; and, once this
+process has made the caches they read, graph_shards and dp_driver's
+legs other than its rates, each group in a process of its own
+(``BackgroundPhases``, on the kernels this process built), while this
+process runs heads_modes, bf16_paths, serve, train, trajectory,
+train_coo, serve_coo and serve_devices_tiers (``phase side_by_side``:
+that stretch's wall). Each background process
+holds its own paths' launches: the card's counts are per process. Then
+every other phase runs alone on the card, the train breakdowns, the
+rate pairs, item 14's turns and every rate compared in turns among them.
 
 Launches on a path. A replayed graph launches its kernels without their
 wrappers, so each path's run (``PathRun``) is traced by the profiler,
@@ -733,8 +775,14 @@ class PathRun:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
+        from cgnn_tpu_torch.observe.profile import session
+
         torch.cuda.synchronize()
         zero_counts()
+        # the process's one profiler session (observe/profile.py): an
+        # on-demand capture inside the run answers busy, never nests
+        self._session = session()
+        self._session.__enter__()
         self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.prof.start()
         torch.ones(1, device="cuda").add_(1)
@@ -750,6 +798,7 @@ class PathRun:
         torch.cuda.synchronize()
         time.sleep(PATH_WINDOW_MARGIN_S)
         self.prof.stop()
+        self._session.__exit__(None, None, None)
         self.wrapper = read_counts()
         self.steps = dict(COUNTS)
         kernels = [(e.key, e.count) for e in self.prof.key_averages()
@@ -5245,27 +5294,21 @@ def dpd_preempt_finish(work_dir, cache, run, sender) -> dict:
             "resume_wall_s": time.perf_counter() - t0}
 
 
-def dp_driver_phase(dev, work_dir, card, per_step_rate):
-    """The dp_driver phase (module docstring) -> (summary, counts).
-    ``per_step_rate``: data_parallel's two ranks under the per-step loop
-    (``dp_dense``, run alone in this call)."""
-    import numpy as np
-
+def dpd_inputs(work_dir):
+    """dp_driver's data (data_parallel's 2048-structure cache and
+    graph_shards' slabs, made here when those phases have not) and the
+    flags of its legs."""
     from cgnn_tpu_torch.config import DataConfig, ModelConfig
     from cgnn_tpu_torch.data.cache import load_graph_cache, save_graph_cache
     from cgnn_tpu_torch.data.dataset import (
         load_synthetic_mp,
         load_synthetic_oc20,
-        load_trajectory,
         train_val_test_split,
     )
     from cgnn_tpu_torch.train.loop import batch_caps, sharded_caps
 
-    t_phase = time.perf_counter()
-    counts, summary = {}, {"card": card}
     os.makedirs(work_dir, exist_ok=True)
     fcfg = DataConfig().featurize_config()
-    n_conv = ModelConfig().n_conv
     cache = os.path.join(work_dir, "dp_graphs.npz")
     oc20_cache = os.path.join(work_dir, "gs_oc20.npz")
     if os.path.exists(cache):  # the data_parallel phase's
@@ -5278,8 +5321,6 @@ def dp_driver_phase(dev, work_dir, card, per_step_rate):
     else:
         oc20 = load_synthetic_oc20(N_OC20, fcfg, seed=SEED)
         save_graph_cache(oc20, oc20_cache)
-    force_frames = load_trajectory(N_DP_FORCE, fcfg, seed=SEED,
-                                   num_atoms=FORCE_ATOMS)
     mp_train = train_val_test_split(graphs, 0.8, 0.1, seed=SEED)[0]
     oc_train = train_val_test_split(oc20, 0.8, 0.1, seed=SEED)[0]
     nc, _ = sharded_caps(*batch_caps(mp_train, BATCH, M), M, GS_SHARDS)
@@ -5287,112 +5328,82 @@ def dp_driver_phase(dev, work_dir, card, per_step_rate):
                             GS_SHARDS)
     common = ["--print-freq", "0", "--seed", str(SEED), "--device-resident"]
     dense = ["--cache", cache, "-b", str(BATCH), *common]
-    kernel = ["--cgconv-impl", "pallas", "--buckets", "3"]
     short = ["--epochs", str(DPD_SHORT)]
-    coo = ["--cache", oc20_cache, "-b", str(OC20_BATCH), "--aggregation",
-           COO_AGG, "--node-cap", str(onc), "--edge-cap", str(oec), *short,
-           *common]
-    force = ["--task", "force", "--synthetic", str(N_DP_FORCE), "--md-atoms",
-             str(FORCE_ATOMS), "-b", str(BATCH), "--optim", "Adam", "--lr",
-             "0.002", *short, *common]
-    dp = ["--data-parallel", "--dist-backend", "gloo"]
-    shard = ["--graph-shards", str(GS_SHARDS), "--dist-backend", "gloo"]
-    # one process: the driver's compact staging off, as under the ranks
-    one = ["--compact-staging", "off"]
+    return types.SimpleNamespace(
+        fcfg=fcfg, cache=cache, graphs=graphs, n_train=len(mp_train),
+        n_conv=ModelConfig().n_conv, dense=dense, short=short,
+        kernel=["--cgconv-impl", "pallas", "--buckets", "3"],
+        coo=["--cache", oc20_cache, "-b", str(OC20_BATCH), "--aggregation",
+             COO_AGG, "--node-cap", str(onc), "--edge-cap", str(oec),
+             *short, *common],
+        force=["--task", "force", "--synthetic", str(N_DP_FORCE),
+               "--md-atoms", str(FORCE_ATOMS), "-b", str(BATCH), "--optim",
+               "Adam", "--lr", "0.002", *short, *common],
+        gs_dense=dense + ["--node-cap", str(nc)] + short,
+        dp=["--data-parallel", "--dist-backend", "gloo"],
+        shard=["--graph-shards", str(GS_SHARDS), "--dist-backend", "gloo"],
+        # one process: the driver's compact staging off, as under the ranks
+        one=["--compact-staging", "off"])
 
-    def one_dirs(label):
-        d = os.path.join(work_dir, label)
-        return ["--ckpt-dir", os.path.join(d, "ckpt"), "--out-dir",
-                os.path.join(d, "out")]
 
-    # the rates first, each run alone on the card: two ranks under the
-    # driver, then one process under the driver on the same data and flags
-    full = dense + ["--epochs", str(DPD_EPOCHS)] + kernel
-    legs = {"dpd_dense": DataParallelRun("dpd_dense", work_dir,
-                                         full + dp).wait()}
-    ones = {"dpd_dense": gs_one_process("dpd_one", full + one
-                                        + one_dirs("dpd_one"))}
-    trace = {"dpd_dense": legs["dpd_dense"][0]["driver_trace"]}
-    # then the rest side by side, two legs at a time, the emulations and
-    # the unsharded references beside them
-    gs_dense = dense + ["--node-cap", str(nc)] + short
-    runs = {"dpd_coo": DataParallelRun(
-                "dpd_coo", work_dir, dense + short + ["--aggregation",
-                                                      COO_AGG] + dp),
-            "gsd_dense": DataParallelRun("gsd_dense", work_dir,
-                                         gs_dense + shard)}
-    try:
-        emulated = {"dpd_dense": dp_emulation(
-            dev, graphs, {"dense_m": M, "cgconv_impl": "pallas"},
-            epochs=DPD_EPOCHS, trace=trace["dpd_dense"], buckets=3)}
-        ones["gsd_dense"] = gs_one_process(
-            "gsd_dense_one", gs_dense + one + one_dirs("gsd_dense_one"))
-        legs.update({k: r.wait() for k, r in runs.items()})
-    finally:
-        for r in runs.values():
-            r.kill()
-    runs = {"gsd_coo": DataParallelRun("gsd_coo", work_dir, coo + shard),
-            "dpd_force": DataParallelRun("dpd_force", work_dir, force + dp)}
-    preempt = dpd_preempt_start(work_dir, cache)
-    try:
-        emulated["dpd_coo"] = dp_emulation(
-            dev, graphs, {"dense_m": 0, "aggregation": COO_AGG},
-            epochs=DPD_SHORT, trace=legs["dpd_coo"][0]["driver_trace"])
-        ones["gsd_coo"] = gs_one_process("gsd_coo_one",
-                                         coo + one_dirs("gsd_coo_one"))
-        legs.update({k: r.wait() for k, r in runs.items()})
-        summary["dpd_preempt"] = dpd_preempt_finish(work_dir, cache,
-                                                     *preempt)
-    finally:
-        for r in [*runs.values(), preempt[0]]:
-            r.kill()
-    emulated["dpd_force"] = dp_emulation(
-        dev, force_frames, {"dense_m": M}, epochs=DPD_SHORT, force=True,
-        trace=legs["dpd_force"][0]["driver_trace"])
-    per_step = {"dpd_dense": dense_per_step(n_conv),
-                "dpd_coo": coo_per_step(n_conv), "gsd_dense": {},
-                "gsd_coo": coo_per_step(n_conv), "dpd_force": {}}
-    for label, traces in legs.items():
-        ep = DPD_EPOCHS if label == "dpd_dense" else DPD_SHORT
-        summary[label] = dp_hold(label, traces, per_step[label], counts,
-                                 epochs=ep,
-                                 captured=not label.startswith("gsd"))
-        dpd_driver_ran(label, traces)
-        run_dir = os.path.join(work_dir, label)
-        dp_committer(label, os.path.join(run_dir, "ckpt-rank0"),
-                     [os.path.join(run_dir, f"{d}-rank{r}")
-                      for r in range(1, len(traces))
-                      for d in ("ckpt", "out")], epochs=ep)
-    for label, want in emulated.items():
-        ep = DPD_EPOCHS if label == "dpd_dense" else DPD_SHORT
-        summary[label].update(dp_against_emulation(label, summary[label],
-                                                   want, epochs=ep))
-    for label in ("gsd_dense", "gsd_coo"):
-        one_rec = ones[label]
-        check("fallback" not in one_rec["staging"],
-              f"{label}: the unsharded process fell back: "
-              f"{one_rec['staging']}")
-        summary[label].update(dp_against_emulation(
-            label, summary[label], {"train_loss": one_rec["train_loss"],
-                                    "val_mae": one_rec["val_metric"]},
-            rtol=GS_RTOL, epochs=DPD_SHORT, what="one unsharded process"))
-        summary[label].update(gs_edge_bytes(label, summary[label], one_rec))
-    for label, kernels in (("dpd_dense", ("fused_cgconv_eval",
-                                          "fused_cgconv_stats",
-                                          "epilogue_reduce", "epilogue_dz")),
-                           ("dpd_coo", ("segment_sum_sorted",)),
-                           ("gsd_coo", ("segment_sum_sorted",))):
-        for r in range(DP_WORLD):
-            got = counts[f"{label}.rank{r}"]["launches"]
-            check(all(got[k] > 0 for k in kernels),
-                  f"{label} rank {r}: a kernel never launched: {got}")
-    n_train = len(mp_train)
+def dpd_one_dirs(work_dir, label) -> list:
+    d = os.path.join(work_dir, label)
+    return ["--ckpt-dir", os.path.join(d, "ckpt"), "--out-dir",
+            os.path.join(d, "out")]
+
+
+def dpd_hold(label, traces, per_step, counts, work_dir, epochs) -> dict:
+    """A dp_driver leg's ranks held (``dp_hold``; the sharded legs run
+    eagerly), the driver seen on every rank, process 0 the committer."""
+    rec = dp_hold(label, traces, per_step, counts, epochs=epochs,
+                  captured=not label.startswith("gsd"))
+    dpd_driver_ran(label, traces)
+    run_dir = os.path.join(work_dir, label)
+    dp_committer(label, os.path.join(run_dir, "ckpt-rank0"),
+                 [os.path.join(run_dir, f"{d}-rank{r}")
+                  for r in range(1, len(traces)) for d in ("ckpt", "out")],
+                 epochs=epochs)
+    return rec
+
+
+def dpd_launched(label, counts, kernels) -> None:
+    for r in range(DP_WORLD):
+        got = counts[f"{label}.rank{r}"]["launches"]
+        check(all(got[k] > 0 for k in kernels),
+              f"{label} rank {r}: a kernel never launched: {got}")
+
+
+def dp_driver_phase(dev, work_dir, card, per_step_rate):
+    """The dp_driver phase's rates, alone on the card (module docstring):
+    ``dpd_dense``'s two ranks, then one process under the driver on the
+    same data and flags -> (summary, counts). ``per_step_rate``:
+    data_parallel's two ranks under the per-step loop (``dp_dense``)."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    counts, summary = {}, {"card": card}
+    x = dpd_inputs(work_dir)
+    full = x.dense + ["--epochs", str(DPD_EPOCHS)] + x.kernel
+    traces = DataParallelRun("dpd_dense", work_dir, full + x.dp).wait()
+    one = gs_one_process("dpd_one", full + x.one
+                         + dpd_one_dirs(work_dir, "dpd_one"))
+    want = dp_emulation(dev, x.graphs, {"dense_m": M, "cgconv_impl": "pallas"},
+                        epochs=DPD_EPOCHS, trace=traces[0]["driver_trace"],
+                        buckets=3)
+    summary["dpd_dense"] = dpd_hold("dpd_dense", traces,
+                                    dense_per_step(x.n_conv), counts,
+                                    work_dir, DPD_EPOCHS)
+    summary["dpd_dense"].update(dp_against_emulation(
+        "dpd_dense", summary["dpd_dense"], want, epochs=DPD_EPOCHS))
+    dpd_launched("dpd_dense", counts, ("fused_cgconv_eval",
+                                       "fused_cgconv_stats",
+                                       "epilogue_reduce", "epilogue_dz"))
     two_s = np.max(summary["dpd_dense"]["epoch_seconds_by_rank"],
                    axis=0).tolist()
-    rates = {"two_ranks_driver": dp_steady_rate(n_train, two_s),
+    rates = {"two_ranks_driver": dp_steady_rate(x.n_train, two_s),
              "two_ranks_per_step_loop": per_step_rate,
-             "one_process_driver": dp_steady_rate(
-                 n_train, ones["dpd_dense"]["epoch_seconds"])}
+             "one_process_driver": dp_steady_rate(x.n_train,
+                                                  one["epoch_seconds"])}
     print(f"dp_driver rates on {card}: train structures/s over epochs "
           f"2-{DPD_EPOCHS} on the 2048-structure cache, each run alone: two "
           f"ranks sharing the card under the driver "
@@ -5404,6 +5415,76 @@ def dp_driver_phase(dev, work_dir, card, per_step_rate):
     summary["train_structures_per_s"] = rates
     summary["wall_s"] = time.perf_counter() - t_phase
     print(f"dp_driver: {summary['wall_s']!r} s")
+    return summary, counts
+
+
+def dp_driver_legs_phase(dev, work_dir, card):
+    """The dp_driver phase's other legs (module docstring), which compare
+    no rate: side by side ``dpd_coo`` and ``gsd_dense``, then ``gsd_coo``,
+    ``dpd_force`` and ``dpd_preempt``, the emulations and unsharded
+    references beside them -> (summary, counts)."""
+    from cgnn_tpu_torch.data.dataset import load_trajectory
+
+    t_phase = time.perf_counter()
+    counts, summary = {}, {"card": card}
+    x = dpd_inputs(work_dir)
+    force_frames = load_trajectory(N_DP_FORCE, x.fcfg, seed=SEED,
+                                   num_atoms=FORCE_ATOMS)
+    legs, ones, emulated = {}, {}, {}
+    runs = {"dpd_coo": DataParallelRun(
+                "dpd_coo", work_dir, x.dense + x.short + ["--aggregation",
+                                                          COO_AGG] + x.dp),
+            "gsd_dense": DataParallelRun("gsd_dense", work_dir,
+                                         x.gs_dense + x.shard)}
+    try:
+        ones["gsd_dense"] = gs_one_process(
+            "gsd_dense_one", x.gs_dense + x.one
+            + dpd_one_dirs(work_dir, "gsd_dense_one"))
+        legs.update({k: r.wait() for k, r in runs.items()})
+    finally:
+        for r in runs.values():
+            r.kill()
+    runs = {"gsd_coo": DataParallelRun("gsd_coo", work_dir, x.coo + x.shard),
+            "dpd_force": DataParallelRun("dpd_force", work_dir,
+                                         x.force + x.dp)}
+    preempt = dpd_preempt_start(work_dir, x.cache)
+    try:
+        emulated["dpd_coo"] = dp_emulation(
+            dev, x.graphs, {"dense_m": 0, "aggregation": COO_AGG},
+            epochs=DPD_SHORT, trace=legs["dpd_coo"][0]["driver_trace"])
+        ones["gsd_coo"] = gs_one_process(
+            "gsd_coo_one", x.coo + dpd_one_dirs(work_dir, "gsd_coo_one"))
+        legs.update({k: r.wait() for k, r in runs.items()})
+        summary["dpd_preempt"] = dpd_preempt_finish(work_dir, x.cache,
+                                                     *preempt)
+    finally:
+        for r in [*runs.values(), preempt[0]]:
+            r.kill()
+    emulated["dpd_force"] = dp_emulation(
+        dev, force_frames, {"dense_m": M}, epochs=DPD_SHORT, force=True,
+        trace=legs["dpd_force"][0]["driver_trace"])
+    per_step = {"dpd_coo": coo_per_step(x.n_conv), "gsd_dense": {},
+                "gsd_coo": coo_per_step(x.n_conv), "dpd_force": {}}
+    for label, traces in legs.items():
+        summary[label] = dpd_hold(label, traces, per_step[label], counts,
+                                  work_dir, DPD_SHORT)
+    for label, want in emulated.items():
+        summary[label].update(dp_against_emulation(label, summary[label],
+                                                   want, epochs=DPD_SHORT))
+    for label in ("gsd_dense", "gsd_coo"):
+        one_rec = ones[label]
+        check("fallback" not in one_rec["staging"],
+              f"{label}: the unsharded process fell back: "
+              f"{one_rec['staging']}")
+        summary[label].update(dp_against_emulation(
+            label, summary[label], {"train_loss": one_rec["train_loss"],
+                                    "val_mae": one_rec["val_metric"]},
+            rtol=GS_RTOL, epochs=DPD_SHORT, what="one unsharded process"))
+        summary[label].update(gs_edge_bytes(label, summary[label], one_rec))
+    for label in ("dpd_coo", "gsd_coo"):
+        dpd_launched(label, counts, ("segment_sum_sorted",))
+    summary["wall_s"] = time.perf_counter() - t_phase
+    print(f"dp_driver legs: {summary['wall_s']!r} s")
     return summary, counts
 
 
@@ -6693,10 +6774,19 @@ def tiers_raw_late_phase(dev, work_dir, calibration):
         check(server.drain(timeout_s=60), "the late tiers server did not "
                                           "drain")
     path = rec.pop("path")
+    # kernel 8 counted apart from the trace: the replay counters (each
+    # raw flush one run of a raw predict graph, one search a run)
+    want8 = path["card_want"]["neighbor_search"]
+    got8 = path["launches"]["neighbor_search"]
     out = {"card_exact": path["card_exact"], "flushes": rec["flushes"],
            "raw_flushes": rec["raw_flushes"], "errors_vs_plain": errs,
-           "launches": path["launches"], "card_want": path["card_want"]}
-    print(f"tiers_serve_raw_late: card count exact: {path['card_exact']}")
+           "launches": path["launches"], "card_want": path["card_want"],
+           "neighbor_search": {"records": got8,
+                               "launches_by_replay_counters": want8,
+                               "missing_records": want8 - got8}}
+    print(f"tiers_serve_raw_late: card count exact: {path['card_exact']}; "
+          f"kernel 8: {got8} records in the trace, {want8} launches by "
+          f"the replay counters")
     return out, {"tiers_serve_raw_late": path}
 
 
@@ -8150,6 +8240,12 @@ def observe_phase(dev, work_dir, card):
               and c["pack_raw"] > 0,
               f"observe_serve: edge occupancy {occ}, pack_raw "
               f"{c['pack_raw']}")
+        # the traced run holds the process's one profiler session: an
+        # on-demand capture answers busy, it does not nest a session
+        busy = http_call(proc.port, "POST", "/profile", b"{}")
+        check(busy[0] == 409 and busy[1].get("reason") == "busy",
+              f"observe_serve: POST /profile inside the traced run "
+              f"answered {busy}")
         rc = proc.stop()
     finally:
         proc.kill()
@@ -8170,6 +8266,466 @@ def observe_phase(dev, work_dir, card):
                         "responses": c["responses"]}
     print(f"observe: {json.dumps(summary, allow_nan=False)}")
     return summary, counts
+
+
+# the observe_capture phase (module docstring, 22): on-demand profiling,
+# the flight recorder and the SLO engine through the entry points
+CAP_BATCH = 64  # 8 train steps an epoch on the 512 training cells
+CAP_EPOCHS = 40  # enough training after epoch 1 for a SIGUSR2 capture
+CAP_PROFILE_STEPS = 3  # --profile N: steps 1..N of the first epoch
+CAP_FAIL_FIRST = 5  # failed flushes that fire the SLO burn alert
+CAP_FAIL_BURST = 20  # then the recorder's 5xx burst (20 in 10 s)
+CAP_WINDOW_S = 10.0  # the POST /profile window (the recorder's maximum)
+FLIGHTREC_INTERVAL_S = 30.0  # the recorder's rate limit between bundles
+N_CAP_HTTP = 96  # requests of each wire inside the capture window
+# SLO windows of seconds: the alert fires at the collector's first tick
+# after the first failures and stays firing through the second stretch
+# (its fast window outlasts the recorder's rate limit), so the burst's
+# bundle is not taken by a second alert
+SLO_SHORT = ("--slo-fast-s", "45", "--slo-slow-s", "60", "--slo-factor", "2")
+
+
+def trace_kernel_counts(path) -> dict:
+    """Each kernel's records (``KERNEL_SYMBOLS``) in a profiler's Chrome
+    trace: its events of category ``kernel``, the card's launches."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(kernel_matches(k, n) for n in names)
+            for k in KERNEL_SYMBOLS}
+
+
+def train_process(label, argv, root):
+    """``python -m cgnn_tpu_torch.train ARGV`` in a subprocess, its output
+    (unbuffered) in ``<root>/<label>.log`` -> (process, log path)."""
+    log_path = os.path.join(root, f"{label}.log")
+    env = {k: v for k, v in os.environ.items() if k != "CGNN_TPU_FAULTS"}
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "cgnn_tpu_torch.train", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=log, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def wait_bundle(frdir, reason, timeout=60.0) -> float:
+    """Poll ``frdir`` until a bundle whose manifest names ``reason``
+    exists -> the monotonic time it was seen."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for b in sorted(os.listdir(frdir)) if os.path.isdir(frdir) else ():
+            path = os.path.join(frdir, b, "manifest.json")
+            try:
+                with open(path) as f:
+                    if json.load(f)["reason"] == reason:
+                        return time.monotonic()
+            except (OSError, ValueError, KeyError):
+                pass  # a bundle still being written
+        time.sleep(0.1)
+    raise SmokeFailure(f"no {reason} bundle under {frdir} after {timeout} "
+                       f"s: {os.listdir(frdir) if os.path.isdir(frdir) else []}")
+
+
+def capture_train_legs(root, per_step) -> dict:
+    """The train entry point three times side by side in the per-step
+    loop: ``--profile 3`` with a SIGUSR2 capture once epoch 1 ends; a
+    SIGUSR2 every 0.1 s from its handler's install to the end of epoch
+    0, so captures start and stop around the step graphs' captures
+    (``CAPTURE_GATE``); and the same run without either. The --profile
+    trace must hold each kernel's records of 3 train steps, the SIGUSR2
+    captures records of our kernels, and all three runs must end in the
+    same bits -> the leg's record."""
+    import numpy as np
+
+    base = ["--synthetic", str(N_TRAIN_SET), "--device-resident", "-b",
+            str(CAP_BATCH), "--epochs", str(CAP_EPOCHS), "--cgconv-impl",
+            "pallas", "--print-freq", "0", "--seed", str(SEED),
+            "--telemetry", "step"]
+    runs = {}
+    for label, extra in (("cap_profiled", ["--profile",
+                                           str(CAP_PROFILE_STEPS)]),
+                         ("cap_gate", ["--no-scan-epochs"]),
+                         ("cap_plain", ["--no-scan-epochs"])):
+        d = os.path.join(root, label)
+        runs[label] = train_process(label, base + extra + [
+            "--ckpt-dir", os.path.join(d, "ck"), "--out-dir",
+            os.path.join(d, "out")], root)
+    import signal
+
+    def log_has(label, prefix) -> bool:
+        with open(runs[label][1]) as f:
+            return any(line.startswith(prefix) for line in f)
+
+    outs, sent, gate_sent = {}, None, 0
+    try:
+        deadline = time.monotonic() + DP_RANK_TIMEOUT_S
+        profiled, gate = runs["cap_profiled"][0], runs["cap_gate"][0]
+        while ((sent is None and profiled.poll() is None)
+               or (gate.poll() is None and not log_has("cap_gate",
+                                                       "Epoch 1:"))):
+            check(time.monotonic() < deadline, "cap_*: no epoch 1")
+            if sent is None and log_has("cap_profiled", "Epoch 1:"):
+                profiled.send_signal(signal.SIGUSR2)
+                sent = time.perf_counter()
+            if (gate.poll() is None
+                    and log_has("cap_gate", "profile: SIGUSR2 takes")
+                    and not log_has("cap_gate", "Epoch 1:")):
+                gate.send_signal(signal.SIGUSR2)
+                gate_sent += 1
+                time.sleep(0.08)
+            time.sleep(0.02)
+        for label, (p, log_path) in runs.items():
+            rc = p.wait(timeout=DP_RANK_TIMEOUT_S)
+            with open(log_path) as f:
+                outs[label] = f.read()
+            check(rc == 0, f"{label}: the train entry point exited {rc}:\n"
+                           f"{outs[label][-3000:]}")
+    finally:
+        for p, _ in runs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(sent is not None, "cap_profiled: ended before epoch 1 was seen")
+    infos = {}
+    for label, out in outs.items():
+        info = json.loads(next(line for line in out.splitlines()
+                               if line.startswith("train: "))[7:])
+        check(info["graphs"]["captures"] > 0
+              and info["graphs"]["captures_after_warm"] == 0
+              and "stage_s" not in info.get("staging", {}),
+              f"{label}: not the per-step loop with graphs: "
+              f"{info['graphs']}, {info.get('staging')}")
+        infos[label] = info
+    logs = os.path.join(root, "cap_profiled", "ck", "logs")
+    window = [f for f in os.listdir(logs)
+              if f.startswith("profile-") and f.endswith(".json")]
+    check(len(window) == 1 and "profiler trace written to"
+          in outs["cap_profiled"],
+          f"cap_profiled: --profile traces {window} in {logs}")
+    got = trace_kernel_counts(os.path.join(logs, window[0]))
+    want = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for k, n in per_step["train"].items():
+        want[k] = n * CAP_PROFILE_STEPS
+    print(f"cap_profiled: --profile {CAP_PROFILE_STEPS}: records {got}, "
+          f"want {want} ({CAP_PROFILE_STEPS} train steps)")
+    check(got == want, f"cap_profiled: the --profile window holds {got}, "
+                       f"want {want}")
+    caps = [d for d in os.listdir(logs)
+            if os.path.isdir(os.path.join(logs, d))
+            and d.startswith("profile-")]
+    check(len(caps) == 1 and "profile: captured" in outs["cap_profiled"],
+          f"cap_profiled: SIGUSR2 captures {caps}:\n"
+          f"{outs['cap_profiled'][-2000:]}")
+    cap_dir = os.path.join(logs, caps[0])
+    files = sorted(os.listdir(cap_dir))
+    usr2 = trace_kernel_counts(os.path.join(cap_dir, "device_trace.json"))
+    check(files == ["device_trace.json", "host_trace.json"]
+          and sum(usr2.values()) > 0,
+          f"cap_profiled: the SIGUSR2 capture holds {files}, records {usr2}")
+    glogs = os.path.join(root, "cap_gate", "ck", "logs")
+    gate_caps = [d for d in os.listdir(glogs) if d.startswith("profile-")]
+    check(gate_caps and outs["cap_gate"].count("profile: captured")
+          == len(gate_caps),
+          f"cap_gate: {gate_sent} SIGUSR2s left captures {gate_caps}:\n"
+          f"{outs['cap_gate'][-2000:]}")
+    print(f"cap_gate: {gate_sent} SIGUSR2s around epoch 0's graph "
+          f"captures, {len(gate_caps)} captures written")
+
+    def bits(label):
+        out = save_tree_bits(os.path.join(root, label, "ck"))
+        with np.load(os.path.join(root, label, "out", "params.npz")) as z:
+            out.update({f"params/{k}": z[k] for k in z.files})
+        return out
+
+    plain = bits("cap_plain")
+    for label in ("cap_profiled", "cap_gate"):
+        other = bits(label)
+        same = (other.keys() == plain.keys()
+                and all(np.array_equal(other[k], plain[k]) for k in other)
+                and infos[label]["train_loss"]
+                == infos["cap_plain"]["train_loss"])
+        print(f"{label}: final state bits equal to the run without "
+              f"--profile and SIGUSR2: {same}")
+        check(same, f"{label}: the state differs from the run without "
+                    f"--profile and SIGUSR2")
+    return {"profile_window_records": got,
+            "profile_window_bytes": os.path.getsize(
+                os.path.join(logs, window[0])),
+            "sigusr2_records": {k: v for k, v in usr2.items() if v},
+            "sigusr2_bytes": sum(os.path.getsize(os.path.join(cap_dir, f))
+                                 for f in files),
+            "gate_sigusr2_sent": gate_sent,
+            "gate_captures": len(gate_caps), "state_bits_equal": True}
+
+
+def capture_serve_leg(dev, root, per_step) -> dict:
+    """An untraced server at serve.py's defaults, a profile dir and short
+    SLO windows, on the plain run's checkpoint: failed flushes fire the
+    SLO burn alert, then (past the recorder's rate limit) the 5xx burst,
+    each into a bundle; a POST /profile window holds a featurized and a
+    raw burst, whose kernel records must equal the flushes /stats counts
+    across it; a second POST /profile answers 409; /trace, /flightrec and
+    /timeseries answer; the server drains clean -> the leg's record."""
+    import numpy as np
+
+    from cgnn_tpu_torch.config import DataConfig
+    from cgnn_tpu_torch.data.dataset import load_synthetic
+    from cgnn_tpu_torch.data.rawbatch import RawStructure
+    from cgnn_tpu_torch.data.synthetic import synthetic_dataset
+    from cgnn_tpu_torch.serve.server import structure_featurizer
+    from cgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    n_conv = per_step["predict"]["fused_cgconv_eval"]
+    ck = os.path.join(root, "cap_plain", "ck")
+    v1 = CheckpointManager(ck).newest_committed()
+    data_cfg = DataConfig.from_meta(CheckpointManager(ck).read_meta()["data"])
+    fcfg = data_cfg.featurize_config()
+    featurize = structure_featurizer(data_cfg)
+    n_fail = CAP_FAIL_FIRST + CAP_FAIL_BURST
+    fail_g = load_synthetic(n_fail, fcfg, seed=SEED + 51)
+    gs = load_synthetic(N_CAP_HTTP, fcfg, seed=SEED + 52)
+    xs = [RawStructure.from_structure(st, cif_id=sid)
+          for sid, st, _ in synthetic_dataset(N_CAP_HTTP, seed=SEED + 53)]
+    want_g = plain_answers(dev, ck, v1, gs)
+    want_x = plain_answers(dev, ck, v1, [featurize(x) for x in xs])
+    prof_dir = os.path.join(root, "serve_profiles")
+    frdir = os.path.join(ck, "flightrec")
+    proc = ServeProcess("cap_serve", ck, root,
+                        ("--profile-dir", prof_dir, *SLO_SHORT),
+                        faults=f"dispatch_exc=0:{n_fail}", traced=False)
+    rec = {}
+    try:
+        rec["boot"] = proc.wait_ready()
+
+        def fail(graphs):
+            st = [http_call(proc.port, "POST", "/predict", graph_body(g))[0]
+                  for g in graphs]
+            check(st == [500] * len(graphs),
+                  f"cap_serve: failing flushes answered {st}")
+
+        fail(fail_g[:CAP_FAIL_FIRST])
+        seen = wait_bundle(frdir, "slo_burn_availability")
+        # past the recorder's rate limit, the burst inside its window
+        time.sleep(max(0.0, FLIGHTREC_INTERVAL_S + 1.0
+                       - (time.monotonic() - seen)))
+        fail(fail_g[CAP_FAIL_FIRST:])
+        wait_bundle(frdir, "5xx_burst")
+
+        out = {}
+        body = json.dumps({"duration_ms": CAP_WINDOW_S * 1e3},
+                          allow_nan=False).encode()
+        t = threading.Thread(target=lambda: out.update(r=http_call(
+            proc.port, "POST", "/profile", body, timeout=300.0)),
+            name="chip-smoke-capture")
+        t.start()
+        deadline = time.monotonic() + 120
+        while not proc.stats().get("profile", {}).get("recording"):
+            check(t.is_alive() and time.monotonic() < deadline,
+                  f"cap_serve: the capture never started: {out}")
+            time.sleep(0.05)
+        c0 = proc.stats()["counts"]
+        t_in = time.monotonic()
+        res_g, _ = http_burst(proc.port, [graph_body(g) for g in gs])
+        res_x, _ = http_burst(proc.port, [structure_body(x) for x in xs])
+        busy = http_call(proc.port, "POST", "/profile",
+                         json.dumps({"duration_ms": 100},
+                                    allow_nan=False).encode())
+        st_trace, trace_w = http_call(proc.port, "GET", "/trace")
+        c1 = proc.stats()["counts"]
+        inside = time.monotonic() - t_in
+        t.join(timeout=300)
+        check(not t.is_alive() and inside < CAP_WINDOW_S,
+              f"cap_serve: the bursts took {inside!r} s of a "
+              f"{CAP_WINDOW_S} s window")
+        st, record = out["r"]
+        check(st == 200 and {"ok", "dir", "duration_s", "files",
+                             "bytes"} <= set(record),
+              f"cap_serve: POST /profile answered {st} {record}")
+        check(busy[0] == 409 and busy[1].get("reason") == "busy",
+              f"cap_serve: a second capture answered {busy}")
+        check(c1["captures_after_warm"] == 0,
+              f"cap_serve: captures after warm-up {c1}")
+        for label, res, want in (("cap_serve featurized", res_g, want_g),
+                                 ("cap_serve raw", res_x, want_x)):
+            bad = [r for r in res if r is None or r["status"] != 200]
+            check(not bad, f"{label}: {len(bad)} not answered 200: "
+                           f"{bad[:2]}")
+            rec[label.split()[1] + "_max_abs_err_vs_plain"] = hold_answers(
+                label, res, want)
+        flushes = c1["batches"] - c0["batches"]
+        raw = c1["pack_raw"] - c0["pack_raw"]
+        check(raw > 0 and flushes > raw,
+              f"cap_serve: {flushes} flushes, {raw} raw in the window")
+        got = trace_kernel_counts(os.path.join(record["dir"],
+                                               "device_trace.json"))
+        want = dict.fromkeys(KERNEL_SYMBOLS, 0)
+        want["fused_cgconv_eval"] = want["fused_cgconv_node"] = (
+            n_conv * flushes)
+        want["neighbor_search"] = raw
+        print(f"cap_serve: capture records {got}; by /stats across the "
+              f"window ({flushes} flushes, {raw} raw) {want}")
+        check(got == want, f"cap_serve: the capture holds {got}, the "
+                           f"window's flushes give {want}")
+        names = {e["name"] for e in trace_w["events"]}
+        check(st_trace == 200 and {"serve.request", "serve.pack",
+                                   "serve.dispatch"} <= names,
+              f"cap_serve: GET /trace {st_trace} spans {sorted(names)}")
+        st, fr = http_call(proc.port, "GET", "/flightrec")
+        check(st == 200 and fr["triggers"].get("5xx_burst") == 1
+              and fr["triggers"].get("slo_burn_availability", 0) >= 1,
+              f"cap_serve: GET /flightrec {st} triggers {fr.get('triggers')}")
+        st, ts = http_call(proc.port, "GET", "/timeseries?name="
+                           "serve_latency_ms_hist_count&res=10s")
+        check(st == 200 and ts["points"] and ts["points"][-1]["last"] > 0,
+              f"cap_serve: GET /timeseries {st} {ts}")
+        stats = proc.stats()
+        rc = proc.stop()
+        check(rc == 0, f"cap_serve: the drain exited {rc}:\n{proc.tail()}")
+    finally:
+        proc.kill()
+    reasons = []
+    for b in sorted(os.listdir(frdir)):
+        with open(os.path.join(frdir, b, "manifest.json")) as f:
+            reasons.append(json.load(f)["reason"])
+    check(reasons.count("slo_burn_availability") >= 1
+          and reasons.count("5xx_burst") == 1,
+          f"cap_serve: bundles {reasons}")
+    rec.update(
+        window_s=record["duration_s"], capture_bytes=record["bytes"],
+        capture_files=record["files"], records=got, flushes=flushes,
+        raw_flushes=raw,
+        kernel8={"records": got["neighbor_search"],
+                 "launches_by_stats": raw,
+                 "missing_records": raw - got["neighbor_search"]},
+        bundles=reasons, slo=stats["slo"]["objectives"]["availability"][
+            "budget"], flightrec=stats["flightrec"])
+    print(f"cap_serve: {json.dumps(rec, allow_nan=False)}")
+    return rec
+
+
+def observe_capture_phase(dev, work_dir, card):
+    """The observe_capture phase (module docstring, 22): its train legs
+    and its server leg, every process untraced (a capture is the one
+    profiler session of its process) -> (summary, counts by path: none,
+    the captures hold the launches)."""
+    import shutil
+
+    from cgnn_tpu_torch.config import ModelConfig
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "observe_capture")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    per_step = dense_per_step(ModelConfig().n_conv)
+    summary = {"card": card, "train": capture_train_legs(root, per_step)}
+    summary["serve"] = capture_serve_leg(dev, root, per_step)
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"observe_capture: {summary['seconds']!r} s")
+    return summary, {}
+
+
+# the kernels' sources (ops/csrc), built by nvcc in parallel, one each
+KERNEL_SOURCES = ["fused_cgconv", "fused_epilogue", "neighbor_search",
+                  "segment_sum", "windowed_gather"]
+# phases that run in a process of their own beside the main one
+# (``BackgroundPhases``): each takes (dev, work_dir, card), shares no
+# file with what runs beside it, and compares no rate
+BACKGROUND_PHASES = {"graph_shards": "graph_shards_phase",
+                     "dp_driver_legs": "dp_driver_legs_phase",
+                     "force_task": "force_task_phase",
+                     "checkpoint_predict": "checkpoint_predict_phase",
+                     "observe_capture": "observe_capture_phase"}
+BACKGROUND = ("import sys, chip_smoke; sys.exit(chip_smoke.background_child("
+              "sys.argv[1], sys.argv[2], sys.argv[3:]))")
+_BACKGROUND: list = []  # the running ones, stopped on every exit of main
+
+
+def background_child(work_dir, out_path, names) -> int:
+    """The phases ``names`` (``BACKGROUND_PHASES``) in turn in this
+    process, on the kernels the main process built (loaded from its
+    build), each one's (summary, counts by path, seconds) written to
+    ``out_path`` as JSON -> 0, or 1 after printing the failure."""
+    import faulthandler
+
+    import torch
+
+    from cgnn_tpu_torch.ops import _build
+
+    faulthandler.dump_traceback_later(HANG_DUMP_S, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build(KERNEL_SOURCES)
+    dev = torch.device("cuda:0")
+    card = card_line()
+    results = {}
+    for name in names:
+        t0 = time.perf_counter()
+        try:
+            summary, counts = globals()[BACKGROUND_PHASES[name]](
+                dev, work_dir, card)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {name}: {e}")
+            return 1
+        seconds = time.perf_counter() - t0
+        results[name] = {"summary": summary, "counts": counts,
+                         "seconds": seconds}
+        print(f"phase {name}: {seconds!r} s (beside the main process)")
+    with open(out_path, "w") as f:
+        json.dump(results, f, allow_nan=False)
+    return 0
+
+
+class BackgroundPhases:
+    """``background_child`` on ``names`` in a subprocess (a session of its
+    own, so every process it starts stops with it), its output in
+    ``<work_dir>/background-<names>.log``; ``result`` waits for it, echoes
+    its output and returns each phase's record."""
+
+    def __init__(self, names, work_dir):
+        self.label = "+".join(names)
+        os.makedirs(work_dir, exist_ok=True)
+        self.out_path = os.path.join(work_dir, f"background-{self.label}"
+                                               f".json")
+        self.log_path = os.path.join(work_dir, f"background-{self.label}"
+                                               f".log")
+        env = {k: v for k, v in os.environ.items() if k != "CGNN_TPU_FAULTS"}
+        self._log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", "-c", BACKGROUND, work_dir,
+             self.out_path, *names],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=self._log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        _BACKGROUND.append(self)
+
+    def kill(self) -> None:
+        """The subprocess and everything it started, stopped."""
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+        self._log.close()
+
+    def result(self, timeout) -> dict:
+        """Wait at most ``timeout`` s -> {phase: {"summary", "counts",
+        "seconds"}}; the subprocess's output echoed first."""
+        try:
+            rc = self.proc.wait(timeout=max(timeout, 1.0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.kill()
+        wall = time.perf_counter() - self.t0
+        with open(self.log_path) as f:
+            sys.stdout.write(f.read())
+        print(f"background {self.label}: exit {rc} after {wall!r} s")
+        check(rc == 0, f"background {self.label}: exited {rc}"
+                       + (" (past its time)" if rc is None else ""))
+        with open(self.out_path) as f:
+            return json.load(f)
 
 
 def timed(name, phase, *args):
@@ -8209,8 +8765,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
-    _build.build(["fused_cgconv", "fused_epilogue", "neighbor_search",
-                  "segment_sum", "windowed_gather"])
+    _build.build(KERNEL_SOURCES)
     print(f"kernel build: {time.perf_counter() - t0!r} s")
     for name, info in _build.build_info.items():
         for line in info["log"].splitlines():
@@ -8244,6 +8799,37 @@ def main() -> int:
                      calibration)
     kernels += timed("bf16_kernel", bf16_kernel_phase, dev, split[0],
                      calibration, shape_set)
+    try:
+        return finish(dev, work_dir, card, calibration, split, kernels,
+                      t_start)
+    finally:
+        for b in _BACKGROUND:
+            b.kill()
+
+
+# the phases of each process beside the main one (BackgroundPhases):
+# those that make no shared file first, the rest once this process has
+# made the caches they read (dpd_inputs)
+BACKGROUND_GROUPS = (("force_task",),
+                     ("checkpoint_predict", "observe_capture"))
+BACKGROUND_ON_CACHES = (("graph_shards",), ("dp_driver_legs",))
+
+
+def finish(dev, work_dir, card, calibration, split, kernels, t_start):
+    """main's phases after the kernel phases: those that compare no rate
+    side by side (three processes beside this one, which runs the
+    in-process serving and training phases meanwhile), then the rest,
+    each alone on the card -> main's exit code."""
+    import torch
+
+    from cgnn_tpu_torch.ops import _build
+
+    t_block = time.perf_counter()
+    beside = [BackgroundPhases(names, work_dir)
+              for names in BACKGROUND_GROUPS]
+    dpd_inputs(work_dir)  # the caches graph_shards and dp_driver read
+    beside += [BackgroundPhases(names, work_dir)
+               for names in BACKGROUND_ON_CACHES]
     hm_summary, hm_counts = timed("heads_modes", heads_modes_phase, dev,
                                   work_dir, card, calibration)
     bp_summary, bp_counts = timed("bf16_paths", bf16_paths_phase, dev,
@@ -8254,25 +8840,36 @@ def main() -> int:
                                                   split, work_dir)
     traj, epi_counts = timed("trajectory", trajectory_phase, dev, split[0],
                              split[1], node_cap)
+    coo_train, coo_train_counts, coo_weights = timed(
+        "train_coo", train_coo_phase, dev, split, work_dir)
+    coo_serve, coo_breakdown, coo_serve_counts = timed(
+        "serve_coo", serve_coo_phase, dev, calibration, coo_weights)
+    dt_summary, dt_counts = timed(
+        "serve_devices_tiers", serve_devices_tiers_phase, dev, work_dir,
+        card, split, calibration, coo_weights)
+    done = {}
+    for b in beside:
+        done.update(b.result(HANG_DUMP_S - 60
+                             - (time.perf_counter() - t_start)))
+    print(f"phase side_by_side: {time.perf_counter() - t_block!r} s")
+    gs_summary, gs_counts = (done["graph_shards"][k]
+                             for k in ("summary", "counts"))
+    dpd_legs, dpd_legs_counts = (done["dp_driver_legs"][k]
+                                 for k in ("summary", "counts"))
+    force_summary, force_counts = (done["force_task"][k]
+                                   for k in ("summary", "counts"))
+    ckpt_summary, ckpt_counts = (done["checkpoint_predict"][k]
+                                 for k in ("summary", "counts"))
+    cap_summary = done["observe_capture"]["summary"]
+    # then each phase alone on the card: their rates, and the breakdowns'
     breakdowns = [train_breakdown(dev, split[0], "kernel path",
                                   cgconv_impl="pallas"),
                   train_breakdown(dev, split[0], "plain path"),
                   train_breakdown(dev, split[0], "COO kernel path",
                                   dense_m=0, aggregation=COO_AGG)]
-    coo_train, coo_train_counts, coo_weights = timed(
-        "train_coo", train_coo_phase, dev, split, work_dir)
-    coo_serve, coo_breakdown, coo_serve_counts = timed(
-        "serve_coo", serve_coo_phase, dev, calibration, coo_weights)
-    # early in the process, with the other in-process traced bursts: late
-    # in the long process a burst's trace has lost a kernel record
-    dt_summary, dt_counts = timed(
-        "serve_devices_tiers", serve_devices_tiers_phase, dev, work_dir,
-        card, split, calibration, coo_weights)
     obs_summary, obs_counts = timed("observe", observe_phase, dev, work_dir,
                                     card)
-    ckpt_summary, ckpt_counts = timed("checkpoint_predict",
-                                      checkpoint_predict_phase, dev,
-                                      work_dir, card)
+    obs_summary["capture"] = cap_summary
     cif_summary, cif_counts, cif_breakdowns = timed(
         "cif_pipeline", cif_pipeline_phase, dev, work_dir, card, calibration)
     dl_summary, dl_counts = timed("data_layer", data_layer_phase, dev,
@@ -8284,17 +8881,14 @@ def main() -> int:
                                     work_dir, split, mp_split)
     dp_summary, dp_counts = timed("data_parallel", data_parallel_phase, dev,
                                   work_dir, card)
-    gs_summary, gs_counts = timed("graph_shards", graph_shards_phase, dev,
-                                  work_dir, card)
     dpd_summary, dpd_counts = timed(
         "dp_driver", dp_driver_phase, dev, work_dir, card,
         dp_summary["train_structures_per_s"]["two_ranks_one_card"])
+    dpd_summary = {**dpd_legs, **dpd_summary,
+                   "legs_wall_s": dpd_legs["wall_s"]}
+    dpd_counts.update(dpd_legs_counts)
     http_summary, http_counts = timed("serve_http", serve_http_phase, dev,
                                       work_dir, card)
-    # last: its paths launch no kernel but oc20_train's, and an in-process
-    # server burst's trace lost a kernel record when it ran before them
-    force_summary, force_counts = timed("force_task", force_task_phase, dev,
-                                        work_dir, card)
     # item 13's probe: the early raw tiers burst again, last
     late_summary, late_counts = timed("tiers_raw_late", tiers_raw_late_phase,
                                       dev, work_dir, calibration)

@@ -65,6 +65,7 @@ from cgnn_tpu_torch.train.normalizer import Normalizer
 from cgnn_tpu_torch.train.step import make_train_step
 from test_torch_cgconv import _ORDER, _inputs
 from test_torch_predict import CFG
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 F, M = 16, 8
 SMALL = dict(atom_fea_len=F, n_conv=2, h_fea_len=24)

@@ -17,6 +17,7 @@ from cgnn_tpu.data.graph import pack_graphs
 from cgnn_tpu.ops import pallas_cgconv as jops
 from cgnn_tpu_torch.ops import _build
 from cgnn_tpu_torch.ops import fused_cgconv as tops
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 F, M = 16, 8
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -55,6 +55,7 @@ from test_torch_train import (
     _port_model,
     _trajectory_batches,
 )
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 
 def jax_and_port_states(optim="sgd", **opt_kw):

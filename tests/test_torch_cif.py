@@ -16,6 +16,7 @@ from cgnn_tpu.data import synthetic as jsynthetic
 from cgnn_tpu.data.structure import Structure as JStructure
 from cgnn_tpu_torch.data import cif as tcif
 from cgnn_tpu_torch.data.structure import Structure
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "cif")
 CORPUS = sorted(os.listdir(FIXTURES))

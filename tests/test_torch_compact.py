@@ -26,6 +26,7 @@ from cgnn_tpu_torch.serve import shapes as tshapes
 from cgnn_tpu_torch.serve.server import InferenceServer, load_server
 from cgnn_tpu_torch.train import infer as tinfer
 from test_torch_predict import B, CFG, M, TOL, ckpt, models  # noqa: F401
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 EDGE_ATOL = 2e-6  # the reference's bound on expanded edge features
 INT_FIELDS = ("atom_idx", "neighbors", "edge_mask", "node_graph",

@@ -59,6 +59,7 @@ from cgnn_tpu_torch.serve import shapes as tshapes
 from cgnn_tpu_torch.train import state as tstate
 from cgnn_tpu_torch.train.normalizer import Normalizer
 from cgnn_tpu_torch.train.step import make_train_step
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 M = 8

@@ -58,6 +58,7 @@ from test_torch_parallel import (
     _variables,
     _wait_all,
 )
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 REL = 1e-5
 RANK_TIMEOUT_S = 300

@@ -57,6 +57,7 @@ from test_torch_train import (
     _jax_variables,
     _port_model,
 )
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 REL = 1e-5  # per-epoch metrics, the JAX package's tolerance
 EPOCHS = 3

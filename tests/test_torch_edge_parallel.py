@@ -64,6 +64,7 @@ from cgnn_tpu_torch.parallel import edge_parallel as tep
 from cgnn_tpu_torch.train.normalizer import Normalizer
 from cgnn_tpu_torch.train.state import TrainState, make_optimizer
 from cgnn_tpu_torch.train.step import make_eval_step, make_train_step
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 M = 8

@@ -32,6 +32,7 @@ from cgnn_tpu_torch.train.__main__ import main as port_train
 from test_torch_resume import ROOT, _run
 from test_torch_resume import jax_numpy_backend  # noqa: F401 (a fixture)
 from test_torch_trajectory import MD
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 FORCE_CLI = ["--task", "force", "--device", "cpu", "--md-atoms", "6",
              "--radius", "5", "--max-num-nbr", "8", "--n-conv", "2",

@@ -64,6 +64,7 @@ from cgnn_tpu_torch.ops import scatter
 from cgnn_tpu_torch.ops import segment as tsegment
 from cgnn_tpu_torch.train.force_step import force_loss
 from cgnn_tpu_torch.train.normalizer import Normalizer
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 M = 8
 RADIUS = 5.0

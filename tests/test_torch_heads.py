@@ -51,6 +51,7 @@ from cgnn_tpu_torch.train.step import (
     regression_loss,
 )
 from test_torch_resume import jax_numpy_backend  # noqa: F401 (a fixture)
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 M = 8
 SMALL = dict(atom_fea_len=16, n_conv=2, h_fea_len=24)

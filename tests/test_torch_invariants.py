@@ -40,6 +40,7 @@ from cgnn_tpu_torch.data import compact as tcompact
 from cgnn_tpu_torch.data import graph as tgraph
 from cgnn_tpu_torch.data import invariants as tinv
 from cgnn_tpu_torch.data.cache import load_graph_cache, save_graph_cache
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = FeaturizeConfig(radius=5.0, max_num_nbr=8)

@@ -52,6 +52,7 @@ from test_torch_driver import (
 )
 from test_torch_train import SMALL, JNet
 from test_torch_train import M as TRAIN_M
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 CFG = FeaturizeConfig(radius=6.0, max_num_nbr=12)
 M = 12

@@ -16,11 +16,11 @@ with the port's ``parse_prometheus_text``:
   server's own families are those of planes the port has not ported
   (peer cache fill, item 12), the port's own its flush-failure, reload
   and per-tier batch counters;
-- the gauge names are the JAX server's less those of the unported
-  planes (``slo_*``, ``tsdb_*``, ``flightrec_*``, ``profile_*``,
-  ``observe_trace_*``; the two the cache rollup derives from peer cache
-  fill), and the gauges that do not read a clock have the
-  same values, each rung's edge occupancy among them;
+- the gauge names are the JAX server's (the SLO engine's, the
+  time-series store's and the trace ring's among them) less the two the
+  cache rollup derives from peer cache fill, and the gauges that do not
+  read a clock have the same values, each rung's edge occupancy among
+  them (the store's fill follows its collector's clock);
 - the latency, queue-wait and occupancy histograms and the rolling
   summaries count the same observations (their values are times);
 - the counters equal ``stats()``'s counts.
@@ -53,11 +53,9 @@ from cgnn_tpu_torch.serve.batcher import ServeRejection
 from cgnn_tpu_torch.serve.http import make_http_server
 from cgnn_tpu_torch.serve.server import load_server
 from test_torch_serve_http import _jgraph, _quiet, checkpoints  # noqa: F401
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
-# planes of the JAX server the port has not ported (ROADMAP Queue 1,
-# items 11-12): their gauges are absent from the port's registry
-UNPORTED = re.compile(r"^cgnn_(slo|tsdb|flightrec|profile|observe_trace)_")
 TIMED = {"cgnn_pipeline_pack_s_total", "cgnn_pipeline_wait_s_total"}
 # the JAX server's counters of peer cache fill (item 12), and the gauges
 # its cache rollup derives from them
@@ -73,8 +71,9 @@ PORT_ONLY = re.compile(r"^cgnn_serve_(batch_failures|reloads|batches_f32)"
 JAX_LAZY = {f"cgnn_serve_{k}_total" for k in (
     "pack_raw", "pack_compact", "pack_full", "responses_raw",
     "ingest_cap_overflow")}
-# gauges whose value reads a clock or the run's timing
-CLOCKED = re.compile(r"_(s|ms)$|pipeline_")
+# gauges whose value reads a clock or the run's timing (the store's
+# fill: the collector's ticks)
+CLOCKED = re.compile(r"_(s|ms)$|pipeline_|^cgnn_tsdb_")
 
 
 def _scrape(httpd):
@@ -178,8 +177,7 @@ def test_metrics_match_the_jax_server(checkpoints, monkeypatch, tmp_path,
             assert _value(got[name]) == v, k
 
     got_g, want_g = _families(text, "gauge"), _families(jtext, "gauge")
-    assert set(got_g) == {n for n in want_g if not UNPORTED.match(n)
-                          and n not in JAX_ONLY_GAUGES}
+    assert set(got_g) == set(want_g) - JAX_ONLY_GAUGES
     assert "cgnn_ingest_rung0_edge_occupancy" in got_g
     for name in got_g:
         if not CLOCKED.search(name):

@@ -17,6 +17,7 @@ from cgnn_tpu.ops.pallas_cgconv import interpret_mode
 from cgnn_tpu_torch import convert
 from cgnn_tpu_torch.config import DataConfig, ModelConfig, build_model
 from cgnn_tpu_torch.data.graph import CrystalGraph, pack_graphs
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 M = 8
 SMALL = dict(atom_fea_len=16, n_conv=2, h_fea_len=24)

@@ -74,6 +74,7 @@ from test_torch_train import (
     _port,
     _port_model,
 )
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 # dyadic values: their sums are exact, so merged and pooled agree bitwise
 OBS = [0.125, 0.5, 3.0, 17.25, 250.0, 0.0625, 99999.0, 1.5, float("nan"),

@@ -51,6 +51,7 @@ from cgnn_tpu_torch.parallel.data_parallel import (
     stack_batches,
 )
 from cgnn_tpu_torch.resilience.faultinject import poison_nan
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 M = 8

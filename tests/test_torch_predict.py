@@ -50,6 +50,7 @@ from cgnn_tpu_torch.train.checkpoint import CheckpointManager
 from cgnn_tpu_torch.train.normalizer import Normalizer
 from cgnn_tpu_torch.train.step import InferenceState
 from test_torch_rawwire import _port_graph
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 M = 8
 SMALL = dict(atom_fea_len=16, n_conv=2, h_fea_len=24)

@@ -57,6 +57,7 @@ from test_torch_serve_entry import (
     _statuses_until_ready,
     _wait,
 )
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 CFG = FeaturizeConfig(radius=5.0, max_num_nbr=8)
 SMALL = dict(atom_fea_len=16, n_conv=2, h_fea_len=24)

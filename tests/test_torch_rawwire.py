@@ -11,6 +11,7 @@ every answer equal to the featurized answer of the same structure."""
 
 import threading
 import types
+from unittest import mock
 
 import jax
 import numpy as np
@@ -50,8 +51,16 @@ NORM = ([1.5], [2.0])
 
 
 def _jax_graphs(items):
-    return [jfeaturize(s, t, CFG, sid, keep_geometry=True)
-            for sid, s, t in items]
+    """The JAX package's graphs on its numpy neighbor search: ``CASES``
+    is built while the module is imported, in every xdist worker at once,
+    and the native search would make each of them compile the JAX native
+    library into one shared path."""
+    import cgnn_tpu.native
+
+    with mock.patch.object(cgnn_tpu.native, "neighbor_search_native",
+                           lambda *a, **k: None):
+        return [jfeaturize(s, t, CFG, sid, keep_geometry=True)
+                for sid, s, t in items]
 
 
 def _port_graph(g) -> CrystalGraph:

@@ -97,6 +97,7 @@ from test_torch_driver import (  # noqa: F401 — setup is a fixture
     setup,
 )
 from test_torch_train import M, SMALL
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 UPDATE_RTOL = 1e-6  # a cut SGD update against half the full one (f32)

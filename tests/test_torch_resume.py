@@ -59,6 +59,7 @@ from test_torch_train import (
     _port,
     _port_model,
 )
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -22,6 +22,7 @@ from cgnn_tpu.train.loop import ScanEpochDriver as JDriver
 from cgnn_tpu_torch.data.graph import CrystalGraph
 from cgnn_tpu_torch.data.graph import pack_graphs as tpack_graphs
 from cgnn_tpu_torch.train.loop import ScanEpochDriver
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 CFG = FeaturizeConfig(radius=6.0, max_num_nbr=12)
 EPOCHS = 10

@@ -29,6 +29,7 @@ from cgnn_tpu.ops import neighbor_search as jns
 from cgnn_tpu_torch.data import rawbatch as tr
 from cgnn_tpu_torch.ops import neighbor_search as tns
 from test_torch_rawwire import CASES, _port_raw, _port_spec
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 
 def test_sqrt_rn_is_correctly_rounded_on_a_million_values():

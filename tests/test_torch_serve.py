@@ -26,6 +26,7 @@ from cgnn_tpu_torch.data.graph import CrystalGraph
 from cgnn_tpu_torch.serve import batcher as tbatcher
 from cgnn_tpu_torch.serve import shapes as tshapes
 from cgnn_tpu_torch.serve.server import load_server, structure_featurizer
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 M = 8
 SMALL = dict(atom_fea_len=16, n_conv=2, h_fea_len=24)

@@ -34,6 +34,7 @@ from cgnn_tpu_torch.data.rawbatch import raw_fingerprint
 from cgnn_tpu_torch.data.synthetic import synthetic_dataset
 from cgnn_tpu_torch.serve import cache as tcache
 from cgnn_tpu_torch.serve.server import load_server, structure_featurizer
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 M = 8
 

@@ -8,9 +8,11 @@ boot, readiness, drain and exit-code contract of ``serve.py``):
   request is still answered, and the drain exits 75;
 - ``wedge_flush=0`` with a 1 s ``--drain-timeout``: SIGTERM, the drain
   times out and the process exits 3 with the unanswered count;
-- a flag whose module is not ported exits 2 naming its ROADMAP item, as
-  do an unknown precision tier, more devices than exist (never clamped)
-  and a directory without a checkpoint; without a card the default
+  the flight recorder's ``drain_force_exit`` bundle is written first;
+- ``--journal`` (not ported) exits 2 naming its ROADMAP item, as do an
+  unknown precision tier, more devices than exist (never clamped) and a
+  directory without a checkpoint; serve.py's profiling, SLO and
+  trace-ring flags reach ``load_server``; without a card the default
   device raises.
 """
 
@@ -164,6 +166,16 @@ def test_wedged_flush_drain_times_out_with_3(ckpt):
     assert _wait(proc) == 3
     log = open(proc.log_path).read()
     assert "1 accepted request(s) unanswered" in log, log[-3000:]
+    # the flight recorder (--flightrec-dir auto: CKPT_DIR/flightrec)
+    # wrote the forced exit's bundle before the exit
+    frdir = os.path.join(ckpt.dir, "flightrec")
+    bundles = [d for d in os.listdir(frdir)
+               if d.endswith("-drain_force_exit")]
+    assert len(bundles) == 1, os.listdir(frdir)
+    manifest = json.load(open(os.path.join(frdir, bundles[0],
+                                           "manifest.json")))
+    assert manifest["reason"] == "drain_force_exit"
+    assert "1 unanswered" in manifest["detail"]
 
 
 def test_boot_crash_dies_once_then_boots(ckpt):
@@ -184,15 +196,35 @@ def test_boot_crash_dies_once_then_boots(ckpt):
     (["--precision", "f32,fp4"], "unknown precision tier"),
     (["--devices", "4"], "local device(s) exist"),
     (["--devices", "0"], "--devices must be >= 1"),
-    (["--profile-dir", "x"], "item 11"),
-    (["--slo-target", "0.99"], "item 11"),
-    (["--trace-ring", "4096"], "item 11"),
     (["--journal", "j.jsonl"], "item 12"),
     (["--compile-cache", "/tmp/x"], "no counterpart"),
 ])
 def test_unported_flags_exit_2(ckpt, capsys, flag, item):
     assert serve_main([ckpt.dir, "--device", "cpu", *flag]) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag, check", [
+    (["--profile-dir", "x"], lambda kw: kw["profile_dir"] == "x"),
+    (["--slo-target", "0.99"],
+     lambda kw: kw["slo_objectives"][0].target == 0.99
+     and kw["slo_layer"] and kw["slo_rules"] is None),
+    (["--trace-ring", "4096"], lambda kw: kw["trace_ring"] == 4096),
+])
+def test_observe_flags_reach_the_server(ckpt, monkeypatch, flag, check):
+    """serve.py's profiling, SLO and trace-ring flags are served: each
+    reaches ``load_server`` (stopped there, before a server boots)."""
+    import cgnn_tpu_torch.serve.server as server_mod
+
+    seen = {}
+
+    def fake_load_server(path, **kw):
+        seen.update(kw)
+        raise FileNotFoundError("stopped before the boot")
+
+    monkeypatch.setattr(server_mod, "load_server", fake_load_server)
+    assert serve_main([ckpt.dir, "--device", "cpu", *flag]) == 2
+    assert check(seen), seen
 
 
 def test_missing_checkpoint_exits_2(ckpt, capsys):

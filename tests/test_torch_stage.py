@@ -15,6 +15,7 @@ from cgnn_tpu.train import loop as jloop
 from cgnn_tpu_torch.data import compact as tcompact
 from cgnn_tpu_torch.data import graph as tgraph
 from cgnn_tpu_torch.train import loop as tloop
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 CFG = FeaturizeConfig(radius=6.0, max_num_nbr=12)
 M = 12

@@ -19,7 +19,8 @@ point's ``--telemetry``/``--log-dir``/``--live-metrics``) on the CPU.
   record an optimizer step; at ``off`` nothing; ``--live-metrics``
   appends ``metrics_live.jsonl``; a preempted run (exit 75) still
   flushes its files; ``--resume auto`` resumes from a directory that
-  holds ``logs/``; ``--profile`` exits 2.
+  holds ``logs/``; ``--profile N`` writes a profiler trace into the log
+  dir.
 - Two gloo ranks fed the same batches (a data-parallel step on replicated
   batches is the one-process step: a sum of two equal values halved is
   exact): process 0's step records equal, key for key, those of one
@@ -61,6 +62,7 @@ from test_torch_parallel import (
 )
 from test_torch_train import SMALL, JNet, M, _graphs, _jax_variables, \
     _port_model
+from test_torch_train import jax_search_on_numpy  # noqa: F401 — autouse
 
 EPOCHS = 3
 SGD = dict(lr=0.05, momentum=0.9)
@@ -302,10 +304,14 @@ def test_entry_point_step_level_and_off(tmp_path, capsys):
                                               "ckpt-00000001"]
 
 
-def test_entry_point_refuses_profile(tmp_path, capsys):
-    assert train_main(_argv(tmp_path, "--profile", "3")) == 2
-    assert "not ported yet (ROADMAP Queue 1, item 11)" in \
-        capsys.readouterr().err
+def test_entry_point_profiles(tmp_path, capsys):
+    assert train_main(_argv(tmp_path, "--profile", "3")) == 0
+    logs = tmp_path / "ck" / "logs"
+    traces = [f for f in os.listdir(logs) if f.startswith("profile-")]
+    assert len(traces) == 1, os.listdir(logs)
+    doc = json.load(open(logs / traces[0]))
+    assert doc["traceEvents"]
+    assert "profiler trace written to" in capsys.readouterr().out
 
 
 def test_preempted_run_flushes_its_telemetry(tmp_path):

@@ -60,6 +60,22 @@ from cgnn_tpu_torch.train.step import make_train_step, regression_loss
 
 ROOT = Path(__file__).resolve().parents[1]
 M = 8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_search_on_numpy():
+    """The JAX package's neighbor search on its numpy backend for the
+    whole module (the port's search is bit-equal to it): a module that
+    imports this fixture needs no JAX native library, whose first build
+    from several xdist workers at once can leave one of them without it
+    (ROADMAP Queue 3, item 20)."""
+    import cgnn_tpu.native
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cgnn_tpu.native, "neighbor_search_native",
+                   lambda *a, **k: None)
+        yield
+
 SMALL = dict(atom_fea_len=16, n_conv=2, h_fea_len=24)
 AGG_TOL = dict(rtol=2e-5, atol=2e-5)
 STAT_TOL = dict(rtol=1e-4, atol=1e-5)
